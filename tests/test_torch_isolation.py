@@ -1,0 +1,48 @@
+"""The port stands alone: importing every module of `vmlmf_tpu_torch` pulls
+in neither JAX nor the JAX package, and `chip_smoke.py` refuses to run
+without a CUDA device."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import vmlmf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vmlmf_tpu_torch.__path__, "vmlmf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vmlmf_tpu"))
+print(len(names), bad)
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+def test_port_imports_no_jax(tmp_path):
+    out = _run(["-c", IMPORT_ALL], tmp_path)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.split(maxsplit=1)
+    assert int(count) >= 12
+    assert bad.strip() == "[]"
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    out = _run([os.path.join(ROOT, "chip_smoke.py")], tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

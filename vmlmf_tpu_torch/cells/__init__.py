@@ -1,0 +1,2 @@
+from vmlmf_tpu_torch.cells.base import Cell, lstm_update, reinit_uniform  # noqa: F401
+from vmlmf_tpu_torch.cells.vmlmf import VMLMFCell  # noqa: F401

@@ -1,0 +1,91 @@
+"""Cell protocol shared by the port's cells (counterpart of `vmlmf_tpu.cells.base`).
+
+A cell is a frozen dataclass of static sizes with functions over a parameter
+dict of tensors:
+
+  init(generator, device) -> params        dict of tensors
+  prepare(params)         -> prep          params + weight-only precomputes
+  inp(prep, xs)           -> gi [..., 4h]  time-parallel input contribution
+  step(prep, gi_t, s)     -> (s', h)       serial recurrent part
+  state0(batch, device)   -> s
+
+Parameters are made on the CPU from an explicit `torch.Generator` and then
+moved, so a seed gives the same weights whatever the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from vmlmf_tpu_torch.utils.device import resolve_device
+
+
+def normal_init(generator, shape, scale=0.1, dtype=torch.float32):
+    """0.1 * N(0,1), the weight init of the HAR-family cells (on the CPU)."""
+    return scale * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+def uniform_init(generator, shape, bound, dtype=torch.float32):
+    """U(-bound, bound), the LM whole-model reset (on the CPU)."""
+    return (torch.rand(shape, generator=generator, dtype=dtype) * 2 - 1) * bound
+
+
+def reinit_uniform(params, generator, bound):
+    """Every tensor of a (nested dict / list) param tree redrawn from U(-bound, bound).
+
+    Leaves are visited depth-first in key order, and each keeps its device.
+    """
+    if isinstance(params, dict):
+        return {k: reinit_uniform(v, generator, bound) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(reinit_uniform(v, generator, bound) for v in params)
+    return uniform_init(generator, params.shape, bound, params.dtype).to(params.device)
+
+
+def lstm_update(pre, c):
+    """LSTM gates and state update; ``pre [..., 4h]`` in (i, f, g, o) order."""
+    i, f, g, o = pre.chunk(4, dim=-1)
+    c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_next = torch.sigmoid(o) * torch.tanh(c_next)
+    return h_next, c_next
+
+
+def pad_features(x, size):
+    """Zero-pad (or truncate) the trailing feature dim of x to `size`.
+
+    The diagonal "vm" term is defined over min(n, h) features.
+    """
+    n = x.shape[-1]
+    if n == size:
+        return x
+    if n > size:
+        return x[..., :size]
+    return torch.nn.functional.pad(x, (0, size - n))
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """Base class: static sizes + the functional protocol."""
+
+    input_size: int
+    hidden_size: int
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        raise NotImplementedError
+
+    def prepare(self, params):
+        return params
+
+    def state0(self, batch, device="cuda", dtype=torch.float32):
+        dev = resolve_device(device)
+        shape = (batch, self.hidden_size)
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
+    def inp(self, prep, xs):
+        raise NotImplementedError
+
+    def step(self, prep, gi_t, state):
+        raise NotImplementedError

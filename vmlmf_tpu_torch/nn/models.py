@@ -1,0 +1,88 @@
+"""The word-level LM (counterpart of `vmlmf_tpu.nn.models.LMModel`)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from vmlmf_tpu_torch.cells.base import reinit_uniform
+from vmlmf_tpu_torch.nn.layers import Dense, Embed, dropout
+from vmlmf_tpu_torch.nn.recurrence import RNN, scan_layer
+
+
+@dataclasses.dataclass(frozen=True)
+class LMModel:
+    """Word-level LM: Embed -> dropout -> (RNN layer -> dropout)×N -> Linear.
+
+    Sequences are time-major ``[T, B]``; the state is carried explicitly.
+    Parameters are a dict ``{"embed": {"w"}, "rnn": [cell dicts], "fc":
+    {"w", "b"}}`` with the JAX package's keys and layouts (``fc`` holds only
+    ``b`` when the embeddings are tied).
+    """
+
+    vocab_size: int
+    hidden_size: int = 650
+    num_layers: int = 2
+    cell_factory: dataclasses.InitVar = None
+    dropout_rate: float = 0.5
+    winit: float = 0.05
+    tie_embeddings: bool = False
+    backend: str = "fused"
+
+    def __post_init__(self, cell_factory):
+        object.__setattr__(self, "embed", Embed(self.vocab_size, self.hidden_size))
+        cells = tuple(
+            cell_factory(self.hidden_size, self.hidden_size) for _ in range(self.num_layers)
+        )
+        object.__setattr__(self, "rnn", RNN(cells, backend=self.backend))
+        object.__setattr__(self, "fc", Dense(self.hidden_size, self.vocab_size))
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        """Parameters from ``generator`` (a CPU `torch.Generator`), on ``device``.
+
+        Every leaf, biases included, is then redrawn from U(-winit, winit),
+        the whole-model reset of the LM.
+        """
+        params = {
+            "embed": self.embed.init(generator, device, dtype),
+            "rnn": self.rnn.init(generator, device, dtype),
+            "fc": self.fc.init(generator, device, dtype),
+        }
+        params = reinit_uniform(params, generator, self.winit)
+        if self.tie_embeddings:
+            del params["fc"]["w"]  # the head weight is embed.w transposed
+        return params
+
+    def state0(self, batch, device="cuda", dtype=torch.float32):
+        return self.rnn.state0(batch, device, dtype)
+
+    def _logits(self, params, x):
+        w = params["embed"]["w"].T if self.tie_embeddings else params["fc"]["w"]
+        return x @ w + params["fc"]["b"]
+
+    def apply(self, params, ids, states, *, generator=None, train=False):
+        """ids: [T, B] int -> (logits [T, B, V], new_states)."""
+        x, new_states = self.apply_hidden(params, ids, states, generator=generator,
+                                          train=train)
+        return self._logits(params, x), new_states
+
+    def apply_hidden(self, params, ids, states, *, generator=None, train=False):
+        """`apply` minus the head: -> (hidden sequence [T, B, H], new_states)."""
+        x = self.embed(params["embed"], ids)
+        return self.hidden_from_embedded(params, x, states, generator=generator,
+                                         train=train)
+
+    def hidden_from_embedded(self, params, x, states, *, generator=None, train=False):
+        """`apply_hidden` from a pre-embedded ``x [T, B, H]``.
+
+        In train mode, dropout masks come from ``generator`` (on x's device):
+        one after the embedding and one after each layer.
+        """
+        x = dropout(x, self.dropout_rate, generator=generator, train=train)
+        new_states = []
+        for cell, p, s in zip(self.rnn.cells, params["rnn"], states):
+            x, sf = scan_layer(cell, cell.prepare(p), x, s, backend=self.backend)
+            new_states.append(sf)
+            x = dropout(x, self.dropout_rate, generator=generator, train=train)
+        return x, new_states

@@ -1,0 +1,89 @@
+"""Recurrence execution: stacked cells over time (counterpart of
+`vmlmf_tpu.nn.recurrence`).
+
+Two backends, the same function:
+  * "loop"  — the time-parallel ``cell.inp`` for all T, then a Python loop of
+    ``cell.step`` (the JAX package's "xla" backend, a `lax.scan` there);
+  * "fused" — the whole LSTM scan in one call of
+    `vmlmf_tpu_torch.ops.cuda_scan.lstm_scan_fused_xin`, which launches the
+    CUDA kernel on CUDA tensors (the JAX package's "pallas" backend).
+
+Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
+input with ``time_major=False``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from vmlmf_tpu_torch.ops.cuda_scan import lstm_scan_fused_xin
+
+BACKENDS = ("loop", "fused")
+
+
+def _check_backend(backend):
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+
+
+def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
+    """Run one cell over time-major ``xs [T, B, n]`` -> (ys [T, B, h], state).
+
+    backend="fused" needs a cell with `fused_rec_inputs` and `fused_x_inputs`
+    (the LSTM family) and raises for any other.
+    """
+    _check_backend(backend)
+    if backend == "fused":
+        if not (hasattr(cell, "fused_rec_inputs") and hasattr(cell, "fused_x_inputs")):
+            raise ValueError(f"backend='fused' has no kernel for {type(cell).__name__}")
+        src = torch.flip(xs, (0,)) if reverse else xs
+        h0, c0 = state0
+        ys, c_last = lstm_scan_fused_xin(
+            src.contiguous(), *cell.fused_x_inputs(prep), *cell.fused_rec_inputs(prep),
+            h0.contiguous(), c0.contiguous())
+        h_last = ys[-1]
+        if reverse:
+            ys = torch.flip(ys, (0,))
+        return ys, (h_last, c_last)
+
+    gi = cell.inp(prep, xs)  # [T, B, 4h], time-parallel
+    state = state0
+    steps = range(xs.shape[0] - 1, -1, -1) if reverse else range(xs.shape[0])
+    ys = [None] * xs.shape[0]
+    for t in steps:
+        state, ys[t] = cell.step(prep, gi[t], state)
+    return torch.stack(ys), state
+
+
+@dataclasses.dataclass(frozen=True)
+class RNN:
+    """A stack of cells, one per layer; layer i consumes layer i-1's outputs."""
+
+    cells: tuple
+    backend: str = "fused"
+
+    def __post_init__(self):
+        _check_backend(self.backend)
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        return [c.init(generator, device, dtype) for c in self.cells]
+
+    def state0(self, batch, device="cuda", dtype=torch.float32):
+        return [c.state0(batch, device, dtype) for c in self.cells]
+
+    def __call__(self, params, xs, states=None, *, time_major=False, reverse=False):
+        """-> (ys, final_states); ys in the same layout as xs."""
+        if not time_major:
+            xs = xs.transpose(0, 1)
+        if states is None:
+            states = self.state0(xs.shape[1], xs.device, xs.dtype)
+        finals = []
+        for cell, p, s0 in zip(self.cells, params, states):
+            xs, sf = scan_layer(cell, cell.prepare(p), xs, s0, reverse=reverse,
+                                backend=self.backend)
+            finals.append(sf)
+        if not time_major:
+            xs = xs.transpose(0, 1)
+        return xs, finals

@@ -6,22 +6,36 @@
 Phases, each of which exits non-zero when it fails:
   1. device  — the card's name and power limit (nvidia-smi); TF32 off.
   2. build   — nvcc builds every kernel under vmlmf_tpu_torch/csrc at once.
-  3. kernels — each kernel against its plain PyTorch version on the card, at
-               the shapes of the main path (the PTB LM layer: T=35, F=h=650,
-               r=rx=300, B in 1/20/128) and at the HAR layer (F < h), with
-               its time, the plain version's time and its roofline bound.
-  4. serve   — the main path: the PTB "medium" LM (vocab 10000, 2x650, VMLMF
-               w300/u300; seeded random weights) served by `Decoder`:
-               prefill of a T=35 prompt at B=20 then 64 greedy tokens,
-               top-k sampling, and beam search. The kernels' launch counts
-               are set to 0 just before and read just after; each prefill
-               must launch the scan kernel once per layer. The fused prefill
-               is held to the loop backend's on the card; then prefill ms
-               and decode tokens/s at B in 1/20/128.
-  5. report  — one JSON line listing every kernel, then the last line
+  3. kernels — each kernel entry against its plain PyTorch version on the
+               card, at the shapes of the main paths (the PTB LM layer: T=35,
+               F=h=650, r=rx=300; the HAR layer: T=24, F=77, h=180, rx=8,
+               r=6, B=81): the no-grad forward at B in 1/20/128, the residual
+               forward and the BPTT at B in 20/128. Each with its time, the
+               plain version's, its roofline bound, and cuDNN's LSTM on the
+               same scan's dense weights (the library yardstick).
+  4. serve   — the PTB "medium" LM (vocab 10000, 2x650, VMLMF w300/u300;
+               seeded random weights) served by `Decoder`: prefill of a T=35
+               prompt at B=20 then 64 greedy tokens, top-k sampling, and beam
+               search; each prefill must launch the no-grad kernel once per
+               layer. The fused prefill is held to the loop backend's; then
+               prefill ms and decode tokens/s at B in 1/20/128.
+  5. train   — the same LM trained by `LMTrainer` (T=35, B=20, dropout 0.5,
+               lr 1.0, clip 5.0) for 30 chunks of a synthetic corpus: the
+               loss must fall, each step must launch the residual forward and
+               the BPTT once per layer, and `perplexity` only the no-grad
+               kernel. At dropout 0 the fused gradients are held to the loop
+               backend's. Then train step ms and words/s at B in 20/128.
+  6. har     — `HARTrainer` on HARNet (77 -> 180, VMLMF w8/u6, 18 classes),
+               B=81, two epochs of synthetic OPP windows: the loss must fall;
+               accuracy, macro-F1 and step ms.
+  7. trace   — one `torch.profiler` trace of an LM train step at B=20: the
+               device time of each kernel, the port's against cuBLAS's.
+  8. report  — one JSON line listing every kernel entry, then the last line
                {"ok": true, "device": {...}}.
 
-Needs one CUDA device and nvcc; imports neither JAX nor the JAX package.
+In phases 4-6 every launch count is set to 0 just before the path runs and
+read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
+JAX package.
 """
 
 from __future__ import annotations
@@ -38,11 +52,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
-TOL = 1e-4  # atol = rtol; f32 sums over K=650 and K=300 in another order, 35 steps
+TOL = 1e-4  # outputs: f32 sums over K=650 and K=300 in another order, 35 steps
+GRAD_TOL = 1e-3  # gradients: weight gradients sum over all T*B rows in another order
 LM = dict(vocab=10000, hidden=650, layers=2, rank=300, prompt=35)
 LM_BATCHES = (1, 20, 128)
+TRAIN_BATCHES = (20, 128)
 MAIN_BATCH = 20
 HAR = dict(t=24, b=81, f=77, h=180, rx=8, r=6)
+TRAIN_CHUNKS = 30
 
 
 def fail(msg):
@@ -64,11 +81,62 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def close(torch, got, want):
-    """-> (ok, max abs error) under atol = rtol = TOL."""
+def close(torch, got, want, tol=TOL):
+    """-> (ok, max abs error) under atol = rtol = tol."""
     err = (got - want).abs()
-    ok = bool(torch.isfinite(got).all()) and bool((err <= TOL + TOL * want.abs()).all())
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.abs()).all())
     return ok, float(err.max())
+
+
+def all_close(torch, gots, wants, tol):
+    """close() over pairs of tensors -> (all ok, largest max abs error)."""
+    checks = [close(torch, g, w, tol) for g, w in zip(gots, wants)]
+    return all(ok for ok, _ in checks), max(e for _, e in checks)
+
+
+def bound(ops, nbytes):
+    """(bound ms, what bounds it) at the card's f32 and memory peaks."""
+    op_ms, byte_ms = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
+def launch_counts():
+    """The launch count of each kernel entry, by name."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    return {"lstm_scan_xin_fwd": cuda_scan.lstm_scan_fused_xin.launches,
+            "lstm_scan_xin_fwd_res": cuda_scan.lstm_scan_fused_xin_res.launches,
+            "lstm_scan_xin_bwd": cuda_scan.lstm_scan_xin_bwd.launches}
+
+
+def reset_launch_counts():
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+               cuda_scan.lstm_scan_xin_bwd):
+        fn.launches = 0
+
+
+def dense_lstm_weights(ux, vx, xdvec, bias, u, v, dvec):
+    """The fused scan's weights as one dense LSTM layer's, in PyTorch's layout
+    and gate order (i, f, g, o): [w_ih [4h, F], w_hh [4h, h], b_ih, b_hh].
+
+    The VMLMF pre-activation is linear in x and in h, so w_ih = (ux@vx)^T
+    plus xdvec[g, j] at [g*h + j, j] for j < min(F, h), w_hh = (u@v)^T plus
+    dvec on each gate's diagonal, b_ih = bias and b_hh = 0. cuDNN's LSTM on
+    these weights computes the same scan: the library yardstick.
+    """
+    import torch
+
+    f, h = ux.shape[0], xdvec.shape[1]
+    w_ih = (ux @ vx).T.contiguous()
+    w_hh = (u @ v).T.contiguous()
+    jx = torch.arange(min(f, h), device=ux.device)
+    jh = torch.arange(h, device=ux.device)
+    for g in range(4):
+        w_ih[g * h + jx, jx] += xdvec[g, : len(jx)]
+        w_hh[g * h + jh, jh] += dvec[g * h : (g + 1) * h]
+    return [w_ih, w_hh, bias.clone(), torch.zeros_like(bias)]
 
 
 def phase_device(torch):
@@ -76,11 +144,14 @@ def phase_device(torch):
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
-          f"torch {torch.__version__}, cuda {torch.version.cuda}")
+          f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"cudnn {torch.backends.cudnn.version()}")
+    return card
 
 
 def phase_build():
@@ -107,47 +178,130 @@ def scan_inputs(torch, t, b, f, h, rx, r, seed=0):
             n(b, h, scale=0.5))
 
 
+def cudnn_lstm(torch, args):
+    """A one-layer `nn.LSTM` (cuDNN) holding the scan's dense weights, flattened
+    once, outside any timed window. Fails unless it computes the same scan."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    xs, h0, c0 = args[0], args[8], args[9]
+    lstm = torch.nn.LSTM(xs.shape[-1], h0.shape[-1]).cuda()
+    with torch.no_grad():
+        for p, w in zip((lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0,
+                         lstm.bias_hh_l0), dense_lstm_weights(*args[1:8])):
+            p.copy_(w)
+    lstm.flatten_parameters()
+    with torch.no_grad():
+        out, (_, c_n) = lstm(xs, (h0[None], c0[None]))
+        ys, c_last = cuda_scan.lstm_scan_fused_xin_plain(*args)
+    ok, err = all_close(torch, (out, c_n[0]), (ys, c_last), GRAD_TOL)
+    if not ok:
+        fail(f"cuDNN's LSTM on the dense weights is not the same scan: max abs err {err}")
+    return lstm, err
+
+
+def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms):
+    bms, by = bound(*cost)
+    print(f"kernel {name} {shape}: max_abs_err {err:.3g} (tol {tol}), {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (cuDNN) {library_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=library_ms)
+
+
 def phase_kernels(torch):
+    """-> {(entry, shape name, B): row} for the kernels line and PERF.md."""
     from vmlmf_tpu_torch.ops import cuda_scan
 
     shapes = [("lm", dict(t=LM["prompt"], b=b, f=LM["hidden"], h=LM["hidden"],
                           rx=LM["rank"], r=LM["rank"])) for b in LM_BATCHES]
     shapes.append(("har", HAR))
     rows = {}
+    print(f"tolerances: outputs and residuals atol = rtol = {TOL} (f32 sums in another "
+          f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order)")
     for name, s in shapes:
+        size = (s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
+        label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx']} "
+                 f"r={s['r']}")
         args = scan_inputs(torch, **s)
+        lstm, lib_err = cudnn_lstm(torch, args)
+        xs, h0, c0 = args[0], args[8], args[9]
+        print(f"library: cuDNN LSTM on the dense weights, {label}: max abs err {lib_err:.3g} "
+              f"against the plain scan")
+
+        # -- the no-grad forward
         ys, c_last = cuda_scan.lstm_scan_fused_xin(*args)
         torch.cuda.synchronize()
-        ys_p, c_p = cuda_scan.lstm_scan_fused_xin_plain(*args)
-        ok_y, err_y = close(torch, ys, ys_p)
-        ok_c, err_c = close(torch, c_last, c_p)
-        err = max(err_y, err_c)
-        ms = cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args), 10)
-        plain_ms = cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_plain(*args), 5)
-        ops, nbytes = cuda_scan.scan_cost(s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
-        op_ms, byte_ms = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
-                   bound_by="operations" if op_ms >= byte_ms else "bytes")
-        print(f"kernel lstm_scan_xin_fwd {name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} "
-              f"rx={s['rx']} r={s['r']}: max_abs_err {err:.3g} (tol {TOL}), {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        if not (ok_y and ok_c):
-            fail(f"lstm_scan_xin_fwd disagrees with its plain version at {name} B={s['b']}: "
-                 f"max abs err {err}")
-        rows[(name, s["b"])] = row
+        ok, err = all_close(torch, (ys, c_last), cuda_scan.lstm_scan_fused_xin_plain(*args), TOL)
+        if not ok:
+            fail(f"lstm_scan_xin_fwd disagrees with its plain version at {label}: {err}")
+
+        def lib_fwd():
+            with torch.no_grad():
+                lstm(xs, (h0[None], c0[None]))
+
+        rows[("lstm_scan_xin_fwd", name, s["b"])] = kernel_row(
+            "lstm_scan_xin_fwd", label, err, TOL,
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args), 10),
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_plain(*args), 5),
+            cuda_scan.scan_cost(*size), cuda_ms(torch, lib_fwd, 10))
+        if name == "lm" and s["b"] not in TRAIN_BATCHES:
+            continue
+
+        # -- the residual forward and the BPTT, with dys given and dc_last
+        # absent, as on the LM's training path
+        res = cuda_scan.lstm_scan_fused_xin_res(*args)
+        torch.cuda.synchronize()
+        res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args)
+        ok, err = all_close(torch, res, res_p, TOL)
+        if not ok:
+            fail(f"lstm_scan_xin_fwd_res disagrees with its plain version at {label}: {err}")
+        dys = 0.1 * torch.randn(ys.shape, generator=torch.Generator().manual_seed(5)).cuda()
+        saved = (*args[:4], *args[5:], *res)
+        grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, None)
+        torch.cuda.synchronize()
+        ok_g, err_g = all_close(torch, grads,
+                                cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None), GRAD_TOL)
+        if not ok_g:
+            fail(f"lstm_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
+
+        leaves = [t.detach().requires_grad_() for t in (xs, h0, c0)]
+
+        def lib_train_fwd():
+            x, h, c = leaves
+            return lstm(x, (h[None], c[None]))
+
+        def lib_train_fwd_bwd():
+            out, _ = lib_train_fwd()
+            torch.autograd.backward(out, dys)
+
+        # backward = (forward + backward) - forward, each the best of three
+        # interleaved windows: the difference of two means is noisy
+        fwd_ms, both_ms = [], []
+        for _ in range(3):
+            fwd_ms.append(cuda_ms(torch, lib_train_fwd, 10))
+            both_ms.append(cuda_ms(torch, lib_train_fwd_bwd, 10))
+        lib_fwd_ms = min(fwd_ms)
+        lib_bwd_ms = min(both_ms) - lib_fwd_ms
+        rows[("lstm_scan_xin_fwd_res", name, s["b"])] = kernel_row(
+            "lstm_scan_xin_fwd_res", label, err, TOL,
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args), 10),
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_fwd_res_plain(*args), 5),
+            cuda_scan.scan_res_cost(*size), lib_fwd_ms)
+        rows[("lstm_scan_xin_bwd", name, s["b"])] = kernel_row(
+            "lstm_scan_xin_bwd", label, err_g, GRAD_TOL,
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None), 10),
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None), 3),
+            cuda_scan.scan_bwd_cost(*size), lib_bwd_ms)
     return rows
 
 
-def lm_models(torch):
+def lm_model(backend, dropout_rate=0.0):
     from vmlmf_tpu_torch.cells import VMLMFCell
     from vmlmf_tpu_torch.nn.models import LMModel
 
-    kw = dict(vocab_size=LM["vocab"], hidden_size=LM["hidden"], num_layers=LM["layers"],
-              cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=LM["rank"], u_rank=LM["rank"]),
-              dropout_rate=0.0, winit=0.05)
-    fused, loop = LMModel(backend="fused", **kw), LMModel(backend="loop", **kw)
-    params = fused.init(torch.Generator().manual_seed(0), device="cuda")
-    return fused, loop, params
+    return LMModel(vocab_size=LM["vocab"], hidden_size=LM["hidden"], num_layers=LM["layers"],
+                   cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=LM["rank"],
+                                                       u_rank=LM["rank"]),
+                   dropout_rate=dropout_rate, winit=0.05, backend=backend)
 
 
 def prompt_ids(torch, b, seed=1):
@@ -156,10 +310,12 @@ def prompt_ids(torch, b, seed=1):
 
 
 def phase_serve(torch):
+    """-> the launch counts of the serving path."""
     from vmlmf_tpu_torch.ops import cuda_scan
     from vmlmf_tpu_torch.serve import Decoder
 
-    fused, loop, params = lm_models(torch)
+    fused, loop = lm_model("fused"), lm_model("loop")
+    params = fused.init(torch.Generator().manual_seed(0), device="cuda")
     dec = Decoder(fused)
     vocab, layers = LM["vocab"], LM["layers"]
     prompt = prompt_ids(torch, MAIN_BATCH)
@@ -172,7 +328,7 @@ def phase_serve(torch):
         return out
 
     # -- the main path, with the launch counts read around it
-    cuda_scan.lstm_scan_fused_xin.launches = 0
+    reset_launch_counts()
     logits, states = prefill(prompt)
     greedy, _ = dec.decode(params, logits, states, steps=64)
     logits, states = prefill(prompt)
@@ -183,11 +339,13 @@ def phase_serve(torch):
     beams, scores = dec.beam_search(params, beam_prompt, steps=16, beams=4)
     prefill_deltas.append(cuda_scan.lstm_scan_fused_xin.launches - before)
     torch.cuda.synchronize()
-    launches = cuda_scan.lstm_scan_fused_xin.launches
+    launches = launch_counts()
 
-    print(f"serve: launches of lstm_scan_xin_fwd {launches}, per prefill {prefill_deltas}")
-    if prefill_deltas != [layers] * 3:
-        fail(f"each prefill must launch the scan kernel {layers} times, got {prefill_deltas}")
+    print(f"serve: launches {launches}, no-grad forward per prefill {prefill_deltas}")
+    if prefill_deltas != [layers] * 3 or launches["lstm_scan_xin_fwd_res"] or \
+            launches["lstm_scan_xin_bwd"]:
+        fail(f"each prefill must launch the no-grad kernel {layers} times and nothing else, "
+             f"got {prefill_deltas}, {launches}")
     for name, toks, shape in (("greedy", greedy, (64, MAIN_BATCH)),
                               ("sampled", sampled, (64, MAIN_BATCH)),
                               ("beam", beams, (16, 4, 4))):
@@ -202,10 +360,10 @@ def phase_serve(torch):
     # -- the fused prefill against the loop backend's, on the card
     lf, sf = dec.prefill(params, prompt, fused.state0(MAIN_BATCH))
     ll, sl = Decoder(loop).prefill(params, prompt, loop.state0(MAIN_BATCH))
-    errs = [close(torch, lf, ll)] + [close(torch, a, b) for pair_f, pair_l in zip(sf, sl)
-                                     for a, b in zip(pair_f, pair_l)]
-    print(f"serve: fused vs loop prefill, max abs err {max(e for _, e in errs):.3g} (tol {TOL})")
-    if not all(ok for ok, _ in errs) or not bool(torch.isfinite(lf).all()):
+    ok, err = all_close(torch, [lf] + [a for s in sf for a in s], [ll] + [a for s in sl for a in s],
+                        TOL)
+    print(f"serve: fused vs loop prefill, max abs err {err:.3g} (tol {TOL})")
+    if not ok:
         fail("fused prefill disagrees with the loop backend")
 
     # -- speed
@@ -230,6 +388,189 @@ def phase_serve(torch):
     return launches
 
 
+def lm_chunks(b):
+    """(train, valid) chunks of the synthetic corpus at vocab 10000, T=35."""
+    from vmlmf_tpu_torch.data.ptb import load_or_synthesize, minibatch
+
+    trn, vld, _, _ = load_or_synthesize(None, vocab_size=LM["vocab"], seed=0)
+    return minibatch(trn, b, LM["prompt"]), minibatch(vld, b, LM["prompt"])
+
+
+def train_step_ms(torch, trainer, params, chunks, steps, generator):
+    """Host time of one train step that ends in a synchronize, over `steps`
+    steps after two warm ones."""
+    states = trainer.state0()
+    for x, y in chunks[:2]:
+        params, states, _, _ = trainer.train_step(params, states, x, y, 1.0, generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in chunks[2 : 2 + steps]:
+        params, states, _, _ = trainer.train_step(params, states, x, y, 1.0, generator)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def phase_train(torch):
+    """-> the launch counts of the training path."""
+    from vmlmf_tpu_torch.train.lm import LMTrainer, lm_loss
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    layers = LM["layers"]
+    trn, vld = lm_chunks(MAIN_BATCH)
+    trainer = LMTrainer(lm_model("fused", dropout_rate=0.5), batch_size=MAIN_BATCH,
+                        seq_length=LM["prompt"], learning_rate=1.0, max_grad_norm=5.0)
+    params = trainer.init()
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    states = trainer.state0()
+
+    # -- the main path, with the launch counts read around it
+    reset_launch_counts()
+    losses, deltas = [], []
+    for x, y in trn[:TRAIN_CHUNKS]:
+        before = launch_counts()
+        params, states, loss, gnorm = trainer.train_step(params, states, x, y, 1.0, generator)
+        deltas.append({k: v - before[k] for k, v in launch_counts().items()})
+        losses.append(loss)
+    before = launch_counts()
+    ppl = trainer.perplexity(params, vld[:10])
+    ppl_delta = {k: v - before[k] for k, v in launch_counts().items()}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    losses = [float(v) / MAIN_BATCH for v in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"train: {TRAIN_CHUNKS} chunks at B={MAIN_BATCH}, loss per word {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of first 5 {first:.4f}, last 5 {last:.4f}), last gnorm "
+          f"{float(gnorm):.4f}, valid perplexity on 10 chunks {ppl:.2f}")
+    print(f"train: launches {launches}, per step {deltas[0]}, in perplexity {ppl_delta}")
+    want_step = {"lstm_scan_xin_fwd": 0, "lstm_scan_xin_fwd_res": layers,
+                 "lstm_scan_xin_bwd": layers}
+    if any(d != want_step for d in deltas):
+        fail(f"each train step must launch {want_step}, got {deltas}")
+    if ppl_delta != {"lstm_scan_xin_fwd": 10 * layers, "lstm_scan_xin_fwd_res": 0,
+                     "lstm_scan_xin_bwd": 0}:
+        fail(f"perplexity must launch only the no-grad kernel, {layers} per chunk: {ppl_delta}")
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)) or not last < first:
+        fail(f"the training loss did not fall: {losses}")
+
+    # -- one step's gradients, fused against loop, at dropout 0
+    grads = []
+    x, y = (torch.as_tensor(a, device="cuda").long() for a in trn[0])
+    for backend in ("fused", "loop"):
+        model = lm_model(backend)
+        p = model.init(torch.Generator().manual_seed(0), device="cuda")
+        leaves = [q.requires_grad_() for q in tree_leaves(p)]
+        logits, _ = model.apply(p, x, model.state0(MAIN_BATCH), train=True)
+        grads.append(torch.autograd.grad(lm_loss(logits, y), leaves))
+    # each tensor against its own scale: at winit 0.05 the gradients are far
+    # below 1e-3, where an absolute tolerance would pass even all-zero ones
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads)]
+    dead = [i for i, a in enumerate(grads[0]) if not float(a.abs().max()) > 0]
+    print(f"train: fused vs loop gradients of one step at dropout 0, largest max|diff| / "
+          f"max|loop grad| over {len(rel)} tensors {max(rel):.3g} (tol {GRAD_TOL})")
+    if dead or not max(rel) <= GRAD_TOL:
+        fail(f"the fused backend's gradients disagree with the loop backend's: relative "
+             f"errors {rel}, all-zero tensors {dead}")
+
+    # -- speed
+    perf = {}
+    for b in TRAIN_BATCHES:
+        chunks, _ = lm_chunks(b)
+        for backend in ("fused", "loop"):
+            t = LMTrainer(lm_model(backend, dropout_rate=0.5), batch_size=b,
+                          seq_length=LM["prompt"])
+            ms = train_step_ms(torch, t, t.init(), chunks, 5, generator)
+            perf[f"{backend}_b{b}"] = dict(step_ms=ms, words_per_s=b * LM["prompt"] / ms * 1e3)
+            print(f"train B={b} {backend}: step {ms:.3f} ms, "
+                  f"{perf[f'{backend}_b{b}']['words_per_s']:.1f} words/s")
+    print(json.dumps({"training": perf}))
+    return launches
+
+
+def phase_har(torch):
+    """-> the launch counts of the HAR training path."""
+    from vmlmf_tpu_torch.cells import VMLMFCell
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.nn.models import HARNet
+    from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
+
+    model = HARNet(HAR["f"], (HAR["h"],), num_classes=18,
+                   cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=HAR["rx"], u_rank=HAR["r"]))
+    trainer = HARTrainer(model, batch_size=HAR["b"])
+    x_tr, y_tr, x_te, y_te = synthetic_har("opp", n_train=30 * HAR["b"], n_test=500, seed=0)
+    params, opt = trainer.init()
+
+    reset_launch_counts()
+    params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=2, log_fn=print)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"har: launches {launches}")
+    if launches != {"lstm_scan_xin_fwd": 0, "lstm_scan_xin_fwd_res": 60,
+                    "lstm_scan_xin_bwd": 60}:
+        fail(f"HAR training must launch the residual forward and the BPTT once per batch: "
+             f"{launches}")
+    if not hist[1]["loss"] < hist[0]["loss"]:
+        fail(f"the HAR loss did not fall: {hist}")
+    metrics = evaluate(model, params, x_te, y_te)
+    xb, yb = x_tr[: HAR["b"]], y_tr[: HAR["b"]]
+    ms = cuda_ms(torch, lambda: trainer.train_step(params, opt, xb, yb), 20)
+    print(f"har: accuracy {metrics['accuracy']:.4f}, macro-F1 {metrics['macro_f1']:.4f} on "
+          f"{len(y_te)} test windows; train step {ms:.4f} ms at B={HAR['b']}")
+    print(json.dumps({"har": dict(metrics, step_ms=ms, losses=[h["loss"] for h in hist])}))
+    return launches
+
+
+def phase_trace(torch):
+    """One profiled LM train step at B=20: device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    trn, _ = lm_chunks(MAIN_BATCH)
+    trainer = LMTrainer(lm_model("fused", dropout_rate=0.5), batch_size=MAIN_BATCH,
+                        seq_length=LM["prompt"])
+    params, states = trainer.init(), trainer.state0()
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    params, states, _, _ = trainer.train_step(params, states, *trn[0], 1.0, generator)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(params, states, *trn[1], 1.0, generator)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    except RuntimeError as e:  # the profiler's tracing, not the port, failed
+        print(f"trace: torch.profiler failed: {e}")
+        return
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    if not kernels:
+        print("trace: the profiler recorded no device time")
+        return
+
+    def group(name):
+        if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::")):
+            return "port"
+        if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
+            return "cublas"
+        return "other"
+
+    groups = {}
+    for name, (n, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+        print(f"trace: {ms:9.4f} ms  x{n:<3d} [{group(name)}] {name[:110]}")
+    busy = sum(groups.values())
+    print(f"trace: one train step at B={MAIN_BATCH}, wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {1 - busy / wall_ms:.3f}), by group "
+          + ", ".join(f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items())))
+    print(json.dumps({"trace": dict(wall_ms=wall_ms, busy_ms=busy, groups=groups)}))
+
+
 def main():
     try:
         import torch
@@ -243,17 +584,26 @@ def main():
     except ImportError as e:
         fail(f"the port's package is not beside this script: {e}")
 
-    phase_device(torch)
+    t0 = time.perf_counter()
+    card = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
-    launches = phase_serve(torch)
+    paths = [phase_serve(torch), phase_train(torch), phase_har(torch)]
+    phase_trace(torch)
     from vmlmf_tpu_torch.ops import cuda_scan
 
-    main_row = rows[("lm", MAIN_BATCH)]
-    kernels = [dict(name=cuda_scan.KERNEL, route="cuda",
-                    source=f"vmlmf_tpu_torch/csrc/{cuda_scan.KERNEL}.cu",
-                    replaces=cuda_scan.REPLACES, launches=launches,
-                    **main_row, library_ms=None)]
+    sources = {"lstm_scan_xin_fwd": (cuda_scan.KERNEL, cuda_scan.REPLACES),
+               "lstm_scan_xin_fwd_res": (cuda_scan.KERNEL, cuda_scan.REPLACES),
+               "lstm_scan_xin_bwd": (cuda_scan.BWD_KERNEL, cuda_scan.BWD_REPLACES)}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        launches = sum(p[name] for p in paths)
+        if launches == 0:
+            fail(f"{name} was never launched on the main paths")
+        kernels.append(dict(name=name, route="cuda", source=f"vmlmf_tpu_torch/csrc/{src}.cu",
+                            replaces=replaces, launches=launches,
+                            **rows[(name, "lm", MAIN_BATCH)]))
+    print(f"done in {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,10 @@ This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+At module level it imports only what the serving slice already had, so the
+gradient test of the fused backend also runs against a checkout of that
+slice, where it fails (run pytest from inside that checkout's root).
 """
 
 import numpy as np
@@ -19,6 +23,8 @@ from vmlmf_tpu_torch.serve import Decoder  # noqa: E402
 
 # f32 sums over K terms are taken in another order than in the plain version
 TOL = dict(atol=1e-4, rtol=1e-4)
+# weight gradients are sums over all T*B rows, taken in another order
+GRAD_TOL = dict(atol=1e-3, rtol=1e-3)
 
 # (T, B, F, h, rx, r): ragged edges everywhere, F = h, F < h (HAR), F > h
 CASES = {
@@ -85,3 +91,124 @@ def test_fused_prefill_matches_loop_on_cuda(cuda):
     torch.testing.assert_close(lf, ll, **TOL)
     for a, b in zip(sf, sl):
         torch.testing.assert_close(a, b, **TOL)
+
+
+def residual_and_grads(args, dys, dc_last, fwd, bwd):
+    res = fwd(*args)
+    saved = (*args[:4], *args[5:], res[0], res[1], res[2], res[3], res[4])
+    return res, bwd(*saved, dys, dc_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES), ids=list(CASES))
+def test_residual_forward_and_bptt_kernels_match_plain(cuda, case):
+    t, b, f, h, rx, r = CASES[case]
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    rng = np.random.default_rng(1)
+    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32)).to(cuda)
+    dc_last = torch.from_numpy(rng.standard_normal((b, h)).astype(np.float32)).to(cuda)
+    counts = (cuda_scan.lstm_scan_fused_xin_res.launches, cuda_scan.lstm_scan_xin_bwd.launches)
+    res, grads = residual_and_grads(args, dys, dc_last, cuda_scan.lstm_scan_fused_xin_res,
+                                    cuda_scan.lstm_scan_xin_bwd)
+    torch.cuda.synchronize()
+    assert (cuda_scan.lstm_scan_fused_xin_res.launches,
+            cuda_scan.lstm_scan_xin_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    res_p, grads_p = residual_and_grads(args, dys, dc_last, cuda_scan.lstm_scan_xin_fwd_res_plain,
+                                        cuda_scan.lstm_scan_xin_bwd_plain)
+    for name, got, want in zip(("ys", "cs", "gates", "hu", "xu"), res, res_p):
+        torch.testing.assert_close(got, want, msg=name, **TOL)
+    for name, got, want in zip(cuda_scan._ARG_NAMES, grads, grads_p):
+        torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["dys", "dc_last"])
+def test_bptt_kernel_reads_a_missing_cotangent_as_zeros(cuda, given):
+    t, b, f, h, rx, r = CASES["f_gt_h"]
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    dys = torch.randn(t, b, h, device=cuda) if given == "dys" else None
+    dc_last = torch.randn(b, h, device=cuda) if given == "dc_last" else None
+    _, grads = residual_and_grads(args, dys, dc_last, cuda_scan.lstm_scan_fused_xin_res,
+                                  cuda_scan.lstm_scan_xin_bwd)
+    zeros = (torch.zeros(t, b, h, device=cuda) if dys is None else dys,
+             torch.zeros(b, h, device=cuda) if dc_last is None else dc_last)
+    _, want = residual_and_grads(args, *zeros, cuda_scan.lstm_scan_xin_fwd_res_plain,
+                                 cuda_scan.lstm_scan_xin_bwd_plain)
+    for name, got, w in zip(cuda_scan._ARG_NAMES, grads, want):
+        torch.testing.assert_close(got, w, msg=name, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_no_grad_kernel_refuses_inputs_that_need_a_gradient(cuda):
+    args = list(make_inputs(*CASES["f_eq_h"], cuda))
+    args[5].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="LSTMScanXin"):
+        cuda_scan.lstm_scan_fused_xin(*args)
+    with torch.no_grad():
+        cuda_scan.lstm_scan_fused_xin(*args)
+
+
+def lm_and_batch(cuda, backend):
+    model = LMModel(vocab_size=64, hidden_size=40, num_layers=2, dropout_rate=0.0, winit=0.3,
+                    backend=backend, cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=7, u_rank=9))
+    g = torch.Generator().manual_seed(1)
+    x, y = (torch.randint(0, 64, (9, 5), generator=g).to(cuda) for _ in range(2))
+    return model, x, y
+
+
+@pytest.mark.cuda
+def test_fused_training_gives_every_cell_parameter_a_gradient(cuda):
+    # on the card the no-grad kernel once left every cell parameter without
+    # a gradient while the embedding and the head trained
+    model, x, y = lm_and_batch(cuda, "fused")
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    for p in (params["embed"]["w"], *params["fc"].values(),
+              *(q for cell in params["rnn"] for q in cell.values())):
+        p.requires_grad_(True)
+    logits, _ = model.apply(params, x, model.state0(5, cuda), train=True)
+    torch.nn.functional.cross_entropy(logits.reshape(-1, 64), y.reshape(-1)).backward()
+    assert params["embed"]["w"].grad is not None and params["fc"]["w"].grad is not None
+    for layer, cell in enumerate(params["rnn"]):
+        for name, p in cell.items():
+            assert p.grad is not None, (layer, name)
+            assert bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().max()) > 0, (
+                layer, name)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_matches_loop_backend_on_cuda(cuda):
+    from vmlmf_tpu_torch.train.lm import LMTrainer, lm_loss
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    grads, losses = [], []
+    for backend in ("fused", "loop"):
+        model, x, y = lm_and_batch(cuda, backend)
+        trainer = LMTrainer(model, batch_size=5, seq_length=9, device=cuda)
+        params = trainer.init()
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        logits, _ = model.apply(params, x, trainer.state0(), train=True)
+        loss = lm_loss(logits, y)
+        grads.append(torch.autograd.grad(loss, leaves))
+        losses.append(loss)
+    torch.testing.assert_close(losses[0], losses[1], **TOL)
+    for fused, loop in zip(*grads):
+        # against each tensor's own scale, which is far from 1 at this init
+        scale = float(loop.abs().max())
+        assert scale > 0
+        assert float((fused - loop).abs().max()) <= GRAD_TOL["rtol"] * scale
+
+
+@pytest.mark.cuda
+def test_har_trainer_runs_on_cuda(cuda):
+    from vmlmf_tpu_torch.nn.models import HARNet
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    model = HARNet(77, (180,), num_classes=18,
+                   cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=8, u_rank=6))
+    trainer = HARTrainer(model, batch_size=81, device=cuda)
+    params, opt = trainer.init()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((81, 24, 77)).astype(np.float32)
+    y = rng.integers(0, 18, 81).astype(np.int32)
+    losses = [float(trainer.train_step(params, opt, x, y)[2]) for _ in range(5)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

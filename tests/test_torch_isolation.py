@@ -18,8 +18,10 @@ import vmlmf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vmlmf_tpu_torch.__path__, "vmlmf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+from vmlmf_tpu_torch.nn.models import HARNet  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vmlmf_tpu"))
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -33,9 +35,12 @@ def _run(args, cwd):
 def test_port_imports_no_jax(tmp_path):
     out = _run(["-c", IMPORT_ALL], tmp_path)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(maxsplit=1)
-    assert int(count) >= 12
+    summary, names = out.stdout.splitlines()
+    count, bad = summary.split(maxsplit=1)
+    assert int(count) >= 24
     assert bad.strip() == "[]"
+    for name in ("train.lm", "train.har", "data.batching", "data.ptb", "data.har", "nn.models"):
+        assert f"vmlmf_tpu_torch.{name}" in names.split()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

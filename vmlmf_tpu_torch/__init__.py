@@ -1,8 +1,9 @@
 """vmlmf_tpu_torch — the PyTorch/CUDA port of vmlmf_tpu.
 
-It mirrors the JAX package's layout (cells, ops, nn, serve, utils) and keeps
-its parameter names, layouts and gate order (i, f, g, o), so a JAX parameter
-tree carries over key for key (`utils.transplant.params_from_jax`). The
+It mirrors the JAX package's layout (cells, ops, nn, serve, train, data,
+utils) and keeps its parameter names, layouts and gate order (i, f, g, o),
+so a JAX parameter tree carries over key for key
+(`utils.transplant.params_from_jax`). The
 JAX package's Pallas kernels become kernels written by hand for Hopper,
 under ``csrc/``, built with nvcc at first use into ``_build/``.
 

@@ -1,0 +1,132 @@
+// Tiled f32 GEMM shared by the scan kernels, for sm_90a.
+//
+//   c(i, j) = epilogue(i, j, sum_k A(i, k) * B(k, j))
+//
+// A and B are operand views: small structs that return one element of a
+// logical matrix and say which of its two indices runs along memory. The
+// views cover plain row-major operands, transposed ones (so a product with
+// W^T needs no transposed copy of W), and the "previous rows" view of the
+// backward pass, which reads row m of [h0; ys[0..T-2]] straight from h0 and
+// ys. The tile loads pick the thread-to-element map that keeps neighbouring
+// threads on neighbouring addresses for either layout.
+//
+// Each CTA computes one 64x64 output tile with 256 threads, 4x4 outputs per
+// thread, staging 16-deep slices of A and B in shared memory. Every edge is
+// masked, so no dimension needs to be a multiple of a tile. There is no
+// split over k: a weight gradient, whose k runs over all T*B rows, is
+// summed by one CTA per output tile in a fixed order, so it is
+// deterministic. This is CUDA-core f32 (no tensor cores), simple first.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace vmlmf {
+
+constexpr int kTile = 64;        // output tile, rows and columns
+constexpr int kDepth = 16;       // k-slice staged in shared memory
+constexpr int kGemmThreads = 256;
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Element (i, j) = p[i * ld + j]: contiguous along j.
+struct RowMajor {
+  const float* p;
+  int ld;
+  static constexpr bool kContigJ = true;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return p[(size_t)i * ld + j];
+  }
+};
+
+// Element (i, j) = p[j * ld + i]: the transpose of a row-major matrix,
+// contiguous along i.
+struct Transposed {
+  const float* p;
+  int ld;
+  static constexpr bool kContigJ = false;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return p[(size_t)j * ld + i];
+  }
+};
+
+// The transpose of the "previous rows" matrix P [M, ld], whose row m is
+// first[m] for m < nfirst and rest[m - nfirst] after: element (i, j) =
+// P[j, i]. With first = h0 [B, h] and rest = ys [T, B, h] it is h_prev^T
+// over all T*B rows, read in place.
+struct PrevRowsT {
+  const float* first;
+  const float* rest;
+  int nfirst;
+  int ld;
+  static constexpr bool kContigJ = false;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return j < nfirst ? first[(size_t)j * ld + i] : rest[(size_t)(j - nfirst) * ld + i];
+  }
+};
+
+// Epilogue that stores the sum: c[i * ldc + j] = v.
+struct Store {
+  float* c;
+  int ldc;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    c[(size_t)i * ldc + j] = v;
+  }
+};
+
+template <class A, class B, class Epi>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_kernel(A a, B b, Epi epi, int m, int n, int k) {
+  __shared__ float as[kDepth][kTile + 1];
+  __shared__ float bs[kDepth][kTile + 1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < k; k0 += kDepth) {
+    for (int e = threadIdx.x; e < kTile * kDepth; e += kGemmThreads) {
+      const int r = A::kContigJ ? e / kDepth : e % kTile;
+      const int kk = A::kContigJ ? e % kDepth : e / kTile;
+      const int gr = row0 + r, gk = k0 + kk;
+      as[kk][r] = (gr < m && gk < k) ? a(gr, gk) : 0.f;
+    }
+    for (int e = threadIdx.x; e < kTile * kDepth; e += kGemmThreads) {
+      const int kk = B::kContigJ ? e / kTile : e % kDepth;
+      const int cc = B::kContigJ ? e % kTile : e / kDepth;
+      const int gk = k0 + kk, gc = col0 + cc;
+      bs[kk][cc] = (gk < k && gc < n) ? b(gk, gc) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gr = row0 + ty + 16 * i, gc = col0 + tx + 16 * j;
+      if (gr < m && gc < n) epi(gr, gc, acc[i][j]);
+    }
+  }
+}
+
+// Launches c = epi(A @ B) with A [m, k] and B [k, n] on `stream`; returns
+// cudaGetLastError().
+template <class A, class B, class Epi>
+cudaError_t gemm(A a, B b, Epi epi, int m, int n, int k, cudaStream_t stream) {
+  gemm_kernel<<<dim3(cdiv(n, kTile), cdiv(m, kTile)), kGemmThreads, 0, stream>>>(
+      a, b, epi, m, n, k);
+  return cudaGetLastError();
+}
+
+}  // namespace vmlmf

@@ -1,0 +1,293 @@
+// Backward of the fused LSTM scan (x mode, f32, saved gates), for sm_90a.
+//
+// Replaces vmlmf_tpu/ops/pallas_scan.py::_bwd_kernel in the variant that
+// lstm_scan_fused_xin's VJP runs in x mode, low-rank on both sides, f32,
+// with the saved-gates residual policy. From the residuals of the forward
+// (lstm_scan_xin_fwd.cu, entry lstm_scan_xin_fwd_res) and the cotangents
+// dys [T,B,h] and dc_last [B,h], each of which may be absent (zeros), it
+// computes, walking t = T-1 .. 0 with the carry (dh, dc), dc = dc_last at
+// the start:
+//
+//   dh    += dys[t];  tc = tanh(cs[t]);  (i, f, g, o) = gates[t]
+//   dc    += dh * o * (1 - tc^2)
+//   dpre   = [dc*g*i*(1-i), dc*c_prev*f*(1-f), dc*i*(1-g^2), dh*tc*o*(1-o)]
+//   dc     = dc * f
+//   dhu    = dpre @ V^T                                          [B, r]
+//   dh     = sum_g dpre_g * dvec_g + dhu @ U^T
+//
+// then dh0 = dh, dc0 = dc, and the gradients of the weights and of x:
+//
+//   dU = Hprev^T dHU        dV = HU^T dPre        dXU = dPre Vx^T
+//   dx = dXU Ux^T + fit(sum_g dPre_g * xdvec_g, F)
+//   dUx = X^T dXU           dVx = XU^T dPre
+//   ddvec = sum_m dPre * tile4(Hprev),  dxdvec = sum_m dPre * tile4(fit(X, h)),
+//   dbias = sum_m dPre
+//
+// over all M = T*B rows, where Hprev row (t, b) is h0[b] at t = 0 and
+// ys[t-1, b] after. Layouts as in the forward; all row-major, contiguous.
+//
+// What bounds it on an H100, and what the design does about it:
+// * The TPU kernel runs its grid in order and sums dU, dV, ... in scratch
+//   across grid steps. Here CTAs run in parallel, so the work is split:
+//   1. bptt_kernel, the serial part. One CTA owns kRows batch rows and
+//      walks all T steps with the (dh, dc) carry, dpre and dhu of the step in
+//      shared memory. It reads c_prev straight from cs[t-1] or c0, and
+//      writes dpre [T*B, 4h] and dhu [T*B, r] to device memory for the
+//      passes below (7.3 MB of dpre per layer at B=20, T=35, h=650: traffic
+//      the TPU avoided by keeping dpre in VMEM per time block). Each step
+//      reads V and U through L2, one warp per output column so that its
+//      lanes read neighbouring addresses, and is bound by one SM's L2 read
+//      rate, like the forward. The redesign across SMs covers both.
+//   2. Time-parallel passes over all M rows: six tiled GEMMs
+//      (gemm_tile.cuh) with transposed operand views, and one column-sum
+//      kernel. Every weight gradient is summed by one CTA per output tile
+//      or column block in a fixed order: deterministic, no atomics.
+// * Shared memory of bptt_kernel is over 48 KB at h=650 (67 KB), raised
+//   through cudaFuncSetAttribute.
+// * Every edge is masked: B, T*B, F, h, r, rx need not be tile multiples,
+//   and fit() covers F = h, F < h and F > h.
+
+#include <cuda_runtime.h>
+
+#include "gemm_tile.cuh"
+
+namespace {
+
+using vmlmf::cdiv;
+
+constexpr int kRows = 4;           // batch rows per serial CTA
+constexpr int kBpttThreads = 1024;
+constexpr int kSumCols = 32;       // columns per column-sum CTA
+constexpr int kSumLanes = 8;       // row lanes per column-sum CTA
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// Serial reverse walk. Shared memory: dhs, dcs [kRows,h] (the carry), dps
+// [kRows,4h] (dpre of the step), dhus [kRows,r] (dhu of the step). Rows past
+// the batch stay zero and are never written out.
+__global__ void __launch_bounds__(kBpttThreads)
+bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
+            const float* __restrict__ c0, const float* __restrict__ dys,
+            const float* __restrict__ dc_last, const float* __restrict__ u,
+            const float* __restrict__ v, const float* __restrict__ dvec,
+            float* __restrict__ dpre, float* __restrict__ dhu,
+            float* __restrict__ dh0, float* __restrict__ dc0,
+            int t_len, int batch, int h, int r) {
+  extern __shared__ float smem[];
+  const int g4 = 4 * h;
+  float* dhs = smem;
+  float* dcs = dhs + kRows * h;
+  float* dps = dcs + kRows * h;
+  float* dhus = dps + kRows * g4;
+  const int b0 = blockIdx.x * kRows;
+  const int rows = min(kRows, batch - b0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+
+  for (int i = threadIdx.x; i < kRows * h; i += blockDim.x) {
+    const bool live = i / h < rows;
+    dhs[i] = 0.f;
+    dcs[i] = live && dc_last != nullptr ? dc_last[(size_t)b0 * h + i] : 0.f;
+  }
+  for (int i = threadIdx.x; i < kRows * (g4 + r); i += blockDim.x) dps[i] = 0.f;
+  __syncthreads();
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const size_t row_t = (size_t)t * batch + b0;
+    // dpre of hidden unit j of all four gates, and the dvec part of dh_prev:
+    // each (row, j) of the carry is read and written by its own thread only.
+    for (int j = threadIdx.x; j < h; j += blockDim.x) {
+      for (int row = 0; row < rows; ++row) {
+        const size_t m = row_t + row;
+        const float* gr = gates + m * g4;
+        const float gi = gr[j], gf = gr[h + j], gg = gr[2 * h + j], go = gr[3 * h + j];
+        const float c_prev = t > 0 ? cs[(m - batch) * h + j] : c0[(size_t)(b0 + row) * h + j];
+        const float dh = dhs[row * h + j] + (dys != nullptr ? dys[m * h + j] : 0.f);
+        const float tc = tanhf(cs[m * h + j]);
+        const float dc = dcs[row * h + j] + dh * go * (1.f - tc * tc);
+        dcs[row * h + j] = dc * gf;
+        const float pi = dc * gg * gi * (1.f - gi);
+        const float pf = dc * c_prev * gf * (1.f - gf);
+        const float pg = dc * gi * (1.f - gg * gg);
+        const float po = dh * tc * go * (1.f - go);
+        float* ds = dps + row * g4;
+        ds[j] = pi;
+        ds[h + j] = pf;
+        ds[2 * h + j] = pg;
+        ds[3 * h + j] = po;
+        float* dg = dpre + m * g4;
+        dg[j] = pi;
+        dg[h + j] = pf;
+        dg[2 * h + j] = pg;
+        dg[3 * h + j] = po;
+        dhs[row * h + j] = pi * dvec[j] + pf * dvec[h + j] + pg * dvec[2 * h + j]
+                           + po * dvec[3 * h + j];
+      }
+    }
+    __syncthreads();
+
+    // dhu = dpre @ V^T: one warp per rank k, lanes along V's row k.
+    for (int k = warp; k < r; k += nwarps) {
+      const float* vk = v + (size_t)k * g4;
+      float acc[kRows] = {};
+      for (int n = lane; n < g4; n += 32) {
+        const float w = __ldg(vk + n);
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g4 + n], w, acc[row]);
+      }
+#pragma unroll
+      for (int row = 0; row < kRows; ++row) {
+        const float s = warp_sum(acc[row]);
+        if (lane == 0) {
+          dhus[row * r + k] = s;
+          if (row < rows) dhu[(row_t + row) * r + k] = s;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dh_prev += dhu @ U^T: one warp per hidden unit j, lanes along U's row j.
+    for (int j = warp; j < h; j += nwarps) {
+      const float* uj = u + (size_t)j * r;
+      float acc[kRows] = {};
+      for (int k = lane; k < r; k += 32) {
+        const float w = __ldg(uj + k);
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dhus[row * r + k], w, acc[row]);
+      }
+#pragma unroll
+      for (int row = 0; row < kRows; ++row) {
+        const float s = warp_sum(acc[row]);
+        if (lane == 0) dhs[row * h + j] += s;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
+    dh0[(size_t)b0 * h + i] = dhs[i];
+    dc0[(size_t)b0 * h + i] = dcs[i];
+  }
+}
+
+// Epilogue of dx = dXU @ Ux^T: adds fit(sum_g dpre_g * xdvec_g, f) to column j.
+struct DxEpilogue {
+  float* dx;
+  const float* dpre;
+  const float* xdvec;
+  int f, h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    if (j < h) {
+      const float* dp = dpre + (size_t)i * 4 * h + j;
+      v += dp[0] * xdvec[j] + dp[h] * xdvec[h + j] + dp[2 * h] * xdvec[2 * h + j]
+           + dp[3 * h] * xdvec[3 * h + j];
+    }
+    dx[(size_t)i * f + j] = v;
+  }
+};
+
+// Column sums over the M rows of dpre [M, 4h], for column n (jj = n % h):
+//   ddvec[n]  = sum_m dpre[m,n] * hprev[m,jj]
+//   dxdvec[n] = sum_m dpre[m,n] * (jj < f ? x[m,jj] : 0)
+//   dbias[n]  = sum_m dpre[m,n]
+// kSumLanes row lanes per column, then a fixed-order sum over the lanes.
+__global__ void __launch_bounds__(kSumCols * kSumLanes)
+colsum_kernel(const float* __restrict__ dpre, const float* __restrict__ h0,
+              const float* __restrict__ ys, const float* __restrict__ x,
+              float* __restrict__ ddvec, float* __restrict__ dxdvec,
+              float* __restrict__ dbias, int m_rows, int batch, int f, int h) {
+  __shared__ float part[3][kSumLanes][kSumCols];
+  const int c = threadIdx.x % kSumCols, lane = threadIdx.x / kSumCols;
+  const int n = blockIdx.x * kSumCols + c;
+  const int g4 = 4 * h;
+  float sd = 0.f, sx = 0.f, sb = 0.f;
+  if (n < g4) {
+    const int jj = n % h;
+    for (int m = lane; m < m_rows; m += kSumLanes) {
+      const float d = dpre[(size_t)m * g4 + n];
+      const float hp = m < batch ? h0[(size_t)m * h + jj] : ys[(size_t)(m - batch) * h + jj];
+      const float xv = jj < f ? x[(size_t)m * f + jj] : 0.f;
+      sd = fmaf(d, hp, sd);
+      sx = fmaf(d, xv, sx);
+      sb += d;
+    }
+  }
+  part[0][lane][c] = sd;
+  part[1][lane][c] = sx;
+  part[2][lane][c] = sb;
+  __syncthreads();
+  if (lane == 0 && n < g4) {
+    for (int l = 1; l < kSumLanes; ++l) {
+      sd += part[0][l][c];
+      sx += part[1][l][c];
+      sb += part[2][l][c];
+    }
+    ddvec[n] = sd;
+    dxdvec[n] = sx;
+    dbias[n] = sb;
+  }
+}
+
+}  // namespace
+
+// Launches the serial kernel, the six GEMMs and the column sums on `stream`;
+// returns cudaGetLastError(). dys and dc_last may be null (zeros). dpre
+// [T*B, 4h], dhu [T*B, r] and dxu [T*B, rx] are scratch that the caller
+// allocates; every other pointer after them is an output.
+extern "C" int lstm_scan_xin_bwd(
+    const float* x, const float* ux, const float* vx, const float* xdvec,
+    const float* u, const float* v, const float* dvec, const float* h0,
+    const float* c0, const float* ys, const float* cs, const float* gates,
+    const float* hu, const float* xu, const float* dys, const float* dc_last,
+    float* dpre, float* dhu, float* dxu, float* dx, float* dux, float* dvx,
+    float* dxdvec, float* dbias, float* du, float* dv, float* ddvec,
+    float* dh0, float* dc0, int t_len, int batch, int f, int rx, int h, int r,
+    void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const int m = t_len * batch;
+  const int g4 = 4 * h;
+  using vmlmf::RowMajor;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  cudaError_t err;
+
+  const size_t smem = sizeof(float) * kRows * (2 * h + g4 + r);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(bptt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  bptt_kernel<<<cdiv(batch, kRows), kBpttThreads, smem, stream>>>(
+      gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, t_len, batch, h, r);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
+  err = vmlmf::gemm(Transposed{hu, r}, RowMajor{dpre, g4}, Store{dv, g4}, r, g4, m, stream);
+  if (err != cudaSuccess) return err;
+  err = vmlmf::gemm(vmlmf::PrevRowsT{h0, ys, batch, h}, RowMajor{dhu, r}, Store{du, r},
+                    h, r, m, stream);
+  if (err != cudaSuccess) return err;
+  // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
+  err = vmlmf::gemm(RowMajor{dpre, g4}, Transposed{vx, g4}, Store{dxu, rx}, m, rx, g4, stream);
+  if (err != cudaSuccess) return err;
+  err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, DxEpilogue{dx, dpre, xdvec, f, h},
+                    m, f, rx, stream);
+  if (err != cudaSuccess) return err;
+  // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
+  err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
+  if (err != cudaSuccess) return err;
+  err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g4}, Store{dvx, g4}, rx, g4, m, stream);
+  if (err != cudaSuccess) return err;
+
+  colsum_kernel<<<cdiv(g4, kSumCols), kSumCols * kSumLanes, 0, stream>>>(
+      dpre, h0, ys, x, ddvec, dxdvec, dbias, m, batch, f, h);
+  return cudaGetLastError();
+}
+
+// The message of an error code that lstm_scan_xin_bwd returned.
+extern "C" const char* lstm_scan_xin_bwd_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,8 +1,11 @@
-// Fused LSTM scan, x mode, no-grad forward, f32, for sm_90a.
+// Fused LSTM scan, x mode, f32, for sm_90a: the no-grad forward and the
+// residual-writing forward of training.
 //
-// Replaces vmlmf_tpu/ops/pallas_scan.py::_fwd_kernel in the variant that
-// lstm_scan_fused_xin's no-grad primal runs (x mode, low-rank on both
-// sides, f32, residuals=False). For every batch row b and step t:
+// Replaces vmlmf_tpu/ops/pallas_scan.py::_fwd_kernel in the variants that
+// lstm_scan_fused_xin runs in x mode, low-rank on both sides, f32: the
+// no-grad primal (residuals=False) and the autodiff forward with the
+// saved-gates policy (residuals=True, save_gates=True). For every batch row
+// b and step t:
 //
 //   gi[t,b]  = (x[t,b] @ Ux) @ Vx + tile4(fit(x[t,b], h)) * xdvec + bias
 //   pre      = gi[t,b] + (h @ U) @ V + tile4(h) * dvec        (gates i,f,g,o)
@@ -13,6 +16,13 @@
 // h features. Layouts are the unpadded public ones of the JAX function:
 // x [T,B,F], Ux [F,rx], Vx [rx,4h], xdvec [4,h], bias [4h], U [h,r],
 // V [r,4h], dvec [4h], h0/c0 [B,h]; all row-major and contiguous.
+//
+// The residual variant also writes, per step, cs[t] = c [T,B,h], the
+// post-nonlinearity gates [T,B,4h] (sigmoid(i), sigmoid(f), tanh(g),
+// sigmoid(o) in four blocks of h) and hu[t] = h_prev @ U [T,B,r]; then
+// c_last is cs[T-1]. It also keeps the first GEMM's xu = x @ Ux [T*B,rx]
+// as a residual: the backward needs it for dVx, and keeping it costs one
+// [T,B,rx] buffer where the TPU kernel recomputed x @ Ux per time block.
 //
 // What bounds it on an H100, and what the design does about it:
 // * The input projection is time-parallel. It runs first as two tiled
@@ -28,88 +38,50 @@
 //   read rate, and at serving batch sizes most SMs stay idle. Spreading
 //   U's and V's columns over all SMs, each holding its slice in shared
 //   memory, with a grid-wide barrier per half-step, is the planned redesign.
+// * The residual writes are coalesced rows of the step's outputs; they add
+//   (h + 4h + r) floats per row and step of device-memory traffic.
 // * Every edge (B, F, h, r, rx not multiples of a tile) is masked here.
 
 #include <cuda_runtime.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 64;        // GEMM output tile, rows and columns
-constexpr int kDepth = 16;       // GEMM k-slice staged in shared memory
-constexpr int kGemmThreads = 256;
+using vmlmf::cdiv;
+
 constexpr int kRows = 4;         // batch rows per scan CTA
 constexpr int kMaxThreads = 1024;
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// c[m,n] = a[m,k] @ b[k,n]. With Epi, also adds the x-side elementwise term
-// and the bias of the input projection to column n = g*h + j:
-//   (j < f ? x[row, j] : 0) * xdvec[n] + bias[n]
-template <bool Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            float* __restrict__ c, int m, int n, int k,
-            const float* __restrict__ x, int f, int h,
-            const float* __restrict__ xdvec, const float* __restrict__ bias) {
-  __shared__ float as[kDepth][kTile + 1];
-  __shared__ float bs[kDepth][kTile];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < k; k0 += kDepth) {
-    for (int i = threadIdx.x; i < kTile * kDepth; i += kGemmThreads) {
-      const int r = i / kDepth, kk = i % kDepth;
-      const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k) ? a[(size_t)gr * k + gk] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kTile * kDepth; i += kGemmThreads) {
-      const int kk = i / kTile, cc = i % kTile;
-      const int gk = k0 + kk, gc = col0 + cc;
-      bs[kk][cc] = (gk < k && gc < n) ? b[(size_t)gk * n + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+// Epilogue of the second projection GEMM: adds the x-side elementwise term
+// and the bias to column j = g*h + jj: (jj < f ? x[i, jj] : 0) * xdvec[j] + bias[j].
+struct GiEpilogue {
+  float* gi;
+  const float* x;
+  const float* xdvec;
+  const float* bias;
+  int f, h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    const int jj = j % h;
+    const float xv = jj < f ? x[(size_t)i * f + jj] : 0.f;
+    gi[(size_t)i * 4 * h + j] = v + xv * xdvec[j] + bias[j];
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gr = row0 + ty + 16 * i, gc = col0 + tx + 16 * j;
-      if (gr >= m || gc >= n) continue;
-      float val = acc[i][j];
-      if (Epi) {
-        const int jj = gc % h;
-        const float xv = jj < f ? x[(size_t)gr * f + jj] : 0.f;
-        val = val + xv * xdvec[gc] + bias[gc];
-      }
-      c[(size_t)gr * n + gc] = val;
-    }
-  }
-}
+};
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 // One CTA per kRows batch rows; the CTA walks all t_len steps. Shared memory:
 // hs [kRows,h] and cs [kRows,h] (the carry), hus [kRows,r] (h @ U of the step).
-// Rows past the batch stay zero and are never written out.
+// Rows past the batch stay zero and are never written out. With Residuals,
+// the per-step cs_out, gates_out and hu_out are written and c_last is not.
+template <bool Residuals>
 __global__ void __launch_bounds__(kMaxThreads)
 scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
             const float* __restrict__ v, const float* __restrict__ dvec,
             const float* __restrict__ h0, const float* __restrict__ c0,
             float* __restrict__ ys, float* __restrict__ c_last,
-            int t_len, int batch, int h, int r) {
+            float* __restrict__ cs_out, float* __restrict__ gates_out,
+            float* __restrict__ hu_out, int t_len, int batch, int h, int r) {
   extern __shared__ float smem[];
   float* hs = smem;
   float* cs = hs + kRows * h;
@@ -126,6 +98,7 @@ scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   __syncthreads();
 
   for (int t = 0; t < t_len; ++t) {
+    const size_t row_t = (size_t)t * batch + b0;  // first output row of this step
     // hus = hs @ U: one thread per rank column, U read down its column.
     for (int col = threadIdx.x; col < r; col += blockDim.x) {
       float acc[kRows] = {};
@@ -136,14 +109,17 @@ scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
         for (int row = 0; row < kRows; ++row) acc[row] = fmaf(hs[row * h + j], w, acc[row]);
       }
 #pragma unroll
-      for (int row = 0; row < kRows; ++row) hus[row * r + col] = acc[row];
+      for (int row = 0; row < kRows; ++row) {
+        hus[row * r + col] = acc[row];
+        if (Residuals && row < rows) hu_out[(row_t + row) * r + col] = acc[row];
+      }
     }
     __syncthreads();
 
     // hus @ V, then the gates, for hidden unit j of all four gates: each
     // (row, j) of the carry is read and written by its own thread only.
-    const float* gi_t = gi + ((size_t)t * batch + b0) * g4;
-    float* ys_t = ys + ((size_t)t * batch + b0) * h;
+    const float* gi_t = gi + row_t * g4;
+    float* ys_t = ys + row_t * h;
     for (int j = threadIdx.x; j < h; j += blockDim.x) {
       float acc[4][kRows] = {};
 #pragma unroll 4
@@ -166,61 +142,95 @@ scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
         if (row < rows) {
           const float hp = hs[row * h + j];
           const float* gr = gi_t + (size_t)row * g4;
-          const float pi = gr[j] + acc[0][row] + hp * d0;
-          const float pf = gr[h + j] + acc[1][row] + hp * d1;
-          const float pg = gr[2 * h + j] + acc[2][row] + hp * d2;
-          const float po = gr[3 * h + j] + acc[3][row] + hp * d3;
-          const float cn = sigmoid(pf) * cs[row * h + j] + sigmoid(pi) * tanhf(pg);
-          const float hn = sigmoid(po) * tanhf(cn);
+          const float si = sigmoid(gr[j] + acc[0][row] + hp * d0);
+          const float sf = sigmoid(gr[h + j] + acc[1][row] + hp * d1);
+          const float tg = tanhf(gr[2 * h + j] + acc[2][row] + hp * d2);
+          const float so = sigmoid(gr[3 * h + j] + acc[3][row] + hp * d3);
+          const float cn = sf * cs[row * h + j] + si * tg;
+          const float hn = so * tanhf(cn);
           cs[row * h + j] = cn;
           hs[row * h + j] = hn;
           ys_t[(size_t)row * h + j] = hn;
+          if (Residuals) {
+            cs_out[(row_t + row) * h + j] = cn;
+            float* gw = gates_out + (row_t + row) * g4;
+            gw[j] = si;
+            gw[h + j] = sf;
+            gw[2 * h + j] = tg;
+            gw[3 * h + j] = so;
+          }
         }
       }
     }
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) c_last[(size_t)b0 * h + i] = cs[i];
+  if (!Residuals)
+    for (int i = threadIdx.x; i < rows * h; i += blockDim.x) c_last[(size_t)b0 * h + i] = cs[i];
 }
 
-}  // namespace
-
-// Launches the three kernels on `stream` and returns cudaGetLastError().
-// xu [T*B, rx] and gi [T*B, 4h] are scratch that the caller allocates.
-extern "C" int lstm_scan_xin_fwd(
-    const float* x, const float* ux, const float* vx, const float* xdvec,
-    const float* bias, const float* u, const float* v, const float* dvec,
-    const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* c_last, int t_len, int batch, int f, int rx, int h, int r,
-    void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+// The two projection GEMMs, then the scan; returns cudaGetLastError().
+template <bool Residuals>
+int launch(const float* x, const float* ux, const float* vx, const float* xdvec,
+           const float* bias, const float* u, const float* v, const float* dvec,
+           const float* h0, const float* c0, float* xu, float* gi, float* ys,
+           float* c_last, float* cs, float* gates, float* hu, int t_len, int batch,
+           int f, int rx, int h, int r, cudaStream_t stream) {
   const int m = t_len * batch;
   const int g4 = 4 * h;
   cudaError_t err;
 
-  gemm_kernel<false><<<dim3(cdiv(rx, kTile), cdiv(m, kTile)), kGemmThreads, 0, stream>>>(
-      x, ux, xu, m, rx, f, nullptr, 0, 1, nullptr, nullptr);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  gemm_kernel<true><<<dim3(cdiv(g4, kTile), cdiv(m, kTile)), kGemmThreads, 0, stream>>>(
-      xu, vx, gi, m, g4, rx, x, f, h, xdvec, bias);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, rx}, vmlmf::Store{xu, rx},
+                    m, rx, f, stream);
+  if (err != cudaSuccess) return err;
+  err = vmlmf::gemm(vmlmf::RowMajor{xu, rx}, vmlmf::RowMajor{vx, g4},
+                    GiEpilogue{gi, x, xdvec, bias, f, h}, m, g4, rx, stream);
+  if (err != cudaSuccess) return err;
 
   const size_t smem = sizeof(float) * (2 * kRows * h + kRows * r);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(scan_kernel<Residuals>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int span = h > r ? h : r;
   const int want = cdiv(span, 32) * 32;
   const int threads = want < kMaxThreads ? want : kMaxThreads;
-  scan_kernel<<<cdiv(batch, kRows), threads, smem, stream>>>(
-      gi, u, v, dvec, h0, c0, ys, c_last, t_len, batch, h, r);
+  scan_kernel<Residuals><<<cdiv(batch, kRows), threads, smem, stream>>>(
+      gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, t_len, batch, h, r);
   return cudaGetLastError();
 }
 
-// The message of an error code that lstm_scan_xin_fwd returned.
+}  // namespace
+
+// No-grad forward. xu [T*B, rx] and gi [T*B, 4h] are scratch that the
+// caller allocates; writes ys [T,B,h] and c_last [B,h].
+extern "C" int lstm_scan_xin_fwd(
+    const float* x, const float* ux, const float* vx, const float* xdvec,
+    const float* bias, const float* u, const float* v, const float* dvec,
+    const float* h0, const float* c0, float* xu, float* gi, float* ys,
+    float* c_last, int t_len, int batch, int f, int rx, int h, int r,
+    void* stream_handle) {
+  return launch<false>(x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, xu, gi, ys, c_last,
+                       nullptr, nullptr, nullptr, t_len, batch, f, rx, h, r,
+                       static_cast<cudaStream_t>(stream_handle));
+}
+
+// Residual forward of training. gi [T*B, 4h] is scratch; writes ys and the
+// residuals xu [T*B, rx], cs [T,B,h], gates [T,B,4h] and hu [T,B,r].
+extern "C" int lstm_scan_xin_fwd_res(
+    const float* x, const float* ux, const float* vx, const float* xdvec,
+    const float* bias, const float* u, const float* v, const float* dvec,
+    const float* h0, const float* c0, float* xu, float* gi, float* ys,
+    float* cs, float* gates, float* hu, int t_len, int batch, int f, int rx,
+    int h, int r, void* stream_handle) {
+  return launch<true>(x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, xu, gi, ys, nullptr,
+                      cs, gates, hu, t_len, batch, f, rx, h, r,
+                      static_cast<cudaStream_t>(stream_handle));
+}
+
+// The message of an error code that an entry of this file returned.
 extern "C" const char* lstm_scan_xin_fwd_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

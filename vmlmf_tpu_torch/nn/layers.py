@@ -28,12 +28,14 @@ class Embed:
 class Dense:
     in_size: int
     out_size: int
+    bias_fill: float = 0.0  # the HAR classifier head uses 0.1
 
     def init(self, generator, device="cuda", dtype=torch.float32):
-        """Weight N(0, 0.01), bias 0."""
+        """Weight N(0, 0.01), bias ``bias_fill``."""
         dev = resolve_device(device)
         w = normal_init(generator, (self.in_size, self.out_size), scale=0.01, dtype=dtype)
-        return {"w": w.to(dev), "b": torch.zeros(self.out_size, dtype=dtype, device=dev)}
+        b = torch.full((self.out_size,), self.bias_fill, dtype=dtype, device=dev)
+        return {"w": w.to(dev), "b": b}
 
     def __call__(self, params, x):
         return x @ params["w"] + params["b"]

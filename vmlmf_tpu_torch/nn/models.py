@@ -1,4 +1,5 @@
-"""The word-level LM (counterpart of `vmlmf_tpu.nn.models.LMModel`)."""
+"""Task networks: the HAR classifier and the word-level LM (counterparts of
+`vmlmf_tpu.nn.models.HARNet` and `LMModel`)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,40 @@ import torch
 from vmlmf_tpu_torch.cells.base import reinit_uniform
 from vmlmf_tpu_torch.nn.layers import Dense, Embed, dropout
 from vmlmf_tpu_torch.nn.recurrence import RNN, scan_layer
+
+
+@dataclasses.dataclass(frozen=True)
+class HARNet:
+    """RNN stack + linear classifier on the last timestep.
+
+    Input is batch-major ``[B, T, F]``. Parameters are ``{"rnn": [cell dicts],
+    "head": {"w", "b"}}``, the JAX package's tree; the head's bias starts at 0.1.
+    """
+
+    input_size: int
+    layer_sizes: tuple
+    cell_factory: dataclasses.InitVar = None
+    num_classes: int = 18
+    backend: str = "fused"
+
+    def __post_init__(self, cell_factory):
+        cells, n = [], self.input_size
+        for h in self.layer_sizes:
+            cells.append(cell_factory(n, h))
+            n = h
+        object.__setattr__(self, "rnn", RNN(tuple(cells), backend=self.backend))
+        object.__setattr__(self, "head", Dense(self.layer_sizes[-1], self.num_classes,
+                                               bias_fill=0.1))
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        """Parameters from ``generator`` (a CPU `torch.Generator`), on ``device``."""
+        return {"rnn": self.rnn.init(generator, device, dtype),
+                "head": self.head.init(generator, device, dtype)}
+
+    def apply(self, params, x):
+        """x: [B, T, F] -> logits [B, num_classes]."""
+        ys, _ = self.rnn(params["rnn"], x)
+        return self.head(params["head"], ys[:, -1])
 
 
 @dataclasses.dataclass(frozen=True)

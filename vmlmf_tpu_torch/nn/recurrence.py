@@ -4,9 +4,12 @@
 Two backends, the same function:
   * "loop"  — the time-parallel ``cell.inp`` for all T, then a Python loop of
     ``cell.step`` (the JAX package's "xla" backend, a `lax.scan` there);
-  * "fused" — the whole LSTM scan in one call of
-    `vmlmf_tpu_torch.ops.cuda_scan.lstm_scan_fused_xin`, which launches the
-    CUDA kernel on CUDA tensors (the JAX package's "pallas" backend).
+  * "fused" — the whole LSTM scan in one call of the port's fused scan (the
+    JAX package's "pallas" backend): `cuda_scan.LSTMScanXin` when grad mode
+    is on and an input requires a gradient (the residual forward kernel, then
+    the BPTT kernel in the backward), else the no-grad
+    `cuda_scan.lstm_scan_fused_xin`. Each launches its CUDA kernels on CUDA
+    tensors and runs its plain version on CPU tensors.
 
 Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
 input with ``time_major=False``.
@@ -18,7 +21,7 @@ import dataclasses
 
 import torch
 
-from vmlmf_tpu_torch.ops.cuda_scan import lstm_scan_fused_xin
+from vmlmf_tpu_torch.ops.cuda_scan import LSTMScanXin, lstm_scan_fused_xin
 
 BACKENDS = ("loop", "fused")
 
@@ -40,9 +43,12 @@ def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
             raise ValueError(f"backend='fused' has no kernel for {type(cell).__name__}")
         src = torch.flip(xs, (0,)) if reverse else xs
         h0, c0 = state0
-        ys, c_last = lstm_scan_fused_xin(
-            src.contiguous(), *cell.fused_x_inputs(prep), *cell.fused_rec_inputs(prep),
-            h0.contiguous(), c0.contiguous())
+        args = (src.contiguous(), *cell.fused_x_inputs(prep), *cell.fused_rec_inputs(prep),
+                h0.contiguous(), c0.contiguous())
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            ys, c_last = LSTMScanXin.apply(*args)
+        else:
+            ys, c_last = lstm_scan_fused_xin(*args)
         h_last = ys[-1]
         if reverse:
             ys = torch.flip(ys, (0,))

@@ -1,11 +1,21 @@
 """Fused LSTM scan with the input projection inside: the port's counterpart
-of `vmlmf_tpu.ops.pallas_scan.lstm_scan_fused_xin` (its no-grad primal).
+of `vmlmf_tpu.ops.pallas_scan.lstm_scan_fused_xin` and its VJP.
 
-`lstm_scan_fused_xin` launches the hand-written CUDA kernel
-``csrc/lstm_scan_xin_fwd.cu`` for CUDA tensors and runs
-`lstm_scan_fused_xin_plain`, the same arithmetic as a loop of torch ops,
-for CPU tensors. There is no fallback between the two: a CUDA input that
-the kernel does not take raises.
+Three kernel entries, each with a plain version (the same arithmetic in
+torch ops) and a launch count:
+
+  * `lstm_scan_fused_xin` — the no-grad forward (serving, eval), kernel
+    ``csrc/lstm_scan_xin_fwd.cu`` entry ``lstm_scan_xin_fwd``;
+  * `lstm_scan_fused_xin_res` — the residual forward of training, entry
+    ``lstm_scan_xin_fwd_res`` of the same source;
+  * `lstm_scan_xin_bwd` — the BPTT, ``csrc/lstm_scan_xin_bwd.cu``.
+
+`LSTMScanXin` is the `torch.autograd.Function` that pairs the last two.
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors, so on the CPU the same `LSTMScanXin` runs the plain
+forward and the plain backward. There is no fallback between the two: a
+CUDA input that the kernel does not take raises, and a CUDA input that
+requires a gradient never reaches the no-grad kernel.
 """
 
 from __future__ import annotations
@@ -18,9 +28,13 @@ from vmlmf_tpu_torch.cells.base import lstm_update, pad_features
 from vmlmf_tpu_torch.ops import _build
 
 KERNEL = "lstm_scan_xin_fwd"
+BWD_KERNEL = "lstm_scan_xin_bwd"
 REPLACES = "vmlmf_tpu/ops/pallas_scan.py:236"  # _fwd_kernel
+BWD_REPLACES = "vmlmf_tpu/ops/pallas_scan.py:450"  # _bwd_kernel
 
 _ARG_NAMES = ("xs", "ux", "vx", "xdvec", "bias", "u", "v", "dvec", "h0", "c0")
+_RES_NAMES = ("xs", "ux", "vx", "xdvec", "u", "v", "dvec", "h0", "c0",
+              "ys", "cs", "gates", "hu", "xu")
 
 
 def lstm_scan_fused_xin_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
@@ -38,42 +52,167 @@ def lstm_scan_fused_xin_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     return torch.stack(ys), c_t
 
 
-def _check(args):
-    """Validate the CUDA call's inputs; -> (T, B, F, rx, h, r)."""
-    xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0 = args
-    if xs.dim() != 3:
-        raise ValueError(f"xs must be [T, B, F], got {tuple(xs.shape)}")
+def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+    """`lstm_scan_fused_xin_plain` that also returns the backward's residuals:
+    -> (ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities, hu = h_prev@U
+    [T,B,r], xu = x@Ux [T,B,rx]). ys and cs[-1] equal the no-grad plain
+    version's outputs bit for bit (the same ops in the same order)."""
+    h = h0.shape[-1]
+    xu = xs @ ux
+    gi = xu @ vx + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
+    dvec = dvec.reshape(-1)
+    h_t, c_t = h0, c0
+    ys, cs, gates, hus = [], [], [], []
+    for gi_t in gi:
+        hu = h_t @ u
+        pre = gi_t + hu @ v + h_t.repeat(1, 4) * dvec
+        i, f, g, o = pre.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c_t = f * c_t + i * g
+        h_t = o * torch.tanh(c_t)
+        ys.append(h_t)
+        cs.append(c_t)
+        gates.append(torch.cat([i, f, g, o], dim=-1))
+        hus.append(hu)
+    return (torch.stack(ys), torch.stack(cs), torch.stack(gates), torch.stack(hus), xu)
+
+
+def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
+                            dys, dc_last):
+    """The BPTT kernel's function in torch ops, step by step as
+    `pallas_scan._bwd_kernel` computes it: a reverse loop over T for dpre, the
+    dh/dc carry and the recurrent weight gradients, then the x-side gradients
+    batched over all T*B rows. ``dys`` and ``dc_last`` may be None (zeros).
+
+    -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0), shaped as the
+    forward's inputs.
+    """
     t, b, f = xs.shape
-    h = h0.shape[-1] if h0.dim() == 2 else -1
-    rx, r = ux.shape[-1], u.shape[-1]
-    want = {
-        "xs": (t, b, f), "ux": (f, rx), "vx": (rx, 4 * h), "xdvec": (4, h),
-        "bias": (4 * h,), "u": (h, r), "v": (r, 4 * h), "dvec": (4 * h,),
-        "h0": (b, h), "c0": (b, h),
-    }
-    dev = xs.device
-    for name, a in zip(_ARG_NAMES, args):
+    h = h0.shape[-1]
+    hprev = torch.cat([h0[None], ys[:-1]])
+    cprev = torch.cat([c0[None], cs[:-1]])
+    dh = torch.zeros_like(h0)
+    dc = torch.zeros_like(c0) if dc_last is None else dc_last
+    du, dv = torch.zeros_like(u), torch.zeros_like(v)
+    ddvec = torch.zeros(4 * h, dtype=h0.dtype, device=h0.device)
+    dvec = dvec.reshape(-1)
+    dpres = [None] * t
+    for s in range(t - 1, -1, -1):
+        i, fg, g, o = gates[s].chunk(4, dim=-1)
+        if dys is not None:
+            dh = dh + dys[s]
+        tanh_c = torch.tanh(cs[s])
+        do = dh * tanh_c
+        dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+        di, df, dg = dc * g, dc * cprev[s], dc * i
+        dc = dc * fg
+        dpre = torch.cat([di * i * (1.0 - i), df * fg * (1.0 - fg), dg * (1.0 - g * g),
+                          do * o * (1.0 - o)], dim=-1)
+        dpres[s] = dpre
+        dvt = dpre * dvec
+        dh_prev = dvt[:, :h] + dvt[:, h:2 * h] + dvt[:, 2 * h:3 * h] + dvt[:, 3 * h:]
+        ddvec = ddvec + (dpre * hprev[s].repeat(1, 4)).sum(0)
+        dhu = dpre @ v.T
+        dh = dh_prev + dhu @ u.T
+        du = du + hprev[s].T @ dhu
+        dv = dv + hu[s].T @ dpre
+    dpre2 = torch.stack(dpres).reshape(t * b, 4 * h)
+    x2 = xs.reshape(t * b, f)
+    dxu = dpre2 @ vx.T
+    dx2 = dxu @ ux.T
+    dux = x2.T @ dxu
+    dvx = xu.reshape(t * b, -1).T @ dpre2
+    dxe = dpre2 * xdvec.reshape(-1)
+    dxe = dxe[:, :h] + dxe[:, h:2 * h] + dxe[:, 2 * h:3 * h] + dxe[:, 3 * h:]
+    dx2 = dx2 + pad_features(dxe, f)
+    dxdvec = (dpre2 * pad_features(x2, h).repeat(1, 4)).sum(0).reshape(4, h)
+    dbias = dpre2.sum(0)
+    return dx2.reshape(t, b, f), dux, dvx, dxdvec, dbias, du, dv, ddvec, dh, dc
+
+
+def _check_tensors(names, tensors, want):
+    """Raise unless each tensor has its wanted shape, is f32, contiguous and
+    on the first tensor's device."""
+    dev = tensors[0].device
+    for name, a in zip(names, tensors):
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got {tuple(a.shape)}")
         if a.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
         if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, xs on {dev}")
+            raise ValueError(f"{name} is on {a.device}, {names[0]} on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _sizes(xs, ux, u, h0):
+    """(T, B, F, rx, h, r) of a scan call, from its inputs."""
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be [T, B, F], got {tuple(xs.shape)}")
+    t, b, f = xs.shape
+    h = h0.shape[-1] if h0.dim() == 2 else -1
+    rx, r = ux.shape[-1], u.shape[-1]
     if min(t, b, f, rx, h, r) < 1:
         raise ValueError(f"empty scan: T={t}, B={b}, F={f}, rx={rx}, h={h}, r={r}")
     return t, b, f, rx, h, r
 
 
-def _bind(lib):
-    fn = lib.lstm_scan_xin_fwd
+def _input_shapes(t, b, f, rx, h, r):
+    return {
+        "xs": (t, b, f), "ux": (f, rx), "vx": (rx, 4 * h), "xdvec": (4, h),
+        "bias": (4 * h,), "u": (h, r), "v": (r, 4 * h), "dvec": (4 * h,),
+        "h0": (b, h), "c0": (b, h),
+    }
+
+
+def _check(args):
+    """Validate a forward call's inputs; -> (T, B, F, rx, h, r)."""
+    xs, ux, _, _, _, u, _, _, h0, _ = args
+    sizes = _sizes(xs, ux, u, h0)
+    _check_tensors(_ARG_NAMES, args, _input_shapes(*sizes))
+    return sizes
+
+
+def _check_bwd(saved, dys, dc_last):
+    """Validate a backward call's residuals and cotangents; -> (T, B, F, rx, h, r)."""
+    xs, ux, _, _, u, _, _, h0 = saved[:8]
+    t, b, f, rx, h, r = sizes = _sizes(xs, ux, u, h0)
+    want = dict(_input_shapes(*sizes), ys=(t, b, h), cs=(t, b, h), gates=(t, b, 4 * h),
+                hu=(t, b, r), xu=(t, b, rx), dys=(t, b, h), dc_last=(b, h))
+    names = list(_RES_NAMES)
+    tensors = list(saved)
+    for name, a in (("dys", dys), ("dc_last", dc_last)):
+        if a is not None:
+            names.append(name)
+            tensors.append(a)
+    _check_tensors(tuple(names), tensors, want)
+    return sizes
+
+
+def _on_cpu(tensors):
+    return all(a is None or a.device.type == "cpu" for a in tensors)
+
+
+def _require_cuda(name, xs):
+    if xs.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {xs.device}")
+
+
+def _launch(kernel, entry, tensors, sizes, device):
+    """Call C entry ``entry`` of csrc/<kernel>.cu on the current stream: the
+    tensors' pointers (None -> null), the six sizes (T, B, F, rx, h, r) and
+    the stream. Raises on the non-zero cudaError it returns."""
+    lib = _build.load(kernel)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.lstm_scan_xin_fwd_error.argtypes = [ctypes.c_int]
-        lib.lstm_scan_xin_fwd_error.restype = ctypes.c_char_p
-    return fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*(None if a is None else a.data_ptr() for a in tensors), *sizes, stream)
+    if err != 0:
+        describe = getattr(lib, f"{kernel}_error")
+        describe.argtypes, describe.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{entry} launch failed: {describe(err).decode()} (cudaError {err})")
 
 
 def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
@@ -85,31 +224,108 @@ def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
 
     CPU tensors run `lstm_scan_fused_xin_plain`. CUDA tensors must be float32,
     contiguous and on one device; the kernel runs on the current stream and
-    ``lstm_scan_fused_xin.launches`` counts its calls.
+    ``lstm_scan_fused_xin.launches`` counts its calls. A CUDA input that
+    requires a gradient, with grad mode on, raises: that call belongs to
+    `LSTMScanXin`.
     """
     args = (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)
-    if all(a.device.type == "cpu" for a in args):
+    if _on_cpu(args):
         return lstm_scan_fused_xin_plain(*args)
-    t, b, f, rx, h, r = _check(args)
-    if xs.device.type != "cuda":
-        raise ValueError(f"lstm_scan_fused_xin runs on CPU or CUDA tensors, got {xs.device}")
-    fn = _bind(_build.load(KERNEL))
+    sizes = _check(args)
+    _require_cuda("lstm_scan_fused_xin", xs)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise RuntimeError("lstm_scan_fused_xin computes no gradient; inputs that require "
+                           "one go through LSTMScanXin.apply")
+    t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
-        xu = torch.empty((t * b, rx), dtype=torch.float32, device=xs.device)
-        gi = torch.empty((t * b, 4 * h), dtype=torch.float32, device=xs.device)
-        ys = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
-        c_last = torch.empty((b, h), dtype=torch.float32, device=xs.device)
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        ptrs = [a.data_ptr() for a in (*args, xu, gi, ys, c_last)]
-        err = fn(*ptrs, t, b, f, rx, h, r, stream)
-    if err != 0:
-        msg = _build.load(KERNEL).lstm_scan_xin_fwd_error(err).decode()
-        raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {err})")
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=xs.device)  # noqa: E731
+        xu, gi, ys, c_last = new(t * b, rx), new(t * b, 4 * h), new(t, b, h), new(b, h)
+        _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last), sizes, xs.device)
     lstm_scan_fused_xin.launches += 1
     return ys, c_last
 
 
 lstm_scan_fused_xin.launches = 0
+
+
+def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+    """The residual forward of training: `lstm_scan_fused_xin` that also
+    returns the backward's residuals -> (ys, cs, gates, hu, xu), shaped as
+    `lstm_scan_xin_fwd_res_plain`'s, which CPU tensors run. The final cell
+    state is cs[-1]. ``lstm_scan_fused_xin_res.launches`` counts the kernel's
+    calls."""
+    args = (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)
+    if _on_cpu(args):
+        return lstm_scan_xin_fwd_res_plain(*args)
+    sizes = _check(args)
+    _require_cuda("lstm_scan_fused_xin_res", xs)
+    t, b, f, rx, h, r = sizes
+    with torch.cuda.device(xs.device):
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=xs.device)  # noqa: E731
+        xu, gi, ys = new(t, b, rx), new(t * b, 4 * h), new(t, b, h)
+        cs, gates, hu = new(t, b, h), new(t, b, 4 * h), new(t, b, r)
+        _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu), sizes,
+                xs.device)
+    lstm_scan_fused_xin_res.launches += 1
+    return ys, cs, gates, hu, xu
+
+
+lstm_scan_fused_xin_res.launches = 0
+
+
+def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
+                      dys, dc_last):
+    """Gradients of the fused scan from the residual forward's outputs and the
+    cotangents ``dys [T, B, h]`` and ``dc_last [B, h]`` (either may be None,
+    read as zeros) -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0).
+
+    CPU tensors run `lstm_scan_xin_bwd_plain`; CUDA tensors launch the BPTT
+    kernel, counted by ``lstm_scan_xin_bwd.launches``.
+    """
+    saved = (xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu)
+    if _on_cpu((*saved, dys, dc_last)):
+        return lstm_scan_xin_bwd_plain(*saved, dys, dc_last)
+    sizes = _check_bwd(saved, dys, dc_last)
+    _require_cuda("lstm_scan_xin_bwd", xs)
+    t, b, f, rx, h, r = sizes
+    with torch.cuda.device(xs.device):
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=xs.device)  # noqa: E731
+        dpre, dhu, dxu = new(t * b, 4 * h), new(t * b, r), new(t * b, rx)
+        grads = (new(t, b, f), new(f, rx), new(rx, 4 * h), new(4, h), new(4 * h),
+                 new(h, r), new(r, 4 * h), new(4 * h), new(b, h), new(b, h))
+        _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
+                (*saved, dys, dc_last, dpre, dhu, dxu, *grads), sizes, xs.device)
+    lstm_scan_xin_bwd.launches += 1
+    return grads
+
+
+lstm_scan_xin_bwd.launches = 0
+
+
+class LSTMScanXin(torch.autograd.Function):
+    """The differentiable fused scan: the residual forward, then the BPTT.
+
+    ``LSTMScanXin.apply(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)`` ->
+    (ys, c_last), with gradients for all ten inputs. A cotangent that autograd
+    leaves out (an output no loss reads, as the LM's detached final state) is
+    passed to the backward as None and read there as zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+        ys, cs, gates, hu, xu = lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec,
+                                                        h0, c0)
+        ctx.save_for_backward(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu)
+        ctx.set_materialize_grads(False)
+        return ys, cs[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dys, dc_last):
+        if dys is not None:
+            dys = dys.contiguous()
+        if dc_last is not None:
+            dc_last = dc_last.contiguous()
+        return lstm_scan_xin_bwd(*ctx.saved_tensors, dys, dc_last)
 
 
 def scan_cost(t, b, f, rx, h, r):
@@ -125,3 +341,33 @@ def scan_cost(t, b, f, rx, h, r):
     floats = (t * b * f + f * rx + rx * 4 * h + 4 * h + 4 * h + h * r + r * 4 * h + 4 * h
               + 2 * b * h + t * b * h + b * h)
     return ops, 4 * floats
+
+
+def scan_res_cost(t, b, f, rx, h, r):
+    """(operations, bytes) of the residual forward: `scan_cost` plus the
+    residual outputs cs [T,B,h], gates [T,B,4h], hu [T,B,r] and xu [T,B,rx]
+    written once, less the c_last row that it does not write."""
+    ops, nbytes = scan_cost(t, b, f, rx, h, r)
+    return ops, nbytes + 4 * (t * b * (h + 4 * h + r + rx) - b * h)
+
+
+def scan_bwd_cost(t, b, f, rx, h, r, *, dys=True, dc_last=False):
+    """(operations, bytes) that the BPTT needs at least, for its roofline bound.
+
+    Operations: two per multiply-add of its products over all T*B rows, four
+    per step and row of the recurrent side (dhu = dpre V^T and dh += dhu U^T:
+    4h*r + h*r; dU and dV: h*r + r*4h) and five of the x side (dXU, dx, dUx,
+    dVx: 4h*rx, rx*F, F*rx, rx*4h), or about 2*T*B*(2*4h*r + 2*h*r +
+    2*4h*rx + 2*F*rx); plus 30 per hidden unit for dpre, the carry and the
+    column sums. Bytes: each residual and cotangent read once and each
+    gradient written once, f32; ``dys``/``dc_last`` say whether those
+    cotangents are given.
+    """
+    macs = 2 * 4 * h * r + 2 * h * r + 2 * 4 * h * rx + 2 * f * rx
+    ops = t * b * (2 * macs + 30 * h)
+    weights = f * rx + rx * 4 * h + 4 * h + h * r + r * 4 * h + 4 * h
+    inputs = (t * b * f + weights + 2 * b * h                       # x, weights, h0, c0
+              + t * b * (h + h + 4 * h + r + rx)                    # ys, cs, gates, hu, xu
+              + (t * b * h if dys else 0) + (b * h if dc_last else 0))
+    outputs = t * b * f + weights + 4 * h + 2 * b * h               # dx, dweights, dbias, dh0, dc0
+    return ops, 4 * (inputs + outputs)

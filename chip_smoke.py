@@ -6,34 +6,59 @@
 Phases, each of which exits non-zero when it fails:
   1. device  — the card's name and power limit (nvidia-smi); TF32 off.
   2. build   — nvcc builds every kernel under vmlmf_tpu_torch/csrc at once.
-  3. kernels — each kernel entry against its plain PyTorch version on the
-               card, at the shapes of the main paths (the PTB LM layer: T=35,
-               F=h=650, r=rx=300; the HAR layer: T=24, F=77, h=180, rx=8,
-               r=6, B=81): the no-grad forward at B in 1/20/128, the residual
-               forward and the BPTT at B in 20/128. Each with its time, the
-               plain version's, its roofline bound, and cuDNN's LSTM on the
-               same scan's dense weights (the library yardstick).
-  4. serve   — the PTB "medium" LM (vocab 10000, 2x650, VMLMF w300/u300;
+  3. kernels — each LSTM kernel entry against its plain PyTorch version on
+               the card, at the shapes of the main paths (the PTB LM layer:
+               T=35, F=h=650, r=rx=300; the HAR layer: T=24, F=77, h=180,
+               rx=8, r=6): the no-grad forward at B in 1/20/128 (LM) and
+               81/256 (HAR; 256 is `evaluate`'s batch), the residual forward
+               and the BPTT at B in 20/128 (LM) and 81 (HAR). Each with its
+               time, the plain version's, its roofline bound, and cuDNN's
+               LSTM on the same scan's dense weights (the library yardstick).
+  4. gru kernels — each GRU kernel entry (no-grad forward, residual forward,
+               BPTT) against its plain version at T=24, h=64, rx=9: the
+               layers of both HAR GRUs (main: low-rank "pre", r=9; group:
+               dense "post"; F=77 then 64) at B=81, the train batch, where
+               all three entries run, and at B=256, `evaluate`'s batch,
+               where the no-grad entry runs; a dense "pre" layer; and a
+               dense "post" and a low-rank "pre" layer at h=256 whose
+               weights do not fit in shared memory. Library: cuDNN's GRU on
+               the dense weights for "post"; for "pre" the script shows that
+               cuDNN's GRU computes another function, and there is none.
+  5. serve   — the PTB "medium" LM (vocab 10000, 2x650, VMLMF w300/u300;
                seeded random weights) served by `Decoder`: prefill of a T=35
                prompt at B=20 then 64 greedy tokens, top-k sampling, and beam
                search; each prefill must launch the no-grad kernel once per
                layer. The fused prefill is held to the loop backend's; then
                prefill ms and decode tokens/s at B in 1/20/128.
-  5. train   — the same LM trained by `LMTrainer` (T=35, B=20, dropout 0.5,
+  6. train   — the same LM trained by `LMTrainer` (T=35, B=20, dropout 0.5,
                lr 1.0, clip 5.0) for 30 chunks of a synthetic corpus: the
                loss must fall, each step must launch the residual forward and
                the BPTT once per layer, and `perplexity` only the no-grad
                kernel. At dropout 0 the fused gradients are held to the loop
                backend's. Then train step ms and words/s at B in 20/128.
-  6. har     — `HARTrainer` on HARNet (77 -> 180, VMLMF w8/u6, 18 classes),
+  7. har     — `HARTrainer` on HARNet (77 -> 180, VMLMF w8/u6, 18 classes),
                B=81, two epochs of synthetic OPP windows: the loss must fall;
                accuracy, macro-F1 and step ms.
-  7. trace   — one `torch.profiler` trace of an LM train step at B=20: the
-               device time of each kernel, the port's against cuBLAS's.
-  8. report  — one JSON line listing every kernel entry, then the last line
+  8. har_gru — the same for the two GRU HARNets (77 -> 64 -> 64, 18
+               classes): GRUCell w9/u9 and GRUGroupCell w9, u(12, 6), g=2.
+               Each train step must launch the GRU residual forward and BPTT
+               twice and no LSTM kernel, `evaluate` only the GRU no-grad
+               kernel, twice per batch; the fused logits of an `evaluate`
+               batch (B=256) and one step's fused gradients are held to the
+               loop backend's; accuracy, macro-F1 and step ms.
+  9. bdnet   — a bidirectional BDNet (GRU w9/u9, 77 -> 64 -> 64, concat)
+               trained for a few steps: its reverse tower runs the GRU
+               kernels with reverse=True, four launches of each training
+               entry per step. Then the fused logits of a GRU and an LSTM
+               BDNet against the loop backend's.
+ 10. trace   — one `torch.profiler` trace each of an LM train step at B=20
+               and of a main HAR GRU train step at B=81: the device time of
+               each kernel, the port's against cuBLAS's. A profiler error or
+               an empty trace fails the run.
+ 11. report  — one JSON line listing every kernel entry, then the last line
                {"ok": true, "device": {...}}.
 
-In phases 4-6 every launch count is set to 0 just before the path runs and
+In phases 5-9 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -60,6 +85,10 @@ TRAIN_BATCHES = (20, 128)
 MAIN_BATCH = 20
 HAR = dict(t=24, b=81, f=77, h=180, rx=8, r=6)
 TRAIN_CHUNKS = 30
+# the HAR GRU configurations: layers of 64, x side rank 9, T=24, B=81
+GRU = dict(t=24, b=81, f=77, h=64, rx=9, r=9)
+GRU_CONFIGS = {"main": dict(u_rank=9), "group": dict(u_ranks=(12, 6), groups=2)}
+EVAL_BATCH = 256  # `evaluate`'s batch, into which it pads the test windows
 
 
 def fail(msg):
@@ -100,21 +129,37 @@ def bound(ops, nbytes):
     return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
 
+def entries():
+    """{entry name: (its wrapper, its kernel module)} for every kernel entry."""
+    from vmlmf_tpu_torch.ops import cuda_gru, cuda_scan
+
+    return {"lstm_scan_xin_fwd": (cuda_scan.lstm_scan_fused_xin, cuda_scan),
+            "lstm_scan_xin_fwd_res": (cuda_scan.lstm_scan_fused_xin_res, cuda_scan),
+            "lstm_scan_xin_bwd": (cuda_scan.lstm_scan_xin_bwd, cuda_scan),
+            "gru_scan_xin_fwd": (cuda_gru.gru_scan_fused_xin, cuda_gru),
+            "gru_scan_xin_fwd_res": (cuda_gru.gru_scan_fused_xin_res, cuda_gru),
+            "gru_scan_xin_bwd": (cuda_gru.gru_scan_xin_bwd, cuda_gru)}
+
+
 def launch_counts():
     """The launch count of each kernel entry, by name."""
-    from vmlmf_tpu_torch.ops import cuda_scan
-
-    return {"lstm_scan_xin_fwd": cuda_scan.lstm_scan_fused_xin.launches,
-            "lstm_scan_xin_fwd_res": cuda_scan.lstm_scan_fused_xin_res.launches,
-            "lstm_scan_xin_bwd": cuda_scan.lstm_scan_xin_bwd.launches}
+    return {name: fn.launches for name, (fn, _) in entries().items()}
 
 
 def reset_launch_counts():
-    from vmlmf_tpu_torch.ops import cuda_scan
-
-    for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
-               cuda_scan.lstm_scan_xin_bwd):
+    for fn, _ in entries().values():
         fn.launches = 0
+
+
+def count_delta(before):
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def only(**counts):
+    """A launch-count dict of every entry: the given counts, 0 for the rest."""
+    want = dict.fromkeys(entries(), 0)
+    want.update(counts)
+    return want
 
 
 def dense_lstm_weights(ux, vx, xdvec, bias, u, v, dvec):
@@ -137,6 +182,23 @@ def dense_lstm_weights(ux, vx, xdvec, bias, u, v, dvec):
         w_ih[g * h + jx, jx] += xdvec[g, : len(jx)]
         w_hh[g * h + jh, jh] += dvec[g * h : (g + 1) * h]
     return [w_ih, w_hh, bias.clone(), torch.zeros_like(bias)]
+
+
+def dense_gru_weights(ux, vx, bias, uf, prz, pn):
+    """The fused GRU scan's weights as one dense GRU layer's, in PyTorch's
+    layout and gate order (r, z, n): [w_ih [3h, F], w_hh [3h, h], b_ih, b_hh]
+    with w_ih = (ux@vx)^T, w_hh = [prz | pn]^T (low-rank: (uf@[prz | pn])^T),
+    b_ih = bias and b_hh = 0.
+
+    PyTorch's GRU applies the reset gate after the recurrent product, n =
+    tanh(W_in x + b_in + r * (W_hn h + b_hn)), so cuDNN's GRU on these
+    weights computes the scan's mode "post", and not mode "pre".
+    """
+    import torch
+
+    w = torch.cat([prz, pn], dim=1)
+    w_hh = w if uf is None else uf @ w
+    return [(ux @ vx).T.contiguous(), w_hh.T.contiguous(), bias.clone(), torch.zeros_like(bias)]
 
 
 def phase_device(torch):
@@ -199,10 +261,26 @@ def cudnn_lstm(torch, args):
     return lstm, err
 
 
+def library_train_ms(torch, train_fwd, dys, iters):
+    """(training forward ms, backward ms) of one library layer: train_fwd()
+    runs it on inputs that need a gradient and returns its output sequence
+    first. The backward is (forward + backward) - forward, each the best of
+    three interleaved windows: the difference of two means is noisy."""
+    def fwd_bwd():
+        torch.autograd.backward(train_fwd()[0], dys)
+
+    fwd_ms, both_ms = [], []
+    for _ in range(3):
+        fwd_ms.append(cuda_ms(torch, train_fwd, iters))
+        both_ms.append(cuda_ms(torch, fwd_bwd, iters))
+    return min(fwd_ms), min(both_ms) - min(fwd_ms)
+
+
 def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms):
     bms, by = bound(*cost)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"kernel {name} {shape}: max_abs_err {err:.3g} (tol {tol}), {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (cuDNN) {library_ms:.4f} ms")
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (cuDNN) {lib}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=library_ms)
 
@@ -213,7 +291,7 @@ def phase_kernels(torch):
 
     shapes = [("lm", dict(t=LM["prompt"], b=b, f=LM["hidden"], h=LM["hidden"],
                           rx=LM["rank"], r=LM["rank"])) for b in LM_BATCHES]
-    shapes.append(("har", HAR))
+    shapes += [("har", HAR), ("har", dict(HAR, b=EVAL_BATCH))]  # train step, `evaluate`
     rows = {}
     print(f"tolerances: outputs and residuals atol = rtol = {TOL} (f32 sums in another "
           f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order)")
@@ -243,7 +321,7 @@ def phase_kernels(torch):
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args), 10),
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_plain(*args), 5),
             cuda_scan.scan_cost(*size), cuda_ms(torch, lib_fwd, 10))
-        if name == "lm" and s["b"] not in TRAIN_BATCHES:
+        if s["b"] not in (TRAIN_BATCHES if name == "lm" else (HAR["b"],)):
             continue
 
         # -- the residual forward and the BPTT, with dys given and dc_last
@@ -263,24 +341,9 @@ def phase_kernels(torch):
         if not ok_g:
             fail(f"lstm_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
 
-        leaves = [t.detach().requires_grad_() for t in (xs, h0, c0)]
-
-        def lib_train_fwd():
-            x, h, c = leaves
-            return lstm(x, (h[None], c[None]))
-
-        def lib_train_fwd_bwd():
-            out, _ = lib_train_fwd()
-            torch.autograd.backward(out, dys)
-
-        # backward = (forward + backward) - forward, each the best of three
-        # interleaved windows: the difference of two means is noisy
-        fwd_ms, both_ms = [], []
-        for _ in range(3):
-            fwd_ms.append(cuda_ms(torch, lib_train_fwd, 10))
-            both_ms.append(cuda_ms(torch, lib_train_fwd_bwd, 10))
-        lib_fwd_ms = min(fwd_ms)
-        lib_bwd_ms = min(both_ms) - lib_fwd_ms
+        x, h, c = (t.detach().requires_grad_() for t in (xs, h0, c0))
+        lib_fwd_ms, lib_bwd_ms = library_train_ms(
+            torch, lambda: lstm(x, (h[None], c[None])), dys, 10)
         rows[("lstm_scan_xin_fwd_res", name, s["b"])] = kernel_row(
             "lstm_scan_xin_fwd_res", label, err, TOL,
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args), 10),
@@ -292,6 +355,141 @@ def phase_kernels(torch):
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None), 3),
             cuda_scan.scan_bwd_cost(*size), lib_bwd_ms)
     return rows
+
+
+def gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank, seed=0):
+    """Seeded GRU scan inputs on the card (xs, ux, vx, bias, uf, prz, pn, h0),
+    scaled so that the gates are O(1); uf is None when the recurrent side is
+    dense."""
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, scale):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    k = r if lowrank else h
+    return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 3 * h, scale=rx ** -0.5),
+            n(3 * h, scale=0.1), n(h, r, scale=h ** -0.5) if lowrank else None,
+            n(k, 2 * h, scale=k ** -0.5), n(k, h, scale=k ** -0.5), n(b, h, scale=0.5))
+
+
+def cudnn_gru(torch, args, mode):
+    """A one-layer `nn.GRU` (cuDNN) holding the scan's dense weights, flattened
+    once, outside any timed window, and its max abs error against the plain
+    scan. For mode "post" it must compute the same scan, else the script
+    fails. For mode "pre" it must not: cuDNN's GRU applies the reset gate
+    after the recurrent product, so it is no yardstick there and None comes
+    back in its place."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    xs, h0 = args[0], args[7]
+    gru = torch.nn.GRU(xs.shape[-1], h0.shape[-1]).cuda()
+    with torch.no_grad():
+        for p, w in zip((gru.weight_ih_l0, gru.weight_hh_l0, gru.bias_ih_l0, gru.bias_hh_l0),
+                        dense_gru_weights(*args[1:7])):
+            p.copy_(w)
+        gru.flatten_parameters()
+        out, _ = gru(xs, h0[None])
+        ok, err = close(torch, out, cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode),
+                        GRAD_TOL)
+    if mode == "post" and not ok:
+        fail(f"cuDNN's GRU on the dense weights is not the mode 'post' scan: max abs err {err}")
+    if mode == "pre" and ok:
+        fail(f"cuDNN's GRU computed the mode 'pre' scan (max abs err {err}): the library "
+             f"column of the 'pre' rows must name it")
+    return (gru if mode == "post" else None), err
+
+
+def gru_kernel_shapes():
+    """(name, (T, B, F, h, rx, r), mode, low-rank recurrent side, dx, train)
+    of each GRU kernel check: the layers of both HAR GRUs at the train batch,
+    where all three entries run (a first layer needs no dx), and at
+    evaluate's batch, where only the no-grad entry runs; a dense "pre" layer;
+    and a dense and a low-rank layer at h=256 whose weights do not fit in
+    shared memory."""
+    t, f, h, rx, r = GRU["t"], GRU["f"], GRU["h"], GRU["rx"], GRU["r"]
+    layers = [("main_l1", f, h, r, "pre", True, False), ("main_l2", h, h, r, "pre", True, True),
+              ("group_l1", f, h, 0, "post", False, False),
+              ("group_l2", h, h, 0, "post", False, True)]
+    shapes = [(name, (t, b, fi, hi, rx, ri), mode, lowrank, dx, b == GRU["b"])
+              for b in (GRU["b"], EVAL_BATCH)
+              for name, fi, hi, ri, mode, lowrank, dx in layers]
+    return shapes + [("dense_pre", (t, GRU["b"], f, h, rx, 0), "pre", False, True, True),
+                     ("wide_post_l2", (t, GRU["b"], f, 256, rx, 0), "post", False, True, True),
+                     ("wide_pre_l2", (t, GRU["b"], f, 256, rx, 64), "pre", True, True, True)]
+
+
+def phase_gru_kernels(torch):
+    """-> {(entry, shape name, B): row} for the kernels line and PERF.md."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    rows = {}
+    for name, (t, b, f, h, rx, r), mode, lowrank, dx, train in gru_kernel_shapes():
+        args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
+        size = (t, b, f, rx, h, r, cuda_gru.form_of(args[4], mode))
+        label = (f"{name} T={t} B={b} F={f} h={h} rx={rx} r={r} mode={mode} "
+                 f"{'low-rank' if lowrank else 'dense'}{', no dx' if train and not dx else ''}")
+        gru, lib_err = cudnn_gru(torch, args, mode)
+        print(f"library: cuDNN GRU on the dense weights, {label}: max abs err {lib_err:.3g} "
+              f"against the plain scan ({'the same scan' if gru else 'another function'})")
+        xs, h0 = args[0], args[7]
+
+        ys = cuda_gru.gru_scan_fused_xin(*args, mode=mode)
+        torch.cuda.synchronize()
+        ok, err = close(torch, ys, cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode))
+        if not ok:
+            fail(f"gru_scan_xin_fwd disagrees with its plain version at {label}: {err}")
+
+        def lib_fwd():
+            with torch.no_grad():
+                gru(xs, h0[None])
+
+        checks = [("gru_scan_xin_fwd", err, TOL,
+                   cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode), 20),
+                   cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode), 5),
+                   cuda_gru.gru_scan_cost(*size), cuda_ms(torch, lib_fwd, 20) if gru else None)]
+        if train:
+            checks += gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru)
+        for entry, e_err, tol, ms, plain_ms, cost, lib_ms in checks:
+            rows[(entry, name, b)] = kernel_row(entry, label, e_err, tol, ms, plain_ms, cost,
+                                                lib_ms)
+            print(f"kernel {entry} {name} B={b}: {1e3 * ms / t:.3f} us per step (whole call / T)")
+    return rows
+
+
+def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru):
+    """The residual forward and the BPTT at one shape, against their plain
+    versions -> their (entry, err, tol, ms, plain ms, cost, library ms)."""
+    xs, h0 = args[0], args[7]
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    torch.cuda.synchronize()
+    res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+    ok_r, err_r = all_close(torch, [a for a in res if a is not None],
+                            [a for a in res_p if a is not None], TOL)
+    if not ok_r:
+        fail(f"gru_scan_xin_fwd_res disagrees with its plain version at {label}: {err_r}")
+    dys = 0.1 * torch.randn(ys.shape, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:3], *args[4:], *res, dys)
+    grads = cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx)
+    torch.cuda.synchronize()
+    grads_p = cuda_gru.gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx)
+    ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
+                            [a for a in grads_p if a is not None], GRAD_TOL)
+    if not ok_g:
+        fail(f"gru_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
+
+    lib_fwd_ms = lib_bwd_ms = None
+    if gru is not None:
+        x_leaf, h_leaf = xs.detach().requires_grad_(dx), h0.detach().requires_grad_()
+        lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: gru(x_leaf, h_leaf[None]), dys,
+                                                  20)
+    return [("gru_scan_xin_fwd_res", err_r, TOL,
+             cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode), 20),
+             cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode), 5),
+             cuda_gru.gru_scan_res_cost(*size), lib_fwd_ms),
+            ("gru_scan_xin_bwd", err_g, GRAD_TOL,
+             cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx), 20),
+             cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx), 5),
+             cuda_gru.gru_scan_bwd_cost(*size, dx=dx), lib_bwd_ms)]
 
 
 def lm_model(backend, dropout_rate=0.0):
@@ -342,8 +540,7 @@ def phase_serve(torch):
     launches = launch_counts()
 
     print(f"serve: launches {launches}, no-grad forward per prefill {prefill_deltas}")
-    if prefill_deltas != [layers] * 3 or launches["lstm_scan_xin_fwd_res"] or \
-            launches["lstm_scan_xin_bwd"]:
+    if prefill_deltas != [layers] * 3 or launches != only(lstm_scan_xin_fwd=3 * layers):
         fail(f"each prefill must launch the no-grad kernel {layers} times and nothing else, "
              f"got {prefill_deltas}, {launches}")
     for name, toks, shape in (("greedy", greedy, (64, MAIN_BATCH)),
@@ -443,12 +640,10 @@ def phase_train(torch):
           f"{losses[-1]:.4f} (mean of first 5 {first:.4f}, last 5 {last:.4f}), last gnorm "
           f"{float(gnorm):.4f}, valid perplexity on 10 chunks {ppl:.2f}")
     print(f"train: launches {launches}, per step {deltas[0]}, in perplexity {ppl_delta}")
-    want_step = {"lstm_scan_xin_fwd": 0, "lstm_scan_xin_fwd_res": layers,
-                 "lstm_scan_xin_bwd": layers}
+    want_step = only(lstm_scan_xin_fwd_res=layers, lstm_scan_xin_bwd=layers)
     if any(d != want_step for d in deltas):
         fail(f"each train step must launch {want_step}, got {deltas}")
-    if ppl_delta != {"lstm_scan_xin_fwd": 10 * layers, "lstm_scan_xin_fwd_res": 0,
-                     "lstm_scan_xin_bwd": 0}:
+    if ppl_delta != only(lstm_scan_xin_fwd=10 * layers):
         fail(f"perplexity must launch only the no-grad kernel, {layers} per chunk: {ppl_delta}")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)) or not last < first:
         fail(f"the training loss did not fall: {losses}")
@@ -505,8 +700,7 @@ def phase_har(torch):
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"har: launches {launches}")
-    if launches != {"lstm_scan_xin_fwd": 0, "lstm_scan_xin_fwd_res": 60,
-                    "lstm_scan_xin_bwd": 60}:
+    if launches != only(lstm_scan_xin_fwd_res=60, lstm_scan_xin_bwd=60):
         fail(f"HAR training must launch the residual forward and the BPTT once per batch: "
              f"{launches}")
     if not hist[1]["loss"] < hist[0]["loss"]:
@@ -520,29 +714,163 @@ def phase_har(torch):
     return launches
 
 
-def phase_trace(torch):
-    """One profiled LM train step at B=20: device time by kernel."""
+def gru_factory(config):
+    from vmlmf_tpu_torch.cells import GRUCell, GRUGroupCell
+
+    kw = GRU_CONFIGS[config]
+    if config == "group":
+        return lambda n, h: GRUGroupCell(n, h, w_rank=GRU["rx"], **kw)
+    return lambda n, h: GRUCell(n, h, w_rank=GRU["rx"], **kw)
+
+
+def gru_harnet(config, backend="fused"):
+    from vmlmf_tpu_torch.nn.models import HARNet
+
+    return HARNet(GRU["f"], (GRU["h"], GRU["h"]), num_classes=18, backend=backend,
+                  cell_factory=gru_factory(config))
+
+
+def grads_fused_vs_loop(torch, make_model, x, y):
+    """One step's gradients of every parameter, fused against loop backend,
+    each tensor against its own scale -> (largest relative error, all-zero
+    or missing tensors)."""
+    from vmlmf_tpu_torch.train.har import cross_entropy
+    from vmlmf_tpu_torch.utils.tree import trainable_leaves
+
+    grads = []
+    for backend in ("fused", "loop"):
+        model = make_model(backend)
+        params = model.init(torch.Generator().manual_seed(0), device="cuda")
+        leaves = trainable_leaves(params)
+        cross_entropy(model.apply(params, x), y).backward()
+        grads.append([p.grad for p in leaves])
+    dead = [i for i, a in enumerate(grads[0]) if a is None or not float(a.abs().max()) > 0]
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads)
+           if a is not None]
+    return max(rel), dead
+
+
+def phase_har_gru(torch):
+    """-> the launch counts of the two HAR GRU paths (training and evaluation)."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
+
+    b = GRU["b"]
+    x_tr, y_tr, x_te, y_te = synthetic_har("opp", n_train=30 * b, n_test=500, seed=0)
+    total, out = {}, {}
+    for config in GRU_CONFIGS:
+        model = gru_harnet(config)
+        trainer = HARTrainer(model, batch_size=b)
+        params, opt = trainer.init()
+
+        # -- the main path, with the launch counts read around it
+        reset_launch_counts()
+        params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=2, log_fn=print)
+        torch.cuda.synchronize()
+        fit_counts = launch_counts()
+        metrics = evaluate(model, params, x_te, y_te)
+        eval_counts = count_delta(fit_counts)
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        steps = 2 * (len(x_tr) // b)
+        batches = -(-len(x_te) // 256)
+        print(f"har_gru {config}: launches in fit {fit_counts}, in evaluate {eval_counts}")
+        if fit_counts != only(gru_scan_xin_fwd_res=2 * steps, gru_scan_xin_bwd=2 * steps):
+            fail(f"each {config} GRU train step must launch the GRU residual forward and BPTT "
+                 f"twice and nothing else: {fit_counts} over {steps} steps")
+        if eval_counts != only(gru_scan_xin_fwd=2 * batches):
+            fail(f"evaluate must launch only the GRU no-grad kernel, twice per batch: "
+                 f"{eval_counts} over {batches} batches")
+        if not hist[1]["loss"] < hist[0]["loss"]:
+            fail(f"the {config} HAR GRU loss did not fall: {hist}")
+
+        # -- evaluate's batch through the fused no-grad path against the loop backend
+        xe = torch.as_tensor(x_te[:EVAL_BATCH], device="cuda")
+        with torch.no_grad():
+            ok, err = close(torch, model.apply(params, xe),
+                            gru_harnet(config, "loop").apply(params, xe))
+        print(f"har_gru {config}: fused vs loop logits at B={EVAL_BATCH}, max abs err {err:.3g} "
+              f"(tol {TOL})")
+        if not ok:
+            fail(f"the {config} GRU HARNet's fused logits disagree with the loop backend's at "
+                 f"B={EVAL_BATCH}: {err}")
+
+        # -- one step's gradients, fused against loop (HARNet has no dropout)
+        xb = torch.as_tensor(x_tr[:b], device="cuda")
+        yb = torch.as_tensor(y_tr[:b], device="cuda")
+        rel, dead = grads_fused_vs_loop(torch, lambda be, c=config: gru_harnet(c, be), xb, yb)
+        print(f"har_gru {config}: fused vs loop gradients of one step, largest max|diff| / "
+              f"max|loop grad| {rel:.3g} (tol {GRAD_TOL})")
+        if dead or not rel <= GRAD_TOL:
+            fail(f"the {config} GRU fused gradients disagree with the loop backend's: "
+                 f"{rel}, all-zero or missing tensors {dead}")
+
+        ms = cuda_ms(torch, lambda: trainer.train_step(params, opt, x_tr[:b], y_tr[:b]), 20)
+        out[config] = dict(metrics, step_ms=ms, losses=[h["loss"] for h in hist])
+        print(f"har_gru {config}: accuracy {metrics['accuracy']:.4f}, macro-F1 "
+              f"{metrics['macro_f1']:.4f} on {len(y_te)} test windows; train step {ms:.4f} ms "
+              f"at B={b}")
+    print(json.dumps({"har_gru": out}))
+    return total
+
+
+def phase_bdnet(torch):
+    """-> the launch counts of a short BDNet training run."""
+    from vmlmf_tpu_torch.cells import VMLMFCell
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.nn.models import BDNet
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    b, steps = GRU["b"], 5
+    x_tr, y_tr, _, _ = synthetic_har("opp", n_train=steps * b, n_test=b, seed=1)
+
+    def bdnet(backend, factory=gru_factory("main"), sizes=(GRU["h"], GRU["h"])):
+        return BDNet(GRU["f"], sizes, num_classes=18, merge="concat", backend=backend,
+                     cell_factory=factory)
+
+    trainer = HARTrainer(bdnet("fused"), batch_size=b)
+    params, opt = trainer.init()
+    reset_launch_counts()
+    params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=1, log_fn=None)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"bdnet: {steps} steps, loss {hist[0]['loss']:.4f}, launches {launches}")
+    if launches != only(gru_scan_xin_fwd_res=4 * steps, gru_scan_xin_bwd=4 * steps) or \
+            not hist[0]["loss"] == hist[0]["loss"]:
+        fail(f"each BDNet step must launch the GRU residual forward and BPTT four times "
+             f"(two layers, two towers): {launches}, loss {hist}")
+
+    # the reverse tower's fused scans against the loop backend, GRU and LSTM
+    x = torch.as_tensor(x_tr[:b], device="cuda")
+    lstm = (lambda n, h: VMLMFCell(n, h, w_rank=HAR["rx"], u_rank=HAR["r"]), (HAR["h"],))
+    for name, (factory, sizes) in (("gru", (gru_factory("main"), (GRU["h"], GRU["h"]))),
+                                   ("lstm", lstm)):
+        p = bdnet("fused", factory, sizes).init(torch.Generator().manual_seed(0), device="cuda")
+        with torch.no_grad():
+            got = bdnet("fused", factory, sizes).apply(p, x)
+            want_l = bdnet("loop", factory, sizes).apply(p, x)
+        ok, err = close(torch, got, want_l)
+        print(f"bdnet {name}: fused vs loop logits, max abs err {err:.3g} (tol {TOL})")
+        if not ok:
+            fail(f"the {name} BDNet's fused logits disagree with the loop backend's: {err}")
+    return launches
+
+
+def trace_step(torch, label, step):
+    """One profiled call of step(), after a warm one: device time by kernel,
+    the port's against cuBLAS's -> dict(wall_ms, busy_ms, groups)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from vmlmf_tpu_torch.train.lm import LMTrainer
-
-    trn, _ = lm_chunks(MAIN_BATCH)
-    trainer = LMTrainer(lm_model("fused", dropout_rate=0.5), batch_size=MAIN_BATCH,
-                        seq_length=LM["prompt"])
-    params, states = trainer.init(), trainer.state0()
-    generator = torch.Generator(device="cuda").manual_seed(1)
-    params, states, _, _ = trainer.train_step(params, states, *trn[0], 1.0, generator)
+    step()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.train_step(params, states, *trn[1], 1.0, generator)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    except RuntimeError as e:  # the profiler's tracing, not the port, failed
-        print(f"trace: torch.profiler failed: {e}")
-        return
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -550,8 +878,7 @@ def phase_trace(torch):
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
     if not kernels:
-        print("trace: the profiler recorded no device time")
-        return
+        fail(f"trace: the profiler recorded no device time in one {label}")
 
     def group(name):
         if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::")):
@@ -565,10 +892,32 @@ def phase_trace(torch):
         groups[group(name)] = groups.get(group(name), 0.0) + ms
         print(f"trace: {ms:9.4f} ms  x{n:<3d} [{group(name)}] {name[:110]}")
     busy = sum(groups.values())
-    print(f"trace: one train step at B={MAIN_BATCH}, wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms (idle share {1 - busy / wall_ms:.3f}), by group "
+    print(f"trace: one {label}, wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall_ms:.3f}), by group "
           + ", ".join(f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items())))
-    print(json.dumps({"trace": dict(wall_ms=wall_ms, busy_ms=busy, groups=groups)}))
+    return dict(wall_ms=wall_ms, busy_ms=busy, groups=groups)
+
+
+def phase_trace(torch):
+    """One profiled train step each of the LM at B=20 and the main HAR GRU at B=81."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    trn, _ = lm_chunks(MAIN_BATCH)
+    trainer = LMTrainer(lm_model("fused", dropout_rate=0.5), batch_size=MAIN_BATCH,
+                        seq_length=LM["prompt"])
+    params, states = trainer.init(), trainer.state0()
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    lm = trace_step(torch, f"LM train step at B={MAIN_BATCH}",
+                    lambda: trainer.train_step(params, states, *trn[1], 1.0, generator))
+
+    har = HARTrainer(gru_harnet("main"), batch_size=GRU["b"])
+    har_params, opt = har.init()
+    x, y, _, _ = synthetic_har("opp", n_train=GRU["b"], n_test=1, seed=2)
+    gru = trace_step(torch, f"main HAR GRU train step at B={GRU['b']}",
+                     lambda: har.train_step(har_params, opt, x, y))
+    print(json.dumps({"trace": dict(lm=lm, har_gru=gru)}))
 
 
 def main():
@@ -588,21 +937,28 @@ def main():
     card = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
-    paths = [phase_serve(torch), phase_train(torch), phase_har(torch)]
+    rows.update(phase_gru_kernels(torch))
+    paths = [phase_serve(torch), phase_train(torch), phase_har(torch), phase_har_gru(torch),
+             phase_bdnet(torch)]
     phase_trace(torch)
-    from vmlmf_tpu_torch.ops import cuda_scan
 
-    sources = {"lstm_scan_xin_fwd": (cuda_scan.KERNEL, cuda_scan.REPLACES),
-               "lstm_scan_xin_fwd_res": (cuda_scan.KERNEL, cuda_scan.REPLACES),
-               "lstm_scan_xin_bwd": (cuda_scan.BWD_KERNEL, cuda_scan.BWD_REPLACES)}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (_, module) in entries().items():
         launches = sum(p[name] for p in paths)
         if launches == 0:
             fail(f"{name} was never launched on the main paths")
+        bwd = name.endswith("_bwd")
+        src = module.BWD_KERNEL if bwd else module.KERNEL
+        # each entry's row at its main path's shape: the LM layer at B=20, or
+        # the main HAR GRU's first layer at the batch its launches ran at
+        # (`evaluate`'s for the no-grad entry, the train step's for the others)
+        if name.startswith("lstm"):
+            row = rows[(name, "lm", MAIN_BATCH)]
+        else:
+            row = rows[(name, "main_l1", EVAL_BATCH if name == "gru_scan_xin_fwd" else GRU["b"])]
         kernels.append(dict(name=name, route="cuda", source=f"vmlmf_tpu_torch/csrc/{src}.cu",
-                            replaces=replaces, launches=launches,
-                            **rows[(name, "lm", MAIN_BATCH)]))
+                            replaces=module.BWD_REPLACES if bwd else module.REPLACES,
+                            launches=launches, **row))
     print(f"done in {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

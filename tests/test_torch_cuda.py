@@ -212,3 +212,150 @@ def test_har_trainer_runs_on_cuda(cuda):
     y = rng.integers(0, 18, 81).astype(np.int32)
     losses = [float(trainer.train_step(params, opt, x, y)[2]) for _ in range(5)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# -- the GRU scan (ops/cuda_gru.py)
+
+# (T, B, F, h, rx, r, mode, low-rank recurrent side): the HAR GRU layers at
+# B=81, ragged small shapes, and a dense and a low-rank form too large for
+# shared memory
+GRU_CASES = {
+    "main_l1": (24, 81, 77, 64, 9, 9, "pre", True),
+    "main_l2": (24, 81, 64, 64, 9, 9, "pre", True),
+    "group_post": (24, 81, 77, 64, 9, 0, "post", False),
+    "dense_pre": (7, 9, 20, 33, 5, 0, "pre", False),
+    "ragged_lowrank": (5, 3, 13, 40, 6, 33, "pre", True),
+    "wide_post": (4, 6, 48, 256, 8, 0, "post", False),  # 768 KB of weights: read through L2
+    "wide_lowrank": (4, 6, 48, 256, 8, 64, "pre", True),  # 256 KB of weights: read through L2
+}
+
+
+def gru_inputs(t, b, f, h, rx, r, mode, lowrank, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
+
+    k = r if lowrank else h
+    return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 3 * h, scale=rx ** -0.5),
+            n(3 * h, scale=0.1), n(h, r, scale=h ** -0.5) if lowrank else None,
+            n(k, 2 * h, scale=k ** -0.5), n(k, h, scale=k ** -0.5), n(b, h, scale=0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRU_CASES), ids=list(GRU_CASES))
+def test_gru_kernels_match_plain(cuda, case):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRU_CASES[case]
+    args = gru_inputs(*GRU_CASES[case], cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    counts = [fn.launches for fn in (cuda_gru.gru_scan_fused_xin, cuda_gru.gru_scan_fused_xin_res,
+                                     cuda_gru.gru_scan_xin_bwd)]
+    ys = cuda_gru.gru_scan_fused_xin(*args, mode=mode)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    saved = (*args[:3], *args[4:], *res)
+    grads = cuda_gru.gru_scan_xin_bwd(*saved, dys, mode=mode)
+    no_dx = cuda_gru.gru_scan_xin_bwd(*saved, dys, mode=mode, dx=False)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (cuda_gru.gru_scan_fused_xin, cuda_gru.gru_scan_fused_xin_res,
+                                   cuda_gru.gru_scan_xin_bwd)] == [
+        counts[0] + 1, counts[1] + 1, counts[2] + 2]
+    res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+    torch.testing.assert_close(ys, res_p[0], **TOL)
+    for name, got, want in zip(("ys", "gates", "hu", "rhu", "recn", "xu"), res, res_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **TOL)
+    names = ("dxs", "dux", "dvx", "dbias", "duf", "dprz", "dpn", "dh0")
+    grads_p = cuda_gru.gru_scan_xin_bwd_plain(*saved[:13], dys, mode=mode)
+    for name, got, skip, want in zip(names, grads, no_dx, grads_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+            if name != "dxs":
+                assert torch.equal(skip, got), name  # the same sums in the same order
+    assert no_dx[0] is None
+
+
+@pytest.mark.cuda
+def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda, monkeypatch):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    args = list(gru_inputs(*GRU_CASES["dense_pre"], cuda))
+    args[5].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="GRUScanXin"):
+        cuda_gru.gru_scan_fused_xin(*args, mode="pre")
+    with torch.no_grad():
+        cuda_gru.gru_scan_fused_xin(*args, mode="pre")
+    args[5] = args[5].detach()
+    dense_x = [args[0], torch.randn(20, 99, device=cuda), None, *args[3:]]
+    with pytest.raises(NotImplementedError, match="dense x side"):
+        cuda_gru.gru_scan_fused_xin(*dense_x, mode="pre")
+    monkeypatch.setenv("VMLMF_PALLAS_SAVED_GATES", "0")
+    with pytest.raises(NotImplementedError, match="recompute"):
+        cuda_gru.gru_scan_fused_xin_res(*args, mode="pre")
+    monkeypatch.delenv("VMLMF_PALLAS_SAVED_GATES")
+    args[0] = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru.gru_scan_fused_xin(*args, mode="pre")
+
+
+def gru_har(backend, group):
+    from vmlmf_tpu_torch.cells import GRUCell, GRUGroupCell
+    from vmlmf_tpu_torch.nn.models import HARNet
+
+    if group:
+        def factory(n, h):
+            return GRUGroupCell(n, h, w_rank=9, u_ranks=(12, 6), groups=2)
+    else:
+        def factory(n, h):
+            return GRUCell(n, h, w_rank=9, u_rank=9)
+    return HARNet(77, (64, 64), num_classes=18, backend=backend, cell_factory=factory)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [False, True], ids=["lowrank", "group"])
+def test_fused_gru_training_gives_every_cell_parameter_the_loop_gradient(cuda, group):
+    from vmlmf_tpu_torch.ops import cuda_gru
+    from vmlmf_tpu_torch.train.har import cross_entropy
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((81, 24, 77)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 18, 81)).to(cuda)
+    grads = []
+    for backend in ("fused", "loop"):
+        model = gru_har(backend, group)
+        params = model.init(torch.Generator().manual_seed(0), device=cuda)
+        cells = [p for cell in params["rnn"] for p in cell.values()]
+        for p in cells:
+            p.requires_grad_(True)
+        before = cuda_gru.gru_scan_xin_bwd.launches
+        cross_entropy(model.apply(params, x), y).backward()
+        assert cuda_gru.gru_scan_xin_bwd.launches - before == (2 if backend == "fused" else 0)
+        grads.append([p.grad for p in cells])
+    for fused, loop in zip(*grads):
+        assert fused is not None and bool(torch.isfinite(fused).all())
+        scale = float(loop.abs().max())
+        assert scale > 0
+        assert float((fused - loop).abs().max()) <= GRAD_TOL["rtol"] * scale
+
+
+@pytest.mark.cuda
+def test_har_trainer_runs_the_gru_harnet_on_cuda(cuda):
+    from vmlmf_tpu_torch.ops import cuda_gru
+    from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
+
+    model = gru_har("fused", False)
+    trainer = HARTrainer(model, batch_size=81, device=cuda)
+    params, opt = trainer.init()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((81, 24, 77)).astype(np.float32)
+    y = rng.integers(0, 18, 81).astype(np.int32)
+    losses = [float(trainer.train_step(params, opt, x, y)[2]) for _ in range(5)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    before = cuda_gru.gru_scan_fused_xin.launches
+    metrics = evaluate(model, params, x, y, batch_size=81)
+    assert cuda_gru.gru_scan_fused_xin.launches - before == 2
+    assert 0.0 <= metrics["accuracy"] <= 1.0

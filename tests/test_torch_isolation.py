@@ -39,7 +39,8 @@ def test_port_imports_no_jax(tmp_path):
     count, bad = summary.split(maxsplit=1)
     assert int(count) >= 24
     assert bad.strip() == "[]"
-    for name in ("train.lm", "train.har", "data.batching", "data.ptb", "data.har", "nn.models"):
+    for name in ("train.lm", "train.har", "data.batching", "data.ptb", "data.har", "nn.models",
+                 "cells.gru", "ops.cuda_gru"):
         assert f"vmlmf_tpu_torch.{name}" in names.split()
 
 

@@ -1,2 +1,3 @@
 from vmlmf_tpu_torch.cells.base import Cell, lstm_update, reinit_uniform  # noqa: F401
+from vmlmf_tpu_torch.cells.gru import GRUCell, GRUGroupCell  # noqa: F401
 from vmlmf_tpu_torch.cells.vmlmf import VMLMFCell  # noqa: F401

@@ -1,0 +1,458 @@
+// Backward of the fused GRU scan (x mode, low-rank x side, saved gates, f32),
+// for sm_90a.
+//
+// Replaces vmlmf_tpu/ops/pallas_gru.py::_bwd_kernel in the variant that
+// gru_scan_fused_xin's VJP runs in x mode with a low-rank x side, f32, with
+// the saved-gates residual policy, in the three recurrent forms of the
+// forward (gru_scan_xin_fwd.cu: 0 low-rank "pre", 1 dense "pre", 2 dense
+// "post"). From the forward's residuals and the cotangent dys [T,B,h] it
+// walks t = T-1 .. 0 with the carry dh (zero at the start):
+//
+//   dh     += dys[t];   (r, z, n) = gates[t];   hp = h_prev
+//   dz      = dh * (hp - n);   dn_pre = dh * (1 - z) * (1 - n^2);   dhp = dh * z
+//   "post":      dr = dn_pre * recn[t];  dhp += (dn_pre * r) @ Pn^T
+//   dense "pre": drh = dn_pre @ Pn^T
+//   low-rank:    drhu = dn_pre @ Pn^T;   drh = drhu @ Uf^T
+//   "pre":       dr = drh * hp;          dhp += drh * r
+//   dr_pre = dr * r * (1 - r);   dz_pre = dz * z * (1 - z)
+//   dense:       dhp += [dr_pre, dz_pre] @ Prz^T
+//   low-rank:    dhu = [dr_pre, dz_pre] @ Prz^T;   dhp += dhu @ Uf^T
+//   dh = dhp
+//
+// then dh0 = dh, and, over all M = T*B rows, with dPre = [dR, dZ, dN] the
+// per-step (dr_pre, dz_pre, dn_pre), Hprev row (t, b) = h0[b] at t = 0 and
+// ys[t-1, b] after, and RH = R * Hprev:
+//
+//   low-rank:     dUf = Hprev^T dHU + RH^T dRHU,  dPrz = HU^T [dR dZ],  dPn = RHU^T dN
+//   dense "pre":  dPrz = Hprev^T [dR dZ],  dPn = RH^T dN
+//   "post":       dPrz = Hprev^T [dR dZ],  dPn = Hprev^T (dN * R)
+//   dXU = dPre Vx^T,  dx = dXU Ux^T,  dUx = X^T dXU,  dVx = XU^T dPre,
+//   dbias = sum_m dPre
+//
+// What bounds it on an H100, and what the design does about it:
+// * The TPU kernel sums the weight gradients in VMEM across a grid that
+//   runs in order. Hopper runs CTAs in parallel, so the work is split:
+//   1. bptt_kernel, the serial part. One CTA owns kRows batch rows and walks
+//      all T steps with the dh carry and the step's dPre in shared memory,
+//      with the recurrent weights resident there when they fit, as in the
+//      forward (else read through L2). Each step is a chain of small
+//      dependent products with a block barrier after each (five in low-rank
+//      "pre", three in dense "pre", two in "post"): at h=64 the steps and
+//      barriers, not bytes, set its time. The products that reduce over a
+//      gate row go one warp per output, lanes along the row, so that
+//      neighbouring lanes read neighbouring words. It writes dPre [M,3h],
+//      and dHU, dRHU [M,r] in the low-rank form, for the passes below.
+//   2. Time-parallel passes over all M rows: tiled GEMMs (gemm_tile.cuh)
+//      with transposed operand views, and a column-sum kernel for dbias.
+//      Hprev, R*Hprev and dN*R are read in place through operand views,
+//      never built as copies. Every gradient is summed by one CTA per output
+//      tile or column block in a fixed order: deterministic, no atomics. dUf's
+//      two terms run as two GEMMs in turn on the stream, the second adding to
+//      the first.
+// * dx is skipped when the caller passes no dx buffer (a first layer's raw
+//   input needs none).
+// * Every edge is masked: B, T*B, F, h, r, rx need not be tile multiples.
+
+#include <cuda_runtime.h>
+
+#include "gemm_tile.cuh"
+
+namespace {
+
+using vmlmf::cdiv;
+
+constexpr int kRows = 4;  // batch rows per serial CTA
+constexpr int kBpttThreads = 512;
+constexpr int kSumCols = 32;   // columns per column-sum CTA
+constexpr int kSumLanes = 8;   // row lanes per column-sum CTA
+constexpr int kLowrankPre = 0, kDensePre = 1, kDensePost = 2;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// h_prev of output row m = (t, b0 + row): h0 at t = 0, else ys[t - 1].
+__device__ __forceinline__ float hprev(const float* h0, const float* ys, size_t m, int t,
+                                       int batch, int b, int h, int j) {
+  return t > 0 ? ys[(m - batch) * h + j] : h0[(size_t)b * h + j];
+}
+
+__host__ __device__ inline size_t state_floats(int h, int r) {
+  return (size_t)kRows * (4 * h + 2 * r);
+}
+__host__ __device__ inline size_t weight_floats(int form, int h, int r) {
+  return form == kLowrankPre ? (size_t)4 * h * r : (size_t)3 * h * h;
+}
+
+// Serial reverse walk. Shared memory: dhs [kRows,h] (the carry, then dh_prev
+// of the step), dps [kRows,3h] (dr_pre, dz_pre, and dn_pre in "pre" or
+// dn_pre*r in "post"), drhus, dhus [kRows,r]; then, when `resident`, Uf
+// [h,r], Prz and Pn. Rows past the batch stay zero and are never written out.
+template <int Form>
+__global__ void __launch_bounds__(kBpttThreads)
+bptt_kernel(const float* __restrict__ gates, const float* __restrict__ ys,
+            const float* __restrict__ h0, const float* __restrict__ recn,
+            const float* __restrict__ dys, const float* __restrict__ uf_g,
+            const float* __restrict__ prz_g, const float* __restrict__ pn_g,
+            float* __restrict__ dpre, float* __restrict__ dhu_out, float* __restrict__ drhu_out,
+            float* __restrict__ dh0, int t_len, int batch, int h, int r, bool resident) {
+  constexpr bool kLowrank = Form == kLowrankPre;
+  extern __shared__ float smem[];
+  const int g3 = 3 * h;
+  float* dhs = smem;
+  float* dps = dhs + kRows * h;
+  float* drhus = dps + kRows * g3;
+  float* dhus = drhus + kRows * r;
+  const int b0 = blockIdx.x * kRows;
+  const int rows = min(kRows, batch - b0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+  const int depth = kLowrank ? r : h;
+
+  const float* uf = uf_g;
+  const float* prz = prz_g;
+  const float* pn = pn_g;
+  if (resident) {
+    float* ufs = dhus + kRows * r;
+    float* przs = ufs + (kLowrank ? (size_t)h * r : 0);
+    float* pns = przs + (size_t)depth * 2 * h;
+    if (kLowrank)
+      for (int i = threadIdx.x; i < h * r; i += blockDim.x) ufs[i] = uf_g[i];
+    for (int i = threadIdx.x; i < depth * 2 * h; i += blockDim.x) przs[i] = prz_g[i];
+    for (int i = threadIdx.x; i < depth * h; i += blockDim.x) pns[i] = pn_g[i];
+    uf = ufs;
+    prz = przs;
+    pn = pns;
+  }
+  for (int i = threadIdx.x; i < kRows * (4 * h + 2 * r); i += blockDim.x) smem[i] = 0.f;
+  __syncthreads();
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const size_t row_t = (size_t)t * batch + b0;
+
+    // Elementwise: dz_pre, dn_pre and dh*z; in "post" also dr_pre and
+    // dn_pre*r. Each (row, j) of the carry is read and written by its own
+    // thread only.
+    for (int j = threadIdx.x; j < h; j += blockDim.x) {
+      for (int row = 0; row < rows; ++row) {
+        const size_t m = row_t + row;
+        const float* gr = gates + m * g3;
+        const float rg = gr[j], z = gr[h + j], n = gr[2 * h + j];
+        const float hp = hprev(h0, ys, m, t, batch, b0 + row, h, j);
+        const float dh = dhs[row * h + j] + dys[m * h + j];
+        const float dz_pre = dh * (hp - n) * z * (1.f - z);
+        const float dn_pre = dh * (1.f - z) * (1.f - n * n);
+        float* ds = dps + row * g3;
+        ds[h + j] = dz_pre;
+        ds[2 * h + j] = Form == kDensePost ? dn_pre * rg : dn_pre;
+        float* dg = dpre + m * g3;
+        dg[h + j] = dz_pre;
+        dg[2 * h + j] = dn_pre;
+        if (Form == kDensePost) {
+          const float dr_pre = dn_pre * recn[m * h + j] * rg * (1.f - rg);
+          ds[j] = dr_pre;
+          dg[j] = dr_pre;
+        }
+        dhs[row * h + j] = dh * z;
+      }
+    }
+    __syncthreads();
+
+    if (Form == kDensePost) {
+      // dhp += [dr_pre, dz_pre, dn_pre*r] @ [Prz | Pn]^T: one warp per j
+      for (int j = warp; j < h; j += nwarps) {
+        float acc[kRows] = {};
+        for (int c = lane; c < g3; c += 32) {
+          const float w = c < 2 * h ? prz[(size_t)j * 2 * h + c] : pn[(size_t)j * h + c - 2 * h];
+#pragma unroll
+          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g3 + c], w, acc[row]);
+        }
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) {
+          const float s = warp_sum(acc[row]);
+          if (lane == 0) dhs[row * h + j] += s;
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+
+    if (kLowrank) {
+      // drhu = dn_pre @ Pn^T: one warp per rank k, lanes along Pn's row k
+      for (int k = warp; k < r; k += nwarps) {
+        float acc[kRows] = {};
+        for (int c = lane; c < h; c += 32) {
+          const float w = pn[(size_t)k * h + c];
+#pragma unroll
+          for (int row = 0; row < kRows; ++row)
+            acc[row] = fmaf(dps[row * g3 + 2 * h + c], w, acc[row]);
+        }
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) {
+          const float s = warp_sum(acc[row]);
+          if (lane == 0) {
+            drhus[row * r + k] = s;
+            if (row < rows) drhu_out[(row_t + row) * r + k] = s;
+          }
+        }
+      }
+      __syncthreads();
+      // drh = drhu @ Uf^T, then dr_pre and dhp += drh * r: one thread per j
+      for (int j = threadIdx.x; j < h; j += blockDim.x) {
+        for (int row = 0; row < rows; ++row) {
+          float drh = 0.f;
+          for (int k = 0; k < r; ++k) drh = fmaf(drhus[row * r + k], uf[(size_t)j * r + k], drh);
+          const size_t m = row_t + row;
+          const float rg = gates[m * g3 + j];
+          const float dr_pre = drh * hprev(h0, ys, m, t, batch, b0 + row, h, j) * rg * (1.f - rg);
+          dps[row * g3 + j] = dr_pre;
+          dpre[m * g3 + j] = dr_pre;
+          dhs[row * h + j] += drh * rg;
+        }
+      }
+    } else {
+      // drh = dn_pre @ Pn^T, then dr_pre and dhp += drh * r: one warp per j
+      for (int j = warp; j < h; j += nwarps) {
+        float acc[kRows] = {};
+        for (int c = lane; c < h; c += 32) {
+          const float w = pn[(size_t)j * h + c];
+#pragma unroll
+          for (int row = 0; row < kRows; ++row)
+            acc[row] = fmaf(dps[row * g3 + 2 * h + c], w, acc[row]);
+        }
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) {
+          const float drh = warp_sum(acc[row]);
+          if (lane == 0 && row < rows) {
+            const size_t m = row_t + row;
+            const float rg = gates[m * g3 + j];
+            const float dr_pre =
+                drh * hprev(h0, ys, m, t, batch, b0 + row, h, j) * rg * (1.f - rg);
+            dps[row * g3 + j] = dr_pre;
+            dpre[m * g3 + j] = dr_pre;
+            dhs[row * h + j] += drh * rg;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    if (kLowrank) {
+      // dhu = [dr_pre, dz_pre] @ Prz^T: one warp per rank k
+      for (int k = warp; k < r; k += nwarps) {
+        float acc[kRows] = {};
+        for (int c = lane; c < 2 * h; c += 32) {
+          const float w = prz[(size_t)k * 2 * h + c];
+#pragma unroll
+          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g3 + c], w, acc[row]);
+        }
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) {
+          const float s = warp_sum(acc[row]);
+          if (lane == 0) {
+            dhus[row * r + k] = s;
+            if (row < rows) dhu_out[(row_t + row) * r + k] = s;
+          }
+        }
+      }
+      __syncthreads();
+      // dhp += dhu @ Uf^T: one thread per j
+      for (int j = threadIdx.x; j < h; j += blockDim.x) {
+        for (int row = 0; row < rows; ++row) {
+          float s = 0.f;
+          for (int k = 0; k < r; ++k) s = fmaf(dhus[row * r + k], uf[(size_t)j * r + k], s);
+          dhs[row * h + j] += s;
+        }
+      }
+    } else {
+      // dhp += [dr_pre, dz_pre] @ Prz^T: one warp per j
+      for (int j = warp; j < h; j += nwarps) {
+        float acc[kRows] = {};
+        for (int c = lane; c < 2 * h; c += 32) {
+          const float w = prz[(size_t)j * 2 * h + c];
+#pragma unroll
+          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g3 + c], w, acc[row]);
+        }
+#pragma unroll
+        for (int row = 0; row < kRows; ++row) {
+          const float s = warp_sum(acc[row]);
+          if (lane == 0) dhs[row * h + j] += s;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) dh0[(size_t)b0 * h + i] = dhs[i];
+}
+
+// The transpose of R * Hprev [M, h]: element (i, j) = gates[j, i] * Hprev[j, i],
+// with R the first h columns of gates [M, 3h] and Hprev read as PrevRowsT does.
+struct GatedPrevT {
+  const float* gates;
+  const float* first;
+  const float* rest;
+  int nfirst;
+  int ld;
+  static constexpr bool kContigJ = false;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    const float hp = j < nfirst ? first[(size_t)j * ld + i] : rest[(size_t)(j - nfirst) * ld + i];
+    return gates[(size_t)j * 3 * ld + i] * hp;
+  }
+};
+
+// Element (i, j) = a[i * ld + j] * b[i * ld + j]: the product of two row-major
+// views with one stride (dN * R from dPre and gates).
+struct RowProduct {
+  const float* a;
+  const float* b;
+  int ld;
+  static constexpr bool kContigJ = true;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    const size_t o = (size_t)i * ld + j;
+    return a[o] * b[o];
+  }
+};
+
+// Epilogue that adds the sum to what is there: c[i * ldc + j] += v.
+struct AddTo {
+  float* c;
+  int ldc;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    c[(size_t)i * ldc + j] += v;
+  }
+};
+
+// dbias[n] = sum over the M rows of dpre [M, n_cols]: kSumLanes row lanes
+// per column, then a fixed-order sum over the lanes.
+__global__ void __launch_bounds__(kSumCols * kSumLanes)
+colsum_kernel(const float* __restrict__ dpre, float* __restrict__ dbias, int m_rows,
+              int n_cols) {
+  __shared__ float part[kSumLanes][kSumCols];
+  const int c = threadIdx.x % kSumCols, lane = threadIdx.x / kSumCols;
+  const int n = blockIdx.x * kSumCols + c;
+  float s = 0.f;
+  if (n < n_cols)
+    for (int m = lane; m < m_rows; m += kSumLanes) s += dpre[(size_t)m * n_cols + n];
+  part[lane][c] = s;
+  __syncthreads();
+  if (lane == 0 && n < n_cols) {
+    for (int l = 1; l < kSumLanes; ++l) s += part[l][c];
+    dbias[n] = s;
+  }
+}
+
+template <int Form>
+cudaError_t bptt(const float* gates, const float* ys, const float* h0, const float* recn,
+                 const float* dys, const float* uf, const float* prz, const float* pn,
+                 float* dpre, float* dhu, float* drhu, float* dh0, int t_len, int batch, int h,
+                 int r, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  size_t smem = sizeof(float) * state_floats(h, r);
+  const size_t with_weights = smem + sizeof(float) * weight_floats(Form, h, r);
+  const bool resident = with_weights <= (size_t)optin;
+  if (resident) smem = with_weights;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(bptt_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  bptt_kernel<Form><<<cdiv(batch, kRows), kBpttThreads, smem, stream>>>(
+      gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len, batch, h, r, resident);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the serial kernel, the GEMMs and the column sums on `stream`;
+// returns the first error. dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank;
+// else null) and dxu [T*B, rx] are scratch that the caller allocates; every
+// pointer after them is an output. dx may be null (not computed); uf, hu,
+// rhu, duf are null in the dense forms, recn outside "post".
+extern "C" int gru_scan_xin_bwd(
+    const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
+    const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
+    const float* rhu, const float* recn, const float* xu, const float* dys, float* dpre,
+    float* dhu, float* drhu, float* dxu, float* dx, float* dux, float* dvx, float* dbias,
+    float* duf, float* dprz, float* dpn, float* dh0, int t_len, int batch, int f, int rx, int h,
+    int r, int form, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const int m = t_len * batch;
+  const int g3 = 3 * h;
+  using vmlmf::PrevRowsT;
+  using vmlmf::RowMajor;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  cudaError_t err;
+
+  switch (form) {
+    case kLowrankPre:
+      err = bptt<kLowrankPre>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
+                              batch, h, r, stream);
+      break;
+    case kDensePre:
+      err = bptt<kDensePre>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
+                            batch, h, r, stream);
+      break;
+    case kDensePost:
+      err = bptt<kDensePost>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
+                             batch, h, r, stream);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+
+  const PrevRowsT hprev_t{h0, ys, batch, h};
+  if (form == kLowrankPre) {
+    // dPrz [r, 2h] = HU^T [dR dZ];  dPn [r, h] = RHU^T dN
+    err = vmlmf::gemm(Transposed{hu, r}, RowMajor{dpre, g3}, Store{dprz, 2 * h}, r, 2 * h, m,
+                      stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(Transposed{rhu, r}, RowMajor{dpre + 2 * h, g3}, Store{dpn, h}, r, h, m,
+                      stream);
+    if (err != cudaSuccess) return err;
+    // dUf [h, r] = Hprev^T dHU, then += (R * Hprev)^T dRHU
+    err = vmlmf::gemm(hprev_t, RowMajor{dhu, r}, Store{duf, r}, h, r, m, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{drhu, r}, AddTo{duf, r}, h,
+                      r, m, stream);
+  } else {
+    // dPrz [h, 2h] = Hprev^T [dR dZ]
+    err = vmlmf::gemm(hprev_t, RowMajor{dpre, g3}, Store{dprz, 2 * h}, h, 2 * h, m, stream);
+    if (err != cudaSuccess) return err;
+    if (form == kDensePre)  // dPn [h, h] = (R * Hprev)^T dN
+      err = vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{dpre + 2 * h, g3},
+                        Store{dpn, h}, h, h, m, stream);
+    else  // dPn [h, h] = Hprev^T (dN * R)
+      err = vmlmf::gemm(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{dpn, h}, h, h, m,
+                        stream);
+  }
+  if (err != cudaSuccess) return err;
+
+  // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T
+  err = vmlmf::gemm(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3, stream);
+  if (err != cudaSuccess) return err;
+  if (dx != nullptr) {
+    err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, Store{dx, f}, m, f, rx, stream);
+    if (err != cudaSuccess) return err;
+  }
+  // dUx [F, rx] = X^T dXU;  dVx [rx, 3h] = XU^T dPre
+  err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
+  if (err != cudaSuccess) return err;
+  err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g3}, Store{dvx, g3}, rx, g3, m, stream);
+  if (err != cudaSuccess) return err;
+
+  colsum_kernel<<<cdiv(g3, kSumCols), kSumCols * kSumLanes, 0, stream>>>(dpre, dbias, m, g3);
+  return cudaGetLastError();
+}
+
+// The message of an error code that gru_scan_xin_bwd returned.
+extern "C" const char* gru_scan_xin_bwd_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,5 +1,6 @@
-"""Task networks: the HAR classifier and the word-level LM (counterparts of
-`vmlmf_tpu.nn.models.HARNet` and `LMModel`)."""
+"""Task networks: the HAR classifiers, one-way and bidirectional, and the
+word-level LM (counterparts of `vmlmf_tpu.nn.models.HARNet`, `BDNet` and
+`LMModel`)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,14 @@ import torch
 from vmlmf_tpu_torch.cells.base import reinit_uniform
 from vmlmf_tpu_torch.nn.layers import Dense, Embed, dropout
 from vmlmf_tpu_torch.nn.recurrence import RNN, scan_layer
+
+
+def _make_cells(cell_factory, input_size, layer_sizes):
+    cells, n = [], input_size
+    for h in layer_sizes:
+        cells.append(cell_factory(n, h))
+        n = h
+    return tuple(cells)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,11 +36,8 @@ class HARNet:
     backend: str = "fused"
 
     def __post_init__(self, cell_factory):
-        cells, n = [], self.input_size
-        for h in self.layer_sizes:
-            cells.append(cell_factory(n, h))
-            n = h
-        object.__setattr__(self, "rnn", RNN(tuple(cells), backend=self.backend))
+        cells = _make_cells(cell_factory, self.input_size, self.layer_sizes)
+        object.__setattr__(self, "rnn", RNN(cells, backend=self.backend))
         object.__setattr__(self, "head", Dense(self.layer_sizes[-1], self.num_classes,
                                                bias_fill=0.1))
 
@@ -44,6 +50,53 @@ class HARNet:
         """x: [B, T, F] -> logits [B, num_classes]."""
         ys, _ = self.rnn(params["rnn"], x)
         return self.head(params["head"], ys[:, -1])
+
+
+@dataclasses.dataclass(frozen=True)
+class BDNet:
+    """Bidirectional HAR classifier: a forward and a time-reversed tower of
+    their own cells, merged by ``merge`` (concat, sum or avg) into the head.
+
+    The reverse tower runs its scans with ``reverse=True`` and is read at
+    index 0: its output at original time 0, after it has consumed the whole
+    sequence backwards. Parameters are ``{"fwd": [...], "rev": [...],
+    "head": {"w", "b"}}``, the JAX package's tree.
+    """
+
+    input_size: int
+    layer_sizes: tuple
+    cell_factory: dataclasses.InitVar = None
+    num_classes: int = 18
+    merge: str = "concat"
+    backend: str = "fused"
+
+    def __post_init__(self, cell_factory):
+        if self.merge not in ("concat", "sum", "avg"):
+            raise ValueError(f"unknown merge {self.merge!r}")
+        for name in ("rnn_f", "rnn_r"):
+            cells = _make_cells(cell_factory, self.input_size, self.layer_sizes)
+            object.__setattr__(self, name, RNN(cells, backend=self.backend))
+        head_in = self.layer_sizes[-1] * (2 if self.merge == "concat" else 1)
+        object.__setattr__(self, "head", Dense(head_in, self.num_classes, bias_fill=0.1))
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        """Parameters from ``generator`` (a CPU `torch.Generator`), on ``device``."""
+        return {"fwd": self.rnn_f.init(generator, device, dtype),
+                "rev": self.rnn_r.init(generator, device, dtype),
+                "head": self.head.init(generator, device, dtype)}
+
+    def apply(self, params, x):
+        """x: [B, T, F] -> logits [B, num_classes]."""
+        y_f, _ = self.rnn_f(params["fwd"], x)
+        y_r, _ = self.rnn_r(params["rev"], x, reverse=True)
+        last_f, first_r = y_f[:, -1], y_r[:, 0]
+        if self.merge == "concat":
+            merged = torch.cat([last_f, first_r], -1)
+        elif self.merge == "sum":
+            merged = last_f + first_r
+        else:
+            merged = 0.5 * (last_f + first_r)
+        return self.head(params["head"], merged)
 
 
 @dataclasses.dataclass(frozen=True)

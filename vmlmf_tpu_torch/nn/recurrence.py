@@ -4,12 +4,13 @@
 Two backends, the same function:
   * "loop"  — the time-parallel ``cell.inp`` for all T, then a Python loop of
     ``cell.step`` (the JAX package's "xla" backend, a `lax.scan` there);
-  * "fused" — the whole LSTM scan in one call of the port's fused scan (the
-    JAX package's "pallas" backend): `cuda_scan.LSTMScanXin` when grad mode
-    is on and an input requires a gradient (the residual forward kernel, then
+  * "fused" — the whole scan in one call of the port's fused scan (the JAX
+    package's "pallas" backend), for the LSTM family (`cuda_scan`) and the
+    GRU cells (`cuda_gru`): `LSTMScanXin` / `GRUScanXin` when grad mode is
+    on and an input requires a gradient (the residual forward kernel, then
     the BPTT kernel in the backward), else the no-grad
-    `cuda_scan.lstm_scan_fused_xin`. Each launches its CUDA kernels on CUDA
-    tensors and runs its plain version on CPU tensors.
+    `lstm_scan_fused_xin` / `gru_scan_fused_xin`. Each launches its CUDA
+    kernels on CUDA tensors and runs its plain version on CPU tensors.
 
 Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
 input with ``time_major=False``.
@@ -21,6 +22,7 @@ import dataclasses
 
 import torch
 
+from vmlmf_tpu_torch.ops.cuda_gru import GRUScanXin, gru_scan_fused_xin
 from vmlmf_tpu_torch.ops.cuda_scan import LSTMScanXin, lstm_scan_fused_xin
 
 BACKENDS = ("loop", "fused")
@@ -31,30 +33,45 @@ def _check_backend(backend):
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
 
 
+def _needs_grad(args):
+    return torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args)
+
+
 def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
     """Run one cell over time-major ``xs [T, B, n]`` -> (ys [T, B, h], state).
 
     backend="fused" needs a cell with `fused_rec_inputs` and `fused_x_inputs`
-    (the LSTM family) and raises for any other.
+    (the LSTM family; state (h, c)) or with `fused_rec_inputs_gru` and
+    `fused_x_inputs_gru` (the GRU cells; state h), and raises for any other.
+    The state that comes back is (h_last, c_last) or h_last = ys[-1].
     """
     _check_backend(backend)
     if backend == "fused":
-        if not (hasattr(cell, "fused_rec_inputs") and hasattr(cell, "fused_x_inputs")):
-            raise ValueError(f"backend='fused' has no kernel for {type(cell).__name__}")
-        src = torch.flip(xs, (0,)) if reverse else xs
-        h0, c0 = state0
-        args = (src.contiguous(), *cell.fused_x_inputs(prep), *cell.fused_rec_inputs(prep),
-                h0.contiguous(), c0.contiguous())
-        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-            ys, c_last = LSTMScanXin.apply(*args)
+        src = (torch.flip(xs, (0,)) if reverse else xs).contiguous()
+        if hasattr(cell, "fused_rec_inputs_gru") and hasattr(cell, "fused_x_inputs_gru"):
+            uf, prz, pn, mode = cell.fused_rec_inputs_gru(prep)
+            args = (src, *cell.fused_x_inputs_gru(prep), uf, prz, pn, state0.contiguous())
+            if _needs_grad(args):
+                ys = GRUScanXin.apply(*args, mode)
+            else:
+                ys = gru_scan_fused_xin(*args, mode=mode)
+            state = ys[-1]
+        elif hasattr(cell, "fused_rec_inputs") and hasattr(cell, "fused_x_inputs"):
+            h0, c0 = state0
+            args = (src, *cell.fused_x_inputs(prep), *cell.fused_rec_inputs(prep),
+                    h0.contiguous(), c0.contiguous())
+            if _needs_grad(args):
+                ys, c_last = LSTMScanXin.apply(*args)
+            else:
+                ys, c_last = lstm_scan_fused_xin(*args)
+            state = (ys[-1], c_last)
         else:
-            ys, c_last = lstm_scan_fused_xin(*args)
-        h_last = ys[-1]
+            raise ValueError(f"backend='fused' has no kernel for {type(cell).__name__}")
         if reverse:
             ys = torch.flip(ys, (0,))
-        return ys, (h_last, c_last)
+        return ys, state
 
-    gi = cell.inp(prep, xs)  # [T, B, 4h], time-parallel
+    gi = cell.inp(prep, xs)  # [T, B, G*h], time-parallel
     state = state0
     steps = range(xs.shape[0] - 1, -1, -1) if reverse else range(xs.shape[0])
     ys = [None] * xs.shape[0]

@@ -200,12 +200,13 @@ def _require_cuda(name, xs):
 
 def _launch(kernel, entry, tensors, sizes, device):
     """Call C entry ``entry`` of csrc/<kernel>.cu on the current stream: the
-    tensors' pointers (None -> null), the six sizes (T, B, F, rx, h, r) and
-    the stream. Raises on the non-zero cudaError it returns."""
+    tensors' pointers (None -> null), the integer sizes (here T, B, F, rx,
+    h, r) and the stream. Raises on the non-zero cudaError it returns."""
     lib = _build.load(kernel)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(sizes)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(None if a is None else a.data_ptr() for a in tensors), *sizes, stream)

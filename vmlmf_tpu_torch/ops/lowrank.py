@@ -29,3 +29,32 @@ def gate_diag_rowsum(u, v, num_gates, hidden_size):
     m = min(u.shape[0], hidden_size)
     v_g = v.reshape(num_gates, hidden_size, v.shape[-1])
     return torch.einsum("jr,gjr->gj", u[:m], v_g[:, :m, :])
+
+
+def group_lowrank_proj(h_bgk, u, v):
+    """One rotation tier of the group low-rank recurrent product.
+
+    h_bgk: [..., g, h/g] (already rotated); u: [g, h/g, r]; v: [g, r, M]
+    -> [..., g, M]
+    """
+    return torch.einsum("...gk,gkr,grm->...gm", h_bgk, u, v)
+
+
+def dense_from_group(u_tiers, v_tiers, num_gates, hidden_size):
+    """The dense recurrent matrix of a group cell -> [G*h, h], gate-major.
+
+    u_tiers[i]: [g, h/g, r_i]; v_tiers[i]: [g, r_i, G*(h/g)]. Tier i places
+    the factor of output group p against input group (p + i) % g, so each
+    (p, q) block comes from exactly one tier. The blocks are joined with
+    `torch.cat` and `torch.stack`, so gradients reach every tier.
+    """
+    g = u_tiers[0].shape[0]
+    k = hidden_size // g
+    rows = []
+    for p in range(g):
+        # block (p, q) is tier (q - p) % g: [G, h/g out, h/g in]
+        blocks = [(u_tiers[(q - p) % g][p] @ v_tiers[(q - p) % g][p]).T.reshape(num_gates, k, k)
+                  for q in range(g)]
+        rows.append(torch.cat(blocks, dim=-1))  # [G, h/g, h]
+    w = torch.stack(rows, dim=1)  # [G, out group, h/g, h]
+    return w.reshape(num_gates * hidden_size, hidden_size)

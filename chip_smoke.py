@@ -11,9 +11,15 @@ Phases, each of which exits non-zero when it fails:
                T=35, F=h=650, r=rx=300; the HAR layer: T=24, F=77, h=180,
                rx=8, r=6): the no-grad forward at B in 1/20/128 (LM) and
                81/256 (HAR; 256 is `evaluate`'s batch), the residual forward
-               and the BPTT at B in 20/128 (LM) and 81 (HAR). Each with its
-               time, the plain version's, its roofline bound, and cuDNN's
-               LSTM on the same scan's dense weights (the library yardstick).
+               and the BPTT at B in 20/128 (LM) and 81 (HAR). Then the dense
+               forms: a dense recurrent side (the group VMLMF HAR layer, rx=8,
+               U [180, 720]), dense on both sides (the dense HAR layer, and
+               the dense PTB LM layer at B=20, U and Ux [650, 2600]), and a
+               dense x side (h=180, r=6). Each with its time, the plain
+               version's, its roofline bound, and cuDNN's LSTM on the same
+               scan's dense weights (the library yardstick); where the scan
+               is dense on both sides with no diagonal, cuDNN's output is
+               also held to the kernel's.
   4. gru kernels — each GRU kernel entry (no-grad forward, residual forward,
                BPTT) against its plain version at T=24, h=64, rx=9: the
                layers of both HAR GRUs (main: low-rank "pre", r=9; group:
@@ -21,7 +27,10 @@ Phases, each of which exits non-zero when it fails:
                all three entries run, and at B=256, `evaluate`'s batch,
                where the no-grad entry runs; a dense "pre" layer; and a
                dense "post" and a low-rank "pre" layer at h=256 whose
-               weights do not fit in shared memory. Library: cuDNN's GRU on
+               weights do not fit in shared memory; then each recurrent form
+               with a dense x side (ux [F, 3h]): the layers of the two dense-x
+               HAR GRUs at B=81 and 256, and a dense "pre" layer. Library:
+               cuDNN's GRU on
                the dense weights for "post"; for "pre" the script shows that
                cuDNN's GRU computes another function, and there is none.
   5. serve   — the PTB "medium" LM (vocab 10000, 2x650, VMLMF w300/u300;
@@ -51,14 +60,32 @@ Phases, each of which exits non-zero when it fails:
                kernels with reverse=True, four launches of each training
                entry per step. Then the fused logits of a GRU and an LSTM
                BDNet against the loop backend's.
- 10. trace   — one `torch.profiler` trace each of an LM train step at B=20
-               and of a main HAR GRU train step at B=81: the device time of
-               each kernel, the port's against cuBLAS's. A profiler error or
-               an empty trace fails the run.
- 11. report  — one JSON line listing every kernel entry, then the last line
-               {"ok": true, "device": {...}}.
+ 10. har_dense — the HAR paths through the dense forms, built by
+               `HARConfig(...).build_model()` at full width and run as in 7
+               and 8: the group VMLMF HARNet (77 -> 180, w8, u(2, 4), g=2:
+               a dense [180, 720] recurrent matrix), the dense LSTM HARNet
+               (the CLI default, `HARConfig()`), and the two GRU HARNets with
+               a dense x side (`mygru` u9, `mygru_group` u(12, 6)).
+ 11. lm_dense — the dense PTB LM, `LMConfig(lstm_type="custom")` (vocab
+               10000, 2x650, dropout 0.5): prefill and 64 greedy tokens at
+               B=20 (one no-grad launch per layer per prefill; fused against
+               loop), then 30 `LMTrainer` chunks (launches per step, falling
+               loss, perplexity's launches, fused against loop gradients at
+               dropout 0), prefill ms and train step ms.
+ 12. reduced — short runs of the other cells at reduced depth (3 steps):
+               dualdiag, mylstm_group, vmgroup_novm, LMF mylstm, mylstm with
+               a dense x side, the dense and the w9 mygru, DeepConvNet (64
+               channels, 77 sensors: a 4928-wide cell input), and the two
+               cells without a fused form, diag and the shuffled
+               LSTMGroupCell, which must launch nothing.
+ 13. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+               of a main HAR GRU train step at B=81, and of a dense LM train
+               step at B=20: the device time of each kernel, the port's
+               against cuBLAS's. A profiler error or an empty trace fails.
+ 14. report  — one JSON line listing every kernel entry in every form that
+               the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-9 every launch count is set to 0 just before the path runs and
+In phases 5-12 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -85,10 +112,55 @@ TRAIN_BATCHES = (20, 128)
 MAIN_BATCH = 20
 HAR = dict(t=24, b=81, f=77, h=180, rx=8, r=6)
 TRAIN_CHUNKS = 30
-# the HAR GRU configurations: layers of 64, x side rank 9, T=24, B=81
+# the HAR GRU layers: 64 wide, x side rank 9, T=24, B=81
 GRU = dict(t=24, b=81, f=77, h=64, rx=9, r=9)
-GRU_CONFIGS = {"main": dict(u_rank=9), "group": dict(u_ranks=(12, 6), groups=2)}
 EVAL_BATCH = 256  # `evaluate`'s batch, into which it pads the test windows
+REDUCED_STEPS = 3
+
+# The HAR paths at full width: their `HARConfig` fields and the kernel form
+# they run ("family:form"): first the low-rank ones, then the dense forms.
+HAR_PATHS = {
+    "vmlmf": (dict(model="vmmodel", w_rank=8, u_ranks=(6,)), "lstm:lowrank"),
+    "gru_main": (dict(model="mygru", layer_sizes=(64, 64), w_rank=9, u_ranks=(9,)),
+                 "gru:lowrank_pre"),
+    "gru_group": (dict(model="mygru_group", layer_sizes=(64, 64), w_rank=9, u_ranks=(12, 6)),
+                  "gru:dense_post"),
+    "group_vmlmf": (dict(model="vmgroup", w_rank=8, u_ranks=(2, 4)), "lstm:dense_rec"),
+    "dense_lstm": (dict(), "lstm:dense"),
+    "gru_dense_x": (dict(model="mygru", layer_sizes=(64, 64), u_ranks=(9,)),
+                    "gru:dx_lowrank_pre"),
+    "gru_group_dense_x": (dict(model="mygru_group", layer_sizes=(64, 64), u_ranks=(12, 6)),
+                          "gru:dx_dense_post"),
+}
+# The short runs at reduced depth: `HARConfig` fields (None: the shuffled
+# LSTMGroupCell, which no config field selects) and the form (None: no
+# fused form, so no launch).
+REDUCED = {
+    "dualdiag": (dict(model="dualdiag"), "lstm:dense"),
+    "mylstm_group": (dict(model="mylstm_group", u_ranks=(2, 4)), "lstm:dense"),
+    "vmgroup_novm": (dict(model="vmgroup_novm", w_rank=8, u_ranks=(2, 4)), "lstm:dense_rec"),
+    "mylstm_lmf": (dict(model="mylstm", w_rank=8, u_ranks=(6,)), "lstm:lowrank"),
+    "mylstm_dense_x": (dict(model="mylstm", u_ranks=(6,)), "lstm:dense_x"),
+    "mygru_dense": (dict(model="mygru", layer_sizes=(64, 64)), "gru:dx_dense_pre"),
+    "mygru_w9": (dict(model="mygru", layer_sizes=(64, 64), w_rank=9), "gru:dense_pre"),
+    "deepconv": (dict(model="mylstm", deepconv=True, layer_sizes=(128, 128)), "lstm:dense"),
+    "diag": (dict(model="diag"), None),
+    "lstm_group_shuffle": (None, None),
+}
+# Each form of each kernel family, with the kernel check whose numbers its
+# row in the kernels line carries: (shape name, B of the no-grad entry, B of
+# the training entries). The low-rank forms keep their entries' plain names.
+FORMS = {
+    "lstm": {"lowrank": ("lm", 20, 20), "dense_rec": ("har_group", EVAL_BATCH, 81),
+             "dense": ("lm_dense", 20, 20), "dense_x": ("har_dense_x", 81, 81)},
+    "gru": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
+            "dense_post": ("group_l1", EVAL_BATCH, 81),
+            "dense_pre": ("dense_pre", 81, 81),
+            "dx_lowrank_pre": ("dx_main_l1", EVAL_BATCH, 81),
+            "dx_dense_post": ("dx_group_l1", EVAL_BATCH, 81),
+            "dx_dense_pre": ("dx_dense_pre", 81, 81)},
+}
+FIRST_FORMS = ("lowrank", "lowrank_pre")
 
 
 def fail(msg):
@@ -162,20 +234,37 @@ def only(**counts):
     return want
 
 
+def nonzero(counts):
+    """The entries of a launch-count dict that launched, for printing."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def train_counts(form, n):
+    """The launch counts of n training scans of a form ("family:form")."""
+    fam = form.split(":")[0]
+    return only(**{f"{fam}_scan_xin_fwd_res": n, f"{fam}_scan_xin_bwd": n})
+
+
+def eval_counts(form, n):
+    """The launch counts of n no-grad scans of a form ("family:form")."""
+    return only(**{f"{form.split(':')[0]}_scan_xin_fwd": n})
+
+
 def dense_lstm_weights(ux, vx, xdvec, bias, u, v, dvec):
     """The fused scan's weights as one dense LSTM layer's, in PyTorch's layout
     and gate order (i, f, g, o): [w_ih [4h, F], w_hh [4h, h], b_ih, b_hh].
 
     The VMLMF pre-activation is linear in x and in h, so w_ih = (ux@vx)^T
-    plus xdvec[g, j] at [g*h + j, j] for j < min(F, h), w_hh = (u@v)^T plus
-    dvec on each gate's diagonal, b_ih = bias and b_hh = 0. cuDNN's LSTM on
-    these weights computes the same scan: the library yardstick.
+    (ux^T for a dense x side, vx None) plus xdvec[g, j] at [g*h + j, j] for
+    j < min(F, h), w_hh = (u@v)^T (u^T dense) plus dvec on each gate's
+    diagonal, b_ih = bias and b_hh = 0. cuDNN's LSTM on these weights
+    computes the same scan: the library yardstick.
     """
     import torch
 
     f, h = ux.shape[0], xdvec.shape[1]
-    w_ih = (ux @ vx).T.contiguous()
-    w_hh = (u @ v).T.contiguous()
+    w_ih = (ux if vx is None else ux @ vx).T.contiguous()
+    w_hh = (u if v is None else u @ v).T.contiguous()
     jx = torch.arange(min(f, h), device=ux.device)
     jh = torch.arange(h, device=ux.device)
     for g in range(4):
@@ -187,8 +276,8 @@ def dense_lstm_weights(ux, vx, xdvec, bias, u, v, dvec):
 def dense_gru_weights(ux, vx, bias, uf, prz, pn):
     """The fused GRU scan's weights as one dense GRU layer's, in PyTorch's
     layout and gate order (r, z, n): [w_ih [3h, F], w_hh [3h, h], b_ih, b_hh]
-    with w_ih = (ux@vx)^T, w_hh = [prz | pn]^T (low-rank: (uf@[prz | pn])^T),
-    b_ih = bias and b_hh = 0.
+    with w_ih = (ux@vx)^T (ux^T for a dense x side, vx None), w_hh =
+    [prz | pn]^T (low-rank: (uf@[prz | pn])^T), b_ih = bias and b_hh = 0.
 
     PyTorch's GRU applies the reset gate after the recurrent product, n =
     tanh(W_in x + b_in + r * (W_hn h + b_hn)), so cuDNN's GRU on these
@@ -198,7 +287,8 @@ def dense_gru_weights(ux, vx, bias, uf, prz, pn):
 
     w = torch.cat([prz, pn], dim=1)
     w_hh = w if uf is None else uf @ w
-    return [(ux @ vx).T.contiguous(), w_hh.T.contiguous(), bias.clone(), torch.zeros_like(bias)]
+    w_ih = ux if vx is None else ux @ vx
+    return [w_ih.T.contiguous(), w_hh.T.contiguous(), bias.clone(), torch.zeros_like(bias)]
 
 
 def phase_device(torch):
@@ -227,17 +317,25 @@ def phase_build():
     print(f"build: {built} in {time.perf_counter() - t0:.2f} s")
 
 
-def scan_inputs(torch, t, b, f, h, rx, r, seed=0):
-    """Seeded scan inputs on the card, scaled so that the gates are O(1)."""
+def scan_inputs(torch, t, b, f, h, rx, r, seed=0, diagonals=True):
+    """Seeded scan inputs on the card, scaled so that the gates are O(1). rx =
+    0 is a dense x side (ux [F, 4h], vx None), r = 0 a dense recurrent side
+    (u [h, 4h], v None); without ``diagonals`` xdvec and dvec are zeros, as
+    `LSTMCell` gives them."""
     g = torch.Generator().manual_seed(seed)
 
     def n(*shape, scale):
         return (scale * torch.randn(shape, generator=g)).cuda()
 
-    return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 4 * h, scale=rx ** -0.5),
-            n(4, h, scale=0.1), n(4 * h, scale=0.1), n(h, r, scale=h ** -0.5),
-            n(r, 4 * h, scale=r ** -0.5), n(4 * h, scale=0.1), n(b, h, scale=0.5),
-            n(b, h, scale=0.5))
+    xs, ux = n(t, b, f, scale=1.0), n(f, rx or 4 * h, scale=f ** -0.5)
+    vx = n(rx, 4 * h, scale=rx ** -0.5) if rx else None
+    xdvec, bias = n(4, h, scale=0.1), n(4 * h, scale=0.1)
+    u = n(h, r or 4 * h, scale=h ** -0.5)
+    v = n(r, 4 * h, scale=r ** -0.5) if r else None
+    dvec, h0, c0 = n(4 * h, scale=0.1), n(b, h, scale=0.5), n(b, h, scale=0.5)
+    if not diagonals:
+        xdvec, dvec = torch.zeros_like(xdvec), torch.zeros_like(dvec)
+    return xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0
 
 
 def cudnn_lstm(torch, args):
@@ -285,21 +383,35 @@ def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms):
                 library_ms=library_ms)
 
 
+def lstm_kernel_shapes():
+    """(name, shape, train, diagonals) of each LSTM kernel check: the PTB LM
+    layer at B in 1/20/128 and the VMLMF HAR layer at B=81 and 256 (both
+    low-rank); the dense PTB LM layer at B=20; the group VMLMF HAR layer (dense
+    recurrence) and the dense HAR layer at B=81 and 256; a dense x side at
+    B=81. ``train``: the residual forward and the BPTT run there too."""
+    lm = dict(t=LM["prompt"], f=LM["hidden"], h=LM["hidden"], rx=LM["rank"], r=LM["rank"])
+    out = [("lm", dict(lm, b=b), b in TRAIN_BATCHES, True) for b in LM_BATCHES]
+    out += [("har", HAR, True, True), ("har", dict(HAR, b=EVAL_BATCH), False, True)]
+    out += [("lm_dense", dict(lm, b=MAIN_BATCH, rx=0, r=0), True, False)]
+    for name, over, diagonals in (("har_group", dict(r=0), True),
+                                  ("har_dense", dict(rx=0, r=0), False)):
+        out += [(name, dict(HAR, **over), True, diagonals),
+                (name, dict(HAR, b=EVAL_BATCH, **over), False, diagonals)]
+    return out + [("har_dense_x", dict(HAR, rx=0), True, False)]
+
+
 def phase_kernels(torch):
     """-> {(entry, shape name, B): row} for the kernels line and PERF.md."""
     from vmlmf_tpu_torch.ops import cuda_scan
 
-    shapes = [("lm", dict(t=LM["prompt"], b=b, f=LM["hidden"], h=LM["hidden"],
-                          rx=LM["rank"], r=LM["rank"])) for b in LM_BATCHES]
-    shapes += [("har", HAR), ("har", dict(HAR, b=EVAL_BATCH))]  # train step, `evaluate`
     rows = {}
     print(f"tolerances: outputs and residuals atol = rtol = {TOL} (f32 sums in another "
           f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order)")
-    for name, s in shapes:
+    for name, s, train, diagonals in lstm_kernel_shapes():
         size = (s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
-        label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx']} "
-                 f"r={s['r']}")
-        args = scan_inputs(torch, **s)
+        label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx'] or 'dense'} "
+                 f"r={s['r'] or 'dense'}{'' if diagonals else ', no diagonals'}")
+        args = scan_inputs(torch, **s, diagonals=diagonals)
         lstm, lib_err = cudnn_lstm(torch, args)
         xs, h0, c0 = args[0], args[8], args[9]
         print(f"library: cuDNN LSTM on the dense weights, {label}: max abs err {lib_err:.3g} "
@@ -311,6 +423,14 @@ def phase_kernels(torch):
         ok, err = all_close(torch, (ys, c_last), cuda_scan.lstm_scan_fused_xin_plain(*args), TOL)
         if not ok:
             fail(f"lstm_scan_xin_fwd disagrees with its plain version at {label}: {err}")
+        if not diagonals and not s["rx"] and not s["r"]:
+            # dense on both sides with no diagonal: exactly cuDNN's LSTM
+            with torch.no_grad():
+                out, (_, c_n) = lstm(xs, (h0[None], c0[None]))
+            ok_l, err_l = all_close(torch, (out, c_n[0]), (ys, c_last), GRAD_TOL)
+            print(f"library: cuDNN LSTM against the kernel, {label}: max abs err {err_l:.3g}")
+            if not ok_l:
+                fail(f"cuDNN's LSTM disagrees with the dense kernel at {label}: {err_l}")
 
         def lib_fwd():
             with torch.no_grad():
@@ -321,7 +441,7 @@ def phase_kernels(torch):
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args), 10),
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_plain(*args), 5),
             cuda_scan.scan_cost(*size), cuda_ms(torch, lib_fwd, 10))
-        if s["b"] not in (TRAIN_BATCHES if name == "lm" else (HAR["b"],)):
+        if not train:
             continue
 
         # -- the residual forward and the BPTT, with dys given and dc_last
@@ -329,15 +449,17 @@ def phase_kernels(torch):
         res = cuda_scan.lstm_scan_fused_xin_res(*args)
         torch.cuda.synchronize()
         res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args)
-        ok, err = all_close(torch, res, res_p, TOL)
+        ok, err = all_close(torch, [a for a in res if a is not None],
+                            [a for a in res_p if a is not None], TOL)
         if not ok:
             fail(f"lstm_scan_xin_fwd_res disagrees with its plain version at {label}: {err}")
         dys = 0.1 * torch.randn(ys.shape, generator=torch.Generator().manual_seed(5)).cuda()
         saved = (*args[:4], *args[5:], *res)
         grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, None)
         torch.cuda.synchronize()
-        ok_g, err_g = all_close(torch, grads,
-                                cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None), GRAD_TOL)
+        grads_p = cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None)
+        ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
+                                [a for a in grads_p if a is not None], GRAD_TOL)
         if not ok_g:
             fail(f"lstm_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
 
@@ -360,14 +482,15 @@ def phase_kernels(torch):
 def gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank, seed=0):
     """Seeded GRU scan inputs on the card (xs, ux, vx, bias, uf, prz, pn, h0),
     scaled so that the gates are O(1); uf is None when the recurrent side is
-    dense."""
+    dense, and vx when rx = 0 (a dense x side, ux [F, 3h])."""
     g = torch.Generator().manual_seed(seed)
 
     def n(*shape, scale):
         return (scale * torch.randn(shape, generator=g)).cuda()
 
     k = r if lowrank else h
-    return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 3 * h, scale=rx ** -0.5),
+    return (n(t, b, f, scale=1.0), n(f, rx or 3 * h, scale=f ** -0.5),
+            n(rx, 3 * h, scale=rx ** -0.5) if rx else None,
             n(3 * h, scale=0.1), n(h, r, scale=h ** -0.5) if lowrank else None,
             n(k, 2 * h, scale=k ** -0.5), n(k, h, scale=k ** -0.5), n(b, h, scale=0.5))
 
@@ -405,17 +528,20 @@ def gru_kernel_shapes():
     where all three entries run (a first layer needs no dx), and at
     evaluate's batch, where only the no-grad entry runs; a dense "pre" layer;
     and a dense and a low-rank layer at h=256 whose weights do not fit in
-    shared memory."""
+    shared memory; then the same HAR layers with a dense x side (rx = 0, the
+    two dense-x HAR GRUs) at both batches, and a dense "pre" layer."""
     t, f, h, rx, r = GRU["t"], GRU["f"], GRU["h"], GRU["rx"], GRU["r"]
     layers = [("main_l1", f, h, r, "pre", True, False), ("main_l2", h, h, r, "pre", True, True),
               ("group_l1", f, h, 0, "post", False, False),
               ("group_l2", h, h, 0, "post", False, True)]
-    shapes = [(name, (t, b, fi, hi, rx, ri), mode, lowrank, dx, b == GRU["b"])
+    shapes = [(prefix + name, (t, b, fi, hi, x_rank, ri), mode, lowrank, dx, b == GRU["b"])
+              for prefix, x_rank in (("", rx), ("dx_", 0))
               for b in (GRU["b"], EVAL_BATCH)
               for name, fi, hi, ri, mode, lowrank, dx in layers]
     return shapes + [("dense_pre", (t, GRU["b"], f, h, rx, 0), "pre", False, True, True),
                      ("wide_post_l2", (t, GRU["b"], f, 256, rx, 0), "post", False, True, True),
-                     ("wide_pre_l2", (t, GRU["b"], f, 256, rx, 64), "pre", True, True, True)]
+                     ("wide_pre_l2", (t, GRU["b"], f, 256, rx, 64), "pre", True, True, True),
+                     ("dx_dense_pre", (t, GRU["b"], f, h, 0, 0), "pre", False, True, True)]
 
 
 def phase_gru_kernels(torch):
@@ -426,7 +552,7 @@ def phase_gru_kernels(torch):
     for name, (t, b, f, h, rx, r), mode, lowrank, dx, train in gru_kernel_shapes():
         args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
         size = (t, b, f, rx, h, r, cuda_gru.form_of(args[4], mode))
-        label = (f"{name} T={t} B={b} F={f} h={h} rx={rx} r={r} mode={mode} "
+        label = (f"{name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r} mode={mode} "
                  f"{'low-rank' if lowrank else 'dense'}{', no dx' if train and not dx else ''}")
         gru, lib_err = cudnn_gru(torch, args, mode)
         print(f"library: cuDNN GRU on the dense weights, {label}: max abs err {lib_err:.3g} "
@@ -582,7 +708,7 @@ def phase_serve(torch):
         print(f"serve B={b}: prefill {prefill_ms:.3f} ms (loop backend {loop_prefill_ms:.3f} ms),"
               f" greedy decode {tps:.1f} tokens/s")
     print(json.dumps({"serving": {str(b): p for b, p in perf.items()}}))
-    return launches
+    return [("lstm:lowrank", launches)]
 
 
 def lm_chunks(b):
@@ -607,10 +733,34 @@ def train_step_ms(torch, trainer, params, chunks, steps, generator):
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
+def lm_grads_fused_vs_loop(torch, label, make_model, chunk):
+    """One step's gradients of every parameter at dropout 0, fused against
+    loop backend, on one chunk; fails unless each tensor agrees."""
+    from vmlmf_tpu_torch.train.lm import lm_loss
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    grads = []
+    x, y = (torch.as_tensor(a, device="cuda").long() for a in chunk)
+    for backend in ("fused", "loop"):
+        model = make_model(backend)
+        p = model.init(torch.Generator().manual_seed(0), device="cuda")
+        leaves = [q.requires_grad_() for q in tree_leaves(p)]
+        logits, _ = model.apply(p, x, model.state0(x.shape[1]), train=True)
+        grads.append(torch.autograd.grad(lm_loss(logits, y), leaves))
+    # each tensor against its own scale: at winit 0.05 the gradients are far
+    # below 1e-3, where an absolute tolerance would pass even all-zero ones
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads)]
+    dead = [i for i, a in enumerate(grads[0]) if not float(a.abs().max()) > 0]
+    print(f"{label}: fused vs loop gradients of one step at dropout 0, largest max|diff| / "
+          f"max|loop grad| over {len(rel)} tensors {max(rel):.3g} (tol {GRAD_TOL})")
+    if dead or not max(rel) <= GRAD_TOL:
+        fail(f"{label}: the fused backend's gradients disagree with the loop backend's: "
+             f"relative errors {rel}, all-zero tensors {dead}")
+
+
 def phase_train(torch):
     """-> the launch counts of the training path."""
-    from vmlmf_tpu_torch.train.lm import LMTrainer, lm_loss
-    from vmlmf_tpu_torch.utils.tree import tree_leaves
+    from vmlmf_tpu_torch.train.lm import LMTrainer
 
     layers = LM["layers"]
     trn, vld = lm_chunks(MAIN_BATCH)
@@ -648,24 +798,7 @@ def phase_train(torch):
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)) or not last < first:
         fail(f"the training loss did not fall: {losses}")
 
-    # -- one step's gradients, fused against loop, at dropout 0
-    grads = []
-    x, y = (torch.as_tensor(a, device="cuda").long() for a in trn[0])
-    for backend in ("fused", "loop"):
-        model = lm_model(backend)
-        p = model.init(torch.Generator().manual_seed(0), device="cuda")
-        leaves = [q.requires_grad_() for q in tree_leaves(p)]
-        logits, _ = model.apply(p, x, model.state0(MAIN_BATCH), train=True)
-        grads.append(torch.autograd.grad(lm_loss(logits, y), leaves))
-    # each tensor against its own scale: at winit 0.05 the gradients are far
-    # below 1e-3, where an absolute tolerance would pass even all-zero ones
-    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads)]
-    dead = [i for i, a in enumerate(grads[0]) if not float(a.abs().max()) > 0]
-    print(f"train: fused vs loop gradients of one step at dropout 0, largest max|diff| / "
-          f"max|loop grad| over {len(rel)} tensors {max(rel):.3g} (tol {GRAD_TOL})")
-    if dead or not max(rel) <= GRAD_TOL:
-        fail(f"the fused backend's gradients disagree with the loop backend's: relative "
-             f"errors {rel}, all-zero tensors {dead}")
+    lm_grads_fused_vs_loop(torch, "train", lm_model, trn[0])
 
     # -- speed
     perf = {}
@@ -679,55 +812,27 @@ def phase_train(torch):
             print(f"train B={b} {backend}: step {ms:.3f} ms, "
                   f"{perf[f'{backend}_b{b}']['words_per_s']:.1f} words/s")
     print(json.dumps({"training": perf}))
-    return launches
+    return [("lstm:lowrank", launches)]
 
 
-def phase_har(torch):
-    """-> the launch counts of the HAR training path."""
-    from vmlmf_tpu_torch.cells import VMLMFCell
-    from vmlmf_tpu_torch.data.har import synthetic_har
-    from vmlmf_tpu_torch.nn.models import HARNet
-    from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
+def har_config(name, backend="fused"):
+    """The `HARConfig` of a HAR path or a reduced run, by name."""
+    from vmlmf_tpu_torch.config import HARConfig
 
-    model = HARNet(HAR["f"], (HAR["h"],), num_classes=18,
-                   cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=HAR["rx"], u_rank=HAR["r"]))
-    trainer = HARTrainer(model, batch_size=HAR["b"])
-    x_tr, y_tr, x_te, y_te = synthetic_har("opp", n_train=30 * HAR["b"], n_test=500, seed=0)
-    params, opt = trainer.init()
-
-    reset_launch_counts()
-    params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=2, log_fn=print)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    print(f"har: launches {launches}")
-    if launches != only(lstm_scan_xin_fwd_res=60, lstm_scan_xin_bwd=60):
-        fail(f"HAR training must launch the residual forward and the BPTT once per batch: "
-             f"{launches}")
-    if not hist[1]["loss"] < hist[0]["loss"]:
-        fail(f"the HAR loss did not fall: {hist}")
-    metrics = evaluate(model, params, x_te, y_te)
-    xb, yb = x_tr[: HAR["b"]], y_tr[: HAR["b"]]
-    ms = cuda_ms(torch, lambda: trainer.train_step(params, opt, xb, yb), 20)
-    print(f"har: accuracy {metrics['accuracy']:.4f}, macro-F1 {metrics['macro_f1']:.4f} on "
-          f"{len(y_te)} test windows; train step {ms:.4f} ms at B={HAR['b']}")
-    print(json.dumps({"har": dict(metrics, step_ms=ms, losses=[h["loss"] for h in hist])}))
-    return launches
+    fields = {**HAR_PATHS, **REDUCED}[name][0]
+    return HARConfig(**fields, backend=backend)
 
 
-def gru_factory(config):
-    from vmlmf_tpu_torch.cells import GRUCell, GRUGroupCell
+def har_model(name, backend="fused"):
+    """The model of a HAR path or a reduced run: its config's build, or, for
+    the shuffled LSTMGroupCell, a HARNet of it (77 -> 180, u(2, 4))."""
+    if name == "lstm_group_shuffle":
+        from vmlmf_tpu_torch.cells import LSTMGroupCell
+        from vmlmf_tpu_torch.nn.models import HARNet
 
-    kw = GRU_CONFIGS[config]
-    if config == "group":
-        return lambda n, h: GRUGroupCell(n, h, w_rank=GRU["rx"], **kw)
-    return lambda n, h: GRUCell(n, h, w_rank=GRU["rx"], **kw)
-
-
-def gru_harnet(config, backend="fused"):
-    from vmlmf_tpu_torch.nn.models import HARNet
-
-    return HARNet(GRU["f"], (GRU["h"], GRU["h"]), num_classes=18, backend=backend,
-                  cell_factory=gru_factory(config))
+        return HARNet(HAR["f"], (HAR["h"],), num_classes=18, backend=backend,
+                      cell_factory=lambda n, h: LSTMGroupCell(n, h, u_ranks=(2, 4), shuffle=True))
+    return har_config(name, backend).build_model()
 
 
 def grads_fused_vs_loop(torch, make_model, x, y):
@@ -750,70 +855,109 @@ def grads_fused_vs_loop(torch, make_model, x, y):
     return max(rel), dead
 
 
-def phase_har_gru(torch):
-    """-> the launch counts of the two HAR GRU paths (training and evaluation)."""
+def har_data():
+    """Synthetic OPP windows: 30 train batches of 81 and 500 test windows."""
     from vmlmf_tpu_torch.data.har import synthetic_har
+
+    return synthetic_har("opp", n_train=30 * HAR["b"], n_test=500, seed=0)
+
+
+def har_path(torch, name, data):
+    """One HAR path at full width: `HARTrainer.fit` for two epochs, one more
+    step and `evaluate`, each with its exact launch counts; a falling loss; the fused
+    logits of an `evaluate` batch and one step's gradients of every
+    parameter against the loop backend's; accuracy, macro-F1, step ms.
+    -> (the path's form, its launch counts, its results)."""
     from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
 
-    b = GRU["b"]
-    x_tr, y_tr, x_te, y_te = synthetic_har("opp", n_train=30 * b, n_test=500, seed=0)
-    total, out = {}, {}
-    for config in GRU_CONFIGS:
-        model = gru_harnet(config)
-        trainer = HARTrainer(model, batch_size=b)
-        params, opt = trainer.init()
+    x_tr, y_tr, x_te, y_te = data
+    form = HAR_PATHS[name][1]
+    b = HAR["b"]
+    model = har_model(name)
+    layers = len(model.rnn.cells)
+    trainer = HARTrainer(model, batch_size=b)
+    params, opt = trainer.init()
 
-        # -- the main path, with the launch counts read around it
-        reset_launch_counts()
-        params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=2, log_fn=print)
-        torch.cuda.synchronize()
-        fit_counts = launch_counts()
-        metrics = evaluate(model, params, x_te, y_te)
-        eval_counts = count_delta(fit_counts)
-        launches = launch_counts()
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+    # -- the main path, with the launch counts read around it
+    reset_launch_counts()
+    params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=2, log_fn=None)
+    torch.cuda.synchronize()
+    fit_counts = launch_counts()
+    metrics = evaluate(model, params, x_te, y_te)
+    eval_delta = count_delta(fit_counts)
+    launches = launch_counts()
 
-        steps = 2 * (len(x_tr) // b)
-        batches = -(-len(x_te) // 256)
-        print(f"har_gru {config}: launches in fit {fit_counts}, in evaluate {eval_counts}")
-        if fit_counts != only(gru_scan_xin_fwd_res=2 * steps, gru_scan_xin_bwd=2 * steps):
-            fail(f"each {config} GRU train step must launch the GRU residual forward and BPTT "
-                 f"twice and nothing else: {fit_counts} over {steps} steps")
-        if eval_counts != only(gru_scan_xin_fwd=2 * batches):
-            fail(f"evaluate must launch only the GRU no-grad kernel, twice per batch: "
-                 f"{eval_counts} over {batches} batches")
-        if not hist[1]["loss"] < hist[0]["loss"]:
-            fail(f"the {config} HAR GRU loss did not fall: {hist}")
+    steps = 2 * (len(x_tr) // b)
+    batches = -(-len(x_te) // EVAL_BATCH)
+    print(f"{name}: launches in fit {nonzero(fit_counts)}, in evaluate {nonzero(eval_delta)}")
+    if fit_counts != train_counts(form, layers * steps):
+        fail(f"each {name} train step must launch the residual forward and the BPTT once per "
+             f"layer and nothing else: {fit_counts} over {steps} steps")
+    if eval_delta != eval_counts(form, layers * batches):
+        fail(f"{name}: evaluate must launch only the no-grad kernel, once per layer and batch: "
+             f"{eval_delta} over {batches} batches")
+    if not hist[1]["loss"] < hist[0]["loss"]:
+        fail(f"the {name} HAR loss did not fall: {hist}")
+    before = launch_counts()
+    trainer.train_step(params, opt, x_tr[:b], y_tr[:b])
+    step_delta = count_delta(before)
+    if step_delta != train_counts(form, layers):
+        fail(f"one {name} train step must launch the residual forward and the BPTT once per "
+             f"layer: {step_delta}")
 
-        # -- evaluate's batch through the fused no-grad path against the loop backend
-        xe = torch.as_tensor(x_te[:EVAL_BATCH], device="cuda")
-        with torch.no_grad():
-            ok, err = close(torch, model.apply(params, xe),
-                            gru_harnet(config, "loop").apply(params, xe))
-        print(f"har_gru {config}: fused vs loop logits at B={EVAL_BATCH}, max abs err {err:.3g} "
-              f"(tol {TOL})")
-        if not ok:
-            fail(f"the {config} GRU HARNet's fused logits disagree with the loop backend's at "
-                 f"B={EVAL_BATCH}: {err}")
+    # -- evaluate's batch through the fused no-grad path against the loop backend
+    xe = torch.as_tensor(x_te[:EVAL_BATCH], device="cuda")
+    with torch.no_grad():
+        ok, err = close(torch, model.apply(params, xe), har_model(name, "loop").apply(params, xe))
+    print(f"{name}: fused vs loop logits at B={EVAL_BATCH}, max abs err {err:.3g} (tol {TOL})")
+    if not ok:
+        fail(f"the {name} HARNet's fused logits disagree with the loop backend's at "
+             f"B={EVAL_BATCH}: {err}")
 
-        # -- one step's gradients, fused against loop (HARNet has no dropout)
-        xb = torch.as_tensor(x_tr[:b], device="cuda")
-        yb = torch.as_tensor(y_tr[:b], device="cuda")
-        rel, dead = grads_fused_vs_loop(torch, lambda be, c=config: gru_harnet(c, be), xb, yb)
-        print(f"har_gru {config}: fused vs loop gradients of one step, largest max|diff| / "
-              f"max|loop grad| {rel:.3g} (tol {GRAD_TOL})")
-        if dead or not rel <= GRAD_TOL:
-            fail(f"the {config} GRU fused gradients disagree with the loop backend's: "
-                 f"{rel}, all-zero or missing tensors {dead}")
+    # -- one step's gradients, fused against loop (HARNet has no dropout)
+    xb = torch.as_tensor(x_tr[:b], device="cuda")
+    yb = torch.as_tensor(y_tr[:b], device="cuda")
+    rel, dead = grads_fused_vs_loop(torch, lambda be: har_model(name, be), xb, yb)
+    print(f"{name}: fused vs loop gradients of one step, largest max|diff| / max|loop grad| "
+          f"{rel:.3g} (tol {GRAD_TOL})")
+    if dead or not rel <= GRAD_TOL:
+        fail(f"the {name} fused gradients disagree with the loop backend's: {rel}, all-zero or "
+             f"missing tensors {dead}")
 
-        ms = cuda_ms(torch, lambda: trainer.train_step(params, opt, x_tr[:b], y_tr[:b]), 20)
-        out[config] = dict(metrics, step_ms=ms, losses=[h["loss"] for h in hist])
-        print(f"har_gru {config}: accuracy {metrics['accuracy']:.4f}, macro-F1 "
-              f"{metrics['macro_f1']:.4f} on {len(y_te)} test windows; train step {ms:.4f} ms "
-              f"at B={b}")
-    print(json.dumps({"har_gru": out}))
-    return total
+    ms = cuda_ms(torch, lambda: trainer.train_step(params, opt, x_tr[:b], y_tr[:b]), 20)
+    print(f"{name}: losses {[round(h['loss'], 4) for h in hist]}, accuracy "
+          f"{metrics['accuracy']:.4f}, macro-F1 {metrics['macro_f1']:.4f} on {len(y_te)} test "
+          f"windows; train step {ms:.4f} ms at B={b}")
+    return form, launches, dict(metrics, step_ms=ms, losses=[h["loss"] for h in hist])
+
+
+def har_phase(torch, label, names):
+    """har_path for each name -> [(form, launch counts)]; prints one JSON line."""
+    data = har_data()
+    runs, out = [], {}
+    for name in names:
+        form, launches, out[name] = har_path(torch, name, data)
+        runs.append((form, launches))
+    print(json.dumps({label: out}))
+    return runs
+
+
+def phase_har(torch):
+    """The VMLMF HAR flagship (77 -> 180, w8/u6)."""
+    return har_phase(torch, "har", ("vmlmf",))
+
+
+def phase_har_gru(torch):
+    """The two GRU HARNets (77 -> 64 -> 64): GRUCell w9/u9 and GRUGroupCell
+    w9, u(12, 6), g=2."""
+    return har_phase(torch, "har_gru", ("gru_main", "gru_group"))
+
+
+def phase_har_dense(torch):
+    """The HAR paths through the dense forms: group VMLMF, the dense LSTM
+    (the CLI default), and the two GRUs with a dense x side."""
+    return har_phase(torch, "har_dense",
+                     ("group_vmlmf", "dense_lstm", "gru_dense_x", "gru_group_dense_x"))
 
 
 def phase_bdnet(torch):
@@ -826,7 +970,7 @@ def phase_bdnet(torch):
     b, steps = GRU["b"], 5
     x_tr, y_tr, _, _ = synthetic_har("opp", n_train=steps * b, n_test=b, seed=1)
 
-    def bdnet(backend, factory=gru_factory("main"), sizes=(GRU["h"], GRU["h"])):
+    def bdnet(backend, factory=har_config("gru_main").cell_factory(), sizes=(GRU["h"], GRU["h"])):
         return BDNet(GRU["f"], sizes, num_classes=18, merge="concat", backend=backend,
                      cell_factory=factory)
 
@@ -845,7 +989,8 @@ def phase_bdnet(torch):
     # the reverse tower's fused scans against the loop backend, GRU and LSTM
     x = torch.as_tensor(x_tr[:b], device="cuda")
     lstm = (lambda n, h: VMLMFCell(n, h, w_rank=HAR["rx"], u_rank=HAR["r"]), (HAR["h"],))
-    for name, (factory, sizes) in (("gru", (gru_factory("main"), (GRU["h"], GRU["h"]))),
+    for name, (factory, sizes) in (("gru", (har_config("gru_main").cell_factory(),
+                                             (GRU["h"], GRU["h"]))),
                                    ("lstm", lstm)):
         p = bdnet("fused", factory, sizes).init(torch.Generator().manual_seed(0), device="cuda")
         with torch.no_grad():
@@ -855,7 +1000,140 @@ def phase_bdnet(torch):
         print(f"bdnet {name}: fused vs loop logits, max abs err {err:.3g} (tol {TOL})")
         if not ok:
             fail(f"the {name} BDNet's fused logits disagree with the loop backend's: {err}")
-    return launches
+    return [("gru:lowrank_pre", launches)]
+
+
+def phase_lm_dense(torch):
+    """The dense PTB LM (`LMConfig(lstm_type="custom")`): serving and training.
+    -> [(its form, launch counts)]."""
+    from vmlmf_tpu_torch.config import LMConfig
+    from vmlmf_tpu_torch.serve import Decoder
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    def model(backend, dropout=0.5):
+        return LMConfig(lstm_type="custom", hidden_size=LM["hidden"], layer_num=LM["layers"],
+                        dropout=dropout, backend=backend).build_model(LM["vocab"])
+
+    layers, b = LM["layers"], MAIN_BATCH
+    fused = model("fused")
+    params = fused.init(torch.Generator().manual_seed(0), device="cuda")
+    dec = Decoder(fused)
+    prompt = prompt_ids(torch, b)
+
+    # -- serving, with the launch counts read around it
+    reset_launch_counts()
+    logits, states = dec.prefill(params, prompt, fused.state0(b))
+    prefill_counts = launch_counts()
+    greedy, _ = dec.decode(params, logits, states, steps=64)
+    torch.cuda.synchronize()
+    decode_delta = count_delta(prefill_counts)
+    serve_launches = launch_counts()
+    print(f"lm_dense: launches in prefill {nonzero(prefill_counts)}, in decode "
+          f"{nonzero(decode_delta)}")
+    if prefill_counts != eval_counts("lstm:dense", layers) or decode_delta != only():
+        fail(f"a dense prefill must launch the no-grad kernel once per layer, decode nothing: "
+             f"{prefill_counts}, {decode_delta}")
+    lo, hi = int(greedy.min()), int(greedy.max())
+    if tuple(greedy.shape) != (64, b) or not 0 <= lo <= hi < LM["vocab"]:
+        fail(f"dense greedy tokens: shape {tuple(greedy.shape)}")
+    lf, sf = dec.prefill(params, prompt, fused.state0(b))
+    loop = model("loop")
+    ll, sl = Decoder(loop).prefill(params, prompt, loop.state0(b))
+    ok, err = all_close(torch, [lf] + [a for s in sf for a in s], [ll] + [a for s in sl for a in s],
+                        TOL)
+    print(f"lm_dense: fused vs loop prefill, max abs err {err:.3g} (tol {TOL})")
+    if not ok:
+        fail("the dense LM's fused prefill disagrees with the loop backend")
+    prefill_ms = cuda_ms(torch, lambda: dec.prefill(params, prompt, fused.state0(b)), 5)
+
+    # -- training, with the launch counts read around each step
+    trn, vld = lm_chunks(b)
+    trainer = LMTrainer(fused, batch_size=b, seq_length=LM["prompt"], learning_rate=1.0,
+                        max_grad_norm=5.0)
+    params = trainer.init()
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    states = trainer.state0()
+    reset_launch_counts()
+    losses, deltas = [], []
+    for x, y in trn[:TRAIN_CHUNKS]:
+        before = launch_counts()
+        params, states, loss, _ = trainer.train_step(params, states, x, y, 1.0, generator)
+        deltas.append(count_delta(before))
+        losses.append(loss)
+    before = launch_counts()
+    ppl = trainer.perplexity(params, vld[:10])
+    ppl_delta = count_delta(before)
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    losses = [float(v) / b for v in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"lm_dense: {TRAIN_CHUNKS} chunks at B={b}, loss per word {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of first 5 {first:.4f}, last 5 {last:.4f}), valid perplexity "
+          f"on 10 chunks {ppl:.2f}; launches per step {nonzero(deltas[0])}, in perplexity "
+          f"{nonzero(ppl_delta)}")
+    if any(d != train_counts("lstm:dense", layers) for d in deltas):
+        fail(f"each dense LM train step must launch the residual forward and the BPTT once per "
+             f"layer: {deltas}")
+    if ppl_delta != eval_counts("lstm:dense", 10 * layers):
+        fail(f"perplexity must launch only the no-grad kernel, {layers} per chunk: {ppl_delta}")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not last < first:
+        fail(f"the dense LM's training loss did not fall: {losses}")
+
+    lm_grads_fused_vs_loop(torch, "lm_dense", lambda be: model(be, dropout=0.0), trn[0])
+    step = {be: train_step_ms(torch, LMTrainer(model(be), batch_size=b, seq_length=LM["prompt"]),
+                              trainer.init(), trn, 5, generator) for be in ("fused", "loop")}
+    print(f"lm_dense B={b}: prefill {prefill_ms:.3f} ms, train step fused {step['fused']:.3f} ms "
+          f"({b * LM['prompt'] / step['fused'] * 1e3:.1f} words/s), loop {step['loop']:.3f} ms")
+    print(json.dumps({"lm_dense": dict(prefill_ms=prefill_ms, step_ms=step, losses=losses[::5],
+                                       perplexity=ppl)}))
+    return [("lstm:dense", serve_launches), ("lstm:dense", train_launches)]
+
+
+def phase_reduced(torch):
+    """Short runs of the other cells -> [(form, launch counts)] of those with
+    a fused form. Each: REDUCED_STEPS train steps at B=81 (exact launches,
+    finite losses), then fused against loop logits and gradients."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    b = HAR["b"]
+    x_tr, y_tr, _, _ = synthetic_har("opp", n_train=REDUCED_STEPS * b, n_test=1, seed=3)
+    x, y = torch.as_tensor(x_tr[:b], device="cuda"), torch.as_tensor(y_tr[:b], device="cuda")
+    runs = []
+    for name, (_, form) in REDUCED.items():
+        model = har_model(name)
+        layers = len(model.rnn.cells)
+        trainer = HARTrainer(model, batch_size=b)
+        params, opt = trainer.init()
+        reset_launch_counts()
+        losses = [float(trainer.train_step(params, opt, x_tr[i * b:(i + 1) * b],
+                                           y_tr[i * b:(i + 1) * b])[2])
+                  for i in range(REDUCED_STEPS)]
+        with torch.no_grad():
+            before = launch_counts()
+            ok, err = close(torch, model.apply(params, x), har_model(name, "loop").apply(params, x))
+            eval_delta = count_delta(before)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        train_delta = {k: before[k] for k in launches}
+        want_train = only() if form is None else train_counts(form, layers * REDUCED_STEPS)
+        want_eval = only() if form is None else eval_counts(form, layers)
+        print(f"reduced {name}: losses {[round(v, 4) for v in losses]}, launches in "
+              f"{REDUCED_STEPS} steps {nonzero(train_delta)}, in one no-grad apply "
+              f"{nonzero(eval_delta)}; fused vs loop logits max abs err {err:.3g}")
+        if train_delta != want_train or eval_delta != want_eval:
+            fail(f"reduced {name} must launch {want_train} in training and {want_eval} in one "
+                 f"no-grad apply: {train_delta}, {eval_delta}")
+        if not all(v == v and abs(v) != float("inf") for v in losses) or not ok:
+            fail(f"reduced {name}: losses {losses}, fused vs loop logits {err}")
+        rel, dead = grads_fused_vs_loop(torch, lambda be, n=name: har_model(n, be), x, y)
+        print(f"reduced {name}: fused vs loop gradients, largest relative error {rel:.3g}")
+        if dead or not rel <= GRAD_TOL or (form is None and launch_counts() != launches):
+            fail(f"reduced {name}: fused gradients {rel}, all-zero or missing tensors {dead}, "
+                 f"launches {launch_counts()} after {launches}")
+        if form is not None:
+            runs.append((form, launches))
+    return runs
 
 
 def trace_step(torch, label, step):
@@ -899,7 +1177,8 @@ def trace_step(torch, label, step):
 
 
 def phase_trace(torch):
-    """One profiled train step each of the LM at B=20 and the main HAR GRU at B=81."""
+    """One profiled train step each of the LM at B=20, the main HAR GRU at B=81
+    and the dense LM at B=20."""
     from vmlmf_tpu_torch.data.har import synthetic_har
     from vmlmf_tpu_torch.train.har import HARTrainer
     from vmlmf_tpu_torch.train.lm import LMTrainer
@@ -912,12 +1191,48 @@ def phase_trace(torch):
     lm = trace_step(torch, f"LM train step at B={MAIN_BATCH}",
                     lambda: trainer.train_step(params, states, *trn[1], 1.0, generator))
 
-    har = HARTrainer(gru_harnet("main"), batch_size=GRU["b"])
+    har = HARTrainer(har_model("gru_main"), batch_size=GRU["b"])
     har_params, opt = har.init()
     x, y, _, _ = synthetic_har("opp", n_train=GRU["b"], n_test=1, seed=2)
     gru = trace_step(torch, f"main HAR GRU train step at B={GRU['b']}",
                      lambda: har.train_step(har_params, opt, x, y))
-    print(json.dumps({"trace": dict(lm=lm, har_gru=gru)}))
+
+    from vmlmf_tpu_torch.config import LMConfig
+
+    cfg = LMConfig(lstm_type="custom", hidden_size=LM["hidden"], layer_num=LM["layers"])
+    dense = LMTrainer(cfg.build_model(LM["vocab"]), batch_size=MAIN_BATCH,
+                      seq_length=LM["prompt"])
+    d_params, d_states = dense.init(), dense.state0()
+    lm_dense = trace_step(torch, f"dense LM train step at B={MAIN_BATCH}",
+                          lambda: dense.train_step(d_params, d_states, *trn[1], 1.0, generator))
+    print(json.dumps({"trace": dict(lm=lm, har_gru=gru, lm_dense=lm_dense)}))
+
+
+def kernel_report(rows, runs):
+    """The kernels line: one row per kernel entry and form that the main paths
+    ran, with its launches there and the numbers of its kernel check. Fails
+    if an entry of a listed form was never launched."""
+    kernels = []
+    for family, forms in FORMS.items():
+        for form, (shape, b_nograd, b_train) in forms.items():
+            for name, (_, module) in entries().items():
+                if not name.startswith(family):
+                    continue
+                launches = sum(c[name] for f, c in runs if f == f"{family}:{form}")
+                if launches == 0:
+                    fail(f"{name} in form {form} was never launched on the main paths")
+                bwd = name.endswith("_bwd")
+                src = module.BWD_KERNEL if bwd else module.KERNEL
+                # the row's numbers: the kernel check at this form's main-path
+                # shape, at the batch its launches ran at (`evaluate`'s for the
+                # no-grad entry of a HAR path, the train step's for the others)
+                row = rows[(name, shape, b_nograd if name.endswith("_fwd") else b_train)]
+                kernels.append(dict(
+                    name=name if form in FIRST_FORMS else f"{name}[{form}]", route="cuda",
+                    source=f"vmlmf_tpu_torch/csrc/{src}.cu",
+                    replaces=module.BWD_REPLACES if bwd else module.REPLACES,
+                    launches=launches, **row))
+    return kernels
 
 
 def main():
@@ -938,27 +1253,13 @@ def main():
     phase_build()
     rows = phase_kernels(torch)
     rows.update(phase_gru_kernels(torch))
-    paths = [phase_serve(torch), phase_train(torch), phase_har(torch), phase_har_gru(torch),
-             phase_bdnet(torch)]
+    runs = []
+    for phase in (phase_serve, phase_train, phase_har, phase_har_gru, phase_bdnet,
+                  phase_har_dense, phase_lm_dense, phase_reduced):
+        runs += phase(torch)
     phase_trace(torch)
 
-    kernels = []
-    for name, (_, module) in entries().items():
-        launches = sum(p[name] for p in paths)
-        if launches == 0:
-            fail(f"{name} was never launched on the main paths")
-        bwd = name.endswith("_bwd")
-        src = module.BWD_KERNEL if bwd else module.KERNEL
-        # each entry's row at its main path's shape: the LM layer at B=20, or
-        # the main HAR GRU's first layer at the batch its launches ran at
-        # (`evaluate`'s for the no-grad entry, the train step's for the others)
-        if name.startswith("lstm"):
-            row = rows[(name, "lm", MAIN_BATCH)]
-        else:
-            row = rows[(name, "main_l1", EVAL_BATCH if name == "gru_scan_xin_fwd" else GRU["b"])]
-        kernels.append(dict(name=name, route="cuda", source=f"vmlmf_tpu_torch/csrc/{src}.cu",
-                            replaces=module.BWD_REPLACES if bwd else module.REPLACES,
-                            launches=launches, **row))
+    kernels = kernel_report(rows, runs)
     print(f"done in {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,15 +45,19 @@ def cuda():
 
 
 def make_inputs(t, b, f, h, rx, r, device, seed=0):
+    """Seeded scan inputs; rx = 0 gives a dense x side (ux [F, 4h], vx None)
+    and r = 0 a dense recurrent side (u [h, 4h], v None)."""
     rng = np.random.default_rng(seed)
 
     def n(*shape, scale):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
 
-    return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 4 * h, scale=rx ** -0.5),
-            n(4, h, scale=0.1), n(4 * h, scale=0.1), n(h, r, scale=h ** -0.5),
-            n(r, 4 * h, scale=r ** -0.5), n(4 * h, scale=0.1), n(b, h, scale=0.5),
-            n(b, h, scale=0.5))
+    kx, k = rx or 4 * h, r or 4 * h
+    return (n(t, b, f, scale=1.0), n(f, kx, scale=f ** -0.5),
+            n(rx, 4 * h, scale=rx ** -0.5) if rx else None,
+            n(4, h, scale=0.1), n(4 * h, scale=0.1), n(h, k, scale=h ** -0.5),
+            n(r, 4 * h, scale=r ** -0.5) if r else None, n(4 * h, scale=0.1),
+            n(b, h, scale=0.5), n(b, h, scale=0.5))
 
 
 @pytest.mark.cuda
@@ -97,6 +101,58 @@ def residual_and_grads(args, dys, dc_last, fwd, bwd):
     res = fwd(*args)
     saved = (*args[:4], *args[5:], res[0], res[1], res[2], res[3], res[4])
     return res, bwd(*saved, dys, dc_last)
+
+
+# (T, B, F, h, rx, r) with rx = 0 / r = 0 for a dense side: each dense form at
+# ragged small shapes, at the HAR layer (h=180, a 518 KB U read through L2)
+# and at the PTB LM layer (h=650, 6.8 MB U and Ux)
+DENSE_CASES = {
+    "dense_rec_f_gt_h": (7, 9, 70, 33, 5, 0),
+    "dense_x_f_lt_h": (5, 3, 13, 20, 0, 7),
+    "dense_f_eq_h": (5, 3, 16, 16, 0, 0),
+    "dense_rec_har": (24, 81, 77, 180, 8, 0),
+    "dense_har": (24, 81, 77, 180, 0, 0),
+    "dense_lm": (35, 20, 650, 650, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DENSE_CASES), ids=list(DENSE_CASES))
+def test_dense_form_kernels_match_plain(cuda, case):
+    t, b, f, h, rx, r = DENSE_CASES[case]
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    rng = np.random.default_rng(1)
+    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32)).to(cuda)
+    dc_last = torch.from_numpy(rng.standard_normal((b, h)).astype(np.float32)).to(cuda)
+    fns = (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+           cuda_scan.lstm_scan_xin_bwd)
+    counts = [fn.launches for fn in fns]
+    ys, c_last = cuda_scan.lstm_scan_fused_xin(*args)
+    res, grads = residual_and_grads(args, dys, dc_last, cuda_scan.lstm_scan_fused_xin_res,
+                                    cuda_scan.lstm_scan_xin_bwd)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == [c + 1 for c in counts]
+    res_p, grads_p = residual_and_grads(args, dys, dc_last, cuda_scan.lstm_scan_xin_fwd_res_plain,
+                                        cuda_scan.lstm_scan_xin_bwd_plain)
+    torch.testing.assert_close(ys, res_p[0], **TOL)
+    torch.testing.assert_close(c_last, res_p[1][-1], **TOL)
+    for name, got, want in zip(("ys", "cs", "gates", "hu", "xu"), res, res_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **TOL)
+    for name, got, want in zip(cuda_scan._ARG_NAMES, grads, grads_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_lstm_kernels_refuse_bf16(cuda):
+    args = list(make_inputs(*DENSE_CASES["dense_f_eq_h"], cuda))
+    args[5] = args[5].bfloat16()
+    for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res):
+        with pytest.raises(TypeError, match="float32"):
+            fn(*args)
 
 
 @pytest.mark.cuda
@@ -227,6 +283,10 @@ GRU_CASES = {
     "ragged_lowrank": (5, 3, 13, 40, 6, 33, "pre", True),
     "wide_post": (4, 6, 48, 256, 8, 0, "post", False),  # 768 KB of weights: read through L2
     "wide_lowrank": (4, 6, 48, 256, 8, 64, "pre", True),  # 256 KB of weights: read through L2
+    # a dense x side (rx = 0: ux [F, 3h], vx None) in each recurrent form
+    "dense_x_main_l1": (24, 81, 77, 64, 0, 9, "pre", True),
+    "dense_x_group_post": (24, 81, 77, 64, 0, 0, "post", False),
+    "dense_x_dense_pre": (7, 9, 20, 33, 0, 0, "pre", False),
 }
 
 
@@ -237,7 +297,8 @@ def gru_inputs(t, b, f, h, rx, r, mode, lowrank, device, seed=0):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
 
     k = r if lowrank else h
-    return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 3 * h, scale=rx ** -0.5),
+    return (n(t, b, f, scale=1.0), n(f, rx or 3 * h, scale=f ** -0.5),
+            n(rx, 3 * h, scale=rx ** -0.5) if rx else None,
             n(3 * h, scale=0.1), n(h, r, scale=h ** -0.5) if lowrank else None,
             n(k, 2 * h, scale=k ** -0.5), n(k, h, scale=k ** -0.5), n(b, h, scale=0.5))
 
@@ -290,9 +351,9 @@ def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda, monkeypatch):
     with torch.no_grad():
         cuda_gru.gru_scan_fused_xin(*args, mode="pre")
     args[5] = args[5].detach()
-    dense_x = [args[0], torch.randn(20, 99, device=cuda), None, *args[3:]]
-    with pytest.raises(NotImplementedError, match="dense x side"):
-        cuda_gru.gru_scan_fused_xin(*dense_x, mode="pre")
+    bf16 = [*args[:5], args[5].bfloat16(), *args[6:]]
+    with pytest.raises(TypeError, match="float32"):
+        cuda_gru.gru_scan_fused_xin(*bf16, mode="pre")
     monkeypatch.setenv("VMLMF_PALLAS_SAVED_GATES", "0")
     with pytest.raises(NotImplementedError, match="recompute"):
         cuda_gru.gru_scan_fused_xin_res(*args, mode="pre")
@@ -359,3 +420,79 @@ def test_har_trainer_runs_the_gru_harnet_on_cuda(cuda):
     metrics = evaluate(model, params, x, y, batch_size=81)
     assert cuda_gru.gru_scan_fused_xin.launches - before == 2
     assert 0.0 <= metrics["accuracy"] <= 1.0
+
+
+# -- the LSTM-family cells through the dense forms, fused against loop
+
+def lstm_family_har(backend, kind):
+    from vmlmf_tpu_torch.config import HARConfig
+
+    cfg = {"dense": HARConfig(),
+           "group": HARConfig(model="vmgroup", w_rank=8, u_ranks=(2, 4)),
+           "dualdiag": HARConfig(model="dualdiag"),
+           "mylstm_group": HARConfig(model="mylstm_group", u_ranks=(2, 4))}[kind]
+    cfg.backend = backend
+    return cfg.build_model()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "group", "dualdiag", "mylstm_group"])
+def test_fused_lstm_family_training_gives_every_cell_parameter_the_loop_gradient(cuda, kind):
+    from vmlmf_tpu_torch.train.har import cross_entropy
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((81, 24, 77)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 18, 81)).to(cuda)
+    grads, logits = [], []
+    for backend in ("fused", "loop"):
+        model = lstm_family_har(backend, kind)
+        params = model.init(torch.Generator().manual_seed(0), device=cuda)
+        cells = [p for cell in params["rnn"] for p in cell.values()]
+        for p in cells:
+            p.requires_grad_(True)
+        before = cuda_scan.lstm_scan_xin_bwd.launches
+        out = model.apply(params, x)
+        cross_entropy(out, y).backward()
+        assert cuda_scan.lstm_scan_xin_bwd.launches - before == (backend == "fused")
+        grads.append([p.grad for p in cells])
+        logits.append(out.detach())
+    torch.testing.assert_close(logits[0], logits[1], **TOL)
+    for fused, loop in zip(*grads):
+        assert fused is not None and bool(torch.isfinite(fused).all())
+        scale = float(loop.abs().max())
+        assert scale > 0
+        assert float((fused - loop).abs().max()) <= GRAD_TOL["rtol"] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["diag", "lstm_group_shuffle", "deepconv"])
+def test_cells_run_their_route_on_cuda(cuda, kind):
+    # diag and the shuffled group cell have no fused form: under "fused" they
+    # run the loop and launch nothing; DeepConvNet runs the dense kernels
+    from vmlmf_tpu_torch.cells import LSTMGroupCell
+    from vmlmf_tpu_torch.config import HARConfig
+    from vmlmf_tpu_torch.nn.models import HARNet
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    def build(backend):
+        if kind == "lstm_group_shuffle":
+            return HARNet(77, (30,), num_classes=18, backend=backend, cell_factory=lambda n, h:
+                          LSTMGroupCell(n, h, u_ranks=(2, 2, 2), groups=3, shuffle=True))
+        cfg = HARConfig(model="mylstm" if kind == "deepconv" else kind, deepconv=kind == "deepconv",
+                        layer_sizes=(32,), backend=backend)
+        return cfg.build_model()
+
+    fns = (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+           cuda_scan.lstm_scan_xin_bwd, cuda_gru.gru_scan_fused_xin,
+           cuda_gru.gru_scan_fused_xin_res, cuda_gru.gru_scan_xin_bwd)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((9, 24, 77)).astype(
+        np.float32)).to(cuda)
+    params = build("fused").init(torch.Generator().manual_seed(0), device=cuda)
+    before = [fn.launches for fn in fns]
+    with torch.no_grad():
+        fused = build("fused").apply(params, x)
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(fns, before)]
+    assert launched == ([1, 0, 0, 0, 0, 0] if kind == "deepconv" else [0] * 6)
+    with torch.no_grad():
+        torch.testing.assert_close(fused, build("loop").apply(params, x), **TOL)

@@ -330,7 +330,9 @@ def test_wrappers_raise_on_forms_the_kernels_do_not_take(why, monkeypatch):
     t, b, f, h, rx, r = CASES["f_lt_h"]
     args, err, match = meta_args(), NotImplementedError, "does not take"
     if why == "dense_x":
-        args = meta_args(vx=False)
+        # taken since the dense x side was ported: the call passes validation
+        # and stops only at the device check (meta is neither CPU nor CUDA)
+        args, err, match = meta_args(vx=False), ValueError, "runs on CPU or CUDA"
     elif why == "gi_mode":
         monkeypatch.setenv("VMLMF_PALLAS_XIN", "0")
     elif why == "recompute":
@@ -346,8 +348,8 @@ def test_wrappers_raise_on_forms_the_kernels_do_not_take(why, monkeypatch):
             fn(*args, mode="pre")
     res = [torch.empty(s, device="meta") for s in ((t, b, h), (t, b, 3 * h), (t, b, r),
                                                    (t, b, r))]
-    saved = (*args[:3], *args[4:], *res, None, torch.empty(t, b, rx, device="meta"),
-             torch.empty(t, b, h, device="meta"))
+    xu = None if args[2] is None else torch.empty(t, b, rx, device="meta")
+    saved = (*args[:3], *args[4:], *res, None, xu, torch.empty(t, b, h, device="meta"))
     with pytest.raises(err, match=match):
         cuda_gru.gru_scan_xin_bwd(*saved, mode="pre")
 

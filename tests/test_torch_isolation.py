@@ -40,7 +40,8 @@ def test_port_imports_no_jax(tmp_path):
     assert int(count) >= 24
     assert bad.strip() == "[]"
     for name in ("train.lm", "train.har", "data.batching", "data.ptb", "data.har", "nn.models",
-                 "cells.gru", "ops.cuda_gru"):
+                 "cells.gru", "ops.cuda_gru", "cells.lstm", "cells.group", "cells.legacy",
+                 "config"):
         assert f"vmlmf_tpu_torch.{name}" in names.split()
 
 

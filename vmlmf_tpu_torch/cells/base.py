@@ -44,6 +44,29 @@ def reinit_uniform(params, generator, bound):
     return uniform_init(generator, params.shape, bound, params.dtype).to(params.device)
 
 
+def side_init(generator, name, n, m, rank, dtype):
+    """One side's weights (on the CPU): {name: [n, m]} dense, or {name_fac: [n, rank],
+    name_proj: [rank, m]} low-rank."""
+    if rank is None:
+        return {name: normal_init(generator, (n, m), dtype=dtype)}
+    return {f"{name}_fac": normal_init(generator, (n, rank), dtype=dtype),
+            f"{name}_proj": normal_init(generator, (rank, m), dtype=dtype)}
+
+
+def side_apply(prep, name, rank, x):
+    """x @ the side's matrix: ``x @ w`` or ``(x @ w_fac) @ w_proj``."""
+    if rank is None:
+        return x @ prep[name]
+    return (x @ prep[f"{name}_fac"]) @ prep[f"{name}_proj"]
+
+
+def side_factors(prep, name, rank):
+    """The side as the fused scan takes it: (dense [n, m], None) or (fac, proj)."""
+    if rank is None:
+        return prep[name], None
+    return prep[f"{name}_fac"], prep[f"{name}_proj"]
+
+
 def lstm_update(pre, c):
     """LSTM gates and state update; ``pre [..., 4h]`` in (i, f, g, o) order."""
     i, f, g, o = pre.chunk(4, dim=-1)

@@ -15,23 +15,10 @@ import dataclasses
 
 import torch
 
-from vmlmf_tpu_torch.cells.base import Cell, normal_init
-from vmlmf_tpu_torch.ops.lowrank import dense_from_group, group_lowrank_proj
+from vmlmf_tpu_torch.cells.base import Cell, normal_init, side_apply, side_factors, side_init
+from vmlmf_tpu_torch.cells.group import _group_rec, check_groups, tier_init, tiers
+from vmlmf_tpu_torch.ops.lowrank import dense_from_group
 from vmlmf_tpu_torch.utils.device import resolve_device
-
-
-def _group_rec(h, u_tiers, v_tiers, g, num_gates):
-    """Sum of all rotation tiers of a group cell -> [..., G*h], gate-major."""
-    k = h.shape[-1] // g
-    h_g = h.reshape(*h.shape[:-1], g, k)
-    acc = None
-    for i in range(g):
-        rolled = torch.roll(h_g, -i, dims=-2) if i else h_g  # position p reads group (p+i)%g
-        t = group_lowrank_proj(rolled, u_tiers[i], v_tiers[i])  # [..., g, G*k]
-        acc = t if acc is None else acc + t
-    # [..., g, G, k] -> [..., G, g, k] -> [..., G*h]
-    acc = acc.reshape(*acc.shape[:-1], num_gates, k).transpose(-3, -2)
-    return acc.reshape(*acc.shape[:-3], num_gates * g * k)
 
 
 class _GRUBase(Cell):
@@ -41,13 +28,9 @@ class _GRUBase(Cell):
     num_gates = 3
 
     def _init_input_side(self, generator, dtype):
-        n, h = self.input_size, self.hidden_size
-        p = {"b": torch.ones((3 * h,), dtype=dtype)}  # biases start at one
-        if self.w_rank is None:
-            p["w"] = normal_init(generator, (n, 3 * h), dtype=dtype)
-        else:
-            p["w_fac"] = normal_init(generator, (n, self.w_rank), dtype=dtype)
-            p["w_proj"] = normal_init(generator, (self.w_rank, 3 * h), dtype=dtype)
+        p = {"b": torch.ones((3 * self.hidden_size,), dtype=dtype)}  # biases start at one
+        p.update(side_init(generator, "w", self.input_size, 3 * self.hidden_size, self.w_rank,
+                           dtype))
         return p
 
     def state0(self, batch, device="cuda", dtype=torch.float32):
@@ -57,18 +40,12 @@ class _GRUBase(Cell):
         return state
 
     def inp(self, prep, xs):
-        if self.w_rank is None:
-            y = xs @ prep["w"]
-        else:
-            y = (xs @ prep["w_fac"]) @ prep["w_proj"]
-        return y + prep["b"]
+        return side_apply(prep, "w", self.w_rank, xs) + prep["b"]
 
     def fused_x_inputs_gru(self, prep):
         """(ux, vx, bias) for the fused GRU scan: ux [n, rx], vx [rx, 3h], or
         ux [n, 3h] and vx None for a dense input side."""
-        if self.w_rank is None:
-            return prep["w"], None, prep["b"]
-        return prep["w_fac"], prep["w_proj"], prep["b"]
+        return (*side_factors(prep, "w", self.w_rank), prep["b"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,29 +106,17 @@ class GRUGroupCell(_GRUBase):
     groups: int = 2
 
     def __post_init__(self):
-        if len(self.u_ranks) != self.groups:
-            raise ValueError(f"u_ranks {self.u_ranks} needs one rank per group ({self.groups})")
-        if self.hidden_size % self.groups:
-            raise ValueError(f"hidden_size {self.hidden_size} is not a multiple of "
-                             f"groups {self.groups}")
+        check_groups(self.u_ranks, self.groups, self.hidden_size)
 
     def init(self, generator, device="cuda", dtype=torch.float32):
-        g = self.groups
-        k = self.hidden_size // g
         p = self._init_input_side(generator, dtype)
-        for i, r in enumerate(self.u_ranks):
-            p[f"u_h_{i}"] = normal_init(generator, (g, k, r), dtype=dtype)
-            p[f"v_h_{i}"] = normal_init(generator, (g, r, 3 * k), dtype=dtype)
+        p.update(tier_init(generator, self.u_ranks, self.groups, self.hidden_size, 3, dtype))
         dev = resolve_device(device)
         return {k: v.to(dev) for k, v in p.items()}
 
-    def _tiers(self, prep):
-        return ([prep[f"u_h_{i}"] for i in range(self.groups)],
-                [prep[f"v_h_{i}"] for i in range(self.groups)])
-
     def step(self, prep, gi_t, h):
         hdim = self.hidden_size
-        rec = _group_rec(h, *self._tiers(prep), self.groups, 3)  # [..., 3h]
+        rec = _group_rec(h, *tiers(prep, self.groups), self.groups, 3)  # [..., 3h]
         r = torch.sigmoid(gi_t[..., :hdim] + rec[..., :hdim])
         z = torch.sigmoid(gi_t[..., hdim:2 * hdim] + rec[..., hdim:2 * hdim])
         n = torch.tanh(gi_t[..., 2 * hdim:] + r * rec[..., 2 * hdim:])
@@ -163,5 +128,5 @@ class GRUGroupCell(_GRUBase):
         call (weight-only, outside the scan), split into prz [h, 2h] and
         pn [h, h] for the fused scan's mode "post"."""
         h = self.hidden_size
-        w = dense_from_group(*self._tiers(prep), 3, h).T  # [h, 3h]
+        w = dense_from_group(*tiers(prep, self.groups), 3, h).T  # [h, 3h]
         return None, w[:, :2 * h].contiguous(), w[:, 2 * h:].contiguous(), "post"

@@ -1,9 +1,9 @@
-// Backward of the fused GRU scan (x mode, low-rank x side, saved gates, f32),
-// for sm_90a.
+// Backward of the fused GRU scan (x mode, saved gates, f32), for sm_90a.
 //
 // Replaces vmlmf_tpu/ops/pallas_gru.py::_bwd_kernel in the variant that
-// gru_scan_fused_xin's VJP runs in x mode with a low-rank x side, f32, with
-// the saved-gates residual policy, in the three recurrent forms of the
+// gru_scan_fused_xin's VJP runs in x mode with a low-rank or a dense x side
+// (Vx null), f32, with the saved-gates residual policy, in the three
+// recurrent forms of the
 // forward (gru_scan_xin_fwd.cu: 0 low-rank "pre", 1 dense "pre", 2 dense
 // "post"). From the forward's residuals and the cotangent dys [T,B,h] it
 // walks t = T-1 .. 0 with the carry dh (zero at the start):
@@ -26,7 +26,8 @@
 //   low-rank:     dUf = Hprev^T dHU + RH^T dRHU,  dPrz = HU^T [dR dZ],  dPn = RHU^T dN
 //   dense "pre":  dPrz = Hprev^T [dR dZ],  dPn = RH^T dN
 //   "post":       dPrz = Hprev^T [dR dZ],  dPn = Hprev^T (dN * R)
-//   dXU = dPre Vx^T,  dx = dXU Ux^T,  dUx = X^T dXU,  dVx = XU^T dPre,
+//   low-rank x side:  dXU = dPre Vx^T,  dx = dXU Ux^T,  dUx = X^T dXU,  dVx = XU^T dPre
+//   dense x side:     dx = dPre Ux^T,  dUx = X^T dPre
 //   dbias = sum_m dPre
 //
 // What bounds it on an H100, and what the design does about it:
@@ -371,9 +372,10 @@ cudaError_t bptt(const float* gates, const float* ys, const float* h0, const flo
 
 // Launches the serial kernel, the GEMMs and the column sums on `stream`;
 // returns the first error. dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank;
-// else null) and dxu [T*B, rx] are scratch that the caller allocates; every
-// pointer after them is an output. dx may be null (not computed); uf, hu,
-// rhu, duf are null in the dense forms, recn outside "post".
+// else null) and dxu [T*B, rx] (low-rank x side; else null) are scratch that
+// the caller allocates; every pointer after them is an output. dx may be
+// null (not computed); uf, hu, rhu, duf are null in the dense recurrent
+// forms, recn outside "post"; vx, xu, dvx for a dense x side.
 extern "C" int gru_scan_xin_bwd(
     const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
     const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
@@ -435,17 +437,28 @@ extern "C" int gru_scan_xin_bwd(
   }
   if (err != cudaSuccess) return err;
 
-  // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T
-  err = vmlmf::gemm(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3, stream);
-  if (err != cudaSuccess) return err;
-  if (dx != nullptr) {
-    err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, Store{dx, f}, m, f, rx, stream);
+  if (vx == nullptr) {
+    // dense x side, dXU = dPre: dx [M, F] = dPre Ux^T;  dUx [F, 3h] = X^T dPre
+    if (dx != nullptr) {
+      err = vmlmf::gemm(RowMajor{dpre, g3}, Transposed{ux, g3}, Store{dx, f}, m, f, g3, stream);
+      if (err != cudaSuccess) return err;
+    }
+    err = vmlmf::gemm(Transposed{x, f}, RowMajor{dpre, g3}, Store{dux, g3}, f, g3, m, stream);
+  } else {
+    // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T
+    err = vmlmf::gemm(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3,
+                      stream);
     if (err != cudaSuccess) return err;
+    if (dx != nullptr) {
+      err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, Store{dx, f}, m, f, rx, stream);
+      if (err != cudaSuccess) return err;
+    }
+    // dUx [F, rx] = X^T dXU;  dVx [rx, 3h] = XU^T dPre
+    err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g3}, Store{dvx, g3}, rx, g3, m,
+                      stream);
   }
-  // dUx [F, rx] = X^T dXU;  dVx [rx, 3h] = XU^T dPre
-  err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
-  if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g3}, Store{dvx, g3}, rx, g3, m, stream);
   if (err != cudaSuccess) return err;
 
   colsum_kernel<<<cdiv(g3, kSumCols), kSumCols * kSumLanes, 0, stream>>>(dpre, dbias, m, g3);

@@ -2,12 +2,13 @@
 // residual-writing forward of training.
 //
 // Replaces vmlmf_tpu/ops/pallas_gru.py::_fwd_kernel in the variants that
-// gru_scan_fused_xin runs in x mode with a low-rank x side, f32: the no-grad
-// primal (residuals=False) and the autodiff forward with the saved-gates
-// policy (residuals=True, save_gates=True). For every batch row and step, in
-// gate order (r, z, n):
+// gru_scan_fused_xin runs in x mode, f32, with a low-rank or a dense x side:
+// the no-grad primal (residuals=False) and the autodiff forward with the
+// saved-gates policy (residuals=True, save_gates=True). For every batch row
+// and step, in gate order (r, z, n):
 //
-//   gi[t,b] = (x[t,b] @ Ux) @ Vx + bias
+//   gi[t,b] = (x[t,b] @ Ux) @ Vx + bias      low-rank x side
+//           = x[t,b] @ Ux + bias             dense x side (Vx null)
 //   r, z    = sigmoid(gi_rz + (h @ Uf) @ Prz)        low-rank "pre"
 //           = sigmoid(gi_rz + h @ Prz)               dense "pre" and "post"
 //   n       = tanh(gi_n + ((r*h) @ Uf) @ Pn)         low-rank "pre"
@@ -16,7 +17,8 @@
 //   h       = z * h + (1 - z) * n;   ys[t,b] = h
 //
 // Layouts are the unpadded public ones of the JAX function: x [T,B,F],
-// Ux [F,rx], Vx [rx,3h], bias [3h], h0 [B,h]; low-rank Uf [h,r], Prz [r,2h],
+// Ux [F,rx] and Vx [rx,3h] or dense Ux [F,3h], bias [3h], h0 [B,h];
+// low-rank Uf [h,r], Prz [r,2h],
 // Pn [r,h]; dense Prz [h,2h], Pn [h,h]; all row-major and contiguous. The
 // `form` argument picks the recurrent form (0 low-rank pre, 1 dense pre,
 // 2 dense post).
@@ -24,11 +26,13 @@
 // The residual variant also writes, per step, the post-nonlinearity gates
 // [T,B,3h] (r, z, n in three blocks of h), and hu = h_prev @ Uf and rhu =
 // (r*h_prev) @ Uf [T,B,r] (low-rank) or recn = h_prev @ Pn [T,B,h] (post).
-// It keeps the first GEMM's xu = x @ Ux [T*B,rx] as a residual for dVx.
+// A low-rank x side keeps the first GEMM's xu = x @ Ux [T*B,rx] as a
+// residual for dVx; a dense one has none.
 //
 // What bounds it on an H100, and what the design does about it:
 // * The input projection is time-parallel: two tiled GEMM launches over all
-//   T*B rows (gemm_tile.cuh) write gi [T,B,3h], which the scan reads back.
+//   T*B rows (gemm_tile.cuh), or one for a dense x side, write gi [T,B,3h],
+//   which the scan reads back.
 // * The recurrence is a chain of small dependent products. At the HAR widths
 //   (h=64, r=9) a step is a few thousand multiply-adds per row, so the time
 //   is set by the T steps and the block barriers inside each step (four in
@@ -56,7 +60,7 @@ constexpr int kRows = 4;  // batch rows per scan CTA
 constexpr int kMaxThreads = 1024;
 constexpr int kLowrankPre = 0, kDensePre = 1, kDensePost = 2;
 
-// Epilogue of the second projection GEMM: gi[i, j] = v + bias[j].
+// Epilogue of the projection GEMM that yields gi: gi[i, j] = v + bias[j].
 struct BiasEpilogue {
   float* gi;
   const float* bias;
@@ -265,7 +269,8 @@ cudaError_t scan(const float* gi, const float* uf, const float* prz, const float
   return cudaGetLastError();
 }
 
-// The two projection GEMMs, then the scan of the given form.
+// The projection GEMMs (two, or one for a dense x side), then the scan of
+// the given form.
 template <bool Residuals>
 int launch(const float* x, const float* ux, const float* vx, const float* bias,
            const float* uf, const float* prz, const float* pn, const float* h0, float* xu,
@@ -273,11 +278,16 @@ int launch(const float* x, const float* ux, const float* vx, const float* bias,
            int batch, int f, int rx, int h, int r, int form, cudaStream_t stream) {
   const int m = t_len * batch;
   const int g3 = 3 * h;
-  cudaError_t err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, rx},
-                                vmlmf::Store{xu, rx}, m, rx, f, stream);
-  if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(vmlmf::RowMajor{xu, rx}, vmlmf::RowMajor{vx, g3},
-                    BiasEpilogue{gi, bias, g3}, m, g3, rx, stream);
+  const BiasEpilogue epi{gi, bias, g3};
+  cudaError_t err;
+  if (vx == nullptr) {  // dense x side: gi = x @ Ux + bias
+    err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, g3}, epi, m, g3, f, stream);
+  } else {
+    err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, rx}, vmlmf::Store{xu, rx}, m,
+                      rx, f, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(vmlmf::RowMajor{xu, rx}, vmlmf::RowMajor{vx, g3}, epi, m, g3, rx, stream);
+  }
   if (err != cudaSuccess) return err;
   switch (form) {
     case kLowrankPre:
@@ -297,7 +307,8 @@ int launch(const float* x, const float* ux, const float* vx, const float* bias,
 }  // namespace
 
 // No-grad forward. xu [T*B, rx] and gi [T*B, 3h] are scratch that the
-// caller allocates; writes ys [T,B,h]. uf is null and r is 0 in the dense forms.
+// caller allocates; writes ys [T,B,h]. uf is null and r is 0 in the dense
+// recurrent forms; vx and xu are null and rx is 0 for a dense x side.
 extern "C" int gru_scan_xin_fwd(const float* x, const float* ux, const float* vx,
                                 const float* bias, const float* uf, const float* prz,
                                 const float* pn, const float* h0, float* xu, float* gi,
@@ -309,7 +320,7 @@ extern "C" int gru_scan_xin_fwd(const float* x, const float* ux, const float* vx
 }
 
 // Residual forward of training. gi [T*B, 3h] is scratch; writes ys and the
-// residuals xu [T*B, rx], gates [T,B,3h], hu and rhu [T,B,r] (low-rank; else
+// residuals xu [T*B, rx] (low-rank x side; else null), gates [T,B,3h], hu and rhu [T,B,r] (low-rank; else
 // null) and recn [T,B,h] ("post"; else null).
 extern "C" int gru_scan_xin_fwd_res(const float* x, const float* ux, const float* vx,
                                     const float* bias, const float* uf, const float* prz,

@@ -1,25 +1,27 @@
 // Backward of the fused LSTM scan (x mode, f32, saved gates), for sm_90a.
 //
 // Replaces vmlmf_tpu/ops/pallas_scan.py::_bwd_kernel in the variant that
-// lstm_scan_fused_xin's VJP runs in x mode, low-rank on both sides, f32,
-// with the saved-gates residual policy. From the residuals of the forward
-// (lstm_scan_xin_fwd.cu, entry lstm_scan_xin_fwd_res) and the cotangents
-// dys [T,B,h] and dc_last [B,h], each of which may be absent (zeros), it
-// computes, walking t = T-1 .. 0 with the carry (dh, dc), dc = dc_last at
-// the start:
+// lstm_scan_fused_xin's VJP runs in x mode, f32, with the saved-gates
+// residual policy, each side low-rank or dense as in the forward
+// (lstm_scan_xin_fwd.cu: a null V is a dense U [h,4h], "DenseRec"; a null
+// Vx a dense Ux [F,4h], "DenseX"). From the residuals of the forward (entry
+// lstm_scan_xin_fwd_res) and the cotangents dys [T,B,h] and dc_last [B,h],
+// each of which may be absent (zeros), it computes, walking t = T-1 .. 0
+// with the carry (dh, dc), dc = dc_last at the start:
 //
 //   dh    += dys[t];  tc = tanh(cs[t]);  (i, f, g, o) = gates[t]
 //   dc    += dh * o * (1 - tc^2)
 //   dpre   = [dc*g*i*(1-i), dc*c_prev*f*(1-f), dc*i*(1-g^2), dh*tc*o*(1-o)]
 //   dc     = dc * f
-//   dhu    = dpre @ V^T                                          [B, r]
-//   dh     = sum_g dpre_g * dvec_g + dhu @ U^T
+//   low-rank:  dhu = dpre @ V^T [B, r];   dh = sum_g dpre_g * dvec_g + dhu @ U^T
+//   dense:     dh = sum_g dpre_g * dvec_g + dpre @ U^T
 //
 // then dh0 = dh, dc0 = dc, and the gradients of the weights and of x:
 //
-//   dU = Hprev^T dHU        dV = HU^T dPre        dXU = dPre Vx^T
-//   dx = dXU Ux^T + fit(sum_g dPre_g * xdvec_g, F)
-//   dUx = X^T dXU           dVx = XU^T dPre
+//   low-rank:  dU = Hprev^T dHU,  dV = HU^T dPre;      dense: dU = Hprev^T dPre
+//   low-rank x side:  dXU = dPre Vx^T,  dx = dXU Ux^T + fit(sum_g dPre_g * xdvec_g, F),
+//                     dUx = X^T dXU,  dVx = XU^T dPre
+//   dense x side:     dx = dPre Ux^T + fit(sum_g dPre_g * xdvec_g, F),  dUx = X^T dPre
 //   ddvec = sum_m dPre * tile4(Hprev),  dxdvec = sum_m dPre * tile4(fit(X, h)),
 //   dbias = sum_m dPre
 //
@@ -30,20 +32,24 @@
 // * The TPU kernel runs its grid in order and sums dU, dV, ... in scratch
 //   across grid steps. Here CTAs run in parallel, so the work is split:
 //   1. bptt_kernel, the serial part. One CTA owns kRows batch rows and
-//      walks all T steps with the (dh, dc) carry, dpre and dhu of the step in
-//      shared memory. It reads c_prev straight from cs[t-1] or c0, and
-//      writes dpre [T*B, 4h] and dhu [T*B, r] to device memory for the
-//      passes below (7.3 MB of dpre per layer at B=20, T=35, h=650: traffic
-//      the TPU avoided by keeping dpre in VMEM per time block). Each step
-//      reads V and U through L2, one warp per output column so that its
-//      lanes read neighbouring addresses, and is bound by one SM's L2 read
-//      rate, like the forward. The redesign across SMs covers both.
-//   2. Time-parallel passes over all M rows: six tiled GEMMs
-//      (gemm_tile.cuh) with transposed operand views, and one column-sum
-//      kernel. Every weight gradient is summed by one CTA per output tile
-//      or column block in a fixed order: deterministic, no atomics.
-// * Shared memory of bptt_kernel is over 48 KB at h=650 (67 KB), raised
-//   through cudaFuncSetAttribute.
+//      walks all T steps with the (dh, dc) carry, dpre and (low-rank) dhu of
+//      the step in shared memory. It reads c_prev straight from cs[t-1] or
+//      c0, and writes dpre [T*B, 4h] and dhu [T*B, r] to device memory for
+//      the passes below (7.3 MB of dpre per layer at B=20, T=35, h=650:
+//      traffic the TPU avoided by keeping dpre in VMEM per time block). Each
+//      step reads the recurrent weights through L2 (V then U, or the dense
+//      U [h, 4h]), one warp per output, lanes along the weight's row, so
+//      that neighbouring lanes read neighbouring words with no transposed
+//      copy: dpre @ U^T reduces over U's row j, which is contiguous. It is
+//      bound by one SM's L2 read rate, like the forward. The redesign across
+//      SMs covers both. Block barriers: three a step low-rank, two dense.
+//   2. Time-parallel passes over all M rows: tiled GEMMs (gemm_tile.cuh)
+//      with transposed operand views (six low-rank, three with a dense
+//      side of each kind), and one column-sum kernel. Every weight gradient
+//      is summed by one CTA per output tile or column block in a fixed
+//      order: deterministic, no atomics.
+// * Shared memory of bptt_kernel is over 48 KB at h=650 (67 KB low-rank,
+//   62 KB dense), raised through cudaFuncSetAttribute.
 // * Every edge is masked: B, T*B, F, h, r, rx need not be tile multiples,
 //   and fit() covers F = h, F < h and F > h.
 
@@ -67,8 +73,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Serial reverse walk. Shared memory: dhs, dcs [kRows,h] (the carry), dps
-// [kRows,4h] (dpre of the step), dhus [kRows,r] (dhu of the step). Rows past
-// the batch stay zero and are never written out.
+// [kRows,4h] (dpre of the step), and, low-rank, dhus [kRows,r] (dhu of the
+// step). Rows past the batch stay zero and are never written out.
+template <bool DenseRec>
 __global__ void __launch_bounds__(kBpttThreads)
 bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
             const float* __restrict__ c0, const float* __restrict__ dys,
@@ -92,7 +99,7 @@ bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     dhs[i] = 0.f;
     dcs[i] = live && dc_last != nullptr ? dc_last[(size_t)b0 * h + i] : 0.f;
   }
-  for (int i = threadIdx.x; i < kRows * (g4 + r); i += blockDim.x) dps[i] = 0.f;
+  for (int i = threadIdx.x; i < kRows * (g4 + (DenseRec ? 0 : r)); i += blockDim.x) dps[i] = 0.f;
   __syncthreads();
 
   for (int t = t_len - 1; t >= 0; --t) {
@@ -129,34 +136,39 @@ bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     }
     __syncthreads();
 
-    // dhu = dpre @ V^T: one warp per rank k, lanes along V's row k.
-    for (int k = warp; k < r; k += nwarps) {
-      const float* vk = v + (size_t)k * g4;
-      float acc[kRows] = {};
-      for (int n = lane; n < g4; n += 32) {
-        const float w = __ldg(vk + n);
+    if (!DenseRec) {
+      // dhu = dpre @ V^T: one warp per rank k, lanes along V's row k.
+      for (int k = warp; k < r; k += nwarps) {
+        const float* vk = v + (size_t)k * g4;
+        float acc[kRows] = {};
+        for (int n = lane; n < g4; n += 32) {
+          const float w = __ldg(vk + n);
 #pragma unroll
-        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g4 + n], w, acc[row]);
-      }
+          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g4 + n], w, acc[row]);
+        }
 #pragma unroll
-      for (int row = 0; row < kRows; ++row) {
-        const float s = warp_sum(acc[row]);
-        if (lane == 0) {
-          dhus[row * r + k] = s;
-          if (row < rows) dhu[(row_t + row) * r + k] = s;
+        for (int row = 0; row < kRows; ++row) {
+          const float s = warp_sum(acc[row]);
+          if (lane == 0) {
+            dhus[row * r + k] = s;
+            if (row < rows) dhu[(row_t + row) * r + k] = s;
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
 
-    // dh_prev += dhu @ U^T: one warp per hidden unit j, lanes along U's row j.
+    // dh_prev += src @ w^T, one warp per hidden unit j, lanes along w's row j:
+    // dhu @ U^T (U [h, r]) low-rank, dpre @ U^T (U [h, 4h]) dense.
+    const float* src = DenseRec ? dps : dhus;
+    const int depth = DenseRec ? g4 : r;
     for (int j = warp; j < h; j += nwarps) {
-      const float* uj = u + (size_t)j * r;
+      const float* uj = u + (size_t)j * depth;
       float acc[kRows] = {};
-      for (int k = lane; k < r; k += 32) {
+      for (int k = lane; k < depth; k += 32) {
         const float w = __ldg(uj + k);
 #pragma unroll
-        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dhus[row * r + k], w, acc[row]);
+        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(src[row * depth + k], w, acc[row]);
       }
 #pragma unroll
       for (int row = 0; row < kRows; ++row) {
@@ -173,7 +185,26 @@ bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   }
 }
 
-// Epilogue of dx = dXU @ Ux^T: adds fit(sum_g dpre_g * xdvec_g, f) to column j.
+// Launches bptt_kernel<DenseRec>; returns the launch's error.
+template <bool DenseRec>
+cudaError_t bptt(const float* gates, const float* cs, const float* c0, const float* dys,
+                 const float* dc_last, const float* u, const float* v, const float* dvec,
+                 float* dpre, float* dhu, float* dh0, float* dc0, int t_len, int batch, int h,
+                 int r, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kRows * (2 * h + 4 * h + (DenseRec ? 0 : r));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bptt_kernel<DenseRec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  bptt_kernel<DenseRec><<<cdiv(batch, kRows), kBpttThreads, smem, stream>>>(
+      gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, t_len, batch, h, r);
+  return cudaGetLastError();
+}
+
+// Epilogue of dx = dXU @ Ux^T (or dPre @ Ux^T for a dense x side): adds
+// fit(sum_g dpre_g * xdvec_g, f) to column j.
 struct DxEpilogue {
   float* dx;
   const float* dpre;
@@ -233,10 +264,11 @@ colsum_kernel(const float* __restrict__ dpre, const float* __restrict__ h0,
 
 }  // namespace
 
-// Launches the serial kernel, the six GEMMs and the column sums on `stream`;
-// returns cudaGetLastError(). dys and dc_last may be null (zeros). dpre
+// Launches the serial kernel, the GEMMs and the column sums on `stream`;
+// returns the first error. dys and dc_last may be null (zeros). dpre
 // [T*B, 4h], dhu [T*B, r] and dxu [T*B, rx] are scratch that the caller
-// allocates; every other pointer after them is an output.
+// allocates (dhu null for a dense recurrent side, dxu for a dense x side);
+// every other pointer after them is an output (dv and dvx null with them).
 extern "C" int lstm_scan_xin_bwd(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* u, const float* v, const float* dvec, const float* h0,
@@ -252,34 +284,45 @@ extern "C" int lstm_scan_xin_bwd(
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
+  const vmlmf::PrevRowsT hprev_t{h0, ys, batch, h};
   cudaError_t err;
 
-  const size_t smem = sizeof(float) * kRows * (2 * h + g4 + r);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(bptt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+  if (v == nullptr) {
+    err = bptt<true>(gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, t_len, batch,
+                     h, r, stream);
     if (err != cudaSuccess) return err;
+    // dU [h, 4h] = Hprev^T dPre
+    err = vmlmf::gemm(hprev_t, RowMajor{dpre, g4}, Store{du, g4}, h, g4, m, stream);
+  } else {
+    err = bptt<false>(gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, t_len,
+                      batch, h, r, stream);
+    if (err != cudaSuccess) return err;
+    // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
+    err = vmlmf::gemm(Transposed{hu, r}, RowMajor{dpre, g4}, Store{dv, g4}, r, g4, m, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(hprev_t, RowMajor{dhu, r}, Store{du, r}, h, r, m, stream);
   }
-  bptt_kernel<<<cdiv(batch, kRows), kBpttThreads, smem, stream>>>(
-      gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, t_len, batch, h, r);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
 
-  // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-  err = vmlmf::gemm(Transposed{hu, r}, RowMajor{dpre, g4}, Store{dv, g4}, r, g4, m, stream);
-  if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(vmlmf::PrevRowsT{h0, ys, batch, h}, RowMajor{dhu, r}, Store{du, r},
-                    h, r, m, stream);
-  if (err != cudaSuccess) return err;
-  // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
-  err = vmlmf::gemm(RowMajor{dpre, g4}, Transposed{vx, g4}, Store{dxu, rx}, m, rx, g4, stream);
-  if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, DxEpilogue{dx, dpre, xdvec, f, h},
-                    m, f, rx, stream);
-  if (err != cudaSuccess) return err;
-  // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-  err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
-  if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g4}, Store{dvx, g4}, rx, g4, m, stream);
+  const DxEpilogue dx_epi{dx, dpre, xdvec, f, h};
+  if (vx == nullptr) {
+    // dx [M, F] = dPre Ux^T + fit(sum_g dPre_g xdvec_g);  dUx [F, 4h] = X^T dPre
+    err = vmlmf::gemm(RowMajor{dpre, g4}, Transposed{ux, g4}, dx_epi, m, f, g4, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(Transposed{x, f}, RowMajor{dpre, g4}, Store{dux, g4}, f, g4, m, stream);
+  } else {
+    // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
+    err = vmlmf::gemm(RowMajor{dpre, g4}, Transposed{vx, g4}, Store{dxu, rx}, m, rx, g4,
+                      stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, dx_epi, m, f, rx, stream);
+    if (err != cudaSuccess) return err;
+    // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
+    err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g4}, Store{dvx, g4}, rx, g4, m,
+                      stream);
+  }
   if (err != cudaSuccess) return err;
 
   colsum_kernel<<<cdiv(g4, kSumCols), kSumCols * kSumLanes, 0, stream>>>(

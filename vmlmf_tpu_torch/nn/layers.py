@@ -1,9 +1,10 @@
-"""Non-recurrent layers of the LM: embedding, dense, dropout
-(counterpart of `vmlmf_tpu.nn.layers`)."""
+"""Non-recurrent layers: embedding, dense, dropout, and the convolution
+stack of `DeepConvNet` (counterpart of `vmlmf_tpu.nn.layers`)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -53,3 +54,45 @@ def dropout(x, rate, *, generator=None, train=False):
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvFeatures:
+    """``layers`` stacked valid convolutions over time with kernel (kernel_t,
+    1): [B, T, F] -> [B, T - layers*(kernel_t-1), channels*F], features
+    flattened sensor-major. No nonlinearity between the convolutions unless
+    ``activation`` (ReLU).
+
+    The parameters keep the JAX package's HWIO layout, ``k{i}`` [kernel_t, 1,
+    in, out] and ``b{i}`` [out], so a JAX tree carries over key for key; the
+    layer permutes each kernel to PyTorch's OIHW at use. The convolution is
+    `torch.nn.functional.conv2d`: the JAX package computes it with XLA, not
+    in a kernel of its own.
+    """
+
+    channels: int = 64
+    kernel_t: int = 5
+    layers: int = 4
+    activation: bool = False
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        """Kernels N(0, 1/fan_in) with fan_in = kernel_t * in, biases zero."""
+        dev = resolve_device(device)
+        p, c_in = {}, 1
+        for i in range(self.layers):
+            k = normal_init(generator, (self.kernel_t, 1, c_in, self.channels),
+                            scale=1.0 / math.sqrt(self.kernel_t * c_in), dtype=dtype)
+            p[f"k{i}"] = k.to(dev)
+            p[f"b{i}"] = torch.zeros((self.channels,), dtype=dtype, device=dev)
+            c_in = self.channels
+        return p
+
+    def __call__(self, params, x):
+        y = x[:, None]  # [B, T, F] -> NCHW [B, 1, T, F]
+        for i in range(self.layers):
+            y = torch.nn.functional.conv2d(y, params[f"k{i}"].permute(3, 2, 0, 1),
+                                           params[f"b{i}"])
+            if self.activation:
+                y = torch.relu(y)
+        b, _, t, f = y.shape
+        return y.permute(0, 2, 3, 1).reshape(b, t, f * self.channels)

@@ -1,6 +1,6 @@
-"""Task networks: the HAR classifiers, one-way and bidirectional, and the
-word-level LM (counterparts of `vmlmf_tpu.nn.models.HARNet`, `BDNet` and
-`LMModel`)."""
+"""Task networks: the HAR classifiers, one-way, bidirectional and with a
+convolution front end, and the word-level LM (counterparts of
+`vmlmf_tpu.nn.models.HARNet`, `BDNet`, `DeepConvNet` and `LMModel`)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import dataclasses
 import torch
 
 from vmlmf_tpu_torch.cells.base import reinit_uniform
-from vmlmf_tpu_torch.nn.layers import Dense, Embed, dropout
+from vmlmf_tpu_torch.nn.layers import ConvFeatures, Dense, Embed, dropout
 from vmlmf_tpu_torch.nn.recurrence import RNN, scan_layer
 
 
@@ -97,6 +97,48 @@ class BDNet:
         else:
             merged = 0.5 * (last_f + first_r)
         return self.head(params["head"], merged)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepConvNet:
+    """Convolution stack -> RNN -> classifier on the last timestep (the
+    DeepConvLSTM workload). The cells' input is channels * input_size wide.
+
+    Input is batch-major ``[B, T, F]`` with T at least layers*(kernel_t-1)+1.
+    Parameters are ``{"conv": {...}, "rnn": [...], "head": {"w", "b"}}``, the
+    JAX package's tree.
+    """
+
+    input_size: int
+    layer_sizes: tuple = (128, 128)
+    cell_factory: dataclasses.InitVar = None
+    num_classes: int = 18
+    channels: int = 64
+    backend: str = "fused"
+    conv_activation: bool = False
+
+    def __post_init__(self, cell_factory):
+        object.__setattr__(self, "conv", ConvFeatures(channels=self.channels,
+                                                      activation=self.conv_activation))
+        cells = _make_cells(cell_factory, self.channels * self.input_size, self.layer_sizes)
+        object.__setattr__(self, "rnn", RNN(cells, backend=self.backend))
+        object.__setattr__(self, "head", Dense(self.layer_sizes[-1], self.num_classes,
+                                               bias_fill=0.1))
+
+    def init(self, generator, device="cuda", dtype=torch.float32):
+        """Parameters from ``generator`` (a CPU `torch.Generator`), on ``device``."""
+        return {"conv": self.conv.init(generator, device, dtype),
+                "rnn": self.rnn.init(generator, device, dtype),
+                "head": self.head.init(generator, device, dtype)}
+
+    def apply(self, params, x):
+        """x: [B, T, F] -> logits [B, num_classes]."""
+        min_t = self.conv.layers * (self.conv.kernel_t - 1) + 1
+        if x.shape[1] < min_t:
+            raise ValueError(f"DeepConvNet needs at least {min_t} timesteps ({self.conv.layers} "
+                             f"valid convs of {self.conv.kernel_t}); got {x.shape[1]}")
+        ys, _ = self.rnn(params["rnn"], self.conv(params["conv"], x))
+        return self.head(params["head"], ys[:, -1])
 
 
 @dataclasses.dataclass(frozen=True)

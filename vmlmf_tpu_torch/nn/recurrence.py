@@ -11,6 +11,11 @@ Two backends, the same function:
     the BPTT kernel in the backward), else the no-grad
     `lstm_scan_fused_xin` / `gru_scan_fused_xin`. Each launches its CUDA
     kernels on CUDA tensors and runs its plain version on CPU tensors.
+    A cell with no fused form runs the loop under "fused" too, as the JAX
+    package runs it on its XLA scan: one without `fused_rec_inputs`
+    (`DiagonalLSTMCell`), or whose `fused_rec_inputs` returns None
+    (`LSTMGroupCell(shuffle=True)`). Its own mapping decides, before any
+    kernel is called.
 
 Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
 input with ``time_major=False``.
@@ -37,36 +42,44 @@ def _needs_grad(args):
     return torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args)
 
 
+def _fused_form(cell, prep):
+    """("gru", its recurrent inputs), ("lstm", its recurrent inputs), or
+    (None, None) for a cell that has no fused form."""
+    if hasattr(cell, "fused_rec_inputs_gru"):
+        return "gru", cell.fused_rec_inputs_gru(prep)
+    rec = cell.fused_rec_inputs(prep) if hasattr(cell, "fused_rec_inputs") else None
+    return ("lstm", rec) if rec is not None else (None, None)
+
+
 def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
     """Run one cell over time-major ``xs [T, B, n]`` -> (ys [T, B, h], state).
 
-    backend="fused" needs a cell with `fused_rec_inputs` and `fused_x_inputs`
-    (the LSTM family; state (h, c)) or with `fused_rec_inputs_gru` and
-    `fused_x_inputs_gru` (the GRU cells; state h), and raises for any other.
-    The state that comes back is (h_last, c_last) or h_last = ys[-1].
+    backend="fused" runs the fused scan for a cell with `fused_rec_inputs`
+    and `fused_x_inputs` (the LSTM family; state (h, c)) or with
+    `fused_rec_inputs_gru` and `fused_x_inputs_gru` (the GRU cells; state
+    h), and the loop for a cell without a fused form. The state that comes
+    back is (h_last, c_last) or h_last = ys[-1].
     """
     _check_backend(backend)
-    if backend == "fused":
+    kind, rec = _fused_form(cell, prep) if backend == "fused" else (None, None)
+    if kind is not None:
         src = (torch.flip(xs, (0,)) if reverse else xs).contiguous()
-        if hasattr(cell, "fused_rec_inputs_gru") and hasattr(cell, "fused_x_inputs_gru"):
-            uf, prz, pn, mode = cell.fused_rec_inputs_gru(prep)
+        if kind == "gru":
+            uf, prz, pn, mode = rec
             args = (src, *cell.fused_x_inputs_gru(prep), uf, prz, pn, state0.contiguous())
             if _needs_grad(args):
                 ys = GRUScanXin.apply(*args, mode)
             else:
                 ys = gru_scan_fused_xin(*args, mode=mode)
             state = ys[-1]
-        elif hasattr(cell, "fused_rec_inputs") and hasattr(cell, "fused_x_inputs"):
+        else:
             h0, c0 = state0
-            args = (src, *cell.fused_x_inputs(prep), *cell.fused_rec_inputs(prep),
-                    h0.contiguous(), c0.contiguous())
+            args = (src, *cell.fused_x_inputs(prep), *rec, h0.contiguous(), c0.contiguous())
             if _needs_grad(args):
                 ys, c_last = LSTMScanXin.apply(*args)
             else:
                 ys, c_last = lstm_scan_fused_xin(*args)
             state = (ys[-1], c_last)
-        else:
-            raise ValueError(f"backend='fused' has no kernel for {type(cell).__name__}")
         if reverse:
             ys = torch.flip(ys, (0,))
         return ys, state

@@ -3,7 +3,7 @@
 
 For each step, in gate order (r, z, n):
 
-    gi      = (x @ Ux) @ Vx + bias                       (time-parallel)
+    gi      = (x @ Ux) @ Vx + bias   or   x @ Ux + bias (dense)   (time-parallel)
     r, z    = σ(gi_rz + (h @ Uf) @ Prz)    or  σ(gi_rz + h @ Prz)   (dense)
     mode "pre":  n = tanh(gi_n + ((r ⊙ h) @ Uf) @ Pn)  or  tanh(gi_n + (r ⊙ h) @ Pn)
     mode "post": n = tanh(gi_n + r ⊙ (h @ Pn))                      (dense only)
@@ -21,10 +21,10 @@ ops, step by step as the Pallas kernel computes it) and a launch count:
 `GRUScanXin` is the `torch.autograd.Function` that pairs the last two. On CPU
 tensors the wrappers run their plain versions; on CUDA tensors they launch
 the kernel or raise. The kernels take x mode with a low-rank x side (vx
-given) and the saved-gates residual policy, in the three recurrent forms.
-For CUDA tensors a wrapper raises on what they do not take yet: a dense x
-side (vx None), and the JAX package's gi mode (``VMLMF_PALLAS_XIN=0``) and
-recompute policy (``VMLMF_PALLAS_SAVED_GATES=0``). On the CPU those two
+given) or a dense one (ux [F, 3h], vx None) and the saved-gates residual
+policy, in the three recurrent forms. For CUDA tensors a wrapper raises on
+what they do not take yet: the JAX package's gi mode (``VMLMF_PALLAS_XIN=0``)
+and recompute policy (``VMLMF_PALLAS_SAVED_GATES=0``). On the CPU those two
 switches change nothing: every policy computes the same function.
 """
 
@@ -34,7 +34,13 @@ import os
 
 import torch
 
-from vmlmf_tpu_torch.ops.cuda_scan import _check_tensors, _launch, _on_cpu, _require_cuda
+from vmlmf_tpu_torch.ops.cuda_scan import (
+    _check_tensors,
+    _empty,
+    _launch,
+    _on_cpu,
+    _require_cuda,
+)
 
 KERNEL = "gru_scan_xin_fwd"
 BWD_KERNEL = "gru_scan_xin_bwd"
@@ -173,10 +179,8 @@ def gru_scan_xin_bwd_plain(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn
     return dxs, dux, dvx, dpre2.sum(0), duf, dprz, dpn, dh
 
 
-def _unported(vx):
+def _unported():
     """Why the CUDA kernels do not take this call yet, or None."""
-    if vx is None:
-        return "a dense x side (vx None)"
     if os.environ.get("VMLMF_PALLAS_XIN", "1") != "1":
         return "gi mode (VMLMF_PALLAS_XIN=0)"
     if os.environ.get("VMLMF_PALLAS_SAVED_GATES", "1") == "0":
@@ -184,24 +188,26 @@ def _unported(vx):
     return None
 
 
-def _sizes(xs, ux, uf, h0, mode):
-    """(T, B, F, rx, h, r, form) of a scan call; r is 0 for a dense recurrent side."""
+def _sizes(xs, ux, vx, uf, h0, mode):
+    """(T, B, F, rx, h, r, form) of a scan call; rx is 0 for a dense x side
+    and r 0 for a dense recurrent side."""
     form = form_of(uf, mode)
     if xs.dim() != 3 or h0.dim() != 2:
         raise ValueError(f"xs must be [T, B, F] and h0 [B, h], got {tuple(xs.shape)} and "
                          f"{tuple(h0.shape)}")
     t, b, f = xs.shape
-    h, rx = h0.shape[-1], ux.shape[-1]
+    h = h0.shape[-1]
+    rx = 0 if vx is None else ux.shape[-1]
     r = 0 if uf is None else uf.shape[-1]
-    if min(t, b, f, rx, h) < 1 or (uf is not None and r < 1):
+    if min(t, b, f, h) < 1 or (vx is not None and rx < 1) or (uf is not None and r < 1):
         raise ValueError(f"empty scan: T={t}, B={b}, F={f}, rx={rx}, h={h}, r={r}")
     return t, b, f, rx, h, r, form
 
 
 def _shapes(t, b, f, rx, h, r, form):
     k = h if r == 0 else r  # the depth of Prz and Pn
-    return {"xs": (t, b, f), "ux": (f, rx), "vx": (rx, 3 * h), "bias": (3 * h,), "uf": (h, r),
-            "prz": (k, 2 * h), "pn": (k, h), "h0": (b, h), "ys": (t, b, h),
+    return {"xs": (t, b, f), "ux": (f, rx or 3 * h), "vx": (rx, 3 * h), "bias": (3 * h,),
+            "uf": (h, r), "prz": (k, 2 * h), "pn": (k, h), "h0": (b, h), "ys": (t, b, h),
             "gates": (t, b, 3 * h), "hu": (t, b, r), "rhu": (t, b, r), "recn": (t, b, h),
             "xu": (t, b, rx), "dys": (t, b, h)}
 
@@ -210,18 +216,13 @@ def _check(names, tensors, mode):
     """Validate a CUDA call: sizes, shapes, types, contiguity and a form the
     kernels take. -> (T, B, F, rx, h, r, form)."""
     named = dict(zip(names, tensors))
-    sizes = _sizes(named["xs"], named["ux"], named["uf"], named["h0"], mode)
-    why = _unported(named["vx"])
+    sizes = _sizes(named["xs"], named["ux"], named["vx"], named["uf"], named["h0"], mode)
+    why = _unported()
     if why is not None:
         raise NotImplementedError(f"the CUDA GRU scan does not take {why} yet")
     given = [(n, a) for n, a in named.items() if a is not None]
     _check_tensors(tuple(n for n, _ in given), [a for _, a in given], _shapes(*sizes))
     return sizes
-
-
-def _empty(like):
-    """A maker of uninitialised f32 tensors on ``like``'s device."""
-    return lambda *shape: torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
 def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
@@ -248,7 +249,8 @@ def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     t, b, f, rx, h, r, form = sizes
     with torch.cuda.device(xs.device):
         new = _empty(xs)
-        xu, gi, ys = new(t * b, rx), new(t * b, 3 * h), new(t, b, h)
+        xu = new(t * b, rx) if rx else None
+        gi, ys = new(t * b, 3 * h), new(t, b, h)
         _launch(KERNEL, "gru_scan_xin_fwd", (*args, xu, gi, ys), sizes, xs.device)
     gru_scan_fused_xin.launches += 1
     return ys
@@ -270,7 +272,8 @@ def gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     t, b, f, rx, h, r, form = sizes
     with torch.cuda.device(xs.device):
         new = _empty(xs)
-        xu, gi, ys, gates = new(t, b, rx), new(t * b, 3 * h), new(t, b, h), new(t, b, 3 * h)
+        xu = new(t, b, rx) if rx else None
+        gi, ys, gates = new(t * b, 3 * h), new(t, b, h), new(t, b, 3 * h)
         hu = rhu = recn = None
         if form == LOWRANK_PRE:
             hu, rhu = new(t, b, r), new(t, b, r)
@@ -307,12 +310,17 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
         if (a is not None) != (name in want):
             raise ValueError(f"{name} must {'' if name in want else 'not '}be given for "
                              f"mode={mode!r} with uf {'given' if uf is not None else 'None'}")
+    if (xu is None) != (vx is None):
+        raise ValueError(f"xu must {'not ' if vx is None else ''}be given with vx "
+                         f"{'None' if vx is None else 'given'}")
     with torch.cuda.device(xs.device):
         new = _empty(xs)
         lowrank = form == LOWRANK_PRE
-        dpre, dxu = new(t * b, 3 * h), new(t * b, rx)
+        dpre = new(t * b, 3 * h)
+        dxu = new(t * b, rx) if rx else None
         dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
-        grads = (new(t, b, f) if dx else None, new(f, rx), new(rx, 3 * h), new(3 * h),
+        grads = (new(t, b, f) if dx else None, torch.empty_like(ux),
+                 new(rx, 3 * h) if rx else None, new(3 * h),
                  new(h, r) if lowrank else None, torch.empty_like(prz), torch.empty_like(pn),
                  new(b, h))
         _launch(BWD_KERNEL, "gru_scan_xin_bwd", (*saved, dpre, dhu, drhu, dxu, *grads), sizes,
@@ -353,17 +361,17 @@ class GRUScanXin(torch.autograd.Function):
 
 
 def _macs(f, rx, h, r, form):
-    """Multiply-adds per row and step of the forward: the x side, then the
-    recurrent side (h@Uf, hu@Prz, (r⊙h)@Uf, rhu@Pn; or h@Prz and the [h, h]
-    candidate product)."""
+    """Multiply-adds per row and step of the forward: the x side (x@Ux@Vx, or
+    x@Ux for a dense one, rx = 0), then the recurrent side (h@Uf, hu@Prz,
+    (r⊙h)@Uf, rhu@Pn; or h@Prz and the [h, h] candidate product)."""
     rec = 5 * h * r if form == LOWRANK_PRE else 3 * h * h
-    return f * rx + rx * 3 * h, rec
+    return (f * rx + rx * 3 * h if rx else f * 3 * h), rec
 
 
 def _weights(f, rx, h, r, form):
     """Floats of ux, vx, bias, uf, prz and pn."""
     rec = h * r + 3 * h * r if form == LOWRANK_PRE else 3 * h * h
-    return f * rx + rx * 3 * h + 3 * h + rec
+    return _macs(f, rx, h, r, form)[0] + 3 * h + rec
 
 
 def gru_scan_cost(t, b, f, rx, h, r, form):
@@ -384,8 +392,8 @@ def gru_scan_cost(t, b, f, rx, h, r, form):
 
 def gru_scan_res_cost(t, b, f, rx, h, r, form):
     """(operations, bytes) of the residual forward: `gru_scan_cost` plus the
-    residual outputs written once: gates [T,B,3h], xu [T,B,rx], and hu, rhu
-    [T,B,r] (low-rank) or recn [T,B,h] (post)."""
+    residual outputs written once: gates [T,B,3h], xu [T,B,rx] (low-rank x
+    side), and hu, rhu [T,B,r] (low-rank) or recn [T,B,h] (post)."""
     ops, nbytes = gru_scan_cost(t, b, f, rx, h, r, form)
     extra = {LOWRANK_PRE: 2 * r, DENSE_PRE: 0, DENSE_POST: h}[form]
     return ops, nbytes + 4 * t * b * (3 * h + rx + extra)
@@ -397,17 +405,19 @@ def gru_scan_bwd_cost(t, b, f, rx, h, r, form, *, dx=True):
     Operations: two per multiply-add, per row and step: the recurrent side
     twice the forward's (the data gradients along the serial chain and the
     weight gradients); the x side dXU = dPre Vxᵀ and dVx = XUᵀ dPre (rx·3h
-    each, with xu a residual, not recomputed), dUx = Xᵀ dXU (F·rx) and, when
-    ``dx``, dx = dXU Uxᵀ (F·rx); plus 20 per hidden unit for dpre, the carry
-    and the bias sums. Bytes: each residual, the weights (ux only when
-    ``dx``), x and dys read once and each gradient written once, f32.
+    each, with xu a residual, not recomputed; none for a dense x side), dUx
+    = Xᵀ dXU (F·kx, kx = rx, or 3h for a dense x side) and, when ``dx``, dx =
+    dXU Uxᵀ (F·kx); plus 20 per hidden unit for dpre, the carry and the bias
+    sums. Bytes: each residual, the weights (ux only when ``dx``), x and dys
+    read once and each gradient written once, f32.
     """
     _, rm = _macs(f, rx, h, r, form)
-    macs = 2 * rm + 2 * rx * 3 * h + f * rx + (f * rx if dx else 0)
+    kx = rx or 3 * h
+    macs = 2 * rm + 2 * rx * 3 * h + f * kx + (f * kx if dx else 0)
     ops = t * b * (2 * macs + 20 * h)
     extra = {LOWRANK_PRE: 2 * r, DENSE_PRE: 0, DENSE_POST: h}[form]
     weights = _weights(f, rx, h, r, form)
-    read = weights - 3 * h - (0 if dx else f * rx)                 # less bias, and ux without dx
+    read = weights - 3 * h - (0 if dx else f * kx)                 # less bias, and ux without dx
     inputs = (t * b * f + read + b * h                              # x, weights, h0
               + t * b * (h + 3 * h + extra + rx) + t * b * h)      # ys, gates, hu.., xu, dys
     outputs = (t * b * f if dx else 0) + weights + b * h          # dx, dweights, dh0

@@ -1,8 +1,11 @@
 """Fused LSTM scan with the input projection inside: the port's counterpart
 of `vmlmf_tpu.ops.pallas_scan.lstm_scan_fused_xin` and its VJP.
 
-Three kernel entries, each with a plain version (the same arithmetic in
-torch ops) and a launch count:
+Each side of the scan is low-rank (two factors) or dense (one matrix): the
+x side ``x @ Ux @ Vx`` or ``x @ Ux`` (vx None), the recurrent side
+``h @ U @ V`` or ``h @ U`` (v None), in any of the four combinations. Three
+kernel entries, each with a plain version (the same arithmetic in torch
+ops) and a launch count:
 
   * `lstm_scan_fused_xin` — the no-grad forward (serving, eval), kernel
     ``csrc/lstm_scan_xin_fwd.cu`` entry ``lstm_scan_xin_fwd``;
@@ -24,7 +27,7 @@ import ctypes
 
 import torch
 
-from vmlmf_tpu_torch.cells.base import lstm_update, pad_features
+from vmlmf_tpu_torch.cells.base import pad_features
 from vmlmf_tpu_torch.ops import _build
 
 KERNEL = "lstm_scan_xin_fwd"
@@ -37,35 +40,40 @@ _RES_NAMES = ("xs", "ux", "vx", "xdvec", "u", "v", "dvec", "h0", "c0",
               "ys", "cs", "gates", "hu", "xu")
 
 
+def _x_side(xs, ux, vx):
+    """(xu = x @ Ux, or None for a dense x side; the x product x @ Ux [@ Vx])."""
+    if vx is None:
+        return None, xs @ ux
+    xu = xs @ ux
+    return xu, xu @ vx
+
+
 def lstm_scan_fused_xin_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     """The kernel's function in torch ops: the batched input projection, then
     a Python loop over T. Same arguments and results as `lstm_scan_fused_xin`."""
-    h = h0.shape[-1]
-    gi = (xs @ ux) @ vx + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
-    dvec = dvec.reshape(-1)
-    h_t, c_t = h0, c0
-    ys = []
-    for gi_t in gi:
-        pre = gi_t + (h_t @ u) @ v + h_t.repeat(1, 4) * dvec
-        h_t, c_t = lstm_update(pre, c_t)
-        ys.append(h_t)
-    return torch.stack(ys), c_t
+    ys, cs = lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)[:2]
+    return ys, cs[-1]
 
 
 def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     """`lstm_scan_fused_xin_plain` that also returns the backward's residuals:
-    -> (ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities, hu = h_prev@U
-    [T,B,r], xu = x@Ux [T,B,rx]). ys and cs[-1] equal the no-grad plain
-    version's outputs bit for bit (the same ops in the same order)."""
+    -> (ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities, hu =
+    h_prev@U [T,B,r] or None for a dense recurrent side, xu = x@Ux [T,B,rx]
+    or None for a dense x side). The final cell state is cs[-1]."""
     h = h0.shape[-1]
-    xu = xs @ ux
-    gi = xu @ vx + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
+    xu, xp = _x_side(xs, ux, vx)
+    gi = xp + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
     dvec = dvec.reshape(-1)
     h_t, c_t = h0, c0
     ys, cs, gates, hus = [], [], [], []
     for gi_t in gi:
-        hu = h_t @ u
-        pre = gi_t + hu @ v + h_t.repeat(1, 4) * dvec
+        if v is None:
+            rec = h_t @ u
+        else:
+            hu = h_t @ u
+            hus.append(hu)
+            rec = hu @ v
+        pre = gi_t + rec + h_t.repeat(1, 4) * dvec
         i, f, g, o = pre.chunk(4, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         c_t = f * c_t + i * g
@@ -73,8 +81,8 @@ def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
         ys.append(h_t)
         cs.append(c_t)
         gates.append(torch.cat([i, f, g, o], dim=-1))
-        hus.append(hu)
-    return (torch.stack(ys), torch.stack(cs), torch.stack(gates), torch.stack(hus), xu)
+    return (torch.stack(ys), torch.stack(cs), torch.stack(gates),
+            torch.stack(hus) if hus else None, xu)
 
 
 def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
@@ -85,7 +93,8 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
     batched over all T*B rows. ``dys`` and ``dc_last`` may be None (zeros).
 
     -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0), shaped as the
-    forward's inputs.
+    forward's inputs; dv is None for a dense recurrent side, dvx for a dense
+    x side.
     """
     t, b, f = xs.shape
     h = h0.shape[-1]
@@ -93,7 +102,8 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
     cprev = torch.cat([c0[None], cs[:-1]])
     dh = torch.zeros_like(h0)
     dc = torch.zeros_like(c0) if dc_last is None else dc_last
-    du, dv = torch.zeros_like(u), torch.zeros_like(v)
+    du = torch.zeros_like(u)
+    dv = None if v is None else torch.zeros_like(v)
     ddvec = torch.zeros(4 * h, dtype=h0.dtype, device=h0.device)
     dvec = dvec.reshape(-1)
     dpres = [None] * t
@@ -112,16 +122,23 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
         dvt = dpre * dvec
         dh_prev = dvt[:, :h] + dvt[:, h:2 * h] + dvt[:, 2 * h:3 * h] + dvt[:, 3 * h:]
         ddvec = ddvec + (dpre * hprev[s].repeat(1, 4)).sum(0)
-        dhu = dpre @ v.T
-        dh = dh_prev + dhu @ u.T
-        du = du + hprev[s].T @ dhu
-        dv = dv + hu[s].T @ dpre
+        if v is None:
+            dh = dh_prev + dpre @ u.T
+            du = du + hprev[s].T @ dpre
+        else:
+            dhu = dpre @ v.T
+            dh = dh_prev + dhu @ u.T
+            du = du + hprev[s].T @ dhu
+            dv = dv + hu[s].T @ dpre
     dpre2 = torch.stack(dpres).reshape(t * b, 4 * h)
     x2 = xs.reshape(t * b, f)
-    dxu = dpre2 @ vx.T
+    if vx is None:
+        dxu, dvx = dpre2, None
+    else:
+        dxu = dpre2 @ vx.T
+        dvx = xu.reshape(t * b, -1).T @ dpre2
     dx2 = dxu @ ux.T
     dux = x2.T @ dxu
-    dvx = xu.reshape(t * b, -1).T @ dpre2
     dxe = dpre2 * xdvec.reshape(-1)
     dxe = dxe[:, :h] + dxe[:, h:2 * h] + dxe[:, 2 * h:3 * h] + dxe[:, 3 * h:]
     dx2 = dx2 + pad_features(dxe, f)
@@ -132,9 +149,11 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
 
 def _check_tensors(names, tensors, want):
     """Raise unless each tensor has its wanted shape, is f32, contiguous and
-    on the first tensor's device."""
+    on the first tensor's device. A None tensor is skipped."""
     dev = tensors[0].device
     for name, a in zip(names, tensors):
+        if a is None:
+            continue
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got {tuple(a.shape)}")
         if a.dtype != torch.float32:
@@ -145,47 +164,48 @@ def _check_tensors(names, tensors, want):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _sizes(xs, ux, u, h0):
-    """(T, B, F, rx, h, r) of a scan call, from its inputs."""
+def _sizes(xs, ux, vx, u, v, h0):
+    """(T, B, F, rx, h, r) of a scan call, from its inputs; rx is 0 for a
+    dense x side (vx None) and r 0 for a dense recurrent side (v None)."""
     if xs.dim() != 3:
         raise ValueError(f"xs must be [T, B, F], got {tuple(xs.shape)}")
     t, b, f = xs.shape
     h = h0.shape[-1] if h0.dim() == 2 else -1
-    rx, r = ux.shape[-1], u.shape[-1]
-    if min(t, b, f, rx, h, r) < 1:
+    rx = 0 if vx is None else ux.shape[-1]
+    r = 0 if v is None else u.shape[-1]
+    if min(t, b, f, h) < 1 or (vx is not None and rx < 1) or (v is not None and r < 1):
         raise ValueError(f"empty scan: T={t}, B={b}, F={f}, rx={rx}, h={h}, r={r}")
     return t, b, f, rx, h, r
 
 
 def _input_shapes(t, b, f, rx, h, r):
     return {
-        "xs": (t, b, f), "ux": (f, rx), "vx": (rx, 4 * h), "xdvec": (4, h),
-        "bias": (4 * h,), "u": (h, r), "v": (r, 4 * h), "dvec": (4 * h,),
+        "xs": (t, b, f), "ux": (f, rx or 4 * h), "vx": (rx, 4 * h), "xdvec": (4, h),
+        "bias": (4 * h,), "u": (h, r or 4 * h), "v": (r, 4 * h), "dvec": (4 * h,),
         "h0": (b, h), "c0": (b, h),
     }
 
 
 def _check(args):
     """Validate a forward call's inputs; -> (T, B, F, rx, h, r)."""
-    xs, ux, _, _, _, u, _, _, h0, _ = args
-    sizes = _sizes(xs, ux, u, h0)
+    xs, ux, vx, _, _, u, v, _, h0, _ = args
+    sizes = _sizes(xs, ux, vx, u, v, h0)
     _check_tensors(_ARG_NAMES, args, _input_shapes(*sizes))
     return sizes
 
 
 def _check_bwd(saved, dys, dc_last):
     """Validate a backward call's residuals and cotangents; -> (T, B, F, rx, h, r)."""
-    xs, ux, _, _, u, _, _, h0 = saved[:8]
-    t, b, f, rx, h, r = sizes = _sizes(xs, ux, u, h0)
+    xs, ux, vx, _, u, v, _, h0 = saved[:8]
+    hu, xu = saved[12:14]
+    t, b, f, rx, h, r = sizes = _sizes(xs, ux, vx, u, v, h0)
+    for name, res, factor in (("hu", hu, v), ("xu", xu, vx)):
+        if (res is None) != (factor is None):
+            raise ValueError(f"{name} is a residual of a low-rank side only: it must be "
+                             f"{'None' if factor is None else 'given'} here")
     want = dict(_input_shapes(*sizes), ys=(t, b, h), cs=(t, b, h), gates=(t, b, 4 * h),
                 hu=(t, b, r), xu=(t, b, rx), dys=(t, b, h), dc_last=(b, h))
-    names = list(_RES_NAMES)
-    tensors = list(saved)
-    for name, a in (("dys", dys), ("dc_last", dc_last)):
-        if a is not None:
-            names.append(name)
-            tensors.append(a)
-    _check_tensors(tuple(names), tensors, want)
+    _check_tensors((*_RES_NAMES, "dys", "dc_last"), (*saved, dys, dc_last), want)
     return sizes
 
 
@@ -216,12 +236,19 @@ def _launch(kernel, entry, tensors, sizes, device):
         raise RuntimeError(f"{entry} launch failed: {describe(err).decode()} (cudaError {err})")
 
 
+def _empty(like):
+    """A maker of uninitialised f32 tensors on ``like``'s device."""
+    return lambda *shape: torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
 def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     """Fused LSTM scan, x mode, no gradient.
 
-    xs [T, B, F]; ux [F, rx], vx [rx, 4h]; xdvec [4, h] (applied to x over its
-    first min(F, h) features); bias [4h]; u [h, r], v [r, 4h]; dvec [4h];
-    h0, c0 [B, h]. Gate order i, f, g, o. Returns (ys [T, B, h], c_last [B, h]).
+    xs [T, B, F]; x side ux [F, rx], vx [rx, 4h] (low-rank) or ux [F, 4h],
+    vx None (dense); xdvec [4, h] (applied to x over its first min(F, h)
+    features); bias [4h]; recurrent side u [h, r], v [r, 4h] (low-rank) or
+    u [h, 4h], v None (dense); dvec [4h]; h0, c0 [B, h]. Gate order i, f, g,
+    o. Returns (ys [T, B, h], c_last [B, h]).
 
     CPU tensors run `lstm_scan_fused_xin_plain`. CUDA tensors must be float32,
     contiguous and on one device; the kernel runs on the current stream and
@@ -234,13 +261,14 @@ def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
         return lstm_scan_fused_xin_plain(*args)
     sizes = _check(args)
     _require_cuda("lstm_scan_fused_xin", xs)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
         raise RuntimeError("lstm_scan_fused_xin computes no gradient; inputs that require "
                            "one go through LSTMScanXin.apply")
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
-        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=xs.device)  # noqa: E731
-        xu, gi, ys, c_last = new(t * b, rx), new(t * b, 4 * h), new(t, b, h), new(b, h)
+        new = _empty(xs)
+        xu = new(t * b, rx) if rx else None
+        gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
         _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last), sizes, xs.device)
     lstm_scan_fused_xin.launches += 1
     return ys, c_last
@@ -252,9 +280,9 @@ lstm_scan_fused_xin.launches = 0
 def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     """The residual forward of training: `lstm_scan_fused_xin` that also
     returns the backward's residuals -> (ys, cs, gates, hu, xu), shaped as
-    `lstm_scan_xin_fwd_res_plain`'s, which CPU tensors run. The final cell
-    state is cs[-1]. ``lstm_scan_fused_xin_res.launches`` counts the kernel's
-    calls."""
+    `lstm_scan_xin_fwd_res_plain`'s, which CPU tensors run: hu is None for a
+    dense recurrent side and xu for a dense x side. The final cell state is
+    cs[-1]. ``lstm_scan_fused_xin_res.launches`` counts the kernel's calls."""
     args = (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)
     if _on_cpu(args):
         return lstm_scan_xin_fwd_res_plain(*args)
@@ -262,9 +290,10 @@ def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     _require_cuda("lstm_scan_fused_xin_res", xs)
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
-        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=xs.device)  # noqa: E731
-        xu, gi, ys = new(t, b, rx), new(t * b, 4 * h), new(t, b, h)
-        cs, gates, hu = new(t, b, h), new(t, b, 4 * h), new(t, b, r)
+        new = _empty(xs)
+        xu = new(t, b, rx) if rx else None
+        hu = new(t, b, r) if r else None
+        gi, ys, cs, gates = new(t * b, 4 * h), new(t, b, h), new(t, b, h), new(t, b, 4 * h)
         _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu), sizes,
                 xs.device)
     lstm_scan_fused_xin_res.launches += 1
@@ -278,7 +307,8 @@ def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, 
                       dys, dc_last):
     """Gradients of the fused scan from the residual forward's outputs and the
     cotangents ``dys [T, B, h]`` and ``dc_last [B, h]`` (either may be None,
-    read as zeros) -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0).
+    read as zeros) -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0);
+    dv is None for a dense recurrent side and dvx for a dense x side.
 
     CPU tensors run `lstm_scan_xin_bwd_plain`; CUDA tensors launch the BPTT
     kernel, counted by ``lstm_scan_xin_bwd.launches``.
@@ -290,10 +320,13 @@ def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, 
     _require_cuda("lstm_scan_xin_bwd", xs)
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
-        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=xs.device)  # noqa: E731
-        dpre, dhu, dxu = new(t * b, 4 * h), new(t * b, r), new(t * b, rx)
-        grads = (new(t, b, f), new(f, rx), new(rx, 4 * h), new(4, h), new(4 * h),
-                 new(h, r), new(r, 4 * h), new(4 * h), new(b, h), new(b, h))
+        new = _empty(xs)
+        dpre = new(t * b, 4 * h)
+        dhu = new(t * b, r) if r else None
+        dxu = new(t * b, rx) if rx else None
+        grads = (new(t, b, f), torch.empty_like(ux), new(rx, 4 * h) if rx else None, new(4, h),
+                 new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
+                 new(b, h), new(b, h))
         _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
                 (*saved, dys, dc_last, dpre, dhu, dxu, *grads), sizes, xs.device)
     lstm_scan_xin_bwd.launches += 1
@@ -307,9 +340,10 @@ class LSTMScanXin(torch.autograd.Function):
     """The differentiable fused scan: the residual forward, then the BPTT.
 
     ``LSTMScanXin.apply(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)`` ->
-    (ys, c_last), with gradients for all ten inputs. A cotangent that autograd
-    leaves out (an output no loss reads, as the LM's detached final state) is
-    passed to the backward as None and read there as zeros.
+    (ys, c_last), with gradients for every tensor input (vx and v may be
+    None, for a dense side). A cotangent that autograd leaves out (an output
+    no loss reads, as the LM's detached final state) is passed to the
+    backward as None and read there as zeros.
     """
 
     @staticmethod
@@ -329,25 +363,33 @@ class LSTMScanXin(torch.autograd.Function):
         return lstm_scan_xin_bwd(*ctx.saved_tensors, dys, dc_last)
 
 
-def scan_cost(t, b, f, rx, h, r):
-    """(operations, bytes) that the scan needs at least, for its roofline bound.
+def _side(n, rank, h):
+    """Multiply-adds per row of one side's product into 4h gate columns, which
+    are also its weights' floats: n*rank + rank*4h for two factors (rank
+    > 0), n*4h for a dense matrix (rank 0)."""
+    return n * rank + rank * 4 * h if rank else n * 4 * h
 
-    Operations: two per multiply-add of the four products, 6 per gate element
-    (the x term and bias, the h term and the sums) and 9 per hidden unit (the
-    nonlinearities and the state update), each step and row. Bytes: each
-    input read once and each output written once, f32.
+
+def scan_cost(t, b, f, rx, h, r):
+    """(operations, bytes) that the scan needs at least, for its roofline bound
+    (rx = 0 and r = 0 mean a dense side).
+
+    Operations: two per multiply-add of the x and the recurrent products, 6
+    per gate element (the x term and bias, the h term and the sums) and 9
+    per hidden unit (the nonlinearities and the state update), each step and
+    row. Bytes: each input read once and each output written once, f32.
     """
-    macs = f * rx + rx * 4 * h + h * r + r * 4 * h
-    ops = t * b * (2 * macs + 6 * 4 * h + 9 * h)
-    floats = (t * b * f + f * rx + rx * 4 * h + 4 * h + 4 * h + h * r + r * 4 * h + 4 * h
-              + 2 * b * h + t * b * h + b * h)
+    xm, rm = _side(f, rx, h), _side(h, r, h)
+    ops = t * b * (2 * (xm + rm) + 6 * 4 * h + 9 * h)
+    floats = t * b * f + xm + 4 * h + 4 * h + rm + 4 * h + 2 * b * h + t * b * h + b * h
     return ops, 4 * floats
 
 
 def scan_res_cost(t, b, f, rx, h, r):
     """(operations, bytes) of the residual forward: `scan_cost` plus the
     residual outputs cs [T,B,h], gates [T,B,4h], hu [T,B,r] and xu [T,B,rx]
-    written once, less the c_last row that it does not write."""
+    (none for a dense side) written once, less the c_last row that it does
+    not write."""
     ops, nbytes = scan_cost(t, b, f, rx, h, r)
     return ops, nbytes + 4 * (t * b * (h + 4 * h + r + rx) - b * h)
 
@@ -355,18 +397,18 @@ def scan_res_cost(t, b, f, rx, h, r):
 def scan_bwd_cost(t, b, f, rx, h, r, *, dys=True, dc_last=False):
     """(operations, bytes) that the BPTT needs at least, for its roofline bound.
 
-    Operations: two per multiply-add of its products over all T*B rows, four
-    per step and row of the recurrent side (dhu = dpre V^T and dh += dhu U^T:
-    4h*r + h*r; dU and dV: h*r + r*4h) and five of the x side (dXU, dx, dUx,
-    dVx: 4h*rx, rx*F, F*rx, rx*4h), or about 2*T*B*(2*4h*r + 2*h*r +
-    2*4h*rx + 2*F*rx); plus 30 per hidden unit for dpre, the carry and the
-    column sums. Bytes: each residual and cotangent read once and each
-    gradient written once, f32; ``dys``/``dc_last`` say whether those
-    cotangents are given.
+    Operations: two per multiply-add of its products over all T*B rows. Each
+    side's products are twice the forward's: on the recurrent side the data
+    gradient along the chain (dhu = dpre V^T and dh += dhu U^T, or dh +=
+    dpre U^T) and the weight gradients (dU, dV, or dU); on the x side dXU
+    and dx, then dUx and dVx (or dx and dUx). Plus 30 per hidden unit for
+    dpre, the carry and the column sums. Bytes: each residual and cotangent
+    read once and each gradient written once, f32; ``dys``/``dc_last`` say
+    whether those cotangents are given.
     """
-    macs = 2 * 4 * h * r + 2 * h * r + 2 * 4 * h * rx + 2 * f * rx
-    ops = t * b * (2 * macs + 30 * h)
-    weights = f * rx + rx * 4 * h + 4 * h + h * r + r * 4 * h + 4 * h
+    xm, rm = _side(f, rx, h), _side(h, r, h)
+    ops = t * b * (2 * 2 * (xm + rm) + 30 * h)
+    weights = xm + 4 * h + rm + 4 * h                                # ux, vx, xdvec, u, v, dvec
     inputs = (t * b * f + weights + 2 * b * h                       # x, weights, h0, c0
               + t * b * (h + h + 4 * h + r + rx)                    # ys, cs, gates, hu, xu
               + (t * b * h if dys else 0) + (b * h if dc_last else 0))

@@ -40,6 +40,42 @@ def group_lowrank_proj(h_bgk, u, v):
     return torch.einsum("...gk,gkr,grm->...gm", h_bgk, u, v)
 
 
+def group_diag_rowsum(u0, v0, num_gates):
+    """Diagonal of the rotation-0 group recurrent matrix, per gate.
+
+    At rotation 0 group p of the state feeds output group p, so gate k's
+    diagonal sits in rows k*(h/g):(k+1)*(h/g) of each group's output block.
+
+    u0: [g, h/g, r]; v0: [g, r, G*(h/g)]  ->  [G, h]
+    """
+    g, k, r = u0.shape
+    v0_g = v0.reshape(g, r, num_gates, k)
+    return torch.einsum("pjr,prkj->kpj", u0, v0_g).reshape(num_gates, g * k)
+
+
+def dense_from_lowrank(u, v, num_gates, hidden_size, d=None, subtract_diag=True):
+    """The dense stacked gate matrix of a low-rank cell -> [G*h, n].
+
+    ``V U^T`` with its per-gate diagonal removed (``subtract_diag``) and the
+    learned vector ``d`` put on the diagonal (if given), over the first
+    min(n, h) features: the matrix the compressed cell is equivalent to, for
+    tests. u: [n, r]; v: [G*h, r].
+    """
+    n = u.shape[0]
+    m = min(n, hidden_size)
+    w = (v @ u.T).reshape(num_gates, hidden_size, n)
+    eye = torch.zeros(hidden_size, n, dtype=w.dtype, device=w.device)
+    idx = torch.arange(m, device=w.device)
+    eye[idx, idx] = 1.0
+    if subtract_diag:
+        w = w - torch.einsum("ghn,hn->gh", w, eye)[:, :, None] * eye
+    if d is not None:
+        dvec = torch.zeros(hidden_size, dtype=w.dtype, device=w.device)
+        dvec[:m] = d.reshape(-1)[:m]
+        w = w + dvec[None, :, None] * eye
+    return w.reshape(num_gates * hidden_size, n)
+
+
 def dense_from_group(u_tiers, v_tiers, num_gates, hidden_size):
     """The dense recurrent matrix of a group cell -> [G*h, h], gate-major.
 

@@ -78,14 +78,37 @@ Phases, each of which exits non-zero when it fails:
                channels, 77 sensors: a 4928-wide cell input), and the two
                cells without a fused form, diag and the shuffled
                LSTMGroupCell, which must launch nothing.
- 13. trace   — one `torch.profiler` trace each of an LM train step at B=20,
-               of a main HAR GRU train step at B=81, and of a dense LM train
-               step at B=20: the device time of each kernel, the port's
-               against cuBLAS's. A profiler error or an empty trace fails.
- 14. report  — one JSON line listing every kernel entry in every form that
+ 13. wavefront — the PTB medium LM on backend "fused_pipelined" (the
+               VMLMF_EXPERIMENTAL_WAVEFRONT=1 knob is set by the script), the
+               wavefront stack: each stack kernel entry against its plain
+               version at L=2, T=35, h=650, r=rx=300 (no-grad at B in
+               1/20/128, residual forward and BPTT with masks at B in
+               20/128), with cuDNN's two-layer LSTM on the dense weights from
+               x as the library yardstick and the port's path from x beside
+               it; prefill at B=20 and 64 greedy tokens through `LMConfig`
+               and `Decoder` (one no-grad stack launch per prefill and no
+               per-layer one, held to the "fused" prefill); 30 `LMTrainer`
+               chunks at B=20, dropout 0.5 (one residual forward and one
+               BPTT of the stack per step, `perplexity` only the no-grad
+               stack, a falling loss, one step's gradients held to "fused"'s
+               under equal generator seeds; the same 30 chunks on "fused"
+               and "loop", whose losses must agree with the wavefront's over
+               the first 10 steps, and the step where each pair parts); a
+               4x650 stack with `stack_fits`
+               forced to a 2+2 grouping for 3 steps, held to "fused"; a
+               VMLMF BDNet at the HAR width (one stack for its forward tower,
+               the per-layer fused scans for its reverse tower, held to
+               "fused"); then prefill ms at B in 1/20/128 and train step ms
+               at B in 20/128 beside the "fused" backend's.
+ 14. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+               of a main HAR GRU train step at B=81, of a dense LM train
+               step at B=20 and of a wavefront LM train step at B=20: the
+               device time of each kernel, the port's against cuBLAS's. A
+               profiler error or an empty trace fails.
+ 15. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-12 every launch count is set to 0 just before the path runs and
+In phases 5-13 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -112,6 +135,7 @@ TRAIN_BATCHES = (20, 128)
 MAIN_BATCH = 20
 HAR = dict(t=24, b=81, f=77, h=180, rx=8, r=6)
 TRAIN_CHUNKS = 30
+PARTING_STEPS = 10  # train steps over which the LM's backends must give the same losses
 # the HAR GRU layers: 64 wide, x side rank 9, T=24, B=81
 GRU = dict(t=24, b=81, f=77, h=64, rx=9, r=9)
 EVAL_BATCH = 256  # `evaluate`'s batch, into which it pads the test windows
@@ -159,8 +183,15 @@ FORMS = {
             "dx_lowrank_pre": ("dx_main_l1", EVAL_BATCH, 81),
             "dx_dense_post": ("dx_group_l1", EVAL_BATCH, 81),
             "dx_dense_pre": ("dx_dense_pre", 81, 81)},
+    "lstm_stack": {"lowrank": ("stack", MAIN_BATCH, MAIN_BATCH)},
 }
 FIRST_FORMS = ("lowrank", "lowrank_pre")
+# The entries of each kernel family: (no-grad forward, residual forward, BPTT)
+FAMILIES = {
+    "lstm": ("lstm_scan_xin_fwd", "lstm_scan_xin_fwd_res", "lstm_scan_xin_bwd"),
+    "gru": ("gru_scan_xin_fwd", "gru_scan_xin_fwd_res", "gru_scan_xin_bwd"),
+    "lstm_stack": ("lstm_stack_fwd", "lstm_stack_fwd_res", "lstm_stack_bwd"),
+}
 
 
 def fail(msg):
@@ -203,14 +234,17 @@ def bound(ops, nbytes):
 
 def entries():
     """{entry name: (its wrapper, its kernel module)} for every kernel entry."""
-    from vmlmf_tpu_torch.ops import cuda_gru, cuda_scan
+    from vmlmf_tpu_torch.ops import cuda_gru, cuda_scan, cuda_stack
 
     return {"lstm_scan_xin_fwd": (cuda_scan.lstm_scan_fused_xin, cuda_scan),
             "lstm_scan_xin_fwd_res": (cuda_scan.lstm_scan_fused_xin_res, cuda_scan),
             "lstm_scan_xin_bwd": (cuda_scan.lstm_scan_xin_bwd, cuda_scan),
             "gru_scan_xin_fwd": (cuda_gru.gru_scan_fused_xin, cuda_gru),
             "gru_scan_xin_fwd_res": (cuda_gru.gru_scan_fused_xin_res, cuda_gru),
-            "gru_scan_xin_bwd": (cuda_gru.gru_scan_xin_bwd, cuda_gru)}
+            "gru_scan_xin_bwd": (cuda_gru.gru_scan_xin_bwd, cuda_gru),
+            "lstm_stack_fwd": (cuda_stack.lstm_stack_scan_fused, cuda_stack),
+            "lstm_stack_fwd_res": (cuda_stack.lstm_stack_scan_fused_res, cuda_stack),
+            "lstm_stack_bwd": (cuda_stack.lstm_stack_bwd, cuda_stack)}
 
 
 def launch_counts():
@@ -241,13 +275,13 @@ def nonzero(counts):
 
 def train_counts(form, n):
     """The launch counts of n training scans of a form ("family:form")."""
-    fam = form.split(":")[0]
-    return only(**{f"{fam}_scan_xin_fwd_res": n, f"{fam}_scan_xin_bwd": n})
+    _, res, bwd = FAMILIES[form.split(":")[0]]
+    return only(**{res: n, bwd: n})
 
 
 def eval_counts(form, n):
     """The launch counts of n no-grad scans of a form ("family:form")."""
-    return only(**{f"{form.split(':')[0]}_scan_xin_fwd": n})
+    return only(**{FAMILIES[form.split(":")[0]][0]: n})
 
 
 def dense_lstm_weights(ux, vx, xdvec, bias, u, v, dvec):
@@ -1136,6 +1170,407 @@ def phase_reduced(torch):
     return runs
 
 
+def stack_check_inputs(torch, b, masks, seed=0):
+    """Seeded inputs of the LM stack at batch b: x [T, B, h], layer 0's x side
+    (ux, vx, xdvec [4, h], bias), the stack's layer dicts, h0s, c0s and, for
+    the training entries, L - 1 dropout masks at rate 0.5. Scaled so that the
+    gates are O(1)."""
+    t, h, r, n = LM["prompt"], LM["hidden"], LM["rank"], LM["layers"]
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    x = rnd(t, b, h, scale=1.0)
+    x_side = (rnd(h, r, scale=h ** -0.5), rnd(r, 4 * h, scale=r ** -0.5), rnd(4, h, scale=0.1),
+              rnd(4 * h, scale=0.1))
+    layers = []
+    for l in range(n):
+        d = {"u": rnd(h, r, scale=h ** -0.5), "v": rnd(r, 4 * h, scale=r ** -0.5),
+             "dvec": rnd(4 * h, scale=0.1)}
+        if l:
+            d.update(ux=rnd(h, r, scale=h ** -0.5), vx=rnd(r, 4 * h, scale=r ** -0.5),
+                     dxvec=rnd(4 * h, scale=0.1), bias=rnd(4 * h, scale=0.1))
+        layers.append(d)
+    mk = None
+    if masks:
+        mk = [(torch.rand((t, b, h), generator=g) < 0.5).float().cuda() / 0.5 for _ in range(n - 1)]
+    return x, x_side, layers, [rnd(b, h, scale=0.5) for _ in range(n)], \
+        [rnd(b, h, scale=0.5) for _ in range(n)], mk
+
+
+def layer0_inp(x, ux, vx, xdvec, bias):
+    """Layer 0's input contribution gi0 from x, as the fused scan computes it."""
+    return (x @ ux) @ vx + x.repeat(1, 1, 4) * xdvec.reshape(-1) + bias
+
+
+def cudnn_stack(torch, x, x_side, layers, h0s, c0s):
+    """A two-layer `nn.LSTM` (cuDNN) holding the stack's dense weights, layer 0
+    with its x side, flattened once, outside any timed window. Fails unless
+    it computes the same stack from x (no masks)."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    n, h = len(layers), x.shape[-1]
+    lstm = torch.nn.LSTM(h, h, num_layers=n).cuda()
+    with torch.no_grad():
+        for l, lay in enumerate(layers):
+            xs = x_side if l == 0 else (lay["ux"], lay["vx"], lay["dxvec"].reshape(4, h),
+                                        lay["bias"])
+            for name, w in zip(("weight_ih", "weight_hh", "bias_ih", "bias_hh"),
+                               dense_lstm_weights(*xs, lay["u"], lay["v"], lay["dvec"])):
+                getattr(lstm, f"{name}_l{l}").copy_(w)
+        lstm.flatten_parameters()
+        out, (h_n, c_n) = lstm(x, (torch.stack(h0s), torch.stack(c0s)))
+        ys, hl, cl = cuda_stack.lstm_stack_scan_fused_plain(layer0_inp(x, *x_side),
+                                                            layers, h0s, c0s)
+    ok, err = all_close(torch, (out, h_n, c_n), (ys, torch.stack(hl), torch.stack(cl)), GRAD_TOL)
+    if not ok:
+        fail(f"cuDNN's {n}-layer LSTM on the dense weights is not the same stack: {err}")
+    return lstm, err
+
+
+def phase_stack_kernels(torch):
+    """Each stack entry against its plain version at the LM stack (L=2, T=35,
+    h=650, r=rx=300): the no-grad forward at B in 1/20/128, the residual
+    forward and the BPTT (with masks) at B in 20/128. Library: cuDNN's
+    two-layer LSTM on the dense weights, from x; beside it the port's path
+    from x (layer 0's projection in torch ops, then the stack).
+    -> {(entry, "stack", B): row}."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    rows, extra = {}, {}
+    t, h, r, n = LM["prompt"], LM["hidden"], LM["rank"], LM["layers"]
+    ranks, xranks = [r] * n, [r] * (n - 1)
+    for b in LM_BATCHES:
+        train = b in TRAIN_BATCHES
+        x, x_side, layers, h0s, c0s, mk = stack_check_inputs(torch, b, masks=train)
+        label = f"stack L={n} T={t} B={b} h={h} r=rx={r}"
+        gi0 = layer0_inp(x, *x_side)
+        lstm, lib_err = cudnn_stack(torch, x, x_side, layers, h0s, c0s)
+        print(f"library: cuDNN {n}-layer LSTM on the dense weights, {label}: max abs err "
+              f"{lib_err:.3g} against the plain stack")
+
+        # -- the no-grad forward, without masks (serving)
+        out = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s)
+        torch.cuda.synchronize()
+        want = cuda_stack.lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s)
+        ok, err = all_close(torch, [out[0], *out[1], *out[2]], [want[0], *want[1], *want[2]], TOL)
+        if not ok:
+            fail(f"lstm_stack_fwd disagrees with its plain version at {label}: {err}")
+        state0 = (torch.stack(h0s), torch.stack(c0s))
+
+        def lib_fwd():
+            with torch.no_grad():
+                lstm(x, state0)
+
+        def port_from_x():
+            cuda_stack.lstm_stack_scan_fused(layer0_inp(x, *x_side), layers, h0s, c0s)
+
+        with torch.no_grad():
+            rows[("lstm_stack_fwd", "stack", b)] = kernel_row(
+                "lstm_stack_fwd", label, err, TOL,
+                cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s), 10),
+                cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused_plain(gi0, layers, h0s,
+                                                                             c0s), 3),
+                cuda_stack.stack_cost(t, b, h, ranks, xranks), cuda_ms(torch, lib_fwd, 10))
+            extra[f"fwd_b{b}"] = dict(port_from_x_ms=cuda_ms(torch, port_from_x, 10))
+        print(f"kernel lstm_stack_fwd {label}: the port from x (projection + stack) "
+              f"{extra[f'fwd_b{b}']['port_from_x_ms']:.4f} ms against cuDNN's from x "
+              f"{rows[('lstm_stack_fwd', 'stack', b)]['library_ms']:.4f} ms")
+        if not train:
+            continue
+
+        # -- the residual forward and the BPTT, with masks, dys given and the
+        # final states' cotangents absent, as on the LM's training path
+        res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk)
+        torch.cuda.synchronize()
+        res_p = cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, mk)
+        ok, err = all_close(torch, [a for group in res for a in group],
+                            [a for group in res_p for a in group], TOL)
+        if not ok:
+            fail(f"lstm_stack_fwd_res disagrees with its plain version at {label}: {err}")
+        dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+        none = [None] * n
+        bwd_args = (layers, h0s, c0s, mk, *res, dys, none, none)
+        grads = cuda_stack.lstm_stack_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        grads_p = cuda_stack.lstm_stack_bwd_plain(*bwd_args)
+
+        def flat(g):
+            return [g[0], *(a for d in g[1] for a in d.values()), *g[2], *g[3]]
+
+        ok_g, err_g = all_close(torch, flat(grads), flat(grads_p), GRAD_TOL)
+        if not ok_g:
+            fail(f"lstm_stack_bwd disagrees with its plain version at {label}: {err_g}")
+
+        xl, hl, cl = (a.detach().requires_grad_() for a in (x, *state0))
+        lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: lstm(xl, (hl, cl)), dys, 10)
+        cost = dict(masks=True)
+        rows[("lstm_stack_fwd_res", "stack", b)] = kernel_row(
+            "lstm_stack_fwd_res", label + ", masks", err, TOL,
+            cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s,
+                                                                        mk), 10),
+            cuda_ms(torch, lambda: cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s,
+                                                                       mk), 3),
+            cuda_stack.stack_res_cost(t, b, h, ranks, xranks, **cost), lib_fwd_ms)
+        rows[("lstm_stack_bwd", "stack", b)] = kernel_row(
+            "lstm_stack_bwd", label + ", masks", err_g, GRAD_TOL,
+            cuda_ms(torch, lambda: cuda_stack.lstm_stack_bwd(*bwd_args), 10),
+            cuda_ms(torch, lambda: cuda_stack.lstm_stack_bwd_plain(*bwd_args), 3),
+            cuda_stack.stack_bwd_cost(t, b, h, ranks, xranks, **cost), lib_bwd_ms)
+    print(json.dumps({"wavefront_kernels": extra}))
+    return rows
+
+
+def wavefront_lm(backend, dropout=0.5, layers=LM["layers"]):
+    """The PTB medium LM through `LMConfig` on a backend."""
+    from vmlmf_tpu_torch.config import LMConfig
+
+    return LMConfig(hidden_size=LM["hidden"], layer_num=layers, dropout=dropout,
+                    w_rank=LM["rank"], u_ranks=(LM["rank"],),
+                    backend=backend).build_model(LM["vocab"])
+
+
+def step_grads(torch, model, params, chunk, seed):
+    """One train-mode step's gradients of every parameter, dropout masks from
+    a generator seeded with `seed`."""
+    from vmlmf_tpu_torch.train.lm import lm_loss
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    x, y = (torch.as_tensor(a, device="cuda").long() for a in chunk)
+    leaves = [q.detach().requires_grad_() for q in tree_leaves(params)]
+    p = params_like(params, iter(leaves))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits, _ = model.apply(p, x, model.state0(x.shape[1]), train=True, generator=gen)
+    return torch.autograd.grad(lm_loss(logits, y), leaves)
+
+
+def first_parting(losses, other):
+    """The first step whose losses differ by more than GRAD_TOL relative, or None."""
+    return next((i for i, (u, v) in enumerate(zip(losses, other))
+                 if abs(u - v) > GRAD_TOL * abs(v)), None)
+
+
+def params_like(tree, leaves):
+    """`tree` with its tensors replaced, in order, by those of `leaves`."""
+    if isinstance(tree, dict):
+        return {k: params_like(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_like(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def phase_wavefront(torch):
+    """The PTB medium LM on backend "fused_pipelined" (the knob set): the
+    stack kernels' checks, serving, training, a 2+2 grouping of a 4x650
+    stack, and prefill and train step ms beside the per-layer "fused"
+    backend's. -> (rows, [(form, launch counts)])."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+    from vmlmf_tpu_torch.serve import Decoder
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    rows = phase_stack_kernels(torch)
+    b, form = MAIN_BATCH, "lstm_stack:lowrank"
+    wave, fused = wavefront_lm("fused_pipelined"), wavefront_lm("fused")
+    params = wave.init(torch.Generator().manual_seed(0), device="cuda")
+    dec = Decoder(wave)
+    prompt = prompt_ids(torch, b)
+
+    # -- serving, with the launch counts read around it
+    reset_launch_counts()
+    logits, states = dec.prefill(params, prompt, wave.state0(b))
+    prefill_counts = launch_counts()
+    greedy, _ = dec.decode(params, logits, states, steps=64)
+    torch.cuda.synchronize()
+    decode_delta = count_delta(prefill_counts)
+    serve_launches = launch_counts()
+    print(f"wavefront: launches in prefill {nonzero(prefill_counts)}, in decode "
+          f"{nonzero(decode_delta)}")
+    if prefill_counts != eval_counts(form, 1) or decode_delta != only():
+        fail(f"a wavefront prefill must launch the no-grad stack entry once and nothing else, "
+             f"decode nothing: {prefill_counts}, {decode_delta}")
+    lo, hi = int(greedy.min()), int(greedy.max())
+    if tuple(greedy.shape) != (64, b) or not 0 <= lo <= hi < LM["vocab"]:
+        fail(f"wavefront greedy tokens: shape {tuple(greedy.shape)}, range [{lo}, {hi}]")
+    lf, sf = Decoder(fused).prefill(params, prompt, fused.state0(b))
+    ok, err = all_close(torch, [logits] + [a for s in states for a in s],
+                        [lf] + [a for s in sf for a in s], TOL)
+    print(f"wavefront: prefill vs the per-layer fused backend's, max abs err {err:.3g} (tol {TOL})")
+    if not ok:
+        fail("the wavefront prefill disagrees with the per-layer fused backend's")
+
+    # -- training, with the launch counts read around each step
+    trn, vld = lm_chunks(b)
+    trainer = LMTrainer(wave, batch_size=b, seq_length=LM["prompt"], learning_rate=1.0,
+                        max_grad_norm=5.0)
+    tparams, tstates = trainer.init(), trainer.state0()
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    reset_launch_counts()
+    losses, deltas = [], []
+    for x, y in trn[:TRAIN_CHUNKS]:
+        before = launch_counts()
+        tparams, tstates, loss, _ = trainer.train_step(tparams, tstates, x, y, 1.0, generator)
+        deltas.append(count_delta(before))
+        losses.append(loss)
+    before = launch_counts()
+    ppl = trainer.perplexity(tparams, vld[:10])
+    ppl_delta = count_delta(before)
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    losses = [float(v) / b for v in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"wavefront: {TRAIN_CHUNKS} chunks at B={b}, loss per word {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of first 5 {first:.4f}, last 5 {last:.4f}), valid perplexity "
+          f"on 10 chunks {ppl:.2f}; launches per step {nonzero(deltas[0])}, in perplexity "
+          f"{nonzero(ppl_delta)}")
+    if any(d != train_counts(form, 1) for d in deltas):
+        fail(f"each wavefront train step must launch one residual forward and one BPTT of the "
+             f"stack and nothing else: {deltas}")
+    if ppl_delta != eval_counts(form, 10):
+        fail(f"perplexity must launch only the no-grad stack entry, once per chunk: {ppl_delta}")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not last < first:
+        fail(f"the wavefront LM's training loss did not fall: {losses}")
+
+    # -- the same chunks on the per-layer backends, from the same init and
+    # seed: at lr 1.0 training is chaotic, so f32 sums in another order part
+    # the losses after some steps, "fused" and "loop" alike; they must agree
+    # for the first PARTING_STEPS
+    parting = {}
+    for be in ("fused", "loop"):
+        tr = LMTrainer(wavefront_lm(be), batch_size=b, seq_length=LM["prompt"],
+                       learning_rate=1.0, max_grad_norm=5.0)
+        p, s = tr.init(), tr.state0()
+        gen, other = torch.Generator(device="cuda").manual_seed(1), []
+        for x, y in trn[:TRAIN_CHUNKS]:
+            p, s, loss, _ = tr.train_step(p, s, x, y, 1.0, gen)
+            other.append(float(loss) / b)
+        if be == "fused":
+            fused_losses = other
+        else:
+            parting["fused vs loop"] = first_parting(fused_losses, other)
+        parting[f"fused_pipelined vs {be}"] = first_parting(losses, other)
+    print(f"wavefront: first of {TRAIN_CHUNKS} train steps whose losses part by more than "
+          f"{GRAD_TOL} relative (None: none) {parting}")
+    if any(v is not None and v < PARTING_STEPS for v in parting.values()):
+        fail(f"the wavefront's training losses part from the per-layer backends' within "
+             f"{PARTING_STEPS} steps: {parting}")
+
+    # -- one step's gradients at dropout 0.5 under equal generator seeds: the
+    # same masks, so the per-layer fused backend's gradients
+    g_wave = step_grads(torch, wave, params, trn[0], seed=3)
+    g_fused = step_grads(torch, fused, params, trn[0], seed=3)
+    rel = [float((a - c).abs().max() / c.abs().max()) for a, c in zip(g_wave, g_fused)]
+    print(f"wavefront: gradients of one step at dropout 0.5 vs the fused backend's, largest "
+          f"max|diff| / max|fused grad| over {len(rel)} tensors {max(rel):.3g} (tol {GRAD_TOL})")
+    if not max(rel) <= GRAD_TOL:
+        fail(f"the wavefront gradients disagree with the fused backend's: {rel}")
+
+    group_launches = wavefront_grouping(torch, trn, generator)
+    wavefront_reverse(torch)
+
+    # -- speed, beside the per-layer fused backend, same params
+    perf = {}
+    for bb in LM_BATCHES:
+        ids = prompt_ids(torch, bb)
+        s0 = wave.state0(bb)
+        perf[f"prefill_b{bb}"] = {
+            be: cuda_ms(torch, lambda m=m: Decoder(m).prefill(params, ids, s0), 5)
+            for be, m in (("fused_pipelined", wave), ("fused", fused))}
+    for bb in TRAIN_BATCHES:
+        chunks, _ = lm_chunks(bb)
+        for be in ("fused_pipelined", "fused"):
+            t = LMTrainer(wavefront_lm(be), batch_size=bb, seq_length=LM["prompt"])
+            ms = train_step_ms(torch, t, t.init(), chunks, 5, generator)
+            perf[f"train_b{bb}_{be}"] = dict(step_ms=ms, words_per_s=bb * LM["prompt"] / ms * 1e3)
+    for k, v in perf.items():
+        print(f"wavefront {k}: {v}")
+    print(json.dumps({"wavefront": dict(perf, losses=losses[::5], perplexity=ppl,
+                                        parting=parting)}))
+    return rows, [(form, serve_launches), (form, train_launches), (form, group_launches)]
+
+
+def wavefront_grouping(torch, trn, generator):
+    """A 4x650 stack with `stack_fits` forced to a 2+2 grouping: REDUCED_STEPS
+    train steps and one no-grad apply, held to the per-layer fused backend
+    from the same parameters and generator seeds. -> its launch counts."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    fits = cuda_stack.stack_fits
+    cuda_stack.stack_fits = lambda layers: len(layers) <= 2
+    try:
+        models = {be: wavefront_lm(be, layers=4) for be in ("fused_pipelined", "fused")}
+        wave = models["fused_pipelined"]
+        params = wave.init(torch.Generator().manual_seed(0), device="cuda")
+        preps = [c.prepare(p) for c, p in zip(wave.rnn.cells, params["rnn"])]
+        groups = cuda_stack.stack_groups(cuda_stack.stack_units(wave.rnn.cells, preps))
+        if groups != [(0, 2), (2, 4)]:
+            fail(f"the forced grouping of the 4x650 stack is {groups}")
+        trained, losses = {}, {}
+        for be, model in models.items():
+            tr = LMTrainer(model, batch_size=MAIN_BATCH, seq_length=LM["prompt"])
+            p = params_like(params, (a.clone() for a in tree_leaves(params)))
+            states, gen = tr.state0(), torch.Generator(device="cuda").manual_seed(4)
+            reset_launch_counts()
+            losses[be] = []
+            for x, y in trn[:REDUCED_STEPS]:
+                p, states, loss, _ = tr.train_step(p, states, x, y, 1.0, gen)
+                losses[be].append(float(loss) / MAIN_BATCH)
+            with torch.no_grad():
+                ids = torch.as_tensor(trn[0][0], device="cuda").long()
+                logits, _ = model.apply(p, ids, model.state0(MAIN_BATCH))
+            torch.cuda.synchronize()
+            trained[be] = (logits, [a.detach() for a in tree_leaves(p)], launch_counts())
+    finally:
+        cuda_stack.stack_fits = fits
+    (lw, pw, launches), (lf, pf, _) = trained["fused_pipelined"], trained["fused"]
+    rel = [float((a - c).abs().max() / max(float(c.abs().max()), 1e-12)) for a, c in zip(pw, pf)]
+    ok, err = close(torch, lw, lf, GRAD_TOL)
+    print(f"wavefront grouping 2+2 of 4x650: losses {losses}, logits after {REDUCED_STEPS} steps "
+          f"max abs err {err:.3g}, parameters largest relative diff {max(rel):.3g}; launches "
+          f"{nonzero(launches)}")
+    want = only(lstm_stack_fwd_res=2 * REDUCED_STEPS, lstm_stack_bwd=2 * REDUCED_STEPS,
+                lstm_stack_fwd=2)
+    if launches != want:
+        fail(f"the 2+2 grouping must launch two stacks per step and per apply: {launches}")
+    if not ok or not max(rel) <= GRAD_TOL:
+        fail(f"the 2+2 grouped stack disagrees with the per-layer fused backend: {err}, {rel}")
+    return launches
+
+
+def wavefront_reverse(torch):
+    """A VMLMF BDNet at the HAR width (77 -> 180 -> 180) on "fused_pipelined":
+    its forward tower runs one no-grad stack, its reverse tower the per-layer
+    fused scans; the logits are held to the "fused" BDNet's."""
+    from vmlmf_tpu_torch.cells import VMLMFCell
+    from vmlmf_tpu_torch.nn.models import BDNet
+
+    def bdnet(backend):
+        return BDNet(HAR["f"], (HAR["h"], HAR["h"]), num_classes=18, merge="concat",
+                     backend=backend,
+                     cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=HAR["rx"], u_rank=HAR["r"]))
+
+    wave = bdnet("fused_pipelined")
+    params = wave.init(torch.Generator().manual_seed(0), device="cuda")
+    x = torch.randn(HAR["b"], HAR["t"], HAR["f"], generator=torch.Generator().manual_seed(1))
+    x = x.to("cuda")
+    with torch.no_grad():
+        reset_launch_counts()
+        got = wave.apply(params, x)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = bdnet("fused").apply(params, x)
+    ok, err = close(torch, got, want)
+    print(f"wavefront BDNet: launches {nonzero(launches)}, logits vs the fused backend's max abs "
+          f"err {err:.3g} (tol {TOL})")
+    if launches != only(lstm_stack_fwd=1, lstm_scan_xin_fwd=2):
+        fail(f"a wavefront BDNet must run its forward tower as one stack and its reverse tower "
+             f"through the per-layer fused scans: {launches}")
+    if not ok:
+        fail(f"the wavefront BDNet's logits disagree with the fused backend's: {err}")
+
+
 def trace_step(torch, label, step):
     """One profiled call of step(), after a warm one: device time by kernel,
     the port's against cuBLAS's -> dict(wall_ms, busy_ms, groups)."""
@@ -1159,7 +1594,8 @@ def trace_step(torch, label, step):
         fail(f"trace: the profiler recorded no device time in one {label}")
 
     def group(name):
-        if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::")):
+        if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
+                                   "stack_step_kernel", "stack_bptt_kernel")):
             return "port"
         if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
             return "cublas"
@@ -1205,7 +1641,12 @@ def phase_trace(torch):
     d_params, d_states = dense.init(), dense.state0()
     lm_dense = trace_step(torch, f"dense LM train step at B={MAIN_BATCH}",
                           lambda: dense.train_step(d_params, d_states, *trn[1], 1.0, generator))
-    print(json.dumps({"trace": dict(lm=lm, har_gru=gru, lm_dense=lm_dense)}))
+    wave = LMTrainer(wavefront_lm("fused_pipelined"), batch_size=MAIN_BATCH,
+                     seq_length=LM["prompt"])
+    w_params, w_states = wave.init(), wave.state0()
+    lm_wave = trace_step(torch, f"wavefront LM train step at B={MAIN_BATCH}",
+                         lambda: wave.train_step(w_params, w_states, *trn[1], 1.0, generator))
+    print(json.dumps({"trace": dict(lm=lm, har_gru=gru, lm_dense=lm_dense, lm_wavefront=lm_wave)}))
 
 
 def kernel_report(rows, runs):
@@ -1215,9 +1656,8 @@ def kernel_report(rows, runs):
     kernels = []
     for family, forms in FORMS.items():
         for form, (shape, b_nograd, b_train) in forms.items():
-            for name, (_, module) in entries().items():
-                if not name.startswith(family):
-                    continue
+            for name in FAMILIES[family]:
+                module = entries()[name][1]
                 launches = sum(c[name] for f, c in runs if f == f"{family}:{form}")
                 if launches == 0:
                     fail(f"{name} in form {form} was never launched on the main paths")
@@ -1248,6 +1688,7 @@ def main():
     except ImportError as e:
         fail(f"the port's package is not beside this script: {e}")
 
+    os.environ["VMLMF_EXPERIMENTAL_WAVEFRONT"] = "1"  # the wavefront backends' knob
     t0 = time.perf_counter()
     card = phase_device(torch)
     phase_build()
@@ -1257,6 +1698,9 @@ def main():
     for phase in (phase_serve, phase_train, phase_har, phase_har_gru, phase_bdnet,
                   phase_har_dense, phase_lm_dense, phase_reduced):
         runs += phase(torch)
+    stack_rows, stack_runs = phase_wavefront(torch)
+    rows.update(stack_rows)
+    runs += stack_runs
     phase_trace(torch)
 
     kernels = kernel_report(rows, runs)

@@ -496,3 +496,157 @@ def test_cells_run_their_route_on_cuda(cuda, kind):
     assert launched == ([1, 0, 0, 0, 0, 0] if kind == "deepconv" else [0] * 6)
     with torch.no_grad():
         torch.testing.assert_close(fused, build("loop").apply(params, x), **TOL)
+
+
+# -- the wavefront stack (csrc/lstm_stack_fwd.cu, csrc/lstm_stack_bwd.cu) -------
+
+# (layers, T, B, h, ranks r_l, x ranks rx_l, masks) with time blocks of
+# cuda_stack.BLOCK = 5 steps: a ragged last block (T=7, T=12), one short
+# block (T=4), unequal ranks, three layers; the PTB LM stack at B=20
+STACK_CASES = {
+    "l3_ragged": (3, 7, 5, 33, (6, 9, 4), (5, 7), True),
+    "l2_one_block": (2, 4, 3, 16, (4, 4), (4,), False),
+    "l2_three_blocks": (2, 12, 6, 20, (3, 5), (4,), True),
+    "lm_b20": (2, 35, 20, 650, (300, 300), (300,), True),
+}
+
+
+def stack_inputs(n, t, b, h, ranks, xranks, masks, device, seed=0):
+    """Seeded inputs of the stack, scaled so that the gates are O(1)."""
+    rng = np.random.default_rng(seed)
+
+    def g(*shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
+
+    layers = []
+    for l in range(n):
+        d = {"u": g(h, ranks[l], scale=h ** -0.5), "v": g(ranks[l], 4 * h, scale=ranks[l] ** -0.5),
+             "dvec": g(4 * h, scale=0.1)}
+        if l:
+            rx = xranks[l - 1]
+            d.update(ux=g(h, rx, scale=h ** -0.5), vx=g(rx, 4 * h, scale=rx ** -0.5),
+                     dxvec=g(4 * h, scale=0.1), bias=g(4 * h, scale=0.1))
+        layers.append(d)
+    mk = None
+    if masks:
+        mk = [(torch.from_numpy(rng.random((t, b, h)) < 0.5).float() / 0.5).to(device)
+              for _ in range(n - 1)]
+    return (g(t, b, 4 * h, scale=1.0), layers, [g(b, h, scale=0.5) for _ in range(n)],
+            [g(b, h, scale=0.5) for _ in range(n)], mk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STACK_CASES), ids=list(STACK_CASES))
+def test_stack_kernels_match_plain(cuda, case):
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    n, t, b, h, ranks, xranks, masks = STACK_CASES[case]
+    gi0, layers, h0s, c0s, mk = stack_inputs(n, t, b, h, ranks, xranks, masks, cuda)
+    fns = (cuda_stack.lstm_stack_scan_fused, cuda_stack.lstm_stack_scan_fused_res,
+           cuda_stack.lstm_stack_bwd)
+    counts = [fn.launches for fn in fns]
+    ys, hl, cl = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, mk)
+    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk)
+    rng = np.random.default_rng(1)
+    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32)).to(cuda)
+    dhl = [torch.randn(b, h, device=cuda), None] + [None] * (n - 2)
+    dcl = [None] + [torch.randn(b, h, device=cuda) for _ in range(n - 1)]
+    grads = cuda_stack.lstm_stack_bwd(layers, h0s, c0s, mk, *res, dys, dhl, dcl)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == [c + 1 for c in counts]
+
+    ys_p, hl_p, cl_p = cuda_stack.lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, mk)
+    for got, want in zip([ys, *hl, *cl], [ys_p, *hl_p, *cl_p]):
+        torch.testing.assert_close(got, want, **TOL)
+    res_p = cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, mk)
+    for name, got, want in zip(("ys", "cs", "gates", "hu", "xu"), res, res_p):
+        for l, (a, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, w, msg=f"{name} {l}", **TOL)
+    grads_p = cuda_stack.lstm_stack_bwd_plain(layers, h0s, c0s, mk, *res_p, dys, dhl, dcl)
+    for a, w in zip(leaves(grads), leaves(grads_p)):
+        torch.testing.assert_close(a, w, **GRAD_TOL)
+
+
+def leaves(tree):
+    """The tensors of a nested list/tuple/dict, in order."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_stack_kernels_refuse_what_they_do_not_take(cuda):
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    gi0, layers, h0s, c0s, mk = stack_inputs(*STACK_CASES["l2_three_blocks"], cuda)
+    bad = dict(layers[1], vx=layers[1]["vx"].bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        cuda_stack.lstm_stack_scan_fused(gi0, [layers[0], bad], h0s, c0s, mk)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_stack.lstm_stack_scan_fused_res(gi0.transpose(0, 1).contiguous().transpose(0, 1),
+                                             layers, h0s, c0s, mk)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_stack.lstm_stack_scan_fused(gi0[:, :, :-4].contiguous(), layers, h0s, c0s, mk)
+    deep = [layers[0]] + [layers[1]] * cuda_stack.MAX_LAYERS
+    with pytest.raises(ValueError, match="stack_groups"):
+        cuda_stack.lstm_stack_scan_fused(gi0, deep, h0s * 9, c0s * 9, None)
+    layers[0]["u"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="LSTMStackScan"):
+        cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, mk)
+
+
+@pytest.mark.cuda
+def test_wavefront_lm_launches_the_stack_kernels_only(cuda, monkeypatch):
+    from vmlmf_tpu_torch.ops import cuda_stack
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    monkeypatch.setenv("VMLMF_EXPERIMENTAL_WAVEFRONT", "1")
+    entries = (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+               cuda_scan.lstm_scan_xin_bwd, cuda_stack.lstm_stack_scan_fused,
+               cuda_stack.lstm_stack_scan_fused_res, cuda_stack.lstm_stack_bwd)
+
+    def counts():
+        return [fn.launches for fn in entries]
+
+    kw = dict(vocab_size=64, hidden_size=40, num_layers=2, dropout_rate=0.5, winit=0.3,
+              cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=7, u_rank=9))
+    model, fused = LMModel(backend="fused_pipelined", **kw), LMModel(backend="fused", **kw)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    prompt = torch.randint(0, 64, (9, 5), generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = counts()
+    lw, sw = Decoder(model).prefill(params, prompt, model.state0(5, cuda))
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 0, 1, 0, 0]
+    lf, sf = Decoder(fused).prefill(params, prompt, fused.state0(5, cuda))
+    torch.testing.assert_close(lw, lf, **TOL)
+    for a, b in zip(leaves(sw), leaves(sf)):
+        torch.testing.assert_close(a, b, **TOL)
+
+    trainer = LMTrainer(model, batch_size=5, seq_length=9, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    before = counts()
+    _, _, loss, gnorm = trainer.train_step(trainer.init(), trainer.state0(), prompt, prompt, 1.0,
+                                           gen)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 0, 0, 1, 1]
+    assert bool(torch.isfinite(loss)) and float(gnorm) > 0
+
+
+@pytest.mark.cuda
+def test_wavefront_reverse_runs_the_per_layer_kernels(cuda, monkeypatch):
+    from vmlmf_tpu_torch.nn.recurrence import RNN
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    monkeypatch.setenv("VMLMF_EXPERIMENTAL_WAVEFRONT", "1")
+    cells = (VMLMFCell(12, 40, w_rank=7, u_rank=9), VMLMFCell(40, 40, w_rank=7, u_rank=9))
+    rnn, fused = RNN(cells, backend="fused_pipelined"), RNN(cells, backend="fused")
+    params = rnn.init(torch.Generator().manual_seed(0), device=cuda)
+    xs = torch.randn(5, 9, 12, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = (cuda_scan.lstm_scan_fused_xin.launches, cuda_stack.lstm_stack_scan_fused.launches)
+    with torch.no_grad():
+        ys, _ = rnn(params, xs, reverse=True)
+        ys_f, _ = fused(params, xs, reverse=True)
+    assert (cuda_scan.lstm_scan_fused_xin.launches - before[0],
+            cuda_stack.lstm_stack_scan_fused.launches - before[1]) == (4, 0)
+    torch.testing.assert_close(ys, ys_f, atol=0.0, rtol=0.0)

@@ -37,11 +37,11 @@ def test_port_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     summary, names = out.stdout.splitlines()
     count, bad = summary.split(maxsplit=1)
-    assert int(count) >= 24
+    assert int(count) >= 26
     assert bad.strip() == "[]"
     for name in ("train.lm", "train.har", "data.batching", "data.ptb", "data.har", "nn.models",
                  "cells.gru", "ops.cuda_gru", "cells.lstm", "cells.group", "cells.legacy",
-                 "config"):
+                 "config", "ops.cuda_stack", "ops.pipeline"):
         assert f"vmlmf_tpu_torch.{name}" in names.split()
 
 

@@ -52,3 +52,14 @@ class LSTMCell(Cell):
         ux, vx = side_factors(prep, "w", self.w_rank)
         xdvec = torch.zeros(4, self.hidden_size, dtype=ux.dtype, device=ux.device)
         return ux, vx, xdvec, prep["b"]
+
+    def pipeline_units(self, prep):
+        """The factors of the wavefront stack (`ops.pipeline`, `ops.cuda_stack`)
+        for an LMF cell, low-rank on both sides, with zero diagonals; None when
+        either side is dense, which leaves the stack to the per-layer schedule."""
+        if self.w_rank is None or self.u_rank is None:
+            return None
+        b = prep["b"]
+        zeros = torch.zeros(4, self.hidden_size, dtype=b.dtype, device=b.device)
+        return {"u_x": prep["w_fac"], "v_x": prep["w_proj"], "d_x": zeros, "bias": b,
+                "u_h": prep["u_fac"], "v_h": prep["u_proj"], "d_h": zeros}

@@ -82,3 +82,19 @@ class VMLMFCell(Cell):
         xdvec = pad_features(prep["d_x"], h)[None, :] - prep["dcorr_x"]
         return (prep["u_x"].contiguous(), prep["v_x"].T.contiguous(),
                 xdvec.contiguous(), prep["b_x"] + prep["b_h"])
+
+    def pipeline_units(self, prep):
+        """The factors of the wavefront stack (`ops.pipeline`, `ops.cuda_stack`).
+
+        Both paths are ``in @ U @ V + tile4(in) ⊙ D`` per gate; the x path
+        also carries the bias sum. The x unit is read only when this cell sits
+        above another layer (input_size == hidden_size).
+        """
+        h = self.hidden_size
+        return {
+            "u_x": prep["u_x"], "v_x": prep["v_x"].T,
+            "d_x": pad_features(prep["d_x"], h)[None, :] - prep["dcorr_x"],
+            "bias": prep["b_x"] + prep["b_h"],
+            "u_h": prep["u_h"], "v_h": prep["v_h"].T,
+            "d_h": prep["d_h"][None, :] - prep["dcorr_h"],
+        }

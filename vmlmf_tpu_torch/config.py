@@ -4,7 +4,9 @@ a typed dataclass field, and the builders of their models (counterpart of
 
 `HARConfig.build_model` and `LMConfig.build_model` build the port's models.
 ``backend`` takes the port's names: "fused" (the default, the fused scan
-kernels) or "loop".
+kernels) or "loop", and the two wavefront backends, experiment knobs that
+need VMLMF_EXPERIMENTAL_WAVEFRONT=1 (`nn.recurrence`): "fused_pipelined"
+(the stack kernels) and "pipelined" (the plain wavefront).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ class HARConfig:
     max_epochs: int = 100
     seed: int = 3
     is_train: bool = True
-    # execution: "fused" (the fused scan kernels) | "loop"
+    # execution: "fused" (the fused scan kernels) | "loop"; with
+    # VMLMF_EXPERIMENTAL_WAVEFRONT=1 also "fused_pipelined" | "pipelined"
     backend: str = "fused"
 
     @property
@@ -122,7 +125,8 @@ class LMConfig:
     max_grad_norm: float = 5.0
     seed: int = 0
     data_dir: str | None = "./data"
-    # execution: "fused" (the fused scan kernels) | "loop"
+    # execution: "fused" (the fused scan kernels) | "loop"; with
+    # VMLMF_EXPERIMENTAL_WAVEFRONT=1 also "fused_pipelined" | "pipelined"
     backend: str = "fused"
 
     def cell_factory(self):

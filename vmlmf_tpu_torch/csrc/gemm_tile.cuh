@@ -8,14 +8,20 @@
 // W^T needs no transposed copy of W), and the "previous rows" view of the
 // backward pass, which reads row m of [h0; ys[0..T-2]] straight from h0 and
 // ys. The tile loads pick the thread-to-element map that keeps neighbouring
-// threads on neighbouring addresses for either layout.
+// threads on neighbouring addresses for either layout. The masked views read
+// a layer input of the wavefront stack, y times its dropout mask, in place.
 //
 // Each CTA computes one 64x64 output tile with 256 threads, 4x4 outputs per
 // thread, staging 16-deep slices of A and B in shared memory. Every edge is
-// masked, so no dimension needs to be a multiple of a tile. There is no
-// split over k: a weight gradient, whose k runs over all T*B rows, is
-// summed by one CTA per output tile in a fixed order, so it is
-// deterministic. This is CUDA-core f32 (no tensor cores), simple first.
+// masked, so no dimension needs to be a multiple of a tile. `gemm` does not
+// split k: a weight gradient, whose k runs over all T*B rows, is summed by
+// one CTA per output tile in a fixed order, so it is deterministic.
+// `gemm_splitk` cuts k into slices for a product with few output tiles and
+// a long k (the wavefront stack's block projections, which sit on its
+// serial chain): one CTA per tile and slice writes a partial sum, then a
+// second kernel adds the slices in a fixed order and applies the epilogue,
+// so it is deterministic too. This is CUDA-core f32 (no tensor cores),
+// simple first.
 
 #pragma once
 
@@ -65,6 +71,32 @@ struct PrevRowsT {
   }
 };
 
+// Element (i, j) = y[i * ld + j] * mask[i * ld + j], or y[...] when mask is
+// null: the wavefront stack's layer input, the output of the layer below
+// times its dropout mask, read in place. Contiguous along j.
+struct MaskedRows {
+  const float* y;
+  const float* mask;
+  int ld;
+  static constexpr bool kContigJ = true;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    const size_t e = (size_t)i * ld + j;
+    return mask != nullptr ? y[e] * mask[e] : y[e];
+  }
+};
+
+// The transpose of MaskedRows: element (i, j) = y[j * ld + i] * mask[...].
+struct MaskedRowsT {
+  const float* y;
+  const float* mask;
+  int ld;
+  static constexpr bool kContigJ = false;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    const size_t e = (size_t)j * ld + i;
+    return mask != nullptr ? y[e] * mask[e] : y[e];
+  }
+};
+
 // Epilogue that stores the sum: c[i * ldc + j] = v.
 struct Store {
   float* c;
@@ -74,26 +106,39 @@ struct Store {
   }
 };
 
+// Epilogue of a split-k slice: the partial sum of slice blockIdx.z goes to
+// partial[(z * m + i) * n + j].
+struct Partial {
+  float* partial;
+  int m, n;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    partial[((size_t)blockIdx.z * m + i) * n + j] = v;
+  }
+};
+
+// Output tile (blockIdx.y, blockIdx.x) over the k slice [z * kslice, (z +
+// 1) * kslice) of z = blockIdx.z (kslice = k: all of k).
 template <class A, class B, class Epi>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(A a, B b, Epi epi, int m, int n, int k) {
+gemm_kernel(A a, B b, Epi epi, int m, int n, int k, int kslice) {
   __shared__ float as[kDepth][kTile + 1];
   __shared__ float bs[kDepth][kTile + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
+  const int kb = blockIdx.z * kslice, ke = min(k, kb + kslice);
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < k; k0 += kDepth) {
+  for (int k0 = kb; k0 < ke; k0 += kDepth) {
     for (int e = threadIdx.x; e < kTile * kDepth; e += kGemmThreads) {
       const int r = A::kContigJ ? e / kDepth : e % kTile;
       const int kk = A::kContigJ ? e % kDepth : e / kTile;
       const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k) ? a(gr, gk) : 0.f;
+      as[kk][r] = (gr < m && gk < ke) ? a(gr, gk) : 0.f;
     }
     for (int e = threadIdx.x; e < kTile * kDepth; e += kGemmThreads) {
       const int kk = B::kContigJ ? e / kTile : e % kDepth;
       const int cc = B::kContigJ ? e % kTile : e / kDepth;
       const int gk = k0 + kk, gc = col0 + cc;
-      bs[kk][cc] = (gk < k && gc < n) ? b(gk, gc) : 0.f;
+      bs[kk][cc] = (gk < ke && gc < n) ? b(gk, gc) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -120,12 +165,50 @@ gemm_kernel(A a, B b, Epi epi, int m, int n, int k) {
   }
 }
 
+// c(i, j) = epi(i, j, sum over z of partial[z, i, j]), z in order.
+template <class Epi>
+__global__ void __launch_bounds__(kGemmThreads)
+splitk_sum_kernel(const float* __restrict__ partial, Epi epi, int m, int n, int splits) {
+  const size_t e = (size_t)blockIdx.x * kGemmThreads + threadIdx.x;
+  const size_t mn = (size_t)m * n;
+  if (e >= mn) return;
+  float v = 0.f;
+  for (int z = 0; z < splits; ++z) v += partial[z * mn + e];
+  epi(static_cast<int>(e / n), static_cast<int>(e % n), v);
+}
+
 // Launches c = epi(A @ B) with A [m, k] and B [k, n] on `stream`; returns
 // cudaGetLastError().
 template <class A, class B, class Epi>
 cudaError_t gemm(A a, B b, Epi epi, int m, int n, int k, cudaStream_t stream) {
   gemm_kernel<<<dim3(cdiv(n, kTile), cdiv(m, kTile)), kGemmThreads, 0, stream>>>(
-      a, b, epi, m, n, k);
+      a, b, epi, m, n, k, k);
+  return cudaGetLastError();
+}
+
+constexpr int kSplitTarget = 264;  // CTAs a split-k product aims at: two per SM
+
+// `gemm` with k cut into slices of whole kDepth steps, so that the tiles
+// times the slices come near kSplitTarget CTAs; `partial` is scratch of
+// `partial_floats` floats, which bounds the slices at partial_floats / (m n).
+// With one slice it is `gemm`. Returns the first error.
+template <class A, class B, class Epi>
+cudaError_t gemm_splitk(A a, B b, Epi epi, int m, int n, int k, float* partial,
+                        size_t partial_floats, cudaStream_t stream) {
+  const int tiles = cdiv(n, kTile) * cdiv(m, kTile);
+  const size_t room = partial_floats / ((size_t)m * n);
+  int splits = cdiv(kSplitTarget, tiles);
+  if ((size_t)splits > room) splits = static_cast<int>(room);
+  const int kslice = cdiv(cdiv(k, splits > 1 ? splits : 1), kDepth) * kDepth;
+  splits = cdiv(k, kslice);
+  if (splits <= 1) return gemm(a, b, epi, m, n, k, stream);
+  gemm_kernel<<<dim3(cdiv(n, kTile), cdiv(m, kTile), splits), kGemmThreads, 0, stream>>>(
+      a, b, Partial{partial, m, n}, m, n, k, kslice);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t mn = (size_t)m * n;
+  splitk_sum_kernel<<<static_cast<unsigned>((mn + kGemmThreads - 1) / kGemmThreads),
+                      kGemmThreads, 0, stream>>>(partial, epi, m, n, splits);
   return cudaGetLastError();
 }
 

@@ -56,21 +56,14 @@
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "lstm_steps.cuh"
 
 namespace {
 
 using vmlmf::cdiv;
+using vmlmf::kRows;                // batch rows per serial CTA
 
-constexpr int kRows = 4;           // batch rows per serial CTA
 constexpr int kBpttThreads = 1024;
-constexpr int kSumCols = 32;       // columns per column-sum CTA
-constexpr int kSumLanes = 8;       // row lanes per column-sum CTA
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
 
 // Serial reverse walk. Shared memory: dhs, dcs [kRows,h] (the carry), dps
 // [kRows,4h] (dpre of the step), and, low-rank, dhus [kRows,r] (dhu of the
@@ -92,7 +85,6 @@ bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   float* dhus = dps + kRows * g4;
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, batch - b0);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
 
   for (int i = threadIdx.x; i < kRows * h; i += blockDim.x) {
     const bool live = i / h < rows;
@@ -102,82 +94,9 @@ bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   for (int i = threadIdx.x; i < kRows * (g4 + (DenseRec ? 0 : r)); i += blockDim.x) dps[i] = 0.f;
   __syncthreads();
 
-  for (int t = t_len - 1; t >= 0; --t) {
-    const size_t row_t = (size_t)t * batch + b0;
-    // dpre of hidden unit j of all four gates, and the dvec part of dh_prev:
-    // each (row, j) of the carry is read and written by its own thread only.
-    for (int j = threadIdx.x; j < h; j += blockDim.x) {
-      for (int row = 0; row < rows; ++row) {
-        const size_t m = row_t + row;
-        const float* gr = gates + m * g4;
-        const float gi = gr[j], gf = gr[h + j], gg = gr[2 * h + j], go = gr[3 * h + j];
-        const float c_prev = t > 0 ? cs[(m - batch) * h + j] : c0[(size_t)(b0 + row) * h + j];
-        const float dh = dhs[row * h + j] + (dys != nullptr ? dys[m * h + j] : 0.f);
-        const float tc = tanhf(cs[m * h + j]);
-        const float dc = dcs[row * h + j] + dh * go * (1.f - tc * tc);
-        dcs[row * h + j] = dc * gf;
-        const float pi = dc * gg * gi * (1.f - gi);
-        const float pf = dc * c_prev * gf * (1.f - gf);
-        const float pg = dc * gi * (1.f - gg * gg);
-        const float po = dh * tc * go * (1.f - go);
-        float* ds = dps + row * g4;
-        ds[j] = pi;
-        ds[h + j] = pf;
-        ds[2 * h + j] = pg;
-        ds[3 * h + j] = po;
-        float* dg = dpre + m * g4;
-        dg[j] = pi;
-        dg[h + j] = pf;
-        dg[2 * h + j] = pg;
-        dg[3 * h + j] = po;
-        dhs[row * h + j] = pi * dvec[j] + pf * dvec[h + j] + pg * dvec[2 * h + j]
-                           + po * dvec[3 * h + j];
-      }
-    }
-    __syncthreads();
-
-    if (!DenseRec) {
-      // dhu = dpre @ V^T: one warp per rank k, lanes along V's row k.
-      for (int k = warp; k < r; k += nwarps) {
-        const float* vk = v + (size_t)k * g4;
-        float acc[kRows] = {};
-        for (int n = lane; n < g4; n += 32) {
-          const float w = __ldg(vk + n);
-#pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g4 + n], w, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float s = warp_sum(acc[row]);
-          if (lane == 0) {
-            dhus[row * r + k] = s;
-            if (row < rows) dhu[(row_t + row) * r + k] = s;
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // dh_prev += src @ w^T, one warp per hidden unit j, lanes along w's row j:
-    // dhu @ U^T (U [h, r]) low-rank, dpre @ U^T (U [h, 4h]) dense.
-    const float* src = DenseRec ? dps : dhus;
-    const int depth = DenseRec ? g4 : r;
-    for (int j = warp; j < h; j += nwarps) {
-      const float* uj = u + (size_t)j * depth;
-      float acc[kRows] = {};
-      for (int k = lane; k < depth; k += 32) {
-        const float w = __ldg(uj + k);
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(src[row * depth + k], w, acc[row]);
-      }
-#pragma unroll
-      for (int row = 0; row < kRows; ++row) {
-        const float s = warp_sum(acc[row]);
-        if (lane == 0) dhs[row * h + j] += s;
-      }
-    }
-    __syncthreads();
-  }
+  for (int t = t_len - 1; t >= 0; --t)
+    vmlmf::lstm_bwd_step<DenseRec>(t, (size_t)t * batch + b0, batch, b0, gates, cs, c0, dys, u, v,
+                                   dvec, dhs, dcs, dps, dhus, dpre, dhu, rows, h, r);
 
   for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
     dh0[(size_t)b0 * h + i] = dhs[i];
@@ -219,48 +138,6 @@ struct DxEpilogue {
     dx[(size_t)i * f + j] = v;
   }
 };
-
-// Column sums over the M rows of dpre [M, 4h], for column n (jj = n % h):
-//   ddvec[n]  = sum_m dpre[m,n] * hprev[m,jj]
-//   dxdvec[n] = sum_m dpre[m,n] * (jj < f ? x[m,jj] : 0)
-//   dbias[n]  = sum_m dpre[m,n]
-// kSumLanes row lanes per column, then a fixed-order sum over the lanes.
-__global__ void __launch_bounds__(kSumCols * kSumLanes)
-colsum_kernel(const float* __restrict__ dpre, const float* __restrict__ h0,
-              const float* __restrict__ ys, const float* __restrict__ x,
-              float* __restrict__ ddvec, float* __restrict__ dxdvec,
-              float* __restrict__ dbias, int m_rows, int batch, int f, int h) {
-  __shared__ float part[3][kSumLanes][kSumCols];
-  const int c = threadIdx.x % kSumCols, lane = threadIdx.x / kSumCols;
-  const int n = blockIdx.x * kSumCols + c;
-  const int g4 = 4 * h;
-  float sd = 0.f, sx = 0.f, sb = 0.f;
-  if (n < g4) {
-    const int jj = n % h;
-    for (int m = lane; m < m_rows; m += kSumLanes) {
-      const float d = dpre[(size_t)m * g4 + n];
-      const float hp = m < batch ? h0[(size_t)m * h + jj] : ys[(size_t)(m - batch) * h + jj];
-      const float xv = jj < f ? x[(size_t)m * f + jj] : 0.f;
-      sd = fmaf(d, hp, sd);
-      sx = fmaf(d, xv, sx);
-      sb += d;
-    }
-  }
-  part[0][lane][c] = sd;
-  part[1][lane][c] = sx;
-  part[2][lane][c] = sb;
-  __syncthreads();
-  if (lane == 0 && n < g4) {
-    for (int l = 1; l < kSumLanes; ++l) {
-      sd += part[0][l][c];
-      sx += part[1][l][c];
-      sb += part[2][l][c];
-    }
-    ddvec[n] = sd;
-    dxdvec[n] = sx;
-    dbias[n] = sb;
-  }
-}
 
 }  // namespace
 
@@ -325,8 +202,9 @@ extern "C" int lstm_scan_xin_bwd(
   }
   if (err != cudaSuccess) return err;
 
-  colsum_kernel<<<cdiv(g4, kSumCols), kSumCols * kSumLanes, 0, stream>>>(
-      dpre, h0, ys, x, ddvec, dxdvec, dbias, m, batch, f, h);
+  vmlmf::colsum_kernel<<<cdiv(g4, vmlmf::kSumCols), vmlmf::kSumCols * vmlmf::kSumLanes, 0,
+                         stream>>>(dpre, h0, ys, RowMajor{x, f}, ddvec, dxdvec, dbias, m, batch,
+                                   f, h);
   return cudaGetLastError();
 }
 

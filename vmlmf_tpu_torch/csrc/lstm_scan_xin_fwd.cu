@@ -58,12 +58,13 @@
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "lstm_steps.cuh"
 
 namespace {
 
 using vmlmf::cdiv;
+using vmlmf::kRows;              // batch rows per scan CTA
 
-constexpr int kRows = 4;         // batch rows per scan CTA
 constexpr int kMaxThreads = 1024;
 
 // Epilogue of the projection GEMM that yields gi (the second one, or the only
@@ -81,8 +82,6 @@ struct GiEpilogue {
     gi[(size_t)i * 4 * h + j] = v + xv * xdvec[j] + bias[j];
   }
 };
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 // One CTA per kRows batch rows; the CTA walks all t_len steps. Shared memory:
 // hs [kRows,h] and cs [kRows,h] (the carry), then, low-rank, hus [kRows,r]
@@ -103,10 +102,6 @@ scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   float* extra = cs + kRows * h;  // hus [kRows, r], or the second h buffer
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, batch - b0);
-  const int g4 = 4 * h;
-  // the product of the gate phase: (hus [kRows, r]) @ V, or (h [kRows, h]) @ U
-  const float* w = DenseRec ? u : v;
-  const int depth = DenseRec ? h : r;
 
   for (int i = threadIdx.x; i < kRows * h; i += blockDim.x) {
     const bool live = i / h < rows;
@@ -116,80 +111,8 @@ scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   }
   __syncthreads();
 
-  for (int t = 0; t < t_len; ++t) {
-    const size_t row_t = (size_t)t * batch + b0;  // first output row of this step
-    // h of this step, and where the next one goes: in place (low-rank, behind
-    // the barrier after hus) or the other buffer (dense)
-    const float* hin = (DenseRec && (t & 1)) ? extra : hs;
-    float* hout = DenseRec ? ((t & 1) ? hs : extra) : hs;
-    if (!DenseRec) {
-      // hus = hs @ U: one thread per rank column, U read down its column.
-      for (int col = threadIdx.x; col < r; col += blockDim.x) {
-        float acc[kRows] = {};
-#pragma unroll 4
-        for (int j = 0; j < h; ++j) {
-          const float wj = __ldg(u + (size_t)j * r + col);
-#pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(hs[row * h + j], wj, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          extra[row * r + col] = acc[row];
-          if (Residuals && row < rows) hu_out[(row_t + row) * r + col] = acc[row];
-        }
-      }
-      __syncthreads();
-    }
-    const float* src = DenseRec ? hin : extra;
-
-    // src @ w, then the gates, for hidden unit j of all four gates: each
-    // (row, j) of the carry is read and written by its own thread only.
-    const float* gi_t = gi + row_t * g4;
-    float* ys_t = ys + row_t * h;
-    for (int j = threadIdx.x; j < h; j += blockDim.x) {
-      float acc[4][kRows] = {};
-#pragma unroll 4
-      for (int k = 0; k < depth; ++k) {
-        const float* wk = w + (size_t)k * g4 + j;
-        const float w0 = __ldg(wk), w1 = __ldg(wk + h);
-        const float w2 = __ldg(wk + 2 * h), w3 = __ldg(wk + 3 * h);
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float s = src[row * depth + k];
-          acc[0][row] = fmaf(s, w0, acc[0][row]);
-          acc[1][row] = fmaf(s, w1, acc[1][row]);
-          acc[2][row] = fmaf(s, w2, acc[2][row]);
-          acc[3][row] = fmaf(s, w3, acc[3][row]);
-        }
-      }
-      const float d0 = dvec[j], d1 = dvec[h + j], d2 = dvec[2 * h + j], d3 = dvec[3 * h + j];
-#pragma unroll
-      for (int row = 0; row < kRows; ++row) {
-        if (row < rows) {
-          const float hp = hin[row * h + j];
-          const float* gr = gi_t + (size_t)row * g4;
-          const float si = sigmoid(gr[j] + acc[0][row] + hp * d0);
-          const float sf = sigmoid(gr[h + j] + acc[1][row] + hp * d1);
-          const float tg = tanhf(gr[2 * h + j] + acc[2][row] + hp * d2);
-          const float so = sigmoid(gr[3 * h + j] + acc[3][row] + hp * d3);
-          const float cn = sf * cs[row * h + j] + si * tg;
-          const float hn = so * tanhf(cn);
-          cs[row * h + j] = cn;
-          hout[row * h + j] = hn;
-          ys_t[(size_t)row * h + j] = hn;
-          if (Residuals) {
-            cs_out[(row_t + row) * h + j] = cn;
-            float* gw = gates_out + (row_t + row) * g4;
-            gw[j] = si;
-            gw[h + j] = sf;
-            gw[2 * h + j] = tg;
-            gw[3 * h + j] = so;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
+  vmlmf::lstm_fwd_steps<Residuals, DenseRec>(0, t_len, gi, u, v, dvec, hs, cs, extra, batch, b0,
+                                              ys, cs_out, gates_out, hu_out, rows, h, r);
 
   if (!Residuals)
     for (int i = threadIdx.x; i < rows * h; i += blockDim.x) c_last[(size_t)b0 * h + i] = cs[i];

@@ -42,18 +42,25 @@ class Dense:
         return x @ params["w"] + params["b"]
 
 
-def dropout(x, rate, *, generator=None, train=False):
-    """Inverted dropout; identity unless training with rate > 0.
-
-    The mask is drawn from ``generator``, which must live on x's device.
-    """
-    if not train or rate == 0.0:
-        return x
+def dropout_mask(shape, rate, generator, device, dtype=torch.float32):
+    """The pre-scaled inverted-dropout mask: 1/keep where a uniform draw from
+    ``generator`` (on ``device``) falls below keep = 1 - rate, else 0. Both
+    `dropout` and the wavefront stack's inter-layer masks draw it."""
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    draw = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return (draw < keep).to(dtype) / keep
+
+
+def dropout(x, rate, *, generator=None, train=False):
+    """Inverted dropout, ``x * dropout_mask(...)``; identity unless training
+    with rate > 0. The mask is drawn from ``generator``, which must live on
+    x's device.
+    """
+    if not train or rate == 0.0:
+        return x
+    return x * dropout_mask(x.shape, rate, generator, x.device, x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,8 +9,8 @@ import dataclasses
 import torch
 
 from vmlmf_tpu_torch.cells.base import reinit_uniform
-from vmlmf_tpu_torch.nn.layers import ConvFeatures, Dense, Embed, dropout
-from vmlmf_tpu_torch.nn.recurrence import RNN, scan_layer
+from vmlmf_tpu_torch.nn.layers import ConvFeatures, Dense, Embed, dropout, dropout_mask
+from vmlmf_tpu_torch.nn.recurrence import RNN, WAVEFRONT_BACKENDS, run_wavefront, scan_layer
 
 
 def _make_cells(cell_factory, input_size, layer_sizes):
@@ -207,12 +207,28 @@ class LMModel:
         """`apply_hidden` from a pre-embedded ``x [T, B, H]``.
 
         In train mode, dropout masks come from ``generator`` (on x's device):
-        one after the embedding and one after each layer.
+        one after the embedding and one after each layer. On the wavefront
+        backends the masks between layers go into the stack: "fused_pipelined"
+        draws them, pre-scaled, in the same order and shapes as the per-layer
+        path draws its own, so the same generator state gives the same masks;
+        "pipelined" draws a fresh mask per wavefront step, as the JAX package's.
         """
-        x = dropout(x, self.dropout_rate, generator=generator, train=train)
-        new_states = []
-        for cell, p, s in zip(self.rnn.cells, params["rnn"], states):
-            x, sf = scan_layer(cell, cell.prepare(p), x, s, backend=self.backend)
-            new_states.append(sf)
-            x = dropout(x, self.dropout_rate, generator=generator, train=train)
-        return x, new_states
+        rate = self.dropout_rate if train else 0.0
+        x = dropout(x, rate, generator=generator, train=train)
+        cells = self.rnn.cells
+        if self.backend in WAVEFRONT_BACKENDS:
+            preps = [c.prepare(p) for c, p in zip(cells, params["rnn"])]
+            masks = None
+            if self.backend == "fused_pipelined" and rate > 0.0 and len(cells) > 1:
+                masks = [dropout_mask(x.shape, rate, generator, x.device, x.dtype)
+                         for _ in range(len(cells) - 1)]
+            x, new_states = run_wavefront(self.backend, cells, preps, x, states, masks=masks,
+                                          dropout_rate=rate, generator=generator)
+        else:
+            new_states = []
+            for cell, p, s in zip(cells, params["rnn"], states):
+                x, sf = scan_layer(cell, cell.prepare(p), x, s, backend=self.backend)
+                new_states.append(sf)
+                if len(new_states) < len(cells):
+                    x = dropout(x, rate, generator=generator, train=train)
+        return dropout(x, rate, generator=generator, train=train), new_states

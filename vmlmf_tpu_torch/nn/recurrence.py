@@ -17,6 +17,16 @@ Two backends, the same function:
     (`LSTMGroupCell(shuffle=True)`). Its own mapping decides, before any
     kernel is called.
 
+Two more run a stack of layers as a wavefront (staircase), and are experiment
+knobs behind ``VMLMF_EXPERIMENTAL_WAVEFRONT=1``, as in the JAX package:
+  * "fused_pipelined" — the stack kernels (`cuda_stack.run_stack_grouped`;
+    the JAX package's "pallas_pipelined"); a stack they cannot take runs
+    the per-layer "fused" scans, after a warning. ``reverse=True`` and
+    `scan_layer` run the per-layer "fused" scans too;
+  * "pipelined" — the plain PyTorch wavefront (`ops.pipeline`; the JAX
+    package's "pipelined"); a stack it cannot take runs the per-layer loop,
+    after a warning. ``reverse=True`` and `scan_layer` run the loop.
+
 Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
 input with ``time_major=False``.
 """
@@ -24,18 +34,30 @@ input with ``time_major=False``.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
+from vmlmf_tpu_torch.nn.layers import dropout
 from vmlmf_tpu_torch.ops.cuda_gru import GRUScanXin, gru_scan_fused_xin
 from vmlmf_tpu_torch.ops.cuda_scan import LSTMScanXin, lstm_scan_fused_xin
+from vmlmf_tpu_torch.ops.cuda_stack import run_stack_grouped
+from vmlmf_tpu_torch.ops.pipeline import pipelined_available, pipelined_lstm_scan, warn_fallback
 
 BACKENDS = ("loop", "fused")
+WAVEFRONT_BACKENDS = ("pipelined", "fused_pipelined")
+WAVEFRONT_KNOB = "VMLMF_EXPERIMENTAL_WAVEFRONT"
 
 
 def _check_backend(backend):
+    if backend in WAVEFRONT_BACKENDS:
+        if os.environ.get(WAVEFRONT_KNOB) == "1":
+            return
+        raise ValueError(f"backend={backend!r} is an experiment knob: set {WAVEFRONT_KNOB}=1 "
+                         f"to use it (production backends: {BACKENDS})")
     if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS} (experiment "
+                         f"knobs behind {WAVEFRONT_KNOB}=1: {WAVEFRONT_BACKENDS})")
 
 
 def _needs_grad(args):
@@ -54,14 +76,16 @@ def _fused_form(cell, prep):
 def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
     """Run one cell over time-major ``xs [T, B, n]`` -> (ys [T, B, h], state).
 
-    backend="fused" runs the fused scan for a cell with `fused_rec_inputs`
-    and `fused_x_inputs` (the LSTM family; state (h, c)) or with
-    `fused_rec_inputs_gru` and `fused_x_inputs_gru` (the GRU cells; state
-    h), and the loop for a cell without a fused form. The state that comes
-    back is (h_last, c_last) or h_last = ys[-1].
+    backend="fused" (and "fused_pipelined", whose one-layer form it is) runs
+    the fused scan for a cell with `fused_rec_inputs` and `fused_x_inputs`
+    (the LSTM family; state (h, c)) or with `fused_rec_inputs_gru` and
+    `fused_x_inputs_gru` (the GRU cells; state h), and the loop for a cell
+    without a fused form; every other backend runs the loop. The state that
+    comes back is (h_last, c_last) or h_last = ys[-1].
     """
     _check_backend(backend)
-    kind, rec = _fused_form(cell, prep) if backend == "fused" else (None, None)
+    fused = backend in ("fused", "fused_pipelined")
+    kind, rec = _fused_form(cell, prep) if fused else (None, None)
     if kind is not None:
         src = (torch.flip(xs, (0,)) if reverse else xs).contiguous()
         if kind == "gru":
@@ -93,6 +117,30 @@ def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
     return torch.stack(ys), state
 
 
+def run_wavefront(backend, cells, preps, xs, states, *, masks=None, dropout_rate=0.0,
+                  generator=None):
+    """A stack on a wavefront backend, time-major -> (ys, final states).
+
+    "fused_pipelined" runs `run_stack_grouped` with the pre-scaled
+    inter-layer ``masks``. "pipelined" runs the plain wavefront, which draws
+    its own masks from ``generator`` at ``dropout_rate``; for a stack it
+    cannot take it runs the per-layer loop after `warn_fallback`, with
+    `dropout` between layers, as the per-layer path draws it."""
+    if backend == "fused_pipelined":
+        return run_stack_grouped(cells, preps, xs, states, masks)
+    if pipelined_available(cells, preps):
+        return pipelined_lstm_scan(cells, preps, xs, states, dropout_rate=dropout_rate,
+                                   generator=generator)
+    warn_fallback(cells)
+    finals = []
+    for i, (cell, prep, s0) in enumerate(zip(cells, preps, states)):
+        xs, sf = scan_layer(cell, prep, xs, s0, backend="loop")
+        finals.append(sf)
+        if i < len(cells) - 1:
+            xs = dropout(xs, dropout_rate, generator=generator, train=dropout_rate > 0.0)
+    return xs, finals
+
+
 @dataclasses.dataclass(frozen=True)
 class RNN:
     """A stack of cells, one per layer; layer i consumes layer i-1's outputs."""
@@ -115,11 +163,15 @@ class RNN:
             xs = xs.transpose(0, 1)
         if states is None:
             states = self.state0(xs.shape[1], xs.device, xs.dtype)
-        finals = []
-        for cell, p, s0 in zip(self.cells, params, states):
-            xs, sf = scan_layer(cell, cell.prepare(p), xs, s0, reverse=reverse,
-                                backend=self.backend)
-            finals.append(sf)
+        if self.backend in WAVEFRONT_BACKENDS and not reverse:
+            preps = [c.prepare(p) for c, p in zip(self.cells, params)]
+            ys, finals = run_wavefront(self.backend, self.cells, preps, xs, states)
+        else:
+            ys, finals = xs, []
+            for cell, p, s0 in zip(self.cells, params, states):
+                ys, sf = scan_layer(cell, cell.prepare(p), ys, s0, reverse=reverse,
+                                    backend=self.backend)
+                finals.append(sf)
         if not time_major:
-            xs = xs.transpose(0, 1)
-        return xs, finals
+            ys = ys.transpose(0, 1)
+        return ys, finals

@@ -63,6 +63,13 @@ def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     h = h0.shape[-1]
     xu, xp = _x_side(xs, ux, vx)
     gi = xp + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
+    return (*lstm_recurrence_plain(gi, u, v, dvec, h0, c0), xu)
+
+
+def lstm_recurrence_plain(gi, u, v, dvec, h0, c0):
+    """The serial part of the scan in torch ops, step by step: from the input
+    contribution gi [T, B, 4h] -> (ys, cs [T,B,h], gates [T,B,4h] after the
+    nonlinearities, hu = h_prev@U [T,B,r] or None for a dense U [h, 4h])."""
     dvec = dvec.reshape(-1)
     h_t, c_t = h0, c0
     ys, cs, gates, hus = [], [], [], []
@@ -82,7 +89,7 @@ def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
         cs.append(c_t)
         gates.append(torch.cat([i, f, g, o], dim=-1))
     return (torch.stack(ys), torch.stack(cs), torch.stack(gates),
-            torch.stack(hus) if hus else None, xu)
+            torch.stack(hus) if hus else None)
 
 
 def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
@@ -98,9 +105,36 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
     """
     t, b, f = xs.shape
     h = h0.shape[-1]
+    dpre, du, dv, ddvec, dh, dc = lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys,
+                                                  None, dc_last)
+    dpre2 = dpre.reshape(t * b, 4 * h)
+    x2 = xs.reshape(t * b, f)
+    if vx is None:
+        dxu, dvx = dpre2, None
+    else:
+        dxu = dpre2 @ vx.T
+        dvx = xu.reshape(t * b, -1).T @ dpre2
+    dx2 = dxu @ ux.T
+    dux = x2.T @ dxu
+    dxe = dpre2 * xdvec.reshape(-1)
+    dxe = dxe[:, :h] + dxe[:, h:2 * h] + dxe[:, 2 * h:3 * h] + dxe[:, 3 * h:]
+    dx2 = dx2 + pad_features(dxe, f)
+    dxdvec = (dpre2 * pad_features(x2, h).repeat(1, 4)).sum(0).reshape(4, h)
+    dbias = dpre2.sum(0)
+    return dx2.reshape(t, b, f), dux, dvx, dxdvec, dbias, du, dv, ddvec, dh, dc
+
+
+def lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dh_last, dc_last):
+    """The serial reverse walk of the BPTT in torch ops, step by step as
+    `pallas_scan._bwd_kernel` computes it: dpre, the dh/dc carry and the
+    recurrent weight gradients. ``dys``, ``dh_last`` and ``dc_last`` may be
+    None (zeros). -> (dpre [T,B,4h], du, dv (None for a dense U), ddvec [4h],
+    dh0, dc0)."""
+    t = ys.shape[0]
+    h = h0.shape[-1]
     hprev = torch.cat([h0[None], ys[:-1]])
     cprev = torch.cat([c0[None], cs[:-1]])
-    dh = torch.zeros_like(h0)
+    dh = torch.zeros_like(h0) if dh_last is None else dh_last
     dc = torch.zeros_like(c0) if dc_last is None else dc_last
     du = torch.zeros_like(u)
     dv = None if v is None else torch.zeros_like(v)
@@ -130,21 +164,7 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
             dh = dh_prev + dhu @ u.T
             du = du + hprev[s].T @ dhu
             dv = dv + hu[s].T @ dpre
-    dpre2 = torch.stack(dpres).reshape(t * b, 4 * h)
-    x2 = xs.reshape(t * b, f)
-    if vx is None:
-        dxu, dvx = dpre2, None
-    else:
-        dxu = dpre2 @ vx.T
-        dvx = xu.reshape(t * b, -1).T @ dpre2
-    dx2 = dxu @ ux.T
-    dux = x2.T @ dxu
-    dxe = dpre2 * xdvec.reshape(-1)
-    dxe = dxe[:, :h] + dxe[:, h:2 * h] + dxe[:, 2 * h:3 * h] + dxe[:, 3 * h:]
-    dx2 = dx2 + pad_features(dxe, f)
-    dxdvec = (dpre2 * pad_features(x2, h).repeat(1, 4)).sum(0).reshape(4, h)
-    dbias = dpre2.sum(0)
-    return dx2.reshape(t, b, f), dux, dvx, dxdvec, dbias, du, dv, ddvec, dh, dc
+    return torch.stack(dpres), du, dv, ddvec, dh, dc
 
 
 def _check_tensors(names, tensors, want):

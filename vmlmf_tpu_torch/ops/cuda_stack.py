@@ -1,0 +1,576 @@
+"""The wavefront LSTM stack: the port's counterpart of
+`vmlmf_tpu.ops.pallas_pipeline` and its VJP.
+
+A stack of L LSTM layers runs as a block staircase. Time is cut into blocks
+of BLOCK steps, and at wavefront step k every live layer l runs its time
+block k - l, so layer l works beside layer l - 1 instead of after it: the
+chain is about ``T + (L - 1) * BLOCK`` steps long instead of ``L * T``.
+Layer 0 reads ``gi0``, its input contribution (`Cell.inp` of the stack's
+input); layer l >= 1 projects its input, the output of layer l - 1 times the
+inter-layer dropout mask, as ``x @ ux @ vx + tile4(x) * dxvec + bias``. The
+recurrence of every layer is ``h @ u @ v + tile4(h) * dvec``: the
+`pipeline_units` of the cells (`stack_units`).
+
+Three kernel entries, each with a plain version (the same arithmetic in
+torch ops, layer by layer), a launch count and a cost function:
+
+  * `lstm_stack_scan_fused` — the no-grad forward (serving, eval), kernel
+    ``csrc/lstm_stack_fwd.cu`` entry ``lstm_stack_fwd``;
+  * `lstm_stack_scan_fused_res` — the residual forward of training, the
+    same entry with residuals;
+  * `lstm_stack_bwd` — the reverse-staircase BPTT, ``csrc/lstm_stack_bwd.cu``.
+
+`LSTMStackScan` is the `torch.autograd.Function` that pairs the last two,
+and `stack_scan` picks it or the no-grad entry. `run_stack_grouped` runs a
+stack of cells through groups that one launch takes (`stack_groups`). As in
+`cuda_scan`, a wrapper launches its kernel for CUDA tensors and runs its
+plain version for CPU tensors, and a CUDA input that the kernel does not
+take raises: there is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vmlmf_tpu_torch.ops import _build
+from vmlmf_tpu_torch.ops.cuda_scan import lstm_bptt_plain, lstm_recurrence_plain
+from vmlmf_tpu_torch.ops.pipeline import stack_cell_units, warn_fallback
+
+KERNEL = "lstm_stack_fwd"
+BWD_KERNEL = "lstm_stack_bwd"
+REPLACES = "vmlmf_tpu/ops/pallas_pipeline.py:145"  # _mlfwd_kernel
+BWD_REPLACES = "vmlmf_tpu/ops/pallas_pipeline.py:342"  # _mlbwd_kernel
+
+MAX_LAYERS = 8  # kMaxLayers of both sources: the depth of their layer tables
+BLOCK = 5  # time steps per block of the staircase
+SPLITS = 16  # k slices of the split-k block projections that the scratch holds
+L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
+
+# layer-dict keys: the recurrence of every layer, then the x side of layers >= 1
+REC_KEYS = ("u", "v", "dvec")
+X_KEYS = ("ux", "vx", "dxvec", "bias")
+
+# the per-layer pointer tables of the C entries, in the order of their structs
+FWD_FIELDS = ("u", "v", "dvec", "ux", "vx", "dxvec", "bias", "mask", "h0", "c0",
+              "ys", "hlast", "clast", "cs", "gates", "hu", "xu", "gi")
+BWD_FIELDS = ("u", "v", "dvec", "ux", "vx", "dxvec", "mask", "h0", "c0",
+              "ys", "cs", "gates", "hu", "xu", "dy", "dhlast", "dclast",
+              "dpre", "dhu", "dxu", "du", "dv", "ddvec", "dux", "dvx", "ddxvec", "dbias",
+              "dh0", "dc0")
+
+
+def _keys(l):
+    return REC_KEYS + (X_KEYS if l else ())
+
+
+def _sum4(a, h):
+    return a[..., :h] + a[..., h:2 * h] + a[..., 2 * h:3 * h] + a[..., 3 * h:]
+
+
+def _layer_input(ys_below, masks, l):
+    """Layer l's input: the output of layer l - 1 times the mask of interface l."""
+    return ys_below if masks is None else ys_below * masks[l - 1]
+
+
+def lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks=None):
+    """The stack's function in torch ops, layer by layer (the staircase is a
+    schedule of the same arithmetic) -> (ys, cs, gates, hu, xu): lists over
+    the layers of ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities,
+    hu = h_prev@u [T,B,r]; xu = x@ux [T,B,rx] for layers >= 1 only."""
+    ys, cs, gates, hus, xus = [], [], [], [], []
+    gi = gi0
+    for l, lay in enumerate(layers):
+        if l:
+            x = _layer_input(ys[-1], masks, l)
+            xu = x @ lay["ux"]
+            xus.append(xu)
+            gi = xu @ lay["vx"] + x.repeat(1, 1, 4) * lay["dxvec"] + lay["bias"]
+        y, c, g, hu = lstm_recurrence_plain(gi, lay["u"], lay["v"], lay["dvec"], h0s[l], c0s[l])
+        ys.append(y)
+        cs.append(c)
+        gates.append(g)
+        hus.append(hu)
+    return ys, cs, gates, hus, xus
+
+
+def lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks=None):
+    """Same arguments and results as `lstm_stack_scan_fused`, in torch ops."""
+    ys, cs = lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks)[:2]
+    return ys[-1], [y[-1] for y in ys], [c[-1] for c in cs]
+
+
+def lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast):
+    """The reverse-staircase BPTT in torch ops, layer by layer from the top:
+    each layer's serial reverse walk (`cuda_scan.lstm_bptt_plain`), then, for
+    a layer l >= 1, its x-side gradients over all T*B rows and dx, which
+    times the mask is the cotangent of layer l - 1's outputs.
+
+    ``dys`` [T,B,h] (the top layer's outputs) may be None; ``dhlast`` and
+    ``dclast`` are lists whose items may be None (zeros). -> (dgi0 [T,B,4h],
+    dlayers: a list of dicts keyed as the layers, dh0s, dc0s).
+    """
+    n = len(layers)
+    t, b, h = ys[0].shape
+    dlayers, dh0s, dc0s = [None] * n, [None] * n, [None] * n
+    dy = dys
+    for l in range(n - 1, -1, -1):
+        lay = layers[l]
+        dpre, du, dv, ddvec, dh0s[l], dc0s[l] = lstm_bptt_plain(
+            lay["u"], lay["v"], lay["dvec"], h0s[l], c0s[l], ys[l], cs[l], gates[l], hu[l], dy,
+            dhlast[l], dclast[l])
+        dlayers[l] = {"u": du, "v": dv, "dvec": ddvec}
+        if l == 0:
+            return dpre, dlayers, dh0s, dc0s
+        dpre2 = dpre.reshape(t * b, 4 * h)
+        x2 = _layer_input(ys[l - 1], masks, l).reshape(t * b, h)
+        dxu = dpre2 @ lay["vx"].T
+        dx = dxu @ lay["ux"].T + _sum4(dpre2 * lay["dxvec"], h)
+        dlayers[l].update(ux=x2.T @ dxu, vx=xu[l - 1].reshape(t * b, -1).T @ dpre2,
+                          dxvec=(dpre2 * x2.repeat(1, 4)).sum(0), bias=dpre2.sum(0))
+        dy = _layer_input(dx.reshape(t, b, h), masks, l)
+
+
+def _sizes(t, b, h, layers, h0s, c0s, masks):
+    """(ranks, xranks) of a stack call; raises on a depth that the kernels'
+    tables do not take or on mismatched lists."""
+    n = len(layers)
+    if not 1 <= n <= MAX_LAYERS:
+        raise ValueError(f"the stack kernels take 1 to {MAX_LAYERS} layers, got {n}: "
+                         f"split the stack with stack_groups")
+    if len(h0s) != n or len(c0s) != n or (masks is not None and len(masks) != n - 1):
+        raise ValueError(f"{n} layers need {n} h0s and c0s and {n - 1} masks")
+    ranks = [lay["u"].shape[-1] for lay in layers]
+    xranks = [lay["ux"].shape[-1] for lay in layers[1:]]
+    if min(t, b, h, *ranks, *xranks) < 1:
+        raise ValueError(f"empty stack: T={t}, B={b}, h={h}, ranks {ranks}, x ranks {xranks}")
+    return ranks, xranks
+
+
+def _check_tensor(name, a, want, dev):
+    if tuple(a.shape) != want:
+        raise ValueError(f"{name} must have shape {want}, got {tuple(a.shape)}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {a.dtype}: the stack kernels are f32")
+    if a.device != dev:
+        raise ValueError(f"{name} is on {a.device}, the stack's first input on {dev}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check(dev, t, b, h, layers, h0s, c0s, masks, extra):
+    """Validate a CUDA call's layers, states and masks on device ``dev`` at
+    T, B, h, and ``extra``: (name, tensor or None, shape) triples ->
+    (ranks, xranks)."""
+    if dev.type != "cuda":
+        raise ValueError(f"the stack runs on CPU or CUDA tensors, got {dev}")
+    ranks, xranks = _sizes(t, b, h, layers, h0s, c0s, masks)
+    for l, lay in enumerate(layers):
+        if set(lay) != set(_keys(l)):
+            raise ValueError(f"layer {l} must have the keys {_keys(l)}, got {sorted(lay)}")
+        r, rx = ranks[l], xranks[l - 1] if l else 0
+        want = {"u": (h, r), "v": (r, 4 * h), "dvec": (4 * h,), "h0": (b, h), "c0": (b, h),
+                "ux": (h, rx), "vx": (rx, 4 * h), "dxvec": (4 * h,), "bias": (4 * h,),
+                "mask": (t, b, h)}
+        tensors = dict(lay, h0=h0s[l], c0=c0s[l])
+        if l and masks is not None:
+            tensors["mask"] = masks[l - 1]
+        for key, a in tensors.items():
+            _check_tensor(f"layer {l} {key}", a, want[key], dev)
+    for name, a, shape in extra:
+        if a is not None:
+            _check_tensor(name, a, shape, dev)
+    return ranks, xranks
+
+
+def _on_cpu(gi0, layers, h0s, c0s, masks, extra=()):
+    tensors = [gi0, *h0s, *c0s, *(masks or ()), *extra]
+    tensors += [a for lay in layers for a in lay.values()]
+    return all(a is None or a.device.type == "cpu" for a in tensors)
+
+
+def _table(fields, per_layer):
+    """A ctypes array of the layers' pointers, ``fields`` per layer in order
+    (a missing or None tensor is a null pointer)."""
+    ptrs = [None if d.get(k) is None else d[k].data_ptr() for d in per_layer for k in fields]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _launch(kernel, tables, ranks, partial, sizes, device):
+    """Call C entry ``kernel`` of csrc/<kernel>.cu on the current stream with
+    its pointer table, its per-layer (r, rx) table, the split-k scratch
+    ``partial`` and its size, the integer sizes and the stream. Raises on
+    the non-zero cudaError it returns."""
+    lib = _build.load(kernel)
+    fn = getattr(lib, kernel)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                        ctypes.c_void_p] + [ctypes.c_int] * (1 + len(sizes)) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    ints = (ctypes.c_int * len(ranks))(*ranks)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(tables, ints, partial.data_ptr(), partial.numel(), *sizes, stream)
+    if err != 0:
+        describe = getattr(lib, f"{kernel}_error")
+        describe.argtypes, describe.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{kernel} launch failed: {describe(err).decode()} (cudaError {err})")
+
+
+def _rank_table(ranks, xranks):
+    """(r_l, rx_l) per layer, rx_0 = 0."""
+    return [v for l, r in enumerate(ranks) for v in (r, xranks[l - 1] if l else 0)]
+
+
+def _fwd(gi0, layers, h0s, c0s, masks, residuals):
+    """Launch the forward staircase -> the per-layer dicts of its outputs."""
+    if gi0.dim() != 3 or gi0.shape[-1] % 4:
+        raise ValueError(f"gi0 must be [T, B, 4h], got {tuple(gi0.shape)}")
+    t, b, h = gi0.shape[0], gi0.shape[1], gi0.shape[2] // 4
+    ranks, xranks = _check(gi0.device, t, b, h, layers, h0s, c0s, masks,
+                           [("gi0", gi0, (t, b, 4 * h))])
+    block = min(BLOCK, t)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=gi0.device)  # noqa: E731
+    per_layer = []
+    for l, lay in enumerate(layers):
+        d = dict(lay, h0=h0s[l], c0=c0s[l], ys=new(t, b, h), hlast=new(b, h), clast=new(b, h))
+        if residuals:
+            d.update(cs=new(t, b, h), gates=new(t, b, 4 * h), hu=new(t, b, ranks[l]))
+        if l:
+            rx = xranks[l - 1]
+            d.update(mask=None if masks is None else masks[l - 1],
+                     xu=new(t, b, rx) if residuals else new(block * b, rx),
+                     gi=new(block * b, 4 * h))
+        else:
+            d["gi"] = gi0
+        per_layer.append(d)
+    partial = new(SPLITS * block * b * max(xranks, default=1))
+    with torch.cuda.device(gi0.device):
+        _launch(KERNEL, _table(FWD_FIELDS, per_layer), _rank_table(ranks, xranks), partial,
+                (len(layers), t, b, h, block, int(residuals)), gi0.device)
+    return per_layer
+
+
+def _needs_grad(gi0, layers, h0s, c0s, masks):
+    tensors = [gi0, *h0s, *c0s, *(masks or ()), *(a for lay in layers for a in lay.values())]
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
+
+def lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks=None):
+    """The wavefront stack, no gradient.
+
+    gi0 [T, B, 4h]: layer 0's input contribution (gate order i, f, g, o).
+    layers: a list of dicts, ``{u [h, r], v [r, 4h], dvec [4h]}`` for layer
+    0 and also ``{ux [h, rx], vx [rx, 4h], dxvec [4h], bias [4h]}`` for
+    layers >= 1 (the ranks may differ by layer); h0s, c0s: lists of [B, h];
+    masks: None or L - 1 pre-scaled dropout masks [T, B, h], masks[l - 1]
+    applied to layer l's input. -> (ys_last [T, B, h], hlast, clast: lists
+    of [B, h]).
+
+    CPU tensors run `lstm_stack_scan_fused_plain`. CUDA tensors must be f32,
+    contiguous and on one device, at most MAX_LAYERS layers; the kernel runs
+    on the current stream, BLOCK steps per block, and
+    ``lstm_stack_scan_fused.launches`` counts its calls. A CUDA input that
+    requires a gradient, with grad mode on, raises: that call belongs to
+    `LSTMStackScan`.
+    """
+    if _on_cpu(gi0, layers, h0s, c0s, masks):
+        return lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks)
+    if _needs_grad(gi0, layers, h0s, c0s, masks):
+        raise RuntimeError("lstm_stack_scan_fused computes no gradient; inputs that require "
+                           "one go through LSTMStackScan (stack_scan)")
+    out = _fwd(gi0, layers, h0s, c0s, masks, residuals=False)
+    lstm_stack_scan_fused.launches += 1
+    return out[-1]["ys"], [d["hlast"] for d in out], [d["clast"] for d in out]
+
+
+lstm_stack_scan_fused.launches = 0
+
+
+def lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks=None):
+    """The residual forward of training: `lstm_stack_scan_fused` that returns
+    the backward's residuals instead -> (ys, cs, gates, hu, xu), shaped as
+    `lstm_stack_fwd_res_plain`'s, which CPU tensors run. The final state of
+    layer l is (ys[l][-1], cs[l][-1]). ``lstm_stack_scan_fused_res.launches``
+    counts the kernel's calls."""
+    if _on_cpu(gi0, layers, h0s, c0s, masks):
+        return lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks)
+    out = _fwd(gi0, layers, h0s, c0s, masks, residuals=True)
+    lstm_stack_scan_fused_res.launches += 1
+    return ([d["ys"] for d in out], [d["cs"] for d in out], [d["gates"] for d in out],
+            [d["hu"] for d in out], [d["xu"] for d in out[1:]])
+
+
+lstm_stack_scan_fused_res.launches = 0
+
+
+def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast):
+    """Gradients of the stack from the residual forward's outputs and the
+    cotangents ``dys`` [T, B, h] of the top layer's outputs and ``dhlast``,
+    ``dclast`` (lists of [B, h]); dys and any item of the lists may be None
+    (zeros). -> (dgi0 [T, B, 4h], dlayers: a list of dicts keyed as the
+    layers, dh0s, dc0s).
+
+    CPU tensors run `lstm_stack_bwd_plain`; CUDA tensors launch the BPTT
+    kernel, BLOCK steps per block, counted by ``lstm_stack_bwd.launches``.
+    """
+    res = (*ys, *cs, *gates, *hu, *xu)
+    cots = (dys, *dhlast, *dclast)
+    n = len(layers)
+    if _on_cpu(ys[0], layers, h0s, c0s, masks, (*res, *cots)):
+        return lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys,
+                                    dhlast, dclast)
+    if len(ys) != n or len(xu) != n - 1 or len(dhlast) != n or len(dclast) != n:
+        raise ValueError(f"{n} layers need {n} ys, cs, gates, hu, dhlast, dclast and "
+                         f"{n - 1} xu")
+    t, b, h = ys[0].shape
+    ranks = [lay["u"].shape[-1] for lay in layers]
+    extra = [("dys", dys, (t, b, h))]
+    for l in range(n):
+        extra += [(f"layer {l} ys", ys[l], (t, b, h)), (f"layer {l} cs", cs[l], (t, b, h)),
+                  (f"layer {l} gates", gates[l], (t, b, 4 * h)),
+                  (f"layer {l} hu", hu[l], (t, b, ranks[l])),
+                  (f"layer {l} dhlast", dhlast[l], (b, h)),
+                  (f"layer {l} dclast", dclast[l], (b, h))]
+        if l:
+            extra.append((f"layer {l} xu", xu[l - 1], (t, b, layers[l]["ux"].shape[-1])))
+    ranks, xranks = _check(ys[0].device, t, b, h, layers, h0s, c0s, masks, extra)
+    block = min(BLOCK, t)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=ys[0].device)  # noqa: E731
+    dgi0 = new(t, b, 4 * h)
+    per_layer = []
+    for l, lay in enumerate(layers):
+        d = dict(lay, h0=h0s[l], c0=c0s[l], ys=ys[l], cs=cs[l], gates=gates[l], hu=hu[l],
+                 dhlast=dhlast[l], dclast=dclast[l],
+                 dy=dys if l == n - 1 else new(t, b, h),
+                 dpre=dgi0 if l == 0 else new(t, b, 4 * h), dhu=new(t, b, ranks[l]),
+                 du=torch.empty_like(lay["u"]), dv=torch.empty_like(lay["v"]),
+                 ddvec=new(4 * h), dh0=new(b, h), dc0=new(b, h))
+        if l:
+            d.update(mask=None if masks is None else masks[l - 1], xu=xu[l - 1],
+                     dxu=new(t, b, xranks[l - 1]), dux=torch.empty_like(lay["ux"]),
+                     dvx=torch.empty_like(lay["vx"]), ddxvec=new(4 * h), dbias=new(4 * h))
+        per_layer.append(d)
+    partial = new(SPLITS * block * b * max(xranks, default=1))
+    with torch.cuda.device(ys[0].device):
+        _launch(BWD_KERNEL, _table(BWD_FIELDS, per_layer), _rank_table(ranks, xranks), partial,
+                (n, t, b, h, block), ys[0].device)
+    lstm_stack_bwd.launches += 1
+    dlayers = [{k: d["d" + k] for k in _keys(l)} for l, d in enumerate(per_layer)]
+    return dgi0, dlayers, [d["dh0"] for d in per_layer], [d["dc0"] for d in per_layer]
+
+
+lstm_stack_bwd.launches = 0
+
+
+def _flatten(gi0, layers, h0s, c0s, masks):
+    return (gi0, *(lay[k] for l, lay in enumerate(layers) for k in _keys(l)), *h0s, *c0s,
+            *(masks or ()))
+
+
+def _unflatten(flat, n):
+    it = iter(flat)
+    gi0 = next(it)
+    layers = [{k: next(it) for k in _keys(l)} for l in range(n)]
+    h0s = [next(it) for _ in range(n)]
+    c0s = [next(it) for _ in range(n)]
+    masks = list(it) or None
+    return gi0, layers, h0s, c0s, masks
+
+
+class LSTMStackScan(torch.autograd.Function):
+    """The differentiable stack: the residual forward, then the BPTT.
+
+    ``LSTMStackScan.apply(L, *flat)`` with flat = (gi0, each layer's tensors
+    in `REC_KEYS` then `X_KEYS` order, h0s, c0s, masks or nothing) ->
+    (ys_last, *hlast, *clast), with gradients for every tensor but the masks,
+    which get none. A cotangent that autograd leaves out (an output no loss
+    reads, as the LM's detached final states) comes to the backward as None
+    and is read there as zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, n_layers, *flat):
+        gi0, layers, h0s, c0s, masks = _unflatten(flat, n_layers)
+        ys, cs, gates, hu, xu = lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks)
+        ctx.n_layers, ctx.n_masks = n_layers, len(masks or ())
+        ctx.save_for_backward(*flat[1:], *ys, *cs, *gates, *hu, *xu)
+        ctx.set_materialize_grads(False)
+        return (ys[-1], *(y[-1].clone() for y in ys), *(c[-1].clone() for c in cs))
+
+    @staticmethod
+    def backward(ctx, dys, *dstates):
+        n = ctx.n_layers
+        saved = list(ctx.saved_tensors)
+        n_inputs = len(saved) - (5 * n - 1)
+        _, layers, h0s, c0s, masks = _unflatten([None, *saved[:n_inputs]], n)
+        res = saved[n_inputs:]
+        ys, cs, gates, hu = (res[i * n:(i + 1) * n] for i in range(4))
+        xu = res[4 * n:]
+        cont = lambda a: None if a is None else a.contiguous()  # noqa: E731
+        dgi0, dlayers, dh0s, dc0s = lstm_stack_bwd(
+            layers, h0s, c0s, masks, ys, cs, gates, hu, xu, cont(dys),
+            [cont(a) for a in dstates[:n]], [cont(a) for a in dstates[n:]])
+        grads = (dgi0, *(d[k] for l, d in enumerate(dlayers) for k in _keys(l)), *dh0s, *dc0s)
+        return (None, *grads, *([None] * ctx.n_masks))
+
+
+def stack_scan(gi0, layers, h0s, c0s, masks=None):
+    """The stack through `LSTMStackScan` when grad mode is on and an input
+    requires a gradient, else through the no-grad `lstm_stack_scan_fused`.
+    -> (ys_last, hlast list, clast list)."""
+    if not _needs_grad(gi0, layers, h0s, c0s, masks):
+        return lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks)
+    n = len(layers)
+    out = LSTMStackScan.apply(n, *_flatten(gi0, layers, h0s, c0s, masks))
+    return out[0], list(out[1:1 + n]), list(out[1 + n:])
+
+
+def stack_units(cells, preps):
+    """The cells' `pipeline_units` as the stack's layer dicts (contiguous),
+    or None when the stack cannot run as one: fewer than two layers, unequal
+    hidden sizes, or a cell without units. The ranks may differ by layer."""
+    units = stack_cell_units(cells, preps)
+    if units is None:
+        return None
+    layers = []
+    for l, un in enumerate(units):
+        d = {"u": un["u_h"], "v": un["v_h"], "dvec": un["d_h"].reshape(-1)}
+        if l:
+            d.update(ux=un["u_x"], vx=un["v_x"], dxvec=un["d_x"].reshape(-1), bias=un["bias"])
+        layers.append({k: a.contiguous() for k, a in d.items()})
+    return layers
+
+
+def stack_fits(layers):
+    """True when one launch of the stack kernels takes the group: at most
+    MAX_LAYERS layers (the fixed depth of the kernels' layer tables), and
+    the group's factors (u, v, ux, vx), f32, within half of the H100's 50 MB
+    L2. Every step of the staircase reads every live layer's factors, so
+    they should stay in L2; the other half is left to the blocks that stream
+    through (gi, the residual writes, the GEMM operands). A 2x650 w300/u300
+    stack holds 11.7 MB of factors."""
+    if layers is None or len(layers) > MAX_LAYERS:
+        return False
+    nbytes = 4 * sum(lay[k].numel() for lay in layers for k in ("u", "v", "ux", "vx") if k in lay)
+    return nbytes <= L2_BYTES // 2
+
+
+def stack_groups(layers):
+    """Partition the stack into maximal contiguous groups that `stack_fits`
+    takes -> a list of half-open (start, end) pairs. A singleton group runs
+    the per-layer fused scan."""
+    groups, i, n = [], 0, len(layers)
+    while i < n:
+        j = n
+        while j - i >= 2 and not stack_fits(layers[i:j]):
+            j -= 1
+        groups.append((i, max(j, i + 1)))
+        i = max(j, i + 1)
+    return groups
+
+
+def _group_layers(layers, start, end):
+    """The group's layer dicts. Its first layer reads gi0, so its x side is
+    dropped: the caller's `inp` applies it."""
+    return [{k: layers[i][k] for k in _keys(i - start)} for i in range(start, end)]
+
+
+def run_stack_grouped(cells, preps, xs, states, masks=None):
+    """A stack of cells through the wavefront kernels, group by group
+    (`stack_groups`); a singleton group, or every layer of a stack that
+    `stack_units` refuses (after `warn_fallback`), runs the per-layer
+    "fused" scan.
+
+    xs: time-major [T, B, n]; states: per-layer (h0, c0); masks: None or L -
+    1 pre-scaled dropout masks, masks[i] applied to the output of layer i.
+    Within a group they run inside the kernel; at a group boundary they
+    multiply the handoff. -> (ys [T, B, h], final states list).
+    """
+    from vmlmf_tpu_torch.nn.recurrence import scan_layer  # recurrence imports this module
+
+    n = len(cells)
+    layers = stack_units(cells, preps)
+    finals = [None] * n
+    x = xs
+    if layers is None:
+        warn_fallback(cells)
+        for i, (cell, prep) in enumerate(zip(cells, preps)):
+            x, finals[i] = scan_layer(cell, prep, x, states[i], backend="fused")
+            if masks is not None and i < n - 1:
+                x = x * masks[i]
+        return x, finals
+    for start, end in stack_groups(layers):
+        if end - start == 1:
+            x, finals[start] = scan_layer(cells[start], preps[start], x, states[start],
+                                          backend="fused")
+        else:
+            gi0 = cells[start].inp(preps[start], x).contiguous()
+            gmasks = None if masks is None else [masks[i] for i in range(start, end - 1)]
+            x, hl, cl = stack_scan(gi0, _group_layers(layers, start, end),
+                                   [states[i][0].contiguous() for i in range(start, end)],
+                                   [states[i][1].contiguous() for i in range(start, end)],
+                                   gmasks)
+            for i in range(start, end):
+                finals[i] = (hl[i - start], cl[i - start])
+        if masks is not None and end < n:
+            x = x * masks[end - 1]  # the group boundary's inter-layer dropout
+    return x, finals
+
+
+def _row_ops(h, r, rx):
+    """Operations per batch row and step of one layer (rx = 0 for layer 0):
+    two per multiply-add of the recurrent and x-side products, 6 per gate
+    element (the x term and bias or gi0, the h term, the sums) and 9 per
+    hidden unit (the nonlinearities and the state update), one for the mask."""
+    ops = 2 * (h * r + r * 4 * h) + 6 * 4 * h + 9 * h
+    return ops + (2 * (h * rx + rx * 4 * h) + h if rx else 0)
+
+
+def _weight_floats(h, ranks, xranks):
+    rec = sum(h * r + r * 4 * h + 4 * h for r in ranks)
+    return rec + sum(h * rx + rx * 4 * h + 2 * 4 * h for rx in xranks)
+
+
+def stack_cost(t, b, h, ranks, xranks, *, masks=False):
+    """(operations, bytes) that the no-grad stack needs at least, for its
+    roofline bound: `_row_ops` over every layer, row and step; each input
+    read once (gi0, the weights, the masks, h0s, c0s) and each output
+    written once (ys_last, hlast, clast), f32."""
+    n = len(ranks)
+    ops = t * b * sum(_row_ops(h, r, xranks[l - 1] if l else 0) for l, r in enumerate(ranks))
+    floats = (t * b * 4 * h + _weight_floats(h, ranks, xranks)
+              + (n - 1) * t * b * h * masks + 2 * n * b * h + t * b * h + 2 * n * b * h)
+    return ops, 4 * floats
+
+
+def stack_res_cost(t, b, h, ranks, xranks, *, masks=False):
+    """(operations, bytes) of the residual forward: `stack_cost` with the
+    residual outputs in place of hlast and clast: the ys of the lower layers,
+    cs, gates, hu and xu, each written once."""
+    ops, nbytes = stack_cost(t, b, h, ranks, xranks, masks=masks)
+    n = len(ranks)
+    res = t * b * ((n - 1) * h + n * h + n * 4 * h + sum(ranks) + sum(xranks))
+    return ops, nbytes + 4 * (res - 2 * n * b * h)
+
+
+def stack_bwd_cost(t, b, h, ranks, xranks, *, masks=False):
+    """(operations, bytes) that the BPTT needs at least, for its roofline
+    bound. Operations: twice each forward product (the data gradient along
+    the chain and the weight gradients), 30 per hidden unit for dpre, the
+    carry and the column sums, and the masks. Bytes: each residual and
+    cotangent read once (the ys, cs, gates, hu, xu, the masks, dys),
+    the weights, h0s and c0s, and each gradient written once (dgi0, the
+    weight gradients, dh0s, dc0s), f32."""
+    n = len(ranks)
+    ops = 0
+    for l, r in enumerate(ranks):
+        rx = xranks[l - 1] if l else 0
+        ops += 2 * 2 * (h * r + r * 4 * h + (h * rx + rx * 4 * h if rx else 0)) + 30 * h
+        ops += 2 * h if rx and masks else 0
+    ops *= t * b
+    weights = _weight_floats(h, ranks, xranks)
+    res = t * b * (n * h + n * h + n * 4 * h + sum(ranks) + sum(xranks))
+    inputs = weights + 2 * n * b * h + res + (n - 1) * t * b * h * masks + t * b * h
+    outputs = t * b * 4 * h + weights + 2 * n * b * h
+    return ops, 4 * (inputs + outputs)

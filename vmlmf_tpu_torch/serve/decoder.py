@@ -2,7 +2,8 @@
 beam search (counterpart of `vmlmf_tpu.serve.decoder`).
 
   * prefill — the prompt ``[T, B]`` runs through the model's scan backend
-    (on "fused", one kernel call per layer) and returns the carried
+    (on "fused", one kernel call per layer; on "fused_pipelined", one call
+    of the no-grad stack kernel per group of layers) and returns the carried
     ``(h, c)`` per layer and the last position's logits.
   * decode — a loop over new positions: embed one token, run each layer's
     ``cell.step`` on factors whose weight-only ``prepare`` is done once per

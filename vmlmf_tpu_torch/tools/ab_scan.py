@@ -6,9 +6,16 @@ in one run, on one CUDA device.
 Each argument is the root of a checkout (for example another commit,
 unpacked from ``git archive``). Each runs in a subprocess of its own, which
 imports that checkout's `vmlmf_tpu_torch`, builds its kernels there, and
-prints one JSON line: the checkout, the card, and for B in 1, 20 and 128 the
-mean ms of 20 calls of `lstm_scan_fused_xin` at the PTB LM layer (T=35,
-F=h=650, r=rx=300), taken three times, on the same seeded inputs.
+prints one JSON line: the checkout, the card, and for each recurrent form
+and B in 1, 20 and 128 the mean ms of 20 calls of `lstm_scan_fused_xin` at
+the PTB LM layer (T=35, F=h=650), taken three times, on the same seeded
+inputs. The forms: "lowrank" (r=rx=300, the VMLMF LM) and "dense" (U and Ux
+[650, 2600], no diagonals, the dense LM). A checkout that has
+`ops/cuda_stack.py` also times the no-grad wavefront stack,
+`lstm_stack_scan_fused`, on the two layers of the VMLMF LM ("stack").
+Each line also gives, under "ptxas", the registers and spill bytes that
+``nvcc -Xptxas -v`` reports for each form of the checkout's serial kernels
+(`scan_kernel`, `stack_step_kernel`) at the build's flags.
 Giving the checkouts as parent, change, change, parent keeps drift on the
 card from reading as a difference between them.
 """
@@ -19,8 +26,9 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, sys
+import json, os, re, subprocess, sys
 sys.path.insert(0, sys.argv[1])
+import importlib.util
 import torch
 from vmlmf_tpu_torch.ops import _build, cuda_scan
 
@@ -29,29 +37,74 @@ _build.build_all()
 t, f, h, rx, r = 35, 650, 650, 300, 300
 
 
-def inputs(b):
+def inputs(b, form):
     g = torch.Generator().manual_seed(0)
     n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
+    if form == "dense":
+        return (n(t, b, f, scale=1.0), n(f, 4 * h, scale=f ** -0.5), None,
+                torch.zeros(4, h).cuda(), n(4 * h, scale=0.1), n(h, 4 * h, scale=h ** -0.5), None,
+                torch.zeros(4 * h).cuda(), n(b, h, scale=0.5), n(b, h, scale=0.5))
     return (n(t, b, f, scale=1.0), n(f, rx, scale=f ** -0.5), n(rx, 4 * h, scale=rx ** -0.5),
             n(4, h, scale=0.1), n(4 * h, scale=0.1), n(h, r, scale=h ** -0.5),
             n(r, 4 * h, scale=r ** -0.5), n(4 * h, scale=0.1), n(b, h, scale=0.5),
             n(b, h, scale=0.5))
 
 
-def mean_ms(args, iters=20):
-    cuda_scan.lstm_scan_fused_xin(*args)
+def stack_inputs(b):
+    g = torch.Generator().manual_seed(0)
+    n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
+    layers = []
+    for l in range(2):
+        lay = dict(u=n(h, r, scale=h ** -0.5), v=n(r, 4 * h, scale=r ** -0.5),
+                   dvec=n(4 * h, scale=0.1))
+        if l:
+            lay.update(ux=n(h, rx, scale=h ** -0.5), vx=n(rx, 4 * h, scale=rx ** -0.5),
+                       dxvec=n(4 * h, scale=0.1), bias=n(4 * h, scale=0.1))
+        layers.append(lay)
+    return (n(t, b, 4 * h, scale=1.0), layers, [n(b, h, scale=0.5) for _ in range(2)],
+            [n(b, h, scale=0.5) for _ in range(2)])
+
+
+def mean_ms(fn, args, iters=20):
+    fn(*args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        cuda_scan.lstm_scan_fused_xin(*args)
+        fn(*args)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
 
 
-ms = {b: [mean_ms(inputs(b)) for _ in range(3)] for b in (1, 20, 128)}
-print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms}))
+def ptxas(source):
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS[:4], "-Xptxas", "-v", "-c", "-o", os.devnull,
+           str(_build.CSRC / source)]
+    log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+    stats, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(scan_kernel|stack_step_kernel)I((?:Lb[01]E)+)E", line)
+            name = m and f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            stats[name] = dict(registers=regs, spill_bytes=spill)
+    return stats
+
+
+sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_stack_fwd.cu") if (_build.CSRC / s).exists()]
+regs = {s: ptxas(s) for s in sources}
+ms = {form: {b: [mean_ms(cuda_scan.lstm_scan_fused_xin, inputs(b, form)) for _ in range(3)]
+             for b in (1, 20, 128)}
+      for form in ("lowrank", "dense")}
+if importlib.util.find_spec("vmlmf_tpu_torch.ops.cuda_stack") is not None:
+    from vmlmf_tpu_torch.ops import cuda_stack
+    ms["stack"] = {b: [mean_ms(cuda_stack.lstm_stack_scan_fused, stack_inputs(b))
+                       for _ in range(3)] for b in (1, 20, 128)}
+print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
+                  "ptxas": regs}))
 """
 
 

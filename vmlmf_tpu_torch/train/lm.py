@@ -136,7 +136,8 @@ class LMTrainer:
 def perplexity(model, params, chunks, batch_size):
     """``exp(mean(loss / batch_size))`` over (x, y) chunks with the state
     carried from a zero state, on the parameters' device, without gradients
-    (on the "fused" backend, the no-grad scan kernel)."""
+    (on the "fused" backend, the no-grad scan kernel; on "fused_pipelined",
+    the no-grad stack kernel)."""
     dev = first_device(params)
     states = model.state0(batch_size, dev)
     losses = []

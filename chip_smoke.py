@@ -14,8 +14,10 @@ Phases, each of which exits non-zero when it fails:
                and the BPTT at B in 20/128 (LM) and 81 (HAR). Then the dense
                forms: a dense recurrent side (the group VMLMF HAR layer, rx=8,
                U [180, 720]), dense on both sides (the dense HAR layer, and
-               the dense PTB LM layer at B=20, U and Ux [650, 2600]), and a
-               dense x side (h=180, r=6). Each with its time, the plain
+               the dense PTB LM layer at B=20 and 128, U and Ux [650, 2600]),
+               and a dense x side (h=180, r=6). Each shape's layout from
+               `scan_plan` is printed first (batch groups, CTAs, shared
+               memory). Each with its time, the plain
                version's, its roofline bound, and cuDNN's LSTM on the same
                scan's dense weights (the library yardstick); where the scan
                is dense on both sides with no diagonal, cuDNN's output is
@@ -420,13 +422,13 @@ def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms):
 def lstm_kernel_shapes():
     """(name, shape, train, diagonals) of each LSTM kernel check: the PTB LM
     layer at B in 1/20/128 and the VMLMF HAR layer at B=81 and 256 (both
-    low-rank); the dense PTB LM layer at B=20; the group VMLMF HAR layer (dense
+    low-rank); the dense PTB LM layer at B=20 and 128; the group VMLMF HAR layer (dense
     recurrence) and the dense HAR layer at B=81 and 256; a dense x side at
     B=81. ``train``: the residual forward and the BPTT run there too."""
     lm = dict(t=LM["prompt"], f=LM["hidden"], h=LM["hidden"], rx=LM["rank"], r=LM["rank"])
     out = [("lm", dict(lm, b=b), b in TRAIN_BATCHES, True) for b in LM_BATCHES]
     out += [("har", HAR, True, True), ("har", dict(HAR, b=EVAL_BATCH), False, True)]
-    out += [("lm_dense", dict(lm, b=MAIN_BATCH, rx=0, r=0), True, False)]
+    out += [("lm_dense", dict(lm, b=b, rx=0, r=0), True, False) for b in TRAIN_BATCHES]
     for name, over, diagonals in (("har_group", dict(r=0), True),
                                   ("har_dense", dict(rx=0, r=0), False)):
         out += [(name, dict(HAR, **over), True, diagonals),
@@ -441,10 +443,15 @@ def phase_kernels(torch):
     rows = {}
     print(f"tolerances: outputs and residuals atol = rtol = {TOL} (f32 sums in another "
           f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, s, train, diagonals in lstm_kernel_shapes():
         size = (s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
         label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx'] or 'dense'} "
                  f"r={s['r'] or 'dense'}{'' if diagonals else ', no diagonals'}")
+        plan = cuda_scan.scan_plan(s["b"], s["h"], s["r"], sms)
+        print(f"plan {label}: {plan.groups} batch groups x {plan.ctas} CTAs = {plan.n_ctas} "
+              f"CTAs of {sms} SMs, {plan.rpad} padded rows a group, shared memory "
+              f"{plan.smem_fwd} B forward, {plan.smem_bwd} B BPTT")
         args = scan_inputs(torch, **s, diagonals=diagonals)
         lstm, lib_err = cudnn_lstm(torch, args)
         xs, h0, c0 = args[0], args[8], args[9]
@@ -1594,6 +1601,8 @@ def trace_step(torch, label, step):
         fail(f"trace: the profiler recorded no device time in one {label}")
 
     def group(name):
+        # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
+        # grid_scan_kernel and grid_bptt_kernel; "vmlmf::" the tiled GEMMs
         if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
                                    "stack_step_kernel", "stack_bptt_kernel")):
             return "port"

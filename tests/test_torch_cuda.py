@@ -31,7 +31,7 @@ CASES = {
     "f_eq_h": (5, 3, 16, 16, 4, 4),
     "har": (24, 81, 77, 180, 8, 6),
     "f_gt_h": (7, 9, 70, 33, 5, 40),
-    "wide": (3, 6, 1600, 1600, 65, 129),  # over 48 KB of shared memory
+    "wide": (3, 6, 1600, 1600, 65, 129),  # 4.1 MB of U and V, over 33 CTAs a group
 }
 
 
@@ -104,7 +104,7 @@ def residual_and_grads(args, dys, dc_last, fwd, bwd):
 
 
 # (T, B, F, h, rx, r) with rx = 0 / r = 0 for a dense side: each dense form at
-# ragged small shapes, at the HAR layer (h=180, a 518 KB U read through L2)
+# ragged small shapes, at the HAR layer (h=180, a 518 KB U over three CTAs)
 # and at the PTB LM layer (h=650, 6.8 MB U and Ux)
 DENSE_CASES = {
     "dense_rec_f_gt_h": (7, 9, 70, 33, 5, 0),
@@ -202,6 +202,79 @@ def test_no_grad_kernel_refuses_inputs_that_need_a_gradient(cuda):
         cuda_scan.lstm_scan_fused_xin(*args)
     with torch.no_grad():
         cuda_scan.lstm_scan_fused_xin(*args)
+
+
+# The layout of the grid kernels at ragged edges: (T, B, F, h, rx, r), with
+# B = 1, 3, 5, 257, h = 7, 650, r = 1, 300 or 0 (dense) and the x side
+# low-rank (rx = 5) or dense (0): every form; then T = 1 and 2.
+GRID_CASES = {
+    f"b{b}_h{h}_r{r or 'dense'}_x{rx or 'dense'}": (3, b, 16, h, rx, r)
+    for b in (1, 3, 5, 257) for h in (7, 650) for r in (1, 300, 0) for rx in (5, 0)
+}
+GRID_CASES.update(t1_lowrank=(1, 5, 70, 33, 5, 40), t1_dense=(1, 20, 650, 650, 0, 0),
+                  t2_dense_rec=(2, 3, 16, 650, 8, 0), t2_dense_x=(2, 257, 16, 180, 0, 6))
+
+
+def grid_outputs(args, dys, dc_last):
+    """The three entries' outputs on one set of inputs: the no-grad forward,
+    the residuals, and the gradients from (dys, dc_last)."""
+    fwd = cuda_scan.lstm_scan_fused_xin(*args)
+    res, grads = residual_and_grads(args, dys, dc_last, cuda_scan.lstm_scan_fused_xin_res,
+                                    cuda_scan.lstm_scan_xin_bwd)
+    return fwd, res, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRID_CASES), ids=list(GRID_CASES))
+def test_grid_kernels_match_plain_at_ragged_edges(cuda, case):
+    t, b, f, h, rx, r = GRID_CASES[case]
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    rng = np.random.default_rng(1)
+    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32)).to(cuda)
+    dc_last = torch.from_numpy(rng.standard_normal((b, h)).astype(np.float32)).to(cuda)
+    (ys, c_last), res, _ = grid_outputs(args, dys, dc_last)
+    res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args)
+    torch.testing.assert_close(ys, res_p[0], **TOL)
+    torch.testing.assert_close(c_last, res_p[1][-1], **TOL)
+    for name, got, want in zip(("ys", "cs", "gates", "hu", "xu"), res, res_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **TOL)
+    saved = (*args[:4], *args[5:], *res)
+    for cot in ((dys, dc_last), (None, dc_last), (dys, None)):
+        grads = cuda_scan.lstm_scan_xin_bwd(*saved, *cot)
+        grads_p = cuda_scan.lstm_scan_xin_bwd_plain(*saved, *cot)
+        for name, got, want in zip(cuda_scan._ARG_NAMES, grads, grads_p):
+            assert (got is None) == (want is None), name
+            if want is not None:
+                torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(35, 20, 650, 650, 300, 300), (35, 20, 650, 650, 0, 0),
+                                   (24, 81, 77, 180, 8, 0)], ids=["lm", "lm_dense", "har_group"])
+def test_grid_kernels_are_deterministic(cuda, shape):
+    # every sum runs in a fixed order inside one CTA: no atomics
+    args = make_inputs(*shape, cuda)
+    dys = torch.randn(shape[0], shape[1], shape[3], device=cuda)
+    first, second = grid_outputs(args, dys, None), grid_outputs(args, dys, None)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        for x, y in zip(a, b):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_grid_too_large_to_be_co_resident_raises(cuda, monkeypatch):
+    # 5 groups of 60 CTAs: more CTAs than the card can hold at once
+    monkeypatch.setattr(cuda_scan, "_plan_for",
+                        lambda b, h, r, device: cuda_scan.plan_layout(b, h, r, 5, 60))
+    args = make_inputs(3, 5, 16, 650, 5, 300, cuda)
+    for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(*args)
 
 
 def lm_and_batch(cuda, backend):

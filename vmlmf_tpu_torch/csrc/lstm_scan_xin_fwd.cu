@@ -36,36 +36,57 @@
 //   [T,B,4h] to device memory and the scan reads it back, a round trip the
 //   TPU kernel avoided by projecting each time block inside the scan.
 // * The recurrence is a serial chain: each step needs all of h before h@U.
-//   One CTA owns kRows batch rows and walks all T steps with the (h, c)
-//   carry in shared memory. The recurrent weights (U and V, about 3.9 MB
-//   f32 per layer at h=650, r=300; a dense U [650, 2600], 6.8 MB; far over
-//   one SM's 227 KB) are read from L2 on every step, so each step is bound
-//   by one SM's L2 read rate, and at serving batch sizes most SMs stay idle.
-//   Spreading their columns over all SMs, each holding its slice in shared
-//   memory, with a grid-wide barrier per step, is the planned redesign.
-// * Low-rank: two phases a step, h@U into shared memory (one thread per
-//   rank column, U read down its column), a block barrier, then (h@U)@V and
-//   the gates (one thread per hidden unit j, V's four gate columns of j
-//   read along its rows: neighbouring lanes, neighbouring words), a second
-//   barrier. Dense: one phase, h@U and the gates, one thread per j reading
-//   U's four gate columns of j down its rows, coalesced across lanes; h is
-//   double-buffered in shared memory (read one, write the other), so a
-//   step needs one block barrier.
-// * The residual writes are coalesced rows of the step's outputs; they add
-//   (h + 4h + r) floats per row and step of device-memory traffic.
-// * Every edge (B, F, h, r, rx not multiples of a tile) is masked here.
+//   The TPU kernel keeps U, V, dvec and the carry in VMEM for the whole
+//   scan. The recurrent weights (U and V, 3.9 MB f32 at h=650, r=300; a
+//   dense U [650, 2600], 6.8 MB) are 17-30 times one SM's 227 KB, so here
+//   they are split over the CTAs of a cooperative launch, one per SM, each
+//   holding its slice in shared memory for the whole scan (scan_grid.cuh;
+//   the layout is ops/cuda_scan.py::scan_plan's). The batch is cut into
+//   groups, each with a full copy of the weights over its CTAs, as many
+//   groups as the copies that fit: a group's CTAs exchange only its own
+//   rows, and groups never wait for each other. This replaced one CTA per
+//   4 batch rows that read all of U and V from L2 each step (83-106 us a
+//   step at h=650 whatever B).
+// * Low-rank step, two phases on CTA q of a group: (A) hu[:, k-slice] =
+//   h @ U[:, k-slice] into the group's hu exchange buffer; group barrier;
+//   (B) pre = gi + hu @ V[:, gate columns of the j-slice] + h * dvec, the
+//   gates and the c/h update of the j-slice, the new h into the other h
+//   exchange buffer (double-buffered by step parity); group barrier. Dense
+//   step: one phase, pre = gi + h @ U[:, j-cols] + h * dvec; one barrier.
+//   The carry (h and c of the j-slice) stays in the CTA's shared memory.
+// * What sets a step now is latency, not bytes or operations: the barriers
+//   (a fence, an atomic and a spin on one L2 word per CTA) and each CTA's
+//   read of the group's whole h (or hu) from L2, staged into shared memory
+//   with 16-byte cp.async.cg, double-buffered when it does not fit whole
+//   (at B=128). The exchange is read only through L2 (.cg), never __ldg,
+//   so no CTA sees a value from before the barrier; weights, gi, h0 and c0
+//   never change during the launch. The step's gi of the j-slice is copied
+//   with cp.async at the start of the step, so that its load overlaps
+//   phase A and the barrier.
+// * Co-residency: every CTA of a group must be resident for its barrier,
+//   so the launch is cooperative, one CTA per SM at most; a grid that
+//   cannot be co-resident is refused and the wrapper raises.
+// * Ragged edges: h, r and B need not divide the CTA or group counts; a
+//   CTA may own no rank column (r < ctas), and rows past a group's batch
+//   rows are padding that is computed and never written out.
+// * The residual writes are coalesced across the j (or k) of a CTA; they
+//   add (h + 4h + r) floats per row and step of device-memory traffic.
+// * Every edge of the projection GEMMs (B, F, h, r, rx not multiples of a
+//   tile) is masked.
 
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
-#include "lstm_steps.cuh"
+#include "scan_grid.cuh"
 
 namespace {
 
-using vmlmf::cdiv;
-using vmlmf::kRows;              // batch rows per scan CTA
+using vmlmf::div_up;
+using vmlmf::GridPlan;
+using vmlmf::round4;
+using vmlmf::split_at;
 
-constexpr int kMaxThreads = 1024;
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 // Epilogue of the projection GEMM that yields gi (the second one, or the only
 // one for a dense x side): adds the x-side elementwise term and the bias to
@@ -83,60 +104,176 @@ struct GiEpilogue {
   }
 };
 
-// One CTA per kRows batch rows; the CTA walks all t_len steps. Shared memory:
-// hs [kRows,h] and cs [kRows,h] (the carry), then, low-rank, hus [kRows,r]
-// (h @ U of the step) or, dense, a second h buffer [kRows,h]. Rows past the
-// batch stay zero and are never written out. With Residuals, the per-step
-// cs_out, gates_out and (low-rank) hu_out are written and c_last is not.
-template <bool Residuals, bool DenseRec>
-__global__ void __launch_bounds__(kMaxThreads)
-scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
-            const float* __restrict__ v, const float* __restrict__ dvec,
-            const float* __restrict__ h0, const float* __restrict__ c0,
-            float* __restrict__ ys, float* __restrict__ c_last,
-            float* __restrict__ cs_out, float* __restrict__ gates_out,
-            float* __restrict__ hu_out, int t_len, int batch, int h, int r) {
-  extern __shared__ float smem[];
-  float* hs = smem;
-  float* cs = hs + kRows * h;
-  float* extra = cs + kRows * h;  // hus [kRows, r], or the second h buffer
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, batch - b0);
-
-  for (int i = threadIdx.x; i < kRows * h; i += blockDim.x) {
-    const bool live = i / h < rows;
-    hs[i] = live ? h0[(size_t)b0 * h + i] : 0.f;
-    cs[i] = live ? c0[(size_t)b0 * h + i] : 0.f;
-    if (DenseRec) extra[i] = 0.f;
-  }
-  __syncthreads();
-
-  vmlmf::lstm_fwd_steps<Residuals, DenseRec>(0, t_len, gi, u, v, dvec, hs, cs, extra, batch, b0,
-                                              ys, cs_out, gates_out, hu_out, rows, h, r);
-
-  if (!Residuals)
-    for (int i = threadIdx.x; i < rows * h; i += blockDim.x) c_last[(size_t)b0 * h + i] = cs[i];
+// Floats of this kernel's shared memory, in the order of the carve below:
+// the weight slices, dvec of the j-slice, the (h, c) carry, stage, red, and
+// the step's gi of the j-slice.
+__host__ __device__ inline size_t fwd_smem_floats(bool dense_rec, int h, int r,
+                                                  const GridPlan& p) {
+  const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const size_t weights = dense_rec ? (size_t)h * 4 * jwm : (size_t)h * kwp + (size_t)r * 4 * jwm;
+  return weights + 4 * jwm + 6 * (size_t)jwm * p.rpad + p.stage + p.red;
 }
 
-// Launches scan_kernel<Residuals, DenseRec>; returns the launch's error.
+// The scan over all t_len steps, on plan.groups x plan.ctas co-resident CTAs.
+// xchg: the h exchange [2][groups][h][rpad] (step parity), then, low-rank,
+// the hu exchange [groups][r][rpad]. sync: one barrier word per group.
+template <bool Residuals, bool DenseRec>
+__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
+                 const float* __restrict__ v, const float* __restrict__ dvec,
+                 const float* __restrict__ h0, const float* __restrict__ c0,
+                 float* __restrict__ ys, float* __restrict__ c_last,
+                 float* __restrict__ cs_out, float* __restrict__ gates_out,
+                 float* __restrict__ hu_out, float* xchg, unsigned* sync, int t_len,
+                 int batch, int h, int r, GridPlan plan) {
+  extern __shared__ __align__(16) float smem[];
+  const int g4 = 4 * h, rpad = plan.rpad;
+  const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
+  const int b0 = split_at(grp, batch, plan.groups);
+  const int rows = split_at(grp + 1, batch, plan.groups) - b0;
+  const int j0 = split_at(q, h, plan.ctas), jw = split_at(q + 1, h, plan.ctas) - j0;
+  const int k0 = DenseRec ? 0 : split_at(q, r, plan.ctas);
+  const int kw = DenseRec ? 0 : split_at(q + 1, r, plan.ctas) - k0;
+  const int jwm = div_up(h, plan.ctas), kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
+  const int depth = DenseRec ? h : r;  // of the gate phase's product
+
+  float* wa = smem;                        // low-rank: U[:, k-slice]  [h][kwp]
+  float* wb = wa + (size_t)h * kwp;        // V or dense U, gate columns of the j-slice [depth][jwm][4]
+  float* dv = wb + (size_t)depth * 4 * jwm;  // dvec of the j-slice [jwm][4]
+  float* hc = dv + 4 * jwm;                // the carry h, c: [jwm][rpad]
+  float* cc = hc + (size_t)jwm * rpad;
+  float* stage = cc + (size_t)jwm * rpad;
+  float* red = stage + plan.stage;
+  float* gis = red + plan.red;             // gi of the step, j-slice [jwm][4][rpad]
+  float* hx = xchg + (size_t)grp * h * rpad;  // parity p at hx + p * groups*h*rpad
+  const size_t hx_par = (size_t)plan.groups * h * rpad;
+  float* hux = xchg + 2 * hx_par + (size_t)grp * r * rpad;
+  unsigned* count = sync + grp;
+  unsigned target = 0;
+
+  // the weight slices, loaded once; columns past the slice are zero
+  if constexpr (!DenseRec) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
+      const int d = e / kwp, kk = e % kwp;
+      wa[e] = kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f;
+    }
+  }
+  const float* w = DenseRec ? u : v;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < depth * 4 * jwm; e += blockDim.x) {
+    const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
+    wb[e] = jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f;
+  }
+  for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
+    dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
+  // the carry from h0, c0 (padding rows zero), and h0's j-slice into the
+  // exchange of step 0
+  for (int e = threadIdx.x; e < jwm * rpad; e += blockDim.x) {
+    const int jj = e / rpad, row = e % rpad;
+    const bool live = jj < jw && row < rows;
+    const size_t at = (size_t)(b0 + row) * h + j0 + jj;
+    hc[e] = live ? h0[at] : 0.f;
+    cc[e] = live ? c0[at] : 0.f;
+    if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = hc[e];
+  }
+  vmlmf::group_sync(count, plan.ctas, target);
+
+  for (int t = 0; t < t_len; ++t) {
+    const float* hin = hx + (t & 1) * hx_par;
+    float* hout = hx + ((t + 1) & 1) * hx_par;
+    const size_t m0 = (size_t)t * batch + b0;  // the group's first row of the step
+    // the step's gi of the j-slice, copied while phase A and its barrier run
+    for (int e = threadIdx.x; e < 4 * jw * rows; e += blockDim.x) {
+      const int jj = e % jw, g = (e / jw) % 4, row = e / (4 * jw);
+      vmlmf::cp_async4(gis + (jj * 4 + g) * rpad + row, gi + (m0 + row) * g4 + g * h + j0 + jj);
+    }
+
+    if (!DenseRec) {
+      // (A) hu[:, k-slice] = h @ U[:, k-slice]
+      vmlmf::slice_product(hin, h, rpad, wa, kwp, round4(kw), stage, plan.stage, red, plan.red,
+                           [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kk = 4 * cb + c;
+          if (kk >= kw) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i;
+            hux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
+            if (Residuals && row < rows) hu_out[(m0 + row) * r + k0 + kk] = acc[c][i];
+          }
+        }
+      });
+      vmlmf::group_sync(count, plan.ctas, target);
+    }
+
+    // (B) pre = gi + src @ W[:, gate columns of the j-slice] + h * dvec; the
+    // gates and the update of the j-slice. Item cb is unit j0 + cb. The
+    // product's first __syncthreads publishes the copied gi.
+    vmlmf::cp_async_wait_all();
+    vmlmf::slice_product(DenseRec ? hin : hux, depth, rpad, wb, 4 * jwm, 4 * jw, stage,
+                         plan.stage, red, plan.red, [&](int cb, int rb, float (&acc)[4][4]) {
+      const int j = j0 + cb;
+      const float d0 = dv[4 * cb], d1 = dv[4 * cb + 1], d2 = dv[4 * cb + 2], d3 = dv[4 * cb + 3];
+      float gv[4][4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 q4 = *reinterpret_cast<const float4*>(gis + (cb * 4 + g) * rpad + 4 * rb);
+        gv[g][0] = q4.x, gv[g][1] = q4.y, gv[g][2] = q4.z, gv[g][3] = q4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * rb + i;
+        const int e = cb * rpad + row;
+        if (row >= rows) {
+          hout[(size_t)j * rpad + row] = 0.f;
+          continue;
+        }
+        const size_t m = m0 + row;
+        const float hp = hc[e];
+        const float si = sigmoid(gv[0][i] + acc[0][i] + hp * d0);
+        const float sf = sigmoid(gv[1][i] + acc[1][i] + hp * d1);
+        const float tg = tanhf(gv[2][i] + acc[2][i] + hp * d2);
+        const float so = sigmoid(gv[3][i] + acc[3][i] + hp * d3);
+        const float cn = sf * cc[e] + si * tg;
+        const float hn = so * tanhf(cn);
+        cc[e] = cn;
+        hc[e] = hn;
+        hout[(size_t)j * rpad + row] = hn;
+        ys[m * h + j] = hn;
+        if (Residuals) {
+          cs_out[m * h + j] = cn;
+          float* gw = gates_out + m * g4;
+          gw[j] = si;
+          gw[h + j] = sf;
+          gw[2 * h + j] = tg;
+          gw[3 * h + j] = so;
+        }
+      }
+    });
+    vmlmf::group_sync(count, plan.ctas, target);
+  }
+
+  if (!Residuals)
+    for (int e = threadIdx.x; e < jw * rows; e += blockDim.x) {
+      const int jj = e % jw, row = e / jw;
+      c_last[(size_t)(b0 + row) * h + j0 + jj] = cc[jj * rpad + row];
+    }
+}
+
+// Launches grid_scan_kernel<Residuals, DenseRec>; returns the launch's error.
+// The plan must hold at least the shared memory this kernel carves.
 template <bool Residuals, bool DenseRec>
 cudaError_t scan(const float* gi, const float* u, const float* v, const float* dvec,
                  const float* h0, const float* c0, float* ys, float* c_last, float* cs,
-                 float* gates, float* hu, int t_len, int batch, int h, int r,
-                 cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRows * (DenseRec ? 3 * h : 2 * h + r);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(scan_kernel<Residuals, DenseRec>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int span = DenseRec || h > r ? h : r;
-  const int want = cdiv(span, 32) * 32;
-  const int threads = want < kMaxThreads ? want : kMaxThreads;
-  scan_kernel<Residuals, DenseRec><<<cdiv(batch, kRows), threads, smem, stream>>>(
-      gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, t_len, batch, h, r);
-  return cudaGetLastError();
+                 float* gates, float* hu, float* xchg, unsigned* sync, int t_len, int batch,
+                 int h, int r, GridPlan plan, cudaStream_t stream) {
+  if (sizeof(float) * fwd_smem_floats(DenseRec, h, r, plan) > (size_t)plan.smem)
+    return cudaErrorInvalidValue;
+  void* args[] = {&gi, &u, &v, &dvec, &h0, &c0, &ys, &c_last, &cs, &gates, &hu, &xchg, &sync,
+                  &t_len, &batch, &h, &r, &plan};
+  return vmlmf::launch_grid(grid_scan_kernel<Residuals, DenseRec>, plan, sync, args, stream);
 }
 
 // The projection GEMMs (two, or one for a dense x side), then the scan of
@@ -145,8 +282,9 @@ template <bool Residuals>
 int launch(const float* x, const float* ux, const float* vx, const float* xdvec,
            const float* bias, const float* u, const float* v, const float* dvec,
            const float* h0, const float* c0, float* xu, float* gi, float* ys,
-           float* c_last, float* cs, float* gates, float* hu, int t_len, int batch,
-           int f, int rx, int h, int r, cudaStream_t stream) {
+           float* c_last, float* cs, float* gates, float* hu, float* xchg, unsigned* sync,
+           int t_len, int batch, int f, int rx, int h, int r, GridPlan plan,
+           cudaStream_t stream) {
   const int m = t_len * batch;
   const int g4 = 4 * h;
   const GiEpilogue epi{gi, x, xdvec, bias, f, h};
@@ -163,39 +301,45 @@ int launch(const float* x, const float* ux, const float* vx, const float* xdvec,
   if (err != cudaSuccess) return err;
 
   if (v == nullptr)
-    return scan<Residuals, true>(gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, t_len,
-                                 batch, h, r, stream);
-  return scan<Residuals, false>(gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, t_len,
-                                batch, h, r, stream);
+    return scan<Residuals, true>(gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, xchg, sync,
+                                 t_len, batch, h, r, plan, stream);
+  return scan<Residuals, false>(gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, xchg, sync,
+                                t_len, batch, h, r, plan, stream);
 }
 
 }  // namespace
 
 // No-grad forward. xu [T*B, rx] (null for a dense x side) and gi [T*B, 4h]
-// are scratch that the caller allocates; writes ys [T,B,h] and c_last [B,h].
-// vx null: dense x side, rx unused; v null: dense recurrent side, r unused.
+// are scratch that the caller allocates, as are the exchange buffers xchg
+// and the barrier words sync (scan_plan sizes both); writes ys [T,B,h] and
+// c_last [B,h]. vx null: dense x side, rx unused; v null: dense recurrent
+// side, r unused. The last six integers are scan_plan's layout.
 extern "C" int lstm_scan_xin_fwd(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* c_last, int t_len, int batch, int f, int rx, int h, int r,
+    float* c_last, float* xchg, unsigned* sync, int t_len, int batch, int f, int rx, int h,
+    int r, int groups, int ctas, int rpad, int stage, int red, int smem,
     void* stream_handle) {
   return launch<false>(x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, xu, gi, ys, c_last,
-                       nullptr, nullptr, nullptr, t_len, batch, f, rx, h, r,
+                       nullptr, nullptr, nullptr, xchg, sync, t_len, batch, f, rx, h, r,
+                       GridPlan{groups, ctas, rpad, stage, red, smem},
                        static_cast<cudaStream_t>(stream_handle));
 }
 
-// Residual forward of training. gi [T*B, 4h] is scratch; writes ys and the
-// residuals xu [T*B, rx] (null for a dense x side), cs [T,B,h], gates
-// [T,B,4h] and hu [T,B,r] (null for a dense recurrent side).
+// Residual forward of training. gi [T*B, 4h], xchg and sync are scratch;
+// writes ys and the residuals xu [T*B, rx] (null for a dense x side), cs
+// [T,B,h], gates [T,B,4h] and hu [T,B,r] (null for a dense recurrent side).
 extern "C" int lstm_scan_xin_fwd_res(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* cs, float* gates, float* hu, int t_len, int batch, int f, int rx,
-    int h, int r, void* stream_handle) {
+    float* cs, float* gates, float* hu, float* xchg, unsigned* sync, int t_len, int batch,
+    int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
+    void* stream_handle) {
   return launch<true>(x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, xu, gi, ys, nullptr,
-                      cs, gates, hu, t_len, batch, f, rx, h, r,
+                      cs, gates, hu, xchg, sync, t_len, batch, f, rx, h, r,
+                      GridPlan{groups, ctas, rpad, stage, red, smem},
                       static_cast<cudaStream_t>(stream_handle));
 }
 

@@ -14,6 +14,9 @@ ops) and a launch count:
   * `lstm_scan_xin_bwd` — the BPTT, ``csrc/lstm_scan_xin_bwd.cu``.
 
 `LSTMScanXin` is the `torch.autograd.Function` that pairs the last two.
+`scan_plan` decides how the kernels spread a scan over the card's SMs: the
+batch groups, each CTA's slices of the recurrent weights and the shared
+memory they take. It is plain Python, so the CPU tests reach it.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, so on the CPU the same `LSTMScanXin` runs the plain
 forward and the plain backward. There is no fallback between the two: a
@@ -24,6 +27,8 @@ requires a gradient never reaches the no-grad kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -238,10 +243,186 @@ def _require_cuda(name, xs):
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {xs.device}")
 
 
+SMS = 132              # SMs of an H100 SXM: the plan's default
+GRID_THREADS = 512     # threads per CTA of the grid kernels (scan_grid.cuh kGridThreads)
+MAX_SLICES = 32        # depth slices of one product item (kMaxSlices)
+MIN_SLICE_DEPTH = 8    # depth rows a slice takes at least (kMinSliceDepth)
+STAGE_FLOATS = 8192    # the most floats a CTA stages of an exchange buffer at once
+SMEM_LIMIT = 232448    # bytes of shared memory one block may use on sm_90
+SPLIT_TARGET = 264     # CTAs a split-k product aims at (gemm_tile.cuh kSplitTarget)
+# multiply-adds of a step below which a CTA's share is not worth a wider
+# group barrier: about a microsecond of one SM's f32 work
+MIN_STEP_WORK = 32768
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round4(n):
+    return _cdiv(n, 4) * 4
+
+
+def _split_at(q, n, parts):
+    return q * n // parts
+
+
+def _slices(items, depth):
+    """Depth slices of a product with ``items`` items (scan_grid.cuh)."""
+    most = 1 if items >= GRID_THREADS else min(MAX_SLICES, GRID_THREADS // items)
+    return max(1, min(most, depth // MIN_SLICE_DEPTH))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How the scan kernels spread one scan over the card: ``groups`` batch
+    groups of consecutive rows, each on ``ctas`` CTAs (one per SM) that hold
+    its slices of the recurrent weights in shared memory for the whole scan.
+    CTA q of a group owns the hidden units `j_range(q)` (all four gate
+    columns of each) and the rank columns `k_range(q)` (none for a dense
+    recurrent side, r = 0). ``rpad``: a group's rows padded to a multiple of
+    4. Per kernel: ``stage`` and ``red``, floats of the staging buffer and
+    of the slice partials; ``smem``, bytes of shared memory per CTA;
+    ``xchg``, floats of the exchange buffers."""
+
+    b: int
+    h: int
+    r: int
+    groups: int
+    ctas: int
+    rpad: int
+    stage_fwd: int
+    red_fwd: int
+    smem_fwd: int
+    xchg_fwd: int
+    stage_bwd: int
+    red_bwd: int
+    smem_bwd: int
+    xchg_bwd: int
+
+    @property
+    def n_ctas(self):
+        return self.groups * self.ctas
+
+    @property
+    def smem_bytes(self):
+        return max(self.smem_fwd, self.smem_bwd)
+
+    def rows(self, g):
+        """Batch rows [b0, b1) of group g."""
+        return _split_at(g, self.b, self.groups), _split_at(g + 1, self.b, self.groups)
+
+    def j_range(self, q):
+        """Hidden units [j0, j1) of CTA q of a group."""
+        return _split_at(q, self.h, self.ctas), _split_at(q + 1, self.h, self.ctas)
+
+    def k_range(self, q):
+        """Rank columns [k0, k1) of CTA q of a group (empty when dense)."""
+        return _split_at(q, self.r, self.ctas), _split_at(q + 1, self.r, self.ctas)
+
+    def ints(self, kernel):
+        """The plan as the C entry of ``kernel`` ("fwd" or "bwd") takes it:
+        groups, ctas, rpad, stage, red, smem."""
+        return (self.groups, self.ctas, self.rpad, *((self.stage_fwd, self.red_fwd, self.smem_fwd)
+                if kernel == "fwd" else (self.stage_bwd, self.red_bwd, self.smem_bwd)))
+
+
+def _kernel_layout(h, ctas, rpad, phases, weights, slabs):
+    """(stage, red, smem bytes) of one kernel: ``phases`` are its products as
+    (depth, columns), ``weights`` the floats of its weight slices, ``slabs``
+    its [units][rpad] buffers (the carry and the prefetched step inputs)."""
+    stage = min(max(d for d, _ in phases), max(2, STAGE_FLOATS // rpad)) * rpad
+    red = 0
+    for depth, cols in phases:
+        items = _cdiv(cols, 4) * (rpad // 4)
+        slices = _slices(items, depth)
+        red = max(red, slices * items * 16 if slices > 1 else 0)
+    jwm = _cdiv(h, ctas)
+    return stage, red, 4 * (weights + 4 * jwm + slabs * jwm * rpad + stage + red)
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(b, h, r, sms=SMS):
+    """The layout of the scan kernels for batch ``b``, hidden width ``h`` and
+    recurrent rank ``r`` (0: a dense U [h, 4h]) on ``sms`` SMs -> ScanPlan.
+
+    Each CTA's work per step is about the same for any grouping (the batch
+    times the weights over the CTAs), but each CTA reads its group's whole h
+    (or dpre) from L2 a step, and a barrier waits for every CTA of the
+    group. So the plan takes as many groups as the card holds copies of the
+    weights. For each group count from min(b, sms) down it tries ``ctas`` =
+    just enough CTAs for MIN_STEP_WORK each (a single CTA per group needs no
+    grid barrier), then sms // groups, both at most h; the first whose
+    shared memory fits wins. Raises ValueError when the weights do not fit
+    in the shared memory of all SMs.
+    """
+    if min(b, h, sms) < 1 or r < 0:
+        raise ValueError(f"no scan plan for B={b}, h={h}, r={r} on {sms} SMs")
+    step_work = h * 4 * h if r == 0 else h * r + r * 4 * h  # multiply-adds of a row's step
+    for groups in range(min(b, sms), 0, -1):
+        most = max(1, min(sms // groups, h))
+        work = _round4(_cdiv(b, groups)) * step_work
+        for ctas in sorted({min(most, _cdiv(work, MIN_STEP_WORK)), most}):
+            plan = plan_layout(b, h, r, groups, ctas)
+            if plan.smem_bytes <= SMEM_LIMIT:
+                return plan
+    raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in the "
+                     f"shared memory of {sms} SMs")
+
+
+def plan_layout(b, h, r, groups, ctas):
+    """The ScanPlan of ``groups`` batch groups of ``ctas`` CTAs each, for
+    batch ``b``, width ``h`` and rank ``r`` (0: dense); `scan_plan` picks
+    the grouping."""
+    rpad = _round4(_cdiv(b, groups))
+    jwm = _cdiv(h, ctas)
+    jwp, kwp = _round4(jwm), _round4(_cdiv(r, ctas))
+    # slabs: forward h, c and the step's gi (4); BPTT dh, dc and phase A's 7 inputs
+    if r == 0:
+        fwd = _kernel_layout(h, ctas, rpad, [(h, 4 * jwm)], h * 4 * jwm, 6)
+        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, jwp)], 4 * h * jwp, 9)
+    else:
+        fwd = _kernel_layout(h, ctas, rpad, [(h, kwp), (r, 4 * jwm)], h * kwp + r * 4 * jwm, 6)
+        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, kwp), (r, jwp)], 4 * h * kwp + r * jwp, 9)
+    return ScanPlan(b, h, r, groups, ctas, rpad, *fwd, groups * rpad * (2 * h + r),
+                    *bwd, groups * rpad * (8 * h + r))
+
+
+def _splitk_floats(m, n, k):
+    """Floats of partial sums that gemm_tile.cuh::gemm_splitk wants for
+    c [m, n] = A [m, k] @ B [k, n] (0: it does not split)."""
+    splits = _cdiv(SPLIT_TARGET, _cdiv(n, 64) * _cdiv(m, 64))
+    kslice = _cdiv(_cdiv(k, splits), 16) * 16
+    splits = _cdiv(k, kslice)
+    return splits * m * n if splits > 1 else 0
+
+
+def bwd_partial_floats(t, b, f, rx, h, r):
+    """Floats of split-k scratch for the BPTT's products with few output
+    tiles and a long k: the weight gradients (k = T*B) and the x side's
+    product over the 4h gate columns (dXU, or dx for a dense x side). The
+    largest that any of them wants."""
+    m, g4 = t * b, 4 * h
+    shapes = [(h, g4, m)] if not r else [(r, g4, m), (h, r, m)]
+    shapes += [(f, g4, m), (m, f, g4)] if not rx else [(f, rx, m), (rx, g4, m), (m, rx, g4)]
+    return max(_splitk_floats(*shape) for shape in shapes)
+
+
+def _plan_for(b, h, r, device):
+    return scan_plan(b, h, r, _sm_count(device.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(kernel, entry, tensors, sizes, device):
     """Call C entry ``entry`` of csrc/<kernel>.cu on the current stream: the
-    tensors' pointers (None -> null), the integer sizes (here T, B, F, rx,
-    h, r) and the stream. Raises on the non-zero cudaError it returns."""
+    tensors' pointers (None -> null), the integers (the sizes T, B, F, rx,
+    h, r and the plan's layout) and the stream. Raises on the non-zero
+    cudaError it returns: a plan the kernel cannot take, a launch refused, or
+    a grid too large to be co-resident (no fallback)."""
     lib = _build.load(kernel)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
@@ -254,6 +435,11 @@ def _launch(kernel, entry, tensors, sizes, device):
         describe = getattr(lib, f"{kernel}_error")
         describe.argtypes, describe.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{entry} launch failed: {describe(err).decode()} (cudaError {err})")
+
+
+def _sync_words(plan, like):
+    """One barrier word per batch group; the launcher zeroes them."""
+    return torch.empty(plan.groups, dtype=torch.int32, device=like.device)
 
 
 def _empty(like):
@@ -286,10 +472,13 @@ def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
                            "one go through LSTMScanXin.apply")
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
+        plan = _plan_for(b, h, r, xs.device)
         new = _empty(xs)
         xu = new(t * b, rx) if rx else None
         gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
-        _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last), sizes, xs.device)
+        xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
+        _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync),
+                (*sizes, *plan.ints("fwd")), xs.device)
     lstm_scan_fused_xin.launches += 1
     return ys, c_last
 
@@ -310,12 +499,14 @@ def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
     _require_cuda("lstm_scan_fused_xin_res", xs)
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
+        plan = _plan_for(b, h, r, xs.device)
         new = _empty(xs)
         xu = new(t, b, rx) if rx else None
         hu = new(t, b, r) if r else None
         gi, ys, cs, gates = new(t * b, 4 * h), new(t, b, h), new(t, b, h), new(t, b, 4 * h)
-        _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu), sizes,
-                xs.device)
+        xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
+        _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu, xchg, sync),
+                (*sizes, *plan.ints("fwd")), xs.device)
     lstm_scan_fused_xin_res.launches += 1
     return ys, cs, gates, hu, xu
 
@@ -340,6 +531,7 @@ def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, 
     _require_cuda("lstm_scan_xin_bwd", xs)
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
+        plan = _plan_for(b, h, r, xs.device)
         new = _empty(xs)
         dpre = new(t * b, 4 * h)
         dhu = new(t * b, r) if r else None
@@ -347,8 +539,11 @@ def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, 
         grads = (new(t, b, f), torch.empty_like(ux), new(rx, 4 * h) if rx else None, new(4, h),
                  new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
                  new(b, h), new(b, h))
+        partial = new(max(1, bwd_partial_floats(*sizes)))
         _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
-                (*saved, dys, dc_last, dpre, dhu, dxu, *grads), sizes, xs.device)
+                (*saved, dys, dc_last, dpre, dhu, dxu, *grads, new(plan.xchg_bwd),
+                 _sync_words(plan, xs), partial),
+                (partial.numel(), *sizes, *plan.ints("bwd")), xs.device)
     lstm_scan_xin_bwd.launches += 1
     return grads
 

@@ -1,21 +1,24 @@
-"""Time the no-grad scan kernel of several checkouts of this repo in turns,
-in one run, on one CUDA device.
+"""Time the LSTM scan kernels of several checkouts of this repo in turns, in
+one run, on one CUDA device.
 
     python -m vmlmf_tpu_torch.tools.ab_scan PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout (for example another commit,
 unpacked from ``git archive``). Each runs in a subprocess of its own, which
 imports that checkout's `vmlmf_tpu_torch`, builds its kernels there, and
-prints one JSON line: the checkout, the card, and for each recurrent form
-and B in 1, 20 and 128 the mean ms of 20 calls of `lstm_scan_fused_xin` at
-the PTB LM layer (T=35, F=h=650), taken three times, on the same seeded
-inputs. The forms: "lowrank" (r=rx=300, the VMLMF LM) and "dense" (U and Ux
-[650, 2600], no diagonals, the dense LM). A checkout that has
+prints one JSON line: the checkout, the card, and for each recurrent form,
+entry and B in 1, 20 and 128 the mean ms of 20 calls at the PTB LM layer
+(T=35, F=h=650), taken three times, on the same seeded inputs. The entries:
+"fwd" (`lstm_scan_fused_xin`, no grad), "res" (`lstm_scan_fused_xin_res`,
+the residual forward of training) and "bwd" (`lstm_scan_xin_bwd`, the BPTT,
+from dys alone). The forms: "lowrank" (r=rx=300, the VMLMF LM) and "dense"
+(U and Ux [650, 2600], no diagonals, the dense LM). A checkout that has
 `ops/cuda_stack.py` also times the no-grad wavefront stack,
 `lstm_stack_scan_fused`, on the two layers of the VMLMF LM ("stack").
 Each line also gives, under "ptxas", the registers and spill bytes that
 ``nvcc -Xptxas -v`` reports for each form of the checkout's serial kernels
-(`scan_kernel`, `stack_step_kernel`) at the build's flags.
+(`scan_kernel` and `bptt_kernel` or their grid forms, `stack_step_kernel`)
+at the build's flags.
 Giving the checkouts as parent, change, change, parent keeps drift on the
 card from reading as a difference between them.
 """
@@ -84,7 +87,8 @@ def ptxas(source):
     stats, name, spill = {}, None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(scan_kernel|stack_step_kernel)I((?:Lb[01]E)+)E", line)
+            m = re.search(r"(grid_scan_kernel|grid_bptt_kernel|scan_kernel|bptt_kernel|"
+                          r"stack_step_kernel)I((?:Lb[01]E)+)E", line)
             name = m and f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -94,11 +98,20 @@ def ptxas(source):
     return stats
 
 
-sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_stack_fwd.cu") if (_build.CSRC / s).exists()]
+def entry_ms(b, form):
+    args = inputs(b, form)
+    res = cuda_scan.lstm_scan_fused_xin_res(*args)
+    dys = torch.randn(t, b, h, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:4], *args[5:], *res)
+    return {"fwd": [mean_ms(cuda_scan.lstm_scan_fused_xin, args) for _ in range(3)],
+            "res": [mean_ms(cuda_scan.lstm_scan_fused_xin_res, args) for _ in range(3)],
+            "bwd": [mean_ms(cuda_scan.lstm_scan_xin_bwd, (*saved, dys, None)) for _ in range(3)]}
+
+
+sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_scan_xin_bwd.cu", "lstm_stack_fwd.cu")
+           if (_build.CSRC / s).exists()]
 regs = {s: ptxas(s) for s in sources}
-ms = {form: {b: [mean_ms(cuda_scan.lstm_scan_fused_xin, inputs(b, form)) for _ in range(3)]
-             for b in (1, 20, 128)}
-      for form in ("lowrank", "dense")}
+ms = {form: {b: entry_ms(b, form) for b in (1, 20, 128)} for form in ("lowrank", "dense")}
 if importlib.util.find_spec("vmlmf_tpu_torch.ops.cuda_stack") is not None:
     from vmlmf_tpu_torch.ops import cuda_stack
     ms["stack"] = {b: [mean_ms(cuda_stack.lstm_stack_scan_fused, stack_inputs(b))

@@ -21,7 +21,14 @@ Phases, each of which exits non-zero when it fails:
                version's, its roofline bound, and cuDNN's LSTM on the same
                scan's dense weights (the library yardstick); where the scan
                is dense on both sides with no diagonal, cuDNN's output is
-               also held to the kernel's.
+               also held to the kernel's. Then the JAX package's variants:
+               bf16 products at the LM layer (low-rank at B in 1/20/128,
+               dense at B=20), bf16 residuals and the recompute policy at
+               the HAR layer (B=81), with cuDNN's LSTM in bf16 (other
+               rounding) or f32 as the library. A bf16 kernel's first two
+               steps (ys and cs of the forwards, dxs at T-2 and T-1 of the
+               BPTT from its own residuals) must also lie 4x nearer its
+               plain bf16 version than that lies to the f32 one.
   4. gru kernels — each GRU kernel entry (no-grad forward, residual forward,
                BPTT) against its plain version at T=24, h=64, rx=9: the
                layers of both HAR GRUs (main: low-rank "pre", r=9; group:
@@ -102,15 +109,32 @@ Phases, each of which exits non-zero when it fails:
                the per-layer fused scans for its reverse tower, held to
                "fused"); then prefill ms at B in 1/20/128 and train step ms
                at B in 20/128 beside the "fused" backend's.
- 14. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+ 14. mixed   — the JAX package's kernel variants of the LSTM scan: the gi-mode
+               entries against their plain versions at the LM layer, B=20,
+               with cuDNN's f32 LSTM from x as the library; then three
+               paths at full width, each with exact launch counts of each
+               variant: the PTB LM in the JAX package's mixed precision
+               (VMLMF_PALLAS_PRECISION=bf16 and head_bf16, as
+               scripts/bench_lm_b128_precision.py builds "bf16+head")
+               served by `Decoder` and trained by `LMTrainer` for 30 chunks
+               at B=20 and 128, its first step's gradients held to the f32
+               "fused" step's; the HAR flagship trained under
+               VMLMF_PALLAS_SAVED_GATES=0 and under
+               VMLMF_PALLAS_RESIDUALS=bf16; the LM trained in gi mode
+               (VMLMF_PALLAS_XIN=0), held to x mode. Prefill ms, greedy
+               tokens/s, train step ms and words/s beside f32 "fused"; the
+               peak memory of a HAR (B=81) and an LM (B=128) train step
+               under each residual policy; and a `torch.profiler` trace of
+               a mixed-precision LM train step.
+ 15. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
                device time of each kernel, the port's against cuBLAS's. A
                profiler error or an empty trace fails.
- 15. report  — one JSON line listing every kernel entry in every form that
+ 16. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-13 every launch count is set to 0 just before the path runs and
+In phases 5-14 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -125,12 +149,18 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM, dense, at its 700 W limit: f32 outside the tensor cores, and HBM3
+# H100 SXM, dense, at its 700 W limit: f32 outside the tensor cores, bf16 on
+# the tensor cores, and HBM3
 PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOL = 1e-4  # outputs: f32 sums over K=650 and K=300 in another order, 35 steps
 GRAD_TOL = 1e-3  # gradients: weight gradients sum over all T*B rows in another order
+# bf16 products: the kernel and its plain version round the same operands,
+# but sums in another order can move a value across a bf16 rounding
+# boundary (tests/test_pallas.py:97, :114); bf16 residuals (:209-213)
+BF16_TOL, BF16_GRAD_TOL, RES_GRAD_TOL = 5e-3, 5e-2, 2e-2
 LM = dict(vocab=10000, hidden=650, layers=2, rank=300, prompt=35)
 LM_BATCHES = (1, 20, 128)
 TRAIN_BATCHES = (20, 128)
@@ -176,9 +206,14 @@ REDUCED = {
 # Each form of each kernel family, with the kernel check whose numbers its
 # row in the kernels line carries: (shape name, B of the no-grad entry, B of
 # the training entries). The low-rank forms keep their entries' plain names.
+# A form whose no-grad entry has no such variant (the residual policies)
+# has None in its place.
 FORMS = {
     "lstm": {"lowrank": ("lm", 20, 20), "dense_rec": ("har_group", EVAL_BATCH, 81),
-             "dense": ("lm_dense", 20, 20), "dense_x": ("har_dense_x", 81, 81)},
+             "dense": ("lm_dense", 20, 20), "dense_x": ("har_dense_x", 81, 81),
+             "bf16": ("lm_bf16", 20, 20), "bf16_res": ("har_bf16_res", None, 81),
+             "recompute": ("har_recompute", None, 81)},
+    "lstm_gi": {"lowrank": ("lm_gi", 20, 20)},
     "gru": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
             "dense_post": ("group_l1", EVAL_BATCH, 81),
             "dense_pre": ("dense_pre", 81, 81),
@@ -191,6 +226,7 @@ FIRST_FORMS = ("lowrank", "lowrank_pre")
 # The entries of each kernel family: (no-grad forward, residual forward, BPTT)
 FAMILIES = {
     "lstm": ("lstm_scan_xin_fwd", "lstm_scan_xin_fwd_res", "lstm_scan_xin_bwd"),
+    "lstm_gi": ("lstm_scan_fwd", "lstm_scan_fwd_res", "lstm_scan_bwd"),
     "gru": ("gru_scan_xin_fwd", "gru_scan_xin_fwd_res", "gru_scan_xin_bwd"),
     "lstm_stack": ("lstm_stack_fwd", "lstm_stack_fwd_res", "lstm_stack_bwd"),
 }
@@ -228,9 +264,12 @@ def all_close(torch, gots, wants, tol):
     return all(ok for ok, _ in checks), max(e for _, e in checks)
 
 
-def bound(ops, nbytes):
-    """(bound ms, what bounds it) at the card's f32 and memory peaks."""
-    op_ms, byte_ms = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
+def bound(ops, nbytes, bf16_ops=0):
+    """(bound ms, what bounds it) at the card's memory peak and its peaks for
+    the operations' types: ``bf16_ops`` of the ``ops`` (the products of a
+    bf16 variant) at the bf16 tensor-core rate, the rest at the f32 rate."""
+    op_ms = 1e3 * ((ops - bf16_ops) / PEAK_F32_OPS + bf16_ops / PEAK_BF16_OPS)
+    byte_ms = 1e3 * nbytes / PEAK_BYTES
     return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
 
@@ -241,6 +280,9 @@ def entries():
     return {"lstm_scan_xin_fwd": (cuda_scan.lstm_scan_fused_xin, cuda_scan),
             "lstm_scan_xin_fwd_res": (cuda_scan.lstm_scan_fused_xin_res, cuda_scan),
             "lstm_scan_xin_bwd": (cuda_scan.lstm_scan_xin_bwd, cuda_scan),
+            "lstm_scan_fwd": (cuda_scan.lstm_scan_fused, cuda_scan),
+            "lstm_scan_fwd_res": (cuda_scan.lstm_scan_fused_res, cuda_scan),
+            "lstm_scan_bwd": (cuda_scan.lstm_scan_bwd, cuda_scan),
             "gru_scan_xin_fwd": (cuda_gru.gru_scan_fused_xin, cuda_gru),
             "gru_scan_xin_fwd_res": (cuda_gru.gru_scan_fused_xin_res, cuda_gru),
             "gru_scan_xin_bwd": (cuda_gru.gru_scan_xin_bwd, cuda_gru),
@@ -257,6 +299,8 @@ def launch_counts():
 def reset_launch_counts():
     for fn, _ in entries().values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()
 
 
 def count_delta(before):
@@ -410,30 +454,80 @@ def library_train_ms(torch, train_fwd, dys, iters):
     return min(fwd_ms), min(both_ms) - min(fwd_ms)
 
 
-def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms):
+def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms, library="cuDNN"):
+    """A kernel check's numbers; ``cost`` is (ops, bytes) or (ops, bytes,
+    bf16 ops), as `bound` takes it."""
     bms, by = bound(*cost)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"kernel {name} {shape}: max_abs_err {err:.3g} (tol {tol}), {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (cuDNN) {lib}")
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library ({library}) {lib}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=library_ms)
 
 
+F32 = ("f32", "f32", True)  # (precision, residuals, save_gates) of the default kernels
+
+
 def lstm_kernel_shapes():
-    """(name, shape, train, diagonals) of each LSTM kernel check: the PTB LM
-    layer at B in 1/20/128 and the VMLMF HAR layer at B=81 and 256 (both
-    low-rank); the dense PTB LM layer at B=20 and 128; the group VMLMF HAR layer (dense
-    recurrence) and the dense HAR layer at B=81 and 256; a dense x side at
-    B=81. ``train``: the residual forward and the BPTT run there too."""
+    """(name, shape, train, diagonals, variant) of each LSTM kernel check: the
+    PTB LM layer at B in 1/20/128 and the VMLMF HAR layer at B=81 and 256
+    (both low-rank); the dense PTB LM layer at B=20 and 128; the group VMLMF
+    HAR layer (dense recurrence) and the dense HAR layer at B=81 and 256; a
+    dense x side at B=81. Then the JAX package's variants: bf16 products at
+    the LM layer (low-rank at B in 1/20/128, dense at B=20), bf16 residuals
+    and the recompute policy at the HAR layer, B=81. ``train``: the residual
+    forward and the BPTT run there too; ``variant``: (precision, residuals,
+    save_gates)."""
     lm = dict(t=LM["prompt"], f=LM["hidden"], h=LM["hidden"], rx=LM["rank"], r=LM["rank"])
-    out = [("lm", dict(lm, b=b), b in TRAIN_BATCHES, True) for b in LM_BATCHES]
-    out += [("har", HAR, True, True), ("har", dict(HAR, b=EVAL_BATCH), False, True)]
-    out += [("lm_dense", dict(lm, b=b, rx=0, r=0), True, False) for b in TRAIN_BATCHES]
+    out = [("lm", dict(lm, b=b), b in TRAIN_BATCHES, True, F32) for b in LM_BATCHES]
+    out += [("har", HAR, True, True, F32), ("har", dict(HAR, b=EVAL_BATCH), False, True, F32)]
+    out += [("lm_dense", dict(lm, b=b, rx=0, r=0), True, False, F32) for b in TRAIN_BATCHES]
     for name, over, diagonals in (("har_group", dict(r=0), True),
                                   ("har_dense", dict(rx=0, r=0), False)):
-        out += [(name, dict(HAR, **over), True, diagonals),
-                (name, dict(HAR, b=EVAL_BATCH, **over), False, diagonals)]
-    return out + [("har_dense_x", dict(HAR, rx=0), True, False)]
+        out += [(name, dict(HAR, **over), True, diagonals, F32),
+                (name, dict(HAR, b=EVAL_BATCH, **over), False, diagonals, F32)]
+    out.append(("har_dense_x", dict(HAR, rx=0), True, False, F32))
+    bf16 = ("bf16", "f32", True)
+    out += [("lm_bf16", dict(lm, b=b), b in TRAIN_BATCHES, True, bf16) for b in LM_BATCHES]
+    out.append(("lm_dense_bf16", dict(lm, b=MAIN_BATCH, rx=0, r=0), True, False, bf16))
+    return out + [("har_bf16_res", HAR, True, True, ("f32", "bf16", True)),
+                  ("har_recompute", HAR, True, True, ("f32", "f32", False))]
+
+
+def cudnn_lstm_bf16(torch, lstm):
+    """cuDNN's LSTM with the same weights in bf16: the same work with bf16
+    storage and other rounding points, the library yardstick of the bf16 rows."""
+    lib = torch.nn.LSTM(lstm.input_size, lstm.hidden_size).cuda().bfloat16()
+    with torch.no_grad():
+        for name, p in lstm.named_parameters():
+            getattr(lib, name).copy_(p)
+    lib.flatten_parameters()
+    return lib
+
+
+def rms_diff(pairs):
+    """The root mean square of a - b over all elements of the pairs."""
+    pairs = list(pairs)
+    sq = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in pairs)
+    return (sq / sum(a.numel() for a, _ in pairs)) ** 0.5
+
+
+def bf16_control(what, label, gots, bf16_plain, f32_plain):
+    """Fails unless a bf16 kernel's results lie 4 times nearer (in root mean
+    square) its plain bf16 version than that version lies to the plain f32
+    one: a kernel that ignored the bf16 flag would sit at the gap, inside
+    the bf16 tolerances. Sums in another order move a value across a bf16
+    rounding boundary now and then, and a crossing spreads along the scan,
+    so the callers pass the first two steps of a walk, where every path of
+    the kernel has run and no crossing has spread yet. -> (rms to the bf16
+    plain version, rms gap of bf16 to f32)."""
+    err, gap = rms_diff(zip(gots, bf16_plain)), rms_diff(zip(bf16_plain, f32_plain))
+    print(f"control {what} {label}: rms to the bf16 plain version {err:.3g}, bf16 plain to f32 "
+          f"plain {gap:.3g} (must exceed 4x the first)")
+    if not err * 4 < gap:
+        fail(f"{what} at {label} is not nearer its bf16 plain version than the f32 one: "
+             f"rms {err:.3g} against a bf16-f32 gap of {gap:.3g}")
+    return err, gap
 
 
 def phase_kernels(torch):
@@ -442,81 +536,117 @@ def phase_kernels(torch):
 
     rows = {}
     print(f"tolerances: outputs and residuals atol = rtol = {TOL} (f32 sums in another "
-          f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order)")
+          f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order); "
+          f"bf16 outputs and residuals {BF16_TOL}, gradients {BF16_GRAD_TOL}; bf16-residual "
+          f"gradients {RES_GRAD_TOL}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, s, train, diagonals in lstm_kernel_shapes():
+    plain = cuda_scan.lstm_scan_fused_xin_plain
+    res_plain, bwd_plain = cuda_scan.lstm_scan_xin_fwd_res_plain, cuda_scan.lstm_scan_xin_bwd_plain
+    for name, s, train, diagonals, policy in lstm_kernel_shapes():
+        precision, residuals, save = policy
+        bf16 = precision == "bf16"
+        variant = cuda_scan.variant(*policy)
         size = (s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
         label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx'] or 'dense'} "
-                 f"r={s['r'] or 'dense'}{'' if diagonals else ', no diagonals'}")
-        plan = cuda_scan.scan_plan(s["b"], s["h"], s["r"], sms)
+                 f"r={s['r'] or 'dense'}{'' if diagonals else ', no diagonals'}"
+                 f"{'' if variant == 'f32' else f', variant {variant}'}")
+        plan = cuda_scan.scan_plan(s["b"], s["h"], s["r"], sms, 2 if bf16 else 4)
         print(f"plan {label}: {plan.groups} batch groups x {plan.ctas} CTAs = {plan.n_ctas} "
               f"CTAs of {sms} SMs, {plan.rpad} padded rows a group, shared memory "
-              f"{plan.smem_fwd} B forward, {plan.smem_bwd} B BPTT")
+              f"{plan.smem_fwd} B forward, {plan.smem_bwd} B BPTT ({plan.elsize}-byte weights)")
         args = scan_inputs(torch, **s, diagonals=diagonals)
         lstm, lib_err = cudnn_lstm(torch, args)
-        xs, h0, c0 = args[0], args[8], args[9]
         print(f"library: cuDNN LSTM on the dense weights, {label}: max abs err {lib_err:.3g} "
               f"against the plain scan")
+        lib, lib_name = ((cudnn_lstm_bf16(torch, lstm), "cuDNN, bf16, other rounding") if bf16
+                         else (lstm, "cuDNN"))
+        xs, h0, c0 = (a.to(torch.bfloat16 if bf16 else torch.float32)
+                      for a in (args[0], args[8], args[9]))
+        mm = cuda_scan.scan_mm_ops(*size) if bf16 else 0
+        fwd_tol = BF16_TOL if bf16 else TOL
+        res_tol = BF16_TOL if bf16 or residuals == "bf16" else TOL
+        grad_tol = BF16_GRAD_TOL if bf16 else RES_GRAD_TOL if residuals == "bf16" else GRAD_TOL
 
-        # -- the no-grad forward
-        ys, c_last = cuda_scan.lstm_scan_fused_xin(*args)
-        torch.cuda.synchronize()
-        ok, err = all_close(torch, (ys, c_last), cuda_scan.lstm_scan_fused_xin_plain(*args), TOL)
-        if not ok:
-            fail(f"lstm_scan_xin_fwd disagrees with its plain version at {label}: {err}")
-        if not diagonals and not s["rx"] and not s["r"]:
-            # dense on both sides with no diagonal: exactly cuDNN's LSTM
-            with torch.no_grad():
-                out, (_, c_n) = lstm(xs, (h0[None], c0[None]))
-            ok_l, err_l = all_close(torch, (out, c_n[0]), (ys, c_last), GRAD_TOL)
-            print(f"library: cuDNN LSTM against the kernel, {label}: max abs err {err_l:.3g}")
-            if not ok_l:
-                fail(f"cuDNN's LSTM disagrees with the dense kernel at {label}: {err_l}")
+        # -- the no-grad forward, whose variants are its precisions
+        if residuals == "f32" and save:
+            ys, c_last = cuda_scan.lstm_scan_fused_xin(*args, precision)
+            torch.cuda.synchronize()
+            want = plain(*args, precision)
+            ok, err = all_close(torch, (ys, c_last), want, fwd_tol)
+            if not ok:
+                fail(f"lstm_scan_xin_fwd disagrees with its plain version at {label}: {err}")
+            if bf16:
+                bf16_control("lstm_scan_xin_fwd ys[:2]", label, [ys[:2]], [want[0][:2]],
+                             [plain(*args, "f32")[0][:2]])
+            elif not diagonals and not s["rx"] and not s["r"]:
+                # dense on both sides with no diagonal: exactly cuDNN's LSTM
+                with torch.no_grad():
+                    out, (_, c_n) = lstm(xs, (h0[None], c0[None]))
+                ok_l, err_l = all_close(torch, (out, c_n[0]), (ys, c_last), GRAD_TOL)
+                print(f"library: cuDNN LSTM against the kernel, {label}: max abs err {err_l:.3g}")
+                if not ok_l:
+                    fail(f"cuDNN's LSTM disagrees with the dense kernel at {label}: {err_l}")
 
-        def lib_fwd():
-            with torch.no_grad():
-                lstm(xs, (h0[None], c0[None]))
+            def lib_fwd():
+                with torch.no_grad():
+                    lib(xs, (h0[None], c0[None]))
 
-        rows[("lstm_scan_xin_fwd", name, s["b"])] = kernel_row(
-            "lstm_scan_xin_fwd", label, err, TOL,
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args), 10),
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_plain(*args), 5),
-            cuda_scan.scan_cost(*size), cuda_ms(torch, lib_fwd, 10))
+            rows[("lstm_scan_xin_fwd", name, s["b"])] = kernel_row(
+                "lstm_scan_xin_fwd", label, err, fwd_tol,
+                cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args, precision), 10),
+                cuda_ms(torch, lambda: plain(*args, precision), 5),
+                (*cuda_scan.scan_cost(*size), mm), cuda_ms(torch, lib_fwd, 10), lib_name)
         if not train:
             continue
 
         # -- the residual forward and the BPTT, with dys given and dc_last
         # absent, as on the LM's training path
-        res = cuda_scan.lstm_scan_fused_xin_res(*args)
+        res = cuda_scan.lstm_scan_fused_xin_res(*args, *policy)
         torch.cuda.synchronize()
-        res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args)
-        ok, err = all_close(torch, [a for a in res if a is not None],
-                            [a for a in res_p if a is not None], TOL)
+        res_p = res_plain(*args, *policy)
+        if any((a is None) != (p is None) or (a is not None and a.dtype != p.dtype)
+               for a, p in zip(res, res_p)):
+            fail(f"lstm_scan_xin_fwd_res stores other residuals than its plain version at {label}")
+        ok, err = all_close(torch, [a.float() for a in res if a is not None],
+                            [a.float() for a in res_p if a is not None], res_tol)
         if not ok:
             fail(f"lstm_scan_xin_fwd_res disagrees with its plain version at {label}: {err}")
-        dys = 0.1 * torch.randn(ys.shape, generator=torch.Generator().manual_seed(5)).cuda()
-        saved = (*args[:4], *args[5:], *res)
-        grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, None)
+        dys = 0.1 * torch.randn(res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+        bias = None if save else args[4]
+        saved, saved_p = (*args[:4], *args[5:], *res), (*args[:4], *args[5:], *res_p)
+        grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias, precision=precision)
         torch.cuda.synchronize()
-        grads_p = cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None)
+        grads_p = bwd_plain(*saved_p, dys, None, bias=bias, precision=precision)
         ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
-                                [a for a in grads_p if a is not None], GRAD_TOL)
+                                [a for a in grads_p if a is not None], grad_tol)
         if not ok_g:
             fail(f"lstm_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
+        if bf16:
+            res_f = res_plain(*args, "f32", residuals, save)
+            bf16_control("lstm_scan_xin_fwd_res ys, cs [:2]", label, [a[:2] for a in res[:2]],
+                         [a[:2] for a in res_p[:2]], [a[:2] for a in res_f[:2]])
+            # both plain BPTTs from the kernel's residuals: the backward's rounding alone
+            dxs = [bwd_plain(*saved, dys, None, bias=bias, precision=p)[0][-2:]
+                   for p in ("bf16", "f32")]
+            bf16_control("lstm_scan_xin_bwd dxs[-2:]", label, [grads[0][-2:]], [dxs[0]], [dxs[1]])
 
-        x, h, c = (t.detach().requires_grad_() for t in (xs, h0, c0))
+        x, hh, cc = (a.detach().requires_grad_() for a in (xs, h0, c0))
         lib_fwd_ms, lib_bwd_ms = library_train_ms(
-            torch, lambda: lstm(x, (h[None], c[None])), dys, 10)
+            torch, lambda: lib(x, (hh[None], cc[None])), dys.to(xs.dtype), 10)
         rows[("lstm_scan_xin_fwd_res", name, s["b"])] = kernel_row(
-            "lstm_scan_xin_fwd_res", label, err, TOL,
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args), 10),
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_fwd_res_plain(*args), 5),
-            cuda_scan.scan_res_cost(*size), lib_fwd_ms)
+            "lstm_scan_xin_fwd_res", label, err, res_tol,
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args, *policy), 10),
+            cuda_ms(torch, lambda: res_plain(*args, *policy), 5),
+            (*cuda_scan.scan_res_cost(*size, residuals=residuals, save_gates=save), mm),
+            lib_fwd_ms, lib_name)
         rows[("lstm_scan_xin_bwd", name, s["b"])] = kernel_row(
-            "lstm_scan_xin_bwd", label, err_g, GRAD_TOL,
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None), 10),
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, None), 3),
-            cuda_scan.scan_bwd_cost(*size), lib_bwd_ms)
+            "lstm_scan_xin_bwd", label, err_g, grad_tol,
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias,
+                                                               precision=precision), 10),
+            cuda_ms(torch, lambda: bwd_plain(*saved_p, dys, None, bias=bias,
+                                             precision=precision), 3),
+            (*cuda_scan.scan_bwd_cost(*size, residuals=residuals, save_gates=save),
+             (2 if save else 3) * mm), lib_bwd_ms, lib_name)
     return rows
 
 
@@ -903,16 +1033,17 @@ def har_data():
     return synthetic_har("opp", n_train=30 * HAR["b"], n_test=500, seed=0)
 
 
-def har_path(torch, name, data):
+def har_path(torch, name, data, form=None, grad_tol=GRAD_TOL):
     """One HAR path at full width: `HARTrainer.fit` for two epochs, one more
     step and `evaluate`, each with its exact launch counts; a falling loss; the fused
     logits of an `evaluate` batch and one step's gradients of every
-    parameter against the loop backend's; accuracy, macro-F1, step ms.
-    -> (the path's form, its launch counts, its results)."""
+    parameter against the loop backend's (within ``grad_tol``); accuracy,
+    macro-F1, step ms. ``form`` names the kernel form in the report (by
+    default the path's). -> (the form, its launch counts, its results)."""
     from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
 
     x_tr, y_tr, x_te, y_te = data
-    form = HAR_PATHS[name][1]
+    form = form or HAR_PATHS[name][1]
     b = HAR["b"]
     model = har_model(name)
     layers = len(model.rnn.cells)
@@ -960,8 +1091,8 @@ def har_path(torch, name, data):
     yb = torch.as_tensor(y_tr[:b], device="cuda")
     rel, dead = grads_fused_vs_loop(torch, lambda be: har_model(name, be), xb, yb)
     print(f"{name}: fused vs loop gradients of one step, largest max|diff| / max|loop grad| "
-          f"{rel:.3g} (tol {GRAD_TOL})")
-    if dead or not rel <= GRAD_TOL:
+          f"{rel:.3g} (tol {grad_tol})")
+    if dead or not rel <= grad_tol:
         fail(f"the {name} fused gradients disagree with the loop backend's: {rel}, all-zero or "
              f"missing tensors {dead}")
 
@@ -1578,6 +1709,336 @@ def wavefront_reverse(torch):
         fail(f"the wavefront BDNet's logits disagree with the fused backend's: {err}")
 
 
+# -- phase 14: the JAX package's kernel variants of the LSTM scan ------------
+
+VARIANT_ENV = ("VMLMF_PALLAS_PRECISION", "VMLMF_PALLAS_RESIDUALS", "VMLMF_PALLAS_SAVED_GATES",
+               "VMLMF_PALLAS_XIN")
+
+
+class switches:
+    """Sets the JAX package's kernel switches in the environment for a block
+    and restores them after it."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in VARIANT_ENV}
+        for k in VARIANT_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def gi_check(torch, rows, sms):
+    """The gi-mode entries against their plain versions at the LM layer, B=20,
+    from the layer's own input contribution; cuDNN's f32 LSTM from x as the
+    library (it computes the same layer)."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    t, b, h, r = LM["prompt"], MAIN_BATCH, LM["hidden"], LM["rank"]
+    s = dict(t=t, b=b, f=h, h=h, rx=r, r=r)
+    args = scan_inputs(torch, **s)
+    lstm, _ = cudnn_lstm(torch, args)
+    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+    gargs = (gi, *args[5:])
+    label = f"lm_gi T={t} B={b} h={h} r={r}, gi mode"
+    plan = cuda_scan.scan_plan(b, h, r, sms)
+    print(f"plan {label}: {plan.groups} batch groups x {plan.ctas} CTAs, shared memory "
+          f"{plan.smem_fwd} B forward, {plan.smem_bwd} B BPTT")
+    ys, c_last = cuda_scan.lstm_scan_fused(*gargs)
+    res = cuda_scan.lstm_scan_fused_res(*gargs)
+    dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+    grads = cuda_scan.lstm_scan_bwd(*args[5:], *res, dys, None)
+    torch.cuda.synchronize()
+    res_p = cuda_scan.lstm_recurrence_plain(*gargs)
+    checks = [("lstm_scan_fwd", (ys, c_last), cuda_scan.lstm_scan_fused_plain(*gargs), TOL),
+              ("lstm_scan_fwd_res", res, res_p, TOL),
+              ("lstm_scan_bwd", grads, cuda_scan.lstm_scan_bwd_plain(*args[5:], *res_p, dys, None),
+               GRAD_TOL)]
+    errs = {}
+    for entry, got, want, tol in checks:
+        ok, errs[entry] = all_close(torch, [a for a in got if a is not None],
+                                    [a for a in want if a is not None], tol)
+        if not ok:
+            fail(f"{entry} disagrees with its plain version at {label}: {errs[entry]}")
+    xs, h0, c0 = args[0], args[8], args[9]
+    x, hh, cc = (a.detach().requires_grad_() for a in (xs, h0, c0))
+    lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: lstm(x, (hh[None], cc[None])), dys,
+                                              10)
+
+    def lib_fwd():
+        with torch.no_grad():
+            lstm(xs, (h0[None], c0[None]))
+
+    size = (t, b, h, 0, h, r)
+    for entry, fn, plain, cost, tol, lib_ms in (
+            ("lstm_scan_fwd", lambda: cuda_scan.lstm_scan_fused(*gargs),
+             lambda: cuda_scan.lstm_scan_fused_plain(*gargs),
+             cuda_scan.scan_cost(*size, gi=True), TOL, cuda_ms(torch, lib_fwd, 10)),
+            ("lstm_scan_fwd_res", lambda: cuda_scan.lstm_scan_fused_res(*gargs),
+             lambda: cuda_scan.lstm_recurrence_plain(*gargs),
+             cuda_scan.scan_res_cost(*size, gi=True), TOL, lib_fwd_ms),
+            ("lstm_scan_bwd", lambda: cuda_scan.lstm_scan_bwd(*args[5:], *res, dys, None),
+             lambda: cuda_scan.lstm_scan_bwd_plain(*args[5:], *res, dys, None),
+             cuda_scan.scan_bwd_cost(*size, gi=True), GRAD_TOL, lib_bwd_ms)):
+        rows[(entry, "lm_gi", b)] = kernel_row(entry, label, errs[entry], tol,
+                                               cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 3),
+                                               cost, lib_ms)
+
+
+def mixed_lm(backend="fused", dropout=0.5, head_bf16=True):
+    """The PTB LM of scripts/bench_lm_b128_precision.py's "bf16+head" (its
+    products in bf16 come from VMLMF_PALLAS_PRECISION, set by the caller)."""
+    from vmlmf_tpu_torch.cells import VMLMFCell
+    from vmlmf_tpu_torch.nn.models import LMModel
+
+    return LMModel(vocab_size=LM["vocab"], hidden_size=LM["hidden"], num_layers=LM["layers"],
+                   cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=LM["rank"],
+                                                       u_rank=LM["rank"]),
+                   dropout_rate=dropout, winit=0.05, backend=backend, head_bf16=head_bf16)
+
+
+def only_variant(variant):
+    """Fails unless every kernel launch since the last reset was of
+    ``variant`` -> the launch counts."""
+    counts = launch_counts()
+    bad = {name: dict(fn.variants) for name, (fn, _) in entries().items()
+           if hasattr(fn, "variants") and set(fn.variants) - {variant}}
+    if bad:
+        fail(f"launches of another variant than {variant}: {bad}")
+    return counts
+
+
+def lm_train_run(torch, trainer, chunks, steps, want_step, label):
+    """`steps` train steps over ``chunks`` (cycled) with the launch counts of
+    each step held to ``want_step`` -> (losses per word, params)."""
+    params, states = trainer.init(), trainer.state0()
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    losses = []
+    for i in range(steps):
+        x, y = chunks[i % len(chunks)]
+        before = launch_counts()
+        params, states, loss, _ = trainer.train_step(params, states, x, y, 1.0, generator)
+        delta = count_delta(before)
+        if delta != want_step:
+            fail(f"{label}: train step {i} must launch {nonzero(want_step)}, got {nonzero(delta)}")
+        losses.append(float(loss) / trainer.batch_size)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"{label}: {steps} steps, loss per word {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"first 5 {first:.4f}, last 5 {last:.4f})")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not last < first:
+        fail(f"{label}: the training loss did not fall: {losses}")
+    return losses, params
+
+
+def phase_mixed_lm(torch):
+    """The PTB LM in the JAX package's mixed precision, served and trained
+    -> [(form, launch counts)] and its numbers beside f32 "fused"."""
+    from vmlmf_tpu_torch.serve import Decoder
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    layers, b = LM["layers"], MAIN_BATCH
+    form = "lstm:bf16"
+    with switches(VMLMF_PALLAS_PRECISION="bf16"):
+        model = mixed_lm()
+        params = model.init(torch.Generator().manual_seed(0), device="cuda")
+        dec = Decoder(model)
+        prompt = prompt_ids(torch, b)
+        reset_launch_counts()
+        logits, states = dec.prefill(params, prompt, model.state0(b))
+        prefill_counts = launch_counts()
+        greedy, _ = dec.decode(params, logits, states, steps=64)
+        torch.cuda.synchronize()
+        serve_launches = only_variant("bf16")
+        if prefill_counts != eval_counts(form, layers) or serve_launches != prefill_counts:
+            fail(f"a mixed-precision prefill must launch the bf16 no-grad kernel once per layer "
+                 f"and decode nothing: {prefill_counts}, {serve_launches}")
+        lo, hi = int(greedy.min()), int(greedy.max())
+        if tuple(greedy.shape) != (64, b) or not 0 <= lo <= hi < LM["vocab"] or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"mixed-precision greedy tokens: shape {tuple(greedy.shape)}, [{lo}, {hi}]")
+        print(f"mixed lm: prefill launches {nonzero(prefill_counts)}, greedy[:8, 0] "
+              f"{greedy[:8, 0].tolist()}")
+
+        runs = [(form, serve_launches)]
+        for bb in TRAIN_BATCHES:
+            trn, vld = lm_chunks(bb)
+            trainer = LMTrainer(mixed_lm(), batch_size=bb, seq_length=LM["prompt"],
+                                learning_rate=1.0, max_grad_norm=5.0)
+            reset_launch_counts()
+            _, tparams = lm_train_run(torch, trainer, trn, TRAIN_CHUNKS,
+                                      train_counts(form, layers), f"mixed lm train B={bb}")
+            before = launch_counts()
+            ppl = trainer.perplexity(tparams, vld[:4])
+            if count_delta(before) != eval_counts(form, len(vld[:4]) * layers):
+                fail(f"mixed lm perplexity must launch only the bf16 no-grad kernel: "
+                     f"{count_delta(before)}")
+            runs.append((form, only_variant("bf16")))
+            print(f"mixed lm B={bb}: valid perplexity on {len(vld[:4])} chunks {ppl:.2f}")
+
+        # the first step's gradients against the f32 "fused" step's (dropout 0)
+        trn, _ = lm_chunks(b)
+        g_mixed = step_grads(torch, mixed_lm(dropout=0.0), params, trn[0], seed=3)
+    with switches():
+        g_f32 = step_grads(torch, mixed_lm(dropout=0.0, head_bf16=False), params, trn[0], seed=3)
+    rel = [float((a - c).abs().max() / c.abs().max()) for a, c in zip(g_mixed, g_f32)]
+    print(f"mixed lm: first-step gradients against the f32 fused step's, largest max|diff| / "
+          f"max|f32 grad| over {len(rel)} tensors {max(rel):.3g} (tol {BF16_GRAD_TOL})")
+    if not max(rel) <= BF16_GRAD_TOL:
+        fail(f"the mixed-precision gradients part from the f32 ones: {rel}")
+
+    # -- speed, beside f32 "fused" in the same run
+    perf = {}
+    for label, env, head in (("mixed", dict(VMLMF_PALLAS_PRECISION="bf16"), True),
+                             ("f32", {}, False)):
+        with switches(**env):
+            m = mixed_lm(head_bf16=head)
+            d = Decoder(m)
+            for bb in LM_BATCHES:
+                ids, s0 = prompt_ids(torch, bb), m.state0(bb)
+                pre_ms = cuda_ms(torch, lambda: d.prefill(params, ids, s0), 5)
+                lg, st = d.prefill(params, ids, s0)
+                d.decode(params, lg, st, steps=4)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d.decode(params, lg, st, steps=64)
+                torch.cuda.synchronize()
+                perf[f"{label}_b{bb}"] = dict(prefill_ms=pre_ms,
+                                              decode_tokens_per_s=64 * bb / (time.perf_counter()
+                                                                             - t0))
+            for bb in TRAIN_BATCHES:
+                chunks, _ = lm_chunks(bb)
+                tr = LMTrainer(mixed_lm(head_bf16=head), batch_size=bb, seq_length=LM["prompt"])
+                ms = train_step_ms(torch, tr, tr.init(), chunks, 5,
+                                   torch.Generator(device="cuda").manual_seed(1))
+                perf[f"{label}_train_b{bb}"] = dict(step_ms=ms,
+                                                    words_per_s=bb * LM["prompt"] / ms * 1e3)
+    for k, v in perf.items():
+        print(f"mixed lm {k}: {v}")
+    return runs, perf
+
+
+def phase_mixed_har(torch):
+    """The HAR flagship under the recompute policy and under bf16 residuals,
+    beside f32 in the same run -> [(form, launch counts)] and step ms."""
+    data = har_data()
+    runs, out = [], {}
+    for label, env, variant, tol in (
+            ("recompute", dict(VMLMF_PALLAS_SAVED_GATES="0"), "recompute", GRAD_TOL),
+            ("bf16_res", dict(VMLMF_PALLAS_RESIDUALS="bf16"), "bf16_res", RES_GRAD_TOL),
+            ("f32", {}, "f32", GRAD_TOL)):
+        with switches(**env):
+            form, launches, out[label] = har_path(torch, "vmlmf", data, f"lstm:{label}", tol)
+            res, bwd = entries()["lstm_scan_xin_fwd_res"][0], entries()["lstm_scan_xin_bwd"][0]
+            if set(res.variants) != {variant} or set(bwd.variants) != {variant}:
+                fail(f"har {label}: training launched other variants: {dict(res.variants)}, "
+                     f"{dict(bwd.variants)}")
+        if label != "f32":
+            runs.append((form, launches))
+    print(json.dumps({"har_variants": {k: dict(step_ms=v["step_ms"], accuracy=v["accuracy"])
+                                       for k, v in out.items()}}))
+    return runs
+
+
+def phase_mixed_gi(torch):
+    """The LM trained in gi mode (VMLMF_PALLAS_XIN=0) for a few steps: the gi
+    entries' exact launch counts, its gradients held to x mode's."""
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    layers, b, form, steps = LM["layers"], MAIN_BATCH, "lstm_gi:lowrank", 10
+    trn, vld = lm_chunks(b)
+    with switches(VMLMF_PALLAS_XIN="0"):
+        trainer = LMTrainer(lm_model("fused", dropout_rate=0.5), batch_size=b,
+                            seq_length=LM["prompt"], learning_rate=1.0, max_grad_norm=5.0)
+        reset_launch_counts()
+        _, params = lm_train_run(torch, trainer, trn, steps, train_counts(form, layers),
+                                 "gi lm train")
+        before = launch_counts()
+        trainer.perplexity(params, vld[:4])
+        if count_delta(before) != eval_counts(form, len(vld[:4]) * layers):
+            fail(f"gi lm perplexity must launch only the gi no-grad kernel: {count_delta(before)}")
+        launches = launch_counts()
+        g_gi = step_grads(torch, lm_model("fused"), params, trn[0], seed=3)
+    with switches():
+        g_x = step_grads(torch, lm_model("fused"), params, trn[0], seed=3)
+    rel = [float((a - c).abs().max() / c.abs().max()) for a, c in zip(g_gi, g_x)]
+    print(f"gi lm: gradients against x mode's, largest max|diff| / max|grad| {max(rel):.3g} "
+          f"(tol {GRAD_TOL})")
+    if not max(rel) <= GRAD_TOL:
+        fail(f"gi-mode gradients disagree with x mode's: {rel}")
+    return [(form, launches)]
+
+
+def peak_step_mib(torch, step):
+    """The device memory one step() holds at its peak beyond what was
+    allocated before it, in MiB, after a warm step."""
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def residual_memory(torch):
+    """The peak memory of a HAR flagship train step (B=81) and of an LM train
+    step (B=128) under each residual policy: what bf16 residuals and
+    recompute are for."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    x, y, _, _ = synthetic_har("opp", n_train=HAR["b"], n_test=1, seed=2)
+    trn, _ = lm_chunks(TRAIN_BATCHES[-1])
+    out = {}
+    for label, env in (("f32", {}), ("bf16_res", dict(VMLMF_PALLAS_RESIDUALS="bf16")),
+                       ("recompute", dict(VMLMF_PALLAS_SAVED_GATES="0"))):
+        with switches(**env):
+            har = HARTrainer(har_model("vmlmf"), batch_size=HAR["b"])
+            har_params, opt = har.init()
+            lm = LMTrainer(lm_model("fused", dropout_rate=0.5), batch_size=TRAIN_BATCHES[-1],
+                           seq_length=LM["prompt"])
+            params, states = lm.init(), lm.state0()
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            out[label] = {
+                f"har_b{HAR['b']}": peak_step_mib(torch, lambda: har.train_step(har_params, opt,
+                                                                                x, y)),
+                f"lm_b{TRAIN_BATCHES[-1]}": peak_step_mib(
+                    torch, lambda: lm.train_step(params, states, *trn[1], 1.0, gen))}
+    print(json.dumps({"peak_step_mib": out}))
+
+
+def phase_mixed(torch):
+    """The kernel variants: checks of each new entry and form, then the
+    mixed-precision LM, the HAR variants and gi mode at full width, and a
+    trace of a mixed-precision LM train step. -> (rows, runs)."""
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    rows = {}
+    gi_check(torch, rows, torch.cuda.get_device_properties(0).multi_processor_count)
+    runs, perf = phase_mixed_lm(torch)
+    runs += phase_mixed_har(torch)
+    runs += phase_mixed_gi(torch)
+    residual_memory(torch)
+    trn, _ = lm_chunks(MAIN_BATCH)
+    with switches(VMLMF_PALLAS_PRECISION="bf16"):
+        trainer = LMTrainer(mixed_lm(), batch_size=MAIN_BATCH, seq_length=LM["prompt"])
+        params, states = trainer.init(), trainer.state0()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        trace = trace_step(torch, f"mixed-precision LM train step at B={MAIN_BATCH}",
+                           lambda: trainer.train_step(params, states, *trn[1], 1.0, gen))
+    print(json.dumps({"mixed": dict(perf, trace=trace)}))
+    return rows, runs
+
+
 def trace_step(torch, label, step):
     """One profiled call of step(), after a warm one: device time by kernel,
     the port's against cuBLAS's -> dict(wall_ms, busy_ms, groups)."""
@@ -1604,7 +2065,7 @@ def trace_step(torch, label, step):
         # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
         # grid_scan_kernel and grid_bptt_kernel; "vmlmf::" the tiled GEMMs
         if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
-                                   "stack_step_kernel", "stack_bptt_kernel")):
+                                   "stack_step_kernel", "stack_bptt_kernel", "widen_kernel")):
             return "port"
         if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
             return "cublas"
@@ -1666,6 +2127,8 @@ def kernel_report(rows, runs):
     for family, forms in FORMS.items():
         for form, (shape, b_nograd, b_train) in forms.items():
             for name in FAMILIES[family]:
+                if name.endswith("_fwd") and b_nograd is None:
+                    continue  # a residual policy: the no-grad entry has no such variant
                 module = entries()[name][1]
                 launches = sum(c[name] for f, c in runs if f == f"{family}:{form}")
                 if launches == 0:
@@ -1710,6 +2173,9 @@ def main():
     stack_rows, stack_runs = phase_wavefront(torch)
     rows.update(stack_rows)
     runs += stack_runs
+    mixed_rows, mixed_runs = phase_mixed(torch)
+    rows.update(mixed_rows)
+    runs += mixed_runs
     phase_trace(torch)
 
     kernels = kernel_report(rows, runs)

@@ -94,8 +94,7 @@ def test_lm_config_builds_the_jax_model(case):
 
 
 def test_configs_refuse_what_they_cannot_build():
-    with pytest.raises(NotImplementedError, match="head_bf16"):
-        config.LMConfig(head_bf16=True).build_model(10)
+    assert config.LMConfig(head_bf16=True).build_model(10).head_bf16  # a bf16 head, not a refusal
     with pytest.raises(ValueError, match="unsupported lstm_type"):
         config.LMConfig(lstm_type="gru").cell_factory()
     with pytest.raises(ValueError, match="per-tier recurrent ranks"):

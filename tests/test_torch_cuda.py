@@ -270,7 +270,7 @@ def test_grid_kernels_are_deterministic(cuda, shape):
 def test_grid_too_large_to_be_co_resident_raises(cuda, monkeypatch):
     # 5 groups of 60 CTAs: more CTAs than the card can hold at once
     monkeypatch.setattr(cuda_scan, "_plan_for",
-                        lambda b, h, r, device: cuda_scan.plan_layout(b, h, r, 5, 60))
+                        lambda b, h, r, device, bf16=False: cuda_scan.plan_layout(b, h, r, 5, 60))
     args = make_inputs(3, 5, 16, 650, 5, 300, cuda)
     for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res):
         with pytest.raises(RuntimeError, match="launch failed"):
@@ -723,3 +723,215 @@ def test_wavefront_reverse_runs_the_per_layer_kernels(cuda, monkeypatch):
     assert (cuda_scan.lstm_scan_fused_xin.launches - before[0],
             cuda_stack.lstm_stack_scan_fused.launches - before[1]) == (4, 0)
     torch.testing.assert_close(ys, ys_f, atol=0.0, rtol=0.0)
+
+
+# -- the scan's variants: bf16 products, bf16 residuals, recompute, gi mode ----
+
+# bf16 products sum bf16-rounded operands in f32: the kernel and its plain
+# version round the same values, but sums in another order can move a value
+# across a bf16 rounding boundary (tests/test_pallas.py:97, :114)
+BF16_TOL = dict(atol=5e-3, rtol=5e-3)
+BF16_GRAD_TOL = dict(atol=5e-2, rtol=5e-2)
+RES_GRAD_TOL = dict(atol=2e-2, rtol=2e-2)  # bf16 gates and hu (tests/test_pallas.py:209-213)
+
+# (T, B, F, h, rx, r): each form, the HAR and the PTB LM layer, ragged B, h
+# and r, T = 1 and 2
+VARIANT_CASES = {
+    "f_eq_h": (5, 3, 16, 16, 4, 4), "har": (24, 81, 77, 180, 8, 6),
+    "dense_rec_f_gt_h": (7, 9, 70, 33, 5, 0), "dense_x_f_lt_h": (5, 3, 13, 20, 0, 7),
+    "dense_har": (24, 81, 77, 180, 0, 0), "lm_b20": (35, 20, 650, 650, 300, 300),
+    "dense_lm": (35, 20, 650, 650, 0, 0), "b257_r1": (3, 257, 16, 650, 5, 1),
+    "t1": (1, 5, 70, 33, 5, 40), "t2_dense_rec": (2, 3, 16, 650, 8, 0),
+}
+# (precision, residuals, save_gates)
+VARIANTS = {"bf16": ("bf16", "f32", True), "bf16_res": ("f32", "bf16", True),
+            "recompute": ("f32", "f32", False), "bf16+bf16_res": ("bf16", "bf16", True),
+            "bf16+recompute": ("bf16", "f32", False)}
+
+
+def variant_tols(precision, residuals):
+    if precision == "bf16":
+        return BF16_TOL, BF16_TOL, BF16_GRAD_TOL
+    if residuals == "bf16":
+        return TOL, BF16_TOL, RES_GRAD_TOL
+    return TOL, TOL, GRAD_TOL
+
+
+def rms_diff(pairs):
+    pairs = list(pairs)
+    sq = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in pairs)
+    return (sq / sum(a.numel() for a, _ in pairs)) ** 0.5
+
+
+def assert_bf16_not_f32(name, gots, bf16_plain, f32_plain):
+    """A bf16 kernel's results lie 4 times nearer (in root mean square) its
+    plain bf16 version than that version lies to the plain f32 one; a
+    kernel that ignored the bf16 flag would sit at the gap, inside the bf16
+    tolerances. Sums in another order move a value across a bf16 rounding
+    boundary now and then, and a crossing spreads along the scan, so the
+    control reads the first two steps of a walk: every path of the kernel
+    has run there, and no crossing has spread yet."""
+    err, gap = rms_diff(zip(gots, bf16_plain)), rms_diff(zip(bf16_plain, f32_plain))
+    assert err * 4 < gap, f"{name}: rms {err:.3g} to bf16 plain, bf16-f32 gap {gap:.3g}"
+
+
+def assert_pairs_close(names, gots, wants, tol):
+    for name, got, want in zip(names, gots, wants):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            assert got.dtype == want.dtype, name
+            torch.testing.assert_close(got.float(), want.float(), msg=name, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("case", list(VARIANT_CASES))
+def test_variant_kernels_match_plain(cuda, case, variant):
+    precision, residuals, save = VARIANTS[variant]
+    t, b, f, h, rx, r = VARIANT_CASES[case]
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    # cotangents scaled so that the gradients are O(1), where the absolute
+    # part of the bf16 tolerance means what it says
+    rng = np.random.default_rng(1)
+    dys = torch.from_numpy(0.1 * rng.standard_normal((t, b, h)).astype(np.float32)).to(cuda)
+    dc_last = torch.from_numpy(0.1 * rng.standard_normal((b, h)).astype(np.float32)).to(cuda)
+    fns = (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+           cuda_scan.lstm_scan_xin_bwd)
+    names = (precision, variant, variant)
+    before = [fn.variants[n] for fn, n in zip(fns, names)]
+    bias = None if save else args[4]
+    fwd = cuda_scan.lstm_scan_fused_xin(*args, precision)
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, precision, residuals, save)
+    grads = cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, dc_last, bias=bias,
+                                        precision=precision)
+    torch.cuda.synchronize()
+    assert [fn.variants[n] - c for fn, n, c in zip(fns, names, before)] == [1, 1, 1]
+    fwd_tol, res_tol, grad_tol = variant_tols(precision, residuals)
+    assert_pairs_close(("ys", "c_last"), fwd,
+                       cuda_scan.lstm_scan_fused_xin_plain(*args, precision), fwd_tol)
+    res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args, precision, residuals, save)
+    assert_pairs_close(("ys", "cs", "gates", "hu", "xu"), res, res_p, res_tol)
+    grads_p = cuda_scan.lstm_scan_xin_bwd_plain(*args[:4], *args[5:], *res_p, dys, dc_last,
+                                                bias=bias, precision=precision)
+    assert_pairs_close(cuda_scan._ARG_NAMES, grads, grads_p, grad_tol)
+    if precision == "bf16":
+        # the BPTTs from the kernel's own residuals: the backward's rounding alone
+        f32 = cuda_scan.lstm_scan_xin_fwd_res_plain(*args, "f32", residuals, save)
+        assert_bf16_not_f32("ys[:2]", [fwd[0][:2]], [res_p[0][:2]], [f32[0][:2]])
+        assert_bf16_not_f32("ys, cs [:2]", [a[:2] for a in res[:2]], [a[:2] for a in res_p[:2]],
+                            [a[:2] for a in f32[:2]])
+        dxs = [cuda_scan.lstm_scan_xin_bwd_plain(*args[:4], *args[5:], *res, dys, dc_last,
+                                                 bias=bias, precision=p)[0][-2:]
+               for p in ("bf16", "f32")]
+        assert_bf16_not_f32("dxs[-2:]", [grads[0][-2:]], *[[d] for d in dxs])
+
+
+# (T, B, h, r), r = 0 a dense recurrent side
+GI_CASES = {"f_eq_h": (5, 3, 16, 4), "lm_b20": (35, 20, 650, 300), "dense_lm": (35, 20, 650, 0),
+            "b257_r1": (3, 257, 650, 1), "t1": (1, 5, 33, 40), "t2_dense": (2, 3, 650, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,residuals", [("f32", "f32"), ("bf16", "f32"),
+                                                 ("f32", "bf16"), ("bf16", "bf16")])
+@pytest.mark.parametrize("case", list(GI_CASES))
+def test_gi_mode_kernels_match_plain(cuda, case, precision, residuals):
+    t, b, h, r = GI_CASES[case]
+    rng = np.random.default_rng(2)
+
+    def n(*shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+
+    args = (n(t, b, 4 * h, scale=1.0), n(h, r or 4 * h, scale=h ** -0.5),
+            n(r, 4 * h, scale=r ** -0.5) if r else None, n(4 * h, scale=0.1), n(b, h, scale=0.5),
+            n(b, h, scale=0.5))
+    dys, dc_last = n(t, b, h, scale=1.0), n(b, h, scale=1.0)
+    fns = (cuda_scan.lstm_scan_fused, cuda_scan.lstm_scan_fused_res, cuda_scan.lstm_scan_bwd)
+    before = [fn.launches for fn in fns]
+    fwd = cuda_scan.lstm_scan_fused(*args, precision)
+    res = cuda_scan.lstm_scan_fused_res(*args, precision, residuals)
+    grads = cuda_scan.lstm_scan_bwd(*args[1:], *res, dys, dc_last, precision)
+    torch.cuda.synchronize()
+    assert [fn.launches - c for fn, c in zip(fns, before)] == [1, 1, 1]
+    fwd_tol, res_tol, grad_tol = variant_tols(precision, residuals)
+    assert_pairs_close(("ys", "c_last"), fwd, cuda_scan.lstm_scan_fused_plain(*args, precision),
+                       fwd_tol)
+    res_p = cuda_scan.lstm_recurrence_plain(*args, precision, residuals)
+    assert_pairs_close(("ys", "cs", "gates", "hu"), res, res_p, res_tol)
+    grads_p = cuda_scan.lstm_scan_bwd_plain(*args[1:], *res_p, dys, dc_last, precision)
+    assert_pairs_close(("dgi", "du", "dv", "ddvec", "dh0", "dc0"), grads, grads_p, grad_tol)
+    if precision == "bf16":
+        f32 = cuda_scan.lstm_recurrence_plain(*args, "f32", residuals)
+        assert_bf16_not_f32("ys[:2]", [fwd[0][:2]], [res_p[0][:2]], [f32[0][:2]])
+        assert_bf16_not_f32("ys, cs [:2]", [a[:2] for a in res[:2]], [a[:2] for a in res_p[:2]],
+                            [a[:2] for a in f32[:2]])
+        if t > 1:  # at T = 1 no product feeds dgi
+            dgi = [cuda_scan.lstm_scan_bwd_plain(*args[1:], *res, dys, dc_last, p)[0][-2:]
+                   for p in ("bf16", "f32")]
+            assert_bf16_not_f32("dgi[-2:]", [grads[0][-2:]], *[[d] for d in dgi])
+
+
+@pytest.mark.cuda
+def test_variant_kernels_are_deterministic_and_refuse_what_they_do_not_take(cuda):
+    args = make_inputs(24, 81, 77, 180, 8, 6, cuda)
+    runs = [cuda_scan.lstm_scan_fused_xin_res(*args, "bf16", "bf16") for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    res = runs[0]
+    with pytest.raises(TypeError, match="bfloat16"):  # hu must match the gates' type
+        cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res[:3], res[3].float(), res[4],
+                                    None, None)
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, save_gates=False)
+    with pytest.raises(ValueError, match="recompute"):  # recompute needs the bias
+        cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, None, None)
+    with pytest.raises(ValueError, match="precision"):
+        cuda_scan.lstm_scan_fused_xin(*args, "fp16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switches,entries", [
+    ({"VMLMF_PALLAS_PRECISION": "bf16"}, ("lstm_scan_fused_xin_res", "lstm_scan_xin_bwd")),
+    ({"VMLMF_PALLAS_XIN": "0"}, ("lstm_scan_fused_res", "lstm_scan_bwd")),
+    ({"VMLMF_PALLAS_SAVED_GATES": "0", "VMLMF_PALLAS_RESIDUALS": "bf16"},
+     ("lstm_scan_fused_xin_res", "lstm_scan_xin_bwd"))], ids=["bf16", "gi", "recompute"])
+def test_train_step_routes_each_switch_to_its_kernels(cuda, monkeypatch, switches, entries):
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    for k, v in switches.items():
+        monkeypatch.setenv(k, v)
+    kw = dict(vocab_size=64, hidden_size=40, num_layers=2, dropout_rate=0.0, winit=0.3,
+              cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=7, u_rank=9))
+    model = LMModel(head_bf16=True, **kw)
+    trainer = LMTrainer(model, batch_size=5, seq_length=9, device=cuda)
+    ids = torch.randint(0, 64, (9, 5), generator=torch.Generator().manual_seed(1)).to(cuda)
+    fns = [getattr(cuda_scan, e) for e in entries]
+    before = [fn.launches for fn in fns]
+    variant = cuda_scan.variant(switches.get("VMLMF_PALLAS_PRECISION", "f32"),
+                                switches.get("VMLMF_PALLAS_RESIDUALS", "f32"),
+                                switches.get("VMLMF_PALLAS_SAVED_GATES") != "0")
+    named = [fn.variants[variant] for fn in fns]
+    _, _, loss, gnorm = trainer.train_step(trainer.init(), trainer.state0(), ids, ids, 1.0)
+    torch.cuda.synchronize()
+    assert [fn.launches - c for fn, c in zip(fns, before)] == [2, 2]
+    assert [fn.variants[variant] - c for fn, c in zip(fns, named)] == [2, 2]
+    assert bool(torch.isfinite(loss)) and float(gnorm) > 0
+
+
+@pytest.mark.cuda
+def test_bf16_head_product_matches_its_cpu_function(cuda):
+    from vmlmf_tpu_torch.nn.layers import Bf16Product
+
+    rng = np.random.default_rng(3)
+    x, w, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((35, 20, 650), (650, 1000), (35, 20, 1000)))
+    outs = []
+    for dev in ("cpu", cuda):
+        xt, wt = (a.to(dev).requires_grad_() for a in (x, w))
+        y = Bf16Product.apply(xt, wt)
+        outs.append([y.detach().cpu(), *(d.cpu() for d in torch.autograd.grad(y, (xt, wt),
+                                                                                g.to(dev)))])
+    # the product sums exact bf16 products in f32; its gradients are rounded
+    # to bf16, where a sum in another order can flip the last bit
+    torch.testing.assert_close(outs[1][0], outs[0][0], **BF16_TOL)
+    for got, want in zip(outs[1][1:], outs[0][1:]):
+        torch.testing.assert_close(got, want, **BF16_GRAD_TOL)

@@ -70,9 +70,9 @@ def bwd_spy(monkeypatch):
     calls = []
     plain = cuda_scan.lstm_scan_xin_bwd_plain
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append((args[-2] is not None, args[-1] is not None))
-        return plain(*args)
+        return plain(*args, **kw)
 
     monkeypatch.setattr(cuda_scan, "lstm_scan_xin_bwd_plain", spy)
     return calls

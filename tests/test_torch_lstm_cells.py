@@ -103,8 +103,9 @@ def test_fused_scan_layer_gradients_match_jax(name, cls, args, kw, t, b, monkeyp
     g_params, g_x, (g_h, g_c) = jax.grad(jloss, argnums=(0, 1, 2))(
         jparams, jnp.asarray(xs), (jnp.asarray(h0), jnp.asarray(c0)))
     calls = []
+    plain = cuda_scan.lstm_scan_xin_bwd_plain
     monkeypatch.setattr(cuda_scan, "lstm_scan_xin_bwd_plain",
-                        lambda *a, f=cuda_scan.lstm_scan_xin_bwd_plain: calls.append(1) or f(*a))
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
     leaves = {k: v.requires_grad_() for k, v in params.items()}
     x, h0t, c0t = (torch.from_numpy(a).requires_grad_() for a in (xs, h0, c0))
     ys, (h, c) = scan_layer(cell, cell.prepare(leaves), x, (h0t, c0t))

@@ -30,6 +30,8 @@ SMS = 132  # an H100 SXM
 EMU_TOL = dict(atol=1e-6, rtol=1e-6)  # float64: only the order of sums differs
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)  # f32 against the JAX kernel (tests/test_pallas.py)
 GRAD_TOL = dict(atol=3e-4, rtol=3e-4)
+# f32 sums of bf16-rounded operands in another order: the same roundings
+BF16_EMU_TOL = dict(atol=1e-5, rtol=1e-5)
 
 # (B, h, r) at ragged edges: r = 0 is a dense U [h, 4h]
 RAGGED = [(b, h, r) for b in (1, 3, 5, 257) for h in (7, 650) for r in (1, 300, 0)]
@@ -53,11 +55,13 @@ CONFIGS = {
 }
 
 
-def check_plan(b, h, r, sms=SMS):
+def check_plan(b, h, r, sms=SMS, elsize=4):
     """Every row in one group; in each group, every gate column and rank
     column on exactly one CTA; shared memory within a block's 227 KB; the
-    grid within the SMs at one CTA each."""
-    plan = cuda_scan.scan_plan(b, h, r, sms)
+    grid within the SMs at one CTA each. ``elsize`` 2: the bf16 kernels'
+    plan, whose weight slices take two bytes an element."""
+    plan = cuda_scan.scan_plan(b, h, r, sms, elsize)
+    assert plan.elsize == elsize
     assert plan.n_ctas <= sms
     assert plan.smem_bytes <= cuda_scan.SMEM_LIMIT == 227 * 1024
     assert plan.rpad % 4 == 0
@@ -79,7 +83,7 @@ def check_plan(b, h, r, sms=SMS):
 
 
 def chip_smoke_shapes():
-    return sorted({(s["b"], s["h"], s["r"]) for _, s, _, _ in chip_smoke.lstm_kernel_shapes()})
+    return sorted({(s["b"], s["h"], s["r"]) for _, s, *_ in chip_smoke.lstm_kernel_shapes()})
 
 
 @pytest.mark.parametrize("shape", sorted(set(chip_smoke_shapes() + RAGGED)), ids=str)
@@ -97,8 +101,41 @@ def test_plan_groups_the_batch_where_the_weights_fit_many_times():
         cuda_scan.scan_plan(20, 1600, 0)   # a dense U of 41 MB
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_plan_fits_every_shape_the_config_builders_make(name, monkeypatch):
+@pytest.mark.parametrize("shape", sorted(set(chip_smoke_shapes() + RAGGED)), ids=str)
+def test_bf16_plan_covers_every_column_once_and_fits_the_card(shape):
+    plan, f32 = check_plan(*shape, elsize=2), cuda_scan.scan_plan(*shape)
+    # half the bytes a weight slice: at least as many copies of the weights
+    assert plan.groups >= f32.groups
+
+
+def test_bf16_plan_fits_wider_layers():
+    """The widest dense h and the widest low-rank h (r = h/2) that a plan
+    fits on 132 SMs, at B in 1, 20 and 128: about 1.2-1.9 times the f32
+    kernels' (dense h about 1,050)."""
+    def widest(b, lowrank, elsize):
+        lo, hi = 8, 8192
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            try:
+                cuda_scan.scan_plan(b, mid, mid // 2 if lowrank else 0, SMS, elsize)
+                lo = mid
+            except ValueError:
+                hi = mid
+        return lo
+
+    got = {(b, lowrank): (widest(b, lowrank, 4), widest(b, lowrank, 2))
+           for b in (1, 20, 128) for lowrank in (False, True)}
+    print("widest h (f32, bf16) by (B, low-rank):", got)
+    assert got == {(1, False): (1056, 1584), (1, True): (1262, 2064),
+                   (20, False): (1056, 1584), (20, True): (1068, 1958),
+                   (128, False): (1015, 1278), (128, True): (1057, 1466)}
+    for (b, lowrank), (f32, bf16) in got.items():
+        check_plan(b, bf16, bf16 // 2 if lowrank else 0, elsize=2)
+        assert bf16 > 1.2 * f32
+
+
+def config_shapes(name, monkeypatch):
+    """The (h, r) of every scan that a config builder's model runs."""
     kind, fields = CONFIGS[name]
     seen = set()
     plain = recurrence.lstm_scan_fused_xin
@@ -120,16 +157,33 @@ def test_plan_fits_every_shape_the_config_builders_make(name, monkeypatch):
             params = model.init(gen, device="cpu")
             model.apply(params, torch.zeros(2, 1, dtype=torch.long), model.state0(1, "cpu"))
     assert seen
+    return kind, seen
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_plan_fits_every_shape_the_config_builders_make(name, monkeypatch):
+    kind, seen = config_shapes(name, monkeypatch)
     for h, r in seen:
         for b in HAR_BATCHES if kind == "har" else LM_BATCHES:
             check_plan(b, h, r)
 
 
-def emulate_recurrence(plan, gi, u, v, dvec, h0, c0):
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_bf16_plan_fits_every_shape_the_config_builders_make(name, monkeypatch):
+    kind, seen = config_shapes(name, monkeypatch)
+    for h, r in seen:
+        for b in HAR_BATCHES if kind == "har" else LM_BATCHES:
+            check_plan(b, h, r, elsize=2)
+
+
+def emulate_recurrence(plan, gi, u, v, dvec, h0, c0, bf16=False):
     """The forward kernel's phases in torch ops, group by group and CTA by
     CTA: (A) each CTA's rank columns of hu = h @ U, assembled; (B) each
     CTA's hidden units: the gate columns of gi + hu @ V (dense: h @ U) + h *
-    dvec, the gates and the update. -> as `lstm_recurrence_plain`."""
+    dvec, the gates and the update. -> as `lstm_recurrence_plain`. With
+    ``bf16`` each CTA's slices and the exchanged h and hu are rounded to
+    bf16 (f32 inputs)."""
+    rb = rounder(bf16)
     t, b, g4 = gi.shape
     h = g4 // 4
     dvec = dvec.reshape(-1)
@@ -143,14 +197,14 @@ def emulate_recurrence(plan, gi, u, v, dvec, h0, c0):
                 hu = gi.new_empty(b1 - b0, u.shape[1])
                 for q in range(plan.ctas):
                     k0, k1 = plan.k_range(q)
-                    hu[:, k0:k1] = h_t @ u[:, k0:k1]
+                    hu[:, k0:k1] = rb(h_t) @ rb(u[:, k0:k1])
                 hus[s, b0:b1] = hu
-            src, w = (h_t, u) if v is None else (hu, v)
+            src, w = (rb(h_t), u) if v is None else (rb(hu), v)
             h_n, c_n = torch.empty_like(h_t), torch.empty_like(c_t)
             for q in range(plan.ctas):
                 j0, j1 = plan.j_range(q)
                 cols = torch.cat([torch.arange(g * h + j0, g * h + j1) for g in range(4)])
-                pre = (gi[s, b0:b1][:, cols] + src @ w[:, cols]
+                pre = (gi[s, b0:b1][:, cols] + src @ rb(w[:, cols])
                        + h_t[:, j0:j1].repeat(1, 4) * dvec[cols])
                 i, f, g, o = pre.chunk(4, dim=1)
                 i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
@@ -162,12 +216,19 @@ def emulate_recurrence(plan, gi, u, v, dvec, h0, c0):
     return ys, cs, gates, hus
 
 
-def emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last):
+def rounder(bf16):
+    return (lambda a: a.bfloat16().float()) if bf16 else (lambda a: a)
+
+
+def emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, bf16=False):
     """The BPTT kernel's walk in torch ops, group by group and CTA by CTA:
     (A) each CTA's hidden units of dpre, from its (dh, dc) carry; (B) each
     CTA's rank columns of dhu = dpre @ V^T; (C) each CTA's hidden units of
     dh = sum_g dpre_g dvec_g + dhu @ U^T (dense: dpre @ U^T); then the
-    weight gradients over all rows. -> as `lstm_bptt_plain`."""
+    weight gradients over all rows. -> as `lstm_bptt_plain`. With ``bf16``
+    the exchanged dpre and dhu, the slices and the GEMM operands are
+    rounded to bf16 (f32 inputs)."""
+    rb = rounder(bf16)
     t, b, h = ys.shape
     dvec = dvec.reshape(-1)
     dpre = ys.new_empty(t, b, 4 * h)
@@ -197,18 +258,19 @@ def emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last):
                 dhu = d_t.new_empty(b1 - b0, v.shape[0])
                 for q in range(plan.ctas):
                     k0, k1 = plan.k_range(q)
-                    dhu[:, k0:k1] = d_t @ v[k0:k1].T
-            src = d_t if v is None else dhu
+                    dhu[:, k0:k1] = rb(d_t) @ rb(v[k0:k1]).T
+            src = rb(d_t if v is None else dhu)
             for q in range(plan.ctas):
                 j0, j1 = plan.j_range(q)
-                dh[:, j0:j1] = dh_part[:, j0:j1] + src @ u[j0:j1].T
+                dh[:, j0:j1] = dh_part[:, j0:j1] + src @ rb(u[j0:j1]).T
         dh0[b0:b1], dc0[b0:b1] = dh, dc
     hprev = torch.cat([h0[None], ys[:-1]]).reshape(t * b, h)
     d2 = dpre.reshape(t * b, 4 * h)
     if v is None:
-        du, dv = hprev.T @ d2, None
+        du, dv = rb(hprev).T @ rb(d2), None
     else:
-        du, dv = hprev.T @ (d2 @ v.T), hu.reshape(t * b, -1).T @ d2
+        du = rb(hprev).T @ rb(rb(d2) @ rb(v).T)
+        dv = rb(hu.reshape(t * b, -1)).T @ rb(d2)
     ddvec = (d2 * hprev.repeat(1, 4)).sum(0)
     return dpre, du, dv, ddvec, dh0, dc0
 
@@ -309,6 +371,28 @@ def test_emulated_phases_match_the_jax_kernel_and_its_vjp(case):
         if want is not None:
             np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(got.shape),
                                        err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_emulated_phases_at_bf16_rounding_match_the_plain_bf16_walks(case):
+    # the kernels round the exchanged h, hu, dpre and dhu where they write
+    # them, and hold bf16 slices: the same roundings as the plain versions'
+    plan, _, a, gi, dys, dc_last = emulated(case, torch.float32)
+    u, v, dvec, h0, c0 = a[5:]
+    got = emulate_recurrence(plan, gi, u, v, dvec, h0, c0, bf16=True)
+    want = cuda_scan.lstm_recurrence_plain(gi, u, v, dvec, h0, c0, "bf16")
+    for name, g, w in zip(("ys", "cs", "gates", "hu"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            torch.testing.assert_close(g, w, msg=name, **BF16_EMU_TOL)
+    ys, cs, gates, hu = want
+    got = emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, bf16=True)
+    want = cuda_scan.lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, None, dc_last,
+                                     "bf16")
+    for name, g, w in zip(("dpre", "du", "dv", "ddvec", "dh0", "dc0"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            torch.testing.assert_close(g, w, msg=name, **BF16_EMU_TOL)
 
 
 def test_bwd_partial_floats_covers_each_split_k_product():

@@ -114,7 +114,7 @@ class LMConfig:
     u_ranks: tuple = (300,)
     groups: int = 2
     tie_embeddings: bool = False
-    head_bf16: bool = False        # bf16 head matmul: not ported yet, build_model raises
+    head_bf16: bool = False        # bf16 softmax-projection matmul (f32 accum)
     # training
     batch_size: int = 20
     seq_length: int = 35
@@ -142,9 +142,7 @@ class LMConfig:
         raise ValueError(f"unsupported lstm_type {self.lstm_type!r}")
 
     def build_model(self, vocab_size):
-        if self.head_bf16:
-            raise NotImplementedError("head_bf16 (a bf16 head matmul) is not ported yet")
         return LMModel(vocab_size, self.hidden_size, self.layer_num,
                        cell_factory=self.cell_factory(), dropout_rate=self.dropout,
                        winit=self.winit, tie_embeddings=self.tie_embeddings,
-                       backend=self.backend)
+                       backend=self.backend, head_bf16=self.head_bf16)

@@ -10,6 +10,8 @@
 // ys. The tile loads pick the thread-to-element map that keeps neighbouring
 // threads on neighbouring addresses for either layout. The masked views read
 // a layer input of the wavefront stack, y times its dropout mask, in place.
+// `bf16_if<true>` wraps a view so that it rounds each element to bf16 as it
+// loads it: the operands of the bf16 variants' products, which sum in f32.
 //
 // Each CTA computes one 64x64 output tile with 256 threads, 4x4 outputs per
 // thread, staging 16-deep slices of A and B in shared memory. Every edge is
@@ -25,9 +27,16 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace vmlmf {
+
+// v rounded to the nearest bf16 (ties to even) and widened back to f32, as
+// jnp's astype(bfloat16) and torch's .bfloat16() round.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int kTile = 64;        // output tile, rows and columns
 constexpr int kDepth = 16;       // k-slice staged in shared memory
@@ -53,6 +62,20 @@ struct Transposed {
   static constexpr bool kContigJ = false;
   __device__ __forceinline__ float operator()(int i, int j) const {
     return p[(size_t)j * ld + i];
+  }
+};
+
+// The "previous rows" matrix P [M, ld], whose row m is first[m] for m <
+// nfirst and rest[m - nfirst] after: with first = h0 [B, h] and rest = ys
+// [T, B, h] it is h_prev over all T*B rows, read in place. Contiguous along j.
+struct PrevRows {
+  const float* first;
+  const float* rest;
+  int nfirst;
+  int ld;
+  static constexpr bool kContigJ = true;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return i < nfirst ? first[(size_t)i * ld + j] : rest[(size_t)(i - nfirst) * ld + j];
   }
 };
 
@@ -96,6 +119,24 @@ struct MaskedRowsT {
     return mask != nullptr ? y[e] * mask[e] : y[e];
   }
 };
+
+// A view whose elements are those of V rounded to bf16.
+template <class V>
+struct Bf16Rounded {
+  V v;
+  static constexpr bool kContigJ = V::kContigJ;
+  __device__ __forceinline__ float operator()(int i, int j) const { return round_bf16(v(i, j)); }
+};
+
+// The view V, rounded to bf16 on load when On.
+template <bool On, class V>
+inline auto bf16_if(V v) {
+  if constexpr (On) {
+    return Bf16Rounded<V>{v};
+  } else {
+    return v;
+  }
+}
 
 // Epilogue that stores the sum: c[i * ldc + j] = v.
 struct Store {

@@ -1,13 +1,16 @@
-// Backward of the fused LSTM scan (x mode, f32, saved gates), for sm_90a.
+// Backward of the fused LSTM scan, x mode and gi mode, for sm_90a.
 //
-// Replaces vmlmf_tpu/ops/pallas_scan.py::_bwd_kernel in the variant that
-// lstm_scan_fused_xin's VJP runs in x mode, f32, with the saved-gates
-// residual policy, each side low-rank or dense as in the forward
-// (lstm_scan_xin_fwd.cu: a null V is a dense U [h,4h], "DenseRec"; a null
-// Vx a dense Ux [F,4h], "DenseX"). From the residuals of the forward (entry
-// lstm_scan_xin_fwd_res) and the cotangents dys [T,B,h] and dc_last [B,h],
-// each of which may be absent (zeros), it computes, walking t = T-1 .. 0
-// with the carry (dh, dc), dc = dc_last at the start:
+// Replaces vmlmf_tpu/ops/pallas_scan.py::_bwd_kernel in every variant that
+// lstm_scan_fused_xin's VJP (x mode) and lstm_scan_fused's (gi mode) run,
+// each side low-rank or dense as in the forward (lstm_scan_xin_fwd.cu: a
+// null V is a dense U [h,4h], "DenseRec"; a null Vx a dense Ux [F,4h],
+// "DenseX"): products f32 or bf16; the saved gates and hu as f32 or bf16
+// residuals, widened to f32 first; or, in x mode, the recompute policy,
+// which rebuilds them first. From the residuals of the forward (entries
+// lstm_scan_xin_fwd_res and lstm_scan_fwd_res) and the cotangents dys
+// [T,B,h] and dc_last [B,h], each of which may be absent (zeros), it
+// computes, walking t = T-1 .. 0 with the carry (dh, dc), dc = dc_last at
+// the start:
 //
 //   dh    += dys[t];  tc = tanh(cs[t]);  (i, f, g, o) = gates[t]
 //   dc    += dh * o * (1 - tc^2)
@@ -26,7 +29,23 @@
 //   dbias = sum_m dPre
 //
 // over all M = T*B rows, where Hprev row (t, b) is h0[b] at t = 0 and
-// ys[t-1, b] after. Layouts as in the forward; all row-major, contiguous.
+// ys[t-1, b] after. In gi mode dgi = dPre and there is no x side. Layouts
+// as in the forward; all row-major, contiguous.
+//
+// bf16 (pallas_scan.py:583-680): each product rounds its operands to bf16
+// and sums in f32, as the TPU kernel casts them: dpre and dhu in the walk
+// (rounded by the CTA that writes them to the exchange, the weight slices
+// bf16 in shared memory), Hprev, HU, dPre, dHU, X, XU, dXU and the factors
+// in the GEMMs after it (rounding operand views). dpre and dhu are kept f32
+// in device memory; the dvec term of dh, ddvec, dxdvec, dbias and the
+// xdvec term of dx read the f32 dpre.
+//
+// Recompute (save_gates=False, x mode; pallas_scan.py:543-576): before the
+// walk, batched GEMMs over all M rows rebuild xu = X @ Ux, gi (its
+// epilogue adds the x term and bias), hu = Hprev @ U and, in the epilogue
+// of pre = gi + hu @ V (dense: Hprev @ U) + Hprev * dvec, the gates, in
+// place; the walk then reads them as saved gates. None of it is on the
+// serial chain, and the walk's shared memory does not grow.
 //
 // What bounds it on an H100, and what the design does about it:
 // * The TPU kernel runs its grid in order and sums dU, dV, ... in scratch
@@ -66,7 +85,10 @@
 // * Every edge is masked: B, T*B, F, h, r, rx need not be tile or slice
 //   multiples, and fit() covers F = h, F < h and F > h.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "gemm_tile.cuh"
 #include "lstm_steps.cuh"
@@ -74,6 +96,7 @@
 
 namespace {
 
+using vmlmf::bf16;
 using vmlmf::cdiv;
 using vmlmf::div_up;
 using vmlmf::GridPlan;
@@ -82,22 +105,27 @@ using vmlmf::split_at;
 
 // Phase A's inputs per unit and row: the four gates, cs[t], c_prev, dys[t]
 constexpr int kInputs = 7;
+// The residual policy as the wrappers number it (ops/cuda_scan.py): saved
+// f32 gates and hu, saved bf16 ones, or none (recompute).
+constexpr int kPolicyF32 = 0, kPolicyBf16 = 1, kPolicyNone = 2;
 
 // Floats of this kernel's shared memory, in the order of the carve below:
-// the weight slices, dvec of the j-slice, the (dh, dc) carry, stage, red,
-// and phase A's inputs of the step.
+// the weight slices (of type W), dvec of the j-slice, the (dh, dc) carry,
+// stage, red, and phase A's inputs of the step.
+template <class W>
 __host__ __device__ inline size_t bwd_smem_floats(bool dense_rec, int h, int r,
                                                   const GridPlan& p) {
   const int jwm = div_up(h, p.ctas), jwp = round4(jwm);
   const int kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
   const size_t weights = dense_rec ? (size_t)4 * h * jwp : (size_t)4 * h * kwp + (size_t)r * jwp;
-  return weights + 4 * jwm + (2 + kInputs) * (size_t)jwm * p.rpad + p.stage + p.red;
+  return vmlmf::weight_floats<W>(weights) + 4 * jwm + (2 + kInputs) * (size_t)jwm * p.rpad +
+         p.stage + p.red;
 }
 
 // The serial reverse walk on plan.groups x plan.ctas co-resident CTAs.
 // xchg: the dpre exchange [2][groups][4h][rpad] (step parity), then,
 // low-rank, the dhu exchange [groups][r][rpad]. sync: a barrier word per group.
-template <bool DenseRec>
+template <bool DenseRec, bool Bf16>
 __global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
 grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ c0, const float* __restrict__ dys,
@@ -106,6 +134,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  float* __restrict__ dpre, float* __restrict__ dhu,
                  float* __restrict__ dh0, float* __restrict__ dc0, float* xchg,
                  unsigned* sync, int t_len, int batch, int h, int r, GridPlan plan) {
+  using W = std::conditional_t<Bf16, bf16, float>;  // weight slices
   extern __shared__ __align__(16) float smem[];
   const int g4 = 4 * h, rpad = plan.rpad;
   const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
@@ -118,9 +147,10 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   const int kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
   const int depth = DenseRec ? g4 : r;  // of phase C's product
 
-  float* wb = smem;                        // low-rank: V[k-slice, :]^T  [4h][kwp]
-  float* wc = wb + (size_t)g4 * kwp;       // U[j-slice, :]^T  [depth][jwp]
-  float* dv = wc + (size_t)depth * jwp;    // dvec of the j-slice [jwm][4]
+  W* wb = reinterpret_cast<W*>(smem);      // low-rank: V[k-slice, :]^T  [4h][kwp]
+  W* wc = wb + (size_t)g4 * kwp;           // U[j-slice, :]^T  [depth][jwp]
+  // dvec of the j-slice [jwm][4]
+  float* dv = smem + vmlmf::weight_floats<W>((size_t)g4 * kwp + (size_t)depth * jwp);
   float* dhc = dv + 4 * jwm;               // the carry dh, dc: [jwm][rpad]
   float* dcc = dhc + (size_t)jwm * rpad;
   float* stage = dcc + (size_t)jwm * rpad;
@@ -138,13 +168,13 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll 4
     for (int e = threadIdx.x; e < kwp * g4; e += blockDim.x) {
       const int kk = e / g4, n = e % g4;
-      wb[(size_t)n * kwp + kk] = kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f;
+      wb[(size_t)n * kwp + kk] = vmlmf::to_elem<W>(kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
     }
   }
 #pragma unroll 4
   for (int e = threadIdx.x; e < jwp * depth; e += blockDim.x) {
     const int jj = e / depth, k = e % depth;
-    wc[(size_t)k * jwp + jj] = jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f;
+    wc[(size_t)k * jwp + jj] = vmlmf::to_elem<W>(jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f);
   }
   for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
     dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
@@ -201,7 +231,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         dpre[m * g4 + k * h + j] = p[k];
-        dpx_t[(size_t)(k * h + j) * rpad + row] = p[k];
+        dpx_t[(size_t)(k * h + j) * rpad + row] = vmlmf::exchanged<Bf16>(p[k]);
         dhp = fmaf(p[k], dv[4 * jj + k], dhp);
       }
       dhc[at] = dhp;
@@ -220,7 +250,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int row = 4 * rb + i;
-            dhux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
+            dhux[(size_t)(k0 + kk) * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
             if (row < rows) dhu[(m0 + row) * r + k0 + kk] = acc[c][i];
           }
         }
@@ -250,18 +280,19 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   }
 }
 
-// Launches grid_bptt_kernel<DenseRec>; returns the launch's error. The plan
-// must hold at least the shared memory this kernel carves.
-template <bool DenseRec>
+// Launches grid_bptt_kernel<DenseRec, Bf16>; returns the launch's error.
+// The plan must hold at least the shared memory this kernel carves.
+template <bool DenseRec, bool Bf16>
 cudaError_t bptt(const float* gates, const float* cs, const float* c0, const float* dys,
                  const float* dc_last, const float* u, const float* v, const float* dvec,
                  float* dpre, float* dhu, float* dh0, float* dc0, float* xchg, unsigned* sync,
                  int t_len, int batch, int h, int r, GridPlan plan, cudaStream_t stream) {
-  if (sizeof(float) * bwd_smem_floats(DenseRec, h, r, plan) > (size_t)plan.smem)
+  using W = std::conditional_t<Bf16, bf16, float>;
+  if (sizeof(float) * bwd_smem_floats<W>(DenseRec, h, r, plan) > (size_t)plan.smem)
     return cudaErrorInvalidValue;
   void* args[] = {&gates, &cs, &c0, &dys, &dc_last, &u, &v, &dvec, &dpre, &dhu, &dh0, &dc0,
                   &xchg, &sync, &t_len, &batch, &h, &r, &plan};
-  return vmlmf::launch_grid(grid_bptt_kernel<DenseRec>, plan, sync, args, stream);
+  return vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16>, plan, sync, args, stream);
 }
 
 // Epilogue of dx = dXU @ Ux^T (or dPre @ Ux^T for a dense x side): adds
@@ -281,88 +312,234 @@ struct DxEpilogue {
   }
 };
 
-}  // namespace
+// The tensors and sizes of one BPTT call. In gi mode x, ux, vx, xdvec,
+// bias, xu, dx and the x side's gradients are null, and dpre is dgi. gates
+// and hu are f32 or bf16 residuals, or null under the recompute policy;
+// gates_w, hu_w and xu_w are f32 scratch for their widened or rebuilt
+// copies (null where unused).
+struct BwdIO {
+  const float* x;
+  const float* ux;
+  const float* vx;
+  const float* xdvec;
+  const float* bias;
+  const float* u;
+  const float* v;
+  const float* dvec;
+  const float* h0;
+  const float* c0;
+  const float* ys;
+  const float* cs;
+  const void* gates;
+  const void* hu;
+  const float* xu;
+  const float* dys;
+  const float* dc_last;
+  float* gates_w;
+  float* hu_w;
+  float* xu_w;
+  float* dpre;
+  float* dhu;
+  float* dxu;
+  float* dx;
+  float* dux;
+  float* dvx;
+  float* dxdvec;
+  float* dbias;
+  float* du;
+  float* dv;
+  float* ddvec;
+  float* dh0;
+  float* dc0;
+  float* xchg;
+  unsigned* sync;
+  float* partial;
+  size_t room;
+  int t_len, batch, f, rx, h, r;
+};
 
-// Launches the serial kernel, the GEMMs and the column sums on `stream`;
-// returns the first error. dys and dc_last may be null (zeros). dpre
-// [T*B, 4h], dhu [T*B, r] and dxu [T*B, rx] are scratch that the caller
-// allocates (dhu null for a dense recurrent side, dxu for a dense x side),
-// as are xchg and sync (scan_plan sizes them) and partial, partial_floats
-// floats for the split-k partial sums (bwd_partial_floats); every other
-// pointer after dpre is an output (dv and dvx null with dhu and dxu). The
-// last six integers are scan_plan's layout.
-extern "C" int lstm_scan_xin_bwd(
-    const float* x, const float* ux, const float* vx, const float* xdvec,
-    const float* u, const float* v, const float* dvec, const float* h0,
-    const float* c0, const float* ys, const float* cs, const float* gates,
-    const float* hu, const float* xu, const float* dys, const float* dc_last,
-    float* dpre, float* dhu, float* dxu, float* dx, float* dux, float* dvx,
-    float* dxdvec, float* dbias, float* du, float* dv, float* ddvec,
-    float* dh0, float* dc0, float* xchg, unsigned* sync, float* partial, int partial_floats,
-    int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad,
-    int stage, int red, int smem, void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int m = t_len * batch;
-  const int g4 = 4 * h;
-  const size_t room = static_cast<size_t>(partial_floats);
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
+// The recompute policy's pre-pass (pallas_scan.py:543-576), batched over
+// all M rows, operands rounded to bf16 when Bf16: xu = X @ Ux into xu_w;
+// gi (the x term and bias in the epilogue) into gates_w; hu = Hprev @ U
+// into hu_w; then pre = gi + hu @ V (dense: Hprev @ U) + Hprev * dvec and
+// its gates, in place in gates_w. Returns the first error.
+template <bool Bf16>
+cudaError_t recompute(const BwdIO& io, cudaStream_t stream) {
+  using vmlmf::bf16_if;
+  using vmlmf::RowMajor;
+  const int m = io.t_len * io.batch, g4 = 4 * io.h;
+  const vmlmf::GiEpilogue gi_epi{io.gates_w, io.x, io.xdvec, io.bias, io.f, io.h};
+  cudaError_t err;
+  if (io.vx == nullptr) {
+    err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.x, io.f}), bf16_if<Bf16>(RowMajor{io.ux, g4}),
+                      gi_epi, m, g4, io.f, stream);
+  } else {
+    err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.x, io.f}), bf16_if<Bf16>(RowMajor{io.ux, io.rx}),
+                      vmlmf::Store{io.xu_w, io.rx}, m, io.rx, io.f, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.xu_w, io.rx}), bf16_if<Bf16>(RowMajor{io.vx, g4}),
+                      gi_epi, m, g4, io.rx, stream);
+  }
+  if (err != cudaSuccess) return err;
+  const vmlmf::PrevRows hprev{io.h0, io.ys, io.batch, io.h};
+  const vmlmf::GatesEpilogue gates_epi{io.gates_w, io.h0, io.ys, io.dvec, io.batch, io.h};
+  if (io.v == nullptr)
+    return vmlmf::gemm(bf16_if<Bf16>(hprev), bf16_if<Bf16>(RowMajor{io.u, g4}), gates_epi, m, g4,
+                       io.h, stream);
+  err = vmlmf::gemm_splitk(bf16_if<Bf16>(hprev), bf16_if<Bf16>(RowMajor{io.u, io.r}),
+                           vmlmf::Store{io.hu_w, io.r}, m, io.r, io.h, io.partial, io.room,
+                           stream);
+  if (err != cudaSuccess) return err;
+  return vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.hu_w, io.r}), bf16_if<Bf16>(RowMajor{io.v, g4}),
+                     gates_epi, m, g4, io.r, stream);
+}
+
+// The whole BPTT: the residuals widened or rebuilt as the policy says, the
+// serial walk, then the GEMMs and the column sums, operands rounded to bf16
+// when Bf16; returns the first error.
+template <bool Bf16>
+cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream) {
+  using vmlmf::bf16_if;
+  using vmlmf::gemm_splitk;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
-  using vmlmf::gemm_splitk;
-  const vmlmf::PrevRowsT hprev_t{h0, ys, batch, h};
-  cudaError_t err;
+  const int m = io.t_len * io.batch, g4 = 4 * io.h, f = io.f, rx = io.rx, r = io.r;
+  const float* gates = static_cast<const float*>(io.gates);
+  const float* hu = static_cast<const float*>(io.hu);
+  const float* xu = io.xu;
+  cudaError_t err = cudaSuccess;
+  if (policy == kPolicyBf16) {  // bf16 residuals, read widened
+    err = vmlmf::widen(io.gates, io.gates_w, (size_t)m * g4, stream);
+    if (err == cudaSuccess && io.v != nullptr)
+      err = vmlmf::widen(io.hu, io.hu_w, (size_t)m * r, stream);
+    gates = io.gates_w;
+    hu = io.hu_w;
+  } else if (policy == kPolicyNone) {
+    if (io.x == nullptr) return cudaErrorInvalidValue;  // recompute is x mode only
+    err = recompute<Bf16>(io, stream);
+    gates = io.gates_w;
+    hu = io.hu_w;
+    xu = io.xu_w;
+  } else if (policy != kPolicyF32) {
+    return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
 
-  if (v == nullptr) {
-    err = bptt<true>(gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, xchg, sync,
-                     t_len, batch, h, r, plan, stream);
+  const vmlmf::PrevRowsT hprev_t{io.h0, io.ys, io.batch, io.h};
+  if (io.v == nullptr) {
+    err = bptt<true, Bf16>(gates, io.cs, io.c0, io.dys, io.dc_last, io.u, io.v, io.dvec, io.dpre,
+                           io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.t_len, io.batch, io.h, r,
+                           plan, stream);
     if (err != cudaSuccess) return err;
     // dU [h, 4h] = Hprev^T dPre
-    err = gemm_splitk(hprev_t, RowMajor{dpre, g4}, Store{du, g4}, h, g4, m, partial, room,
-                      stream);
+    err = gemm_splitk(bf16_if<Bf16>(hprev_t), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
+                      Store{io.du, g4}, io.h, g4, m, io.partial, io.room, stream);
   } else {
-    err = bptt<false>(gates, cs, c0, dys, dc_last, u, v, dvec, dpre, dhu, dh0, dc0, xchg, sync,
-                      t_len, batch, h, r, plan, stream);
+    err = bptt<false, Bf16>(gates, io.cs, io.c0, io.dys, io.dc_last, io.u, io.v, io.dvec, io.dpre,
+                            io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.t_len, io.batch, io.h, r,
+                            plan, stream);
     if (err != cudaSuccess) return err;
     // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-    err = gemm_splitk(Transposed{hu, r}, RowMajor{dpre, g4}, Store{dv, g4}, r, g4, m, partial,
-                      room, stream);
+    err = gemm_splitk(bf16_if<Bf16>(Transposed{hu, r}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
+                      Store{io.dv, g4}, r, g4, m, io.partial, io.room, stream);
     if (err != cudaSuccess) return err;
-    err = gemm_splitk(hprev_t, RowMajor{dhu, r}, Store{du, r}, h, r, m, partial, room, stream);
+    err = gemm_splitk(bf16_if<Bf16>(hprev_t), bf16_if<Bf16>(RowMajor{io.dhu, r}), Store{io.du, r},
+                      io.h, r, m, io.partial, io.room, stream);
   }
   if (err != cudaSuccess) return err;
 
-  const DxEpilogue dx_epi{dx, dpre, xdvec, f, h};
-  if (vx == nullptr) {
-    // dx [M, F] = dPre Ux^T + fit(sum_g dPre_g xdvec_g);  dUx [F, 4h] = X^T dPre
-    err = gemm_splitk(RowMajor{dpre, g4}, Transposed{ux, g4}, dx_epi, m, f, g4, partial, room,
-                      stream);
+  if (io.x != nullptr) {  // x mode: the x side's gradients
+    const DxEpilogue dx_epi{io.dx, io.dpre, io.xdvec, f, io.h};
+    if (io.vx == nullptr) {
+      // dx [M, F] = dPre Ux^T + fit(sum_g dPre_g xdvec_g);  dUx [F, 4h] = X^T dPre
+      err = gemm_splitk(bf16_if<Bf16>(RowMajor{io.dpre, g4}), bf16_if<Bf16>(Transposed{io.ux, g4}),
+                        dx_epi, m, f, g4, io.partial, io.room, stream);
+      if (err != cudaSuccess) return err;
+      err = gemm_splitk(bf16_if<Bf16>(Transposed{io.x, f}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
+                        Store{io.dux, g4}, f, g4, m, io.partial, io.room, stream);
+    } else {
+      // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
+      err = gemm_splitk(bf16_if<Bf16>(RowMajor{io.dpre, g4}), bf16_if<Bf16>(Transposed{io.vx, g4}),
+                        Store{io.dxu, rx}, m, rx, g4, io.partial, io.room, stream);
+      if (err != cudaSuccess) return err;
+      err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.dxu, rx}), bf16_if<Bf16>(Transposed{io.ux, rx}),
+                        dx_epi, m, f, rx, stream);
+      if (err != cudaSuccess) return err;
+      // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
+      err = gemm_splitk(bf16_if<Bf16>(Transposed{io.x, f}), bf16_if<Bf16>(RowMajor{io.dxu, rx}),
+                        Store{io.dux, rx}, f, rx, m, io.partial, io.room, stream);
+      if (err != cudaSuccess) return err;
+      err = gemm_splitk(bf16_if<Bf16>(Transposed{xu, rx}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
+                        Store{io.dvx, g4}, rx, g4, m, io.partial, io.room, stream);
+    }
     if (err != cudaSuccess) return err;
-    err = gemm_splitk(Transposed{x, f}, RowMajor{dpre, g4}, Store{dux, g4}, f, g4, m, partial,
-                      room, stream);
-  } else {
-    // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
-    err = gemm_splitk(RowMajor{dpre, g4}, Transposed{vx, g4}, Store{dxu, rx}, m, rx, g4,
-                      partial, room, stream);
-    if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, dx_epi, m, f, rx, stream);
-    if (err != cudaSuccess) return err;
-    // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-    err = gemm_splitk(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, partial,
-                      room, stream);
-    if (err != cudaSuccess) return err;
-    err = gemm_splitk(Transposed{xu, rx}, RowMajor{dpre, g4}, Store{dvx, g4}, rx, g4, m,
-                      partial, room, stream);
   }
-  if (err != cudaSuccess) return err;
 
+  // ddvec, and in x mode dxdvec and dbias, from the f32 dpre
   vmlmf::colsum_kernel<<<cdiv(g4, vmlmf::kSumCols), vmlmf::kSumCols * vmlmf::kSumLanes, 0,
-                         stream>>>(dpre, h0, ys, RowMajor{x, f}, ddvec, dxdvec, dbias, m, batch,
-                                   f, h);
+                         stream>>>(io.dpre, io.h0, io.ys, RowMajor{io.x, f}, io.ddvec, io.dxdvec,
+                                   io.dbias, m, io.batch, f, io.h);
   return cudaGetLastError();
 }
 
-// The message of an error code that lstm_scan_xin_bwd returned.
+}  // namespace
+
+// x mode: launches the residuals' widening or rebuilding, the serial kernel,
+// the GEMMs and the column sums on `stream`; returns the first error. dys
+// and dc_last may be null (zeros). gates and hu are the residual forward's
+// (f32 for policy 0, bf16 for 1, null for 2, the recompute policy, which
+// also takes bias and no xu). gates_w [T*B, 4h], hu_w [T*B, r] and xu_w
+// [T*B, rx] are f32 scratch for policies 1 and 2 (xu_w for 2 only), null
+// otherwise; dpre [T*B, 4h], dhu [T*B, r] and dxu [T*B, rx] are scratch
+// too (dhu null for a dense recurrent side, dxu for a dense x side), as
+// are xchg and sync (scan_plan sizes them) and partial, partial_floats
+// floats for the split-k partial sums (bwd_partial_floats); every other
+// pointer after dpre is an output (dv and dvx null with dhu and dxu). The
+// six integers after r are scan_plan's layout; bf16_mm 1 rounds every
+// product's operands to bf16.
+extern "C" int lstm_scan_xin_bwd(
+    const float* x, const float* ux, const float* vx, const float* xdvec, const float* bias,
+    const float* u, const float* v, const float* dvec, const float* h0, const float* c0,
+    const float* ys, const float* cs, const void* gates, const void* hu, const float* xu,
+    const float* dys, const float* dc_last, float* gates_w, float* hu_w, float* xu_w,
+    float* dpre, float* dhu, float* dxu, float* dx, float* dux, float* dvx, float* dxdvec,
+    float* dbias, float* du, float* dv, float* ddvec, float* dh0, float* dc0, float* xchg,
+    unsigned* sync, float* partial, int partial_floats, int t_len, int batch, int f, int rx,
+    int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem, int bf16_mm,
+    int policy, void* stream_handle) {
+  const BwdIO io{x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, ys, cs, gates, hu, xu, dys,
+                 dc_last, gates_w, hu_w, xu_w, dpre, dhu, dxu, dx, dux, dvx, dxdvec, dbias, du,
+                 dv, ddvec, dh0, dc0, xchg, sync, partial, static_cast<size_t>(partial_floats),
+                 t_len, batch, f, rx, h, r};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
+}
+
+// gi mode (pallas_scan.py::_scan_core_bwd): the walk, whose dpre is dgi
+// [T*B, 4h], then dU, dV and ddvec; no x side. policy 0 or 1 (f32 or bf16
+// gates and hu; gates_w and hu_w scratch for 1); the rest as in
+// lstm_scan_xin_bwd.
+extern "C" int lstm_scan_bwd(
+    const float* u, const float* v, const float* dvec, const float* h0, const float* c0,
+    const float* ys, const float* cs, const void* gates, const void* hu, const float* dys,
+    const float* dc_last, float* gates_w, float* hu_w, float* dgi, float* dhu, float* du,
+    float* dv, float* ddvec, float* dh0, float* dc0, float* xchg, unsigned* sync,
+    float* partial, int partial_floats, int t_len, int batch, int h, int r, int groups,
+    int ctas, int rpad, int stage, int red, int smem, int bf16_mm, int policy,
+    void* stream_handle) {
+  if (policy == kPolicyNone) return cudaErrorInvalidValue;
+  const BwdIO io{nullptr, nullptr, nullptr, nullptr, nullptr, u, v, dvec, h0, c0, ys, cs, gates,
+                 hu, nullptr, dys, dc_last, gates_w, hu_w, nullptr, dgi, dhu, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, du, dv, ddvec, dh0, dc0, xchg, sync, partial,
+                 static_cast<size_t>(partial_floats), t_len, batch, 1, 0, h, r};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
+}
+
+// The message of an error code that an entry of this file returned.
 extern "C" const char* lstm_scan_xin_bwd_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,32 +1,43 @@
-// Fused LSTM scan, x mode, f32, for sm_90a: the no-grad forward and the
-// residual-writing forward of training.
+// Fused LSTM scan for sm_90a: the no-grad forward and the residual-writing
+// forward of training, in x mode and in gi mode.
 //
-// Replaces vmlmf_tpu/ops/pallas_scan.py::_fwd_kernel in the variants that
-// lstm_scan_fused_xin runs in x mode, f32, each side low-rank or dense: the
-// no-grad primal (residuals=False) and the autodiff forward with the
-// saved-gates policy (residuals=True, save_gates=True). For every batch row
-// b and step t:
+// Replaces vmlmf_tpu/ops/pallas_scan.py::_fwd_kernel in every variant that
+// lstm_scan_fused_xin (x mode) and lstm_scan_fused (gi mode) run, each side
+// low-rank or dense: the no-grad primal (residuals=False) and the autodiff
+// forward (residuals=True) with the saved-gates policy, residuals f32 or
+// bf16, or the recompute policy (save_gates=False, x mode: only ys and cs
+// written); products f32 or bf16 (precision "bf16"). For every batch row b
+// and step t:
 //
-//   gi[t,b]  = x[t,b] @ Ux [@ Vx] + tile4(fit(x[t,b], h)) * xdvec + bias
+//   gi[t,b]  = x[t,b] @ Ux [@ Vx] + tile4(fit(x[t,b], h)) * xdvec + bias   (x mode)
 //   pre      = gi[t,b] + h @ U [@ V] + tile4(h) * dvec        (gates i,f,g,o)
 //   c        = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //   h        = sigmoid(o) * tanh(c);      ys[t,b] = h
 //
 // and c_last = c after the last step. fit() zero-extends or truncates x to
-// h features. Layouts are the unpadded public ones of the JAX function:
-// x [T,B,F], xdvec [4,h], bias [4h], dvec [4h], h0/c0 [B,h]; the x side
-// low-rank Ux [F,rx], Vx [rx,4h] or dense Ux [F,4h] (Vx null, "DenseX");
-// the recurrent side low-rank U [h,r], V [r,4h] or dense U [h,4h] (V null,
-// "DenseRec"); all row-major and contiguous. A null Vx or V picks the dense
-// form of its side.
+// h features. In gi mode gi [T,B,4h] is given. Layouts are the unpadded
+// public ones of the JAX functions: x [T,B,F], xdvec [4,h], bias [4h], dvec
+// [4h], h0/c0 [B,h]; the x side low-rank Ux [F,rx], Vx [rx,4h] or dense Ux
+// [F,4h] (Vx null, "DenseX"); the recurrent side low-rank U [h,r], V
+// [r,4h] or dense U [h,4h] (V null, "DenseRec"); all row-major and
+// contiguous. A null Vx or V picks the dense form of its side.
 //
-// The residual variant also writes, per step, cs[t] = c [T,B,h], the
-// post-nonlinearity gates [T,B,4h] (sigmoid(i), sigmoid(f), tanh(g),
-// sigmoid(o) in four blocks of h) and, low-rank, hu[t] = h_prev @ U
-// [T,B,r]; then c_last is cs[T-1]. A low-rank x side also keeps the first
-// GEMM's xu = x @ Ux [T*B,rx] as a residual: the backward needs it for dVx,
-// and keeping it costs one [T,B,rx] buffer where the TPU kernel recomputed
-// x @ Ux per time block. The dense forms have no hu and no xu.
+// The residual variants also write, per step, cs[t] = c [T,B,h] and, with
+// saved gates, the post-nonlinearity gates [T,B,4h] (sigmoid(i), sigmoid(f),
+// tanh(g), sigmoid(o) in four blocks of h) and, low-rank, hu[t] = h_prev @
+// U [T,B,r] (the f32 product, before any rounding), as f32 or bf16; then
+// c_last is cs[T-1]. A low-rank x side also keeps the first GEMM's xu =
+// x @ Ux [T*B,rx] as a residual: the backward needs it for dVx, and keeping
+// it costs one [T,B,rx] buffer where the TPU kernel recomputed x @ Ux per
+// time block (under recompute it is scratch). The dense forms have no hu
+// and no xu.
+//
+// bf16 (pallas_scan.py:297-317): every product takes bf16-rounded operands
+// and sums in f32: x, Ux, xu and Vx in the projection GEMMs (rounding
+// operand views, gemm_tile.cuh), h, U, hu and V in the scan (bf16 weight
+// slices in shared memory, exchanged h and hu rounded by their writer,
+// scan_grid.cuh). The x term, the h * dvec term (h from the f32 carry), the
+// bias and the gate arithmetic stay f32, as in the TPU kernel.
 //
 // What bounds it on an H100, and what the design does about it:
 // * The input projection is time-parallel. It runs first as tiled GEMM
@@ -41,12 +52,11 @@
 //   dense U [650, 2600], 6.8 MB) are 17-30 times one SM's 227 KB, so here
 //   they are split over the CTAs of a cooperative launch, one per SM, each
 //   holding its slice in shared memory for the whole scan (scan_grid.cuh;
-//   the layout is ops/cuda_scan.py::scan_plan's). The batch is cut into
-//   groups, each with a full copy of the weights over its CTAs, as many
-//   groups as the copies that fit: a group's CTAs exchange only its own
-//   rows, and groups never wait for each other. This replaced one CTA per
-//   4 batch rows that read all of U and V from L2 each step (83-106 us a
-//   step at h=650 whatever B).
+//   the layout is ops/cuda_scan.py::scan_plan's, which halves the slices'
+//   bytes for the bf16 variants). The batch is cut into groups, each with a
+//   full copy of the weights over its CTAs, as many groups as the copies
+//   that fit: a group's CTAs exchange only its own rows, and groups never
+//   wait for each other.
 // * Low-rank step, two phases on CTA q of a group: (A) hu[:, k-slice] =
 //   h @ U[:, k-slice] into the group's hu exchange buffer; group barrier;
 //   (B) pre = gi + hu @ V[:, gate columns of the j-slice] + h * dvec, the
@@ -54,15 +64,15 @@
 //   exchange buffer (double-buffered by step parity); group barrier. Dense
 //   step: one phase, pre = gi + h @ U[:, j-cols] + h * dvec; one barrier.
 //   The carry (h and c of the j-slice) stays in the CTA's shared memory.
-// * What sets a step now is latency, not bytes or operations: the barriers
-//   (a fence, an atomic and a spin on one L2 word per CTA) and each CTA's
-//   read of the group's whole h (or hu) from L2, staged into shared memory
-//   with 16-byte cp.async.cg, double-buffered when it does not fit whole
-//   (at B=128). The exchange is read only through L2 (.cg), never __ldg,
-//   so no CTA sees a value from before the barrier; weights, gi, h0 and c0
-//   never change during the launch. The step's gi of the j-slice is copied
-//   with cp.async at the start of the step, so that its load overlaps
-//   phase A and the barrier.
+// * What sets a step is latency, not bytes or operations: the barriers (a
+//   fence, an atomic and a spin on one L2 word per CTA) and each CTA's read
+//   of the group's whole h (or hu) from L2, staged into shared memory with
+//   16-byte cp.async.cg, double-buffered when it does not fit whole (at
+//   B=128). The exchange is read only through L2 (.cg), never __ldg, so no
+//   CTA sees a value from before the barrier; weights, gi, h0 and c0 never
+//   change during the launch. The step's gi of the j-slice is copied with
+//   cp.async at the start of the step, so that its load overlaps phase A
+//   and the barrier.
 // * Co-residency: every CTA of a group must be resident for its barrier,
 //   so the launch is cooperative, one CTA per SM at most; a grid that
 //   cannot be co-resident is refused and the wrapper raises.
@@ -70,17 +80,23 @@
 //   CTA may own no rank column (r < ctas), and rows past a group's batch
 //   rows are padding that is computed and never written out.
 // * The residual writes are coalesced across the j (or k) of a CTA; they
-//   add (h + 4h + r) floats per row and step of device-memory traffic.
+//   add (h + 4h + r) elements per row and step of device-memory traffic
+//   (the gates and hu at 2 bytes under bf16 residuals, none under
+//   recompute).
 // * Every edge of the projection GEMMs (B, F, h, r, rx not multiples of a
 //   tile) is masked.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "gemm_tile.cuh"
 #include "scan_grid.cuh"
 
 namespace {
 
+using vmlmf::bf16;
 using vmlmf::div_up;
 using vmlmf::GridPlan;
 using vmlmf::round4;
@@ -88,45 +104,59 @@ using vmlmf::split_at;
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-// Epilogue of the projection GEMM that yields gi (the second one, or the only
-// one for a dense x side): adds the x-side elementwise term and the bias to
-// column j = g*h + jj: (jj < f ? x[i, jj] : 0) * xdvec[j] + bias[j].
-struct GiEpilogue {
-  float* gi;
-  const float* x;
-  const float* xdvec;
-  const float* bias;
-  int f, h;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    const int jj = j % h;
-    const float xv = jj < f ? x[(size_t)i * f + jj] : 0.f;
-    gi[(size_t)i * 4 * h + j] = v + xv * xdvec[j] + bias[j];
-  }
+// What a launch stores besides ys: the no-grad primal c_last only; the
+// recompute policy's cs; or cs, the gates and hu, as f32 or bf16.
+constexpr int kNoGrad = 0, kCs = 1, kResF32 = 2, kResBf16 = 3;
+// The residual policy as the wrappers number it (ops/cuda_scan.py).
+constexpr int kPolicyF32 = 0, kPolicyBf16 = 1, kPolicyNone = 2;
+
+// The tensors and sizes of one scan launch, the kernel's arguments in their
+// order. gates and hu are f32 or bf16.
+struct ScanIO {
+  const float* gi;
+  const float* u;
+  const float* v;
+  const float* dvec;
+  const float* h0;
+  const float* c0;
+  float* ys;
+  float* c_last;
+  float* cs;
+  void* gates;
+  void* hu;
+  float* xchg;
+  unsigned* sync;
+  int t_len, batch, h, r;
 };
 
 // Floats of this kernel's shared memory, in the order of the carve below:
-// the weight slices, dvec of the j-slice, the (h, c) carry, stage, red, and
-// the step's gi of the j-slice.
+// the weight slices (of type W), dvec of the j-slice, the (h, c) carry,
+// stage, red, and the step's gi of the j-slice.
+template <class W>
 __host__ __device__ inline size_t fwd_smem_floats(bool dense_rec, int h, int r,
                                                   const GridPlan& p) {
   const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
   const size_t weights = dense_rec ? (size_t)h * 4 * jwm : (size_t)h * kwp + (size_t)r * 4 * jwm;
-  return weights + 4 * jwm + 6 * (size_t)jwm * p.rpad + p.stage + p.red;
+  return vmlmf::weight_floats<W>(weights) + 4 * jwm + 6 * (size_t)jwm * p.rpad + p.stage + p.red;
 }
 
 // The scan over all t_len steps, on plan.groups x plan.ctas co-resident CTAs.
 // xchg: the h exchange [2][groups][h][rpad] (step parity), then, low-rank,
 // the hu exchange [groups][r][rpad]. sync: one barrier word per group.
-template <bool Residuals, bool DenseRec>
+template <int Res, bool DenseRec, bool Bf16>
 __global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
 grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
                  const float* __restrict__ v, const float* __restrict__ dvec,
                  const float* __restrict__ h0, const float* __restrict__ c0,
                  float* __restrict__ ys, float* __restrict__ c_last,
-                 float* __restrict__ cs_out, float* __restrict__ gates_out,
-                 float* __restrict__ hu_out, float* xchg, unsigned* sync, int t_len,
+                 float* __restrict__ cs_out, void* __restrict__ gates_res,
+                 void* __restrict__ hu_res, float* xchg, unsigned* sync, int t_len,
                  int batch, int h, int r, GridPlan plan) {
+  using W = std::conditional_t<Bf16, bf16, float>;        // weight slices
+  using R = std::conditional_t<Res == kResBf16, bf16, float>;  // gates, hu
   extern __shared__ __align__(16) float smem[];
+  R* gates_out = static_cast<R*>(gates_res);
+  R* hu_out = static_cast<R*>(hu_res);
   const int g4 = 4 * h, rpad = plan.rpad;
   const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
   const int b0 = split_at(grp, batch, plan.groups);
@@ -137,9 +167,9 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   const int jwm = div_up(h, plan.ctas), kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
   const int depth = DenseRec ? h : r;  // of the gate phase's product
 
-  float* wa = smem;                        // low-rank: U[:, k-slice]  [h][kwp]
-  float* wb = wa + (size_t)h * kwp;        // V or dense U, gate columns of the j-slice [depth][jwm][4]
-  float* dv = wb + (size_t)depth * 4 * jwm;  // dvec of the j-slice [jwm][4]
+  W* wa = reinterpret_cast<W*>(smem);  // low-rank: U[:, k-slice]  [h][kwp]
+  W* wb = wa + (size_t)h * kwp;        // V or dense U, gate columns of the j-slice [depth][jwm][4]
+  float* dv = smem + vmlmf::weight_floats<W>((size_t)h * kwp + (size_t)depth * 4 * jwm);
   float* hc = dv + 4 * jwm;                // the carry h, c: [jwm][rpad]
   float* cc = hc + (size_t)jwm * rpad;
   float* stage = cc + (size_t)jwm * rpad;
@@ -156,14 +186,14 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
 #pragma unroll 4
     for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
       const int d = e / kwp, kk = e % kwp;
-      wa[e] = kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f;
+      wa[e] = vmlmf::to_elem<W>(kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
     }
   }
   const float* w = DenseRec ? u : v;
 #pragma unroll 4
   for (int e = threadIdx.x; e < depth * 4 * jwm; e += blockDim.x) {
     const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
-    wb[e] = jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f;
+    wb[e] = vmlmf::to_elem<W>(jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f);
   }
   for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
     dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
@@ -175,7 +205,7 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     const size_t at = (size_t)(b0 + row) * h + j0 + jj;
     hc[e] = live ? h0[at] : 0.f;
     cc[e] = live ? c0[at] : 0.f;
-    if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = hc[e];
+    if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = vmlmf::exchanged<Bf16>(hc[e]);
   }
   vmlmf::group_sync(count, plan.ctas, target);
 
@@ -200,8 +230,9 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int row = 4 * rb + i;
-            hux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
-            if (Residuals && row < rows) hu_out[(m0 + row) * r + k0 + kk] = acc[c][i];
+            hux[(size_t)(k0 + kk) * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
+            if (Res >= kResF32 && row < rows)
+              hu_out[(m0 + row) * r + k0 + kk] = vmlmf::to_elem<R>(acc[c][i]);
           }
         }
       });
@@ -240,107 +271,170 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
         const float hn = so * tanhf(cn);
         cc[e] = cn;
         hc[e] = hn;
-        hout[(size_t)j * rpad + row] = hn;
+        hout[(size_t)j * rpad + row] = vmlmf::exchanged<Bf16>(hn);
         ys[m * h + j] = hn;
-        if (Residuals) {
-          cs_out[m * h + j] = cn;
-          float* gw = gates_out + m * g4;
-          gw[j] = si;
-          gw[h + j] = sf;
-          gw[2 * h + j] = tg;
-          gw[3 * h + j] = so;
+        if (Res >= kCs) cs_out[m * h + j] = cn;
+        if (Res >= kResF32) {
+          R* gw = gates_out + m * g4;
+          gw[j] = vmlmf::to_elem<R>(si);
+          gw[h + j] = vmlmf::to_elem<R>(sf);
+          gw[2 * h + j] = vmlmf::to_elem<R>(tg);
+          gw[3 * h + j] = vmlmf::to_elem<R>(so);
         }
       }
     });
     vmlmf::group_sync(count, plan.ctas, target);
   }
 
-  if (!Residuals)
+  if (Res == kNoGrad)
     for (int e = threadIdx.x; e < jw * rows; e += blockDim.x) {
       const int jj = e % jw, row = e / jw;
       c_last[(size_t)(b0 + row) * h + j0 + jj] = cc[jj * rpad + row];
     }
 }
 
-// Launches grid_scan_kernel<Residuals, DenseRec>; returns the launch's error.
-// The plan must hold at least the shared memory this kernel carves.
-template <bool Residuals, bool DenseRec>
-cudaError_t scan(const float* gi, const float* u, const float* v, const float* dvec,
-                 const float* h0, const float* c0, float* ys, float* c_last, float* cs,
-                 float* gates, float* hu, float* xchg, unsigned* sync, int t_len, int batch,
-                 int h, int r, GridPlan plan, cudaStream_t stream) {
-  if (sizeof(float) * fwd_smem_floats(DenseRec, h, r, plan) > (size_t)plan.smem)
+// Launches grid_scan_kernel<Res, DenseRec, Bf16>; returns the launch's
+// error. The plan must hold at least the shared memory this kernel carves.
+template <int Res, bool DenseRec, bool Bf16>
+cudaError_t scan(const ScanIO& io, GridPlan plan, cudaStream_t stream) {
+  using W = std::conditional_t<Bf16, bf16, float>;
+  if (sizeof(float) * fwd_smem_floats<W>(DenseRec, io.h, io.r, plan) > (size_t)plan.smem)
     return cudaErrorInvalidValue;
-  void* args[] = {&gi, &u, &v, &dvec, &h0, &c0, &ys, &c_last, &cs, &gates, &hu, &xchg, &sync,
-                  &t_len, &batch, &h, &r, &plan};
-  return vmlmf::launch_grid(grid_scan_kernel<Residuals, DenseRec>, plan, sync, args, stream);
+  ScanIO a = io;
+  void* args[] = {&a.gi, &a.u, &a.v, &a.dvec, &a.h0, &a.c0, &a.ys, &a.c_last, &a.cs, &a.gates,
+                  &a.hu, &a.xchg, &a.sync, &a.t_len, &a.batch, &a.h, &a.r, &plan};
+  return vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, Bf16>, plan, io.sync, args, stream);
 }
 
-// The projection GEMMs (two, or one for a dense x side), then the scan of
-// the recurrent form; returns the first error.
-template <bool Residuals>
-int launch(const float* x, const float* ux, const float* vx, const float* xdvec,
-           const float* bias, const float* u, const float* v, const float* dvec,
-           const float* h0, const float* c0, float* xu, float* gi, float* ys,
-           float* c_last, float* cs, float* gates, float* hu, float* xchg, unsigned* sync,
-           int t_len, int batch, int f, int rx, int h, int r, GridPlan plan,
-           cudaStream_t stream) {
-  const int m = t_len * batch;
-  const int g4 = 4 * h;
-  const GiEpilogue epi{gi, x, xdvec, bias, f, h};
-  cudaError_t err;
+// The scan in the form and variant of a launch: the recurrent side's form
+// (v null: dense), the precision and what it stores.
+template <int Res>
+cudaError_t scan_variant(const ScanIO& io, bool bf16_mm, GridPlan plan, cudaStream_t stream) {
+  const bool dense_rec = io.v == nullptr;
+  if (bf16_mm)
+    return dense_rec ? scan<Res, true, true>(io, plan, stream)
+                     : scan<Res, false, true>(io, plan, stream);
+  return dense_rec ? scan<Res, true, false>(io, plan, stream)
+                   : scan<Res, false, false>(io, plan, stream);
+}
 
-  if (vx == nullptr) {  // dense x side: gi = x @ Ux + the x term and bias
-    err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, g4}, epi, m, g4, f, stream);
-  } else {
-    err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, rx}, vmlmf::Store{xu, rx},
-                      m, rx, f, stream);
-    if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(vmlmf::RowMajor{xu, rx}, vmlmf::RowMajor{vx, g4}, epi, m, g4, rx, stream);
+cudaError_t scan_any(const ScanIO& io, int res, bool bf16_mm, GridPlan plan,
+                     cudaStream_t stream) {
+  switch (res) {
+    case kNoGrad: return scan_variant<kNoGrad>(io, bf16_mm, plan, stream);
+    case kCs: return scan_variant<kCs>(io, bf16_mm, plan, stream);
+    case kResF32: return scan_variant<kResF32>(io, bf16_mm, plan, stream);
+    case kResBf16: return scan_variant<kResBf16>(io, bf16_mm, plan, stream);
+    default: return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
+}
 
-  if (v == nullptr)
-    return scan<Residuals, true>(gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, xchg, sync,
-                                 t_len, batch, h, r, plan, stream);
-  return scan<Residuals, false>(gi, u, v, dvec, h0, c0, ys, c_last, cs, gates, hu, xchg, sync,
-                                t_len, batch, h, r, plan, stream);
+// What a residual forward stores, from the wrappers' residual policy.
+int res_kind(int policy) {
+  return policy == kPolicyF32 ? kResF32 : policy == kPolicyBf16 ? kResBf16
+                                        : policy == kPolicyNone ? kCs : -1;
+}
+
+// The projection GEMMs of x mode (two, or one for a dense x side), with
+// bf16-rounded operands when Bf16; returns the first error.
+template <bool Bf16>
+cudaError_t project(const float* x, const float* ux, const float* vx, const float* xdvec,
+                    const float* bias, float* xu, float* gi, int m, int f, int rx, int h,
+                    cudaStream_t stream) {
+  using vmlmf::bf16_if;
+  using vmlmf::RowMajor;
+  const int g4 = 4 * h;
+  const vmlmf::GiEpilogue epi{gi, x, xdvec, bias, f, h};
+  if (vx == nullptr)  // dense x side: gi = x @ Ux + the x term and bias
+    return vmlmf::gemm(bf16_if<Bf16>(RowMajor{x, f}), bf16_if<Bf16>(RowMajor{ux, g4}), epi, m, g4,
+                       f, stream);
+  cudaError_t err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{x, f}), bf16_if<Bf16>(RowMajor{ux, rx}),
+                                vmlmf::Store{xu, rx}, m, rx, f, stream);
+  if (err != cudaSuccess) return err;
+  return vmlmf::gemm(bf16_if<Bf16>(RowMajor{xu, rx}), bf16_if<Bf16>(RowMajor{vx, g4}), epi, m, g4,
+                     rx, stream);
+}
+
+// x mode: the projection, then the scan; returns the first error.
+int launch_xin(const float* x, const float* ux, const float* vx, const float* xdvec,
+               const float* bias, float* xu, const ScanIO& io, int f, int rx, int res,
+               int bf16_mm, GridPlan plan, cudaStream_t stream) {
+  const int m = io.t_len * io.batch;
+  float* gi = const_cast<float*>(io.gi);
+  cudaError_t err = bf16_mm ? project<true>(x, ux, vx, xdvec, bias, xu, gi, m, f, rx, io.h, stream)
+                            : project<false>(x, ux, vx, xdvec, bias, xu, gi, m, f, rx, io.h,
+                                             stream);
+  if (err != cudaSuccess) return err;
+  return scan_any(io, res, bf16_mm != 0, plan, stream);
 }
 
 }  // namespace
 
-// No-grad forward. xu [T*B, rx] (null for a dense x side) and gi [T*B, 4h]
-// are scratch that the caller allocates, as are the exchange buffers xchg
-// and the barrier words sync (scan_plan sizes both); writes ys [T,B,h] and
-// c_last [B,h]. vx null: dense x side, rx unused; v null: dense recurrent
-// side, r unused. The last six integers are scan_plan's layout.
+// No-grad forward, x mode. xu [T*B, rx] (null for a dense x side) and gi
+// [T*B, 4h] are scratch that the caller allocates, as are the exchange
+// buffers xchg and the barrier words sync (scan_plan sizes both); writes ys
+// [T,B,h] and c_last [B,h]. vx null: dense x side, rx unused; v null: dense
+// recurrent side, r unused. The six integers after r are scan_plan's
+// layout; bf16_mm 1 rounds every product's operands to bf16.
 extern "C" int lstm_scan_xin_fwd(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
     float* c_last, float* xchg, unsigned* sync, int t_len, int batch, int f, int rx, int h,
-    int r, int groups, int ctas, int rpad, int stage, int red, int smem,
+    int r, int groups, int ctas, int rpad, int stage, int red, int smem, int bf16_mm,
     void* stream_handle) {
-  return launch<false>(x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, xu, gi, ys, c_last,
-                       nullptr, nullptr, nullptr, xchg, sync, t_len, batch, f, rx, h, r,
-                       GridPlan{groups, ctas, rpad, stage, red, smem},
-                       static_cast<cudaStream_t>(stream_handle));
+  const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
+                  t_len, batch, h, r};
+  return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, kNoGrad, bf16_mm,
+                    GridPlan{groups, ctas, rpad, stage, red, smem},
+                    static_cast<cudaStream_t>(stream_handle));
 }
 
-// Residual forward of training. gi [T*B, 4h], xchg and sync are scratch;
-// writes ys and the residuals xu [T*B, rx] (null for a dense x side), cs
-// [T,B,h], gates [T,B,4h] and hu [T,B,r] (null for a dense recurrent side).
+// Residual forward of training, x mode. gi [T*B, 4h], xchg and sync are
+// scratch; writes ys, cs [T,B,h] and xu [T*B, rx] (null for a dense x
+// side). policy 0 or 1 (saved gates, f32 or bf16 residuals) also writes the
+// gates [T,B,4h] and hu [T,B,r] (null for a dense recurrent side) in that
+// type; policy 2 (recompute) writes neither (both null), and xu is scratch.
 extern "C" int lstm_scan_xin_fwd_res(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* cs, float* gates, float* hu, float* xchg, unsigned* sync, int t_len, int batch,
+    float* cs, void* gates, void* hu, float* xchg, unsigned* sync, int t_len, int batch,
     int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
-    void* stream_handle) {
-  return launch<true>(x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, xu, gi, ys, nullptr,
-                      cs, gates, hu, xchg, sync, t_len, batch, f, rx, h, r,
-                      GridPlan{groups, ctas, rpad, stage, red, smem},
-                      static_cast<cudaStream_t>(stream_handle));
+    int bf16_mm, int policy, void* stream_handle) {
+  const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
+                  t_len, batch, h, r};
+  return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, res_kind(policy), bf16_mm,
+                    GridPlan{groups, ctas, rpad, stage, red, smem},
+                    static_cast<cudaStream_t>(stream_handle));
+}
+
+// No-grad forward, gi mode (pallas_scan.py::lstm_scan_fused): the scan of
+// the given gi [T*B, 4h]; writes ys and c_last.
+extern "C" int lstm_scan_fwd(
+    const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
+    const float* c0, float* ys, float* c_last, float* xchg, unsigned* sync, int t_len,
+    int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
+    int bf16_mm, void* stream_handle) {
+  const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
+                  t_len, batch, h, r};
+  return scan_any(io, kNoGrad, bf16_mm != 0, GridPlan{groups, ctas, rpad, stage, red, smem},
+                  static_cast<cudaStream_t>(stream_handle));
+}
+
+// Residual forward, gi mode: writes ys, cs, the gates and hu (policy 0:
+// f32, 1: bf16; gi mode always saves the gates).
+extern "C" int lstm_scan_fwd_res(
+    const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
+    const float* c0, float* ys, float* cs, void* gates, void* hu, float* xchg, unsigned* sync,
+    int t_len, int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red,
+    int smem, int bf16_mm, int policy, void* stream_handle) {
+  if (policy == kPolicyNone) return cudaErrorInvalidValue;
+  const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
+                  t_len, batch, h, r};
+  return scan_any(io, res_kind(policy), bf16_mm != 0,
+                  GridPlan{groups, ctas, rpad, stage, red, smem},
+                  static_cast<cudaStream_t>(stream_handle));
 }
 
 // The message of an error code that an entry of this file returned.

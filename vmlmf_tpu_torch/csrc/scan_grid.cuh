@@ -11,12 +11,24 @@
 // wait for each other. Inside a group, CTAs exchange the step's h (or dpre,
 // hu, dhu) through global buffers laid out [depth][rpad]: one column per
 // batch row of the group, padded to rpad (a multiple of 4) rows.
+//
+// The bf16 variants (precision "bf16" of pallas_scan.py) hold the weight
+// slices in shared memory as bf16 and widen them for f32 FMAs: a bf16
+// product summed in f32 is exactly the f32 FMA of the two bf16-rounded
+// operands. The exchange buffers stay f32, but the CTA that writes an
+// exchanged value rounds it to bf16 first, since a product is its only
+// reader; the carry, the diagonal terms and the gates stay f32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gemm_tile.cuh"
+
 namespace vmlmf {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kGridThreads = 512;  // threads per CTA of the grid kernels
 constexpr int kMaxSlices = 32;     // depth slices of one product item
@@ -93,13 +105,47 @@ __device__ __forceinline__ void cp_async_wait_but_newest() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
+// An element of type T (f32, or bf16 rounded to nearest even) from an f32
+// value; and four weight elements (8 or 16 aligned bytes) widened to f32.
+template <class W>
+__device__ __forceinline__ W to_elem(float v);
+template <>
+__device__ __forceinline__ float to_elem<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to_elem<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// A value written to an exchange buffer: rounded to bf16 in the bf16
+// variants, whose products read it.
+template <bool Bf16>
+__device__ __forceinline__ float exchanged(float v) {
+  if constexpr (Bf16) return round_bf16(v);
+  return v;
+}
+
+// Floats of shared memory that `elems` weight elements of type W take,
+// rounded up to 16 bytes so that the f32 regions after them stay aligned.
+template <class W>
+__host__ __device__ inline size_t weight_floats(size_t elems) {
+  return (elems * sizeof(W) + 15) / 16 * 4;
+}
+
 // out(col, row) = sum over d < depth of A[d][row] * W[d][col], for col <
 // ncols (a multiple of 4) and row < rpad. A is a global exchange buffer
 // [depth][rpad], copied into shared memory with 16-byte cp.async.cg: whole
 // when it fits in `stage`, else in chunks of stage / 2 floats, the next
 // chunk copying into one half while the CTA multiplies the other. W is
-// this CTA's weight slice in shared memory, [depth][ldw]. An item is 4
-// columns x 4 rows (16 sums in registers, float4 loads of A and W). With
+// this CTA's weight slice in shared memory, [depth][ldw], f32 or bf16 (ldw
+// a multiple of 4). An item is 4 columns x 4 rows (16 sums in registers,
+// float4 loads of A and four-element loads of W, widened). With
 // fewer items than threads, each item's depth is cut into `slices`
 // interleaved parts; their partial sums meet in `red` and one thread per
 // output adds them in slice order: deterministic, no atomics. Calls
@@ -107,9 +153,9 @@ __device__ __forceinline__ void cp_async_wait_but_newest() {
 // 4rb+r. The partials lie [slice][16][items], so that neighbouring threads
 // (neighbouring items) touch neighbouring banks. Every thread of the CTA
 // must call it.
-template <class Epi>
+template <class W, class Epi>
 __device__ __forceinline__ void slice_product(const float* a, int depth, int rpad,
-                                              const float* w, int ldw, int ncols,
+                                              const W* w, int ldw, int ncols,
                                               float* stage, int stage_floats, float* red,
                                               int red_floats, Epi epi) {
   const int cbs = ncols / 4, rbs = rpad / 4;
@@ -149,11 +195,11 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
       if (live) {
         const int d0 = c * chunk, dn = min(chunk, depth - d0);
         const float4* s4 = reinterpret_cast<const float4*>(stage) + (c & 1) * (chunk * rbs);
-        const float* wd = w + (size_t)d0 * ldw + 4 * cb;
+        const W* wd = w + (size_t)d0 * ldw + 4 * cb;
 #pragma unroll 4
         for (int d = s; d < dn; d += slices) {
           const float4 av = s4[d * rbs + rb];
-          const float4 wv = *reinterpret_cast<const float4*>(wd + (size_t)d * ldw);
+          const float4 wv = load4(wd + (size_t)d * ldw);
           const float ar[4] = {av.x, av.y, av.z, av.w};
           const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
@@ -184,6 +230,58 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
     }
     if (live && s == 0) epi(cb, rb, acc);
   }
+}
+
+__device__ __forceinline__ float gate_sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// Epilogue of the projection GEMM that yields gi (the second one, or the only
+// one for a dense x side): adds the x-side elementwise term and the bias to
+// column j = g*h + jj: (jj < f ? x[i, jj] : 0) * xdvec[j] + bias[j]. The x
+// term reads x unrounded in every variant.
+struct GiEpilogue {
+  float* gi;
+  const float* x;
+  const float* xdvec;
+  const float* bias;
+  int f, h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    const int jj = j % h;
+    const float xv = jj < f ? x[(size_t)i * f + jj] : 0.f;
+    gi[(size_t)i * 4 * h + j] = v + xv * xdvec[j] + bias[j];
+  }
+};
+
+// Epilogue of the recompute policy's last pre-pass GEMM, in place on the
+// gi that the GEMM before it wrote: pre = gi + v + hprev * dvec (hprev row
+// i: h0 for i < batch, then ys[i - batch]), then the gate's nonlinearity,
+// tanh for the g block and the sigmoid for the others
+// (pallas_scan.py::_bwd_kernel's recompute).
+struct GatesEpilogue {
+  float* gates;
+  const float* h0;
+  const float* ys;
+  const float* dvec;
+  int batch, h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    const int jj = j % h;
+    const float hp = i < batch ? h0[(size_t)i * h + jj] : ys[(size_t)(i - batch) * h + jj];
+    float* at = gates + (size_t)i * 4 * h + j;
+    const float pre = *at + v + hp * dvec[j];
+    *at = j / h == 2 ? tanhf(pre) : gate_sigmoid(pre);
+  }
+};
+
+// dst[e] = src[e] widened, for e < n: a bf16 residual read back as f32.
+__global__ void __launch_bounds__(256) widen_kernel(const bf16* __restrict__ src,
+                                                    float* __restrict__ dst, size_t n) {
+  for (size_t e = (size_t)blockIdx.x * 256 + threadIdx.x; e < n; e += (size_t)gridDim.x * 256)
+    dst[e] = __bfloat162float(src[e]);
+}
+
+inline cudaError_t widen(const void* src, float* dst, size_t n, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(n < 264 * 256 ? (n + 255) / 256 : 264 * 4);
+  widen_kernel<<<blocks, 256, 0, stream>>>(static_cast<const bf16*>(src), dst, n);
+  return cudaGetLastError();
 }
 
 // Launches `kernel` cooperatively on plan.groups * plan.ctas CTAs of

@@ -1,5 +1,6 @@
-"""Non-recurrent layers: embedding, dense, dropout, and the convolution
-stack of `DeepConvNet` (counterpart of `vmlmf_tpu.nn.layers`)."""
+"""Non-recurrent layers: embedding, dense, dropout, the LM head's bf16
+product, and the convolution stack of `DeepConvNet` (counterpart of
+`vmlmf_tpu.nn.layers`)."""
 
 from __future__ import annotations
 
@@ -40,6 +41,39 @@ class Dense:
 
     def __call__(self, params, x):
         return x @ params["w"] + params["b"]
+
+
+class Bf16Product(torch.autograd.Function):
+    """``x [..., k] @ w [k, n]`` with bf16 operands and f32 sums and result:
+    `vmlmf_tpu.nn.models.LMModel`'s ``head_bf16`` product, ``jnp.dot(
+    x.astype(bf16), w.astype(bf16), preferred_element_type=f32)``. On CUDA
+    one cuBLAS bf16 product with an f32 output; on the CPU the f32 product
+    of the bf16-rounded operands, the same function (a bf16 product is exact
+    in f32). The gradients are JAX's: the f32 product of the cotangent with
+    the other rounded operand, rounded to bf16 (the transposes of the
+    casts)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.bfloat16(), w.bfloat16()
+        ctx.save_for_backward(xb, wb)
+        x2 = xb.reshape(-1, x.shape[-1])
+        if x2.is_cuda:
+            y = torch.mm(x2, wb, out_dtype=torch.float32)
+        else:
+            y = x2.float() @ wb.float()
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ wb.float().T).bfloat16().float()
+        if ctx.needs_input_grad[1]:
+            x2 = xb.reshape(-1, xb.shape[-1]).float()
+            dw = (x2.T @ g.reshape(-1, g.shape[-1])).bfloat16().float()
+        return dx, dw
 
 
 def dropout_mask(shape, rate, generator, device, dtype=torch.float32):

@@ -9,7 +9,14 @@ import dataclasses
 import torch
 
 from vmlmf_tpu_torch.cells.base import reinit_uniform
-from vmlmf_tpu_torch.nn.layers import ConvFeatures, Dense, Embed, dropout, dropout_mask
+from vmlmf_tpu_torch.nn.layers import (
+    Bf16Product,
+    ConvFeatures,
+    Dense,
+    Embed,
+    dropout,
+    dropout_mask,
+)
 from vmlmf_tpu_torch.nn.recurrence import RNN, WAVEFRONT_BACKENDS, run_wavefront, scan_layer
 
 
@@ -148,7 +155,10 @@ class LMModel:
     Sequences are time-major ``[T, B]``; the state is carried explicitly.
     Parameters are a dict ``{"embed": {"w"}, "rnn": [cell dicts], "fc":
     {"w", "b"}}`` with the JAX package's keys and layouts (``fc`` holds only
-    ``b`` when the embeddings are tied).
+    ``b`` when the embeddings are tied). ``head_bf16``: the softmax
+    projection takes bf16 operands and sums in f32 (`Bf16Product`); the
+    parameters, the bias and the logits stay f32, the JAX package's opt-in
+    mixed precision.
     """
 
     vocab_size: int
@@ -159,6 +169,7 @@ class LMModel:
     winit: float = 0.05
     tie_embeddings: bool = False
     backend: str = "fused"
+    head_bf16: bool = False
 
     def __post_init__(self, cell_factory):
         object.__setattr__(self, "embed", Embed(self.vocab_size, self.hidden_size))
@@ -189,7 +200,8 @@ class LMModel:
 
     def _logits(self, params, x):
         w = params["embed"]["w"].T if self.tie_embeddings else params["fc"]["w"]
-        return x @ w + params["fc"]["b"]
+        y = Bf16Product.apply(x, w) if self.head_bf16 else x @ w
+        return y + params["fc"]["b"]
 
     def apply(self, params, ids, states, *, generator=None, train=False):
         """ids: [T, B] int -> (logits [T, B, V], new_states)."""

@@ -11,6 +11,9 @@ Two backends, the same function:
     the BPTT kernel in the backward), else the no-grad
     `lstm_scan_fused_xin` / `gru_scan_fused_xin`. Each launches its CUDA
     kernels on CUDA tensors and runs its plain version on CPU tensors.
+    Under ``VMLMF_PALLAS_XIN=0`` an LSTM cell runs gi mode instead
+    (`LSTMScan` / `lstm_scan_fused` on ``cell.inp``), as the JAX package
+    does; the GRU kernels do not take gi mode yet and raise on CUDA.
     A cell with no fused form runs the loop under "fused" too, as the JAX
     package runs it on its XLA scan: one without `fused_rec_inputs`
     (`DiagonalLSTMCell`), or whose `fused_rec_inputs` returns None
@@ -27,6 +30,14 @@ knobs behind ``VMLMF_EXPERIMENTAL_WAVEFRONT=1``, as in the JAX package:
     package's "pipelined"); a stack it cannot take runs the per-layer loop,
     after a warning. ``reverse=True`` and `scan_layer` run the loop.
 
+The LSTM scans take the JAX package's ``precision`` ("f32" or "bf16": bf16
+product operands, f32 sums), from the argument or, when it is None, from
+``VMLMF_PALLAS_PRECISION`` (default "f32"); the residual switches
+``VMLMF_PALLAS_RESIDUALS`` and ``VMLMF_PALLAS_SAVED_GATES`` are read by
+`cuda_scan`. The JAX package reads these when it traces a step, the port
+when it runs one. The wavefront backends have no bf16 kernel yet: under
+"bf16" `run_wavefront` raises (ROADMAP queue 2 item 4).
+
 Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
 input with ``time_major=False``.
 """
@@ -40,8 +51,13 @@ import torch
 
 from vmlmf_tpu_torch.nn.layers import dropout
 from vmlmf_tpu_torch.ops.cuda_gru import GRUScanXin, gru_scan_fused_xin
-from vmlmf_tpu_torch.ops.cuda_scan import LSTMScanXin, lstm_scan_fused_xin
-from vmlmf_tpu_torch.ops.cuda_stack import run_stack_grouped
+from vmlmf_tpu_torch.ops.cuda_scan import (
+    LSTMScan,
+    LSTMScanXin,
+    lstm_scan_fused,
+    lstm_scan_fused_xin,
+)
+from vmlmf_tpu_torch.ops.cuda_stack import run_stack_grouped, stack_precision
 from vmlmf_tpu_torch.ops.pipeline import pipelined_available, pipelined_lstm_scan, warn_fallback
 
 BACKENDS = ("loop", "fused")
@@ -60,6 +76,20 @@ def _check_backend(backend):
                          f"knobs behind {WAVEFRONT_KNOB}=1: {WAVEFRONT_BACKENDS})")
 
 
+def env_precision(precision=None):
+    """``precision``, or VMLMF_PALLAS_PRECISION ("f32" when unset) when it is
+    None: the fused LSTM scans' product precision, read at call time."""
+    return precision or os.environ.get("VMLMF_PALLAS_PRECISION", "f32")
+
+
+def use_xin():
+    """Whether an LSTM cell's fused scan takes x and its x side (x mode, the
+    default) or the hoisted ``cell.inp`` (gi mode): VMLMF_PALLAS_XIN=0|1, as
+    `vmlmf_tpu.nn.recurrence._use_xin` reads it."""
+    env = os.environ.get("VMLMF_PALLAS_XIN")
+    return True if env is None else env == "1"
+
+
 def _needs_grad(args):
     return torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args)
 
@@ -73,7 +103,7 @@ def _fused_form(cell, prep):
     return ("lstm", rec) if rec is not None else (None, None)
 
 
-def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
+def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused", precision=None):
     """Run one cell over time-major ``xs [T, B, n]`` -> (ys [T, B, h], state).
 
     backend="fused" (and "fused_pipelined", whose one-layer form it is) runs
@@ -81,7 +111,9 @@ def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
     (the LSTM family; state (h, c)) or with `fused_rec_inputs_gru` and
     `fused_x_inputs_gru` (the GRU cells; state h), and the loop for a cell
     without a fused form; every other backend runs the loop. The state that
-    comes back is (h_last, c_last) or h_last = ys[-1].
+    comes back is (h_last, c_last) or h_last = ys[-1]. ``precision`` (None:
+    VMLMF_PALLAS_PRECISION) is the LSTM scans'; ``VMLMF_PALLAS_XIN=0`` runs
+    them in gi mode on ``cell.inp``.
     """
     _check_backend(backend)
     fused = backend in ("fused", "fused_pipelined")
@@ -98,11 +130,16 @@ def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
             state = ys[-1]
         else:
             h0, c0 = state0
-            args = (src, *cell.fused_x_inputs(prep), *rec, h0.contiguous(), c0.contiguous())
-            if _needs_grad(args):
-                ys, c_last = LSTMScanXin.apply(*args)
-            else:
-                ys, c_last = lstm_scan_fused_xin(*args)
+            prec = env_precision(precision)
+            if use_xin():
+                args = (src, *cell.fused_x_inputs(prep), *rec, h0.contiguous(), c0.contiguous())
+                scan, apply = lstm_scan_fused_xin, LSTMScanXin.apply
+            else:  # gi mode: the hoisted, time-parallel input contribution
+                gi = cell.inp(prep, xs)
+                gi = (torch.flip(gi, (0,)) if reverse else gi).contiguous()
+                args = (gi, *rec, h0.contiguous(), c0.contiguous())
+                scan, apply = lstm_scan_fused, LSTMScan.apply
+            ys, c_last = apply(*args, prec) if _needs_grad(args) else scan(*args, prec)
             state = (ys[-1], c_last)
         if reverse:
             ys = torch.flip(ys, (0,))
@@ -118,16 +155,20 @@ def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused"):
 
 
 def run_wavefront(backend, cells, preps, xs, states, *, masks=None, dropout_rate=0.0,
-                  generator=None):
+                  generator=None, precision=None):
     """A stack on a wavefront backend, time-major -> (ys, final states).
 
     "fused_pipelined" runs `run_stack_grouped` with the pre-scaled
     inter-layer ``masks``. "pipelined" runs the plain wavefront, which draws
     its own masks from ``generator`` at ``dropout_rate``; for a stack it
     cannot take it runs the per-layer loop after `warn_fallback`, with
-    `dropout` between layers, as the per-layer path draws it."""
+    `dropout` between layers, as the per-layer path draws it. Either raises
+    under ``precision`` (None: VMLMF_PALLAS_PRECISION) "bf16": the stack has
+    no bf16 kernel yet, and it never runs f32 in its place."""
+    precision = env_precision(precision)
+    stack_precision(precision)
     if backend == "fused_pipelined":
-        return run_stack_grouped(cells, preps, xs, states, masks)
+        return run_stack_grouped(cells, preps, xs, states, masks, precision)
     if pipelined_available(cells, preps):
         return pipelined_lstm_scan(cells, preps, xs, states, dropout_rate=dropout_rate,
                                    generator=generator)
@@ -147,6 +188,7 @@ class RNN:
 
     cells: tuple
     backend: str = "fused"
+    precision: str | None = None  # the fused LSTM scans': f32 | bf16 (None: the env's)
 
     def __post_init__(self):
         _check_backend(self.backend)
@@ -165,12 +207,13 @@ class RNN:
             states = self.state0(xs.shape[1], xs.device, xs.dtype)
         if self.backend in WAVEFRONT_BACKENDS and not reverse:
             preps = [c.prepare(p) for c, p in zip(self.cells, params)]
-            ys, finals = run_wavefront(self.backend, self.cells, preps, xs, states)
+            ys, finals = run_wavefront(self.backend, self.cells, preps, xs, states,
+                                       precision=self.precision)
         else:
             ys, finals = xs, []
             for cell, p, s0 in zip(self.cells, params, states):
                 ys, sf = scan_layer(cell, cell.prepare(p), ys, s0, reverse=reverse,
-                                    backend=self.backend)
+                                    backend=self.backend, precision=self.precision)
                 finals.append(sf)
         if not time_major:
             ys = ys.transpose(0, 1)

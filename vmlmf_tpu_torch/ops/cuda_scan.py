@@ -1,9 +1,10 @@
-"""Fused LSTM scan with the input projection inside: the port's counterpart
-of `vmlmf_tpu.ops.pallas_scan.lstm_scan_fused_xin` and its VJP.
+"""Fused LSTM scan: the port's counterpart of `vmlmf_tpu.ops.pallas_scan`'s
+`lstm_scan_fused_xin` (x mode, the input projection inside) and
+`lstm_scan_fused` (gi mode, the input contribution given), and their VJPs.
 
 Each side of the scan is low-rank (two factors) or dense (one matrix): the
 x side ``x @ Ux @ Vx`` or ``x @ Ux`` (vx None), the recurrent side
-``h @ U @ V`` or ``h @ U`` (v None), in any of the four combinations. Three
+``h @ U @ V`` or ``h @ U`` (v None), in any of the four combinations. Six
 kernel entries, each with a plain version (the same arithmetic in torch
 ops) and a launch count:
 
@@ -11,24 +12,46 @@ ops) and a launch count:
     ``csrc/lstm_scan_xin_fwd.cu`` entry ``lstm_scan_xin_fwd``;
   * `lstm_scan_fused_xin_res` — the residual forward of training, entry
     ``lstm_scan_xin_fwd_res`` of the same source;
-  * `lstm_scan_xin_bwd` — the BPTT, ``csrc/lstm_scan_xin_bwd.cu``.
+  * `lstm_scan_xin_bwd` — the BPTT, ``csrc/lstm_scan_xin_bwd.cu``;
+  * `lstm_scan_fused`, `lstm_scan_fused_res`, `lstm_scan_bwd` — the same in
+    gi mode (entries ``lstm_scan_fwd``, ``lstm_scan_fwd_res`` and
+    ``lstm_scan_bwd`` of the same two sources): gi [T, B, 4h] comes in and
+    the BPTT returns dgi = dpre, with no x side.
 
-`LSTMScanXin` is the `torch.autograd.Function` that pairs the last two.
+`LSTMScanXin` and `LSTMScan` are the `torch.autograd.Function`s that pair
+the residual forwards with the BPTTs.
+
+The variants of the JAX package's kernels, selected as it selects them:
+  * ``precision="bf16"``: every matrix product takes bf16-rounded operands
+    and sums in f32, where `pallas_scan` casts them (h, hu, dpre, dhu, x,
+    xu, dxu and the factors); the diagonal terms, the bias and the gate
+    arithmetic stay f32;
+  * ``residuals="bf16"`` (``VMLMF_PALLAS_RESIDUALS=bf16``): the residual
+    forward stores the gates and hu as bf16; ys, cs and xu stay f32;
+  * ``save_gates=False`` (``VMLMF_PALLAS_SAVED_GATES=0``, x mode only): the
+    residual forward stores neither the gates nor hu nor xu, and the BPTT
+    rebuilds them from x and the saved h_prev in a batched pre-pass.
+The JAX package reads its two environment variables when it traces a step;
+the port reads them when the residual forward is called, and the BPTT
+follows from what that forward stored.
+
 `scan_plan` decides how the kernels spread a scan over the card's SMs: the
 batch groups, each CTA's slices of the recurrent weights and the shared
 memory they take. It is plain Python, so the CPU tests reach it.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors, so on the CPU the same `LSTMScanXin` runs the plain
-forward and the plain backward. There is no fallback between the two: a
-CUDA input that the kernel does not take raises, and a CUDA input that
-requires a gradient never reaches the no-grad kernel.
+for CPU tensors, so on the CPU the autograd functions run the plain forward
+and the plain backward. There is no fallback between the two: a CUDA input
+that the kernel does not take raises, and a CUDA input that requires a
+gradient never reaches a no-grad kernel.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
+import os
 
 import torch
 
@@ -43,48 +66,125 @@ BWD_REPLACES = "vmlmf_tpu/ops/pallas_scan.py:450"  # _bwd_kernel
 _ARG_NAMES = ("xs", "ux", "vx", "xdvec", "bias", "u", "v", "dvec", "h0", "c0")
 _RES_NAMES = ("xs", "ux", "vx", "xdvec", "u", "v", "dvec", "h0", "c0",
               "ys", "cs", "gates", "hu", "xu")
+_GI_NAMES = ("gi", "u", "v", "dvec", "h0", "c0")
+
+PRECISIONS = ("f32", "bf16")
+RESIDUALS = ("f32", "bf16")
+# the residual policy as the C entries number it
+_RES_F32, _RES_BF16, _RES_NONE = 0, 1, 2
 
 
-def _x_side(xs, ux, vx):
+def _bf16(precision):
+    """True for "bf16", False for "f32"; raises on anything else."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision == "bf16"
+
+
+def env_residuals():
+    """The residual store type, "bf16" under VMLMF_PALLAS_RESIDUALS=bf16, else
+    "f32" (`pallas_scan._residual_dtype`), read at call time."""
+    return "bf16" if os.environ.get("VMLMF_PALLAS_RESIDUALS") == "bf16" else "f32"
+
+
+def env_saved_gates():
+    """False under VMLMF_PALLAS_SAVED_GATES=0 (the recompute policy), else True
+    (`pallas_scan.lstm_scan_fused_xin`), read at call time."""
+    return os.environ.get("VMLMF_PALLAS_SAVED_GATES", "1") != "0"
+
+
+def _policy(residuals, save_gates):
+    """(residuals, save_gates) with None read from the environment."""
+    residuals = env_residuals() if residuals is None else residuals
+    if residuals not in RESIDUALS:
+        raise ValueError(f"residuals must be one of {RESIDUALS}, got {residuals!r}")
+    return residuals, env_saved_gates() if save_gates is None else bool(save_gates)
+
+
+def variant(precision="f32", residuals="f32", save_gates=True):
+    """The name of a kernel variant, as the launch counts file it: "f32",
+    or the parts that differ from it joined by "+" ("bf16", "bf16_res",
+    "recompute", "bf16+bf16_res", ...). Residuals that are not stored have
+    no type."""
+    parts = ["bf16"] if precision == "bf16" else []
+    if not save_gates:
+        parts.append("recompute")
+    elif residuals == "bf16":
+        parts.append("bf16_res")
+    return "+".join(parts) or "f32"
+
+
+def _res_dtype(residuals):
+    return torch.bfloat16 if residuals == "bf16" else torch.float32
+
+
+def _rb(a, bf16):
+    """``a`` rounded to bf16 and back where the JAX kernel casts a product's
+    operand (``bf16``), else ``a``."""
+    return a.bfloat16().float() if bf16 else a
+
+
+def _wide(a):
+    """A bf16 residual read as f32 (other types as they are)."""
+    return a.float() if a.dtype == torch.bfloat16 else a
+
+
+def _x_side(xs, ux, vx, bf16=False):
     """(xu = x @ Ux, or None for a dense x side; the x product x @ Ux [@ Vx])."""
+    xu = _rb(xs, bf16) @ _rb(ux, bf16)
     if vx is None:
-        return None, xs @ ux
-    xu = xs @ ux
-    return xu, xu @ vx
+        return None, xu
+    return xu, _rb(xu, bf16) @ _rb(vx, bf16)
 
 
-def lstm_scan_fused_xin_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+def _gi_plain(xs, ux, vx, xdvec, bias, h, bf16):
+    """(xu, gi): the input contribution of x mode, as the kernel builds it."""
+    xu, xp = _x_side(xs, ux, vx, bf16)
+    return xu, xp + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
+
+
+def lstm_scan_fused_xin_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="f32"):
     """The kernel's function in torch ops: the batched input projection, then
     a Python loop over T. Same arguments and results as `lstm_scan_fused_xin`."""
-    ys, cs = lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)[:2]
+    ys, cs = lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0,
+                                         precision)[:2]
     return ys, cs[-1]
 
 
-def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+def lstm_scan_xin_fwd_res_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="f32",
+                                residuals="f32", save_gates=True):
     """`lstm_scan_fused_xin_plain` that also returns the backward's residuals:
     -> (ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities, hu =
     h_prev@U [T,B,r] or None for a dense recurrent side, xu = x@Ux [T,B,rx]
-    or None for a dense x side). The final cell state is cs[-1]."""
-    h = h0.shape[-1]
-    xu, xp = _x_side(xs, ux, vx)
-    gi = xp + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
-    return (*lstm_recurrence_plain(gi, u, v, dvec, h0, c0), xu)
+    or None for a dense x side). The gates and hu are of the ``residuals``
+    type; without ``save_gates`` the gates, hu and xu are None. The final
+    cell state is cs[-1]."""
+    xu, gi = _gi_plain(xs, ux, vx, xdvec, bias, h0.shape[-1], _bf16(precision))
+    ys, cs, gates, hu = lstm_recurrence_plain(gi, u, v, dvec, h0, c0, precision, residuals)
+    if not save_gates:
+        return ys, cs, None, None, None
+    return ys, cs, gates, hu, xu
 
 
-def lstm_recurrence_plain(gi, u, v, dvec, h0, c0):
+def lstm_recurrence_plain(gi, u, v, dvec, h0, c0, precision="f32", residuals="f32"):
     """The serial part of the scan in torch ops, step by step: from the input
     contribution gi [T, B, 4h] -> (ys, cs [T,B,h], gates [T,B,4h] after the
-    nonlinearities, hu = h_prev@U [T,B,r] or None for a dense U [h, 4h])."""
+    nonlinearities, hu = h_prev@U [T,B,r] or None for a dense U [h, 4h]);
+    the gates and hu of the ``residuals`` type, hu the product before any
+    rounding. Under bf16 the products take bf16-rounded operands."""
+    bf16 = _bf16(precision)
+    store = (lambda a: a.bfloat16()) if residuals == "bf16" else (lambda a: a)
     dvec = dvec.reshape(-1)
+    uu, vv = _rb(u, bf16), None if v is None else _rb(v, bf16)
     h_t, c_t = h0, c0
     ys, cs, gates, hus = [], [], [], []
     for gi_t in gi:
         if v is None:
-            rec = h_t @ u
+            rec = _rb(h_t, bf16) @ uu
         else:
-            hu = h_t @ u
-            hus.append(hu)
-            rec = hu @ v
+            hu = _rb(h_t, bf16) @ uu
+            hus.append(store(hu))
+            rec = _rb(hu, bf16) @ vv
         pre = gi_t + rec + h_t.repeat(1, 4) * dvec
         i, f, g, o = pre.chunk(4, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
@@ -92,35 +192,63 @@ def lstm_recurrence_plain(gi, u, v, dvec, h0, c0):
         h_t = o * torch.tanh(c_t)
         ys.append(h_t)
         cs.append(c_t)
-        gates.append(torch.cat([i, f, g, o], dim=-1))
+        gates.append(store(torch.cat([i, f, g, o], dim=-1)))
     return (torch.stack(ys), torch.stack(cs), torch.stack(gates),
             torch.stack(hus) if hus else None)
 
 
+def lstm_recompute_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, ys, precision="f32"):
+    """The recompute policy's pre-pass in torch ops, batched over all T*B
+    rows as `pallas_scan._bwd_kernel` rebuilds them: -> (gates [T,B,4h], hu
+    [T,B,r] or None, xu [T,B,rx] or None), f32, from x and h_prev (h0, then
+    ys[:-1])."""
+    bf16 = _bf16(precision)
+    t, b, h = ys.shape
+    xu, gi = _gi_plain(xs, ux, vx, xdvec, bias, h, bf16)
+    hprev = torch.cat([h0[None], ys[:-1]]).reshape(t * b, h)
+    hu = None
+    if v is None:
+        rec = _rb(hprev, bf16) @ _rb(u, bf16)
+    else:
+        hu = _rb(hprev, bf16) @ _rb(u, bf16)
+        rec = _rb(hu, bf16) @ _rb(v, bf16)
+        hu = hu.reshape(t, b, -1)
+    pre = gi.reshape(t * b, 4 * h) + rec + hprev.repeat(1, 4) * dvec.reshape(-1)
+    i, f, g, o = pre.chunk(4, dim=-1)
+    gates = torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], -1)
+    return gates.reshape(t, b, 4 * h), hu, xu
+
+
 def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
-                            dys, dc_last):
+                            dys, dc_last, bias=None, precision="f32"):
     """The BPTT kernel's function in torch ops, step by step as
     `pallas_scan._bwd_kernel` computes it: a reverse loop over T for dpre, the
     dh/dc carry and the recurrent weight gradients, then the x-side gradients
     batched over all T*B rows. ``dys`` and ``dc_last`` may be None (zeros).
+    Gates None is the recompute policy: the pre-pass rebuilds the gates, hu
+    and xu from x, ``bias`` and h_prev first.
 
     -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0), shaped as the
     forward's inputs; dv is None for a dense recurrent side, dvx for a dense
     x side.
     """
+    bf16 = _bf16(precision)
     t, b, f = xs.shape
     h = h0.shape[-1]
+    if gates is None:
+        gates, hu, xu = lstm_recompute_plain(xs, ux, vx, xdvec, bias, u, v, dvec, h0, ys,
+                                             precision)
     dpre, du, dv, ddvec, dh, dc = lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys,
-                                                  None, dc_last)
+                                                  None, dc_last, precision)
     dpre2 = dpre.reshape(t * b, 4 * h)
-    x2 = xs.reshape(t * b, f)
+    dp_mm, x2 = _rb(dpre2, bf16), xs.reshape(t * b, f)
     if vx is None:
-        dxu, dvx = dpre2, None
+        dxu_mm, dvx = dp_mm, None
     else:
-        dxu = dpre2 @ vx.T
-        dvx = xu.reshape(t * b, -1).T @ dpre2
-    dx2 = dxu @ ux.T
-    dux = x2.T @ dxu
+        dxu_mm = _rb(dp_mm @ _rb(vx, bf16).T, bf16)
+        dvx = _rb(xu.reshape(t * b, -1), bf16).T @ dp_mm
+    dx2 = dxu_mm @ _rb(ux, bf16).T
+    dux = _rb(x2, bf16).T @ dxu_mm
     dxe = dpre2 * xdvec.reshape(-1)
     dxe = dxe[:, :h] + dxe[:, h:2 * h] + dxe[:, 2 * h:3 * h] + dxe[:, 3 * h:]
     dx2 = dx2 + pad_features(dxe, f)
@@ -129,12 +257,16 @@ def lstm_scan_xin_bwd_plain(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates
     return dx2.reshape(t, b, f), dux, dvx, dxdvec, dbias, du, dv, ddvec, dh, dc
 
 
-def lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dh_last, dc_last):
+def lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dh_last, dc_last,
+                    precision="f32"):
     """The serial reverse walk of the BPTT in torch ops, step by step as
     `pallas_scan._bwd_kernel` computes it: dpre, the dh/dc carry and the
     recurrent weight gradients. ``dys``, ``dh_last`` and ``dc_last`` may be
-    None (zeros). -> (dpre [T,B,4h], du, dv (None for a dense U), ddvec [4h],
+    None (zeros); gates and hu may be bf16 residuals, read widened. Under
+    bf16 the products take bf16-rounded operands, and the dvec terms the
+    f32 dpre. -> (dpre [T,B,4h], du, dv (None for a dense U), ddvec [4h],
     dh0, dc0)."""
+    bf16 = _bf16(precision)
     t = ys.shape[0]
     h = h0.shape[-1]
     hprev = torch.cat([h0[None], ys[:-1]])
@@ -145,9 +277,10 @@ def lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dh_last, dc_last
     dv = None if v is None else torch.zeros_like(v)
     ddvec = torch.zeros(4 * h, dtype=h0.dtype, device=h0.device)
     dvec = dvec.reshape(-1)
+    uu, vv = _rb(u, bf16), None if v is None else _rb(v, bf16)
     dpres = [None] * t
     for s in range(t - 1, -1, -1):
-        i, fg, g, o = gates[s].chunk(4, dim=-1)
+        i, fg, g, o = _wide(gates[s]).chunk(4, dim=-1)
         if dys is not None:
             dh = dh + dys[s]
         tanh_c = torch.tanh(cs[s])
@@ -161,28 +294,43 @@ def lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dh_last, dc_last
         dvt = dpre * dvec
         dh_prev = dvt[:, :h] + dvt[:, h:2 * h] + dvt[:, 2 * h:3 * h] + dvt[:, 3 * h:]
         ddvec = ddvec + (dpre * hprev[s].repeat(1, 4)).sum(0)
+        dp_mm, h_mm = _rb(dpre, bf16), _rb(hprev[s], bf16)
         if v is None:
-            dh = dh_prev + dpre @ u.T
-            du = du + hprev[s].T @ dpre
+            dh = dh_prev + dp_mm @ uu.T
+            du = du + h_mm.T @ dp_mm
         else:
-            dhu = dpre @ v.T
-            dh = dh_prev + dhu @ u.T
-            du = du + hprev[s].T @ dhu
-            dv = dv + hu[s].T @ dpre
+            dhu_mm = _rb(dp_mm @ vv.T, bf16)
+            dh = dh_prev + dhu_mm @ uu.T
+            du = du + h_mm.T @ dhu_mm
+            dv = dv + _rb(_wide(hu[s]), bf16).T @ dp_mm
     return torch.stack(dpres), du, dv, ddvec, dh, dc
 
 
-def _check_tensors(names, tensors, want):
-    """Raise unless each tensor has its wanted shape, is f32, contiguous and
-    on the first tensor's device. A None tensor is skipped."""
+def lstm_scan_fused_plain(gi, u, v, dvec, h0, c0, precision="f32"):
+    """`lstm_scan_fused`'s function in torch ops -> (ys, c_last)."""
+    ys, cs = lstm_recurrence_plain(gi, u, v, dvec, h0, c0, precision)[:2]
+    return ys, cs[-1]
+
+
+def lstm_scan_bwd_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, precision="f32"):
+    """`lstm_scan_bwd`'s function in torch ops: the walk of `lstm_bptt_plain`,
+    whose dpre is dgi -> (dgi, du, dv, ddvec, dh0, dc0)."""
+    return lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, None, dc_last, precision)
+
+
+def _check_tensors(names, tensors, want, dtypes=None):
+    """Raise unless each tensor has its wanted shape, is float32 (or of its
+    dtype in ``dtypes``), contiguous and on the first tensor's device. A
+    None tensor is skipped."""
     dev = tensors[0].device
+    dtypes = dtypes or {}
     for name, a in zip(names, tensors):
         if a is None:
             continue
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got {tuple(a.shape)}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dtype != dtypes.get(name, torch.float32):
+            raise TypeError(f"{name} must be {dtypes.get(name, torch.float32)}, got {a.dtype}")
         if a.device != dev:
             raise ValueError(f"{name} is on {a.device}, {names[0]} on {dev}")
         if not a.is_contiguous():
@@ -207,7 +355,7 @@ def _input_shapes(t, b, f, rx, h, r):
     return {
         "xs": (t, b, f), "ux": (f, rx or 4 * h), "vx": (rx, 4 * h), "xdvec": (4, h),
         "bias": (4 * h,), "u": (h, r or 4 * h), "v": (r, 4 * h), "dvec": (4 * h,),
-        "h0": (b, h), "c0": (b, h),
+        "h0": (b, h), "c0": (b, h), "gi": (t, b, 4 * h),
     }
 
 
@@ -219,19 +367,47 @@ def _check(args):
     return sizes
 
 
-def _check_bwd(saved, dys, dc_last):
-    """Validate a backward call's residuals and cotangents; -> (T, B, F, rx, h, r)."""
+def _check_gi(args):
+    """Validate a gi-mode forward call's inputs; -> (T, B, h, r)."""
+    gi, u, v, _, h0, _ = args
+    if gi.dim() != 3 or h0.dim() != 2:
+        raise ValueError(f"gi must be [T, B, 4h] and h0 [B, h], got {tuple(gi.shape)} and "
+                         f"{tuple(h0.shape)}")
+    (t, b, _), h = gi.shape, h0.shape[-1]
+    r = 0 if v is None else u.shape[-1]
+    if min(t, b, h) < 1 or (v is not None and r < 1):
+        raise ValueError(f"empty scan: T={t}, B={b}, h={h}, r={r}")
+    _check_tensors(_GI_NAMES, args, _input_shapes(t, b, 1, 0, h, r))
+    return t, b, h, r
+
+
+def _residual_dtypes(gates, hu):
+    """The dtypes the residual checks allow: gates f32 or bf16, hu alike."""
+    rdt = gates.dtype if gates is not None and gates.dtype == torch.bfloat16 else torch.float32
+    return {"gates": rdt, "hu": rdt}, _RES_BF16 if rdt == torch.bfloat16 else _RES_F32
+
+
+def _check_bwd(saved, dys, dc_last, bias):
+    """Validate a backward call's residuals and cotangents; -> ((T, B, F, rx,
+    h, r), the residual policy as the C entry numbers it)."""
     xs, ux, vx, _, u, v, _, h0 = saved[:8]
-    hu, xu = saved[12:14]
+    gates, hu, xu = saved[11:14]
     t, b, f, rx, h, r = sizes = _sizes(xs, ux, vx, u, v, h0)
-    for name, res, factor in (("hu", hu, v), ("xu", xu, vx)):
-        if (res is None) != (factor is None):
-            raise ValueError(f"{name} is a residual of a low-rank side only: it must be "
-                             f"{'None' if factor is None else 'given'} here")
+    if gates is None:
+        if hu is not None or xu is not None or bias is None:
+            raise ValueError("the recompute policy (gates None) takes no hu or xu, and bias")
+        dtypes, policy = {}, _RES_NONE
+    else:
+        for name, res, factor in (("hu", hu, v), ("xu", xu, vx)):
+            if (res is None) != (factor is None):
+                raise ValueError(f"{name} is a residual of a low-rank side only: it must be "
+                                 f"{'None' if factor is None else 'given'} here")
+        dtypes, policy = _residual_dtypes(gates, hu)
     want = dict(_input_shapes(*sizes), ys=(t, b, h), cs=(t, b, h), gates=(t, b, 4 * h),
                 hu=(t, b, r), xu=(t, b, rx), dys=(t, b, h), dc_last=(b, h))
-    _check_tensors((*_RES_NAMES, "dys", "dc_last"), (*saved, dys, dc_last), want)
-    return sizes
+    _check_tensors((*_RES_NAMES, "dys", "dc_last", "bias"), (*saved, dys, dc_last, bias), want,
+                   dtypes)
+    return sizes, policy
 
 
 def _on_cpu(tensors):
@@ -241,6 +417,12 @@ def _on_cpu(tensors):
 def _require_cuda(name, xs):
     if xs.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {xs.device}")
+
+
+def _refuse_grad(name, args, apply):
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        raise RuntimeError(f"{name} computes no gradient; inputs that require one go "
+                           f"through {apply}.apply")
 
 
 SMS = 132              # SMs of an H100 SXM: the plan's default
@@ -283,7 +465,8 @@ class ScanPlan:
     recurrent side, r = 0). ``rpad``: a group's rows padded to a multiple of
     4. Per kernel: ``stage`` and ``red``, floats of the staging buffer and
     of the slice partials; ``smem``, bytes of shared memory per CTA;
-    ``xchg``, floats of the exchange buffers."""
+    ``xchg``, floats of the exchange buffers. ``elsize``: bytes of a weight
+    element in shared memory, 4 (f32) or 2 (the bf16 kernels)."""
 
     b: int
     h: int
@@ -299,6 +482,7 @@ class ScanPlan:
     red_bwd: int
     smem_bwd: int
     xchg_bwd: int
+    elsize: int = 4
 
     @property
     def n_ctas(self):
@@ -327,10 +511,11 @@ class ScanPlan:
                 if kernel == "fwd" else (self.stage_bwd, self.red_bwd, self.smem_bwd)))
 
 
-def _kernel_layout(h, ctas, rpad, phases, weights, slabs):
+def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize):
     """(stage, red, smem bytes) of one kernel: ``phases`` are its products as
-    (depth, columns), ``weights`` the floats of its weight slices, ``slabs``
-    its [units][rpad] buffers (the carry and the prefetched step inputs)."""
+    (depth, columns), ``weights`` the elements of its weight slices, of
+    ``elsize`` bytes each (the region rounded up to 16 bytes), ``slabs`` its
+    [units][rpad] buffers (the carry and the prefetched step inputs)."""
     stage = min(max(d for d, _ in phases), max(2, STAGE_FLOATS // rpad)) * rpad
     red = 0
     for depth, cols in phases:
@@ -338,13 +523,16 @@ def _kernel_layout(h, ctas, rpad, phases, weights, slabs):
         slices = _slices(items, depth)
         red = max(red, slices * items * 16 if slices > 1 else 0)
     jwm = _cdiv(h, ctas)
-    return stage, red, 4 * (weights + 4 * jwm + slabs * jwm * rpad + stage + red)
+    wfloats = _cdiv(weights * elsize, 16) * 4
+    return stage, red, 4 * (wfloats + 4 * jwm + slabs * jwm * rpad + stage + red)
 
 
 @functools.lru_cache(maxsize=256)
-def scan_plan(b, h, r, sms=SMS):
+def scan_plan(b, h, r, sms=SMS, elsize=4):
     """The layout of the scan kernels for batch ``b``, hidden width ``h`` and
-    recurrent rank ``r`` (0: a dense U [h, 4h]) on ``sms`` SMs -> ScanPlan.
+    recurrent rank ``r`` (0: a dense U [h, 4h]) on ``sms`` SMs, with weight
+    slices of ``elsize`` bytes an element (4, or 2 for the bf16 kernels)
+    -> ScanPlan.
 
     Each CTA's work per step is about the same for any grouping (the batch
     times the weights over the CTAs), but each CTA reads its group's whole h
@@ -356,36 +544,39 @@ def scan_plan(b, h, r, sms=SMS):
     shared memory fits wins. Raises ValueError when the weights do not fit
     in the shared memory of all SMs.
     """
-    if min(b, h, sms) < 1 or r < 0:
-        raise ValueError(f"no scan plan for B={b}, h={h}, r={r} on {sms} SMs")
+    if min(b, h, sms) < 1 or r < 0 or elsize not in (2, 4):
+        raise ValueError(f"no scan plan for B={b}, h={h}, r={r} on {sms} SMs, {elsize}-byte "
+                         f"weights")
     step_work = h * 4 * h if r == 0 else h * r + r * 4 * h  # multiply-adds of a row's step
     for groups in range(min(b, sms), 0, -1):
         most = max(1, min(sms // groups, h))
         work = _round4(_cdiv(b, groups)) * step_work
         for ctas in sorted({min(most, _cdiv(work, MIN_STEP_WORK)), most}):
-            plan = plan_layout(b, h, r, groups, ctas)
+            plan = plan_layout(b, h, r, groups, ctas, elsize)
             if plan.smem_bytes <= SMEM_LIMIT:
                 return plan
     raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in the "
                      f"shared memory of {sms} SMs")
 
 
-def plan_layout(b, h, r, groups, ctas):
+def plan_layout(b, h, r, groups, ctas, elsize=4):
     """The ScanPlan of ``groups`` batch groups of ``ctas`` CTAs each, for
-    batch ``b``, width ``h`` and rank ``r`` (0: dense); `scan_plan` picks
-    the grouping."""
+    batch ``b``, width ``h`` and rank ``r`` (0: dense), weights of
+    ``elsize`` bytes; `scan_plan` picks the grouping."""
     rpad = _round4(_cdiv(b, groups))
     jwm = _cdiv(h, ctas)
     jwp, kwp = _round4(jwm), _round4(_cdiv(r, ctas))
     # slabs: forward h, c and the step's gi (4); BPTT dh, dc and phase A's 7 inputs
     if r == 0:
-        fwd = _kernel_layout(h, ctas, rpad, [(h, 4 * jwm)], h * 4 * jwm, 6)
-        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, jwp)], 4 * h * jwp, 9)
+        fwd = _kernel_layout(h, ctas, rpad, [(h, 4 * jwm)], h * 4 * jwm, 6, elsize)
+        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, jwp)], 4 * h * jwp, 9, elsize)
     else:
-        fwd = _kernel_layout(h, ctas, rpad, [(h, kwp), (r, 4 * jwm)], h * kwp + r * 4 * jwm, 6)
-        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, kwp), (r, jwp)], 4 * h * kwp + r * jwp, 9)
+        fwd = _kernel_layout(h, ctas, rpad, [(h, kwp), (r, 4 * jwm)], h * kwp + r * 4 * jwm, 6,
+                             elsize)
+        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, kwp), (r, jwp)], 4 * h * kwp + r * jwp, 9,
+                             elsize)
     return ScanPlan(b, h, r, groups, ctas, rpad, *fwd, groups * rpad * (2 * h + r),
-                    *bwd, groups * rpad * (8 * h + r))
+                    *bwd, groups * rpad * (8 * h + r), elsize)
 
 
 def _splitk_floats(m, n, k):
@@ -397,19 +588,23 @@ def _splitk_floats(m, n, k):
     return splits * m * n if splits > 1 else 0
 
 
-def bwd_partial_floats(t, b, f, rx, h, r):
+def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False):
     """Floats of split-k scratch for the BPTT's products with few output
-    tiles and a long k: the weight gradients (k = T*B) and the x side's
-    product over the 4h gate columns (dXU, or dx for a dense x side). The
-    largest that any of them wants."""
+    tiles and a long k: the weight gradients (k = T*B) and, in x mode, the
+    x side's product over the 4h gate columns (dXU, or dx for a dense x
+    side); under the recompute policy also the pre-pass's hu = Hprev @ U
+    (k = h). The largest that any of them wants."""
     m, g4 = t * b, 4 * h
     shapes = [(h, g4, m)] if not r else [(r, g4, m), (h, r, m)]
-    shapes += [(f, g4, m), (m, f, g4)] if not rx else [(f, rx, m), (rx, g4, m), (m, rx, g4)]
+    if not gi:
+        shapes += [(f, g4, m), (m, f, g4)] if not rx else [(f, rx, m), (rx, g4, m), (m, rx, g4)]
+    if recompute:
+        shapes.append((m, r or g4, h))
     return max(_splitk_floats(*shape) for shape in shapes)
 
 
-def _plan_for(b, h, r, device):
-    return scan_plan(b, h, r, _sm_count(device.index))
+def _plan_for(b, h, r, device, bf16=False):
+    return scan_plan(b, h, r, _sm_count(device.index), 2 if bf16 else 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -420,9 +615,9 @@ def _sm_count(index):
 def _launch(kernel, entry, tensors, sizes, device):
     """Call C entry ``entry`` of csrc/<kernel>.cu on the current stream: the
     tensors' pointers (None -> null), the integers (the sizes T, B, F, rx,
-    h, r and the plan's layout) and the stream. Raises on the non-zero
-    cudaError it returns: a plan the kernel cannot take, a launch refused, or
-    a grid too large to be co-resident (no fallback)."""
+    h, r, the plan's layout and the variant's flags) and the stream. Raises
+    on the non-zero cudaError it returns: a plan the kernel cannot take, a
+    launch refused, or a grid too large to be co-resident (no fallback)."""
     lib = _build.load(kernel)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
@@ -437,6 +632,19 @@ def _launch(kernel, entry, tensors, sizes, device):
         raise RuntimeError(f"{entry} launch failed: {describe(err).decode()} (cudaError {err})")
 
 
+def _counted(fn, name):
+    """Add one to ``fn.launches`` and to ``fn.variants[name]``: a kernel of
+    that variant was launched."""
+    fn.launches += 1
+    fn.variants[name] += 1
+
+
+def _counter(fn):
+    fn.launches = 0
+    fn.variants = collections.Counter()
+    return fn
+
+
 def _sync_words(plan, like):
     """One barrier word per batch group; the launcher zeroes them."""
     return torch.empty(plan.groups, dtype=torch.int32, device=like.device)
@@ -447,125 +655,150 @@ def _empty(like):
     return lambda *shape: torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+@_counter
+def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="f32"):
     """Fused LSTM scan, x mode, no gradient.
 
     xs [T, B, F]; x side ux [F, rx], vx [rx, 4h] (low-rank) or ux [F, 4h],
     vx None (dense); xdvec [4, h] (applied to x over its first min(F, h)
     features); bias [4h]; recurrent side u [h, r], v [r, 4h] (low-rank) or
     u [h, 4h], v None (dense); dvec [4h]; h0, c0 [B, h]. Gate order i, f, g,
-    o. Returns (ys [T, B, h], c_last [B, h]).
+    o. ``precision`` "f32" or "bf16" (bf16-rounded product operands, f32
+    sums). Returns (ys [T, B, h], c_last [B, h]).
 
     CPU tensors run `lstm_scan_fused_xin_plain`. CUDA tensors must be float32,
     contiguous and on one device; the kernel runs on the current stream and
-    ``lstm_scan_fused_xin.launches`` counts its calls. A CUDA input that
-    requires a gradient, with grad mode on, raises: that call belongs to
-    `LSTMScanXin`.
+    ``lstm_scan_fused_xin.launches`` counts its calls (``.variants`` by
+    precision). A CUDA input that requires a gradient, with grad mode on,
+    raises: that call belongs to `LSTMScanXin`.
     """
     args = (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)
+    bf16 = _bf16(precision)
     if _on_cpu(args):
-        return lstm_scan_fused_xin_plain(*args)
+        return lstm_scan_fused_xin_plain(*args, precision)
     sizes = _check(args)
     _require_cuda("lstm_scan_fused_xin", xs)
-    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
-        raise RuntimeError("lstm_scan_fused_xin computes no gradient; inputs that require "
-                           "one go through LSTMScanXin.apply")
+    _refuse_grad("lstm_scan_fused_xin", args, "LSTMScanXin")
     t, b, f, rx, h, r = sizes
     with torch.cuda.device(xs.device):
-        plan = _plan_for(b, h, r, xs.device)
+        plan = _plan_for(b, h, r, xs.device, bf16)
         new = _empty(xs)
         xu = new(t * b, rx) if rx else None
         gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
         xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
         _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync),
-                (*sizes, *plan.ints("fwd")), xs.device)
-    lstm_scan_fused_xin.launches += 1
+                (*sizes, *plan.ints("fwd"), int(bf16)), xs.device)
+    _counted(lstm_scan_fused_xin, variant(precision))
     return ys, c_last
 
 
-lstm_scan_fused_xin.launches = 0
-
-
-def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+@_counter
+def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="f32",
+                            residuals=None, save_gates=None):
     """The residual forward of training: `lstm_scan_fused_xin` that also
     returns the backward's residuals -> (ys, cs, gates, hu, xu), shaped as
     `lstm_scan_xin_fwd_res_plain`'s, which CPU tensors run: hu is None for a
-    dense recurrent side and xu for a dense x side. The final cell state is
-    cs[-1]. ``lstm_scan_fused_xin_res.launches`` counts the kernel's calls."""
+    dense recurrent side and xu for a dense x side. ``residuals`` ("f32" or
+    "bf16": the gates and hu stored as bf16) and ``save_gates`` (False: the
+    recompute policy, no gates, hu or xu stored) are read from
+    VMLMF_PALLAS_RESIDUALS and VMLMF_PALLAS_SAVED_GATES when None. The final
+    cell state is cs[-1]. ``lstm_scan_fused_xin_res.launches`` counts the
+    kernel's calls, ``.variants`` by `variant`."""
     args = (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)
+    bf16 = _bf16(precision)
+    residuals, save_gates = _policy(residuals, save_gates)
     if _on_cpu(args):
-        return lstm_scan_xin_fwd_res_plain(*args)
+        return lstm_scan_xin_fwd_res_plain(*args, precision, residuals, save_gates)
     sizes = _check(args)
     _require_cuda("lstm_scan_fused_xin_res", xs)
     t, b, f, rx, h, r = sizes
+    rdt = _res_dtype(residuals)
     with torch.cuda.device(xs.device):
-        plan = _plan_for(b, h, r, xs.device)
+        plan = _plan_for(b, h, r, xs.device, bf16)
         new = _empty(xs)
         xu = new(t, b, rx) if rx else None
-        hu = new(t, b, r) if r else None
-        gi, ys, cs, gates = new(t * b, 4 * h), new(t, b, h), new(t, b, h), new(t, b, 4 * h)
+        gates = hu = None
+        if save_gates:
+            gates = torch.empty((t, b, 4 * h), dtype=rdt, device=xs.device)
+            hu = torch.empty((t, b, r), dtype=rdt, device=xs.device) if r else None
+        gi, ys, cs = new(t * b, 4 * h), new(t, b, h), new(t, b, h)
         xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
+        policy = (_RES_BF16 if residuals == "bf16" else _RES_F32) if save_gates else _RES_NONE
         _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu, xchg, sync),
-                (*sizes, *plan.ints("fwd")), xs.device)
-    lstm_scan_fused_xin_res.launches += 1
-    return ys, cs, gates, hu, xu
+                (*sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
+    _counted(lstm_scan_fused_xin_res, variant(precision, residuals, save_gates))
+    return ys, cs, gates, hu, (xu if save_gates else None)
 
 
-lstm_scan_fused_xin_res.launches = 0
-
-
+@_counter
 def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
-                      dys, dc_last):
+                      dys, dc_last, bias=None, precision="f32"):
     """Gradients of the fused scan from the residual forward's outputs and the
     cotangents ``dys [T, B, h]`` and ``dc_last [B, h]`` (either may be None,
     read as zeros) -> (dxs, dux, dvx, dxdvec, dbias, du, dv, ddvec, dh0, dc0);
-    dv is None for a dense recurrent side and dvx for a dense x side.
+    dv is None for a dense recurrent side and dvx for a dense x side. The
+    residual forward's choices come with its outputs: bf16 gates and hu
+    are bf16 residuals, gates None the recompute policy (hu and xu None
+    too, ``bias`` given). ``precision`` must be the forward's.
 
     CPU tensors run `lstm_scan_xin_bwd_plain`; CUDA tensors launch the BPTT
-    kernel, counted by ``lstm_scan_xin_bwd.launches``.
+    kernel, counted by ``lstm_scan_xin_bwd.launches`` (``.variants``).
     """
     saved = (xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu)
-    if _on_cpu((*saved, dys, dc_last)):
-        return lstm_scan_xin_bwd_plain(*saved, dys, dc_last)
-    sizes = _check_bwd(saved, dys, dc_last)
+    bf16 = _bf16(precision)
+    if _on_cpu((*saved, dys, dc_last, bias)):
+        return lstm_scan_xin_bwd_plain(*saved, dys, dc_last, bias=bias, precision=precision)
+    sizes, policy = _check_bwd(saved, dys, dc_last, bias)
     _require_cuda("lstm_scan_xin_bwd", xs)
     t, b, f, rx, h, r = sizes
+    rebuild = policy != _RES_F32  # widened bf16 residuals, or the recompute pre-pass
     with torch.cuda.device(xs.device):
-        plan = _plan_for(b, h, r, xs.device)
+        plan = _plan_for(b, h, r, xs.device, bf16)
         new = _empty(xs)
         dpre = new(t * b, 4 * h)
         dhu = new(t * b, r) if r else None
         dxu = new(t * b, rx) if rx else None
+        work = (new(t * b, 4 * h) if rebuild else None, new(t * b, r) if rebuild and r else None,
+                new(t * b, rx) if policy == _RES_NONE and rx else None)
         grads = (new(t, b, f), torch.empty_like(ux), new(rx, 4 * h) if rx else None, new(4, h),
                  new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
                  new(b, h), new(b, h))
-        partial = new(max(1, bwd_partial_floats(*sizes)))
+        partial = new(max(1, bwd_partial_floats(*sizes, recompute=policy == _RES_NONE)))
         _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
-                (*saved, dys, dc_last, dpre, dhu, dxu, *grads, new(plan.xchg_bwd),
-                 _sync_words(plan, xs), partial),
-                (partial.numel(), *sizes, *plan.ints("bwd")), xs.device)
-    lstm_scan_xin_bwd.launches += 1
+                (*saved[:4], bias, *saved[4:], dys, dc_last, *work, dpre, dhu, dxu, *grads,
+                 new(plan.xchg_bwd), _sync_words(plan, xs), partial),
+                (partial.numel(), *sizes, *plan.ints("bwd"), int(bf16), policy), xs.device)
+    res = ("bf16" if policy == _RES_BF16 else "f32")
+    _counted(lstm_scan_xin_bwd, variant(precision, res, policy != _RES_NONE))
     return grads
 
 
-lstm_scan_xin_bwd.launches = 0
+def _pad_grads(ctx, grads):
+    """``grads`` with None for the non-tensor argument that follows the
+    tensors in the call (precision)."""
+    return (*grads, *[None] * (len(ctx.needs_input_grad) - len(grads)))
 
 
 class LSTMScanXin(torch.autograd.Function):
     """The differentiable fused scan: the residual forward, then the BPTT.
 
-    ``LSTMScanXin.apply(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)`` ->
-    (ys, c_last), with gradients for every tensor input (vx and v may be
-    None, for a dense side). A cotangent that autograd leaves out (an output
-    no loss reads, as the LM's detached final state) is passed to the
-    backward as None and read there as zeros.
+    ``LSTMScanXin.apply(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0,
+    precision="f32")`` -> (ys, c_last), with gradients for every tensor
+    input (vx and v may be None, for a dense side). The residual dtype and
+    policy come from VMLMF_PALLAS_RESIDUALS and VMLMF_PALLAS_SAVED_GATES,
+    read at call time (the JAX package reads them at trace time). A
+    cotangent that autograd leaves out (an output no loss reads, as the
+    LM's detached final state) is passed to the backward as None and read
+    there as zeros.
     """
 
     @staticmethod
-    def forward(ctx, xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0):
+    def forward(ctx, xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="f32"):
         ys, cs, gates, hu, xu = lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec,
-                                                        h0, c0)
-        ctx.save_for_backward(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu)
+                                                        h0, c0, precision)
+        ctx.save_for_backward(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, xu,
+                              None if gates is not None else bias)
+        ctx.precision = precision
         ctx.set_materialize_grads(False)
         return ys, cs[-1].clone()
 
@@ -575,7 +808,126 @@ class LSTMScanXin(torch.autograd.Function):
             dys = dys.contiguous()
         if dc_last is not None:
             dc_last = dc_last.contiguous()
-        return lstm_scan_xin_bwd(*ctx.saved_tensors, dys, dc_last)
+        *saved, bias = ctx.saved_tensors
+        return _pad_grads(ctx, lstm_scan_xin_bwd(*saved, dys, dc_last, bias, ctx.precision))
+
+
+@_counter
+def lstm_scan_fused(gi, u, v, dvec, h0, c0, precision="f32"):
+    """Fused LSTM scan, gi mode, no gradient: `pallas_scan.lstm_scan_fused`.
+
+    gi [T, B, 4h] is the input contribution (the cell's ``inp``, gate order
+    i, f, g, o); the recurrent side, dvec, h0, c0 and ``precision`` as
+    `lstm_scan_fused_xin` takes them. Returns (ys [T, B, h], c_last [B, h]).
+    CPU tensors run `lstm_scan_fused_plain`; CUDA tensors launch entry
+    ``lstm_scan_fwd``, counted by ``lstm_scan_fused.launches``."""
+    args = (gi, u, v, dvec, h0, c0)
+    bf16 = _bf16(precision)
+    if _on_cpu(args):
+        return lstm_scan_fused_plain(*args, precision)
+    t, b, h, r = _check_gi(args)
+    _require_cuda("lstm_scan_fused", gi)
+    _refuse_grad("lstm_scan_fused", args, "LSTMScan")
+    with torch.cuda.device(gi.device):
+        plan = _plan_for(b, h, r, gi.device, bf16)
+        new = _empty(gi)
+        ys, c_last = new(t, b, h), new(b, h)
+        _launch(KERNEL, "lstm_scan_fwd", (*args, ys, c_last, new(plan.xchg_fwd),
+                                          _sync_words(plan, gi)),
+                (t, b, h, r, *plan.ints("fwd"), int(bf16)), gi.device)
+    _counted(lstm_scan_fused, variant(precision))
+    return ys, c_last
+
+
+@_counter
+def lstm_scan_fused_res(gi, u, v, dvec, h0, c0, precision="f32", residuals=None):
+    """The residual forward of gi mode -> (ys, cs, gates, hu), as
+    `lstm_recurrence_plain` returns them (which CPU tensors run). gi mode
+    always saves the gates (the JAX package's recompute policy is x mode
+    only); ``residuals`` as `lstm_scan_fused_xin_res` takes it. Entry
+    ``lstm_scan_fwd_res``, counted by ``lstm_scan_fused_res.launches``."""
+    args = (gi, u, v, dvec, h0, c0)
+    bf16 = _bf16(precision)
+    residuals, _ = _policy(residuals, True)
+    if _on_cpu(args):
+        return lstm_recurrence_plain(*args, precision, residuals)
+    t, b, h, r = _check_gi(args)
+    _require_cuda("lstm_scan_fused_res", gi)
+    rdt = _res_dtype(residuals)
+    with torch.cuda.device(gi.device):
+        plan = _plan_for(b, h, r, gi.device, bf16)
+        new = _empty(gi)
+        ys, cs = new(t, b, h), new(t, b, h)
+        gates = torch.empty((t, b, 4 * h), dtype=rdt, device=gi.device)
+        hu = torch.empty((t, b, r), dtype=rdt, device=gi.device) if r else None
+        _launch(KERNEL, "lstm_scan_fwd_res", (*args, ys, cs, gates, hu, new(plan.xchg_fwd),
+                                              _sync_words(plan, gi)),
+                (t, b, h, r, *plan.ints("fwd"), int(bf16),
+                 _RES_BF16 if residuals == "bf16" else _RES_F32), gi.device)
+    _counted(lstm_scan_fused_res, variant(precision, residuals))
+    return ys, cs, gates, hu
+
+
+@_counter
+def lstm_scan_bwd(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, precision="f32"):
+    """Gradients of the gi-mode scan -> (dgi, du, dv, ddvec, dh0, dc0): the
+    BPTT walk, whose dpre is dgi, and the recurrent weight gradients; no x
+    side (`pallas_scan._scan_core_bwd`). gates and hu are the residual
+    forward's (f32 or bf16); ``dys``/``dc_last`` may be None. CPU tensors
+    run `lstm_scan_bwd_plain`; CUDA tensors launch entry ``lstm_scan_bwd``,
+    counted by ``lstm_scan_bwd.launches``."""
+    bf16 = _bf16(precision)
+    if _on_cpu((u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last)):
+        return lstm_scan_bwd_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, precision)
+    t, b, h = ys.shape
+    r = 0 if v is None else u.shape[-1]
+    if (hu is None) != (v is None):
+        raise ValueError("hu is a residual of a low-rank recurrent side only")
+    dtypes, policy = _residual_dtypes(gates, hu)
+    want = dict(_input_shapes(t, b, 1, 0, h, r), ys=(t, b, h), cs=(t, b, h), gates=(t, b, 4 * h),
+                hu=(t, b, r), dys=(t, b, h), dc_last=(b, h))
+    names = ("ys", "u", "v", "dvec", "h0", "c0", "cs", "gates", "hu", "dys", "dc_last")
+    _check_tensors(names, (ys, u, v, dvec, h0, c0, cs, gates, hu, dys, dc_last), want, dtypes)
+    _require_cuda("lstm_scan_bwd", ys)
+    widen = policy == _RES_BF16
+    with torch.cuda.device(ys.device):
+        plan = _plan_for(b, h, r, ys.device, bf16)
+        new = _empty(ys)
+        work = (new(t * b, 4 * h) if widen else None, new(t * b, r) if widen and r else None)
+        dgi, dhu = new(t, b, 4 * h), new(t * b, r) if r else None
+        grads = (dgi, torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h), new(b, h),
+                 new(b, h))
+        partial = new(max(1, bwd_partial_floats(t, b, 1, 0, h, r, gi=True)))
+        _launch(BWD_KERNEL, "lstm_scan_bwd",
+                (u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, *work, dgi, dhu, *grads[1:],
+                 new(plan.xchg_bwd), _sync_words(plan, ys), partial),
+                (partial.numel(), t, b, h, r, *plan.ints("bwd"), int(bf16), policy), ys.device)
+    _counted(lstm_scan_bwd, variant(precision, "bf16" if widen else "f32"))
+    return grads
+
+
+class LSTMScan(torch.autograd.Function):
+    """The differentiable gi-mode scan: `lstm_scan_fused_res`, then
+    `lstm_scan_bwd`. ``LSTMScan.apply(gi, u, v, dvec, h0, c0,
+    precision="f32")`` -> (ys, c_last), with gradients for gi, the recurrent
+    weights and the initial state; the residual dtype from
+    VMLMF_PALLAS_RESIDUALS, read at call time."""
+
+    @staticmethod
+    def forward(ctx, gi, u, v, dvec, h0, c0, precision="f32"):
+        ys, cs, gates, hu = lstm_scan_fused_res(gi, u, v, dvec, h0, c0, precision)
+        ctx.save_for_backward(u, v, dvec, h0, c0, ys, cs, gates, hu)
+        ctx.precision = precision
+        ctx.set_materialize_grads(False)
+        return ys, cs[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dys, dc_last):
+        if dys is not None:
+            dys = dys.contiguous()
+        if dc_last is not None:
+            dc_last = dc_last.contiguous()
+        return _pad_grads(ctx, lstm_scan_bwd(*ctx.saved_tensors, dys, dc_last, ctx.precision))
 
 
 def _side(n, rank, h):
@@ -585,31 +937,51 @@ def _side(n, rank, h):
     return n * rank + rank * 4 * h if rank else n * 4 * h
 
 
-def scan_cost(t, b, f, rx, h, r):
+def scan_mm_ops(t, b, f, rx, h, r, *, gi=False):
+    """Operations of the forward's matrix products (two per multiply-add of
+    the x side, none in gi mode, and of the recurrent side over all T*B
+    rows): the share of `scan_cost`'s operations that bf16 moves to the
+    tensor-core rate. The BPTT's products are twice these, and the recompute
+    pre-pass adds them once more."""
+    return 2 * t * b * ((0 if gi else _side(f, rx, h)) + _side(h, r, h))
+
+
+def scan_cost(t, b, f, rx, h, r, *, gi=False):
     """(operations, bytes) that the scan needs at least, for its roofline bound
-    (rx = 0 and r = 0 mean a dense side).
+    (rx = 0 and r = 0 mean a dense side; ``gi``: gi mode, whose input is gi
+    [T,B,4h] and which has no x side).
 
     Operations: two per multiply-add of the x and the recurrent products, 6
-    per gate element (the x term and bias, the h term and the sums) and 9
-    per hidden unit (the nonlinearities and the state update), each step and
-    row. Bytes: each input read once and each output written once, f32.
+    per gate element (the x term and bias, the h term and the sums; 3 in gi
+    mode) and 9 per hidden unit (the nonlinearities and the state update),
+    each step and row. Bytes: each input read once and each output written
+    once, f32.
     """
-    xm, rm = _side(f, rx, h), _side(h, r, h)
-    ops = t * b * (2 * (xm + rm) + 6 * 4 * h + 9 * h)
+    rm = _side(h, r, h)
+    if gi:
+        ops = scan_mm_ops(t, b, f, rx, h, r, gi=True) + t * b * (3 * 4 * h + 9 * h)
+        floats = t * b * 4 * h + rm + 4 * h + 2 * b * h + t * b * h + b * h
+        return ops, 4 * floats
+    xm = _side(f, rx, h)
+    ops = scan_mm_ops(t, b, f, rx, h, r) + t * b * (6 * 4 * h + 9 * h)
     floats = t * b * f + xm + 4 * h + 4 * h + rm + 4 * h + 2 * b * h + t * b * h + b * h
     return ops, 4 * floats
 
 
-def scan_res_cost(t, b, f, rx, h, r):
+def scan_res_cost(t, b, f, rx, h, r, *, gi=False, residuals="f32", save_gates=True):
     """(operations, bytes) of the residual forward: `scan_cost` plus the
-    residual outputs cs [T,B,h], gates [T,B,4h], hu [T,B,r] and xu [T,B,rx]
-    (none for a dense side) written once, less the c_last row that it does
-    not write."""
-    ops, nbytes = scan_cost(t, b, f, rx, h, r)
-    return ops, nbytes + 4 * (t * b * (h + 4 * h + r + rx) - b * h)
+    residual outputs written once, less the c_last row that it does not
+    write: cs [T,B,h]; with ``save_gates`` gates [T,B,4h] and hu [T,B,r]
+    (2 bytes an element under bf16 ``residuals``) and, in x mode, xu
+    [T,B,rx] (none for a dense side)."""
+    ops, nbytes = scan_cost(t, b, f, rx, h, r, gi=gi)
+    rb = 2 if residuals == "bf16" else 4
+    saved = rb * t * b * (4 * h + r) + (0 if gi else 4 * t * b * rx) if save_gates else 0
+    return ops, nbytes + 4 * (t * b * h - b * h) + saved
 
 
-def scan_bwd_cost(t, b, f, rx, h, r, *, dys=True, dc_last=False):
+def scan_bwd_cost(t, b, f, rx, h, r, *, dys=True, dc_last=False, gi=False, residuals="f32",
+                  save_gates=True):
     """(operations, bytes) that the BPTT needs at least, for its roofline bound.
 
     Operations: two per multiply-add of its products over all T*B rows. Each
@@ -617,15 +989,23 @@ def scan_bwd_cost(t, b, f, rx, h, r, *, dys=True, dc_last=False):
     gradient along the chain (dhu = dpre V^T and dh += dhu U^T, or dh +=
     dpre U^T) and the weight gradients (dU, dV, or dU); on the x side dXU
     and dx, then dUx and dVx (or dx and dUx). Plus 30 per hidden unit for
-    dpre, the carry and the column sums. Bytes: each residual and cotangent
-    read once and each gradient written once, f32; ``dys``/``dc_last`` say
-    whether those cotangents are given.
+    dpre, the carry and the column sums. Without ``save_gates`` (the
+    recompute policy) the forward's products and gate arithmetic once more.
+    Bytes: each residual and cotangent read once and each gradient written
+    once, f32 (the gates and hu 2 bytes under bf16 ``residuals``);
+    ``dys``/``dc_last`` say whether those cotangents are given; gi mode has
+    no x side and returns dgi [T,B,4h].
     """
-    xm, rm = _side(f, rx, h), _side(h, r, h)
-    ops = t * b * (2 * 2 * (xm + rm) + 30 * h)
-    weights = xm + 4 * h + rm + 4 * h                                # ux, vx, xdvec, u, v, dvec
-    inputs = (t * b * f + weights + 2 * b * h                       # x, weights, h0, c0
-              + t * b * (h + h + 4 * h + r + rx)                    # ys, cs, gates, hu, xu
-              + (t * b * h if dys else 0) + (b * h if dc_last else 0))
-    outputs = t * b * f + weights + 4 * h + 2 * b * h               # dx, dweights, dbias, dh0, dc0
-    return ops, 4 * (inputs + outputs)
+    mm = scan_mm_ops(t, b, f, rx, h, r, gi=gi)
+    ops = 2 * mm + t * b * 30 * h
+    if not save_gates:
+        ops += mm + t * b * (6 * 4 * h)
+    rb = 2 if residuals == "bf16" else 4
+    xm, rm = (0 if gi else _side(f, rx, h)), _side(h, r, h)
+    weights = xm + rm + 4 * h + (0 if gi else 4 * h)              # ux, vx, u, v, dvec, xdvec
+    res = rb * t * b * (4 * h + r) + (0 if gi else 4 * t * b * rx) if save_gates else 4 * 4 * h
+    inputs = (4 * ((0 if gi else t * b * f) + weights + 2 * b * h  # x, weights, h0, c0
+                   + 2 * t * b * h                                  # ys, cs
+                   + (t * b * h if dys else 0) + (b * h if dc_last else 0)) + res)
+    outputs = 4 * ((t * b * 4 * h if gi else t * b * f + 4 * h) + weights + 2 * b * h)
+    return ops, inputs + outputs

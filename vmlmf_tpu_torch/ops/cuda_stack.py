@@ -25,7 +25,9 @@ and `stack_scan` picks it or the no-grad entry. `run_stack_grouped` runs a
 stack of cells through groups that one launch takes (`stack_groups`). As in
 `cuda_scan`, a wrapper launches its kernel for CUDA tensors and runs its
 plain version for CPU tensors, and a CUDA input that the kernel does not
-take raises: there is no fallback from one to the other.
+take raises: there is no fallback from one to the other. The kernels are
+f32: the JAX package's bf16 stack (``precision="bf16"``) is not ported yet,
+and `run_stack_grouped` raises for it, on CUDA and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -476,7 +478,18 @@ def _group_layers(layers, start, end):
     return [{k: layers[i][k] for k in _keys(i - start)} for i in range(start, end)]
 
 
-def run_stack_grouped(cells, preps, xs, states, masks=None):
+def stack_precision(precision):
+    """Raise unless ``precision`` is "f32": the stack kernels have no bf16
+    form yet (ROADMAP queue 2 item 4), and a bf16 stack never runs f32 in
+    its place."""
+    if precision == "bf16":
+        raise NotImplementedError("the wavefront LSTM stack has no bf16 kernel yet (ROADMAP "
+                                  "queue 2 item 4); precision 'bf16' runs on the 'fused' backend")
+    if precision != "f32":
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+
+
+def run_stack_grouped(cells, preps, xs, states, masks=None, precision="f32"):
     """A stack of cells through the wavefront kernels, group by group
     (`stack_groups`); a singleton group, or every layer of a stack that
     `stack_units` refuses (after `warn_fallback`), runs the per-layer
@@ -485,10 +498,12 @@ def run_stack_grouped(cells, preps, xs, states, masks=None):
     xs: time-major [T, B, n]; states: per-layer (h0, c0); masks: None or L -
     1 pre-scaled dropout masks, masks[i] applied to the output of layer i.
     Within a group they run inside the kernel; at a group boundary they
-    multiply the handoff. -> (ys [T, B, h], final states list).
+    multiply the handoff. ``precision`` "bf16" raises (`stack_precision`).
+    -> (ys [T, B, h], final states list).
     """
     from vmlmf_tpu_torch.nn.recurrence import scan_layer  # recurrence imports this module
 
+    stack_precision(precision)
     n = len(cells)
     layers = stack_units(cells, preps)
     finals = [None] * n

@@ -15,12 +15,19 @@ from dys alone). The forms: "lowrank" (r=rx=300, the VMLMF LM) and "dense"
 (U and Ux [650, 2600], no diagonals, the dense LM). A checkout that has
 `ops/cuda_stack.py` also times the no-grad wavefront stack,
 `lstm_stack_scan_fused`, on the two layers of the VMLMF LM ("stack").
+A checkout whose `cuda_scan` has the JAX package's kernel variants (a
+`variant` function) also times, under "variants", the bf16 products
+("bf16"), the bf16 residuals ("bf16_res") and the recompute policy
+("recompute") beside f32 at the LM layer (low-rank at B in 20 and 128,
+dense at B=20) and at the HAR layer (T=24, F=77, h=180, rx=8, r=6, B=81).
 Each line also gives, under "ptxas", the registers and spill bytes that
 ``nvcc -Xptxas -v`` reports for each form of the checkout's serial kernels
 (`scan_kernel` and `bptt_kernel` or their grid forms, `stack_step_kernel`)
-at the build's flags.
-Giving the checkouts as parent, change, change, parent keeps drift on the
-card from reading as a difference between them.
+at the build's flags, by template arguments.
+Under "digest", a sha256 of all the outputs of the three f32 entries at
+B=20 in both forms: equal digests show that two checkouts' kernels give
+the same bits. Giving the checkouts as parent, change, change, parent
+keeps drift on the card from reading as a difference between them.
 """
 
 from __future__ import annotations
@@ -43,6 +50,11 @@ t, f, h, rx, r = 35, 650, 650, 300, 300
 def inputs(b, form):
     g = torch.Generator().manual_seed(0)
     n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
+    if form == "har":
+        return (n(24, b, 77, scale=1.0), n(77, 8, scale=77 ** -0.5), n(8, 720, scale=8 ** -0.5),
+                n(4, 180, scale=0.1), n(720, scale=0.1), n(180, 6, scale=180 ** -0.5),
+                n(6, 720, scale=6 ** -0.5), n(720, scale=0.1), n(b, 180, scale=0.5),
+                n(b, 180, scale=0.5))
     if form == "dense":
         return (n(t, b, f, scale=1.0), n(f, 4 * h, scale=f ** -0.5), None,
                 torch.zeros(4, h).cuda(), n(4 * h, scale=0.1), n(h, 4 * h, scale=h ** -0.5), None,
@@ -88,8 +100,8 @@ def ptxas(source):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(grid_scan_kernel|grid_bptt_kernel|scan_kernel|bptt_kernel|"
-                          r"stack_step_kernel)I((?:Lb[01]E)+)E", line)
-            name = m and f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"
+                          r"stack_step_kernel)I((?:L[bi]\d+E)+)E", line)
+            name = m and f"{m.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif name and "Used" in line:
@@ -98,26 +110,57 @@ def ptxas(source):
     return stats
 
 
-def entry_ms(b, form):
+# three readings of each entry; variant: (precision, residuals, save_gates)
+# where the checkout has the variants
+def entry_ms(b, form, *variant):
     args = inputs(b, form)
+    prec = variant[:1]
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, *variant)
+    dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:4], *args[5:], *res, dys, None)
+    if variant:
+        saved += (None if variant[2] else args[4], variant[0])
+    return {"fwd": [mean_ms(cuda_scan.lstm_scan_fused_xin, (*args, *prec)) for _ in range(3)],
+            "res": [mean_ms(cuda_scan.lstm_scan_fused_xin_res, (*args, *variant))
+                    for _ in range(3)],
+            "bwd": [mean_ms(cuda_scan.lstm_scan_xin_bwd, saved) for _ in range(3)]}
+
+
+VARIANTS = {"f32": ("f32", "f32", True), "bf16": ("bf16", "f32", True),
+            "bf16_res": ("f32", "bf16", True), "recompute": ("f32", "f32", False)}
+
+
+# sha256 of every output of the three f32 entries at B=20 (both forms), so
+# that two checkouts' kernels can be shown to give the same bits
+def digest(form):
+    import hashlib
+    args = inputs(20, form)
     res = cuda_scan.lstm_scan_fused_xin_res(*args)
-    dys = torch.randn(t, b, h, generator=torch.Generator().manual_seed(5)).cuda()
-    saved = (*args[:4], *args[5:], *res)
-    return {"fwd": [mean_ms(cuda_scan.lstm_scan_fused_xin, args) for _ in range(3)],
-            "res": [mean_ms(cuda_scan.lstm_scan_fused_xin_res, args) for _ in range(3)],
-            "bwd": [mean_ms(cuda_scan.lstm_scan_xin_bwd, (*saved, dys, None)) for _ in range(3)]}
+    dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+    outs = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
+            *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None)]
+    h = hashlib.sha256()
+    for a in outs:
+        if a is not None:
+            h.update(a.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_scan_xin_bwd.cu", "lstm_stack_fwd.cu")
            if (_build.CSRC / s).exists()]
 regs = {s: ptxas(s) for s in sources}
 ms = {form: {b: entry_ms(b, form) for b in (1, 20, 128)} for form in ("lowrank", "dense")}
+if hasattr(cuda_scan, "variant"):
+    ms["variants"] = {name: {f"{form}_b{b}": entry_ms(b, form, *v)
+                             for form, b in (("lowrank", 20), ("lowrank", 128), ("dense", 20),
+                                             ("har", 81))}
+                      for name, v in VARIANTS.items()}
 if importlib.util.find_spec("vmlmf_tpu_torch.ops.cuda_stack") is not None:
     from vmlmf_tpu_torch.ops import cuda_stack
     ms["stack"] = {b: [mean_ms(cuda_stack.lstm_stack_scan_fused, stack_inputs(b))
                        for _ in range(3)] for b in (1, 20, 128)}
 print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
-                  "ptxas": regs}))
+                  "ptxas": regs, "digest": {f: digest(f) for f in ("lowrank", "dense")}}))
 """
 
 

@@ -126,15 +126,38 @@ Phases, each of which exits non-zero when it fails:
                peak memory of a HAR (B=81) and an LM (B=128) train step
                under each residual policy; and a `torch.profiler` trace of
                a mixed-precision LM train step.
- 15. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+ 15. variants — the last variants of the Pallas kernels. The GRU's gi-mode
+               entries (`gru_scan_fused`, `gru_scan_fused_res`,
+               `gru_scan_bwd`, from the layer's own gi) and its recompute
+               policy (the residual forward writes ys alone; the BPTT's
+               pre-pass rebuilds the residuals) against their plain
+               versions in the three recurrent forms at T=24, h=64, B=81
+               (no-grad gi also at 256), beside cuDNN's GRU from x for
+               "post". Both HAR GRUs trained and evaluated under
+               VMLMF_PALLAS_XIN=0 and under VMLMF_PALLAS_SAVED_GATES=0 with
+               exact launch counts of those entries only, beside saved-gates
+               x mode in the same phase (fused against loop gradients,
+               accuracy, macro-F1, step ms); the dense "pre" GRU (mygru_w9)
+               for a few steps under each; a GRU BDNet in gi mode; the peak
+               memory of a GRU step under each policy. Then the stack with
+               bf16 products: each entry against its plain version at the
+               LM stack (B = 1/20/128) to the bf16 tolerances, the first two
+               steps of each walk 4x nearer the plain bf16 version than the
+               f32 one, cuDNN's two-layer LSTM in bf16 beside it; and the
+               mixed-precision LM (VMLMF_PALLAS_PRECISION=bf16, head_bf16)
+               on "fused_pipelined" served at B = 1/20/128 and trained at
+               B = 20/128, every launch of the "bf16" variant, its first
+               step's gradients held to the f32 wavefront's, prefill and
+               step ms beside the mixed-precision "fused" LM.
+ 16. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
                device time of each kernel, the port's against cuBLAS's. A
                profiler error or an empty trace fails.
- 16. report  — one JSON line listing every kernel entry in every form that
+ 17. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-14 every launch count is set to 0 just before the path runs and
+In phases 5-15 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -219,15 +242,26 @@ FORMS = {
             "dense_pre": ("dense_pre", 81, 81),
             "dx_lowrank_pre": ("dx_main_l1", EVAL_BATCH, 81),
             "dx_dense_post": ("dx_group_l1", EVAL_BATCH, 81),
-            "dx_dense_pre": ("dx_dense_pre", 81, 81)},
-    "lstm_stack": {"lowrank": ("stack", MAIN_BATCH, MAIN_BATCH)},
+            "dx_dense_pre": ("dx_dense_pre", 81, 81),
+            "recompute": ("main_l1_recompute", None, 81),
+            "recompute_dense_post": ("group_l1_recompute", None, 81),
+            "recompute_dense_pre": ("dense_pre_recompute", None, 81)},
+    "gru_gi": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
+               "dense_post": ("group_l1", EVAL_BATCH, 81),
+               "dense_pre": ("dense_pre", 81, 81)},
+    "lstm_stack": {"lowrank": ("stack", MAIN_BATCH, MAIN_BATCH),
+                   "bf16": ("stack_bf16", MAIN_BATCH, MAIN_BATCH)},
 }
+# Forms whose rows keep their entries' plain names; the GRU's gi-mode rows
+# name every form
 FIRST_FORMS = ("lowrank", "lowrank_pre")
+NAMED_FORMS = ("gru_gi",)
 # The entries of each kernel family: (no-grad forward, residual forward, BPTT)
 FAMILIES = {
     "lstm": ("lstm_scan_xin_fwd", "lstm_scan_xin_fwd_res", "lstm_scan_xin_bwd"),
     "lstm_gi": ("lstm_scan_fwd", "lstm_scan_fwd_res", "lstm_scan_bwd"),
     "gru": ("gru_scan_xin_fwd", "gru_scan_xin_fwd_res", "gru_scan_xin_bwd"),
+    "gru_gi": ("gru_scan_fwd", "gru_scan_fwd_res", "gru_scan_bwd"),
     "lstm_stack": ("lstm_stack_fwd", "lstm_stack_fwd_res", "lstm_stack_bwd"),
 }
 
@@ -286,6 +320,9 @@ def entries():
             "gru_scan_xin_fwd": (cuda_gru.gru_scan_fused_xin, cuda_gru),
             "gru_scan_xin_fwd_res": (cuda_gru.gru_scan_fused_xin_res, cuda_gru),
             "gru_scan_xin_bwd": (cuda_gru.gru_scan_xin_bwd, cuda_gru),
+            "gru_scan_fwd": (cuda_gru.gru_scan_fused, cuda_gru),
+            "gru_scan_fwd_res": (cuda_gru.gru_scan_fused_res, cuda_gru),
+            "gru_scan_bwd": (cuda_gru.gru_scan_bwd, cuda_gru),
             "lstm_stack_fwd": (cuda_stack.lstm_stack_scan_fused, cuda_stack),
             "lstm_stack_fwd_res": (cuda_stack.lstm_stack_scan_fused_res, cuda_stack),
             "lstm_stack_bwd": (cuda_stack.lstm_stack_bwd, cuda_stack)}
@@ -497,7 +534,8 @@ def lstm_kernel_shapes():
 def cudnn_lstm_bf16(torch, lstm):
     """cuDNN's LSTM with the same weights in bf16: the same work with bf16
     storage and other rounding points, the library yardstick of the bf16 rows."""
-    lib = torch.nn.LSTM(lstm.input_size, lstm.hidden_size).cuda().bfloat16()
+    lib = torch.nn.LSTM(lstm.input_size, lstm.hidden_size,
+                        num_layers=lstm.num_layers).cuda().bfloat16()
     with torch.no_grad():
         for name, p in lstm.named_parameters():
             getattr(lib, name).copy_(p)
@@ -1132,31 +1170,42 @@ def phase_har_dense(torch):
                      ("group_vmlmf", "dense_lstm", "gru_dense_x", "gru_group_dense_x"))
 
 
-def phase_bdnet(torch):
-    """-> the launch counts of a short BDNet training run."""
-    from vmlmf_tpu_torch.cells import VMLMFCell
-    from vmlmf_tpu_torch.data.har import synthetic_har
+def bdnet(backend, factory=None, sizes=(GRU["h"], GRU["h"])):
+    """A bidirectional BDNet (77 -> 64 -> 64, concat), GRU w9/u9 by default."""
     from vmlmf_tpu_torch.nn.models import BDNet
+
+    return BDNet(GRU["f"], sizes, num_classes=18, merge="concat", backend=backend,
+                 cell_factory=factory or har_config("gru_main").cell_factory())
+
+
+def bdnet_train(torch, form, label="bdnet"):
+    """A short GRU BDNet training run whose steps must each launch the
+    residual forward and BPTT of ``form`` ("family:form") four times (two
+    layers, two towers) -> (its launch counts, the data)."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
     from vmlmf_tpu_torch.train.har import HARTrainer
 
     b, steps = GRU["b"], 5
     x_tr, y_tr, _, _ = synthetic_har("opp", n_train=steps * b, n_test=b, seed=1)
-
-    def bdnet(backend, factory=har_config("gru_main").cell_factory(), sizes=(GRU["h"], GRU["h"])):
-        return BDNet(GRU["f"], sizes, num_classes=18, merge="concat", backend=backend,
-                     cell_factory=factory)
-
     trainer = HARTrainer(bdnet("fused"), batch_size=b)
     params, opt = trainer.init()
     reset_launch_counts()
     params, opt, hist = trainer.fit(params, opt, x_tr, y_tr, epochs=1, log_fn=None)
     torch.cuda.synchronize()
     launches = launch_counts()
-    print(f"bdnet: {steps} steps, loss {hist[0]['loss']:.4f}, launches {launches}")
-    if launches != only(gru_scan_xin_fwd_res=4 * steps, gru_scan_xin_bwd=4 * steps) or \
-            not hist[0]["loss"] == hist[0]["loss"]:
-        fail(f"each BDNet step must launch the GRU residual forward and BPTT four times "
+    print(f"{label}: {steps} steps, loss {hist[0]['loss']:.4f}, launches {nonzero(launches)}")
+    if launches != train_counts(form, 4 * steps) or not hist[0]["loss"] == hist[0]["loss"]:
+        fail(f"each {label} step must launch the GRU residual forward and BPTT four times "
              f"(two layers, two towers): {launches}, loss {hist}")
+    return launches, (x_tr, y_tr)
+
+
+def phase_bdnet(torch):
+    """-> the launch counts of a short BDNet training run."""
+    from vmlmf_tpu_torch.cells import VMLMFCell
+
+    b = GRU["b"]
+    launches, (x_tr, _) = bdnet_train(torch, "gru:lowrank_pre")
 
     # the reverse tower's fused scans against the loop backend, GRU and LSTM
     x = torch.as_tensor(x_tr[:b], device="cuda")
@@ -1266,46 +1315,54 @@ def phase_reduced(torch):
     a fused form. Each: REDUCED_STEPS train steps at B=81 (exact launches,
     finite losses), then fused against loop logits and gradients."""
     from vmlmf_tpu_torch.data.har import synthetic_har
-    from vmlmf_tpu_torch.train.har import HARTrainer
 
-    b = HAR["b"]
-    x_tr, y_tr, _, _ = synthetic_har("opp", n_train=REDUCED_STEPS * b, n_test=1, seed=3)
-    x, y = torch.as_tensor(x_tr[:b], device="cuda"), torch.as_tensor(y_tr[:b], device="cuda")
+    x_tr, y_tr, _, _ = synthetic_har("opp", n_train=REDUCED_STEPS * HAR["b"], n_test=1, seed=3)
     runs = []
     for name, (_, form) in REDUCED.items():
-        model = har_model(name)
-        layers = len(model.rnn.cells)
-        trainer = HARTrainer(model, batch_size=b)
-        params, opt = trainer.init()
-        reset_launch_counts()
-        losses = [float(trainer.train_step(params, opt, x_tr[i * b:(i + 1) * b],
-                                           y_tr[i * b:(i + 1) * b])[2])
-                  for i in range(REDUCED_STEPS)]
-        with torch.no_grad():
-            before = launch_counts()
-            ok, err = close(torch, model.apply(params, x), har_model(name, "loop").apply(params, x))
-            eval_delta = count_delta(before)
-        torch.cuda.synchronize()
-        launches = launch_counts()
-        train_delta = {k: before[k] for k in launches}
-        want_train = only() if form is None else train_counts(form, layers * REDUCED_STEPS)
-        want_eval = only() if form is None else eval_counts(form, layers)
-        print(f"reduced {name}: losses {[round(v, 4) for v in losses]}, launches in "
-              f"{REDUCED_STEPS} steps {nonzero(train_delta)}, in one no-grad apply "
-              f"{nonzero(eval_delta)}; fused vs loop logits max abs err {err:.3g}")
-        if train_delta != want_train or eval_delta != want_eval:
-            fail(f"reduced {name} must launch {want_train} in training and {want_eval} in one "
-                 f"no-grad apply: {train_delta}, {eval_delta}")
-        if not all(v == v and abs(v) != float("inf") for v in losses) or not ok:
-            fail(f"reduced {name}: losses {losses}, fused vs loop logits {err}")
-        rel, dead = grads_fused_vs_loop(torch, lambda be, n=name: har_model(n, be), x, y)
-        print(f"reduced {name}: fused vs loop gradients, largest relative error {rel:.3g}")
-        if dead or not rel <= GRAD_TOL or (form is None and launch_counts() != launches):
-            fail(f"reduced {name}: fused gradients {rel}, all-zero or missing tensors {dead}, "
-                 f"launches {launch_counts()} after {launches}")
+        launches = reduced_run(torch, name, form, x_tr, y_tr)
         if form is not None:
             runs.append((form, launches))
     return runs
+
+
+def reduced_run(torch, name, form, x_tr, y_tr):
+    """One short run of phase_reduced -> its launch counts; ``form`` names
+    the kernel form whose exact launches it must make (None: none)."""
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    b = HAR["b"]
+    x, y = torch.as_tensor(x_tr[:b], device="cuda"), torch.as_tensor(y_tr[:b], device="cuda")
+    model = har_model(name)
+    layers = len(model.rnn.cells)
+    trainer = HARTrainer(model, batch_size=b)
+    params, opt = trainer.init()
+    reset_launch_counts()
+    losses = [float(trainer.train_step(params, opt, x_tr[i * b:(i + 1) * b],
+                                       y_tr[i * b:(i + 1) * b])[2])
+              for i in range(REDUCED_STEPS)]
+    with torch.no_grad():
+        before = launch_counts()
+        ok, err = close(torch, model.apply(params, x), har_model(name, "loop").apply(params, x))
+        eval_delta = count_delta(before)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    train_delta = {k: before[k] for k in launches}
+    want_train = only() if form is None else train_counts(form, layers * REDUCED_STEPS)
+    want_eval = only() if form is None else eval_counts(form, layers)
+    print(f"reduced {name}: losses {[round(v, 4) for v in losses]}, launches in "
+          f"{REDUCED_STEPS} steps {nonzero(train_delta)}, in one no-grad apply "
+          f"{nonzero(eval_delta)}; fused vs loop logits max abs err {err:.3g}")
+    if train_delta != want_train or eval_delta != want_eval:
+        fail(f"reduced {name} must launch {want_train} in training and {want_eval} in one "
+             f"no-grad apply: {train_delta}, {eval_delta}")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not ok:
+        fail(f"reduced {name}: losses {losses}, fused vs loop logits {err}")
+    rel, dead = grads_fused_vs_loop(torch, lambda be, n=name: har_model(n, be), x, y)
+    print(f"reduced {name}: fused vs loop gradients, largest relative error {rel:.3g}")
+    if dead or not rel <= GRAD_TOL or (form is None and launch_counts() != launches):
+        fail(f"reduced {name}: fused gradients {rel}, all-zero or missing tensors {dead}, "
+             f"launches {launch_counts()} after {launches}")
+    return launches
 
 
 def stack_check_inputs(torch, b, masks, seed=0):
@@ -1367,106 +1424,134 @@ def cudnn_stack(torch, x, x_side, layers, h0s, c0s):
     return lstm, err
 
 
-def phase_stack_kernels(torch):
+def phase_stack_kernels(torch, precision="f32"):
     """Each stack entry against its plain version at the LM stack (L=2, T=35,
     h=650, r=rx=300): the no-grad forward at B in 1/20/128, the residual
     forward and the BPTT (with masks) at B in 20/128. Library: cuDNN's
-    two-layer LSTM on the dense weights, from x; beside it the port's path
-    from x (layer 0's projection in torch ops, then the stack).
-    -> {(entry, "stack", B): row}."""
+    two-layer LSTM on the dense weights, from x (in bf16 for the bf16
+    stack: other rounding points); beside it the port's path from x (layer
+    0's projection in torch ops, then the stack). Under ``precision``
+    "bf16" the bf16 tolerances hold, and the first two steps of each walk
+    must lie 4x nearer the plain bf16 version than the plain f32 one.
+    -> {(entry, "stack" or "stack_bf16", B): row}."""
     from vmlmf_tpu_torch.ops import cuda_stack
 
     rows, extra = {}, {}
     t, h, r, n = LM["prompt"], LM["hidden"], LM["rank"], LM["layers"]
     ranks, xranks = [r] * n, [r] * (n - 1)
+    bf16 = precision == "bf16"
+    shape = "stack_bf16" if bf16 else "stack"
+    tol, grad_tol = (BF16_TOL, BF16_GRAD_TOL) if bf16 else (TOL, GRAD_TOL)
+    fwd_plain, res_plain = cuda_stack.lstm_stack_scan_fused_plain, cuda_stack.lstm_stack_fwd_res_plain
+    bwd_plain = cuda_stack.lstm_stack_bwd_plain
     for b in LM_BATCHES:
         train = b in TRAIN_BATCHES
         x, x_side, layers, h0s, c0s, mk = stack_check_inputs(torch, b, masks=train)
-        label = f"stack L={n} T={t} B={b} h={h} r=rx={r}"
+        label = f"{shape} L={n} T={t} B={b} h={h} r=rx={r}"
         gi0 = layer0_inp(x, *x_side)
         lstm, lib_err = cudnn_stack(torch, x, x_side, layers, h0s, c0s)
         print(f"library: cuDNN {n}-layer LSTM on the dense weights, {label}: max abs err "
-              f"{lib_err:.3g} against the plain stack")
+              f"{lib_err:.3g} against the plain f32 stack")
+        state0 = (torch.stack(h0s), torch.stack(c0s))
+        lib, lib_name, lx = lstm, "cuDNN", x
+        if bf16:
+            lib, lib_name = cudnn_lstm_bf16(torch, lstm), "cuDNN, bf16, other rounding"
+            lx, state0 = x.bfloat16(), tuple(a.bfloat16() for a in state0)
+        mm = cuda_stack.stack_mm_ops(t, b, h, ranks, xranks) if bf16 else 0
 
         # -- the no-grad forward, without masks (serving)
-        out = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s)
+        out = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, None, precision)
         torch.cuda.synchronize()
-        want = cuda_stack.lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s)
-        ok, err = all_close(torch, [out[0], *out[1], *out[2]], [want[0], *want[1], *want[2]], TOL)
+        want = fwd_plain(gi0, layers, h0s, c0s, None, precision)
+        ok, err = all_close(torch, [out[0], *out[1], *out[2]], [want[0], *want[1], *want[2]], tol)
         if not ok:
             fail(f"lstm_stack_fwd disagrees with its plain version at {label}: {err}")
-        state0 = (torch.stack(h0s), torch.stack(c0s))
+        if bf16:
+            bf16_control("lstm_stack_fwd ys[:2]", label, [out[0][:2]], [want[0][:2]],
+                         [fwd_plain(gi0, layers, h0s, c0s)[0][:2]])
 
         def lib_fwd():
             with torch.no_grad():
-                lstm(x, state0)
+                lib(lx, state0)
 
         def port_from_x():
-            cuda_stack.lstm_stack_scan_fused(layer0_inp(x, *x_side), layers, h0s, c0s)
+            cuda_stack.lstm_stack_scan_fused(layer0_inp(x, *x_side), layers, h0s, c0s, None,
+                                             precision)
 
         with torch.no_grad():
-            rows[("lstm_stack_fwd", "stack", b)] = kernel_row(
-                "lstm_stack_fwd", label, err, TOL,
-                cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s), 10),
-                cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused_plain(gi0, layers, h0s,
-                                                                             c0s), 3),
-                cuda_stack.stack_cost(t, b, h, ranks, xranks), cuda_ms(torch, lib_fwd, 10))
+            rows[("lstm_stack_fwd", shape, b)] = kernel_row(
+                "lstm_stack_fwd", label, err, tol,
+                cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s,
+                                                                        None, precision), 10),
+                cuda_ms(torch, lambda: fwd_plain(gi0, layers, h0s, c0s, None, precision), 3),
+                (*cuda_stack.stack_cost(t, b, h, ranks, xranks), mm), cuda_ms(torch, lib_fwd, 10),
+                lib_name)
             extra[f"fwd_b{b}"] = dict(port_from_x_ms=cuda_ms(torch, port_from_x, 10))
         print(f"kernel lstm_stack_fwd {label}: the port from x (projection + stack) "
-              f"{extra[f'fwd_b{b}']['port_from_x_ms']:.4f} ms against cuDNN's from x "
-              f"{rows[('lstm_stack_fwd', 'stack', b)]['library_ms']:.4f} ms")
+              f"{extra[f'fwd_b{b}']['port_from_x_ms']:.4f} ms against {lib_name}'s from x "
+              f"{rows[('lstm_stack_fwd', shape, b)]['library_ms']:.4f} ms")
         if not train:
             continue
 
         # -- the residual forward and the BPTT, with masks, dys given and the
         # final states' cotangents absent, as on the LM's training path
-        res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk)
+        res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, precision)
         torch.cuda.synchronize()
-        res_p = cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, mk)
+        res_p = res_plain(gi0, layers, h0s, c0s, mk, precision)
         ok, err = all_close(torch, [a for group in res for a in group],
-                            [a for group in res_p for a in group], TOL)
+                            [a for group in res_p for a in group], tol)
         if not ok:
             fail(f"lstm_stack_fwd_res disagrees with its plain version at {label}: {err}")
         dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
         none = [None] * n
-        bwd_args = (layers, h0s, c0s, mk, *res, dys, none, none)
+        bwd_args = (layers, h0s, c0s, mk, *res, dys, none, none, precision)
         grads = cuda_stack.lstm_stack_bwd(*bwd_args)
         torch.cuda.synchronize()
-        grads_p = cuda_stack.lstm_stack_bwd_plain(*bwd_args)
+        grads_p = bwd_plain(*bwd_args)
 
         def flat(g):
             return [g[0], *(a for d in g[1] for a in d.values()), *g[2], *g[3]]
 
-        ok_g, err_g = all_close(torch, flat(grads), flat(grads_p), GRAD_TOL)
+        ok_g, err_g = all_close(torch, flat(grads), flat(grads_p), grad_tol)
         if not ok_g:
             fail(f"lstm_stack_bwd disagrees with its plain version at {label}: {err_g}")
+        if bf16:
+            res_f = res_plain(gi0, layers, h0s, c0s, mk)
+            bf16_control("lstm_stack_fwd_res ys, cs [:2] of layer 0", label,
+                         [res[0][0][:2], res[1][0][:2]], [res_p[0][0][:2], res_p[1][0][:2]],
+                         [res_f[0][0][:2], res_f[1][0][:2]])
+            # both plain BPTTs from the kernel's residuals: the backward's rounding alone
+            dgi = [bwd_plain(*bwd_args[:-1], p)[0][-2:] for p in ("bf16", "f32")]
+            bf16_control("lstm_stack_bwd dgi0[-2:]", label, [grads[0][-2:]], [dgi[0]], [dgi[1]])
 
-        xl, hl, cl = (a.detach().requires_grad_() for a in (x, *state0))
-        lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: lstm(xl, (hl, cl)), dys, 10)
+        xl, hl, cl = (a.detach().requires_grad_() for a in (lx, *state0))
+        lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: lib(xl, (hl, cl)),
+                                                  dys.to(lx.dtype), 10)
         cost = dict(masks=True)
-        rows[("lstm_stack_fwd_res", "stack", b)] = kernel_row(
-            "lstm_stack_fwd_res", label + ", masks", err, TOL,
+        rows[("lstm_stack_fwd_res", shape, b)] = kernel_row(
+            "lstm_stack_fwd_res", label + ", masks", err, tol,
             cuda_ms(torch, lambda: cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s,
-                                                                        mk), 10),
-            cuda_ms(torch, lambda: cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s,
-                                                                       mk), 3),
-            cuda_stack.stack_res_cost(t, b, h, ranks, xranks, **cost), lib_fwd_ms)
-        rows[("lstm_stack_bwd", "stack", b)] = kernel_row(
-            "lstm_stack_bwd", label + ", masks", err_g, GRAD_TOL,
+                                                                        mk, precision), 10),
+            cuda_ms(torch, lambda: res_plain(gi0, layers, h0s, c0s, mk, precision), 3),
+            (*cuda_stack.stack_res_cost(t, b, h, ranks, xranks, **cost), mm), lib_fwd_ms,
+            lib_name)
+        rows[("lstm_stack_bwd", shape, b)] = kernel_row(
+            "lstm_stack_bwd", label + ", masks", err_g, grad_tol,
             cuda_ms(torch, lambda: cuda_stack.lstm_stack_bwd(*bwd_args), 10),
-            cuda_ms(torch, lambda: cuda_stack.lstm_stack_bwd_plain(*bwd_args), 3),
-            cuda_stack.stack_bwd_cost(t, b, h, ranks, xranks, **cost), lib_bwd_ms)
-    print(json.dumps({"wavefront_kernels": extra}))
+            cuda_ms(torch, lambda: bwd_plain(*bwd_args), 3),
+            (*cuda_stack.stack_bwd_cost(t, b, h, ranks, xranks, **cost), 2 * mm), lib_bwd_ms,
+            lib_name)
+    print(json.dumps({"wavefront_kernels" + ("_bf16" if bf16 else ""): extra}))
     return rows
 
 
-def wavefront_lm(backend, dropout=0.5, layers=LM["layers"]):
+def wavefront_lm(backend, dropout=0.5, layers=LM["layers"], head_bf16=False):
     """The PTB medium LM through `LMConfig` on a backend."""
     from vmlmf_tpu_torch.config import LMConfig
 
     return LMConfig(hidden_size=LM["hidden"], layer_num=layers, dropout=dropout,
-                    w_rank=LM["rank"], u_ranks=(LM["rank"],),
-                    backend=backend).build_model(LM["vocab"])
+                    w_rank=LM["rank"], u_ranks=(LM["rank"],), backend=backend,
+                    head_bf16=head_bf16).build_model(LM["vocab"])
 
 
 def step_grads(torch, model, params, chunk, seed):
@@ -2039,6 +2124,272 @@ def phase_mixed(torch):
     return rows, runs
 
 
+# -- phase 15: the last variants: the GRU scan's gi mode and recompute
+# policy, and the bf16 stack ----------------------------------------------------
+
+def gru_variant_shapes():
+    """(name, (T, B, F, h, rx, r), mode, low-rank, dx) of the gi-mode and
+    recompute checks, one layer of each recurrent form: the first layers of
+    the two HAR GRUs (low-rank "pre", dense "post") and a dense "pre" layer,
+    at the train batch B=81 and, for the no-grad gi entry, at evaluate's
+    B=256."""
+    t, f, h, rx, r = GRU["t"], GRU["f"], GRU["h"], GRU["rx"], GRU["r"]
+    layers = [("main_l1", r, "pre", True, False), ("group_l1", 0, "post", False, False),
+              ("dense_pre", 0, "pre", False, True)]
+    return [(name, (t, b, f, h, rx, ri), mode, lowrank, dx)
+            for b in (GRU["b"], EVAL_BATCH) for name, ri, mode, lowrank, dx in layers]
+
+
+def phase_gru_variant_kernels(torch):
+    """The gi-mode entries (from the layer's own gi) and the recompute
+    policy's residual forward and BPTT against their plain versions, in the
+    three recurrent forms; cuDNN's GRU from x beside mode "post".
+    -> {(entry, shape name, B): row}; the recompute rows' shape names end
+    in "_recompute"."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    rows = {}
+    for name, (t, b, f, h, rx, r), mode, lowrank, dx in gru_variant_shapes():
+        args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
+        form = cuda_gru.form_of(args[4], mode)
+        size = (t, b, f, rx, h, r, form)
+        label = f"{name} T={t} B={b} F={f} h={h} rx={rx} r={r} mode={mode}"
+        gru, _ = cudnn_gru(torch, args, mode)
+        lib_name = "cuDNN, from x" if gru else "cuDNN"
+        xs, h0 = args[0], args[7]
+        gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+        rec = (gi, *args[4:])
+
+        ys = cuda_gru.gru_scan_fused(*rec, mode=mode)
+        torch.cuda.synchronize()
+        ok, err = close(torch, ys, cuda_gru.gru_scan_fused_plain(*rec, mode=mode))
+        if not ok:
+            fail(f"gru_scan_fwd disagrees with its plain version at {label}, gi mode: {err}")
+
+        def lib_fwd():
+            with torch.no_grad():
+                gru(xs, h0[None])
+
+        checks = [("gru_scan_fwd", name, err, TOL,
+                   cuda_ms(torch, lambda: cuda_gru.gru_scan_fused(*rec, mode=mode), 20),
+                   cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_plain(*rec, mode=mode), 5),
+                   cuda_gru.gru_scan_cost(*size, gi=True),
+                   cuda_ms(torch, lib_fwd, 20) if gru else None)]
+        if b == GRU["b"]:
+            dys = 0.1 * torch.randn(ys.shape, generator=torch.Generator().manual_seed(5)).cuda()
+            lib_fwd_ms = lib_bwd_ms = None
+            if gru is not None:
+                x_leaf, h_leaf = xs.detach().requires_grad_(dx), h0.detach().requires_grad_()
+                lib_fwd_ms, lib_bwd_ms = library_train_ms(
+                    torch, lambda: gru(x_leaf, h_leaf[None]), dys, 20)
+            # -- gi mode: the residual forward and the BPTT, whose dpre is dgi
+            res = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+            torch.cuda.synchronize()
+            ok_r, err_r = all_close(torch, [a for a in res if a is not None],
+                                    [a for a in cuda_gru.gru_recurrence_plain(*rec, mode=mode)
+                                     if a is not None], TOL)
+            saved = (*args[4:], *res, dys)
+            grads = cuda_gru.gru_scan_bwd(*saved, mode=mode)
+            torch.cuda.synchronize()
+            ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
+                                    [a for a in cuda_gru.gru_scan_bwd_plain(*saved, mode=mode)
+                                     if a is not None], GRAD_TOL)
+            if not ok_r or not ok_g:
+                fail(f"gru_scan_fwd_res / gru_scan_bwd disagree with their plain versions at "
+                     f"{label}, gi mode: {err_r}, {err_g}")
+            checks += [
+                ("gru_scan_fwd_res", name, err_r, TOL,
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_res(*rec, mode=mode), 20),
+                 cuda_ms(torch, lambda: cuda_gru.gru_recurrence_plain(*rec, mode=mode), 5),
+                 cuda_gru.gru_scan_res_cost(*size, gi=True), lib_fwd_ms),
+                ("gru_scan_bwd", name, err_g, GRAD_TOL,
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_bwd(*saved, mode=mode), 20),
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_bwd_plain(*saved, mode=mode), 5),
+                 cuda_gru.gru_scan_bwd_cost(*size, gi=True), lib_bwd_ms)]
+            # -- the recompute policy: ys alone forward, the pre-pass in the BPTT
+            fwd_rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+            torch.cuda.synchronize()
+            if any(a is not None for a in fwd_rc[1:]):
+                fail(f"the recompute forward stored residuals at {label}")
+            ok_r, err_r = close(torch, fwd_rc[0], cuda_gru.gru_scan_fused_xin_plain(*args,
+                                                                                  mode=mode))
+            saved_rc = (*args[:3], *args[4:], *fwd_rc, dys)
+            grads = cuda_gru.gru_scan_xin_bwd(*saved_rc, mode=mode, dx=dx, bias=args[3])
+            torch.cuda.synchronize()
+            want = cuda_gru.gru_scan_xin_bwd_plain(*saved_rc, mode=mode, dx=dx, bias=args[3])
+            ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
+                                    [a for a in want if a is not None], GRAD_TOL)
+            if not ok_r or not ok_g:
+                fail(f"the recompute entries disagree with their plain versions at {label}: "
+                     f"{err_r}, {err_g}")
+            rc = name + "_recompute"
+            checks += [
+                ("gru_scan_xin_fwd_res", rc, err_r, TOL,
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_res(
+                     *args, mode=mode, save_gates=False), 20),
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_fwd_res_plain(
+                     *args, mode=mode, save_gates=False), 5),
+                 cuda_gru.gru_scan_res_cost(*size, save_gates=False), lib_fwd_ms),
+                ("gru_scan_xin_bwd", rc, err_g, GRAD_TOL,
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd(*saved_rc, mode=mode, dx=dx,
+                                                                  bias=args[3]), 20),
+                 cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd_plain(
+                     *saved_rc, mode=mode, dx=dx, bias=args[3]), 3),
+                 cuda_gru.gru_scan_bwd_cost(*size, dx=dx, save_gates=False), lib_bwd_ms)]
+        for entry, shape, e_err, tol, ms, plain_ms, cost, lib_ms in checks:
+            variant = "recompute" if shape.endswith("_recompute") else "gi mode"
+            rows[(entry, shape, b)] = kernel_row(entry, f"{label}, {variant}", e_err, tol, ms,
+                                                 plain_ms, cost, lib_ms, lib_name)
+    return rows
+
+
+def gru_residual_memory(torch):
+    """The peak memory of a main HAR GRU train step (B=81) under saved gates,
+    the recompute policy and gi mode."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    x, y, _, _ = synthetic_har("opp", n_train=GRU["b"], n_test=1, seed=2)
+    out = {}
+    for label, env in (("saved", {}), ("recompute", dict(VMLMF_PALLAS_SAVED_GATES="0")),
+                       ("gi", dict(VMLMF_PALLAS_XIN="0"))):
+        with switches(**env):
+            har = HARTrainer(har_model("gru_main"), batch_size=GRU["b"])
+            params, opt = har.init()
+            out[label] = peak_step_mib(torch, lambda: har.train_step(params, opt, x, y))
+    print(json.dumps({"gru_peak_step_mib": out}))
+    return out
+
+
+def phase_mixed_gru(torch):
+    """The two HAR GRUs trained under VMLMF_PALLAS_XIN=0 (gi mode) and under
+    VMLMF_PALLAS_SAVED_GATES=0 (recompute), with saved-gates x mode beside
+    them in the same phase; each with exact launch counts of its entries
+    and no other (no x-mode saved-gates launch), fused against loop
+    gradients, accuracy and macro-F1. Then the dense "pre" GRU (mygru_w9)
+    for a few steps under each switch, a GRU BDNet in gi mode, and the peak
+    memory of a train step under each policy. -> [(form, launch counts)]."""
+    from vmlmf_tpu_torch.data.har import synthetic_har
+
+    data = har_data()
+    x_tr, y_tr, _, _ = synthetic_har("opp", n_train=REDUCED_STEPS * HAR["b"], n_test=1, seed=3)
+    runs, out = [], {}
+    for label, env, forms in (
+            ("gi", dict(VMLMF_PALLAS_XIN="0"),
+             {"gru_main": "gru_gi:lowrank_pre", "gru_group": "gru_gi:dense_post",
+              "mygru_w9": "gru_gi:dense_pre"}),
+            ("recompute", dict(VMLMF_PALLAS_SAVED_GATES="0"),
+             {"gru_main": "gru:recompute", "gru_group": "gru:recompute_dense_post",
+              "mygru_w9": "gru:recompute_dense_pre"}),
+            ("saved", {}, {"gru_main": None, "gru_group": None})):
+        with switches(**env):
+            for name, form in forms.items():
+                if name in HAR_PATHS:
+                    form, launches, out[f"{name}_{label}"] = har_path(torch, name, data, form)
+                else:
+                    launches = reduced_run(torch, name, form, x_tr, y_tr)
+                if label == "recompute":
+                    res, bwd = (entries()[e][0] for e in ("gru_scan_xin_fwd_res",
+                                                          "gru_scan_xin_bwd"))
+                    if set(res.variants) != {"recompute"} or set(bwd.variants) != {"recompute"}:
+                        fail(f"{name} under recompute launched other variants: "
+                             f"{dict(res.variants)}, {dict(bwd.variants)}")
+                if label != "saved":
+                    runs.append((form, launches))
+            if label == "gi":
+                form = "gru_gi:lowrank_pre"
+                runs.append((form, bdnet_train(torch, form, "gi bdnet")[0]))
+    memory = gru_residual_memory(torch)
+    print(json.dumps({"har_gru_variants": {k: dict(step_ms=v["step_ms"], accuracy=v["accuracy"],
+                                                   macro_f1=v["macro_f1"])
+                                           for k, v in out.items()}, "peak_step_mib": memory}))
+    return runs
+
+
+def phase_mixed_wavefront(torch):
+    """The PTB LM in mixed precision (VMLMF_PALLAS_PRECISION=bf16, head_bf16)
+    on "fused_pipelined": the bf16 stack kernels' checks; served at B =
+    1/20/128 and trained at B = 20/128 with exact stack launch counts, every
+    launch of the "bf16" variant; its first step's gradients held to the f32
+    wavefront's; prefill and step ms beside the mixed-precision "fused" LM.
+    -> (rows, [(form, launch counts)])."""
+    from vmlmf_tpu_torch.serve import Decoder
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    rows = phase_stack_kernels(torch, "bf16")
+    form, runs = "lstm_stack:bf16", []
+    with switches(VMLMF_PALLAS_PRECISION="bf16"):
+        wave = wavefront_lm("fused_pipelined", head_bf16=True)
+        params = wave.init(torch.Generator().manual_seed(0), device="cuda")
+        dec = Decoder(wave)
+        for bb in LM_BATCHES:
+            prompt = prompt_ids(torch, bb)
+            reset_launch_counts()
+            logits, states = dec.prefill(params, prompt, wave.state0(bb))
+            prefill_counts = launch_counts()
+            greedy, _ = dec.decode(params, logits, states, steps=64)
+            torch.cuda.synchronize()
+            served = only_variant("bf16")
+            if prefill_counts != eval_counts(form, 1) or served != prefill_counts:
+                fail(f"a mixed-precision wavefront prefill at B={bb} must launch the bf16 no-grad "
+                     f"stack once and decode nothing: {prefill_counts}, {served}")
+            lo, hi = int(greedy.min()), int(greedy.max())
+            if tuple(greedy.shape) != (64, bb) or not 0 <= lo <= hi < LM["vocab"] or \
+                    not bool(torch.isfinite(logits).all()):
+                fail(f"mixed wavefront greedy tokens at B={bb}: {tuple(greedy.shape)}, "
+                     f"[{lo}, {hi}]")
+            runs.append((form, served))
+        print(f"mixed wavefront: each prefill launches {nonzero(eval_counts(form, 1))}")
+        for bb in TRAIN_BATCHES:
+            trn, vld = lm_chunks(bb)
+            trainer = LMTrainer(wavefront_lm("fused_pipelined", head_bf16=True), batch_size=bb,
+                                seq_length=LM["prompt"], learning_rate=1.0, max_grad_norm=5.0)
+            reset_launch_counts()
+            _, tparams = lm_train_run(torch, trainer, trn, TRAIN_CHUNKS, train_counts(form, 1),
+                                      f"mixed wavefront train B={bb}")
+            before = launch_counts()
+            ppl = trainer.perplexity(tparams, vld[:4])
+            if count_delta(before) != eval_counts(form, len(vld[:4])):
+                fail(f"mixed wavefront perplexity must launch only the bf16 no-grad stack: "
+                     f"{count_delta(before)}")
+            runs.append((form, only_variant("bf16")))
+            print(f"mixed wavefront B={bb}: valid perplexity on {len(vld[:4])} chunks {ppl:.2f}")
+        trn, _ = lm_chunks(MAIN_BATCH)
+        g_mixed = step_grads(torch, wavefront_lm("fused_pipelined", 0.0, head_bf16=True), params,
+                             trn[0], seed=3)
+    with switches():
+        g_f32 = step_grads(torch, wavefront_lm("fused_pipelined", 0.0), params, trn[0], seed=3)
+    rel = [float((a - c).abs().max() / c.abs().max()) for a, c in zip(g_mixed, g_f32)]
+    print(f"mixed wavefront: first-step gradients against the f32 wavefront's, largest "
+          f"max|diff| / max|f32 grad| over {len(rel)} tensors {max(rel):.3g} "
+          f"(tol {BF16_GRAD_TOL})")
+    if not max(rel) <= BF16_GRAD_TOL:
+        fail(f"the mixed-precision wavefront gradients part from the f32 ones: {rel}")
+
+    # -- speed beside the mixed-precision per-layer "fused" LM, same params
+    perf = {}
+    with switches(VMLMF_PALLAS_PRECISION="bf16"):
+        models = {be: wavefront_lm(be, head_bf16=True) for be in ("fused_pipelined", "fused")}
+        for bb in LM_BATCHES:
+            ids = prompt_ids(torch, bb)
+            perf[f"prefill_b{bb}"] = {
+                be: cuda_ms(torch, lambda m=m, s0=m.state0(bb): Decoder(m).prefill(params, ids, s0),
+                            5) for be, m in models.items()}
+        for bb in TRAIN_BATCHES:
+            chunks, _ = lm_chunks(bb)
+            for be in models:
+                tr = LMTrainer(wavefront_lm(be, head_bf16=True), batch_size=bb,
+                               seq_length=LM["prompt"])
+                ms = train_step_ms(torch, tr, tr.init(), chunks, 5,
+                                   torch.Generator(device="cuda").manual_seed(1))
+                perf[f"train_b{bb}_{be}"] = dict(step_ms=ms,
+                                                 words_per_s=bb * LM["prompt"] / ms * 1e3)
+    for k, v in perf.items():
+        print(f"mixed wavefront {k}: {v}")
+    print(json.dumps({"mixed_wavefront": dict(perf, gradient_rel=max(rel))}))
+    return rows, runs
+
+
 def trace_step(torch, label, step):
     """One profiled call of step(), after a warm one: device time by kernel,
     the port's against cuBLAS's -> dict(wall_ms, busy_ms, groups)."""
@@ -2065,7 +2416,8 @@ def trace_step(torch, label, step):
         # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
         # grid_scan_kernel and grid_bptt_kernel; "vmlmf::" the tiled GEMMs
         if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
-                                   "stack_step_kernel", "stack_bptt_kernel", "widen_kernel")):
+                                   "stack_step_kernel", "stack_bptt_kernel", "widen_kernel",
+                                   "narrow_kernel")):
             return "port"
         if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
             return "cublas"
@@ -2139,8 +2491,9 @@ def kernel_report(rows, runs):
                 # shape, at the batch its launches ran at (`evaluate`'s for the
                 # no-grad entry of a HAR path, the train step's for the others)
                 row = rows[(name, shape, b_nograd if name.endswith("_fwd") else b_train)]
+                plain = form in FIRST_FORMS and family not in NAMED_FORMS
                 kernels.append(dict(
-                    name=name if form in FIRST_FORMS else f"{name}[{form}]", route="cuda",
+                    name=name if plain else f"{name}[{form}]", route="cuda",
                     source=f"vmlmf_tpu_torch/csrc/{src}.cu",
                     replaces=module.BWD_REPLACES if bwd else module.REPLACES,
                     launches=launches, **row))
@@ -2176,6 +2529,11 @@ def main():
     mixed_rows, mixed_runs = phase_mixed(torch)
     rows.update(mixed_rows)
     runs += mixed_runs
+    rows.update(phase_gru_variant_kernels(torch))
+    runs += phase_mixed_gru(torch)
+    wave_rows, wave_runs = phase_mixed_wavefront(torch)
+    rows.update(wave_rows)
+    runs += wave_runs
     phase_trace(torch)
 
     kernels = kernel_report(rows, runs)

@@ -414,6 +414,45 @@ def test_gru_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRU_CASES), ids=list(GRU_CASES))
+def test_gru_gi_mode_and_recompute_kernels_match_plain(cuda, case):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRU_CASES[case]
+    args = gru_inputs(*GRU_CASES[case], cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    # gi mode, from the layer's own input contribution
+    gi = cuda_gru._x_side(args[0], args[1], args[2], args[3])[1].contiguous()
+    rec = (gi, *args[4:])
+    ys = cuda_gru.gru_scan_fused(*rec, mode=mode)
+    res = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+    grads = cuda_gru.gru_scan_bwd(*args[4:], *res, dys, mode=mode)
+    torch.cuda.synchronize()
+    res_p = cuda_gru.gru_recurrence_plain(*rec, mode=mode)
+    torch.testing.assert_close(ys, res_p[0], **TOL)
+    for got, want in zip(res, res_p):
+        assert (got is None) == (want is None)
+        if want is not None:
+            torch.testing.assert_close(got, want, **TOL)
+    for got, want in zip(grads, cuda_gru.gru_scan_bwd_plain(*args[4:], *res_p, dys, mode=mode)):
+        assert (got is None) == (want is None)
+        if want is not None:
+            torch.testing.assert_close(got, want, **GRAD_TOL)
+    # the recompute policy: the forward stores ys alone, the BPTT rebuilds the rest
+    ys_rc, *none = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+    assert all(a is None for a in none)
+    saved = (*args[:3], *args[4:], ys_rc, *none)
+    grads = cuda_gru.gru_scan_xin_bwd(*saved, dys, mode=mode, bias=args[3])
+    torch.cuda.synchronize()
+    want = cuda_gru.gru_scan_xin_bwd_plain(*saved, dys, mode=mode, bias=args[3])
+    for got, w in zip(grads, want):
+        assert (got is None) == (w is None)
+        if w is not None:
+            torch.testing.assert_close(got, w, **GRAD_TOL)
+
+
+@pytest.mark.cuda
 def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda, monkeypatch):
     from vmlmf_tpu_torch.ops import cuda_gru
 
@@ -427,9 +466,15 @@ def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda, monkeypatch):
     bf16 = [*args[:5], args[5].bfloat16(), *args[6:]]
     with pytest.raises(TypeError, match="float32"):
         cuda_gru.gru_scan_fused_xin(*bf16, mode="pre")
+    # the recompute policy is taken: ys alone from the forward, and a BPTT
+    # that needs the bias in place of the residuals
     monkeypatch.setenv("VMLMF_PALLAS_SAVED_GATES", "0")
-    with pytest.raises(NotImplementedError, match="recompute"):
-        cuda_gru.gru_scan_fused_xin_res(*args, mode="pre")
+    ys, *res = cuda_gru.gru_scan_fused_xin_res(*args, mode="pre")
+    assert all(a is None for a in res)
+    assert cuda_gru.gru_scan_fused_xin_res.variants["recompute"] > 0
+    with pytest.raises(ValueError, match="bias"):
+        cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], ys, *res, torch.zeros_like(ys),
+                                  mode="pre")
     monkeypatch.delenv("VMLMF_PALLAS_SAVED_GATES")
     args[0] = args[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -638,6 +683,35 @@ def test_stack_kernels_match_plain(cuda, case):
     grads_p = cuda_stack.lstm_stack_bwd_plain(layers, h0s, c0s, mk, *res_p, dys, dhl, dcl)
     for a, w in zip(leaves(grads), leaves(grads_p)):
         torch.testing.assert_close(a, w, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STACK_CASES), ids=list(STACK_CASES))
+def test_bf16_stack_kernels_match_plain(cuda, case):
+    # bf16 products: the kernel and its plain version round the same
+    # operands; sums in another order can move a value across a rounding
+    # boundary, hence the bf16 tolerances (tests/test_pallas.py:97, :114)
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    n, t, b, h, ranks, xranks, masks = STACK_CASES[case]
+    gi0, layers, h0s, c0s, mk = stack_inputs(n, t, b, h, ranks, xranks, masks, cuda)
+    tol, grad_tol = dict(atol=5e-3, rtol=5e-3), dict(atol=5e-2, rtol=5e-2)
+    out = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, mk, "bf16")
+    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, "bf16")
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    none = [None] * n
+    grads = cuda_stack.lstm_stack_bwd(layers, h0s, c0s, mk, *res, dys, none, none, "bf16")
+    torch.cuda.synchronize()
+    for a, w in zip(leaves(out), leaves(cuda_stack.lstm_stack_scan_fused_plain(
+            gi0, layers, h0s, c0s, mk, "bf16"))):
+        torch.testing.assert_close(a, w, **tol)
+    res_p = cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, mk, "bf16")
+    for a, w in zip(leaves(res), leaves(res_p)):
+        torch.testing.assert_close(a, w, **tol)
+    for a, w in zip(leaves(grads), leaves(cuda_stack.lstm_stack_bwd_plain(
+            layers, h0s, c0s, mk, *res, dys, none, none, "bf16"))):
+        torch.testing.assert_close(a, w, **grad_tol)
 
 
 def leaves(tree):

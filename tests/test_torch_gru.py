@@ -328,15 +328,30 @@ def test_wrappers_raise_on_forms_the_kernels_do_not_take(why, monkeypatch):
     # off the CPU a wrapper validates its call before it launches anything;
     # meta tensors reach that check on a machine without a card
     t, b, f, h, rx, r = CASES["f_lt_h"]
-    args, err, match = meta_args(), NotImplementedError, "does not take"
+    # the forms that the kernels take pass validation and stop only at the
+    # device check (meta is neither CPU nor CUDA): the dense x side, gi mode
+    # and the recompute policy
+    args, err, match = meta_args(), ValueError, "runs on CPU or CUDA"
     if why == "dense_x":
-        # taken since the dense x side was ported: the call passes validation
-        # and stops only at the device check (meta is neither CPU nor CUDA)
-        args, err, match = meta_args(vx=False), ValueError, "runs on CPU or CUDA"
+        args = meta_args(vx=False)
     elif why == "gi_mode":
         monkeypatch.setenv("VMLMF_PALLAS_XIN", "0")
+        gi = torch.empty(t, b, 3 * h, device="meta")
+        rec = args[4:]
+        for fn in (cuda_gru.gru_scan_fused, cuda_gru.gru_scan_fused_res):
+            with pytest.raises(err, match=match):
+                fn(gi, *rec, mode="pre")
+        res = [torch.empty(s, device="meta") for s in ((t, b, h), (t, b, 3 * h), (t, b, r),
+                                                       (t, b, r))]
+        with pytest.raises(err, match=match):
+            cuda_gru.gru_scan_bwd(*rec, *res, None, torch.empty(t, b, h, device="meta"),
+                                  mode="pre")
     elif why == "recompute":
         monkeypatch.setenv("VMLMF_PALLAS_SAVED_GATES", "0")
+        ys, dys = (torch.empty(t, b, h, device="meta") for _ in range(2))
+        with pytest.raises(err, match=match):
+            cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], ys, *[None] * 5, dys, mode="pre",
+                                      bias=args[3])
     elif why == "f64":
         args = meta_args(h0=torch.empty(b, h, device="meta", dtype=torch.float64))
         err, match = TypeError, "float32"

@@ -307,39 +307,75 @@ def test_rnn_precision_argument_overrides_the_environment(env):
 
 
 def test_the_stack_raises_under_bf16_on_either_wavefront_backend(env, monkeypatch):
+    # neither raises any more: "pipelined" computes f32 under bf16, as the
+    # JAX package's XLA wavefront does, and "fused_pipelined" runs the bf16
+    # stack; only a precision that is neither raises
     monkeypatch.setenv("VMLMF_EXPERIMENTAL_WAVEFRONT", "1")
     cells = tuple(VMLMFCell(8, 8, w_rank=3, u_rank=3) for _ in range(2))
     params = [c.init(torch.Generator().manual_seed(0), device="cpu") for c in cells]
     preps = [c.prepare(p) for c, p in zip(cells, params)]
-    xs, states = torch.zeros(3, 2, 8), [c.state0(2, "cpu") for c in cells]
-    for backend in ("fused_pipelined", "pipelined"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 4"):
-            run_wavefront(backend, cells, preps, xs, states, precision="bf16")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 4"):
-            RNN(cells, backend=backend, precision="bf16")(params, xs, time_major=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 4"):
-        cuda_stack.run_stack_grouped(cells, preps, xs, states, precision="bf16")
+    xs = torch.randn(3, 2, 8, generator=torch.Generator().manual_seed(1))
+    states = [c.state0(2, "cpu") for c in cells]
+    out = {(be, p): run_wavefront(be, cells, preps, xs, states, precision=p)[0]
+           for be in ("fused_pipelined", "pipelined") for p in ("f32", "bf16")}
+    assert torch.equal(out["pipelined", "bf16"], out["pipelined", "f32"])
+    gap = float((out["fused_pipelined", "bf16"] - out["fused_pipelined", "f32"]).abs().max())
+    assert 0 < gap < BF16_FWD_TOL["atol"]
+    grouped = cuda_stack.run_stack_grouped(cells, preps, xs, states, precision="bf16")[0]
+    assert torch.equal(grouped, out["fused_pipelined", "bf16"])
+    rnn = RNN(cells, backend="fused_pipelined", precision="bf16")(params, xs, time_major=True)[0]
+    assert torch.equal(rnn, out["fused_pipelined", "bf16"])
     env({"VMLMF_PALLAS_PRECISION": "bf16"})
-    with pytest.raises(NotImplementedError, match="bf16"):
-        RNN(cells, backend="fused_pipelined")(params, xs, time_major=True)
+    assert torch.equal(RNN(cells, backend="fused_pipelined")(params, xs, time_major=True)[0],
+                       out["fused_pipelined", "bf16"])
+    with pytest.raises(ValueError, match="precision"):
+        run_wavefront("fused_pipelined", cells, preps, xs, states, precision="fp8")
     # reverse=True runs the per-layer fused scans, which take bf16
     ys, _ = RNN(cells, backend="fused_pipelined")(params, xs, time_major=True, reverse=True)
     assert ys.shape == (3, 2, 8)
 
 
+def test_pipelined_rnn_under_bf16_computes_jax_s_f32_result(env, monkeypatch):
+    # the JAX package's XLA wavefront takes no precision (recurrence.py:287-296,
+    # ops/pipeline.py:86): under "bf16" it computes f32, and so does the port's
+    monkeypatch.setenv("VMLMF_EXPERIMENTAL_WAVEFRONT", "1")
+    jcells = tuple(JaxVMLMFCell(n, 12, w_rank=4, u_rank=4) for n in (7, 12))
+    cells = tuple(VMLMFCell(n, 12, w_rank=4, u_rank=4) for n in (7, 12))
+    jparams = [c.init(jax.random.PRNGKey(i)) for i, c in enumerate(jcells)]
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    xs = np.random.default_rng(4).standard_normal((5, 3, 7)).astype(np.float32)
+    want, wfin = JaxRNN(jcells, backend="pipelined", precision="bf16")(
+        jparams, jnp.asarray(xs), time_major=True)
+    for precision, switches in (("bf16", {}), (None, {"VMLMF_PALLAS_PRECISION": "bf16"})):
+        env(switches)
+        got, fin = RNN(cells, backend="pipelined", precision=precision)(
+            params, torch.from_numpy(xs), time_major=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+        for (h, c), (hj, cj) in zip(fin, wfin):
+            np.testing.assert_allclose(h.numpy(), np.asarray(hj), **FWD_TOL)
+            np.testing.assert_allclose(c.numpy(), np.asarray(cj), **FWD_TOL)
+
+
 @pytest.mark.parametrize("switch", ["VMLMF_PALLAS_XIN", "VMLMF_PALLAS_SAVED_GATES"])
 def test_gru_kernels_still_refuse_gi_mode_and_recompute(switch, env, monkeypatch):
+    # the GRU kernels take both switches now (nothing refuses them); each
+    # computes the default's function, through its own route
+    assert not hasattr(cuda_gru, "_unported")
     env({switch: "0"})
-    # on CUDA the wrappers raise with this reason (tests/test_torch_cuda.py);
-    # on the CPU every policy computes the same function
-    assert switch in cuda_gru._unported()
     cell = GRUCell(6, 8, w_rank=3, u_rank=3)
-    prep = cell.prepare(cell.init(torch.Generator().manual_seed(0), device="cpu"))
+    params = cell.init(torch.Generator().manual_seed(0), device="cpu")
+    for p in params.values():
+        p.requires_grad_(True)
     xs = torch.randn(3, 2, 6, generator=torch.Generator().manual_seed(1))
-    ys, _ = scan_layer(cell, prep, xs, cell.state0(2, "cpu"))
+    ys, _ = scan_layer(cell, cell.prepare(params), xs, cell.state0(2, "cpu"))
+    assert type(ys.grad_fn).__name__ == ("GRUScanBackward" if switch == "VMLMF_PALLAS_XIN"
+                                         else "GRUScanXinBackward")
+    grads = torch.autograd.grad(ys.sum(), list(params.values()))
     monkeypatch.delenv(switch)
-    assert cuda_gru._unported() is None
-    torch.testing.assert_close(ys, scan_layer(cell, prep, xs, cell.state0(2, "cpu"))[0])
+    want = scan_layer(cell, cell.prepare(params), xs, cell.state0(2, "cpu"))[0]
+    torch.testing.assert_close(ys, want, **TIGHT)
+    for got, w in zip(grads, torch.autograd.grad(want.sum(), list(params.values()))):
+        torch.testing.assert_close(got, w, **TIGHT)
 
 
 LM_KW = dict(vocab_size=40, hidden_size=24, num_layers=2, dropout_rate=0.0, winit=0.3)

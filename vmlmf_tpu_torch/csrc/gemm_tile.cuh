@@ -38,6 +38,15 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// A value written to a buffer whose only readers are products (the scans'
+// exchange buffers, the stack's shared operands): rounded to bf16 in the
+// bf16 variants, as itself in f32.
+template <bool Bf16>
+__device__ __forceinline__ float exchanged(float v) {
+  if constexpr (Bf16) return round_bf16(v);
+  return v;
+}
+
 constexpr int kTile = 64;        // output tile, rows and columns
 constexpr int kDepth = 16;       // k-slice staged in shared memory
 constexpr int kGemmThreads = 256;

@@ -1,12 +1,14 @@
-// Backward of the fused GRU scan (x mode, saved gates, f32), for sm_90a.
+// Backward of the fused GRU scan (f32), for sm_90a: x mode with saved or
+// recomputed gates, and gi mode.
 //
-// Replaces vmlmf_tpu/ops/pallas_gru.py::_bwd_kernel in the variant that
-// gru_scan_fused_xin's VJP runs in x mode with a low-rank or a dense x side
-// (Vx null), f32, with the saved-gates residual policy, in the three
-// recurrent forms of the
-// forward (gru_scan_xin_fwd.cu: 0 low-rank "pre", 1 dense "pre", 2 dense
-// "post"). From the forward's residuals and the cotangent dys [T,B,h] it
-// walks t = T-1 .. 0 with the carry dh (zero at the start):
+// Replaces vmlmf_tpu/ops/pallas_gru.py::_bwd_kernel in every variant that
+// the JAX package runs: the VJP of gru_scan_fused_xin (x mode, a low-rank or
+// a dense x side (Vx null)) under the saved-gates policy and under the
+// recompute policy (save_gates=False), and the VJP of gru_scan_fused (gi
+// mode, which returns dgi and has no x side), in the three recurrent forms
+// of the forward (gru_scan_xin_fwd.cu: 0 low-rank "pre", 1 dense "pre", 2
+// dense "post"). From the forward's residuals and the cotangent dys [T,B,h]
+// it walks t = T-1 .. 0 with the carry dh (zero at the start):
 //
 //   dh     += dys[t];   (r, z, n) = gates[t];   hp = h_prev
 //   dz      = dh * (hp - n);   dn_pre = dh * (1 - z) * (1 - n^2);   dhp = dh * z
@@ -29,6 +31,23 @@
 //   low-rank x side:  dXU = dPre Vx^T,  dx = dXU Ux^T,  dUx = X^T dXU,  dVx = XU^T dPre
 //   dense x side:     dx = dPre Ux^T,  dUx = X^T dPre
 //   dbias = sum_m dPre
+//   gi mode:          dgi = dPre (no x side)
+//
+// The recompute policy stores only ys in the forward. Before the walk, a
+// pre-pass rebuilds the residuals from x and Hprev, batched over all M rows
+// in the order of pallas_gru.py:278-300, as tiled GEMMs whose epilogues
+// apply the bias and the nonlinearities:
+//
+//   XU = X Ux  (low-rank x side);   G = XU Vx + bias  (or X Ux + bias)
+//   low-rank: HU = Hprev Uf;  [R Z] = sigmoid(G_rz + HU Prz)
+//             RHU = (R * Hprev) Uf;  N = tanh(G_n + RHU Pn)
+//   dense "pre": [R Z] = sigmoid(G_rz + Hprev Prz);  N = tanh(G_n + (R * Hprev) Pn)
+//   "post":      [R Z] = sigmoid(G_rz + Hprev Prz);  RECN = Hprev Pn;  N = tanh(G_n + R * RECN)
+//
+// with R * Hprev formed as the GEMM loads its operand. Each product needs
+// the one before it (R before (R * Hprev) Uf, RHU before N), so these are
+// up to six launches in a chain; then the walk and the GEMMs below run on
+// the rebuilt residuals as they run on saved ones.
 //
 // What bounds it on an H100, and what the design does about it:
 // * The TPU kernel sums the weight gradients in VMEM across a grid that
@@ -51,7 +70,8 @@
 //      two terms run as two GEMMs in turn on the stream, the second adding to
 //      the first.
 // * dx is skipped when the caller passes no dx buffer (a first layer's raw
-//   input needs none).
+//   input needs none). gi mode skips the whole x side and the column sums:
+//   dPre is dgi.
 // * Every edge is masked: B, T*B, F, h, r, rx need not be tile multiples.
 
 #include <cuda_runtime.h>
@@ -67,6 +87,8 @@ constexpr int kBpttThreads = 512;
 constexpr int kSumCols = 32;   // columns per column-sum CTA
 constexpr int kSumLanes = 8;   // row lanes per column-sum CTA
 constexpr int kLowrankPre = 0, kDensePre = 1, kDensePost = 2;
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -288,6 +310,66 @@ bptt_kernel(const float* __restrict__ gates, const float* __restrict__ ys,
   for (int i = threadIdx.x; i < rows * h; i += blockDim.x) dh0[(size_t)b0 * h + i] = dhs[i];
 }
 
+// R * Hprev [M, h], element (i, j) = gates[i, j] * Hprev[i, j]: the operand
+// of the recompute pre-pass's (R * Hprev) @ Uf or @ Pn, formed as it loads.
+struct GatedPrev {
+  const float* gates;
+  const float* first;
+  const float* rest;
+  int nfirst;
+  int ld;
+  static constexpr bool kContigJ = true;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    const float hp = i < nfirst ? first[(size_t)i * ld + j] : rest[(size_t)(i - nfirst) * ld + j];
+    return gates[(size_t)i * 3 * ld + j] * hp;
+  }
+};
+
+// Epilogue of the pre-pass's gi GEMM: g[i, j] = v + bias[j], g [M, 3h].
+struct BiasEpilogue {
+  float* g;
+  const float* bias;
+  int n;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    g[(size_t)i * n + j] = v + bias[j];
+  }
+};
+
+// Epilogue of the r, z product (columns j < 2h), in place on the gi that the
+// gi GEMM wrote into gates [M, 3h]: gates[i, j] = sigmoid(gi[i, j] + v).
+struct RzEpilogue {
+  float* gates;
+  int h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    float* at = gates + (size_t)i * 3 * h + j;
+    *at = sigmoid(*at + v);
+  }
+};
+
+// Epilogue of the candidate's product in "pre" (column j < h), in place:
+// gates[i, 2h + j] = tanh(gi_n[i, j] + v).
+struct NEpilogue {
+  float* gates;
+  int h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    float* at = gates + (size_t)i * 3 * h + 2 * h + j;
+    *at = tanhf(*at + v);
+  }
+};
+
+// Epilogue of RECN = Hprev @ Pn in "post": stores recn and, in place,
+// gates[i, 2h + j] = tanh(gi_n[i, j] + r[i, j] * v), r being final by then.
+struct PostNEpilogue {
+  float* gates;
+  float* recn;
+  int h;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    recn[(size_t)i * h + j] = v;
+    float* row = gates + (size_t)i * 3 * h;
+    row[2 * h + j] = tanhf(row[2 * h + j] + row[j] * v);
+  }
+};
+
 // The transpose of R * Hprev [M, h]: element (i, j) = gates[j, i] * Hprev[j, i],
 // with R the first h columns of gates [M, 3h] and Hprev read as PrevRowsT does.
 struct GatedPrevT {
@@ -368,30 +450,21 @@ cudaError_t bptt(const float* gates, const float* ys, const float* h0, const flo
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches the serial kernel, the GEMMs and the column sums on `stream`;
-// returns the first error. dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank;
-// else null) and dxu [T*B, rx] (low-rank x side; else null) are scratch that
-// the caller allocates; every pointer after them is an output. dx may be
-// null (not computed); uf, hu, rhu, duf are null in the dense recurrent
-// forms, recn outside "post"; vx, xu, dvx for a dense x side.
-extern "C" int gru_scan_xin_bwd(
-    const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
-    const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
-    const float* rhu, const float* recn, const float* xu, const float* dys, float* dpre,
-    float* dhu, float* drhu, float* dxu, float* dx, float* dux, float* dvx, float* dbias,
-    float* duf, float* dprz, float* dpn, float* dh0, int t_len, int batch, int f, int rx, int h,
-    int r, int form, void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+// The serial walk and the recurrent side's weight gradients, from the
+// residuals (saved or rebuilt); writes dpre [M, 3h] and, low-rank, dhu and
+// drhu [M, r] (scratch), and duf, dprz, dpn, dh0. Returns the first error.
+cudaError_t recurrent_grads(const float* uf, const float* prz, const float* pn,
+                            const float* h0, const float* ys, const float* gates,
+                            const float* hu, const float* rhu, const float* recn,
+                            const float* dys, float* dpre, float* dhu, float* drhu, float* duf,
+                            float* dprz, float* dpn, float* dh0, int t_len, int batch, int h,
+                            int r, int form, cudaStream_t stream) {
   const int m = t_len * batch;
   const int g3 = 3 * h;
-  using vmlmf::PrevRowsT;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
   cudaError_t err;
-
   switch (form) {
     case kLowrankPre:
       err = bptt<kLowrankPre>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
@@ -410,7 +483,7 @@ extern "C" int gru_scan_xin_bwd(
   }
   if (err != cudaSuccess) return err;
 
-  const PrevRowsT hprev_t{h0, ys, batch, h};
+  const vmlmf::PrevRowsT hprev_t{h0, ys, batch, h};
   if (form == kLowrankPre) {
     // dPrz [r, 2h] = HU^T [dR dZ];  dPn [r, h] = RHU^T dN
     err = vmlmf::gemm(Transposed{hu, r}, RowMajor{dpre, g3}, Store{dprz, 2 * h}, r, 2 * h, m,
@@ -422,19 +495,109 @@ extern "C" int gru_scan_xin_bwd(
     // dUf [h, r] = Hprev^T dHU, then += (R * Hprev)^T dRHU
     err = vmlmf::gemm(hprev_t, RowMajor{dhu, r}, Store{duf, r}, h, r, m, stream);
     if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{drhu, r}, AddTo{duf, r}, h,
-                      r, m, stream);
-  } else {
-    // dPrz [h, 2h] = Hprev^T [dR dZ]
-    err = vmlmf::gemm(hprev_t, RowMajor{dpre, g3}, Store{dprz, 2 * h}, h, 2 * h, m, stream);
-    if (err != cudaSuccess) return err;
-    if (form == kDensePre)  // dPn [h, h] = (R * Hprev)^T dN
-      err = vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{dpre + 2 * h, g3},
-                        Store{dpn, h}, h, h, m, stream);
-    else  // dPn [h, h] = Hprev^T (dN * R)
-      err = vmlmf::gemm(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{dpn, h}, h, h, m,
-                        stream);
+    return vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{drhu, r}, AddTo{duf, r}, h,
+                       r, m, stream);
   }
+  // dPrz [h, 2h] = Hprev^T [dR dZ]
+  err = vmlmf::gemm(hprev_t, RowMajor{dpre, g3}, Store{dprz, 2 * h}, h, 2 * h, m, stream);
+  if (err != cudaSuccess) return err;
+  if (form == kDensePre)  // dPn [h, h] = (R * Hprev)^T dN
+    return vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{dpre + 2 * h, g3},
+                       Store{dpn, h}, h, h, m, stream);
+  // dPn [h, h] = Hprev^T (dN * R)
+  return vmlmf::gemm(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{dpn, h}, h, h, m,
+                     stream);
+}
+
+// The recompute policy's pre-pass: rebuilds gates [M, 3h], hu and rhu [M, r]
+// (low-rank), recn [M, h] ("post") and xu [M, rx] (low-rank x side) from x
+// and Hprev, as the header sets out. Returns the first error.
+cudaError_t recompute(const float* x, const float* ux, const float* vx, const float* bias,
+                      const float* uf, const float* prz, const float* pn, const float* h0,
+                      const float* ys, float* gates, float* hu, float* rhu, float* recn,
+                      float* xu, int t_len, int batch, int f, int rx, int h, int r, int form,
+                      cudaStream_t stream) {
+  const int m = t_len * batch;
+  const int g3 = 3 * h;
+  using vmlmf::RowMajor;
+  using vmlmf::Store;
+  const BiasEpilogue gi_epi{gates, bias, g3};
+  cudaError_t err;
+  if (vx == nullptr) {  // G = X Ux + bias
+    err = vmlmf::gemm(RowMajor{x, f}, RowMajor{ux, g3}, gi_epi, m, g3, f, stream);
+  } else {  // XU = X Ux;  G = XU Vx + bias
+    err = vmlmf::gemm(RowMajor{x, f}, RowMajor{ux, rx}, Store{xu, rx}, m, rx, f, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(RowMajor{xu, rx}, RowMajor{vx, g3}, gi_epi, m, g3, rx, stream);
+  }
+  if (err != cudaSuccess) return err;
+
+  const vmlmf::PrevRows hprev{h0, ys, batch, h};
+  const GatedPrev rh{gates, h0, ys, batch, h};
+  if (form == kLowrankPre) {
+    // HU = Hprev Uf;  [R Z] = sigmoid(G_rz + HU Prz)
+    err = vmlmf::gemm(hprev, RowMajor{uf, r}, Store{hu, r}, m, r, h, stream);
+    if (err != cudaSuccess) return err;
+    err = vmlmf::gemm(RowMajor{hu, r}, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, 2 * h, r,
+                      stream);
+    if (err != cudaSuccess) return err;
+    // RHU = (R * Hprev) Uf;  N = tanh(G_n + RHU Pn)
+    err = vmlmf::gemm(rh, RowMajor{uf, r}, Store{rhu, r}, m, r, h, stream);
+    if (err != cudaSuccess) return err;
+    return vmlmf::gemm(RowMajor{rhu, r}, RowMajor{pn, h}, NEpilogue{gates, h}, m, h, r, stream);
+  }
+  // [R Z] = sigmoid(G_rz + Hprev Prz)
+  err = vmlmf::gemm(hprev, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, 2 * h, h, stream);
+  if (err != cudaSuccess) return err;
+  if (form == kDensePre)  // N = tanh(G_n + (R * Hprev) Pn)
+    return vmlmf::gemm(rh, RowMajor{pn, h}, NEpilogue{gates, h}, m, h, h, stream);
+  // RECN = Hprev Pn;  N = tanh(G_n + R * RECN)
+  return vmlmf::gemm(hprev, RowMajor{pn, h}, PostNEpilogue{gates, recn, h}, m, h, h, stream);
+}
+
+}  // namespace
+
+// x mode: launches the pre-pass (recompute policy), the serial kernel, the
+// GEMMs and the column sums on `stream`; returns the first error. gates,
+// hu, rhu, recn and xu are the residual forward's (uf, hu, rhu, duf null
+// in the dense recurrent forms, recn outside "post"; vx, xu, dvx for a
+// dense x side). gates null is the recompute policy: bias is then given,
+// hu, rhu, recn and xu are null, and gates_w [T*B, 3h], hu_w and rhu_w
+// [T*B, r] (low-rank), recn_w [T*B, h] ("post") and xu_w [T*B, rx]
+// (low-rank x side) are the scratch that the pre-pass fills; they are null
+// otherwise. dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank; else null)
+// and dxu [T*B, rx] (low-rank x side; else null) are scratch that the
+// caller allocates; every pointer after them is an output. dx may be null
+// (not computed).
+extern "C" int gru_scan_xin_bwd(
+    const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
+    const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
+    const float* rhu, const float* recn, const float* xu, const float* dys, const float* bias,
+    float* gates_w, float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre,
+    float* dhu, float* drhu, float* dxu, float* dx, float* dux, float* dvx, float* dbias,
+    float* duf, float* dprz, float* dpn, float* dh0, int t_len, int batch, int f, int rx, int h,
+    int r, int form, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const int m = t_len * batch;
+  const int g3 = 3 * h;
+  using vmlmf::RowMajor;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  cudaError_t err;
+
+  if (gates == nullptr) {  // the recompute policy
+    if (bias == nullptr || gates_w == nullptr) return cudaErrorInvalidValue;
+    err = recompute(x, ux, vx, bias, uf, prz, pn, h0, ys, gates_w, hu_w, rhu_w, recn_w, xu_w,
+                    t_len, batch, f, rx, h, r, form, stream);
+    if (err != cudaSuccess) return err;
+    gates = gates_w;
+    hu = hu_w;
+    rhu = rhu_w;
+    recn = recn_w;
+    xu = xu_w;
+  }
+  err = recurrent_grads(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, dpre, dhu, drhu, duf,
+                        dprz, dpn, dh0, t_len, batch, h, r, form, stream);
   if (err != cudaSuccess) return err;
 
   if (vx == nullptr) {
@@ -465,7 +628,23 @@ extern "C" int gru_scan_xin_bwd(
   return cudaGetLastError();
 }
 
-// The message of an error code that gru_scan_xin_bwd returned.
+// gi mode: the serial kernel and the recurrent GEMMs on `stream`; returns the
+// first error. The residuals as gru_scan_xin_bwd takes them (saved: gi mode
+// always saves the gates); dgi [T*B, 3h] is dPre, an output; dhu and drhu
+// [T*B, r] (low-rank; else null) are scratch; duf (low-rank; else null),
+// dprz, dpn and dh0 are outputs.
+extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
+                            const float* h0, const float* ys, const float* gates,
+                            const float* hu, const float* rhu, const float* recn,
+                            const float* dys, float* dgi, float* dhu, float* drhu, float* duf,
+                            float* dprz, float* dpn, float* dh0, int t_len, int batch, int h,
+                            int r, int form, void* stream_handle) {
+  return recurrent_grads(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, dgi, dhu, drhu, duf,
+                         dprz, dpn, dh0, t_len, batch, h, r, form,
+                         static_cast<cudaStream_t>(stream_handle));
+}
+
+// The message of an error code that an entry of this file returned.
 extern "C" const char* gru_scan_xin_bwd_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,14 +1,18 @@
-// Fused GRU scan, x mode, f32, for sm_90a: the no-grad forward and the
-// residual-writing forward of training.
+// Fused GRU scan, f32, for sm_90a: the no-grad forward and the
+// residual-writing forward of training, in x mode and in gi mode.
 //
-// Replaces vmlmf_tpu/ops/pallas_gru.py::_fwd_kernel in the variants that
-// gru_scan_fused_xin runs in x mode, f32, with a low-rank or a dense x side:
-// the no-grad primal (residuals=False) and the autodiff forward with the
-// saved-gates policy (residuals=True, save_gates=True). For every batch row
-// and step, in gate order (r, z, n):
+// Replaces vmlmf_tpu/ops/pallas_gru.py::_fwd_kernel in every variant that
+// the JAX package runs: x mode (gru_scan_fused_xin) with a low-rank or a
+// dense x side, the no-grad primal (residuals=False) and the autodiff
+// forward with the saved-gates policy (residuals=True, save_gates=True);
+// the recompute policy's forward (save_gates=False), which writes ys alone
+// and so is the no-grad entry; and gi mode (gru_scan_fused: xin=False),
+// whose input is gi itself, no-grad and with residuals (gi mode always
+// saves the gates). For every batch row and step, in gate order (r, z, n):
 //
 //   gi[t,b] = (x[t,b] @ Ux) @ Vx + bias      low-rank x side
 //           = x[t,b] @ Ux + bias             dense x side (Vx null)
+//           given                            gi mode
 //   r, z    = sigmoid(gi_rz + (h @ Uf) @ Prz)        low-rank "pre"
 //           = sigmoid(gi_rz + h @ Prz)               dense "pre" and "post"
 //   n       = tanh(gi_n + ((r*h) @ Uf) @ Pn)         low-rank "pre"
@@ -32,7 +36,8 @@
 // What bounds it on an H100, and what the design does about it:
 // * The input projection is time-parallel: two tiled GEMM launches over all
 //   T*B rows (gemm_tile.cuh), or one for a dense x side, write gi [T,B,3h],
-//   which the scan reads back.
+//   which the scan reads back. gi mode takes that gi from the caller and
+//   launches the scan alone.
 // * The recurrence is a chain of small dependent products. At the HAR widths
 //   (h=64, r=9) a step is a few thousand multiply-adds per row, so the time
 //   is set by the T steps and the block barriers inside each step (four in
@@ -269,6 +274,26 @@ cudaError_t scan(const float* gi, const float* uf, const float* prz, const float
   return cudaGetLastError();
 }
 
+// The scan of the given form on gi [T*B, 3h].
+template <bool Residuals>
+int scan_form(const float* gi, const float* uf, const float* prz, const float* pn,
+              const float* h0, float* ys, float* gates, float* hu, float* rhu, float* recn,
+              int t_len, int batch, int h, int r, int form, cudaStream_t stream) {
+  switch (form) {
+    case kLowrankPre:
+      return scan<kLowrankPre, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
+                                          batch, h, r, stream);
+    case kDensePre:
+      return scan<kDensePre, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
+                                        batch, h, r, stream);
+    case kDensePost:
+      return scan<kDensePost, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
+                                         batch, h, r, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // The projection GEMMs (two, or one for a dense x side), then the scan of
 // the given form.
 template <bool Residuals>
@@ -289,19 +314,8 @@ int launch(const float* x, const float* ux, const float* vx, const float* bias,
     err = vmlmf::gemm(vmlmf::RowMajor{xu, rx}, vmlmf::RowMajor{vx, g3}, epi, m, g3, rx, stream);
   }
   if (err != cudaSuccess) return err;
-  switch (form) {
-    case kLowrankPre:
-      return scan<kLowrankPre, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
-                                          batch, h, r, stream);
-    case kDensePre:
-      return scan<kDensePre, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
-                                        batch, h, r, stream);
-    case kDensePost:
-      return scan<kDensePost, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
-                                         batch, h, r, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return scan_form<Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len, batch, h, r,
+                              form, stream);
 }
 
 }  // namespace
@@ -330,6 +344,25 @@ extern "C" int gru_scan_xin_fwd_res(const float* x, const float* ux, const float
                                     void* stream_handle) {
   return launch<true>(x, ux, vx, bias, uf, prz, pn, h0, xu, gi, ys, gates, hu, rhu, recn, t_len,
                       batch, f, rx, h, r, form, static_cast<cudaStream_t>(stream_handle));
+}
+
+// gi mode, no-grad forward: the scan alone on the caller's gi [T,B,3h];
+// writes ys [T,B,h].
+extern "C" int gru_scan_fwd(const float* gi, const float* uf, const float* prz,
+                            const float* pn, const float* h0, float* ys, int t_len, int batch,
+                            int h, int r, int form, void* stream_handle) {
+  return scan_form<false>(gi, uf, prz, pn, h0, ys, nullptr, nullptr, nullptr, nullptr, t_len,
+                          batch, h, r, form, static_cast<cudaStream_t>(stream_handle));
+}
+
+// gi mode, residual forward: also writes gates [T,B,3h] and hu, rhu
+// [T,B,r] (low-rank; else null) or recn [T,B,h] ("post"; else null).
+extern "C" int gru_scan_fwd_res(const float* gi, const float* uf, const float* prz,
+                                const float* pn, const float* h0, float* ys, float* gates,
+                                float* hu, float* rhu, float* recn, int t_len, int batch, int h,
+                                int r, int form, void* stream_handle) {
+  return scan_form<true>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len, batch, h, r, form,
+                         static_cast<cudaStream_t>(stream_handle));
 }
 
 // The message of an error code that an entry of this file returned.

@@ -1,7 +1,8 @@
-// Backward of the wavefront LSTM stack, f32, for sm_90a: the reverse
-// staircase.
+// Backward of the wavefront LSTM stack, for sm_90a: the reverse staircase,
+// with f32 or bf16 products.
 //
-// Replaces vmlmf_tpu/ops/pallas_pipeline.py::_mlbwd_kernel, f32. From the
+// Replaces vmlmf_tpu/ops/pallas_pipeline.py::_mlbwd_kernel, bf16=False and
+// bf16=True. From the
 // residuals of the forward (lstm_stack_fwd.cu, residual form: every layer's
 // ys, cs, gates, hu and, for l > 0, xu) and the cotangents dys [T,B,h] of the
 // top layer's outputs and dhlast, dclast [B,h] per layer, any of which may
@@ -21,6 +22,13 @@
 // with sums over all M = T*B rows; Hprev row (t, b) is h0[b] at t = 0 and
 // ys[t-1, b] after. Layer 0's dpre is dgi0, the cotangent of gi0; its x
 // side goes back through the caller's autograd of Cell.inp.
+//
+// The bf16 form rounds the operands of every product to bf16 where the TPU
+// kernel's _cast rounds them (dpre, dhu, h_prev, hu, dXU, x, xu; the
+// weights) and sums in f32; the dvec and dxvec terms, the column sums and
+// every gradient stay f32. The entry makes bf16 copies of every layer's U
+// and V once per call for the serial walks, whose dpre and dhu are rounded
+// by their writers; the GEMMs read through rounding views (gemm_tile.cuh).
 //
 // What bounds it on an H100, and what the design does about it:
 // * The reverse staircase mirrors the forward: time blocks of `block`
@@ -47,6 +55,7 @@
 // * Every edge (B, h, r, rx, a ragged last block in time, the first that
 //   the reverse walk meets) is masked.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -61,7 +70,7 @@ using vmlmf::kRows;
 
 constexpr int kMaxLayers = 8;    // the depth of the layer table; MAX_LAYERS in cuda_stack.py
 constexpr int kBpttThreads = 1024;
-constexpr int kPtrs = 29;        // pointers per layer in the entry's table
+constexpr int kPtrs = 31;        // pointers per layer in the entry's table
 
 // One layer's residuals, scratch and gradients, in the order of the entry's
 // pointer table (BWD_FIELDS in cuda_stack.py). Layer 0 has no x side, no
@@ -97,6 +106,8 @@ struct Layer {
   float* dbias;
   float* dh0;           // [B, h]: the carry between blocks, then the gradient
   float* dc0;
+  __nv_bfloat16* u16;   // [h, r]: the bf16 copy of u (bf16 form; else null)
+  __nv_bfloat16* v16;   // [r, 4h]
   int r, rx;
 };
 
@@ -125,6 +136,7 @@ struct DyEpilogue {
 // l_lo + y over its reverse block. The carry comes from dhlast/dclast at the
 // layer's first block (the last in time), else from dh0/dc0, and goes back
 // there. Shared memory: dhs, dcs [kRows, h], dps [kRows, 4h], dhus [kRows, rmax].
+template <bool Bf16>
 __global__ void __launch_bounds__(kBpttThreads)
 stack_bptt_kernel(Stack st, int l_lo, int j, int n_layers, int nt, int block, int t_len,
                   int batch, int h) {
@@ -153,10 +165,16 @@ stack_bptt_kernel(Stack st, int l_lo, int j, int n_layers, int nt, int block, in
   for (int i = threadIdx.x; i < kRows * (g4 + ly.r); i += blockDim.x) dps[i] = 0.f;
   __syncthreads();
 
-  for (int t = t1 - 1; t >= t0; --t)
-    vmlmf::lstm_bwd_step<false>(t, (size_t)t * batch + b0, batch, b0, ly.gates, ly.cs, ly.c0,
-                                ly.dy, ly.u, ly.v, ly.dvec, dhs, dcs, dps, dhus, ly.dpre, ly.dhu,
-                                rows, h, ly.r);
+  for (int t = t1 - 1; t >= t0; --t) {
+    if constexpr (Bf16)
+      vmlmf::lstm_bwd_step<true>(t, (size_t)t * batch + b0, batch, b0, ly.gates, ly.cs, ly.c0,
+                                 ly.dy, ly.u16, ly.v16, ly.dvec, dhs, dcs, dps, dhus, ly.dpre,
+                                 ly.dhu, rows, h, ly.r);
+    else
+      vmlmf::lstm_bwd_step<false>(t, (size_t)t * batch + b0, batch, b0, ly.gates, ly.cs, ly.c0,
+                                  ly.dy, ly.u, ly.v, ly.dvec, dhs, dcs, dps, dhus, ly.dpre,
+                                  ly.dhu, rows, h, ly.r);
+  }
 
   for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
     ly.dh0[(size_t)b0 * h + i] = dhs[i];
@@ -166,27 +184,31 @@ stack_bptt_kernel(Stack st, int l_lo, int j, int n_layers, int nt, int block, in
 
 // The weight gradients of one layer over all m rows, once the staircase has
 // ended. Returns the first error.
+template <bool Bf16>
 cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, cudaStream_t stream) {
+  using vmlmf::bf16_if;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
   const Layer& ly = st.layer[l];
   const int g4 = 4 * h;
   // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-  cudaError_t err = vmlmf::gemm(Transposed{ly.hu, ly.r}, RowMajor{ly.dpre, g4},
-                                Store{ly.dv, g4}, ly.r, g4, m, stream);
+  cudaError_t err = vmlmf::gemm(bf16_if<Bf16>(Transposed{ly.hu, ly.r}),
+                                bf16_if<Bf16>(RowMajor{ly.dpre, g4}), Store{ly.dv, g4}, ly.r, g4,
+                                m, stream);
   if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(vmlmf::PrevRowsT{ly.h0, ly.ys, batch, h}, RowMajor{ly.dhu, ly.r},
-                    Store{ly.du, ly.r}, h, ly.r, m, stream);
+  err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::PrevRowsT{ly.h0, ly.ys, batch, h}),
+                    bf16_if<Bf16>(RowMajor{ly.dhu, ly.r}), Store{ly.du, ly.r}, h, ly.r, m, stream);
   if (err != cudaSuccess) return err;
   const float* x = l > 0 ? st.layer[l - 1].ys : nullptr;
   if (l > 0) {
     // dUx [h, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-    err = vmlmf::gemm(vmlmf::MaskedRowsT{x, ly.mask, h}, RowMajor{ly.dxu, ly.rx},
-                      Store{ly.dux, ly.rx}, h, ly.rx, m, stream);
+    err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::MaskedRowsT{x, ly.mask, h}),
+                      bf16_if<Bf16>(RowMajor{ly.dxu, ly.rx}), Store{ly.dux, ly.rx}, h, ly.rx, m,
+                      stream);
     if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(Transposed{ly.xu, ly.rx}, RowMajor{ly.dpre, g4}, Store{ly.dvx, g4}, ly.rx,
-                      g4, m, stream);
+    err = vmlmf::gemm(bf16_if<Bf16>(Transposed{ly.xu, ly.rx}), bf16_if<Bf16>(RowMajor{ly.dpre, g4}),
+                      Store{ly.dvx, g4}, ly.rx, g4, m, stream);
     if (err != cudaSuccess) return err;
   }
   // ddvec, and for l > 0 ddxvec and dbias (null for layer 0)
@@ -196,7 +218,9 @@ cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, cudaSt
   return cudaGetLastError();
 }
 
-// The reverse staircase, then the weight gradients. Returns the first error.
+// The reverse staircase, then the weight gradients; in the bf16 form the
+// weight copies first. Returns the first error.
+template <bool Bf16>
 cudaError_t reverse_staircase(const Stack& st, int n_layers, int t_len, int batch, int h,
                               int block, float* partial, size_t partial_floats,
                               cudaStream_t stream) {
@@ -205,8 +229,18 @@ cudaError_t reverse_staircase(const Stack& st, int n_layers, int t_len, int batc
   const int g4 = 4 * h;
   const size_t smem = sizeof(float) * kRows * (2 * h + g4 + rmax);
   cudaError_t err;
+  if (Bf16) {
+    for (int l = 0; l < n_layers; ++l) {
+      const Layer& ly = st.layer[l];
+      err = vmlmf::narrow(ly.u, ly.u16, (size_t)h * ly.r, stream);
+      if (err != cudaSuccess) return err;
+      err = vmlmf::narrow(ly.v, ly.v16, (size_t)ly.r * g4, stream);
+      if (err != cudaSuccess) return err;
+    }
+  }
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(stack_bptt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(stack_bptt_kernel<Bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
@@ -215,7 +249,7 @@ cudaError_t reverse_staircase(const Stack& st, int n_layers, int t_len, int batc
     // layer l is live while its reverse block nt-1-j+(L-1-l) is in [0, nt)
     const int lo = std::max(0, n_layers - 1 - j);
     const int hi = std::min(n_layers - 1, nt - 1 + n_layers - 1 - j);
-    stack_bptt_kernel<<<dim3(cdiv(batch, kRows), hi - lo + 1), kBpttThreads, smem, stream>>>(
+    stack_bptt_kernel<Bf16><<<dim3(cdiv(batch, kRows), hi - lo + 1), kBpttThreads, smem, stream>>>(
         st, lo, j, n_layers, nt, block, t_len, batch, h);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -227,19 +261,21 @@ cudaError_t reverse_staircase(const Stack& st, int n_layers, int t_len, int batc
       const size_t row0 = (size_t)t0 * batch;
       const float* dpre = ly.dpre + row0 * g4;
       float* dxu = ly.dxu + row0 * ly.rx;
-      err = vmlmf::gemm_splitk(vmlmf::RowMajor{dpre, g4}, vmlmf::Transposed{ly.vx, g4},
+      using vmlmf::bf16_if;
+      err = vmlmf::gemm_splitk(bf16_if<Bf16>(vmlmf::RowMajor{dpre, g4}),
+                               bf16_if<Bf16>(vmlmf::Transposed{ly.vx, g4}),
                                vmlmf::Store{dxu, ly.rx}, m, ly.rx, g4, partial, partial_floats,
                                stream);
       if (err != cudaSuccess) return err;
       const DyEpilogue epi{st.layer[l - 1].dy + row0 * h, dpre, ly.dxvec,
                            ly.mask != nullptr ? ly.mask + row0 * h : nullptr, h};
-      err = vmlmf::gemm(vmlmf::RowMajor{dxu, ly.rx}, vmlmf::Transposed{ly.ux, ly.rx}, epi, m, h,
-                        ly.rx, stream);
+      err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::RowMajor{dxu, ly.rx}),
+                        bf16_if<Bf16>(vmlmf::Transposed{ly.ux, ly.rx}), epi, m, h, ly.rx, stream);
       if (err != cudaSuccess) return err;
     }
   }
   for (int l = 0; l < n_layers; ++l) {
-    err = weight_grads(st, l, t_len * batch, batch, h, stream);
+    err = weight_grads<Bf16>(st, l, t_len * batch, batch, h, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -249,12 +285,13 @@ cudaError_t reverse_staircase(const Stack& st, int n_layers, int t_len, int batc
 
 // The reverse staircase and the weight gradients on the current stream.
 // ptrs holds kPtrs pointers per layer in Layer's order (null where a layer
-// has none, and for absent cotangents), ranks (r, rx) per layer; partial is
-// scratch of partial_floats floats for the split-k partial sums of dXU.
-// Returns the first error.
+// has none, and for absent cotangents; u16 and v16, scratch for the bf16
+// copies, null in f32), ranks (r, rx) per layer; partial is scratch of
+// partial_floats floats for the split-k partial sums of dXU; bf16_mm 1 the
+// bf16 form. Returns the first error.
 extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ranks, float* partial,
                               int partial_floats, int n_layers, int t_len, int batch, int h,
-                              int block, void* stream_handle) {
+                              int block, int bf16_mm, void* stream_handle) {
   if (n_layers < 1 || n_layers > kMaxLayers || block < 1) return cudaErrorInvalidValue;
   Stack st{};
   for (int l = 0; l < n_layers; ++l) {
@@ -289,12 +326,18 @@ extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ranks, float* partia
     ly.dbias = static_cast<float*>(p[26]);
     ly.dh0 = static_cast<float*>(p[27]);
     ly.dc0 = static_cast<float*>(p[28]);
+    ly.u16 = static_cast<__nv_bfloat16*>(p[29]);
+    ly.v16 = static_cast<__nv_bfloat16*>(p[30]);
+    if (bf16_mm && (ly.u16 == nullptr || ly.v16 == nullptr)) return cudaErrorInvalidValue;
     ly.r = ranks[2 * l];
     ly.rx = ranks[2 * l + 1];
   }
-  return reverse_staircase(st, n_layers, t_len, batch, h, block, partial,
-                           static_cast<size_t>(partial_floats),
-                           static_cast<cudaStream_t>(stream_handle));
+  const size_t room = static_cast<size_t>(partial_floats);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return bf16_mm ? reverse_staircase<true>(st, n_layers, t_len, batch, h, block, partial, room,
+                                           stream)
+                 : reverse_staircase<false>(st, n_layers, t_len, batch, h, block, partial, room,
+                                            stream);
 }
 
 // The message of an error code that lstm_stack_bwd returned.

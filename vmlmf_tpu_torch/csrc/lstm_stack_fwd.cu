@@ -1,8 +1,8 @@
-// The wavefront LSTM stack, forward, f32, for sm_90a: the no-grad forward and
-// the residual-writing forward of training.
+// The wavefront LSTM stack, forward, for sm_90a: the no-grad forward and the
+// residual-writing forward of training, with f32 or bf16 products.
 //
 // Replaces vmlmf_tpu/ops/pallas_pipeline.py::_mlfwd_kernel (residuals=False
-// and residuals=True), f32. For a stack of L layers, every batch row b and
+// and residuals=True, bf16=False and bf16=True). For a stack of L layers, every batch row b and
 // step t:
 //
 //   layer 0:   gi = gi0[t,b]                           (the caller's Cell.inp)
@@ -16,6 +16,15 @@
 // nonlinearities [T,B,4h], hu = h_prev @ U [T,B,r] and, for l > 0, xu = x @
 // Ux [T*B,rx]. The layers' ranks may differ. Layouts are the port's
 // unpadded ones, all row-major and contiguous.
+//
+// The bf16 form rounds every product's operands to bf16 where the TPU
+// kernel's _cast rounds them (x, xu, h and hu; the weights U, V, Ux, Vx)
+// and sums in f32; the dvec and dxvec terms, the bias, gi0 and the gate
+// arithmetic stay f32, and so do the residuals (xu and hu are the f32
+// products, before any rounding). The entry makes bf16 copies of every
+// layer's U and V once per call, which the serial steps read as 2-byte
+// values through L2; h and hu are rounded by their writers. The projection
+// GEMMs read x, Ux, xu and Vx through rounding views (gemm_tile.cuh).
 //
 // The schedule is the TPU kernel's block staircase: time is cut into blocks
 // of `block` steps (the last one ragged when block does not divide T), and
@@ -49,6 +58,7 @@
 //   split.
 // * Every edge (B, h, r, rx, a ragged last block) is masked.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -63,7 +73,7 @@ using vmlmf::kRows;
 
 constexpr int kMaxLayers = 8;    // the depth of the layer table; MAX_LAYERS in cuda_stack.py
 constexpr int kMaxThreads = 1024;
-constexpr int kPtrs = 18;        // pointers per layer in the entry's table
+constexpr int kPtrs = 20;        // pointers per layer in the entry's table
 
 // One layer's operands and outputs, in the order of the entry's pointer
 // table (FWD_FIELDS in cuda_stack.py). Layer 0 has no x side and no mask,
@@ -89,6 +99,8 @@ struct Layer {
   float* hu;           // [T, B, r]
   float* xu;           // [T*B, rx] (residual) or [block*B, rx]
   float* gi;
+  __nv_bfloat16* u16;  // [h, r]: the bf16 copy of u (bf16 form; else null)
+  __nv_bfloat16* v16;  // [r, 4h]
   int r, rx;
 };
 
@@ -112,8 +124,9 @@ struct GiEpilogue {
 // Wavefront step k: CTA (x, y) runs batch rows x*kRows .. of layer l_lo + y
 // over its time block k - l. The carry comes from h0/c0 at the first block,
 // else from hlast/clast, and goes back there. Shared memory: hs, cs [kRows,
-// h] and hus [kRows, rmax].
-template <bool Residuals>
+// h], in the bf16 form hm [kRows, h] (h rounded, as the product reads it),
+// and hus [kRows, rmax].
+template <bool Residuals, bool Bf16>
 __global__ void __launch_bounds__(kMaxThreads)
 stack_step_kernel(Stack st, int l_lo, int k, int block, int t_len, int batch, int h) {
   extern __shared__ float smem[];
@@ -123,7 +136,8 @@ stack_step_kernel(Stack st, int l_lo, int k, int block, int t_len, int batch, in
   const int t1 = min(t_len, t0 + block);
   float* hs = smem;
   float* cs = hs + kRows * h;
-  float* hus = cs + kRows * h;
+  float* hm = Bf16 ? cs + kRows * h : hs;
+  float* hus = Bf16 ? hm + kRows * h : cs + kRows * h;
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, batch - b0);
   const float* h_in = t0 == 0 ? ly.h0 : ly.hlast;
@@ -133,13 +147,20 @@ stack_step_kernel(Stack st, int l_lo, int k, int block, int t_len, int batch, in
     const bool live = i / h < rows;
     hs[i] = live ? h_in[(size_t)b0 * h + i] : 0.f;
     cs[i] = live ? c_in[(size_t)b0 * h + i] : 0.f;
+    if (Bf16) hm[i] = vmlmf::round_bf16(hs[i]);
   }
   __syncthreads();
 
   // the block's gi rows: gi0 from row t0*B (layer 0), or the block's projection
   const float* gi = ly.gi + (l == 0 ? (size_t)t0 * batch * 4 * h : 0);
-  vmlmf::lstm_fwd_steps<Residuals, false>(t0, t1, gi, ly.u, ly.v, ly.dvec, hs, cs, hus, batch, b0,
-                                          ly.ys, ly.cs, ly.gates, ly.hu, rows, h, ly.r);
+  if constexpr (Bf16)
+    vmlmf::lstm_fwd_steps<Residuals, true>(t0, t1, gi, ly.u16, ly.v16, ly.dvec, hs, cs, hus, hm,
+                                           batch, b0, ly.ys, ly.cs, ly.gates, ly.hu, rows, h,
+                                           ly.r);
+  else
+    vmlmf::lstm_fwd_steps<Residuals, false>(t0, t1, gi, ly.u, ly.v, ly.dvec, hs, cs, hus, hm,
+                                            batch, b0, ly.ys, ly.cs, ly.gates, ly.hu, rows, h,
+                                            ly.r);
 
   for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
     ly.hlast[(size_t)b0 * h + i] = hs[i];
@@ -148,16 +169,26 @@ stack_step_kernel(Stack st, int l_lo, int k, int block, int t_len, int batch, in
 }
 
 // The staircase: per wavefront step, the projection GEMMs of the live layers
-// l > 0, then one launch of all live layers' blocks. Returns the first error.
-template <bool Residuals>
+// l > 0, then one launch of all live layers' blocks; in the bf16 form the
+// weight copies first. Returns the first error.
+template <bool Residuals, bool Bf16>
 cudaError_t staircase(const Stack& st, int n_layers, int t_len, int batch, int h, int block,
                       float* partial, size_t partial_floats, cudaStream_t stream) {
   int rmax = 0;
   for (int l = 0; l < n_layers; ++l) rmax = std::max(rmax, st.layer[l].r);
-  const size_t smem = sizeof(float) * kRows * (2 * h + rmax);
+  const size_t smem = sizeof(float) * kRows * ((Bf16 ? 3 : 2) * h + rmax);
   cudaError_t err;
+  if (Bf16) {
+    for (int l = 0; l < n_layers; ++l) {
+      const Layer& ly = st.layer[l];
+      err = vmlmf::narrow(ly.u, ly.u16, (size_t)h * ly.r, stream);
+      if (err != cudaSuccess) return err;
+      err = vmlmf::narrow(ly.v, ly.v16, (size_t)ly.r * 4 * h, stream);
+      if (err != cudaSuccess) return err;
+    }
+  }
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(stack_step_kernel<Residuals>,
+    err = cudaFuncSetAttribute(stack_step_kernel<Residuals, Bf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -176,14 +207,17 @@ cudaError_t staircase(const Stack& st, int n_layers, int t_len, int batch, int h
       const vmlmf::MaskedRows x{st.layer[l - 1].ys + row0 * h,
                                 ly.mask != nullptr ? ly.mask + row0 * h : nullptr, h};
       float* xu = ly.xu + (Residuals ? row0 * ly.rx : 0);
-      err = vmlmf::gemm_splitk(x, vmlmf::RowMajor{ly.ux, ly.rx}, vmlmf::Store{xu, ly.rx}, m, ly.rx,
-                               h, partial, partial_floats, stream);
+      using vmlmf::bf16_if;
+      err = vmlmf::gemm_splitk(bf16_if<Bf16>(x), bf16_if<Bf16>(vmlmf::RowMajor{ly.ux, ly.rx}),
+                               vmlmf::Store{xu, ly.rx}, m, ly.rx, h, partial, partial_floats,
+                               stream);
       if (err != cudaSuccess) return err;
-      err = vmlmf::gemm(vmlmf::RowMajor{xu, ly.rx}, vmlmf::RowMajor{ly.vx, g4},
+      err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::RowMajor{xu, ly.rx}),
+                        bf16_if<Bf16>(vmlmf::RowMajor{ly.vx, g4}),
                         GiEpilogue{ly.gi, x, ly.dxvec, ly.bias, h}, m, g4, ly.rx, stream);
       if (err != cudaSuccess) return err;
     }
-    stack_step_kernel<Residuals><<<dim3(cdiv(batch, kRows), hi - lo + 1), threads, smem,
+    stack_step_kernel<Residuals, Bf16><<<dim3(cdiv(batch, kRows), hi - lo + 1), threads, smem,
                                    stream>>>(st, lo, k, block, t_len, batch, h);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -194,13 +228,14 @@ cudaError_t staircase(const Stack& st, int n_layers, int t_len, int batch, int h
 }  // namespace
 
 // The forward staircase on the current stream. ptrs holds kPtrs pointers per
-// layer in Layer's order (null where a layer has none), ranks (r, rx) per
-// layer; partial is scratch of partial_floats floats for the split-k
-// partial sums of the projections; residuals 0 is the no-grad form.
+// layer in Layer's order (null where a layer has none; u16 and v16, scratch
+// for the bf16 copies, null in f32), ranks (r, rx) per layer; partial is
+// scratch of partial_floats floats for the split-k partial sums of the
+// projections; residuals 0 is the no-grad form; bf16_mm 1 the bf16 form.
 // Returns the first error.
 extern "C" int lstm_stack_fwd(void* const* ptrs, const int* ranks, float* partial,
                               int partial_floats, int n_layers, int t_len, int batch, int h,
-                              int block, int residuals, void* stream_handle) {
+                              int block, int residuals, int bf16_mm, void* stream_handle) {
   if (n_layers < 1 || n_layers > kMaxLayers || block < 1) return cudaErrorInvalidValue;
   Stack st{};
   for (int l = 0; l < n_layers; ++l) {
@@ -224,14 +259,23 @@ extern "C" int lstm_stack_fwd(void* const* ptrs, const int* ranks, float* partia
     ly.hu = static_cast<float*>(p[15]);
     ly.xu = static_cast<float*>(p[16]);
     ly.gi = static_cast<float*>(p[17]);
+    ly.u16 = static_cast<__nv_bfloat16*>(p[18]);
+    ly.v16 = static_cast<__nv_bfloat16*>(p[19]);
+    if (bf16_mm && (ly.u16 == nullptr || ly.v16 == nullptr)) return cudaErrorInvalidValue;
     ly.r = ranks[2 * l];
     ly.rx = ranks[2 * l + 1];
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const size_t room = static_cast<size_t>(partial_floats);
+  if (bf16_mm)
+    return residuals
+               ? staircase<true, true>(st, n_layers, t_len, batch, h, block, partial, room, stream)
+               : staircase<false, true>(st, n_layers, t_len, batch, h, block, partial, room,
+                                        stream);
   return residuals
-             ? staircase<true>(st, n_layers, t_len, batch, h, block, partial, room, stream)
-             : staircase<false>(st, n_layers, t_len, batch, h, block, partial, room, stream);
+             ? staircase<true, false>(st, n_layers, t_len, batch, h, block, partial, room, stream)
+             : staircase<false, false>(st, n_layers, t_len, batch, h, block, partial, room,
+                                       stream);
 }
 
 // The message of an error code that lstm_stack_fwd returned.

@@ -1,7 +1,7 @@
-// The phases of one LSTM step, forward and backward, and the column sums of
-// the BPTT, shared by the single-layer scan kernels (lstm_scan_xin_fwd.cu,
-// lstm_scan_xin_bwd.cu) and the wavefront stack kernels (lstm_stack_fwd.cu,
-// lstm_stack_bwd.cu), for sm_90a.
+// The phases of one step of a low-rank LSTM layer, forward and backward, in
+// f32 or with bf16 products, for the wavefront stack kernels
+// (lstm_stack_fwd.cu, lstm_stack_bwd.cu), and the column sums of the BPTT,
+// which the single-layer BPTT (lstm_scan_xin_bwd.cu) shares; for sm_90a.
 //
 // A serial CTA owns kRows batch rows, b0 .. b0 + rows - 1, and walks steps
 // with the carry in shared memory. Every thread of the CTA calls the step
@@ -12,7 +12,10 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "gemm_tile.cuh"
 
 namespace vmlmf {
 
@@ -26,71 +29,73 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Forward steps t0 .. t1-1:
-//   pre = gi[row] + h @ U [@ V] + tile4(h) * dvec;  c = sf*c + si*tg;  h = so*tanh(c)
+// A weight element read through L2 and widened to f32: an f32 weight, or a
+// bf16 copy (its 16 bits are the high half of the f32 of the same value).
+__device__ __forceinline__ float ld_w(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_w(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+
+// Forward steps t0 .. t1-1 of a low-rank layer (U [h, r], V [r, 4h]):
+//   hu = h @ U;  pre = gi[row] + hu @ V + tile4(h) * dvec
+//   c = sf*c + si*tg;  h = so*tanh(c)
 // gi_block holds the gi rows from step t0 on: row (t, b) at (t - t0) * batch
-// + b. Shared memory: hs, cs [kRows, h] (the carry) and extra: low-rank, hus
-// [kRows, r] (h @ U of the step); dense (U [h, 4h], v null), the second h
-// buffer, with h read from one buffer and written to the other by the
-// parity of t (t0 even). Writes ys at rows t * batch + b0 + row and, with
-// Residuals, cs_out, gates_out (after the nonlinearities) and, low-rank,
-// hu_out at the same rows.
+// + b. Shared memory: hs, cs [kRows, h] (the carry), hus [kRows, r] (h @ U of
+// the step) and hm [kRows, h], the h that the product reads: hs itself in
+// f32, its bf16-rounded copy in the bf16 form, written beside hs. Writes ys
+// at rows t * batch + b0 + row and, with Residuals, cs_out, gates_out
+// (after the nonlinearities) and hu_out (the f32 product, before any
+// rounding) at the same rows.
 //
-// Low-rank: two phases a step, h@U into shared memory (one thread per rank
-// column, U read down its column), a barrier, then (h@U)@V and the gates (one
-// thread per hidden unit j, V's four gate columns of j read along its rows).
-// Dense: one phase, one thread per j reading U's four gate columns of j.
-template <bool Residuals, bool DenseRec>
+// W is the weights' type: f32, or the bf16 copies of the bf16 form, whose
+// products also read h and hu rounded to bf16 (by their writers) and sum
+// in f32; the dvec term, gi and the gate arithmetic stay f32.
+//
+// Two phases a step, h@U into shared memory (one thread per rank column, U
+// read down its column), a barrier, then (h@U)@V and the gates (one thread
+// per hidden unit j, V's four gate columns of j read along its rows).
+template <bool Residuals, bool Bf16, class W>
 __device__ __forceinline__ void lstm_fwd_steps(
-    int t0, int t1, const float* __restrict__ gi_block, const float* __restrict__ u,
-    const float* __restrict__ v, const float* __restrict__ dvec, float* hs, float* cs,
-    float* extra, int batch, int b0, float* __restrict__ ys, float* __restrict__ cs_out,
+    int t0, int t1, const float* __restrict__ gi_block, const W* __restrict__ u,
+    const W* __restrict__ v, const float* __restrict__ dvec, float* hs, float* cs, float* hus,
+    float* hm, int batch, int b0, float* __restrict__ ys, float* __restrict__ cs_out,
     float* __restrict__ gates_out, float* __restrict__ hu_out, int rows, int h, int r) {
   const int g4 = 4 * h;
-  // the product of the gate phase: (hus [kRows, r]) @ V, or (h [kRows, h]) @ U
-  const float* w = DenseRec ? u : v;
-  const int depth = DenseRec ? h : r;
 
   for (int t = t0; t < t1; ++t) {
     const size_t row_t = (size_t)t * batch + b0;  // first output row of this step
-    // h of this step, and where the next one goes: in place (low-rank, behind
-    // the barrier after hus) or the other buffer (dense)
-    const float* hin = (DenseRec && (t & 1)) ? extra : hs;
-    float* hout = DenseRec ? ((t & 1) ? hs : extra) : hs;
-    if (!DenseRec) {
-      // hus = hs @ U: one thread per rank column, U read down its column.
-      for (int col = threadIdx.x; col < r; col += blockDim.x) {
-        float acc[kRows] = {};
+    // hus = hm @ U: one thread per rank column, U read down its column.
+    for (int col = threadIdx.x; col < r; col += blockDim.x) {
+      float acc[kRows] = {};
 #pragma unroll 4
-        for (int j = 0; j < h; ++j) {
-          const float wj = __ldg(u + (size_t)j * r + col);
+      for (int j = 0; j < h; ++j) {
+        const float wj = ld_w(u + (size_t)j * r + col);
 #pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(hs[row * h + j], wj, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          extra[row * r + col] = acc[row];
-          if (Residuals && row < rows) hu_out[(row_t + row) * r + col] = acc[row];
-        }
+        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(hm[row * h + j], wj, acc[row]);
       }
-      __syncthreads();
+#pragma unroll
+      for (int row = 0; row < kRows; ++row) {
+        hus[row * r + col] = exchanged<Bf16>(acc[row]);
+        if (Residuals && row < rows) hu_out[(row_t + row) * r + col] = acc[row];
+      }
     }
-    const float* src = DenseRec ? hin : extra;
+    __syncthreads();
 
-    // src @ w, then the gates, for hidden unit j of all four gates: each
+    // hus @ V, then the gates, for hidden unit j of all four gates: each
     // (row, j) of the carry is read and written by its own thread only.
     const float* gi_t = gi_block + ((size_t)(t - t0) * batch + b0) * g4;
     float* ys_t = ys + row_t * h;
     for (int j = threadIdx.x; j < h; j += blockDim.x) {
       float acc[4][kRows] = {};
 #pragma unroll 4
-      for (int k = 0; k < depth; ++k) {
-        const float* wk = w + (size_t)k * g4 + j;
-        const float w0 = __ldg(wk), w1 = __ldg(wk + h);
-        const float w2 = __ldg(wk + 2 * h), w3 = __ldg(wk + 3 * h);
+      for (int k = 0; k < r; ++k) {
+        const W* wk = v + (size_t)k * g4 + j;
+        const float w0 = ld_w(wk), w1 = ld_w(wk + h);
+        const float w2 = ld_w(wk + 2 * h), w3 = ld_w(wk + 3 * h);
 #pragma unroll
         for (int row = 0; row < kRows; ++row) {
-          const float s = src[row * depth + k];
+          const float s = hus[row * r + k];
           acc[0][row] = fmaf(s, w0, acc[0][row]);
           acc[1][row] = fmaf(s, w1, acc[1][row]);
           acc[2][row] = fmaf(s, w2, acc[2][row]);
@@ -101,7 +106,7 @@ __device__ __forceinline__ void lstm_fwd_steps(
 #pragma unroll
       for (int row = 0; row < kRows; ++row) {
         if (row < rows) {
-          const float hp = hin[row * h + j];
+          const float hp = hs[row * h + j];
           const float* gr = gi_t + (size_t)row * g4;
           const float si = sigmoid(gr[j] + acc[0][row] + hp * d0);
           const float sf = sigmoid(gr[h + j] + acc[1][row] + hp * d1);
@@ -110,7 +115,8 @@ __device__ __forceinline__ void lstm_fwd_steps(
           const float cn = sf * cs[row * h + j] + si * tg;
           const float hn = so * tanhf(cn);
           cs[row * h + j] = cn;
-          hout[row * h + j] = hn;
+          hs[row * h + j] = hn;
+          if (Bf16) hm[row * h + j] = exchanged<Bf16>(hn);
           ys_t[(size_t)row * h + j] = hn;
           if (Residuals) {
             cs_out[(row_t + row) * h + j] = cn;
@@ -127,26 +133,27 @@ __device__ __forceinline__ void lstm_fwd_steps(
   }
 }
 
-// One reverse step of the BPTT at step t (rows row_t + row), from the saved
-// gates and cs, c_prev = cs[t-1] or c0 at t = 0, and the cotangent dys of
-// the step's outputs (null: zeros):
+// One reverse step of the BPTT of a low-rank layer at step t (rows row_t +
+// row), from the saved gates and cs, c_prev = cs[t-1] or c0 at t = 0, and
+// the cotangent dys of the step's outputs (null: zeros):
 //
 //   dh += dys[t];  tc = tanh(cs[t]);  dc += dh * o * (1 - tc^2)
 //   dpre = [dc*g*i*(1-i), dc*c_prev*f*(1-f), dc*i*(1-g^2), dh*tc*o*(1-o)];  dc *= f
-//   low-rank:  dhu = dpre @ V^T;  dh = sum_g dpre_g * dvec_g + dhu @ U^T
-//   dense:     dh = sum_g dpre_g * dvec_g + dpre @ U^T
+//   dhu = dpre @ V^T;  dh = sum_g dpre_g * dvec_g + dhu @ U^T
 //
 // Shared memory: dhs, dcs [kRows, h] (the carry), dps [kRows, 4h] (dpre of
-// the step) and, low-rank, dhus [kRows, r]. Writes dpre and (low-rank) dhu at
-// the step's rows. The weights are read through L2, one warp per output,
-// lanes along the weight's row: dpre @ U^T reduces over U's row j, which is
-// contiguous, so lanes read neighbouring words with no transposed copy.
-// Three block barriers a step low-rank, two dense.
-template <bool DenseRec>
+// the step, as the product reads it) and dhus [kRows, r]. Writes dpre (f32)
+// and dhu (as the products read it) at the step's rows. In the bf16 form (W
+// the bf16 copies of U and V) the products read dpre and dhu rounded to
+// bf16 by their writers; the dvec term takes the f32 dpre. The weights are
+// read through L2, one warp per output, lanes along the weight's row: dhu @
+// U^T reduces over U's row j, which is contiguous, so lanes read
+// neighbouring words with no transposed copy. Three block barriers a step.
+template <bool Bf16, class W>
 __device__ __forceinline__ void lstm_bwd_step(
     int t, size_t row_t, int batch, int b0, const float* __restrict__ gates,
     const float* __restrict__ cs, const float* __restrict__ c0, const float* __restrict__ dys,
-    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ dvec,
+    const W* __restrict__ u, const W* __restrict__ v, const float* __restrict__ dvec,
     float* dhs, float* dcs, float* dps, float* dhus, float* __restrict__ dpre,
     float* __restrict__ dhu, int rows, int h, int r) {
   const int g4 = 4 * h;
@@ -168,10 +175,10 @@ __device__ __forceinline__ void lstm_bwd_step(
       const float pg = dc * gi * (1.f - gg * gg);
       const float po = dh * tc * go * (1.f - go);
       float* ds = dps + row * g4;
-      ds[j] = pi;
-      ds[h + j] = pf;
-      ds[2 * h + j] = pg;
-      ds[3 * h + j] = po;
+      ds[j] = exchanged<Bf16>(pi);
+      ds[h + j] = exchanged<Bf16>(pf);
+      ds[2 * h + j] = exchanged<Bf16>(pg);
+      ds[3 * h + j] = exchanged<Bf16>(po);
       float* dg = dpre + m * g4;
       dg[j] = pi;
       dg[h + j] = pf;
@@ -183,39 +190,35 @@ __device__ __forceinline__ void lstm_bwd_step(
   }
   __syncthreads();
 
-  if (!DenseRec) {
-    // dhu = dpre @ V^T: one warp per rank k, lanes along V's row k.
-    for (int k = warp; k < r; k += nwarps) {
-      const float* vk = v + (size_t)k * g4;
-      float acc[kRows] = {};
-      for (int n = lane; n < g4; n += 32) {
-        const float w = __ldg(vk + n);
+  // dhu = dpre @ V^T: one warp per rank k, lanes along V's row k.
+  for (int k = warp; k < r; k += nwarps) {
+    const W* vk = v + (size_t)k * g4;
+    float acc[kRows] = {};
+    for (int n = lane; n < g4; n += 32) {
+      const float w = ld_w(vk + n);
 #pragma unroll
-        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g4 + n], w, acc[row]);
-      }
+      for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g4 + n], w, acc[row]);
+    }
 #pragma unroll
-      for (int row = 0; row < kRows; ++row) {
-        const float s = warp_sum(acc[row]);
-        if (lane == 0) {
-          dhus[row * r + k] = s;
-          if (row < rows) dhu[(row_t + row) * r + k] = s;
-        }
+    for (int row = 0; row < kRows; ++row) {
+      const float s = exchanged<Bf16>(warp_sum(acc[row]));
+      if (lane == 0) {
+        dhus[row * r + k] = s;
+        if (row < rows) dhu[(row_t + row) * r + k] = s;
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
-  // dh_prev += src @ w^T, one warp per hidden unit j, lanes along w's row j:
-  // dhu @ U^T (U [h, r]) low-rank, dpre @ U^T (U [h, 4h]) dense.
-  const float* src = DenseRec ? dps : dhus;
-  const int depth = DenseRec ? g4 : r;
+  // dh_prev += dhu @ U^T (U [h, r]), one warp per hidden unit j, lanes along
+  // U's row j.
   for (int j = warp; j < h; j += nwarps) {
-    const float* uj = u + (size_t)j * depth;
+    const W* uj = u + (size_t)j * r;
     float acc[kRows] = {};
-    for (int k = lane; k < depth; k += 32) {
-      const float w = __ldg(uj + k);
+    for (int k = lane; k < r; k += 32) {
+      const float w = ld_w(uj + k);
 #pragma unroll
-      for (int row = 0; row < kRows; ++row) acc[row] = fmaf(src[row * depth + k], w, acc[row]);
+      for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dhus[row * r + k], w, acc[row]);
     }
 #pragma unroll
     for (int row = 0; row < kRows; ++row) {
@@ -224,6 +227,20 @@ __device__ __forceinline__ void lstm_bwd_step(
     }
   }
   __syncthreads();
+}
+
+// dst[e] = src[e] rounded to bf16, for e < n: the bf16 copies of a layer's
+// recurrent weights, made once per call (pallas_pipeline.py's cast_w).
+__global__ void __launch_bounds__(256) narrow_kernel(const float* __restrict__ src,
+                                                     __nv_bfloat16* __restrict__ dst, size_t n) {
+  for (size_t e = (size_t)blockIdx.x * 256 + threadIdx.x; e < n; e += (size_t)gridDim.x * 256)
+    dst[e] = __float2bfloat16_rn(src[e]);
+}
+
+inline cudaError_t narrow(const float* src, __nv_bfloat16* dst, size_t n, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(n < 264 * 256 ? (n + 255) / 256 : 264 * 4);
+  narrow_kernel<<<blocks, 256, 0, stream>>>(src, dst, n);
+  return cudaGetLastError();
 }
 
 constexpr int kSumCols = 32;   // columns per column-sum CTA

@@ -123,14 +123,6 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
                      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
 
-// A value written to an exchange buffer: rounded to bf16 in the bf16
-// variants, whose products read it.
-template <bool Bf16>
-__device__ __forceinline__ float exchanged(float v) {
-  if constexpr (Bf16) return round_bf16(v);
-  return v;
-}
-
 // Floats of shared memory that `elems` weight elements of type W take,
 // rounded up to 16 bytes so that the f32 regions after them stay aligned.
 template <class W>

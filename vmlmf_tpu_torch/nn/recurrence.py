@@ -11,9 +11,9 @@ Two backends, the same function:
     the BPTT kernel in the backward), else the no-grad
     `lstm_scan_fused_xin` / `gru_scan_fused_xin`. Each launches its CUDA
     kernels on CUDA tensors and runs its plain version on CPU tensors.
-    Under ``VMLMF_PALLAS_XIN=0`` an LSTM cell runs gi mode instead
-    (`LSTMScan` / `lstm_scan_fused` on ``cell.inp``), as the JAX package
-    does; the GRU kernels do not take gi mode yet and raise on CUDA.
+    Under ``VMLMF_PALLAS_XIN=0`` a cell runs gi mode instead (`LSTMScan` /
+    `lstm_scan_fused`, `GRUScan` / `gru_scan_fused` on ``cell.inp``), as
+    the JAX package does.
     A cell with no fused form runs the loop under "fused" too, as the JAX
     package runs it on its XLA scan: one without `fused_rec_inputs`
     (`DiagonalLSTMCell`), or whose `fused_rec_inputs` returns None
@@ -35,8 +35,9 @@ product operands, f32 sums), from the argument or, when it is None, from
 ``VMLMF_PALLAS_PRECISION`` (default "f32"); the residual switches
 ``VMLMF_PALLAS_RESIDUALS`` and ``VMLMF_PALLAS_SAVED_GATES`` are read by
 `cuda_scan`. The JAX package reads these when it traces a step, the port
-when it runs one. The wavefront backends have no bf16 kernel yet: under
-"bf16" `run_wavefront` raises (ROADMAP queue 2 item 4).
+when it runs one. "fused_pipelined" takes ``precision`` too (the stack
+kernels' bf16 form); "pipelined" computes f32 under either, as the JAX
+package's XLA wavefront does.
 
 Sequences are time-major ``[T, B, n]``; `RNN.__call__` takes batch-major
 input with ``time_major=False``.
@@ -50,14 +51,14 @@ import os
 import torch
 
 from vmlmf_tpu_torch.nn.layers import dropout
-from vmlmf_tpu_torch.ops.cuda_gru import GRUScanXin, gru_scan_fused_xin
+from vmlmf_tpu_torch.ops.cuda_gru import GRUScan, GRUScanXin, gru_scan_fused, gru_scan_fused_xin
 from vmlmf_tpu_torch.ops.cuda_scan import (
     LSTMScan,
     LSTMScanXin,
     lstm_scan_fused,
     lstm_scan_fused_xin,
 )
-from vmlmf_tpu_torch.ops.cuda_stack import run_stack_grouped, stack_precision
+from vmlmf_tpu_torch.ops.cuda_stack import run_stack_grouped
 from vmlmf_tpu_torch.ops.pipeline import pipelined_available, pipelined_lstm_scan, warn_fallback
 
 BACKENDS = ("loop", "fused")
@@ -83,7 +84,7 @@ def env_precision(precision=None):
 
 
 def use_xin():
-    """Whether an LSTM cell's fused scan takes x and its x side (x mode, the
+    """Whether a cell's fused scan takes x and its x side (x mode, the
     default) or the hoisted ``cell.inp`` (gi mode): VMLMF_PALLAS_XIN=0|1, as
     `vmlmf_tpu.nn.recurrence._use_xin` reads it."""
     env = os.environ.get("VMLMF_PALLAS_XIN")
@@ -113,32 +114,35 @@ def scan_layer(cell, prep, xs, state0, *, reverse=False, backend="fused", precis
     without a fused form; every other backend runs the loop. The state that
     comes back is (h_last, c_last) or h_last = ys[-1]. ``precision`` (None:
     VMLMF_PALLAS_PRECISION) is the LSTM scans'; ``VMLMF_PALLAS_XIN=0`` runs
-    them in gi mode on ``cell.inp``.
+    the scans in gi mode on ``cell.inp``.
     """
     _check_backend(backend)
     fused = backend in ("fused", "fused_pipelined")
     kind, rec = _fused_form(cell, prep) if fused else (None, None)
     if kind is not None:
-        src = (torch.flip(xs, (0,)) if reverse else xs).contiguous()
+        def stream(a):  # the scan's input in the order it walks
+            return (torch.flip(a, (0,)) if reverse else a).contiguous()
+
+        xin = use_xin()
+        # x mode: x and the x side; gi mode: the hoisted, time-parallel input contribution
+        head = (stream(xs),) if xin else (stream(cell.inp(prep, xs)),)
         if kind == "gru":
             uf, prz, pn, mode = rec
-            args = (src, *cell.fused_x_inputs_gru(prep), uf, prz, pn, state0.contiguous())
-            if _needs_grad(args):
-                ys = GRUScanXin.apply(*args, mode)
-            else:
-                ys = gru_scan_fused_xin(*args, mode=mode)
+            if xin:
+                head += cell.fused_x_inputs_gru(prep)
+            args = (*head, uf, prz, pn, state0.contiguous())
+            scan, apply = (gru_scan_fused_xin, GRUScanXin.apply) if xin else \
+                (gru_scan_fused, GRUScan.apply)
+            ys = apply(*args, mode) if _needs_grad(args) else scan(*args, mode=mode)
             state = ys[-1]
         else:
             h0, c0 = state0
             prec = env_precision(precision)
-            if use_xin():
-                args = (src, *cell.fused_x_inputs(prep), *rec, h0.contiguous(), c0.contiguous())
-                scan, apply = lstm_scan_fused_xin, LSTMScanXin.apply
-            else:  # gi mode: the hoisted, time-parallel input contribution
-                gi = cell.inp(prep, xs)
-                gi = (torch.flip(gi, (0,)) if reverse else gi).contiguous()
-                args = (gi, *rec, h0.contiguous(), c0.contiguous())
-                scan, apply = lstm_scan_fused, LSTMScan.apply
+            if xin:
+                head += cell.fused_x_inputs(prep)
+            args = (*head, *rec, h0.contiguous(), c0.contiguous())
+            scan, apply = (lstm_scan_fused_xin, LSTMScanXin.apply) if xin else \
+                (lstm_scan_fused, LSTMScan.apply)
             ys, c_last = apply(*args, prec) if _needs_grad(args) else scan(*args, prec)
             state = (ys[-1], c_last)
         if reverse:
@@ -162,13 +166,12 @@ def run_wavefront(backend, cells, preps, xs, states, *, masks=None, dropout_rate
     inter-layer ``masks``. "pipelined" runs the plain wavefront, which draws
     its own masks from ``generator`` at ``dropout_rate``; for a stack it
     cannot take it runs the per-layer loop after `warn_fallback`, with
-    `dropout` between layers, as the per-layer path draws it. Either raises
-    under ``precision`` (None: VMLMF_PALLAS_PRECISION) "bf16": the stack has
-    no bf16 kernel yet, and it never runs f32 in its place."""
-    precision = env_precision(precision)
-    stack_precision(precision)
+    `dropout` between layers, as the per-layer path draws it. ``precision``
+    (None: VMLMF_PALLAS_PRECISION) is the stack kernels'; "pipelined"
+    computes f32 under any precision, as the JAX package's XLA wavefront
+    does (it takes none)."""
     if backend == "fused_pipelined":
-        return run_stack_grouped(cells, preps, xs, states, masks, precision)
+        return run_stack_grouped(cells, preps, xs, states, masks, env_precision(precision))
     if pipelined_available(cells, preps):
         return pipelined_lstm_scan(cells, preps, xs, states, dropout_rate=dropout_rate,
                                    generator=generator)

@@ -1,5 +1,6 @@
-"""Fused GRU scan with the input projection inside: the port's counterpart of
-`vmlmf_tpu.ops.pallas_gru.gru_scan_fused_xin` and its VJP.
+"""Fused GRU scan: the port's counterpart of `vmlmf_tpu.ops.pallas_gru`'s
+`gru_scan_fused_xin` (x mode, the input projection inside) and
+`gru_scan_fused` (gi mode, the input contribution given), and their VJPs.
 
 For each step, in gate order (r, z, n):
 
@@ -9,37 +10,48 @@ For each step, in gate order (r, z, n):
     mode "post": n = tanh(gi_n + r ⊙ (h @ Pn))                      (dense only)
     h'      = z ⊙ h + (1 − z) ⊙ n
 
-Three kernel entries, each with a plain version (the same arithmetic in torch
+Six kernel entries, each with a plain version (the same arithmetic in torch
 ops, step by step as the Pallas kernel computes it) and a launch count:
 
   * `gru_scan_fused_xin` — the no-grad forward, kernel
     ``csrc/gru_scan_xin_fwd.cu`` entry ``gru_scan_xin_fwd``;
   * `gru_scan_fused_xin_res` — the residual forward of training, entry
     ``gru_scan_xin_fwd_res`` of the same source;
-  * `gru_scan_xin_bwd` — the BPTT, ``csrc/gru_scan_xin_bwd.cu``.
+  * `gru_scan_xin_bwd` — the BPTT, ``csrc/gru_scan_xin_bwd.cu``;
+  * `gru_scan_fused`, `gru_scan_fused_res`, `gru_scan_bwd` — the same in gi
+    mode (entries ``gru_scan_fwd``, ``gru_scan_fwd_res`` and
+    ``gru_scan_bwd`` of the same two sources): gi [T, B, 3h] comes in and
+    the BPTT returns dgi = dpre, with no x side.
 
-`GRUScanXin` is the `torch.autograd.Function` that pairs the last two. On CPU
-tensors the wrappers run their plain versions; on CUDA tensors they launch
-the kernel or raise. The kernels take x mode with a low-rank x side (vx
-given) or a dense one (ux [F, 3h], vx None) and the saved-gates residual
-policy, in the three recurrent forms. For CUDA tensors a wrapper raises on
-what they do not take yet: the JAX package's gi mode (``VMLMF_PALLAS_XIN=0``)
-and recompute policy (``VMLMF_PALLAS_SAVED_GATES=0``). On the CPU those two
-switches change nothing: every policy computes the same function.
+`GRUScanXin` and `GRUScan` are the `torch.autograd.Function`s that pair the
+residual forwards with the BPTTs. The kernels take a low-rank x side (vx
+given) or a dense one (ux [F, 3h], vx None), in the three recurrent forms.
+
+The residual policy is the JAX package's: ``VMLMF_PALLAS_SAVED_GATES=0``
+(`cuda_scan.env_saved_gates`, read when the residual forward is called)
+selects the recompute policy in x mode, whose forward stores ys alone (the
+no-grad kernel body, counted under the variant "recompute") and whose BPTT
+rebuilds the gates, hu, rhu, recn and xu from x and the saved h_prev in a
+batched pre-pass (`gru_recompute_plain`). gi mode always saves the gates,
+as `pallas_gru._scan_core_fwd` does. On CPU tensors the wrappers run their
+plain versions; on CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
 from vmlmf_tpu_torch.ops.cuda_scan import (
     _check_tensors,
+    _counted,
+    _counter,
     _empty,
     _launch,
     _on_cpu,
+    _refuse_grad,
     _require_cuda,
+    env_saved_gates,
+    variant,
 )
 
 KERNEL = "gru_scan_xin_fwd"
@@ -53,6 +65,8 @@ LOWRANK_PRE, DENSE_PRE, DENSE_POST = 0, 1, 2
 _ARG_NAMES = ("xs", "ux", "vx", "bias", "uf", "prz", "pn", "h0")
 _RES_NAMES = ("xs", "ux", "vx", "uf", "prz", "pn", "h0", "ys", "gates", "hu", "rhu", "recn",
               "xu", "dys")
+_GI_NAMES = ("gi", "uf", "prz", "pn", "h0")
+_GI_BWD_NAMES = ("ys", "uf", "prz", "pn", "h0", "gates", "hu", "rhu", "recn", "dys")
 
 
 def form_of(uf, mode):
@@ -66,16 +80,19 @@ def form_of(uf, mode):
     return DENSE_PRE if uf is None else LOWRANK_PRE
 
 
-def gru_scan_xin_fwd_res_plain(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
-    """The kernel's function in torch ops: the batched input projection, then
-    a Python loop over T. -> (ys [T,B,h], gates [T,B,3h] after the
-    nonlinearities, hu = h_prev@Uf and rhu = (r⊙h_prev)@Uf [T,B,r] (low-rank,
-    else None), recn = h_prev@Pn [T,B,h] (post, else None), xu = x@Ux
-    [T,B,rx] (None for a dense x side))."""
+def _x_side(xs, ux, vx, bias):
+    """(xu = x @ Ux, or None for a dense x side; gi = x @ Ux [@ Vx] + bias)."""
+    xu = xs @ ux
+    return (None, xu + bias) if vx is None else (xu, xu @ vx + bias)
+
+
+def gru_recurrence_plain(gi, uf, prz, pn, h0, *, mode="pre"):
+    """The serial part of the scan in torch ops, step by step, from the input
+    contribution gi [T, B, 3h] -> (ys [T,B,h], gates [T,B,3h] after the
+    nonlinearities, hu = h_prev@Uf and rhu = (r⊙h_prev)@Uf [T,B,r]
+    (low-rank, else None), recn = h_prev@Pn [T,B,h] (post, else None))."""
     form = form_of(uf, mode)
     h = h0.shape[-1]
-    xu = xs @ ux
-    gi = xu + bias if vx is None else xu @ vx + bias
     h_t = h0
     ys, gates, hus, rhus, recns = [], [], [], [], []
     for gi_t in gi:
@@ -104,8 +121,20 @@ def gru_scan_xin_fwd_res_plain(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre")
     def stack(a):
         return torch.stack(a) if a else None
 
-    return (torch.stack(ys), torch.stack(gates), stack(hus), stack(rhus), stack(recns),
-            None if vx is None else xu)
+    return torch.stack(ys), torch.stack(gates), stack(hus), stack(rhus), stack(recns)
+
+
+def gru_scan_xin_fwd_res_plain(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre",
+                               save_gates=True):
+    """The kernel's function in torch ops: the batched input projection, then
+    `gru_recurrence_plain` -> (ys, gates, hu, rhu, recn, xu = x@Ux [T,B,rx]
+    (None for a dense x side)). Without ``save_gates`` (the recompute
+    policy) every residual but ys is None."""
+    xu, gi = _x_side(xs, ux, vx, bias)
+    out = gru_recurrence_plain(gi, uf, prz, pn, h0, mode=mode)
+    if not save_gates:
+        return out[0], None, None, None, None, None
+    return (*out, xu)
 
 
 def gru_scan_fused_xin_plain(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
@@ -113,20 +142,53 @@ def gru_scan_fused_xin_plain(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     return gru_scan_xin_fwd_res_plain(xs, ux, vx, bias, uf, prz, pn, h0, mode=mode)[0]
 
 
-def gru_scan_xin_bwd_plain(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, *,
-                           mode="pre", dx=True):
-    """The BPTT kernel's function in torch ops, step by step as
-    `pallas_gru._bwd_kernel` computes it: a reverse loop over T for the gate
-    pre-activation gradients dpre = (dr_pre, dz_pre, dn_pre), the dh carry
-    and the recurrent weight gradients, then the x-side gradients batched
-    over all T*B rows.
+def gru_scan_fused_plain(gi, uf, prz, pn, h0, *, mode="pre"):
+    """`gru_scan_fused`'s function in torch ops -> ys [T, B, h]."""
+    return gru_recurrence_plain(gi, uf, prz, pn, h0, mode=mode)[0]
 
-    -> (dxs, dux, dvx, dbias, duf, dprz, dpn, dh0), shaped as the forward's
-    inputs; duf is None for a dense recurrent side, dvx for a dense x side,
-    and dxs when ``dx`` is False.
-    """
+
+def gru_recompute_plain(xs, ux, vx, bias, uf, prz, pn, h0, ys, *, mode="pre"):
+    """The recompute policy's pre-pass in torch ops, batched over all T*B rows
+    as `pallas_gru._bwd_kernel` rebuilds them (pallas_gru.py:278-300), from x
+    and h_prev (h0, then ys[:-1]) -> (gates [T,B,3h], hu, rhu [T,B,r] or
+    None, recn [T,B,h] or None, xu [T,B,rx] or None), as the saved-gates
+    forward stores them."""
     form = form_of(uf, mode)
-    t, b, f = xs.shape
+    t, b, h = ys.shape
+    xu, gi = _x_side(xs, ux, vx, bias)
+    gi = gi.reshape(t * b, 3 * h)
+    hp = torch.cat([h0[None], ys[:-1]]).reshape(t * b, h)
+    hu = rhu = recn = None
+    if form == LOWRANK_PRE:
+        hu = hp @ uf
+        rz = hu @ prz
+    else:
+        rz = hp @ prz
+    r = torch.sigmoid(gi[:, :h] + rz[:, :h])
+    z = torch.sigmoid(gi[:, h:2 * h] + rz[:, h:])
+    if form == DENSE_POST:
+        recn = hp @ pn
+        n = torch.tanh(gi[:, 2 * h:] + r * recn)
+    elif form == LOWRANK_PRE:
+        rhu = (r * hp) @ uf
+        n = torch.tanh(gi[:, 2 * h:] + rhu @ pn)
+    else:
+        n = torch.tanh(gi[:, 2 * h:] + (r * hp) @ pn)
+
+    def rows(a):
+        return None if a is None else a.reshape(t, b, -1)
+
+    return rows(torch.cat([r, z, n], dim=-1)), rows(hu), rows(rhu), rows(recn), xu
+
+
+def gru_scan_bwd_plain(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, *, mode="pre"):
+    """The serial reverse walk of the BPTT in torch ops, step by step as
+    `pallas_gru._bwd_kernel` computes it: the gate pre-activation gradients
+    dpre = (dr_pre, dz_pre, dn_pre), the dh carry and the recurrent weight
+    gradients. In gi mode dpre is dgi. -> (dpre [T,B,3h], duf (None for a
+    dense recurrent side), dprz, dpn, dh0)."""
+    form = form_of(uf, mode)
+    t = ys.shape[0]
     h = h0.shape[-1]
     hprev = torch.cat([h0[None], ys[:-1]])
     dh = torch.zeros_like(h0)
@@ -167,7 +229,28 @@ def gru_scan_xin_bwd_plain(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn
             dh_prev = dh_prev + drz @ prz.T
         dpres[s] = torch.cat([drz, dn_pre], dim=-1)
         dh = dh_prev
-    dpre2 = torch.stack(dpres).reshape(t * b, 3 * h)
+    return torch.stack(dpres), duf, dprz, dpn, dh
+
+
+def gru_scan_xin_bwd_plain(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, *,
+                           mode="pre", dx=True, bias=None):
+    """The BPTT kernel's function in torch ops: `gru_scan_bwd_plain`'s walk,
+    then the x-side gradients batched over all T*B rows. Gates None is the
+    recompute policy: `gru_recompute_plain` rebuilds the residuals from x,
+    ``bias`` and h_prev first.
+
+    -> (dxs, dux, dvx, dbias, duf, dprz, dpn, dh0), shaped as the forward's
+    inputs; duf is None for a dense recurrent side, dvx for a dense x side,
+    and dxs when ``dx`` is False.
+    """
+    t, b, f = xs.shape
+    h = h0.shape[-1]
+    if gates is None:
+        gates, hu, rhu, recn, xu = gru_recompute_plain(xs, ux, vx, bias, uf, prz, pn, h0, ys,
+                                                       mode=mode)
+    dpre, duf, dprz, dpn, dh = gru_scan_bwd_plain(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys,
+                                                  mode=mode)
+    dpre2 = dpre.reshape(t * b, 3 * h)
     x2 = xs.reshape(t * b, f)
     if vx is None:
         dxu, dvx = dpre2, None
@@ -177,15 +260,6 @@ def gru_scan_xin_bwd_plain(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn
     dux = x2.T @ dxu
     dxs = (dxu @ ux.T).reshape(t, b, f) if dx else None
     return dxs, dux, dvx, dpre2.sum(0), duf, dprz, dpn, dh
-
-
-def _unported():
-    """Why the CUDA kernels do not take this call yet, or None."""
-    if os.environ.get("VMLMF_PALLAS_XIN", "1") != "1":
-        return "gi mode (VMLMF_PALLAS_XIN=0)"
-    if os.environ.get("VMLMF_PALLAS_SAVED_GATES", "1") == "0":
-        return "the recompute policy (VMLMF_PALLAS_SAVED_GATES=0)"
-    return None
 
 
 def _sizes(xs, ux, vx, uf, h0, mode):
@@ -213,18 +287,52 @@ def _shapes(t, b, f, rx, h, r, form):
 
 
 def _check(names, tensors, mode):
-    """Validate a CUDA call: sizes, shapes, types, contiguity and a form the
-    kernels take. -> (T, B, F, rx, h, r, form)."""
+    """Validate a CUDA call: sizes, shapes, types and contiguity. -> (T, B, F,
+    rx, h, r, form)."""
     named = dict(zip(names, tensors))
     sizes = _sizes(named["xs"], named["ux"], named["vx"], named["uf"], named["h0"], mode)
-    why = _unported()
-    if why is not None:
-        raise NotImplementedError(f"the CUDA GRU scan does not take {why} yet")
     given = [(n, a) for n, a in named.items() if a is not None]
     _check_tensors(tuple(n for n, _ in given), [a for _, a in given], _shapes(*sizes))
     return sizes
 
 
+def _check_gi(names, tensors, mode):
+    """Validate a gi-mode CUDA call, whose first tensor is gi [T, B, 3h] or
+    ys [T, B, h]. -> (T, B, h, r, form)."""
+    named = dict(zip(names, tensors))
+    lead, h0, uf = tensors[0], named["h0"], named["uf"]
+    form = form_of(uf, mode)
+    if lead.dim() != 3 or h0.dim() != 2:
+        raise ValueError(f"{names[0]} must be [T, B, n] and h0 [B, h], got {tuple(lead.shape)} "
+                         f"and {tuple(h0.shape)}")
+    (t, b, _), h = lead.shape, h0.shape[-1]
+    r = 0 if uf is None else uf.shape[-1]
+    if min(t, b, h) < 1 or (uf is not None and r < 1):
+        raise ValueError(f"empty scan: T={t}, B={b}, h={h}, r={r}")
+    want = dict(_shapes(t, b, 1, 0, h, r, form), gi=(t, b, 3 * h))
+    given = [(n, a) for n, a in named.items() if a is not None]
+    _check_tensors(tuple(n for n, _ in given), [a for _, a in given], want)
+    return t, b, h, r, form
+
+
+def _check_residuals(form, hu, rhu, recn, mode, uf):
+    """Raise unless exactly the residuals of the form are given."""
+    want = {LOWRANK_PRE: ("hu", "rhu"), DENSE_PRE: (), DENSE_POST: ("recn",)}[form]
+    for name, a in zip(("hu", "rhu", "recn"), (hu, rhu, recn)):
+        if (a is not None) != (name in want):
+            raise ValueError(f"{name} must {'' if name in want else 'not '}be given for "
+                             f"mode={mode!r} with uf {'given' if uf is not None else 'None'}")
+
+
+def _form_buffers(new, t, b, h, r, form):
+    """(hu, rhu, recn) buffers of a form: [T,B,r] twice (low-rank), [T,B,h]
+    ("post"), None otherwise."""
+    if form == LOWRANK_PRE:
+        return new(t, b, r), new(t, b, r), None
+    return None, None, new(t, b, h) if form == DENSE_POST else None
+
+
+@_counter
 def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     """Fused GRU scan, x mode, no gradient.
 
@@ -234,88 +342,101 @@ def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
 
     CPU tensors run `gru_scan_fused_xin_plain`. CUDA tensors must be float32,
     contiguous and on one device; the kernel runs on the current stream and
-    ``gru_scan_fused_xin.launches`` counts its calls. A CUDA input that
-    requires a gradient, with grad mode on, raises: that call belongs to
-    `GRUScanXin`.
+    ``gru_scan_fused_xin.launches`` counts its calls (``.variants``). A CUDA
+    input that requires a gradient, with grad mode on, raises: that call
+    belongs to `GRUScanXin`.
     """
     args = (xs, ux, vx, bias, uf, prz, pn, h0)
     if _on_cpu(args):
         return gru_scan_fused_xin_plain(*args, mode=mode)
     sizes = _check(_ARG_NAMES, args, mode)
     _require_cuda("gru_scan_fused_xin", xs)
-    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
-        raise RuntimeError("gru_scan_fused_xin computes no gradient; inputs that require "
-                           "one go through GRUScanXin.apply")
+    _refuse_grad("gru_scan_fused_xin", args, "GRUScanXin")
+    ys = _launch_nograd(args, sizes)
+    _counted(gru_scan_fused_xin, variant())
+    return ys
+
+
+def _launch_nograd(args, sizes):
+    """Launch entry gru_scan_xin_fwd (the no-grad kernel body) -> ys."""
+    xs = args[0]
     t, b, f, rx, h, r, form = sizes
     with torch.cuda.device(xs.device):
         new = _empty(xs)
         xu = new(t * b, rx) if rx else None
         gi, ys = new(t * b, 3 * h), new(t, b, h)
         _launch(KERNEL, "gru_scan_xin_fwd", (*args, xu, gi, ys), sizes, xs.device)
-    gru_scan_fused_xin.launches += 1
     return ys
 
 
-gru_scan_fused_xin.launches = 0
-
-
-def gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
+@_counter
+def gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre", save_gates=None):
     """The residual forward of training: `gru_scan_fused_xin` that also
     returns the backward's residuals -> (ys, gates, hu, rhu, recn, xu),
     shaped as `gru_scan_xin_fwd_res_plain`'s, which CPU tensors run.
-    ``gru_scan_fused_xin_res.launches`` counts the kernel's calls."""
+    ``save_gates`` False (None: read from VMLMF_PALLAS_SAVED_GATES) is the
+    recompute policy: ys alone, from the no-grad kernel body, and None for
+    every residual. ``gru_scan_fused_xin_res.launches`` counts the kernel's
+    calls, ``.variants`` by policy ("f32" or "recompute")."""
     args = (xs, ux, vx, bias, uf, prz, pn, h0)
+    save_gates = env_saved_gates() if save_gates is None else bool(save_gates)
     if _on_cpu(args):
-        return gru_scan_xin_fwd_res_plain(*args, mode=mode)
+        return gru_scan_xin_fwd_res_plain(*args, mode=mode, save_gates=save_gates)
     sizes = _check(_ARG_NAMES, args, mode)
     _require_cuda("gru_scan_fused_xin_res", xs)
     t, b, f, rx, h, r, form = sizes
+    if not save_gates:
+        ys = _launch_nograd(args, sizes)
+        _counted(gru_scan_fused_xin_res, variant(save_gates=False))
+        return ys, None, None, None, None, None
     with torch.cuda.device(xs.device):
         new = _empty(xs)
         xu = new(t, b, rx) if rx else None
         gi, ys, gates = new(t * b, 3 * h), new(t, b, h), new(t, b, 3 * h)
-        hu = rhu = recn = None
-        if form == LOWRANK_PRE:
-            hu, rhu = new(t, b, r), new(t, b, r)
-        elif form == DENSE_POST:
-            recn = new(t, b, h)
+        hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
         _launch(KERNEL, "gru_scan_xin_fwd_res", (*args, xu, gi, ys, gates, hu, rhu, recn),
                 sizes, xs.device)
-    gru_scan_fused_xin_res.launches += 1
+    _counted(gru_scan_fused_xin_res, variant())
     return ys, gates, hu, rhu, recn, xu
 
 
-gru_scan_fused_xin_res.launches = 0
-
-
+@_counter
 def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, *,
-                     mode="pre", dx=True):
+                     mode="pre", dx=True, bias=None):
     """Gradients of the fused GRU scan from the residual forward's outputs and
     the cotangent ``dys [T, B, h]`` -> (dxs, dux, dvx, dbias, duf, dprz, dpn,
     dh0); duf is None for a dense recurrent side, dxs when ``dx`` is False.
+    Gates None is the recompute policy: hu, rhu, recn and xu are None too,
+    ``bias`` is given, and a pre-pass rebuilds them.
 
     CPU tensors run `gru_scan_xin_bwd_plain`; CUDA tensors launch the BPTT
-    kernel, counted by ``gru_scan_xin_bwd.launches``.
+    kernel, counted by ``gru_scan_xin_bwd.launches`` (``.variants``).
     """
     if dys is None:
         raise ValueError("gru_scan_xin_bwd needs the cotangent dys")
     saved = (xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys)
-    if _on_cpu(saved):
-        return gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx)
-    sizes = _check(_RES_NAMES, saved, mode)
+    if _on_cpu((*saved, bias)):
+        return gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx, bias=bias)
+    sizes = _check((*_RES_NAMES, "bias"), (*saved, bias), mode)
     _require_cuda("gru_scan_xin_bwd", xs)
     t, b, f, rx, h, r, form = sizes
-    want = {LOWRANK_PRE: ("hu", "rhu"), DENSE_PRE: (), DENSE_POST: ("recn",)}[form]
-    for name, a in zip(("hu", "rhu", "recn"), (hu, rhu, recn)):
-        if (a is not None) != (name in want):
-            raise ValueError(f"{name} must {'' if name in want else 'not '}be given for "
-                             f"mode={mode!r} with uf {'given' if uf is not None else 'None'}")
-    if (xu is None) != (vx is None):
-        raise ValueError(f"xu must {'not ' if vx is None else ''}be given with vx "
-                         f"{'None' if vx is None else 'given'}")
+    recompute = gates is None
+    if recompute:
+        if any(a is not None for a in (hu, rhu, recn, xu)) or bias is None:
+            raise ValueError("the recompute policy (gates None) takes no hu, rhu, recn or xu, "
+                             "and takes bias")
+    else:
+        _check_residuals(form, hu, rhu, recn, mode, uf)
+        if (xu is None) != (vx is None):
+            raise ValueError(f"xu must {'not ' if vx is None else ''}be given with vx "
+                             f"{'None' if vx is None else 'given'}")
     with torch.cuda.device(xs.device):
         new = _empty(xs)
         lowrank = form == LOWRANK_PRE
+        work = (None,) * 5
+        if recompute:  # what the pre-pass rebuilds: gates, hu, rhu, recn, xu
+            work = (new(t, b, 3 * h), *_form_buffers(new, t, b, h, r, form),
+                    new(t, b, rx) if rx else None)
         dpre = new(t * b, 3 * h)
         dxu = new(t * b, rx) if rx else None
         dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
@@ -323,30 +444,29 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
                  new(rx, 3 * h) if rx else None, new(3 * h),
                  new(h, r) if lowrank else None, torch.empty_like(prz), torch.empty_like(pn),
                  new(b, h))
-        _launch(BWD_KERNEL, "gru_scan_xin_bwd", (*saved, dpre, dhu, drhu, dxu, *grads), sizes,
-                xs.device)
-    gru_scan_xin_bwd.launches += 1
+        _launch(BWD_KERNEL, "gru_scan_xin_bwd",
+                (*saved, bias, *work, dpre, dhu, drhu, dxu, *grads), sizes, xs.device)
+    _counted(gru_scan_xin_bwd, variant(save_gates=not recompute))
     return grads
-
-
-gru_scan_xin_bwd.launches = 0
 
 
 class GRUScanXin(torch.autograd.Function):
     """The differentiable fused GRU scan: the residual forward, then the BPTT.
 
     ``GRUScanXin.apply(xs, ux, vx, bias, uf, prz, pn, h0, mode)`` -> ys, with
-    gradients for every tensor input (uf may be None). The final state is
-    ``ys[-1]``, whose gradient reaches the backward through autograd's
-    indexing. dx is computed only when xs needs a gradient (not for a first
-    layer's raw input).
+    gradients for every tensor input (uf may be None). The residual policy
+    comes from VMLMF_PALLAS_SAVED_GATES, read at call time (the JAX package
+    reads it at trace time). The final state is ``ys[-1]``, whose gradient
+    reaches the backward through autograd's indexing. dx is computed only
+    when xs needs a gradient (not for a first layer's raw input).
     """
 
     @staticmethod
     def forward(ctx, xs, ux, vx, bias, uf, prz, pn, h0, mode):
         ys, gates, hu, rhu, recn, xu = gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0,
                                                               mode=mode)
-        ctx.save_for_backward(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu)
+        ctx.save_for_backward(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu,
+                              bias if gates is None else None)
         ctx.mode = mode
         ctx.set_materialize_grads(False)
         return ys
@@ -355,9 +475,106 @@ class GRUScanXin(torch.autograd.Function):
     def backward(ctx, dys):
         if dys is None:
             return (None,) * 9
-        grads = gru_scan_xin_bwd(*ctx.saved_tensors, dys.contiguous(), mode=ctx.mode,
-                                 dx=ctx.needs_input_grad[0])
+        *saved, bias = ctx.saved_tensors
+        grads = gru_scan_xin_bwd(*saved, dys.contiguous(), mode=ctx.mode,
+                                 dx=ctx.needs_input_grad[0], bias=bias)
         return (*grads, None)
+
+
+@_counter
+def gru_scan_fused(gi, uf, prz, pn, h0, *, mode="pre"):
+    """Fused GRU scan, gi mode, no gradient: `pallas_gru.gru_scan_fused`.
+
+    gi [T, B, 3h] is the input contribution (the cell's ``inp``, gate order
+    r, z, n); the recurrent side, h0 and ``mode`` as `gru_scan_fused_xin`
+    takes them. Returns ys [T, B, h]. CPU tensors run
+    `gru_scan_fused_plain`; CUDA tensors launch entry ``gru_scan_fwd``,
+    counted by ``gru_scan_fused.launches``.
+    """
+    args = (gi, uf, prz, pn, h0)
+    if _on_cpu(args):
+        return gru_scan_fused_plain(*args, mode=mode)
+    sizes = _check_gi(_GI_NAMES, args, mode)
+    _require_cuda("gru_scan_fused", gi)
+    _refuse_grad("gru_scan_fused", args, "GRUScan")
+    t, b, h, r, form = sizes
+    with torch.cuda.device(gi.device):
+        ys = _empty(gi)(t, b, h)
+        _launch(KERNEL, "gru_scan_fwd", (*args, ys), sizes, gi.device)
+    _counted(gru_scan_fused, variant())
+    return ys
+
+
+@_counter
+def gru_scan_fused_res(gi, uf, prz, pn, h0, *, mode="pre"):
+    """The residual forward of gi mode -> (ys, gates, hu, rhu, recn), as
+    `gru_recurrence_plain` returns them (which CPU tensors run). gi mode
+    always saves the gates (the JAX package's recompute policy is x mode
+    only). Entry ``gru_scan_fwd_res``, counted by
+    ``gru_scan_fused_res.launches``."""
+    args = (gi, uf, prz, pn, h0)
+    if _on_cpu(args):
+        return gru_recurrence_plain(*args, mode=mode)
+    sizes = _check_gi(_GI_NAMES, args, mode)
+    _require_cuda("gru_scan_fused_res", gi)
+    t, b, h, r, form = sizes
+    with torch.cuda.device(gi.device):
+        new = _empty(gi)
+        ys, gates = new(t, b, h), new(t, b, 3 * h)
+        hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
+        _launch(KERNEL, "gru_scan_fwd_res", (*args, ys, gates, hu, rhu, recn), sizes, gi.device)
+    _counted(gru_scan_fused_res, variant())
+    return ys, gates, hu, rhu, recn
+
+
+@_counter
+def gru_scan_bwd(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, *, mode="pre"):
+    """Gradients of the gi-mode scan -> (dgi, duf, dprz, dpn, dh0): the BPTT
+    walk, whose dpre is dgi, and the recurrent weight gradients; no x side
+    (`pallas_gru._scan_core_bwd`). duf is None for a dense recurrent side.
+    CPU tensors run `gru_scan_bwd_plain`; CUDA tensors launch entry
+    ``gru_scan_bwd``, counted by ``gru_scan_bwd.launches``."""
+    if dys is None:
+        raise ValueError("gru_scan_bwd needs the cotangent dys")
+    saved = (uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys)
+    if _on_cpu(saved):
+        return gru_scan_bwd_plain(*saved, mode=mode)
+    t, b, h, r, form = _check_gi(_GI_BWD_NAMES, (ys, uf, prz, pn, h0, gates, hu, rhu, recn, dys),
+                                 mode)
+    if gates is None:
+        raise ValueError("gru_scan_bwd needs the saved gates: gi mode always saves them")
+    _check_residuals(form, hu, rhu, recn, mode, uf)
+    _require_cuda("gru_scan_bwd", ys)
+    with torch.cuda.device(ys.device):
+        new = _empty(ys)
+        lowrank = form == LOWRANK_PRE
+        dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
+        grads = (new(t, b, 3 * h), new(h, r) if lowrank else None, torch.empty_like(prz),
+                 torch.empty_like(pn), new(b, h))
+        _launch(BWD_KERNEL, "gru_scan_bwd", (*saved, grads[0], dhu, drhu, *grads[1:]),
+                (t, b, h, r, form), ys.device)
+    _counted(gru_scan_bwd, variant())
+    return grads
+
+
+class GRUScan(torch.autograd.Function):
+    """The differentiable gi-mode scan: `gru_scan_fused_res`, then
+    `gru_scan_bwd`. ``GRUScan.apply(gi, uf, prz, pn, h0, mode)`` -> ys, with
+    gradients for gi, the recurrent weights and h0."""
+
+    @staticmethod
+    def forward(ctx, gi, uf, prz, pn, h0, mode):
+        ys, gates, hu, rhu, recn = gru_scan_fused_res(gi, uf, prz, pn, h0, mode=mode)
+        ctx.save_for_backward(uf, prz, pn, h0, ys, gates, hu, rhu, recn)
+        ctx.mode = mode
+        ctx.set_materialize_grads(False)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        if dys is None:
+            return (None,) * 6
+        return (*gru_scan_bwd(*ctx.saved_tensors, dys.contiguous(), mode=ctx.mode), None)
 
 
 def _macs(f, rx, h, r, form):
@@ -368,57 +585,85 @@ def _macs(f, rx, h, r, form):
     return (f * rx + rx * 3 * h if rx else f * 3 * h), rec
 
 
+def _rec_weights(h, r, form):
+    """Floats of uf, prz and pn."""
+    return h * r + 3 * h * r if form == LOWRANK_PRE else 3 * h * h
+
+
 def _weights(f, rx, h, r, form):
     """Floats of ux, vx, bias, uf, prz and pn."""
-    rec = h * r + 3 * h * r if form == LOWRANK_PRE else 3 * h * h
-    return _macs(f, rx, h, r, form)[0] + 3 * h + rec
+    return _macs(f, rx, h, r, form)[0] + 3 * h + _rec_weights(h, r, form)
 
 
-def gru_scan_cost(t, b, f, rx, h, r, form):
-    """(operations, bytes) that the no-grad scan needs at least, for its
-    roofline bound.
-
-    Operations: two per multiply-add of the products, two per gate element
-    (the bias and the recurrent term) and eight per hidden unit (three
+def _fwd_ops(t, b, f, rx, h, r, form, gi):
+    """Operations of the forward: two per multiply-add of the products (no x
+    side in gi mode), two per gate element (the bias, in gi mode already in
+    gi, and the recurrent term) and eight per hidden unit (three
     nonlinearities, the reset product and the four of z·h + (1−z)·n), each
-    step and row. Bytes: x, the weights and h0 read once, ys written once,
-    f32.
-    """
+    step and row."""
     xm, rm = _macs(f, rx, h, r, form)
-    ops = t * b * (2 * (xm + rm) + 2 * 3 * h + 8 * h)
-    floats = t * b * f + _weights(f, rx, h, r, form) + b * h + t * b * h
+    return t * b * (2 * ((0 if gi else xm) + rm) + (1 if gi else 2) * 3 * h + 8 * h)
+
+
+def gru_scan_cost(t, b, f, rx, h, r, form, *, gi=False):
+    """(operations, bytes) that the no-grad scan needs at least, for its
+    roofline bound: `_fwd_ops`; x (gi [T,B,3h] in gi mode), the weights (the
+    recurrent ones in gi mode) and h0 read once, ys written once, f32."""
+    ops = _fwd_ops(t, b, f, rx, h, r, form, gi)
+    if gi:
+        floats = t * b * 3 * h + _rec_weights(h, r, form) + b * h + t * b * h
+    else:
+        floats = t * b * f + _weights(f, rx, h, r, form) + b * h + t * b * h
     return ops, 4 * floats
 
 
-def gru_scan_res_cost(t, b, f, rx, h, r, form):
+def _res_floats(t, b, h, r, form):
+    """Floats of the saved residuals of a form: gates [T,B,3h], and hu, rhu
+    [T,B,r] (low-rank) or recn [T,B,h] (post)."""
+    return t * b * (3 * h + {LOWRANK_PRE: 2 * r, DENSE_PRE: 0, DENSE_POST: h}[form])
+
+
+def gru_scan_res_cost(t, b, f, rx, h, r, form, *, gi=False, save_gates=True):
     """(operations, bytes) of the residual forward: `gru_scan_cost` plus the
-    residual outputs written once: gates [T,B,3h], xu [T,B,rx] (low-rank x
-    side), and hu, rhu [T,B,r] (low-rank) or recn [T,B,h] (post)."""
-    ops, nbytes = gru_scan_cost(t, b, f, rx, h, r, form)
-    extra = {LOWRANK_PRE: 2 * r, DENSE_PRE: 0, DENSE_POST: h}[form]
-    return ops, nbytes + 4 * t * b * (3 * h + rx + extra)
+    residual outputs written once: gates and the form's hu, rhu or recn, and
+    xu [T,B,rx] (x mode, low-rank x side). The recompute policy writes ys
+    alone: `gru_scan_cost`."""
+    ops, nbytes = gru_scan_cost(t, b, f, rx, h, r, form, gi=gi)
+    if not save_gates:
+        return ops, nbytes
+    return ops, nbytes + 4 * (_res_floats(t, b, h, r, form) + (0 if gi else t * b * rx))
 
 
-def gru_scan_bwd_cost(t, b, f, rx, h, r, form, *, dx=True):
+def gru_scan_bwd_cost(t, b, f, rx, h, r, form, *, dx=True, gi=False, save_gates=True):
     """(operations, bytes) that the BPTT needs at least, for its roofline bound.
 
     Operations: two per multiply-add, per row and step: the recurrent side
     twice the forward's (the data gradients along the serial chain and the
-    weight gradients); the x side dXU = dPre Vxᵀ and dVx = XUᵀ dPre (rx·3h
-    each, with xu a residual, not recomputed; none for a dense x side), dUx
-    = Xᵀ dXU (F·kx, kx = rx, or 3h for a dense x side) and, when ``dx``, dx =
-    dXU Uxᵀ (F·kx); plus 20 per hidden unit for dpre, the carry and the bias
-    sums. Bytes: each residual, the weights (ux only when ``dx``), x and dys
-    read once and each gradient written once, f32.
+    weight gradients); in x mode the x side dXU = dPre Vxᵀ and dVx = XUᵀ
+    dPre (rx·3h each; none for a dense x side), dUx = Xᵀ dXU (F·kx, kx = rx,
+    or 3h for a dense x side) and, when ``dx``, dx = dXU Uxᵀ (F·kx); plus 20
+    per hidden unit for dpre, the carry and the bias sums. Without
+    ``save_gates`` (the recompute policy) the forward's `_fwd_ops` once more.
+    Bytes: each residual (none under recompute, which reads the bias
+    instead), the weights (ux only when ``dx``), x and dys read once and
+    each gradient written once, f32; gi mode reads no x side and writes dgi
+    [T,B,3h].
     """
     _, rm = _macs(f, rx, h, r, form)
+    if gi:
+        ops = t * b * (2 * 2 * rm + 20 * h)
+        weights = _rec_weights(h, r, form)
+        inputs = weights + b * h + 2 * t * b * h + _res_floats(t, b, h, r, form)  # ys, dys
+        outputs = t * b * 3 * h + weights + b * h
+        return ops, 4 * (inputs + outputs)
     kx = rx or 3 * h
     macs = 2 * rm + 2 * rx * 3 * h + f * kx + (f * kx if dx else 0)
     ops = t * b * (2 * macs + 20 * h)
-    extra = {LOWRANK_PRE: 2 * r, DENSE_PRE: 0, DENSE_POST: h}[form]
+    if not save_gates:
+        ops += _fwd_ops(t, b, f, rx, h, r, form, False)
     weights = _weights(f, rx, h, r, form)
     read = weights - 3 * h - (0 if dx else f * kx)                 # less bias, and ux without dx
-    inputs = (t * b * f + read + b * h                              # x, weights, h0
-              + t * b * (h + 3 * h + extra + rx) + t * b * h)      # ys, gates, hu.., xu, dys
+    res = _res_floats(t, b, h, r, form) + t * b * rx if save_gates else 3 * h  # or the bias
+    inputs = t * b * f + read + b * h + 2 * t * b * h + res         # x, weights, h0, ys, dys
     outputs = (t * b * f if dx else 0) + weights + b * h          # dx, dweights, dh0
     return ops, 4 * (inputs + outputs)

@@ -25,9 +25,14 @@ and `stack_scan` picks it or the no-grad entry. `run_stack_grouped` runs a
 stack of cells through groups that one launch takes (`stack_groups`). As in
 `cuda_scan`, a wrapper launches its kernel for CUDA tensors and runs its
 plain version for CPU tensors, and a CUDA input that the kernel does not
-take raises: there is no fallback from one to the other. The kernels are
-f32: the JAX package's bf16 stack (``precision="bf16"``) is not ported yet,
-and `run_stack_grouped` raises for it, on CUDA and on the CPU alike.
+take raises: there is no fallback from one to the other.
+
+Every entry takes the JAX package's ``precision``: "f32", or "bf16", whose
+products take bf16-rounded operands where `pallas_pipeline` casts them (x,
+xu, h and hu forward; dpre, dhu, h_prev, hu, dXU, x and xu backward; the
+weights) and sum in f32. The diagonal terms, the bias, the gate arithmetic,
+the residuals and the gradients stay f32. The launch counts file each call
+under its variant ("f32" or "bf16", `cuda_scan.variant`).
 """
 
 from __future__ import annotations
@@ -37,7 +42,15 @@ import ctypes
 import torch
 
 from vmlmf_tpu_torch.ops import _build
-from vmlmf_tpu_torch.ops.cuda_scan import lstm_bptt_plain, lstm_recurrence_plain
+from vmlmf_tpu_torch.ops.cuda_scan import (
+    _bf16,
+    _counted,
+    _counter,
+    _rb,
+    lstm_bptt_plain,
+    lstm_recurrence_plain,
+    variant,
+)
 from vmlmf_tpu_torch.ops.pipeline import stack_cell_units, warn_fallback
 
 KERNEL = "lstm_stack_fwd"
@@ -56,11 +69,11 @@ X_KEYS = ("ux", "vx", "dxvec", "bias")
 
 # the per-layer pointer tables of the C entries, in the order of their structs
 FWD_FIELDS = ("u", "v", "dvec", "ux", "vx", "dxvec", "bias", "mask", "h0", "c0",
-              "ys", "hlast", "clast", "cs", "gates", "hu", "xu", "gi")
+              "ys", "hlast", "clast", "cs", "gates", "hu", "xu", "gi", "u16", "v16")
 BWD_FIELDS = ("u", "v", "dvec", "ux", "vx", "dxvec", "mask", "h0", "c0",
               "ys", "cs", "gates", "hu", "xu", "dy", "dhlast", "dclast",
               "dpre", "dhu", "dxu", "du", "dv", "ddvec", "dux", "dvx", "ddxvec", "dbias",
-              "dh0", "dc0")
+              "dh0", "dc0", "u16", "v16")
 
 
 def _keys(l):
@@ -76,20 +89,25 @@ def _layer_input(ys_below, masks, l):
     return ys_below if masks is None else ys_below * masks[l - 1]
 
 
-def lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks=None):
+def lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks=None, precision="f32"):
     """The stack's function in torch ops, layer by layer (the staircase is a
     schedule of the same arithmetic) -> (ys, cs, gates, hu, xu): lists over
     the layers of ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities,
-    hu = h_prev@u [T,B,r]; xu = x@ux [T,B,rx] for layers >= 1 only."""
+    hu = h_prev@u [T,B,r]; xu = x@ux [T,B,rx] for layers >= 1 only. Under
+    bf16 the products take bf16-rounded operands; hu and xu are the f32
+    products, before any rounding."""
+    bf16 = _bf16(precision)
     ys, cs, gates, hus, xus = [], [], [], [], []
     gi = gi0
     for l, lay in enumerate(layers):
         if l:
             x = _layer_input(ys[-1], masks, l)
-            xu = x @ lay["ux"]
+            xu = _rb(x, bf16) @ _rb(lay["ux"], bf16)
             xus.append(xu)
-            gi = xu @ lay["vx"] + x.repeat(1, 1, 4) * lay["dxvec"] + lay["bias"]
-        y, c, g, hu = lstm_recurrence_plain(gi, lay["u"], lay["v"], lay["dvec"], h0s[l], c0s[l])
+            gi = (_rb(xu, bf16) @ _rb(lay["vx"], bf16) + x.repeat(1, 1, 4) * lay["dxvec"]
+                  + lay["bias"])
+        y, c, g, hu = lstm_recurrence_plain(gi, lay["u"], lay["v"], lay["dvec"], h0s[l], c0s[l],
+                                            precision)
         ys.append(y)
         cs.append(c)
         gates.append(g)
@@ -97,22 +115,26 @@ def lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks=None):
     return ys, cs, gates, hus, xus
 
 
-def lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks=None):
+def lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks=None, precision="f32"):
     """Same arguments and results as `lstm_stack_scan_fused`, in torch ops."""
-    ys, cs = lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks)[:2]
+    ys, cs = lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks, precision)[:2]
     return ys[-1], [y[-1] for y in ys], [c[-1] for c in cs]
 
 
-def lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast):
+def lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast,
+                         precision="f32"):
     """The reverse-staircase BPTT in torch ops, layer by layer from the top:
     each layer's serial reverse walk (`cuda_scan.lstm_bptt_plain`), then, for
     a layer l >= 1, its x-side gradients over all T*B rows and dx, which
-    times the mask is the cotangent of layer l - 1's outputs.
+    times the mask is the cotangent of layer l - 1's outputs. Under bf16
+    the products take bf16-rounded operands (dpre, dXU, x, xu, the weights)
+    and the dxvec terms and column sums the f32 dpre.
 
     ``dys`` [T,B,h] (the top layer's outputs) may be None; ``dhlast`` and
     ``dclast`` are lists whose items may be None (zeros). -> (dgi0 [T,B,4h],
     dlayers: a list of dicts keyed as the layers, dh0s, dc0s).
     """
+    bf16 = _bf16(precision)
     n = len(layers)
     t, b, h = ys[0].shape
     dlayers, dh0s, dc0s = [None] * n, [None] * n, [None] * n
@@ -121,15 +143,17 @@ def lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dh
         lay = layers[l]
         dpre, du, dv, ddvec, dh0s[l], dc0s[l] = lstm_bptt_plain(
             lay["u"], lay["v"], lay["dvec"], h0s[l], c0s[l], ys[l], cs[l], gates[l], hu[l], dy,
-            dhlast[l], dclast[l])
+            dhlast[l], dclast[l], precision)
         dlayers[l] = {"u": du, "v": dv, "dvec": ddvec}
         if l == 0:
             return dpre, dlayers, dh0s, dc0s
         dpre2 = dpre.reshape(t * b, 4 * h)
+        dp_mm = _rb(dpre2, bf16)
         x2 = _layer_input(ys[l - 1], masks, l).reshape(t * b, h)
-        dxu = dpre2 @ lay["vx"].T
-        dx = dxu @ lay["ux"].T + _sum4(dpre2 * lay["dxvec"], h)
-        dlayers[l].update(ux=x2.T @ dxu, vx=xu[l - 1].reshape(t * b, -1).T @ dpre2,
+        dxu_mm = _rb(dp_mm @ _rb(lay["vx"], bf16).T, bf16)
+        dx = dxu_mm @ _rb(lay["ux"], bf16).T + _sum4(dpre2 * lay["dxvec"], h)
+        dlayers[l].update(ux=_rb(x2, bf16).T @ dxu_mm,
+                          vx=_rb(xu[l - 1].reshape(t * b, -1), bf16).T @ dp_mm,
                           dxvec=(dpre2 * x2.repeat(1, 4)).sum(0), bias=dpre2.sum(0))
         dy = _layer_input(dx.reshape(t, b, h), masks, l)
 
@@ -154,7 +178,8 @@ def _check_tensor(name, a, want, dev):
     if tuple(a.shape) != want:
         raise ValueError(f"{name} must have shape {want}, got {tuple(a.shape)}")
     if a.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {a.dtype}: the stack kernels are f32")
+        raise TypeError(f"{name} must be float32, got {a.dtype}: the stack kernels take f32 "
+                        f"tensors in either precision")
     if a.device != dev:
         raise ValueError(f"{name} is on {a.device}, the stack's first input on {dev}")
     if not a.is_contiguous():
@@ -224,7 +249,15 @@ def _rank_table(ranks, xranks):
     return [v for l, r in enumerate(ranks) for v in (r, xranks[l - 1] if l else 0)]
 
 
-def _fwd(gi0, layers, h0s, c0s, masks, residuals):
+def _weight_copies(d, like, bf16):
+    """Add to layer dict ``d`` the scratch for the bf16 copies of its u and
+    v that the bf16 entries make (none in f32)."""
+    if bf16:
+        d.update(u16=torch.empty(d["u"].shape, dtype=torch.bfloat16, device=like.device),
+                 v16=torch.empty(d["v"].shape, dtype=torch.bfloat16, device=like.device))
+
+
+def _fwd(gi0, layers, h0s, c0s, masks, residuals, bf16):
     """Launch the forward staircase -> the per-layer dicts of its outputs."""
     if gi0.dim() != 3 or gi0.shape[-1] % 4:
         raise ValueError(f"gi0 must be [T, B, 4h], got {tuple(gi0.shape)}")
@@ -245,11 +278,12 @@ def _fwd(gi0, layers, h0s, c0s, masks, residuals):
                      gi=new(block * b, 4 * h))
         else:
             d["gi"] = gi0
+        _weight_copies(d, gi0, bf16)
         per_layer.append(d)
     partial = new(SPLITS * block * b * max(xranks, default=1))
     with torch.cuda.device(gi0.device):
         _launch(KERNEL, _table(FWD_FIELDS, per_layer), _rank_table(ranks, xranks), partial,
-                (len(layers), t, b, h, block, int(residuals)), gi0.device)
+                (len(layers), t, b, h, block, int(residuals), int(bf16)), gi0.device)
     return per_layer
 
 
@@ -258,7 +292,8 @@ def _needs_grad(gi0, layers, h0s, c0s, masks):
     return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
 
 
-def lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks=None):
+@_counter
+def lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks=None, precision="f32"):
     """The wavefront stack, no gradient.
 
     gi0 [T, B, 4h]: layer 0's input contribution (gate order i, f, g, o).
@@ -266,62 +301,64 @@ def lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks=None):
     0 and also ``{ux [h, rx], vx [rx, 4h], dxvec [4h], bias [4h]}`` for
     layers >= 1 (the ranks may differ by layer); h0s, c0s: lists of [B, h];
     masks: None or L - 1 pre-scaled dropout masks [T, B, h], masks[l - 1]
-    applied to layer l's input. -> (ys_last [T, B, h], hlast, clast: lists
+    applied to layer l's input; ``precision`` "f32" or "bf16" (bf16-rounded
+    product operands, f32 sums). -> (ys_last [T, B, h], hlast, clast: lists
     of [B, h]).
 
     CPU tensors run `lstm_stack_scan_fused_plain`. CUDA tensors must be f32,
     contiguous and on one device, at most MAX_LAYERS layers; the kernel runs
     on the current stream, BLOCK steps per block, and
-    ``lstm_stack_scan_fused.launches`` counts its calls. A CUDA input that
-    requires a gradient, with grad mode on, raises: that call belongs to
-    `LSTMStackScan`.
+    ``lstm_stack_scan_fused.launches`` counts its calls (``.variants`` by
+    precision). A CUDA input that requires a gradient, with grad mode on,
+    raises: that call belongs to `LSTMStackScan`.
     """
+    bf16 = _bf16(precision)
     if _on_cpu(gi0, layers, h0s, c0s, masks):
-        return lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks)
+        return lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks, precision)
     if _needs_grad(gi0, layers, h0s, c0s, masks):
         raise RuntimeError("lstm_stack_scan_fused computes no gradient; inputs that require "
                            "one go through LSTMStackScan (stack_scan)")
-    out = _fwd(gi0, layers, h0s, c0s, masks, residuals=False)
-    lstm_stack_scan_fused.launches += 1
+    out = _fwd(gi0, layers, h0s, c0s, masks, False, bf16)
+    _counted(lstm_stack_scan_fused, variant(precision))
     return out[-1]["ys"], [d["hlast"] for d in out], [d["clast"] for d in out]
 
 
-lstm_stack_scan_fused.launches = 0
-
-
-def lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks=None):
+@_counter
+def lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks=None, precision="f32"):
     """The residual forward of training: `lstm_stack_scan_fused` that returns
     the backward's residuals instead -> (ys, cs, gates, hu, xu), shaped as
     `lstm_stack_fwd_res_plain`'s, which CPU tensors run. The final state of
     layer l is (ys[l][-1], cs[l][-1]). ``lstm_stack_scan_fused_res.launches``
-    counts the kernel's calls."""
+    counts the kernel's calls (``.variants`` by precision)."""
+    bf16 = _bf16(precision)
     if _on_cpu(gi0, layers, h0s, c0s, masks):
-        return lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks)
-    out = _fwd(gi0, layers, h0s, c0s, masks, residuals=True)
-    lstm_stack_scan_fused_res.launches += 1
+        return lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks, precision)
+    out = _fwd(gi0, layers, h0s, c0s, masks, True, bf16)
+    _counted(lstm_stack_scan_fused_res, variant(precision))
     return ([d["ys"] for d in out], [d["cs"] for d in out], [d["gates"] for d in out],
             [d["hu"] for d in out], [d["xu"] for d in out[1:]])
 
 
-lstm_stack_scan_fused_res.launches = 0
-
-
-def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast):
+@_counter
+def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast,
+                   precision="f32"):
     """Gradients of the stack from the residual forward's outputs and the
     cotangents ``dys`` [T, B, h] of the top layer's outputs and ``dhlast``,
     ``dclast`` (lists of [B, h]); dys and any item of the lists may be None
-    (zeros). -> (dgi0 [T, B, 4h], dlayers: a list of dicts keyed as the
-    layers, dh0s, dc0s).
+    (zeros). ``precision`` must be the forward's. -> (dgi0 [T, B, 4h],
+    dlayers: a list of dicts keyed as the layers, dh0s, dc0s).
 
     CPU tensors run `lstm_stack_bwd_plain`; CUDA tensors launch the BPTT
-    kernel, BLOCK steps per block, counted by ``lstm_stack_bwd.launches``.
+    kernel, BLOCK steps per block, counted by ``lstm_stack_bwd.launches``
+    (``.variants`` by precision).
     """
+    bf16 = _bf16(precision)
     res = (*ys, *cs, *gates, *hu, *xu)
     cots = (dys, *dhlast, *dclast)
     n = len(layers)
     if _on_cpu(ys[0], layers, h0s, c0s, masks, (*res, *cots)):
         return lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys,
-                                    dhlast, dclast)
+                                    dhlast, dclast, precision)
     if len(ys) != n or len(xu) != n - 1 or len(dhlast) != n or len(dclast) != n:
         raise ValueError(f"{n} layers need {n} ys, cs, gates, hu, dhlast, dclast and "
                          f"{n - 1} xu")
@@ -352,17 +389,15 @@ def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, 
             d.update(mask=None if masks is None else masks[l - 1], xu=xu[l - 1],
                      dxu=new(t, b, xranks[l - 1]), dux=torch.empty_like(lay["ux"]),
                      dvx=torch.empty_like(lay["vx"]), ddxvec=new(4 * h), dbias=new(4 * h))
+        _weight_copies(d, ys[0], bf16)
         per_layer.append(d)
     partial = new(SPLITS * block * b * max(xranks, default=1))
     with torch.cuda.device(ys[0].device):
         _launch(BWD_KERNEL, _table(BWD_FIELDS, per_layer), _rank_table(ranks, xranks), partial,
-                (n, t, b, h, block), ys[0].device)
-    lstm_stack_bwd.launches += 1
+                (n, t, b, h, block, int(bf16)), ys[0].device)
+    _counted(lstm_stack_bwd, variant(precision))
     dlayers = [{k: d["d" + k] for k in _keys(l)} for l, d in enumerate(per_layer)]
     return dgi0, dlayers, [d["dh0"] for d in per_layer], [d["dc0"] for d in per_layer]
-
-
-lstm_stack_bwd.launches = 0
 
 
 def _flatten(gi0, layers, h0s, c0s, masks):
@@ -383,8 +418,9 @@ def _unflatten(flat, n):
 class LSTMStackScan(torch.autograd.Function):
     """The differentiable stack: the residual forward, then the BPTT.
 
-    ``LSTMStackScan.apply(L, *flat)`` with flat = (gi0, each layer's tensors
-    in `REC_KEYS` then `X_KEYS` order, h0s, c0s, masks or nothing) ->
+    ``LSTMStackScan.apply(L, precision, *flat)`` with flat = (gi0, each
+    layer's tensors in `REC_KEYS` then `X_KEYS` order, h0s, c0s, masks or
+    nothing) ->
     (ys_last, *hlast, *clast), with gradients for every tensor but the masks,
     which get none. A cotangent that autograd leaves out (an output no loss
     reads, as the LM's detached final states) comes to the backward as None
@@ -392,10 +428,11 @@ class LSTMStackScan(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, n_layers, *flat):
+    def forward(ctx, n_layers, precision, *flat):
         gi0, layers, h0s, c0s, masks = _unflatten(flat, n_layers)
-        ys, cs, gates, hu, xu = lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks)
-        ctx.n_layers, ctx.n_masks = n_layers, len(masks or ())
+        ys, cs, gates, hu, xu = lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks,
+                                                          precision)
+        ctx.n_layers, ctx.n_masks, ctx.precision = n_layers, len(masks or ()), precision
         ctx.save_for_backward(*flat[1:], *ys, *cs, *gates, *hu, *xu)
         ctx.set_materialize_grads(False)
         return (ys[-1], *(y[-1].clone() for y in ys), *(c[-1].clone() for c in cs))
@@ -412,19 +449,19 @@ class LSTMStackScan(torch.autograd.Function):
         cont = lambda a: None if a is None else a.contiguous()  # noqa: E731
         dgi0, dlayers, dh0s, dc0s = lstm_stack_bwd(
             layers, h0s, c0s, masks, ys, cs, gates, hu, xu, cont(dys),
-            [cont(a) for a in dstates[:n]], [cont(a) for a in dstates[n:]])
+            [cont(a) for a in dstates[:n]], [cont(a) for a in dstates[n:]], ctx.precision)
         grads = (dgi0, *(d[k] for l, d in enumerate(dlayers) for k in _keys(l)), *dh0s, *dc0s)
-        return (None, *grads, *([None] * ctx.n_masks))
+        return (None, None, *grads, *([None] * ctx.n_masks))
 
 
-def stack_scan(gi0, layers, h0s, c0s, masks=None):
+def stack_scan(gi0, layers, h0s, c0s, masks=None, precision="f32"):
     """The stack through `LSTMStackScan` when grad mode is on and an input
     requires a gradient, else through the no-grad `lstm_stack_scan_fused`.
     -> (ys_last, hlast list, clast list)."""
     if not _needs_grad(gi0, layers, h0s, c0s, masks):
-        return lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks)
+        return lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks, precision)
     n = len(layers)
-    out = LSTMStackScan.apply(n, *_flatten(gi0, layers, h0s, c0s, masks))
+    out = LSTMStackScan.apply(n, precision, *_flatten(gi0, layers, h0s, c0s, masks))
     return out[0], list(out[1:1 + n]), list(out[1 + n:])
 
 
@@ -478,17 +515,6 @@ def _group_layers(layers, start, end):
     return [{k: layers[i][k] for k in _keys(i - start)} for i in range(start, end)]
 
 
-def stack_precision(precision):
-    """Raise unless ``precision`` is "f32": the stack kernels have no bf16
-    form yet (ROADMAP queue 2 item 4), and a bf16 stack never runs f32 in
-    its place."""
-    if precision == "bf16":
-        raise NotImplementedError("the wavefront LSTM stack has no bf16 kernel yet (ROADMAP "
-                                  "queue 2 item 4); precision 'bf16' runs on the 'fused' backend")
-    if precision != "f32":
-        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
-
-
 def run_stack_grouped(cells, preps, xs, states, masks=None, precision="f32"):
     """A stack of cells through the wavefront kernels, group by group
     (`stack_groups`); a singleton group, or every layer of a stack that
@@ -498,12 +524,12 @@ def run_stack_grouped(cells, preps, xs, states, masks=None, precision="f32"):
     xs: time-major [T, B, n]; states: per-layer (h0, c0); masks: None or L -
     1 pre-scaled dropout masks, masks[i] applied to the output of layer i.
     Within a group they run inside the kernel; at a group boundary they
-    multiply the handoff. ``precision`` "bf16" raises (`stack_precision`).
+    multiply the handoff. ``precision`` ("f32" or "bf16") goes to the groups
+    and to the per-layer scans alike; the grouping does not depend on it.
     -> (ys [T, B, h], final states list).
     """
     from vmlmf_tpu_torch.nn.recurrence import scan_layer  # recurrence imports this module
 
-    stack_precision(precision)
     n = len(cells)
     layers = stack_units(cells, preps)
     finals = [None] * n
@@ -511,21 +537,22 @@ def run_stack_grouped(cells, preps, xs, states, masks=None, precision="f32"):
     if layers is None:
         warn_fallback(cells)
         for i, (cell, prep) in enumerate(zip(cells, preps)):
-            x, finals[i] = scan_layer(cell, prep, x, states[i], backend="fused")
+            x, finals[i] = scan_layer(cell, prep, x, states[i], backend="fused",
+                                      precision=precision)
             if masks is not None and i < n - 1:
                 x = x * masks[i]
         return x, finals
     for start, end in stack_groups(layers):
         if end - start == 1:
             x, finals[start] = scan_layer(cells[start], preps[start], x, states[start],
-                                          backend="fused")
+                                          backend="fused", precision=precision)
         else:
             gi0 = cells[start].inp(preps[start], x).contiguous()
             gmasks = None if masks is None else [masks[i] for i in range(start, end - 1)]
             x, hl, cl = stack_scan(gi0, _group_layers(layers, start, end),
                                    [states[i][0].contiguous() for i in range(start, end)],
                                    [states[i][1].contiguous() for i in range(start, end)],
-                                   gmasks)
+                                   gmasks, precision)
             for i in range(start, end):
                 finals[i] = (hl[i - start], cl[i - start])
         if masks is not None and end < n:
@@ -540,6 +567,15 @@ def _row_ops(h, r, rx):
     hidden unit (the nonlinearities and the state update), one for the mask."""
     ops = 2 * (h * r + r * 4 * h) + 6 * 4 * h + 9 * h
     return ops + (2 * (h * rx + rx * 4 * h) + h if rx else 0)
+
+
+def stack_mm_ops(t, b, h, ranks, xranks):
+    """Operations of the forward's matrix products (two per multiply-add of
+    every layer's recurrent and x-side products over all T*B rows): the
+    share of `stack_cost`'s operations that bf16 moves to the tensor-core
+    rate. The BPTT's products are twice these."""
+    return 2 * t * b * sum(h * r + r * 4 * h + (h * rx + rx * 4 * h if rx else 0)
+                           for r, rx in zip(ranks, [0, *xranks]))
 
 
 def _weight_floats(h, ranks, xranks):

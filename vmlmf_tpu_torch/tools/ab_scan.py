@@ -1,5 +1,6 @@
-"""Time the LSTM scan kernels of several checkouts of this repo in turns, in
-one run, on one CUDA device.
+"""Time the scan kernels of several checkouts of this repo in turns, in one
+run, on one CUDA device: the LSTM scans, the GRU scans and the wavefront
+stack.
 
     python -m vmlmf_tpu_torch.tools.ab_scan PARENT_DIR . . PARENT_DIR
 
@@ -20,14 +21,24 @@ A checkout whose `cuda_scan` has the JAX package's kernel variants (a
 ("bf16"), the bf16 residuals ("bf16_res") and the recompute policy
 ("recompute") beside f32 at the LM layer (low-rank at B in 20 and 128,
 dense at B=20) and at the HAR layer (T=24, F=77, h=180, rx=8, r=6, B=81).
+Under "gru", the GRU entries at the HAR GRU layer (T=24, F=77, h=64,
+rx=9; "lowrank_pre" r=9, "dense_post", "dense_pre"; B=81, and B=256 for the
+no-grad entry): "fwd", "res", "bwd" of x mode with saved gates and, where
+the checkout's `cuda_gru` has gi mode (`gru_scan_fused`), "gi_fwd",
+"gi_res", "gi_bwd" and the recompute policy's "rc_res" and "rc_bwd".
+Under "stack", the stack's three entries at the LM stack (L=2, T=35,
+h=650, r=rx=300) at B = 1 (no-grad), 20 and 128, and, where the
+checkout's stack takes ``precision``, the same in bf16 ("bf16_fwd", ...).
 Each line also gives, under "ptxas", the registers and spill bytes that
 ``nvcc -Xptxas -v`` reports for each form of the checkout's serial kernels
-(`scan_kernel` and `bptt_kernel` or their grid forms, `stack_step_kernel`)
-at the build's flags, by template arguments.
-Under "digest", a sha256 of all the outputs of the three f32 entries at
-B=20 in both forms: equal digests show that two checkouts' kernels give
-the same bits. Giving the checkouts as parent, change, change, parent
-keeps drift on the card from reading as a difference between them.
+(`scan_kernel` and `bptt_kernel` or their grid forms, `stack_step_kernel`,
+`stack_bptt_kernel`) at the build's flags, by template arguments.
+Under "digest", a sha256 of all the outputs of the f32 entries that every
+checkout since the stack has: the LSTM scan's three at B=20 in both
+forms, the GRU's three x-mode entries at B=81 in each recurrent form, and
+the stack's three at B=20: equal digests show that two checkouts' kernels
+give the same bits. Giving the checkouts as parent, change, change,
+parent keeps drift on the card from reading as a difference between them.
 """
 
 from __future__ import annotations
@@ -36,11 +47,10 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, os, re, subprocess, sys
+import hashlib, inspect, json, os, re, subprocess, sys
 sys.path.insert(0, sys.argv[1])
-import importlib.util
 import torch
-from vmlmf_tpu_torch.ops import _build, cuda_scan
+from vmlmf_tpu_torch.ops import _build, cuda_gru, cuda_scan, cuda_stack
 
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build_all()
@@ -65,6 +75,61 @@ def inputs(b, form):
             n(b, h, scale=0.5))
 
 
+def gru_inputs(b, form):
+    g = torch.Generator().manual_seed(0)
+    n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
+    gh, k = 64, (9 if form == "lowrank_pre" else 64)
+    return (n(24, b, 77, scale=1.0), n(77, 9, scale=77 ** -0.5), n(9, 3 * gh, scale=9 ** -0.5),
+            n(3 * gh, scale=0.1), n(gh, 9, scale=gh ** -0.5) if form == "lowrank_pre" else None,
+            n(k, 2 * gh, scale=k ** -0.5), n(k, gh, scale=k ** -0.5), n(b, gh, scale=0.5))
+
+
+GRU_FORMS = {"lowrank_pre": "pre", "dense_post": "post", "dense_pre": "pre"}
+
+
+# every output of the three f32 x-mode GRU entries at B=81, and the inputs
+# and residuals the BPTT took
+def gru_outputs(form):
+    mode, args = GRU_FORMS[form], gru_inputs(81, form)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:3], *args[4:], *res, dys)
+    return ((cuda_gru.gru_scan_fused_xin(*args, mode=mode), *res,
+             *cuda_gru.gru_scan_xin_bwd(*saved, mode=mode)), args, saved)
+
+
+def gru_ms(form):
+    mode = GRU_FORMS[form]
+    _, args, saved = gru_outputs(form)
+    wide = gru_inputs(256, form)
+    out = {"fwd": [mean_ms(lambda: cuda_gru.gru_scan_fused_xin(*wide, mode=mode))
+                   for _ in range(3)],
+           "res": [mean_ms(lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode))
+                   for _ in range(3)],
+           "bwd": [mean_ms(lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode))
+                   for _ in range(3)]}
+    if hasattr(cuda_gru, "gru_scan_fused"):
+        gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+        gi_wide = cuda_gru._x_side(*wide[:4])[1].contiguous()
+        res = cuda_gru.gru_scan_fused_res(gi, *args[4:], mode=mode)
+        rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+        rc_saved = (*args[:3], *args[4:], *rc, saved[-1])
+        out.update(
+            gi_fwd=[mean_ms(lambda: cuda_gru.gru_scan_fused(gi_wide, *wide[4:], mode=mode))
+                    for _ in range(3)],
+            gi_res=[mean_ms(lambda: cuda_gru.gru_scan_fused_res(gi, *args[4:], mode=mode))
+                    for _ in range(3)],
+            gi_bwd=[mean_ms(lambda: cuda_gru.gru_scan_bwd(*args[4:], *res, saved[-1],
+                                                          mode=mode)) for _ in range(3)],
+            rc_res=[mean_ms(lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode,
+                                                                    save_gates=False))
+                    for _ in range(3)],
+            rc_bwd=[mean_ms(lambda: cuda_gru.gru_scan_xin_bwd(*rc_saved, mode=mode,
+                                                              bias=args[3]))
+                    for _ in range(3)])
+    return out
+
+
 def stack_inputs(b):
     g = torch.Generator().manual_seed(0)
     n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
@@ -80,7 +145,7 @@ def stack_inputs(b):
             [n(b, h, scale=0.5) for _ in range(2)])
 
 
-def mean_ms(fn, args, iters=20):
+def mean_ms(fn, args=(), iters=20):
     fn(*args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -100,7 +165,7 @@ def ptxas(source):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(grid_scan_kernel|grid_bptt_kernel|scan_kernel|bptt_kernel|"
-                          r"stack_step_kernel)I((?:L[bi]\d+E)+)E", line)
+                          r"stack_step_kernel|stack_bptt_kernel)I((?:L[bi]\d+E)+)E", line)
             name = m and f"{m.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -130,15 +195,47 @@ VARIANTS = {"f32": ("f32", "f32", True), "bf16": ("bf16", "f32", True),
             "bf16_res": ("f32", "bf16", True), "recompute": ("f32", "f32", False)}
 
 
+# every output of the stack's three entries (f32 where precision is None,
+# as every checkout takes it), and the BPTT's arguments
+def stack_outputs(b, precision=None):
+    gi0, layers, h0s, c0s = stack_inputs(b)
+    prec = () if precision is None else (precision,)
+    g = torch.Generator().manual_seed(7)
+    mk = [(torch.rand(gi0.shape[:2] + (h,), generator=g) < 0.5).float().cuda() / 0.5]
+    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, *prec)
+    dys = torch.randn(*res[0][0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+    bwd_args = (layers, h0s, c0s, mk, *res, dys, [None] * 2, [None] * 2, *prec)
+    fwd = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, None, *prec)
+    grads = cuda_stack.lstm_stack_bwd(*bwd_args)
+    outs = [fwd[0], *fwd[1], *fwd[2], *(a for group in res for a in group), grads[0],
+            *(a for d in grads[1] for _, a in sorted(d.items())), *grads[2], *grads[3]]
+    return outs, (gi0, layers, h0s, c0s, mk, prec), bwd_args
+
+
+def stack_ms(b, precision=None):
+    _, (gi0, layers, h0s, c0s, mk, prec), bwd_args = stack_outputs(b, precision)
+    out = {"fwd": [mean_ms(cuda_stack.lstm_stack_scan_fused, (gi0, layers, h0s, c0s, None, *prec))
+                   for _ in range(3)]}
+    if b > 1:
+        out["res"] = [mean_ms(cuda_stack.lstm_stack_scan_fused_res,
+                              (gi0, layers, h0s, c0s, mk, *prec)) for _ in range(3)]
+        out["bwd"] = [mean_ms(cuda_stack.lstm_stack_bwd, bwd_args) for _ in range(3)]
+    return out
+
+
 # sha256 of every output of the three f32 entries at B=20 (both forms), so
 # that two checkouts' kernels can be shown to give the same bits
 def digest(form):
-    import hashlib
-    args = inputs(20, form)
-    res = cuda_scan.lstm_scan_fused_xin_res(*args)
-    dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
-    outs = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
-            *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None)]
+    if form in GRU_FORMS:
+        outs = gru_outputs(form)[0]
+    elif form == "stack":
+        outs = stack_outputs(20)[0]
+    else:
+        args = inputs(20, form)
+        res = cuda_scan.lstm_scan_fused_xin_res(*args)
+        dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+        outs = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
+                *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None)]
     h = hashlib.sha256()
     for a in outs:
         if a is not None:
@@ -146,7 +243,8 @@ def digest(form):
     return h.hexdigest()[:16]
 
 
-sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_scan_xin_bwd.cu", "lstm_stack_fwd.cu")
+sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_scan_xin_bwd.cu", "gru_scan_xin_fwd.cu",
+                      "gru_scan_xin_bwd.cu", "lstm_stack_fwd.cu", "lstm_stack_bwd.cu")
            if (_build.CSRC / s).exists()]
 regs = {s: ptxas(s) for s in sources}
 ms = {form: {b: entry_ms(b, form) for b in (1, 20, 128)} for form in ("lowrank", "dense")}
@@ -155,12 +253,13 @@ if hasattr(cuda_scan, "variant"):
                              for form, b in (("lowrank", 20), ("lowrank", 128), ("dense", 20),
                                              ("har", 81))}
                       for name, v in VARIANTS.items()}
-if importlib.util.find_spec("vmlmf_tpu_torch.ops.cuda_stack") is not None:
-    from vmlmf_tpu_torch.ops import cuda_stack
-    ms["stack"] = {b: [mean_ms(cuda_stack.lstm_stack_scan_fused, stack_inputs(b))
-                       for _ in range(3)] for b in (1, 20, 128)}
+ms["gru"] = {form: gru_ms(form) for form in GRU_FORMS}
+ms["stack"] = {b: stack_ms(b) for b in (1, 20, 128)}
+if "precision" in inspect.signature(cuda_stack.lstm_stack_scan_fused).parameters:
+    ms["stack_bf16"] = {b: stack_ms(b, "bf16") for b in (1, 20, 128)}
 print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
-                  "ptxas": regs, "digest": {f: digest(f) for f in ("lowrank", "dense")}}))
+                  "ptxas": regs,
+                  "digest": {f: digest(f) for f in ("lowrank", "dense", *GRU_FORMS, "stack")}}))
 """
 
 

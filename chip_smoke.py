@@ -90,11 +90,14 @@ Phases, each of which exits non-zero when it fails:
  13. wavefront — the PTB medium LM on backend "fused_pipelined" (the
                VMLMF_EXPERIMENTAL_WAVEFRONT=1 knob is set by the script), the
                wavefront stack: each stack kernel entry against its plain
-               version at L=2, T=35, h=650, r=rx=300 (no-grad at B in
-               1/20/128, residual forward and BPTT with masks at B in
-               20/128), with cuDNN's two-layer LSTM on the dense weights from
-               x as the library yardstick and the port's path from x beside
-               it; prefill at B=20 and 64 greedy tokens through `LMConfig`
+               version at L=2, T=35, h=650, r=rx=300, each at B in 1/20/128
+               (the no-grad forward without masks, the residual forward and
+               the BPTT with masks; each shape's `stack_plan` printed
+               first: one cooperative launch over the SMs, a set of CTAs per
+               layer), with cuDNN's two-layer LSTM on the dense weights from
+               x as the library yardstick and beside it the port's path from
+               x, the "fused" backend's two per-layer scans from x, and µs a
+               step of the stack (no-grad, and BPTT with its GEMMs); prefill at B=20 and 64 greedy tokens through `LMConfig`
                and `Decoder` (one no-grad stack launch per prefill and no
                per-layer one, held to the "fused" prefill); 30 `LMTrainer`
                chunks at B=20, dropout 0.5 (one residual forward and one
@@ -141,7 +144,8 @@ Phases, each of which exits non-zero when it fails:
                for a few steps under each; a GRU BDNet in gi mode; the peak
                memory of a GRU step under each policy. Then the stack with
                bf16 products: each entry against its plain version at the
-               LM stack (B = 1/20/128) to the bf16 tolerances, the first two
+               LM stack (B = 1/20/128, the bf16 plan) to the bf16 tolerances,
+               beside "fused"'s per-layer scans, the first two
                steps of each walk 4x nearer the plain bf16 version than the
                f32 one, cuDNN's two-layer LSTM in bf16 beside it; and the
                mixed-precision LM (VMLMF_PALLAS_PRECISION=bf16, head_bf16)
@@ -1424,17 +1428,78 @@ def cudnn_stack(torch, x, x_side, layers, h0s, c0s):
     return lstm, err
 
 
+def fused_pair(torch, x, x_side, layers, h0s, c0s, mk, dys, precision):
+    """The "fused" backend's route through the same two layers: a per-layer
+    scan from x each (x mode), the mask between them -> closures (no-grad
+    forward, residual forward, BPTT from the residuals of one residual
+    forward), to time beside the stack."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    h = x.shape[-1]
+    l1 = layers[1]
+    side1 = (l1["ux"], l1["vx"], l1["dxvec"].reshape(4, h), l1["bias"])
+    rec = [(lay["u"], lay["v"], lay["dvec"]) for lay in layers]
+
+    def fwd():
+        y0, _ = cuda_scan.lstm_scan_fused_xin(x, *x_side, *rec[0], h0s[0], c0s[0], precision)
+        return cuda_scan.lstm_scan_fused_xin(y0, *side1, *rec[1], h0s[1], c0s[1], precision)
+
+    def res():
+        r0 = cuda_scan.lstm_scan_fused_xin_res(x, *x_side, *rec[0], h0s[0], c0s[0], precision)
+        x1 = r0[0] if mk is None else r0[0] * mk[0]
+        return r0, x1, cuda_scan.lstm_scan_fused_xin_res(x1, *side1, *rec[1], h0s[1], c0s[1],
+                                                         precision)
+
+    r0, x1, r1 = res()
+
+    def bwd():
+        g1 = cuda_scan.lstm_scan_xin_bwd(x1, *side1[:3], *rec[1], h0s[1], c0s[1], *r1, dys, None,
+                                         precision=precision)
+        dx1 = g1[0] if mk is None else g1[0] * mk[0]
+        return cuda_scan.lstm_scan_xin_bwd(x, *x_side[:3], *rec[0], h0s[0], c0s[0], *r0, dx1,
+                                           None, precision=precision)
+
+    return fwd, res, bwd
+
+
+def stack_step_us(torch, gi0, layers, h0s, c0s, mk, dys, precision):
+    """µs a step of the no-grad stack and of the BPTT (its weight GEMMs
+    included): the time at 2T less the time at T, over T. The walk's own
+    device time is in the trace phase's wavefront train step
+    (stack_bwd_kernel)."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    t = gi0.shape[0]
+    long = [torch.cat([a, a]) for a in (gi0, dys)]
+    mk2 = None if mk is None else [torch.cat([m, m]) for m in mk]
+    out = {}
+    ms = [cuda_ms(torch, lambda g=g: cuda_stack.lstm_stack_scan_fused(g, layers, h0s, c0s, None,
+                                                                      precision), 10)
+          for g in (gi0, long[0])]
+    out["fwd_us_per_step"] = 1e3 * (ms[1] - ms[0]) / t
+    none = [None] * len(layers)
+    ms = []
+    for g, d, m in ((gi0, dys, mk), (long[0], long[1], mk2)):
+        res = cuda_stack.lstm_stack_scan_fused_res(g, layers, h0s, c0s, m, precision)
+        args = (layers, h0s, c0s, m, *res, d, none, none, precision)
+        ms.append(cuda_ms(torch, lambda a=args: cuda_stack.lstm_stack_bwd(*a), 10))
+    out["bwd_us_per_step"] = 1e3 * (ms[1] - ms[0]) / t
+    return out
+
+
 def phase_stack_kernels(torch, precision="f32"):
     """Each stack entry against its plain version at the LM stack (L=2, T=35,
-    h=650, r=rx=300): the no-grad forward at B in 1/20/128, the residual
-    forward and the BPTT (with masks) at B in 20/128. Library: cuDNN's
-    two-layer LSTM on the dense weights, from x (in bf16 for the bf16
-    stack: other rounding points); beside it the port's path from x (layer
-    0's projection in torch ops, then the stack). Under ``precision``
-    "bf16" the bf16 tolerances hold, and the first two steps of each walk
-    must lie 4x nearer the plain bf16 version than the plain f32 one.
-    -> {(entry, "stack" or "stack_bf16", B): row}."""
-    from vmlmf_tpu_torch.ops import cuda_stack
+    h=650, r=rx=300), each at B in 1/20/128: the no-grad forward without
+    masks, the residual forward and the BPTT with masks; each shape's
+    `stack_plan` printed first. Library: cuDNN's two-layer LSTM on the dense
+    weights, from x (in bf16 for the bf16 stack: other rounding points);
+    beside it the port's path from x (layer 0's projection in torch ops,
+    then the stack), the "fused" backend's two per-layer scans from x in
+    the same phase, and µs a step of the stack (its time at 2T less its
+    time at T). Under ``precision`` "bf16" the bf16 tolerances hold, and the
+    first two steps of each walk must lie 4x nearer the plain bf16 version
+    than the plain f32 one. -> {(entry, "stack" or "stack_bf16", B): row}."""
+    from vmlmf_tpu_torch.ops import cuda_scan, cuda_stack
 
     rows, extra = {}, {}
     t, h, r, n = LM["prompt"], LM["hidden"], LM["rank"], LM["layers"]
@@ -1445,9 +1510,11 @@ def phase_stack_kernels(torch, precision="f32"):
     fwd_plain, res_plain = cuda_stack.lstm_stack_scan_fused_plain, cuda_stack.lstm_stack_fwd_res_plain
     bwd_plain = cuda_stack.lstm_stack_bwd_plain
     for b in LM_BATCHES:
-        train = b in TRAIN_BATCHES
-        x, x_side, layers, h0s, c0s, mk = stack_check_inputs(torch, b, masks=train)
+        x, x_side, layers, h0s, c0s, mk = stack_check_inputs(torch, b, masks=True)
         label = f"{shape} L={n} T={t} B={b} h={h} r=rx={r}"
+        plan = cuda_stack.stack_plan(b, h, tuple(ranks), tuple(xranks),
+                                     cuda_scan._sm_count(0), 2 if bf16 else 4)
+        print(f"stack plan {label}: {plan.describe()}")
         gi0 = layer0_inp(x, *x_side)
         lstm, lib_err = cudnn_stack(torch, x, x_side, layers, h0s, c0s)
         print(f"library: cuDNN {n}-layer LSTM on the dense weights, {label}: max abs err "
@@ -1487,14 +1554,9 @@ def phase_stack_kernels(torch, precision="f32"):
                 (*cuda_stack.stack_cost(t, b, h, ranks, xranks), mm), cuda_ms(torch, lib_fwd, 10),
                 lib_name)
             extra[f"fwd_b{b}"] = dict(port_from_x_ms=cuda_ms(torch, port_from_x, 10))
-        print(f"kernel lstm_stack_fwd {label}: the port from x (projection + stack) "
-              f"{extra[f'fwd_b{b}']['port_from_x_ms']:.4f} ms against {lib_name}'s from x "
-              f"{rows[('lstm_stack_fwd', shape, b)]['library_ms']:.4f} ms")
-        if not train:
-            continue
-
         # -- the residual forward and the BPTT, with masks, dys given and the
         # final states' cotangents absent, as on the LM's training path
+        dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
         res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, precision)
         torch.cuda.synchronize()
         res_p = res_plain(gi0, layers, h0s, c0s, mk, precision)
@@ -1502,7 +1564,6 @@ def phase_stack_kernels(torch, precision="f32"):
                             [a for group in res_p for a in group], tol)
         if not ok:
             fail(f"lstm_stack_fwd_res disagrees with its plain version at {label}: {err}")
-        dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
         none = [None] * n
         bwd_args = (layers, h0s, c0s, mk, *res, dys, none, none, precision)
         grads = cuda_stack.lstm_stack_bwd(*bwd_args)
@@ -1524,6 +1585,19 @@ def phase_stack_kernels(torch, precision="f32"):
             dgi = [bwd_plain(*bwd_args[:-1], p)[0][-2:] for p in ("bf16", "f32")]
             bf16_control("lstm_stack_bwd dgi0[-2:]", label, [grads[0][-2:]], [dgi[0]], [dgi[1]])
 
+        fused_fwd, fused_res, fused_bwd = fused_pair(torch, x, x_side, layers, h0s, c0s, mk, dys,
+                                                     precision)
+        with torch.no_grad():
+            extra[f"fwd_b{b}"].update(fused_ms=cuda_ms(torch, fused_fwd, 10),
+                                      fused_res_ms=cuda_ms(torch, fused_res, 10),
+                                      fused_bwd_ms=cuda_ms(torch, fused_bwd, 10))
+        extra[f"fwd_b{b}"].update(stack_step_us(torch, gi0, layers, h0s, c0s, mk, dys, precision))
+        e = extra[f"fwd_b{b}"]
+        print(f"kernel lstm_stack_fwd {label}: the port from x (projection + stack) "
+              f"{e['port_from_x_ms']:.4f} ms against {lib_name}'s from x "
+              f"{rows[('lstm_stack_fwd', shape, b)]['library_ms']:.4f} ms and \"fused\"'s two "
+              f"per-layer scans from x {e['fused_ms']:.4f} ms; stack {e['fwd_us_per_step']:.2f} "
+              f"us a step no-grad, {e['bwd_us_per_step']:.2f} us a step BPTT (GEMMs included)")
         xl, hl, cl = (a.detach().requires_grad_() for a in (lx, *state0))
         lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: lib(xl, (hl, cl)),
                                                   dys.to(lx.dtype), 10)
@@ -1541,6 +1615,11 @@ def phase_stack_kernels(torch, precision="f32"):
             cuda_ms(torch, lambda: bwd_plain(*bwd_args), 3),
             (*cuda_stack.stack_bwd_cost(t, b, h, ranks, xranks, **cost), 2 * mm), lib_bwd_ms,
             lib_name)
+        print(f"kernel lstm_stack_fwd_res {label}: "
+              f"{rows[('lstm_stack_fwd_res', shape, b)]['ms']:.4f} ms against \"fused\"'s two "
+              f"residual scans from x {e['fused_res_ms']:.4f} ms; lstm_stack_bwd "
+              f"{rows[('lstm_stack_bwd', shape, b)]['ms']:.4f} ms against their two BPTTs "
+              f"{e['fused_bwd_ms']:.4f} ms")
     print(json.dumps({"wavefront_kernels" + ("_bf16" if bf16 else ""): extra}))
     return rows
 
@@ -1705,11 +1784,68 @@ def phase_wavefront(torch):
             t = LMTrainer(wavefront_lm(be), batch_size=bb, seq_length=LM["prompt"])
             ms = train_step_ms(torch, t, t.init(), chunks, 5, generator)
             perf[f"train_b{bb}_{be}"] = dict(step_ms=ms, words_per_s=bb * LM["prompt"] / ms * 1e3)
+    perf["depth3"] = wavefront_depth3(torch)
     for k, v in perf.items():
         print(f"wavefront {k}: {v}")
     print(json.dumps({"wavefront": dict(perf, losses=losses[::5], perplexity=ppl,
                                         parting=parting)}))
     return rows, [(form, serve_launches), (form, train_launches), (form, group_launches)]
+
+
+def wavefront_depth3(torch):
+    """A 3x650 LM on "fused_pipelined": `stack_fits` takes the three layers
+    as one group, run at B=128 in chunks of rows (`stack_chunks`). Prefill
+    and train step ms at B = 20 and 128 of that group, of the same stack
+    with `stack_fits` forced to a 2+1 grouping, and of "fused"; the
+    one-group prefill is held to the "fused" one. -> {batch: {way: ms}}."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+    from vmlmf_tpu_torch.serve import Decoder
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    wave, fused = wavefront_lm("fused_pipelined", layers=3), wavefront_lm("fused", layers=3)
+    params = wave.init(torch.Generator().manual_seed(0), device="cuda")
+    preps = [c.prepare(p) for c, p in zip(wave.rnn.cells, params["rnn"])]
+    fits, out = cuda_stack.stack_fits, {}
+    for bb in TRAIN_BATCHES:
+        ids, chunks = prompt_ids(torch, bb), lm_chunks(bb)[0]
+        s0, res = wave.state0(bb), {}
+        for way, rule in (("one group", fits), ("2+1", lambda layers: len(layers) <= 2)):
+            cuda_stack.stack_fits = rule
+            try:
+                groups = cuda_stack.stack_groups(cuda_stack.stack_units(wave.rnn.cells, preps))
+                if groups != {"one group": [(0, 3)], "2+1": [(0, 2), (2, 3)]}[way]:
+                    fail(f"3x650 grouped {groups} under the {way} rule")
+                reset_launch_counts()
+                logits, _ = Decoder(wave).prefill(params, ids, s0)
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                res[f"prefill {way}"] = cuda_ms(torch, lambda: Decoder(wave).prefill(
+                    params, ids, s0), 5)
+                t = LMTrainer(wavefront_lm("fused_pipelined", layers=3), batch_size=bb,
+                              seq_length=LM["prompt"])
+                res[f"train {way}"] = train_step_ms(torch, t, t.init(), chunks, 5,
+                                                    torch.Generator(device="cuda").manual_seed(1))
+            finally:
+                cuda_stack.stack_fits = fits
+            r = LM["rank"]
+            chunks3 = cuda_stack.stack_chunks(bb, LM["hidden"], (r,) * 3, (r,) * 2)
+            want = (only(lstm_stack_fwd=len(chunks3)) if way == "one group"
+                    else only(lstm_stack_fwd=1, lstm_scan_xin_fwd=1))
+            if launches != want:
+                fail(f"a 3x650 prefill at B={bb} under the {way} rule launched "
+                     f"{nonzero(launches)}, not {nonzero(want)}")
+            if way == "one group":
+                ok, err = close(torch, logits, Decoder(fused).prefill(params, ids, s0)[0])
+                print(f"wavefront 3x650 at B={bb}: one group of {nonzero(launches)}, prefill "
+                      f"vs the fused backend's max abs err {err:.3g} (tol {TOL})")
+                if not ok:
+                    fail(f"the 3x650 one-group prefill disagrees with the fused backend's: {err}")
+        res["prefill fused"] = cuda_ms(torch, lambda: Decoder(fused).prefill(params, ids, s0), 5)
+        t = LMTrainer(wavefront_lm("fused", layers=3), batch_size=bb, seq_length=LM["prompt"])
+        res["train fused"] = train_step_ms(torch, t, t.init(), chunks, 5,
+                                           torch.Generator(device="cuda").manual_seed(1))
+        out[f"b{bb}"] = res
+    return out
 
 
 def wavefront_grouping(torch, trn, generator):
@@ -2416,8 +2552,7 @@ def trace_step(torch, label, step):
         # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
         # grid_scan_kernel and grid_bptt_kernel; "vmlmf::" the tiled GEMMs
         if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
-                                   "stack_step_kernel", "stack_bptt_kernel", "widen_kernel",
-                                   "narrow_kernel")):
+                                   "stack_fwd_kernel", "stack_bwd_kernel", "widen_kernel")):
             return "port"
         if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
             return "cublas"

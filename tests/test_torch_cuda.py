@@ -618,14 +618,20 @@ def test_cells_run_their_route_on_cuda(cuda, kind):
 
 # -- the wavefront stack (csrc/lstm_stack_fwd.cu, csrc/lstm_stack_bwd.cu) -------
 
-# (layers, T, B, h, ranks r_l, x ranks rx_l, masks) with time blocks of
-# cuda_stack.BLOCK = 5 steps: a ragged last block (T=7, T=12), one short
-# block (T=4), unequal ranks, three layers; the PTB LM stack at B=20
+# (layers, T, B, h, ranks r_l, x ranks rx_l, masks), each laid out by
+# cuda_stack.stack_plan: one CTA a layer (small h), three layers, unequal
+# ranks, a ragged h over many CTAs with ranks below the CTA count, the PTB
+# LM stack at B = 1, 20 and 128 (one group of 44 + 88 CTAs in f32), and a
+# batch that runs in two chunks of rows (cuda_stack.stack_chunks)
 STACK_CASES = {
     "l3_ragged": (3, 7, 5, 33, (6, 9, 4), (5, 7), True),
     "l2_one_block": (2, 4, 3, 16, (4, 4), (4,), False),
     "l2_three_blocks": (2, 12, 6, 20, (3, 5), (4,), True),
+    "l3_ragged_h_wide": (3, 6, 9, 611, (37, 200, 9), (13, 150), True),
+    "lm_b1": (2, 35, 1, 650, (300, 300), (300,), False),
     "lm_b20": (2, 35, 20, 650, (300, 300), (300,), True),
+    "lm_b128": (2, 35, 128, 650, (300, 300), (300,), True),
+    "lm_b300_chunks": (2, 5, 300, 650, (300, 300), (300,), True),  # two launches of 150 rows
 }
 
 
@@ -671,7 +677,10 @@ def test_stack_kernels_match_plain(cuda, case):
     dcl = [None] + [torch.randn(b, h, device=cuda) for _ in range(n - 1)]
     grads = cuda_stack.lstm_stack_bwd(layers, h0s, c0s, mk, *res, dys, dhl, dcl)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in fns] == [c + 1 for c in counts]
+    # one launch a chunk of rows: one, or two for lm_b300_chunks
+    chunks = cuda_stack.stack_chunks(b, h, ranks, xranks, cuda_stack._sm_count(gi0.device.index))
+    assert len(chunks) == (2 if b == 300 else 1)
+    assert [fn.launches for fn in fns] == [c + len(chunks) for c in counts]
 
     ys_p, hl_p, cl_p = cuda_stack.lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, mk)
     for got, want in zip([ys, *hl, *cl], [ys_p, *hl_p, *cl_p]):
@@ -709,9 +718,83 @@ def test_bf16_stack_kernels_match_plain(cuda, case):
     res_p = cuda_stack.lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, mk, "bf16")
     for a, w in zip(leaves(res), leaves(res_p)):
         torch.testing.assert_close(a, w, **tol)
-    for a, w in zip(leaves(grads), leaves(cuda_stack.lstm_stack_bwd_plain(
-            layers, h0s, c0s, mk, *res, dys, none, none, "bf16"))):
-        torch.testing.assert_close(a, w, **grad_tol)
+    # the gradients, held to the plain version and, at the same tolerance,
+    # to the plain version with its f32 sums taken in float64 (the same bf16
+    # roundings); where the f32 plain itself is not within the tolerance of
+    # its float64 sums (at B=128 one dU element of 195,000), the float64
+    # one is the reference
+    want = leaves(cuda_stack.lstm_stack_bwd_plain(layers, h0s, c0s, mk, *res, dys, none, none,
+                                                  "bf16"))
+    wide = lambda tree: [None if a is None else a.double() for a in tree]  # noqa: E731
+    own = leaves(cuda_stack.lstm_stack_bwd_plain(
+        [{k: a.double() for k, a in lay.items()} for lay in layers], wide(h0s), wide(c0s),
+        None if mk is None else wide(mk), *(wide(g) for g in res), dys.double(), none, none,
+        "bf16"))
+    for i, (a, w, w64) in enumerate(zip(leaves(grads), want, own)):
+        torch.testing.assert_close(a.double(), w64, msg=lambda m: f"gradient {i} vs the float64 "
+                                   f"plain: {m}", **grad_tol)
+        if torch.allclose(w.double(), w64, **grad_tol):
+            torch.testing.assert_close(a, w, msg=lambda m: f"gradient {i}: {m}", **grad_tol)
+
+
+def stack_outputs(case, cuda, precision="f32"):
+    """Every output of the stack's three entries on the case's inputs."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    n, t, b, h, ranks, xranks, masks = STACK_CASES[case]
+    gi0, layers, h0s, c0s, mk = stack_inputs(n, t, b, h, ranks, xranks, masks, cuda)
+    out = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, mk, precision)
+    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, precision)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    dhl = [torch.ones(b, h, device=cuda)] + [None] * (n - 1)
+    grads = cuda_stack.lstm_stack_bwd(layers, h0s, c0s, mk, *res, dys, dhl, [None] * n,
+                                      precision)
+    torch.cuda.synchronize()
+    return leaves([out, res, grads])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["l3_ragged_h_wide", "lm_b20"])
+def test_stack_kernels_are_deterministic(cuda, case, precision):
+    # every sum runs in a fixed order inside one CTA: no atomics
+    first, second = stack_outputs(case, cuda, precision), stack_outputs(case, cuda, precision)
+    assert len(first) == len(second)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_stack_entries_are_one_cooperative_launch_each(cuda):
+    """The forward is one launch of stack_fwd_kernel; the BPTT one launch of
+    stack_bwd_kernel, then the weight GEMMs and column sums."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    stack_outputs("lm_b20", cuda)  # built and warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stack_outputs("lm_b20", cuda)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fwd = [k for k in names if "stack_fwd_kernel" in k]
+    bwd = [k for k in names if "stack_bwd_kernel" in k]
+    assert len(fwd) == 2 and len(bwd) == 1, names  # no-grad and residual forwards, one walk
+    assert not [k for k in names if "stack_step_kernel" in k]  # no launch per step
+
+
+@pytest.mark.cuda
+def test_stack_plan_too_large_to_be_co_resident_raises(cuda, monkeypatch):
+    # a plan for 264 SMs on a card of 132: more CTAs than it can hold at once
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    monkeypatch.setattr(cuda_stack, "_sm_count", lambda index: 264)
+    n, t, b, h, ranks, xranks, masks = STACK_CASES["lm_b1"]
+    gi0, layers, h0s, c0s, mk = stack_inputs(n, t, b, h, ranks, xranks, masks, cuda)
+    assert cuda_stack.stack_plan(b, h, ranks, xranks, 264).n_ctas > 132
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, mk)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk)
 
 
 def leaves(tree):
@@ -739,6 +822,11 @@ def test_stack_kernels_refuse_what_they_do_not_take(cuda):
     deep = [layers[0]] + [layers[1]] * cuda_stack.MAX_LAYERS
     with pytest.raises(ValueError, match="stack_groups"):
         cuda_stack.lstm_stack_scan_fused(gi0, deep, h0s * 9, c0s * 9, None)
+    # 59 MB of factors have no plan even for one row (a batch over one
+    # plan's staging runs in chunks of rows instead: lm_b300_chunks)
+    wide = stack_inputs(2, 2, 4, 1400, (700, 700), (700,), False, cuda)
+    with pytest.raises(ValueError, match="stack_groups"):
+        cuda_stack.lstm_stack_scan_fused(*wide[:4], None)
     layers[0]["u"].requires_grad_(True)
     with pytest.raises(RuntimeError, match="LSTMStackScan"):
         cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, mk)

@@ -207,13 +207,26 @@ def test_stack_groups_partitions(monkeypatch):
 
 
 def test_stack_fits_is_the_l2_and_depth_criterion():
+    """`stack_fits` is the plan's criterion: a `stack_plan` at f32 for one
+    row of the group, within the kernels' depth (the name is older than the
+    criterion: the factors now live in the SMs' shared memory); a larger
+    batch runs in chunks of rows (`stack_chunks`)."""
     def lm_layers(n, h=650, r=300):
         one = {"u": torch.empty(h, r), "v": torch.empty(r, 4 * h)}
         return [one] + [dict(one, ux=one["u"], vx=one["v"]) for _ in range(n - 1)]
 
-    assert cuda_stack.stack_fits(lm_layers(2))        # 11.7 MB of factors
-    assert not cuda_stack.stack_fits(lm_layers(4))    # 27.3 MB, over half the L2
+    assert cuda_stack.stack_fits(lm_layers(2))        # 11.7 MB of factors over 132 SMs
+    assert cuda_stack.stack_fits(lm_layers(3))        # 19.5 MB
+    assert not cuda_stack.stack_fits(lm_layers(4))    # 27.3 MB: no plan even for one row
+    assert cuda_stack.stack_groups(lm_layers(2)) == [(0, 2)]
+    assert cuda_stack.stack_groups(lm_layers(3)) == [(0, 3)]
     assert cuda_stack.stack_groups(lm_layers(4)) == [(0, 3), (3, 4)]
+    for n in (2, 3):
+        plan = cuda_stack.stack_plan(1, 650, (300,) * n, (300,) * (n - 1))
+        assert plan.smem_bytes <= cuda_stack.SMEM_LIMIT
+    # 3x650 takes B=20 in one launch, B=128 in four chunks of 32 rows
+    assert len(cuda_stack.stack_chunks(20, 650, (300,) * 3, (300,) * 2)) == 1
+    assert len(cuda_stack.stack_chunks(128, 650, (300,) * 3, (300,) * 2)) == 4
     small = lm_layers(9, h=16, r=2)
     assert not cuda_stack.stack_fits(small)           # past the kernels' depth
     assert cuda_stack.stack_groups(small) == [(0, 8), (8, 9)]

@@ -1,81 +1,112 @@
-// Backward of the wavefront LSTM stack, for sm_90a: the reverse staircase,
-// with f32 or bf16 products.
+// Backward of the wavefront LSTM stack, for sm_90a: the reverse walk of all
+// layers in one cooperative launch, then the weight gradients, with f32 or
+// bf16 products.
 //
 // Replaces vmlmf_tpu/ops/pallas_pipeline.py::_mlbwd_kernel, bf16=False and
-// bf16=True. From the
-// residuals of the forward (lstm_stack_fwd.cu, residual form: every layer's
-// ys, cs, gates, hu and, for l > 0, xu) and the cotangents dys [T,B,h] of the
-// top layer's outputs and dhlast, dclast [B,h] per layer, any of which may
-// be absent (zeros), it computes per layer, from the top:
+// bf16=True. From the residuals of the forward (lstm_stack_fwd.cu, residual
+// form: every layer's ys, cs, gates, hu and, for l > 0, xu) and the
+// cotangents dys [T,B,h] of the top layer's outputs and dhlast, dclast [B,h]
+// per layer, any of which may be absent (zeros), it computes per layer, from
+// the top, walking t = T-1 .. 0 with the carry (dh, dc) = (dhlast, dclast)
+// at the start, dy = dys for the top layer and the dy that the layer above
+// hands down otherwise:
 //
-//   the serial reverse walk (lstm_steps.cuh, lstm_bwd_step) with dy = dys
-//   for the top layer and the dy that the layer above handed down otherwise:
-//   dpre [T*B,4h], dhu = dpre @ V^T [T*B,r], and the carry (dh, dc), which
-//   starts at (dhlast, dclast) and ends as (dh0, dc0);
-//   for l > 0, with x = ys_{l-1} * mask_l:
-//     dXU = dPre Vx^T;  dx = dXU Ux^T + sum_g dPre_g * dxvec_g
-//     dy_{l-1} = dx * mask_l
-//     dUx = X^T dXU,  dVx = XU^T dPre,  ddxvec = sum_m dPre * tile4(X),
-//     dbias = sum_m dPre;
-//   dU = Hprev^T dHU,  dV = HU^T dPre,  ddvec = sum_m dPre * tile4(Hprev),
+//   dh += dy[t];  tc = tanh(cs[t]);  (i, f, g, o) = gates[t]
+//   dc += dh * o * (1 - tc^2)
+//   dpre = [dc*g*i*(1-i), dc*c_prev*f*(1-f), dc*i*(1-g^2), dh*tc*o*(1-o)];  dc *= f
+//   dhu = dpre @ V^T;  dh = sum_g dpre_g * dvec_g + dhu @ U^T
+//   for l > 0:  dxu = dpre @ Vx^T;  dx = dxu @ Ux^T + sum_g dpre_g * dxvec_g;
+//               dy_{l-1}[t] = dx * mask_l[t]
 //
-// with sums over all M = T*B rows; Hprev row (t, b) is h0[b] at t = 0 and
-// ys[t-1, b] after. Layer 0's dpre is dgi0, the cotangent of gi0; its x
-// side goes back through the caller's autograd of Cell.inp.
+// then (dh0, dc0) = (dh, dc), and over all M = T*B rows, with x = ys_{l-1} *
+// mask_l and Hprev row (t, b) = h0[b] at t = 0 and ys[t-1, b] after:
+//
+//   dU = Hprev^T dHU,  dV = HU^T dPre,  ddvec = sum_m dPre * tile4(Hprev);
+//   for l > 0:  dUx = X^T dXU,  dVx = XU^T dPre,  ddxvec = sum_m dPre * tile4(X),
+//               dbias = sum_m dPre.
+//
+// Layer 0's dpre is dgi0, the cotangent of gi0; its x side goes back through
+// the caller's autograd of Cell.inp.
 //
 // The bf16 form rounds the operands of every product to bf16 where the TPU
-// kernel's _cast rounds them (dpre, dhu, h_prev, hu, dXU, x, xu; the
+// kernel's _cast rounds them (dpre, dhu, dxu, h_prev, hu, x, xu; the
 // weights) and sums in f32; the dvec and dxvec terms, the column sums and
-// every gradient stay f32. The entry makes bf16 copies of every layer's U
-// and V once per call for the serial walks, whose dpre and dhu are rounded
-// by their writers; the GEMMs read through rounding views (gemm_tile.cuh).
+// every gradient stay f32. The walk holds its weight slices as bf16 in
+// shared memory, and the CTA that writes dpre, dhu or dxu to an exchange
+// rounds it (scan_grid.cuh); the GEMMs read through rounding views
+// (gemm_tile.cuh).
 //
 // What bounds it on an H100, and what the design does about it:
-// * The reverse staircase mirrors the forward: time blocks of `block`
-//   steps, and at step j = 0 .. nt+L-2 every live layer l runs its reverse
-//   block nt-1-j+(L-1-l), the top layer first. One launch per step runs all
-//   live layers' serial walks (grid.y = layer), one CTA per kRows batch rows,
-//   the carry in device memory (dh0, dc0) between blocks. Each step reads
-//   V and U through L2, bound by one SM's L2 read rate, as the single-layer
-//   BPTT is; the staircase lets layer l-1's walk run beside layer l's.
-// * Handoff: the TPU kernel orders the layers within a grid step so that
-//   layer l reads its buffer before layer l+1 overwrites it. Here each layer
-//   below the top keeps its dy in full in device memory: after the walks of
-//   step j, tiled GEMM launches per live layer l > 0 turn its block's dpre
-//   into dXU and dy_{l-1} (the mask and the dxvec term in the epilogue),
-//   which layer l-1 reads at step j+1. They sit on the serial chain; dXU has
-//   few output tiles (rx = 300 columns) and k = 4h, so it is split over k
-//   (gemm_splitk) to spread over the SMs.
-// * The TPU kernel sums dU, dV, ... in VMEM across its sequential grid. CTAs
-//   here run in no order, so once the staircase ends the weight gradients of
-//   every layer run as tiled GEMMs over all M rows with transposed and
-//   masked operand views (gemm_tile.cuh) and one column-sum kernel: one CTA
-//   per output tile or column block, a fixed order, no atomics, so the
-//   result is deterministic. dpre, dhu and dxu are kept [T*B, ...] for them.
-// * Every edge (B, h, r, rx, a ragged last block in time, the first that
-//   the reverse walk meets) is masked.
+// * The TPU kernel runs its grid in order and sums dU, dV, ... in VMEM
+//   across grid steps. Here the work is split in two:
+//   1. stack_bwd_kernel, the serial part, on the layout of the forward
+//      (ops/cuda_stack.py::stack_plan): batch groups, and in each a set of
+//      co-resident CTAs per layer that hold the layer's slices of V^T or
+//      Vx^T (a k- or kx-slice, all 4h rows; scan_grid.cuh RankSlices) and
+//      of U^T and Ux^T (the j-slice) in shared memory for the whole walk.
+//      A step of layer l on CTA q, two barriers of the layer a step
+//      (lstm_scan_xin_bwd.cu):
+//      (A, j-slice) dpre of the j-slice from the carry, the saved gates, cs,
+//      c_prev and dy, into dpre [T*B, 4h] and the layer's dpre exchange; the
+//      dvec part of the next dh and, l > 0, the dxvec part of dx; barrier;
+//      (B, k- or kx-slice) [dhu | dxu] = dpre @ [V^T | Vx^T] into dhu
+//      [T*B, r], dxu [T*B, rx] and the layer's [dhu | dxu] exchange;
+//      barrier; (C, j-slice) dh += dhu @ U^T and, l > 0, dy_{l-1}[t] =
+//      (dxu @ Ux^T + the dxvec part) * mask_l into the handoff buffer of the
+//      layer below. C runs on the CTA that owns the next step's A, so it
+//      needs no barrier of its own; the next step's first barrier (or one
+//      after the last step) publishes it. The layer below waits for that
+//      round of arrivals on the layer's barrier word before its step t
+//      (acquire loads, with the barrier's 4 s timeout): the chain is T + L
+//      - 1 steps. The handoff buffer holds every step ([T][h][rpad] per
+//      group), so the layer above may run ahead. The launch is cooperative:
+//      waiting across CTAs needs them co-resident.
+//      Each CTA reads its group's whole dpre (4h floats a row) and [dhu |
+//      dxu] from L2 a step, with 16-byte cp.async.cg, never __ldg. Phase
+//      A's saved inputs of the next step (gates, cs, c_prev, and the top
+//      layer's dys) are copied with cp.async while phases B and C run;
+//      the handed-down dy once the layer above has published it.
+//   2. Once the walk ends, the weight gradients of every layer run as tiled
+//      GEMMs over all M rows with transposed and masked operand views
+//      (gemm_tile.cuh) and one column-sum kernel. Their outputs have few
+//      tiles (dU [650, 300]: 55) and their k is M, so they go through
+//      gemm_splitk, which cuts k into slices over about two CTAs per SM
+//      and adds the slices in a fixed order, as the single-layer BPTT's
+//      do: no atomics. dpre, dhu and dxu are kept [T*B, ...] for them.
+//   Every sum is taken in a fixed order: two calls give the same bits.
+// * Every edge (B, h, r, rx not multiples of the slices, rows past a
+//   group's batch rows) is masked. A batch too large for one plan runs its
+//   walk in chunks of rows, one launch each (cuda_stack.py::stack_chunks),
+//   and the weight gradients once, after the last.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
+#include <type_traits>
 
 #include "gemm_tile.cuh"
 #include "lstm_steps.cuh"
+#include "scan_grid.cuh"
 
 namespace {
 
+using vmlmf::bf16;
 using vmlmf::cdiv;
-using vmlmf::kRows;
+using vmlmf::div_up;
+using vmlmf::GridPlan;
+using vmlmf::round4;
+using vmlmf::split_at;
+using vmlmf::weight_floats;
 
-constexpr int kMaxLayers = 8;    // the depth of the layer table; MAX_LAYERS in cuda_stack.py
-constexpr int kBpttThreads = 1024;
-constexpr int kPtrs = 31;        // pointers per layer in the entry's table
+constexpr int kMaxLayers = 8;  // the depth of the layer table; MAX_LAYERS in cuda_stack.py
+constexpr int kPtrs = 32;      // pointers per layer in the entry's table
+constexpr int kInts = 3;       // integers per layer: r, rx, ctas
+// Phase A's inputs per unit and row: the four gates, cs[t], c_prev, dy[t]
+constexpr int kInputs = 7;
 
-// One layer's residuals, scratch and gradients, in the order of the entry's
-// pointer table (BWD_FIELDS in cuda_stack.py). Layer 0 has no x side, no
-// mask and no dy buffer of a layer below; its dpre is dgi0. dhlast, dclast
-// and the top layer's dy may be null.
+// One layer's residuals, outputs and exchange buffers, in the order of the
+// entry's pointer table (BWD_FIELDS in cuda_stack.py). Layer 0 has no x
+// side and no mask; its dpre is dgi0. dhlast, dclast and dys may be null.
 struct Layer {
   const float* u;       // [h, r]
   const float* v;       // [r, 4h]
@@ -83,7 +114,7 @@ struct Layer {
   const float* ux;      // [h, rx]
   const float* vx;      // [rx, 4h]
   const float* dxvec;   // [4h]
-  const float* mask;    // [T, B, h] or null
+  const float* mask;    // [T, B, h]: the mask of this layer's input, or null
   const float* h0;      // [B, h]
   const float* c0;
   const float* ys;      // [T, B, h]
@@ -91,7 +122,7 @@ struct Layer {
   const float* gates;   // [T, B, 4h]
   const float* hu;      // [T, B, r]
   const float* xu;      // [T, B, rx]
-  float* dy;            // [T, B, h]: the cotangent of ys
+  const float* dys;     // [T, B, h]: the top layer's cotangent (null: zeros or not the top)
   const float* dhlast;  // [B, h]
   const float* dclast;
   float* dpre;          // [T*B, 4h]
@@ -104,111 +135,291 @@ struct Layer {
   float* dvx;
   float* ddxvec;
   float* dbias;
-  float* dh0;           // [B, h]: the carry between blocks, then the gradient
+  float* dh0;           // [B, h]
   float* dc0;
-  __nv_bfloat16* u16;   // [h, r]: the bf16 copy of u (bf16 form; else null)
-  __nv_bfloat16* v16;   // [r, 4h]
-  int r, rx;
+  float* dpx;           // [groups][4h][rpad]: dpre of the step, as the products read it
+  float* px;            // [groups][r + rx][rpad]: dhu of the step, then dxu
+  float* dyx;           // [groups][T][h][rpad]: the cotangent of ys, from the layer above
+  int r, rx, ctas;
 };
 
 struct Stack {
   Layer layer[kMaxLayers];
+  unsigned* sync;       // [L][groups]: each layer's barrier word per group
+  int n_layers, t_len, batch, h;
+  int b_begin, b_count;  // the batch rows of this walk: [b_begin, b_begin + b_count)
 };
 
-// Epilogue of dx = dXU @ Ux^T: adds sum_g dpre_g * dxvec_g to column j and
-// stores dx * mask as the cotangent of the layer below.
-struct DyEpilogue {
-  float* dy;
-  const float* dpre;
-  const float* dxvec;
-  const float* mask;
-  int h;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    const float* dp = dpre + (size_t)i * 4 * h + j;
-    v += dp[0] * dxvec[j] + dp[h] * dxvec[h + j] + dp[2 * h] * dxvec[2 * h + j]
-         + dp[3 * h] * dxvec[3 * h + j];
-    const size_t e = (size_t)i * h + j;
-    dy[e] = mask != nullptr ? v * mask[e] : v;
-  }
-};
+// Floats of the shared memory of a CTA of a layer with ranks (r, rx) over
+// `ctas` CTAs, in the order of the carve below: the weight slices (of type
+// W), dvec and dxvec of the j-slice, the (dh, dc) carry, stage, red, phase
+// A's inputs of the step and, l > 0, the dxvec part of dx.
+template <class W>
+__host__ __device__ inline size_t bwd_smem_floats(int h, int r, int rx, int ctas,
+                                                  const GridPlan& p) {
+  const int jwm = div_up(h, ctas), jwp = round4(jwm);
+  const vmlmf::RankSlices ks(0, ctas, r, rx);
+  const int kcols = ks.packed ? ks.kwp + ks.kxwp : ks.kwp > ks.kxwp ? ks.kwp : ks.kxwp;
+  return weight_floats<W>((size_t)4 * h * kcols) + weight_floats<W>((size_t)r * jwp) +
+         weight_floats<W>((size_t)rx * jwp) + 8 * jwm +
+         (size_t)(2 + kInputs + (rx ? 1 : 0)) * jwm * p.rpad + p.stage + p.red;
+}
 
-// Reverse wavefront step j: CTA (x, y) walks batch rows x*kRows .. of layer
-// l_lo + y over its reverse block. The carry comes from dhlast/dclast at the
-// layer's first block (the last in time), else from dh0/dc0, and goes back
-// there. Shared memory: dhs, dcs [kRows, h], dps [kRows, 4h], dhus [kRows, rmax].
+// The reverse walk of the whole stack on plan.groups x plan.ctas
+// co-resident CTAs (plan.ctas: a group's CTAs over all layers, layer 0's
+// first).
 template <bool Bf16>
-__global__ void __launch_bounds__(kBpttThreads)
-stack_bptt_kernel(Stack st, int l_lo, int j, int n_layers, int nt, int block, int t_len,
-                  int batch, int h) {
-  extern __shared__ float smem[];
-  const int l = l_lo + blockIdx.y;
-  const Layer& ly = st.layer[l];
-  const int g4 = 4 * h;
-  const int kb = nt - 1 - j + (n_layers - 1 - l);
-  const int t0 = kb * block;
-  const int t1 = min(t_len, t0 + block);
-  float* dhs = smem;
-  float* dcs = dhs + kRows * h;
-  float* dps = dcs + kRows * h;
-  float* dhus = dps + kRows * g4;
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, batch - b0);
-  const bool first = kb == nt - 1;
-  const float* dh_in = first ? ly.dhlast : ly.dh0;
-  const float* dc_in = first ? ly.dclast : ly.dc0;
+__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+stack_bwd_kernel(const Stack st, const GridPlan plan) {
+  using W = std::conditional_t<Bf16, bf16, float>;  // weight slices
+  extern __shared__ __align__(16) float smem[];
+  const int h = st.h, g4 = 4 * h, rpad = plan.rpad, batch = st.batch, t_len = st.t_len;
+  const int grp = blockIdx.x / plan.ctas;
+  int q = blockIdx.x % plan.ctas, l = 0;
+  while (q >= st.layer[l].ctas) q -= st.layer[l++].ctas;
+  const Layer ly = st.layer[l];
+  const bool top = l == st.n_layers - 1;
+  const int r = ly.r, rx = ly.rx, ctas = ly.ctas;
+  const int b0 = st.b_begin + split_at(grp, st.b_count, plan.groups);
+  const int rows = st.b_begin + split_at(grp + 1, st.b_count, plan.groups) - b0;
+  const int j0 = split_at(q, h, ctas), jw = split_at(q + 1, h, ctas) - j0;
+  const vmlmf::RankSlices ks(q, ctas, r, rx);
+  const int k0 = ks.k0, kw = ks.kw, kx0 = ks.kx0, kxw = ks.kxw, kwp = ks.kr;
+  const int kcols = ks.kr + ks.kxr;  // kwp rank columns, then the x rank columns
+  const int jwm = div_up(h, ctas), jwp = round4(jwm);
+  const int wcols = ks.packed ? ks.kwp + ks.kxwp : ks.kwp > ks.kxwp ? ks.kwp : ks.kxwp;
 
-  for (int i = threadIdx.x; i < kRows * h; i += blockDim.x) {
-    const bool live = i / h < rows;
-    dhs[i] = live && dh_in != nullptr ? dh_in[(size_t)b0 * h + i] : 0.f;
-    dcs[i] = live && dc_in != nullptr ? dc_in[(size_t)b0 * h + i] : 0.f;
+  // [V[k-slice, :]^T | Vx[kx-slice, :]^T]  [4h][kcols]: one of the two on a
+  // CTA of a layer l > 0 (RankSlices), both on its only CTA; the region
+  // fits either; then U[j-slice, :]^T [r][jwp] and Ux[j-slice, :]^T [rx][jwp]
+  W* wb = reinterpret_cast<W*>(smem);
+  W* wc = reinterpret_cast<W*>(smem + weight_floats<W>((size_t)g4 * wcols));
+  W* wcx = reinterpret_cast<W*>(reinterpret_cast<float*>(wc) + weight_floats<W>((size_t)r * jwp));
+  float* dv = reinterpret_cast<float*>(wcx) + weight_floats<W>((size_t)rx * jwp);  // [jwm][4]
+  float* dxv = dv + 4 * jwm;
+  float* dhc = dxv + 4 * jwm;               // the carry dh, dc: [jwm][rpad]
+  float* dcc = dhc + (size_t)jwm * rpad;
+  float* stage = dcc + (size_t)jwm * rpad;
+  float* red = stage + plan.stage;
+  float* pa = red + plan.red;               // phase A's inputs of the step [kInputs][jwm][rpad]
+  const int slab = jwm * rpad;
+  float* dxd = pa + kInputs * slab;         // l > 0: sum_g dpre_g * dxvec_g [jwm][rpad]
+
+  const size_t yslab = (size_t)t_len * h * rpad;  // one group's region of a handoff buffer
+  float* dpx = ly.dpx + (size_t)grp * g4 * rpad;
+  float* px = ly.px + (size_t)grp * (r + rx) * rpad;
+  const float* dyx = top ? nullptr : ly.dyx + grp * yslab;
+  float* below = l ? st.layer[l - 1].dyx + grp * yslab : nullptr;  // written in phase C
+  unsigned* count = st.sync + l * plan.groups + grp;
+  const unsigned* above = top ? nullptr : st.sync + (l + 1) * plan.groups + grp;
+  const unsigned above_ctas = top ? 0 : st.layer[l + 1].ctas;
+  const bool has_dy = !top || ly.dys != nullptr;
+  unsigned target = 0;
+
+  // the weight slices, transposed, loaded once along the rows of V, Vx, U
+  // and Ux (coalesced reads); columns past a slice are zero
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kcols * g4; e += blockDim.x) {
+    const int kk = e / g4, n = e % g4;
+    float w = 0.f;
+    if (kk < kwp) {
+      if (kk < kw) w = ly.v[(size_t)(k0 + kk) * g4 + n];
+    } else if (kk - kwp < kxw) {
+      w = ly.vx[(size_t)(kx0 + kk - kwp) * g4 + n];
+    }
+    wb[(size_t)n * kcols + kk] = vmlmf::to_elem<W>(w);
   }
-  for (int i = threadIdx.x; i < kRows * (g4 + ly.r); i += blockDim.x) dps[i] = 0.f;
-  __syncthreads();
-
-  for (int t = t1 - 1; t >= t0; --t) {
-    if constexpr (Bf16)
-      vmlmf::lstm_bwd_step<true>(t, (size_t)t * batch + b0, batch, b0, ly.gates, ly.cs, ly.c0,
-                                 ly.dy, ly.u16, ly.v16, ly.dvec, dhs, dcs, dps, dhus, ly.dpre,
-                                 ly.dhu, rows, h, ly.r);
-    else
-      vmlmf::lstm_bwd_step<false>(t, (size_t)t * batch + b0, batch, b0, ly.gates, ly.cs, ly.c0,
-                                  ly.dy, ly.u, ly.v, ly.dvec, dhs, dcs, dps, dhus, ly.dpre,
-                                  ly.dhu, rows, h, ly.r);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < jwp * r; e += blockDim.x) {
+    const int jj = e / r, k = e % r;
+    wc[(size_t)k * jwp + jj] = vmlmf::to_elem<W>(jj < jw ? ly.u[(size_t)(j0 + jj) * r + k] : 0.f);
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < jwp * rx; e += blockDim.x) {
+    const int jj = e / rx, k = e % rx;
+    wcx[(size_t)k * jwp + jj] =
+        vmlmf::to_elem<W>(jj < jw ? ly.ux[(size_t)(j0 + jj) * rx + k] : 0.f);
+  }
+  for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x) {
+    const bool live = e / 4 < jw;
+    const int at = (e % 4) * h + j0 + e / 4;
+    dv[e] = live ? ly.dvec[at] : 0.f;
+    dxv[e] = live && l ? ly.dxvec[at] : 0.f;
+  }
+  for (int e = threadIdx.x; e < slab; e += blockDim.x) {
+    const int jj = e / rpad, row = e % rpad;
+    const bool live = jj < jw && row < rows;
+    const size_t at = (size_t)(b0 + row) * h + j0 + jj;
+    dhc[e] = live && ly.dhlast != nullptr ? ly.dhlast[at] : 0.f;
+    dcc[e] = live && ly.dclast != nullptr ? ly.dclast[at] : 0.f;
   }
 
-  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
-    ly.dh0[(size_t)b0 * h + i] = dhs[i];
-    ly.dc0[(size_t)b0 * h + i] = dcs[i];
+  // phase A's saved inputs of step t into pa, copied while the CTA works on
+  // the step before it: gates, cs[t], c_prev (cs[t-1] or c0), and the top
+  // layer's dys[t]
+  auto prefetch = [&](int t) {
+    const size_t m0 = (size_t)t * batch + b0;
+    const int n = jw * rows, kinds = top && ly.dys != nullptr ? kInputs : kInputs - 1;
+    for (int e = threadIdx.x; e < kinds * n; e += blockDim.x) {
+      const int k = e / n, jj = e % jw, row = (e % n) / jw, j = j0 + jj;
+      const size_t m = m0 + row;
+      const float* src = k < 4    ? ly.gates + m * g4 + k * h + j
+                         : k == 4 ? ly.cs + m * h + j
+                         : k == 6 ? ly.dys + m * h + j
+                         : t > 0  ? ly.cs + (m - batch) * h + j
+                                  : ly.c0 + (size_t)(b0 + row) * h + j;
+      vmlmf::cp_async4(pa + k * slab + jj * rpad + row, src);
+    }
+  };
+  prefetch(t_len - 1);
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const size_t m0 = (size_t)t * batch + b0;
+    if (!top) {
+      // the layer above hands dy[t] down in phase C of its step t, which its
+      // word publishes after 2s + 3 rounds of arrivals, s = T-1-t
+      vmlmf::wait_count(above, above_ctas * (2u * (t_len - 1 - t) + 3u));
+      const float4* src = reinterpret_cast<const float4*>(dyx + ((size_t)t * h + j0) * rpad);
+      float4* dst = reinterpret_cast<float4*>(pa + 6 * slab);
+      for (int i = threadIdx.x; i < jw * rpad / 4; i += blockDim.x) vmlmf::cp_async16_cg(dst + i, src + i);
+    }
+    vmlmf::cp_async_wait_all();
+    __syncthreads();  // pa, and the carry that phase C wrote
+
+    // (A) dpre of the j-slice; the carry's dh becomes the dvec part of
+    // dh_prev, and dxd the dxvec part of dx
+    for (int e = threadIdx.x; e < jw * rpad; e += blockDim.x) {
+      const int jj = e % jw, row = e / jw, j = j0 + jj;
+      const int at = jj * rpad + row;
+      if (row >= rows) {
+        for (int gg = 0; gg < 4; ++gg) dpx[(size_t)(gg * h + j) * rpad + row] = 0.f;
+        continue;
+      }
+      const size_t m = m0 + row;
+      const float gi = pa[at], gf = pa[slab + at], gg = pa[2 * slab + at];
+      const float go = pa[3 * slab + at], c_prev = pa[5 * slab + at];
+      const float dh = dhc[at] + (has_dy ? pa[6 * slab + at] : 0.f);
+      const float tc = tanhf(pa[4 * slab + at]);
+      const float dc = dcc[at] + dh * go * (1.f - tc * tc);
+      dcc[at] = dc * gf;
+      const float p[4] = {dc * gg * gi * (1.f - gi), dc * c_prev * gf * (1.f - gf),
+                          dc * gi * (1.f - gg * gg), dh * tc * go * (1.f - go)};
+      float dhp = 0.f, dxp = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        ly.dpre[m * g4 + k * h + j] = p[k];
+        dpx[(size_t)(k * h + j) * rpad + row] = vmlmf::exchanged<Bf16>(p[k]);
+        dhp = fmaf(p[k], dv[4 * jj + k], dhp);
+        dxp = fmaf(p[k], dxv[4 * jj + k], dxp);
+      }
+      dhc[at] = dhp;
+      if (l) dxd[at] = dxp;
+    }
+    vmlmf::group_sync(count, ctas, target, true);
+    if (t > 0) prefetch(t - 1);
+
+    // (B) [dhu | dxu] of the k- and kx-slices = dpre @ [V^T | Vx^T]: columns
+    // below kwp are rank columns k0 + c, the rest x rank columns kx0 + c - kwp
+    vmlmf::slice_product(dpx, g4, rpad, wb, kcols, kcols, stage, plan.stage, red, plan.red,
+                         [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 4 * cb + c;
+        const bool xside = col >= kwp;
+        const int kk = xside ? col - kwp : col;
+        if (kk >= (xside ? kxw : kw)) continue;
+        const int unit = xside ? r + kx0 + kk : k0 + kk;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 4 * rb + i;
+          px[(size_t)unit * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
+          if (row < rows) {
+            if (xside)
+              ly.dxu[(m0 + row) * rx + kx0 + kk] = acc[c][i];
+            else
+              ly.dhu[(m0 + row) * r + k0 + kk] = acc[c][i];
+          }
+        }
+      }
+    });
+    vmlmf::group_sync(count, ctas, target, true);
+
+    // (C) dh[:, j-slice] += dhu @ U[j-slice, :]^T; for l > 0, dy_{l-1}[t] of
+    // the j-slice = (dxu @ Ux[j-slice, :]^T + dxd) * mask_l
+    vmlmf::slice_product(px, r, rpad, wc, jwp, round4(jw), stage, plan.stage, red, plan.red,
+                         [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jj = 4 * cb + c;
+        if (jj >= jw) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dhc[jj * rpad + 4 * rb + i] += acc[c][i];
+      }
+    });
+    if (l)
+      vmlmf::slice_product(px + (size_t)r * rpad, rx, rpad, wcx, jwp, round4(jw), stage,
+                           plan.stage, red, plan.red, [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int jj = 4 * cb + c;
+          if (jj >= jw) continue;
+          const int j = j0 + jj;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i;
+            float dx = 0.f;
+            if (row < rows) {
+              const size_t e = (m0 + row) * h + j;
+              dx = acc[c][i] + dxd[jj * rpad + row];
+              if (ly.mask != nullptr) dx *= ly.mask[e];
+            }
+            below[((size_t)t * h + j) * rpad + row] = dx;
+          }
+        }
+      });
+  }
+  // publishes the last step's dy to the layer below
+  vmlmf::group_sync(count, ctas, target, true);
+
+  for (int e = threadIdx.x; e < jw * rows; e += blockDim.x) {
+    const int jj = e % jw, row = e / jw;
+    const size_t at = (size_t)(b0 + row) * h + j0 + jj;
+    ly.dh0[at] = dhc[jj * rpad + row];
+    ly.dc0[at] = dcc[jj * rpad + row];
   }
 }
 
-// The weight gradients of one layer over all m rows, once the staircase has
+// The weight gradients of one layer over all m rows, once the walk has
 // ended. Returns the first error.
 template <bool Bf16>
-cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, cudaStream_t stream) {
+cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, float* partial,
+                         size_t room, cudaStream_t stream) {
   using vmlmf::bf16_if;
+  using vmlmf::gemm_splitk;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
   const Layer& ly = st.layer[l];
   const int g4 = 4 * h;
   // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-  cudaError_t err = vmlmf::gemm(bf16_if<Bf16>(Transposed{ly.hu, ly.r}),
+  cudaError_t err = gemm_splitk(bf16_if<Bf16>(Transposed{ly.hu, ly.r}),
                                 bf16_if<Bf16>(RowMajor{ly.dpre, g4}), Store{ly.dv, g4}, ly.r, g4,
-                                m, stream);
+                                m, partial, room, stream);
   if (err != cudaSuccess) return err;
-  err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::PrevRowsT{ly.h0, ly.ys, batch, h}),
-                    bf16_if<Bf16>(RowMajor{ly.dhu, ly.r}), Store{ly.du, ly.r}, h, ly.r, m, stream);
+  err = gemm_splitk(bf16_if<Bf16>(vmlmf::PrevRowsT{ly.h0, ly.ys, batch, h}),
+                    bf16_if<Bf16>(RowMajor{ly.dhu, ly.r}), Store{ly.du, ly.r}, h, ly.r, m,
+                    partial, room, stream);
   if (err != cudaSuccess) return err;
   const float* x = l > 0 ? st.layer[l - 1].ys : nullptr;
   if (l > 0) {
     // dUx [h, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-    err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::MaskedRowsT{x, ly.mask, h}),
+    err = gemm_splitk(bf16_if<Bf16>(vmlmf::MaskedRowsT{x, ly.mask, h}),
                       bf16_if<Bf16>(RowMajor{ly.dxu, ly.rx}), Store{ly.dux, ly.rx}, h, ly.rx, m,
-                      stream);
+                      partial, room, stream);
     if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(bf16_if<Bf16>(Transposed{ly.xu, ly.rx}), bf16_if<Bf16>(RowMajor{ly.dpre, g4}),
-                      Store{ly.dvx, g4}, ly.rx, g4, m, stream);
+    err = gemm_splitk(bf16_if<Bf16>(Transposed{ly.xu, ly.rx}),
+                      bf16_if<Bf16>(RowMajor{ly.dpre, g4}), Store{ly.dvx, g4}, ly.rx, g4, m,
+                      partial, room, stream);
     if (err != cudaSuccess) return err;
   }
   // ddvec, and for l > 0 ddxvec and dbias (null for layer 0)
@@ -218,82 +429,48 @@ cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, cudaSt
   return cudaGetLastError();
 }
 
-// The reverse staircase, then the weight gradients; in the bf16 form the
-// weight copies first. Returns the first error.
+// The walk, then, with `grads`, the weight gradients of every layer over
+// all T*B rows. The plan must hold at least the shared memory that every
+// layer's CTAs carve. Returns the first error.
 template <bool Bf16>
-cudaError_t reverse_staircase(const Stack& st, int n_layers, int t_len, int batch, int h,
-                              int block, float* partial, size_t partial_floats,
-                              cudaStream_t stream) {
-  int rmax = 0;
-  for (int l = 0; l < n_layers; ++l) rmax = std::max(rmax, st.layer[l].r);
-  const int g4 = 4 * h;
-  const size_t smem = sizeof(float) * kRows * (2 * h + g4 + rmax);
-  cudaError_t err;
-  if (Bf16) {
-    for (int l = 0; l < n_layers; ++l) {
-      const Layer& ly = st.layer[l];
-      err = vmlmf::narrow(ly.u, ly.u16, (size_t)h * ly.r, stream);
-      if (err != cudaSuccess) return err;
-      err = vmlmf::narrow(ly.v, ly.v16, (size_t)ly.r * g4, stream);
-      if (err != cudaSuccess) return err;
-    }
+cudaError_t bwd(const Stack& st, GridPlan plan, bool grads, float* partial, size_t room,
+                cudaStream_t stream) {
+  using W = std::conditional_t<Bf16, bf16, float>;
+  for (int l = 0; l < st.n_layers; ++l) {
+    const Layer& ly = st.layer[l];
+    if (sizeof(float) * bwd_smem_floats<W>(st.h, ly.r, ly.rx, ly.ctas, plan) > (size_t)plan.smem)
+      return cudaErrorInvalidValue;
   }
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(stack_bptt_kernel<Bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int nt = cdiv(t_len, block);
-  for (int j = 0; j < nt + n_layers - 1; ++j) {
-    // layer l is live while its reverse block nt-1-j+(L-1-l) is in [0, nt)
-    const int lo = std::max(0, n_layers - 1 - j);
-    const int hi = std::min(n_layers - 1, nt - 1 + n_layers - 1 - j);
-    stack_bptt_kernel<Bf16><<<dim3(cdiv(batch, kRows), hi - lo + 1), kBpttThreads, smem, stream>>>(
-        st, lo, j, n_layers, nt, block, t_len, batch, h);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    for (int l = std::max(lo, 1); l <= hi; ++l) {
-      // the block's dXU and the cotangent of the layer below, read at step j + 1
-      const Layer& ly = st.layer[l];
-      const int t0 = (nt - 1 - j + (n_layers - 1 - l)) * block;
-      const int m = (std::min(t_len, t0 + block) - t0) * batch;
-      const size_t row0 = (size_t)t0 * batch;
-      const float* dpre = ly.dpre + row0 * g4;
-      float* dxu = ly.dxu + row0 * ly.rx;
-      using vmlmf::bf16_if;
-      err = vmlmf::gemm_splitk(bf16_if<Bf16>(vmlmf::RowMajor{dpre, g4}),
-                               bf16_if<Bf16>(vmlmf::Transposed{ly.vx, g4}),
-                               vmlmf::Store{dxu, ly.rx}, m, ly.rx, g4, partial, partial_floats,
-                               stream);
-      if (err != cudaSuccess) return err;
-      const DyEpilogue epi{st.layer[l - 1].dy + row0 * h, dpre, ly.dxvec,
-                           ly.mask != nullptr ? ly.mask + row0 * h : nullptr, h};
-      err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::RowMajor{dxu, ly.rx}),
-                        bf16_if<Bf16>(vmlmf::Transposed{ly.ux, ly.rx}), epi, m, h, ly.rx, stream);
-      if (err != cudaSuccess) return err;
-    }
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    err = weight_grads<Bf16>(st, l, t_len * batch, batch, h, stream);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  Stack a = st;
+  void* args[] = {&a, &plan};
+  cudaError_t err = vmlmf::launch_grid(stack_bwd_kernel<Bf16>, plan, st.sync, args, stream,
+                                       st.n_layers * plan.groups);
+  for (int l = 0; grads && l < st.n_layers && err == cudaSuccess; ++l)
+    err = weight_grads<Bf16>(st, l, st.t_len * st.batch, st.batch, st.h, partial, room, stream);
+  return err;
 }
 
 }  // namespace
 
-// The reverse staircase and the weight gradients on the current stream.
+// The reverse walk of the batch rows [b_begin, b_begin + b_count) of B =
+// batch on the current stream, one cooperative launch, then, with grads 1,
+// the weight gradients over all T*B rows (after the walks of every row).
 // ptrs holds kPtrs pointers per layer in Layer's order (null where a layer
-// has none, and for absent cotangents; u16 and v16, scratch for the bf16
-// copies, null in f32), ranks (r, rx) per layer; partial is scratch of
-// partial_floats floats for the split-k partial sums of dXU; bf16_mm 1 the
-// bf16 form. Returns the first error.
-extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ranks, float* partial,
-                              int partial_floats, int n_layers, int t_len, int batch, int h,
-                              int block, int bf16_mm, void* stream_handle) {
-  if (n_layers < 1 || n_layers > kMaxLayers || block < 1) return cudaErrorInvalidValue;
+// has none, and for absent cotangents); ints kInts integers per layer, (r,
+// rx, ctas), rx = 0 for layer 0; sync the [L][groups] barrier words (the
+// launcher zeroes them); partial scratch of partial_floats floats for the
+// split-k partial sums of the weight gradients. groups, rpad, stage, red
+// and smem are stack_plan's layout of the BPTT for b_count rows; bf16_mm 1
+// the bf16 form. Returns the first error.
+extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ints, unsigned* sync, float* partial,
+                              int partial_floats, int n_layers, int t_len, int batch,
+                              int b_begin, int b_count, int h, int groups, int rpad, int stage,
+                              int red, int smem, int grads, int bf16_mm, void* stream_handle) {
+  if (n_layers < 1 || n_layers > kMaxLayers || b_begin < 0 || b_count < 1 ||
+      b_begin + b_count > batch)
+    return cudaErrorInvalidValue;
   Stack st{};
+  int ctas = 0;
   for (int l = 0; l < n_layers; ++l) {
     void* const* p = ptrs + l * kPtrs;
     Layer& ly = st.layer[l];
@@ -311,7 +488,7 @@ extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ranks, float* partia
     ly.gates = static_cast<const float*>(p[11]);
     ly.hu = static_cast<const float*>(p[12]);
     ly.xu = static_cast<const float*>(p[13]);
-    ly.dy = static_cast<float*>(p[14]);
+    ly.dys = static_cast<const float*>(p[14]);
     ly.dhlast = static_cast<const float*>(p[15]);
     ly.dclast = static_cast<const float*>(p[16]);
     ly.dpre = static_cast<float*>(p[17]);
@@ -326,18 +503,28 @@ extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ranks, float* partia
     ly.dbias = static_cast<float*>(p[26]);
     ly.dh0 = static_cast<float*>(p[27]);
     ly.dc0 = static_cast<float*>(p[28]);
-    ly.u16 = static_cast<__nv_bfloat16*>(p[29]);
-    ly.v16 = static_cast<__nv_bfloat16*>(p[30]);
-    if (bf16_mm && (ly.u16 == nullptr || ly.v16 == nullptr)) return cudaErrorInvalidValue;
-    ly.r = ranks[2 * l];
-    ly.rx = ranks[2 * l + 1];
+    ly.dpx = static_cast<float*>(p[29]);
+    ly.px = static_cast<float*>(p[30]);
+    ly.dyx = static_cast<float*>(p[31]);
+    ly.r = ints[kInts * l];
+    ly.rx = ints[kInts * l + 1];
+    ly.ctas = ints[kInts * l + 2];
+    if (ly.ctas < 1 || (l > 0) != (ly.rx > 0) || (l + 1 < n_layers && ly.dyx == nullptr))
+      return cudaErrorInvalidValue;
+    ctas += ly.ctas;
   }
-  const size_t room = static_cast<size_t>(partial_floats);
+  st.sync = sync;
+  st.n_layers = n_layers;
+  st.t_len = t_len;
+  st.batch = batch;
+  st.b_begin = b_begin;
+  st.b_count = b_count;
+  st.h = h;
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  return bf16_mm ? reverse_staircase<true>(st, n_layers, t_len, batch, h, block, partial, room,
-                                           stream)
-                 : reverse_staircase<false>(st, n_layers, t_len, batch, h, block, partial, room,
-                                            stream);
+  const size_t room = static_cast<size_t>(partial_floats);
+  return bf16_mm ? bwd<true>(st, plan, grads != 0, partial, room, stream)
+                 : bwd<false>(st, plan, grads != 0, partial, room, stream);
 }
 
 // The message of an error code that lstm_stack_bwd returned.

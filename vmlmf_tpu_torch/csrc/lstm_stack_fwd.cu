@@ -12,74 +12,94 @@
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
 //
 // ys_l[t,b] = h, and (hlast_l, clast_l) the state after the last step. The
-// residual form also writes, per layer, cs [T,B,h], the gates after the
-// nonlinearities [T,B,4h], hu = h_prev @ U [T,B,r] and, for l > 0, xu = x @
-// Ux [T*B,rx]. The layers' ranks may differ. Layouts are the port's
-// unpadded ones, all row-major and contiguous.
+// residual form also writes, per layer, ys and cs [T,B,h], the gates after
+// the nonlinearities [T,B,4h], hu = h_prev @ U [T,B,r] and, for l > 0, xu =
+// x @ Ux [T,B,rx] (the f32 products, before any rounding). The layers'
+// ranks may differ. Layouts are the port's unpadded ones, all row-major and
+// contiguous.
 //
 // The bf16 form rounds every product's operands to bf16 where the TPU
 // kernel's _cast rounds them (x, xu, h and hu; the weights U, V, Ux, Vx)
 // and sums in f32; the dvec and dxvec terms, the bias, gi0 and the gate
-// arithmetic stay f32, and so do the residuals (xu and hu are the f32
-// products, before any rounding). The entry makes bf16 copies of every
-// layer's U and V once per call, which the serial steps read as 2-byte
-// values through L2; h and hu are rounded by their writers. The projection
-// GEMMs read x, Ux, xu and Vx through rounding views (gemm_tile.cuh).
+// arithmetic stay f32, and so do the residuals. The weight slices are held
+// as bf16 in shared memory and widened for f32 FMAs; exchanged values are
+// rounded by the CTA that writes them (scan_grid.cuh).
 //
-// The schedule is the TPU kernel's block staircase: time is cut into blocks
-// of `block` steps (the last one ragged when block does not divide T), and
-// at wavefront step k = 0 .. nt+L-2 every live layer l runs its block k-l.
 // What bounds it on an H100, and what the design does about it:
-// * The recurrence is a serial chain per layer, read through L2 (3.9 MB of
-//   U+V a step at LM width, far over one SM's 227 KB): one CTA per kRows
-//   batch rows walks a block with the carry in shared memory, as the
-//   single-layer scan does (lstm_steps.cuh). Run one layer after the other,
-//   L layers take L*T such steps; in the staircase, layer l's CTAs run beside
-//   layer l-1's on other SMs, so the chain is about T + (L-1)*block steps.
-//   Whether two layers' CTAs share L2's rate without slowing each other is
-//   what the card shows.
-// * One launch per wavefront step, all live layers in it (grid.y = layer):
-//   the kernel boundary is the barrier between steps that the TPU's
-//   sequential grid gave. The carry goes to device memory (hlast, clast)
-//   between blocks.
-// * Handoff: the TPU kernel orders the layers within a grid step so that
-//   layer l reads its VMEM buffer before layer l-1 overwrites it. Here the
-//   layers run at once, so every layer keeps its ys in full in device memory
-//   (the residual form needs it anyway): layer l reads block k-l of ys_{l-1},
-//   written at step k-1, while layer l-1 writes block k-l+1.
-// * Layer l > 0 projects its block before its recurrence, as tiled GEMM
-//   launches over the block's rows (gemm_tile.cuh), spread over many CTAs:
-//   xu = x @ Ux, then gi = xu @ Vx with the x term and bias in the epilogue,
-//   x read through the masked view (the mask multiplies the handoff, not the
-//   stored ys). gi is a block-sized buffer; so is xu in the no-grad form.
-//   The projection sits on the serial chain between two wavefront steps. xu
-//   has few output tiles (rx = 300 columns) and k = h, so it is split over
-//   k (gemm_splitk) to spread over the SMs; gi has 4h columns and needs no
-//   split.
-// * Every edge (B, h, r, rx, a ragged last block) is masked.
+// * The recurrence of every layer is a serial chain: a step needs all of h
+//   before h @ U. The TPU kernel keeps every layer's factors in VMEM for the
+//   whole stack. Here they are split over the CTAs of one cooperative
+//   launch, one per SM, each holding its slices in shared memory for the
+//   whole launch, in the layout of ops/cuda_stack.py::stack_plan: batch
+//   groups as in the single-layer scan (scan_grid.cuh), and within a group
+//   a set of CTAs per layer, in proportion to the layer's multiply-adds per
+//   row and step (a layer l > 0 has an x side of the recurrent side's shape,
+//   so twice layer 0's at equal ranks: 44 and 88 of 132 SMs for the 2x650
+//   LM stack, 11.7 MB of f32 factors).
+// * A step of layer l is the single-layer scan's two phases with input
+//   [x_t | h_{t-1}] and rank r + rx, each ending in the layer's barrier:
+//   (A) hu[:, k-slice] = h @ U[:, k-slice] and, for l > 0, xu[:, kx-slice]
+//   = x_t @ Ux[:, kx-slice], into the layer's [hu | xu] exchange; (B) pre =
+//   [hu | xu] @ [V; Vx][:, gate columns of the j-slice] + h * dvec + (gi0,
+//   or x * dxvec + bias), the gates and the c/h update of the j-slice, the
+//   new h into the layer's h exchange. The x projection is thus inside the
+//   step and off the chain between launches, and there is one launch per
+//   call. In phase A a layer's CTAs hold either U's or Ux's rank columns
+//   (scan_grid.cuh RankSlices), in proportion r : rx, so that each CTA
+//   stages one operand from L2 a step and runs one product.
+// * Layers pipelined step by step: layer l's step t needs only layer l-1's
+//   step t, so the chain is T + L - 1 steps. A layer's barrier word counts
+//   the arrivals of its CTAs (two rounds a step, after one at the start), so
+//   it is also the layer's progress: before step t, layer l's CTAs wait
+//   (acquire loads, the barrier's 4 s timeout) until layer l-1's word says
+//   that its step t is done. Layer l-1 writes x_t for layer l in phase B of
+//   its step t, masked (and rounded in bf16), into a [T][h][rpad] buffer per
+//   group: every step has its own slot, so no slot is reused while a reader
+//   may need it, and layer l-1 may run ahead. Waiting across CTAs is safe
+//   only among co-resident CTAs, so the launch is cooperative and a grid
+//   that cannot be co-resident is refused.
+// * What sets a step is latency: the barriers, and each CTA's read of its
+//   group's h (and x) or [hu | xu] from L2, staged into shared memory with
+//   16-byte cp.async.cg (double-buffered when it does not fit whole). The
+//   exchange and handoff buffers are read only through L2 (.cg), never
+//   __ldg; weights, gi0, masks, h0 and c0 never change during the launch.
+//   The step's gi0 (layer 0) or x (l > 0) of the j-slice is copied at the
+//   start of the step, while phase A and its barrier run.
+// * Ragged edges: h, r, rx and B need not divide the CTA or group counts; a
+//   CTA may own no rank column, and rows past a group's batch rows are
+//   padding that is computed and never written out.
+// * A launch takes the batch rows [b_begin, b_begin + b_count): a batch too
+//   large for one plan's staging (f32 LM stack, B > 164) is cut by the
+//   wrapper into chunks of rows, one launch each (cuda_stack.py::
+//   stack_chunks); rows are independent.
+// * Every sum runs inside one CTA in a fixed order: two calls give the same
+//   bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
+#include <type_traits>
 
 #include "gemm_tile.cuh"
-#include "lstm_steps.cuh"
+#include "scan_grid.cuh"
 
 namespace {
 
-using vmlmf::cdiv;
-using vmlmf::kRows;
+using vmlmf::bf16;
+using vmlmf::div_up;
+using vmlmf::GridPlan;
+using vmlmf::round4;
+using vmlmf::split_at;
+using vmlmf::weight_floats;
 
-constexpr int kMaxLayers = 8;    // the depth of the layer table; MAX_LAYERS in cuda_stack.py
-constexpr int kMaxThreads = 1024;
-constexpr int kPtrs = 20;        // pointers per layer in the entry's table
+constexpr int kMaxLayers = 8;  // the depth of the layer table; MAX_LAYERS in cuda_stack.py
+constexpr int kPtrs = 21;      // pointers per layer in the entry's table
+constexpr int kInts = 3;       // integers per layer: r, rx, ctas
 
-// One layer's operands and outputs, in the order of the entry's pointer
-// table (FWD_FIELDS in cuda_stack.py). Layer 0 has no x side and no mask,
-// and its gi is gi0 [T*B, 4h]; a layer l > 0's gi is its block's
-// projection [block*B, 4h]. The residual pointers are null in the no-grad
-// form, where xu is block-sized scratch.
+// One layer's operands, outputs and exchange buffers, in the order of the
+// entry's pointer table (FWD_FIELDS in cuda_stack.py). Layer 0 has no x
+// side, no mask and no x buffers. The exchange buffers hold one region per
+// batch group; a region is [units][rpad], one column per row of the group.
 struct Layer {
   const float* u;      // [h, r]
   const float* v;      // [r, 4h]
@@ -88,156 +108,298 @@ struct Layer {
   const float* vx;     // [rx, 4h]
   const float* dxvec;  // [4h]
   const float* bias;   // [4h]
-  const float* mask;   // [T, B, h] or null
+  const float* mask;   // [T, B, h]: the mask of this layer's input, or null
   const float* h0;     // [B, h]
   const float* c0;
-  float* ys;           // [T, B, h]
-  float* hlast;        // [B, h]: the carry between blocks, then the final state
+  float* ys;           // [T, B, h], or null (a lower layer's, no-grad)
+  float* hlast;        // [B, h] (no-grad)
   float* clast;
-  float* cs;           // [T, B, h]
+  float* cs;           // [T, B, h] (residual)
   float* gates;        // [T, B, 4h]
   float* hu;           // [T, B, r]
-  float* xu;           // [T*B, rx] (residual) or [block*B, rx]
-  float* gi;
-  __nv_bfloat16* u16;  // [h, r]: the bf16 copy of u (bf16 form; else null)
-  __nv_bfloat16* v16;  // [r, 4h]
-  int r, rx;
+  float* xu;           // [T, B, rx]
+  float* hx;           // [groups][h][rpad]: h of the step
+  float* px;           // [groups][r + rx][rpad]: hu of the step, then xu
+  float* xx;           // [groups][T][h][rpad]: x of each step, as the products read it
+  float* xt;           // the same unrounded (bf16 form), or null (f32: xx)
+  int r, rx, ctas;
 };
 
 struct Stack {
   Layer layer[kMaxLayers];
+  const float* gi0;    // [T, B, 4h]
+  unsigned* sync;      // [L][groups]: each layer's barrier word per group
+  int n_layers, t_len, batch, h;
+  int b_begin, b_count;  // the batch rows of this launch: [b_begin, b_begin + b_count)
 };
 
-// Epilogue of gi = xu @ Vx: adds the x term and the bias to column j,
-// x(i, j % h) * dxvec[j] + bias[j], x read through the masked view.
-struct GiEpilogue {
-  float* gi;
-  vmlmf::MaskedRows x;
-  const float* dxvec;
-  const float* bias;
-  int h;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    gi[(size_t)i * 4 * h + j] = v + x(i, j % h) * dxvec[j] + bias[j];
-  }
-};
-
-// Wavefront step k: CTA (x, y) runs batch rows x*kRows .. of layer l_lo + y
-// over its time block k - l. The carry comes from h0/c0 at the first block,
-// else from hlast/clast, and goes back there. Shared memory: hs, cs [kRows,
-// h], in the bf16 form hm [kRows, h] (h rounded, as the product reads it),
-// and hus [kRows, rmax].
-template <bool Residuals, bool Bf16>
-__global__ void __launch_bounds__(kMaxThreads)
-stack_step_kernel(Stack st, int l_lo, int k, int block, int t_len, int batch, int h) {
-  extern __shared__ float smem[];
-  const int l = l_lo + blockIdx.y;
-  const Layer& ly = st.layer[l];
-  const int t0 = (k - l) * block;
-  const int t1 = min(t_len, t0 + block);
-  float* hs = smem;
-  float* cs = hs + kRows * h;
-  float* hm = Bf16 ? cs + kRows * h : hs;
-  float* hus = Bf16 ? hm + kRows * h : cs + kRows * h;
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, batch - b0);
-  const float* h_in = t0 == 0 ? ly.h0 : ly.hlast;
-  const float* c_in = t0 == 0 ? ly.c0 : ly.clast;
-
-  for (int i = threadIdx.x; i < kRows * h; i += blockDim.x) {
-    const bool live = i / h < rows;
-    hs[i] = live ? h_in[(size_t)b0 * h + i] : 0.f;
-    cs[i] = live ? c_in[(size_t)b0 * h + i] : 0.f;
-    if (Bf16) hm[i] = vmlmf::round_bf16(hs[i]);
-  }
-  __syncthreads();
-
-  // the block's gi rows: gi0 from row t0*B (layer 0), or the block's projection
-  const float* gi = ly.gi + (l == 0 ? (size_t)t0 * batch * 4 * h : 0);
-  if constexpr (Bf16)
-    vmlmf::lstm_fwd_steps<Residuals, true>(t0, t1, gi, ly.u16, ly.v16, ly.dvec, hs, cs, hus, hm,
-                                           batch, b0, ly.ys, ly.cs, ly.gates, ly.hu, rows, h,
-                                           ly.r);
-  else
-    vmlmf::lstm_fwd_steps<Residuals, false>(t0, t1, gi, ly.u, ly.v, ly.dvec, hs, cs, hus, hm,
-                                            batch, b0, ly.ys, ly.cs, ly.gates, ly.hu, rows, h,
-                                            ly.r);
-
-  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
-    ly.hlast[(size_t)b0 * h + i] = hs[i];
-    ly.clast[(size_t)b0 * h + i] = cs[i];
-  }
+// Floats of the shared memory of a CTA of a layer with ranks (r, rx) over
+// `ctas` CTAs, in the order of the carve below: the weight slices (of type
+// W), dvec, dxvec and bias of the j-slice, the (h, c) carry, stage, red, and
+// the step's gi0 (layer 0) or x of the j-slice.
+template <class W>
+__host__ __device__ inline size_t fwd_smem_floats(int h, int r, int rx, int ctas,
+                                                  const GridPlan& p) {
+  const int jwm = div_up(h, ctas);
+  const vmlmf::RankSlices ks(0, ctas, r, rx);
+  const size_t u = weight_floats<W>((size_t)h * ks.kwp), ux = weight_floats<W>((size_t)h * ks.kxwp);
+  return (ks.packed ? u + ux : u > ux ? u : ux) + weight_floats<W>((size_t)(r + rx) * 4 * jwm) +
+         12 * jwm + (size_t)(2 + (rx ? 1 : 4)) * jwm * p.rpad + p.stage + p.red;
 }
 
-// The staircase: per wavefront step, the projection GEMMs of the live layers
-// l > 0, then one launch of all live layers' blocks; in the bf16 form the
-// weight copies first. Returns the first error.
-template <bool Residuals, bool Bf16>
-cudaError_t staircase(const Stack& st, int n_layers, int t_len, int batch, int h, int block,
-                      float* partial, size_t partial_floats, cudaStream_t stream) {
-  int rmax = 0;
-  for (int l = 0; l < n_layers; ++l) rmax = std::max(rmax, st.layer[l].r);
-  const size_t smem = sizeof(float) * kRows * ((Bf16 ? 3 : 2) * h + rmax);
-  cudaError_t err;
-  if (Bf16) {
-    for (int l = 0; l < n_layers; ++l) {
-      const Layer& ly = st.layer[l];
-      err = vmlmf::narrow(ly.u, ly.u16, (size_t)h * ly.r, stream);
-      if (err != cudaSuccess) return err;
-      err = vmlmf::narrow(ly.v, ly.v16, (size_t)ly.r * 4 * h, stream);
-      if (err != cudaSuccess) return err;
+// The whole stack on plan.groups x plan.ctas co-resident CTAs (plan.ctas: a
+// group's CTAs over all layers, layer 0's first). Res: also write the
+// residuals.
+template <bool Res, bool Bf16>
+__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+stack_fwd_kernel(const Stack st, const GridPlan plan) {
+  using W = std::conditional_t<Bf16, bf16, float>;  // weight slices
+  extern __shared__ __align__(16) float smem[];
+  const int h = st.h, g4 = 4 * h, rpad = plan.rpad, batch = st.batch, t_len = st.t_len;
+  const int grp = blockIdx.x / plan.ctas;
+  int q = blockIdx.x % plan.ctas, l = 0;
+  while (q >= st.layer[l].ctas) q -= st.layer[l++].ctas;
+  const Layer ly = st.layer[l];
+  const bool top = l == st.n_layers - 1;
+  const int r = ly.r, rx = ly.rx, ctas = ly.ctas;
+  const int b0 = st.b_begin + split_at(grp, st.b_count, plan.groups);
+  const int rows = st.b_begin + split_at(grp + 1, st.b_count, plan.groups) - b0;
+  const int j0 = split_at(q, h, ctas), jw = split_at(q + 1, h, ctas) - j0;
+  const vmlmf::RankSlices ks(q, ctas, r, rx);
+  const int k0 = ks.k0, kw = ks.kw, kx0 = ks.kx0, kxw = ks.kxw, kwp = ks.kr, kxwp = ks.kxr;
+  const int jwm = div_up(h, ctas);
+
+  // the slices of U[:, k-slice] [h][kwp] and Ux[:, kx-slice] [h][kxwp]
+  // that the CTA holds (a width of 0: none), in a region that fits either
+  // kind, or both on a layer's only CTA; then [V; Vx], the gate columns of
+  // the j-slice [r + rx][jwm][4]
+  W* wa = reinterpret_cast<W*>(smem);
+  W* wx = reinterpret_cast<W*>(smem + weight_floats<W>((size_t)h * kwp));
+  const size_t u_floats = weight_floats<W>((size_t)h * ks.kwp);
+  const size_t ux_floats = weight_floats<W>((size_t)h * ks.kxwp);
+  W* wb = reinterpret_cast<W*>(
+      smem + (ks.packed ? u_floats + ux_floats : u_floats > ux_floats ? u_floats : ux_floats));
+  float* dv = reinterpret_cast<float*>(wb) + weight_floats<W>((size_t)(r + rx) * 4 * jwm);
+  float* dxv = dv + 4 * jwm;  // [jwm][4] each: dvec, dxvec, bias of the j-slice
+  float* bs = dxv + 4 * jwm;
+  float* hc = bs + 4 * jwm;   // the carry h, c: [jwm][rpad]
+  float* cc = hc + (size_t)jwm * rpad;
+  float* stage = cc + (size_t)jwm * rpad;
+  float* red = stage + plan.stage;
+  float* gis = red + plan.red;  // layer 0: gi0 of the step [jwm][4][rpad]; l > 0: x [jwm][rpad]
+
+  const size_t xslab = (size_t)t_len * h * rpad;  // one group's region of an x buffer
+  float* hx = ly.hx + (size_t)grp * h * rpad;
+  float* px = ly.px + (size_t)grp * (r + rx) * rpad;
+  const float* xx = l ? ly.xx + grp * xslab : nullptr;
+  const float* xt = l ? (ly.xt != nullptr ? ly.xt : ly.xx) + grp * xslab : nullptr;
+  // the next layer's x buffers and mask, written here
+  float* nxx = top ? nullptr : st.layer[l + 1].xx + grp * xslab;
+  float* nxt = top || !Bf16 ? nullptr : st.layer[l + 1].xt + grp * xslab;
+  const float* nmask = top ? nullptr : st.layer[l + 1].mask;
+  unsigned* count = st.sync + l * plan.groups + grp;
+  const unsigned* below = l ? st.sync + (l - 1) * plan.groups + grp : nullptr;
+  const unsigned below_ctas = l ? st.layer[l - 1].ctas : 0;
+  unsigned target = 0;
+
+  // the weight slices, loaded once; columns past the slice are zero
+#pragma unroll 4
+  for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
+    const int d = e / kwp, kk = e % kwp;
+    wa[e] = vmlmf::to_elem<W>(kk < kw ? ly.u[(size_t)d * r + k0 + kk] : 0.f);
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < h * kxwp; e += blockDim.x) {
+    const int d = e / kxwp, kk = e % kxwp;
+    wx[e] = vmlmf::to_elem<W>(kk < kxw ? ly.ux[(size_t)d * rx + kx0 + kk] : 0.f);
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < (r + rx) * 4 * jwm; e += blockDim.x) {
+    const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
+    const float* w = d < r ? ly.v + (size_t)d * g4 : ly.vx + (size_t)(d - r) * g4;
+    wb[e] = vmlmf::to_elem<W>(jj < jw ? w[gg * h + j0 + jj] : 0.f);
+  }
+  for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x) {
+    const bool live = e / 4 < jw;
+    const int at = (e % 4) * h + j0 + e / 4;
+    dv[e] = live ? ly.dvec[at] : 0.f;
+    dxv[e] = live && l ? ly.dxvec[at] : 0.f;
+    bs[e] = live && l ? ly.bias[at] : 0.f;
+  }
+  // the carry from h0, c0 (padding rows zero), and h0's j-slice into the
+  // h exchange of step 0
+  for (int e = threadIdx.x; e < jwm * rpad; e += blockDim.x) {
+    const int jj = e / rpad, row = e % rpad;
+    const bool live = jj < jw && row < rows;
+    const size_t at = (size_t)(b0 + row) * h + j0 + jj;
+    hc[e] = live ? ly.h0[at] : 0.f;
+    cc[e] = live ? ly.c0[at] : 0.f;
+    if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = vmlmf::exchanged<Bf16>(hc[e]);
+  }
+  vmlmf::group_sync(count, ctas, target, true);
+
+  for (int t = 0; t < t_len; ++t) {
+    const size_t m0 = (size_t)t * batch + b0;  // the group's first row of the step
+    if (l) {
+      // layer l-1's step t is done once its word has 2t + 3 rounds of arrivals
+      vmlmf::wait_count(below, below_ctas * (2u * t + 3u));
+      const float4* src = reinterpret_cast<const float4*>(xt + ((size_t)t * h + j0) * rpad);
+      float4* dst = reinterpret_cast<float4*>(gis);
+      for (int i = threadIdx.x; i < jw * rpad / 4; i += blockDim.x) vmlmf::cp_async16_cg(dst + i, src + i);
+    } else {
+      for (int e = threadIdx.x; e < 4 * jw * rows; e += blockDim.x) {
+        const int jj = e % jw, g = (e / jw) % 4, row = e / (4 * jw);
+        vmlmf::cp_async4(gis + (jj * 4 + g) * rpad + row,
+                         st.gi0 + (m0 + row) * g4 + g * h + j0 + jj);
+      }
     }
+
+    // (A) hu[:, k-slice] = h @ U[:, k-slice] and, for l > 0, xu[:, kx-slice]
+    // = x @ Ux[:, kx-slice] into the rows of px after hu's: one of the two
+    // on a CTA of a layer l > 0 (RankSlices), both on its only CTA
+    vmlmf::slice_product(hx, h, rpad, wa, kwp, round4(kw), stage, plan.stage, red, plan.red,
+                         [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kk = 4 * cb + c;
+        if (kk >= kw) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 4 * rb + i;
+          px[(size_t)(k0 + kk) * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
+          if (Res && row < rows) ly.hu[(m0 + row) * r + k0 + kk] = acc[c][i];
+        }
+      }
+    });
+    if (kxw)
+      vmlmf::slice_product(xx + (size_t)t * h * rpad, h, rpad, wx, kxwp, round4(kxw), stage,
+                           plan.stage, red, plan.red, [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kk = 4 * cb + c;
+          if (kk >= kxw) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i;
+            px[(size_t)(r + kx0 + kk) * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
+            if (Res && row < rows) ly.xu[(m0 + row) * rx + kx0 + kk] = acc[c][i];
+          }
+        }
+      });
+    vmlmf::group_sync(count, ctas, target, true);
+
+    // (B) pre = [hu | xu] @ [V; Vx][:, gate columns of the j-slice] + h * dvec
+    // + (gi0, or x * dxvec + bias); the gates and the update of the j-slice.
+    // Item cb is unit j0 + cb. The product's first __syncthreads publishes
+    // the copied gi0 or x.
+    vmlmf::cp_async_wait_all();
+    vmlmf::slice_product(px, r + rx, rpad, wb, 4 * jwm, 4 * jw, stage, plan.stage, red, plan.red,
+                         [&](int cb, int rb, float (&acc)[4][4]) {
+      const int j = j0 + cb;
+      float gv[4][4];
+      if (l) {
+        const float4 x4 = *reinterpret_cast<const float4*>(gis + cb * rpad + 4 * rb);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gv[g][i] = fmaf(xv[i], dxv[4 * cb + g], bs[4 * cb + g]);
+      } else {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 q4 = *reinterpret_cast<const float4*>(gis + (cb * 4 + g) * rpad + 4 * rb);
+          gv[g][0] = q4.x, gv[g][1] = q4.y, gv[g][2] = q4.z, gv[g][3] = q4.w;
+        }
+      }
+      const float d0 = dv[4 * cb], d1 = dv[4 * cb + 1], d2 = dv[4 * cb + 2], d3 = dv[4 * cb + 3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * rb + i;
+        const int e = cb * rpad + row;
+        const size_t xat = ((size_t)t * h + j) * rpad + row;
+        if (row >= rows) {
+          hx[(size_t)j * rpad + row] = 0.f;
+          if (!top) {
+            nxx[xat] = 0.f;
+            if (Bf16) nxt[xat] = 0.f;
+          }
+          continue;
+        }
+        const size_t m = m0 + row;
+        const float hp = hc[e];
+        const float si = vmlmf::gate_sigmoid(gv[0][i] + acc[0][i] + hp * d0);
+        const float sf = vmlmf::gate_sigmoid(gv[1][i] + acc[1][i] + hp * d1);
+        const float tg = tanhf(gv[2][i] + acc[2][i] + hp * d2);
+        const float so = vmlmf::gate_sigmoid(gv[3][i] + acc[3][i] + hp * d3);
+        const float cn = sf * cc[e] + si * tg;
+        const float hn = so * tanhf(cn);
+        cc[e] = cn;
+        hc[e] = hn;
+        hx[(size_t)j * rpad + row] = vmlmf::exchanged<Bf16>(hn);
+        if (ly.ys != nullptr) ly.ys[m * h + j] = hn;
+        if (Res) {
+          ly.cs[m * h + j] = cn;
+          float* gw = ly.gates + m * g4;
+          gw[j] = si;
+          gw[h + j] = sf;
+          gw[2 * h + j] = tg;
+          gw[3 * h + j] = so;
+        }
+        if (!top) {  // layer l+1's x of the step
+          const float xv = nmask != nullptr ? hn * nmask[m * h + j] : hn;
+          nxx[xat] = vmlmf::exchanged<Bf16>(xv);
+          if (Bf16) nxt[xat] = xv;
+        }
+      }
+    });
+    vmlmf::group_sync(count, ctas, target, true);
   }
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(stack_step_kernel<Residuals, Bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = std::min(cdiv(std::max(h, rmax), 32) * 32, kMaxThreads);
-  const int g4 = 4 * h;
-  const int nt = cdiv(t_len, block);
-  for (int k = 0; k < nt + n_layers - 1; ++k) {
-    const int lo = std::max(0, k - nt + 1), hi = std::min(n_layers - 1, k);
-    for (int l = std::max(lo, 1); l <= hi; ++l) {
-      // block k - l of layer l's input: ys_{l-1}, written at step k - 1
-      const Layer& ly = st.layer[l];
-      const int t0 = (k - l) * block;
-      const int m = (std::min(t_len, t0 + block) - t0) * batch;
-      const size_t row0 = (size_t)t0 * batch;
-      const vmlmf::MaskedRows x{st.layer[l - 1].ys + row0 * h,
-                                ly.mask != nullptr ? ly.mask + row0 * h : nullptr, h};
-      float* xu = ly.xu + (Residuals ? row0 * ly.rx : 0);
-      using vmlmf::bf16_if;
-      err = vmlmf::gemm_splitk(bf16_if<Bf16>(x), bf16_if<Bf16>(vmlmf::RowMajor{ly.ux, ly.rx}),
-                               vmlmf::Store{xu, ly.rx}, m, ly.rx, h, partial, partial_floats,
-                               stream);
-      if (err != cudaSuccess) return err;
-      err = vmlmf::gemm(bf16_if<Bf16>(vmlmf::RowMajor{xu, ly.rx}),
-                        bf16_if<Bf16>(vmlmf::RowMajor{ly.vx, g4}),
-                        GiEpilogue{ly.gi, x, ly.dxvec, ly.bias, h}, m, g4, ly.rx, stream);
-      if (err != cudaSuccess) return err;
+
+  if (!Res)
+    for (int e = threadIdx.x; e < jw * rows; e += blockDim.x) {
+      const int jj = e % jw, row = e / jw;
+      const size_t at = (size_t)(b0 + row) * h + j0 + jj;
+      ly.hlast[at] = hc[jj * rpad + row];
+      ly.clast[at] = cc[jj * rpad + row];
     }
-    stack_step_kernel<Residuals, Bf16><<<dim3(cdiv(batch, kRows), hi - lo + 1), threads, smem,
-                                   stream>>>(st, lo, k, block, t_len, batch, h);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+}
+
+// Launches stack_fwd_kernel<Res, Bf16>; returns the launch's error. The
+// plan must hold at least the shared memory that every layer's CTAs carve.
+template <bool Res, bool Bf16>
+cudaError_t launch(const Stack& st, GridPlan plan, cudaStream_t stream) {
+  using W = std::conditional_t<Bf16, bf16, float>;
+  for (int l = 0; l < st.n_layers; ++l) {
+    const Layer& ly = st.layer[l];
+    if (sizeof(float) * fwd_smem_floats<W>(st.h, ly.r, ly.rx, ly.ctas, plan) > (size_t)plan.smem)
+      return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
+  Stack a = st;
+  void* args[] = {&a, &plan};
+  return vmlmf::launch_grid(stack_fwd_kernel<Res, Bf16>, plan, st.sync, args, stream,
+                            st.n_layers * plan.groups);
 }
 
 }  // namespace
 
-// The forward staircase on the current stream. ptrs holds kPtrs pointers per
-// layer in Layer's order (null where a layer has none; u16 and v16, scratch
-// for the bf16 copies, null in f32), ranks (r, rx) per layer; partial is
-// scratch of partial_floats floats for the split-k partial sums of the
-// projections; residuals 0 is the no-grad form; bf16_mm 1 the bf16 form.
+// The forward stack on the current stream, in one cooperative launch, for
+// the batch rows [b_begin, b_begin + b_count) of B = batch. ptrs holds
+// kPtrs pointers per layer in Layer's order (null where a layer has none);
+// ints kInts integers per layer, (r, rx, ctas), rx = 0 for layer 0; gi0 is
+// layer 0's input contribution [T*B, 4h]; sync the [L][groups] barrier
+// words (the launcher zeroes them). groups, rpad, stage, red and smem are
+// stack_plan's layout for b_count rows (a group's CTAs: the sum of the
+// layers' ctas); residuals 0 is the no-grad form; bf16_mm 1 the bf16 form.
 // Returns the first error.
-extern "C" int lstm_stack_fwd(void* const* ptrs, const int* ranks, float* partial,
-                              int partial_floats, int n_layers, int t_len, int batch, int h,
-                              int block, int residuals, int bf16_mm, void* stream_handle) {
-  if (n_layers < 1 || n_layers > kMaxLayers || block < 1) return cudaErrorInvalidValue;
+extern "C" int lstm_stack_fwd(void* const* ptrs, const int* ints, const float* gi0,
+                              unsigned* sync, int n_layers, int t_len, int batch, int b_begin,
+                              int b_count, int h, int groups, int rpad, int stage, int red,
+                              int smem, int residuals, int bf16_mm, void* stream_handle) {
+  if (n_layers < 1 || n_layers > kMaxLayers || b_begin < 0 || b_count < 1 ||
+      b_begin + b_count > batch)
+    return cudaErrorInvalidValue;
   Stack st{};
+  int ctas = 0;
   for (int l = 0; l < n_layers; ++l) {
     void* const* p = ptrs + l * kPtrs;
     Layer& ly = st.layer[l];
@@ -258,24 +420,31 @@ extern "C" int lstm_stack_fwd(void* const* ptrs, const int* ranks, float* partia
     ly.gates = static_cast<float*>(p[14]);
     ly.hu = static_cast<float*>(p[15]);
     ly.xu = static_cast<float*>(p[16]);
-    ly.gi = static_cast<float*>(p[17]);
-    ly.u16 = static_cast<__nv_bfloat16*>(p[18]);
-    ly.v16 = static_cast<__nv_bfloat16*>(p[19]);
-    if (bf16_mm && (ly.u16 == nullptr || ly.v16 == nullptr)) return cudaErrorInvalidValue;
-    ly.r = ranks[2 * l];
-    ly.rx = ranks[2 * l + 1];
+    ly.hx = static_cast<float*>(p[17]);
+    ly.px = static_cast<float*>(p[18]);
+    ly.xx = static_cast<float*>(p[19]);
+    ly.xt = static_cast<float*>(p[20]);
+    ly.r = ints[kInts * l];
+    ly.rx = ints[kInts * l + 1];
+    ly.ctas = ints[kInts * l + 2];
+    if (ly.ctas < 1 || (l > 0) != (ly.rx > 0) || (l > 0 && ly.xx == nullptr) ||
+        (l > 0 && bf16_mm && ly.xt == nullptr))
+      return cudaErrorInvalidValue;
+    ctas += ly.ctas;
   }
+  st.gi0 = gi0;
+  st.sync = sync;
+  st.n_layers = n_layers;
+  st.t_len = t_len;
+  st.batch = batch;
+  st.b_begin = b_begin;
+  st.b_count = b_count;
+  st.h = h;
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const size_t room = static_cast<size_t>(partial_floats);
   if (bf16_mm)
-    return residuals
-               ? staircase<true, true>(st, n_layers, t_len, batch, h, block, partial, room, stream)
-               : staircase<false, true>(st, n_layers, t_len, batch, h, block, partial, room,
-                                        stream);
-  return residuals
-             ? staircase<true, false>(st, n_layers, t_len, batch, h, block, partial, room, stream)
-             : staircase<false, false>(st, n_layers, t_len, batch, h, block, partial, room,
-                                       stream);
+    return residuals ? launch<true, true>(st, plan, stream) : launch<false, true>(st, plan, stream);
+  return residuals ? launch<true, false>(st, plan, stream) : launch<false, false>(st, plan, stream);
 }
 
 // The message of an error code that lstm_stack_fwd returned.

@@ -1,7 +1,10 @@
-// The pieces of the single-layer LSTM scan kernels that spread a step over
-// many CTAs (lstm_scan_xin_fwd.cu, lstm_scan_xin_bwd.cu), for sm_90a: the
-// layout that ops/cuda_scan.py::scan_plan decides, the barrier of a batch
-// group, and the product of one CTA's weight slice with a group's rows.
+// The pieces of the LSTM scan kernels that spread a step over many CTAs
+// (lstm_scan_xin_fwd.cu, lstm_scan_xin_bwd.cu; and, one set of CTAs per
+// layer, the wavefront stack's lstm_stack_fwd.cu, lstm_stack_bwd.cu), for
+// sm_90a: the layout that ops/cuda_scan.py::scan_plan (cuda_stack.py::
+// stack_plan) decides, the barrier of a batch group, the wait on another
+// group's progress, and the product of one CTA's weight slice with a
+// group's rows.
 //
 // The batch is cut into `groups` groups of consecutive rows; each group has
 // `ctas` CTAs, each of which holds one slice of the recurrent weights in
@@ -57,19 +60,14 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return ns;
 }
 
-// Barrier of the `n` CTAs of one group: a generation count in a global word
-// that the launcher zeroes. `target` lives in thread 0 and grows by n a
-// call. After __syncthreads, thread 0's acq_rel fence releases every write
-// the CTA made before the barrier, its relaxed add arrives, and its acquire
-// loads wait for the group; the closing __syncthreads passes that order on
-// to the CTA's other threads. Exchange buffers are then read with
-// cp.async.cg (L2, coherent), never through the non-coherent path.
-__device__ __forceinline__ void group_sync(unsigned* count, int n, unsigned& target) {
-  __syncthreads();
-  if (n > 1 && threadIdx.x == 0) {
-    target += n;
-    asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.u32 [%0], 1;"
-                 :: "l"(count) : "memory");
+// Waits until the global word `count` has reached `target` (a wrapping
+// difference): thread 0 spins on acquire loads and traps after
+// kBarrierTimeoutNs, and the CTA's other threads wait at the closing
+// __syncthreads, which passes the acquire on to them. The wavefront stack
+// also waits so on the word of another layer's barrier, which counts that
+// layer's progress.
+__device__ __forceinline__ void wait_count(const unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
     const unsigned long long start = global_ns();
     for (;;) {
       unsigned seen;
@@ -79,6 +77,29 @@ __device__ __forceinline__ void group_sync(unsigned* count, int n, unsigned& tar
     }
   }
   __syncthreads();
+}
+
+// Barrier of the `n` CTAs of one group: a generation count in a global word
+// that the launcher zeroes. `target` lives in thread 0 and grows by n a
+// call. After __syncthreads, thread 0's acq_rel fence releases every write
+// the CTA made before the barrier, its relaxed add arrives, and its acquire
+// loads wait for the group (wait_count). Exchange buffers are then read
+// with cp.async.cg (L2, coherent), never through the non-coherent path. A
+// group of one CTA skips the word, unless `progress`: then every round
+// arrives, so that the word counts the group's progress (the stack's layers).
+__device__ __forceinline__ void group_sync(unsigned* count, int n, unsigned& target,
+                                           bool progress = false) {
+  __syncthreads();
+  if (n == 1 && !progress) {
+    __syncthreads();
+    return;
+  }
+  if (threadIdx.x == 0) {
+    target += n;
+    asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(count) : "memory");
+  }
+  wait_count(count, target);
 }
 
 // An asynchronous 4-byte copy from global to shared memory (cp.async), so a
@@ -224,6 +245,34 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
   }
 }
 
+// The rank columns of CTA q of a wavefront-stack layer on c CTAs, with
+// ranks r and rx (rx = 0: layer 0, no x side), as ops/cuda_stack.py::
+// _rank_split lays them out. Layer 0, and a layer on one CTA, split r (and
+// rx) over all its CTAs. A layer l > 0 on c >= 2 CTAs gives its first `ua`
+// CTAs (in proportion r : rx) the r columns of U (V forward, V^T in the
+// BPTT) and the others the rx columns of Ux (Vx^T), so that each CTA runs
+// one product where it would run two. kr and kxr: the padded widths of the
+// CTA's slices of each kind (0: none); `packed`: whether one CTA holds both.
+struct RankSlices {
+  int ua, kwp, kxwp, k0, kw, kx0, kxw, kr, kxr;
+  bool packed;
+  __host__ __device__ RankSlices(int q, int c, int r, int rx) {
+    packed = rx == 0 || c == 1;
+    const int share = (c * r + (r + rx) / 2) / (r + rx);
+    ua = packed ? c : (share < 1 ? 1 : share > c - 1 ? c - 1 : share);
+    const int cx = packed ? 1 : c - ua, qx = packed ? 0 : q - ua;
+    kwp = round4(div_up(r, ua));
+    kxwp = rx ? round4(div_up(rx, cx)) : 0;
+    const bool u_side = q < ua, x_side = rx > 0 && (packed || q >= ua);
+    k0 = u_side ? split_at(q, r, ua) : 0;
+    kw = u_side ? split_at(q + 1, r, ua) - k0 : 0;
+    kx0 = x_side ? split_at(qx, rx, cx) : 0;
+    kxw = x_side ? split_at(qx + 1, rx, cx) - kx0 : 0;
+    kr = u_side ? kwp : 0;
+    kxr = x_side ? kxwp : 0;
+  }
+};
+
 __device__ __forceinline__ float gate_sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 // Epilogue of the projection GEMM that yields gi (the second one, or the only
@@ -278,12 +327,12 @@ inline cudaError_t widen(const void* src, float* dst, size_t n, cudaStream_t str
 
 // Launches `kernel` cooperatively on plan.groups * plan.ctas CTAs of
 // kGridThreads threads with plan.smem bytes of shared memory, after zeroing
-// the groups' barrier words; `args` as cudaLaunchCooperativeKernel takes
-// them. A grid that cannot be co-resident is refused with
-// cudaErrorCooperativeLaunchTooLarge, never run.
+// the barrier words (`sync_words` of them; 0: one per group); `args` as
+// cudaLaunchCooperativeKernel takes them. A grid that cannot be
+// co-resident is refused with cudaErrorCooperativeLaunchTooLarge, never run.
 template <class Kernel>
 cudaError_t launch_grid(Kernel kernel, const GridPlan& plan, unsigned* sync, void** args,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int sync_words = 0) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          plan.smem);
   if (err != cudaSuccess) return err;
@@ -295,7 +344,8 @@ cudaError_t launch_grid(Kernel kernel, const GridPlan& plan, unsigned* sync, voi
   if (err != cudaSuccess) return err;
   const int grid = plan.groups * plan.ctas;
   if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * plan.groups, stream);
+  err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * (sync_words ? sync_words : plan.groups),
+                        stream);
   if (err != cudaSuccess) return err;
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                      dim3(kGridThreads), args, static_cast<size_t>(plan.smem),

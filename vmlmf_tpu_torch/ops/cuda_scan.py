@@ -119,9 +119,9 @@ def _res_dtype(residuals):
 
 
 def _rb(a, bf16):
-    """``a`` rounded to bf16 and back where the JAX kernel casts a product's
-    operand (``bf16``), else ``a``."""
-    return a.bfloat16().float() if bf16 else a
+    """``a`` rounded to bf16 and back to its type where the JAX kernel casts
+    a product's operand (``bf16``), else ``a``."""
+    return a.bfloat16().to(a.dtype) if bf16 else a
 
 
 def _wide(a):

@@ -1,10 +1,9 @@
 """The wavefront LSTM stack: the port's counterpart of
 `vmlmf_tpu.ops.pallas_pipeline` and its VJP.
 
-A stack of L LSTM layers runs as a block staircase. Time is cut into blocks
-of BLOCK steps, and at wavefront step k every live layer l runs its time
-block k - l, so layer l works beside layer l - 1 instead of after it: the
-chain is about ``T + (L - 1) * BLOCK`` steps long instead of ``L * T``.
+A stack of L LSTM layers runs as one pipelined walk: layer l's step t needs
+only layer l - 1's step t, so layer l works beside layer l - 1 instead of
+after it, and the chain is ``T + L - 1`` steps long instead of ``L * T``.
 Layer 0 reads ``gi0``, its input contribution (`Cell.inp` of the stack's
 input); layer l >= 1 projects its input, the output of layer l - 1 times the
 inter-layer dropout mask, as ``x @ ux @ vx + tile4(x) * dxvec + bias``. The
@@ -18,13 +17,17 @@ torch ops, layer by layer), a launch count and a cost function:
     ``csrc/lstm_stack_fwd.cu`` entry ``lstm_stack_fwd``;
   * `lstm_stack_scan_fused_res` — the residual forward of training, the
     same entry with residuals;
-  * `lstm_stack_bwd` — the reverse-staircase BPTT, ``csrc/lstm_stack_bwd.cu``.
+  * `lstm_stack_bwd` — the reverse walk and the weight gradients,
+    ``csrc/lstm_stack_bwd.cu``.
 
-`LSTMStackScan` is the `torch.autograd.Function` that pairs the last two,
-and `stack_scan` picks it or the no-grad entry. `run_stack_grouped` runs a
-stack of cells through groups that one launch takes (`stack_groups`). As in
-`cuda_scan`, a wrapper launches its kernel for CUDA tensors and runs its
-plain version for CPU tensors, and a CUDA input that the kernel does not
+Each is one cooperative launch over the SMs (the BPTT then runs its weight
+GEMMs), laid out by `stack_plan`: batch groups, and in each a set of CTAs
+per layer that hold the layer's factor slices in shared memory for the whole
+launch. `LSTMStackScan` is the `torch.autograd.Function` that pairs the last
+two, and `stack_scan` picks it or the no-grad entry. `run_stack_grouped`
+runs a stack of cells through groups that one launch takes (`stack_groups`).
+As in `cuda_scan`, a wrapper launches its kernel for CUDA tensors and runs
+its plain version for CPU tensors, and a CUDA input that the kernel does not
 take raises: there is no fallback from one to the other.
 
 Every entry takes the JAX package's ``precision``: "f32", or "bf16", whose
@@ -38,15 +41,27 @@ under its variant ("f32" or "bf16", `cuda_scan.variant`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from vmlmf_tpu_torch.ops import _build
 from vmlmf_tpu_torch.ops.cuda_scan import (
+    MIN_STEP_WORK,
+    SMEM_LIMIT,
+    SMS,
+    STAGE_FLOATS,
     _bf16,
+    _cdiv,
     _counted,
     _counter,
     _rb,
+    _round4,
+    _slices,
+    _sm_count,
+    _split_at,
+    bwd_partial_floats,
     lstm_bptt_plain,
     lstm_recurrence_plain,
     variant,
@@ -59,21 +74,19 @@ REPLACES = "vmlmf_tpu/ops/pallas_pipeline.py:145"  # _mlfwd_kernel
 BWD_REPLACES = "vmlmf_tpu/ops/pallas_pipeline.py:342"  # _mlbwd_kernel
 
 MAX_LAYERS = 8  # kMaxLayers of both sources: the depth of their layer tables
-BLOCK = 5  # time steps per block of the staircase
-SPLITS = 16  # k slices of the split-k block projections that the scratch holds
-L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
 
 # layer-dict keys: the recurrence of every layer, then the x side of layers >= 1
 REC_KEYS = ("u", "v", "dvec")
 X_KEYS = ("ux", "vx", "dxvec", "bias")
 
-# the per-layer pointer tables of the C entries, in the order of their structs
+# the per-layer pointer tables of the C entries, in the order of their
+# structs: operands, outputs, then the exchange and handoff buffers
 FWD_FIELDS = ("u", "v", "dvec", "ux", "vx", "dxvec", "bias", "mask", "h0", "c0",
-              "ys", "hlast", "clast", "cs", "gates", "hu", "xu", "gi", "u16", "v16")
+              "ys", "hlast", "clast", "cs", "gates", "hu", "xu", "hx", "px", "xx", "xt")
 BWD_FIELDS = ("u", "v", "dvec", "ux", "vx", "dxvec", "mask", "h0", "c0",
-              "ys", "cs", "gates", "hu", "xu", "dy", "dhlast", "dclast",
+              "ys", "cs", "gates", "hu", "xu", "dys", "dhlast", "dclast",
               "dpre", "dhu", "dxu", "du", "dv", "ddvec", "dux", "dvx", "ddxvec", "dbias",
-              "dh0", "dc0", "u16", "v16")
+              "dh0", "dc0", "dpx", "px", "dyx")
 
 
 def _keys(l):
@@ -90,8 +103,8 @@ def _layer_input(ys_below, masks, l):
 
 
 def lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks=None, precision="f32"):
-    """The stack's function in torch ops, layer by layer (the staircase is a
-    schedule of the same arithmetic) -> (ys, cs, gates, hu, xu): lists over
+    """The stack's function in torch ops, layer by layer (the kernel's
+    pipelined walk is a schedule of the same arithmetic) -> (ys, cs, gates, hu, xu): lists over
     the layers of ys, cs [T,B,h], gates [T,B,4h] after the nonlinearities,
     hu = h_prev@u [T,B,r]; xu = x@ux [T,B,rx] for layers >= 1 only. Under
     bf16 the products take bf16-rounded operands; hu and xu are the f32
@@ -123,7 +136,7 @@ def lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks=None, precision="f3
 
 def lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, dclast,
                          precision="f32"):
-    """The reverse-staircase BPTT in torch ops, layer by layer from the top:
+    """The stack's BPTT in torch ops, layer by layer from the top:
     each layer's serial reverse walk (`cuda_scan.lstm_bptt_plain`), then, for
     a layer l >= 1, its x-side gradients over all T*B rows and dx, which
     times the mask is the cotangent of layer l - 1's outputs. Under bf16
@@ -156,6 +169,245 @@ def lstm_stack_bwd_plain(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dh
                           vx=_rb(xu[l - 1].reshape(t * b, -1), bf16).T @ dp_mm,
                           dxvec=(dpre2 * x2.repeat(1, 4)).sum(0), bias=dpre2.sum(0))
         dy = _layer_input(dx.reshape(t, b, h), masks, l)
+
+
+# -- the layout of the kernels ------------------------------------------------
+
+def _wfloats(elems, elsize):
+    """Floats of shared memory that ``elems`` weight elements of ``elsize``
+    bytes take, rounded up to 16 bytes (scan_grid.cuh weight_floats)."""
+    return _cdiv(elems * elsize, 16) * 4
+
+
+def _red(phases, rpad):
+    """Floats of slice partials that the products ``phases``, (depth,
+    columns) each, want (scan_grid.cuh slice_product)."""
+    red = 0
+    for depth, cols in phases:
+        items = _cdiv(cols, 4) * (rpad // 4)
+        slices = _slices(items, depth) if items else 1
+        red = max(red, slices * items * 16 if slices > 1 else 0)
+    return red
+
+
+def _rank_split(ctas, r, rx):
+    """(ua, kwp, kxwp, packed) of a layer on ``ctas`` CTAs with ranks r and
+    rx (0: layer 0), as scan_grid.cuh RankSlices has them: layer 0, and a
+    layer on one CTA (``packed``), split r and rx over all its CTAs; a layer
+    l >= 1 on more gives its first ``ua`` CTAs (in proportion r : rx) U's r
+    columns and the others Ux's rx columns. kwp and kxwp: the padded widths
+    of a CTA's U and Ux slices."""
+    packed = rx == 0 or ctas == 1
+    ua = ctas if packed else min(max((ctas * r + (r + rx) // 2) // (r + rx), 1), ctas - 1)
+    kxwp = _round4(_cdiv(rx, 1 if packed else ctas - ua)) if rx else 0
+    return ua, _round4(_cdiv(r, ua)), kxwp, packed
+
+
+def _layer_layout(h, r, rx, ctas, rpad, elsize):
+    """One layer's CTAs -> ((fwd floats, fwd phases), (bwd floats, bwd
+    phases)): the floats of each kernel's carve without stage and red (the
+    weight slices, the diagonal vectors and the [jwm][rpad] slabs, as
+    lstm_stack_fwd.cu::fwd_smem_floats and lstm_stack_bwd.cu::
+    bwd_smem_floats count them), and its products as (depth, columns)."""
+    jwm = _cdiv(h, ctas)
+    jwp = _round4(jwm)
+    _, kwp, kxwp, packed = _rank_split(ctas, r, rx)
+    u, ux = _wfloats(h * kwp, elsize), _wfloats(h * kxwp, elsize)
+    kcols = kwp + kxwp if packed else max(kwp, kxwp)
+    # forward: the U and/or Ux slice, [V; Vx] gate columns; dvec, dxvec,
+    # bias; the carry (2 slabs) and gi0 (4) or x (1)
+    fwd = ((u + ux if packed else max(u, ux)) + _wfloats((r + rx) * 4 * jwm, elsize) + 12 * jwm
+           + (2 + (1 if rx else 4)) * jwm * rpad)
+    # BPTT: the V^T and/or Vx^T slice, U^T and Ux^T j-slices; dvec, dxvec;
+    # the carry (2), phase A's 7 inputs and, with an x side, its dxvec part (1)
+    bwd = (_wfloats(4 * h * kcols, elsize) + _wfloats(r * jwp, elsize)
+           + _wfloats(rx * jwp, elsize) + 8 * jwm + (9 + (1 if rx else 0)) * jwm * rpad)
+    return ((fwd, [(h, kwp), (h, kxwp), (r + rx, 4 * jwm)]),
+            (bwd, [(4 * h, kcols), (r, jwp), (rx, jwp)]))
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """How the stack kernels spread one stack over the card: ``groups``
+    batch groups of consecutive rows, and in each, ``ctas[l]`` CTAs (one per
+    SM) for layer l that hold its factor slices in shared memory for the
+    whole launch, layer 0's first. CTA q of layer l owns the hidden units
+    `j_range(l, q)` (all four gate columns of each), the rank columns
+    `k_range(l, q)` and the x rank columns `kx_range(l, q)`. ``rpad``: a
+    group's rows padded to a multiple of 4. Per kernel: ``stage`` and
+    ``red``, floats of the staging buffer and of the slice partials;
+    ``smem``, bytes of shared memory per CTA (the most that a layer's CTAs
+    carve). ``elsize``: bytes of a weight element in shared memory, 4 (f32)
+    or 2 (bf16)."""
+
+    b: int
+    h: int
+    ranks: tuple
+    xranks: tuple
+    groups: int
+    ctas: tuple
+    rpad: int
+    stage_fwd: int
+    red_fwd: int
+    smem_fwd: int
+    stage_bwd: int
+    red_bwd: int
+    smem_bwd: int
+    elsize: int = 4
+
+    @property
+    def n_ctas(self):
+        return self.groups * sum(self.ctas)
+
+    @property
+    def smem_bytes(self):
+        return max(self.smem_fwd, self.smem_bwd)
+
+    def rx(self, l):
+        return self.xranks[l - 1] if l else 0
+
+    def rows(self, g):
+        """Batch rows [b0, b1) of group g."""
+        return _split_at(g, self.b, self.groups), _split_at(g + 1, self.b, self.groups)
+
+    def j_range(self, l, q):
+        """Hidden units [j0, j1) of CTA q of layer l."""
+        return _split_at(q, self.h, self.ctas[l]), _split_at(q + 1, self.h, self.ctas[l])
+
+    def k_range(self, l, q):
+        """Rank columns [k0, k1) of CTA q of layer l (`_rank_split`)."""
+        r = self.ranks[l]
+        ua = _rank_split(self.ctas[l], r, self.rx(l))[0]
+        return (_split_at(q, r, ua), _split_at(q + 1, r, ua)) if q < ua else (0, 0)
+
+    def kx_range(self, l, q):
+        """x rank columns [k0, k1) of CTA q of layer l (empty for layer 0)."""
+        c, rx = self.ctas[l], self.rx(l)
+        ua, _, _, packed = _rank_split(c, self.ranks[l], rx)
+        if not rx or (q < ua and not packed):
+            return 0, 0
+        qx, cx = (0, 1) if packed else (q - ua, c - ua)
+        return _split_at(qx, rx, cx), _split_at(qx + 1, rx, cx)
+
+    def layer_ints(self):
+        """(r, rx, ctas) per layer, as the C entries take them."""
+        return [v for l, r in enumerate(self.ranks) for v in (r, self.rx(l), self.ctas[l])]
+
+    def ints(self, kernel):
+        """groups, rpad, stage, red, smem of ``kernel`` ("fwd" or "bwd")."""
+        if kernel == "fwd":
+            return self.groups, self.rpad, self.stage_fwd, self.red_fwd, self.smem_fwd
+        return self.groups, self.rpad, self.stage_bwd, self.red_bwd, self.smem_bwd
+
+    def describe(self):
+        return (f"{self.groups} group(s) x {sum(self.ctas)} CTAs "
+                f"({' + '.join(map(str, self.ctas))} by layer), rpad {self.rpad}, "
+                f"{self.smem_fwd} / {self.smem_bwd} bytes of shared memory a CTA "
+                f"(forward / BPTT), {self.elsize}-byte weights")
+
+
+def _layer_work(h, ranks, xranks):
+    """Multiply-adds of a row's step, per layer: the recurrent side, and the
+    x side of a layer l >= 1 (rx = 0: none)."""
+    return [h * r + r * 4 * h + h * rx + rx * 4 * h for r, rx in zip(ranks, (0, *xranks))]
+
+
+def _split_ctas(total, work, h):
+    """``total`` CTAs over the layers in proportion to ``work``: at least
+    one each, at most h (one hidden unit a CTA), the remainder to the
+    largest fractions."""
+    s, n = sum(work), len(work)
+    ctas = [min(h, max(1, total * w // s)) for w in work]
+    order = sorted(range(n), key=lambda l: (-(total * work[l] % s), l))
+    while sum(ctas) > total:
+        ctas[max(range(n), key=lambda l: ctas[l])] -= 1
+    for l in order * total:
+        if sum(ctas) >= total:
+            break
+        if ctas[l] < h:
+            ctas[l] += 1
+    return tuple(ctas)
+
+
+def stack_layout(b, h, ranks, xranks, groups, ctas, elsize=4, stage_floats=STAGE_FLOATS):
+    """The StackPlan of ``groups`` batch groups with ``ctas[l]`` CTAs for
+    layer l, staging at most ``stage_floats`` floats of an exchange buffer
+    at once; `stack_plan` picks them."""
+    rpad = _round4(_cdiv(b, groups))
+    lays = [_layer_layout(h, r, rx, c, rpad, elsize)
+            for r, rx, c in zip(ranks, (0, *xranks), ctas)]
+    out = []
+    for k in (0, 1):
+        phases = [ph for lay in lays for ph in lay[k][1]]
+        stage = min(max(d for d, _ in phases), max(2, stage_floats // rpad)) * rpad
+        red = _red(phases, rpad)
+        out += [stage, red, 4 * (max(lay[k][0] for lay in lays) + stage + red)]
+    return StackPlan(b, h, tuple(ranks), tuple(xranks), groups, tuple(ctas), rpad, *out, elsize)
+
+
+@functools.lru_cache(maxsize=256)
+def stack_plan(b, h, ranks, xranks, sms=SMS, elsize=4):
+    """The layout of the stack kernels for batch ``b``, hidden width ``h``,
+    the layers' recurrent ``ranks`` and the x ranks of layers >= 1
+    (``xranks``; tuples) on ``sms`` SMs, with weight slices of ``elsize``
+    bytes an element (4, or 2 for the bf16 kernels) -> StackPlan.
+
+    As `cuda_scan.scan_plan`: for each group count from min(b, sms) down
+    (each group holds a full copy of every layer's factors), a group's CTAs
+    are just enough for MIN_STEP_WORK each, then sms // groups; they are
+    split over the layers in proportion to each layer's multiply-adds per
+    row and step, so every CTA holds about the same share of the factors.
+    Where the shared memory does not fit, the staging buffer is halved,
+    twice. The first that fits wins. Raises ValueError when the factors do
+    not fit in the shared memory of all SMs (`stack_chunks` cuts a batch
+    whose staging does not fit into chunks of rows).
+    """
+    ranks, xranks = tuple(ranks), tuple(xranks)
+    n = len(ranks)
+    if (not 1 <= n <= MAX_LAYERS or len(xranks) != n - 1 or min(b, h, sms, *ranks) < 1
+            or min(xranks, default=0) < 0 or elsize not in (2, 4)):
+        raise ValueError(f"no stack plan for B={b}, h={h}, ranks {ranks}, x ranks {xranks} "
+                         f"on {sms} SMs, {elsize}-byte weights")
+    work = _layer_work(h, ranks, xranks)
+    for groups in range(min(b, sms // n), 0, -1):
+        most = sms // groups
+        want = _round4(_cdiv(b, groups)) * sum(work)
+        for total in sorted({min(most, max(n, _cdiv(want, MIN_STEP_WORK))), most}):
+            ctas = _split_ctas(total, work, h)
+            for stage in (STAGE_FLOATS, STAGE_FLOATS // 2, STAGE_FLOATS // 4):
+                plan = stack_layout(b, h, ranks, xranks, groups, ctas, elsize, stage)
+                if plan.smem_bytes <= SMEM_LIMIT:
+                    return plan
+    raise ValueError(f"the factors of the {n}-layer stack (h={h}, ranks {ranks}, x ranks "
+                     f"{xranks}) do not fit in the shared memory of {sms} SMs at B={b}: "
+                     f"split the stack with stack_groups")
+
+
+@functools.lru_cache(maxsize=64)
+def stack_chunks(b, h, ranks, xranks, sms=SMS, elsize=4):
+    """The batch cut into as few chunks of consecutive rows as each have a
+    `stack_plan`, their sizes at most one apart -> ((b_begin, b_count,
+    plan), ...): one launch takes a chunk. One chunk up to the largest batch
+    whose staging fits (B=164 for the f32 LM stack, 272 in bf16). Raises ValueError,
+    naming stack_groups, when not even one row has a plan."""
+    ranks, xranks = tuple(ranks), tuple(xranks)
+    stack_plan(1, h, ranks, xranks, sms, elsize)
+    for n in range(1, b + 1):
+        bounds = [_split_at(i, b, n) for i in range(n + 1)]
+        try:
+            return tuple((b0, b1 - b0, stack_plan(b1 - b0, h, ranks, xranks, sms, elsize))
+                         for b0, b1 in zip(bounds, bounds[1:]))
+        except ValueError:
+            continue
+    raise AssertionError("one row has a plan, so b chunks of one row have")
+
+
+def _stack_ranks(layers):
+    """(ranks, x ranks) of a group's layer dicts; the group's first layer
+    reads gi0, so its x side does not count (a layer without one: 0)."""
+    ranks = tuple(lay["u"].shape[-1] for lay in layers)
+    xranks = tuple(lay["ux"].shape[-1] if "ux" in lay else 0 for lay in layers[1:])
+    return ranks, xranks
 
 
 def _sizes(t, b, h, layers, h0s, c0s, masks):
@@ -224,66 +476,83 @@ def _table(fields, per_layer):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _launch(kernel, tables, ranks, partial, sizes, device):
+def _launch(kernel, tables, plan, pointers, sizes, device):
     """Call C entry ``kernel`` of csrc/<kernel>.cu on the current stream with
-    its pointer table, its per-layer (r, rx) table, the split-k scratch
-    ``partial`` and its size, the integer sizes and the stream. Raises on
-    the non-zero cudaError it returns."""
+    its pointer table, the plan's per-layer integers, the tensors
+    ``pointers`` (their data pointers), the integer sizes and the stream.
+    Raises on the non-zero cudaError it returns: a plan the kernel cannot
+    take, a launch refused, or a grid too large to be co-resident (no
+    fallback)."""
     lib = _build.load(kernel)
     fn = getattr(lib, kernel)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                        ctypes.c_void_p] + [ctypes.c_int] * (1 + len(sizes)) + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(sizes)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    ints = (ctypes.c_int * len(ranks))(*ranks)
+    layer_ints = plan.layer_ints()
+    ints = (ctypes.c_int * len(layer_ints))(*layer_ints)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(tables, ints, partial.data_ptr(), partial.numel(), *sizes, stream)
+    err = fn(tables, ints, *(a.data_ptr() for a in pointers), *sizes, stream)
     if err != 0:
         describe = getattr(lib, f"{kernel}_error")
         describe.argtypes, describe.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{kernel} launch failed: {describe(err).decode()} (cudaError {err})")
 
 
-def _rank_table(ranks, xranks):
-    """(r_l, rx_l) per layer, rx_0 = 0."""
-    return [v for l, r in enumerate(ranks) for v in (r, xranks[l - 1] if l else 0)]
+def _chunks_for(b, h, ranks, xranks, device, bf16):
+    return stack_chunks(b, h, tuple(ranks), tuple(xranks), _sm_count(device.index),
+                        2 if bf16 else 4)
 
 
-def _weight_copies(d, like, bf16):
-    """Add to layer dict ``d`` the scratch for the bf16 copies of its u and
-    v that the bf16 entries make (none in f32)."""
-    if bf16:
-        d.update(u16=torch.empty(d["u"].shape, dtype=torch.bfloat16, device=like.device),
-                 v16=torch.empty(d["v"].shape, dtype=torch.bfloat16, device=like.device))
+def _room(chunks, units):
+    """Floats of an exchange buffer of ``units`` units a row that every
+    chunk's plan can use: the most groups x rpad of any."""
+    return max(plan.groups * plan.rpad for _, _, plan in chunks) * units
 
 
-def _fwd(gi0, layers, h0s, c0s, masks, residuals, bf16):
-    """Launch the forward staircase -> the per-layer dicts of its outputs."""
+def _sync_words(chunks, n, like):
+    """One barrier word per layer and batch group; the launcher zeroes them."""
+    return torch.empty(n * max(plan.groups for _, _, plan in chunks), dtype=torch.int32,
+                       device=like.device)
+
+
+def _fwd(entry, gi0, layers, h0s, c0s, masks, residuals, precision):
+    """Launch the forward stack, one launch a chunk of rows, each counted
+    under ``entry`` -> the per-layer dicts of its outputs."""
+    bf16 = _bf16(precision)
     if gi0.dim() != 3 or gi0.shape[-1] % 4:
         raise ValueError(f"gi0 must be [T, B, 4h], got {tuple(gi0.shape)}")
     t, b, h = gi0.shape[0], gi0.shape[1], gi0.shape[2] // 4
     ranks, xranks = _check(gi0.device, t, b, h, layers, h0s, c0s, masks,
                            [("gi0", gi0, (t, b, 4 * h))])
-    block = min(BLOCK, t)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=gi0.device)  # noqa: E731
-    per_layer = []
-    for l, lay in enumerate(layers):
-        d = dict(lay, h0=h0s[l], c0=c0s[l], ys=new(t, b, h), hlast=new(b, h), clast=new(b, h))
-        if residuals:
-            d.update(cs=new(t, b, h), gates=new(t, b, 4 * h), hu=new(t, b, ranks[l]))
-        if l:
-            rx = xranks[l - 1]
-            d.update(mask=None if masks is None else masks[l - 1],
-                     xu=new(t, b, rx) if residuals else new(block * b, rx),
-                     gi=new(block * b, 4 * h))
-        else:
-            d["gi"] = gi0
-        _weight_copies(d, gi0, bf16)
-        per_layer.append(d)
-    partial = new(SPLITS * block * b * max(xranks, default=1))
+    n = len(layers)
     with torch.cuda.device(gi0.device):
-        _launch(KERNEL, _table(FWD_FIELDS, per_layer), _rank_table(ranks, xranks), partial,
-                (len(layers), t, b, h, block, int(residuals), int(bf16)), gi0.device)
+        chunks = _chunks_for(b, h, ranks, xranks, gi0.device, bf16)
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=gi0.device)  # noqa: E731
+        per_layer = []
+        for l, lay in enumerate(layers):
+            rx = xranks[l - 1] if l else 0
+            d = dict(lay, h0=h0s[l], c0=c0s[l], hx=new(_room(chunks, h)),
+                     px=new(_room(chunks, ranks[l] + rx)))
+            if residuals:
+                d.update(ys=new(t, b, h), cs=new(t, b, h), gates=new(t, b, 4 * h),
+                         hu=new(t, b, ranks[l]))
+            else:
+                d.update(ys=new(t, b, h) if l == n - 1 else None, hlast=new(b, h),
+                         clast=new(b, h))
+            if l:
+                d.update(mask=None if masks is None else masks[l - 1],
+                         xu=new(t, b, rx) if residuals else None,
+                         xx=new(_room(chunks, t * h)),
+                         xt=new(_room(chunks, t * h)) if bf16 else None)
+            per_layer.append(d)
+        table, sync = _table(FWD_FIELDS, per_layer), _sync_words(chunks, n, gi0)
+        for b0, rows, plan in chunks:
+            _launch(KERNEL, table, plan, (gi0, sync),
+                    (n, t, b, b0, rows, h, *plan.ints("fwd"), int(residuals), int(bf16)),
+                    gi0.device)
+            _counted(entry, variant(precision))
     return per_layer
 
 
@@ -306,20 +575,20 @@ def lstm_stack_scan_fused(gi0, layers, h0s, c0s, masks=None, precision="f32"):
     of [B, h]).
 
     CPU tensors run `lstm_stack_scan_fused_plain`. CUDA tensors must be f32,
-    contiguous and on one device, at most MAX_LAYERS layers; the kernel runs
-    on the current stream, BLOCK steps per block, and
-    ``lstm_stack_scan_fused.launches`` counts its calls (``.variants`` by
-    precision). A CUDA input that requires a gradient, with grad mode on,
+    contiguous and on one device, at most MAX_LAYERS layers, with a
+    `stack_plan` (else ValueError: split the stack with `stack_groups`); the
+    kernel runs on the current stream, one cooperative launch for each chunk
+    of rows (`stack_chunks`; one up to B=164 in f32), and
+    ``lstm_stack_scan_fused.launches`` counts those launches (``.variants``
+    by precision). A CUDA input that requires a gradient, with grad mode on,
     raises: that call belongs to `LSTMStackScan`.
     """
-    bf16 = _bf16(precision)
     if _on_cpu(gi0, layers, h0s, c0s, masks):
         return lstm_stack_scan_fused_plain(gi0, layers, h0s, c0s, masks, precision)
     if _needs_grad(gi0, layers, h0s, c0s, masks):
         raise RuntimeError("lstm_stack_scan_fused computes no gradient; inputs that require "
                            "one go through LSTMStackScan (stack_scan)")
-    out = _fwd(gi0, layers, h0s, c0s, masks, False, bf16)
-    _counted(lstm_stack_scan_fused, variant(precision))
+    out = _fwd(lstm_stack_scan_fused, gi0, layers, h0s, c0s, masks, False, precision)
     return out[-1]["ys"], [d["hlast"] for d in out], [d["clast"] for d in out]
 
 
@@ -329,12 +598,11 @@ def lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, masks=None, precision="f32"
     the backward's residuals instead -> (ys, cs, gates, hu, xu), shaped as
     `lstm_stack_fwd_res_plain`'s, which CPU tensors run. The final state of
     layer l is (ys[l][-1], cs[l][-1]). ``lstm_stack_scan_fused_res.launches``
-    counts the kernel's calls (``.variants`` by precision)."""
-    bf16 = _bf16(precision)
+    counts the kernel's launches, one a chunk of rows (``.variants`` by
+    precision)."""
     if _on_cpu(gi0, layers, h0s, c0s, masks):
         return lstm_stack_fwd_res_plain(gi0, layers, h0s, c0s, masks, precision)
-    out = _fwd(gi0, layers, h0s, c0s, masks, True, bf16)
-    _counted(lstm_stack_scan_fused_res, variant(precision))
+    out = _fwd(lstm_stack_scan_fused_res, gi0, layers, h0s, c0s, masks, True, precision)
     return ([d["ys"] for d in out], [d["cs"] for d in out], [d["gates"] for d in out],
             [d["hu"] for d in out], [d["xu"] for d in out[1:]])
 
@@ -349,7 +617,8 @@ def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, 
     dlayers: a list of dicts keyed as the layers, dh0s, dc0s).
 
     CPU tensors run `lstm_stack_bwd_plain`; CUDA tensors launch the BPTT
-    kernel, BLOCK steps per block, counted by ``lstm_stack_bwd.launches``
+    (one cooperative launch of the walk for each chunk of rows, the weight
+    GEMMs after the last), each launch counted by ``lstm_stack_bwd.launches``
     (``.variants`` by precision).
     """
     bf16 = _bf16(precision)
@@ -374,28 +643,35 @@ def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, 
         if l:
             extra.append((f"layer {l} xu", xu[l - 1], (t, b, layers[l]["ux"].shape[-1])))
     ranks, xranks = _check(ys[0].device, t, b, h, layers, h0s, c0s, masks, extra)
-    block = min(BLOCK, t)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=ys[0].device)  # noqa: E731
-    dgi0 = new(t, b, 4 * h)
-    per_layer = []
-    for l, lay in enumerate(layers):
-        d = dict(lay, h0=h0s[l], c0=c0s[l], ys=ys[l], cs=cs[l], gates=gates[l], hu=hu[l],
-                 dhlast=dhlast[l], dclast=dclast[l],
-                 dy=dys if l == n - 1 else new(t, b, h),
-                 dpre=dgi0 if l == 0 else new(t, b, 4 * h), dhu=new(t, b, ranks[l]),
-                 du=torch.empty_like(lay["u"]), dv=torch.empty_like(lay["v"]),
-                 ddvec=new(4 * h), dh0=new(b, h), dc0=new(b, h))
-        if l:
-            d.update(mask=None if masks is None else masks[l - 1], xu=xu[l - 1],
-                     dxu=new(t, b, xranks[l - 1]), dux=torch.empty_like(lay["ux"]),
-                     dvx=torch.empty_like(lay["vx"]), ddxvec=new(4 * h), dbias=new(4 * h))
-        _weight_copies(d, ys[0], bf16)
-        per_layer.append(d)
-    partial = new(SPLITS * block * b * max(xranks, default=1))
-    with torch.cuda.device(ys[0].device):
-        _launch(BWD_KERNEL, _table(BWD_FIELDS, per_layer), _rank_table(ranks, xranks), partial,
-                (n, t, b, h, block, int(bf16)), ys[0].device)
-    _counted(lstm_stack_bwd, variant(precision))
+    dev = ys[0].device
+    with torch.cuda.device(dev):
+        chunks = _chunks_for(b, h, ranks, xranks, dev, bf16)
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        dgi0 = new(t, b, 4 * h)
+        per_layer = []
+        for l, lay in enumerate(layers):
+            rx = xranks[l - 1] if l else 0
+            d = dict(lay, h0=h0s[l], c0=c0s[l], ys=ys[l], cs=cs[l], gates=gates[l], hu=hu[l],
+                     dys=dys if l == n - 1 else None, dhlast=dhlast[l], dclast=dclast[l],
+                     dpre=dgi0 if l == 0 else new(t, b, 4 * h), dhu=new(t, b, ranks[l]),
+                     du=torch.empty_like(lay["u"]), dv=torch.empty_like(lay["v"]),
+                     ddvec=new(4 * h), dh0=new(b, h), dc0=new(b, h),
+                     dpx=new(_room(chunks, 4 * h)), px=new(_room(chunks, ranks[l] + rx)),
+                     dyx=new(_room(chunks, t * h)) if l < n - 1 else None)
+            if l:
+                d.update(mask=None if masks is None else masks[l - 1], xu=xu[l - 1],
+                         dxu=new(t, b, rx), dux=torch.empty_like(lay["ux"]),
+                         dvx=torch.empty_like(lay["vx"]), ddxvec=new(4 * h), dbias=new(4 * h))
+            per_layer.append(d)
+        # split-k scratch for the weight gradients, whose k is T*B
+        partial = new(max(1, *(bwd_partial_floats(t, b, h, xranks[l - 1] if l else 0, h, r,
+                                                  gi=l == 0) for l, r in enumerate(ranks))))
+        table, sync = _table(BWD_FIELDS, per_layer), _sync_words(chunks, n, dgi0)
+        for i, (b0, rows, plan) in enumerate(chunks):  # the weight gradients after the last
+            _launch(BWD_KERNEL, table, plan, (sync, partial),
+                    (partial.numel(), n, t, b, b0, rows, h, *plan.ints("bwd"),
+                     int(i == len(chunks) - 1), int(bf16)), dev)
+            _counted(lstm_stack_bwd, variant(precision))
     dlayers = [{k: d["d" + k] for k in _keys(l)} for l, d in enumerate(per_layer)]
     return dgi0, dlayers, [d["dh0"] for d in per_layer], [d["dc0"] for d in per_layer]
 
@@ -482,17 +758,20 @@ def stack_units(cells, preps):
 
 
 def stack_fits(layers):
-    """True when one launch of the stack kernels takes the group: at most
-    MAX_LAYERS layers (the fixed depth of the kernels' layer tables), and
-    the group's factors (u, v, ux, vx), f32, within half of the H100's 50 MB
-    L2. Every step of the staircase reads every live layer's factors, so
-    they should stay in L2; the other half is left to the blocks that stream
-    through (gi, the residual writes, the GEMM operands). A 2x650 w300/u300
-    stack holds 11.7 MB of factors."""
-    if layers is None or len(layers) > MAX_LAYERS:
+    """True when the stack kernels take the group: at most MAX_LAYERS layers
+    (the fixed depth of the kernels' layer tables), and a `stack_plan` at f32
+    for one row, so that its factors fit in the shared memory of the card's
+    SMs; `stack_chunks` runs a larger batch in chunks of rows. Independent of
+    precision and batch, as the JAX package's is (bf16 slices take half the
+    bytes, so a group that fits in f32 fits in bf16). A 2x650 w300/u300
+    stack holds 11.7 MB of factors, a 3x650 one 19.5 MB."""
+    if layers is None or not 1 <= len(layers) <= MAX_LAYERS:
         return False
-    nbytes = 4 * sum(lay[k].numel() for lay in layers for k in ("u", "v", "ux", "vx") if k in lay)
-    return nbytes <= L2_BYTES // 2
+    try:
+        stack_plan(1, layers[0]["u"].shape[0], *_stack_ranks(layers))
+    except ValueError:
+        return False
+    return True
 
 
 def stack_groups(layers):

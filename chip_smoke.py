@@ -767,6 +767,7 @@ def phase_gru_kernels(torch):
         size = (t, b, f, rx, h, r, cuda_gru.form_of(args[4], mode))
         label = (f"{name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r} mode={mode} "
                  f"{'low-rank' if lowrank else 'dense'}{', no dx' if train and not dx else ''}")
+        print_gru_plan(torch, cuda_gru, name, size)
         gru, lib_err = cudnn_gru(torch, args, mode)
         print(f"library: cuDNN GRU on the dense weights, {label}: max abs err {lib_err:.3g} "
               f"against the plain scan ({'the same scan' if gru else 'another function'})")
@@ -792,7 +793,49 @@ def phase_gru_kernels(torch):
             rows[(entry, name, b)] = kernel_row(entry, label, e_err, tol, ms, plain_ms, cost,
                                                 lib_ms)
             print(f"kernel {entry} {name} B={b}: {1e3 * ms / t:.3f} us per step (whole call / T)")
+    # the "post" no-grad body and its residual body at one batch
+    for layer in ("group_l1", "dx_group_l1"):
+        nograd, res = (rows[(e, layer, GRU["b"])]["ms"]
+                       for e in ("gru_scan_xin_fwd", "gru_scan_xin_fwd_res"))
+        print(f"gru post bodies {layer} B={GRU['b']}: no-grad {nograd:.4f} ms, residual "
+              f"{res:.4f} ms")
     return rows
+
+
+def print_gru_plan(torch, cuda_gru, name, size, gi=False):
+    """Print the layout `gru_plan` gives the GRU kernels at one shape."""
+    t, b = size[:2]
+    plan = cuda_gru.gru_plan(*size, gi=gi,
+                             sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    x_side = "-" if gi else "shared" if plan.x_resident else "L2"
+    print(f"gru_plan {name} B={b}{' gi' if gi else ''}: {plan.ctas} CTAs x {plan.threads} "
+          f"threads, {plan.rows} rows a CTA, time block {plan.tblock} of {t}, recurrent weights "
+          f"{plan.rec_weights} (walk {plan.bwd_rec_weights}), x side {x_side}, "
+          f"{plan.smem_fwd} / {plan.smem_bwd} bytes a CTA (forward / walk)")
+    return plan
+
+
+def gru_bwd_split(torch, label, bwd, t, calls=5):
+    """Device time of `calls` BPTT calls by kernel (torch.profiler): the walk
+    (`walk_kernel`) against the GEMMs (the grouped split-k's two kernels,
+    the x side's and the recompute pre-pass's) -> (walk us per step, GEMM
+    share of the device time, device ms a call)."""
+    def run():
+        for _ in range(calls):
+            bwd()
+
+    walk = other = 0.0
+    for name, ms in device_events(torch, run, f"GRU BPTT at {label}", cpu=False)[0]:
+        if "walk_kernel" in name:
+            walk += ms
+        else:
+            other += ms
+    if walk == 0.0:
+        fail(f"the profiler saw no walk_kernel in the GRU BPTT at {label}")
+    print(f"gru bwd split {label}: walk {1e3 * walk / calls / t:.3f} us per step, GEMMs "
+          f"{other / calls:.4f} ms a call, GEMM share {other / (walk + other):.3f}, device "
+          f"{(walk + other) / calls:.4f} ms a call")
+    return 1e3 * walk / calls / t, other / (walk + other), (walk + other) / calls
 
 
 def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru):
@@ -809,12 +852,17 @@ def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru):
     dys = 0.1 * torch.randn(ys.shape, generator=torch.Generator().manual_seed(5)).cuda()
     saved = (*args[:3], *args[4:], *res, dys)
     grads = cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx)
+    again = cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx)
     torch.cuda.synchronize()
     grads_p = cuda_gru.gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx)
     ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
                             [a for a in grads_p if a is not None], GRAD_TOL)
     if not ok_g:
         fail(f"gru_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again) if a is not None):
+        fail(f"two calls of gru_scan_xin_bwd gave different bits at {label}")
+    gru_bwd_split(torch, label, lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx),
+                  xs.shape[0])
 
     lib_fwd_ms = lib_bwd_ms = None
     if gru is not None:
@@ -2292,6 +2340,7 @@ def phase_gru_variant_kernels(torch):
         label = f"{name} T={t} B={b} F={f} h={h} rx={rx} r={r} mode={mode}"
         gru, _ = cudnn_gru(torch, args, mode)
         lib_name = "cuDNN, from x" if gru else "cuDNN"
+        print_gru_plan(torch, cuda_gru, name, (t, b, 0, 0, h, r, form), gi=True)
         xs, h0 = args[0], args[7]
         gi = cuda_gru._x_side(*args[:4])[1].contiguous()
         rec = (gi, *args[4:])
@@ -2358,6 +2407,10 @@ def phase_gru_variant_kernels(torch):
             if not ok_r or not ok_g:
                 fail(f"the recompute entries disagree with their plain versions at {label}: "
                      f"{err_r}, {err_g}")
+            gru_bwd_split(torch, f"{label}, gi mode",
+                          lambda: cuda_gru.gru_scan_bwd(*saved, mode=mode), t)
+            gru_bwd_split(torch, f"{label}, recompute", lambda: cuda_gru.gru_scan_xin_bwd(
+                *saved_rc, mode=mode, dx=dx, bias=args[3]), t)
             rc = name + "_recompute"
             checks += [
                 ("gru_scan_xin_fwd_res", rc, err_r, TOL,
@@ -2376,6 +2429,8 @@ def phase_gru_variant_kernels(torch):
             variant = "recompute" if shape.endswith("_recompute") else "gi mode"
             rows[(entry, shape, b)] = kernel_row(entry, f"{label}, {variant}", e_err, tol, ms,
                                                  plain_ms, cost, lib_ms, lib_name)
+            print(f"kernel {entry} {shape} B={b}: {1e3 * ms / t:.3f} us per step "
+                  f"(whole call / T)")
     return rows
 
 
@@ -2526,33 +2581,54 @@ def phase_mixed_wavefront(torch):
     return rows, runs
 
 
-def trace_step(torch, label, step):
-    """One profiled call of step(), after a warm one: device time by kernel,
-    the port's against cuBLAS's -> dict(wall_ms, busy_ms, groups)."""
+PROFILE_SESSIONS = 3  # profiled runs of one call before an empty trace fails
+
+
+def device_events(torch, run, label, cpu=True):
+    """run() once warm, then once under torch.profiler -> ([(kernel name, ms)]
+    of its device events, wall ms of the profiled run). A session that
+    recorded no device event at all is run again, up to PROFILE_SESSIONS
+    sessions; fails if each came back empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    for session in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            if session > 1:
+                print(f"profiler: {label}: device events in session {session} of "
+                      f"{PROFILE_SESSIONS}, none in the ones before")
+            return events, wall_ms
+    fail(f"trace: the profiler recorded no device time in one {label} in "
+         f"{PROFILE_SESSIONS} sessions")
+
+
+def trace_step(torch, label, step):
+    """One profiled call of step(), after a warm one: device time by kernel,
+    the port's against cuBLAS's -> dict(wall_ms, busy_ms, groups)."""
+    events, wall_ms = device_events(torch, step, label)
     kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us() / 1e3
-    if not kernels:
-        fail(f"trace: the profiler recorded no device time in one {label}")
+    for name, ms in events:
+        k = kernels.setdefault(name, [0, 0.0])
+        k[0] += 1
+        k[1] += ms
 
     def group(name):
         # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
-        # grid_scan_kernel and grid_bptt_kernel; "vmlmf::" the tiled GEMMs
+        # grid_scan_kernel and grid_bptt_kernel, "fwd_kernel" the GRU's and the
+        # stack's forward; "vmlmf::" the tiled GEMMs
         if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
-                                   "stack_fwd_kernel", "stack_bwd_kernel", "widen_kernel")):
+                                   "fwd_kernel", "walk_kernel", "stack_bwd_kernel",
+                                   "widen_kernel")):
             return "port"
         if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
             return "cublas"
@@ -2649,6 +2725,10 @@ def main():
         fail(f"the port's package is not beside this script: {e}")
 
     os.environ["VMLMF_EXPERIMENTAL_WAVEFRONT"] = "1"  # the wavefront backends' knob
+    # keep CUPTI initialised between the run's two dozen profiler sessions:
+    # torn down and brought up again after each, it can come back recording
+    # no device activity (Kineto reads this at the end of every session)
+    os.environ["TEARDOWN_CUPTI"] = "0"
     t0 = time.perf_counter()
     card = phase_device(torch)
     phase_build()

@@ -346,12 +346,24 @@ def test_har_trainer_runs_on_cuda(cuda):
 # -- the GRU scan (ops/cuda_gru.py)
 
 # (T, B, F, h, rx, r, mode, low-rank recurrent side): the HAR GRU layers at
-# B=81, ragged small shapes, and a dense and a low-rank form too large for
-# shared memory
+# the train batch B=81 and at evaluate's B=256 (two rows a CTA), one batch
+# row (one CTA), ragged small shapes, and a dense and a low-rank form too
+# large for shared memory
 GRU_CASES = {
     "main_l1": (24, 81, 77, 64, 9, 9, "pre", True),
     "main_l2": (24, 81, 64, 64, 9, 9, "pre", True),
     "group_post": (24, 81, 77, 64, 9, 0, "post", False),
+    "group_l2": (24, 81, 64, 64, 9, 0, "post", False),
+    "main_l1_b256": (24, 256, 77, 64, 9, 9, "pre", True),
+    "group_post_b256": (24, 256, 77, 64, 9, 0, "post", False),
+    "dense_pre_b256": (24, 256, 77, 64, 9, 0, "pre", False),
+    "main_l1_b1": (24, 1, 77, 64, 9, 9, "pre", True),
+    "group_post_b1": (24, 1, 77, 64, 9, 0, "post", False),
+    "ragged_h_post": (6, 7, 13, 37, 3, 0, "post", False),
+    "ragged_h_lowrank": (5, 530, 11, 21, 2, 5, "pre", True),  # four rows a CTA, a ragged last
+    # past the widths whose lane shares fit in registers: weights in shared memory
+    "shared_post": (6, 9, 20, 96, 5, 0, "post", False),
+    "shared_dense_pre": (5, 7, 11, 80, 0, 0, "pre", False),
     "dense_pre": (7, 9, 20, 33, 5, 0, "pre", False),
     "ragged_lowrank": (5, 3, 13, 40, 6, 33, "pre", True),
     "wide_post": (4, 6, 48, 256, 8, 0, "post", False),  # 768 KB of weights: read through L2
@@ -360,6 +372,7 @@ GRU_CASES = {
     "dense_x_main_l1": (24, 81, 77, 64, 0, 9, "pre", True),
     "dense_x_group_post": (24, 81, 77, 64, 0, 0, "post", False),
     "dense_x_dense_pre": (7, 9, 20, 33, 0, 0, "pre", False),
+    "dense_x_group_post_b256": (24, 256, 77, 64, 0, 0, "post", False),
 }
 
 
@@ -450,6 +463,56 @@ def test_gru_gi_mode_and_recompute_kernels_match_plain(cuda, case):
         assert (got is None) == (w is None)
         if w is not None:
             torch.testing.assert_close(got, w, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRU_CASES), ids=list(GRU_CASES))
+def test_gru_kernels_give_equal_bits_and_count_one_launch_a_call(cuda, case):
+    """Every GRU entry, in each policy, twice on the same inputs: the same
+    bits (fixed-order sums, split-k included, no atomics), and one launch
+    counted per call."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRU_CASES[case]
+    args = gru_inputs(*GRU_CASES[case], cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+    rec = (gi, *args[4:])
+
+    def res_saved():
+        res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=True)
+        return (*res, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode))
+
+    def recompute():
+        res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+        return (*res, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode,
+                                                 bias=args[3]))
+
+    def gi_mode():
+        res = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+        return (cuda_gru.gru_scan_fused(*rec, mode=mode), *res,
+                *cuda_gru.gru_scan_bwd(*args[4:], *res, dys, mode=mode))
+
+    calls = {"nograd": lambda: (cuda_gru.gru_scan_fused_xin(*args, mode=mode),),
+             "saved": res_saved, "recompute": recompute, "gi": gi_mode}
+    entries = (cuda_gru.gru_scan_fused_xin, cuda_gru.gru_scan_fused_xin_res,
+               cuda_gru.gru_scan_xin_bwd, cuda_gru.gru_scan_fused, cuda_gru.gru_scan_fused_res,
+               cuda_gru.gru_scan_bwd)
+    # launches of each entry per call of each policy
+    want = {"nograd": (1, 0, 0, 0, 0, 0), "saved": (0, 1, 1, 0, 0, 0),
+            "recompute": (0, 1, 1, 0, 0, 0), "gi": (0, 0, 0, 1, 1, 1)}
+    for name, call in calls.items():
+        before = [fn.launches for fn in entries]
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert [fn.launches - n for fn, n in zip(entries, before)] == [2 * w for w in want[name]]
+        assert len(first) == len(second)
+        for i, (x1, x2) in enumerate(zip(first, second)):
+            assert (x1 is None) == (x2 is None), (name, i)
+            if x1 is not None:
+                assert bool(torch.isfinite(x1).all()), (name, i)
+                assert torch.equal(x1, x2), (name, i)
 
 
 @pytest.mark.cuda

@@ -22,7 +22,9 @@
 // a long k (the wavefront stack's block projections, which sit on its
 // serial chain): one CTA per tile and slice writes a partial sum, then a
 // second kernel adds the slices in a fixed order and applies the epilogue,
-// so it is deterministic too. This is CUDA-core f32 (no tensor cores),
+// so it is deterministic too. `gemm_splitk_group` does the same for
+// several independent products in two launches, with one slice length for
+// all (the GRU BPTT's gradients). This is CUDA-core f32 (no tensor cores),
 // simple first.
 
 #pragma once
@@ -166,16 +168,23 @@ struct Partial {
   }
 };
 
-// Output tile (blockIdx.y, blockIdx.x) over the k slice [z * kslice, (z +
-// 1) * kslice) of z = blockIdx.z (kslice = k: all of k).
+// Epilogue of a slice of a grouped split-k product: the partial sum of
+// slice z goes to partial[(z * m + i) * n + j].
+struct SlicePartial {
+  float* partial;
+  int m, n, z;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    partial[((size_t)z * m + i) * n + j] = v;
+  }
+};
+
+// The output tile at (row0, col0) of A @ B over k in [kb, ke), staged
+// through the CTA's as and bs.
 template <class A, class B, class Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(A a, B b, Epi epi, int m, int n, int k, int kslice) {
-  __shared__ float as[kDepth][kTile + 1];
-  __shared__ float bs[kDepth][kTile + 1];
+__device__ __forceinline__ void tile_product(const A& a, const B& b, const Epi& epi, int m,
+                                             int n, int kb, int ke, int row0, int col0,
+                                             float (*as)[kTile + 1], float (*bs)[kTile + 1]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  const int kb = blockIdx.z * kslice, ke = min(k, kb + kslice);
   float acc[4][4] = {};
   for (int k0 = kb; k0 < ke; k0 += kDepth) {
     for (int e = threadIdx.x; e < kTile * kDepth; e += kGemmThreads) {
@@ -213,6 +222,18 @@ gemm_kernel(A a, B b, Epi epi, int m, int n, int k, int kslice) {
       if (gr < m && gc < n) epi(gr, gc, acc[i][j]);
     }
   }
+}
+
+// Output tile (blockIdx.y, blockIdx.x) over the k slice [z * kslice, (z +
+// 1) * kslice) of z = blockIdx.z (kslice = k: all of k).
+template <class A, class B, class Epi>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_kernel(A a, B b, Epi epi, int m, int n, int k, int kslice) {
+  __shared__ float as[kDepth][kTile + 1];
+  __shared__ float bs[kDepth][kTile + 1];
+  const int kb = blockIdx.z * kslice;
+  tile_product(a, b, epi, m, n, kb, min(k, kb + kslice), blockIdx.y * kTile, blockIdx.x * kTile,
+               as, bs);
 }
 
 // c(i, j) = epi(i, j, sum over z of partial[z, i, j]), z in order.
@@ -259,6 +280,129 @@ cudaError_t gemm_splitk(A a, B b, Epi epi, int m, int n, int k, float* partial,
   const size_t mn = (size_t)m * n;
   splitk_sum_kernel<<<static_cast<unsigned>((mn + kGemmThreads - 1) / kGemmThreads),
                       kGemmThreads, 0, stream>>>(partial, epi, m, n, splits);
+  return cudaGetLastError();
+}
+
+// One product of a grouped split-k: c = epi(A @ B), A [m, k], B [k, n];
+// gemm_splitk_group sets its slices and its region of the scratch.
+template <class A, class B, class Epi>
+struct SplitProduct {
+  A a;
+  B b;
+  Epi epi;
+  int m, n, k;
+  int splits, kslice;
+  float* partial;
+};
+
+template <class A, class B, class Epi>
+SplitProduct<A, B, Epi> split_product(A a, B b, Epi epi, int m, int n, int k) {
+  return SplitProduct<A, B, Epi>{a, b, epi, m, n, k, 1, k, nullptr};
+}
+
+// Runs CTA `cta` of product p's tiles times slices if it is p's, else
+// counts p's CTAs off `cta`; true when it ran.
+template <class P>
+__device__ __forceinline__ bool group_partial(const P& p, int& cta, float (*as)[kTile + 1],
+                                              float (*bs)[kTile + 1]) {
+  const int tiles_n = (p.n + kTile - 1) / kTile;
+  const int tiles = tiles_n * ((p.m + kTile - 1) / kTile);
+  if (cta >= tiles * p.splits) {
+    cta -= tiles * p.splits;
+    return false;
+  }
+  const int z = cta / tiles, tile = cta % tiles, kb = z * p.kslice;
+  tile_product(p.a, p.b, SlicePartial{p.partial, p.m, p.n, z}, p.m, p.n, kb,
+               min(p.k, kb + p.kslice), (tile / tiles_n) * kTile, (tile % tiles_n) * kTile, as,
+               bs);
+  return true;
+}
+
+// Output element e of product p, the sum of its slices in order, through
+// its epilogue; else counts p's elements off e.
+template <class P>
+__device__ __forceinline__ bool group_sum(const P& p, size_t& e) {
+  const size_t mn = (size_t)p.m * p.n;
+  if (e >= mn) {
+    e -= mn;
+    return false;
+  }
+  // four loads in flight at a time, added in slice order
+  const float* at = p.partial + e;
+  float v = 0.f;
+  int z = 0;
+  for (; z + 4 <= p.splits; z += 4) {
+    const float a0 = at[z * mn], a1 = at[(z + 1) * mn], a2 = at[(z + 2) * mn],
+                a3 = at[(z + 3) * mn];
+    v += a0;
+    v += a1;
+    v += a2;
+    v += a3;
+  }
+  for (; z < p.splits; ++z) v += at[z * mn];
+  p.epi(static_cast<int>(e / p.n), static_cast<int>(e % p.n), v);
+  return true;
+}
+
+template <class... P>
+__global__ void __launch_bounds__(kGemmThreads) group_partial_kernel(P... ps) {
+  __shared__ float as[kDepth][kTile + 1];
+  __shared__ float bs[kDepth][kTile + 1];
+  int cta = blockIdx.x;
+  (group_partial(ps, cta, as, bs) || ...);
+}
+
+template <class... P>
+__global__ void __launch_bounds__(kGemmThreads) group_sum_kernel(P... ps) {
+  size_t e = (size_t)blockIdx.x * kGemmThreads + threadIdx.x;
+  (group_sum(ps, e) || ...);
+}
+
+constexpr int kGroupTarget = 2 * kSplitTarget;  // CTAs a grouped split-k aims at
+
+template <class P>
+int product_tiles(const P& p) {
+  return cdiv(p.n, kTile) * cdiv(p.m, kTile);
+}
+
+// The slice length of a grouped split-k over these products: one length
+// for all, whole kDepth steps, so that their tiles times slices come near
+// kGroupTarget CTAs (a CTA's time is its k-loop).
+template <class... P>
+int group_kslice(const P&... ps) {
+  size_t work = 0;
+  ((work += (size_t)product_tiles(ps) * ps.k), ...);
+  const size_t per_cta = (work + kGroupTarget - 1) / kGroupTarget;
+  return static_cast<int>((per_cta + kDepth - 1) / kDepth) * kDepth;
+}
+
+// Several independent products in two launches: every slice of every
+// product, each cut into slices of `kslice` rows of k (group_kslice),
+// then every output's sum of its slices in a fixed order through its
+// epilogue; deterministic, no atomics. Each product takes the next region
+// of `partial`, splits * m * n floats, so the group needs the sum of its
+// regions (ops/cuda_gru.py::gru_bwd_partial_floats): less is refused.
+// Returns the first error.
+template <class... P>
+cudaError_t gemm_splitk_group(float* partial, size_t partial_floats, int kslice,
+                              cudaStream_t stream, P... ps) {
+  size_t used = 0, outs = 0;
+  int ctas = 0;
+  auto plan = [&](auto& p) {
+    p.kslice = kslice;
+    p.splits = cdiv(p.k, kslice);
+    p.partial = partial + used;
+    used += (size_t)p.splits * p.m * p.n;
+    outs += (size_t)p.m * p.n;
+    ctas += product_tiles(p) * p.splits;
+  };
+  (plan(ps), ...);
+  if (used > partial_floats) return cudaErrorInvalidValue;
+  group_partial_kernel<<<ctas, kGemmThreads, 0, stream>>>(ps...);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  group_sum_kernel<<<static_cast<unsigned>((outs + kGemmThreads - 1) / kGemmThreads),
+                     kGemmThreads, 0, stream>>>(ps...);
   return cudaGetLastError();
 }
 

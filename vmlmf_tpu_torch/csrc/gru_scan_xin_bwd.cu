@@ -52,23 +52,38 @@
 // What bounds it on an H100, and what the design does about it:
 // * The TPU kernel sums the weight gradients in VMEM across a grid that
 //   runs in order. Hopper runs CTAs in parallel, so the work is split:
-//   1. bptt_kernel, the serial part. One CTA owns kRows batch rows and walks
-//      all T steps with the dh carry and the step's dPre in shared memory,
-//      with the recurrent weights resident there when they fit, as in the
-//      forward (else read through L2). Each step is a chain of small
-//      dependent products with a block barrier after each (five in low-rank
-//      "pre", three in dense "pre", two in "post"): at h=64 the steps and
-//      barriers, not bytes, set its time. The products that reduce over a
-//      gate row go one warp per output, lanes along the row, so that
-//      neighbouring lanes read neighbouring words. It writes dPre [M,3h],
-//      and dHU, dRHU [M,r] in the low-rank form, for the passes below.
+//   1. walk_kernel, the serial part. One CTA owns `rows` batch rows
+//      (ops/cuda_gru.py::gru_plan) and walks all T steps; the recurrent
+//      weights are held as in the forward: each lane's share in registers
+//      at the HAR widths, else in shared memory when they fit, else read
+//      through L2 by the same code. Its products go through gru_tile.cuh's
+//      unit groups (four lanes an output, float4 loads along the weight
+//      rows, two shuffles), and lane slice s of a group does row s's
+//      elementwise work, so the lane that finishes (row, j) of a product is
+//      the one that owns the carry dh[row, j]: the carry needs no barrier.
+//      Each step's inputs (gates, h_prev, dys, recn) are copied with
+//      cp.async into shared memory one step ahead, each lane copying what
+//      it will read itself, so no step waits on device memory. Barriers a
+//      step: one in "post" (the two dPre buffers take turns), two in dense
+//      "pre", four in low-rank "pre". It writes dPre [M,3h], and dHU, dRHU
+//      [M,r] in the low-rank form, for the passes below.
 //   2. Time-parallel passes over all M rows: tiled GEMMs (gemm_tile.cuh)
-//      with transposed operand views, and a column-sum kernel for dbias.
-//      Hprev, R*Hprev and dN*R are read in place through operand views,
-//      never built as copies. Every gradient is summed by one CTA per output
-//      tile or column block in a fixed order: deterministic, no atomics. dUf's
-//      two terms run as two GEMMs in turn on the stream, the second adding to
-//      the first.
+//      with transposed operand views. Every product whose k runs over the M
+//      rows (dPrz, dPn, dUf, dUx, dVx, and dbias as ones^T dPre) has an
+//      output of a few tiles, so they go together through one grouped
+//      split-k (gemm_splitk_group): one launch in which some 264 CTAs a
+//      product each sum a slice of the rows, then one that adds each
+//      output's slices in a fixed order and applies its epilogue:
+//      deterministic, no atomics, two launches where there were a dozen.
+//      dUf is one product over 2M rows, [Hprev | R*Hprev]^T [dHU; dRHU].
+//      The caller sizes the slices' scratch (cuda_gru.py::
+//      gru_bwd_partial_floats). Hprev, R*Hprev and dN*R are read in place
+//      through operand views, never built as copies. dx = dXU Ux^T (k = rx
+//      or 3h) joins the group, with the weight gradients' slice length so
+//      that their sums do not depend on it; dXU = dPre Vx^T, which dUx and
+//      dx read, is a group of its own before it, so that its k = 3h is cut
+//      into slices too, where a plain tiled GEMM would walk all of it on
+//      one CTA per 64 rows.
 // * dx is skipped when the caller passes no dx buffer (a first layer's raw
 //   input needs none). gi mode skips the whole x side and the column sums:
 //   dPre is dgi.
@@ -77,237 +92,319 @@
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "gru_tile.cuh"
 
 namespace {
 
+using namespace vmlmf::gru;
 using vmlmf::cdiv;
 
-constexpr int kRows = 4;  // batch rows per serial CTA
-constexpr int kBpttThreads = 512;
-constexpr int kSumCols = 32;   // columns per column-sum CTA
-constexpr int kSumLanes = 8;   // row lanes per column-sum CTA
-constexpr int kLowrankPre = 0, kDensePre = 1, kDensePost = 2;
+struct WalkArgs {
+  const float* gates;
+  const float* ys;
+  const float* h0;
+  const float* recn;
+  const float* dys;
+  const float* uf;
+  const float* prz;
+  const float* pn;
+  float* dpre;
+  float* dhu;
+  float* drhu;
+  float* dh0;
+  int t_len, batch, h, r, rows, rec_res;
+};
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
+// Floats a row of a step's staged inputs takes: gates (3h), h_prev, dys,
+// and recn in "post".
+__host__ __device__ inline int stage_width(int form, int h) {
+  return (form == kDensePost ? 6 : 5) * h;
 }
 
-// h_prev of output row m = (t, b0 + row): h0 at t = 0, else ys[t - 1].
-__device__ __forceinline__ float hprev(const float* h0, const float* ys, size_t m, int t,
-                                       int batch, int b, int h, int j) {
-  return t > 0 ? ys[(m - batch) * h + j] : h0[(size_t)b * h + j];
+// Float offsets of the walk's shared regions, in the order of
+// ops/cuda_gru.py::_bwd_floats: the resident weights, each row-major with
+// stride ldt(columns) (Uf [h, r]; Prz [depth, 2h], Pn [depth, h]); the two
+// buffers of staged inputs [2][rows][stage_width]; the carry dh [rows][h];
+// [dr_pre, dz_pre] [rows][q4(2h)] and dn_pre (dn_pre*r in "post")
+// [rows][q4(h)], two of each in "post"; dz_pre [rows][h] ("pre"); dRHU and
+// dHU [rows][q4(r)] (low-rank).
+struct WalkLayout {
+  size_t uf, prz, pn, stg, dhs, drz, dn, dzs, drhus, dhus, total;
+};
+
+__host__ __device__ inline WalkLayout walk_layout(int form, const WalkArgs& a) {
+  const bool lowrank = form == kLowrankPre, post = form == kDensePost;
+  const int h = a.h, r = a.r, depth = lowrank ? r : h, nbuf = post ? 2 : 1;
+  WalkLayout L{};
+  size_t at = 0;
+  const bool shared = a.rec_res == kInShared;
+  L.uf = take(at, shared && lowrank ? (size_t)h * ldt(r) : 0);
+  L.prz = take(at, shared ? (size_t)depth * ldt(2 * h) : 0);
+  L.pn = take(at, shared ? (size_t)depth * ldt(h) : 0);
+  L.stg = take(at, (size_t)2 * a.rows * stage_width(form, h));
+  L.dhs = take(at, (size_t)a.rows * h);
+  L.drz = take(at, (size_t)nbuf * a.rows * q4(2 * h));
+  L.dn = take(at, (size_t)nbuf * a.rows * q4(h));
+  L.dzs = take(at, post ? 0 : (size_t)a.rows * h);
+  L.drhus = take(at, lowrank ? (size_t)a.rows * q4(r) : 0);
+  L.dhus = take(at, lowrank ? (size_t)a.rows * q4(r) : 0);
+  L.total = at;
+  return L;
 }
 
-__host__ __device__ inline size_t state_floats(int h, int r) {
-  return (size_t)kRows * (4 * h + 2 * r);
-}
-__host__ __device__ inline size_t weight_floats(int form, int h, int r) {
-  return form == kLowrankPre ? (size_t)4 * h * r : (size_t)3 * h * h;
-}
-
-// Serial reverse walk. Shared memory: dhs [kRows,h] (the carry, then dh_prev
-// of the step), dps [kRows,3h] (dr_pre, dz_pre, and dn_pre in "pre" or
-// dn_pre*r in "post"), drhus, dhus [kRows,r]; then, when `resident`, Uf
-// [h,r], Prz and Pn. Rows past the batch stay zero and are never written out.
+// A lane's recurrent weights where the plan holds them in registers, as
+// rows (the walk's products run along them): "post" Prz's and Pn's row j;
+// dense "pre" the same, for drh and for the last product; low-rank Pn's
+// and Prz's row k (for dRHU and dHU) and Uf's row j (for drh and dhp).
 template <int Form>
-__global__ void __launch_bounds__(kBpttThreads)
-bptt_kernel(const float* __restrict__ gates, const float* __restrict__ ys,
-            const float* __restrict__ h0, const float* __restrict__ recn,
-            const float* __restrict__ dys, const float* __restrict__ uf_g,
-            const float* __restrict__ prz_g, const float* __restrict__ pn_g,
-            float* __restrict__ dpre, float* __restrict__ dhu_out, float* __restrict__ drhu_out,
-            float* __restrict__ dh0, int t_len, int batch, int h, int r, bool resident) {
-  constexpr bool kLowrank = Form == kLowrankPre;
-  extern __shared__ float smem[];
-  const int g3 = 3 * h;
-  float* dhs = smem;
-  float* dps = dhs + kRows * h;
-  float* drhus = dps + kRows * g3;
-  float* dhus = drhus + kRows * r;
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, batch - b0);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const int depth = kLowrank ? r : h;
+struct WalkRegs {
+  RegSlice<1, 8> prz;  // depth 2h
+  RegSlice<1, 4> pn;   // depth h
+};
+template <>
+struct WalkRegs<kLowrankPre> {
+  RegSlice<1, 8> prz;
+  RegSlice<1, 4> pn;
+  RegSlice<1, 1> uf;  // depth r
+};
 
-  const float* uf = uf_g;
-  const float* prz = prz_g;
-  const float* pn = pn_g;
-  if (resident) {
-    float* ufs = dhus + kRows * r;
-    float* przs = ufs + (kLowrank ? (size_t)h * r : 0);
-    float* pns = przs + (size_t)depth * 2 * h;
-    if (kLowrank)
-      for (int i = threadIdx.x; i < h * r; i += blockDim.x) ufs[i] = uf_g[i];
-    for (int i = threadIdx.x; i < depth * 2 * h; i += blockDim.x) przs[i] = prz_g[i];
-    for (int i = threadIdx.x; i < depth * h; i += blockDim.x) pns[i] = pn_g[i];
-    uf = ufs;
-    prz = przs;
-    pn = pns;
+// The serial reverse walk of one CTA's rows; see the header. Rows past the
+// batch are never computed or written.
+template <int Form, int R>
+__global__ void __launch_bounds__(kMaxThreads) walk_kernel(const WalkArgs a) {
+  constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const WalkLayout L = walk_layout(Form, a);
+  const int h = a.h, r = a.r, g3 = 3 * h, rows = a.rows, sw = stage_width(Form, h);
+  const int h4 = q4(h), r4 = q4(r), rz4 = q4(2 * h), depth = kLowrank ? r : h;
+  const int b0 = blockIdx.x * rows, live = min(rows, a.batch - b0);
+  const Lanes ln;
+  const int row = ln.slice;
+  const bool own_row = row < live;
+
+  const bool in_shared = a.rec_res == kInShared, regs = a.rec_res == kInRegisters;
+  if (in_shared) {
+    if (kLowrank) stage_rows(sm + L.uf, a.uf, h, r);
+    stage_rows(sm + L.prz, a.prz, depth, 2 * h);
+    stage_rows(sm + L.pn, a.pn, depth, h);
   }
-  for (int i = threadIdx.x; i < kRows * (4 * h + 2 * r); i += blockDim.x) smem[i] = 0.f;
+  auto shared = [&](size_t off, bool on) { return on ? sm + off : nullptr; };
+  const QuadRows uf{a.uf, shared(L.uf, in_shared && kLowrank), r, ldt(r)};
+  const QuadRows prz{a.prz, shared(L.prz, in_shared), 2 * h, ldt(2 * h)};
+  const QuadRows pn{a.pn, shared(L.pn, in_shared), h, ldt(h)};
+  // one pass when in registers: the lane's unit (j, or k) is fixed for the walk
+  const int jr = min(ln.unit, h - 1), own = kLowrank ? min(ln.unit, r - 1) : jr;
+  WalkRegs<Form> wr;
+  if (regs) {  // through L2 once, all loads in flight
+    wr.prz.load(rz4 / 4, ln.slice, [&](int, int q) { return prz.at(own, q); });
+    wr.pn.load(h4 / 4, ln.slice, [&](int, int q) { return pn.at(own, q); });
+    if constexpr (kLowrank) wr.uf.load(r4 / 4, ln.slice, [&](int, int q) { return uf.at(jr, q); });
+  }
+  // the state starts at zero; the staged inputs are each lane's own copies
+  for (size_t i = L.dhs + threadIdx.x; i < L.total; i += blockDim.x) sm[i] = 0.f;
+
+  float* stg = sm + L.stg;
+  float* dhs = sm + L.dhs;
+  float* dzs = sm + L.dzs;
+  float* drhus = sm + L.drhus;
+  float* dhus = sm + L.dhus;
+  // step t's inputs of (own row, the units of this lane) into buffer buf
+  auto fetch = [&](int t, int buf) {
+    if (!own_row) return;
+    const size_t m = (size_t)t * a.batch + b0 + row;
+    float* d = stg + ((size_t)buf * rows + row) * sw;
+    const float* hp = t > 0 ? a.ys + (m - a.batch) * h : a.h0 + (size_t)(b0 + row) * h;
+    for (int j = ln.unit; j < h; j += ln.per_pass) {
+      const float* g = a.gates + m * g3 + j;
+      vmlmf::cp_async4(d + j, g);
+      vmlmf::cp_async4(d + h + j, g + h);
+      vmlmf::cp_async4(d + 2 * h + j, g + 2 * h);
+      vmlmf::cp_async4(d + 3 * h + j, hp + j);
+      vmlmf::cp_async4(d + 4 * h + j, a.dys + m * h + j);
+      if (kPost) vmlmf::cp_async4(d + 5 * h + j, a.recn + m * h + j);
+    }
+  };
+  fetch(a.t_len - 1, 0);
+  vmlmf::cp_async_wait_all();  // the weights' copies and step T-1's inputs
   __syncthreads();
 
-  for (int t = t_len - 1; t >= 0; --t) {
-    const size_t row_t = (size_t)t * batch + b0;
+  int cur = 0;
+  for (int t = a.t_len - 1; t >= 0; --t) {
+    if (t > 0) fetch(t - 1, cur ^ 1);  // in flight while this step computes
+    const float* sg = stg + ((size_t)cur * rows + row) * sw;
+    const size_t m = (size_t)t * a.batch + b0 + row;
+    float* drz = sm + L.drz + (kPost ? (size_t)cur * rows * rz4 : 0);
+    float* dn = sm + L.dn + (kPost ? (size_t)cur * rows * h4 : 0);
 
-    // Elementwise: dz_pre, dn_pre and dh*z; in "post" also dr_pre and
-    // dn_pre*r. Each (row, j) of the carry is read and written by its own
-    // thread only.
-    for (int j = threadIdx.x; j < h; j += blockDim.x) {
-      for (int row = 0; row < rows; ++row) {
-        const size_t m = row_t + row;
-        const float* gr = gates + m * g3;
-        const float rg = gr[j], z = gr[h + j], n = gr[2 * h + j];
-        const float hp = hprev(h0, ys, m, t, batch, b0 + row, h, j);
-        const float dh = dhs[row * h + j] + dys[m * h + j];
-        const float dz_pre = dh * (hp - n) * z * (1.f - z);
+    // elementwise: dz_pre, dn_pre, dh*z; in "post" also dr_pre and dn_pre*r
+    if (own_row) {
+      for (int j = ln.unit; j < h; j += ln.per_pass) {
+        const float rg = sg[j], z = sg[h + j], n = sg[2 * h + j];
+        const float dh = dhs[row * h + j] + sg[4 * h + j];
+        const float dz_pre = dh * (sg[3 * h + j] - n) * z * (1.f - z);
         const float dn_pre = dh * (1.f - z) * (1.f - n * n);
-        float* ds = dps + row * g3;
-        ds[h + j] = dz_pre;
-        ds[2 * h + j] = Form == kDensePost ? dn_pre * rg : dn_pre;
-        float* dg = dpre + m * g3;
+        float* dg = a.dpre + m * g3;
         dg[h + j] = dz_pre;
         dg[2 * h + j] = dn_pre;
-        if (Form == kDensePost) {
-          const float dr_pre = dn_pre * recn[m * h + j] * rg * (1.f - rg);
-          ds[j] = dr_pre;
-          dg[j] = dr_pre;
-        }
         dhs[row * h + j] = dh * z;
+        if (kPost) {
+          const float dr_pre = dn_pre * sg[5 * h + j] * rg * (1.f - rg);
+          dg[j] = dr_pre;
+          drz[row * rz4 + j] = dr_pre;
+          drz[row * rz4 + h + j] = dz_pre;
+          dn[row * h4 + j] = dn_pre * rg;
+        } else {
+          dn[row * h4 + j] = dn_pre;
+          dzs[row * h + j] = dz_pre;
+        }
       }
     }
     __syncthreads();
 
-    if (Form == kDensePost) {
-      // dhp += [dr_pre, dz_pre, dn_pre*r] @ [Prz | Pn]^T: one warp per j
-      for (int j = warp; j < h; j += nwarps) {
-        float acc[kRows] = {};
-        for (int c = lane; c < g3; c += 32) {
-          const float w = c < 2 * h ? prz[(size_t)j * 2 * h + c] : pn[(size_t)j * h + c - 2 * h];
-#pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g3 + c], w, acc[row]);
+    if constexpr (kPost) {
+      // dhp += [dr_pre, dz_pre] @ Prz^T + (dn_pre*r) @ Pn^T, unit j
+      for (int u0 = 0; u0 < h; u0 += ln.per_pass) {
+        const int j = u0 + ln.unit, jc = min(j, h - 1);
+        float acc[1][R] = {};
+        if (regs) {
+          wr.prz.dot(acc, drz, rz4, live, rz4 / 4, ln.slice);
+          wr.pn.dot(acc, dn, h4, live, h4 / 4, ln.slice);
+        } else {
+          slice_dot<1>(acc, drz, rz4, live, rz4 / 4, ln.slice,
+                       [&](int, int q) { return prz.at(jc, q); });
+          slice_dot<1>(acc, dn, h4, live, h4 / 4, ln.slice,
+                       [&](int, int q) { return pn.at(jc, q); });
         }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float s = warp_sum(acc[row]);
-          if (lane == 0) dhs[row * h + j] += s;
-        }
+        slice_reduce<1>(acc, live);
+        if (j < h && own_row) dhs[row * h + j] += pick(acc[0], row);
       }
-      __syncthreads();
-      continue;
-    }
-
-    if (kLowrank) {
-      // drhu = dn_pre @ Pn^T: one warp per rank k, lanes along Pn's row k
-      for (int k = warp; k < r; k += nwarps) {
-        float acc[kRows] = {};
-        for (int c = lane; c < h; c += 32) {
-          const float w = pn[(size_t)k * h + c];
-#pragma unroll
-          for (int row = 0; row < kRows; ++row)
-            acc[row] = fmaf(dps[row * g3 + 2 * h + c], w, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float s = warp_sum(acc[row]);
-          if (lane == 0) {
-            drhus[row * r + k] = s;
-            if (row < rows) drhu_out[(row_t + row) * r + k] = s;
+    } else {
+      const float* drh_src = dn;  // the rows of drh's product: dn_pre, or dRHU
+      int drh_ld = h4;
+      if constexpr (kLowrank) {  // drhu = dn_pre @ Pn^T, rank k
+        for (int u0 = 0; u0 < r; u0 += ln.per_pass) {
+          const int k = u0 + ln.unit, kc = min(k, r - 1);
+          float acc[1][R] = {};
+          if (regs)
+            wr.pn.dot(acc, dn, h4, live, h4 / 4, ln.slice);
+          else
+            slice_dot<1>(acc, dn, h4, live, h4 / 4, ln.slice,
+                         [&](int, int q) { return pn.at(kc, q); });
+          slice_reduce<1>(acc, live);
+          if (k < r && own_row) {
+            const float v = pick(acc[0], row);
+            drhus[row * r4 + k] = v;
+            a.drhu[m * r + k] = v;
           }
         }
+        __syncthreads();
+        drh_src = drhus;
+        drh_ld = r4;
       }
-      __syncthreads();
-      // drh = drhu @ Uf^T, then dr_pre and dhp += drh * r: one thread per j
-      for (int j = threadIdx.x; j < h; j += blockDim.x) {
-        for (int row = 0; row < rows; ++row) {
-          float drh = 0.f;
-          for (int k = 0; k < r; ++k) drh = fmaf(drhus[row * r + k], uf[(size_t)j * r + k], drh);
-          const size_t m = row_t + row;
-          const float rg = gates[m * g3 + j];
-          const float dr_pre = drh * hprev(h0, ys, m, t, batch, b0 + row, h, j) * rg * (1.f - rg);
-          dps[row * g3 + j] = dr_pre;
-          dpre[m * g3 + j] = dr_pre;
+      // drh of unit j (dn_pre @ Pn^T, or drhu @ Uf^T), then dr_pre and dhp += drh * r
+      for (int u0 = 0; u0 < h; u0 += ln.per_pass) {
+        const int j = u0 + ln.unit, jc = min(j, h - 1);
+        float acc[1][R] = {};
+        if (!regs) {
+          slice_dot<1>(acc, drh_src, drh_ld, live, drh_ld / 4, ln.slice, [&](int, int q) {
+            return kLowrank ? uf.at(jc, q) : pn.at(jc, q);
+          });
+        } else if constexpr (kLowrank) {
+          wr.uf.dot(acc, drh_src, drh_ld, live, drh_ld / 4, ln.slice);
+        } else {
+          wr.pn.dot(acc, drh_src, drh_ld, live, drh_ld / 4, ln.slice);
+        }
+        slice_reduce<1>(acc, live);
+        if (j < h && own_row) {
+          const float drh = pick(acc[0], row), rg = sg[j];
+          const float dr_pre = drh * sg[3 * h + j] * rg * (1.f - rg);
+          a.dpre[m * g3 + j] = dr_pre;
+          drz[row * rz4 + j] = dr_pre;
+          drz[row * rz4 + h + j] = dzs[row * h + j];
           dhs[row * h + j] += drh * rg;
         }
       }
-    } else {
-      // drh = dn_pre @ Pn^T, then dr_pre and dhp += drh * r: one warp per j
-      for (int j = warp; j < h; j += nwarps) {
-        float acc[kRows] = {};
-        for (int c = lane; c < h; c += 32) {
-          const float w = pn[(size_t)j * h + c];
-#pragma unroll
-          for (int row = 0; row < kRows; ++row)
-            acc[row] = fmaf(dps[row * g3 + 2 * h + c], w, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float drh = warp_sum(acc[row]);
-          if (lane == 0 && row < rows) {
-            const size_t m = row_t + row;
-            const float rg = gates[m * g3 + j];
-            const float dr_pre =
-                drh * hprev(h0, ys, m, t, batch, b0 + row, h, j) * rg * (1.f - rg);
-            dps[row * g3 + j] = dr_pre;
-            dpre[m * g3 + j] = dr_pre;
-            dhs[row * h + j] += drh * rg;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    if (kLowrank) {
-      // dhu = [dr_pre, dz_pre] @ Prz^T: one warp per rank k
-      for (int k = warp; k < r; k += nwarps) {
-        float acc[kRows] = {};
-        for (int c = lane; c < 2 * h; c += 32) {
-          const float w = prz[(size_t)k * 2 * h + c];
-#pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g3 + c], w, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float s = warp_sum(acc[row]);
-          if (lane == 0) {
-            dhus[row * r + k] = s;
-            if (row < rows) dhu_out[(row_t + row) * r + k] = s;
-          }
-        }
-      }
       __syncthreads();
-      // dhp += dhu @ Uf^T: one thread per j
-      for (int j = threadIdx.x; j < h; j += blockDim.x) {
-        for (int row = 0; row < rows; ++row) {
-          float s = 0.f;
-          for (int k = 0; k < r; ++k) s = fmaf(dhus[row * r + k], uf[(size_t)j * r + k], s);
-          dhs[row * h + j] += s;
+      const float* last_src = drz;  // the rows of the last product: [dr, dz], or dHU
+      int last_ld = rz4;
+      if constexpr (kLowrank) {  // dhu = [dr_pre, dz_pre] @ Prz^T, rank k
+        for (int u0 = 0; u0 < r; u0 += ln.per_pass) {
+          const int k = u0 + ln.unit, kc = min(k, r - 1);
+          float acc[1][R] = {};
+          if (regs)
+            wr.prz.dot(acc, drz, rz4, live, rz4 / 4, ln.slice);
+          else
+            slice_dot<1>(acc, drz, rz4, live, rz4 / 4, ln.slice,
+                         [&](int, int q) { return prz.at(kc, q); });
+          slice_reduce<1>(acc, live);
+          if (k < r && own_row) {
+            const float v = pick(acc[0], row);
+            dhus[row * r4 + k] = v;
+            a.dhu[m * r + k] = v;
+          }
         }
+        __syncthreads();
+        last_src = dhus;
+        last_ld = r4;
       }
-    } else {
-      // dhp += [dr_pre, dz_pre] @ Prz^T: one warp per j
-      for (int j = warp; j < h; j += nwarps) {
-        float acc[kRows] = {};
-        for (int c = lane; c < 2 * h; c += 32) {
-          const float w = prz[(size_t)j * 2 * h + c];
-#pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(dps[row * g3 + c], w, acc[row]);
+      // dhp += [dr_pre, dz_pre] @ Prz^T, or dhu @ Uf^T, unit j
+      for (int u0 = 0; u0 < h; u0 += ln.per_pass) {
+        const int j = u0 + ln.unit, jc = min(j, h - 1);
+        float acc[1][R] = {};
+        if (!regs) {
+          slice_dot<1>(acc, last_src, last_ld, live, last_ld / 4, ln.slice, [&](int, int q) {
+            return kLowrank ? uf.at(jc, q) : prz.at(jc, q);
+          });
+        } else if constexpr (kLowrank) {
+          wr.uf.dot(acc, last_src, last_ld, live, last_ld / 4, ln.slice);
+        } else {
+          wr.prz.dot(acc, last_src, last_ld, live, last_ld / 4, ln.slice);
         }
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          const float s = warp_sum(acc[row]);
-          if (lane == 0) dhs[row * h + j] += s;
-        }
+        slice_reduce<1>(acc, live);
+        if (j < h && own_row) dhs[row * h + j] += pick(acc[0], row);
       }
     }
-    __syncthreads();
+    // No barrier closes the step: what the next step's elementwise part
+    // writes (this lane's own carry, dz_pre and inputs; dn_pre, whose
+    // readers passed the second barrier; in "post" the other dPre buffers)
+    // is read by no lane still in this step.
+    vmlmf::cp_async_wait_all();  // this lane's inputs of step t - 1
+    cur ^= 1;
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < live * h; i += blockDim.x)
+    a.dh0[(size_t)b0 * h + i] = dhs[(i / h) * h + i % h];
+}
 
-  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) dh0[(size_t)b0 * h + i] = dhs[i];
+template <int Form, int R>
+cudaError_t walk_rows(const WalkArgs& a, int threads, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(walk_kernel<Form, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  walk_kernel<Form, R><<<cdiv(a.batch, a.rows), threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Launches walk_kernel<Form, row_bound(rows)> with gru_plan's layout;
+// refuses a plan whose shared bytes are not this layout's.
+template <int Form>
+cudaError_t walk(const WalkArgs& a, int threads, int smem, cudaStream_t stream) {
+  const WalkLayout L = walk_layout(Form, a);
+  const bool regs_fit = a.h <= kRegH && a.r <= kRegR && threads / kSlices >= a.h &&
+                        threads / kSlices >= a.r;
+  if (L.total * sizeof(float) != (size_t)smem || a.rows < 1 || a.rows > kMaxRows ||
+      threads < 32 || threads % 32 != 0 || threads > kMaxThreads || a.rec_res < kInL2 ||
+      a.rec_res > kInRegisters || (a.rec_res == kInRegisters && !regs_fit))
+    return cudaErrorInvalidValue;
+  switch (row_bound(a.rows)) {
+    case 1:
+      return walk_rows<Form, 1>(a, threads, smem, stream);
+    case 2:
+      return walk_rows<Form, 2>(a, threads, smem, stream);
+    default:
+      return walk_rows<Form, kMaxRows>(a, threads, smem, stream);
+  }
 }
 
 // R * Hprev [M, h], element (i, j) = gates[i, j] * Hprev[i, j]: the operand
@@ -407,106 +504,149 @@ struct AddTo {
   }
 };
 
-// dbias[n] = sum over the M rows of dpre [M, n_cols]: kSumLanes row lanes
-// per column, then a fixed-order sum over the lanes.
-__global__ void __launch_bounds__(kSumCols * kSumLanes)
-colsum_kernel(const float* __restrict__ dpre, float* __restrict__ dbias, int m_rows,
-              int n_cols) {
-  __shared__ float part[kSumLanes][kSumCols];
-  const int c = threadIdx.x % kSumCols, lane = threadIdx.x / kSumCols;
-  const int n = blockIdx.x * kSumCols + c;
-  float s = 0.f;
-  if (n < n_cols)
-    for (int m = lane; m < m_rows; m += kSumLanes) s += dpre[(size_t)m * n_cols + n];
-  part[lane][c] = s;
-  __syncthreads();
-  if (lane == 0 && n < n_cols) {
-    for (int l = 1; l < kSumLanes; ++l) s += part[l][c];
-    dbias[n] = s;
-  }
-}
+// dbias = ones^T dPre: the column sums as a product with k = M.
+struct Ones {
+  static constexpr bool kContigJ = true;
+  __device__ __forceinline__ float operator()(int, int) const { return 1.f; }
+};
 
-template <int Form>
-cudaError_t bptt(const float* gates, const float* ys, const float* h0, const float* recn,
-                 const float* dys, const float* uf, const float* prz, const float* pn,
-                 float* dpre, float* dhu, float* drhu, float* dh0, int t_len, int batch, int h,
-                 int r, cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  size_t smem = sizeof(float) * state_floats(h, r);
-  const size_t with_weights = smem + sizeof(float) * weight_floats(Form, h, r);
-  const bool resident = with_weights <= (size_t)optin;
-  if (resident) smem = with_weights;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(bptt_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// [A1 | A2] along k: element (i, kk) = A1(i, kk) for kk < k1, else
+// A2(i, kk - k1); dUf's two terms as one product over 2M rows.
+template <class A1, class A2>
+struct ConcatK {
+  A1 a1;
+  A2 a2;
+  int k1;
+  static constexpr bool kContigJ = A1::kContigJ;
+  __device__ __forceinline__ float operator()(int i, int kk) const {
+    return kk < k1 ? a1(i, kk) : a2(i, kk - k1);
   }
-  bptt_kernel<Form><<<cdiv(batch, kRows), kBpttThreads, smem, stream>>>(
-      gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len, batch, h, r, resident);
-  return cudaGetLastError();
-}
+};
 
-// The serial walk and the recurrent side's weight gradients, from the
-// residuals (saved or rebuilt); writes dpre [M, 3h] and, low-rank, dhu and
-// drhu [M, r] (scratch), and duf, dprz, dpn, dh0. Returns the first error.
-cudaError_t recurrent_grads(const float* uf, const float* prz, const float* pn,
-                            const float* h0, const float* ys, const float* gates,
-                            const float* hu, const float* rhu, const float* recn,
-                            const float* dys, float* dpre, float* dhu, float* drhu, float* duf,
-                            float* dprz, float* dpn, float* dh0, int t_len, int batch, int h,
-                            int r, int form, cudaStream_t stream) {
-  const int m = t_len * batch;
-  const int g3 = 3 * h;
-  using vmlmf::RowMajor;
-  using vmlmf::Store;
-  using vmlmf::Transposed;
-  cudaError_t err;
+// [B1; B2] along k: element (kk, j) = B1(kk, j) for kk < k1, else B2(kk - k1, j).
+template <class B1, class B2>
+struct ConcatRows {
+  B1 b1;
+  B2 b2;
+  int k1;
+  static constexpr bool kContigJ = B1::kContigJ;
+  __device__ __forceinline__ float operator()(int kk, int j) const {
+    return kk < k1 ? b1(kk, j) : b2(kk - k1, j);
+  }
+};
+
+// The serial walk of the given form; returns the launch's error.
+cudaError_t walk_form(const WalkArgs& a, int form, int threads, int smem, cudaStream_t stream) {
   switch (form) {
     case kLowrankPre:
-      err = bptt<kLowrankPre>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
-                              batch, h, r, stream);
-      break;
+      return walk<kLowrankPre>(a, threads, smem, stream);
     case kDensePre:
-      err = bptt<kDensePre>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
-                            batch, h, r, stream);
-      break;
+      return walk<kDensePre>(a, threads, smem, stream);
     case kDensePost:
-      err = bptt<kDensePost>(gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, t_len,
-                             batch, h, r, stream);
-      break;
+      return walk<kDensePost>(a, threads, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
+}
 
+// The x side's products, appended to the recurrent ones: none in gi mode
+// (x null); dUx = X^T dXU (dXU = dPre for a dense x side), dVx = XU^T dPre
+// (low-rank), dbias = ones^T dPre, and, when dx is given, dx = dXU Ux^T.
+struct XSide {
+  const float* x;
+  const float* ux;
+  const float* vx;
+  const float* xu;
+  const float* dpre;
+  const float* dxu;
+  float* dx;
+  float* dux;
+  float* dvx;
+  float* dbias;
+  int f, rx, h, m;
+};
+
+// The weight gradients' group, with dx in it when asked for; the slice
+// length is the weight gradients' own, so their sums do not depend on dx.
+template <class... R>
+cudaError_t with_dx(const XSide& xs, float* partial, size_t partial_floats, cudaStream_t stream,
+                    R... products) {
+  using vmlmf::RowMajor;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  const int kslice = vmlmf::group_kslice(products...);
+  if (xs.dx == nullptr)
+    return vmlmf::gemm_splitk_group(partial, partial_floats, kslice, stream, products...);
+  const int kx = xs.vx == nullptr ? 3 * xs.h : xs.rx;  // dx [M, F] = dXU Ux^T
+  return vmlmf::gemm_splitk_group(
+      partial, partial_floats, kslice, stream, products...,
+      vmlmf::split_product(RowMajor{xs.vx == nullptr ? xs.dpre : xs.dxu, kx},
+                           Transposed{xs.ux, kx}, Store{xs.dx, xs.f}, xs.m, xs.f, kx));
+}
+
+template <class... R>
+cudaError_t weight_grads(const XSide& xs, float* partial, size_t partial_floats,
+                         cudaStream_t stream, R... rec) {
+  using vmlmf::RowMajor;
+  using vmlmf::split_product;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  if (xs.x == nullptr)
+    return vmlmf::gemm_splitk_group(partial, partial_floats, vmlmf::group_kslice(rec...), stream,
+                                    rec...);
+  const int g3 = 3 * xs.h, f = xs.f, rx = xs.rx, m = xs.m;
+  const auto dbias = split_product(Ones{}, RowMajor{xs.dpre, g3}, Store{xs.dbias, g3}, 1, g3, m);
+  if (xs.vx == nullptr)
+    return with_dx(
+        xs, partial, partial_floats, stream, rec...,
+        split_product(Transposed{xs.x, f}, RowMajor{xs.dpre, g3}, Store{xs.dux, g3}, f, g3, m),
+        dbias);
+  return with_dx(
+      xs, partial, partial_floats, stream, rec...,
+      split_product(Transposed{xs.x, f}, RowMajor{xs.dxu, rx}, Store{xs.dux, rx}, f, rx, m),
+      split_product(Transposed{xs.xu, rx}, RowMajor{xs.dpre, g3}, Store{xs.dvx, g3}, rx, g3, m),
+      dbias);
+}
+
+// Every weight gradient whose k runs over the M rows, in one grouped
+// split-k: the recurrent side's, from the residuals (saved or rebuilt),
+// dpre and, low-rank, dhu and drhu; then the x side's (xs). Writes duf,
+// dprz, dpn (and dux, dvx, dbias). Returns the first error.
+cudaError_t grouped_grads(const float* h0, const float* ys, const float* gates, const float* hu,
+                          const float* rhu, const float* dpre, const float* dhu,
+                          const float* drhu, float* duf, float* dprz, float* dpn,
+                          const XSide& xs, float* partial, size_t partial_floats, int t_len,
+                          int batch, int h, int r, int form, cudaStream_t stream) {
+  using vmlmf::RowMajor;
+  using vmlmf::split_product;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  const int m = t_len * batch, g3 = 3 * h;
   const vmlmf::PrevRowsT hprev_t{h0, ys, batch, h};
-  if (form == kLowrankPre) {
-    // dPrz [r, 2h] = HU^T [dR dZ];  dPn [r, h] = RHU^T dN
-    err = vmlmf::gemm(Transposed{hu, r}, RowMajor{dpre, g3}, Store{dprz, 2 * h}, r, 2 * h, m,
-                      stream);
-    if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(Transposed{rhu, r}, RowMajor{dpre + 2 * h, g3}, Store{dpn, h}, r, h, m,
-                      stream);
-    if (err != cudaSuccess) return err;
-    // dUf [h, r] = Hprev^T dHU, then += (R * Hprev)^T dRHU
-    err = vmlmf::gemm(hprev_t, RowMajor{dhu, r}, Store{duf, r}, h, r, m, stream);
-    if (err != cudaSuccess) return err;
-    return vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{drhu, r}, AddTo{duf, r}, h,
-                       r, m, stream);
+  const GatedPrevT rh_t{gates, h0, ys, batch, h};
+  // dPrz = Hprev^T [dR dZ] (dense) or HU^T [dR dZ] (low-rank)
+  const auto dprz_dense =
+      split_product(hprev_t, RowMajor{dpre, g3}, Store{dprz, 2 * h}, h, 2 * h, m);
+  switch (form) {
+    case kLowrankPre:  // dPn [r, h] = RHU^T dN;  dUf [h, r] = [Hprev | RH]^T [dHU; dRHU]
+      return weight_grads(
+          xs, partial, partial_floats, stream,
+          split_product(Transposed{hu, r}, RowMajor{dpre, g3}, Store{dprz, 2 * h}, r, 2 * h, m),
+          split_product(Transposed{rhu, r}, RowMajor{dpre + 2 * h, g3}, Store{dpn, h}, r, h, m),
+          split_product(ConcatK<vmlmf::PrevRowsT, GatedPrevT>{hprev_t, rh_t, m},
+                        ConcatRows<RowMajor, RowMajor>{RowMajor{dhu, r}, RowMajor{drhu, r}, m},
+                        Store{duf, r}, h, r, 2 * m));
+    case kDensePre:  // dPn [h, h] = (R * Hprev)^T dN
+      return weight_grads(
+          xs, partial, partial_floats, stream, dprz_dense,
+          split_product(rh_t, RowMajor{dpre + 2 * h, g3}, Store{dpn, h}, h, h, m));
+    case kDensePost:  // dPn [h, h] = Hprev^T (dN * R)
+      return weight_grads(
+          xs, partial, partial_floats, stream, dprz_dense,
+          split_product(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{dpn, h}, h, h, m));
+    default:
+      return cudaErrorInvalidValue;
   }
-  // dPrz [h, 2h] = Hprev^T [dR dZ]
-  err = vmlmf::gemm(hprev_t, RowMajor{dpre, g3}, Store{dprz, 2 * h}, h, 2 * h, m, stream);
-  if (err != cudaSuccess) return err;
-  if (form == kDensePre)  // dPn [h, h] = (R * Hprev)^T dN
-    return vmlmf::gemm(GatedPrevT{gates, h0, ys, batch, h}, RowMajor{dpre + 2 * h, g3},
-                       Store{dpn, h}, h, h, m, stream);
-  // dPn [h, h] = Hprev^T (dN * R)
-  return vmlmf::gemm(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{dpn, h}, h, h, m,
-                     stream);
 }
 
 // The recompute policy's pre-pass: rebuilds gates [M, 3h], hu and rhu [M, r]
@@ -557,16 +697,21 @@ cudaError_t recompute(const float* x, const float* ux, const float* vx, const fl
 
 }  // namespace
 
-// x mode: launches the pre-pass (recompute policy), the serial kernel, the
-// GEMMs and the column sums on `stream`; returns the first error. gates,
-// hu, rhu, recn and xu are the residual forward's (uf, hu, rhu, duf null
-// in the dense recurrent forms, recn outside "post"; vx, xu, dvx for a
-// dense x side). gates null is the recompute policy: bias is then given,
-// hu, rhu, recn and xu are null, and gates_w [T*B, 3h], hu_w and rhu_w
-// [T*B, r] (low-rank), recn_w [T*B, h] ("post") and xu_w [T*B, rx]
-// (low-rank x side) are the scratch that the pre-pass fills; they are null
-// otherwise. dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank; else null)
-// and dxu [T*B, rx] (low-rank x side; else null) are scratch that the
+// Both entries take, after the sizes and the form, gemm_splitk's scratch
+// size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats) and
+// the walk's plan from ops/cuda_gru.py::gru_plan: rows, threads, rec_res,
+// smem (bytes).
+
+// x mode: launches the pre-pass (recompute policy), the walk, the GEMMs
+// and the column sums on `stream`; returns the first error. gates, hu,
+// rhu, recn and xu are the residual forward's (uf, hu, rhu, duf null in the
+// dense recurrent forms, recn outside "post"; vx, xu, dvx for a dense x
+// side). gates null is the recompute policy: bias is then given, hu, rhu,
+// recn and xu are null, and gates_w [T*B, 3h], hu_w and rhu_w [T*B, r]
+// (low-rank), recn_w [T*B, h] ("post") and xu_w [T*B, rx] (low-rank x
+// side) are the scratch that the pre-pass fills; they are null otherwise.
+// dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank; else null), dxu
+// [T*B, rx] (low-rank x side; else null) and partial are scratch that the
 // caller allocates; every pointer after them is an output. dx may be null
 // (not computed).
 extern "C" int gru_scan_xin_bwd(
@@ -574,9 +719,10 @@ extern "C" int gru_scan_xin_bwd(
     const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
     const float* rhu, const float* recn, const float* xu, const float* dys, const float* bias,
     float* gates_w, float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre,
-    float* dhu, float* drhu, float* dxu, float* dx, float* dux, float* dvx, float* dbias,
-    float* duf, float* dprz, float* dpn, float* dh0, int t_len, int batch, int f, int rx, int h,
-    int r, int form, void* stream_handle) {
+    float* dhu, float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
+    float* dbias, float* duf, float* dprz, float* dpn, float* dh0, int t_len, int batch, int f,
+    int rx, int h, int r, int form, int partial_floats, int rows, int threads, int rec_res,
+    int smem, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const int m = t_len * batch;
   const int g3 = 3 * h;
@@ -596,52 +742,42 @@ extern "C" int gru_scan_xin_bwd(
     recn = recn_w;
     xu = xu_w;
   }
-  err = recurrent_grads(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, dpre, dhu, drhu, duf,
-                        dprz, dpn, dh0, t_len, batch, h, r, form, stream);
+  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0,
+                    t_len, batch, h, r, rows, rec_res};
+  err = walk_form(wa, form, threads, smem, stream);
   if (err != cudaSuccess) return err;
-
-  if (vx == nullptr) {
-    // dense x side, dXU = dPre: dx [M, F] = dPre Ux^T;  dUx [F, 3h] = X^T dPre
-    if (dx != nullptr) {
-      err = vmlmf::gemm(RowMajor{dpre, g3}, Transposed{ux, g3}, Store{dx, f}, m, f, g3, stream);
-      if (err != cudaSuccess) return err;
-    }
-    err = vmlmf::gemm(Transposed{x, f}, RowMajor{dpre, g3}, Store{dux, g3}, f, g3, m, stream);
-  } else {
-    // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T
-    err = vmlmf::gemm(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3,
-                      stream);
+  if (vx != nullptr) {  // dXU [M, rx] = dPre Vx^T, which dUx and dx read: a group of one
+    const auto dxu_p =
+        vmlmf::split_product(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3);
+    err = vmlmf::gemm_splitk_group(partial, partial_floats, vmlmf::group_kslice(dxu_p), stream,
+                                   dxu_p);
     if (err != cudaSuccess) return err;
-    if (dx != nullptr) {
-      err = vmlmf::gemm(RowMajor{dxu, rx}, Transposed{ux, rx}, Store{dx, f}, m, f, rx, stream);
-      if (err != cudaSuccess) return err;
-    }
-    // dUx [F, rx] = X^T dXU;  dVx [rx, 3h] = XU^T dPre
-    err = vmlmf::gemm(Transposed{x, f}, RowMajor{dxu, rx}, Store{dux, rx}, f, rx, m, stream);
-    if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(Transposed{xu, rx}, RowMajor{dpre, g3}, Store{dvx, g3}, rx, g3, m,
-                      stream);
   }
-  if (err != cudaSuccess) return err;
-
-  colsum_kernel<<<cdiv(g3, kSumCols), kSumCols * kSumLanes, 0, stream>>>(dpre, dbias, m, g3);
-  return cudaGetLastError();
+  const XSide xs{x, ux, vx, xu, dpre, dxu, dx, dux, dvx, dbias, f, rx, h, m};
+  return grouped_grads(h0, ys, gates, hu, rhu, dpre, dhu, drhu, duf, dprz, dpn, xs, partial,
+                       partial_floats, t_len, batch, h, r, form, stream);
 }
 
-// gi mode: the serial kernel and the recurrent GEMMs on `stream`; returns the
-// first error. The residuals as gru_scan_xin_bwd takes them (saved: gi mode
-// always saves the gates); dgi [T*B, 3h] is dPre, an output; dhu and drhu
-// [T*B, r] (low-rank; else null) are scratch; duf (low-rank; else null),
-// dprz, dpn and dh0 are outputs.
+// gi mode: the walk and the recurrent weight gradients on `stream`; returns
+// the first error. The residuals as gru_scan_xin_bwd takes them (saved: gi
+// mode always saves the gates); dgi [T*B, 3h] is dPre, an output; dhu and
+// drhu [T*B, r] (low-rank; else null) and partial are scratch; duf
+// (low-rank; else null), dprz, dpn and dh0 are outputs.
 extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
                             const float* h0, const float* ys, const float* gates,
                             const float* hu, const float* rhu, const float* recn,
-                            const float* dys, float* dgi, float* dhu, float* drhu, float* duf,
-                            float* dprz, float* dpn, float* dh0, int t_len, int batch, int h,
-                            int r, int form, void* stream_handle) {
-  return recurrent_grads(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, dgi, dhu, drhu, duf,
-                         dprz, dpn, dh0, t_len, batch, h, r, form,
-                         static_cast<cudaStream_t>(stream_handle));
+                            const float* dys, float* dgi, float* dhu, float* drhu, float* partial,
+                            float* duf, float* dprz, float* dpn, float* dh0, int t_len,
+                            int batch, int h, int r, int form, int partial_floats, int rows,
+                            int threads, int rec_res, int smem, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dgi, dhu, drhu, dh0,
+                    t_len, batch, h, r, rows, rec_res};
+  const cudaError_t err = walk_form(wa, form, threads, smem, stream);
+  if (err != cudaSuccess) return err;
+  const XSide none{};
+  return grouped_grads(h0, ys, gates, hu, rhu, dgi, dhu, drhu, duf, dprz, dpn, none, partial,
+                       partial_floats, t_len, batch, h, r, form, stream);
 }
 
 // The message of an error code that an entry of this file returned.

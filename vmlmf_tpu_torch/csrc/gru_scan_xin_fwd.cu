@@ -22,337 +22,496 @@
 //
 // Layouts are the unpadded public ones of the JAX function: x [T,B,F],
 // Ux [F,rx] and Vx [rx,3h] or dense Ux [F,3h], bias [3h], h0 [B,h];
-// low-rank Uf [h,r], Prz [r,2h],
-// Pn [r,h]; dense Prz [h,2h], Pn [h,h]; all row-major and contiguous. The
-// `form` argument picks the recurrent form (0 low-rank pre, 1 dense pre,
-// 2 dense post).
+// low-rank Uf [h,r], Prz [r,2h], Pn [r,h]; dense Prz [h,2h], Pn [h,h]; all
+// row-major and contiguous. The `form` argument picks the recurrent form
+// (0 low-rank pre, 1 dense pre, 2 dense post).
 //
 // The residual variant also writes, per step, the post-nonlinearity gates
 // [T,B,3h] (r, z, n in three blocks of h), and hu = h_prev @ Uf and rhu =
 // (r*h_prev) @ Uf [T,B,r] (low-rank) or recn = h_prev @ Pn [T,B,h] (post).
-// A low-rank x side keeps the first GEMM's xu = x @ Ux [T*B,rx] as a
-// residual for dVx; a dense one has none.
+// A low-rank x side keeps xu = x @ Ux [T*B,rx] as a residual for dVx; a
+// dense one has none.
 //
 // What bounds it on an H100, and what the design does about it:
-// * The input projection is time-parallel: two tiled GEMM launches over all
-//   T*B rows (gemm_tile.cuh), or one for a dense x side, write gi [T,B,3h],
-//   which the scan reads back. gi mode takes that gi from the caller and
-//   launches the scan alone.
-// * The recurrence is a chain of small dependent products. At the HAR widths
-//   (h=64, r=9) a step is a few thousand multiply-adds per row, so the time
-//   is set by the T steps and the block barriers inside each step (four in
-//   low-rank "pre", two in dense "pre" and "post"), not by bytes or flops.
-//   One CTA owns kRows batch rows and walks all T steps with the carry in
-//   shared memory.
-// * The recurrent weights stay in shared memory for the whole scan when
-//   they fit (9.2 KB low-rank, 48 KB dense at h=64): the counterpart of the
-//   TPU kernel's VMEM residency. Where they do not fit (dense past h of
-//   about 130, low-rank past h*r of about 14k), the kernel reads them
-//   through L2 with the same code, by generic pointers and, for Uf, strides.
-//   Uf is kept transposed in shared memory so that the rank-space products,
-//   one warp per rank column, read neighbouring words there.
-// * Every edge (B, F, h, r, rx not multiples of a tile) is masked.
+// * The recurrence is a chain of small dependent products: at the HAR
+//   widths (h=64, r=9) a step is a few thousand multiply-adds a row, so the
+//   time is set by the T steps' latency, not by bytes or flops. One launch
+//   does the whole call. Each CTA owns `rows` batch rows (ops/cuda_gru.py::
+//   gru_plan: few, so that the batch spreads over the SMs) and walks all T
+//   steps with the carry in shared memory. The kernel is compiled for a row
+//   bound R of 1, 2 or 4 and launched with the one the plan's rows need:
+//   a row loop guarded by a run-time count would execute every row's
+//   instructions, predicated off or not.
+// * The input projection is time-parallel and runs inside the kernel, as
+//   in the TPU kernel: each CTA stages its rows' x for a block of `tblock`
+//   steps and projects them into a shared gi block (writing xu where the
+//   residual forward keeps it); gi mode copies the caller's gi block
+//   instead. No step then reads its input from device memory: the serial
+//   chain touches shared memory and registers only, and its stores (ys and
+//   the residuals) are never waited on.
+// * A step's products go through gru_tile.cuh's unit groups: four lanes per
+//   output unit, each summing a quarter of the depth with float4 loads,
+//   added by two shuffles. In "post" the group of hidden unit j computes
+//   its three columns (r, z and the candidate's h @ Pn) and the update in
+//   one pass, so a step has one barrier, with the carry in two buffers
+//   that take turns. "pre" needs r*h whole before its product: two
+//   barriers (dense), four (low-rank: h @ Uf, the gates, (r*h) @ Uf, n).
+// * A step reads every recurrent weight once. From shared memory that is
+//   bound by its 128 bytes a cycle (48 KB a step in dense "post" at h=64),
+//   so where each lane's share is small (h <= 64, r <= 16: at most 12
+//   float4s) gru_plan keeps it in registers for the whole scan, loaded once
+//   through L2, and a step reads only the rows from shared memory. Wider
+//   weights stay in shared memory when they fit (the recurrent ones first,
+//   then the x side's, then a shorter time block), quad-interleaved so that
+//   a lane's float4 holds four depth elements of its column, else they are
+//   read through L2 by the same code; the sums run in the same order on
+//   every path.
+// * Every edge (B, F, h, r, rx not multiples of anything) is masked.
 
 #include <cuda_runtime.h>
 
-#include "gemm_tile.cuh"
+#include "gru_tile.cuh"
 
 namespace {
 
+using namespace vmlmf::gru;
 using vmlmf::cdiv;
 
-constexpr int kRows = 4;  // batch rows per scan CTA
-constexpr int kMaxThreads = 1024;
-constexpr int kLowrankPre = 0, kDensePre = 1, kDensePost = 2;
+constexpr int kGiMode = 0, kLowrankX = 1, kDenseX = 2;  // the input side
 
-// Epilogue of the projection GEMM that yields gi: gi[i, j] = v + bias[j].
-struct BiasEpilogue {
-  float* gi;
+struct FwdArgs {
+  const float* x;
+  const float* ux;
+  const float* vx;
   const float* bias;
-  int n;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    gi[(size_t)i * n + j] = v + bias[j];
-  }
+  const float* gi;
+  const float* uf;
+  const float* prz;
+  const float* pn;
+  const float* h0;
+  float* ys;
+  float* gates;
+  float* hu;
+  float* rhu;
+  float* recn;
+  float* xu;
+  int t_len, batch, f, rx, h, r;
+  int rows, tblock, rec_res, x_res;
 };
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+// Float offsets of the shared regions, in the order of
+// ops/cuda_gru.py::_fwd_floats: the resident weights (recurrent, then x
+// side), the time block (gi, x, xu), the state (the carry's two buffers,
+// r*h, hu, rhu, z).
+struct FwdLayout {
+  size_t uf, prz, pn, ux, vx, gib, xs, xub, hbuf, rh, hus, rhus, zs, total;
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
+__host__ __device__ inline FwdLayout fwd_layout(int form, int xside, const FwdArgs& a) {
+  const bool lowrank = form == kLowrankPre, pre = form != kDensePost;
+  const int h = a.h, g3 = 3 * a.h, depth4 = lowrank ? q4(a.r) : q4(a.h);
+  const size_t mb = (size_t)a.tblock * a.rows;
+  FwdLayout L{};
+  size_t at = 0;
+  const bool shared = a.rec_res == kInShared;
+  L.uf = take(at, shared && lowrank ? (size_t)q4(h) * a.r : 0);
+  L.prz = take(at, shared ? (size_t)depth4 * 2 * h : 0);
+  L.pn = take(at, shared ? (size_t)depth4 * h : 0);
+  L.ux = take(at, a.x_res && xside != kGiMode
+                      ? (size_t)q4(a.f) * (xside == kLowrankX ? a.rx : g3) : 0);
+  L.vx = take(at, a.x_res && xside == kLowrankX ? (size_t)q4(a.rx) * g3 : 0);
+  L.gib = take(at, mb * g3);
+  L.xs = take(at, xside != kGiMode ? mb * q4(a.f) : 0);
+  L.xub = take(at, xside == kLowrankX ? mb * q4(a.rx) : 0);
+  L.hbuf = take(at, (size_t)2 * a.rows * q4(h));
+  L.rh = take(at, pre ? (size_t)a.rows * q4(h) : 0);
+  L.hus = take(at, lowrank ? (size_t)a.rows * q4(a.r) : 0);
+  L.rhus = take(at, lowrank ? (size_t)a.rows * q4(a.r) : 0);
+  L.zs = take(at, pre ? (size_t)a.rows * h : 0);
+  L.total = at;
+  return L;
 }
 
-// out[row, k] = sum_j in[row, j] * Uf[j, k] for k < r, with Uf's element
-// (j, k) read at uf[k * ks + j * js]: its transposed copy in shared memory
-// (ks = h, js = 1) or Uf [h, r] itself through L2 (ks = 1, js = r). One warp
-// per rank column, lanes along j. Also written to out_res rows row_t.. when
-// it is given.
-__device__ __forceinline__ void rank_product(const float* in, const float* uf, int ks, int js,
-                                             float* out, float* out_res, size_t row_t, int rows,
-                                             int h, int r) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  for (int k = warp; k < r; k += nwarps) {
-    const float* col = uf + (size_t)k * ks;
-    float acc[kRows] = {};
-    for (int j = lane; j < h; j += 32) {
-      const float w = col[(size_t)j * js];
+// out(m, c) = epi(m, c, sum_k a[m, k] * W[k, c]) for m < mrows, c < n: the
+// time block's projection, all threads, four rows a thread; a is shared
+// with row stride lda (a multiple of 4, zero past the depth).
+template <class Epi>
+__device__ __forceinline__ void block_gemm(const float* a, int lda, int mrows, const QuadCols& w,
+                                           int n, Epi epi) {
+  const int nq = lda / 4, mq = (mrows + 3) / 4;
+  for (int item = threadIdx.x; item < mq * n; item += blockDim.x) {
+    const int c = item % n, m0 = (item / n) * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < nq; ++q) {
+      const float4 wv = w.at(q, c);
 #pragma unroll
-      for (int row = 0; row < kRows; ++row) acc[row] = fmaf(in[row * h + j], w, acc[row]);
+      for (int i = 0; i < 4; ++i)
+        if (m0 + i < mrows)
+          acc[i] = dot4(reinterpret_cast<const float4*>(a + (size_t)(m0 + i) * lda)[q], wv,
+                        acc[i]);
     }
 #pragma unroll
-    for (int row = 0; row < kRows; ++row) {
-      const float s = warp_sum(acc[row]);
-      if (lane == 0) {
-        out[row * r + k] = s;
-        if (out_res != nullptr && row < rows) out_res[(row_t + row) * r + k] = s;
-      }
-    }
+    for (int i = 0; i < 4; ++i)
+      if (m0 + i < mrows) epi(m0 + i, c, acc[i]);
   }
 }
 
-// Shared-memory floats of the scan's state, and of its resident weights.
-__host__ __device__ inline size_t state_floats(int h, int r) {
-  return (size_t)kRows * (4 * h + 2 * r);
-}
-__host__ __device__ inline size_t weight_floats(int form, int h, int r) {
-  return form == kLowrankPre ? (size_t)4 * h * r : (size_t)3 * h * h;
-}
+// A lane's recurrent weights where the plan holds them in registers: the
+// columns of its hidden unit j (Prz's r and z columns, Pn's) and, low-rank,
+// Uf's column of its rank k; at most four quads of depth h a slice, one of
+// depth r.
+template <int Form>
+struct FwdRegs {
+  RegSlice<3, 4> rzn;  // "post": r, z and h @ Pn in one pass
+};
+template <>
+struct FwdRegs<kDensePre> {
+  RegSlice<2, 4> rz;
+  RegSlice<1, 4> n;
+};
+template <>
+struct FwdRegs<kLowrankPre> {
+  RegSlice<1, 4> uf;
+  RegSlice<2, 1> rz;
+  RegSlice<1, 1> n;
+};
 
-// One CTA per kRows batch rows; the CTA walks all t_len steps. Shared memory:
-// hs (the carry), rb (r*h in "pre", r in "post"), zs, recns [kRows, h]; hus,
-// rhus [kRows, r]; then, when `resident`, the weights: Uf^T [r, h], Prz, Pn.
-// Rows past the batch stay zero and are never written out.
-template <int Form, bool Residuals>
-__global__ void __launch_bounds__(kMaxThreads)
-scan_kernel(const float* __restrict__ gi, const float* __restrict__ uf_g,
-            const float* __restrict__ prz_g, const float* __restrict__ pn_g,
-            const float* __restrict__ h0, float* __restrict__ ys, float* __restrict__ gates_out,
-            float* __restrict__ hu_out, float* __restrict__ rhu_out,
-            float* __restrict__ recn_out, int t_len, int batch, int h, int r, bool resident) {
+template <int Form, int XSide, bool Residuals, int R>
+__global__ void __launch_bounds__(kMaxThreads) fwd_kernel(const FwdArgs a) {
   constexpr bool kLowrank = Form == kLowrankPre;
-  extern __shared__ float smem[];
-  float* hs = smem;
-  float* rb = hs + kRows * h;
-  float* zs = rb + kRows * h;
-  float* recns = zs + kRows * h;
-  float* hus = recns + kRows * h;
-  float* rhus = hus + kRows * r;
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, batch - b0);
-  const int g3 = 3 * h;
-  const int depth = kLowrank ? r : h;  // rows of Prz and Pn
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const FwdLayout L = fwd_layout(Form, XSide, a);
+  const int h = a.h, r = a.r, g3 = 3 * h, h4 = q4(h), r4 = q4(r), rows = a.rows;
+  const int b0 = blockIdx.x * rows, live = min(rows, a.batch - b0);
+  const Lanes ln;
+  const int depth = kLowrank ? r : h, dq = (kLowrank ? r4 : h4) / 4;
 
-  // The weights, in shared memory or straight from device memory (L2); Uf's
-  // element (j, k) is uf[k * uks + j * ujs] either way.
-  const float* uf = uf_g;
-  int uks = 1, ujs = r;
-  const float* prz = prz_g;
-  const float* pn = pn_g;
-  if (resident) {
-    float* w = rhus + kRows * r;
-    float* przs = w + (kLowrank ? (size_t)r * h : 0);
-    float* pns = przs + (size_t)depth * 2 * h;
-    if (kLowrank)
-      for (int i = threadIdx.x; i < h * r; i += blockDim.x) w[(i % r) * h + i / r] = uf_g[i];
-    for (int i = threadIdx.x; i < depth * 2 * h; i += blockDim.x) przs[i] = prz_g[i];
-    for (int i = threadIdx.x; i < depth * h; i += blockDim.x) pns[i] = pn_g[i];
-    uf = w;  // Uf^T [r, h]
-    uks = h;
-    ujs = 1;
-    prz = przs;
-    pn = pns;
+  const bool shared = a.rec_res == kInShared, regs = a.rec_res == kInRegisters;
+  if (shared) {
+    if (kLowrank) stage_cols(sm + L.uf, a.uf, h, r);
+    stage_cols(sm + L.prz, a.prz, depth, 2 * h);
+    stage_cols(sm + L.pn, a.pn, depth, h);
   }
-  for (int i = threadIdx.x; i < kRows * h; i += blockDim.x)
-    hs[i] = i / h < rows ? h0[(size_t)b0 * h + i] : 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < t_len; ++t) {
-    const size_t row_t = (size_t)t * batch + b0;  // first output row of this step
-    const float* gi_t = gi + row_t * g3;
-
-    if (kLowrank) {  // hus = h @ Uf
-      rank_product(hs, uf, uks, ujs, hus, Residuals ? hu_out : nullptr, row_t, rows, h, r);
-      __syncthreads();
+  auto shared4 = [&](size_t off, bool on) {
+    return on ? reinterpret_cast<const float4*>(sm + off) : nullptr;
+  };
+  const QuadCols uf{a.uf, shared4(L.uf, shared && kLowrank), h, r};
+  const QuadCols prz{a.prz, shared4(L.prz, shared), depth, 2 * h};
+  const QuadCols pn{a.pn, shared4(L.pn, shared), depth, h};
+  // one pass when in registers: the lane's unit is fixed for the scan
+  const int jr = min(ln.unit, h - 1), kr = kLowrank ? min(ln.unit, r - 1) : 0;
+  FwdRegs<Form> wr;
+  if (regs) {  // through L2 once, all loads in flight
+    if constexpr (Form == kDensePost) {
+      wr.rzn.load(dq, ln.slice, [&](int i, int q) {
+        return i == 0 ? prz.at(q, jr) : i == 1 ? prz.at(q, h + jr) : pn.at(q, jr);
+      });
+    } else {
+      if constexpr (kLowrank)
+        wr.uf.load(h4 / 4, ln.slice, [&](int, int q) { return uf.at(q, kr); });
+      wr.rz.load(dq, ln.slice, [&](int i, int q) { return prz.at(q, i == 0 ? jr : h + jr); });
+      wr.n.load(dq, ln.slice, [&](int, int q) { return pn.at(q, jr); });
     }
+  }
+  QuadCols ux{}, vx{};
+  if constexpr (XSide != kGiMode) {
+    const int nux = XSide == kLowrankX ? a.rx : g3;
+    if (a.x_res) {
+      stage_cols(sm + L.ux, a.ux, a.f, nux);
+      if (XSide == kLowrankX) stage_cols(sm + L.vx, a.vx, a.rx, g3);
+    }
+    ux = QuadCols{a.ux, shared4(L.ux, a.x_res), a.f, nux};
+    vx = QuadCols{a.vx, shared4(L.vx, a.x_res && XSide == kLowrankX), a.rx, g3};
+  }
+  // xu's padding and the state start at zero, but for the carry's h0. The
+  // weights' copies land by the first block's barrier.
+  for (size_t i = L.xub + threadIdx.x; i < L.total; i += blockDim.x) {
+    const size_t e = i - L.hbuf;
+    const int row = static_cast<int>(e / h4), j = static_cast<int>(e % h4);
+    sm[i] = i >= L.hbuf && row < live && j < h ? a.h0[(size_t)(b0 + row) * h + j] : 0.f;
+  }
+  float* hbuf = sm + L.hbuf;
 
-    // Gates r and z (columns c < 2h) and, in "post", recn = h @ Pn (columns
-    // 2h..3h): one thread per column, the weights read along their rows.
-    const float* src = kLowrank ? hus : hs;
-    const int ncols = Form == kDensePost ? g3 : 2 * h;
-    for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
-      const float* wc = c < 2 * h ? prz + c : pn + (c - 2 * h);
-      const int ldw = c < 2 * h ? 2 * h : h;
-      float acc[kRows] = {};
-      for (int k = 0; k < depth; ++k) {
-        const float w = wc[(size_t)k * ldw];
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) acc[row] = fmaf(src[row * depth + k], w, acc[row]);
+  float* gib = sm + L.gib;
+  float* rh = sm + L.rh;
+  float* zs = sm + L.zs;
+  float* hus = sm + L.hus;
+  float* rhus = sm + L.rhus;
+  int cur = 0;
+  for (int t0 = 0; t0 < a.t_len; t0 += a.tblock) {
+    const int nb = min(a.tblock, a.t_len - t0);
+    // -- the time block's input: gi [nb][rows][3h] in shared memory, copied
+    // (gi mode) or projected from x, with cp.async copies all in flight
+    if constexpr (XSide == kGiMode) {
+      const int n = live * g3;
+      for (int i = threadIdx.x; i < nb * n; i += blockDim.x) {
+        const int tt = i / n, e = i % n;
+        vmlmf::cp_async4(gib + (size_t)tt * rows * g3 + e,
+                         a.gi + ((size_t)(t0 + tt) * a.batch + b0) * g3 + e);
       }
-#pragma unroll
-      for (int row = 0; row < kRows; ++row) {
-        const bool live = row < rows;
-        if (c >= 2 * h) {  // "post": the candidate's recurrent term
-          recns[row * h + c - 2 * h] = acc[row];
-          if (Residuals && live) recn_out[(row_t + row) * h + c - 2 * h] = acc[row];
-          continue;
-        }
-        const float gate = sigmoid((live ? gi_t[(size_t)row * g3 + c] : 0.f) + acc[row]);
-        if (c < h)
-          rb[row * h + c] = Form == kDensePost ? gate : gate * hs[row * h + c];
+      vmlmf::cp_async_wait_all();
+    } else {
+      const int f4 = q4(a.f), mb = nb * rows;
+      float* xs = sm + L.xs;
+      for (int i = threadIdx.x; i < mb * f4; i += blockDim.x) {
+        const int m = i / f4, k = i % f4, row = m % rows;
+        if (k < a.f && row < live)
+          vmlmf::cp_async4(xs + i, a.x + ((size_t)(t0 + m / rows) * a.batch + b0 + row) * a.f + k);
         else
-          zs[row * h + c - h] = gate;
-        if (Residuals && live) gates_out[(row_t + row) * g3 + c] = gate;
+          xs[i] = 0.f;
       }
-    }
-    __syncthreads();
-
-    if (kLowrank) {  // rhus = (r*h) @ Uf
-      rank_product(rb, uf, uks, ujs, rhus, Residuals ? rhu_out : nullptr, row_t, rows, h, r);
+      vmlmf::cp_async_wait_all();
       __syncthreads();
-    }
-
-    // The candidate n and the update, for hidden unit j: each (row, j) of
-    // the carry is read and written by its own thread only.
-    float* ys_t = ys + row_t * h;
-    for (int j = threadIdx.x; j < h; j += blockDim.x) {
-      float acc[kRows] = {};
-      if (Form != kDensePost) {  // rhu @ Pn or (r*h) @ Pn
-        const float* nsrc = kLowrank ? rhus : rb;
-        for (int k = 0; k < depth; ++k) {
-          const float w = pn[(size_t)k * h + j];
-#pragma unroll
-          for (int row = 0; row < kRows; ++row) acc[row] = fmaf(nsrc[row * depth + k], w, acc[row]);
-        }
-      }
-#pragma unroll
-      for (int row = 0; row < kRows; ++row) {
-        if (row < rows) {
-          const float rec = Form == kDensePost ? rb[row * h + j] * recns[row * h + j] : acc[row];
-          const float n = tanhf(gi_t[(size_t)row * g3 + 2 * h + j] + rec);
-          const float z = zs[row * h + j];
-          const float hn = z * hs[row * h + j] + (1.f - z) * n;
-          hs[row * h + j] = hn;
-          ys_t[(size_t)row * h + j] = hn;
-          if (Residuals) gates_out[(row_t + row) * g3 + 2 * h + j] = n;
-        }
+      const float* bias = a.bias;
+      if constexpr (XSide == kDenseX) {
+        block_gemm(xs, f4, mb, ux, g3,
+                   [&](int m, int c, float v) { gib[(size_t)m * g3 + c] = v + bias[c]; });
+      } else {
+        const int rx = a.rx, rx4 = q4(rx);
+        float* xub = sm + L.xub;
+        block_gemm(xs, f4, mb, ux, rx, [&](int m, int c, float v) {
+          xub[m * rx4 + c] = v;
+          if (Residuals && m % rows < live)
+            a.xu[((size_t)(t0 + m / rows) * a.batch + b0 + m % rows) * rx + c] = v;
+        });
+        __syncthreads();
+        block_gemm(xub, rx4, mb, vx, g3,
+                   [&](int m, int c, float v) { gib[(size_t)m * g3 + c] = v + bias[c]; });
       }
     }
     __syncthreads();
+
+    // -- the steps of the block
+    for (int tt = 0; tt < nb; ++tt) {
+      const float* gstep = gib + (size_t)tt * rows * g3;
+      const size_t m0 = (size_t)(t0 + tt) * a.batch + b0;  // output row of the CTA's row 0
+      const float* hc = hbuf + cur * rows * h4;
+      float* hn = hbuf + (cur ^ 1) * rows * h4;
+      const int row = ln.slice;
+      const bool own_row = row < live;
+
+      if constexpr (Form == kDensePost) {
+        // r, z and recn = h @ Pn of unit j, then its update: one barrier
+        for (int u0 = 0; u0 < h; u0 += ln.per_pass) {
+          const int j = u0 + ln.unit, jc = min(j, h - 1);
+          float acc[3][R] = {};
+          if (regs)
+            wr.rzn.dot(acc, hc, h4, live, dq, ln.slice);
+          else
+            slice_dot<3>(acc, hc, h4, live, dq, ln.slice, [&](int i, int q) {
+              return i == 0 ? prz.at(q, jc) : i == 1 ? prz.at(q, h + jc) : pn.at(q, jc);
+            });
+          slice_reduce<3>(acc, live);
+          if (j < h && own_row) {
+            const float* g = gstep + row * g3;
+            const float rg = sigmoid(g[j] + pick(acc[0], row));
+            const float z = sigmoid(g[h + j] + pick(acc[1], row));
+            const float rec = pick(acc[2], row);
+            const float n = tanhf(g[2 * h + j] + rg * rec);
+            const float hv = z * hc[row * h4 + j] + (1.f - z) * n;
+            hn[row * h4 + j] = hv;
+            a.ys[(m0 + row) * h + j] = hv;
+            if (Residuals) {
+              float* gs = a.gates + (m0 + row) * g3;
+              gs[j] = rg;
+              gs[h + j] = z;
+              gs[2 * h + j] = n;
+              a.recn[(m0 + row) * h + j] = rec;
+            }
+          }
+        }
+        __syncthreads();
+      } else {
+        const float* src = hc;  // the rows of the gates' product: h, or hu
+        int lds = h4;
+        if constexpr (kLowrank) {  // hu = h @ Uf, rank column k
+          for (int u0 = 0; u0 < r; u0 += ln.per_pass) {
+            const int k = u0 + ln.unit, kc = min(k, r - 1);
+            float acc[1][R] = {};
+            if constexpr (kLowrank) {
+              if (regs) wr.uf.dot(acc, hc, h4, live, h4 / 4, ln.slice);
+            }
+            if (!regs)
+              slice_dot<1>(acc, hc, h4, live, h4 / 4, ln.slice,
+                           [&](int, int q) { return uf.at(q, kc); });
+            slice_reduce<1>(acc, live);
+            if (k < r && own_row) {
+              const float v = pick(acc[0], row);
+              hus[row * r4 + k] = v;
+              if (Residuals) a.hu[(m0 + row) * r + k] = v;
+            }
+          }
+          __syncthreads();
+          src = hus;
+          lds = r4;
+        }
+        // r and z of unit j; r*h and z kept for the candidate
+        for (int u0 = 0; u0 < h; u0 += ln.per_pass) {
+          const int j = u0 + ln.unit, jc = min(j, h - 1);
+          float acc[2][R] = {};
+          if (regs)
+            wr.rz.dot(acc, src, lds, live, dq, ln.slice);
+          else
+            slice_dot<2>(acc, src, lds, live, dq, ln.slice,
+                         [&](int i, int q) { return prz.at(q, i == 0 ? jc : h + jc); });
+          slice_reduce<2>(acc, live);
+          if (j < h && own_row) {
+            const float* g = gstep + row * g3;
+            const float rg = sigmoid(g[j] + pick(acc[0], row));
+            const float z = sigmoid(g[h + j] + pick(acc[1], row));
+            rh[row * h4 + j] = rg * hc[row * h4 + j];
+            zs[row * h + j] = z;
+            if (Residuals) {
+              float* gs = a.gates + (m0 + row) * g3;
+              gs[j] = rg;
+              gs[h + j] = z;
+            }
+          }
+        }
+        __syncthreads();
+        const float* nsrc = rh;
+        if constexpr (kLowrank) {  // rhu = (r*h) @ Uf
+          for (int u0 = 0; u0 < r; u0 += ln.per_pass) {
+            const int k = u0 + ln.unit, kc = min(k, r - 1);
+            float acc[1][R] = {};
+            if constexpr (kLowrank) {
+              if (regs) wr.uf.dot(acc, rh, h4, live, h4 / 4, ln.slice);
+            }
+            if (!regs)
+              slice_dot<1>(acc, rh, h4, live, h4 / 4, ln.slice,
+                           [&](int, int q) { return uf.at(q, kc); });
+            slice_reduce<1>(acc, live);
+            if (k < r && own_row) {
+              const float v = pick(acc[0], row);
+              rhus[row * r4 + k] = v;
+              if (Residuals) a.rhu[(m0 + row) * r + k] = v;
+            }
+          }
+          __syncthreads();
+          nsrc = rhus;
+        }
+        // the candidate n of unit j and the update
+        for (int u0 = 0; u0 < h; u0 += ln.per_pass) {
+          const int j = u0 + ln.unit, jc = min(j, h - 1);
+          float acc[1][R] = {};
+          if (regs)
+            wr.n.dot(acc, nsrc, lds, live, dq, ln.slice);
+          else
+            slice_dot<1>(acc, nsrc, lds, live, dq, ln.slice,
+                         [&](int, int q) { return pn.at(q, jc); });
+          slice_reduce<1>(acc, live);
+          if (j < h && own_row) {
+            const float n = tanhf(gstep[row * g3 + 2 * h + j] + pick(acc[0], row));
+            const float z = zs[row * h + j];
+            const float hv = z * hc[row * h4 + j] + (1.f - z) * n;
+            hn[row * h4 + j] = hv;
+            a.ys[(m0 + row) * h + j] = hv;
+            if (Residuals) a.gates[(m0 + row) * g3 + 2 * h + j] = n;
+          }
+        }
+        __syncthreads();
+      }
+      cur ^= 1;
+    }
   }
 }
 
-// Launches scan_kernel<Form, Residuals>, its weights in shared memory when
-// they fit in what a block may opt into; returns the launch's error.
-template <int Form, bool Residuals>
-cudaError_t scan(const float* gi, const float* uf, const float* prz, const float* pn,
-                 const float* h0, float* ys, float* gates, float* hu, float* rhu, float* recn,
-                 int t_len, int batch, int h, int r, cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+template <int Form, int XSide, bool Residuals, int R>
+cudaError_t launch_rows(const FwdArgs& a, int threads, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<Form, XSide, Residuals, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  size_t smem = sizeof(float) * state_floats(h, r);
-  const size_t with_weights = smem + sizeof(float) * weight_floats(Form, h, r);
-  const bool resident = with_weights <= (size_t)optin;
-  if (resident) smem = with_weights;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(scan_kernel<Form, Residuals>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  // enough threads for the widest phase: 2h or 3h columns, or a warp per
-  // rank column (at most 32 warps)
-  const int cols = Form == kDensePost ? 3 * h : 2 * h;
-  const int warps = Form == kLowrankPre ? (r < 32 ? r : 32) : 1;
-  const int want = cdiv(cols > 32 * warps ? cols : 32 * warps, 32) * 32;
-  const int threads = want < kMaxThreads ? want : kMaxThreads;
-  scan_kernel<Form, Residuals><<<cdiv(batch, kRows), threads, smem, stream>>>(
-      gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len, batch, h, r, resident);
+  fwd_kernel<Form, XSide, Residuals, R><<<cdiv(a.batch, a.rows), threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The scan of the given form on gi [T*B, 3h].
-template <bool Residuals>
-int scan_form(const float* gi, const float* uf, const float* prz, const float* pn,
-              const float* h0, float* ys, float* gates, float* hu, float* rhu, float* recn,
-              int t_len, int batch, int h, int r, int form, cudaStream_t stream) {
+// Launches fwd_kernel<Form, XSide, Residuals, row_bound(rows)> with
+// gru_plan's layout; refuses a plan whose shared bytes are not this
+// layout's.
+template <int Form, int XSide, bool Residuals>
+cudaError_t launch(const FwdArgs& a, int threads, int smem, cudaStream_t stream) {
+  const FwdLayout L = fwd_layout(Form, XSide, a);
+  const bool regs_fit = a.h <= kRegH && a.r <= kRegR && threads / kSlices >= a.h &&
+                        threads / kSlices >= a.r;
+  if (L.total * sizeof(float) != (size_t)smem || a.rows < 1 || a.rows > kMaxRows ||
+      a.tblock < 1 || threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
+      a.rec_res < kInL2 || a.rec_res > kInRegisters || (a.rec_res == kInRegisters && !regs_fit))
+    return cudaErrorInvalidValue;
+  switch (row_bound(a.rows)) {
+    case 1:
+      return launch_rows<Form, XSide, Residuals, 1>(a, threads, smem, stream);
+    case 2:
+      return launch_rows<Form, XSide, Residuals, 2>(a, threads, smem, stream);
+    default:
+      return launch_rows<Form, XSide, Residuals, kMaxRows>(a, threads, smem, stream);
+  }
+}
+
+template <int XSide, bool Residuals>
+int launch_form(const FwdArgs& a, int form, int threads, int smem, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   switch (form) {
     case kLowrankPre:
-      return scan<kLowrankPre, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
-                                          batch, h, r, stream);
+      return launch<kLowrankPre, XSide, Residuals>(a, threads, smem, stream);
     case kDensePre:
-      return scan<kDensePre, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
-                                        batch, h, r, stream);
+      return launch<kDensePre, XSide, Residuals>(a, threads, smem, stream);
     case kDensePost:
-      return scan<kDensePost, Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len,
-                                         batch, h, r, stream);
+      return launch<kDensePost, XSide, Residuals>(a, threads, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The projection GEMMs (two, or one for a dense x side), then the scan of
-// the given form.
 template <bool Residuals>
-int launch(const float* x, const float* ux, const float* vx, const float* bias,
-           const float* uf, const float* prz, const float* pn, const float* h0, float* xu,
-           float* gi, float* ys, float* gates, float* hu, float* rhu, float* recn, int t_len,
-           int batch, int f, int rx, int h, int r, int form, cudaStream_t stream) {
-  const int m = t_len * batch;
-  const int g3 = 3 * h;
-  const BiasEpilogue epi{gi, bias, g3};
-  cudaError_t err;
-  if (vx == nullptr) {  // dense x side: gi = x @ Ux + bias
-    err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, g3}, epi, m, g3, f, stream);
-  } else {
-    err = vmlmf::gemm(vmlmf::RowMajor{x, f}, vmlmf::RowMajor{ux, rx}, vmlmf::Store{xu, rx}, m,
-                      rx, f, stream);
-    if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(vmlmf::RowMajor{xu, rx}, vmlmf::RowMajor{vx, g3}, epi, m, g3, rx, stream);
-  }
-  if (err != cudaSuccess) return err;
-  return scan_form<Residuals>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len, batch, h, r,
-                              form, stream);
+int launch_x(const FwdArgs& a, int form, int threads, int smem, void* stream) {
+  return a.vx == nullptr ? launch_form<kDenseX, Residuals>(a, form, threads, smem, stream)
+                         : launch_form<kLowrankX, Residuals>(a, form, threads, smem, stream);
 }
 
 }  // namespace
 
-// No-grad forward. xu [T*B, rx] and gi [T*B, 3h] are scratch that the
-// caller allocates; writes ys [T,B,h]. uf is null and r is 0 in the dense
-// recurrent forms; vx and xu are null and rx is 0 for a dense x side.
+// Every entry takes the plan of ops/cuda_gru.py::gru_plan as its last
+// integers: rows, threads, tblock, rec_res, x_res, smem (bytes).
+
+// No-grad forward: writes ys [T,B,h]. uf is null and r is 0 in the dense
+// recurrent forms; vx is null and rx is 0 for a dense x side.
 extern "C" int gru_scan_xin_fwd(const float* x, const float* ux, const float* vx,
                                 const float* bias, const float* uf, const float* prz,
-                                const float* pn, const float* h0, float* xu, float* gi,
-                                float* ys, int t_len, int batch, int f, int rx, int h, int r,
-                                int form, void* stream_handle) {
-  return launch<false>(x, ux, vx, bias, uf, prz, pn, h0, xu, gi, ys, nullptr, nullptr, nullptr,
-                       nullptr, t_len, batch, f, rx, h, r, form,
-                       static_cast<cudaStream_t>(stream_handle));
+                                const float* pn, const float* h0, float* ys, int t_len,
+                                int batch, int f, int rx, int h, int r, int form, int rows,
+                                int threads, int tblock, int rec_res, int x_res, int smem,
+                                void* stream_handle) {
+  const FwdArgs a{x, ux, vx, bias, nullptr, uf, prz, pn, h0, ys, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, t_len, batch, f, rx, h, r, rows, tblock, rec_res, x_res};
+  return launch_x<false>(a, form, threads, smem, stream_handle);
 }
 
-// Residual forward of training. gi [T*B, 3h] is scratch; writes ys and the
-// residuals xu [T*B, rx] (low-rank x side; else null), gates [T,B,3h], hu and rhu [T,B,r] (low-rank; else
-// null) and recn [T,B,h] ("post"; else null).
+// Residual forward of training: also writes the residuals xu [T*B, rx]
+// (low-rank x side; else null), gates [T,B,3h], hu and rhu [T,B,r]
+// (low-rank; else null) and recn [T,B,h] ("post"; else null).
 extern "C" int gru_scan_xin_fwd_res(const float* x, const float* ux, const float* vx,
                                     const float* bias, const float* uf, const float* prz,
-                                    const float* pn, const float* h0, float* xu, float* gi,
-                                    float* ys, float* gates, float* hu, float* rhu, float* recn,
-                                    int t_len, int batch, int f, int rx, int h, int r, int form,
+                                    const float* pn, const float* h0, float* xu, float* ys,
+                                    float* gates, float* hu, float* rhu, float* recn, int t_len,
+                                    int batch, int f, int rx, int h, int r, int form, int rows,
+                                    int threads, int tblock, int rec_res, int x_res, int smem,
                                     void* stream_handle) {
-  return launch<true>(x, ux, vx, bias, uf, prz, pn, h0, xu, gi, ys, gates, hu, rhu, recn, t_len,
-                      batch, f, rx, h, r, form, static_cast<cudaStream_t>(stream_handle));
+  const FwdArgs a{x, ux, vx, bias, nullptr, uf, prz, pn, h0, ys, gates, hu, rhu,
+                  recn, xu, t_len, batch, f, rx, h, r, rows, tblock, rec_res, x_res};
+  return launch_x<true>(a, form, threads, smem, stream_handle);
 }
 
-// gi mode, no-grad forward: the scan alone on the caller's gi [T,B,3h];
-// writes ys [T,B,h].
+// gi mode, no-grad forward: the scan on the caller's gi [T,B,3h]; writes
+// ys [T,B,h].
 extern "C" int gru_scan_fwd(const float* gi, const float* uf, const float* prz,
                             const float* pn, const float* h0, float* ys, int t_len, int batch,
-                            int h, int r, int form, void* stream_handle) {
-  return scan_form<false>(gi, uf, prz, pn, h0, ys, nullptr, nullptr, nullptr, nullptr, t_len,
-                          batch, h, r, form, static_cast<cudaStream_t>(stream_handle));
+                            int h, int r, int form, int rows, int threads, int tblock,
+                            int rec_res, int x_res, int smem, void* stream_handle) {
+  const FwdArgs a{nullptr, nullptr, nullptr, nullptr, gi, uf, prz, pn, h0,
+                  ys, nullptr, nullptr, nullptr, nullptr, nullptr, t_len, batch, 0,
+                  0, h, r, rows, tblock, rec_res, x_res};
+  return launch_form<kGiMode, false>(a, form, threads, smem, stream_handle);
 }
 
 // gi mode, residual forward: also writes gates [T,B,3h] and hu, rhu
@@ -360,9 +519,11 @@ extern "C" int gru_scan_fwd(const float* gi, const float* uf, const float* prz,
 extern "C" int gru_scan_fwd_res(const float* gi, const float* uf, const float* prz,
                                 const float* pn, const float* h0, float* ys, float* gates,
                                 float* hu, float* rhu, float* recn, int t_len, int batch, int h,
-                                int r, int form, void* stream_handle) {
-  return scan_form<true>(gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, t_len, batch, h, r, form,
-                         static_cast<cudaStream_t>(stream_handle));
+                                int r, int form, int rows, int threads, int tblock, int rec_res,
+                                int x_res, int smem, void* stream_handle) {
+  const FwdArgs a{nullptr, nullptr, nullptr, nullptr, gi, uf, prz, pn, h0, ys, gates, hu, rhu,
+                  recn, nullptr, t_len, batch, 0, 0, h, r, rows, tblock, rec_res, x_res};
+  return launch_form<kGiMode, true>(a, form, threads, smem, stream_handle);
 }
 
 // The message of an error code that an entry of this file returned.

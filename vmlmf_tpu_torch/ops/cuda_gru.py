@@ -35,13 +35,25 @@ rebuilds the gates, hu, rhu, recn and xu from x and the saved h_prev in a
 batched pre-pass (`gru_recompute_plain`). gi mode always saves the gates,
 as `pallas_gru._scan_core_fwd` does. On CPU tensors the wrappers run their
 plain versions; on CUDA tensors they launch the kernel or raise.
+
+`gru_plan` decides how the kernels lay a call out (batch rows per CTA,
+threads, the forward's time block, where the weights are held) and
+`gru_bwd_partial_floats` sizes the BPTT's split-k scratch. Both are plain
+Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from vmlmf_tpu_torch.ops.cuda_scan import (
+    SMEM_LIMIT,
+    SMS,
+    SPLIT_TARGET,
+    _cdiv,
     _check_tensors,
     _counted,
     _counter,
@@ -50,6 +62,7 @@ from vmlmf_tpu_torch.ops.cuda_scan import (
     _on_cpu,
     _refuse_grad,
     _require_cuda,
+    _sm_count,
     env_saved_gates,
     variant,
 )
@@ -332,6 +345,222 @@ def _form_buffers(new, t, b, h, r, form):
     return None, None, new(t, b, h) if form == DENSE_POST else None
 
 
+# -- the kernels' layout (csrc/gru_tile.cuh, gru_scan_xin_fwd.cu, gru_scan_xin_bwd.cu)
+
+GRU_SLICES = 4        # lanes of a unit group, each a quarter of the depth (kSlices)
+GRU_MAX_ROWS = 4      # batch rows of a CTA (kMaxRows)
+GRU_MAX_THREADS = 512  # threads of a CTA (kMaxThreads)
+GI_MODE, LOWRANK_X, DENSE_X = 0, 1, 2  # the forward's input side
+# where a kernel keeps its recurrent weights, as the C entries number it
+# (gru_tile.cuh kInL2, kInShared, kInRegisters)
+WEIGHT_PLACES = ("L2", "shared", "registers")
+REG_H, REG_R = 64, 16  # widest h and r whose lane shares fit in registers (kRegH, kRegR)
+
+
+def _q4(n):
+    return _cdiv(n, 4) * 4
+
+
+def _ldt(n):
+    """Row stride of a weight the BPTT holds for products along its rows:
+    a multiple of 4 floats and an odd number of float4s (gru_tile.cuh)."""
+    q = _cdiv(n, 4)
+    return 4 * (q + 1 - q % 2)
+
+
+def _regions(*sizes):
+    """Floats of shared regions laid out one after another, each rounded up
+    to a float4 (gru_tile.cuh::take)."""
+    return sum(_q4(n) for n in sizes)
+
+
+def _fwd_floats(t_block, rows, f, rx, h, r, form, xside, rec, x_res):
+    """Floats of the forward's shared memory, region by region as
+    gru_scan_xin_fwd.cu::fwd_layout lays them out; ``rec`` is where the
+    recurrent weights are (a WEIGHT_PLACES name)."""
+    lowrank, pre = form == LOWRANK_PRE, form != DENSE_POST
+    rec_res = rec == "shared"
+    depth4 = _q4(r) if lowrank else _q4(h)
+    mb, g3 = t_block * rows, 3 * h
+    return _regions(
+        _q4(h) * r if rec_res and lowrank else 0,
+        depth4 * 2 * h if rec_res else 0,
+        depth4 * h if rec_res else 0,
+        _q4(f) * (rx if xside == LOWRANK_X else g3) if x_res and xside != GI_MODE else 0,
+        _q4(rx) * g3 if x_res and xside == LOWRANK_X else 0,
+        mb * g3,
+        mb * _q4(f) if xside != GI_MODE else 0,
+        mb * _q4(rx) if xside == LOWRANK_X else 0,
+        2 * rows * _q4(h),
+        rows * _q4(h) if pre else 0,
+        rows * _q4(r) if lowrank else 0,
+        rows * _q4(r) if lowrank else 0,
+        rows * h if pre else 0)
+
+
+def _bwd_floats(rows, h, r, form, rec):
+    """Floats of the BPTT walk's shared memory, region by region as
+    gru_scan_xin_bwd.cu::walk_layout lays them out."""
+    lowrank, post = form == LOWRANK_PRE, form == DENSE_POST
+    rec_res = rec == "shared"
+    depth, nbuf = (r if lowrank else h), (2 if post else 1)
+    return _regions(
+        h * _ldt(r) if rec_res and lowrank else 0,
+        depth * _ldt(2 * h) if rec_res else 0,
+        depth * _ldt(h) if rec_res else 0,
+        2 * rows * (6 if post else 5) * h,
+        rows * h,
+        nbuf * rows * _q4(2 * h),
+        nbuf * rows * _q4(h),
+        0 if post else rows * h,
+        rows * _q4(r) if lowrank else 0,
+        rows * _q4(r) if lowrank else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class GRUPlan:
+    """How the GRU kernels lay out one call: ``ctas`` CTAs of ``threads``
+    threads, each owning ``rows`` consecutive batch rows for all T steps.
+    The forward projects (x mode) or copies (gi mode) its input ``tblock``
+    steps at a time into shared memory. ``rec_weights`` and
+    ``bwd_rec_weights`` say where the forward and the walk keep the
+    recurrent weights ("registers": each lane's share for the whole scan;
+    "shared"; "L2": read through it every step); ``x_resident`` whether the
+    x side's weights stay in shared memory. ``smem_fwd`` and ``smem_bwd``:
+    bytes of shared memory per CTA of the forward and of the walk."""
+
+    t: int
+    b: int
+    h: int
+    r: int
+    form: int
+    rows: int
+    threads: int
+    tblock: int
+    rec_weights: str
+    x_resident: bool
+    smem_fwd: int
+    bwd_rec_weights: str
+    smem_bwd: int
+
+    @property
+    def ctas(self):
+        return _cdiv(self.b, self.rows)
+
+    @property
+    def blocks(self):
+        """Time blocks of the forward."""
+        return _cdiv(self.t, self.tblock)
+
+    def ints(self, kernel):
+        """The plan as the C entries of ``kernel`` ("fwd" or "bwd") take it:
+        rows, threads, tblock, rec_res, x_res, smem; or rows, threads,
+        rec_res, smem."""
+        if kernel == "fwd":
+            return (self.rows, self.threads, self.tblock, WEIGHT_PLACES.index(self.rec_weights),
+                    int(self.x_resident), self.smem_fwd)
+        return (self.rows, self.threads, WEIGHT_PLACES.index(self.bwd_rec_weights),
+                self.smem_bwd)
+
+
+@functools.lru_cache(maxsize=256)
+def gru_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
+    """The layout of the GRU kernels for a call of T steps, batch ``b``,
+    input width ``f`` (x side rank ``rx``, 0 for a dense x side), hidden
+    width ``h``, recurrent rank ``r`` (0 dense) and recurrent ``form``, in
+    gi mode when ``gi``, on ``sms`` SMs -> GRUPlan.
+
+    A step is a chain of dependent products whose latency, not the card's
+    throughput, sets the time; so the batch is spread over the SMs, a CTA
+    taking ``ceil(b / sms)`` rows (at most GRU_MAX_ROWS). Each CTA has four
+    lanes per unit of the widest product (max(h, r) units; GRU_MAX_THREADS
+    at most, more passes past that). The recurrent weights are read every
+    step: in registers, each lane holding its share, where h <= REG_H and
+    r <= REG_R; else in shared memory where they fit, else through L2. The
+    forward then keeps, in this order of preference, the x side's weights
+    in shared memory (read once a time block) and as long a time block as
+    fits, down to one step. Raises ValueError where even one step with
+    every weight read through L2 does not fit in SMEM_LIMIT bytes.
+    """
+    if form not in (LOWRANK_PRE, DENSE_PRE, DENSE_POST) or (form == LOWRANK_PRE) != (r > 0):
+        raise ValueError(f"no GRU plan for form {form} with r={r}")
+    if min(t, b, h, sms) < 1 or min(f, rx, r) < 0 or (not gi and f < 1):
+        raise ValueError(f"no GRU plan for T={t}, B={b}, F={f}, rx={rx}, h={h}, r={r} on "
+                         f"{sms} SMs")
+    xside = GI_MODE if gi else (LOWRANK_X if rx else DENSE_X)
+    rows = min(GRU_MAX_ROWS, _cdiv(b, sms))
+    threads = min(GRU_MAX_THREADS, GRU_SLICES * _cdiv(max(h, r), 8) * 8)
+    places = ("registers",) if h <= REG_H and r <= REG_R else ("shared", "L2")
+    fwd = None
+    for rec in places:
+        for x_res in ((True, False) if xside != GI_MODE else (False,)):
+            tblock = t
+            while tblock >= 1 and fwd is None:
+                floats = _fwd_floats(tblock, rows, f, rx, h, r, form, xside, rec, x_res)
+                if 4 * floats <= SMEM_LIMIT:
+                    fwd = (tblock, rec, x_res, 4 * floats)
+                tblock = tblock // 2 if tblock > 1 else 0
+            if fwd is not None:
+                break
+        if fwd is not None:
+            break
+    bwd = next(((rec, 4 * _bwd_floats(rows, h, r, form, rec)) for rec in places
+                if 4 * _bwd_floats(rows, h, r, form, rec) <= SMEM_LIMIT), None)
+    if fwd is None or bwd is None:
+        raise ValueError(f"the GRU scan's state at T={t}, F={f}, rx={rx}, h={h}, r={r} does not "
+                         f"fit in {SMEM_LIMIT} bytes of shared memory")
+    return GRUPlan(t, b, h, r, form, rows, threads, *fwd, *bwd)
+
+
+def _plan_for(t, b, f, rx, h, r, form, device, gi=False):
+    return gru_plan(t, b, f, rx, h, r, form, gi=gi, sms=_sm_count(device.index))
+
+
+GROUP_TARGET = 2 * SPLIT_TARGET  # CTAs a grouped split-k aims at (gemm_tile.cuh kGroupTarget)
+
+
+def group_splits(products, sized_by=None):
+    """The slices gemm_tile.cuh::gemm_splitk_group cuts each product's k
+    into, for a group of products given as (m, n, k): one slice length for
+    all, whole 16-row steps, so that the tiles times slices of the products
+    ``sized_by`` (all of them when None) come near GROUP_TARGET CTAs
+    (gemm_tile.cuh::group_kslice)."""
+    work = sum(_cdiv(n, 64) * _cdiv(m, 64) * k for m, n, k in sized_by or products)
+    kslice = _cdiv(_cdiv(work, GROUP_TARGET), 16) * 16
+    return [_cdiv(k, kslice) for _, _, k in products]
+
+
+def _group_floats(products, sized_by=None):
+    """Floats of a group's scratch: each product's slices times m n."""
+    splits = group_splits(products, sized_by)
+    return sum(s * m * n for s, (m, n, _) in zip(splits, products))
+
+
+def gru_bwd_products(t, b, f, rx, h, r, form, *, gi=False, dx=True):
+    """(m, n, k) of each product of the BPTT's grouped split-k, in order:
+    dPrz and dPn; dUf (low-rank) as one product over [Hprev | R*Hprev] with
+    k = 2 T*B; in x mode dUx, dVx (low-rank x side), dbias = ones^T dPre
+    and, with ``dx``, dx = dXU Uxᵀ [T*B, F], which takes the slice length
+    of the others (their sums do not depend on it)."""
+    m, g3 = t * b, 3 * h
+    k = r if form == LOWRANK_PRE else h
+    out = [(k, 2 * h, m), (k, h, m)] + ([(h, r, 2 * m)] if form == LOWRANK_PRE else [])
+    if not gi:
+        out += [(f, rx or g3, m)] + ([(rx, g3, m)] if rx else []) + [(1, g3, m)]
+        out += [(m, f, rx or g3)] if dx else []
+    return out
+
+
+def gru_bwd_partial_floats(t, b, f, rx, h, r, form, *, gi=False, dx=True):
+    """Floats of split-k scratch for the BPTT's grouped products
+    (`gru_bwd_products`, csrc/gemm_tile.cuh::gemm_splitk_group): they run
+    at once, each in a region of its own, so they need the sum of the
+    regions; before them, in x mode with a low-rank x side, dXU = dPre Vxᵀ
+    runs as a group of its own in the same scratch. The larger of the two."""
+    weights = gru_bwd_products(t, b, f, rx, h, r, form, gi=gi, dx=False)
+    main = _group_floats(gru_bwd_products(t, b, f, rx, h, r, form, gi=gi, dx=dx), weights)
+    return max(main, _group_floats([(t * b, rx, 3 * h)]) if rx and not gi else 0)
+
 @_counter
 def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     """Fused GRU scan, x mode, no gradient.
@@ -362,10 +591,9 @@ def _launch_nograd(args, sizes):
     xs = args[0]
     t, b, f, rx, h, r, form = sizes
     with torch.cuda.device(xs.device):
-        new = _empty(xs)
-        xu = new(t * b, rx) if rx else None
-        gi, ys = new(t * b, 3 * h), new(t, b, h)
-        _launch(KERNEL, "gru_scan_xin_fwd", (*args, xu, gi, ys), sizes, xs.device)
+        plan = _plan_for(*sizes, xs.device)
+        ys = _empty(xs)(t, b, h)
+        _launch(KERNEL, "gru_scan_xin_fwd", (*args, ys), (*sizes, *plan.ints("fwd")), xs.device)
     return ys
 
 
@@ -390,12 +618,13 @@ def gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre", sav
         _counted(gru_scan_fused_xin_res, variant(save_gates=False))
         return ys, None, None, None, None, None
     with torch.cuda.device(xs.device):
+        plan = _plan_for(*sizes, xs.device)
         new = _empty(xs)
         xu = new(t, b, rx) if rx else None
-        gi, ys, gates = new(t * b, 3 * h), new(t, b, h), new(t, b, 3 * h)
+        ys, gates = new(t, b, h), new(t, b, 3 * h)
         hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
-        _launch(KERNEL, "gru_scan_xin_fwd_res", (*args, xu, gi, ys, gates, hu, rhu, recn),
-                sizes, xs.device)
+        _launch(KERNEL, "gru_scan_xin_fwd_res", (*args, xu, ys, gates, hu, rhu, recn),
+                (*sizes, *plan.ints("fwd")), xs.device)
     _counted(gru_scan_fused_xin_res, variant())
     return ys, gates, hu, rhu, recn, xu
 
@@ -431,6 +660,7 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
             raise ValueError(f"xu must {'not ' if vx is None else ''}be given with vx "
                              f"{'None' if vx is None else 'given'}")
     with torch.cuda.device(xs.device):
+        plan = _plan_for(*sizes, xs.device)
         new = _empty(xs)
         lowrank = form == LOWRANK_PRE
         work = (None,) * 5
@@ -440,12 +670,14 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
         dpre = new(t * b, 3 * h)
         dxu = new(t * b, rx) if rx else None
         dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
+        nparts = gru_bwd_partial_floats(*sizes, dx=dx)
         grads = (new(t, b, f) if dx else None, torch.empty_like(ux),
                  new(rx, 3 * h) if rx else None, new(3 * h),
                  new(h, r) if lowrank else None, torch.empty_like(prz), torch.empty_like(pn),
                  new(b, h))
         _launch(BWD_KERNEL, "gru_scan_xin_bwd",
-                (*saved, bias, *work, dpre, dhu, drhu, dxu, *grads), sizes, xs.device)
+                (*saved, bias, *work, dpre, dhu, drhu, dxu, new(nparts), *grads),
+                (*sizes, nparts, *plan.ints("bwd")), xs.device)
     _counted(gru_scan_xin_bwd, variant(save_gates=not recompute))
     return grads
 
@@ -499,8 +731,9 @@ def gru_scan_fused(gi, uf, prz, pn, h0, *, mode="pre"):
     _refuse_grad("gru_scan_fused", args, "GRUScan")
     t, b, h, r, form = sizes
     with torch.cuda.device(gi.device):
+        plan = _plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True)
         ys = _empty(gi)(t, b, h)
-        _launch(KERNEL, "gru_scan_fwd", (*args, ys), sizes, gi.device)
+        _launch(KERNEL, "gru_scan_fwd", (*args, ys), (*sizes, *plan.ints("fwd")), gi.device)
     _counted(gru_scan_fused, variant())
     return ys
 
@@ -519,10 +752,12 @@ def gru_scan_fused_res(gi, uf, prz, pn, h0, *, mode="pre"):
     _require_cuda("gru_scan_fused_res", gi)
     t, b, h, r, form = sizes
     with torch.cuda.device(gi.device):
+        plan = _plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True)
         new = _empty(gi)
         ys, gates = new(t, b, h), new(t, b, 3 * h)
         hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
-        _launch(KERNEL, "gru_scan_fwd_res", (*args, ys, gates, hu, rhu, recn), sizes, gi.device)
+        _launch(KERNEL, "gru_scan_fwd_res", (*args, ys, gates, hu, rhu, recn),
+                (*sizes, *plan.ints("fwd")), gi.device)
     _counted(gru_scan_fused_res, variant())
     return ys, gates, hu, rhu, recn
 
@@ -546,13 +781,16 @@ def gru_scan_bwd(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, *, mode="pre"):
     _check_residuals(form, hu, rhu, recn, mode, uf)
     _require_cuda("gru_scan_bwd", ys)
     with torch.cuda.device(ys.device):
+        plan = _plan_for(t, b, 0, 0, h, r, form, ys.device, gi=True)
         new = _empty(ys)
         lowrank = form == LOWRANK_PRE
         dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
+        nparts = gru_bwd_partial_floats(t, b, 0, 0, h, r, form, gi=True)
         grads = (new(t, b, 3 * h), new(h, r) if lowrank else None, torch.empty_like(prz),
                  torch.empty_like(pn), new(b, h))
-        _launch(BWD_KERNEL, "gru_scan_bwd", (*saved, grads[0], dhu, drhu, *grads[1:]),
-                (t, b, h, r, form), ys.device)
+        _launch(BWD_KERNEL, "gru_scan_bwd",
+                (*saved, grads[0], dhu, drhu, new(nparts), *grads[1:]),
+                (t, b, h, r, form, nparts, *plan.ints("bwd")), ys.device)
     _counted(gru_scan_bwd, variant())
     return grads
 

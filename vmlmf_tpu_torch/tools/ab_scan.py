@@ -31,8 +31,9 @@ h=650, r=rx=300) at B = 1 (no-grad), 20 and 128, and, where the
 checkout's stack takes ``precision``, the same in bf16 ("bf16_fwd", ...).
 Each line also gives, under "ptxas", the registers and spill bytes that
 ``nvcc -Xptxas -v`` reports for each form of the checkout's serial kernels
-(`scan_kernel` and `bptt_kernel` or their grid forms, `stack_fwd_kernel`,
-`stack_bwd_kernel`) at the build's flags, by template arguments.
+(`scan_kernel` and `bptt_kernel` or their grid forms, the GRU's
+`fwd_kernel` and `walk_kernel`, `stack_fwd_kernel`, `stack_bwd_kernel`)
+at the build's flags, by template arguments.
 Under "digest", a sha256 of all the outputs of the f32 entries that every
 checkout since the stack has: the LSTM scan's three at B=20 in both
 forms, the GRU's three x-mode entries at B=81 in each recurrent form, and
@@ -165,7 +166,8 @@ def ptxas(source):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(grid_scan_kernel|grid_bptt_kernel|scan_kernel|bptt_kernel|"
-                          r"stack_fwd_kernel|stack_bwd_kernel)I((?:L[bi]\d+E)+)E", line)
+                          r"fwd_kernel|walk_kernel|stack_fwd_kernel|stack_bwd_kernel)"
+                          r"I((?:L[bi]\d+E)+)E", line)
             name = m and f"{m.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))

@@ -1,0 +1,226 @@
+"""Where a step of the GRU scan kernels goes, on one CUDA device.
+
+    python -m vmlmf_tpu_torch.tools.gru_phases
+
+Two readings for the HAR GRU layer (T=24, F=77, h=64, rx=9) in each
+recurrent form ("lowrank_pre" r=9, "dense_post", "dense_pre") at the train
+batch B=81, and of the no-grad forward at `evaluate`'s B=256:
+
+* ``device``: `torch.profiler`'s device µs by kernel for each entry
+  (no-grad forward, residual forward, BPTT from dys) at T and at 4T, and
+  ``per_step``: for each kernel, (µs at 4T - µs at T) / 3T, the time a step
+  costs, and ``fixed``, the rest of its µs at T (staging and the
+  projection; the BPTT's GEMMs grow with T through their k = T*B).
+* ``stamps``: a copy of ``csrc/`` built apart (in a temporary directory
+  under the git-ignored ``_build/``, never over the package's libraries)
+  with a `%globaltimer` read by thread 0 of CTA 0 after a `__syncthreads`
+  at each phase boundary of every step; the mean µs of each span over the
+  steps. Forward, "post": 0->1 the products, 1->2 their shuffles, 2->3 the
+  gates and the update, 3->4 the barrier; "pre": 0->5 h @ Uf (low-rank),
+  ->6 the gates, ->7 (r*h) @ Uf (low-rank), ->8 the candidate and the
+  update. Walk: 0->1 issuing the next step's copies, 1->2 the elementwise
+  part and its barrier, then "post" 2->3 the product, "pre" 2->5 dRHU
+  (low-rank), ->6 drh, ->7 dHU (low-rank), ->3 the last product; 3->4 the
+  wait for the copies.
+
+Prints one JSON line a shape, the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from vmlmf_tpu_torch.ops import _build, cuda_gru
+
+T, F, H, RX = 24, 77, 64, 9
+FORMS = {"lowrank_pre": (9, "pre"), "dense_post": (0, "post"), "dense_pre": (0, "pre")}
+MAX_STEPS = 256
+STAMP = f"""
+__device__ unsigned long long g_stamps[16 * {MAX_STEPS}];
+#define STAMP(k) do {{ __syncthreads(); \\
+  if (blockIdx.x == 0 && threadIdx.x == 0 && t < {MAX_STEPS}) \\
+    g_stamps[t * 16 + (k)] = vmlmf::global_ns(); }} while (0)
+extern "C" int read_stamps(unsigned long long* out) {{
+  return cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+}}
+"""
+# (anchor, its replacement): the phase boundaries of each kernel's step
+MARKS = {
+    "gru_scan_xin_fwd": [
+        ("    for (int tt = 0; tt < nb; ++tt) {\n",
+         "    for (int tt = 0; tt < nb; ++tt) {\n      const int t = t0 + tt;\n      STAMP(0);\n"),
+        ("          slice_reduce<3>(acc, live);\n",
+         "          STAMP(1);\n          slice_reduce<3>(acc, live);\n          STAMP(2);\n"),
+        ("              a.recn[(m0 + row) * h + j] = rec;\n            }\n          }\n        }\n"
+         "        __syncthreads();\n",
+         "              a.recn[(m0 + row) * h + j] = rec;\n            }\n          }\n        }\n"
+         "        STAMP(3);\n        __syncthreads();\n        STAMP(4);\n"),
+        ("          __syncthreads();\n          src = hus;",
+         "          STAMP(5);\n          __syncthreads();\n          src = hus;"),
+        ("        __syncthreads();\n        const float* nsrc = rh;",
+         "        STAMP(6);\n        __syncthreads();\n        const float* nsrc = rh;"),
+        ("          __syncthreads();\n          nsrc = rhus;",
+         "          STAMP(7);\n          __syncthreads();\n          nsrc = rhus;"),
+        ("            if (Residuals) a.gates[(m0 + row) * g3 + 2 * h + j] = n;\n          }\n"
+         "        }\n        __syncthreads();\n",
+         "            if (Residuals) a.gates[(m0 + row) * g3 + 2 * h + j] = n;\n          }\n"
+         "        }\n        STAMP(8);\n        __syncthreads();\n")],
+    "gru_scan_xin_bwd": [
+        ("  for (int t = a.t_len - 1; t >= 0; --t) {\n",
+         "  for (int t = a.t_len - 1; t >= 0; --t) {\n    STAMP(0);\n"),
+        ("    // elementwise: dz_pre, dn_pre",
+         "    STAMP(1);\n    // elementwise: dz_pre, dn_pre"),
+        ("    __syncthreads();\n\n    if constexpr (kPost) {",
+         "    __syncthreads();\n    STAMP(2);\n\n    if constexpr (kPost) {"),
+        ("        __syncthreads();\n        drh_src = drhus;",
+         "        STAMP(5);\n        __syncthreads();\n        drh_src = drhus;"),
+        ("      __syncthreads();\n      const float* last_src = drz;",
+         "      STAMP(6);\n      __syncthreads();\n      const float* last_src = drz;"),
+        ("        __syncthreads();\n        last_src = dhus;",
+         "        STAMP(7);\n        __syncthreads();\n        last_src = dhus;"),
+        ("    // No barrier closes the step",
+         "    STAMP(3);\n    // No barrier closes the step"),
+        ("    vmlmf::cp_async_wait_all();  // this lane's inputs of step t - 1\n",
+         "    vmlmf::cp_async_wait_all();  // this lane's inputs of step t - 1\n    STAMP(4);\n")],
+}
+# the marks each form passes, in the order a step passes them
+FWD_MARKS = {"lowrank_pre": [0, 5, 6, 7, 8], "dense_post": [0, 1, 2, 3, 4],
+             "dense_pre": [0, 6, 8]}
+BWD_MARKS = {"lowrank_pre": [0, 1, 2, 5, 6, 7, 3, 4], "dense_post": [0, 1, 2, 3, 4],
+             "dense_pre": [0, 1, 2, 6, 3, 4]}
+
+
+def stamped_libraries(work):
+    """Build the stamped copies of the two GRU sources -> {name: CDLL}."""
+    src = os.path.join(work, "csrc")
+    shutil.copytree(_build.CSRC, src)
+    libs = {}
+    for name, marks in MARKS.items():
+        path = os.path.join(src, f"{name}.cu")
+        text = open(path).read().replace('#include "gru_tile.cuh"\n',
+                                         '#include "gru_tile.cuh"\n' + STAMP, 1)
+        for anchor, new in marks:
+            if text.count(anchor) != 1:
+                raise RuntimeError(f"{name}.cu: the phase anchor moved: {anchor!r}")
+            text = text.replace(anchor, new)
+        open(path, "w").write(text)
+        out = os.path.join(work, f"{name}.so")
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, path], check=True,
+                       capture_output=True)
+        libs[name] = ctypes.CDLL(out)
+    return libs
+
+
+def inputs(t, b, r):
+    g = torch.Generator().manual_seed(0)
+
+    def n(*shape, scale):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    k = r or H
+    return (n(t, b, F, scale=1.0), n(F, RX, scale=F ** -0.5), n(RX, 3 * H, scale=RX ** -0.5),
+            n(3 * H, scale=0.1), n(H, r, scale=H ** -0.5) if r else None,
+            n(k, 2 * H, scale=k ** -0.5), n(k, H, scale=k ** -0.5), n(b, H, scale=0.5))
+
+
+def entries(t, b, form):
+    """{entry: a call of it} on seeded inputs; the BPTT from dys alone."""
+    r, mode = FORMS[form]
+    args = inputs(t, b, r)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    dys = 0.1 * torch.randn(t, b, H, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:3], *args[4:], *res, dys)
+    return {"fwd": lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode),
+            "res": lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode),
+            "bwd": lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode)}
+
+
+def device_us(fn, reps=10):
+    """Mean device µs of each kernel in one call of fn, by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = name.replace("void ", "").replace("vmlmf::", "")
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / reps
+    return {k: round(v, 2) for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
+
+
+def spans(lib, steps, marks):
+    """Mean µs between consecutive marks over the steps in walk order (the
+    first left out), and of a whole step (mark to mark of the next step)."""
+    buf = (ctypes.c_ulonglong * (16 * MAX_STEPS))()
+    lib.read_stamps.argtypes = [ctypes.c_void_p]
+    if lib.read_stamps(ctypes.addressof(buf)) != 0:
+        raise RuntimeError("reading the stamps failed")
+    rows = [[buf[s * 16 + k] for k in marks] for s in steps][1:]
+    out = {f"{a}->{b}": round(sum(r[i + 1] - r[i] for r in rows) / len(rows) / 1e3, 3)
+           for i, (a, b) in enumerate(zip(marks, marks[1:]))}
+    out["step"] = round(abs(rows[-1][0] - rows[0][0]) / (len(rows) - 1) / 1e3, 3)
+    return out
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    _build.build_all()
+    work = tempfile.mkdtemp(dir=_build.BUILD_DIR)  # git-ignored, beside the package's builds
+    try:
+        libs = stamped_libraries(work)
+        for form, b in [(f, 81) for f in FORMS] + [(f, 256) for f in FORMS]:
+            r, mode = FORMS[form]
+            plan = cuda_gru.gru_plan(T, b, F, RX, H, r, cuda_gru.form_of(
+                object() if r else None, mode))
+            row = {"form": form, "b": b, "card": torch.cuda.get_device_name(0),
+                   "plan": dict(rows=plan.rows, threads=plan.threads, ctas=plan.ctas,
+                                rec=plan.rec_weights), "device": {}, "per_step": {},
+                   "fixed": {}}
+            names = ("fwd",) if b != 81 else ("fwd", "res", "bwd")
+            for tt in (T, 4 * T):
+                calls = entries(tt, b, form)
+                for entry in names:
+                    row["device"][f"{entry}_T{tt}"] = device_us(calls[entry])
+            for entry in names:
+                at_t, at_4t = row["device"][f"{entry}_T{T}"], row["device"][f"{entry}_T{4 * T}"]
+                for k in at_t:
+                    step = (at_4t.get(k, 0.0) - at_t[k]) / (3 * T)
+                    row["per_step"][f"{entry}:{k}"] = round(step, 3)
+                    row["fixed"][f"{entry}:{k}"] = round(at_t[k] - T * step, 2)
+            if b == 81:
+                calls = entries(T, b, form)
+                load, _build.load = _build.load, lambda n: libs[n]
+                try:
+                    calls["fwd"]()
+                    torch.cuda.synchronize()
+                    row["stamps_fwd"] = spans(libs["gru_scan_xin_fwd"], range(T),
+                                              FWD_MARKS[form])
+                    calls["bwd"]()
+                    torch.cuda.synchronize()
+                    row["stamps_bwd"] = spans(libs["gru_scan_xin_bwd"], range(T - 1, -1, -1),
+                                              BWD_MARKS[form])
+                finally:
+                    _build.load = load
+            print(json.dumps(row), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -153,15 +153,37 @@ Phases, each of which exits non-zero when it fails:
                B = 20/128, every launch of the "bf16" variant, its first
                step's gradients held to the f32 wavefront's, prefill and
                step ms beside the mixed-precision "fused" LM.
- 16. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+ 16. plans   — faults 9 and 10: the PTB LM layer at B=1024, past the largest
+               batch one launch's plan takes, in f32 and in bf16 (its
+               `scan_chunks` printed; each entry one launch a chunk of rows,
+               counted), and a dense "pre" GRU layer at T=24, B=512, F=77,
+               h=1000 whose four rows a CTA do not fit (its `gru_plan`
+               printed: fewer rows a CTA, more CTAs than SMs): every entry
+               against its plain version (each BPTT on the kernel's own
+               residuals, the comparison on the plain forward's printed
+               beside it), ms, bound, cuDNN's LSTM (and the GRU's, another
+               function, for scale).
+ 17. cli     — the port's entry points through each CLI module's main(argv)
+               with a temporary --ckpt_dir: `har_main --total --synthetic`
+               on the VMLMF flagship (180, w8/u6, 2 epochs), then without
+               --total, which loads the checkpoint and must report the same
+               accuracy and macro-F1 with the no-grad kernel alone; the HAR
+               GRU (64 64, w9/u9); the UCI-HAR shape (T=128, F=9); `lm_main
+               --synthetic --vocab_size 10000 --total_epochs 1` at the PTB
+               "medium" width on "fused", "fused_pipelined", then "fused"
+               again (the first run also pays the warm-up), whose
+               validation perplexity must be finite and below the first
+               logged training perplexity. Launches (only the path's
+               family), seconds an epoch and the LM's words/s.
+ 18. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
                device time of each kernel, the port's against cuBLAS's. A
                profiler error or an empty trace fails.
- 17. report  — one JSON line listing every kernel entry in every form that
+ 19. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-15 every launch count is set to 0 just before the path runs and
+In phases 5-17 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -199,6 +221,11 @@ PARTING_STEPS = 10  # train steps over which the LM's backends must give the sam
 GRU = dict(t=24, b=81, f=77, h=64, rx=9, r=9)
 EVAL_BATCH = 256  # `evaluate`'s batch, into which it pads the test windows
 REDUCED_STEPS = 3
+# fault 9: the LM layer's batch past the largest one launch's plan takes
+# (656 with f32 weights, 832 with bf16); fault 10: a dense "pre" GRU layer
+# (T, B, F, h, rx, r) whose four rows a CTA do not fit in shared memory
+PLAN_BATCH = 1024
+GRU_WIDE = (24, 512, 77, 1000, 0, 0)
 
 # The HAR paths at full width: their `HARConfig` fields and the kernel form
 # they run ("family:form"): first the low-rank ones, then the dense forms.
@@ -574,122 +601,153 @@ def bf16_control(what, label, gots, bf16_plain, f32_plain):
 
 def phase_kernels(torch):
     """-> {(entry, shape name, B): row} for the kernels line and PERF.md."""
-    from vmlmf_tpu_torch.ops import cuda_scan
-
     rows = {}
     print(f"tolerances: outputs and residuals atol = rtol = {TOL} (f32 sums in another "
           f"order); gradients {GRAD_TOL} (weight gradients sum over T*B rows in another order); "
           f"bf16 outputs and residuals {BF16_TOL}, gradients {BF16_GRAD_TOL}; bf16-residual "
           f"gradients {RES_GRAD_TOL}")
+    for name, s, train, diagonals, policy in lstm_kernel_shapes():
+        lstm_check(torch, rows, name, s, train, diagonals, policy)
+    return rows
+
+
+def print_scan_chunks(torch, label, b, h, r, bf16):
+    """Print the chunks of rows `scan_chunks` cuts a batch into (one for a
+    batch that one launch's plan takes) and each chunk's layout -> the
+    chunks."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunks = cuda_scan.scan_chunks(b, h, r, sms, 2 if bf16 else 4)
+    for b0, n, plan in chunks:
+        print(f"plan {label}{f' rows {b0}-{b0 + n - 1}' if len(chunks) > 1 else ''}: "
+              f"{plan.groups} batch groups x {plan.ctas} CTAs = {plan.n_ctas} CTAs of {sms} SMs, "
+              f"{plan.rpad} padded rows a group, shared memory {plan.smem_fwd} B forward, "
+              f"{plan.smem_bwd} B BPTT ({plan.elsize}-byte weights)")
+    return chunks
+
+
+def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=False):
+    """One LSTM kernel check: each entry that runs at this shape against its
+    plain version, then its ms, the plain version's, its bound and cuDNN's,
+    into ``rows`` by (entry, name, B). The BPTT's plain version runs on the
+    plain forward's residuals, or with ``own_residuals`` on the kernel's
+    (the same inputs as the kernel; the residuals are held to the plain
+    forward's before), and then the other comparison is printed too."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
     plain = cuda_scan.lstm_scan_fused_xin_plain
     res_plain, bwd_plain = cuda_scan.lstm_scan_xin_fwd_res_plain, cuda_scan.lstm_scan_xin_bwd_plain
-    for name, s, train, diagonals, policy in lstm_kernel_shapes():
-        precision, residuals, save = policy
-        bf16 = precision == "bf16"
-        variant = cuda_scan.variant(*policy)
-        size = (s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
-        label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx'] or 'dense'} "
-                 f"r={s['r'] or 'dense'}{'' if diagonals else ', no diagonals'}"
-                 f"{'' if variant == 'f32' else f', variant {variant}'}")
-        plan = cuda_scan.scan_plan(s["b"], s["h"], s["r"], sms, 2 if bf16 else 4)
-        print(f"plan {label}: {plan.groups} batch groups x {plan.ctas} CTAs = {plan.n_ctas} "
-              f"CTAs of {sms} SMs, {plan.rpad} padded rows a group, shared memory "
-              f"{plan.smem_fwd} B forward, {plan.smem_bwd} B BPTT ({plan.elsize}-byte weights)")
-        args = scan_inputs(torch, **s, diagonals=diagonals)
-        lstm, lib_err = cudnn_lstm(torch, args)
-        print(f"library: cuDNN LSTM on the dense weights, {label}: max abs err {lib_err:.3g} "
-              f"against the plain scan")
-        lib, lib_name = ((cudnn_lstm_bf16(torch, lstm), "cuDNN, bf16, other rounding") if bf16
-                         else (lstm, "cuDNN"))
-        xs, h0, c0 = (a.to(torch.bfloat16 if bf16 else torch.float32)
-                      for a in (args[0], args[8], args[9]))
-        mm = cuda_scan.scan_mm_ops(*size) if bf16 else 0
-        fwd_tol = BF16_TOL if bf16 else TOL
-        res_tol = BF16_TOL if bf16 or residuals == "bf16" else TOL
-        grad_tol = BF16_GRAD_TOL if bf16 else RES_GRAD_TOL if residuals == "bf16" else GRAD_TOL
+    precision, residuals, save = policy
+    bf16 = precision == "bf16"
+    variant = cuda_scan.variant(*policy)
+    size = (s["t"], s["b"], s["f"], s["rx"], s["h"], s["r"])
+    label = (f"{name} T={s['t']} B={s['b']} F={s['f']} h={s['h']} rx={s['rx'] or 'dense'} "
+             f"r={s['r'] or 'dense'}{'' if diagonals else ', no diagonals'}"
+             f"{'' if variant == 'f32' else f', variant {variant}'}")
+    print_scan_chunks(torch, label, s["b"], s["h"], s["r"], bf16)
+    args = scan_inputs(torch, **s, diagonals=diagonals)
+    lstm, lib_err = cudnn_lstm(torch, args)
+    print(f"library: cuDNN LSTM on the dense weights, {label}: max abs err {lib_err:.3g} "
+          f"against the plain scan")
+    lib, lib_name = ((cudnn_lstm_bf16(torch, lstm), "cuDNN, bf16, other rounding") if bf16
+                     else (lstm, "cuDNN"))
+    xs, h0, c0 = (a.to(torch.bfloat16 if bf16 else torch.float32)
+                  for a in (args[0], args[8], args[9]))
+    mm = cuda_scan.scan_mm_ops(*size) if bf16 else 0
+    fwd_tol = BF16_TOL if bf16 else TOL
+    res_tol = BF16_TOL if bf16 or residuals == "bf16" else TOL
+    grad_tol = BF16_GRAD_TOL if bf16 else RES_GRAD_TOL if residuals == "bf16" else GRAD_TOL
 
-        # -- the no-grad forward, whose variants are its precisions
-        if residuals == "f32" and save:
-            ys, c_last = cuda_scan.lstm_scan_fused_xin(*args, precision)
-            torch.cuda.synchronize()
-            want = plain(*args, precision)
-            ok, err = all_close(torch, (ys, c_last), want, fwd_tol)
-            if not ok:
-                fail(f"lstm_scan_xin_fwd disagrees with its plain version at {label}: {err}")
-            if bf16:
-                bf16_control("lstm_scan_xin_fwd ys[:2]", label, [ys[:2]], [want[0][:2]],
-                             [plain(*args, "f32")[0][:2]])
-            elif not diagonals and not s["rx"] and not s["r"]:
-                # dense on both sides with no diagonal: exactly cuDNN's LSTM
-                with torch.no_grad():
-                    out, (_, c_n) = lstm(xs, (h0[None], c0[None]))
-                ok_l, err_l = all_close(torch, (out, c_n[0]), (ys, c_last), GRAD_TOL)
-                print(f"library: cuDNN LSTM against the kernel, {label}: max abs err {err_l:.3g}")
-                if not ok_l:
-                    fail(f"cuDNN's LSTM disagrees with the dense kernel at {label}: {err_l}")
-
-            def lib_fwd():
-                with torch.no_grad():
-                    lib(xs, (h0[None], c0[None]))
-
-            rows[("lstm_scan_xin_fwd", name, s["b"])] = kernel_row(
-                "lstm_scan_xin_fwd", label, err, fwd_tol,
-                cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args, precision), 10),
-                cuda_ms(torch, lambda: plain(*args, precision), 5),
-                (*cuda_scan.scan_cost(*size), mm), cuda_ms(torch, lib_fwd, 10), lib_name)
-        if not train:
-            continue
-
-        # -- the residual forward and the BPTT, with dys given and dc_last
-        # absent, as on the LM's training path
-        res = cuda_scan.lstm_scan_fused_xin_res(*args, *policy)
+    # -- the no-grad forward, whose variants are its precisions
+    if residuals == "f32" and save:
+        ys, c_last = cuda_scan.lstm_scan_fused_xin(*args, precision)
         torch.cuda.synchronize()
-        res_p = res_plain(*args, *policy)
-        if any((a is None) != (p is None) or (a is not None and a.dtype != p.dtype)
-               for a, p in zip(res, res_p)):
-            fail(f"lstm_scan_xin_fwd_res stores other residuals than its plain version at {label}")
-        ok, err = all_close(torch, [a.float() for a in res if a is not None],
-                            [a.float() for a in res_p if a is not None], res_tol)
+        want = plain(*args, precision)
+        ok, err = all_close(torch, (ys, c_last), want, fwd_tol)
         if not ok:
-            fail(f"lstm_scan_xin_fwd_res disagrees with its plain version at {label}: {err}")
-        dys = 0.1 * torch.randn(res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
-        bias = None if save else args[4]
-        saved, saved_p = (*args[:4], *args[5:], *res), (*args[:4], *args[5:], *res_p)
-        grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias, precision=precision)
-        torch.cuda.synchronize()
-        grads_p = bwd_plain(*saved_p, dys, None, bias=bias, precision=precision)
-        ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
-                                [a for a in grads_p if a is not None], grad_tol)
-        if not ok_g:
-            fail(f"lstm_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
+            fail(f"lstm_scan_xin_fwd disagrees with its plain version at {label}: {err}")
         if bf16:
-            res_f = res_plain(*args, "f32", residuals, save)
-            bf16_control("lstm_scan_xin_fwd_res ys, cs [:2]", label, [a[:2] for a in res[:2]],
-                         [a[:2] for a in res_p[:2]], [a[:2] for a in res_f[:2]])
-            # both plain BPTTs from the kernel's residuals: the backward's rounding alone
-            dxs = [bwd_plain(*saved, dys, None, bias=bias, precision=p)[0][-2:]
-                   for p in ("bf16", "f32")]
-            bf16_control("lstm_scan_xin_bwd dxs[-2:]", label, [grads[0][-2:]], [dxs[0]], [dxs[1]])
+            bf16_control("lstm_scan_xin_fwd ys[:2]", label, [ys[:2]], [want[0][:2]],
+                         [plain(*args, "f32")[0][:2]])
+        elif not diagonals and not s["rx"] and not s["r"]:
+            # dense on both sides with no diagonal: exactly cuDNN's LSTM
+            with torch.no_grad():
+                out, (_, c_n) = lstm(xs, (h0[None], c0[None]))
+            ok_l, err_l = all_close(torch, (out, c_n[0]), (ys, c_last), GRAD_TOL)
+            print(f"library: cuDNN LSTM against the kernel, {label}: max abs err {err_l:.3g}")
+            if not ok_l:
+                fail(f"cuDNN's LSTM disagrees with the dense kernel at {label}: {err_l}")
 
-        x, hh, cc = (a.detach().requires_grad_() for a in (xs, h0, c0))
-        lib_fwd_ms, lib_bwd_ms = library_train_ms(
-            torch, lambda: lib(x, (hh[None], cc[None])), dys.to(xs.dtype), 10)
-        rows[("lstm_scan_xin_fwd_res", name, s["b"])] = kernel_row(
-            "lstm_scan_xin_fwd_res", label, err, res_tol,
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args, *policy), 10),
-            cuda_ms(torch, lambda: res_plain(*args, *policy), 5),
-            (*cuda_scan.scan_res_cost(*size, residuals=residuals, save_gates=save), mm),
-            lib_fwd_ms, lib_name)
-        rows[("lstm_scan_xin_bwd", name, s["b"])] = kernel_row(
-            "lstm_scan_xin_bwd", label, err_g, grad_tol,
-            cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias,
-                                                               precision=precision), 10),
-            cuda_ms(torch, lambda: bwd_plain(*saved_p, dys, None, bias=bias,
-                                             precision=precision), 3),
-            (*cuda_scan.scan_bwd_cost(*size, residuals=residuals, save_gates=save),
-             (2 if save else 3) * mm), lib_bwd_ms, lib_name)
-    return rows
+        def lib_fwd():
+            with torch.no_grad():
+                lib(xs, (h0[None], c0[None]))
+
+        rows[("lstm_scan_xin_fwd", name, s["b"])] = kernel_row(
+            "lstm_scan_xin_fwd", label, err, fwd_tol,
+            cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args, precision), 10),
+            cuda_ms(torch, lambda: plain(*args, precision), 5),
+            (*cuda_scan.scan_cost(*size), mm), cuda_ms(torch, lib_fwd, 10), lib_name)
+    if not train:
+        return
+
+    # -- the residual forward and the BPTT, with dys given and dc_last
+    # absent, as on the LM's training path
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, *policy)
+    torch.cuda.synchronize()
+    res_p = res_plain(*args, *policy)
+    if any((a is None) != (p is None) or (a is not None and a.dtype != p.dtype)
+           for a, p in zip(res, res_p)):
+        fail(f"lstm_scan_xin_fwd_res stores other residuals than its plain version at {label}")
+    ok, err = all_close(torch, [a.float() for a in res if a is not None],
+                        [a.float() for a in res_p if a is not None], res_tol)
+    if not ok:
+        fail(f"lstm_scan_xin_fwd_res disagrees with its plain version at {label}: {err}")
+    dys = 0.1 * torch.randn(res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
+    bias = None if save else args[4]
+    saved, saved_p = (*args[:4], *args[5:], *res), (*args[:4], *args[5:], *res_p)
+    grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias, precision=precision)
+    torch.cuda.synchronize()
+    refs = [bwd_plain(*own, dys, None, bias=bias, precision=precision)
+            for own in ((saved, saved_p) if own_residuals else (saved_p,))]
+    ok_g, err_g = all_close(torch, [a for a in grads if a is not None],
+                            [a for a in refs[0] if a is not None], grad_tol)
+    if not ok_g:
+        fail(f"lstm_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
+    if own_residuals:
+        other = all_close(torch, [a for a in grads if a is not None],
+                          [a for a in refs[1] if a is not None], grad_tol)[1]
+        spread = all_close(torch, [a for a in refs[0] if a is not None],
+                           [a for a in refs[1] if a is not None], grad_tol)[1]
+        print(f"lstm_scan_xin_bwd {label}: max abs err {err_g:.3g} against the plain BPTT on "
+              f"the kernel's residuals, {other:.3g} on the plain forward's, which move the "
+              f"plain BPTT itself by {spread:.3g}")
+    if bf16:
+        res_f = res_plain(*args, "f32", residuals, save)
+        bf16_control("lstm_scan_xin_fwd_res ys, cs [:2]", label, [a[:2] for a in res[:2]],
+                     [a[:2] for a in res_p[:2]], [a[:2] for a in res_f[:2]])
+        # both plain BPTTs from the kernel's residuals: the backward's rounding alone
+        dxs = [bwd_plain(*saved, dys, None, bias=bias, precision=p)[0][-2:]
+               for p in ("bf16", "f32")]
+        bf16_control("lstm_scan_xin_bwd dxs[-2:]", label, [grads[0][-2:]], [dxs[0]], [dxs[1]])
+
+    x, hh, cc = (a.detach().requires_grad_() for a in (xs, h0, c0))
+    lib_fwd_ms, lib_bwd_ms = library_train_ms(
+        torch, lambda: lib(x, (hh[None], cc[None])), dys.to(xs.dtype), 10)
+    rows[("lstm_scan_xin_fwd_res", name, s["b"])] = kernel_row(
+        "lstm_scan_xin_fwd_res", label, err, res_tol,
+        cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args, *policy), 10),
+        cuda_ms(torch, lambda: res_plain(*args, *policy), 5),
+        (*cuda_scan.scan_res_cost(*size, residuals=residuals, save_gates=save), mm),
+        lib_fwd_ms, lib_name)
+    rows[("lstm_scan_xin_bwd", name, s["b"])] = kernel_row(
+        "lstm_scan_xin_bwd", label, err_g, grad_tol,
+        cuda_ms(torch, lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias,
+                                                           precision=precision), 10),
+        cuda_ms(torch, lambda: bwd_plain(*saved_p, dys, None, bias=bias,
+                                         precision=precision), 3),
+        (*cuda_scan.scan_bwd_cost(*size, residuals=residuals, save_gates=save),
+         (2 if save else 3) * mm), lib_bwd_ms, lib_name)
 
 
 def gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank, seed=0):
@@ -759,40 +817,9 @@ def gru_kernel_shapes():
 
 def phase_gru_kernels(torch):
     """-> {(entry, shape name, B): row} for the kernels line and PERF.md."""
-    from vmlmf_tpu_torch.ops import cuda_gru
-
     rows = {}
-    for name, (t, b, f, h, rx, r), mode, lowrank, dx, train in gru_kernel_shapes():
-        args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
-        size = (t, b, f, rx, h, r, cuda_gru.form_of(args[4], mode))
-        label = (f"{name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r} mode={mode} "
-                 f"{'low-rank' if lowrank else 'dense'}{', no dx' if train and not dx else ''}")
-        print_gru_plan(torch, cuda_gru, name, size)
-        gru, lib_err = cudnn_gru(torch, args, mode)
-        print(f"library: cuDNN GRU on the dense weights, {label}: max abs err {lib_err:.3g} "
-              f"against the plain scan ({'the same scan' if gru else 'another function'})")
-        xs, h0 = args[0], args[7]
-
-        ys = cuda_gru.gru_scan_fused_xin(*args, mode=mode)
-        torch.cuda.synchronize()
-        ok, err = close(torch, ys, cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode))
-        if not ok:
-            fail(f"gru_scan_xin_fwd disagrees with its plain version at {label}: {err}")
-
-        def lib_fwd():
-            with torch.no_grad():
-                gru(xs, h0[None])
-
-        checks = [("gru_scan_xin_fwd", err, TOL,
-                   cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode), 20),
-                   cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode), 5),
-                   cuda_gru.gru_scan_cost(*size), cuda_ms(torch, lib_fwd, 20) if gru else None)]
-        if train:
-            checks += gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru)
-        for entry, e_err, tol, ms, plain_ms, cost, lib_ms in checks:
-            rows[(entry, name, b)] = kernel_row(entry, label, e_err, tol, ms, plain_ms, cost,
-                                                lib_ms)
-            print(f"kernel {entry} {name} B={b}: {1e3 * ms / t:.3f} us per step (whole call / T)")
+    for name, shape, mode, lowrank, dx, train in gru_kernel_shapes():
+        gru_check(torch, rows, name, shape, mode, lowrank, dx, train)
     # the "post" no-grad body and its residual body at one batch
     for layer in ("group_l1", "dx_group_l1"):
         nograd, res = (rows[(e, layer, GRU["b"])]["ms"]
@@ -800,6 +827,45 @@ def phase_gru_kernels(torch):
         print(f"gru post bodies {layer} B={GRU['b']}: no-grad {nograd:.4f} ms, residual "
               f"{res:.4f} ms")
     return rows
+
+
+def gru_check(torch, rows, name, shape, mode, lowrank, dx, train):
+    """One GRU kernel check at ``shape`` (T, B, F, h, rx, r): each entry that
+    runs there against its plain version, then its ms, the plain version's,
+    its bound and cuDNN's (mode "post"), into ``rows`` by (entry, name, B)."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r = shape
+    args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
+    size = (t, b, f, rx, h, r, cuda_gru.form_of(args[4], mode))
+    label = (f"{name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r} mode={mode} "
+             f"{'low-rank' if lowrank else 'dense'}{', no dx' if train and not dx else ''}")
+    print_gru_plan(torch, cuda_gru, name, size)
+    gru, lib_err = cudnn_gru(torch, args, mode)
+    print(f"library: cuDNN GRU on the dense weights, {label}: max abs err {lib_err:.3g} "
+          f"against the plain scan ({'the same scan' if gru else 'another function'})")
+    xs, h0 = args[0], args[7]
+
+    ys = cuda_gru.gru_scan_fused_xin(*args, mode=mode)
+    torch.cuda.synchronize()
+    ok, err = close(torch, ys, cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode))
+    if not ok:
+        fail(f"gru_scan_xin_fwd disagrees with its plain version at {label}: {err}")
+
+    def lib_fwd():
+        with torch.no_grad():
+            gru(xs, h0[None])
+
+    checks = [("gru_scan_xin_fwd", err, TOL,
+               cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode), 20),
+               cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode), 5),
+               cuda_gru.gru_scan_cost(*size), cuda_ms(torch, lib_fwd, 20) if gru else None)]
+    if train:
+        checks += gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru)
+    for entry, e_err, tol, ms, plain_ms, cost, lib_ms in checks:
+        rows[(entry, name, b)] = kernel_row(entry, label, e_err, tol, ms, plain_ms, cost,
+                                            lib_ms)
+        print(f"kernel {entry} {name} B={b}: {1e3 * ms / t:.3f} us per step (whole call / T)")
 
 
 def print_gru_plan(torch, cuda_gru, name, size, gi=False):
@@ -2581,6 +2647,193 @@ def phase_mixed_wavefront(torch):
     return rows, runs
 
 
+def phase_plans(torch):
+    """Faults 9 and 10: the PTB VMLMF LM layer at B=PLAN_BATCH in f32 and in
+    bf16, which runs in chunks of rows (`scan_chunks`, printed; one launch a
+    chunk, counted), and the dense "pre" GRU layer GRU_WIDE with fewer rows
+    a CTA (`gru_plan`, printed): every entry against its plain version,
+    with ms, bound and cuDNN's at that batch. -> rows for PERF.md."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lm = dict(t=LM["prompt"], b=PLAN_BATCH, f=LM["hidden"], h=LM["hidden"], rx=LM["rank"],
+              r=LM["rank"])
+    for name, policy in (("lm_chunked", F32), ("lm_chunked_bf16", ("bf16", "f32", True))):
+        precision = policy[0]
+        chunks = cuda_scan.scan_chunks(PLAN_BATCH, lm["h"], lm["r"], sms,
+                                       2 if precision == "bf16" else 4)
+        print(f"plans {name}: scan_chunks at B={PLAN_BATCH}: "
+              f"{[(b0, n) for b0, n, _ in chunks]}")
+        if len(chunks) < 2:
+            fail(f"{name}: B={PLAN_BATCH} was meant to run past one launch's plan")
+        args = scan_inputs(torch, **lm)
+        dys = 0.1 * torch.randn((lm["t"], lm["b"], lm["h"]),
+                                generator=torch.Generator().manual_seed(5)).cuda()
+        reset_launch_counts()
+        cuda_scan.lstm_scan_fused_xin(*args, precision)
+        res = cuda_scan.lstm_scan_fused_xin_res(*args, *policy)
+        cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None, precision=precision)
+        torch.cuda.synchronize()
+        n = len(chunks)
+        counts = launch_counts()
+        if counts != only(lstm_scan_xin_fwd=n, lstm_scan_xin_fwd_res=n, lstm_scan_xin_bwd=n):
+            fail(f"{name}: each entry must launch once a chunk of rows ({n}): {nonzero(counts)}")
+        print(f"plans {name}: launches of one call of each entry {nonzero(counts)}")
+        lstm_check(torch, rows, name, lm, True, True, policy, own_residuals=True)
+
+    t, b, f, h, rx, r = GRU_WIDE
+    gru_check(torch, rows, "gru_wide_pre", GRU_WIDE, "pre", False, True, True)
+    # cuDNN's GRU computes another function ("post"); its time at the same
+    # shape, for scale
+    xs = torch.randn((t, b, f), generator=torch.Generator().manual_seed(3)).cuda()
+    gru = torch.nn.GRU(f, h).cuda()
+
+    def lib_fwd():
+        with torch.no_grad():
+            gru(xs)
+
+    x_leaf = xs.detach().requires_grad_()
+    dys = torch.randn((t, b, h), generator=torch.Generator().manual_seed(4)).cuda()
+    lib_ms = (cuda_ms(torch, lib_fwd, 10),
+              *library_train_ms(torch, lambda: gru(x_leaf), dys, 10))
+    print(f"library: cuDNN GRU (mode \"post\", another function) at T={t} B={b} F={f} h={h}: "
+          f"no-grad {lib_ms[0]:.4f} ms, training forward {lib_ms[1]:.4f} ms, backward "
+          f"{lib_ms[2]:.4f} ms")
+    print(json.dumps({"plans": {f"{k[0]} {k[1]} B={k[2]}": {
+        key: row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+        for k, row in rows.items()}}))
+    return rows
+
+
+class StampedOutput:
+    """A stdout stand-in that passes every write on and keeps each line with
+    the host clock when it was written."""
+
+    def __init__(self, out):
+        self.out, self.lines, self.part = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self.part += text
+        *done, self.part = self.part.split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_run(torch, main, argv):
+    """main(argv) of a CLI module, in this process, with the launch counts
+    set to 0 just before it and read just after -> (its result, its stamped
+    output lines, the launch counts, wall seconds)."""
+    import contextlib
+
+    out = StampedOutput(sys.stdout)
+    print(f"cli: {main.__module__} {' '.join(argv)}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    torch.cuda.synchronize()
+    return result, [(t - t0, line) for t, line in out.lines], launch_counts(), \
+        time.perf_counter() - t0
+
+
+def har_epoch_seconds(lines):
+    """The seconds of each epoch, from `HARTrainer.fit`'s log lines."""
+    return [float(line.rsplit("(", 1)[1].split()[0]) for _, line in lines
+            if line.startswith("Epoch ") and "cross_entropy" in line]
+
+
+def phase_cli(torch):
+    """The port's entry points in this process, through each CLI module's
+    main(argv), with a temporary --ckpt_dir: the HAR CLI trains and tests
+    the VMLMF flagship, then tests its checkpoint in a second run (equal
+    metrics); the HAR GRU; the UCI-HAR shape (T=128, F=9); the PTB LM CLI at
+    the "medium" width on "fused" and on "fused_pipelined", whose validation
+    perplexity must be finite and below its first logged training
+    perplexity; then "fused" once more, as the first LM run also pays the
+    process's warm-up. Each run's launches, seconds an epoch and (LM)
+    words/s. -> runs for the kernels line."""
+    import math
+    import tempfile
+
+    from vmlmf_tpu_torch.cli import har_main, lm_main
+
+    runs, report = [], {}
+    har_runs = (("vmlmf", "lstm:lowrank", ["--model", "vmmodel", "--layer_sizes", "180",
+                                           "--wRank", "8", "--uRanks", "6"]),
+                ("gru", "gru:lowrank_pre", ["--model", "mygru", "--layer_sizes", "64", "64",
+                                            "--wRank", "9", "--uRanks", "9"]),
+                ("uci", "lstm:lowrank", ["--data", "UCI", "--model", "vmmodel", "--layer_sizes",
+                                         "180", "--wRank", "8", "--uRanks", "6"]))
+    with tempfile.TemporaryDirectory() as ckpt:
+        for label, form, flags in har_runs:
+            argv = ["--synthetic", "--max_epochs", "2", "--ckpt_dir", ckpt, *flags]
+            metrics, lines, counts, wall = cli_run(torch, har_main.main, ["--total", *argv])
+            family = form.split(":")[0]
+            fwd, res, bwd = FAMILIES[family]
+            if not (counts[fwd] and counts[res] and counts[bwd]) or \
+                    sum(counts.values()) != counts[fwd] + counts[res] + counts[bwd]:
+                fail(f"cli har {label}: the fused {family} kernels, and only they, must launch: "
+                     f"{nonzero(counts)}")
+            runs.append((form, counts))
+            epochs = har_epoch_seconds(lines)
+            entry = dict(accuracy=metrics["accuracy"], macro_f1=metrics["macro_f1"],
+                         epoch_seconds=epochs, wall_seconds=wall, launches=nonzero(counts))
+            if label == "vmlmf":
+                tested, _, counts_t, _ = cli_run(torch, har_main.main, argv)
+                if tested != metrics:
+                    fail(f"cli har: the checkpoint's test run reports {tested}, the training run "
+                         f"{metrics}")
+                if counts_t != only(**{fwd: counts_t[fwd]}) or not counts_t[fwd]:
+                    fail(f"cli har: the test run must launch only the no-grad kernel: "
+                         f"{nonzero(counts_t)}")
+                runs.append((form, counts_t))
+                entry["checkpoint_run"] = dict(tested, launches=nonzero(counts_t))
+            print(f"cli har {label}: accuracy {metrics['accuracy']:.4f}, macro-F1 "
+                  f"{metrics['macro_f1']:.4f}, seconds an epoch {epochs}, launches "
+                  f"{nonzero(counts)}")
+            report[f"har_{label}"] = entry
+
+    # "fused" again last: the first LM run of a process also pays its warm-up
+    for i, (backend, form) in enumerate((("fused", "lstm:lowrank"),
+                                         ("fused_pipelined", "lstm_stack:lowrank"),
+                                         ("fused", "lstm:lowrank"))):
+        argv = ["--synthetic", "--vocab_size", str(LM["vocab"]), "--total_epochs", "1",
+                "--log_every", "25", "--backend", backend]
+        history, lines, counts, wall = cli_run(torch, lm_main.main, argv)
+        family = form.split(":")[0]
+        fwd, res, bwd = FAMILIES[family]
+        if not (counts[fwd] and counts[res] and counts[bwd]) or \
+                sum(counts.values()) != counts[fwd] + counts[res] + counts[bwd]:
+            fail(f"cli lm {backend}: the {family} kernels, and only they, must launch: "
+                 f"{nonzero(counts)}")
+        runs.append((form, counts))
+        logged = [(t, line) for t, line in lines if line.startswith("batch ")]
+        first_ppl = math.exp(float(logged[0][1].split("train loss = ")[1].split(",")[0]))
+        wps = int(logged[-1][1].split("wps = ")[1].split(",")[0])
+        start = next(t for t, line in lines if line.startswith("*parameters"))
+        epoch_end = next(t for t, line in lines if "Validation set perplexity" in line)
+        val_ppl = history[0]["val_ppl"]
+        if not (math.isfinite(val_ppl) and val_ppl < first_ppl):
+            fail(f"cli lm {backend}: validation perplexity {val_ppl} is not finite and below "
+                 f"the first logged training perplexity {first_ppl}")
+        print(f"cli lm {backend}: first training perplexity {first_ppl:.1f}, validation "
+              f"{val_ppl:.3f}, test {history[-1]['test_ppl']:.3f}; {epoch_end - start:.3f} s "
+              f"for the epoch and its validation, {wps} words/s (the trainer's last log line); "
+              f"launches {nonzero(counts)}")
+        report[f"lm_{backend}_{i}"] = dict(first_train_ppl=first_ppl, val_ppl=val_ppl,
+                                       test_ppl=history[-1]["test_ppl"],
+                                       epoch_seconds=epoch_end - start, words_per_s=wps,
+                                       wall_seconds=wall, launches=nonzero(counts))
+    print(json.dumps({"cli": report}))
+    return runs
+
+
 PROFILE_SESSIONS = 3  # profiled runs of one call before an empty trace fails
 
 
@@ -2749,6 +3002,8 @@ def main():
     wave_rows, wave_runs = phase_mixed_wavefront(torch)
     rows.update(wave_rows)
     runs += wave_runs
+    phase_plans(torch)
+    runs += phase_cli(torch)
     phase_trace(torch)
 
     kernels = kernel_report(rows, runs)

@@ -269,8 +269,8 @@ def test_grid_kernels_are_deterministic(cuda, shape):
 @pytest.mark.cuda
 def test_grid_too_large_to_be_co_resident_raises(cuda, monkeypatch):
     # 5 groups of 60 CTAs: more CTAs than the card can hold at once
-    monkeypatch.setattr(cuda_scan, "_plan_for",
-                        lambda b, h, r, device, bf16=False: cuda_scan.plan_layout(b, h, r, 5, 60))
+    monkeypatch.setattr(cuda_scan, "_chunks_for", lambda b, h, r, device, bf16=False:
+                        ((0, b, cuda_scan.plan_layout(b, h, r, 5, 60)),))
     args = make_inputs(3, 5, 16, 650, 5, 300, cuda)
     for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res):
         with pytest.raises(RuntimeError, match="launch failed"):
@@ -1160,3 +1160,66 @@ def test_bf16_head_product_matches_its_cpu_function(cuda):
     torch.testing.assert_close(outs[1][0], outs[0][0], **BF16_TOL)
     for got, want in zip(outs[1][1:], outs[0][1:]):
         torch.testing.assert_close(got, want, **BF16_GRAD_TOL)
+
+
+# fault 9: the PTB VMLMF LM layer at B=1024, past the largest batch one
+# launch's plan takes (656), runs in chunks of rows, one launch each, the
+# BPTT's weight gradients summed over the chunks in order
+@pytest.mark.cuda
+def test_lm_layer_past_one_plan_runs_in_chunks_and_matches_plain(cuda):
+    t, b, f, h, rx, r = 35, 1024, 650, 650, 300, 300
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = cuda_scan.scan_chunks(b, h, r, sms)
+    assert len(chunks) > 1 and sum(n for _, n, _ in chunks) == b
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    fns = (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+           cuda_scan.lstm_scan_xin_bwd)
+    counts = [fn.launches for fn in fns]
+    ys, c_last = cuda_scan.lstm_scan_fused_xin(*args)
+    res, grads = residual_and_grads(args, dys, None, cuda_scan.lstm_scan_fused_xin_res,
+                                    cuda_scan.lstm_scan_xin_bwd)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == [n + len(chunks) for n in counts]
+    want = cuda_scan.lstm_scan_fused_xin_plain(*args)
+    torch.testing.assert_close(ys, want[0], **TOL)
+    torch.testing.assert_close(c_last, want[1], **TOL)
+    res_p, grads_p = residual_and_grads(args, dys, None, cuda_scan.lstm_scan_xin_fwd_res_plain,
+                                        cuda_scan.lstm_scan_xin_bwd_plain)
+    for name, got, w in zip(("ys", "cs", "gates", "hu", "xu"), res, res_p):
+        torch.testing.assert_close(got, w, msg=name, **TOL)
+    for name, got, w in zip(cuda_scan._ARG_NAMES, grads, grads_p):
+        torch.testing.assert_close(got, w, msg=name, **GRAD_TOL)
+
+
+# fault 10: a dense "pre" GRU layer at h=1000 and B=512, whose four rows a
+# CTA do not fit in shared memory, runs with fewer rows a CTA
+@pytest.mark.cuda
+def test_gru_layer_with_fewer_rows_a_cta_matches_plain(cuda):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = 24, 512, 77, 1000, 0, 0, "pre", False
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = cuda_gru.gru_plan(t, b, f, rx, h, r, cuda_gru.DENSE_PRE, sms=sms)
+    assert plan.rows < min(cuda_gru.GRU_MAX_ROWS, -(-b // sms)) and plan.ctas > sms
+    args = gru_inputs(t, b, f, h, rx, r, mode, lowrank, cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    ys = cuda_gru.gru_scan_fused_xin(*args, mode=mode)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    saved = (*args[:3], *args[4:], *res)
+    grads = cuda_gru.gru_scan_xin_bwd(*saved, dys, mode=mode)
+    torch.cuda.synchronize()
+    res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+    torch.testing.assert_close(ys, res_p[0], **TOL)
+    for name, got, want in zip(("ys", "gates", "hu", "rhu", "recn", "xu"), res, res_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **TOL)
+    grads_p = cuda_gru.gru_scan_xin_bwd_plain(*saved[:13], dys, mode=mode)
+    for name, got, want in zip(("dxs", "dux", "dvx", "dbias", "duf", "dprz", "dpn", "dh0"),
+                               grads, grads_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)

@@ -115,6 +115,50 @@ def test_plan_raises_where_nothing_fits():
         cuda_gru.gru_plan(0, 81, 77, 9, 64, 9, 0)
 
 
+# fault 10: dense "post", dense "pre" and low-rank "pre" (r = h/2) with a
+# dense x side at T=24, F=77, where ceil(B / SMs) rows a CTA do not fit
+FEWER_ROWS = [(24, b, 77, 0, h, r, form) for b, h in ((512, 1000), (256, 2000))
+              for r, form in ((0, 2), (0, 1), (h // 2, 0))]
+
+
+@pytest.mark.parametrize("shape", FEWER_ROWS, ids=str)
+def test_plan_takes_fewer_rows_a_cta_where_the_batch_s_share_does_not_fit(shape):
+    t, b, f, rx, h, r, form = shape
+    for gi in (False, True):
+        plan = cuda_gru.gru_plan(t, b, f * (not gi), rx, h, r, form, gi=gi, sms=SMS)
+        assert plan.smem_fwd <= SMEM_LIMIT and plan.smem_bwd <= SMEM_LIMIT
+        assert plan.rows in cuda_gru.ROW_BOUNDS
+        assert plan.rows < min(cuda_gru.GRU_MAX_ROWS, -(-b // SMS))
+        assert (plan.ctas - 1) * plan.rows < b <= plan.ctas * plan.rows  # every row once
+        assert plan.ctas > SMS  # no grid barrier: more CTAs than SMs run in waves
+        # the same layer at B=81 gets the same layout with one row a CTA
+        one = cuda_gru.gru_plan(t, 81, f * (not gi), rx, h, r, form, gi=gi, sms=SMS)
+        assert one.rows == 1
+        if plan.rows == 1:
+            assert (plan.tblock, plan.smem_fwd, plan.smem_bwd) == (
+                one.tblock, one.smem_fwd, one.smem_bwd)
+    assert check_plan(t, SMS, f, rx, h, r, form).rows == 1
+
+
+def test_every_shape_with_a_plan_keeps_ceil_b_over_sms_rows():
+    # the rows a CTA that the plan took before fault 10's repair, wherever
+    # they fit: every shape the tests above and chip_smoke.py drive
+    for t, b, f, rx, h, r, form in HAR + WIDE + RAGGED + chip_smoke_shapes():
+        for gi in (False, True):
+            plan = cuda_gru.gru_plan(t, b, f, rx, h, r, form, gi=gi, sms=SMS)
+            assert plan.rows == min(cuda_gru.GRU_MAX_ROWS, -(-b // SMS))
+
+
+def test_plan_raises_only_where_one_row_does_not_fit():
+    # dense "post" at B=512: h=764 still takes 4 rows a CTA, 765 takes fewer
+    assert cuda_gru.gru_plan(24, 512, 77, 0, 764, 0, 2, sms=SMS).rows == 4
+    assert cuda_gru.gru_plan(24, 512, 77, 0, 765, 0, 2, sms=SMS).rows == 2
+    widest = cuda_gru.gru_plan(24, 512, 77, 0, 3000, 0, 2, sms=SMS)
+    assert widest.rows == 1 and widest.rec_weights == widest.bwd_rec_weights == "L2"
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_gru.gru_plan(24, 1, 77, 0, 20000, 0, 2, sms=SMS)
+
+
 def test_plan_counts_the_regions_the_kernels_lay_out():
     # low-rank x, low-rank "pre", h=64, one row, T=24 (gru_scan_xin_fwd.cu::fwd_layout);
     # the recurrent weights in registers take no shared memory

@@ -335,3 +335,31 @@ def test_low_rank_x_gru_har_learns_as_slowly_in_jax():
     want, got = jax_evaluate(jm, jparams, xt, yt), evaluate(m, params, xt, yt)
     assert abs(got["accuracy"] - want["accuracy"]) <= 0.01, (got, want)
     assert abs(got["macro_f1"] - want["macro_f1"]) <= 0.01, (got, want)
+
+
+def test_group_gru_har_learns_as_slowly_in_jax():
+    # The group HAR GRU (77 -> 64 -> 64, GRUGroupCell w9, u(12, 6), g=2)
+    # reads accuracy 0.25 after two synthetic epochs on the card. The JAX
+    # package's trainer, from the same transplanted parameters and data,
+    # gives the same losses and accuracy: a property of the model.
+    from vmlmf_tpu import config as jconfig
+    from vmlmf_tpu.data.har import synthetic_har as jax_synthetic_har
+    from vmlmf_tpu.train.har import evaluate as jax_evaluate
+    from vmlmf_tpu_torch import config
+    from vmlmf_tpu_torch.train.har import evaluate
+
+    kw = dict(model="mygru_group", layer_sizes=(64, 64), w_rank=9, u_ranks=(12, 6))
+    jm = jconfig.HARConfig(**kw, backend="xla").build_model()
+    m = config.HARConfig(**kw).build_model()
+    x, y, xt, yt = jax_synthetic_har("opp", n_train=30 * 81, n_test=500, seed=0)
+    jt = JaxHARTrainer(jm, batch_size=81)
+    jparams, jopt = jt.init()
+    params = transplant(jparams)
+    jparams, _, jhist = jt.fit(jparams, jopt, x, y, epochs=2, log_fn=None)
+    t = HARTrainer(m, batch_size=81, device="cpu")
+    params, _, hist = t.fit(params, t.optimizer(params), x, y, epochs=2, log_fn=None)
+    np.testing.assert_allclose([h["loss"] for h in hist], [h["loss"] for h in jhist],
+                               **HAR_PARAM_TOL)
+    want, got = jax_evaluate(jm, jparams, xt, yt), evaluate(m, params, xt, yt)
+    assert abs(got["accuracy"] - want["accuracy"]) <= 0.01, (got, want)
+    assert abs(got["macro_f1"] - want["macro_f1"]) <= 0.01, (got, want)

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from vmlmf_tpu_torch.utils.device import resolve_device
+from vmlmf_tpu_torch.utils.tree import tree_leaves
 
 
 def normal_init(generator, shape, scale=0.1, dtype=torch.float32):
@@ -95,6 +96,8 @@ class Cell:
     input_size: int
     hidden_size: int
 
+    num_gates = 4  # the LSTM family's; the GRU cells have 3
+
     def init(self, generator, device="cuda", dtype=torch.float32):
         raise NotImplementedError
 
@@ -107,8 +110,21 @@ class Cell:
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
+    def out_of(self, state):
+        return state[0]
+
     def inp(self, prep, xs):
         raise NotImplementedError
 
     def step(self, prep, gi_t, state):
         raise NotImplementedError
+
+    def apply_step(self, params, x_t, state):
+        """One step from the parameters (prepare, inp, step), without the
+        hoisting of a scan: a test and debug path. -> (state', h)."""
+        prep = self.prepare(params)
+        return self.step(prep, self.inp(prep, x_t), state)
+
+    def param_count(self, params):
+        """Elements of every tensor of ``params``."""
+        return sum(p.numel() for p in tree_leaves(params))

@@ -221,3 +221,7 @@ class RNN:
         if not time_major:
             ys = ys.transpose(0, 1)
         return ys, finals
+
+    def last_hidden_concat(self, finals):
+        """The layers' last hidden states side by side, [B, sum of widths]."""
+        return torch.cat([c.out_of(s) for c, s in zip(self.cells, finals)], -1)

@@ -349,6 +349,7 @@ def _form_buffers(new, t, b, h, r, form):
 
 GRU_SLICES = 4        # lanes of a unit group, each a quarter of the depth (kSlices)
 GRU_MAX_ROWS = 4      # batch rows of a CTA (kMaxRows)
+ROW_BOUNDS = (4, 2, 1)  # the row bounds the kernels are built for (gru_tile.cuh::row_bound)
 GRU_MAX_THREADS = 512  # threads of a CTA (kMaxThreads)
 GI_MODE, LOWRANK_X, DENSE_X = 0, 1, 2  # the forward's input side
 # where a kernel keeps its recurrent weights, as the C entries number it
@@ -472,15 +473,18 @@ def gru_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
 
     A step is a chain of dependent products whose latency, not the card's
     throughput, sets the time; so the batch is spread over the SMs, a CTA
-    taking ``ceil(b / sms)`` rows (at most GRU_MAX_ROWS). Each CTA has four
-    lanes per unit of the widest product (max(h, r) units; GRU_MAX_THREADS
-    at most, more passes past that). The recurrent weights are read every
-    step: in registers, each lane holding its share, where h <= REG_H and
-    r <= REG_R; else in shared memory where they fit, else through L2. The
-    forward then keeps, in this order of preference, the x side's weights
-    in shared memory (read once a time block) and as long a time block as
-    fits, down to one step. Raises ValueError where even one step with
-    every weight read through L2 does not fit in SMEM_LIMIT bytes.
+    taking ``ceil(b / sms)`` rows (at most GRU_MAX_ROWS). Where that many
+    rows do not fit, it takes each smaller row count the kernels are built
+    for (ROW_BOUNDS), so more CTAs than SMs: the GRU kernels have no grid
+    barrier. Each CTA has four lanes per unit of the widest product (max(h,
+    r) units; GRU_MAX_THREADS at most, more passes past that). The
+    recurrent weights are read every step: in registers, each lane holding
+    its share, where h <= REG_H and r <= REG_R; else in shared memory where
+    they fit, else through L2. The forward then keeps, in this order of
+    preference, the x side's weights in shared memory (read once a time
+    block) and as long a time block as fits, down to one step. Raises
+    ValueError where one row for one step with every weight read through
+    L2 does not fit in SMEM_LIMIT bytes.
     """
     if form not in (LOWRANK_PRE, DENSE_PRE, DENSE_POST) or (form == LOWRANK_PRE) != (r > 0):
         raise ValueError(f"no GRU plan for form {form} with r={r}")
@@ -488,8 +492,20 @@ def gru_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
         raise ValueError(f"no GRU plan for T={t}, B={b}, F={f}, rx={rx}, h={h}, r={r} on "
                          f"{sms} SMs")
     xside = GI_MODE if gi else (LOWRANK_X if rx else DENSE_X)
-    rows = min(GRU_MAX_ROWS, _cdiv(b, sms))
+    want = min(GRU_MAX_ROWS, _cdiv(b, sms))
     threads = min(GRU_MAX_THREADS, GRU_SLICES * _cdiv(max(h, r), 8) * 8)
+    for rows in (want, *(n for n in ROW_BOUNDS if n < want)):
+        layout = _gru_layout(t, rows, f, rx, h, r, form, xside)
+        if layout is not None:
+            return GRUPlan(t, b, h, r, form, rows, threads, *layout)
+    raise ValueError(f"the GRU scan's state at T={t}, F={f}, rx={rx}, h={h}, r={r} does not "
+                     f"fit in {SMEM_LIMIT} bytes of shared memory")
+
+
+def _gru_layout(t, rows, f, rx, h, r, form, xside):
+    """(tblock, rec_weights, x_resident, smem_fwd, bwd_rec_weights, smem_bwd)
+    of ``rows`` rows a CTA, as `gru_plan` prefers them, or None where the
+    forward or the walk does not fit."""
     places = ("registers",) if h <= REG_H and r <= REG_R else ("shared", "L2")
     fwd = None
     for rec in places:
@@ -506,10 +522,7 @@ def gru_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
             break
     bwd = next(((rec, 4 * _bwd_floats(rows, h, r, form, rec)) for rec in places
                 if 4 * _bwd_floats(rows, h, r, form, rec) <= SMEM_LIMIT), None)
-    if fwd is None or bwd is None:
-        raise ValueError(f"the GRU scan's state at T={t}, F={f}, rx={rx}, h={h}, r={r} does not "
-                         f"fit in {SMEM_LIMIT} bytes of shared memory")
-    return GRUPlan(t, b, h, r, form, rows, threads, *fwd, *bwd)
+    return None if fwd is None or bwd is None else (*fwd, *bwd)
 
 
 def _plan_for(t, b, f, rx, h, r, form, device, gi=False):

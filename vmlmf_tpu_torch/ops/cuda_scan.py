@@ -37,7 +37,10 @@ follows from what that forward stored.
 
 `scan_plan` decides how the kernels spread a scan over the card's SMs: the
 batch groups, each CTA's slices of the recurrent weights and the shared
-memory they take. It is plain Python, so the CPU tests reach it.
+memory they take. A batch too large for any plan (every CTA of a group
+holds that group's rows) runs in chunks of consecutive rows, one launch
+each (`scan_chunks`); the BPTTs add the chunks' weight gradients in chunk
+order. Both are plain Python, so the CPU tests reach them.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, so on the CPU the autograd functions run the plain forward
 and the plain backward. There is no fallback between the two: a CUDA input
@@ -359,6 +362,12 @@ def _input_shapes(t, b, f, rx, h, r):
     }
 
 
+def _arg_sizes(args):
+    """(T, B, F, rx, h, r) of a forward call's checked inputs."""
+    xs, ux, vx, _, _, u, v, _, h0, _ = args
+    return _sizes(xs, ux, vx, u, v, h0)
+
+
 def _check(args):
     """Validate a forward call's inputs; -> (T, B, F, rx, h, r)."""
     xs, ux, vx, _, _, u, v, _, h0, _ = args
@@ -603,8 +612,75 @@ def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False):
     return max(_splitk_floats(*shape) for shape in shapes)
 
 
-def _plan_for(b, h, r, device, bf16=False):
-    return scan_plan(b, h, r, _sm_count(device.index), 2 if bf16 else 4)
+@functools.lru_cache(maxsize=256)
+def scan_chunks(b, h, r, sms=SMS, elsize=4):
+    """The batch cut into as few chunks of consecutive rows as each have a
+    `scan_plan`, their sizes at most one apart -> ((b_begin, b_count, plan),
+    ...): one launch takes a chunk. A batch that has a plan is one chunk
+    (the PTB VMLMF LM layer up to B=656 in f32, 832 in bf16; the dense one
+    up to 476). Raises `scan_plan`'s ValueError when not even one row has
+    a plan."""
+    scan_plan(1, h, r, sms, elsize)
+    for n in range(1, b + 1):
+        bounds = [_split_at(i, b, n) for i in range(n + 1)]
+        try:
+            return tuple((b0, b1 - b0, scan_plan(b1 - b0, h, r, sms, elsize))
+                         for b0, b1 in zip(bounds, bounds[1:]))
+        except ValueError:
+            continue
+    raise AssertionError("one row has a plan, so b chunks of one row have")
+
+
+def _chunks_for(b, h, r, device, bf16=False):
+    return scan_chunks(b, h, r, _sm_count(device.index), 2 if bf16 else 4)
+
+
+def _rows(a, dim, b0, n):
+    """Rows [b0, b0 + n) of ``a`` along its batch dim ``dim`` as a contiguous
+    tensor; ``a`` itself where it has no batch dim (None) or is None."""
+    return a if a is None or dim is None else a.narrow(dim, b0, n).contiguous()
+
+
+def _by_chunks(fn, name, chunks, launch, tensors, dims, out_dims):
+    """Run ``launch(plan, *tensors)`` once for each chunk of rows, on the
+    chunk's rows of each tensor whose batch dim ``dims`` gives (None: the
+    same tensor for every chunk), counting each launch under ``fn``'s
+    variant ``name`` -> its outputs over the whole batch: those with a batch
+    dim in ``out_dims`` joined along it, the others (weight gradients, None
+    in ``out_dims``) summed over the chunks in chunk order, in f32. One
+    chunk is one launch on the caller's tensors."""
+    if len(chunks) == 1:
+        out = launch(chunks[0][2], *tensors)
+        _counted(fn, name)
+        return out
+    parts = []
+    for b0, n, plan in chunks:
+        parts.append(launch(plan, *(_rows(a, d, b0, n) for a, d in zip(tensors, dims))))
+        _counted(fn, name)
+    joined = []
+    for i, dim in enumerate(out_dims):
+        pieces = [p[i] for p in parts]
+        if pieces[0] is None:
+            joined.append(None)
+        elif dim is None:
+            total = pieces[0]
+            for piece in pieces[1:]:
+                total.add_(piece)
+            joined.append(total)
+        else:
+            joined.append(torch.cat(pieces, dim))
+    return tuple(joined)
+
+
+# batch dims of the entries' tensors (None: no batch dim, the same for every
+# chunk): x mode's (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0) and gi
+# mode's (gi, u, v, dvec, h0, c0), which their gradients share; the BPTTs'
+# residuals and cotangents
+_XIN_ROWS = (1, None, None, None, None, None, None, None, 0, 0)
+_GI_ROWS = (1, None, None, None, 0, 0)
+_XIN_BWD_ROWS = (1, None, None, None, None, None, None, 0, 0,   # xs ... c0
+                 1, 1, 1, 1, 1, 1, 0, None)                    # ys ... xu, dys, dc_last, bias
+_GI_BWD_ROWS = (None, None, None, 0, 0, 1, 1, 1, 1, 1, 0)     # u ... hu, dys, dc_last
 
 
 @functools.lru_cache(maxsize=None)
@@ -667,9 +743,10 @@ def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="
     sums). Returns (ys [T, B, h], c_last [B, h]).
 
     CPU tensors run `lstm_scan_fused_xin_plain`. CUDA tensors must be float32,
-    contiguous and on one device; the kernel runs on the current stream and
-    ``lstm_scan_fused_xin.launches`` counts its calls (``.variants`` by
-    precision). A CUDA input that requires a gradient, with grad mode on,
+    contiguous and on one device; the kernel runs on the current stream, one
+    launch for each chunk of rows (`scan_chunks`; one up to B=656 at the
+    PTB LM layer), and ``lstm_scan_fused_xin.launches`` counts the launches
+    (``.variants`` by precision). A CUDA input that requires a gradient, with grad mode on,
     raises: that call belongs to `LSTMScanXin`.
     """
     args = (xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0)
@@ -679,16 +756,23 @@ def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="
     sizes = _check(args)
     _require_cuda("lstm_scan_fused_xin", xs)
     _refuse_grad("lstm_scan_fused_xin", args, "LSTMScanXin")
-    t, b, f, rx, h, r = sizes
+    _, b, _, _, h, r = sizes
     with torch.cuda.device(xs.device):
-        plan = _plan_for(b, h, r, xs.device, bf16)
-        new = _empty(xs)
-        xu = new(t * b, rx) if rx else None
-        gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
-        xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
-        _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync),
-                (*sizes, *plan.ints("fwd"), int(bf16)), xs.device)
-    _counted(lstm_scan_fused_xin, variant(precision))
+        return _by_chunks(lstm_scan_fused_xin, variant(precision),
+                          _chunks_for(b, h, r, xs.device, bf16),
+                          functools.partial(_xin_fwd_launch, bf16), args, _XIN_ROWS, (1, 0))
+
+
+def _xin_fwd_launch(bf16, plan, *args):
+    """One launch of entry ``lstm_scan_xin_fwd`` on a chunk -> (ys, c_last)."""
+    xs = args[0]
+    t, b, _, rx, h, _ = sizes = _arg_sizes(args)
+    new = _empty(xs)
+    xu = new(t * b, rx) if rx else None
+    gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
+    xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
+    _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync),
+            (*sizes, *plan.ints("fwd"), int(bf16)), xs.device)
     return ys, c_last
 
 
@@ -711,22 +795,31 @@ def lstm_scan_fused_xin_res(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precisi
         return lstm_scan_xin_fwd_res_plain(*args, precision, residuals, save_gates)
     sizes = _check(args)
     _require_cuda("lstm_scan_fused_xin_res", xs)
-    t, b, f, rx, h, r = sizes
-    rdt = _res_dtype(residuals)
+    _, b, _, _, h, r = sizes
     with torch.cuda.device(xs.device):
-        plan = _plan_for(b, h, r, xs.device, bf16)
-        new = _empty(xs)
-        xu = new(t, b, rx) if rx else None
-        gates = hu = None
-        if save_gates:
-            gates = torch.empty((t, b, 4 * h), dtype=rdt, device=xs.device)
-            hu = torch.empty((t, b, r), dtype=rdt, device=xs.device) if r else None
-        gi, ys, cs = new(t * b, 4 * h), new(t, b, h), new(t, b, h)
-        xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
-        policy = (_RES_BF16 if residuals == "bf16" else _RES_F32) if save_gates else _RES_NONE
-        _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu, xchg, sync),
-                (*sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
-    _counted(lstm_scan_fused_xin_res, variant(precision, residuals, save_gates))
+        return _by_chunks(lstm_scan_fused_xin_res, variant(precision, residuals, save_gates),
+                          _chunks_for(b, h, r, xs.device, bf16),
+                          functools.partial(_xin_res_launch, bf16, residuals, save_gates), args,
+                          _XIN_ROWS, (1, 1, 1, 1, 1))
+
+
+def _xin_res_launch(bf16, residuals, save_gates, plan, *args):
+    """One launch of entry ``lstm_scan_xin_fwd_res`` on a chunk -> (ys, cs,
+    gates, hu, xu)."""
+    xs = args[0]
+    t, b, _, rx, h, r = sizes = _arg_sizes(args)
+    rdt = _res_dtype(residuals)
+    new = _empty(xs)
+    xu = new(t, b, rx) if rx else None
+    gates = hu = None
+    if save_gates:
+        gates = torch.empty((t, b, 4 * h), dtype=rdt, device=xs.device)
+        hu = torch.empty((t, b, r), dtype=rdt, device=xs.device) if r else None
+    gi, ys, cs = new(t * b, 4 * h), new(t, b, h), new(t, b, h)
+    xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
+    policy = (_RES_BF16 if residuals == "bf16" else _RES_F32) if save_gates else _RES_NONE
+    _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu, xchg, sync),
+            (*sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
     return ys, cs, gates, hu, (xu if save_gates else None)
 
 
@@ -750,26 +843,37 @@ def lstm_scan_xin_bwd(xs, ux, vx, xdvec, u, v, dvec, h0, c0, ys, cs, gates, hu, 
         return lstm_scan_xin_bwd_plain(*saved, dys, dc_last, bias=bias, precision=precision)
     sizes, policy = _check_bwd(saved, dys, dc_last, bias)
     _require_cuda("lstm_scan_xin_bwd", xs)
-    t, b, f, rx, h, r = sizes
-    rebuild = policy != _RES_F32  # widened bf16 residuals, or the recompute pre-pass
-    with torch.cuda.device(xs.device):
-        plan = _plan_for(b, h, r, xs.device, bf16)
-        new = _empty(xs)
-        dpre = new(t * b, 4 * h)
-        dhu = new(t * b, r) if r else None
-        dxu = new(t * b, rx) if rx else None
-        work = (new(t * b, 4 * h) if rebuild else None, new(t * b, r) if rebuild and r else None,
-                new(t * b, rx) if policy == _RES_NONE and rx else None)
-        grads = (new(t, b, f), torch.empty_like(ux), new(rx, 4 * h) if rx else None, new(4, h),
-                 new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
-                 new(b, h), new(b, h))
-        partial = new(max(1, bwd_partial_floats(*sizes, recompute=policy == _RES_NONE)))
-        _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
-                (*saved[:4], bias, *saved[4:], dys, dc_last, *work, dpre, dhu, dxu, *grads,
-                 new(plan.xchg_bwd), _sync_words(plan, xs), partial),
-                (partial.numel(), *sizes, *plan.ints("bwd"), int(bf16), policy), xs.device)
+    _, b, _, _, h, r = sizes
     res = ("bf16" if policy == _RES_BF16 else "f32")
-    _counted(lstm_scan_xin_bwd, variant(precision, res, policy != _RES_NONE))
+    with torch.cuda.device(xs.device):
+        return _by_chunks(lstm_scan_xin_bwd, variant(precision, res, policy != _RES_NONE),
+                          _chunks_for(b, h, r, xs.device, bf16),
+                          functools.partial(_xin_bwd_launch, bf16), (*saved, dys, dc_last, bias),
+                          _XIN_BWD_ROWS, _XIN_ROWS)
+
+
+def _xin_bwd_launch(bf16, plan, *tensors):
+    """One launch of the BPTT on a chunk of rows -> its gradients, the
+    weights' over the chunk's rows alone."""
+    *saved, dys, dc_last, bias = tensors
+    xs, ux, vx, _, u, v, _, h0 = saved[:8]
+    t, b, f, rx, h, r = sizes = _sizes(xs, ux, vx, u, v, h0)
+    policy = _RES_NONE if saved[11] is None else _residual_dtypes(saved[11], saved[12])[1]
+    rebuild = policy != _RES_F32  # widened bf16 residuals, or the recompute pre-pass
+    new = _empty(xs)
+    dpre = new(t * b, 4 * h)
+    dhu = new(t * b, r) if r else None
+    dxu = new(t * b, rx) if rx else None
+    work = (new(t * b, 4 * h) if rebuild else None, new(t * b, r) if rebuild and r else None,
+            new(t * b, rx) if policy == _RES_NONE and rx else None)
+    grads = (new(t, b, f), torch.empty_like(ux), new(rx, 4 * h) if rx else None, new(4, h),
+             new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
+             new(b, h), new(b, h))
+    partial = new(max(1, bwd_partial_floats(*sizes, recompute=policy == _RES_NONE)))
+    _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
+            (*saved[:4], bias, *saved[4:], dys, dc_last, *work, dpre, dhu, dxu, *grads,
+             new(plan.xchg_bwd), _sync_words(plan, xs), partial),
+            (partial.numel(), *sizes, *plan.ints("bwd"), int(bf16), policy), xs.device)
     return grads
 
 
@@ -825,17 +929,24 @@ def lstm_scan_fused(gi, u, v, dvec, h0, c0, precision="f32"):
     bf16 = _bf16(precision)
     if _on_cpu(args):
         return lstm_scan_fused_plain(*args, precision)
-    t, b, h, r = _check_gi(args)
+    _, b, h, r = _check_gi(args)
     _require_cuda("lstm_scan_fused", gi)
     _refuse_grad("lstm_scan_fused", args, "LSTMScan")
     with torch.cuda.device(gi.device):
-        plan = _plan_for(b, h, r, gi.device, bf16)
-        new = _empty(gi)
-        ys, c_last = new(t, b, h), new(b, h)
-        _launch(KERNEL, "lstm_scan_fwd", (*args, ys, c_last, new(plan.xchg_fwd),
-                                          _sync_words(plan, gi)),
-                (t, b, h, r, *plan.ints("fwd"), int(bf16)), gi.device)
-    _counted(lstm_scan_fused, variant(precision))
+        return _by_chunks(lstm_scan_fused, variant(precision),
+                          _chunks_for(b, h, r, gi.device, bf16),
+                          functools.partial(_gi_fwd_launch, bf16), args, _GI_ROWS, (1, 0))
+
+
+def _gi_fwd_launch(bf16, plan, *args):
+    """One launch of entry ``lstm_scan_fwd`` on a chunk -> (ys, c_last)."""
+    gi, u, v, _, h0, _ = args
+    (t, b, _), h, r = gi.shape, h0.shape[-1], 0 if v is None else u.shape[-1]
+    new = _empty(gi)
+    ys, c_last = new(t, b, h), new(b, h)
+    _launch(KERNEL, "lstm_scan_fwd", (*args, ys, c_last, new(plan.xchg_fwd),
+                                      _sync_words(plan, gi)),
+            (t, b, h, r, *plan.ints("fwd"), int(bf16)), gi.device)
     return ys, c_last
 
 
@@ -851,20 +962,29 @@ def lstm_scan_fused_res(gi, u, v, dvec, h0, c0, precision="f32", residuals=None)
     residuals, _ = _policy(residuals, True)
     if _on_cpu(args):
         return lstm_recurrence_plain(*args, precision, residuals)
-    t, b, h, r = _check_gi(args)
+    _, b, h, r = _check_gi(args)
     _require_cuda("lstm_scan_fused_res", gi)
-    rdt = _res_dtype(residuals)
     with torch.cuda.device(gi.device):
-        plan = _plan_for(b, h, r, gi.device, bf16)
-        new = _empty(gi)
-        ys, cs = new(t, b, h), new(t, b, h)
-        gates = torch.empty((t, b, 4 * h), dtype=rdt, device=gi.device)
-        hu = torch.empty((t, b, r), dtype=rdt, device=gi.device) if r else None
-        _launch(KERNEL, "lstm_scan_fwd_res", (*args, ys, cs, gates, hu, new(plan.xchg_fwd),
-                                              _sync_words(plan, gi)),
-                (t, b, h, r, *plan.ints("fwd"), int(bf16),
-                 _RES_BF16 if residuals == "bf16" else _RES_F32), gi.device)
-    _counted(lstm_scan_fused_res, variant(precision, residuals))
+        return _by_chunks(lstm_scan_fused_res, variant(precision, residuals),
+                          _chunks_for(b, h, r, gi.device, bf16),
+                          functools.partial(_gi_res_launch, bf16, residuals), args, _GI_ROWS,
+                          (1, 1, 1, 1))
+
+
+def _gi_res_launch(bf16, residuals, plan, *args):
+    """One launch of entry ``lstm_scan_fwd_res`` on a chunk -> (ys, cs,
+    gates, hu)."""
+    gi, u, v, _, h0, _ = args
+    (t, b, _), h, r = gi.shape, h0.shape[-1], 0 if v is None else u.shape[-1]
+    rdt = _res_dtype(residuals)
+    new = _empty(gi)
+    ys, cs = new(t, b, h), new(t, b, h)
+    gates = torch.empty((t, b, 4 * h), dtype=rdt, device=gi.device)
+    hu = torch.empty((t, b, r), dtype=rdt, device=gi.device) if r else None
+    _launch(KERNEL, "lstm_scan_fwd_res", (*args, ys, cs, gates, hu, new(plan.xchg_fwd),
+                                          _sync_words(plan, gi)),
+            (t, b, h, r, *plan.ints("fwd"), int(bf16),
+             _RES_BF16 if residuals == "bf16" else _RES_F32), gi.device)
     return ys, cs, gates, hu
 
 
@@ -879,6 +999,21 @@ def lstm_scan_bwd(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, precision
     bf16 = _bf16(precision)
     if _on_cpu((u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last)):
         return lstm_scan_bwd_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, precision)
+    tensors = (u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last)
+    _, b, h, r, policy = _check_gi_bwd(tensors)
+    _require_cuda("lstm_scan_bwd", ys)
+    res = "bf16" if policy == _RES_BF16 else "f32"
+    with torch.cuda.device(ys.device):
+        return _by_chunks(lstm_scan_bwd, variant(precision, res),
+                          _chunks_for(b, h, r, ys.device, bf16),
+                          functools.partial(_gi_bwd_launch, bf16), tensors, _GI_BWD_ROWS,
+                          _GI_ROWS)
+
+
+def _check_gi_bwd(tensors):
+    """Validate a gi-mode BPTT call's residuals and cotangents -> (T, B, h,
+    r, the residual policy as the C entry numbers it)."""
+    u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last = tensors
     t, b, h = ys.shape
     r = 0 if v is None else u.shape[-1]
     if (hu is None) != (v is None):
@@ -888,21 +1023,26 @@ def lstm_scan_bwd(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, precision
                 hu=(t, b, r), dys=(t, b, h), dc_last=(b, h))
     names = ("ys", "u", "v", "dvec", "h0", "c0", "cs", "gates", "hu", "dys", "dc_last")
     _check_tensors(names, (ys, u, v, dvec, h0, c0, cs, gates, hu, dys, dc_last), want, dtypes)
-    _require_cuda("lstm_scan_bwd", ys)
-    widen = policy == _RES_BF16
-    with torch.cuda.device(ys.device):
-        plan = _plan_for(b, h, r, ys.device, bf16)
-        new = _empty(ys)
-        work = (new(t * b, 4 * h) if widen else None, new(t * b, r) if widen and r else None)
-        dgi, dhu = new(t, b, 4 * h), new(t * b, r) if r else None
-        grads = (dgi, torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h), new(b, h),
-                 new(b, h))
-        partial = new(max(1, bwd_partial_floats(t, b, 1, 0, h, r, gi=True)))
-        _launch(BWD_KERNEL, "lstm_scan_bwd",
-                (u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, *work, dgi, dhu, *grads[1:],
-                 new(plan.xchg_bwd), _sync_words(plan, ys), partial),
-                (partial.numel(), t, b, h, r, *plan.ints("bwd"), int(bf16), policy), ys.device)
-    _counted(lstm_scan_bwd, variant(precision, "bf16" if widen else "f32"))
+    return t, b, h, r, policy
+
+
+def _gi_bwd_launch(bf16, plan, *tensors):
+    """One launch of entry ``lstm_scan_bwd`` on a chunk -> (dgi, du, dv,
+    ddvec, dh0, dc0), the weights' over the chunk's rows alone."""
+    u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last = tensors
+    (t, b, h), r = ys.shape, 0 if v is None else u.shape[-1]
+    widen = _residual_dtypes(gates, hu)[1] == _RES_BF16
+    policy = _RES_BF16 if widen else _RES_F32
+    new = _empty(ys)
+    work = (new(t * b, 4 * h) if widen else None, new(t * b, r) if widen and r else None)
+    dgi, dhu = new(t, b, 4 * h), new(t * b, r) if r else None
+    grads = (dgi, torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h), new(b, h),
+             new(b, h))
+    partial = new(max(1, bwd_partial_floats(t, b, 1, 0, h, r, gi=True)))
+    _launch(BWD_KERNEL, "lstm_scan_bwd",
+            (u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, *work, dgi, dhu, *grads[1:],
+             new(plan.xchg_bwd), _sync_words(plan, ys), partial),
+            (partial.numel(), t, b, h, r, *plan.ints("bwd"), int(bf16), policy), ys.device)
     return grads
 
 

@@ -175,15 +175,36 @@ Phases, each of which exits non-zero when it fails:
                validation perplexity must be finite and below the first
                logged training perplexity. Launches (only the path's
                family), seconds an epoch and the LM's words/s.
- 18. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+ 18. ranker  — the session ranker at the JAX package's bench config
+               (bench.py:533-543, :590-594: 100,000 items, H=650, one VMLMF
+               layer w300/u300, T=35, B=128, k=100; seeded random weights):
+               `rank_next` on "fused" (exactly one no-grad launch a call)
+               held to the "loop" backend on the card (equal ids, scores to
+               1e-4); serving sessions/s, the median of CUDA-event times of
+               24 chained calls (each call's next batch from its ids, as
+               bench.py chains them), at 100,000 items and at 1,000,000 (the
+               table drawn on the card); the full-row `torch.topk` against
+               `blocked_topk` at both sizes; the sparse trainer (8 chunks of
+               sampled softmax, 8192 negatives, in-batch negatives; one
+               residual forward and one BPTT a chunk) in training sessions/s;
+               its 3 steps held to the dense sampled trainer on the same
+               negatives (loss and gnorm to 1e-5 relative, every tensor to
+               1e-4), two equal steps to equal bits; a step's peak memory
+               and device-busy share (`torch.profiler`).
+ 19. parallel — `vmlmf_tpu_torch.parallel` on NCCL at world size 1 (a free
+               port on 127.0.0.1): `dryrun_multichip(1)` (phases 1 and 3;
+               phase 2 needs two ranks on "model"), one `LMTrainer` and one
+               `HARTrainer` step with a mesh, each bit-equal to the same step
+               without one, and `topk_sharded` at S=1 bit-equal to `topk`.
+ 20. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
                device time of each kernel, the port's against cuBLAS's. A
                profiler error or an empty trace fails.
- 19. report  — one JSON line listing every kernel entry in every form that
+ 21. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-17 every launch count is set to 0 just before the path runs and
+In phases 5-19 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -192,6 +213,8 @@ from __future__ import annotations
 
 import json
 import os
+import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -226,6 +249,10 @@ REDUCED_STEPS = 3
 # (T, B, F, h, rx, r) whose four rows a CTA do not fit in shared memory
 PLAN_BATCH = 1024
 GRU_WIDE = (24, 512, 77, 1000, 0, 0)
+# the session ranker's bench config (bench.py:533-543, :590-594) and the
+# larger catalog scripts/bench_ranker.py:70 serves
+RANKER = dict(items=100_000, items_big=1_000_000, hidden=650, rank=300, t=35, b=128, k=100,
+              negatives=8192, chunks=8, serve_calls=24)
 
 # The HAR paths at full width: their `HARConfig` fields and the kernel form
 # they run ("family:form"): first the low-rank ones, then the dense forms.
@@ -2837,6 +2864,263 @@ def phase_cli(torch):
 PROFILE_SESSIONS = 3  # profiled runs of one call before an empty trace fails
 
 
+def ranker_model(backend, items=RANKER["items"]):
+    from vmlmf_tpu_torch.serve.ranker import SessionRanker
+
+    return SessionRanker.create(items, hidden_size=RANKER["hidden"], num_layers=1,
+                                w_rank=RANKER["rank"], u_rank=RANKER["rank"], backend=backend)
+
+
+def median_event_ms(torch, fn, calls):
+    """The median over `calls` calls of fn() of each call's CUDA-event time."""
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def serving_rate(torch, ranker, params):
+    """Sessions/s of chained `rank_next` calls: each call's next batch is the
+    last one shifted by a step, with each session's top item appended."""
+    n, t, b = ranker.num_items, RANKER["t"], RANKER["b"]
+    g = torch.Generator().manual_seed(3)
+    state = {"sess": torch.randint(0, n, (t, b), generator=g).cuda()}
+
+    def call():
+        with torch.no_grad():
+            _, top = ranker.rank_next(params, state["sess"], RANKER["k"])
+        state["sess"] = torch.cat([state["sess"][1:], top[:, :1].T.long() % n])
+
+    for _ in range(2):
+        call()
+    ms = median_event_ms(torch, call, RANKER["serve_calls"])
+    print(f"ranker: serving at N={n}: {ms:.3f} ms a call (median of {RANKER['serve_calls']} "
+          f"chained), {b / ms * 1e3:.1f} sessions/s")
+    return dict(call_ms=ms, sessions_per_s=b / ms * 1e3)
+
+
+def topk_times(torch, ranker, params, h):
+    """The full-row torch.topk against blocked_topk on the score rows of h:
+    equal values (and ids) and the ms of each."""
+    from vmlmf_tpu_torch.serve.ranker import blocked_topk
+
+    k = RANKER["k"]
+    with torch.no_grad():
+        scores = ranker.score(params, h)
+    full_v, full_i = torch.topk(scores, k)
+    blk_v, blk_i = blocked_topk(scores, k)
+    if not torch.equal(full_v, blk_v) or not torch.equal(full_i.int(), blk_i):
+        fail(f"blocked_topk disagrees with torch.topk at N={ranker.num_items}")
+    full_ms = cuda_ms(torch, lambda: torch.topk(scores, k), 20)
+    blk_ms = cuda_ms(torch, lambda: blocked_topk(scores, k), 20)
+    print(f"ranker: top-{k} of [{scores.shape[0]}, {scores.shape[1]}] scores: torch.topk "
+          f"{full_ms:.4f} ms, blocked_topk {blk_ms:.4f} ms")
+    return dict(full_row_ms=full_ms, blocked_ms=blk_ms)
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [clone_tree(v) for v in tree]
+    return tree.detach().clone()
+
+
+def phase_ranker(torch):
+    """-> the launch counts of the ranker's serving and training paths."""
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    n, t, b, k, chunks = (RANKER[key] for key in ("items", "t", "b", "k", "chunks"))
+    fused, loop = ranker_model("fused"), ranker_model("loop")
+    params = fused.init(torch.Generator().manual_seed(0), device="cuda")
+    sess = torch.randint(0, n, (t, b), generator=torch.Generator().manual_seed(1)).cuda()
+
+    # -- serving: the main path, with the launch counts read around it
+    reset_launch_counts()
+    with torch.no_grad():
+        vals, top = fused.rank_next(params, sess, k)
+    torch.cuda.synchronize()
+    serve_launches = launch_counts()
+    print(f"ranker: rank_next launches {nonzero(serve_launches)}")
+    if serve_launches != only(lstm_scan_xin_fwd=1):
+        fail(f"a rank_next call must launch the no-grad scan once: {serve_launches}")
+    with torch.no_grad():
+        lvals, ltop = loop.rank_next(params, sess, k)
+    ok, err = close(torch, vals, lvals)
+    same = torch.equal(top, ltop)
+    print(f"ranker: fused vs loop rank_next at N={n}, B={b}, k={k}: ids equal {same}, scores "
+          f"max abs err {err:.3g} (tol {TOL})")
+    if not (ok and same) or top.dtype != torch.int32:
+        fail("the fused ranker disagrees with the loop backend")
+    perf = {"serve": {str(n): serving_rate(torch, fused, params)}}
+    with torch.no_grad():
+        h, _ = fused.encode(params, sess)
+    perf["topk"] = {str(n): topk_times(torch, fused, params, h)}
+    big = ranker_model("fused", RANKER["items_big"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nb = RANKER["items_big"]
+    big_params = {"embed": {"w": torch.empty(nb, RANKER["hidden"], device="cuda").uniform_(
+                      -0.05, 0.05, generator=gen)},
+                  "rnn": params["rnn"],
+                  "fc": {"b": torch.empty(nb, device="cuda").uniform_(-0.05, 0.05,
+                                                                       generator=gen)}}
+    perf["serve"][str(nb)] = serving_rate(torch, big, big_params)
+    perf["topk"][str(nb)] = topk_times(torch, big, big_params, h)
+    del big_params
+
+    # -- training: the sparse trainer, 8 chunks a call
+    kw = dict(batch_size=b, seq_length=t, sampled_softmax=RANKER["negatives"],
+              in_batch_negatives=True)
+    sparse = fused.sparse_trainer(**kw)
+    g = torch.Generator().manual_seed(5)
+    xs = torch.randint(0, n, (chunks, t, b), generator=g).cuda()
+    ys = torch.randint(0, n, (chunks, t, b), generator=g).cuda()
+    negs = torch.randint(0, n, (chunks, RANKER["negatives"]), generator=g).cuda()
+    p0 = sparse.init()
+    p_train, s = clone_tree(p0), sparse.state0()
+    reset_launch_counts()
+    p_train, s, losses, gnorms = sparse.fused_chunks(p_train, s, xs, ys, 0.1, negatives=negs)
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    print(f"ranker: sparse trainer, {chunks} chunks: launches {nonzero(train_launches)}, "
+          f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}, last gnorm "
+          f"{float(gnorms[-1]):.4f}")
+    if train_launches != only(lstm_scan_xin_fwd_res=chunks, lstm_scan_xin_bwd=chunks):
+        fail(f"each chunk must launch the residual forward and the BPTT once: {train_launches}")
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"sparse trainer losses {losses.tolist()}")
+
+    def fused_call():
+        sparse.fused_chunks(p_train, s, xs, ys, 0.1, negatives=negs)
+
+    fused_call()
+    ms = median_event_ms(torch, fused_call, 5)
+    perf["train"] = dict(call_ms=ms, chunks=chunks, sessions_per_s=chunks * b / ms * 1e3)
+    print(f"ranker: sparse training, {ms:.3f} ms a call of {chunks} chunks (median of 5), "
+          f"{perf['train']['sessions_per_s']:.1f} sessions/s")
+
+    # -- the sparse steps against the dense sampled trainer on the same negatives
+    dense = fused.trainer(**kw)
+    pd, ps = clone_tree(p0), clone_tree(p0)
+    sd, ss = dense.state0(), sparse.state0()
+    worst = 0.0
+    for i in range(3):
+        pd, sd, ld, gd = dense.train_step(pd, sd, xs[i], ys[i], 0.1, negatives=negs[i])
+        ps, ss, ls, gs = sparse.train_step(ps, ss, xs[i], ys[i], 0.1, negatives=negs[i])
+        rel = max(abs(float(ld) - float(ls)) / abs(float(ld)),
+                  abs(float(gd) - float(gs)) / abs(float(gd)))
+        worst = max(worst, rel)
+    ok, err = all_close(torch, [p.detach() for p in tree_leaves(ps)],
+                        [p.detach() for p in tree_leaves(pd)], TOL)
+    print(f"ranker: sparse vs dense sampled trainer over 3 steps: loss/gnorm largest relative "
+          f"diff {worst:.3g} (tol 1e-5), parameters max abs err {err:.3g} (tol {TOL})")
+    if not (worst <= 1e-5 and ok):
+        fail("the sparse trainer disagrees with the dense sampled trainer")
+    # two equal steps, equal bits (sorted, deterministic scatter-adds)
+    outs = []
+    for _ in range(2):
+        p = clone_tree(p0)
+        p, _, loss, gnorm = sparse.train_step(p, sparse.state0(), xs[0], ys[0], 0.1,
+                                              negatives=negs[0])
+        outs.append([loss, gnorm] + tree_leaves(p))
+    equal = all(torch.equal(a, c) for a, c in zip(*outs))
+    print(f"ranker: two equal sparse steps give equal bits: {equal} (tol 0)")
+    if not equal:
+        fail("two equal sparse steps differ")
+
+    def step():
+        sparse.train_step(p_train, s, xs[0], ys[0], 0.1, negatives=negs[0])
+
+    perf["train"]["step_peak_mib"] = peak_step_mib(torch, step)
+    tr = trace_step(torch, f"ranker sparse train step at B={b}", step)
+    perf["train"]["trace"] = dict(tr, idle_share=1 - tr["busy_ms"] / tr["wall_ms"])
+    print(f"ranker: train step peak {perf['train']['step_peak_mib']:.1f} MiB")
+    print(json.dumps({"ranker": perf}))
+    return [("lstm:lowrank", serve_launches), ("lstm:lowrank", train_launches)]
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def trees_equal(torch, a, b):
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_parallel(torch):
+    """The parallel layer on NCCL at world size 1."""
+    import torch.distributed as dist
+
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.parallel import mesh as pmesh
+    from vmlmf_tpu_torch.parallel.dryrun import dryrun_multichip
+    from vmlmf_tpu_torch.train.har import HARTrainer
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    pmesh.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device_type="cuda", timeout=120)
+    try:
+        print(f"parallel: backend {dist.get_backend()}, world {dist.get_world_size()}")
+        out = dryrun_multichip(1)
+        print(f"parallel: dryrun_multichip(1) losses {out}")
+        if out["pipeline"] is not None:
+            fail("phase 2 of the dry run needs two ranks on 'model'")
+        mesh = pmesh.make_mesh(1, 1)
+
+        trn, _ = lm_chunks(MAIN_BATCH)
+        model = lm_model("fused", dropout_rate=0.5)
+        results = []
+        for m in (None, mesh):
+            t = LMTrainer(model, batch_size=MAIN_BATCH, seq_length=LM["prompt"], mesh=m)
+            p, st = t.init(), t.state0()
+            x, y = t.commit_batch(*trn[0]) if m is not None else trn[0]
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            p, st, loss, gnorm = t.train_step(p, st, x, y, 1.0, gen)
+            results.append((p, st, loss, gnorm))
+        (p0, s0, l0, g0), (p1, s1, l1, g1) = results
+        lm_equal = (torch.equal(l0, l1) and torch.equal(g0, g1) and trees_equal(torch, p0, p1)
+                    and trees_equal(torch, s0, s1))
+        print(f"parallel: LM step with a 1x1 mesh bit-equal to the step without: {lm_equal} "
+              f"(loss {float(l1):.6f}, gnorm {float(g1):.6f})")
+
+        x, y, _, _ = synthetic_har("opp", n_train=HAR["b"], n_test=1, seed=2)
+        har = []
+        for m in (None, mesh):
+            t = HARTrainer(har_model("vmlmf"), batch_size=HAR["b"], mesh=m)
+            p, opt = t.init()
+            xb, yb = t.commit_batch(x, y) if m is not None else (x, y)
+            for _ in range(2):
+                p, opt, loss = t.train_step(p, opt, xb, yb)
+            har.append((p, loss))
+        har_equal = trees_equal(torch, har[0][0], har[1][0]) and torch.equal(har[0][1], har[1][1])
+        print(f"parallel: HAR (two Adam steps) with a 1x1 mesh bit-equal to without: "
+              f"{har_equal}")
+
+        ranker = ranker_model("fused")
+        params = ranker.init(torch.Generator().manual_seed(0), device="cuda")
+        sess = torch.randint(0, ranker.num_items, (RANKER["t"], RANKER["b"]),
+                             generator=torch.Generator().manual_seed(1)).cuda()
+        with torch.no_grad():
+            h, _ = ranker.encode(params, sess)
+            want = ranker.topk(params, h, RANKER["k"], exclude=sess)
+            got = ranker.topk_sharded(params, h, RANKER["k"], mesh, exclude=sess)
+        topk_equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"parallel: topk_sharded at S=1 bit-equal to topk: {topk_equal}")
+        if not (lm_equal and har_equal and topk_equal):
+            fail("a step or a retrieval with a one-rank mesh differs from the one without")
+    finally:
+        dist.destroy_process_group()
+
+
 def device_events(torch, run, label, cpu=True):
     """run() once warm, then once under torch.profiler -> ([(kernel name, ms)]
     of its device events, wall ms of the profiled run). A session that
@@ -3004,6 +3288,8 @@ def main():
     runs += wave_runs
     phase_plans(torch)
     runs += phase_cli(torch)
+    runs += phase_ranker(torch)
+    phase_parallel(torch)
     phase_trace(torch)
 
     kernels = kernel_report(rows, runs)

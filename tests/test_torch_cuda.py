@@ -1223,3 +1223,82 @@ def test_gru_layer_with_fewer_rows_a_cta_matches_plain(cuda):
         assert (got is None) == (want is None), name
         if want is not None:
             torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+
+
+def bench_ranker(backend, items=10_000):
+    """The ranker's bench width (H=650, one VMLMF layer w300/u300) over a
+    smaller catalog."""
+    from vmlmf_tpu_torch.serve.ranker import SessionRanker
+
+    return SessionRanker.create(items, hidden_size=650, num_layers=1, w_rank=300, u_rank=300,
+                                backend=backend)
+
+
+@pytest.mark.cuda
+def test_ranker_rank_next_fused_matches_loop(cuda):
+    fused, loop = bench_ranker("fused"), bench_ranker("loop")
+    params = fused.init(torch.Generator().manual_seed(0), device=cuda)
+    sess = torch.randint(0, fused.num_items, (35, 32),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = cuda_scan.lstm_scan_fused_xin.launches
+    with torch.no_grad():
+        vals, top = fused.rank_next(params, sess, 100, exclude_seen=True)
+        want_v, want_i = loop.rank_next(params, sess, 100, exclude_seen=True)
+    torch.cuda.synchronize()
+    assert cuda_scan.lstm_scan_fused_xin.launches == before + 1
+    assert top.dtype == torch.int32 and torch.equal(top, want_i)
+    torch.testing.assert_close(vals, want_v, **TOL)
+
+
+@pytest.mark.cuda
+def test_ranker_sparse_step_with_kernels_matches_plain_path(cuda):
+    """One sparse sampled-softmax step on "fused" (the residual forward and the
+    BPTT kernels) against "loop", from the same parameters and negatives;
+    and two equal "fused" steps to equal bits."""
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 10_000, (35, 32), generator=g).to(cuda)
+    y = torch.randint(0, 10_000, (35, 32), generator=g).to(cuda)
+    neg = torch.randint(0, 10_000, (1024,), generator=g).to(cuda)
+    outs = []
+    for backend in ("fused", "fused", "loop"):
+        t = bench_ranker(backend).sparse_trainer(batch_size=32, seq_length=35,
+                                                 sampled_softmax=1024, device=cuda)
+        p, _, loss, gnorm = t.train_step(t.init(), t.state0(), x, y, 0.1, negatives=neg)
+        outs.append([loss, gnorm] + tree_leaves(p))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+    for a, b in zip(outs[0], outs[2]):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+def test_world1_nccl_lm_step_bit_equal_to_no_mesh(cuda):
+    import socket
+
+    import torch.distributed as dist
+
+    from vmlmf_tpu_torch.parallel import mesh as pmesh
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pmesh.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device_type="cuda", timeout=60)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        model = LMModel(vocab_size=1000, hidden_size=650, num_layers=2, dropout_rate=0.5,
+                        cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=300, u_rank=300))
+        g = torch.Generator().manual_seed(3)
+        x, y = (torch.randint(0, 1000, (35, 20), generator=g) for _ in range(2))
+        outs = []
+        for m in (None, mesh):
+            t = LMTrainer(model, batch_size=20, seq_length=35, mesh=m)
+            gen = torch.Generator(device=cuda).manual_seed(4)
+            p, st, loss, gnorm = t.train_step(t.init(), t.state0(), x, y, 1.0, gen)
+            outs.append([loss, gnorm] + tree_leaves(p) + tree_leaves(st))
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+    finally:
+        dist.destroy_process_group()

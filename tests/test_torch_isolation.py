@@ -37,14 +37,15 @@ def test_port_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     summary, names = out.stdout.splitlines()
     count, bad = summary.split(maxsplit=1)
-    assert int(count) >= 47
+    assert int(count) >= 54
     assert bad.strip() == "[]"
     for name in ("train.lm", "train.har", "data.batching", "data.ptb", "data.har", "nn.models",
                  "cells.gru", "ops.cuda_gru", "cells.lstm", "cells.group", "cells.legacy",
                  "config", "ops.cuda_stack", "ops.pipeline", "cli.har_main", "cli.lm_main",
                  "train.checkpoint", "data._native", "data.sliding_window",
                  "data.opp_preprocess", "data.download", "utils.analytics", "utils.timer",
-                 "utils.profiling"):
+                 "utils.profiling", "serve.ranker", "parallel.mesh", "parallel.spmd",
+                 "parallel.sharding", "parallel.pipeline_parallel", "parallel.dryrun"):
         assert f"vmlmf_tpu_torch.{name}" in names.split()
 
 

@@ -25,9 +25,10 @@ import argparse
 
 import torch
 
-from vmlmf_tpu_torch.cli import BACKENDS, backend_name
+from vmlmf_tpu_torch.cli import BACKENDS
 from vmlmf_tpu_torch.config import HARConfig
 from vmlmf_tpu_torch.data.har import load_or_synthesize
+from vmlmf_tpu_torch.nn.recurrence import backend_name
 from vmlmf_tpu_torch.train.checkpoint import load_checkpoint, run_name, save_checkpoint
 from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
 from vmlmf_tpu_torch.utils.analytics import compression_report, count_params, model_flops

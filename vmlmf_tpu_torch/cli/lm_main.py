@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import argparse
 
-from vmlmf_tpu_torch.cli import BACKENDS, backend_name
+from vmlmf_tpu_torch.cli import BACKENDS
 from vmlmf_tpu_torch.config import LMConfig
 from vmlmf_tpu_torch.data import ptb
+from vmlmf_tpu_torch.nn.recurrence import backend_name
 from vmlmf_tpu_torch.train.lm import LMTrainer
 from vmlmf_tpu_torch.utils.analytics import count_params
 

@@ -64,6 +64,15 @@ from vmlmf_tpu_torch.ops.pipeline import pipelined_available, pipelined_lstm_sca
 BACKENDS = ("loop", "fused")
 WAVEFRONT_BACKENDS = ("pipelined", "fused_pipelined")
 WAVEFRONT_KNOB = "VMLMF_EXPERIMENTAL_WAVEFRONT"
+# the JAX package's names for the backends, which the entry points also accept
+JAX_BACKENDS = {"xla": "loop", "pallas": "fused", "pallas_pipelined": "fused_pipelined"}
+
+
+def backend_name(name):
+    """A backend as the port names it: the JAX package's names map to the
+    port's (xla -> loop, pallas -> fused, pallas_pipelined ->
+    fused_pipelined); the port's own pass through."""
+    return JAX_BACKENDS.get(name, name)
 
 
 def _check_backend(backend):

@@ -172,8 +172,9 @@ Phases, each of which exits non-zero when it fails:
                --synthetic --vocab_size 10000 --total_epochs 1` at the PTB
                "medium" width on "fused", "fused_pipelined", then "fused"
                again (the first run also pays the warm-up), whose
-               validation perplexity must be finite and below the first
-               logged training perplexity. Launches (only the path's
+               validation perplexity must be finite and below a uniform
+               guess's, the vocabulary size (the epoch is one block of
+               `fuse_chunks`, logged once at its end). Launches (only the path's
                family), seconds an epoch and the LM's words/s.
  18. ranker  — the session ranker at the JAX package's bench config
                (bench.py:533-543, :590-594: 100,000 items, H=650, one VMLMF
@@ -191,20 +192,43 @@ Phases, each of which exits non-zero when it fails:
                negatives (loss and gnorm to 1e-5 relative, every tensor to
                1e-4), two equal steps to equal bits; a step's peak memory
                and device-busy share (`torch.profiler`).
- 19. parallel — `vmlmf_tpu_torch.parallel` on NCCL at world size 1 (a free
+ 19. graphs  — the paths that run many steps in one dispatch, as CUDA graphs
+               (`utils.graphs.StepGraph`), each held bit for bit to the same
+               step run eagerly from equal seeds and generators: the PTB LM
+               (2x650, w300/u300, T=35, dropout 0.5) in `LMTrainer.
+               _fused_chunks` (fit's block) over 8 chunks at B=20 and 128 on
+               "fused" and at B=20 on "fused_pipelined"; `perplexity` over
+               16 chunks; greedy decode of 64 tokens at B = 1/20/128, top-k
+               sampling at B=20 and beam search (16 steps, 4 beams) at
+               B=20; the HAR flagship VMLMF and the main HAR GRU, a block of
+               `fuse_batches` (64) Adam steps at B=81; the ranker's
+               `fused_chunks` at its bench config (8 chunks, 8192 negatives
+               drawn in the graph). For each, eager and graphed: the launch
+               counts of a run (equal), the port's kernels in a trace of a
+               run of up to 16 steps (equal, one main kernel a counted launch,
+               the profiler's window padded with spin kernels), wall ms a step
+               (CUDA events, median of 3), busy ms and idle share from the
+               trace, the memory a run holds beyond what was live, the
+               capture's seconds and its pool; decode tokens/s. Then the
+               capturable Adam against the default one over 20 HAR steps
+               (1e-6 relative).
+ 20. parallel — `vmlmf_tpu_torch.parallel` on NCCL at world size 1 (a free
                port on 127.0.0.1): `dryrun_multichip(1)` (phases 1 and 3;
                phase 2 needs two ranks on "model"), one `LMTrainer` and one
                `HARTrainer` step with a mesh, each bit-equal to the same step
                without one, and `topk_sharded` at S=1 bit-equal to `topk`.
- 20. trace   — one `torch.profiler` trace each of an LM train step at B=20,
+ 21. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
-               device time of each kernel, the port's against cuBLAS's. A
-               profiler error or an empty trace fails.
- 21. report  — one JSON line listing every kernel entry in every form that
+               device time of each kernel, the port's against cuBLAS's (every
+               trace counts kernels, copies and sets, not the ranges that
+               `record_function` draws on the device's timeline, such as
+               `Optimizer.step`'s, in a window opened and closed by spin
+               kernels). A profiler error or an empty trace fails.
+ 22. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-19 every launch count is set to 0 just before the path runs and
+In phases 5-20 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -2781,8 +2805,8 @@ def phase_cli(torch):
     the VMLMF flagship, then tests its checkpoint in a second run (equal
     metrics); the HAR GRU; the UCI-HAR shape (T=128, F=9); the PTB LM CLI at
     the "medium" width on "fused" and on "fused_pipelined", whose validation
-    perplexity must be finite and below its first logged training
-    perplexity; then "fused" once more, as the first LM run also pays the
+    perplexity must be finite and below a uniform guess's (the vocabulary
+    size); then "fused" once more, as the first LM run also pays the
     process's warm-up. Each run's launches, seconds an epoch and (LM)
     words/s. -> runs for the kernels line."""
     import math
@@ -2840,16 +2864,21 @@ def phase_cli(torch):
             fail(f"cli lm {backend}: the {family} kernels, and only they, must launch: "
                  f"{nonzero(counts)}")
         runs.append((form, counts))
-        logged = [(t, line) for t, line in lines if line.startswith("batch ")]
+        # one line a block of fuse_chunks chunks ("chunks n/N, ..."), or one a
+        # log_every chunks ("batch i/N, ...") where the trainer steps one by one
+        logged = [(t, line) for t, line in lines if line.startswith(("chunks ", "batch "))]
         first_ppl = math.exp(float(logged[0][1].split("train loss = ")[1].split(",")[0]))
         wps = int(logged[-1][1].split("wps = ")[1].split(",")[0])
         start = next(t for t, line in lines if line.startswith("*parameters"))
         epoch_end = next(t for t, line in lines if "Validation set perplexity" in line)
         val_ppl = history[0]["val_ppl"]
-        if not (math.isfinite(val_ppl) and val_ppl < first_ppl):
+        # the untrained model guesses about uniformly (winit 0.05): a perplexity
+        # of about the vocabulary's size, which a log line at chunk 0 reported
+        # before the epoch ran as one block of fuse_chunks chunks, logged once
+        if not (math.isfinite(val_ppl) and val_ppl < LM["vocab"]):
             fail(f"cli lm {backend}: validation perplexity {val_ppl} is not finite and below "
-                 f"the first logged training perplexity {first_ppl}")
-        print(f"cli lm {backend}: first training perplexity {first_ppl:.1f}, validation "
+                 f"a uniform guess's, {LM['vocab']}")
+        print(f"cli lm {backend}: first logged training perplexity {first_ppl:.1f}, validation "
               f"{val_ppl:.3f}, test {history[-1]['test_ppl']:.3f}; {epoch_end - start:.3f} s "
               f"for the epoch and its validation, {wps} words/s (the trainer's last log line); "
               f"launches {nonzero(counts)}")
@@ -3044,6 +3073,342 @@ def phase_ranker(torch):
     return [("lstm:lowrank", serve_launches), ("lstm:lowrank", train_launches)]
 
 
+GRAPH = dict(chunks=8, decode_steps=64, beam_steps=16, beams=4, top_k=40, ppl_chunks=16,
+             adam_steps=20, repeats=3, traced=16)
+
+
+def graph_trace(torch, label, run):
+    """One profiled run() -> (Counter of the port's kernels by name, device
+    busy ms), with the launches counted over the same run: its trace must
+    hold one main kernel of the port for each. The window is padded
+    (`profiler_pad`); a session whose trace still lost kernel events is run
+    again, up to PROFILE_SESSIONS sessions, and the script fails if each
+    lost some."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for session in range(1, PROFILE_SESSIONS + 1):
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_pad(torch)
+            run()
+            torch.cuda.synchronize()
+            profiler_pad(torch)
+        launches = sum(launch_counts().values())
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                  if is_device_work(e)]
+        main = sum(1 for n, _ in events if any(k in n for k in MAIN_KERNELS))
+        if main == launches:
+            if session > 1:
+                print(f"profiler: {label}: the trace agrees with the counters in session "
+                      f"{session} of {PROFILE_SESSIONS}")
+            port = collections.Counter(n for n, _ in events if kernel_group(n) == "port")
+            return port, sum(ms for _, ms in events)
+        print(f"profiler: {label}: session {session}'s trace holds {main} main kernels of the "
+              f"port, the counters {launches}")
+    fail(f"graphs: {label}: no trace of a run agrees with its {launches} counted launches")
+
+
+def graph_side(torch, label, run, steps):
+    """One side (eager or graphed) of a path: ``run(n)`` takes n steps, and
+    one run was made already. -> dict of the launch counts of a run of
+    ``steps`` steps and the memory it held at its peak beyond what was live
+    (MiB); wall ms a step (the median of GRAPH["repeats"] CUDA-event timed
+    runs of ``steps`` steps); the port's kernels, busy ms a step and the
+    idle share from the trace of a run of at most GRAPH["traced"] steps."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run(steps)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    memory = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    wall = median_event_ms(torch, lambda: run(steps), GRAPH["repeats"]) / steps
+    traced = min(steps, GRAPH["traced"])
+    port, busy = graph_trace(torch, label, lambda: run(traced))
+    return dict(counts=counts, port=port, wall_ms=wall, busy_ms=busy / traced,
+                idle_share=1 - busy / traced / wall, memory_mib=memory)
+
+
+def graph_compare(torch, label, eager, graphed, steps, outs, graph, extra=None):
+    """Hold a graphed path to its eager loop: ``outs`` = (eager outputs,
+    graphed outputs), equal bit for bit; each side's `graph_side` over
+    ``eager(n)`` and ``graphed(n)``, runs of n steps, whose launch counts
+    and traced kernels must agree. ``graph``: the path's `StepGraph`. ->
+    (its report, the graphed side's launch counts over ``steps`` steps)."""
+    equal = trees_equal(torch, *outs)
+    if not equal:
+        fail(f"graphs: {label}: the graphed path's results differ from the eager loop's")
+    e = graph_side(torch, f"{label} (eager)", eager, steps)
+    g = graph_side(torch, f"{label} (graphed)", graphed, steps)
+    if e["counts"] != g["counts"] or e["port"] != g["port"]:
+        fail(f"graphs: {label}: a replayed step launches {nonzero(g['counts'])} (trace "
+             f"{dict(g['port'])}), the eager step {nonzero(e['counts'])} (trace "
+             f"{dict(e['port'])})")
+    runs = nonzero(g["counts"])
+    out = dict(bit_equal=equal, steps=steps, launches_a_run=runs, capture_s=graph.capture_seconds,
+               graph_pool_mib=graph.pool_bytes / 2 ** 20, **(extra or {}))
+    for side, d in (("eager", e), ("graphed", g)):
+        out[side] = {k: d[k] for k in ("wall_ms", "busy_ms", "idle_share", "memory_mib")}
+    print(f"graphs: {label}: graphed bit-equal to eager {equal}; launches in a run of {steps} "
+          f"steps {runs}, the eager run's (and the traces agree); capture "
+          f"{graph.capture_seconds:.3f} s; wall ms a step "
+          f"eager {e['wall_ms']:.4f} / graphed {g['wall_ms']:.4f}, busy {e['busy_ms']:.4f} / "
+          f"{g['busy_ms']:.4f}, idle share {e['idle_share']:.3f} / {g['idle_share']:.3f}; "
+          f"MiB a run holds above what was live eager {e['memory_mib']:.1f} / graphed "
+          f"{g['memory_mib']:.1f}, graph pool {out['graph_pool_mib']:.1f} MiB"
+          + "".join(f"; {k} {v}" for k, v in (extra or {}).items()))
+    return out, g["counts"]
+
+
+def eager_steps(module):
+    """A context in which ``module``'s graphed paths run their step eagerly
+    (its `on_card` reads False): the eager loop a graph is held to."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = module.on_card
+        module.on_card = lambda device: False
+        try:
+            yield
+        finally:
+            module.on_card = saved
+
+    return ctx()
+
+
+def graph_lm(torch, backend, b):
+    """`LMTrainer._fused_chunks` (fit's block) over GRAPH["chunks"] chunks at
+    dropout 0.5, against the step loop from equal generators."""
+    from vmlmf_tpu_torch.train import lm
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    k = GRAPH["chunks"]
+    model = lm_model(backend, 0.5) if backend == "fused" else wavefront_lm(backend)
+    trainer = LMTrainer(model, batch_size=b, seq_length=LM["prompt"], fuse_chunks=k)
+    trn, _ = lm_chunks(b)
+    xs, ys = (torch.stack([torch.as_tensor(c[i]) for c in trn[:k]]).cuda().long()
+              for i in (0, 1))
+    sides = []
+    for graphed in (False, True):
+        params, states = trainer.init(), trainer.state0()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        if graphed:
+            out = trainer._fused_chunks(params, states, xs, ys, 1.0, gen)
+        else:
+            with eager_steps(lm):
+                out = trainer._fused_chunks(params, states, xs, ys, 1.0, gen)
+        sides.append((out, params, states, gen))
+    graph = trainer._graphs["train"][1].graph
+    (_, pe, se, ge), (_, pg, sg, gg) = sides
+
+    def eager(n):
+        with eager_steps(lm):
+            trainer._fused_chunks(pe, se, xs[:n], ys[:n], 1.0, ge)
+
+    return graph_compare(torch, f"LM {backend} block of {k} chunks at B={b}", eager,
+                         lambda n: trainer._fused_chunks(pg, sg, xs[:n], ys[:n], 1.0, gg), k,
+                         [sides[0][0], sides[1][0]], graph)
+
+
+def graph_ppl(torch):
+    from vmlmf_tpu_torch.train import lm
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    n = GRAPH["ppl_chunks"]
+    trainer = LMTrainer(lm_model("fused", 0.5), batch_size=MAIN_BATCH, seq_length=LM["prompt"])
+    params = trainer.init()
+    _, vld = lm_chunks(MAIN_BATCH)
+    chunks = vld[:n]
+    with eager_steps(lm):
+        want = trainer.perplexity(params, chunks)
+    got = trainer.perplexity(params, chunks)
+
+    def eager(m):
+        with eager_steps(lm):
+            trainer.perplexity(params, chunks[:m])
+
+    return graph_compare(torch, f"perplexity over {n} chunks at B={MAIN_BATCH}", eager,
+                         lambda m: trainer.perplexity(params, chunks[:m]), n,
+                         [torch.tensor(want), torch.tensor(got)],
+                         trainer._graphs["eval"][1].graph, dict(perplexity=got))
+
+
+def graph_decode(torch, model, params, b, mode):
+    """Greedy or top-k decode, or beam search, graphed against the same step
+    eagerly; tokens/s of each. A run of n steps is a call of n tokens (beam
+    search: n + 1, its prefill and first pick included)."""
+    from vmlmf_tpu_torch.serve import Decoder, decoder
+
+    prompt = prompt_ids(torch, b)
+    dec, plain = Decoder(model), Decoder(model)
+    if mode == "beam":
+        steps = GRAPH["beam_steps"] - 1
+
+        def call(d, n):
+            return d.beam_search(params, prompt, steps=n + 1, beams=GRAPH["beams"])
+    else:
+        steps = GRAPH["decode_steps"]
+        logits, states = dec.prefill(params, prompt, model.state0(b, "cuda"))
+        kw = {} if mode == "greedy" else dict(temperature=0.8, top_k=GRAPH["top_k"])
+
+        def call(d, n):
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            return d.decode(params, logits, states, steps=n, return_logits=True,
+                            generator=gen if kw else None, **kw)
+
+    got = call(dec, steps)
+    with eager_steps(decoder):
+        want = call(plain, steps)
+
+    def eager(n):
+        with eager_steps(decoder):
+            call(plain, n)
+
+    label = f"{'beam search' if mode == 'beam' else mode + ' decode'} at B={b}"
+    (step,) = dec._graphs.values()
+    report, counts = graph_compare(torch, label, eager, lambda n: call(dec, n), steps,
+                                   [want, got], step.run)
+    if mode != "beam":
+        for side in ("eager", "graphed"):
+            report[side]["tokens_per_s"] = b / report[side]["wall_ms"] * 1e3
+        print(f"graphs: {label}: tokens/s eager {report['eager']['tokens_per_s']:.1f}, graphed "
+              f"{report['graphed']['tokens_per_s']:.1f} (a call of {steps} tokens, its "
+              f"per-call work included)")
+    return report, counts
+
+
+def graph_har(torch, name):
+    """A block of `fuse_batches` (64) HAR Adam steps at B=81 through
+    `HARTrainer._fused_steps`, against the step loop."""
+    from vmlmf_tpu_torch.train import har
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    b = HAR["b"]
+    trainer = HARTrainer(har_model(name), batch_size=b)
+    k = trainer.fuse_batches
+    g = torch.Generator().manual_seed(7)
+    xs = torch.randn((k, b, HAR["t"], HAR["f"]), generator=g).cuda()
+    ys = torch.randint(0, 18, (k, b), generator=g).cuda()
+    (pe, oe), (pg, og) = trainer.init(), trainer.init()
+    with eager_steps(har):
+        want = trainer._fused_steps(pe, oe, xs, ys)
+    got = trainer._fused_steps(pg, og, xs, ys)
+    state = [[s for st in o.state.values() for s in st.values()] for o in (oe, og)]
+    want, got = (out[0::2] for out in (want, got))  # (params, losses)
+
+    def eager(n):
+        with eager_steps(har):
+            trainer._fused_steps(pe, oe, xs[:n], ys[:n])
+
+    return graph_compare(torch, f"HAR {name} block of {k} steps at B={b}", eager,
+                         lambda n: trainer._fused_steps(pg, og, xs[:n], ys[:n]), k,
+                         [[want, state[0]], [got, state[1]]], trainer._graph[1].graph)
+
+
+def adam_capturable_vs_default(torch):
+    """GRAPH["adam_steps"] HAR flagship steps with the capturable Adam (the
+    port's on CUDA) and with the default one, from one init: the relative
+    difference of the parameters (as one vector, and of the worst tensor)."""
+    from vmlmf_tpu_torch.train.har import HARTrainer
+    from vmlmf_tpu_torch.utils.tree import trainable_leaves
+
+    trainer = HARTrainer(har_model("vmlmf"), batch_size=HAR["b"])
+    g = torch.Generator().manual_seed(8)
+    xs = torch.randn((GRAPH["adam_steps"], HAR["b"], HAR["t"], HAR["f"]), generator=g).cuda()
+    ys = torch.randint(0, 18, (GRAPH["adam_steps"], HAR["b"]), generator=g).cuda()
+    finals = []
+    for capturable in (True, False):
+        params, opt = trainer.init()
+        if not capturable:
+            opt = torch.optim.Adam(trainable_leaves(params), lr=trainer.learning_rate)
+        if opt.defaults["capturable"] != capturable:
+            fail("HARTrainer.optimizer must build a capturable Adam on CUDA")
+        for x, y in zip(xs, ys):
+            params, opt, _ = trainer.train_step(params, opt, x, y)
+        finals.append([p.detach() for p in trainable_leaves(params)])
+    got, want = finals
+    # the bias corrections are f32 on the card in the one, double on the host in
+    # the other: a step's last bits differ, and the steps carry the difference
+    rel = dict(
+        parameters=float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(got, want)))
+                         / torch.sqrt(sum((b ** 2).sum() for b in want))),
+        worst_tensor_norm=max(float((a - b).norm() / b.norm()) for a, b in zip(got, want)),
+        worst_tensor_max=max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(got, want)))
+    print(f"graphs: capturable Adam vs the default Adam over {GRAPH['adam_steps']} HAR steps: "
+          f"||diff|| / ||default|| over the parameters {rel['parameters']:.3g} (tol 1e-6); "
+          f"the worst tensor's {rel['worst_tensor_norm']:.3g}, its max|diff| / max|default| "
+          f"{rel['worst_tensor_max']:.3g}")
+    if not rel["parameters"] <= 1e-6:
+        fail(f"the capturable Adam parts from the default one: {rel}")
+    return rel
+
+
+def graph_ranker(torch):
+    """`SparseSampledTrainer.fused_chunks` at the bench config, negatives
+    drawn by the trainer's generator, against the step loop."""
+    from vmlmf_tpu_torch.serve import ranker as rk
+
+    n, t, b, chunks = (RANKER[key] for key in ("items", "t", "b", "chunks"))
+    sparse = ranker_model("fused").sparse_trainer(batch_size=b, seq_length=t,
+                                                  sampled_softmax=RANKER["negatives"],
+                                                  fuse_chunks=chunks)
+    g = torch.Generator().manual_seed(5)
+    xs = torch.randint(0, n, (chunks, t, b), generator=g).cuda()
+    ys = torch.randint(0, n, (chunks, t, b), generator=g).cuda()
+    sides = []
+    for graphed in (False, True):
+        p, s = sparse.init(), sparse.state0()
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        if graphed:
+            out = sparse.fused_chunks(p, s, xs, ys, 0.1, gen)
+        else:
+            with eager_steps(rk):
+                out = sparse.fused_chunks(p, s, xs, ys, 0.1, gen)
+        sides.append((out, p, s, gen))
+    (_, pe, se, ge), (_, pg, sg, gg) = sides
+
+    def eager(n):
+        with eager_steps(rk):
+            sparse.fused_chunks(pe, se, xs[:n], ys[:n], 0.1, ge)
+
+    return graph_compare(torch, f"ranker sparse fused_chunks, {chunks} chunks at N={n}, B={b}",
+                         eager, lambda n: sparse.fused_chunks(pg, sg, xs[:n], ys[:n], 0.1, gg),
+                         chunks,
+                         [sides[0][0], sides[1][0]], sparse._graph[1].graph)
+
+
+def phase_graphs(torch):
+    """The one-dispatch-per-many-steps paths as CUDA graphs, each held bit for
+    bit to its eager loop. -> runs for the kernels line."""
+    t0 = time.perf_counter()
+    report, runs = {}, []
+    for backend, b in (("fused", MAIN_BATCH), ("fused", TRAIN_BATCHES[-1]),
+                       ("fused_pipelined", MAIN_BATCH)):
+        report[f"lm_{backend}_b{b}"], counts = graph_lm(torch, backend, b)
+        runs.append(("lstm:lowrank" if backend == "fused" else "lstm_stack:lowrank", counts))
+    report["perplexity"], counts = graph_ppl(torch)
+    runs.append(("lstm:lowrank", counts))
+    model = lm_model("fused")
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    for mode, b in [("greedy", b) for b in LM_BATCHES] + [("top_k", MAIN_BATCH),
+                                                          ("beam", MAIN_BATCH)]:
+        report[f"{mode}_b{b}"], _ = graph_decode(torch, model, params, b, mode)
+    for name, form in (("vmlmf", "lstm:lowrank"), ("gru_main", "gru:lowrank_pre")):
+        report[f"har_{name}"], counts = graph_har(torch, name)
+        runs.append((form, counts))
+    report["adam_capturable_vs_default"] = adam_capturable_vs_default(torch)
+    report["ranker"], counts = graph_ranker(torch)
+    runs.append(("lstm:lowrank", counts))
+    print(f"graphs: phase done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"graphs": report}))
+    return runs
+
+
 def free_port():
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -3121,12 +3486,31 @@ def phase_parallel(torch):
         dist.destroy_process_group()
 
 
+def profiler_pad(torch):
+    """A few `torch.cuda._sleep` kernels, synchronised: each profiler session
+    opens and closes with them, so that no kernel of the work traced falls at
+    an edge of the window, where the trace can lose events."""
+    for _ in range(4):
+        torch.cuda._sleep(10_000)
+    torch.cuda.synchronize()
+
+
+def is_device_work(event):
+    """Whether a profiler event is work on the card: a kernel, copy or set;
+    not a range a `record_function` draws on the device's timeline (as
+    `Optimizer.step` does), which spans the gaps between kernels too, and
+    not `profiler_pad`'s spin kernels."""
+    from torch.autograd import DeviceType
+
+    return (event.device_type == DeviceType.CUDA and "spin_kernel" not in event.name
+            and not getattr(event, "is_user_annotation", False))
+
+
 def device_events(torch, run, label, cpu=True):
     """run() once warm, then once under torch.profiler -> ([(kernel name, ms)]
     of its device events, wall ms of the profiled run). A session that
     recorded no device event at all is run again, up to PROFILE_SESSIONS
     sessions; fails if each came back empty."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -3134,12 +3518,14 @@ def device_events(torch, run, label, cpu=True):
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     for session in range(1, PROFILE_SESSIONS + 1):
         with profile(activities=activities) as prof:
+            profiler_pad(torch)
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+            profiler_pad(torch)
         events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if is_device_work(e)]
         if events:
             if session > 1:
                 print(f"profiler: {label}: device events in session {session} of "
@@ -3147,6 +3533,26 @@ def device_events(torch, run, label, cpu=True):
             return events, wall_ms
     fail(f"trace: the profiler recorded no device time in one {label} in "
          f"{PROFILE_SESSIONS} sessions")
+
+
+# the kernel each counted launch of an entry runs once (`stack_fwd_kernel`
+# holds "fwd_kernel", the GRU forward's name)
+MAIN_KERNELS = ("grid_scan_kernel", "grid_bptt_kernel", "fwd_kernel", "walk_kernel",
+                "stack_bwd_kernel")
+
+
+def kernel_group(name):
+    """"port", "cublas" or "other": whose kernel a trace event is."""
+    # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
+    # grid_scan_kernel and grid_bptt_kernel, "fwd_kernel" the GRU's and the
+    # stack's forward; "vmlmf::" the tiled GEMMs
+    if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
+                               "fwd_kernel", "walk_kernel", "stack_bwd_kernel",
+                               "widen_kernel")):
+        return "port"
+    if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
+        return "cublas"
+    return "other"
 
 
 def trace_step(torch, label, step):
@@ -3158,19 +3564,7 @@ def trace_step(torch, label, step):
         k = kernels.setdefault(name, [0, 0.0])
         k[0] += 1
         k[1] += ms
-
-    def group(name):
-        # "scan_kernel" and "bptt_kernel" also match the LSTM scans'
-        # grid_scan_kernel and grid_bptt_kernel, "fwd_kernel" the GRU's and the
-        # stack's forward; "vmlmf::" the tiled GEMMs
-        if any(s in name for s in ("scan_kernel", "bptt_kernel", "colsum_kernel", "vmlmf::",
-                                   "fwd_kernel", "walk_kernel", "stack_bwd_kernel",
-                                   "widen_kernel")):
-            return "port"
-        if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "splitK")):
-            return "cublas"
-        return "other"
-
+    group = kernel_group
     groups = {}
     for name, (n, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
         groups[group(name)] = groups.get(group(name), 0.0) + ms
@@ -3289,6 +3683,7 @@ def main():
     phase_plans(torch)
     runs += phase_cli(torch)
     runs += phase_ranker(torch)
+    runs += phase_graphs(torch)
     phase_parallel(torch)
     phase_trace(torch)
 

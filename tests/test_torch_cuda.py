@@ -1302,3 +1302,212 @@ def test_world1_nccl_lm_step_bit_equal_to_no_mesh(cuda):
         assert all(torch.equal(a, b) for a, b in zip(*outs))
     finally:
         dist.destroy_process_group()
+
+
+# -- captured steps (utils/graphs.py): each graphed path against its eager
+# step loop from equal seeds and generators, bit for bit
+
+
+def _equal(a, b):
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(x.detach(), y.detach()) for x, y in zip(tree_leaves(a),
+                                                                   tree_leaves(b)))
+
+
+@pytest.mark.cuda
+def test_captured_cooperative_launch_replays(cuda):
+    """The no-grad LSTM scan (a cooperative launch over all SMs, barrier words
+    zeroed by a memset node) captured once and replayed on new inputs."""
+    from vmlmf_tpu_torch.utils.graphs import StepGraph
+
+    args = make_inputs(35, 20, 650, 650, 300, 300, cuda)
+    graph = StepGraph(cuda_scan.lstm_scan_fused_xin, args, device=cuda)
+    for trial in range(5):  # two eager warm-up steps, the capture, two replays
+        inputs = make_inputs(35, 20, 650, 650, 300, 300, cuda, seed=trial)
+        before = cuda_scan.lstm_scan_fused_xin.launches
+        got = [o.clone() for o in graph(*inputs)]
+        assert cuda_scan.lstm_scan_fused_xin.launches == before + 1  # a replay counts its one
+        want = cuda_scan.lstm_scan_fused_xin(*inputs)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), trial
+    assert graph.captured
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "fused_pipelined"])
+def test_graphed_lm_train_steps_equal_eager(cuda, backend, monkeypatch):
+    from vmlmf_tpu_torch.ops import cuda_stack
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    monkeypatch.setenv("VMLMF_EXPERIMENTAL_WAVEFRONT", "1")
+    model = LMModel(vocab_size=500, hidden_size=128, num_layers=2, dropout_rate=0.5, winit=0.1,
+                    backend=backend, cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=32,
+                                                                         u_rank=24))
+    trainer = LMTrainer(model, batch_size=20, seq_length=35, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    xs, ys = (torch.randint(0, 500, (6, 35, 20), generator=g).to(cuda) for _ in range(2))
+    runs = []
+    for graphed in (True, False):
+        params, states = trainer.init(), trainer.state0()
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        if graphed:
+            for lr in (0.7, 0.5):  # the second call replays only
+                params, states, losses, gnorms = trainer._fused_chunks(params, states, xs, ys,
+                                                                       lr, gen)
+        else:
+            out = []
+            for lr in (0.7, 0.5):
+                for x, y in zip(xs, ys):
+                    params, states, loss, gnorm = trainer.train_step(params, states, x, y, lr,
+                                                                     gen)
+                    out.append((loss, gnorm))
+            losses, gnorms = (torch.stack([o[i] for o in out[6:]]) for i in (0, 1))
+        runs.append((params, states, losses, gnorms))
+    assert _equal(runs[0], runs[1]) and trainer._graphs["train"][1].graph.captured
+    wavefront = backend == "fused_pipelined"
+    entry = cuda_stack.lstm_stack_bwd if wavefront else cuda_scan.lstm_scan_xin_bwd
+    before = entry.launches
+    trainer._fused_chunks(*runs[0][:2], xs, ys, 0.5, gen)  # the graphed run's: replays only
+    assert entry.launches - before == len(xs) * (1 if wavefront else 2)
+
+
+def _har_models():
+    from vmlmf_tpu_torch.nn.models import HARNet
+
+    yield "vmlmf", HARNet(77, (180,), num_classes=18, cell_factory=lambda n, h: VMLMFCell(
+        n, h, w_rank=8, u_rank=6))
+    yield "gru", gru_har("fused", group=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["vmlmf", "gru"])
+def test_graphed_har_steps_equal_eager(cuda, which):
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    model = dict(_har_models())[which]
+    trainer = HARTrainer(model, batch_size=81, device=cuda)
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.standard_normal((5, 81, 24, 77)).astype(np.float32)).to(cuda)
+    ys = torch.from_numpy(rng.integers(0, 18, (5, 81))).to(cuda)
+    (pa, oa), (pb, ob) = trainer.init(), trainer.init()
+    assert oa.defaults["capturable"]
+    pa, oa, la = trainer._fused_steps(pa, oa, xs, ys)
+    lb = []
+    for x, y in zip(xs, ys):
+        pb, ob, loss = trainer.train_step(pb, ob, x, y)
+        lb.append(loss)
+    assert torch.equal(la, torch.stack(lb)) and _equal(pa, pb)
+    assert _equal([s for st in oa.state.values() for s in st.values()],
+                  [s for st in ob.state.values() for s in st.values()])
+
+
+@pytest.mark.cuda
+def test_graphed_ranker_sparse_chunks_equal_eager(cuda):
+    g = torch.Generator().manual_seed(2)
+    xs = torch.randint(0, 10_000, (4, 35, 32), generator=g).to(cuda)
+    ys = torch.randint(0, 10_000, (4, 35, 32), generator=g).to(cuda)
+    t = bench_ranker("fused").sparse_trainer(batch_size=32, seq_length=35, sampled_softmax=1024,
+                                             device=cuda)
+    runs = []
+    for graphed in (True, False):
+        p, s = t.init(), t.state0()
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        if graphed:
+            p, s, losses, gnorms = t.fused_chunks(p, s, xs, ys, 0.1, gen)
+        else:
+            out = []
+            for x, y in zip(xs, ys):
+                p, s, loss, gnorm = t.train_step(p, s, x, y, 0.1, gen)
+                out.append((loss, gnorm))
+            losses, gnorms = (torch.stack([o[i] for o in out]) for i in (0, 1))
+        runs.append((p, s, losses, gnorms))
+    assert _equal(runs[0], runs[1]) and t._graph[1].graph.captured
+
+
+def _served(cuda):
+    model = LMModel(vocab_size=2000, hidden_size=128, num_layers=2, dropout_rate=0.0, winit=0.5,
+                    cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=32, u_rank=24))
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    prompt = torch.randint(0, 2000, (12, 8), generator=torch.Generator().manual_seed(1)).to(cuda)
+    return model, params, prompt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "top_k", "beam"])
+def test_graphed_decode_equals_eager(cuda, mode, monkeypatch):
+    from vmlmf_tpu_torch.serve import decoder
+
+    model, params, prompt = _served(cuda)
+
+    def run(dec):
+        if mode == "beam":
+            return dec.beam_search(params, prompt, steps=10, beams=4)
+        logits, states = dec.prefill(params, prompt, model.state0(8, cuda))
+        kw = {} if mode == "greedy" else dict(
+            temperature=0.9, top_k=20, generator=torch.Generator(device=cuda).manual_seed(7))
+        return dec.decode(params, logits, states, steps=12, return_logits=True, **kw)
+
+    graphed = run(Decoder(model))
+    with monkeypatch.context() as mp:
+        mp.setattr(decoder, "on_card", lambda device: False)  # the same step, eager
+        eager = run(Decoder(model))
+    assert _equal(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_decode_graph_is_cached_and_captured_again_for_new_parameters(cuda):
+    model, params, prompt = _served(cuda)
+    dec = Decoder(model)
+    logits, states = dec.prefill(params, prompt, model.state0(8, cuda))
+    first = dec.decode(params, logits, states, steps=6)
+    (step,) = dec._graphs.values()
+    second = dec.decode(params, logits, states, steps=6)
+    assert _equal(first, second) and list(dec._graphs.values()) == [step]
+    other = {k: v for k, v in params.items()}
+    other["fc"] = {k: v.clone() for k, v in params["fc"].items()}  # new tensors, same values
+    third = dec.decode(other, logits, states, steps=6)
+    assert _equal(first, third) and len(dec._graphs) == 2
+    # sampling: a new generator a call is a value of the call, not a new graph
+    sampled = [dec.decode(params, logits, states, steps=6, temperature=0.9, top_k=20,
+                          generator=torch.Generator(device=cuda).manual_seed(3))
+               for _ in range(2)]
+    assert _equal(*sampled) and len(dec._graphs) == 3
+
+
+@pytest.mark.cuda
+def test_launch_counters_stay_right_across_replays(cuda):
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    model, x, y = lm_and_batch(cuda, "fused")
+    trainer = LMTrainer(model, batch_size=5, seq_length=9, device=cuda)
+    params, states = trainer.init(), trainer.state0()
+    xs, ys = x[None].expand(7, -1, -1), y[None].expand(7, -1, -1)
+    before = (cuda_scan.lstm_scan_fused_xin_res.launches, cuda_scan.lstm_scan_xin_bwd.launches)
+    trainer._fused_chunks(params, states, xs, ys, 0.5)
+    torch.cuda.synchronize()
+    after = (cuda_scan.lstm_scan_fused_xin_res.launches, cuda_scan.lstm_scan_xin_bwd.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (2 * 7, 2 * 7)  # 2 layers a step
+
+
+@pytest.mark.cuda
+def test_graphed_lm_fit_equals_fit_stepping(cuda):
+    """`fit` in blocks of 3 chunks over 7 (the seventh an eager step between
+    two blocks' replays, from the generator the graph draws from), with the
+    eval graph for perplexity, against `fit` chunk by chunk."""
+    from vmlmf_tpu_torch.data.ptb import minibatch, synthetic_corpus
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    model = LMModel(vocab_size=200, hidden_size=64, num_layers=2, dropout_rate=0.5, winit=0.1,
+                    cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=16, u_rank=12))
+    b, t = 8, 10
+    corpus = synthetic_corpus(vocab_size=200, length=b * (t * 11 + 4), seed=0)
+    cut = b * (t * 7 + 2)
+    data = (minibatch(corpus[:cut], b, t), minibatch(corpus[cut:], b, t),
+            minibatch(corpus[cut:], b, t))
+    assert len(data[0]) == 7
+    out = []
+    for fuse in (3, 1):
+        trainer = LMTrainer(model, batch_size=b, seq_length=t, fuse_chunks=fuse, device=cuda)
+        params, hist = trainer.fit(trainer.init(), data, epochs=2, log_fn=None)
+        out.append((params, hist))
+    assert out[0][1] == out[1][1] and _equal(out[0][0], out[1][0])

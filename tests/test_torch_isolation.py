@@ -45,7 +45,8 @@ def test_port_imports_no_jax(tmp_path):
                  "train.checkpoint", "data._native", "data.sliding_window",
                  "data.opp_preprocess", "data.download", "utils.analytics", "utils.timer",
                  "utils.profiling", "serve.ranker", "parallel.mesh", "parallel.spmd",
-                 "parallel.sharding", "parallel.pipeline_parallel", "parallel.dryrun"):
+                 "parallel.sharding", "parallel.pipeline_parallel", "parallel.dryrun",
+                 "utils.graphs"):
         assert f"vmlmf_tpu_torch.{name}" in names.split()
 
 

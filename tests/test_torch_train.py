@@ -106,7 +106,9 @@ def test_lm_fit_trains_with_dropout_and_decay():
     assert [h["lr"] for h in history[:2]] == [1.0, pytest.approx(1.0 / 1.2)]
     assert history[1]["val_ppl"] < history[0]["val_ppl"] < VOCAB
     assert np.isfinite(history[-1]["test_ppl"])
-    assert any(line.startswith("batch 0/") for line in logs)
+    # fuse_chunks (256) covers the epoch: one block, logged once at its end
+    n = len(data[0])
+    assert any(line.startswith(f"chunks {n}/{n}, train loss = ") for line in logs)
 
 
 def test_lm_loss_and_clip_match_jax():

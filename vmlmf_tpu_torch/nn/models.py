@@ -198,10 +198,19 @@ class LMModel:
     def state0(self, batch, device="cuda", dtype=torch.float32):
         return self.rnn.state0(batch, device, dtype)
 
-    def _logits(self, params, x):
-        w = params["embed"]["w"].T if self.tie_embeddings else params["fc"]["w"]
+    def _logits(self, params, x, w=None):
+        """The head on ``x``; ``w``: its weight from `head_weight`, made once
+        for many calls (decode), else read from ``params``."""
+        if w is None:
+            w = params["embed"]["w"].T if self.tie_embeddings else params["fc"]["w"]
         y = Bf16Product.apply(x, w) if self.head_bf16 else x @ w
         return y + params["fc"]["b"]
+
+    def head_weight(self, params):
+        """The head's [H, V] weight as `_logits` multiplies by it: under
+        ``head_bf16`` a bf16 copy (whose cast in `Bf16Product` is then none)."""
+        w = params["embed"]["w"].T if self.tie_embeddings else params["fc"]["w"]
+        return w.bfloat16() if self.head_bf16 else w
 
     def apply(self, params, ids, states, *, generator=None, train=False):
         """ids: [T, B] int -> (logits [T, B, V], new_states)."""

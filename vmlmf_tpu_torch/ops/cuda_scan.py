@@ -715,9 +715,16 @@ def _counted(fn, name):
     fn.variants[name] += 1
 
 
+# every wrapper that counts its launches, in definition order (`_counter`):
+# a captured CUDA graph adds its launches to them at each replay
+# (`utils.graphs.StepGraph`)
+COUNTED = []
+
+
 def _counter(fn):
     fn.launches = 0
     fn.variants = collections.Counter()
+    COUNTED.append(fn)
     return fn
 
 

@@ -4,12 +4,28 @@ beam search (counterpart of `vmlmf_tpu.serve.decoder`).
   * prefill — the prompt ``[T, B]`` runs through the model's scan backend
     (on "fused", one kernel call per layer; on "fused_pipelined", one call
     of the no-grad stack kernel per group of layers) and returns the carried
-    ``(h, c)`` per layer and the last position's logits.
-  * decode — a loop over new positions: embed one token, run each layer's
-    ``cell.step`` on factors whose weight-only ``prepare`` is done once per
-    call, not per token, project to logits, pick the next token.
+    ``(h, c)`` per layer and the last position's logits. It runs eagerly.
+  * decode — one token step after another: pick the next token, embed it,
+    run each layer's ``cell.step`` on factors whose weight-only ``prepare``
+    is done once per call, not per token, and project to logits with a head
+    weight made once per call (under ``head_bf16``, its bf16 copy).
   * sampling — greedy (``temperature=None``), temperature, and ``top_k``;
     randomness from an explicit `torch.Generator` on the logits' device.
+    The temperature is a 0-d tensor on the device, a runtime value.
+  * beam search — one step scores the beams' continuations, keeps the best,
+    gathers the surviving parents' states and records (token, parent).
+
+On CUDA, decode and beam search replay one captured CUDA graph of their
+step per token (`utils.graphs.StepGraph`), the counterpart of the JAX
+package's one-scan ``_decode_jit`` and ``_beam_jit``: the logits, the
+token, the scores and the per-layer ``(h, c)`` are static tensors that the
+step updates in place. A sampling graph draws from a generator of its own,
+set from the caller's before the tokens and copied back after them, so the
+caller's generator is a value of each call, as the JAX package's key is.
+The graphs stay on the `Decoder`, keyed by the mode, the batch, the top-k,
+the dtype and the parameters' storage: a second call like the first
+captures nothing; new parameter tensors capture again. On the CPU the same
+step runs eagerly.
 
 Everything runs under `torch.inference_mode`.
 """
@@ -20,6 +36,11 @@ import dataclasses
 
 import torch
 
+from vmlmf_tpu_torch.utils.graphs import StepGraph, copy_tree, drawing_from, graph_key, on_card
+from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+CACHED_GRAPHS = 8  # captured steps a Decoder keeps; the oldest goes first
+
 
 def _top_k_mask(logits, k):
     """Keep the k largest logits per row, set the rest to the dtype's min."""
@@ -28,23 +49,68 @@ def _top_k_mask(logits, k):
     return torch.where(logits < thresh, torch.full_like(logits, neg), logits)
 
 
+def _clone_states(states):
+    return [tuple(s.clone() for s in st) for st in states]
+
+
+@dataclasses.dataclass
+class _Step:
+    """A token step over static tensors: ``run()`` is one step (captured
+    and replayed on CUDA, eager on the CPU); ``tensors`` are what it reads
+    and updates, by name (its ``generator`` too, on CUDA the graph's own)."""
+
+    run: object
+    tensors: dict
+
+
 @dataclasses.dataclass(frozen=True)
 class Decoder:
     """Serving wrapper over an `LMModel`."""
 
     model: object  # LMModel
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     def _preps(self, params):
         return tuple(cell.prepare(p) for cell, p in zip(self.model.rnn.cells, params["rnn"]))
 
-    def _token_step(self, params, preps, tok, states):
+    def _token_step(self, params, preps, head, tok, states):
         """One decode position: tok [B] -> (logits [B, V], new states)."""
         x = self.model.embed(params["embed"], tok)
         new_states = []
         for cell, prep, s in zip(self.model.rnn.cells, preps, states):
             s, x = cell.step(prep, cell.inp(prep, x), s)
             new_states.append(s)
-        return self.model._logits(params, x), new_states
+        return self.model._logits(params, x, head), new_states
+
+    def _step(self, key, params, tensors, body, dev):
+        """The `_Step` of ``body(**tensors)`` on ``dev`` for ``key``: on CUDA
+        the cached graph (built and captured on first use, with a generator
+        of its own where ``tensors`` has one), its tensors refreshed from
+        ``tensors``; on the CPU, ``body`` on ``tensors``."""
+        if not on_card(dev):
+            return _Step(lambda: body(**tensors), tensors)
+        key = (key, graph_key(tree_leaves(params)))
+        step = self._graphs.get(key)
+        if step is None:
+            if len(self._graphs) >= CACHED_GRAPHS:
+                self._graphs.pop(next(iter(self._graphs)))
+            static = dict(tensors)  # this call's own tensors become the graph's
+            if static.get("generator") is not None:
+                static["generator"] = torch.Generator(dev)
+            graph = StepGraph(lambda: body(**static), device=dev,
+                              generators=(static.get("generator"),))
+            step = self._graphs[key] = _Step(graph, static)
+        else:
+            copy_tree([step.tensors[k] for k in tensors], list(tensors.values()))
+        return step
+
+    def _tensors(self, params, states, **extra):
+        """The tensors a token step reads and updates, this call's own
+        (``states``, ``extra`` and the preps are fresh; the head reads the
+        parameters' storage or is a fresh bf16 copy)."""
+        return dict(extra, states=[tuple(s) for s in states], preps=self._preps(params),
+                    head=self.model.head_weight(params))
 
     @torch.inference_mode()
     def prefill(self, params, ids, states):
@@ -66,22 +132,32 @@ class Decoder:
         greedy = temperature is None
         if not greedy and generator is None:
             raise ValueError("sampling (temperature != None) requires a torch.Generator")
-        preps = self._preps(params)
-        logits, states = last_logits, list(states)
-        tokens = []
-        for _ in range(steps):
+        b, dev = last_logits.shape[0], last_logits.device
+        temp = torch.full((), 1.0 if greedy else temperature, dtype=torch.float32, device=dev)
+
+        def body(logits, states, preps, head, temp, generator):
             if greedy:
                 tok = torch.argmax(logits, dim=-1)
             else:
                 lg = _top_k_mask(logits, top_k) if top_k is not None else logits
-                probs = torch.softmax(lg / temperature, dim=-1)
+                probs = torch.softmax(lg / temp, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=generator).squeeze(-1)
-            logits, states = self._token_step(params, preps, tok, states)
-            tokens.append(tok)
-        tokens = torch.stack(tokens) if tokens else torch.empty(
-            (0, last_logits.shape[0]), dtype=torch.long, device=last_logits.device)
+            new_logits, new_states = self._token_step(params, preps, head, tok, states)
+            logits.copy_(new_logits)
+            copy_tree(states, new_states)
+            return (tok,)
+
+        key = ("decode", b, greedy, top_k, last_logits.dtype)
+        tensors = self._tensors(params, _clone_states(states), logits=last_logits.clone(),
+                                temp=temp, generator=None if greedy else generator)
+        step = self._step(key, params, tensors, body, dev)
+        tokens = torch.empty((steps, b), dtype=torch.long, device=dev)
+        with drawing_from(step.tensors["generator"], tensors["generator"]):
+            for i in range(steps):
+                tokens[i] = step.run()[0]
+        states = _clone_states(step.tensors["states"])
         if return_logits:
-            return tokens, states, logits
+            return tokens, states, step.tensors["logits"].clone()
         return tokens, states
 
     def generate(self, params, prompt_ids, *, max_new_tokens, generator=None,
@@ -110,22 +186,32 @@ class Decoder:
         b, w = prompt_ids.shape[1], beams
         states = self.model.state0(b, prompt_ids.device)
         last_logits, states = self.prefill(params, prompt_ids, states)
-        preps = self._preps(params)
         v = last_logits.shape[-1]
-        rows = torch.arange(b, device=prompt_ids.device)[:, None]
 
         states = [tuple(x.repeat_interleave(w, dim=0) for x in s) for s in states]
         scores, tok0 = torch.topk(torch.log_softmax(last_logits, -1), w)  # [B, W]
-        tok, toks, parents = tok0, [], []
-        for _ in range(steps - 1):
-            logits, states = self._token_step(params, preps, tok.reshape(b * w), states)
-            total = scores[:, :, None] + torch.log_softmax(logits, -1).reshape(b, w, v)
-            scores, flat = torch.topk(total.reshape(b, w * v), w)
-            parent, tok = flat // v, flat % v
+
+        def body(states, preps, head, scores, tok):
+            new_logits, new_states = self._token_step(params, preps, head, tok.reshape(b * w),
+                                                      states)
+            total = scores[:, :, None] + torch.log_softmax(new_logits, -1).reshape(b, w, v)
+            top, flat = torch.topk(total.reshape(b, w * v), w)
+            parent = flat // v
+            rows = torch.arange(b, device=flat.device)[:, None]
             gather_idx = (parent + rows * w).reshape(-1)
-            states = [tuple(x[gather_idx] for x in s) for s in states]
-            toks.append(tok)
-            parents.append(parent)
+            copy_tree(states, [tuple(x[gather_idx] for x in s) for s in new_states])
+            scores.copy_(top)
+            tok.copy_(flat % v)
+            return tok, parent
+
+        key = ("beam", b, w, last_logits.dtype)
+        step = self._step(key, params, self._tensors(params, states, scores=scores,
+                                                     tok=tok0.clone()), body, tok0.device)
+        toks = torch.empty((max(steps - 1, 0), b, w), dtype=torch.long, device=tok0.device)
+        parents = torch.empty_like(toks)
+        for i in range(steps - 1):
+            toks[i], parents[i] = step.run()
+        scores = step.tensors["scores"].clone()
 
         beam_idx = torch.arange(w, device=prompt_ids.device).expand(b, w)
         out = []

@@ -52,7 +52,8 @@ from vmlmf_tpu_torch.parallel import sharding, spmd
 from vmlmf_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from vmlmf_tpu_torch.train.lm import LMTrainer
 from vmlmf_tpu_torch.utils.device import resolve_device
-from vmlmf_tpu_torch.utils.tree import first_device, trainable_leaves
+from vmlmf_tpu_torch.utils.graphs import CarriedSteps, graph_key, on_card, steps_eagerly
+from vmlmf_tpu_torch.utils.tree import first_device, trainable_leaves, tree_leaves
 
 
 def _neg_inf(dtype):
@@ -112,7 +113,7 @@ def _sampled_ce(hs, sub_t, sub_n, b_t, b_n, targets, neg, n_items, in_batch, bat
     loss."""
     neg_logit = hs @ sub_n.T + b_n
     # logQ correction: uniform q = num_samples / N per negative draw
-    logq = torch.log(torch.tensor(neg.shape[0] / n_items, dtype=hs.dtype, device=hs.device))
+    logq = torch.log(torch.full((), neg.shape[0] / n_items, dtype=hs.dtype, device=hs.device))
     neg_logit = neg_logit - logq
     pos_logit = torch.sum(hs * sub_t, -1) + b_t
     # mask accidental hits (a sampled negative equal to the target)
@@ -403,19 +404,19 @@ class SessionRanker:
 
     def sparse_trainer(self, *, batch_size=20, seq_length=35, sampled_softmax=8192,
                        in_batch_negatives=True, learning_rate=1.0, max_grad_norm=5.0, seed=0,
-                       device="cuda", mesh=None):
+                       fuse_chunks=8, device="cuda", mesh=None):
         """A `SparseSampledTrainer`: sampled-softmax SGD that updates the item
         table only at the rows a chunk touches. Needs one table (tied items)
-        and plain SGD. The JAX package's ``fuse_chunks`` is not taken:
-        `SparseSampledTrainer.fused_chunks` steps through the chunks it is
-        given."""
+        and plain SGD. ``fuse_chunks``: the chunks of one `fused_chunks`
+        stack, as in the JAX package; 1 steps them one by one."""
         if not self.model.tie_embeddings:
             raise ValueError("sparse_trainer requires tie_items=True (a single item table); "
                              "the untied head would need its own sparse path")
         return SparseSampledTrainer(self, batch_size=batch_size, seq_length=seq_length,
                                     num_samples=sampled_softmax, in_batch=in_batch_negatives,
                                     learning_rate=learning_rate, max_grad_norm=max_grad_norm,
-                                    seed=seed, device=device, mesh=mesh)
+                                    seed=seed, fuse_chunks=fuse_chunks, device=device,
+                                    mesh=mesh)
 
     def trainer(self, *, batch_size=20, seq_length=35, mesh=None, sampled_softmax=None,
                 in_batch_negatives=False, **kw):
@@ -445,8 +446,11 @@ class SparseSampledTrainer:
     sampled_softmax=...)` with the same negatives): the global clip norm is
     exact (rows of equal ids summed first, `_dedup_sq_norm`), and rows no id
     touches are unchanged either way. Keys of ``params`` other than the table,
-    the bias and ``rnn`` pass through. ``fused_chunks`` is a plain loop over
-    `train_step`, where the JAX package scans the chunks in one dispatch.
+    the bias and ``rnn`` pass through. On CUDA, `fused_chunks` replays one
+    captured CUDA graph of `train_step` per chunk (`utils.graphs.CarriedSteps`;
+    the negatives, the sorts and the scatter-adds inside), the counterpart of
+    the JAX package's one-dispatch scan; on the CPU, under a mesh or with
+    ``fuse_chunks=1`` it steps eagerly.
 
     Under a mesh the table is split by rows on ``model``: each step gathers
     its rows over that group, every ``data`` rank's rows and gradients are
@@ -462,8 +466,11 @@ class SparseSampledTrainer:
     learning_rate: float = 1.0
     max_grad_norm: float = 5.0
     seed: int = 0
+    fuse_chunks: int = 8
     device: str = "cuda"
     mesh: object = None
+    # the captured train step: (key, CarriedSteps, its learning-rate tensor)
+    _graph: tuple = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def _device(self):
         return resolve_device(self.mesh.device_type if self.mesh is not None else self.device)
@@ -552,17 +559,34 @@ class SparseSampledTrainer:
         return params, [tuple(s.detach() for s in st) for st in new_states], loss, gnorm.detach()
 
     def fused_chunks(self, params, states, xs, ys, lr, generator=None, negatives=None):
-        """`train_step` over a stack of chunks ``[k, T, B]`` in a loop (the JAX
-        package's one-dispatch scan). ``negatives``: [k, S] or None.
+        """`train_step` over a stack of chunks ``[k, T, B]`` with the
+        parameters and the states carried (the JAX package's one-dispatch
+        scan): on CUDA, one replay of the captured step a chunk; on the CPU,
+        under a mesh or with ``fuse_chunks=1``, the eager steps. ``lr``: a
+        float or a 0-d tensor; ``negatives``: [k, S] or None.
         -> (params, states, losses [k], gnorms [k])."""
-        losses, gnorms = [], []
-        for i in range(len(xs)):
-            params, states, loss, gnorm = self.train_step(
-                params, states, xs[i], ys[i], lr, generator,
-                None if negatives is None else negatives[i])
-            losses.append(loss)
-            gnorms.append(gnorm)
-        return params, states, torch.stack(losses), torch.stack(gnorms)
+        def step_at(rate):
+            def step(states, gen, x, y, *neg):
+                return self.train_step(params, states, x, y, rate, gen, *neg)[1:]
+            return step
+
+        dev = params["embed"]["w"].device
+        stacks = (_ids(xs, dev), _ids(ys, dev))
+        if negatives is not None:
+            stacks += (_ids(negatives, dev),)
+        if self.fuse_chunks <= 1 or not on_card(dev) or self.mesh is not None:
+            states, (losses, gnorms) = steps_eagerly(step_at(lr), states, generator, *stacks)
+            return params, states, losses, gnorms
+        row = tuple(s[0] for s in stacks)
+        key = (graph_key(tree_leaves(params), *row, *tree_leaves(states)), generator is None)
+        if self._graph is None or self._graph[0] != key:
+            lr_buf = torch.zeros((), dtype=torch.float32, device=dev)
+            self._graph = (key, CarriedSteps(step_at(lr_buf), states, row, device=dev,
+                                             draws=generator is not None), lr_buf)
+        _, steps, lr_buf = self._graph
+        lr_buf.fill_(lr)
+        states, (losses, gnorms) = steps(states, generator, *stacks)
+        return params, states, losses, gnorms
 
 
 def _scatter_add(dst, ids, rows, group):

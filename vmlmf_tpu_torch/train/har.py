@@ -2,9 +2,17 @@
 (counterpart of `vmlmf_tpu.train.har`).
 
 The optimizer is `torch.optim.Adam` with lr 2e-3; its defaults (betas 0.9,
-0.999, eps 1e-8 outside the square root) are optax's ``adam``. The JAX
-package's ``fuse_batches`` runs many steps in one `lax.scan` dispatch; here
-`fit` steps batch by batch in a plain loop with the same step semantics.
+0.999, eps 1e-8 outside the square root) are optax's ``adam``. On CUDA it is
+built ``capturable=True`` (its step count and bias corrections on the
+device), for the eager and the captured step alike; the CPU keeps the
+default Adam.
+
+``fuse_batches`` (the JAX package's field and default) runs many steps in
+one device dispatch: `fit` stacks that many shuffled batches, and on CUDA
+`_fused_steps` replays one captured CUDA graph of `train_step` per batch
+(`utils.graphs.CarriedSteps`), the counterpart of the JAX package's
+`lax.scan`; the batches left over step one by one. On the CPU and under a
+``mesh`` the steps run eagerly. ``fuse_batches=1`` steps batch by batch.
 
 With a ``mesh`` (`parallel.mesh.make_mesh`), training is data parallel over
 its ``data`` axis: the parameters and the Adam state are replicated (the same
@@ -26,6 +34,7 @@ from vmlmf_tpu_torch.data.batching import batch_iterator, pad_last_batch
 from vmlmf_tpu_torch.parallel import spmd
 from vmlmf_tpu_torch.parallel.mesh import axis_size
 from vmlmf_tpu_torch.utils.device import resolve_device
+from vmlmf_tpu_torch.utils.graphs import CarriedSteps, graph_key, on_card, steps_eagerly
 from vmlmf_tpu_torch.utils.tree import first_device, trainable_leaves
 
 
@@ -40,8 +49,11 @@ class HARTrainer:
     learning_rate: float = 2e-3
     batch_size: int = 81
     seed: int = 3
+    fuse_batches: int = 64
     device: str = "cuda"
     mesh: object = None
+    # the captured train step: (key, CarriedSteps, the optimizer it steps)
+    _graph: tuple = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def init(self, dtype=torch.float32):
         """-> (params from ``seed`` on ``device``, their Adam optimizer); under a
@@ -53,8 +65,11 @@ class HARTrainer:
 
     def optimizer(self, params):
         """Adam over every tensor of ``params`` (set to require a gradient):
-        the optimizer state of `train_step` and `fit`."""
-        return torch.optim.Adam(trainable_leaves(params), lr=self.learning_rate)
+        the optimizer state of `train_step` and `fit`; ``capturable`` where
+        the parameters are on CUDA."""
+        leaves = trainable_leaves(params)
+        return torch.optim.Adam(leaves, lr=self.learning_rate,
+                                capturable=leaves[0].is_cuda)
 
     def commit_batch(self, x, y):
         """A batch (numpy or tensors) on the parameters' device; under a mesh,
@@ -93,19 +108,56 @@ class HARTrainer:
         dist.all_reduce(loss, group=self.mesh.get_group("data"))
         return loss / axis_size(self.mesh, "data")
 
+    def _fused_steps(self, params, opt_state, xs, ys):
+        """`train_step` over a stack of batches ``xs [k, B, T, F]``, ``ys
+        [k, B]`` (the JAX package's one-dispatch scan): on CUDA, one replay
+        of the captured step a batch; on the CPU or under a mesh, the eager
+        steps. -> (params, opt_state, losses [k]) on the device."""
+
+        def step(states, _, x, y):
+            return states, self.train_step(params, opt_state, x, y)[2]
+
+        dev = first_device(params)
+        xs, ys = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
+        if not on_card(dev) or self.mesh is not None:
+            _, (losses,) = steps_eagerly(step, [], None, xs, ys)
+            return params, opt_state, losses
+        key = graph_key(trainable_leaves(params), xs[0], ys[0])
+        if self._graph is None or self._graph[0] != key or self._graph[2] is not opt_state:
+            self._graph = (key, CarriedSteps(step, [], (xs[0], ys[0]), device=dev), opt_state)
+        _, (losses,) = self._graph[1]([], None, xs, ys)
+        return params, opt_state, losses
+
     def fit(self, params, opt_state, x_train, y_train, *, epochs, log_fn=print):
-        """Shuffled drop-last epochs, each batch one `train_step`.
-        -> (params, opt_state, history)."""
+        """Shuffled drop-last epochs. With ``fuse_batches`` > 1 (and no
+        mesh), blocks of ``min(fuse_batches, batches an epoch)`` batches
+        through `_fused_steps`, each block's stack sent in one copy, then the
+        batches left over one `train_step` each; else one `train_step` a
+        batch. -> (params, opt_state, history)."""
         history = []
+        n_batches = len(x_train) // self.batch_size
+        fuse = 1 if self.mesh is not None else max(1, min(self.fuse_batches, n_batches))
         for epoch in range(epochs):
             t0 = time.perf_counter()
-            losses = []
+            losses, block = [], []
             for xb, yb in batch_iterator(x_train, y_train, self.batch_size, shuffle=True,
                                          drop_last=True, seed=self.seed, epoch=epoch):
+                if fuse > 1:
+                    block.append((xb, yb))
+                    if len(block) == fuse:
+                        params, opt_state, ls = self._fused_steps(
+                            params, opt_state, *(np.stack([b[i] for b in block]) for i in (0, 1)))
+                        losses.append(ls)
+                        block = []
+                    continue
                 xb, yb = self.commit_batch(xb, yb)
                 params, opt_state, loss = self.train_step(params, opt_state, xb, yb)
-                losses.append(loss)
-            mean_loss = float(torch.stack(losses).mean())
+                losses.append(loss[None])
+            for xb, yb in block:  # the remainder, batch by batch
+                xb, yb = self.commit_batch(xb, yb)
+                params, opt_state, loss = self.train_step(params, opt_state, xb, yb)
+                losses.append(loss[None])
+            mean_loss = float(torch.cat(losses).mean())
             dt = time.perf_counter() - t0
             history.append({"epoch": epoch, "loss": mean_loss, "seconds": dt})
             if log_fn:

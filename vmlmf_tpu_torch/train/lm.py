@@ -12,9 +12,16 @@
     epoch. Where the JAX package detaches it implicitly at the jit boundary,
     `LMTrainer.train_step` returns it detached.
 
-The JAX package's ``fuse_chunks`` runs many steps in one `lax.scan`
-dispatch; here `fit` steps chunk by chunk in a plain loop with the same step
-semantics, and pulls losses to the host only when it logs.
+``fuse_chunks`` (the JAX package's field and default) runs many steps in
+one device dispatch: `fit` takes the chunks in blocks of that many, and on
+CUDA `_fused_chunks` replays one captured CUDA graph of `train_step` per
+chunk (`utils.graphs.CarriedSteps`), the counterpart of the JAX package's
+`lax.scan` over chunks, with the parameters and the states carried on the
+device; the chunks past the last whole block step one by one. `perplexity`
+replays a captured no-grad step over the chunks of one shape
+(`_eval_chunks`). On the CPU and under a ``mesh`` both step eagerly, with
+the same step semantics. ``fuse_chunks=1`` steps chunk by chunk. The loss
+reaches the host once a block, in the log line.
 
 Two hooks, as in the JAX package:
   * ``loss_fn(params, x, y, states, generator) -> (loss, new_states)``
@@ -42,7 +49,8 @@ from vmlmf_tpu_torch.nn.losses import lm_loss  # noqa: F401  (the JAX module's n
 from vmlmf_tpu_torch.parallel import sharding, spmd
 from vmlmf_tpu_torch.parallel.mesh import axis_group, axis_rank
 from vmlmf_tpu_torch.utils.device import resolve_device
-from vmlmf_tpu_torch.utils.tree import first_device, trainable_leaves
+from vmlmf_tpu_torch.utils.graphs import CarriedSteps, graph_key, on_card, steps_eagerly
+from vmlmf_tpu_torch.utils.tree import first_device, trainable_leaves, tree_leaves
 
 
 def clip_by_global_norm(grads, max_norm, specs=(), mesh=None):
@@ -60,8 +68,27 @@ def _tokens(a, device):
     return torch.as_tensor(a, device=device).long()
 
 
+def _stack(arrays, device):
+    """Token chunks (numpy or tensors) as one ``[k, T, B]`` tensor on ``device``:
+    one copy to the device for the whole stack."""
+    if all(torch.is_tensor(a) for a in arrays):
+        return torch.stack([a.to(device) for a in arrays]).long()
+    return _tokens(np.stack([np.asarray(a) for a in arrays]), device)
+
+
 def _detach(states):
     return [tuple(s.detach() for s in st) for st in states]
+
+
+def _uniform_prefix(chunks):
+    """How many chunks from the first have the first one's shapes."""
+    n = 0
+    if chunks:
+        shape = np.shape(chunks[0][0])
+        while (n < len(chunks) and np.shape(chunks[n][0]) == shape
+               and np.shape(chunks[n][1]) == shape):
+            n += 1
+    return n
 
 
 @dataclasses.dataclass
@@ -74,9 +101,14 @@ class LMTrainer:
     factor: float = 1.2
     max_grad_norm: float = 5.0
     seed: int = 0
+    fuse_chunks: int = 256
     device: str = "cuda"
     mesh: object = None
     loss_fn: object = None
+    # the captured steps by role: "train" -> (key, CarriedSteps, its learning
+    # rate tensor), "eval" -> (key, CarriedSteps)
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     def _device(self):
         return resolve_device(self.mesh.device_type if self.mesh is not None else self.device)
@@ -97,13 +129,15 @@ class LMTrainer:
         b = spmd.local_batch(batch or self.batch_size, (self.mesh, "data"))
         return self.model.state0(b, self._device())
 
-    def commit_batch(self, x, y):
-        """Token chunks ``[T, B]`` (numpy or tensors, the whole batch) as this
-        process's rows on its device (`parallel.spmd.shard_batch`); without a
-        mesh, the chunks on ``device``."""
+    def commit_batch(self, x, y, *, stacked=False):
+        """Token chunks ``[T, B]`` (numpy or tensors, the whole batch), or
+        with ``stacked`` a stack of them ``[k, T, B]`` (one copy each), as
+        this process's rows on its device (`parallel.spmd.shard_batch`);
+        without a mesh, the chunks on ``device``."""
         dev = self._device()
-        on = (self.mesh, "data")
-        return spmd.shard_batch(_tokens(x, dev), 1, on), spmd.shard_batch(_tokens(y, dev), 1, on)
+        on, dim = (self.mesh, "data"), 2 if stacked else 1
+        return (spmd.shard_batch(_tokens(x, dev), dim, on),
+                spmd.shard_batch(_tokens(y, dev), dim, on))
 
     def _loss(self, params, x, y, states, generator, **loss_kw):
         """This rank's share of the training loss -> (loss, new_states):
@@ -140,7 +174,8 @@ class LMTrainer:
         """One SGD step on a chunk ``x, y [T, B]`` (ids, numpy or tensors).
 
         Forward in train mode (dropout masks from ``generator``, on the
-        parameters' device), backward, clip, then ``p -= lr * g`` in place.
+        parameters' device), backward, clip, then ``p -= lr * g`` in place;
+        ``lr`` is a float or a 0-d f32 tensor on the device (the same bits).
         -> (params, new_states detached, loss, gnorm); loss and gnorm stay
         on the device.
 
@@ -167,9 +202,43 @@ class LMTrainer:
                 p.sub_(lr * g)
         return params, _detach(new_states), loss, gnorm.detach()
 
+    def _fused_chunks(self, params, states, xs, ys, lr, generator=None):
+        """`train_step` over a stack of chunks ``xs, ys [k, T, B]`` with the
+        parameters and the states carried (the JAX package's one-dispatch
+        scan): on CUDA, one replay of the captured step a chunk; on the CPU
+        or under a mesh, the eager steps. ``lr``: a float or a 0-d tensor.
+        -> (params, states, losses [k], gnorms [k]), all on the device."""
+        def step_at(rate):
+            def step(states, gen, x, y):
+                return self.train_step(params, states, x, y, rate, gen)[1:]
+            return step
+
+        dev = first_device(params)
+        xs, ys = _tokens(xs, dev), _tokens(ys, dev)
+        if not on_card(dev) or self.mesh is not None:
+            states, (losses, gnorms) = steps_eagerly(step_at(lr), states, generator, xs, ys)
+            return params, states, losses, gnorms
+        key = (graph_key(tree_leaves(params), xs[0], *tree_leaves(states)), generator is None)
+        entry = self._graphs.get("train")
+        if entry is None or entry[0] != key:
+            lr_buf = torch.zeros((), dtype=torch.float32, device=dev)
+            entry = self._graphs["train"] = (key, CarriedSteps(
+                step_at(lr_buf), states, (xs[0], ys[0]), device=dev,
+                draws=generator is not None), lr_buf)
+        _, steps, lr_buf = entry
+        lr_buf.fill_(lr)
+        states, (losses, gnorms) = steps(states, generator, xs, ys)
+        return params, states, losses, gnorms
+
     def fit(self, params, data, *, epochs, log_every=None, log_fn=print):
         """data = (train_chunks, valid_chunks, test_chunks) from
-        `vmlmf_tpu_torch.data.ptb.minibatch`. -> (params, history)."""
+        `vmlmf_tpu_torch.data.ptb.minibatch`. -> (params, history).
+
+        With ``fuse_chunks`` > 1 (and no mesh), each epoch runs blocks of
+        ``min(fuse_chunks, len(train_chunks))`` chunks through
+        `_fused_chunks`, each block's stack sent to the device in one copy,
+        then the chunks left over one `train_step` each; ``log_every`` then
+        logs once a block, the block's one read of the loss."""
         trn, vld, tst = data
         lr = self.learning_rate
         # the ranks of one data coordinate draw the same dropout masks
@@ -178,22 +247,42 @@ class LMTrainer:
         history = []
         tic = time.perf_counter()
         total_words = 0
+        fuse = 1 if self.mesh is not None else max(1, min(self.fuse_chunks, len(trn)))
         for epoch in range(epochs):
             states = self.state0()
             if epoch > self.factor_epoch and lr > 0.001:
                 lr = lr / self.factor
-            for i, (x, y) in enumerate(trn):
-                total_words += np.asarray(x).size
-                x, y = self.commit_batch(x, y)
-                params, states, loss, gnorm = self.train_step(params, states, x, y, lr,
-                                                              generator)
-                if log_every and i % log_every == 0:
-                    toc = time.perf_counter()
-                    log_fn(f"batch {i}/{len(trn)}, train loss = "
-                           f"{float(loss) / self.batch_size:.3f}, "
-                           f"wps = {round(total_words / (toc - tic))}, "
-                           f"dw.norm() = {float(gnorm):.3f}, lr = {lr:.3f}, "
-                           f"since beginning = {round((toc - tic) / 60)} mins")
+            if fuse > 1:
+                n_full = (len(trn) // fuse) * fuse
+                for s0 in range(0, n_full, fuse):
+                    block = trn[s0 : s0 + fuse]
+                    xs, ys = (_stack([c[i] for c in block], first_device(params))
+                              for i in (0, 1))
+                    params, states, losses, _ = self._fused_chunks(params, states, xs, ys,
+                                                                   lr, generator)
+                    total_words += xs.numel()
+                    if log_every:
+                        toc = time.perf_counter()
+                        log_fn(f"chunks {s0 + fuse}/{len(trn)}, train loss = "
+                               f"{float(losses[-1]) / self.batch_size:.3f}, "
+                               f"wps = {round(total_words / (toc - tic))}, lr = {lr:.3f}")
+                for x, y in trn[n_full:]:
+                    total_words += np.asarray(x).size
+                    x, y = self.commit_batch(x, y)
+                    params, states, _, _ = self.train_step(params, states, x, y, lr, generator)
+            else:
+                for i, (x, y) in enumerate(trn):
+                    total_words += np.asarray(x).size
+                    x, y = self.commit_batch(x, y)
+                    params, states, loss, gnorm = self.train_step(params, states, x, y, lr,
+                                                                  generator)
+                    if log_every and i % log_every == 0:
+                        toc = time.perf_counter()
+                        log_fn(f"batch {i}/{len(trn)}, train loss = "
+                               f"{float(loss) / self.batch_size:.3f}, "
+                               f"wps = {round(total_words / (toc - tic))}, "
+                               f"dw.norm() = {float(gnorm):.3f}, lr = {lr:.3f}, "
+                               f"since beginning = {round((toc - tic) / 60)} mins")
             val_ppl = self.perplexity(params, vld)
             history.append({"epoch": epoch, "val_ppl": val_ppl, "lr": lr})
             if log_fn:
@@ -204,20 +293,59 @@ class LMTrainer:
             log_fn(f"Test set perplexity : {test_ppl:.3f}")
         return params, history
 
+    def _eval_step(self, params, x, y, states):
+        """This chunk's full-CE loss, summed over the ranks' rows -> (loss, states)."""
+        loss, states = self._full_ce(params, x, y, states, None, train=False)
+        if self._holds_share(x):
+            loss = self._data_sum(loss)
+        return loss, states
+
+    @torch.no_grad()
+    def _eval_chunks(self, params, states, xs, ys):
+        """No-grad full-CE losses over a stack of chunks ``xs, ys [k, T, B]``
+        with the state carried (the JAX package's one-dispatch eval scan): on
+        CUDA, one replay of the captured eval step a chunk; on the CPU or
+        under a mesh, the eager steps. -> (losses [k], states)."""
+
+        def step(states, _, x, y):
+            loss, new = self._eval_step(params, x, y, states)
+            return new, loss
+
+        dev = first_device(params)
+        if not on_card(dev) or self.mesh is not None:
+            states, (losses,) = steps_eagerly(step, states, None, xs, ys)
+            return losses, states
+        key = graph_key(tree_leaves(params), xs[0], *tree_leaves(states))
+        entry = self._graphs.get("eval")
+        if entry is None or entry[0] != key:
+            entry = self._graphs["eval"] = (key, CarriedSteps(step, states, (xs[0], ys[0]),
+                                                              device=dev))
+        states, (losses,) = entry[1](states, None, xs, ys)
+        return losses, states
+
     def perplexity(self, params, chunks):
         """Validation/test perplexity over ``chunks``, state carried, no grad,
         full CE whatever ``loss_fn`` is (on the "fused" backend, the no-grad
         scan kernel; on "fused_pipelined", the no-grad stack kernel); under a
-        mesh, over the split vocabulary and every rank's rows."""
+        mesh, over the split vocabulary and every rank's rows. The leading
+        chunks of one shape go through `_eval_chunks` as one stack, the rest
+        one by one."""
         states, losses = self.state0(), []
+        chunks = list(chunks)
+        n = _uniform_prefix(chunks)
         with torch.no_grad():
+            if n > 1:
+                dev = first_device(params)
+                xs, ys = (_stack([c[i] for c in chunks[:n]], dev) for i in (0, 1))
+                xs, ys = self.commit_batch(xs, ys, stacked=True)
+                fused, states = self._eval_chunks(params, states, xs, ys)
+                losses.append(fused / self.batch_size)
+                chunks = chunks[n:]
             for x, y in chunks:
                 x, y = self.commit_batch(x, y)
-                loss, states = self._full_ce(params, x, y, states, None, train=False)
-                if self._holds_share(x):
-                    loss = self._data_sum(loss)
-                losses.append(loss / self.batch_size)
-        return float(torch.exp(torch.stack(losses).mean()))
+                loss, states = self._eval_step(params, x, y, states)
+                losses.append((loss / self.batch_size)[None])
+        return float(torch.exp(torch.cat(losses).mean()))
 
 
 def perplexity(model, params, chunks, batch_size):

@@ -206,10 +206,19 @@ Phases, each of which exits non-zero when it fails:
                drawn in the graph). For each, eager and graphed: the launch
                counts of a run (equal), the port's kernels in a trace of a
                run of up to 16 steps (equal, one main kernel a counted launch,
-               the profiler's window padded with spin kernels), wall ms a step
+               the profiler's window padded with spin kernels; a trace that
+               lost a main kernel is taken again with one more spin kernel
+               at each edge, a pair that disagrees again), wall ms a step
                (CUDA events, median of 3), busy ms and idle share from the
                trace, the memory a run holds beyond what was live, the
-               capture's seconds and its pool; decode tokens/s. Then the
+               capture's seconds and its pool; decode tokens/s. Then
+               `Decoder.prefill` of a T=35 prompt graphed (its results read
+               from a replay) against eager, bit for bit, at B = 1/20/128 on
+               "fused" and "fused_pipelined" and at B=20 for the
+               mixed-precision LM (every launch of the "bf16" variant), 16
+               calls a run; the other phases time a prefill once its
+               graph is captured (`replay_ms`); beam
+               search above starts with the graphed prefill. Then the
                capturable Adam against the default one over 20 HAR steps
                (1e-6 relative).
  20. parallel — `vmlmf_tpu_torch.parallel` on NCCL at world size 1 (a free
@@ -217,6 +226,13 @@ Phases, each of which exits non-zero when it fails:
                phase 2 needs two ranks on "model"), one `LMTrainer` and one
                `HARTrainer` step with a mesh, each bit-equal to the same step
                without one, and `topk_sharded` at S=1 bit-equal to `topk`.
+               Then the graphed paths on the 1x1 mesh, their NCCL
+               collectives captured (`MESH_PATHS`: the LM block at B=20 and
+               128 on "fused", perplexity over 16 chunks, the two 64-step
+               HAR blocks, the ranker's 8 chunks): each bit-equal to its
+               eager steps on the mesh (equal launch counts and traces, the
+               numbers of phase 19) and to the same path graphed without a
+               mesh in phase 19.
  21. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
@@ -365,6 +381,17 @@ def cuda_ms(torch, fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def replay_ms(torch, fn, iters):
+    """`cuda_ms` of a graphed call (`Decoder.prefill`) once its graph is
+    captured: after `utils.graphs.WARMUP` eager calls, `cuda_ms`'s warm call
+    captures it, and the timed calls replay it."""
+    from vmlmf_tpu_torch.utils.graphs import WARMUP
+
+    for _ in range(WARMUP):
+        fn()
+    return cuda_ms(torch, fn, iters)
 
 
 def close(torch, got, want, tol=TOL):
@@ -1072,8 +1099,8 @@ def phase_serve(torch):
     for b in LM_BATCHES:
         ids = prompt_ids(torch, b)
         s0 = fused.state0(b)
-        prefill_ms = cuda_ms(torch, lambda: dec.prefill(params, ids, s0), 5)
-        loop_prefill_ms = cuda_ms(torch, lambda: Decoder(loop).prefill(params, ids, s0), 5)
+        prefill_ms = replay_ms(torch, lambda: dec.prefill(params, ids, s0), 5)
+        loop_prefill_ms = replay_ms(torch, lambda d=Decoder(loop): d.prefill(params, ids, s0), 5)
         logits, states = dec.prefill(params, ids, s0)
         dec.decode(params, logits, states, steps=4)
         torch.cuda.synchronize()
@@ -1434,7 +1461,7 @@ def phase_lm_dense(torch):
     print(f"lm_dense: fused vs loop prefill, max abs err {err:.3g} (tol {TOL})")
     if not ok:
         fail("the dense LM's fused prefill disagrees with the loop backend")
-    prefill_ms = cuda_ms(torch, lambda: dec.prefill(params, prompt, fused.state0(b)), 5)
+    prefill_ms = replay_ms(torch, lambda: dec.prefill(params, prompt, fused.state0(b)), 5)
 
     # -- training, with the launch counts read around each step
     trn, vld = lm_chunks(b)
@@ -1941,7 +1968,7 @@ def phase_wavefront(torch):
         ids = prompt_ids(torch, bb)
         s0 = wave.state0(bb)
         perf[f"prefill_b{bb}"] = {
-            be: cuda_ms(torch, lambda m=m: Decoder(m).prefill(params, ids, s0), 5)
+            be: replay_ms(torch, lambda d=Decoder(m): d.prefill(params, ids, s0), 5)
             for be, m in (("fused_pipelined", wave), ("fused", fused))}
     for bb in TRAIN_BATCHES:
         chunks, _ = lm_chunks(bb)
@@ -1980,12 +2007,12 @@ def wavefront_depth3(torch):
                 groups = cuda_stack.stack_groups(cuda_stack.stack_units(wave.rnn.cells, preps))
                 if groups != {"one group": [(0, 3)], "2+1": [(0, 2), (2, 3)]}[way]:
                     fail(f"3x650 grouped {groups} under the {way} rule")
+                dec = Decoder(wave)  # a graph of this grouping's prefill
                 reset_launch_counts()
-                logits, _ = Decoder(wave).prefill(params, ids, s0)
+                logits, _ = dec.prefill(params, ids, s0)
                 torch.cuda.synchronize()
                 launches = launch_counts()
-                res[f"prefill {way}"] = cuda_ms(torch, lambda: Decoder(wave).prefill(
-                    params, ids, s0), 5)
+                res[f"prefill {way}"] = replay_ms(torch, lambda: dec.prefill(params, ids, s0), 5)
                 t = LMTrainer(wavefront_lm("fused_pipelined", layers=3), batch_size=bb,
                               seq_length=LM["prompt"])
                 res[f"train {way}"] = train_step_ms(torch, t, t.init(), chunks, 5,
@@ -2005,7 +2032,8 @@ def wavefront_depth3(torch):
                       f"vs the fused backend's max abs err {err:.3g} (tol {TOL})")
                 if not ok:
                     fail(f"the 3x650 one-group prefill disagrees with the fused backend's: {err}")
-        res["prefill fused"] = cuda_ms(torch, lambda: Decoder(fused).prefill(params, ids, s0), 5)
+        res["prefill fused"] = replay_ms(torch, lambda d=Decoder(fused): d.prefill(params, ids, s0),
+                                       5)
         t = LMTrainer(wavefront_lm("fused", layers=3), batch_size=bb, seq_length=LM["prompt"])
         res["train fused"] = train_step_ms(torch, t, t.init(), chunks, 5,
                                            torch.Generator(device="cuda").manual_seed(1))
@@ -2289,7 +2317,7 @@ def phase_mixed_lm(torch):
             d = Decoder(m)
             for bb in LM_BATCHES:
                 ids, s0 = prompt_ids(torch, bb), m.state0(bb)
-                pre_ms = cuda_ms(torch, lambda: d.prefill(params, ids, s0), 5)
+                pre_ms = replay_ms(torch, lambda: d.prefill(params, ids, s0), 5)
                 lg, st = d.prefill(params, ids, s0)
                 d.decode(params, lg, st, steps=4)
                 torch.cuda.synchronize()
@@ -2681,7 +2709,7 @@ def phase_mixed_wavefront(torch):
         for bb in LM_BATCHES:
             ids = prompt_ids(torch, bb)
             perf[f"prefill_b{bb}"] = {
-                be: cuda_ms(torch, lambda m=m, s0=m.state0(bb): Decoder(m).prefill(params, ids, s0),
+                be: replay_ms(torch, lambda d=Decoder(m), s0=m.state0(bb): d.prefill(params, ids, s0),
                             5) for be, m in models.items()}
         for bb in TRAIN_BATCHES:
             chunks, _ = lm_chunks(bb)
@@ -3074,7 +3102,7 @@ def phase_ranker(torch):
 
 
 GRAPH = dict(chunks=8, decode_steps=64, beam_steps=16, beams=4, top_k=40, ppl_chunks=16,
-             adam_steps=20, repeats=3, traced=16)
+             prefills=16, adam_steps=20, repeats=3, traced=16)
 
 
 def graph_trace(torch, label, run):
@@ -3082,8 +3110,9 @@ def graph_trace(torch, label, run):
     busy ms), with the launches counted over the same run: its trace must
     hold one main kernel of the port for each. The window is padded
     (`profiler_pad`); a session whose trace still lost kernel events is run
-    again, up to PROFILE_SESSIONS sessions, and the script fails if each
-    lost some."""
+    again, with one more spin kernel at each edge (an identical session lost
+    the same event again), up to PROFILE_SESSIONS sessions, and the script
+    fails if each lost some."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -3091,32 +3120,33 @@ def graph_trace(torch, label, run):
     for session in range(1, PROFILE_SESSIONS + 1):
         reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiler_pad(torch)
+            profiler_pad(torch, 3 + session)
             run()
             torch.cuda.synchronize()
-            profiler_pad(torch)
-        launches = sum(launch_counts().values())
+            profiler_pad(torch, 3 + session)
+        counts = launch_counts()
+        launches = sum(counts.values())
         events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
                   if is_device_work(e)]
-        main = sum(1 for n, _ in events if any(k in n for k in MAIN_KERNELS))
+        main = sum(1 for name, _ in events if any(k in name for k in MAIN_KERNELS))
+        port = collections.Counter(name for name, _ in events if kernel_group(name) == "port")
         if main == launches:
             if session > 1:
                 print(f"profiler: {label}: the trace agrees with the counters in session "
                       f"{session} of {PROFILE_SESSIONS}")
-            port = collections.Counter(n for n, _ in events if kernel_group(n) == "port")
             return port, sum(ms for _, ms in events)
         print(f"profiler: {label}: session {session}'s trace holds {main} main kernels of the "
-              f"port, the counters {launches}")
+              f"port, the counters {launches} ({nonzero(counts)}; the trace's port kernels "
+              f"{dict(port)})")
     fail(f"graphs: {label}: no trace of a run agrees with its {launches} counted launches")
 
 
-def graph_side(torch, label, run, steps):
+def graph_side(torch, run, steps):
     """One side (eager or graphed) of a path: ``run(n)`` takes n steps, and
     one run was made already. -> dict of the launch counts of a run of
     ``steps`` steps and the memory it held at its peak beyond what was live
     (MiB); wall ms a step (the median of GRAPH["repeats"] CUDA-event timed
-    runs of ``steps`` steps); the port's kernels, busy ms a step and the
-    idle share from the trace of a run of at most GRAPH["traced"] steps."""
+    runs of ``steps`` steps)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3126,27 +3156,48 @@ def graph_side(torch, label, run, steps):
     counts = launch_counts()
     memory = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     wall = median_event_ms(torch, lambda: run(steps), GRAPH["repeats"]) / steps
+    return dict(counts=counts, wall_ms=wall, memory_mib=memory)
+
+
+def traced_sides(torch, label, sides, steps):
+    """A `graph_trace` of a run of at most GRAPH["traced"] steps of each of
+    ``sides`` = {"eager": run, "graphed": run}, whose traces must hold the
+    same kernels of the port. A pair that disagrees (a trace lost an event
+    that the counters cannot show, a kernel other than a main one) is traced
+    again, up to PROFILE_SESSIONS pairs; the script fails if each pair
+    disagreed. -> {side: (port kernels, busy ms a step)}."""
     traced = min(steps, GRAPH["traced"])
-    port, busy = graph_trace(torch, label, lambda: run(traced))
-    return dict(counts=counts, port=port, wall_ms=wall, busy_ms=busy / traced,
-                idle_share=1 - busy / traced / wall, memory_mib=memory)
+    for pair in range(1, PROFILE_SESSIONS + 1):
+        out = {side: graph_trace(torch, f"{label} ({side})", lambda run=run: run(traced))
+               for side, run in sides.items()}
+        ports = [port for port, _ in out.values()]
+        if all(port == ports[0] for port in ports):
+            if pair > 1:
+                print(f"profiler: {label}: the traces agree in pair {pair} of {PROFILE_SESSIONS}")
+            return {side: (port, busy / traced) for side, (port, busy) in out.items()}
+        print(f"profiler: {label}: pair {pair}'s traces hold other kernels of the port: "
+              + "; ".join(f"{side} {dict(port)}" for side, (port, _) in out.items()))
+    fail(f"graphs: {label}: no pair of traces agrees")
 
 
 def graph_compare(torch, label, eager, graphed, steps, outs, graph, extra=None):
     """Hold a graphed path to its eager loop: ``outs`` = (eager outputs,
     graphed outputs), equal bit for bit; each side's `graph_side` over
     ``eager(n)`` and ``graphed(n)``, runs of n steps, whose launch counts
-    and traced kernels must agree. ``graph``: the path's `StepGraph`. ->
-    (its report, the graphed side's launch counts over ``steps`` steps)."""
+    must agree, and `traced_sides`, whose traced kernels must agree.
+    ``graph``: the path's `StepGraph`. -> (its report, the graphed side's
+    launch counts over ``steps`` steps)."""
     equal = trees_equal(torch, *outs)
     if not equal:
         fail(f"graphs: {label}: the graphed path's results differ from the eager loop's")
-    e = graph_side(torch, f"{label} (eager)", eager, steps)
-    g = graph_side(torch, f"{label} (graphed)", graphed, steps)
-    if e["counts"] != g["counts"] or e["port"] != g["port"]:
-        fail(f"graphs: {label}: a replayed step launches {nonzero(g['counts'])} (trace "
-             f"{dict(g['port'])}), the eager step {nonzero(e['counts'])} (trace "
-             f"{dict(e['port'])})")
+    e, g = graph_side(torch, eager, steps), graph_side(torch, graphed, steps)
+    if e["counts"] != g["counts"]:
+        fail(f"graphs: {label}: a replayed step launches {nonzero(g['counts'])}, the eager step "
+             f"{nonzero(e['counts'])}")
+    traces = traced_sides(torch, label, {"eager": eager, "graphed": graphed}, steps)
+    for side, d in (("eager", e), ("graphed", g)):
+        d["busy_ms"] = traces[side][1]
+        d["idle_share"] = 1 - d["busy_ms"] / d["wall_ms"]
     runs = nonzero(g["counts"])
     out = dict(bit_equal=equal, steps=steps, launches_a_run=runs, capture_s=graph.capture_seconds,
                graph_pool_mib=graph.pool_bytes / 2 ** 20, **(extra or {}))
@@ -3180,18 +3231,24 @@ def eager_steps(module):
     return ctx()
 
 
-def graph_lm(torch, backend, b):
+def on_mesh(label, mesh):
+    return label + (" on a 1x1 mesh" if mesh is not None else "")
+
+
+def graph_lm(torch, backend, b, mesh=None):
     """`LMTrainer._fused_chunks` (fit's block) over GRAPH["chunks"] chunks at
-    dropout 0.5, against the step loop from equal generators."""
+    dropout 0.5, against the step loop from equal generators; under ``mesh``
+    with its collectives. -> (report, launch counts, a copy of the graphed
+    run's results)."""
     from vmlmf_tpu_torch.train import lm
     from vmlmf_tpu_torch.train.lm import LMTrainer
 
     k = GRAPH["chunks"]
     model = lm_model(backend, 0.5) if backend == "fused" else wavefront_lm(backend)
-    trainer = LMTrainer(model, batch_size=b, seq_length=LM["prompt"], fuse_chunks=k)
+    trainer = LMTrainer(model, batch_size=b, seq_length=LM["prompt"], fuse_chunks=k, mesh=mesh)
     trn, _ = lm_chunks(b)
-    xs, ys = (torch.stack([torch.as_tensor(c[i]) for c in trn[:k]]).cuda().long()
-              for i in (0, 1))
+    xs, ys = trainer.commit_batch(*(torch.stack([torch.as_tensor(c[i]) for c in trn[:k]])
+                                    for i in (0, 1)), stacked=True)
     sides = []
     for graphed in (False, True):
         params, states = trainer.init(), trainer.state0()
@@ -3204,22 +3261,25 @@ def graph_lm(torch, backend, b):
         sides.append((out, params, states, gen))
     graph = trainer._graphs["train"][1].graph
     (_, pe, se, ge), (_, pg, sg, gg) = sides
+    result = clone_tree(sides[1][0])
 
     def eager(n):
         with eager_steps(lm):
             trainer._fused_chunks(pe, se, xs[:n], ys[:n], 1.0, ge)
 
-    return graph_compare(torch, f"LM {backend} block of {k} chunks at B={b}", eager,
-                         lambda n: trainer._fused_chunks(pg, sg, xs[:n], ys[:n], 1.0, gg), k,
-                         [sides[0][0], sides[1][0]], graph)
+    return (*graph_compare(torch, on_mesh(f"LM {backend} block of {k} chunks at B={b}", mesh),
+                           eager,
+                           lambda n: trainer._fused_chunks(pg, sg, xs[:n], ys[:n], 1.0, gg), k,
+                           [sides[0][0], sides[1][0]], graph), result)
 
 
-def graph_ppl(torch):
+def graph_ppl(torch, mesh=None):
     from vmlmf_tpu_torch.train import lm
     from vmlmf_tpu_torch.train.lm import LMTrainer
 
     n = GRAPH["ppl_chunks"]
-    trainer = LMTrainer(lm_model("fused", 0.5), batch_size=MAIN_BATCH, seq_length=LM["prompt"])
+    trainer = LMTrainer(lm_model("fused", 0.5), batch_size=MAIN_BATCH, seq_length=LM["prompt"],
+                        mesh=mesh)
     params = trainer.init()
     _, vld = lm_chunks(MAIN_BATCH)
     chunks = vld[:n]
@@ -3231,10 +3291,11 @@ def graph_ppl(torch):
         with eager_steps(lm):
             trainer.perplexity(params, chunks[:m])
 
-    return graph_compare(torch, f"perplexity over {n} chunks at B={MAIN_BATCH}", eager,
-                         lambda m: trainer.perplexity(params, chunks[:m]), n,
-                         [torch.tensor(want), torch.tensor(got)],
-                         trainer._graphs["eval"][1].graph, dict(perplexity=got))
+    return (*graph_compare(torch, on_mesh(f"perplexity over {n} chunks at B={MAIN_BATCH}", mesh),
+                           eager, lambda m: trainer.perplexity(params, chunks[:m]), n,
+                           [torch.tensor(want), torch.tensor(got)],
+                           trainer._graphs["eval"][1].graph, dict(perplexity=got)),
+            torch.tensor(got))
 
 
 def graph_decode(torch, model, params, b, mode):
@@ -3281,32 +3342,87 @@ def graph_decode(torch, model, params, b, mode):
     return report, counts
 
 
-def graph_har(torch, name):
+def graph_prefill(torch, label, model, params, b):
+    """`Decoder.prefill` of a T=35 prompt, graphed against the same prefill
+    run eagerly; the graphed side's results are taken from a replay (after
+    `WARMUP` eager calls and the capture). A run of n steps is n calls."""
+    from vmlmf_tpu_torch.serve import Decoder, decoder
+    from vmlmf_tpu_torch.utils.graphs import WARMUP
+
+    prompt = prompt_ids(torch, b)
+    states = model.state0(b, "cuda")
+    dec, plain = Decoder(model), Decoder(model)
+
+    def calls(d, n):
+        return [d.prefill(params, prompt, states) for _ in range(n)][-1]
+
+    got = calls(dec, WARMUP + 2)
+    (step,) = dec._prefills.values()
+    if not step.run.captured:
+        fail(f"graphs: prefill {label} at B={b}: no graph was captured")
+    with eager_steps(decoder):
+        want = calls(plain, 1)
+
+    def eager(n):
+        with eager_steps(decoder):
+            calls(plain, n)
+
+    return graph_compare(torch, f"prefill {label} at B={b}", eager, lambda n: calls(dec, n),
+                         GRAPH["prefills"], [want, got], step.run)
+
+
+def graph_prefills(torch, report):
+    """Prefill graphed against eager at B = 1/20/128 on "fused" and on
+    "fused_pipelined", and at B=20 in the mixed precision of "bf16+head"
+    (every launch of the "bf16" variant) -> runs for the kernels line."""
+    runs = []
+    for label, form, make, env in (
+            ("fused", "lstm:lowrank", lambda: lm_model("fused"), {}),
+            ("fused_pipelined", "lstm_stack:lowrank",
+             lambda: wavefront_lm("fused_pipelined", dropout=0.0), {}),
+            ("mixed bf16+head", "lstm:bf16", lambda: mixed_lm(dropout=0.0),
+             dict(VMLMF_PALLAS_PRECISION="bf16"))):
+        with switches(**env):
+            model = make()
+            params = model.init(torch.Generator().manual_seed(0), device="cuda")
+            for b in LM_BATCHES if not env else (MAIN_BATCH,):
+                report[f"prefill_{form}_b{b}"], counts = graph_prefill(torch, label, model,
+                                                                      params, b)
+                if env:
+                    only_variant("bf16")
+                runs.append((form, counts))
+    return runs
+
+
+def graph_har(torch, name, mesh=None):
     """A block of `fuse_batches` (64) HAR Adam steps at B=81 through
-    `HARTrainer._fused_steps`, against the step loop."""
+    `HARTrainer._fused_steps`, against the step loop; under ``mesh`` with its
+    collectives."""
     from vmlmf_tpu_torch.train import har
     from vmlmf_tpu_torch.train.har import HARTrainer
 
     b = HAR["b"]
-    trainer = HARTrainer(har_model(name), batch_size=b)
+    trainer = HARTrainer(har_model(name), batch_size=b, mesh=mesh)
     k = trainer.fuse_batches
     g = torch.Generator().manual_seed(7)
-    xs = torch.randn((k, b, HAR["t"], HAR["f"]), generator=g).cuda()
-    ys = torch.randint(0, 18, (k, b), generator=g).cuda()
+    xs, ys = trainer.commit_batch(torch.randn((k, b, HAR["t"], HAR["f"]), generator=g),
+                                  torch.randint(0, 18, (k, b), generator=g), stacked=True)
     (pe, oe), (pg, og) = trainer.init(), trainer.init()
     with eager_steps(har):
         want = trainer._fused_steps(pe, oe, xs, ys)
     got = trainer._fused_steps(pg, og, xs, ys)
     state = [[s for st in o.state.values() for s in st.values()] for o in (oe, og)]
     want, got = (out[0::2] for out in (want, got))  # (params, losses)
+    result = clone_tree([got, state[1]])
 
     def eager(n):
         with eager_steps(har):
             trainer._fused_steps(pe, oe, xs[:n], ys[:n])
 
-    return graph_compare(torch, f"HAR {name} block of {k} steps at B={b}", eager,
-                         lambda n: trainer._fused_steps(pg, og, xs[:n], ys[:n]), k,
-                         [[want, state[0]], [got, state[1]]], trainer._graph[1].graph)
+    return (*graph_compare(torch, on_mesh(f"HAR {name} block of {k} steps at B={b}", mesh),
+                           eager, lambda n: trainer._fused_steps(pg, og, xs[:n], ys[:n]), k,
+                           [[want, state[0]], [got, state[1]]], trainer._graph[1].graph),
+            result)
 
 
 def adam_capturable_vs_default(torch):
@@ -3348,18 +3464,19 @@ def adam_capturable_vs_default(torch):
     return rel
 
 
-def graph_ranker(torch):
+def graph_ranker(torch, mesh=None):
     """`SparseSampledTrainer.fused_chunks` at the bench config, negatives
-    drawn by the trainer's generator, against the step loop."""
+    drawn by the trainer's generator, against the step loop; under ``mesh``
+    with its collectives (the negatives broadcast from rank 0)."""
     from vmlmf_tpu_torch.serve import ranker as rk
 
     n, t, b, chunks = (RANKER[key] for key in ("items", "t", "b", "chunks"))
     sparse = ranker_model("fused").sparse_trainer(batch_size=b, seq_length=t,
                                                   sampled_softmax=RANKER["negatives"],
-                                                  fuse_chunks=chunks)
+                                                  fuse_chunks=chunks, mesh=mesh)
     g = torch.Generator().manual_seed(5)
-    xs = torch.randint(0, n, (chunks, t, b), generator=g).cuda()
-    ys = torch.randint(0, n, (chunks, t, b), generator=g).cuda()
+    xs, ys = sparse.commit_batch(torch.randint(0, n, (chunks, t, b), generator=g),
+                                 torch.randint(0, n, (chunks, t, b), generator=g), stacked=True)
     sides = []
     for graphed in (False, True):
         p, s = sparse.init(), sparse.state0()
@@ -3371,42 +3488,49 @@ def graph_ranker(torch):
                 out = sparse.fused_chunks(p, s, xs, ys, 0.1, gen)
         sides.append((out, p, s, gen))
     (_, pe, se, ge), (_, pg, sg, gg) = sides
+    result = clone_tree(sides[1][0])
 
     def eager(n):
         with eager_steps(rk):
             sparse.fused_chunks(pe, se, xs[:n], ys[:n], 0.1, ge)
 
-    return graph_compare(torch, f"ranker sparse fused_chunks, {chunks} chunks at N={n}, B={b}",
-                         eager, lambda n: sparse.fused_chunks(pg, sg, xs[:n], ys[:n], 0.1, gg),
-                         chunks,
-                         [sides[0][0], sides[1][0]], sparse._graph[1].graph)
+    return (*graph_compare(
+        torch, on_mesh(f"ranker sparse fused_chunks, {chunks} chunks at N={n}, B={b}", mesh),
+        eager, lambda n: sparse.fused_chunks(pg, sg, xs[:n], ys[:n], 0.1, gg), chunks,
+        [sides[0][0], sides[1][0]], sparse._graph[1].graph), result)
+
+
+# the paths that run again on a 1x1 mesh in `phase_parallel`: (name, form,
+# graph_* function, its arguments)
+MESH_PATHS = (("lm_fused_b20", "lstm:lowrank", graph_lm, ("fused", MAIN_BATCH)),
+              ("lm_fused_b128", "lstm:lowrank", graph_lm, ("fused", TRAIN_BATCHES[-1])),
+              ("perplexity", "lstm:lowrank", graph_ppl, ()),
+              ("har_vmlmf", "lstm:lowrank", graph_har, ("vmlmf",)),
+              ("har_gru_main", "gru:lowrank_pre", graph_har, ("gru_main",)),
+              ("ranker", "lstm:lowrank", graph_ranker, ()))
 
 
 def phase_graphs(torch):
     """The one-dispatch-per-many-steps paths as CUDA graphs, each held bit for
-    bit to its eager loop. -> runs for the kernels line."""
+    bit to its eager loop. -> (runs for the kernels line, {path: a copy of
+    its graphed results} of `MESH_PATHS`)."""
     t0 = time.perf_counter()
-    report, runs = {}, []
-    for backend, b in (("fused", MAIN_BATCH), ("fused", TRAIN_BATCHES[-1]),
-                       ("fused_pipelined", MAIN_BATCH)):
-        report[f"lm_{backend}_b{b}"], counts = graph_lm(torch, backend, b)
-        runs.append(("lstm:lowrank" if backend == "fused" else "lstm_stack:lowrank", counts))
-    report["perplexity"], counts = graph_ppl(torch)
-    runs.append(("lstm:lowrank", counts))
+    report, runs, results = {}, [], {}
+    for name, form, fn, args in MESH_PATHS:
+        report[name], counts, results[name] = fn(torch, *args)
+        runs.append((form, counts))
+    report["lm_fused_pipelined_b20"], counts, _ = graph_lm(torch, "fused_pipelined", MAIN_BATCH)
+    runs.append(("lstm_stack:lowrank", counts))
     model = lm_model("fused")
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
     for mode, b in [("greedy", b) for b in LM_BATCHES] + [("top_k", MAIN_BATCH),
                                                           ("beam", MAIN_BATCH)]:
         report[f"{mode}_b{b}"], _ = graph_decode(torch, model, params, b, mode)
-    for name, form in (("vmlmf", "lstm:lowrank"), ("gru_main", "gru:lowrank_pre")):
-        report[f"har_{name}"], counts = graph_har(torch, name)
-        runs.append((form, counts))
+    runs += graph_prefills(torch, report)
     report["adam_capturable_vs_default"] = adam_capturable_vs_default(torch)
-    report["ranker"], counts = graph_ranker(torch)
-    runs.append(("lstm:lowrank", counts))
     print(f"graphs: phase done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"graphs": report}))
-    return runs
+    return runs, results
 
 
 def free_port():
@@ -3422,8 +3546,11 @@ def trees_equal(torch, a, b):
     return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
-def phase_parallel(torch):
-    """The parallel layer on NCCL at world size 1."""
+def phase_parallel(torch, no_mesh):
+    """The parallel layer on NCCL at world size 1, then the graphed paths on
+    a 1x1 mesh (`mesh_graphs`) -> runs for the kernels line."""
+    import gc
+
     import torch.distributed as dist
 
     from vmlmf_tpu_torch.data.har import synthetic_har
@@ -3482,15 +3609,38 @@ def phase_parallel(torch):
         print(f"parallel: topk_sharded at S=1 bit-equal to topk: {topk_equal}")
         if not (lm_equal and har_equal and topk_equal):
             fail("a step or a retrieval with a one-rank mesh differs from the one without")
+        return mesh_graphs(torch, mesh, no_mesh)
     finally:
+        gc.collect()  # the mesh graphs, which hold NCCL work, go before their group
+        torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
-def profiler_pad(torch):
+def mesh_graphs(torch, mesh, no_mesh):
+    """`MESH_PATHS` graphed on ``mesh``, their NCCL collectives captured: each
+    held bit for bit to its eager steps on the mesh (`graph_compare`, equal
+    launch counts too) and to ``no_mesh``, the graphed results of the same
+    path without a mesh (`phase_graphs`). -> runs for the kernels line."""
+    t0 = time.perf_counter()
+    report, runs = {}, []
+    for name, form, fn, args in MESH_PATHS:
+        report[name], counts, result = fn(torch, *args, mesh=mesh)
+        equal = trees_equal(torch, result, no_mesh[name])
+        print(f"parallel: {name} graphed on the 1x1 mesh bit-equal to graphed without: {equal}")
+        if not equal:
+            fail(f"parallel: {name}: the graphed path on a 1x1 mesh differs from the one without")
+        report[name]["bit_equal_to_no_mesh"] = equal
+        runs.append((form, counts))
+    print(f"parallel: the mesh graphs done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"mesh_graphs": report}))
+    return runs
+
+
+def profiler_pad(torch, kernels=4):
     """A few `torch.cuda._sleep` kernels, synchronised: each profiler session
     opens and closes with them, so that no kernel of the work traced falls at
     an edge of the window, where the trace can lose events."""
-    for _ in range(4):
+    for _ in range(kernels):
         torch.cuda._sleep(10_000)
     torch.cuda.synchronize()
 
@@ -3683,8 +3833,9 @@ def main():
     phase_plans(torch)
     runs += phase_cli(torch)
     runs += phase_ranker(torch)
-    runs += phase_graphs(torch)
-    phase_parallel(torch)
+    graph_runs, no_mesh = phase_graphs(torch)
+    runs += graph_runs
+    runs += phase_parallel(torch, no_mesh)
     phase_trace(torch)
 
     kernels = kernel_report(rows, runs)

@@ -1511,3 +1511,143 @@ def test_graphed_lm_fit_equals_fit_stepping(cuda):
         params, hist = trainer.fit(trainer.init(), data, epochs=2, log_fn=None)
         out.append((params, hist))
     assert out[0][1] == out[1][1] and _equal(out[0][0], out[1][0])
+
+
+# -- the last eager paths as graphs: the trainers' blocks on a 1x1 NCCL mesh,
+# their collectives captured, and the graphed prefill
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1x1 mesh over NCCL at world size 1; the group is destroyed after
+    the test's graphs are freed."""
+    import gc
+    import socket
+
+    import torch.distributed as dist
+
+    from vmlmf_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pmesh.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device_type="cuda", timeout=60)
+    try:
+        yield pmesh.make_mesh(1, 1)
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_graphed_lm_block_on_a_1x1_nccl_mesh_equals_eager(cuda, nccl_mesh):
+    """`_fused_chunks` on the mesh (its gradient and loss sums captured)
+    against its eager steps on the mesh and against the graph without a
+    mesh, bit for bit, with equal launch counts."""
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    model = LMModel(vocab_size=500, hidden_size=128, num_layers=2, dropout_rate=0.5, winit=0.1,
+                    cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=32, u_rank=24))
+    g = torch.Generator().manual_seed(5)
+    xs, ys = (torch.randint(0, 500, (6, 35, 20), generator=g) for _ in range(2))
+    runs, launches = [], []
+    for mesh, graphed in ((nccl_mesh, True), (nccl_mesh, False), (None, True)):
+        trainer = LMTrainer(model, batch_size=20, seq_length=35, device=cuda, mesh=mesh)
+        sx, sy = trainer.commit_batch(xs, ys, stacked=True)
+        params, states = trainer.init(), trainer.state0()
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        before = cuda_scan.lstm_scan_xin_bwd.launches
+        if graphed:
+            params, states, losses, gnorms = trainer._fused_chunks(params, states, sx, sy, 0.7,
+                                                                   gen)
+            assert trainer._graphs["train"][1].graph.captured
+        else:
+            out = []
+            for x, y in zip(sx, sy):
+                params, states, loss, gnorm = trainer.train_step(params, states, x, y, 0.7, gen)
+                out.append((loss, gnorm))
+            losses, gnorms = (torch.stack([o[i] for o in out]) for i in (0, 1))
+        torch.cuda.synchronize()
+        launches.append(cuda_scan.lstm_scan_xin_bwd.launches - before)
+        runs.append((params, states, losses, gnorms))
+    assert _equal(runs[0], runs[1]) and _equal(runs[0], runs[2])
+    assert launches == [2 * 6] * 3
+
+
+@pytest.mark.cuda
+def test_graphed_har_block_on_a_1x1_nccl_mesh_equals_eager(cuda, nccl_mesh):
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    model = dict(_har_models())["vmlmf"]
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((5, 81, 24, 77)).astype(np.float32)
+    ys = rng.integers(0, 18, (5, 81))
+    runs = []
+    for mesh, graphed in ((nccl_mesh, True), (nccl_mesh, False), (None, True)):
+        trainer = HARTrainer(model, batch_size=81, device=cuda, mesh=mesh)
+        sx, sy = trainer.commit_batch(xs, ys, stacked=True)
+        params, opt = trainer.init()
+        assert opt.defaults["capturable"]
+        if graphed:
+            params, opt, losses = trainer._fused_steps(params, opt, sx, sy)
+            assert trainer._graph[1].graph.captured
+        else:
+            losses = []
+            for x, y in zip(sx, sy):
+                params, opt, loss = trainer.train_step(params, opt, x, y)
+                losses.append(loss)
+            losses = torch.stack(losses)
+        runs.append((params, losses, [s for st in opt.state.values() for s in st.values()]))
+    assert _equal(runs[0], runs[1]) and _equal(runs[0], runs[2])
+
+
+def _prefill_model(backend):
+    return LMModel(vocab_size=2000, hidden_size=650, num_layers=2, dropout_rate=0.0, winit=0.05,
+                   backend=backend, cell_factory=lambda n, h: VMLMFCell(n, h, w_rank=300,
+                                                                        u_rank=300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 20, 128])
+@pytest.mark.parametrize("backend", ["fused", "fused_pipelined"])
+def test_graphed_prefill_equals_eager(cuda, backend, b, monkeypatch):
+    from vmlmf_tpu_torch.serve import decoder
+
+    monkeypatch.setenv("VMLMF_EXPERIMENTAL_WAVEFRONT", "1")
+    model = _prefill_model(backend)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    g = torch.Generator().manual_seed(1)
+    dec = Decoder(model)
+    for trial in range(4):  # two eager warm-up calls, the capture, a replay
+        ids = torch.randint(0, 2000, (35, b), generator=g).to(cuda)
+        states = [tuple(0.1 * torch.randn(b, 650, generator=g).to(cuda) for _ in range(2))
+                  for _ in range(2)]
+        got = dec.prefill(params, ids, states)
+        with monkeypatch.context() as mp:
+            mp.setattr(decoder, "on_card", lambda device: False)
+            want = Decoder(model).prefill(params, ids, states)
+        assert _equal(got, want), trial
+    (step,) = dec._prefills.values()
+    assert step.run.captured
+
+
+@pytest.mark.cuda
+def test_prefill_graph_is_reused_for_a_shape_and_captured_for_a_new_one(cuda):
+    model, params, prompt = _served(cuda)
+    dec = Decoder(model)
+    first = [dec.prefill(params, prompt, model.state0(8, cuda)) for _ in range(3)][-1]
+    (step,) = dec._prefills.values()
+    assert step.run.captured
+    other = torch.flip(prompt, (0,))
+    again = dec.prefill(params, other, model.state0(8, cuda))  # a replay on a new prompt
+    assert list(dec._prefills.values()) == [step]
+    assert _equal(again, Decoder(model).prefill(params, other, model.state0(8, cuda)))
+    assert not _equal(again, first)
+    longer = torch.cat([prompt, other])
+    got = dec.prefill(params, longer, model.state0(8, cuda))  # a new shape, a new graph
+    assert len(dec._prefills) == 2 and dec._graphs == {}
+    del got
+    tokens = dec.generate(params, prompt, max_new_tokens=5)  # the first graph again
+    assert len(dec._prefills) == 2 and len(dec._graphs) == 1
+    assert torch.equal(tokens, dec.decode(params, *first, steps=5)[0])

@@ -6,8 +6,9 @@ inputs, carried states, the learning-rate tensor, the decoder's graph
 cache) held bit for bit to the step loop.
 
 A CUDA graph captures only on the card. Here the graphed paths run with
-`EagerGraph` in place of `StepGraph`: the same contract (inputs copied into
-static tensors, one step a call), the step run eagerly. The capture itself
+`EagerGraph` (from `tests/torch_parallel_worker.py`) in place of
+`StepGraph`: the same contract (inputs copied into static tensors, one step
+a call), the step run eagerly. The capture itself
 and its launch counters are checked with CUDA's graph calls replaced by
 stand-ins that run nothing (`test_step_graph_counts_the_launches_that_ran`).
 """
@@ -37,12 +38,14 @@ from vmlmf_tpu_torch.nn.models import HARNet, LMModel  # noqa: E402
 from vmlmf_tpu_torch.ops import cuda_scan  # noqa: E402
 from vmlmf_tpu_torch.serve import Decoder, decoder  # noqa: E402
 from vmlmf_tpu_torch.serve import ranker as tr  # noqa: E402
-from vmlmf_tpu_torch.train import har, lm  # noqa: E402
 from vmlmf_tpu_torch.train.har import HARTrainer  # noqa: E402
 from vmlmf_tpu_torch.train.lm import LMTrainer  # noqa: E402
 from vmlmf_tpu_torch.utils import graphs  # noqa: E402
 from vmlmf_tpu_torch.utils.transplant import params_from_jax  # noqa: E402
 from vmlmf_tpu_torch.utils.tree import tree_leaves  # noqa: E402
+
+from torch_parallel_worker import EagerGraph  # noqa: E402
+from torch_parallel_worker import graphed as graphed_paths  # noqa: E402
 
 # the tolerances of tests/test_torch_train.py
 STEP_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -64,32 +67,11 @@ def equal_trees(a, b):
                                                                    tree_leaves(b)))
 
 
-class EagerGraph:
-    """`StepGraph`'s contract, run eagerly: each call copies its arguments
-    into the static inputs and runs the step on them."""
-
-    made = []
-
-    def __init__(self, step, inputs=(), *, device, generators=()):
-        self.step, self.inputs, self.calls = step, tuple(a.clone() for a in inputs), 0
-        EagerGraph.made.append(self)
-
-    def __call__(self, *values):
-        for buf, v in zip(self.inputs, values):
-            buf.copy_(v)
-        self.calls += 1
-        return self.step(*self.inputs)
-
-
 @pytest.fixture
-def graphed(monkeypatch):
+def graphed():
     """The graphed paths on the CPU, through `EagerGraph`."""
-    EagerGraph.made = []
-    for module in (lm, har, tr, decoder):
-        monkeypatch.setattr(module, "on_card", lambda device: True)
-    for module in (graphs, decoder):
-        monkeypatch.setattr(module, "StepGraph", EagerGraph)
-    return EagerGraph
+    with graphed_paths():
+        yield EagerGraph
 
 
 def test_fields_have_the_jax_defaults():
@@ -351,13 +333,14 @@ def test_decoder_graphs_equal_eager_and_are_cached(graphed, mode):
         want = run(eager, params)
     got = run(cached, params)
     assert all(equal_trees(a, b) for a, b in zip(got, want))
-    assert len(graphed.made) == 1
+    # one graph of the token step, one of the prefill, each in its own cache
+    assert len(graphed.made) == 2 and len(cached._graphs) == len(cached._prefills) == 1
     if mode != "beam":  # a second call (top-k: a new generator) captures nothing
         assert all(equal_trees(a, b) for a, b in zip(run(cached, params), want))
-        assert len(graphed.made) == 1
+        assert len(graphed.made) == 2
     other = m.init(torch.Generator().manual_seed(0), device="cpu")  # new tensors, same values
     again = run(cached, other)
-    assert all(equal_trees(a, b) for a, b in zip(again, want)) and len(graphed.made) == 2
+    assert all(equal_trees(a, b) for a, b in zip(again, want)) and len(graphed.made) == 4
 
 
 def test_step_graph_raises_on_cpu_tensors():

@@ -11,11 +11,7 @@ and the port's single-process results against the JAX package's on a mesh
 of the 8 CPU devices.
 """
 
-import json
-import os
 import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -40,8 +36,8 @@ from vmlmf_tpu_torch.train.lm import LMTrainer  # noqa: E402
 from vmlmf_tpu_torch.utils.transplant import params_from_jax  # noqa: E402
 from vmlmf_tpu_torch.utils.tree import tree_leaves  # noqa: E402
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
+from torch_parallel_worker import spawn  # noqa: E402
+
 JOIN_SECONDS = 120
 # (world, data, model) -> the cases its worker runs
 CONFIGS = {"data2": (2, 2, 1), "model2": (2, 1, 2), "mesh2x2": (4, 2, 2)}
@@ -64,31 +60,9 @@ _results = {}
 def group_results(config, tmp_dir):
     """Spawn the config's ranks once (first call), join them within
     JOIN_SECONDS, and return each rank's {case: "ok" or traceback}."""
-    if config in _results:
-        return _results[config]
-    world, data, model = CONFIGS[config]
-    env = {k: v for k, v in os.environ.items() if k not in pmesh.CLUSTER_ENV}
-    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
-    port = free_port()
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(world), str(port), str(data),
-                               str(model), str(tmp_dir)], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs, hung = [], False
-    for p in procs:
-        try:
-            logs.append(p.communicate(timeout=JOIN_SECONDS)[0])
-        except subprocess.TimeoutExpired:
-            hung = True
-            for q in procs:
-                q.kill()
-            logs.append(p.communicate()[0])
-    out = []
-    for r in range(world):
-        path = os.path.join(tmp_dir, f"rank{r}.json")
-        out.append(json.load(open(path)) if os.path.exists(path) else
-                   {"_failed": f"rank {r} wrote no result (hung: {hung}):\n" + "\n".join(logs)})
-    _results[config] = out
-    return out
+    if config not in _results:
+        _results[config] = spawn(*CONFIGS[config], tmp_dir, free_port(), timeout=JOIN_SECONDS)
+    return _results[config]
 
 
 @pytest.mark.parametrize("config,case", CASES, ids=[f"{c}-{k}" for c, k in CASES])

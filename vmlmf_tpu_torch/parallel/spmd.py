@@ -96,15 +96,31 @@ def gather_batch(x, dim, spmd):
     return torch.cat(parts, dim)
 
 
+def _memory_order(t):
+    """``t``'s dimensions from the largest stride to the smallest: the order
+    in which a new tensor of the same layout (an elementwise op's output)
+    holds its elements."""
+    return sorted(range(t.dim()), key=lambda d: -t.stride(d))
+
+
 def allreduce_grads(grads, mesh, axis="data", *, mean=False):
     """Sum (or average) ``grads`` over the ``axis`` group, in one collective
     over a flat buffer: the gradient `psum` of the JAX package's shard_map
     transpose. Runs on a one-rank axis too (an identity), so that a one-card
-    mesh drives its collectives."""
+    mesh drives its collectives.
+
+    Each gradient comes back in its own dimension order (a BPTT's gradient
+    of V arrives transposed): a reduction over it, such as the clip's sum of
+    squares, then adds in the order it does without a mesh, to the bit."""
     if mesh is None or not grads:
         return list(grads)
-    flat = torch.cat([g.reshape(-1) for g in grads])
+    orders = [_memory_order(g) for g in grads]
+    flat = torch.cat([g.permute(o).reshape(-1) for g, o in zip(grads, orders)])
     dist.all_reduce(flat, group=mesh.get_group(axis))
     if mean:
         flat = flat / axis_size(mesh, axis)
-    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    out = []
+    for f, g, o in zip(flat.split([g.numel() for g in grads]), grads, orders):
+        back = sorted(range(g.dim()), key=o.__getitem__)
+        out.append(f.view([g.shape[d] for d in o]).permute(back))
+    return out

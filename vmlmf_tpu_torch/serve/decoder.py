@@ -4,7 +4,7 @@ beam search (counterpart of `vmlmf_tpu.serve.decoder`).
   * prefill — the prompt ``[T, B]`` runs through the model's scan backend
     (on "fused", one kernel call per layer; on "fused_pipelined", one call
     of the no-grad stack kernel per group of layers) and returns the carried
-    ``(h, c)`` per layer and the last position's logits. It runs eagerly.
+    ``(h, c)`` per layer and the last position's logits, copies.
   * decode — one token step after another: pick the next token, embed it,
     run each layer's ``cell.step`` on factors whose weight-only ``prepare``
     is done once per call, not per token, and project to logits with a head
@@ -22,10 +22,15 @@ token, the scores and the per-layer ``(h, c)`` are static tensors that the
 step updates in place. A sampling graph draws from a generator of its own,
 set from the caller's before the tokens and copied back after them, so the
 caller's generator is a value of each call, as the JAX package's key is.
+Prefill is one replay of a captured prefill, the counterpart of the JAX
+package's jitted ``prefill``; `generate` and `beam_search` start with it.
 The graphs stay on the `Decoder`, keyed by the mode, the batch, the top-k,
-the dtype and the parameters' storage: a second call like the first
-captures nothing; new parameter tensors capture again. On the CPU the same
-step runs eagerly.
+the dtype and the parameters' storage (a prefill's by the prompt's shape
+and dtype, the states' and the backend): a second call like the first
+captures nothing; new parameter tensors capture again. Token steps and
+prefills are cached apart, each cache holding at most `CACHED_GRAPHS`, so a
+call's prefill never evicts its decode graph. On the CPU the same steps
+run eagerly.
 
 Everything runs under `torch.inference_mode`.
 """
@@ -39,7 +44,7 @@ import torch
 from vmlmf_tpu_torch.utils.graphs import StepGraph, copy_tree, drawing_from, graph_key, on_card
 from vmlmf_tpu_torch.utils.tree import tree_leaves
 
-CACHED_GRAPHS = 8  # captured steps a Decoder keeps; the oldest goes first
+CACHED_GRAPHS = 8  # captured steps a Decoder keeps of each kind; the oldest goes first
 
 
 def _top_k_mask(logits, k):
@@ -68,8 +73,11 @@ class Decoder:
     """Serving wrapper over an `LMModel`."""
 
     model: object  # LMModel
+    # captured token steps (decode, beam search) and captured prefills
     _graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                       compare=False)
+    _prefills: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
 
     def _preps(self, params):
         return tuple(cell.prepare(p) for cell, p in zip(self.model.rnn.cells, params["rnn"]))
@@ -83,24 +91,24 @@ class Decoder:
             new_states.append(s)
         return self.model._logits(params, x, head), new_states
 
-    def _step(self, key, params, tensors, body, dev):
+    def _step(self, cache, key, params, tensors, body, dev):
         """The `_Step` of ``body(**tensors)`` on ``dev`` for ``key``: on CUDA
-        the cached graph (built and captured on first use, with a generator
-        of its own where ``tensors`` has one), its tensors refreshed from
-        ``tensors``; on the CPU, ``body`` on ``tensors``."""
+        the graph cached in ``cache`` (built and captured on first use, with
+        a generator of its own where ``tensors`` has one), its tensors
+        refreshed from ``tensors``; on the CPU, ``body`` on ``tensors``."""
         if not on_card(dev):
             return _Step(lambda: body(**tensors), tensors)
         key = (key, graph_key(tree_leaves(params)))
-        step = self._graphs.get(key)
+        step = cache.get(key)
         if step is None:
-            if len(self._graphs) >= CACHED_GRAPHS:
-                self._graphs.pop(next(iter(self._graphs)))
+            if len(cache) >= CACHED_GRAPHS:
+                cache.pop(next(iter(cache)))
             static = dict(tensors)  # this call's own tensors become the graph's
             if static.get("generator") is not None:
                 static["generator"] = torch.Generator(dev)
             graph = StepGraph(lambda: body(**static), device=dev,
                               generators=(static.get("generator"),))
-            step = self._graphs[key] = _Step(graph, static)
+            step = cache[key] = _Step(graph, static)
         else:
             copy_tree([step.tensors[k] for k in tensors], list(tensors.values()))
         return step
@@ -114,9 +122,20 @@ class Decoder:
 
     @torch.inference_mode()
     def prefill(self, params, ids, states):
-        """Consume the prompt. ids [T, B] -> (last logits [B, V], states)."""
-        x, states = self.model.apply_hidden(params, ids, states, train=False)
-        return self.model._logits(params, x[-1]), states
+        """Consume the prompt. ids [T, B] -> (last logits [B, V], states),
+        copies (on CUDA, out of the graph's pool, which the next replay
+        overwrites)."""
+
+        def body(ids, states):
+            x, new_states = self.model.apply_hidden(params, ids, states, train=False)
+            return self.model._logits(params, x[-1]), new_states
+
+        key = ("prefill", tuple(ids.shape), ids.dtype, self.model.backend,
+               tuple((tuple(s.shape), s.dtype) for s in tree_leaves(states)))
+        tensors = dict(ids=ids.clone(), states=_clone_states(states))
+        logits, states = self._step(self._prefills, key, params, tensors, body,
+                                    ids.device).run()
+        return logits.clone(), _clone_states(states)
 
     @torch.inference_mode()
     def decode(self, params, last_logits, states, *, steps, generator=None,
@@ -150,7 +169,7 @@ class Decoder:
         key = ("decode", b, greedy, top_k, last_logits.dtype)
         tensors = self._tensors(params, _clone_states(states), logits=last_logits.clone(),
                                 temp=temp, generator=None if greedy else generator)
-        step = self._step(key, params, tensors, body, dev)
+        step = self._step(self._graphs, key, params, tensors, body, dev)
         tokens = torch.empty((steps, b), dtype=torch.long, device=dev)
         with drawing_from(step.tensors["generator"], tensors["generator"]):
             for i in range(steps):
@@ -205,8 +224,9 @@ class Decoder:
             return tok, parent
 
         key = ("beam", b, w, last_logits.dtype)
-        step = self._step(key, params, self._tensors(params, states, scores=scores,
-                                                     tok=tok0.clone()), body, tok0.device)
+        step = self._step(self._graphs, key, params,
+                          self._tensors(params, states, scores=scores, tok=tok0.clone()), body,
+                          tok0.device)
         toks = torch.empty((max(steps - 1, 0), b, w), dtype=torch.long, device=tok0.device)
         parents = torch.empty_like(toks)
         for i in range(steps - 1):

@@ -448,9 +448,9 @@ class SparseSampledTrainer:
     touches are unchanged either way. Keys of ``params`` other than the table,
     the bias and ``rnn`` pass through. On CUDA, `fused_chunks` replays one
     captured CUDA graph of `train_step` per chunk (`utils.graphs.CarriedSteps`;
-    the negatives, the sorts and the scatter-adds inside), the counterpart of
-    the JAX package's one-dispatch scan; on the CPU, under a mesh or with
-    ``fuse_chunks=1`` it steps eagerly.
+    the negatives, the sorts and the scatter-adds inside, and under a mesh
+    the collectives), the counterpart of the JAX package's one-dispatch
+    scan; on the CPU or with ``fuse_chunks=1`` it steps eagerly.
 
     Under a mesh the table is split by rows on ``model``: each step gathers
     its rows over that group, every ``data`` rank's rows and gradients are
@@ -487,10 +487,11 @@ class SparseSampledTrainer:
         b = spmd.local_batch(batch or self.batch_size, (self.mesh, "data"))
         return self.ranker.model.state0(b, self._device())
 
-    def commit_batch(self, x, y):
-        """This process's rows of chunks [T, B] (all of them without a mesh)."""
-        dev = self._device()
-        cut = (lambda a: spmd.shard_batch(_ids(a, dev), 1, (self.mesh, "data")))
+    def commit_batch(self, x, y, *, stacked=False):
+        """This process's rows of chunks [T, B], or with ``stacked`` of a
+        stack of them [k, T, B] (all of them without a mesh)."""
+        dev, dim = self._device(), 2 if stacked else 1
+        cut = (lambda a: spmd.shard_batch(_ids(a, dev), dim, (self.mesh, "data")))
         return cut(x), cut(y)
 
     def train_step(self, params, states, x, y, lr, generator=None, negatives=None):
@@ -561,9 +562,12 @@ class SparseSampledTrainer:
     def fused_chunks(self, params, states, xs, ys, lr, generator=None, negatives=None):
         """`train_step` over a stack of chunks ``[k, T, B]`` with the
         parameters and the states carried (the JAX package's one-dispatch
-        scan): on CUDA, one replay of the captured step a chunk; on the CPU,
-        under a mesh or with ``fuse_chunks=1``, the eager steps. ``lr``: a
-        float or a 0-d tensor; ``negatives``: [k, S] or None.
+        scan): on CUDA, one replay of the captured step a chunk, under a
+        mesh with its collectives (every rank draws the negatives and takes
+        rank 0's, so every rank's graph issues the same collectives); on the
+        CPU or with ``fuse_chunks=1``, the eager steps. Under a mesh the
+        stacks are `commit_batch`'s rows (``stacked=True``). ``lr``: a float
+        or a 0-d tensor; ``negatives``: [k, S] or None.
         -> (params, states, losses [k], gnorms [k])."""
         def step_at(rate):
             def step(states, gen, x, y, *neg):
@@ -574,7 +578,7 @@ class SparseSampledTrainer:
         stacks = (_ids(xs, dev), _ids(ys, dev))
         if negatives is not None:
             stacks += (_ids(negatives, dev),)
-        if self.fuse_chunks <= 1 or not on_card(dev) or self.mesh is not None:
+        if self.fuse_chunks <= 1 or not on_card(dev):
             states, (losses, gnorms) = steps_eagerly(step_at(lr), states, generator, *stacks)
             return params, states, losses, gnorms
         row = tuple(s[0] for s in stacks)

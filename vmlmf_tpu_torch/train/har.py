@@ -11,8 +11,11 @@ default Adam.
 one device dispatch: `fit` stacks that many shuffled batches, and on CUDA
 `_fused_steps` replays one captured CUDA graph of `train_step` per batch
 (`utils.graphs.CarriedSteps`), the counterpart of the JAX package's
-`lax.scan`; the batches left over step one by one. On the CPU and under a
-``mesh`` the steps run eagerly. ``fuse_batches=1`` steps batch by batch.
+`lax.scan`; the batches left over step one by one. Under a ``mesh`` the
+graph holds the step's collectives (NCCL), and each stack is cut to this
+rank's rows along its batch dimension, as the JAX package's ``P(None,
+"data")``. On the CPU the steps run eagerly. ``fuse_batches=1`` steps batch
+by batch.
 
 With a ``mesh`` (`parallel.mesh.make_mesh`), training is data parallel over
 its ``data`` axis: the parameters and the Adam state are replicated (the same
@@ -71,13 +74,14 @@ class HARTrainer:
         return torch.optim.Adam(leaves, lr=self.learning_rate,
                                 capturable=leaves[0].is_cuda)
 
-    def commit_batch(self, x, y):
-        """A batch (numpy or tensors) on the parameters' device; under a mesh,
-        this rank's rows of it (`parallel.spmd.shard_batch`)."""
+    def commit_batch(self, x, y, *, stacked=False):
+        """A batch (numpy or tensors), or with ``stacked`` a stack of them
+        ``[k, B, ...]`` (one copy each), on the parameters' device; under a
+        mesh, this rank's rows of it (`parallel.spmd.shard_batch`)."""
         dev = resolve_device(self.mesh.device_type if self.mesh is not None else self.device)
         x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
-        on = (self.mesh, "data")
-        return spmd.shard_batch(x, 0, on), spmd.shard_batch(y, 0, on)
+        on, dim = (self.mesh, "data"), 1 if stacked else 0
+        return spmd.shard_batch(x, dim, on), spmd.shard_batch(y, dim, on)
 
     def train_step(self, params, opt_state, x, y):
         """One Adam step on a batch ``x [B, T, F]``, ``y [B]`` (numpy or
@@ -111,15 +115,17 @@ class HARTrainer:
     def _fused_steps(self, params, opt_state, xs, ys):
         """`train_step` over a stack of batches ``xs [k, B, T, F]``, ``ys
         [k, B]`` (the JAX package's one-dispatch scan): on CUDA, one replay
-        of the captured step a batch; on the CPU or under a mesh, the eager
-        steps. -> (params, opt_state, losses [k]) on the device."""
+        of the captured step a batch, under a mesh with its collectives; on
+        the CPU, the eager steps. Under a mesh the stacks are `commit_batch`'s
+        rows (``stacked=True``). -> (params, opt_state, losses [k]) on the
+        device."""
 
         def step(states, _, x, y):
             return states, self.train_step(params, opt_state, x, y)[2]
 
         dev = first_device(params)
         xs, ys = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
-        if not on_card(dev) or self.mesh is not None:
+        if not on_card(dev):
             _, (losses,) = steps_eagerly(step, [], None, xs, ys)
             return params, opt_state, losses
         key = graph_key(trainable_leaves(params), xs[0], ys[0])
@@ -129,14 +135,15 @@ class HARTrainer:
         return params, opt_state, losses
 
     def fit(self, params, opt_state, x_train, y_train, *, epochs, log_fn=print):
-        """Shuffled drop-last epochs. With ``fuse_batches`` > 1 (and no
-        mesh), blocks of ``min(fuse_batches, batches an epoch)`` batches
-        through `_fused_steps`, each block's stack sent in one copy, then the
-        batches left over one `train_step` each; else one `train_step` a
-        batch. -> (params, opt_state, history)."""
+        """Shuffled drop-last epochs. With ``fuse_batches`` > 1, blocks of
+        ``min(fuse_batches, batches an epoch)`` batches through
+        `_fused_steps`, each block's stack sent in one copy (under a mesh,
+        cut to this rank's rows), then the batches left over one
+        `train_step` each; else one `train_step` a batch. -> (params,
+        opt_state, history)."""
         history = []
         n_batches = len(x_train) // self.batch_size
-        fuse = 1 if self.mesh is not None else max(1, min(self.fuse_batches, n_batches))
+        fuse = max(1, min(self.fuse_batches, n_batches))
         for epoch in range(epochs):
             t0 = time.perf_counter()
             losses, block = [], []
@@ -145,8 +152,9 @@ class HARTrainer:
                 if fuse > 1:
                     block.append((xb, yb))
                     if len(block) == fuse:
-                        params, opt_state, ls = self._fused_steps(
-                            params, opt_state, *(np.stack([b[i] for b in block]) for i in (0, 1)))
+                        xs, ys = self.commit_batch(
+                            *(np.stack([b[i] for b in block]) for i in (0, 1)), stacked=True)
+                        params, opt_state, ls = self._fused_steps(params, opt_state, xs, ys)
                         losses.append(ls)
                         block = []
                     continue

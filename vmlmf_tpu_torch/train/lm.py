@@ -19,9 +19,12 @@ chunk (`utils.graphs.CarriedSteps`), the counterpart of the JAX package's
 `lax.scan` over chunks, with the parameters and the states carried on the
 device; the chunks past the last whole block step one by one. `perplexity`
 replays a captured no-grad step over the chunks of one shape
-(`_eval_chunks`). On the CPU and under a ``mesh`` both step eagerly, with
-the same step semantics. ``fuse_chunks=1`` steps chunk by chunk. The loss
-reaches the host once a block, in the log line.
+(`_eval_chunks`). Under a ``mesh`` the same graphs hold the step's
+collectives (NCCL), and each block's stack is cut to this rank's rows
+(`commit_batch(..., stacked=True)`), as the JAX package commits it to the
+``data`` axis. On the CPU both step eagerly, with the same step semantics.
+``fuse_chunks=1`` steps chunk by chunk. The loss reaches the host once a
+block, in the log line.
 
 Two hooks, as in the JAX package:
   * ``loss_fn(params, x, y, states, generator) -> (loss, new_states)``
@@ -205,9 +208,11 @@ class LMTrainer:
     def _fused_chunks(self, params, states, xs, ys, lr, generator=None):
         """`train_step` over a stack of chunks ``xs, ys [k, T, B]`` with the
         parameters and the states carried (the JAX package's one-dispatch
-        scan): on CUDA, one replay of the captured step a chunk; on the CPU
-        or under a mesh, the eager steps. ``lr``: a float or a 0-d tensor.
-        -> (params, states, losses [k], gnorms [k]), all on the device."""
+        scan): on CUDA, one replay of the captured step a chunk, under a
+        mesh with its collectives; on the CPU, the eager steps. Under a mesh
+        the stacks are `commit_batch`'s rows (``stacked=True``). ``lr``: a
+        float or a 0-d tensor. -> (params, states, losses [k], gnorms [k]),
+        all on the device."""
         def step_at(rate):
             def step(states, gen, x, y):
                 return self.train_step(params, states, x, y, rate, gen)[1:]
@@ -215,7 +220,7 @@ class LMTrainer:
 
         dev = first_device(params)
         xs, ys = _tokens(xs, dev), _tokens(ys, dev)
-        if not on_card(dev) or self.mesh is not None:
+        if not on_card(dev):
             states, (losses, gnorms) = steps_eagerly(step_at(lr), states, generator, xs, ys)
             return params, states, losses, gnorms
         key = (graph_key(tree_leaves(params), xs[0], *tree_leaves(states)), generator is None)
@@ -234,11 +239,12 @@ class LMTrainer:
         """data = (train_chunks, valid_chunks, test_chunks) from
         `vmlmf_tpu_torch.data.ptb.minibatch`. -> (params, history).
 
-        With ``fuse_chunks`` > 1 (and no mesh), each epoch runs blocks of
+        With ``fuse_chunks`` > 1, each epoch runs blocks of
         ``min(fuse_chunks, len(train_chunks))`` chunks through
-        `_fused_chunks`, each block's stack sent to the device in one copy,
-        then the chunks left over one `train_step` each; ``log_every`` then
-        logs once a block, the block's one read of the loss."""
+        `_fused_chunks`, each block's stack sent to the device in one copy
+        (under a mesh, cut to this rank's rows), then the chunks left over
+        one `train_step` each; ``log_every`` then logs once a block, the
+        block's one read of the loss."""
         trn, vld, tst = data
         lr = self.learning_rate
         # the ranks of one data coordinate draw the same dropout masks
@@ -247,7 +253,7 @@ class LMTrainer:
         history = []
         tic = time.perf_counter()
         total_words = 0
-        fuse = 1 if self.mesh is not None else max(1, min(self.fuse_chunks, len(trn)))
+        fuse = max(1, min(self.fuse_chunks, len(trn)))
         for epoch in range(epochs):
             states = self.state0()
             if epoch > self.factor_epoch and lr > 0.001:
@@ -258,9 +264,10 @@ class LMTrainer:
                     block = trn[s0 : s0 + fuse]
                     xs, ys = (_stack([c[i] for c in block], first_device(params))
                               for i in (0, 1))
+                    total_words += xs.numel()
+                    xs, ys = self.commit_batch(xs, ys, stacked=True)
                     params, states, losses, _ = self._fused_chunks(params, states, xs, ys,
                                                                    lr, generator)
-                    total_words += xs.numel()
                     if log_every:
                         toc = time.perf_counter()
                         log_fn(f"chunks {s0 + fuse}/{len(trn)}, train loss = "
@@ -304,15 +311,16 @@ class LMTrainer:
     def _eval_chunks(self, params, states, xs, ys):
         """No-grad full-CE losses over a stack of chunks ``xs, ys [k, T, B]``
         with the state carried (the JAX package's one-dispatch eval scan): on
-        CUDA, one replay of the captured eval step a chunk; on the CPU or
-        under a mesh, the eager steps. -> (losses [k], states)."""
+        CUDA, one replay of the captured eval step a chunk (under a mesh, with
+        its collectives; the stacks are this rank's rows); on the CPU, the
+        eager steps. -> (losses [k], states)."""
 
         def step(states, _, x, y):
             loss, new = self._eval_step(params, x, y, states)
             return new, loss
 
         dev = first_device(params)
-        if not on_card(dev) or self.mesh is not None:
+        if not on_card(dev):
             states, (losses,) = steps_eagerly(step, states, None, xs, ys)
             return losses, states
         key = graph_key(tree_leaves(params), xs[0], *tree_leaves(states))

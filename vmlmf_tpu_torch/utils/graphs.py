@@ -26,7 +26,16 @@ replay: read or copy them before the next call.
 inputs whose recurrent states stay in static tensors from one step to the
 next (`LMTrainer._fused_chunks` and `_eval_chunks`, `HARTrainer.
 _fused_steps`, `SparseSampledTrainer.fused_chunks`); `steps_eagerly` runs
-the same step without a graph, for the CPU and a mesh.
+the same step without a graph, on the CPU.
+
+A step may run `torch.distributed` collectives over NCCL (the trainers under
+a mesh: the gradient and loss sums over ``data``, the split vocabulary's
+over ``model``, the ranker's broadcast of the negatives): they are captured
+into the graph with the rest of the step, and each replay runs them again,
+so every rank of a group must replay its graph as often as the others. NCCL
+makes a group's communicator at that group's first collective, which
+capture cannot hold: the warm-up steps run the step's every collective
+first, so every group the captured step uses has its communicator.
 
 The launch counters of the kernel wrappers (`ops.cuda_scan.COUNTED`) stay
 the number of kernels that ran: capture runs nothing, so what it counted is
@@ -217,7 +226,7 @@ class CarriedSteps:
 
 
 def steps_eagerly(step, states, generator, *stacks):
-    """`CarriedSteps`' call without a graph, for the CPU and a mesh: ``step``
+    """`CarriedSteps`' call without a graph, for the CPU: ``step``
     on each row in turn -> (the last states, each output stacked)."""
     outputs = []
     for row in zip(*stacks):

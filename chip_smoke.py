@@ -241,10 +241,32 @@ Phases, each of which exits non-zero when it fails:
                `record_function` draws on the device's timeline, such as
                `Optimizer.step`'s, in a window opened and closed by spin
                kernels). A profiler error or an empty trace fails.
- 22. report  — one JSON line listing every kernel entry in every form that
+ 22. wide    — fault 11, layers too wide for the shared memory of all SMs.
+               Kernel checks, each shape's plan printed first (the resident
+               depth of each weight slice and the MB streamed a step): the
+               LSTM entries at h=1500, dense and r=rx=750, T=35, B=20 and
+               128 in f32 (streamed plans) and B=20 in bf16 (B=128 dense in
+               chunks of rows), the gi-mode entries at the dense layer, with
+               cuDNN's LSTM; a streamed plan forced at the PTB LM layer (B=20)
+               with the resident plan's layout, all six entries bit-equal to
+               it; the GRU's three forms at h=3200 (T=24, B=81; dense "post"
+               keeps its walk's staged inputs in device memory), cuDNN's GRU
+               for "post". Then the dense PTB "large" LM (Zaremba et al.
+               2014, section 4.1: 2x1500, dropout 0.65, init 0.04, clip 10;
+               vocab 10000, seeded random weights): the graphed prefill at
+               B = 1/20/128 and greedy decode, each bit-equal to eager; 60
+               eager train steps at B=20 (a falling loss; the first 10 held
+               to the loop backend's) and a graphed block of 8 chunks;
+               "fused_pipelined" (each dense layer a singleton group through
+               the per-layer scans, no stack launch) bit-equal to "fused";
+               the mixed precision (bf16 products and head) at B=20 and 128;
+               a VMLMF LM of that width (r=750) served and trained; one
+               `lm_main` epoch at the large LM's flags; the HAR GRU nets at
+               h=3200, two steps and `evaluate` each.
+ 23. report  — one JSON line listing every kernel entry in every form that
                the main paths ran, then the last line {"ok": true, ...}.
 
-In phases 5-20 every launch count is set to 0 just before the path runs and
+In phases 5-22 every launch count is set to 0 just before the path runs and
 read just after. Needs one CUDA device and nvcc; imports neither JAX nor the
 JAX package.
 """
@@ -333,7 +355,9 @@ FORMS = {
     "lstm": {"lowrank": ("lm", 20, 20), "dense_rec": ("har_group", EVAL_BATCH, 81),
              "dense": ("lm_dense", 20, 20), "dense_x": ("har_dense_x", 81, 81),
              "bf16": ("lm_bf16", 20, 20), "bf16_res": ("har_bf16_res", None, 81),
-             "recompute": ("har_recompute", None, 81)},
+             "recompute": ("har_recompute", None, 81),
+             "wide_dense": ("wide_dense", 20, 20), "wide_lowrank": ("wide_lowrank", 20, 20),
+             "wide_dense_bf16": ("wide_dense_bf16", 20, 20)},
     "lstm_gi": {"lowrank": ("lm_gi", 20, 20)},
     "gru": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
             "dense_post": ("group_l1", EVAL_BATCH, 81),
@@ -343,7 +367,9 @@ FORMS = {
             "dx_dense_pre": ("dx_dense_pre", 81, 81),
             "recompute": ("main_l1_recompute", None, 81),
             "recompute_dense_post": ("group_l1_recompute", None, 81),
-            "recompute_dense_pre": ("dense_pre_recompute", None, 81)},
+            "recompute_dense_pre": ("dense_pre_recompute", None, 81),
+            "wide_post": ("wide_post", 81, 81), "wide_pre": ("wide_pre", 81, 81),
+            "wide_lowrank_pre": ("wide_lowrank_pre", 81, 81)},
     "gru_gi": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
                "dense_post": ("group_l1", EVAL_BATCH, 81),
                "dense_pre": ("dense_pre", 81, 81)},
@@ -698,10 +724,17 @@ def print_scan_chunks(torch, label, b, h, r, bf16):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chunks = cuda_scan.scan_chunks(b, h, r, sms, 2 if bf16 else 4)
     for b0, n, plan in chunks:
+        streamed = ""
+        if plan.streamed:
+            streamed = "; " + ", ".join(
+                f"{kernel} resident depths {plan.resident(kernel)} of "
+                f"{tuple(d for d, _ in plan.slices(kernel))}, streamed "
+                f"{plan.n_ctas * plan.streamed_elems(kernel) * plan.elsize / 1e6:.3f} MB a step"
+                for kernel in ("fwd", "bwd"))
         print(f"plan {label}{f' rows {b0}-{b0 + n - 1}' if len(chunks) > 1 else ''}: "
               f"{plan.groups} batch groups x {plan.ctas} CTAs = {plan.n_ctas} CTAs of {sms} SMs, "
               f"{plan.rpad} padded rows a group, shared memory {plan.smem_fwd} B forward, "
-              f"{plan.smem_bwd} B BPTT ({plan.elsize}-byte weights)")
+              f"{plan.smem_bwd} B BPTT ({plan.elsize}-byte weights){streamed}")
     return chunks
 
 
@@ -907,10 +940,11 @@ def phase_gru_kernels(torch):
     return rows
 
 
-def gru_check(torch, rows, name, shape, mode, lowrank, dx, train):
+def gru_check(torch, rows, name, shape, mode, lowrank, dx, train, iters=20):
     """One GRU kernel check at ``shape`` (T, B, F, h, rx, r): each entry that
-    runs there against its plain version, then its ms, the plain version's,
-    its bound and cuDNN's (mode "post"), into ``rows`` by (entry, name, B)."""
+    runs there against its plain version, then its ms (a mean over
+    ``iters`` calls), the plain version's, its bound and cuDNN's (mode
+    "post"), into ``rows`` by (entry, name, B)."""
     from vmlmf_tpu_torch.ops import cuda_gru
 
     t, b, f, h, rx, r = shape
@@ -935,11 +969,11 @@ def gru_check(torch, rows, name, shape, mode, lowrank, dx, train):
             gru(xs, h0[None])
 
     checks = [("gru_scan_xin_fwd", err, TOL,
-               cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode), 20),
+               cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode), iters),
                cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode), 5),
-               cuda_gru.gru_scan_cost(*size), cuda_ms(torch, lib_fwd, 20) if gru else None)]
+               cuda_gru.gru_scan_cost(*size), cuda_ms(torch, lib_fwd, iters) if gru else None)]
     if train:
-        checks += gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru)
+        checks += gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru, iters)
     for entry, e_err, tol, ms, plain_ms, cost, lib_ms in checks:
         rows[(entry, name, b)] = kernel_row(entry, label, e_err, tol, ms, plain_ms, cost,
                                             lib_ms)
@@ -982,7 +1016,7 @@ def gru_bwd_split(torch, label, bwd, t, calls=5):
     return 1e3 * walk / calls / t, other / (walk + other), (walk + other) / calls
 
 
-def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru):
+def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru, iters=20):
     """The residual forward and the BPTT at one shape, against their plain
     versions -> their (entry, err, tol, ms, plain ms, cost, library ms)."""
     xs, h0 = args[0], args[7]
@@ -1012,13 +1046,13 @@ def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru):
     if gru is not None:
         x_leaf, h_leaf = xs.detach().requires_grad_(dx), h0.detach().requires_grad_()
         lib_fwd_ms, lib_bwd_ms = library_train_ms(torch, lambda: gru(x_leaf, h_leaf[None]), dys,
-                                                  20)
+                                                  iters)
     return [("gru_scan_xin_fwd_res", err_r, TOL,
-             cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode), 20),
+             cuda_ms(torch, lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode), iters),
              cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode), 5),
              cuda_gru.gru_scan_res_cost(*size), lib_fwd_ms),
             ("gru_scan_xin_bwd", err_g, GRAD_TOL,
-             cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx), 20),
+             cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx), iters),
              cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx), 5),
              cuda_gru.gru_scan_bwd_cost(*size, dx=dx), lib_bwd_ms)]
 
@@ -2150,22 +2184,21 @@ class switches:
                 os.environ[k] = v
 
 
-def gi_check(torch, rows, sms):
-    """The gi-mode entries against their plain versions at the LM layer, B=20,
-    from the layer's own input contribution; cuDNN's f32 LSTM from x as the
-    library (it computes the same layer)."""
+def gi_check(torch, rows, sms, name="lm_gi", h=LM["hidden"], r=LM["rank"]):
+    """The gi-mode entries against their plain versions at the LM layer (or a
+    layer of width ``h`` and rank ``r``, 0 dense), B=20, from the layer's
+    own input contribution; cuDNN's f32 LSTM from x as the library (it
+    computes the same layer)."""
     from vmlmf_tpu_torch.ops import cuda_scan
 
-    t, b, h, r = LM["prompt"], MAIN_BATCH, LM["hidden"], LM["rank"]
+    t, b = LM["prompt"], MAIN_BATCH
     s = dict(t=t, b=b, f=h, h=h, rx=r, r=r)
     args = scan_inputs(torch, **s)
     lstm, _ = cudnn_lstm(torch, args)
     gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
     gargs = (gi, *args[5:])
-    label = f"lm_gi T={t} B={b} h={h} r={r}, gi mode"
-    plan = cuda_scan.scan_plan(b, h, r, sms)
-    print(f"plan {label}: {plan.groups} batch groups x {plan.ctas} CTAs, shared memory "
-          f"{plan.smem_fwd} B forward, {plan.smem_bwd} B BPTT")
+    label = f"{name} T={t} B={b} h={h} r={r or 'dense'}, gi mode"
+    print_scan_chunks(torch, label, b, h, r, False)
     ys, c_last = cuda_scan.lstm_scan_fused(*gargs)
     res = cuda_scan.lstm_scan_fused_res(*gargs)
     dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
@@ -2202,7 +2235,7 @@ def gi_check(torch, rows, sms):
             ("lstm_scan_bwd", lambda: cuda_scan.lstm_scan_bwd(*args[5:], *res, dys, None),
              lambda: cuda_scan.lstm_scan_bwd_plain(*args[5:], *res, dys, None),
              cuda_scan.scan_bwd_cost(*size, gi=True), GRAD_TOL, lib_bwd_ms)):
-        rows[(entry, "lm_gi", b)] = kernel_row(entry, label, errs[entry], tol,
+        rows[(entry, name, b)] = kernel_row(entry, label, errs[entry], tol,
                                                cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 3),
                                                cost, lib_ms)
 
@@ -2230,9 +2263,11 @@ def only_variant(variant):
     return counts
 
 
-def lm_train_run(torch, trainer, chunks, steps, want_step, label):
+def lm_train_run(torch, trainer, chunks, steps, want_step, label, falling=True):
     """`steps` train steps over ``chunks`` (cycled) with the launch counts of
-    each step held to ``want_step`` -> (losses per word, params)."""
+    each step held to ``want_step`` -> (losses per word, params); the
+    losses finite and, with ``falling``, the mean of the last 5 below the
+    first 5's."""
     params, states = trainer.init(), trainer.state0()
     generator = torch.Generator(device="cuda").manual_seed(1)
     losses = []
@@ -2247,7 +2282,8 @@ def lm_train_run(torch, trainer, chunks, steps, want_step, label):
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     print(f"{label}: {steps} steps, loss per word {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
           f"first 5 {first:.4f}, last 5 {last:.4f})")
-    if not all(v == v and abs(v) != float("inf") for v in losses) or not last < first:
+    if not all(v == v and abs(v) != float("inf") for v in losses) or \
+            (falling and not last < first):
         fail(f"{label}: the training loss did not fall: {losses}")
     return losses, params
 
@@ -2785,6 +2821,408 @@ def phase_plans(torch):
     return rows
 
 
+# Fault 11: layers too wide for the shared memory of all SMs. The PTB
+# "large" LM of Zaremba et al. (2014), "Recurrent Neural Network
+# Regularization", section 4.1, dense (the uncompressed baseline that VMLMF
+# compresses): 2 x 1500 units, dropout 0.65, init +-0.04, T=35, B=20,
+# gradient-norm clip 10, lr 1 divided by 1.15 after epoch 14; vocab 10000.
+# Its 1500 x 6000 U (36 MB f32) does not fit in the SMs' 30 MB of shared
+# memory: the LSTM scans stream the rows that do not fit through L2. The
+# kernel checks also take a low-rank layer of that width (r = 750) and the
+# GRU's three forms at h=3200, past the width where one row's walk state
+# fitted in dense "post".
+LARGE = dict(lstm_type="custom", hidden_size=1500, layer_num=2, dropout=0.65, winit=0.04,
+             max_grad_norm=10, factor=1.15, factor_epoch=14)
+WIDE = dict(t=LM["prompt"], f=LARGE["hidden_size"], h=LARGE["hidden_size"])
+WIDE_RANK = 750
+GRU_WIDE_H = dict(t=GRU["t"], b=GRU["b"], f=GRU["f"], h=3200, rx=GRU["rx"])
+# (name, HARConfig fields) of the HAR GRU nets at that width, by kernel form
+GRU_WIDE_NETS = {"wide_lowrank_pre": dict(model="mygru", layer_sizes=(3200,), w_rank=9,
+                                          u_ranks=(800,)),
+                 "wide_post": dict(model="mygru_group", layer_sizes=(3200,), w_rank=9,
+                                   u_ranks=(12, 6)),
+                 "wide_pre": dict(model="mygru", layer_sizes=(3200,), w_rank=9)}
+# train steps of the large LM: lr 1 under a clip of 10 makes its first
+# steps' losses spike (the loop backend's alike), which settle within 60
+WIDE_STEPS = 60
+
+
+def large_lm(backend="fused", dropout=None, head_bf16=False, **over):
+    """The PTB "large" LM through `LMConfig` (dropout 0.65 unless given)."""
+    from vmlmf_tpu_torch.config import LMConfig
+
+    fields = dict(LARGE, backend=backend, head_bf16=head_bf16, **over)
+    if dropout is not None:
+        fields["dropout"] = dropout
+    return LMConfig(**fields).build_model(LM["vocab"])
+
+
+def large_trainer(model, b):
+    from vmlmf_tpu_torch.train.lm import LMTrainer
+
+    return LMTrainer(model, batch_size=b, seq_length=LM["prompt"], learning_rate=1.0,
+                     max_grad_norm=LARGE["max_grad_norm"])
+
+
+def phase_wide_kernels(torch):
+    """The kernel checks of fault 11, each shape's plan printed first: the six
+    LSTM entries at dense h=1500 and at low-rank h=1500, r=750, at B=20 and
+    128 in f32 (streamed plans) and at B=20 in bf16 (dense: a resident
+    plan; at B=128 chunks of rows), the gi-mode entries at the dense layer;
+    a streamed plan forced at the LM layer with the resident plan's layout,
+    bit-equal to it; the GRU's three forms at h=3200. -> rows."""
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16 = ("bf16", "f32", True)
+    for name, over, diagonals in (("wide_dense", dict(rx=0, r=0), False),
+                                  ("wide_lowrank", dict(rx=WIDE_RANK, r=WIDE_RANK), True)):
+        for b in TRAIN_BATCHES:
+            lstm_check(torch, rows, name, dict(WIDE, b=b, **over), True, diagonals, F32)
+        lstm_check(torch, rows, f"{name}_bf16", dict(WIDE, b=MAIN_BATCH, **over), True,
+                   diagonals, bf16)
+    lstm_check(torch, rows, "wide_dense_bf16", dict(WIDE, b=128, rx=0, r=0), True, False, bf16)
+    # a dense width whose bf16 plan streams
+    lstm_check(torch, rows, "wide_dense_bf16_streamed", dict(WIDE, b=MAIN_BATCH, f=1600, h=1600,
+                                                            rx=0, r=0), True, False, bf16)
+    gi_check(torch, rows, sms, "wide_dense_gi", WIDE["h"], 0)
+    streamed_equals_resident(torch, sms)
+    gru_spill_equals_unspilled(torch, sms)
+    for name, fields in GRU_WIDE_NETS.items():
+        lowrank = name == "wide_lowrank_pre"
+        shape = (*(GRU_WIDE_H[k] for k in ("t", "b", "f", "h", "rx")),
+                 fields["u_ranks"][0] if lowrank else 0)
+        gru_check(torch, rows, name, shape, "post" if name == "wide_post" else "pre", lowrank,
+                  True, True, iters=3)
+    print(json.dumps({"wide": {f"{k[0]} {k[1]} B={k[2]}": {
+        key: row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+        for k, row in rows.items() if k[1].startswith("wide")}}))
+    return rows
+
+
+# (precision, residuals, save_gates) of each variant the LSTM scan kernels
+# compile, each forced onto a streamed plan
+SCAN_VARIANTS = {"f32": F32, "bf16": ("bf16", "f32", True), "bf16_res": ("f32", "bf16", True),
+                 "recompute": ("f32", "f32", False)}
+
+
+def streamed_equals_resident(torch, sms):
+    """In each variant the scan kernels compile, a streamed plan forced at
+    the LM layer (B=20) with the resident plan's groups, CTAs, stage and
+    red, half of each slice's depth resident: every output of the variant's
+    entries (x mode, and gi mode where the variant has one) bit-equal to
+    the resident plan's."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    b, h, r = MAIN_BATCH, LM["hidden"], LM["rank"]
+    args = scan_inputs(torch, LM["prompt"], b, h, h, r, r)
+    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+    dys = 0.1 * torch.randn((LM["prompt"], b, h), generator=torch.Generator().manual_seed(5)).cuda()
+    for name, (precision, residuals, save) in SCAN_VARIANTS.items():
+        elsize = 2 if precision == "bf16" else 4
+        base = cuda_scan.scan_plan(b, h, r, sms, elsize)
+        half = tuple(tuple(d // 2 for d, _ in base.slices(k)) for k in ("fwd", "bwd"))
+        forced = cuda_scan.plan_layout(b, h, r, base.groups, base.ctas, elsize, resident=half)
+        if (forced.stage_fwd, forced.red_fwd, forced.stage_bwd, forced.red_bwd) != (
+                base.stage_fwd, base.red_fwd, base.stage_bwd, base.red_bwd):
+            fail(f"the forced streamed plan ({name}) lays out its stage and red otherwise")
+        bias = None if save else args[4]
+
+        def run(plan):
+            keep = cuda_scan._chunks_for
+            cuda_scan._chunks_for = lambda *a, **k: ((0, b, plan),)
+            try:
+                res = cuda_scan.lstm_scan_fused_xin_res(*args, precision, residuals, save)
+                out = [*res, *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None,
+                                                          bias=bias, precision=precision)]
+                if residuals == "f32" and save:  # the no-grad entries' variants: precisions
+                    out += [*cuda_scan.lstm_scan_fused_xin(*args, precision),
+                            *cuda_scan.lstm_scan_fused(gi, *args[5:], precision)]
+                if save:  # gi mode always saves the gates
+                    gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:], precision, residuals)
+                    out += [*gi_res, *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, None,
+                                                              precision)]
+            finally:
+                cuda_scan._chunks_for = keep
+            return [a for a in out if a is not None]
+
+        one, two = run(base), run(forced)
+        torch.cuda.synchronize()
+        equal = len(one) == len(two) and all(torch.equal(a, c) for a, c in zip(one, two))
+        print(f"wide: a streamed plan forced at the LM layer B={b}, variant {name} (resident "
+              f"depths {forced.resident_fwd} / {forced.resident_bwd}, streamed "
+              f"{4 * cuda_scan.stream_floats(forced, 'fwd') / 1e6:.3f} / "
+              f"{4 * cuda_scan.stream_floats(forced, 'bwd') / 1e6:.3f} MB) against the "
+              f"resident plan, {len(one)} outputs: bit-equal {equal}")
+        if not equal:
+            fail(f"a streamed plan gives other bits than the resident plan with the same layout "
+                 f"in variant {name}")
+
+
+def gru_spill_equals_unspilled(torch, sms):
+    """A spill forced at a small width (h=64, T=24, B=81, one row a CTA,
+    every weight through L2, one step a block) in each GRU form, in x mode,
+    gi mode and the recompute policy: with the first non-empty region and
+    with every region of each kernel in device memory, every output
+    bit-equal to the same layout with none."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx = GRU["t"], GRU["b"], GRU["f"], 64, GRU["rx"]
+    dys = torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+    for name, mode, lowrank, r in (("post", "post", False, 0), ("pre", "pre", False, 0),
+                                   ("lowrank_pre", "pre", True, 16)):
+        form = (cuda_gru.DENSE_POST if mode == "post" else
+                cuda_gru.LOWRANK_PRE if lowrank else cuda_gru.DENSE_PRE)
+        args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
+        gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+        rec = (gi, *args[4:])
+
+        def x_mode():
+            res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+            return (cuda_gru.gru_scan_fused_xin(*args, mode=mode), *res,
+                    *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode))
+
+        def gi_mode():
+            res = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+            return (cuda_gru.gru_scan_fused(*rec, mode=mode), *res,
+                    *cuda_gru.gru_scan_bwd(*args[4:], *res, dys, mode=mode))
+
+        def recompute():
+            res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+            return (*res, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode,
+                                                     bias=args[3]))
+
+        paths = {"x": x_mode, "gi": gi_mode, "recompute": recompute}
+        for path, call in paths.items():
+            outs, spills = [], []
+            for regions in ((0, 0), (1, 1), (99, 99)):
+                plans = {g: cuda_gru.spill_plan(t, b, 0 if g else f, 0 if g else rx, h, r, form,
+                                                regions, gi=g, sms=sms) for g in (False, True)}
+                keep = cuda_gru._plan_for
+                cuda_gru._plan_for = lambda *a, gi=False: plans[gi]
+                try:
+                    outs.append([a for a in call() if a is not None])
+                finally:
+                    cuda_gru._plan_for = keep
+                spills.append((plans[path == "gi"].spill_fwd, plans[path == "gi"].spill_bwd))
+            torch.cuda.synchronize()
+            equal = all(len(o) == len(outs[0]) and all(torch.equal(a, c)
+                                                       for a, c in zip(outs[0], o))
+                        for o in outs[1:])
+            print(f"wide: GRU {name} {path}: spills (forward, walk floats a CTA) {spills[1:]} "
+                  f"against none, {len(outs[0])} outputs: bit-equal {equal}")
+            if not equal:
+                fail(f"wide: a forced GRU spill ({name}, {path}) gives other bits than the same "
+                     f"layout unspilled")
+
+
+def wide_chunks(torch, b, r=0):
+    """The chunks of rows of a 1500-wide layer at batch ``b`` (rank ``r``),
+    in the precision the environment selects."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    bf16 = os.environ.get("VMLMF_PALLAS_PRECISION") == "bf16"
+    return print_scan_chunks(torch, f"large LM layer B={b} r={r or 'dense'}"
+                             f"{' bf16' if bf16 else ''}", b, WIDE["h"], r, bf16)
+
+
+def wide_serve(torch, label, model, params, batches, form, report, r=0):
+    """The graphed prefill at each batch (`graph_prefill`, bit-equal to its
+    eager calls, a no-grad launch a layer and chunk of rows a call) -> runs."""
+    runs, layers = [], LARGE["layer_num"]
+    for b in batches:
+        chunks = len(wide_chunks(torch, b, r))
+        report[f"prefill_{label}_b{b}"], counts = graph_prefill(torch, f"large {label}", model,
+                                                               params, b)
+        want = eval_counts("lstm:dense", layers * chunks * GRAPH["prefills"])
+        if counts != want:
+            fail(f"wide: a large {label} prefill at B={b} must launch the no-grad kernel once a "
+                 f"layer and chunk of rows ({chunks}): {nonzero(counts)}")
+        runs.append((form, counts))
+    return runs
+
+
+def phase_wide_lm(torch):
+    """The dense PTB "large" LM on the card: the graphed prefill at B = 1, 20,
+    128 and greedy decode, training (eager steps with exact launch counts
+    and a falling loss, a block of chunks graphed through `fit`'s path),
+    one `lm_main` epoch with its flags; on "fused_pipelined" (each dense
+    layer a singleton group through the per-layer scans); in the JAX
+    package's mixed precision (bf16 products and head); a low-rank layer
+    of that width (r=750) served and trained; the HAR GRU nets at h=3200.
+    -> runs for the kernels line."""
+    import math
+
+    from vmlmf_tpu_torch.cli import lm_main
+
+    runs, report, layers = [], {}, LARGE["layer_num"]
+    form = "lstm:wide_dense"
+    model = large_lm("fused")
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    runs += wide_serve(torch, "fused", model, params, LM_BATCHES, form, report)
+    report["greedy_b20"], counts = graph_decode(torch, model, params, MAIN_BATCH, "greedy")
+    if counts != only():
+        fail(f"wide: the large LM's decode must launch no scan kernel: {nonzero(counts)}")
+
+    trn, vld = lm_chunks(MAIN_BATCH)
+    reset_launch_counts()
+    losses, _ = lm_train_run(torch, large_trainer(model, MAIN_BATCH), trn, WIDE_STEPS,
+                             train_counts("lstm:dense", layers), "wide: large fused")
+    runs.append((form, launch_counts()))
+    report["fused_losses"] = losses[::5]
+    held_to_loop(torch, "large LM", large_lm, losses, trn)
+    report["fit_block"], counts, _ = graph_lm(torch, "fused", MAIN_BATCH, model=model,
+                                              label="large LM")
+    if counts != train_counts("lstm:dense", layers * GRAPH["chunks"]):
+        fail(f"wide: the graphed block must launch the training kernels once a layer and chunk: "
+             f"{nonzero(counts)}")
+    runs.append((form, counts))
+    report["step_ms"] = train_step_ms(torch, large_trainer(model, MAIN_BATCH), params, trn, 5,
+                                      torch.Generator(device="cuda").manual_seed(1))
+
+    # the per-layer path of "fused_pipelined": no stack plan takes a dense layer
+    piped = large_lm("fused_pipelined")
+    lf = prefill_outputs(torch, model, params, MAIN_BATCH)
+    lp = prefill_outputs(torch, piped, params, MAIN_BATCH)
+    ok, err = all_close(torch, lf, lp, 0.0)
+    print(f"wide: fused_pipelined prefill against fused at B={MAIN_BATCH}: max abs err {err:.3g}")
+    if not ok:
+        fail("wide: the large LM's fused_pipelined prefill differs from fused")
+    runs += wide_serve(torch, "fused_pipelined", piped, params, (MAIN_BATCH,), form, report)
+    reset_launch_counts()
+    losses_p, _ = lm_train_run(torch, large_trainer(piped, MAIN_BATCH), trn, WIDE_STEPS,
+                               train_counts("lstm:dense", layers), "wide: large fused_pipelined")
+    runs.append((form, launch_counts()))
+    ok, err = all_close(torch, [torch.tensor(losses_p)], [torch.tensor(losses)], 0.0)
+    print(f"wide: fused_pipelined's losses against fused's over {WIDE_STEPS} steps: max abs err "
+          f"{err:.3g}")
+    if not ok:
+        fail(f"wide: fused_pipelined's losses {losses_p} differ from fused's {losses}")
+
+    # mixed precision: a resident bf16 plan at B=20, chunks of rows at B=128
+    with switches(VMLMF_PALLAS_PRECISION="bf16"):
+        mixed = large_lm("fused", head_bf16=True)
+        reset_launch_counts()
+        runs += wide_serve(torch, "mixed bf16+head", mixed, params, (MAIN_BATCH, 128),
+                           "lstm:wide_dense_bf16", report)
+        only_variant("bf16")
+        for b in TRAIN_BATCHES:
+            chunks = len(wide_chunks(torch, b))
+            reset_launch_counts()
+            mixed_losses, _ = lm_train_run(
+                torch, large_trainer(mixed, b), lm_chunks(b)[0], 10,
+                train_counts("lstm:dense", layers * chunks),
+                f"wide: large mixed bf16+head B={b} ({chunks} chunks of rows)", falling=False)
+            runs.append(("lstm:wide_dense_bf16", only_variant("bf16")))
+            if b == MAIN_BATCH:  # the f32 run's first steps, within bf16's tolerance
+                ok, err = all_close(torch, [torch.tensor(mixed_losses)],
+                                    [torch.tensor(losses[:10])], BF16_TOL)
+                print(f"wide: mixed losses against f32's over 10 steps: max abs err {err:.3g}")
+                if not ok:
+                    fail(f"wide: the mixed LM's losses {mixed_losses} part from f32's")
+
+    # a low-rank layer of that width: VMLMF, w_rank = u_rank = 750, streamed
+    lowrank = large_lm("fused", lstm_type="vmlmf", w_rank=WIDE_RANK, u_ranks=(WIDE_RANK,))
+    lp_params = lowrank.init(torch.Generator().manual_seed(0), device="cuda")
+    runs += wide_serve(torch, "VMLMF r=750", lowrank, lp_params, (MAIN_BATCH,),
+                       "lstm:wide_lowrank", report, WIDE_RANK)
+    reset_launch_counts()
+    lr_losses, _ = lm_train_run(torch, large_trainer(lowrank, MAIN_BATCH), trn, 10,
+                                train_counts("lstm:lowrank", layers), "wide: VMLMF 2x1500 r=750",
+                                falling=False)
+    runs.append(("lstm:wide_lowrank", launch_counts()))
+    held_to_loop(torch, "VMLMF 2x1500 r=750",
+                 lambda be: large_lm(be, lstm_type="vmlmf", w_rank=WIDE_RANK,
+                                     u_ranks=(WIDE_RANK,)),
+                 lr_losses, trn)
+
+    # the CLI, one epoch of the synthetic corpus at the large LM's flags
+    argv = ["--synthetic", "--vocab_size", str(LM["vocab"]), "--total_epochs", "1",
+            "--log_every", "25", "--lstm_type", "custom", "--hidden_size", "1500",
+            "--layer_num", "2", "--dropout", "0.65", "--winit", "0.04", "--max_grad_norm", "10",
+            "--factor", "1.15", "--factor_epoch", "14"]
+    history, _, counts, wall = cli_run(torch, lm_main.main, argv)
+    fwd, res, bwd = FAMILIES["lstm"]
+    if not (counts[fwd] and counts[res] and counts[bwd]) or \
+            sum(counts.values()) != counts[fwd] + counts[res] + counts[bwd]:
+        fail(f"wide: cli lm large: the LSTM scan kernels, and only they, must launch: "
+             f"{nonzero(counts)}")
+    val_ppl = history[0]["val_ppl"]
+    if not (math.isfinite(val_ppl) and val_ppl < LM["vocab"]):
+        fail(f"wide: cli lm large: validation perplexity {val_ppl}")
+    print(f"wide: cli lm large: validation perplexity {val_ppl:.3f}, test "
+          f"{history[-1]['test_ppl']:.3f}, {wall:.2f} s, launches {nonzero(counts)}")
+    runs.append((form, counts))
+    report["cli"] = dict(val_ppl=val_ppl, test_ppl=history[-1]["test_ppl"], wall_s=wall)
+
+    runs += wide_gru_nets(torch)
+    print(json.dumps({"wide_lm": report}))
+    return runs
+
+
+def held_to_loop(torch, label, make, losses, chunks, steps=10):
+    """The loop backend's first ``steps`` losses from the same init and
+    generator, against the fused run's ``losses`` (within TOL)."""
+    reset_launch_counts()
+    loop, _ = lm_train_run(torch, large_trainer(make("loop"), MAIN_BATCH), chunks, steps,
+                           only(), f"wide: {label} on the loop backend", falling=False)
+    ok, err = all_close(torch, [torch.tensor(losses[:steps])], [torch.tensor(loop)], TOL)
+    print(f"wide: {label}: fused losses against the loop backend's over {steps} steps: max abs "
+          f"err {err:.3g}")
+    if not ok:
+        fail(f"wide: {label}: fused losses {losses[:steps]} part from the loop backend's {loop}")
+
+
+def prefill_outputs(torch, model, params, b):
+    """An eager prefill's logits and states, flattened."""
+    from vmlmf_tpu_torch.serve import Decoder
+
+    logits, states = Decoder(model).prefill(params, prompt_ids(torch, b), model.state0(b))
+    torch.cuda.synchronize()
+    return [logits] + [a for s in states for a in s]
+
+
+def wide_gru_nets(torch):
+    """The HAR GRU nets at h=3200 (T=24, B=81): two train steps and
+    `evaluate`, each with its exact launch counts and finite results ->
+    runs."""
+    from vmlmf_tpu_torch.config import HARConfig
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
+
+    runs, b = [], GRU["b"]
+    x_tr, y_tr, x_te, y_te = synthetic_har("opp", n_train=2 * b, n_test=EVAL_BATCH, seed=0)
+    for name, fields in GRU_WIDE_NETS.items():
+        form = f"gru:{name}"
+        model = HARConfig(**fields).build_model()
+        trainer = HARTrainer(model, batch_size=b)
+        params, opt = trainer.init()
+        reset_launch_counts()
+        losses = []
+        for i in range(2):
+            params, opt, loss = trainer.train_step(params, opt, x_tr[i * b:(i + 1) * b],
+                                                   y_tr[i * b:(i + 1) * b])[:3]
+            losses.append(float(loss))
+        train = launch_counts()
+        metrics = evaluate(model, params, x_te, y_te)
+        evald = count_delta(train)
+        print(f"wide: HAR GRU {name} (h=3200): losses {losses}, accuracy "
+              f"{metrics['accuracy']:.4f}, launches in 2 steps {nonzero(train)}, in evaluate "
+              f"{nonzero(evald)}")
+        if train != train_counts(form, 2) or evald != eval_counts(form, 1):
+            fail(f"wide: HAR GRU {name}: two steps must launch the residual forward and the "
+                 f"BPTT twice, evaluate the no-grad kernel once: {train}, {evald}")
+        if not all(v == v and abs(v) != float("inf") for v in losses):
+            fail(f"wide: HAR GRU {name}: losses {losses}")
+        runs.append((form, launch_counts()))
+    return runs
+
+
+def phase_wide(torch):
+    """Fault 11 on the card -> (rows, runs)."""
+    rows = phase_wide_kernels(torch)
+    return rows, phase_wide_lm(torch)
+
+
 class StampedOutput:
     """A stdout stand-in that passes every write on and keeps each line with
     the host clock when it was written."""
@@ -3105,14 +3543,15 @@ GRAPH = dict(chunks=8, decode_steps=64, beam_steps=16, beams=4, top_k=40, ppl_ch
              prefills=16, adam_steps=20, repeats=3, traced=16)
 
 
-def graph_trace(torch, label, run):
+def graph_trace(torch, label, run, pad=0):
     """One profiled run() -> (Counter of the port's kernels by name, device
     busy ms), with the launches counted over the same run: its trace must
     hold one main kernel of the port for each. The window is padded
-    (`profiler_pad`); a session whose trace still lost kernel events is run
-    again, with one more spin kernel at each edge (an identical session lost
-    the same event again), up to PROFILE_SESSIONS sessions, and the script
-    fails if each lost some."""
+    (`profiler_pad`, ``pad`` more spin kernels at each edge); a session
+    whose trace still lost kernel events is run again, with one more spin
+    kernel at each edge (an identical session lost the same event again),
+    up to PROFILE_SESSIONS sessions, and the script fails if each lost
+    some."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -3120,10 +3559,10 @@ def graph_trace(torch, label, run):
     for session in range(1, PROFILE_SESSIONS + 1):
         reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiler_pad(torch, 3 + session)
+            profiler_pad(torch, 3 + session + pad)
             run()
             torch.cuda.synchronize()
-            profiler_pad(torch, 3 + session)
+            profiler_pad(torch, 3 + session + pad)
         counts = launch_counts()
         launches = sum(counts.values())
         events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
@@ -3164,12 +3603,16 @@ def traced_sides(torch, label, sides, steps):
     ``sides`` = {"eager": run, "graphed": run}, whose traces must hold the
     same kernels of the port. A pair that disagrees (a trace lost an event
     that the counters cannot show, a kernel other than a main one) is traced
-    again, up to PROFILE_SESSIONS pairs; the script fails if each pair
-    disagreed. -> {side: (port kernels, busy ms a step)}."""
+    again, up to PROFILE_SESSIONS pairs, each with more padding than the one
+    before and its sides in the other order (late in a run, identical pairs
+    lost the same non-main event of the eager side three times); the script
+    fails if each pair disagreed. -> {side: (port kernels, busy ms a step)}."""
     traced = min(steps, GRAPH["traced"])
     for pair in range(1, PROFILE_SESSIONS + 1):
-        out = {side: graph_trace(torch, f"{label} ({side})", lambda run=run: run(traced))
-               for side, run in sides.items()}
+        order = list(sides.items()) if pair % 2 else list(sides.items())[::-1]
+        out = {side: graph_trace(torch, f"{label} ({side})", lambda run=run: run(traced),
+                                 pad=4 * (pair - 1))
+               for side, run in order}
         ports = [port for port, _ in out.values()]
         if all(port == ports[0] for port in ports):
             if pair > 1:
@@ -3235,16 +3678,17 @@ def on_mesh(label, mesh):
     return label + (" on a 1x1 mesh" if mesh is not None else "")
 
 
-def graph_lm(torch, backend, b, mesh=None):
+def graph_lm(torch, backend, b, mesh=None, model=None, label="LM"):
     """`LMTrainer._fused_chunks` (fit's block) over GRAPH["chunks"] chunks at
-    dropout 0.5, against the step loop from equal generators; under ``mesh``
-    with its collectives. -> (report, launch counts, a copy of the graphed
-    run's results)."""
+    dropout 0.5 (or of ``model``), against the step loop from equal
+    generators; under ``mesh`` with its collectives. -> (report, launch
+    counts, a copy of the graphed run's results)."""
     from vmlmf_tpu_torch.train import lm
     from vmlmf_tpu_torch.train.lm import LMTrainer
 
     k = GRAPH["chunks"]
-    model = lm_model(backend, 0.5) if backend == "fused" else wavefront_lm(backend)
+    if model is None:
+        model = lm_model(backend, 0.5) if backend == "fused" else wavefront_lm(backend)
     trainer = LMTrainer(model, batch_size=b, seq_length=LM["prompt"], fuse_chunks=k, mesh=mesh)
     trn, _ = lm_chunks(b)
     xs, ys = trainer.commit_batch(*(torch.stack([torch.as_tensor(c[i]) for c in trn[:k]])
@@ -3267,7 +3711,8 @@ def graph_lm(torch, backend, b, mesh=None):
         with eager_steps(lm):
             trainer._fused_chunks(pe, se, xs[:n], ys[:n], 1.0, ge)
 
-    return (*graph_compare(torch, on_mesh(f"LM {backend} block of {k} chunks at B={b}", mesh),
+    return (*graph_compare(torch, on_mesh(f"{label} {backend} block of {k} chunks at B={b}",
+                                          mesh),
                            eager,
                            lambda n: trainer._fused_chunks(pg, sg, xs[:n], ys[:n], 1.0, gg), k,
                            [sides[0][0], sides[1][0]], graph), result)
@@ -3837,6 +4282,9 @@ def main():
     runs += graph_runs
     runs += phase_parallel(torch, no_mesh)
     phase_trace(torch)
+    wide_rows, wide_runs = phase_wide(torch)
+    rows.update(wide_rows)
+    runs += wide_runs
 
     kernels = kernel_report(rows, runs)
     print(f"done in {time.perf_counter() - t0:.1f} s on {card}")

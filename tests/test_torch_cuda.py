@@ -1651,3 +1651,216 @@ def test_prefill_graph_is_reused_for_a_shape_and_captured_for_a_new_one(cuda):
     tokens = dec.generate(params, prompt, max_new_tokens=5)  # the first graph again
     assert len(dec._prefills) == 2 and len(dec._graphs) == 1
     assert torch.equal(tokens, dec.decode(params, *first, steps=5)[0])
+
+
+# fault 11: layers too wide for the shared memory of all SMs. The PTB
+# "large" LM's dense layer (h=1500: a 36 MB U) and a low-rank layer of that
+# width (r=750) stream the weight rows that do not fit through L2 in f32; in
+# bf16 the dense one has a resident plan at B=20 and chunks of rows at 128
+WIDE_LSTM = {"dense": (35, 1500, 1500, 0, 0), "lowrank": (35, 1500, 1500, 750, 750),
+             "dense_1600": (35, 1600, 1600, 0, 0)}
+# (case, B, precision): each layer at both batches in f32 and bf16, and a
+# dense width whose bf16 plan streams (h=1600 at B=20)
+WIDE_LSTM_CALLS = [(case, b, precision) for case in ("dense", "lowrank") for b in (20, 128)
+                   for precision in ("f32", "bf16")] + [("dense_1600", 20, "bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,b,precision", WIDE_LSTM_CALLS)
+def test_wide_lstm_layer_entries_match_plain(cuda, case, b, precision):
+    t, f, h, rx, r = WIDE_LSTM[case]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = cuda_scan.scan_chunks(b, h, r, sms, 2 if precision == "bf16" else 4)
+    if precision == "f32" or case == "dense_1600":
+        assert all(plan.streamed for _, _, plan in chunks)
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    rng = np.random.default_rng(1)
+    # bf16 cotangents at chip_smoke.py's scale: its tolerances hold an
+    # absolute error, which grows with the gradients' size
+    scale = 0.1 if precision == "bf16" else 1.0
+    dys, dc_last = (torch.from_numpy(scale * rng.standard_normal(s).astype(np.float32)).to(cuda)
+                    for s in ((t, b, h), (b, h)))
+    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+    fns = (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
+           cuda_scan.lstm_scan_xin_bwd, cuda_scan.lstm_scan_fused, cuda_scan.lstm_scan_fused_res,
+           cuda_scan.lstm_scan_bwd)
+    before = [fn.launches for fn in fns]
+    fwd = cuda_scan.lstm_scan_fused_xin(*args, precision)
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, precision, "f32", True)
+    grads = cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, dc_last,
+                                        precision=precision)
+    gi_fwd = cuda_scan.lstm_scan_fused(gi, *args[5:], precision)
+    gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:], precision, "f32")
+    gi_grads = cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, dc_last, precision)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [len(chunks)] * 6
+    fwd_tol, res_tol, grad_tol = variant_tols(precision, "f32")
+    assert_pairs_close(("ys", "c_last"), fwd,
+                       cuda_scan.lstm_scan_fused_xin_plain(*args, precision), fwd_tol)
+    res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args, precision)
+    assert_pairs_close(("ys", "cs", "gates", "hu", "xu"), res, res_p, res_tol)
+    grads_p = cuda_scan.lstm_scan_xin_bwd_plain(*args[:4], *args[5:], *res_p, dys, dc_last,
+                                                precision=precision)
+    assert_pairs_close(cuda_scan._ARG_NAMES, grads, grads_p, grad_tol)
+    assert_pairs_close(("ys", "c_last"), gi_fwd,
+                       cuda_scan.lstm_scan_fused_plain(gi, *args[5:], precision), fwd_tol)
+    gi_res_p = cuda_scan.lstm_recurrence_plain(gi, *args[5:], precision)
+    assert_pairs_close(("ys", "cs", "gates", "hu"), gi_res, gi_res_p, res_tol)
+    assert_pairs_close(("dgi", "du", "dv", "ddvec", "dh0", "dc0"), gi_grads,
+                       cuda_scan.lstm_scan_bwd_plain(*args[5:], *gi_res_p, dys, dc_last,
+                                                     precision), grad_tol)
+
+
+# (precision, residuals, save_gates) of each variant the scan kernels compile
+SCAN_VARIANTS = {"f32": ("f32", "f32", True), "bf16": ("bf16", "f32", True),
+                 "bf16_res": ("f32", "bf16", True), "recompute": ("f32", "f32", False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(SCAN_VARIANTS))
+def test_streamed_plan_is_bit_equal_to_the_resident_plan(cuda, monkeypatch, variant):
+    """A streamed plan forced at the LM layer's shape with the resident
+    plan's groups, CTAs, stage and red: the same sums in the same order,
+    wherever a weight row lives, in every entry of each variant (x mode
+    and gi mode; the recompute policy is x mode's alone)."""
+    precision, residuals, save = SCAN_VARIANTS[variant]
+    elsize = 2 if precision == "bf16" else 4
+    t, b, f, h, rx, r = 35, 20, 650, 650, 300, 300
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    base = cuda_scan.scan_plan(b, h, r, sms, elsize)
+    assert not base.streamed
+    half = tuple(tuple(d // 2 for d, _ in base.slices(k)) for k in ("fwd", "bwd"))
+    forced = cuda_scan.plan_layout(b, h, r, base.groups, base.ctas, elsize, resident=half)
+    assert forced.streamed and (forced.stage_fwd, forced.red_fwd, forced.stage_bwd,
+                                forced.red_bwd) == (base.stage_fwd, base.red_fwd,
+                                                    base.stage_bwd, base.red_bwd)
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+    dys = torch.from_numpy(0.1 * np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    bias = None if save else args[4]
+
+    def run(plan):
+        monkeypatch.setattr(cuda_scan, "_chunks_for", lambda *a, **k: ((0, b, plan),))
+        res = cuda_scan.lstm_scan_fused_xin_res(*args, *SCAN_VARIANTS[variant])
+        out = [*res, *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None,
+                                                  bias=bias, precision=precision)]
+        if residuals == "f32" and save:  # the no-grad entries' variants are their precisions
+            out += [*cuda_scan.lstm_scan_fused_xin(*args, precision),
+                    *cuda_scan.lstm_scan_fused(gi, *args[5:], precision)]
+        if save:
+            gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:], precision, residuals)
+            out += [*gi_res, *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, None, precision)]
+        return [a for a in out if a is not None]
+
+    resident, streamed = run(base), run(forced)
+    torch.cuda.synchronize()
+    assert len(resident) == len(streamed)
+    for i, (x, y) in enumerate(zip(resident, streamed)):
+        assert torch.equal(x, y), i
+
+
+# the GRU's three forms at h=3200 (T=24, B=81): dense "post" is past the
+# width whose walk state fits beside weights read through L2, so its walk
+# keeps the staged inputs in device memory
+WIDE_GRU = {"post": (24, 81, 77, 3200, 9, 0, "post", False),
+            "pre": (24, 81, 77, 3200, 9, 0, "pre", False),
+            "lowrank_pre": (24, 81, 77, 3200, 9, 800, "pre", True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WIDE_GRU))
+def test_wide_gru_forms_match_plain_with_equal_bits(cuda, case):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = WIDE_GRU[case]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    form = (cuda_gru.DENSE_POST if mode == "post" else
+            cuda_gru.LOWRANK_PRE if lowrank else cuda_gru.DENSE_PRE)
+    plan = cuda_gru.gru_plan(t, b, f, rx, h, r, form, sms=sms)
+    assert (plan.spill_bwd > 0) == (case == "post")
+    args = gru_inputs(*WIDE_GRU[case], cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    fns = (cuda_gru.gru_scan_fused_xin, cuda_gru.gru_scan_fused_xin_res, cuda_gru.gru_scan_xin_bwd)
+
+    def call():
+        ys = cuda_gru.gru_scan_fused_xin(*args, mode=mode)
+        res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+        return ys, res, cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode)
+
+    before = [fn.launches for fn in fns]
+    ys, res, grads = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [2, 2, 2]
+    for x, y in zip((ys, *res, *grads), (again[0], *again[1], *again[2])):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)
+    res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+    torch.testing.assert_close(ys, res_p[0], **TOL)
+    for name, got, want in zip(("ys", "gates", "hu", "rhu", "recn", "xu"), res, res_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **TOL)
+    grads_p = cuda_gru.gru_scan_xin_bwd_plain(*args[:3], *args[4:], *res_p, dys, mode=mode)
+    for name, got, want in zip(("dxs", "dux", "dvx", "dbias", "duf", "dprz", "dpn", "dh0"),
+                               grads, grads_p):
+        assert (got is None) == (want is None), name
+        if want is not None:
+            torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+
+
+# a spill forced at a small width (h=64: one row a CTA, every weight read
+# through L2, one step a block) with none, the first non-empty region and
+# every region of each kernel in device memory: the same bits
+GRU_SPILL = {"post": ("post", False, 0), "pre": ("pre", False, 0),
+             "lowrank_pre": ("pre", True, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["x", "gi", "recompute"])
+@pytest.mark.parametrize("case", list(GRU_SPILL))
+def test_gru_forced_spill_is_bit_equal_to_the_unspilled_layout(cuda, monkeypatch, case, path):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    mode, lowrank, r = GRU_SPILL[case]
+    t, b, f, h, rx = 24, 81, 77, 64, 9
+    form = (cuda_gru.DENSE_POST if mode == "post" else
+            cuda_gru.LOWRANK_PRE if lowrank else cuda_gru.DENSE_PRE)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    args = gru_inputs(t, b, f, h, rx, r, mode, lowrank, cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+    rec = (gi, *args[4:])
+
+    def run(regions):
+        plans = {g: cuda_gru.spill_plan(t, b, 0 if g else f, 0 if g else rx, h, r, form,
+                                        regions, gi=g, sms=sms) for g in (False, True)}
+        monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False: plans[gi])
+        if path == "x":
+            res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+            out = (cuda_gru.gru_scan_fused_xin(*args, mode=mode), *res,
+                   *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode))
+        elif path == "gi":
+            res = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+            out = (cuda_gru.gru_scan_fused(*rec, mode=mode), *res,
+                   *cuda_gru.gru_scan_bwd(*args[4:], *res, dys, mode=mode))
+        else:
+            res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+            out = (*res, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode,
+                                                    bias=args[3]))
+        return plans[path == "gi"], [a for a in out if a is not None]
+
+    (none, want), (first, one), (every, all_) = (run(k) for k in ((0, 0), (1, 1), (99, 99)))
+    torch.cuda.synchronize()
+    assert none.spill_fwd == none.spill_bwd == 0 and every.smem_fwd == every.smem_bwd == 0
+    assert 0 < first.spill_fwd < every.spill_fwd and 0 < first.spill_bwd < every.spill_bwd
+    for got in (one, all_):
+        assert len(got) == len(want)
+        for i, (x, y) in enumerate(zip(want, got)):
+            assert torch.equal(x, y), i
+    ys = want[0]  # and the unspilled layout against the plain scan
+    torch.testing.assert_close(ys, cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode), **TOL)

@@ -104,9 +104,11 @@ def test_plan_prefers_resident_recurrent_weights_to_a_long_time_block():
     assert check_plan(24, 81, 77, 9, 64, 17, 0).rec_weights == "shared"
 
 
-def test_plan_raises_where_nothing_fits():
-    with pytest.raises(ValueError, match="does not fit"):
-        cuda_gru.gru_plan(24, 81, 77, 9, 20000, 0, 2)  # one step's gi and carry: 400 KB
+def test_plan_raises_only_on_arguments_the_kernels_do_not_take():
+    # fault 11: one step's gi and carry at h=20000 (400 KB) do not fit in
+    # shared memory; the plan keeps the leading regions in device memory
+    wide = cuda_gru.gru_plan(24, 81, 77, 9, 20000, 0, 2)
+    assert wide.rows == 1 and wide.spill_fwd > 0 and wide.spill_bwd > 0
     with pytest.raises(ValueError, match="no GRU plan"):
         cuda_gru.gru_plan(24, 81, 77, 9, 64, 0, 0)  # low-rank form without a rank
     with pytest.raises(ValueError, match="no GRU plan"):
@@ -149,14 +151,17 @@ def test_every_shape_with_a_plan_keeps_ceil_b_over_sms_rows():
             assert plan.rows == min(cuda_gru.GRU_MAX_ROWS, -(-b // SMS))
 
 
-def test_plan_raises_only_where_one_row_does_not_fit():
+def test_plan_spills_only_where_one_row_does_not_fit():
     # dense "post" at B=512: h=764 still takes 4 rows a CTA, 765 takes fewer
     assert cuda_gru.gru_plan(24, 512, 77, 0, 764, 0, 2, sms=SMS).rows == 4
     assert cuda_gru.gru_plan(24, 512, 77, 0, 765, 0, 2, sms=SMS).rows == 2
     widest = cuda_gru.gru_plan(24, 512, 77, 0, 3000, 0, 2, sms=SMS)
     assert widest.rows == 1 and widest.rec_weights == widest.bwd_rec_weights == "L2"
-    with pytest.raises(ValueError, match="does not fit"):
-        cuda_gru.gru_plan(24, 1, 77, 0, 20000, 0, 2, sms=SMS)
+    assert widest.spill_fwd == widest.spill_bwd == 0
+    # fault 11: past one row's fit the walk's staged inputs go to device memory
+    spilled = cuda_gru.gru_plan(24, 1, 77, 0, 20000, 0, 2, sms=SMS)
+    assert spilled.rows == 1 and spilled.spill_bwd > 0
+    assert spilled.smem_fwd <= SMEM_LIMIT and spilled.smem_bwd <= SMEM_LIMIT
 
 
 def test_plan_counts_the_regions_the_kernels_lay_out():

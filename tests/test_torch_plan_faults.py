@@ -85,9 +85,11 @@ def test_chunks_of_the_lm_layer_at_the_batches_past_the_fault():
     assert len(cuda_scan.scan_chunks(477, 650, 0)) == 2
 
 
-def test_chunks_raise_where_not_even_one_row_has_a_plan():
-    with pytest.raises(ValueError, match="do not fit"):
-        cuda_scan.scan_chunks(4, 2000, 0)
+def test_chunks_stream_where_not_even_one_row_is_resident():
+    # fault 11: a dense h=2000 U (64 MB) fits in the shared memory of no
+    # grouping; the batch stays one chunk, whose plan streams the rest
+    (chunk,) = cuda_scan.scan_chunks(4, 2000, 0)
+    assert chunk[:2] == (0, 4) and chunk[2].streamed and chunk[2].groups == 1
 
 
 # a small layer on a one-SM plan, whose last batch with a plan is 64

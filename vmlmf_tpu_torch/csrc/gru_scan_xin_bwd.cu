@@ -66,7 +66,13 @@
 //      it will read itself, so no step waits on device memory. Barriers a
 //      step: one in "post" (the two dPre buffers take turns), two in dense
 //      "pre", four in low-rank "pre". It writes dPre [M,3h], and dHU, dRHU
-//      [M,r] in the low-rank form, for the passes below.
+//      [M,r] in the low-rank form, for the passes below. Where one row's
+//      walk state does not fit beside weights read through L2 (a dense
+//      "post" h past 3,056: 19 h floats a row), gru_plan gives one row a CTA
+//      and `spill` floats of leading regions (the staged inputs first) that
+//      live in the CTA's region of a device-memory scratch (`state`); the
+//      kernel instance for it (Spill) stages those inputs with plain loads,
+//      and __syncthreads orders them as it orders shared memory.
 //   2. Time-parallel passes over all M rows: tiled GEMMs (gemm_tile.cuh)
 //      with transposed operand views. Every product whose k runs over the M
 //      rows (dPrz, dPn, dUf, dUx, dVx, and dbias as ones^T dPre) has an
@@ -112,7 +118,8 @@ struct WalkArgs {
   float* dhu;
   float* drhu;
   float* dh0;
-  int t_len, batch, h, r, rows, rec_res;
+  float* state;
+  int t_len, batch, h, r, rows, rec_res, spill;
 };
 
 // Floats a row of a step's staged inputs takes: gates (3h), h_prev, dys,
@@ -127,7 +134,9 @@ __host__ __device__ inline int stage_width(int form, int h) {
 // buffers of staged inputs [2][rows][stage_width]; the carry dh [rows][h];
 // [dr_pre, dz_pre] [rows][q4(2h)] and dn_pre (dn_pre*r in "post")
 // [rows][q4(h)], two of each in "post"; dz_pre [rows][h] ("pre"); dRHU and
-// dHU [rows][q4(r)] (low-rank).
+// dHU [rows][q4(r)] (low-rank). Offsets below a spill plan's `spill` lie in
+// the CTA's region of the device-memory scratch, the others at offset -
+// spill in shared memory.
 struct WalkLayout {
   size_t uf, prz, pn, stg, dhs, drz, dn, dzs, drhus, dhus, total;
 };
@@ -170,12 +179,18 @@ struct WalkRegs<kLowrankPre> {
 
 // The serial reverse walk of one CTA's rows; see the header. Rows past the
 // batch are never computed or written.
-template <int Form, int R>
+template <int Form, int R, bool Spill>
 __global__ void __launch_bounds__(kMaxThreads) walk_kernel(const WalkArgs a) {
   constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+  float* const sm = reinterpret_cast<float*>(smem4);  // the resident weights: never spilled
   const WalkLayout L = walk_layout(Form, a);
+  // the region at layout offset `off` (Spill: the leading ones in device memory)
+  float* const spilled = Spill ? a.state + (size_t)blockIdx.x * a.spill : nullptr;
+  auto at = [&](size_t off) -> float* {
+    if constexpr (Spill) return off < (size_t)a.spill ? spilled + off : sm + (off - a.spill);
+    return sm + off;
+  };
   const int h = a.h, r = a.r, g3 = 3 * h, rows = a.rows, sw = stage_width(Form, h);
   const int h4 = q4(h), r4 = q4(r), rz4 = q4(2 * h), depth = kLowrank ? r : h;
   const int b0 = blockIdx.x * rows, live = min(rows, a.batch - b0);
@@ -202,13 +217,13 @@ __global__ void __launch_bounds__(kMaxThreads) walk_kernel(const WalkArgs a) {
     if constexpr (kLowrank) wr.uf.load(r4 / 4, ln.slice, [&](int, int q) { return uf.at(jr, q); });
   }
   // the state starts at zero; the staged inputs are each lane's own copies
-  for (size_t i = L.dhs + threadIdx.x; i < L.total; i += blockDim.x) sm[i] = 0.f;
+  for (size_t i = L.dhs + threadIdx.x; i < L.total; i += blockDim.x) *at(i) = 0.f;
 
-  float* stg = sm + L.stg;
-  float* dhs = sm + L.dhs;
-  float* dzs = sm + L.dzs;
-  float* drhus = sm + L.drhus;
-  float* dhus = sm + L.dhus;
+  float* stg = at(L.stg);
+  float* dhs = at(L.dhs);
+  float* dzs = at(L.dzs);
+  float* drhus = at(L.drhus);
+  float* dhus = at(L.dhus);
   // step t's inputs of (own row, the units of this lane) into buffer buf
   auto fetch = [&](int t, int buf) {
     if (!own_row) return;
@@ -217,12 +232,21 @@ __global__ void __launch_bounds__(kMaxThreads) walk_kernel(const WalkArgs a) {
     const float* hp = t > 0 ? a.ys + (m - a.batch) * h : a.h0 + (size_t)(b0 + row) * h;
     for (int j = ln.unit; j < h; j += ln.per_pass) {
       const float* g = a.gates + m * g3 + j;
-      vmlmf::cp_async4(d + j, g);
-      vmlmf::cp_async4(d + h + j, g + h);
-      vmlmf::cp_async4(d + 2 * h + j, g + 2 * h);
-      vmlmf::cp_async4(d + 3 * h + j, hp + j);
-      vmlmf::cp_async4(d + 4 * h + j, a.dys + m * h + j);
-      if (kPost) vmlmf::cp_async4(d + 5 * h + j, a.recn + m * h + j);
+      if constexpr (Spill) {  // the buffers in device memory: plain copies
+        d[j] = __ldg(g);
+        d[h + j] = __ldg(g + h);
+        d[2 * h + j] = __ldg(g + 2 * h);
+        d[3 * h + j] = __ldg(hp + j);
+        d[4 * h + j] = __ldg(a.dys + m * h + j);
+        if (kPost) d[5 * h + j] = __ldg(a.recn + m * h + j);
+      } else {
+        vmlmf::cp_async4(d + j, g);
+        vmlmf::cp_async4(d + h + j, g + h);
+        vmlmf::cp_async4(d + 2 * h + j, g + 2 * h);
+        vmlmf::cp_async4(d + 3 * h + j, hp + j);
+        vmlmf::cp_async4(d + 4 * h + j, a.dys + m * h + j);
+        if (kPost) vmlmf::cp_async4(d + 5 * h + j, a.recn + m * h + j);
+      }
     }
   };
   fetch(a.t_len - 1, 0);
@@ -234,8 +258,8 @@ __global__ void __launch_bounds__(kMaxThreads) walk_kernel(const WalkArgs a) {
     if (t > 0) fetch(t - 1, cur ^ 1);  // in flight while this step computes
     const float* sg = stg + ((size_t)cur * rows + row) * sw;
     const size_t m = (size_t)t * a.batch + b0 + row;
-    float* drz = sm + L.drz + (kPost ? (size_t)cur * rows * rz4 : 0);
-    float* dn = sm + L.dn + (kPost ? (size_t)cur * rows * h4 : 0);
+    float* drz = at(L.drz) + (kPost ? (size_t)cur * rows * rz4 : 0);
+    float* dn = at(L.dn) + (kPost ? (size_t)cur * rows * h4 : 0);
 
     // elementwise: dz_pre, dn_pre, dh*z; in "post" also dr_pre and dn_pre*r
     if (own_row) {
@@ -377,26 +401,35 @@ __global__ void __launch_bounds__(kMaxThreads) walk_kernel(const WalkArgs a) {
     a.dh0[(size_t)b0 * h + i] = dhs[(i / h) * h + i % h];
 }
 
-template <int Form, int R>
+template <int Form, int R, bool Spill = false>
 cudaError_t walk_rows(const WalkArgs& a, int threads, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(walk_kernel<Form, R>,
+  cudaError_t err = cudaFuncSetAttribute(walk_kernel<Form, R, Spill>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  walk_kernel<Form, R><<<cdiv(a.batch, a.rows), threads, smem, stream>>>(a);
+  walk_kernel<Form, R, Spill><<<cdiv(a.batch, a.rows), threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Launches walk_kernel<Form, row_bound(rows)> with gru_plan's layout;
-// refuses a plan whose shared bytes are not this layout's.
+// Launches walk_kernel<Form, row_bound(rows), spill > 0> with gru_plan's
+// layout; refuses a plan whose shared bytes are not this layout's, and a
+// spill that is not a region boundary of a one-row plan with the
+// recurrent weights read through L2.
 template <int Form>
 cudaError_t walk(const WalkArgs& a, int threads, int smem, cudaStream_t stream) {
   const WalkLayout L = walk_layout(Form, a);
   const bool regs_fit = a.h <= kRegH && a.r <= kRegR && threads / kSlices >= a.h &&
                         threads / kSlices >= a.r;
-  if (L.total * sizeof(float) != (size_t)smem || a.rows < 1 || a.rows > kMaxRows ||
+  const size_t bounds[] = {L.stg, L.dhs, L.drz, L.dn, L.dzs, L.drhus, L.dhus, L.total};
+  bool boundary = a.spill == 0;
+  for (size_t b : bounds) boundary = boundary || (size_t)a.spill == b;
+  const bool spill_ok =
+      a.spill == 0 || (boundary && a.rows == 1 && a.rec_res == kInL2 && a.state != nullptr);
+  if (a.spill < 0 || (size_t)a.spill > L.total || !spill_ok ||
+      (L.total - a.spill) * sizeof(float) != (size_t)smem || a.rows < 1 || a.rows > kMaxRows ||
       threads < 32 || threads % 32 != 0 || threads > kMaxThreads || a.rec_res < kInL2 ||
       a.rec_res > kInRegisters || (a.rec_res == kInRegisters && !regs_fit))
     return cudaErrorInvalidValue;
+  if (a.spill > 0) return walk_rows<Form, 1, true>(a, threads, smem, stream);
   switch (row_bound(a.rows)) {
     case 1:
       return walk_rows<Form, 1>(a, threads, smem, stream);
@@ -700,7 +733,9 @@ cudaError_t recompute(const float* x, const float* ux, const float* vx, const fl
 // Both entries take, after the sizes and the form, gemm_splitk's scratch
 // size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats) and
 // the walk's plan from ops/cuda_gru.py::gru_plan: rows, threads, rec_res,
-// smem (bytes).
+// smem (bytes), spill (floats a CTA of `state`, the walk's device-memory
+// scratch of a spill plan, which the caller allocates,
+// cuda_gru.py::state_floats; null when 0).
 
 // x mode: launches the pre-pass (recompute policy), the walk, the GEMMs
 // and the column sums on `stream`; returns the first error. gates, hu,
@@ -720,9 +755,9 @@ extern "C" int gru_scan_xin_bwd(
     const float* rhu, const float* recn, const float* xu, const float* dys, const float* bias,
     float* gates_w, float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre,
     float* dhu, float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
-    float* dbias, float* duf, float* dprz, float* dpn, float* dh0, int t_len, int batch, int f,
-    int rx, int h, int r, int form, int partial_floats, int rows, int threads, int rec_res,
-    int smem, void* stream_handle) {
+    float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* state, int t_len,
+    int batch, int f, int rx, int h, int r, int form, int partial_floats, int rows, int threads,
+    int rec_res, int smem, int spill, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const int m = t_len * batch;
   const int g3 = 3 * h;
@@ -742,8 +777,8 @@ extern "C" int gru_scan_xin_bwd(
     recn = recn_w;
     xu = xu_w;
   }
-  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0,
-                    t_len, batch, h, r, rows, rec_res};
+  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, state,
+                    t_len, batch, h, r, rows, rec_res, spill};
   err = walk_form(wa, form, threads, smem, stream);
   if (err != cudaSuccess) return err;
   if (vx != nullptr) {  // dXU [M, rx] = dPre Vx^T, which dUx and dx read: a group of one
@@ -767,12 +802,13 @@ extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
                             const float* h0, const float* ys, const float* gates,
                             const float* hu, const float* rhu, const float* recn,
                             const float* dys, float* dgi, float* dhu, float* drhu, float* partial,
-                            float* duf, float* dprz, float* dpn, float* dh0, int t_len,
-                            int batch, int h, int r, int form, int partial_floats, int rows,
-                            int threads, int rec_res, int smem, void* stream_handle) {
+                            float* duf, float* dprz, float* dpn, float* dh0, float* state,
+                            int t_len, int batch, int h, int r, int form, int partial_floats,
+                            int rows, int threads, int rec_res, int smem, int spill,
+                            void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dgi, dhu, drhu, dh0,
-                    t_len, batch, h, r, rows, rec_res};
+  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dgi, dhu, drhu, dh0, state,
+                    t_len, batch, h, r, rows, rec_res, spill};
   const cudaError_t err = walk_form(wa, form, threads, smem, stream);
   if (err != cudaSuccess) return err;
   const XSide none{};

@@ -66,6 +66,15 @@
 //   a lane's float4 holds four depth elements of its column, else they are
 //   read through L2 by the same code; the sums run in the same order on
 //   every path.
+// * Past the widths whose state fits beside weights read through L2 (one
+//   row's gi block, x, carry, r*h and z: at h = 8,192 a dense "pre" CTA
+//   needs 230 KB), gru_plan gives one row a CTA and `spill` floats of
+//   leading regions (the gi block first, then x, xu and the carry) that
+//   live in a per-CTA region of a device-memory scratch (`state`) instead
+//   of shared memory. The kernel instance for it (Spill) maps each region
+//   to its place and stages its inputs with plain loads where cp.async
+//   cannot write; within a CTA, __syncthreads orders global memory as it
+//   orders shared, so the order of work is the same.
 // * Every edge (B, F, h, r, rx not multiples of anything) is masked.
 
 #include <cuda_runtime.h>
@@ -95,14 +104,17 @@ struct FwdArgs {
   float* rhu;
   float* recn;
   float* xu;
+  float* state;
   int t_len, batch, f, rx, h, r;
-  int rows, tblock, rec_res, x_res;
+  int rows, tblock, rec_res, x_res, spill;
 };
 
 // Float offsets of the shared regions, in the order of
 // ops/cuda_gru.py::_fwd_floats: the resident weights (recurrent, then x
 // side), the time block (gi, x, xu), the state (the carry's two buffers,
-// r*h, hu, rhu, z).
+// r*h, hu, rhu, z). Offsets below a spill plan's `spill` lie in the CTA's
+// region of the device-memory scratch, the others at offset - spill in
+// shared memory.
 struct FwdLayout {
   size_t uf, prz, pn, ux, vx, gib, xs, xub, hbuf, rh, hus, rhus, zs, total;
 };
@@ -176,12 +188,27 @@ struct FwdRegs<kLowrankPre> {
   RegSlice<1, 1> n;
 };
 
-template <int Form, int XSide, bool Residuals, int R>
+template <int Form, int XSide, bool Residuals, int R, bool Spill>
 __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(const FwdArgs a) {
   constexpr bool kLowrank = Form == kLowrankPre;
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+  float* const smem_base = reinterpret_cast<float*>(smem4);
   const FwdLayout L = fwd_layout(Form, XSide, a);
+  // the region at layout offset `off` (Spill: the leading ones in device memory)
+  float* const spilled = Spill ? a.state + (size_t)blockIdx.x * a.spill : nullptr;
+  auto at = [&](size_t off) -> float* {
+    if constexpr (Spill) return off < (size_t)a.spill ? spilled + off : smem_base + (off - a.spill);
+    return smem_base + off;
+  };
+  // a staged input element: cp.async into shared memory, a plain copy where
+  // the region may be in device memory
+  auto stage4 = [](float* dst, const float* src) {
+    if constexpr (Spill)
+      *dst = __ldg(src);
+    else
+      vmlmf::cp_async4(dst, src);
+  };
+  float* const sm = smem_base;  // the resident weights: never spilled
   const int h = a.h, r = a.r, g3 = 3 * h, h4 = q4(h), r4 = q4(r), rows = a.rows;
   const int b0 = blockIdx.x * rows, live = min(rows, a.batch - b0);
   const Lanes ln;
@@ -229,15 +256,15 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(const FwdArgs a) {
   for (size_t i = L.xub + threadIdx.x; i < L.total; i += blockDim.x) {
     const size_t e = i - L.hbuf;
     const int row = static_cast<int>(e / h4), j = static_cast<int>(e % h4);
-    sm[i] = i >= L.hbuf && row < live && j < h ? a.h0[(size_t)(b0 + row) * h + j] : 0.f;
+    *at(i) = i >= L.hbuf && row < live && j < h ? a.h0[(size_t)(b0 + row) * h + j] : 0.f;
   }
-  float* hbuf = sm + L.hbuf;
+  float* hbuf = at(L.hbuf);
 
-  float* gib = sm + L.gib;
-  float* rh = sm + L.rh;
-  float* zs = sm + L.zs;
-  float* hus = sm + L.hus;
-  float* rhus = sm + L.rhus;
+  float* gib = at(L.gib);
+  float* rh = at(L.rh);
+  float* zs = at(L.zs);
+  float* hus = at(L.hus);
+  float* rhus = at(L.rhus);
   int cur = 0;
   for (int t0 = 0; t0 < a.t_len; t0 += a.tblock) {
     const int nb = min(a.tblock, a.t_len - t0);
@@ -247,17 +274,17 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(const FwdArgs a) {
       const int n = live * g3;
       for (int i = threadIdx.x; i < nb * n; i += blockDim.x) {
         const int tt = i / n, e = i % n;
-        vmlmf::cp_async4(gib + (size_t)tt * rows * g3 + e,
-                         a.gi + ((size_t)(t0 + tt) * a.batch + b0) * g3 + e);
+        stage4(gib + (size_t)tt * rows * g3 + e,
+               a.gi + ((size_t)(t0 + tt) * a.batch + b0) * g3 + e);
       }
       vmlmf::cp_async_wait_all();
     } else {
       const int f4 = q4(a.f), mb = nb * rows;
-      float* xs = sm + L.xs;
+      float* xs = at(L.xs);
       for (int i = threadIdx.x; i < mb * f4; i += blockDim.x) {
         const int m = i / f4, k = i % f4, row = m % rows;
         if (k < a.f && row < live)
-          vmlmf::cp_async4(xs + i, a.x + ((size_t)(t0 + m / rows) * a.batch + b0 + row) * a.f + k);
+          stage4(xs + i, a.x + ((size_t)(t0 + m / rows) * a.batch + b0 + row) * a.f + k);
         else
           xs[i] = 0.f;
       }
@@ -269,7 +296,7 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(const FwdArgs a) {
                    [&](int m, int c, float v) { gib[(size_t)m * g3 + c] = v + bias[c]; });
       } else {
         const int rx = a.rx, rx4 = q4(rx);
-        float* xub = sm + L.xub;
+        float* xub = at(L.xub);
         block_gemm(xs, f4, mb, ux, rx, [&](int m, int c, float v) {
           xub[m * rx4 + c] = v;
           if (Residuals && m % rows < live)
@@ -417,27 +444,36 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(const FwdArgs a) {
   }
 }
 
-template <int Form, int XSide, bool Residuals, int R>
+template <int Form, int XSide, bool Residuals, int R, bool Spill = false>
 cudaError_t launch_rows(const FwdArgs& a, int threads, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<Form, XSide, Residuals, R>,
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<Form, XSide, Residuals, R, Spill>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fwd_kernel<Form, XSide, Residuals, R><<<cdiv(a.batch, a.rows), threads, smem, stream>>>(a);
+  fwd_kernel<Form, XSide, Residuals, R, Spill><<<cdiv(a.batch, a.rows), threads, smem, stream>>>(
+      a);
   return cudaGetLastError();
 }
 
-// Launches fwd_kernel<Form, XSide, Residuals, row_bound(rows)> with
-// gru_plan's layout; refuses a plan whose shared bytes are not this
-// layout's.
+// Launches fwd_kernel<Form, XSide, Residuals, row_bound(rows), spill > 0>
+// with gru_plan's layout; refuses a plan whose shared bytes are not this
+// layout's, and a spill that is not a region boundary of a one-row plan
+// with every weight read through L2.
 template <int Form, int XSide, bool Residuals>
 cudaError_t launch(const FwdArgs& a, int threads, int smem, cudaStream_t stream) {
   const FwdLayout L = fwd_layout(Form, XSide, a);
   const bool regs_fit = a.h <= kRegH && a.r <= kRegR && threads / kSlices >= a.h &&
                         threads / kSlices >= a.r;
-  if (L.total * sizeof(float) != (size_t)smem || a.rows < 1 || a.rows > kMaxRows ||
+  const size_t bounds[] = {L.gib, L.xs, L.xub, L.hbuf, L.rh, L.hus, L.rhus, L.zs, L.total};
+  bool boundary = a.spill == 0;
+  for (size_t b : bounds) boundary = boundary || (size_t)a.spill == b;
+  const bool spill_ok = a.spill == 0 || (boundary && a.rows == 1 && a.rec_res == kInL2 &&
+                                         !a.x_res && a.tblock == 1 && a.state != nullptr);
+  if (a.spill < 0 || (size_t)a.spill > L.total || !spill_ok ||
+      (L.total - a.spill) * sizeof(float) != (size_t)smem || a.rows < 1 || a.rows > kMaxRows ||
       a.tblock < 1 || threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
       a.rec_res < kInL2 || a.rec_res > kInRegisters || (a.rec_res == kInRegisters && !regs_fit))
     return cudaErrorInvalidValue;
+  if (a.spill > 0) return launch_rows<Form, XSide, Residuals, 1, true>(a, threads, smem, stream);
   switch (row_bound(a.rows)) {
     case 1:
       return launch_rows<Form, XSide, Residuals, 1>(a, threads, smem, stream);
@@ -472,18 +508,21 @@ int launch_x(const FwdArgs& a, int form, int threads, int smem, void* stream) {
 }  // namespace
 
 // Every entry takes the plan of ops/cuda_gru.py::gru_plan as its last
-// integers: rows, threads, tblock, rec_res, x_res, smem (bytes).
+// integers: rows, threads, tblock, rec_res, x_res, smem (bytes), spill
+// (floats a CTA of `state`, the device-memory scratch of a spill plan,
+// which the caller allocates, cuda_gru.py::state_floats; null when 0).
 
 // No-grad forward: writes ys [T,B,h]. uf is null and r is 0 in the dense
 // recurrent forms; vx is null and rx is 0 for a dense x side.
 extern "C" int gru_scan_xin_fwd(const float* x, const float* ux, const float* vx,
                                 const float* bias, const float* uf, const float* prz,
-                                const float* pn, const float* h0, float* ys, int t_len,
-                                int batch, int f, int rx, int h, int r, int form, int rows,
-                                int threads, int tblock, int rec_res, int x_res, int smem,
-                                void* stream_handle) {
+                                const float* pn, const float* h0, float* ys, float* state,
+                                int t_len, int batch, int f, int rx, int h, int r, int form,
+                                int rows, int threads, int tblock, int rec_res, int x_res,
+                                int smem, int spill, void* stream_handle) {
   const FwdArgs a{x, ux, vx, bias, nullptr, uf, prz, pn, h0, ys, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, t_len, batch, f, rx, h, r, rows, tblock, rec_res, x_res};
+                  nullptr, nullptr, state, t_len, batch, f, rx, h, r, rows, tblock, rec_res,
+                  x_res, spill};
   return launch_x<false>(a, form, threads, smem, stream_handle);
 }
 
@@ -493,24 +532,27 @@ extern "C" int gru_scan_xin_fwd(const float* x, const float* ux, const float* vx
 extern "C" int gru_scan_xin_fwd_res(const float* x, const float* ux, const float* vx,
                                     const float* bias, const float* uf, const float* prz,
                                     const float* pn, const float* h0, float* xu, float* ys,
-                                    float* gates, float* hu, float* rhu, float* recn, int t_len,
-                                    int batch, int f, int rx, int h, int r, int form, int rows,
-                                    int threads, int tblock, int rec_res, int x_res, int smem,
+                                    float* gates, float* hu, float* rhu, float* recn,
+                                    float* state, int t_len, int batch, int f, int rx, int h,
+                                    int r, int form, int rows, int threads, int tblock,
+                                    int rec_res, int x_res, int smem, int spill,
                                     void* stream_handle) {
   const FwdArgs a{x, ux, vx, bias, nullptr, uf, prz, pn, h0, ys, gates, hu, rhu,
-                  recn, xu, t_len, batch, f, rx, h, r, rows, tblock, rec_res, x_res};
+                  recn, xu, state, t_len, batch, f, rx, h, r, rows, tblock, rec_res, x_res,
+                  spill};
   return launch_x<true>(a, form, threads, smem, stream_handle);
 }
 
 // gi mode, no-grad forward: the scan on the caller's gi [T,B,3h]; writes
 // ys [T,B,h].
 extern "C" int gru_scan_fwd(const float* gi, const float* uf, const float* prz,
-                            const float* pn, const float* h0, float* ys, int t_len, int batch,
-                            int h, int r, int form, int rows, int threads, int tblock,
-                            int rec_res, int x_res, int smem, void* stream_handle) {
+                            const float* pn, const float* h0, float* ys, float* state,
+                            int t_len, int batch, int h, int r, int form, int rows, int threads,
+                            int tblock, int rec_res, int x_res, int smem, int spill,
+                            void* stream_handle) {
   const FwdArgs a{nullptr, nullptr, nullptr, nullptr, gi, uf, prz, pn, h0,
-                  ys, nullptr, nullptr, nullptr, nullptr, nullptr, t_len, batch, 0,
-                  0, h, r, rows, tblock, rec_res, x_res};
+                  ys, nullptr, nullptr, nullptr, nullptr, nullptr, state, t_len, batch, 0,
+                  0, h, r, rows, tblock, rec_res, x_res, spill};
   return launch_form<kGiMode, false>(a, form, threads, smem, stream_handle);
 }
 
@@ -518,11 +560,13 @@ extern "C" int gru_scan_fwd(const float* gi, const float* uf, const float* prz,
 // [T,B,r] (low-rank; else null) or recn [T,B,h] ("post"; else null).
 extern "C" int gru_scan_fwd_res(const float* gi, const float* uf, const float* prz,
                                 const float* pn, const float* h0, float* ys, float* gates,
-                                float* hu, float* rhu, float* recn, int t_len, int batch, int h,
-                                int r, int form, int rows, int threads, int tblock, int rec_res,
-                                int x_res, int smem, void* stream_handle) {
+                                float* hu, float* rhu, float* recn, float* state, int t_len,
+                                int batch, int h, int r, int form, int rows, int threads,
+                                int tblock, int rec_res, int x_res, int smem, int spill,
+                                void* stream_handle) {
   const FwdArgs a{nullptr, nullptr, nullptr, nullptr, gi, uf, prz, pn, h0, ys, gates, hu, rhu,
-                  recn, nullptr, t_len, batch, 0, 0, h, r, rows, tblock, rec_res, x_res};
+                  recn, nullptr, state, t_len, batch, 0, 0, h, r, rows, tblock, rec_res, x_res,
+                  spill};
   return launch_form<kGiMode, true>(a, form, threads, smem, stream_handle);
 }
 

@@ -72,6 +72,11 @@
 //      Every sum runs inside one CTA in a fixed order: deterministic, no
 //      atomics. This replaced one CTA per 4 batch rows that read all of U
 //      and V from L2 a step (118-124 us a step at h=650 whatever B).
+//      Where the slices do not fit in the shared memory of all SMs, the
+//      rows past each slice's resident depth are streamed as in the
+//      forward (ScanPlan.resident_bwd; lstm_scan_xin_fwd.cu): copied once
+//      into the CTA's region of `wstream` and read through L2 every step,
+//      in the same order of sums.
 //   2. Time-parallel passes over all M rows: tiled GEMMs (gemm_tile.cuh)
 //      with transposed operand views (six low-rank, three with a dense
 //      side of each kind), and one column-sum kernel. The products whose k
@@ -110,22 +115,34 @@ constexpr int kInputs = 7;
 constexpr int kPolicyF32 = 0, kPolicyBf16 = 1, kPolicyNone = 2;
 
 // Floats of this kernel's shared memory, in the order of the carve below:
-// the weight slices (of type W), dvec of the j-slice, the (dh, dc) carry,
-// stage, red, and phase A's inputs of the step.
+// the resident rows of the weight slices (of type W), dvec of the j-slice,
+// the (dh, dc) carry, stage, red, and phase A's inputs of the step.
 template <class W>
 __host__ __device__ inline size_t bwd_smem_floats(bool dense_rec, int h, int r,
                                                   const GridPlan& p) {
   const int jwm = div_up(h, p.ctas), jwp = round4(jwm);
   const int kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
-  const size_t weights = dense_rec ? (size_t)4 * h * jwp : (size_t)4 * h * kwp + (size_t)r * jwp;
+  const size_t weights = (size_t)(dense_rec ? 0 : p.res_a) * kwp + (size_t)p.res_b * jwp;
   return vmlmf::weight_floats<W>(weights) + 4 * jwm + (2 + kInputs) * (size_t)jwm * p.rpad +
          p.stage + p.red;
 }
 
+// Floats of one CTA's region of the streamed scratch: the rows of V^T's and
+// U^T's slices past their resident depths (ops/cuda_scan.py::stream_floats).
+template <class W>
+__host__ __device__ inline size_t bwd_stream_floats(bool dense_rec, int h, int r,
+                                                    const GridPlan& p) {
+  const int jwp = round4(div_up(h, p.ctas)), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const int depth = dense_rec ? 4 * h : r;
+  return vmlmf::weight_floats<W>((size_t)(dense_rec ? 0 : 4 * h - p.res_a) * kwp +
+                                 (size_t)(depth - p.res_b) * jwp);
+}
+
 // The serial reverse walk on plan.groups x plan.ctas co-resident CTAs.
 // xchg: the dpre exchange [2][groups][4h][rpad] (step parity), then,
-// low-rank, the dhu exchange [groups][r][rpad]. sync: a barrier word per group.
-template <bool DenseRec, bool Bf16>
+// low-rank, the dhu exchange [groups][r][rpad]. sync: a barrier word per
+// group. wstream: the streamed scratch, bwd_stream_floats a CTA.
+template <bool DenseRec, bool Bf16, bool Streamed>
 __global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
 grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ c0, const float* __restrict__ dys,
@@ -133,7 +150,8 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ v, const float* __restrict__ dvec,
                  float* __restrict__ dpre, float* __restrict__ dhu,
                  float* __restrict__ dh0, float* __restrict__ dc0, float* xchg,
-                 unsigned* sync, int t_len, int batch, int h, int r, GridPlan plan) {
+                 unsigned* sync, float* wstream, int t_len, int batch, int h, int r,
+                 GridPlan plan) {
   using W = std::conditional_t<Bf16, bf16, float>;  // weight slices
   extern __shared__ __align__(16) float smem[];
   const int g4 = 4 * h, rpad = plan.rpad;
@@ -146,11 +164,16 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   const int jwm = div_up(h, plan.ctas), jwp = round4(jwm);
   const int kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
   const int depth = DenseRec ? g4 : r;  // of phase C's product
+  // resident depths: every row without Streamed
+  const int resb = DenseRec ? 0 : Streamed ? plan.res_a : g4, resc = Streamed ? plan.res_b : depth;
 
-  W* wb = reinterpret_cast<W*>(smem);      // low-rank: V[k-slice, :]^T  [4h][kwp]
-  W* wc = wb + (size_t)g4 * kwp;           // U[j-slice, :]^T  [depth][jwp]
+  W* wb = reinterpret_cast<W*>(smem);      // low-rank: V[k-slice, :]^T  [4h][kwp], rows < resb
+  W* wc = wb + (size_t)resb * kwp;         // U[j-slice, :]^T  [depth][jwp], rows < resc
   // dvec of the j-slice [jwm][4]
-  float* dv = smem + vmlmf::weight_floats<W>((size_t)g4 * kwp + (size_t)depth * jwp);
+  float* dv = smem + vmlmf::weight_floats<W>((size_t)resb * kwp + (size_t)resc * jwp);
+  // the streamed rows: V^T's past resb, then U^T's past resc
+  W* sb = reinterpret_cast<W*>(wstream + blockIdx.x * bwd_stream_floats<W>(DenseRec, h, r, plan));
+  W* sc = sb + (size_t)(DenseRec ? 0 : g4 - resb) * kwp;
   float* dhc = dv + 4 * jwm;               // the carry dh, dc: [jwm][rpad]
   float* dcc = dhc + (size_t)jwm * rpad;
   float* stage = dcc + (size_t)jwm * rpad;
@@ -163,18 +186,27 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   unsigned target = 0;
 
   // the weight slices, transposed, loaded once along the rows of V and U
-  // (coalesced reads); columns past the slice are zero
+  // (coalesced reads), the resident rows into shared memory and the others
+  // into the CTA's streamed region; columns past the slice are zero
   if constexpr (!DenseRec) {
 #pragma unroll 4
     for (int e = threadIdx.x; e < kwp * g4; e += blockDim.x) {
       const int kk = e / g4, n = e % g4;
-      wb[(size_t)n * kwp + kk] = vmlmf::to_elem<W>(kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
+      const W val = vmlmf::to_elem<W>(kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
+      if constexpr (Streamed)
+        vmlmf::slice_elem(wb, sb, resb, kwp, n, kk) = val;
+      else
+        wb[(size_t)n * kwp + kk] = val;
     }
   }
 #pragma unroll 4
   for (int e = threadIdx.x; e < jwp * depth; e += blockDim.x) {
     const int jj = e / depth, k = e % depth;
-    wc[(size_t)k * jwp + jj] = vmlmf::to_elem<W>(jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f);
+    const W val = vmlmf::to_elem<W>(jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f);
+    if constexpr (Streamed)
+      vmlmf::slice_elem(wc, sc, resc, jwp, k, jj) = val;
+    else
+      wc[(size_t)k * jwp + jj] = val;
   }
   for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
     dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
@@ -241,8 +273,9 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 
     if (!DenseRec) {
       // (B) dhu[:, k-slice] = dpre @ V[k-slice, :]^T
-      vmlmf::slice_product(dpx_t, g4, rpad, wb, kwp, round4(kw), stage, plan.stage, red,
-                           plan.red, [&](int cb, int rb, float (&acc)[4][4]) {
+      vmlmf::slice_product<Streamed>(dpx_t, g4, rpad, wb, sb, resb, kwp, round4(kw), stage,
+                                     plan.stage, red, plan.red,
+                                     [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int kk = 4 * cb + c;
@@ -259,8 +292,9 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     }
 
     // (C) dh[:, j-slice] += src @ U[j-slice, :]^T, src = dhu or (dense) dpre
-    vmlmf::slice_product(DenseRec ? dpx_t : dhux, depth, rpad, wc, jwp, round4(jw), stage,
-                         plan.stage, red, plan.red, [&](int cb, int rb, float (&acc)[4][4]) {
+    vmlmf::slice_product<Streamed>(DenseRec ? dpx_t : dhux, depth, rpad, wc, sc, resc, jwp,
+                                   round4(jw), stage, plan.stage, red, plan.red,
+                                   [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int jj = 4 * cb + c;
@@ -280,19 +314,31 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   }
 }
 
-// Launches grid_bptt_kernel<DenseRec, Bf16>; returns the launch's error.
-// The plan must hold at least the shared memory this kernel carves.
+// Launches grid_bptt_kernel<DenseRec, Bf16, Streamed>, Streamed where the
+// plan streams some weight row; returns the launch's error.
+// The plan must hold at least the shared memory this kernel carves, and
+// `wstream` (`wstream_floats` floats) its CTAs' streamed regions.
 template <bool DenseRec, bool Bf16>
 cudaError_t bptt(const float* gates, const float* cs, const float* c0, const float* dys,
                  const float* dc_last, const float* u, const float* v, const float* dvec,
                  float* dpre, float* dhu, float* dh0, float* dc0, float* xchg, unsigned* sync,
-                 int t_len, int batch, int h, int r, GridPlan plan, cudaStream_t stream) {
+                 float* wstream, size_t wstream_floats, int t_len, int batch, int h, int r,
+                 GridPlan plan, cudaStream_t stream) {
   using W = std::conditional_t<Bf16, bf16, float>;
-  if (sizeof(float) * bwd_smem_floats<W>(DenseRec, h, r, plan) > (size_t)plan.smem)
+  const int depth = DenseRec ? 4 * h : r;
+  if (plan.res_b < 0 || plan.res_b > depth ||
+      (DenseRec ? plan.res_a != 0 : plan.res_a < 0 || plan.res_a > 4 * h) ||
+      sizeof(float) * bwd_smem_floats<W>(DenseRec, h, r, plan) > (size_t)plan.smem)
+    return cudaErrorInvalidValue;
+  const size_t streamed = bwd_stream_floats<W>(DenseRec, h, r, plan);
+  if (streamed * plan.groups * plan.ctas > wstream_floats || (streamed > 0 && wstream == nullptr))
     return cudaErrorInvalidValue;
   void* args[] = {&gates, &cs, &c0, &dys, &dc_last, &u, &v, &dvec, &dpre, &dhu, &dh0, &dc0,
-                  &xchg, &sync, &t_len, &batch, &h, &r, &plan};
-  return vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16>, plan, sync, args, stream);
+                  &xchg, &sync, &wstream, &t_len, &batch, &h, &r, &plan};
+  return streamed > 0
+             ? vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16, true>, plan, sync, args, stream)
+             : vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16, false>, plan, sync, args,
+                                  stream);
 }
 
 // Epilogue of dx = dXU @ Ux^T (or dPre @ Ux^T for a dense x side): adds
@@ -355,6 +401,8 @@ struct BwdIO {
   unsigned* sync;
   float* partial;
   size_t room;
+  float* wstream;
+  size_t wstream_floats;
   int t_len, batch, f, rx, h, r;
 };
 
@@ -429,16 +477,16 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
   const vmlmf::PrevRowsT hprev_t{io.h0, io.ys, io.batch, io.h};
   if (io.v == nullptr) {
     err = bptt<true, Bf16>(gates, io.cs, io.c0, io.dys, io.dc_last, io.u, io.v, io.dvec, io.dpre,
-                           io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.t_len, io.batch, io.h, r,
-                           plan, stream);
+                           io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.wstream,
+                           io.wstream_floats, io.t_len, io.batch, io.h, r, plan, stream);
     if (err != cudaSuccess) return err;
     // dU [h, 4h] = Hprev^T dPre
     err = gemm_splitk(bf16_if<Bf16>(hprev_t), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
                       Store{io.du, g4}, io.h, g4, m, io.partial, io.room, stream);
   } else {
     err = bptt<false, Bf16>(gates, io.cs, io.c0, io.dys, io.dc_last, io.u, io.v, io.dvec, io.dpre,
-                            io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.t_len, io.batch, io.h, r,
-                            plan, stream);
+                            io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.wstream,
+                            io.wstream_floats, io.t_len, io.batch, io.h, r, plan, stream);
     if (err != cudaSuccess) return err;
     // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
     err = gemm_splitk(bf16_if<Bf16>(Transposed{hu, r}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
@@ -493,11 +541,13 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
 // [T*B, rx] are f32 scratch for policies 1 and 2 (xu_w for 2 only), null
 // otherwise; dpre [T*B, 4h], dhu [T*B, r] and dxu [T*B, rx] are scratch
 // too (dhu null for a dense recurrent side, dxu for a dense x side), as
-// are xchg and sync (scan_plan sizes them) and partial, partial_floats
-// floats for the split-k partial sums (bwd_partial_floats); every other
-// pointer after dpre is an output (dv and dvx null with dhu and dxu). The
-// six integers after r are scan_plan's layout; bf16_mm 1 rounds every
-// product's operands to bf16.
+// are xchg and sync (scan_plan sizes them), partial, partial_floats
+// floats for the split-k partial sums (bwd_partial_floats), and wstream,
+// wstream_floats floats of streamed weights (stream_floats; null where the
+// plan streams nothing); every other pointer after dpre is an output (dv
+// and dvx null with dhu and dxu). The eight integers after r are
+// scan_plan's layout (ScanPlan.ints); bf16_mm 1 rounds every product's
+// operands to bf16.
 extern "C" int lstm_scan_xin_bwd(
     const float* x, const float* ux, const float* vx, const float* xdvec, const float* bias,
     const float* u, const float* v, const float* dvec, const float* h0, const float* c0,
@@ -505,36 +555,37 @@ extern "C" int lstm_scan_xin_bwd(
     const float* dys, const float* dc_last, float* gates_w, float* hu_w, float* xu_w,
     float* dpre, float* dhu, float* dxu, float* dx, float* dux, float* dvx, float* dxdvec,
     float* dbias, float* du, float* dv, float* ddvec, float* dh0, float* dc0, float* xchg,
-    unsigned* sync, float* partial, int partial_floats, int t_len, int batch, int f, int rx,
-    int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem, int bf16_mm,
-    int policy, void* stream_handle) {
+    unsigned* sync, float* partial, float* wstream, int partial_floats, int wstream_floats,
+    int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage,
+    int red, int smem, int res_a, int res_b, int bf16_mm, int policy, void* stream_handle) {
   const BwdIO io{x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, ys, cs, gates, hu, xu, dys,
                  dc_last, gates_w, hu_w, xu_w, dpre, dhu, dxu, dx, dux, dvx, dxdvec, dbias, du,
                  dv, ddvec, dh0, dc0, xchg, sync, partial, static_cast<size_t>(partial_floats),
-                 t_len, batch, f, rx, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
+                 wstream, static_cast<size_t>(wstream_floats), t_len, batch, f, rx, h, r};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
 }
 
 // gi mode (pallas_scan.py::_scan_core_bwd): the walk, whose dpre is dgi
 // [T*B, 4h], then dU, dV and ddvec; no x side. policy 0 or 1 (f32 or bf16
-// gates and hu; gates_w and hu_w scratch for 1); the rest as in
-// lstm_scan_xin_bwd.
+// gates and hu; gates_w and hu_w scratch for 1); the rest, wstream too, as
+// in lstm_scan_xin_bwd.
 extern "C" int lstm_scan_bwd(
     const float* u, const float* v, const float* dvec, const float* h0, const float* c0,
     const float* ys, const float* cs, const void* gates, const void* hu, const float* dys,
     const float* dc_last, float* gates_w, float* hu_w, float* dgi, float* dhu, float* du,
     float* dv, float* ddvec, float* dh0, float* dc0, float* xchg, unsigned* sync,
-    float* partial, int partial_floats, int t_len, int batch, int h, int r, int groups,
-    int ctas, int rpad, int stage, int red, int smem, int bf16_mm, int policy,
-    void* stream_handle) {
+    float* partial, float* wstream, int partial_floats, int wstream_floats, int t_len,
+    int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
+    int res_a, int res_b, int bf16_mm, int policy, void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const BwdIO io{nullptr, nullptr, nullptr, nullptr, nullptr, u, v, dvec, h0, c0, ys, cs, gates,
                  hu, nullptr, dys, dc_last, gates_w, hu_w, nullptr, dgi, dhu, nullptr, nullptr,
                  nullptr, nullptr, nullptr, nullptr, du, dv, ddvec, dh0, dc0, xchg, sync, partial,
-                 static_cast<size_t>(partial_floats), t_len, batch, 1, 0, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem};
+                 static_cast<size_t>(partial_floats), wstream,
+                 static_cast<size_t>(wstream_floats), t_len, batch, 1, 0, h, r};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
 }

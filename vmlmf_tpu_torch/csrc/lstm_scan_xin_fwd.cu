@@ -73,6 +73,16 @@
 //   change during the launch. The step's gi of the j-slice is copied with
 //   cp.async at the start of the step, so that its load overlaps phase A
 //   and the barrier.
+// * Past the width whose weights fit in the shared memory of all SMs (a
+//   dense h of about 1,050 in f32: the PTB "large" LM's 1500 x 6000 U is
+//   36 MB against 30 MB), scan_plan takes one group over all SMs and keeps
+//   as many depth rows of each slice in shared memory as fit beside the
+//   slabs, stage and red (ScanPlan.resident_fwd). The prologue copies each
+//   CTA's remaining rows, in its slice's layout and type, into its own
+//   region of a device-memory scratch (`wstream`), and every step reads them
+//   from there through L2 (scan_grid.cuh::slice_product): no CTA reads
+//   another's region, so this needs no launch or barrier of its own, and a
+//   row's place does not change the order of the sums.
 // * Co-residency: every CTA of a group must be resident for its barrier,
 //   so the launch is cooperative, one CTA per SM at most; a grid that
 //   cannot be co-resident is refused and the wrapper raises.
@@ -126,32 +136,54 @@ struct ScanIO {
   void* hu;
   float* xchg;
   unsigned* sync;
+  float* wstream;
+  size_t wstream_floats;
   int t_len, batch, h, r;
 };
 
 // Floats of this kernel's shared memory, in the order of the carve below:
-// the weight slices (of type W), dvec of the j-slice, the (h, c) carry,
-// stage, red, and the step's gi of the j-slice.
+// the resident rows of the weight slices (of type W), dvec of the j-slice,
+// the (h, c) carry, stage, red, and the step's gi of the j-slice.
 template <class W>
 __host__ __device__ inline size_t fwd_smem_floats(bool dense_rec, int h, int r,
                                                   const GridPlan& p) {
   const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
-  const size_t weights = dense_rec ? (size_t)h * 4 * jwm : (size_t)h * kwp + (size_t)r * 4 * jwm;
+  const size_t weights = (size_t)(dense_rec ? 0 : p.res_a) * kwp + (size_t)p.res_b * 4 * jwm;
   return vmlmf::weight_floats<W>(weights) + 4 * jwm + 6 * (size_t)jwm * p.rpad + p.stage + p.red;
+}
+
+// Floats of one CTA's region of the streamed scratch: the rows of its two
+// slices past their resident depths (ops/cuda_scan.py::stream_floats).
+template <class W>
+__host__ __device__ inline size_t fwd_stream_floats(bool dense_rec, int h, int r,
+                                                    const GridPlan& p) {
+  const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const int depth = dense_rec ? h : r;
+  return vmlmf::weight_floats<W>((size_t)(dense_rec ? 0 : h - p.res_a) * kwp +
+                                 (size_t)(depth - p.res_b) * 4 * jwm);
+}
+
+// Whether a plan's resident depths are ones this kernel takes.
+inline bool resident_ok(bool dense_rec, int h, int r, const GridPlan& p) {
+  const int depth = dense_rec ? h : r;
+  return p.res_b >= 0 && p.res_b <= depth &&
+         (dense_rec ? p.res_a == 0 : p.res_a >= 0 && p.res_a <= h);
 }
 
 // The scan over all t_len steps, on plan.groups x plan.ctas co-resident CTAs.
 // xchg: the h exchange [2][groups][h][rpad] (step parity), then, low-rank,
 // the hu exchange [groups][r][rpad]. sync: one barrier word per group.
-template <int Res, bool DenseRec, bool Bf16>
+// wstream: the streamed scratch, fwd_stream_floats a CTA (null when the
+// plan streams nothing).
+template <int Res, bool DenseRec, bool Bf16, bool Streamed>
 __global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
 grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
                  const float* __restrict__ v, const float* __restrict__ dvec,
                  const float* __restrict__ h0, const float* __restrict__ c0,
                  float* __restrict__ ys, float* __restrict__ c_last,
                  float* __restrict__ cs_out, void* __restrict__ gates_res,
-                 void* __restrict__ hu_res, float* xchg, unsigned* sync, int t_len,
-                 int batch, int h, int r, GridPlan plan) {
+                 void* __restrict__ hu_res, float* xchg, unsigned* sync, float* wstream,
+                 int t_len, int batch, int h, int r, GridPlan plan) {
   using W = std::conditional_t<Bf16, bf16, float>;        // weight slices
   using R = std::conditional_t<Res == kResBf16, bf16, float>;  // gates, hu
   extern __shared__ __align__(16) float smem[];
@@ -166,10 +198,15 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   const int kw = DenseRec ? 0 : split_at(q + 1, r, plan.ctas) - k0;
   const int jwm = div_up(h, plan.ctas), kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
   const int depth = DenseRec ? h : r;  // of the gate phase's product
+  // resident depths: every row without Streamed
+  const int resa = DenseRec ? 0 : Streamed ? plan.res_a : h, resb = Streamed ? plan.res_b : depth;
 
-  W* wa = reinterpret_cast<W*>(smem);  // low-rank: U[:, k-slice]  [h][kwp]
-  W* wb = wa + (size_t)h * kwp;        // V or dense U, gate columns of the j-slice [depth][jwm][4]
-  float* dv = smem + vmlmf::weight_floats<W>((size_t)h * kwp + (size_t)depth * 4 * jwm);
+  W* wa = reinterpret_cast<W*>(smem);  // low-rank: U[:, k-slice]  [h][kwp], rows < resa
+  W* wb = wa + (size_t)resa * kwp;     // V or dense U, gate columns of the j-slice [depth][jwm][4]
+  float* dv = smem + vmlmf::weight_floats<W>((size_t)resa * kwp + (size_t)resb * 4 * jwm);
+  // the streamed rows: U's past resa, then V's (or dense U's) past resb
+  W* sa = reinterpret_cast<W*>(wstream + blockIdx.x * fwd_stream_floats<W>(DenseRec, h, r, plan));
+  W* sb = sa + (size_t)(DenseRec ? 0 : h - resa) * kwp;
   float* hc = dv + 4 * jwm;                // the carry h, c: [jwm][rpad]
   float* cc = hc + (size_t)jwm * rpad;
   float* stage = cc + (size_t)jwm * rpad;
@@ -181,19 +218,28 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   unsigned* count = sync + grp;
   unsigned target = 0;
 
-  // the weight slices, loaded once; columns past the slice are zero
+  // the weight slices, loaded once, the resident rows into shared memory and
+  // the others into the CTA's streamed region; columns past the slice are zero
   if constexpr (!DenseRec) {
 #pragma unroll 4
     for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
       const int d = e / kwp, kk = e % kwp;
-      wa[e] = vmlmf::to_elem<W>(kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
+      const W val = vmlmf::to_elem<W>(kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
+      if constexpr (Streamed)
+        vmlmf::slice_elem(wa, sa, resa, kwp, d, kk) = val;
+      else
+        wa[e] = val;
     }
   }
   const float* w = DenseRec ? u : v;
 #pragma unroll 4
   for (int e = threadIdx.x; e < depth * 4 * jwm; e += blockDim.x) {
     const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
-    wb[e] = vmlmf::to_elem<W>(jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f);
+    const W val = vmlmf::to_elem<W>(jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f);
+    if constexpr (Streamed)
+      vmlmf::slice_elem(wb, sb, resb, 4 * jwm, d, e % (4 * jwm)) = val;
+    else
+      wb[e] = val;
   }
   for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
     dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
@@ -221,8 +267,9 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
 
     if (!DenseRec) {
       // (A) hu[:, k-slice] = h @ U[:, k-slice]
-      vmlmf::slice_product(hin, h, rpad, wa, kwp, round4(kw), stage, plan.stage, red, plan.red,
-                           [&](int cb, int rb, float (&acc)[4][4]) {
+      vmlmf::slice_product<Streamed>(hin, h, rpad, wa, sa, resa, kwp, round4(kw), stage,
+                                     plan.stage, red, plan.red,
+                                     [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int kk = 4 * cb + c;
@@ -243,8 +290,9 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     // gates and the update of the j-slice. Item cb is unit j0 + cb. The
     // product's first __syncthreads publishes the copied gi.
     vmlmf::cp_async_wait_all();
-    vmlmf::slice_product(DenseRec ? hin : hux, depth, rpad, wb, 4 * jwm, 4 * jw, stage,
-                         plan.stage, red, plan.red, [&](int cb, int rb, float (&acc)[4][4]) {
+    vmlmf::slice_product<Streamed>(DenseRec ? hin : hux, depth, rpad, wb, sb, resb, 4 * jwm,
+                                   4 * jw, stage, plan.stage, red, plan.red,
+                                   [&](int cb, int rb, float (&acc)[4][4]) {
       const int j = j0 + cb;
       const float d0 = dv[4 * cb], d1 = dv[4 * cb + 1], d2 = dv[4 * cb + 2], d3 = dv[4 * cb + 3];
       float gv[4][4];
@@ -293,17 +341,28 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     }
 }
 
-// Launches grid_scan_kernel<Res, DenseRec, Bf16>; returns the launch's
-// error. The plan must hold at least the shared memory this kernel carves.
+// Launches grid_scan_kernel<Res, DenseRec, Bf16, Streamed>, Streamed where
+// the plan streams some weight row; returns the launch's error. The plan
+// must hold at least the shared memory this kernel carves, and the
+// streamed scratch its CTAs' regions.
 template <int Res, bool DenseRec, bool Bf16>
 cudaError_t scan(const ScanIO& io, GridPlan plan, cudaStream_t stream) {
   using W = std::conditional_t<Bf16, bf16, float>;
-  if (sizeof(float) * fwd_smem_floats<W>(DenseRec, io.h, io.r, plan) > (size_t)plan.smem)
+  if (!resident_ok(DenseRec, io.h, io.r, plan) ||
+      sizeof(float) * fwd_smem_floats<W>(DenseRec, io.h, io.r, plan) > (size_t)plan.smem)
+    return cudaErrorInvalidValue;
+  const size_t streamed = fwd_stream_floats<W>(DenseRec, io.h, io.r, plan);
+  if (streamed * plan.groups * plan.ctas > io.wstream_floats ||
+      (streamed > 0 && io.wstream == nullptr))
     return cudaErrorInvalidValue;
   ScanIO a = io;
   void* args[] = {&a.gi, &a.u, &a.v, &a.dvec, &a.h0, &a.c0, &a.ys, &a.c_last, &a.cs, &a.gates,
-                  &a.hu, &a.xchg, &a.sync, &a.t_len, &a.batch, &a.h, &a.r, &plan};
-  return vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, Bf16>, plan, io.sync, args, stream);
+                  &a.hu, &a.xchg, &a.sync, &a.wstream, &a.t_len, &a.batch, &a.h, &a.r, &plan};
+  return streamed > 0
+             ? vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, Bf16, true>, plan, io.sync,
+                                  args, stream)
+             : vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, Bf16, false>, plan, io.sync,
+                                  args, stream);
 }
 
 // The scan in the form and variant of a launch: the recurrent side's form
@@ -372,21 +431,23 @@ int launch_xin(const float* x, const float* ux, const float* vx, const float* xd
 
 // No-grad forward, x mode. xu [T*B, rx] (null for a dense x side) and gi
 // [T*B, 4h] are scratch that the caller allocates, as are the exchange
-// buffers xchg and the barrier words sync (scan_plan sizes both); writes ys
-// [T,B,h] and c_last [B,h]. vx null: dense x side, rx unused; v null: dense
-// recurrent side, r unused. The six integers after r are scan_plan's
-// layout; bf16_mm 1 rounds every product's operands to bf16.
+// buffers xchg, the barrier words sync and the streamed weights wstream of
+// wstream_floats floats (scan_plan sizes them; wstream null where the plan
+// streams nothing); writes ys [T,B,h] and c_last [B,h]. vx null: dense x
+// side, rx unused; v null: dense recurrent side, r unused. The eight
+// integers after r are scan_plan's layout (ScanPlan.ints); bf16_mm 1 rounds
+// every product's operands to bf16.
 extern "C" int lstm_scan_xin_fwd(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* c_last, float* xchg, unsigned* sync, int t_len, int batch, int f, int rx, int h,
-    int r, int groups, int ctas, int rpad, int stage, int red, int smem, int bf16_mm,
-    void* stream_handle) {
+    float* c_last, float* xchg, unsigned* sync, float* wstream, int wstream_floats, int t_len,
+    int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red,
+    int smem, int res_a, int res_b, int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
-                  t_len, batch, h, r};
+                  wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, kNoGrad, bf16_mm,
-                    GridPlan{groups, ctas, rpad, stage, red, smem},
+                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
                     static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -399,13 +460,14 @@ extern "C" int lstm_scan_xin_fwd_res(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* cs, void* gates, void* hu, float* xchg, unsigned* sync, int t_len, int batch,
-    int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
-    int bf16_mm, int policy, void* stream_handle) {
+    float* cs, void* gates, void* hu, float* xchg, unsigned* sync, float* wstream,
+    int wstream_floats, int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas,
+    int rpad, int stage, int red, int smem, int res_a, int res_b, int bf16_mm, int policy,
+    void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
-                  t_len, batch, h, r};
+                  wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, res_kind(policy), bf16_mm,
-                    GridPlan{groups, ctas, rpad, stage, red, smem},
+                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
                     static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -413,12 +475,13 @@ extern "C" int lstm_scan_xin_fwd_res(
 // the given gi [T*B, 4h]; writes ys and c_last.
 extern "C" int lstm_scan_fwd(
     const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
-    const float* c0, float* ys, float* c_last, float* xchg, unsigned* sync, int t_len,
-    int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
-    int bf16_mm, void* stream_handle) {
+    const float* c0, float* ys, float* c_last, float* xchg, unsigned* sync, float* wstream,
+    int wstream_floats, int t_len, int batch, int h, int r, int groups, int ctas, int rpad,
+    int stage, int red, int smem, int res_a, int res_b, int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
-                  t_len, batch, h, r};
-  return scan_any(io, kNoGrad, bf16_mm != 0, GridPlan{groups, ctas, rpad, stage, red, smem},
+                  wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
+  return scan_any(io, kNoGrad, bf16_mm != 0,
+                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
                   static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -427,13 +490,14 @@ extern "C" int lstm_scan_fwd(
 extern "C" int lstm_scan_fwd_res(
     const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
     const float* c0, float* ys, float* cs, void* gates, void* hu, float* xchg, unsigned* sync,
-    int t_len, int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red,
-    int smem, int bf16_mm, int policy, void* stream_handle) {
+    float* wstream, int wstream_floats, int t_len, int batch, int h, int r, int groups,
+    int ctas, int rpad, int stage, int red, int smem, int res_a, int res_b, int bf16_mm,
+    int policy, void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
-                  t_len, batch, h, r};
+                  wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return scan_any(io, res_kind(policy), bf16_mm != 0,
-                  GridPlan{groups, ctas, rpad, stage, red, smem},
+                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
                   static_cast<cudaStream_t>(stream_handle));
 }
 

@@ -39,9 +39,14 @@ constexpr int kMinSliceDepth = 8;  // depth rows a slice takes at least
 
 // The layout of a launch, from scan_plan: groups x ctas CTAs; rpad padded
 // rows per group; stage and red: floats of the staging buffer and of the
-// slice partials in shared memory; smem: the bytes the plan sized.
+// slice partials in shared memory; smem: the bytes the plan sized. The
+// per-layer scans also take res_a and res_b, the depth rows of their two
+// weight slices that stay in shared memory (ScanPlan.resident_fwd / _bwd):
+// the rows past them are streamed, read every step through L2 from the
+// CTA's own region of a device-memory scratch. The stack leaves them 0.
 struct GridPlan {
   int groups, ctas, rpad, stage, red, smem;
+  int res_a = 0, res_b = 0;
 };
 
 inline __host__ __device__ int split_at(int q, int n, int parts) {
@@ -138,10 +143,21 @@ __device__ __forceinline__ bf16 to_elem<bf16>(float v) { return __float2bfloat16
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ float4 widen4(uint2 raw) {
   return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
                      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+// The same from a streamed weight row in device memory, which the CTA
+// wrote itself in its prologue: a plain load (coherent within the CTA
+// after a __syncthreads), never the non-coherent path.
+__device__ __forceinline__ float4 load4_global(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_global(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
 }
 
 // Floats of shared memory that `elems` weight elements of type W take,
@@ -151,13 +167,27 @@ __host__ __device__ inline size_t weight_floats(size_t elems) {
   return (elems * sizeof(W) + 15) / 16 * 4;
 }
 
+// The element of a weight slice's row d at `at`, where the first `resident`
+// rows [resident][ldw] lie in shared memory at `w` and the rest [depth -
+// resident][ldw] in the CTA's streamed region at `ws`: the prologue's store.
+template <class W>
+__device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int d, int at) {
+  return d < resident ? w[(size_t)d * ldw + at] : ws[(size_t)(d - resident) * ldw + at];
+}
+
 // out(col, row) = sum over d < depth of A[d][row] * W[d][col], for col <
 // ncols (a multiple of 4) and row < rpad. A is a global exchange buffer
 // [depth][rpad], copied into shared memory with 16-byte cp.async.cg: whole
 // when it fits in `stage`, else in chunks of stage / 2 floats, the next
 // chunk copying into one half while the CTA multiplies the other. W is
-// this CTA's weight slice in shared memory, [depth][ldw], f32 or bf16 (ldw
-// a multiple of 4). An item is 4 columns x 4 rows (16 sums in registers,
+// this CTA's weight slice, [depth][ldw], f32 or bf16 (ldw a multiple of
+// 4). With Streamed, rows d < `resident` lie in shared memory at `w` and the
+// rest in device memory at `ws` [depth - resident][ldw]; each thread walks
+// its rows in one order wherever they lie, so the sums do not depend on
+// `resident`. Without it (a plan that streams nothing) every row is in
+// shared memory and `ws`, `resident` are unused: the kernels are built for
+// both, so a resident plan runs the code it ran before any row could be
+// streamed. An item is 4 columns x 4 rows (16 sums in registers,
 // float4 loads of A and four-element loads of W, widened). With
 // fewer items than threads, each item's depth is cut into `slices`
 // interleaved parts; their partial sums meet in `red` and one thread per
@@ -166,11 +196,11 @@ __host__ __device__ inline size_t weight_floats(size_t elems) {
 // 4rb+r. The partials lie [slice][16][items], so that neighbouring threads
 // (neighbouring items) touch neighbouring banks. Every thread of the CTA
 // must call it.
-template <class W, class Epi>
+template <bool Streamed, class W, class Epi>
 __device__ __forceinline__ void slice_product(const float* a, int depth, int rpad,
-                                              const W* w, int ldw, int ncols,
-                                              float* stage, int stage_floats, float* red,
-                                              int red_floats, Epi epi) {
+                                              const W* w, const W* ws, int resident, int ldw,
+                                              int ncols, float* stage, int stage_floats,
+                                              float* red, int red_floats, Epi epi) {
   const int cbs = ncols / 4, rbs = rpad / 4;
   const int items = cbs * rbs;
   if (items == 0) return;
@@ -209,16 +239,35 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
         const int d0 = c * chunk, dn = min(chunk, depth - d0);
         const float4* s4 = reinterpret_cast<const float4*>(stage) + (c & 1) * (chunk * rbs);
         const W* wd = w + (size_t)d0 * ldw + 4 * cb;
+        if constexpr (!Streamed) {
 #pragma unroll 4
-        for (int d = s; d < dn; d += slices) {
-          const float4 av = s4[d * rbs + rb];
-          const float4 wv = load4(wd + (size_t)d * ldw);
-          const float ar[4] = {av.x, av.y, av.z, av.w};
-          const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+          for (int d = s; d < dn; d += slices) {
+            const float4 av = s4[d * rbs + rb];
+            const float4 wv = load4(wd + (size_t)d * ldw);
+            const float ar[4] = {av.x, av.y, av.z, av.w};
+            const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
+            for (int k = 0; k < 4; ++k)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
+              for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
+          }
+        } else {
+          auto fma_row = [&](float4 av, float4 wv) {
+            const float ar[4] = {av.x, av.y, av.z, av.w};
+            const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
+          };
+          const int dr = min(dn, max(0, resident - d0));  // the chunk's rows in shared memory
+          const W* sd = ws + 4 * cb;
+          int d = s;
+#pragma unroll 4
+          for (; d < dr; d += slices) fma_row(s4[d * rbs + rb], load4(wd + (size_t)d * ldw));
+#pragma unroll 4
+          for (; d < dn; d += slices)  // the streamed rows d0 + d >= resident
+            fma_row(s4[d * rbs + rb], load4_global(sd + (size_t)(d0 + d - resident) * ldw));
         }
       }
       __syncthreads();
@@ -243,6 +292,16 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
     }
     if (live && s == 0) epi(cb, rb, acc);
   }
+}
+
+// slice_product of a slice held whole in shared memory (the stack kernels).
+template <class W, class Epi>
+__device__ __forceinline__ void slice_product(const float* a, int depth, int rpad,
+                                              const W* w, int ldw, int ncols,
+                                              float* stage, int stage_floats, float* red,
+                                              int red_floats, Epi epi) {
+  slice_product<false>(a, depth, rpad, w, static_cast<const W*>(nullptr), depth, ldw, ncols,
+                       stage, stage_floats, red, red_floats, epi);
 }
 
 // The rank columns of CTA q of a wavefront-stack layer on c CTAs, with

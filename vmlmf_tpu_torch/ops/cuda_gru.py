@@ -37,9 +37,11 @@ as `pallas_gru._scan_core_fwd` does. On CPU tensors the wrappers run their
 plain versions; on CUDA tensors they launch the kernel or raise.
 
 `gru_plan` decides how the kernels lay a call out (batch rows per CTA,
-threads, the forward's time block, where the weights are held) and
-`gru_bwd_partial_floats` sizes the BPTT's split-k scratch. Both are plain
-Python, so the CPU tests reach them.
+threads, the forward's time block, where the weights are held, and, for a
+width whose state does not fit in shared memory, which regions live in a
+device-memory scratch: `state_floats`) and `gru_bwd_partial_floats` sizes
+the BPTT's split-k scratch. All are plain Python, so the CPU tests reach
+them.
 """
 
 from __future__ import annotations
@@ -379,11 +381,16 @@ def _fwd_floats(t_block, rows, f, rx, h, r, form, xside, rec, x_res):
     """Floats of the forward's shared memory, region by region as
     gru_scan_xin_fwd.cu::fwd_layout lays them out; ``rec`` is where the
     recurrent weights are (a WEIGHT_PLACES name)."""
+    return _regions(*_fwd_region_sizes(t_block, rows, f, rx, h, r, form, xside, rec, x_res))
+
+
+def _fwd_region_sizes(t_block, rows, f, rx, h, r, form, xside, rec, x_res):
+    """The floats of each region of `_fwd_floats`, in their order."""
     lowrank, pre = form == LOWRANK_PRE, form != DENSE_POST
     rec_res = rec == "shared"
     depth4 = _q4(r) if lowrank else _q4(h)
     mb, g3 = t_block * rows, 3 * h
-    return _regions(
+    return (
         _q4(h) * r if rec_res and lowrank else 0,
         depth4 * 2 * h if rec_res else 0,
         depth4 * h if rec_res else 0,
@@ -402,10 +409,15 @@ def _fwd_floats(t_block, rows, f, rx, h, r, form, xside, rec, x_res):
 def _bwd_floats(rows, h, r, form, rec):
     """Floats of the BPTT walk's shared memory, region by region as
     gru_scan_xin_bwd.cu::walk_layout lays them out."""
+    return _regions(*_bwd_region_sizes(rows, h, r, form, rec))
+
+
+def _bwd_region_sizes(rows, h, r, form, rec):
+    """The floats of each region of `_bwd_floats`, in their order."""
     lowrank, post = form == LOWRANK_PRE, form == DENSE_POST
     rec_res = rec == "shared"
     depth, nbuf = (r if lowrank else h), (2 if post else 1)
-    return _regions(
+    return (
         h * _ldt(r) if rec_res and lowrank else 0,
         depth * _ldt(2 * h) if rec_res else 0,
         depth * _ldt(h) if rec_res else 0,
@@ -418,6 +430,18 @@ def _bwd_floats(rows, h, r, form, rec):
         rows * _q4(r) if lowrank else 0)
 
 
+def _spill(sizes, regions=None):
+    """(spill, shared floats) of a layout of regions ``sizes`` whose leading
+    ones, ``spill`` floats in all, go to a device-memory scratch: the first
+    ``regions`` non-empty ones, or where None the fewest that make the rest
+    fit in shared memory."""
+    padded = [_q4(n) for n in sizes if n]
+    if regions is None:
+        regions = next(k for k in range(len(padded) + 1)
+                       if 4 * sum(padded[k:]) <= SMEM_LIMIT)
+    return sum(padded[:regions]), sum(padded[regions:])
+
+
 @dataclasses.dataclass(frozen=True)
 class GRUPlan:
     """How the GRU kernels lay out one call: ``ctas`` CTAs of ``threads``
@@ -428,7 +452,11 @@ class GRUPlan:
     recurrent weights ("registers": each lane's share for the whole scan;
     "shared"; "L2": read through it every step); ``x_resident`` whether the
     x side's weights stay in shared memory. ``smem_fwd`` and ``smem_bwd``:
-    bytes of shared memory per CTA of the forward and of the walk."""
+    bytes of shared memory per CTA of the forward and of the walk.
+    ``spill_fwd`` and ``spill_bwd``: floats of each CTA's leading regions
+    (the walk's staged inputs, the forward's gi block, ...) that a layout
+    too wide for shared memory keeps in a device-memory scratch instead
+    (`state_floats`); 0 where every region fits."""
 
     t: int
     b: int
@@ -443,6 +471,8 @@ class GRUPlan:
     smem_fwd: int
     bwd_rec_weights: str
     smem_bwd: int
+    spill_fwd: int = 0
+    spill_bwd: int = 0
 
     @property
     def ctas(self):
@@ -455,13 +485,19 @@ class GRUPlan:
 
     def ints(self, kernel):
         """The plan as the C entries of ``kernel`` ("fwd" or "bwd") take it:
-        rows, threads, tblock, rec_res, x_res, smem; or rows, threads,
-        rec_res, smem."""
+        rows, threads, tblock, rec_res, x_res, smem, spill; or rows,
+        threads, rec_res, smem, spill."""
         if kernel == "fwd":
             return (self.rows, self.threads, self.tblock, WEIGHT_PLACES.index(self.rec_weights),
-                    int(self.x_resident), self.smem_fwd)
+                    int(self.x_resident), self.smem_fwd, self.spill_fwd)
         return (self.rows, self.threads, WEIGHT_PLACES.index(self.bwd_rec_weights),
-                self.smem_bwd)
+                self.smem_bwd, self.spill_bwd)
+
+
+def state_floats(plan, kernel):
+    """Floats of the device-memory scratch that ``kernel`` ("fwd" or "bwd")
+    keeps its spilled regions in: ``spill`` floats a CTA."""
+    return plan.ctas * (plan.spill_fwd if kernel == "fwd" else plan.spill_bwd)
 
 
 @functools.lru_cache(maxsize=256)
@@ -482,9 +518,14 @@ def gru_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
     its share, where h <= REG_H and r <= REG_R; else in shared memory where
     they fit, else through L2. The forward then keeps, in this order of
     preference, the x side's weights in shared memory (read once a time
-    block) and as long a time block as fits, down to one step. Raises
-    ValueError where one row for one step with every weight read through
-    L2 does not fit in SMEM_LIMIT bytes.
+    block) and as long a time block as fits, down to one step. Where not
+    even one row for one step fits beside weights read through L2 (a dense
+    "post" h past 3,058, whose walk holds 19 h floats a row), the plan
+    takes one row a CTA and puts the leading regions that do not fit (the
+    walk's staged inputs, the forward's gi block, then the carry) in a
+    device-memory scratch (`GRUPlan.spill_fwd`, `state_floats`), of the
+    forward or the walk alone where the other fits. Raises ValueError only
+    on arguments the kernels do not take.
     """
     if form not in (LOWRANK_PRE, DENSE_PRE, DENSE_POST) or (form == LOWRANK_PRE) != (r > 0):
         raise ValueError(f"no GRU plan for form {form} with r={r}")
@@ -498,8 +539,45 @@ def gru_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
         layout = _gru_layout(t, rows, f, rx, h, r, form, xside)
         if layout is not None:
             return GRUPlan(t, b, h, r, form, rows, threads, *layout)
-    raise ValueError(f"the GRU scan's state at T={t}, F={f}, rx={rx}, h={h}, r={r} does not "
-                     f"fit in {SMEM_LIMIT} bytes of shared memory")
+    return GRUPlan(t, b, h, r, form, 1, threads, *_spilled_layout(t, f, rx, h, r, form, xside))
+
+
+def spill_plan(t, b, f, rx, h, r, form, regions, *, gi=False, sms=SMS):
+    """The layout `gru_plan` gives a kernel that does not fit in shared
+    memory, for both kernels at any width: one row a CTA, every weight read
+    through L2, one step a block, and the first ``regions`` = (forward,
+    walk) non-empty regions of each kernel in the device-memory scratch (0:
+    none) -> GRUPlan. The tests force it at small widths, where every spill
+    must give the bits of the same layout with none."""
+    threads = gru_plan(t, b, f, rx, h, r, form, gi=gi, sms=sms).threads
+    xside = GI_MODE if gi else (LOWRANK_X if rx else DENSE_X)
+    spill_f, floats_f = _spill(_fwd_region_sizes(1, 1, f, rx, h, r, form, xside, "L2", False),
+                               regions[0])
+    spill_b, floats_b = _spill(_bwd_region_sizes(1, h, r, form, "L2"), regions[1])
+    return GRUPlan(t, b, h, r, form, 1, threads, 1, "L2", False, 4 * floats_f, "L2",
+                   4 * floats_b, spill_f, spill_b)
+
+
+def _spilled_layout(t, f, rx, h, r, form, xside):
+    """`_gru_layout`'s tuple at one row a CTA and its spills, for a width
+    whose forward or walk does not fit in shared memory: a kernel that fits
+    keeps its layout; one that does not reads its recurrent weights
+    through L2, its x side's too, takes one step a block, and spills."""
+    places = ("shared", "L2")
+    fwd = _fwd_layout(t, 1, f, rx, h, r, form, xside, places)
+    if fwd is None:
+        spill, floats = _spill(_fwd_region_sizes(1, 1, f, rx, h, r, form, xside, "L2", False))
+        fwd = (1, "L2", False, 4 * floats, spill)
+    else:
+        fwd = (*fwd, 0)
+    bwd = _bwd_layout(1, h, r, form, places)
+    if bwd is None:
+        spill, floats = _spill(_bwd_region_sizes(1, h, r, form, "L2"))
+        bwd = ("L2", 4 * floats, spill)
+    else:
+        bwd = (*bwd, 0)
+    (tblock, rec, x_res, smem_fwd, spill_fwd), (bwd_rec, smem_bwd, spill_bwd) = fwd, bwd
+    return tblock, rec, x_res, smem_fwd, bwd_rec, smem_bwd, spill_fwd, spill_bwd
 
 
 def _gru_layout(t, rows, f, rx, h, r, form, xside):
@@ -507,26 +585,40 @@ def _gru_layout(t, rows, f, rx, h, r, form, xside):
     of ``rows`` rows a CTA, as `gru_plan` prefers them, or None where the
     forward or the walk does not fit."""
     places = ("registers",) if h <= REG_H and r <= REG_R else ("shared", "L2")
-    fwd = None
+    fwd = _fwd_layout(t, rows, f, rx, h, r, form, xside, places)
+    bwd = _bwd_layout(rows, h, r, form, places)
+    return None if fwd is None or bwd is None else (*fwd, *bwd)
+
+
+def _bwd_layout(rows, h, r, form, places):
+    """(bwd_rec_weights, smem_bwd) of the walk, the first place that fits,
+    or None."""
+    return next(((rec, 4 * _bwd_floats(rows, h, r, form, rec)) for rec in places
+                 if 4 * _bwd_floats(rows, h, r, form, rec) <= SMEM_LIMIT), None)
+
+
+def _fwd_layout(t, rows, f, rx, h, r, form, xside, places):
+    """(tblock, rec_weights, x_resident, smem_fwd) of the forward, the first
+    that fits in `gru_plan`'s order of preference, or None."""
     for rec in places:
         for x_res in ((True, False) if xside != GI_MODE else (False,)):
             tblock = t
-            while tblock >= 1 and fwd is None:
+            while tblock >= 1:
                 floats = _fwd_floats(tblock, rows, f, rx, h, r, form, xside, rec, x_res)
                 if 4 * floats <= SMEM_LIMIT:
-                    fwd = (tblock, rec, x_res, 4 * floats)
+                    return tblock, rec, x_res, 4 * floats
                 tblock = tblock // 2 if tblock > 1 else 0
-            if fwd is not None:
-                break
-        if fwd is not None:
-            break
-    bwd = next(((rec, 4 * _bwd_floats(rows, h, r, form, rec)) for rec in places
-                if 4 * _bwd_floats(rows, h, r, form, rec) <= SMEM_LIMIT), None)
-    return None if fwd is None or bwd is None else (*fwd, *bwd)
+    return None
 
 
 def _plan_for(t, b, f, rx, h, r, form, device, gi=False):
     return gru_plan(t, b, f, rx, h, r, form, gi=gi, sms=_sm_count(device.index))
+
+
+def _state(plan, kernel, like):
+    """The device-memory scratch of ``kernel``'s spilled regions, or None."""
+    n = state_floats(plan, kernel)
+    return _empty(like)(n) if n else None
 
 
 GROUP_TARGET = 2 * SPLIT_TARGET  # CTAs a grouped split-k aims at (gemm_tile.cuh kGroupTarget)
@@ -606,7 +698,8 @@ def _launch_nograd(args, sizes):
     with torch.cuda.device(xs.device):
         plan = _plan_for(*sizes, xs.device)
         ys = _empty(xs)(t, b, h)
-        _launch(KERNEL, "gru_scan_xin_fwd", (*args, ys), (*sizes, *plan.ints("fwd")), xs.device)
+        _launch(KERNEL, "gru_scan_xin_fwd", (*args, ys, _state(plan, "fwd", xs)),
+                (*sizes, *plan.ints("fwd")), xs.device)
     return ys
 
 
@@ -636,7 +729,8 @@ def gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre", sav
         xu = new(t, b, rx) if rx else None
         ys, gates = new(t, b, h), new(t, b, 3 * h)
         hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
-        _launch(KERNEL, "gru_scan_xin_fwd_res", (*args, xu, ys, gates, hu, rhu, recn),
+        _launch(KERNEL, "gru_scan_xin_fwd_res",
+                (*args, xu, ys, gates, hu, rhu, recn, _state(plan, "fwd", xs)),
                 (*sizes, *plan.ints("fwd")), xs.device)
     _counted(gru_scan_fused_xin_res, variant())
     return ys, gates, hu, rhu, recn, xu
@@ -689,7 +783,8 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
                  new(h, r) if lowrank else None, torch.empty_like(prz), torch.empty_like(pn),
                  new(b, h))
         _launch(BWD_KERNEL, "gru_scan_xin_bwd",
-                (*saved, bias, *work, dpre, dhu, drhu, dxu, new(nparts), *grads),
+                (*saved, bias, *work, dpre, dhu, drhu, dxu, new(nparts), *grads,
+                 _state(plan, "bwd", xs)),
                 (*sizes, nparts, *plan.ints("bwd")), xs.device)
     _counted(gru_scan_xin_bwd, variant(save_gates=not recompute))
     return grads
@@ -746,7 +841,8 @@ def gru_scan_fused(gi, uf, prz, pn, h0, *, mode="pre"):
     with torch.cuda.device(gi.device):
         plan = _plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True)
         ys = _empty(gi)(t, b, h)
-        _launch(KERNEL, "gru_scan_fwd", (*args, ys), (*sizes, *plan.ints("fwd")), gi.device)
+        _launch(KERNEL, "gru_scan_fwd", (*args, ys, _state(plan, "fwd", gi)),
+                (*sizes, *plan.ints("fwd")), gi.device)
     _counted(gru_scan_fused, variant())
     return ys
 
@@ -769,7 +865,8 @@ def gru_scan_fused_res(gi, uf, prz, pn, h0, *, mode="pre"):
         new = _empty(gi)
         ys, gates = new(t, b, h), new(t, b, 3 * h)
         hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
-        _launch(KERNEL, "gru_scan_fwd_res", (*args, ys, gates, hu, rhu, recn),
+        _launch(KERNEL, "gru_scan_fwd_res",
+                (*args, ys, gates, hu, rhu, recn, _state(plan, "fwd", gi)),
                 (*sizes, *plan.ints("fwd")), gi.device)
     _counted(gru_scan_fused_res, variant())
     return ys, gates, hu, rhu, recn
@@ -802,7 +899,7 @@ def gru_scan_bwd(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, *, mode="pre"):
         grads = (new(t, b, 3 * h), new(h, r) if lowrank else None, torch.empty_like(prz),
                  torch.empty_like(pn), new(b, h))
         _launch(BWD_KERNEL, "gru_scan_bwd",
-                (*saved, grads[0], dhu, drhu, new(nparts), *grads[1:]),
+                (*saved, grads[0], dhu, drhu, new(nparts), *grads[1:], _state(plan, "bwd", ys)),
                 (t, b, h, r, form, nparts, *plan.ints("bwd")), ys.device)
     _counted(gru_scan_bwd, variant())
     return grads

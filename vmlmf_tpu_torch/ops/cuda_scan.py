@@ -40,7 +40,11 @@ batch groups, each CTA's slices of the recurrent weights and the shared
 memory they take. A batch too large for any plan (every CTA of a group
 holds that group's rows) runs in chunks of consecutive rows, one launch
 each (`scan_chunks`); the BPTTs add the chunks' weight gradients in chunk
-order. Both are plain Python, so the CPU tests reach them.
+order. A width whose weights do not fit in the shared memory of all SMs
+even for one row (a dense h past about 1,050 in f32) gets a plan that
+streams the weight rows that do not fit through L2 from a device-memory
+scratch (`ScanPlan.resident_fwd`, `stream_floats`), which the wrappers
+allocate. All of it is plain Python, so the CPU tests reach it.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, so on the CPU the autograd functions run the plain forward
 and the plain backward. There is no fallback between the two: a CUDA input
@@ -475,7 +479,16 @@ class ScanPlan:
     4. Per kernel: ``stage`` and ``red``, floats of the staging buffer and
     of the slice partials; ``smem``, bytes of shared memory per CTA;
     ``xchg``, floats of the exchange buffers. ``elsize``: bytes of a weight
-    element in shared memory, 4 (f32) or 2 (the bf16 kernels)."""
+    element in shared memory, 4 (f32) or 2 (the bf16 kernels).
+
+    ``resident_fwd`` and ``resident_bwd``: per kernel, the depth rows of
+    each of its two weight slices that stay in shared memory (the forward's
+    U[:, k-slice] and V or dense U columns; the BPTT's V^T and U^T rows; 0
+    for a dense side's absent first slice). A slice's rows past its
+    resident depth are *streamed*: each CTA copies them once into its own
+    region of a device-memory scratch (`stream_floats`) and reads them
+    through L2 every step, in the same order of sums. A plan whose slices
+    are all resident streams nothing."""
 
     b: int
     h: int
@@ -492,10 +505,30 @@ class ScanPlan:
     smem_bwd: int
     xchg_bwd: int
     elsize: int = 4
+    resident_fwd: tuple = (0, 0)
+    resident_bwd: tuple = (0, 0)
 
     @property
     def n_ctas(self):
         return self.groups * self.ctas
+
+    @property
+    def streamed(self):
+        """True where some weight row of either kernel is streamed."""
+        return any(self.streamed_elems(k) for k in ("fwd", "bwd"))
+
+    def slices(self, kernel):
+        """`_weight_slices` of ``kernel`` ("fwd" or "bwd") on this plan's CTAs."""
+        return _weight_slices(self.h, self.r, self.ctas)[kernel]
+
+    def resident(self, kernel):
+        return self.resident_fwd if kernel == "fwd" else self.resident_bwd
+
+    def streamed_elems(self, kernel):
+        """Weight elements a CTA of ``kernel`` streams: the rows of each
+        slice past its resident depth."""
+        return sum((d - res) * c for (d, c), res in zip(self.slices(kernel),
+                                                        self.resident(kernel)))
 
     @property
     def smem_bytes(self):
@@ -515,16 +548,39 @@ class ScanPlan:
 
     def ints(self, kernel):
         """The plan as the C entry of ``kernel`` ("fwd" or "bwd") takes it:
-        groups, ctas, rpad, stage, red, smem."""
+        groups, ctas, rpad, stage, red, smem, and the resident depths of its
+        two weight slices."""
         return (self.groups, self.ctas, self.rpad, *((self.stage_fwd, self.red_fwd, self.smem_fwd)
-                if kernel == "fwd" else (self.stage_bwd, self.red_bwd, self.smem_bwd)))
+                if kernel == "fwd" else (self.stage_bwd, self.red_bwd, self.smem_bwd)),
+                *self.resident(kernel))
+
+
+def stream_floats(plan, kernel):
+    """Floats of the device-memory scratch that ``kernel`` ("fwd" or "bwd")
+    streams its weight rows from: each CTA's streamed elements, rounded up
+    to 16 bytes (scan_grid.cuh::weight_floats), times the CTAs; 0 for a
+    plan that streams nothing."""
+    return plan.n_ctas * (_cdiv(plan.streamed_elems(kernel) * plan.elsize, 16) * 4)
+
+
+@functools.lru_cache(maxsize=4096)
+def _weight_slices(h, r, ctas):
+    """{kernel: ((depth, columns) of each of its CTAs' two weight slices, as
+    it lays them out)}: the forward's U[:, k-slice] [h][kwp] (depth 0 when
+    dense) and V or dense U [depth][4 jwm]; the BPTT's V^T [4h][kwp] (0
+    when dense) and U^T [depth][jwp]."""
+    jwm = _cdiv(h, ctas)
+    kwp = _round4(_cdiv(r, ctas))
+    return {"fwd": ((h if r else 0, kwp), (r or h, 4 * jwm)),
+            "bwd": ((4 * h if r else 0, kwp), (r or 4 * h, _round4(jwm)))}
 
 
 def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize):
     """(stage, red, smem bytes) of one kernel: ``phases`` are its products as
-    (depth, columns), ``weights`` the elements of its weight slices, of
-    ``elsize`` bytes each (the region rounded up to 16 bytes), ``slabs`` its
-    [units][rpad] buffers (the carry and the prefetched step inputs)."""
+    (depth, columns), ``weights`` the elements of its weight slices held in
+    shared memory, of ``elsize`` bytes each (the region rounded up to 16
+    bytes), ``slabs`` its [units][rpad] buffers (the carry and the
+    prefetched step inputs)."""
     stage = min(max(d for d, _ in phases), max(2, STAGE_FLOATS // rpad)) * rpad
     red = 0
     for depth, cols in phases:
@@ -534,6 +590,26 @@ def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize):
     jwm = _cdiv(h, ctas)
     wfloats = _cdiv(weights * elsize, 16) * 4
     return stage, red, 4 * (wfloats + 4 * jwm + slabs * jwm * rpad + stage + red)
+
+
+def _streamed_plan(b, h, r, sms, elsize):
+    """The plan of `scan_plan` where not even one row has a resident one:
+    one group over min(sms, h) CTAs, each kernel holding as much depth of
+    each weight slice as fits beside its slabs, stage and red (the same
+    share of each slice's depth), the rest streamed. Raises ValueError
+    where the slabs alone do not fit: `scan_chunks` then cuts the batch."""
+    ctas = min(sms, h)
+    empty = plan_layout(b, h, r, 1, ctas, elsize, resident=((0, 0), (0, 0)))
+    resident = []
+    for kernel, smem in (("fwd", empty.smem_fwd), ("bwd", empty.smem_bwd)):
+        room = (SMEM_LIMIT - smem) // 16 * 16 // elsize  # weight elements that fit
+        if room < 0:
+            raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in "
+                             f"the shared memory of {sms} SMs, and the slabs of B={b} do not "
+                             f"fit beside a streamed slice")
+        total = sum(d * c for d, c in empty.slices(kernel))
+        resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
+    return plan_layout(b, h, r, 1, ctas, elsize, resident=tuple(resident))
 
 
 @functools.lru_cache(maxsize=256)
@@ -550,12 +626,29 @@ def scan_plan(b, h, r, sms=SMS, elsize=4):
     weights. For each group count from min(b, sms) down it tries ``ctas`` =
     just enough CTAs for MIN_STEP_WORK each (a single CTA per group needs no
     grid barrier), then sms // groups, both at most h; the first whose
-    shared memory fits wins. Raises ValueError when the weights do not fit
-    in the shared memory of all SMs.
+    shared memory fits wins, with every weight row resident. Where the
+    weights do not fit in the shared memory of all SMs even for one row,
+    the plan streams the rows that do not fit (`_streamed_plan`); that is
+    chosen by the width alone, so every shape with a resident plan keeps
+    it. Raises ValueError where a batch has no plan (`scan_chunks` then
+    cuts it into chunks that have one).
     """
     if min(b, h, sms) < 1 or r < 0 or elsize not in (2, 4):
         raise ValueError(f"no scan plan for B={b}, h={h}, r={r} on {sms} SMs, {elsize}-byte "
                          f"weights")
+    if not _fits_resident(1, h, r, sms, elsize):
+        return _streamed_plan(b, h, r, sms, elsize)
+    plan = _fits_resident(b, h, r, sms, elsize)
+    if plan is None:
+        raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in the "
+                         f"shared memory of {sms} SMs at B={b}")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _fits_resident(b, h, r, sms, elsize):
+    """The first grouping of `scan_plan`'s search whose weights are all
+    resident and fit, or None."""
     step_work = h * 4 * h if r == 0 else h * r + r * 4 * h  # multiply-adds of a row's step
     for groups in range(min(b, sms), 0, -1):
         most = max(1, min(sms // groups, h))
@@ -564,28 +657,27 @@ def scan_plan(b, h, r, sms=SMS, elsize=4):
             plan = plan_layout(b, h, r, groups, ctas, elsize)
             if plan.smem_bytes <= SMEM_LIMIT:
                 return plan
-    raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in the "
-                     f"shared memory of {sms} SMs")
+    return None
 
 
-def plan_layout(b, h, r, groups, ctas, elsize=4):
+def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None):
     """The ScanPlan of ``groups`` batch groups of ``ctas`` CTAs each, for
     batch ``b``, width ``h`` and rank ``r`` (0: dense), weights of
-    ``elsize`` bytes; `scan_plan` picks the grouping."""
+    ``elsize`` bytes; `scan_plan` picks the grouping. ``resident``: the
+    (forward, BPTT) pairs of resident depths (`ScanPlan.resident_fwd`);
+    None holds every row in shared memory."""
     rpad = _round4(_cdiv(b, groups))
-    jwm = _cdiv(h, ctas)
-    jwp, kwp = _round4(jwm), _round4(_cdiv(r, ctas))
+    slices = _weight_slices(h, r, ctas)
+    if resident is None:
+        resident = tuple(tuple(d for d, _ in slices[k]) for k in ("fwd", "bwd"))
+    held = [sum(res * c for res, (_, c) in zip(resident[i], slices[k]))
+            for i, k in enumerate(("fwd", "bwd"))]
+    phases = {k: [sl for sl in slices[k] if sl[0]] for k in slices}
     # slabs: forward h, c and the step's gi (4); BPTT dh, dc and phase A's 7 inputs
-    if r == 0:
-        fwd = _kernel_layout(h, ctas, rpad, [(h, 4 * jwm)], h * 4 * jwm, 6, elsize)
-        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, jwp)], 4 * h * jwp, 9, elsize)
-    else:
-        fwd = _kernel_layout(h, ctas, rpad, [(h, kwp), (r, 4 * jwm)], h * kwp + r * 4 * jwm, 6,
-                             elsize)
-        bwd = _kernel_layout(h, ctas, rpad, [(4 * h, kwp), (r, jwp)], 4 * h * kwp + r * jwp, 9,
-                             elsize)
+    fwd = _kernel_layout(h, ctas, rpad, phases["fwd"], held[0], 6, elsize)
+    bwd = _kernel_layout(h, ctas, rpad, phases["bwd"], held[1], 9, elsize)
     return ScanPlan(b, h, r, groups, ctas, rpad, *fwd, groups * rpad * (2 * h + r),
-                    *bwd, groups * rpad * (8 * h + r), elsize)
+                    *bwd, groups * rpad * (8 * h + r), elsize, *map(tuple, resident))
 
 
 def _splitk_floats(m, n, k):
@@ -619,7 +711,8 @@ def scan_chunks(b, h, r, sms=SMS, elsize=4):
     ...): one launch takes a chunk. A batch that has a plan is one chunk
     (the PTB VMLMF LM layer up to B=656 in f32, 832 in bf16; the dense one
     up to 476). Raises `scan_plan`'s ValueError when not even one row has
-    a plan."""
+    a plan: every width has one (streamed where the weights do not fit),
+    so only where one row's slabs alone do not fit in shared memory."""
     scan_plan(1, h, r, sms, elsize)
     for n in range(1, b + 1):
         bounds = [_split_at(i, b, n) for i in range(n + 1)]
@@ -738,6 +831,12 @@ def _empty(like):
     return lambda *shape: torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
+def _wstream(plan, kernel, like):
+    """(the streamed weights' scratch of ``kernel`` or None, its floats)."""
+    n = stream_floats(plan, kernel)
+    return (_empty(like)(n) if n else None), n
+
+
 @_counter
 def lstm_scan_fused_xin(xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0, precision="f32"):
     """Fused LSTM scan, x mode, no gradient.
@@ -778,8 +877,9 @@ def _xin_fwd_launch(bf16, plan, *args):
     xu = new(t * b, rx) if rx else None
     gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
     xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
-    _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync),
-            (*sizes, *plan.ints("fwd"), int(bf16)), xs.device)
+    wstream, nstream = _wstream(plan, "fwd", xs)
+    _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync, wstream),
+            (nstream, *sizes, *plan.ints("fwd"), int(bf16)), xs.device)
     return ys, c_last
 
 
@@ -824,9 +924,11 @@ def _xin_res_launch(bf16, residuals, save_gates, plan, *args):
         hu = torch.empty((t, b, r), dtype=rdt, device=xs.device) if r else None
     gi, ys, cs = new(t * b, 4 * h), new(t, b, h), new(t, b, h)
     xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
+    wstream, nstream = _wstream(plan, "fwd", xs)
     policy = (_RES_BF16 if residuals == "bf16" else _RES_F32) if save_gates else _RES_NONE
-    _launch(KERNEL, "lstm_scan_xin_fwd_res", (*args, xu, gi, ys, cs, gates, hu, xchg, sync),
-            (*sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
+    _launch(KERNEL, "lstm_scan_xin_fwd_res",
+            (*args, xu, gi, ys, cs, gates, hu, xchg, sync, wstream),
+            (nstream, *sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
     return ys, cs, gates, hu, (xu if save_gates else None)
 
 
@@ -877,10 +979,11 @@ def _xin_bwd_launch(bf16, plan, *tensors):
              new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
              new(b, h), new(b, h))
     partial = new(max(1, bwd_partial_floats(*sizes, recompute=policy == _RES_NONE)))
+    wstream, nstream = _wstream(plan, "bwd", xs)
     _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
             (*saved[:4], bias, *saved[4:], dys, dc_last, *work, dpre, dhu, dxu, *grads,
-             new(plan.xchg_bwd), _sync_words(plan, xs), partial),
-            (partial.numel(), *sizes, *plan.ints("bwd"), int(bf16), policy), xs.device)
+             new(plan.xchg_bwd), _sync_words(plan, xs), partial, wstream),
+            (partial.numel(), nstream, *sizes, *plan.ints("bwd"), int(bf16), policy), xs.device)
     return grads
 
 
@@ -951,9 +1054,10 @@ def _gi_fwd_launch(bf16, plan, *args):
     (t, b, _), h, r = gi.shape, h0.shape[-1], 0 if v is None else u.shape[-1]
     new = _empty(gi)
     ys, c_last = new(t, b, h), new(b, h)
+    wstream, nstream = _wstream(plan, "fwd", gi)
     _launch(KERNEL, "lstm_scan_fwd", (*args, ys, c_last, new(plan.xchg_fwd),
-                                      _sync_words(plan, gi)),
-            (t, b, h, r, *plan.ints("fwd"), int(bf16)), gi.device)
+                                      _sync_words(plan, gi), wstream),
+            (nstream, t, b, h, r, *plan.ints("fwd"), int(bf16)), gi.device)
     return ys, c_last
 
 
@@ -988,9 +1092,10 @@ def _gi_res_launch(bf16, residuals, plan, *args):
     ys, cs = new(t, b, h), new(t, b, h)
     gates = torch.empty((t, b, 4 * h), dtype=rdt, device=gi.device)
     hu = torch.empty((t, b, r), dtype=rdt, device=gi.device) if r else None
+    wstream, nstream = _wstream(plan, "fwd", gi)
     _launch(KERNEL, "lstm_scan_fwd_res", (*args, ys, cs, gates, hu, new(plan.xchg_fwd),
-                                          _sync_words(plan, gi)),
-            (t, b, h, r, *plan.ints("fwd"), int(bf16),
+                                          _sync_words(plan, gi), wstream),
+            (nstream, t, b, h, r, *plan.ints("fwd"), int(bf16),
              _RES_BF16 if residuals == "bf16" else _RES_F32), gi.device)
     return ys, cs, gates, hu
 
@@ -1046,10 +1151,12 @@ def _gi_bwd_launch(bf16, plan, *tensors):
     grads = (dgi, torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h), new(b, h),
              new(b, h))
     partial = new(max(1, bwd_partial_floats(t, b, 1, 0, h, r, gi=True)))
+    wstream, nstream = _wstream(plan, "bwd", ys)
     _launch(BWD_KERNEL, "lstm_scan_bwd",
             (u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, *work, dgi, dhu, *grads[1:],
-             new(plan.xchg_bwd), _sync_words(plan, ys), partial),
-            (partial.numel(), t, b, h, r, *plan.ints("bwd"), int(bf16), policy), ys.device)
+             new(plan.xchg_bwd), _sync_words(plan, ys), partial, wstream),
+            (partial.numel(), nstream, t, b, h, r, *plan.ints("bwd"), int(bf16), policy),
+            ys.device)
     return grads
 
 

@@ -302,6 +302,8 @@ MAIN_BATCH = 20
 HAR = dict(t=24, b=81, f=77, h=180, rx=8, r=6)
 TRAIN_CHUNKS = 30
 PARTING_STEPS = 10  # train steps over which the LM's backends must give the same losses
+TC_TOL = 1e-5  # the tensor-core tile's f32 products against float64, relative to the output
+CHAOS_RATIO = 10  # the most a chaotic run's backends may part, in partings of a one-ulp witness
 # the HAR GRU layers: 64 wide, x side rank 9, T=24, B=81
 GRU = dict(t=24, b=81, f=77, h=64, rx=9, r=9)
 EVAL_BATCH = 256  # `evaluate`'s batch, into which it pads the test windows
@@ -2263,12 +2265,14 @@ def only_variant(variant):
     return counts
 
 
-def lm_train_run(torch, trainer, chunks, steps, want_step, label, falling=True):
+def lm_train_run(torch, trainer, chunks, steps, want_step, label, falling=True, start=None):
     """`steps` train steps over ``chunks`` (cycled) with the launch counts of
     each step held to ``want_step`` -> (losses per word, params); the
     losses finite and, with ``falling``, the mean of the last 5 below the
-    first 5's."""
+    first 5's. ``start`` maps the initial parameters."""
     params, states = trainer.init(), trainer.state0()
+    if start is not None:
+        params = start(params)
     generator = torch.Generator(device="cuda").manual_seed(1)
     losses = []
     for i in range(steps):
@@ -2885,6 +2889,7 @@ def phase_wide_kernels(torch):
     lstm_check(torch, rows, "wide_dense_bf16_streamed", dict(WIDE, b=MAIN_BATCH, f=1600, h=1600,
                                                             rx=0, r=0), True, False, bf16)
     gi_check(torch, rows, sms, "wide_dense_gi", WIDE["h"], 0)
+    tc_f32_control(torch)
     streamed_equals_resident(torch, sms)
     gru_spill_equals_unspilled(torch, sms)
     for name, fields in GRU_WIDE_NETS.items():
@@ -2897,6 +2902,50 @@ def phase_wide_kernels(torch):
         key: row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
         for k, row in rows.items() if k[1].startswith("wide")}}))
     return rows
+
+
+def tc_f32_control(torch):
+    """The tensor-core tile alone (csrc/gemm_tc_check.cu) at the dense h=1500
+    layer's four products at B=20 in f32, each within TC_TOL of a float64
+    product, as max abs error over max abs output. The scan checks' TOL and
+    GRAD_TOL could pass a tile that lost 3xTF32's small terms; this one
+    fails it, and the control shows so: cuBLAS in one-pass TF32 on the same
+    operands must miss TC_TOL."""
+    from vmlmf_tpu_torch.ops.tc_check import operands, relative_error, tc_product
+
+    m, h = WIDE["t"] * MAIN_BATCH, WIDE["h"]
+    g = torch.Generator().manual_seed(5)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g).cuda()
+
+    x, ux, d_pre, h0 = n(m, h), n(h, 4 * h), n(m, 4 * h), n(MAIN_BATCH, h)
+    # name -> (a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k): the
+    # x-side projection X Ux; dU = [h0; ys]^T dPre; dx = dPre Ux^T; dUx = X^T dPre
+    products = {"project": (0, 0, x, None, 0, h, ux, 4 * h, m, 4 * h, h),
+                "dU": (3, 0, h0, x[:m - MAIN_BATCH], MAIN_BATCH, h, d_pre, 4 * h, h, 4 * h, m),
+                "dx": (0, 1, d_pre, None, 0, 4 * h, ux, 4 * h, m, h, 4 * h),
+                "dUx": (1, 0, x, None, 0, h, d_pre, 4 * h, h, 4 * h, m)}
+    report, tf32 = {}, torch.backends.cuda.matmul.allow_tf32
+    for name, (ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk) in products.items():
+        a, b = operands(ak, bk, a0, a1, b0)
+        got = tc_product(ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk, False)
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            one_pass = a @ b
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        report[name] = dict(shape=(pm, pn, pk), tile=relative_error(got, a, b),
+                            tf32_one_pass=relative_error(one_pass, a, b))
+    print(f"control: the tensor-core tile in f32 (3xTF32) at the dense h=1500 layer's products, "
+          f"max abs error over max abs float64 output (tol {TC_TOL}), beside cuBLAS in one-pass "
+          f"TF32 (must exceed it): {report}")
+    for name, r in report.items():
+        if not r["tile"] <= TC_TOL:
+            fail(f"the tensor-core tile's f32 {name} product misses float64 by {r['tile']:.3g}")
+        if not r["tf32_one_pass"] > TC_TOL:
+            fail(f"control: one-pass TF32's {name} product is within {TC_TOL} of float64 "
+                 f"({r['tf32_one_pass']:.3g}): the tile check cannot tell 3xTF32 from it")
 
 
 # (precision, residuals, save_gates) of each variant the LSTM scan kernels
@@ -3133,7 +3182,7 @@ def phase_wide_lm(torch):
     held_to_loop(torch, "VMLMF 2x1500 r=750",
                  lambda be: large_lm(be, lstm_type="vmlmf", w_rank=WIDE_RANK,
                                      u_ranks=(WIDE_RANK,)),
-                 lr_losses, trn)
+                 lr_losses, trn, chaos=True)
 
     # the CLI, one epoch of the synthetic corpus at the large LM's flags
     argv = ["--synthetic", "--vocab_size", str(LM["vocab"]), "--total_epochs", "1",
@@ -3159,17 +3208,56 @@ def phase_wide_lm(torch):
     return runs
 
 
-def held_to_loop(torch, label, make, losses, chunks, steps=10):
+def held_to_loop(torch, label, make, losses, chunks, steps=PARTING_STEPS, chaos=False):
     """The loop backend's first ``steps`` losses from the same init and
-    generator, against the fused run's ``losses`` (within TOL)."""
+    generator, against the fused run's ``losses`` within TOL. With
+    ``chaos`` (a run whose lr-1 spikes amplify f32 sums in another order),
+    a witness says how far the dynamics carry a perturbation of that size:
+    the loop run again from weights each moved by one ulp. The fused run
+    must agree within TOL over the steps before the witness parts by more
+    than TOL, and after them part by no more than CHAOS_RATIO times the
+    witness's largest parting."""
     reset_launch_counts()
     loop, _ = lm_train_run(torch, large_trainer(make("loop"), MAIN_BATCH), chunks, steps,
                            only(), f"wide: {label} on the loop backend", falling=False)
-    ok, err = all_close(torch, [torch.tensor(losses[:steps])], [torch.tensor(loop)], TOL)
-    print(f"wide: {label}: fused losses against the loop backend's over {steps} steps: max abs "
+    fused, calm = losses[:steps], steps
+    diffs = [abs(u - v) for u, v in zip(fused, loop)]
+    print(f"wide: {label}: losses over {steps} steps, fused {fused}, loop {loop}")
+    if chaos:
+        nudged, _ = lm_train_run(torch, large_trainer(make("loop"), MAIN_BATCH), chunks, steps,
+                                 only(), f"wide: {label} on the loop backend, weights nudged",
+                                 falling=False, start=lambda p: ulp_nudged(torch, p))
+        witness = [abs(u - v) for u, v in zip(nudged, loop)]
+        calm = next((i for i, (w, v) in enumerate(zip(witness, loop))
+                     if w > TOL + TOL * abs(v)), steps)
+        print(f"wide: {label}: witness (loop from weights moved by one ulp) {nudged}; abs "
+              f"parting by step, fused {diffs}, witness {witness}; steps before the witness "
+              f"parts by more than TOL {calm}")
+        late = diffs[calm:]
+        if late and not max(late) <= CHAOS_RATIO * max(witness):
+            fail(f"wide: {label}: fused losses part from the loop backend's by {max(late):.3g} "
+                 f"after step {calm}, more than {CHAOS_RATIO}x the one-ulp witness's "
+                 f"{max(witness):.3g}")
+    ok, err = all_close(torch, [torch.tensor(fused[:calm])], [torch.tensor(loop[:calm])], TOL)
+    print(f"wide: {label}: fused losses against the loop backend's over {calm} steps: max abs "
           f"err {err:.3g}")
     if not ok:
-        fail(f"wide: {label}: fused losses {losses[:steps]} part from the loop backend's {loop}")
+        fail(f"wide: {label}: fused losses {fused[:calm]} part from the loop backend's "
+             f"{loop[:calm]}")
+
+
+def ulp_nudged(torch, params, seed=7):
+    """``params`` with every weight moved by one ulp, up or down by a seeded
+    coin: a perturbation of the size of f32 sums taken in another order."""
+    from vmlmf_tpu_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    moved = []
+    for q in tree_leaves(params):
+        up = torch.rand(q.shape, generator=gen, device=q.device) < 0.5
+        inf = torch.full_like(q, float("inf"))
+        moved.append(torch.nextafter(q, torch.where(up, inf, -inf)))
+    return params_like(params, iter(moved))
 
 
 def prefill_outputs(torch, model, params, b):
@@ -4084,9 +4172,11 @@ def mesh_graphs(torch, mesh, no_mesh):
 def profiler_pad(torch, kernels=4):
     """A few `torch.cuda._sleep` kernels, synchronised: each profiler session
     opens and closes with them, so that no kernel of the work traced falls at
-    an edge of the window, where the trace can lose events."""
+    an edge of the window, where the trace can lose events. Each spins about
+    60 µs: spins of 6 µs left a graphed HAR GRU block's trace short of up to
+    half its main kernels."""
     for _ in range(kernels):
-        torch.cuda._sleep(10_000)
+        torch.cuda._sleep(100_000)
     torch.cuda.synchronize()
 
 
@@ -4168,7 +4258,13 @@ def trace_step(torch, label, step):
     print(f"trace: one {label}, wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (idle share "
           f"{1 - busy / wall_ms:.3f}), by group "
           + ", ".join(f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items())))
-    return dict(wall_ms=wall_ms, busy_ms=busy, groups=groups)
+    # the port's GEMM launches by tile: the LSTM scans' tensor-core tile
+    # (csrc/gemm_tc.cuh) and the CUDA-core one the GRU and stack kernels keep
+    tiles = {"tc": sum(n for name, (n, _) in kernels.items() if "tc_gemm_kernel" in name),
+             "cuda_core": sum(n for name, (n, _) in kernels.items()
+                              if "vmlmf::gemm_kernel" in name
+                              or "vmlmf::group_partial_kernel" in name)}
+    return dict(wall_ms=wall_ms, busy_ms=busy, groups=groups, gemm_tiles=tiles)
 
 
 def phase_trace(torch):
@@ -4205,6 +4301,11 @@ def phase_trace(torch):
     w_params, w_states = wave.init(), wave.state0()
     lm_wave = trace_step(torch, f"wavefront LM train step at B={MAIN_BATCH}",
                          lambda: wave.train_step(w_params, w_states, *trn[1], 1.0, generator))
+    # the LSTM scans' products run on the tensor cores, never on the old tile
+    for label, tr in (("LM", lm), ("dense LM", lm_dense)):
+        if tr["gemm_tiles"]["tc"] == 0 or tr["gemm_tiles"]["cuda_core"]:
+            fail(f"trace: the {label} train step's GEMMs by tile: {tr['gemm_tiles']}; "
+                 f"every product of its LSTM scans runs csrc/gemm_tc.cuh")
     print(json.dumps({"trace": dict(lm=lm, har_gru=gru, lm_dense=lm_dense, lm_wavefront=lm_wave)}))
 
 

@@ -1244,10 +1244,30 @@ def test_ranker_rank_next_fused_matches_loop(cuda):
     with torch.no_grad():
         vals, top = fused.rank_next(params, sess, 100, exclude_seen=True)
         want_v, want_i = loop.rank_next(params, sess, 100, exclude_seen=True)
+        h, _ = loop.encode(params, sess)
+        plain = loop._mask_seen(loop.score(params, h), sess, offset=0)
     torch.cuda.synchronize()
     assert cuda_scan.lstm_scan_fused_xin.launches == before + 1
-    assert top.dtype == torch.int32 and torch.equal(top, want_i)
+    assert top.dtype == torch.int32 and top.shape == want_i.shape
     torch.testing.assert_close(vals, want_v, **TOL)
+    # the ranks are equal but where the plain path's scores tie within twice
+    # the tolerance: the scan's f32 products (3xTF32) and cuBLAS's sum in
+    # another order, so two items so near may trade places, or one just
+    # outside the top k take the last place. There the item the kernel puts
+    # at place j must score the plain path's j-th best within that margin.
+    ranked = torch.topk(plain, top.shape[1] + 1, dim=1).values
+    margin = 2 * (TOL["atol"] + TOL["rtol"] * ranked[:, 1:].abs())
+    near = ranked[:, :-1] - ranked[:, 1:] <= margin  # place j against j + 1
+    tied = near.clone()
+    tied[:, 1:] |= near[:, :-1]
+    moved = [(i, j, int(top[i, j]), int(want_i[i, j]), float(plain[i, top[i, j]]),
+              float(plain[i, want_i[i, j]]))
+             for i, j in (top.long() != want_i.long()).nonzero().tolist()]
+    print(f"places whose items differ (session, place, the kernel's item, the plain path's, "
+          f"their plain scores): {moved}")
+    assert torch.equal(top.long()[~tied], want_i.long()[~tied])
+    torch.testing.assert_close(plain.gather(1, top.long()), want_v,
+                               atol=2 * TOL["atol"], rtol=2 * TOL["rtol"])
 
 
 @pytest.mark.cuda
@@ -1864,3 +1884,125 @@ def test_gru_forced_spill_is_bit_equal_to_the_unspilled_layout(cuda, monkeypatch
             assert torch.equal(x, y), i
     ys = want[0]  # and the unspilled layout against the plain scan
     torch.testing.assert_close(ys, cuda_gru.gru_scan_fused_xin_plain(*args, mode=mode), **TOL)
+
+
+# -- the tensor-core GEMM of the LSTM scans (csrc/gemm_tc.cuh) --------------
+
+# the view of A and of B -> (a_kind, b_kind) of csrc/gemm_tc_check.cu;
+# PrevRows reads [h0; ys] in place
+TC_VIEWS = {"row_row": (0, 0), "row_t": (0, 1), "t_row": (1, 0), "prev": (2, 0),
+            "prev_t": (3, 0)}
+# (m, n, k): odd edges on every side (and lda = 45, unaligned rows); the LM
+# layer's dV-like product, split k; a dense h=1500 projection, large tiles
+TC_SHAPES = {"odd": (45, 37, 53), "split": (300, 2600, 700), "large": (700, 6000, 1500)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+@pytest.mark.parametrize("view", list(TC_VIEWS))
+def test_tc_tile_matches_float64(cuda, view, shape, precision):
+    """The tile alone against a float64 product of the same (for bf16,
+    bf16-rounded) operands: 3xTF32 keeps f32's precision (one-pass TF32
+    would be about 1e-4 off), bf16 mma sums exact products in f32. Two
+    equal calls give equal bits."""
+    from vmlmf_tpu_torch.ops.tc_check import operands, relative_error, tc_product
+
+    m, n, k = TC_SHAPES[shape]
+    a_kind, b_kind = TC_VIEWS[view]
+    rng = np.random.default_rng(7)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+
+    nfirst = 7
+    if a_kind == 0:
+        a0, a1, lda = t(m, k), None, k
+    elif a_kind == 1:
+        a0, a1, lda = t(k, m), None, m
+    elif a_kind == 2:  # rows of [a0; a1], the seam after row nfirst
+        a0, a1, lda = t(nfirst, k), t(m - nfirst, k), k
+    else:  # A = [a0; a1]^T, the seam after column nfirst
+        a0, a1, lda = t(nfirst, m), t(k - nfirst, m), m
+    b0, ldb = (t(k, n), n) if b_kind == 0 else (t(n, k), k)
+    a, b = operands(a_kind, b_kind, a0, a1, b0)
+    bf16 = precision == "bf16"
+    runs = [tc_product(a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k, bf16)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    if bf16:
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    err = relative_error(runs[0], a, b)
+    assert err < 1e-5, err
+    if shape == "split":  # the same product unsplit, to the same tolerance
+        whole = tc_product(a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k, bf16,
+                           split=False)
+        assert relative_error(whole, a, b) < 1e-5
+    for tile in (1, 2):  # each tile at every shape, whichever the plan takes
+        got = tc_product(a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k, bf16,
+                         tile=tile)
+        assert relative_error(got, a, b) < 1e-5, tile
+
+
+# (T, B, F, h, rx, r): no m, n or k a multiple of a tile (m = 21, F = 37,
+# 4h = 180, rx = 11, r = 13) low-rank and dense; the LM layer; the dense
+# h=1500 layer at B=20 (its products 12.6 GFLOP each) and 128
+TC_ENTRY_CASES = {"odd": (3, 7, 37, 45, 11, 13), "odd_dense": (3, 7, 37, 45, 0, 0),
+                  "lm_b20": (35, 20, 650, 650, 300, 300),
+                  "dense1500_b20": (35, 20, 1500, 1500, 0, 0),
+                  "dense1500_b128": (35, 128, 1500, 1500, 0, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(SCAN_VARIANTS))
+@pytest.mark.parametrize("case", list(TC_ENTRY_CASES))
+def test_tc_scan_entries_match_plain_and_repeat(cuda, case, variant):
+    """Every entry of the two LSTM scan kernels (no-grad, residual and BPTT,
+    x mode and, where the variant has it, gi mode) at shapes that run the
+    tensor-core GEMMs on both tiles and split k: each within its variant's
+    tolerance of its plain version, and two equal calls to equal bits."""
+    precision, residuals, save = SCAN_VARIANTS[variant]
+    t, b, f, h, rx, r = TC_ENTRY_CASES[case]
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    rng = np.random.default_rng(1)
+    dys, dc_last = (torch.from_numpy(0.1 * rng.standard_normal(s).astype(np.float32)).to(cuda)
+                    for s in ((t, b, h), (b, h)))
+    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+    bias = None if save else args[4]
+
+    def run():
+        fwd = cuda_scan.lstm_scan_fused_xin(*args, precision)
+        res = cuda_scan.lstm_scan_fused_xin_res(*args, precision, residuals, save)
+        grads = cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, dc_last, bias=bias,
+                                            precision=precision)
+        out = {"fwd": fwd, "res": res, "grads": grads}
+        if save:
+            gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:], precision, residuals)
+            out.update(gi_fwd=cuda_scan.lstm_scan_fused(gi, *args[5:], precision), gi_res=gi_res,
+                       gi_grads=cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, dc_last,
+                                                        precision))
+        return out
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for key in first:
+        for i, (x, y) in enumerate(zip(first[key], second[key])):
+            assert (x is None and y is None) or torch.equal(x, y), (key, i)
+    fwd_tol, res_tol, grad_tol = variant_tols(precision, residuals)
+    assert_pairs_close(("ys", "c_last"), first["fwd"],
+                       cuda_scan.lstm_scan_fused_xin_plain(*args, precision), fwd_tol)
+    res_p = cuda_scan.lstm_scan_xin_fwd_res_plain(*args, precision, residuals, save)
+    assert_pairs_close(("ys", "cs", "gates", "hu", "xu"), first["res"], res_p, res_tol)
+    assert_pairs_close(cuda_scan._ARG_NAMES, first["grads"],
+                       cuda_scan.lstm_scan_xin_bwd_plain(*args[:4], *args[5:], *res_p, dys,
+                                                         dc_last, bias=bias,
+                                                         precision=precision), grad_tol)
+    if save:
+        assert_pairs_close(("ys", "c_last"), first["gi_fwd"],
+                           cuda_scan.lstm_scan_fused_plain(gi, *args[5:], precision), fwd_tol)
+        gi_res_p = cuda_scan.lstm_recurrence_plain(gi, *args[5:], precision, residuals)
+        assert_pairs_close(("ys", "cs", "gates", "hu"), first["gi_res"], gi_res_p, res_tol)
+        assert_pairs_close(("dgi", "du", "dv", "ddvec", "dh0", "dc0"), first["gi_grads"],
+                           cuda_scan.lstm_scan_bwd_plain(*args[5:], *gi_res_p, dys, dc_last,
+                                                         precision), grad_tol)

@@ -400,12 +400,33 @@ def test_emulated_phases_at_bf16_rounding_match_the_plain_bf16_walks(case):
 
 
 def test_bwd_partial_floats_covers_each_split_k_product():
+    """gemm_tc.cuh's plan: below 264 64x64 tiles, slices of whole 32-deep
+    steps near 264 CTAs."""
     # the LM layer: dV [300, 2600] over 700 rows wants 2 slices, dU [650, 300] 5
     assert cuda_scan.bwd_partial_floats(35, 20, 650, 300, 650, 300) == max(
         2 * 300 * 2600, 5 * 650 * 300)
-    # the HAR layer's dU [180, 6] has one tile and 1,944 rows: 61 slices of 32
-    assert cuda_scan.bwd_partial_floats(24, 81, 77, 8, 180, 6) >= 61 * 180 * 6
+    # the same at B=128: dXU [4480, 300] over k = 2600 has 350 small tiles, no split
+    assert cuda_scan.bwd_partial_floats(35, 128, 650, 300, 650, 300) == 2 * 300 * 2600
+    # the HAR layer's dU [180, 6] has one tile and 1,944 rows: 61 slices of 32;
+    # dXU [1944, 8] over k = 720, 31 tiles, the most: 8 slices of 96
+    assert cuda_scan.bwd_partial_floats(24, 81, 77, 8, 180, 6) == 8 * 1944 * 8
+    assert cuda_scan.bwd_partial_floats(24, 81, 77, 8, 180, 6, gi=True) == 21 * 6 * 720
     # the dense LM layer: dx [700, 650] = dPre Ux^T over k = 2600 wants 3 slices
     assert cuda_scan.bwd_partial_floats(35, 20, 650, 0, 650, 0) == 3 * 700 * 650
+    # the dense h=1500 layer: dU and dUx [1500, 6000] fill a wave of large
+    # tiles, dx [700, 1500] over k = 6000 has 264 small tiles: no split at B=20
+    # or 128, recompute's pre-pass neither
+    for b in (20, 128):
+        assert cuda_scan.bwd_partial_floats(35, b, 1500, 0, 1500, 0, recompute=True) == 0
+    # r = rx = 750 at h=1500: dXU [700, 750] over k = 6000 wants 2 slices
+    assert cuda_scan.bwd_partial_floats(35, 20, 1500, 750, 1500, 750) == 2 * 700 * 750
     # products that a single tile pass covers want none
     assert cuda_scan.bwd_partial_floats(1, 1, 4, 0, 4, 0) == 0
+
+
+def test_tile_partial_floats_keeps_the_stack_s_scratch():
+    """The stack's weight gradients stay on gemm_tile.cuh (16-deep slices),
+    so their scratch, and so their slices, are what they were."""
+    assert cuda_scan.tile_partial_floats(35, 20, 650, 300, 650, 300) == 2 * 300 * 2600
+    assert cuda_scan.tile_partial_floats(24, 81, 77, 8, 180, 6) == 9 * 1944 * 8
+    assert cuda_scan.tile_partial_floats(35, 20, 650, 0, 650, 0, gi=True) == 0

@@ -77,16 +77,18 @@
 //      forward (ScanPlan.resident_bwd; lstm_scan_xin_fwd.cu): copied once
 //      into the CTA's region of `wstream` and read through L2 every step,
 //      in the same order of sums.
-//   2. Time-parallel passes over all M rows: tiled GEMMs (gemm_tile.cuh)
-//      with transposed operand views (six low-rank, three with a dense
-//      side of each kind), and one column-sum kernel. The products whose k
-//      is M (the weight gradients dU, dV, dUx, dVx) have few output tiles
-//      (three at the HAR layer's dU [180, 6]), as do the x side's products
-//      over the 4h gate columns (dXU [M, rx]: 55 tiles at the LM layer,
-//      B=20; or dx [M, F] for a dense x side); so they go through
-//      gemm_splitk, which cuts k into slices over about two CTAs per SM
-//      and adds the slices in a fixed order. Every sum is taken in a fixed
-//      order: deterministic, no atomics.
+//   2. Time-parallel passes over all M rows: tensor-core GEMMs
+//      (gemm_tc.cuh: 3xTF32 in f32, a bf16 mma in the bf16 variants) with
+//      transposed operand views (six low-rank, three with a dense side of
+//      each kind), and one column-sum kernel. At a dense h=1500 these
+//      products are 12.6 GFLOP each at B=20. The products whose k is M
+//      (the weight gradients dU, dV, dUx, dVx) have few output tiles at
+//      the narrow layers (three at the HAR layer's dU [180, 6]), as do the
+//      x side's products over the 4h gate columns (dXU [M, rx]: 55 tiles
+//      at the LM layer, B=20; or dx [M, F] for a dense x side); so they go
+//      through gemm_splitk, which cuts k into slices over about two CTAs
+//      per SM where a product has few tiles, added in a fixed order.
+//      Every sum is taken in a fixed order: deterministic, no atomics.
 // * Every edge is masked: B, T*B, F, h, r, rx need not be tile or slice
 //   multiples, and fit() covers F = h, F < h and F > h.
 
@@ -95,7 +97,7 @@
 
 #include <type_traits>
 
-#include "gemm_tile.cuh"
+#include "gemm_tc.cuh"
 #include "lstm_steps.cuh"
 #include "scan_grid.cuh"
 
@@ -407,39 +409,34 @@ struct BwdIO {
 };
 
 // The recompute policy's pre-pass (pallas_scan.py:543-576), batched over
-// all M rows, operands rounded to bf16 when Bf16: xu = X @ Ux into xu_w;
-// gi (the x term and bias in the epilogue) into gates_w; hu = Hprev @ U
-// into hu_w; then pre = gi + hu @ V (dense: Hprev @ U) + Hprev * dvec and
-// its gates, in place in gates_w. Returns the first error.
+// all M rows on the tensor cores, operands rounded to bf16 when Bf16: xu =
+// X @ Ux into xu_w; gi (the x term and bias in the epilogue) into gates_w;
+// hu = Hprev @ U into hu_w; then pre = gi + hu @ V (dense: Hprev @ U) +
+// Hprev * dvec and its gates, in place in gates_w. Returns the first error.
 template <bool Bf16>
 cudaError_t recompute(const BwdIO& io, cudaStream_t stream) {
-  using vmlmf::bf16_if;
   using vmlmf::RowMajor;
+  using vmlmf::tc::gemm;
   const int m = io.t_len * io.batch, g4 = 4 * io.h;
   const vmlmf::GiEpilogue gi_epi{io.gates_w, io.x, io.xdvec, io.bias, io.f, io.h};
   cudaError_t err;
   if (io.vx == nullptr) {
-    err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.x, io.f}), bf16_if<Bf16>(RowMajor{io.ux, g4}),
-                      gi_epi, m, g4, io.f, stream);
+    err = gemm<Bf16>(RowMajor{io.x, io.f}, RowMajor{io.ux, g4}, gi_epi, m, g4, io.f, stream);
   } else {
-    err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.x, io.f}), bf16_if<Bf16>(RowMajor{io.ux, io.rx}),
-                      vmlmf::Store{io.xu_w, io.rx}, m, io.rx, io.f, stream);
+    err = gemm<Bf16>(RowMajor{io.x, io.f}, RowMajor{io.ux, io.rx}, vmlmf::Store{io.xu_w, io.rx},
+                     m, io.rx, io.f, stream);
     if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.xu_w, io.rx}), bf16_if<Bf16>(RowMajor{io.vx, g4}),
-                      gi_epi, m, g4, io.rx, stream);
+    err = gemm<Bf16>(RowMajor{io.xu_w, io.rx}, RowMajor{io.vx, g4}, gi_epi, m, g4, io.rx, stream);
   }
   if (err != cudaSuccess) return err;
   const vmlmf::PrevRows hprev{io.h0, io.ys, io.batch, io.h};
   const vmlmf::GatesEpilogue gates_epi{io.gates_w, io.h0, io.ys, io.dvec, io.batch, io.h};
   if (io.v == nullptr)
-    return vmlmf::gemm(bf16_if<Bf16>(hprev), bf16_if<Bf16>(RowMajor{io.u, g4}), gates_epi, m, g4,
-                       io.h, stream);
-  err = vmlmf::gemm_splitk(bf16_if<Bf16>(hprev), bf16_if<Bf16>(RowMajor{io.u, io.r}),
-                           vmlmf::Store{io.hu_w, io.r}, m, io.r, io.h, io.partial, io.room,
-                           stream);
+    return gemm<Bf16>(hprev, RowMajor{io.u, g4}, gates_epi, m, g4, io.h, stream);
+  err = vmlmf::tc::gemm_splitk<Bf16>(hprev, RowMajor{io.u, io.r}, vmlmf::Store{io.hu_w, io.r}, m,
+                                     io.r, io.h, io.partial, io.room, stream);
   if (err != cudaSuccess) return err;
-  return vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.hu_w, io.r}), bf16_if<Bf16>(RowMajor{io.v, g4}),
-                     gates_epi, m, g4, io.r, stream);
+  return gemm<Bf16>(RowMajor{io.hu_w, io.r}, RowMajor{io.v, g4}, gates_epi, m, g4, io.r, stream);
 }
 
 // The whole BPTT: the residuals widened or rebuilt as the policy says, the
@@ -447,11 +444,10 @@ cudaError_t recompute(const BwdIO& io, cudaStream_t stream) {
 // when Bf16; returns the first error.
 template <bool Bf16>
 cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream) {
-  using vmlmf::bf16_if;
-  using vmlmf::gemm_splitk;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
+  using vmlmf::tc::gemm_splitk;
   const int m = io.t_len * io.batch, g4 = 4 * io.h, f = io.f, rx = io.rx, r = io.r;
   const float* gates = static_cast<const float*>(io.gates);
   const float* hu = static_cast<const float*>(io.hu);
@@ -481,19 +477,19 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
                            io.wstream_floats, io.t_len, io.batch, io.h, r, plan, stream);
     if (err != cudaSuccess) return err;
     // dU [h, 4h] = Hprev^T dPre
-    err = gemm_splitk(bf16_if<Bf16>(hprev_t), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
-                      Store{io.du, g4}, io.h, g4, m, io.partial, io.room, stream);
+    err = gemm_splitk<Bf16>(hprev_t, RowMajor{io.dpre, g4}, Store{io.du, g4}, io.h, g4, m,
+                            io.partial, io.room, stream);
   } else {
     err = bptt<false, Bf16>(gates, io.cs, io.c0, io.dys, io.dc_last, io.u, io.v, io.dvec, io.dpre,
                             io.dhu, io.dh0, io.dc0, io.xchg, io.sync, io.wstream,
                             io.wstream_floats, io.t_len, io.batch, io.h, r, plan, stream);
     if (err != cudaSuccess) return err;
     // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-    err = gemm_splitk(bf16_if<Bf16>(Transposed{hu, r}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
-                      Store{io.dv, g4}, r, g4, m, io.partial, io.room, stream);
+    err = gemm_splitk<Bf16>(Transposed{hu, r}, RowMajor{io.dpre, g4}, Store{io.dv, g4}, r, g4, m,
+                            io.partial, io.room, stream);
     if (err != cudaSuccess) return err;
-    err = gemm_splitk(bf16_if<Bf16>(hprev_t), bf16_if<Bf16>(RowMajor{io.dhu, r}), Store{io.du, r},
-                      io.h, r, m, io.partial, io.room, stream);
+    err = gemm_splitk<Bf16>(hprev_t, RowMajor{io.dhu, r}, Store{io.du, r}, io.h, r, m,
+                            io.partial, io.room, stream);
   }
   if (err != cudaSuccess) return err;
 
@@ -501,25 +497,25 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
     const DxEpilogue dx_epi{io.dx, io.dpre, io.xdvec, f, io.h};
     if (io.vx == nullptr) {
       // dx [M, F] = dPre Ux^T + fit(sum_g dPre_g xdvec_g);  dUx [F, 4h] = X^T dPre
-      err = gemm_splitk(bf16_if<Bf16>(RowMajor{io.dpre, g4}), bf16_if<Bf16>(Transposed{io.ux, g4}),
-                        dx_epi, m, f, g4, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(RowMajor{io.dpre, g4}, Transposed{io.ux, g4}, dx_epi, m, f, g4,
+                              io.partial, io.room, stream);
       if (err != cudaSuccess) return err;
-      err = gemm_splitk(bf16_if<Bf16>(Transposed{io.x, f}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
-                        Store{io.dux, g4}, f, g4, m, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(Transposed{io.x, f}, RowMajor{io.dpre, g4}, Store{io.dux, g4}, f, g4,
+                              m, io.partial, io.room, stream);
     } else {
       // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
-      err = gemm_splitk(bf16_if<Bf16>(RowMajor{io.dpre, g4}), bf16_if<Bf16>(Transposed{io.vx, g4}),
-                        Store{io.dxu, rx}, m, rx, g4, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(RowMajor{io.dpre, g4}, Transposed{io.vx, g4}, Store{io.dxu, rx}, m,
+                              rx, g4, io.partial, io.room, stream);
       if (err != cudaSuccess) return err;
-      err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{io.dxu, rx}), bf16_if<Bf16>(Transposed{io.ux, rx}),
-                        dx_epi, m, f, rx, stream);
+      err = vmlmf::tc::gemm<Bf16>(RowMajor{io.dxu, rx}, Transposed{io.ux, rx}, dx_epi, m, f, rx,
+                                  stream);
       if (err != cudaSuccess) return err;
       // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-      err = gemm_splitk(bf16_if<Bf16>(Transposed{io.x, f}), bf16_if<Bf16>(RowMajor{io.dxu, rx}),
-                        Store{io.dux, rx}, f, rx, m, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(Transposed{io.x, f}, RowMajor{io.dxu, rx}, Store{io.dux, rx}, f, rx,
+                              m, io.partial, io.room, stream);
       if (err != cudaSuccess) return err;
-      err = gemm_splitk(bf16_if<Bf16>(Transposed{xu, rx}), bf16_if<Bf16>(RowMajor{io.dpre, g4}),
-                        Store{io.dvx, g4}, rx, g4, m, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(Transposed{xu, rx}, RowMajor{io.dpre, g4}, Store{io.dvx, g4}, rx, g4,
+                              m, io.partial, io.room, stream);
     }
     if (err != cudaSuccess) return err;
   }

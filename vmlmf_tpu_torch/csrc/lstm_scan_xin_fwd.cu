@@ -33,15 +33,16 @@
 // and no xu.
 //
 // bf16 (pallas_scan.py:297-317): every product takes bf16-rounded operands
-// and sums in f32: x, Ux, xu and Vx in the projection GEMMs (rounding
-// operand views, gemm_tile.cuh), h, U, hu and V in the scan (bf16 weight
+// and sums in f32: x, Ux, xu and Vx in the projection GEMMs (bf16 mma,
+// gemm_tc.cuh), h, U, hu and V in the scan (bf16 weight
 // slices in shared memory, exchanged h and hu rounded by their writer,
 // scan_grid.cuh). The x term, the h * dvec term (h from the f32 carry), the
 // bias and the gate arithmetic stay f32, as in the TPU kernel.
 //
 // What bounds it on an H100, and what the design does about it:
-// * The input projection is time-parallel. It runs first as tiled GEMM
-//   launches over all T*B rows, spread over many CTAs: xu = x@Ux, then gi =
+// * The input projection is time-parallel. It runs first as tensor-core
+//   GEMM launches (gemm_tc.cuh: 3xTF32 in f32, bf16 mma in the bf16
+//   variants) over all T*B rows, spread over many CTAs: xu = x@Ux, then gi =
 //   xu@Vx plus the elementwise x term and bias; or, for a dense x side, one
 //   GEMM gi = x@Ux whose epilogue adds the x term and bias. It writes gi
 //   [T,B,4h] to device memory and the scan reads it back, a round trip the
@@ -101,7 +102,7 @@
 
 #include <type_traits>
 
-#include "gemm_tile.cuh"
+#include "gemm_tc.cuh"
 #include "scan_grid.cuh"
 
 namespace {
@@ -394,24 +395,23 @@ int res_kind(int policy) {
                                         : policy == kPolicyNone ? kCs : -1;
 }
 
-// The projection GEMMs of x mode (two, or one for a dense x side), with
-// bf16-rounded operands when Bf16; returns the first error.
+// The projection GEMMs of x mode (two, or one for a dense x side) on the
+// tensor cores (gemm_tc.cuh), with bf16-rounded operands when Bf16, else in
+// 3xTF32; returns the first error.
 template <bool Bf16>
 cudaError_t project(const float* x, const float* ux, const float* vx, const float* xdvec,
                     const float* bias, float* xu, float* gi, int m, int f, int rx, int h,
                     cudaStream_t stream) {
-  using vmlmf::bf16_if;
   using vmlmf::RowMajor;
+  using vmlmf::tc::gemm;
   const int g4 = 4 * h;
   const vmlmf::GiEpilogue epi{gi, x, xdvec, bias, f, h};
   if (vx == nullptr)  // dense x side: gi = x @ Ux + the x term and bias
-    return vmlmf::gemm(bf16_if<Bf16>(RowMajor{x, f}), bf16_if<Bf16>(RowMajor{ux, g4}), epi, m, g4,
-                       f, stream);
-  cudaError_t err = vmlmf::gemm(bf16_if<Bf16>(RowMajor{x, f}), bf16_if<Bf16>(RowMajor{ux, rx}),
-                                vmlmf::Store{xu, rx}, m, rx, f, stream);
+    return gemm<Bf16>(RowMajor{x, f}, RowMajor{ux, g4}, epi, m, g4, f, stream);
+  cudaError_t err = gemm<Bf16>(RowMajor{x, f}, RowMajor{ux, rx}, vmlmf::Store{xu, rx}, m, rx, f,
+                               stream);
   if (err != cudaSuccess) return err;
-  return vmlmf::gemm(bf16_if<Bf16>(RowMajor{xu, rx}), bf16_if<Bf16>(RowMajor{vx, g4}), epi, m, g4,
-                     rx, stream);
+  return gemm<Bf16>(RowMajor{xu, rx}, RowMajor{vx, g4}, epi, m, g4, rx, stream);
 }
 
 // x mode: the projection, then the scan; returns the first error.

@@ -11,6 +11,7 @@ import torch
 
 from vmlmf_tpu_torch.cells.base import normal_init
 from vmlmf_tpu_torch.utils.device import resolve_device
+from vmlmf_tpu_torch.utils.rows import take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +24,7 @@ class Embed:
         return {"w": w.to(resolve_device(device))}
 
     def __call__(self, params, ids):
-        return params["w"][ids]
+        return take_rows(params["w"], ids)
 
 
 @dataclasses.dataclass(frozen=True)

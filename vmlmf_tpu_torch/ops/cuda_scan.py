@@ -445,6 +445,7 @@ MIN_SLICE_DEPTH = 8    # depth rows a slice takes at least (kMinSliceDepth)
 STAGE_FLOATS = 8192    # the most floats a CTA stages of an exchange buffer at once
 SMEM_LIMIT = 232448    # bytes of shared memory one block may use on sm_90
 SPLIT_TARGET = 264     # CTAs a split-k product aims at (gemm_tile.cuh kSplitTarget)
+TC_DEPTH = 32          # k-slice of a tensor-core GEMM stage (gemm_tc.cuh kK)
 # multiply-adds of a step below which a CTA's share is not worth a wider
 # group barrier: about a microsecond of one SM's f32 work
 MIN_STEP_WORK = 32768
@@ -680,13 +681,28 @@ def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None):
                     *bwd, groups * rpad * (8 * h + r), elsize, *map(tuple, resident))
 
 
-def _splitk_floats(m, n, k):
-    """Floats of partial sums that gemm_tile.cuh::gemm_splitk wants for
-    c [m, n] = A [m, k] @ B [k, n] (0: it does not split)."""
+def _splitk_floats(m, n, k, depth=TC_DEPTH):
+    """Floats of partial sums that a split-k product c [m, n] = A [m, k] @
+    B [k, n] wants (0: it does not split): with fewer than SPLIT_TARGET
+    64x64 tiles, the tiles times slices of k in whole ``depth`` steps near
+    SPLIT_TARGET CTAs. gemm_tc.cuh::gemm_splitk (whose plan never takes its
+    128x128 tile there) slices by TC_DEPTH, gemm_tile.cuh's by 16."""
+    if k <= 0:
+        return 0
     splits = _cdiv(SPLIT_TARGET, _cdiv(n, 64) * _cdiv(m, 64))
-    kslice = _cdiv(_cdiv(k, splits), 16) * 16
+    kslice = _cdiv(_cdiv(k, splits), depth) * depth
     splits = _cdiv(k, kslice)
     return splits * m * n if splits > 1 else 0
+
+
+def _partial_shapes(t, b, f, rx, h, r, gi, recompute):
+    m, g4 = t * b, 4 * h
+    shapes = [(h, g4, m)] if not r else [(r, g4, m), (h, r, m)]
+    if not gi:
+        shapes += [(f, g4, m), (m, f, g4)] if not rx else [(f, rx, m), (rx, g4, m), (m, rx, g4)]
+    if recompute:
+        shapes.append((m, r or g4, h))
+    return shapes
 
 
 def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False):
@@ -694,14 +710,15 @@ def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False):
     tiles and a long k: the weight gradients (k = T*B) and, in x mode, the
     x side's product over the 4h gate columns (dXU, or dx for a dense x
     side); under the recompute policy also the pre-pass's hu = Hprev @ U
-    (k = h). The largest that any of them wants."""
-    m, g4 = t * b, 4 * h
-    shapes = [(h, g4, m)] if not r else [(r, g4, m), (h, r, m)]
-    if not gi:
-        shapes += [(f, g4, m), (m, f, g4)] if not rx else [(f, rx, m), (rx, g4, m), (m, rx, g4)]
-    if recompute:
-        shapes.append((m, r or g4, h))
-    return max(_splitk_floats(*shape) for shape in shapes)
+    (k = h). The largest that any of them wants of gemm_tc.cuh's plan."""
+    return max(_splitk_floats(*s) for s in _partial_shapes(t, b, f, rx, h, r, gi, recompute))
+
+
+def tile_partial_floats(t, b, f, rx, h, r, *, gi=False):
+    """`bwd_partial_floats` under gemm_tile.cuh's split rule: the scratch of
+    the stack's weight gradients (ops/cuda_stack.py), whose products stay on
+    that tile, so their slices, and their bits, stay as they were."""
+    return max(_splitk_floats(*s, depth=16) for s in _partial_shapes(t, b, f, rx, h, r, gi, False))
 
 
 @functools.lru_cache(maxsize=256)

@@ -61,9 +61,9 @@ from vmlmf_tpu_torch.ops.cuda_scan import (
     _slices,
     _sm_count,
     _split_at,
-    bwd_partial_floats,
     lstm_bptt_plain,
     lstm_recurrence_plain,
+    tile_partial_floats,
     variant,
 )
 from vmlmf_tpu_torch.ops.pipeline import stack_cell_units, warn_fallback
@@ -664,8 +664,8 @@ def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, 
                          dvx=torch.empty_like(lay["vx"]), ddxvec=new(4 * h), dbias=new(4 * h))
             per_layer.append(d)
         # split-k scratch for the weight gradients, whose k is T*B
-        partial = new(max(1, *(bwd_partial_floats(t, b, h, xranks[l - 1] if l else 0, h, r,
-                                                  gi=l == 0) for l, r in enumerate(ranks))))
+        partial = new(max(1, *(tile_partial_floats(t, b, h, xranks[l - 1] if l else 0, h, r,
+                                                   gi=l == 0) for l, r in enumerate(ranks))))
         table, sync = _table(BWD_FIELDS, per_layer), _sync_words(chunks, n, dgi0)
         for i, (b0, rows, plan) in enumerate(chunks):  # the weight gradients after the last
             _launch(BWD_KERNEL, table, plan, (sync, partial),

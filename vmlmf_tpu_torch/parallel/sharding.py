@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from vmlmf_tpu_torch.nn.losses import lm_loss as plain_lm_loss
 from vmlmf_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from vmlmf_tpu_torch.utils.rows import take_rows
 
 
 def replicated(mesh=None):
@@ -194,9 +195,9 @@ def gather_rows(table, ids, group):
     gathers the rows it owns, zeros elsewhere, summed over the group. The
     gradient reaches each shard's own rows. ``table`` is [N/S] or [N/S, H]."""
     if group is None:
-        return table[ids]
+        return take_rows(table, ids)
     local, own = _owned(ids, group, table.shape[0])
-    rows = table[local]
+    rows = take_rows(table, local)
     mask = own.reshape(own.shape + (1,) * (rows.dim() - own.dim()))
     return reduce_from_group(rows * mask.to(rows.dtype), group)
 

@@ -26,10 +26,13 @@ Masked logits take the dtype's lowest finite value, as in the JAX package,
 never −inf: a block masked whole then has a finite logsumexp and a finite
 (zero) gradient, where −inf would give NaN.
 
-Scatter-adds are deterministic: ids are sorted (stably) and each table row's
-updates are summed in that order, by `index_put_(accumulate=True)`, whose
-CUDA kernel sorts the indices and walks each run of equal ones in order (no
-float atomics). Two equal steps give equal bits.
+Scatter-adds are deterministic on both devices (`utils.rows.add_rows`): on
+CUDA, `index_put_(accumulate=True)`, whose kernel sorts the indices and walks
+each run of equal ones in order (no float atomics); on the CPU, `index_add_`,
+which adds each row's updates in the order of the ids (there
+`index_put_(accumulate=True)` adds with atomics across threads). Gathers
+backpropagate through the same adds (`utils.rows.take_rows`). Two equal steps
+give equal bits on the same device and thread count.
 
 Negatives come from a `torch.Generator` on the parameters' device, drawn after
 the encoder's dropout masks; every entry that draws them also takes them
@@ -53,6 +56,7 @@ from vmlmf_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from vmlmf_tpu_torch.train.lm import LMTrainer
 from vmlmf_tpu_torch.utils.device import resolve_device
 from vmlmf_tpu_torch.utils.graphs import CarriedSteps, graph_key, on_card, steps_eagerly
+from vmlmf_tpu_torch.utils.rows import add_rows
 from vmlmf_tpu_torch.utils.tree import first_device, trainable_leaves, tree_leaves
 
 
@@ -138,7 +142,7 @@ def _dedup_sq_norm(ids, rows):
     first = torch.ones_like(sid, dtype=torch.bool)
     first[1:] = sid[1:] != sid[:-1]
     seg = torch.cumsum(first, 0) - 1
-    summed = torch.zeros_like(rows).index_put_((seg,), rows[order], accumulate=True)
+    summed = add_rows(torch.zeros_like(rows), seg, rows[order])
     return torch.sum(summed * summed)
 
 
@@ -594,10 +598,10 @@ class SparseSampledTrainer:
 
 
 def _scatter_add(dst, ids, rows, group):
-    """``dst[ids] += rows`` in sorted-id order (deterministic); on a table
+    """``dst[ids] += rows``, deterministic (`utils.rows.add_rows`); on a table
     split by rows over ``group``, only the ids this shard owns."""
     if group is not None:
         local, own = sharding._owned(ids, group, dst.shape[0])
         ids = local
         rows = rows * own.reshape(own.shape + (1,) * (rows.dim() - 1)).to(rows.dtype)
-    dst.index_put_((ids,), rows, accumulate=True)
+    add_rows(dst, ids, rows)

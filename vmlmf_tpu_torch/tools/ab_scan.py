@@ -34,12 +34,18 @@ Each line also gives, under "ptxas", the registers and spill bytes that
 (`scan_kernel` and `bptt_kernel` or their grid forms, the GRU's
 `fwd_kernel` and `walk_kernel`, `stack_fwd_kernel`, `stack_bwd_kernel`)
 at the build's flags, by template arguments.
+A checkout that runs layers wider than the SMs' shared memory also times,
+under "dense1500", the three LSTM entries at the PTB "large" LM's dense
+layer (T=35, F=h=1500) at B=20 and 128 in f32 and B=20 in bf16.
 Under "digest", a sha256 of all the outputs of the f32 entries that every
 checkout since the stack has: the LSTM scan's three at B=20 in both
 forms, the GRU's three x-mode entries at B=81 in each recurrent form, and
 the stack's three at B=20: equal digests show that two checkouts' kernels
-give the same bits. Giving the checkouts as parent, change, change,
-parent keeps drift on the card from reading as a difference between them.
+give the same bits. "digest_family" gives one per family of kernels
+("lstm", "gru", "stack") and one over them all ("all"), so that one run
+can show one family's bits changed and the others' not. Giving the
+checkouts as parent, change, change, parent keeps drift on the card from
+reading as a difference between them.
 """
 
 from __future__ import annotations
@@ -66,6 +72,11 @@ def inputs(b, form):
                 n(4, 180, scale=0.1), n(720, scale=0.1), n(180, 6, scale=180 ** -0.5),
                 n(6, 720, scale=6 ** -0.5), n(720, scale=0.1), n(b, 180, scale=0.5),
                 n(b, 180, scale=0.5))
+    if form == "dense1500":  # the PTB "large" LM's dense layer
+        w = 1500
+        return (n(t, b, w, scale=1.0), n(w, 4 * w, scale=w ** -0.5), None,
+                torch.zeros(4, w).cuda(), n(4 * w, scale=0.1), n(w, 4 * w, scale=w ** -0.5), None,
+                torch.zeros(4 * w).cuda(), n(b, w, scale=0.5), n(b, w, scale=0.5))
     if form == "dense":
         return (n(t, b, f, scale=1.0), n(f, 4 * h, scale=f ** -0.5), None,
                 torch.zeros(4, h).cuda(), n(4 * h, scale=0.1), n(h, 4 * h, scale=h ** -0.5), None,
@@ -259,9 +270,18 @@ ms["gru"] = {form: gru_ms(form) for form in GRU_FORMS}
 ms["stack"] = {b: stack_ms(b) for b in (1, 20, 128)}
 if "precision" in inspect.signature(cuda_stack.lstm_stack_scan_fused).parameters:
     ms["stack_bf16"] = {b: stack_ms(b, "bf16") for b in (1, 20, 128)}
+if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared memory
+    ms["dense1500"] = {"f32_b20": entry_ms(20, "dense1500", *VARIANTS["f32"]),
+                       "f32_b128": entry_ms(128, "dense1500", *VARIANTS["f32"]),
+                       "bf16_b20": entry_ms(20, "dense1500", *VARIANTS["bf16"])}
+digests = {f: digest(f) for f in ("lowrank", "dense", *GRU_FORMS, "stack")}
+families = {"lstm": ("lowrank", "dense"), "gru": tuple(GRU_FORMS), "stack": ("stack",),
+            "all": tuple(digests)}
 print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
-                  "ptxas": regs,
-                  "digest": {f: digest(f) for f in ("lowrank", "dense", *GRU_FORMS, "stack")}}))
+                  "ptxas": regs, "digest": digests,
+                  "digest_family": {fam: hashlib.sha256(" ".join(digests[f] for f in forms)
+                                                        .encode()).hexdigest()[:16]
+                                    for fam, forms in families.items()}}))
 """
 
 
@@ -270,7 +290,7 @@ def main(argv=None):
     if not dirs:
         raise SystemExit(__doc__)
     for d in dirs:
-        subprocess.run([sys.executable, "-c", CHILD, d], check=True, timeout=600)
+        subprocess.run([sys.executable, "-c", CHILD, d], check=True, timeout=900)
 
 
 if __name__ == "__main__":

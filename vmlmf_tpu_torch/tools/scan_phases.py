@@ -2,9 +2,10 @@
 
     python -m vmlmf_tpu_torch.tools.scan_phases
 
-Two readings for each shape (the PTB LM layer, T=35, F=h=650, low-rank
+Three readings for each shape (the PTB LM layer, T=35, F=h=650, low-rank
 r=rx=300 at B in 1/20/128 and dense at B=20; the HAR layer, T=24, F=77,
-h=180, low-rank r=6 and dense, B=81):
+h=180, low-rank r=6 and dense, B=81; the PTB "large" LM's dense layer,
+T=35, F=h=1500, at B in 20 and 128):
 
 * ``device``: `torch.profiler`'s device time by kernel for each entry
   (no-grad forward, residual forward, BPTT from dys) at T and at 2T, so the
@@ -17,6 +18,14 @@ h=180, low-rank r=6 and dense, B=81):
   (hu), 1->2 its barrier, 2->3 phase B (the gates), 3->4 its barrier (dense:
   0->3, 3->4). BPTT: 0->1 phase A (dpre), 1->2 barrier, 2->3 phase B (dhu),
   3->4 barrier, 4->5 phase C (dh) (dense: 0->1, 1->2, 2->5).
+* ``gemm``: the GEMM phase of the no-grad forward and of the BPTT, product
+  by product in launch order (the tensor-core tile of csrc/gemm_tc.cuh,
+  its split-k sum added to its product), each beside the device time of
+  ``torch.matmul`` of the same shape in the same profiler session (cuBLAS:
+  f32 with TF32 off, and bf16),
+  and ``split``: the device ms of the walk kernel, of the GEMM phase and of
+  the rest of each entry. In f32 at every shape, and in bf16 at the LM
+  layer and the dense h=1500 layer at B=20 (``gemm_bf16``).
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -40,7 +49,9 @@ SHAPES = {  # (T, B, F, h, rx, r); r = 0 and rx = 0: a dense side
     "lm_b1": (35, 1, 650, 650, 300, 300), "lm_b20": (35, 20, 650, 650, 300, 300),
     "lm_b128": (35, 128, 650, 650, 300, 300), "lm_dense_b20": (35, 20, 650, 650, 0, 0),
     "har_b81": (24, 81, 77, 180, 8, 6), "har_dense_b81": (24, 81, 77, 180, 0, 0),
+    "dense1500_b20": (35, 20, 1500, 1500, 0, 0), "dense1500_b128": (35, 128, 1500, 1500, 0, 0),
 }
+BF16_SHAPES = ("lm_b20", "dense1500_b20")  # whose GEMM phase is also read in bf16
 MAX_STEPS = 256
 STAMP = f"""
 __device__ unsigned long long g_stamps[8 * {MAX_STEPS}];
@@ -110,16 +121,101 @@ def inputs(t, b, f, h, rx, r):
             n(b, h, scale=0.5), n(b, h, scale=0.5))
 
 
-def entries(shape):
+def entries(shape, precision="f32"):
     """{entry: a call of it} on seeded inputs of ``shape``."""
     t, b, _, h = shape[:4]
     args = inputs(*shape)
-    res = cuda_scan.lstm_scan_fused_xin_res(*args)
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, precision)
     dys = 0.1 * torch.randn(t, b, h, generator=torch.Generator().manual_seed(5)).cuda()
     saved = (*args[:4], *args[5:], *res)
-    return {"fwd": lambda: cuda_scan.lstm_scan_fused_xin(*args),
-            "res": lambda: cuda_scan.lstm_scan_fused_xin_res(*args),
-            "bwd": lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None)}
+    return {"fwd": lambda: cuda_scan.lstm_scan_fused_xin(*args, precision),
+            "res": lambda: cuda_scan.lstm_scan_fused_xin_res(*args, precision),
+            "bwd": lambda: cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, precision=precision)}
+
+
+def products(shape, entry):
+    """The GEMM phase of an x-mode entry with saved gates, in launch order
+    (lstm_scan_xin_fwd.cu::project, lstm_scan_xin_bwd.cu::bwd):
+    [(product, m, n, k)]."""
+    t, b, f, h, rx, r = shape
+    m, g4 = t * b, 4 * h
+    if entry == "fwd":
+        return ([("gi = x Ux", m, g4, f)] if not rx else
+                [("xu = x Ux", m, rx, f), ("gi = xu Vx", m, g4, rx)])
+    out = ([("dU = Hprev^T dPre", h, g4, m)] if not r else
+           [("dV = HU^T dPre", r, g4, m), ("dU = Hprev^T dHU", h, r, m)])
+    return out + ([("dx = dPre Ux^T", m, f, g4), ("dUx = X^T dPre", f, g4, m)] if not rx else
+                  [("dXU = dPre Vx^T", m, rx, g4), ("dx = dXU Ux^T", m, f, rx),
+                   ("dUx = X^T dXU", f, rx, m), ("dVx = XU^T dPre", rx, g4, m)])
+
+
+def kernel_name(e):
+    return e.name.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def operands(m, n, k, dtype):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return (torch.randn(m, k, device="cuda", generator=g).to(dtype),
+            torch.randn(k, n, device="cuda", generator=g).to(dtype))
+
+
+def gemm_phase(shape, precision, reps=5):
+    """{entry: {"products": [...], "split": {...}}} of the no-grad forward
+    and the BPTT: each product's device ms (its tc_gemm_kernel and, split
+    over k, its tc_sum_kernel) beside the device ms of ``torch.matmul`` of
+    the same shape (f32 with TF32 off, and bf16), all of one profiler
+    session, and the entry's device ms by part. A spin kernel between the
+    groups of calls tells their kernels apart."""
+    calls = entries(shape, precision)
+    out, tf32 = {}, torch.backends.cuda.matmul.allow_tf32
+    for entry in ("fwd", "bwd"):
+        want = products(shape, entry)
+        mats = [operands(m, n, k, dtype) for _, m, n, k in want
+                for dtype in (torch.float32, torch.bfloat16)]
+        groups = [calls[entry]] + [lambda a=a, b=b: torch.matmul(a, b) for a, b in mats]
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            for fn in groups:  # warm-up: cuBLAS picks its kernels on a shape's first call
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for fn in groups:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        segments = [[]]
+        for e in events:
+            if "spin_kernel" in kernel_name(e):
+                segments.append([])
+            else:
+                segments[-1].append((kernel_name(e), e.time_range.elapsed_us() / 1e3 / reps))
+        split, runs = {"walk": 0.0, "gemm": 0.0, "other": 0.0}, []
+        for name, ms in segments[0]:
+            part = ("walk" if "grid_scan_kernel" in name or "grid_bptt_kernel" in name else
+                    "gemm" if "tc_gemm_kernel" in name or "tc_sum_kernel" in name else "other")
+            split[part] += ms
+            if "tc_gemm_kernel" in name:
+                runs.append([name, ms])
+            elif "tc_sum_kernel" in name and runs:
+                runs[-1][1] += ms
+        matmul = [round(sum(ms for _, ms in seg), 4) for seg in segments[1:1 + len(mats)]]
+        per_call = len(runs) // reps
+        rows = []
+        for i, (name, ms) in enumerate(runs[:per_call]):  # the products of one call
+            row = {"kernel": name, "ms": round(sum(runs[c * per_call + i][1]
+                                                   for c in range(reps)), 4)}
+            if per_call == len(want):
+                label, m, n, k = want[i]
+                row.update(product=label, m=m, n=n, k=k, matmul_f32_ms=matmul[2 * i],
+                           matmul_bf16_ms=matmul[2 * i + 1])
+            rows.append(row)
+        out[entry] = {"products": rows, "split": {k: round(v, 4) for k, v in split.items()}}
+    return out
 
 
 def device_ms(fn, reps=5):
@@ -133,7 +229,7 @@ def device_ms(fn, reps=5):
     by = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            name = kernel_name(e)
             by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
 
@@ -181,6 +277,9 @@ def main():
                                           [0, 1, 2, 3, 4, 5] if r else [0, 1, 2, 5])
             finally:
                 _build.load = load
+            row["gemm"] = gemm_phase(shape, "f32")
+            if name in BF16_SHAPES:
+                row["gemm_bf16"] = gemm_phase(shape, "bf16")
             print(json.dumps(row), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

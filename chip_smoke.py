@@ -38,7 +38,14 @@ Phases, each of which exits non-zero when it fails:
                dense "post" and a low-rank "pre" layer at h=256 whose
                weights do not fit in shared memory; then each recurrent form
                with a dense x side (ux [F, 3h]): the layers of the two dense-x
-               HAR GRUs at B=81 and 256, and a dense "pre" layer. Library:
+               HAR GRUs at B=81 and 256, and a dense "pre" layer; then the
+               first layer of `har_main --model mygru` at its default width
+               (dense "pre", dense x side, h=180) and its "post" form at
+               B=81 and 256. Each shape's layout is printed first: `gru_plan`
+               (rows a CTA), or, where that reads the recurrent weights
+               through L2 (h=180, h=256), the grid (`gru_grid_plan`: groups
+               x CTAs, each CTA holding its units' weight slices in shared
+               memory, one cooperative launch a chunk of rows). Library:
                cuDNN's GRU on
                the dense weights for "post"; for "pre" the script shows that
                cuDNN's GRU computes another function, and there is none.
@@ -157,8 +164,8 @@ Phases, each of which exits non-zero when it fails:
                batch one launch's plan takes, in f32 and in bf16 (its
                `scan_chunks` printed; each entry one launch a chunk of rows,
                counted), and a dense "pre" GRU layer at T=24, B=512, F=77,
-               h=1000 whose four rows a CTA do not fit (its `gru_plan`
-               printed: fewer rows a CTA, more CTAs than SMs): every entry
+               h=1000 on the grid layout, two chunks of 256 rows (its
+               `gru_grid_plan` printed, one launch a chunk): every entry
                against its plain version (each BPTT on the kernel's own
                residuals, the comparison on the plain forward's printed
                beside it), ms, bound, cuDNN's LSTM (and the GRU's, another
@@ -168,7 +175,11 @@ Phases, each of which exits non-zero when it fails:
                on the VMLMF flagship (180, w8/u6, 2 epochs), then without
                --total, which loads the checkpoint and must report the same
                accuracy and macro-F1 with the no-grad kernel alone; the HAR
-               GRU (64 64, w9/u9); the UCI-HAR shape (T=128, F=9); `lm_main
+               GRU (64 64, w9/u9); `--model mygru` at its default width
+               (a dense GRU of 180 units on the grid layout), trained and
+               then tested from its checkpoint, and `--model mygru_group
+               --uRanks 12 6` (dense "post", 180); the UCI-HAR shape (T=128,
+               F=9); `lm_main
                --synthetic --vocab_size 10000 --total_epochs 1` at the PTB
                "medium" width on "fused", "fused_pipelined", then "fused"
                again (the first run also pays the warm-up), whose
@@ -249,9 +260,10 @@ Phases, each of which exits non-zero when it fails:
                chunks of rows), the gi-mode entries at the dense layer, with
                cuDNN's LSTM; a streamed plan forced at the PTB LM layer (B=20)
                with the resident plan's layout, all six entries bit-equal to
-               it; the GRU's three forms at h=3200 (T=24, B=81; dense "post"
-               keeps its walk's staged inputs in device memory), cuDNN's GRU
-               for "post". Then the dense PTB "large" LM (Zaremba et al.
+               it; the GRU's three forms at h=3200 (T=24, B=81) on the grid
+               layout, a share of each weight slice streamed (the plan
+               printed with its MB a step), cuDNN's GRU for "post". Then the
+               dense PTB "large" LM (Zaremba et al.
                2014, section 4.1: 2x1500, dropout 0.65, init 0.04, clip 10;
                vocab 10000, seeded random weights): the graphed prefill at
                B = 1/20/128 and greedy decode, each bit-equal to eager; 60
@@ -306,6 +318,10 @@ TC_TOL = 1e-5  # the tensor-core tile's f32 products against float64, relative t
 CHAOS_RATIO = 10  # the most a chaotic run's backends may part, in partings of a one-ulp witness
 # the HAR GRU layers: 64 wide, x side rank 9, T=24, B=81
 GRU = dict(t=24, b=81, f=77, h=64, rx=9, r=9)
+# HARConfig's default layer width (vmlmf_tpu/config.py), which `har_main
+# --model mygru` trains as a dense "pre" GRU with a dense x side: the GRU
+# kernels take the grid layout there
+GRU_DEFAULT_H = 180
 EVAL_BATCH = 256  # `evaluate`'s batch, into which it pads the test windows
 REDUCED_STEPS = 3
 # fault 9: the LM layer's batch past the largest one launch's plan takes
@@ -371,7 +387,9 @@ FORMS = {
             "recompute_dense_post": ("group_l1_recompute", None, 81),
             "recompute_dense_pre": ("dense_pre_recompute", None, 81),
             "wide_post": ("wide_post", 81, 81), "wide_pre": ("wide_pre", 81, 81),
-            "wide_lowrank_pre": ("wide_lowrank_pre", 81, 81)},
+            "wide_lowrank_pre": ("wide_lowrank_pre", 81, 81),
+            "har180_dense_pre": ("har180_pre", EVAL_BATCH, 81),
+            "har180_dense_post": ("har180_post", EVAL_BATCH, 81)},
     "gru_gi": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
                "dense_post": ("group_l1", EVAL_BATCH, 81),
                "dense_pre": ("dense_pre", 81, 81)},
@@ -913,7 +931,10 @@ def gru_kernel_shapes():
     evaluate's batch, where only the no-grad entry runs; a dense "pre" layer;
     and a dense and a low-rank layer at h=256 whose weights do not fit in
     shared memory; then the same HAR layers with a dense x side (rx = 0, the
-    two dense-x HAR GRUs) at both batches, and a dense "pre" layer."""
+    two dense-x HAR GRUs) at both batches, and a dense "pre" layer; last the
+    first layer of `har_main --model mygru` at its default width (dense
+    "pre", dense x side, h=180) and its "post" form, at both batches, whose
+    kernels take the grid layout."""
     t, f, h, rx, r = GRU["t"], GRU["f"], GRU["h"], GRU["rx"], GRU["r"]
     layers = [("main_l1", f, h, r, "pre", True, False), ("main_l2", h, h, r, "pre", True, True),
               ("group_l1", f, h, 0, "post", False, False),
@@ -922,10 +943,14 @@ def gru_kernel_shapes():
               for prefix, x_rank in (("", rx), ("dx_", 0))
               for b in (GRU["b"], EVAL_BATCH)
               for name, fi, hi, ri, mode, lowrank, dx in layers]
+    har180 = [(name, (t, b, f, GRU_DEFAULT_H, 0, 0), mode, False, False, b == GRU["b"])
+              for b in (GRU["b"], EVAL_BATCH)
+              for name, mode in (("har180_pre", "pre"), ("har180_post", "post"))]
     return shapes + [("dense_pre", (t, GRU["b"], f, h, rx, 0), "pre", False, True, True),
                      ("wide_post_l2", (t, GRU["b"], f, 256, rx, 0), "post", False, True, True),
                      ("wide_pre_l2", (t, GRU["b"], f, 256, rx, 64), "pre", True, True, True),
-                     ("dx_dense_pre", (t, GRU["b"], f, h, 0, 0), "pre", False, True, True)]
+                     ("dx_dense_pre", (t, GRU["b"], f, h, 0, 0), "pre", False, True, True),
+                     *har180]
 
 
 def phase_gru_kernels(torch):
@@ -983,16 +1008,34 @@ def gru_check(torch, rows, name, shape, mode, lowrank, dx, train, iters=20):
 
 
 def print_gru_plan(torch, cuda_gru, name, size, gi=False):
-    """Print the layout `gru_plan` gives the GRU kernels at one shape."""
+    """Print the layout the GRU wrappers take at one shape (`gru_layout`),
+    the forward's and, where it differs, the walk's: `gru_plan`'s rows a
+    CTA, or the grid's chunks of rows, each with its groups x CTAs, rows a
+    group, resident depths and MB streamed a step."""
     t, b = size[:2]
-    plan = cuda_gru.gru_plan(*size, gi=gi,
-                             sms=torch.cuda.get_device_properties(0).multi_processor_count)
-    x_side = "-" if gi else "shared" if plan.x_resident else "L2"
-    print(f"gru_plan {name} B={b}{' gi' if gi else ''}: {plan.ctas} CTAs x {plan.threads} "
-          f"threads, {plan.rows} rows a CTA, time block {plan.tblock} of {t}, recurrent weights "
-          f"{plan.rec_weights} (walk {plan.bwd_rec_weights}), x side {x_side}, "
-          f"{plan.smem_fwd} / {plan.smem_bwd} bytes a CTA (forward / walk)")
-    return plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    layouts = {k: cuda_gru.gru_layout(*size, kernel=k, gi=gi, sms=sms) for k in ("fwd", "bwd")}
+    same = layouts["fwd"] == layouts["bwd"]
+    for kernel, layout in layouts.items():
+        if kernel == "bwd" and same:
+            break
+        which = "" if same else (" forward" if kernel == "fwd" else " walk")
+        if isinstance(layout, cuda_gru.GRUPlan):
+            x_side = "-" if gi else "shared" if layout.x_resident else "L2"
+            print(f"gru_plan {name}{which} B={b}{' gi' if gi else ''}: {layout.ctas} CTAs x "
+                  f"{layout.threads} threads, {layout.rows} rows a CTA, time block "
+                  f"{layout.tblock} of {t}, recurrent weights {layout.rec_weights} (walk "
+                  f"{layout.bwd_rec_weights}), x side {x_side}, {layout.smem_fwd} / "
+                  f"{layout.smem_bwd} bytes a CTA (forward / walk)")
+            continue
+        for b0, n, plan in layout:
+            held = ", ".join(
+                f"{k} resident {plan.resident(k)} of {tuple(d for d, _ in plan.slices(k))} "
+                f"rows, {4e-6 * plan.n_ctas * plan.streamed_elems(k):.1f} MB streamed a step"
+                for k in ("fwd", "bwd"))
+            print(f"gru_grid_plan {name}{which} B={b}{' gi' if gi else ''} rows {b0}..{b0 + n}: "
+                  f"{plan.groups} groups x {plan.ctas} CTAs, {plan.rpad} rows a group (padded), "
+                  f"{held}, {plan.smem_fwd} / {plan.smem_bwd} bytes a CTA (forward / walk)")
 
 
 def gru_bwd_split(torch, label, bwd, t, calls=5):
@@ -2874,7 +2917,9 @@ def phase_wide_kernels(torch):
     128 in f32 (streamed plans) and at B=20 in bf16 (dense: a resident
     plan; at B=128 chunks of rows), the gi-mode entries at the dense layer;
     a streamed plan forced at the LM layer with the resident plan's layout,
-    bit-equal to it; the GRU's three forms at h=3200. -> rows."""
+    bit-equal to it; the GRU's grid layout forced at an odd shape
+    (`gru_grid_entries`); the GRU's three forms at h=3200, on the grid.
+    -> rows."""
     rows = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bf16 = ("bf16", "f32", True)
@@ -2892,6 +2937,7 @@ def phase_wide_kernels(torch):
     tc_f32_control(torch)
     streamed_equals_resident(torch, sms)
     gru_spill_equals_unspilled(torch, sms)
+    gru_grid_entries(torch, sms)
     for name, fields in GRU_WIDE_NETS.items():
         lowrank = name == "wide_lowrank_pre"
         shape = (*(GRU_WIDE_H[k] for k in ("t", "b", "f", "h", "rx")),
@@ -3005,6 +3051,82 @@ def streamed_equals_resident(torch, sms):
         if not equal:
             fail(f"a streamed plan gives other bits than the resident plan with the same layout "
                  f"in variant {name}")
+
+
+# (T, B, F, h, rx, r, mode, low-rank recurrent side) of the grid checks
+# at an odd shape in each form, where `gru_layout` keeps the row kernels and
+# the grid is forced: no dimension a multiple of anything
+GRU_GRID_ODD = {"lowrank_pre": (6, 37, 20, 197, 5, 23, "pre", True),
+                "dense_pre": (6, 37, 20, 197, 0, 0, "pre", False),
+                "dense_post": (6, 37, 20, 197, 5, 0, "post", False)}
+
+
+def gru_grid_entries(torch, sms):
+    """The GRU's grid layout forced at an odd shape in each form: the six
+    entries and the recompute policy against their plain versions (TOL
+    for outputs and residuals, GRAD_TOL for gradients), two calls to equal
+    bits, and a plan with a third of each slice's rows streamed (the same
+    groups and CTAs) bit-equal to the resident one."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    for name, (t, b, f, h, rx, r, mode, lowrank) in GRU_GRID_ODD.items():
+        args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
+        form = cuda_gru.form_of(args[4], mode)
+        dys = torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+        gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+        rec = (gi, *args[4:])
+        resident = cuda_gru.gru_grid_plan(t, b, f, rx, h, r, form, sms=sms)
+        part = tuple(tuple(d // 3 for d, _ in resident.slices(k)) for k in ("fwd", "bwd"))
+        streamed = cuda_gru.grid_plan_layout(b, h, r, form, resident.groups, resident.ctas,
+                                             resident=part)
+
+        def calls():
+            res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+            rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+            res_gi = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+            return {"x": (cuda_gru.gru_scan_fused_xin(*args, mode=mode), *res,
+                          *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode)),
+                    "recompute": (*rc, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *rc, dys,
+                                                                  mode=mode, bias=args[3])),
+                    "gi": (cuda_gru.gru_scan_fused(*rec, mode=mode), *res_gi,
+                           *cuda_gru.gru_scan_bwd(*args[4:], *res_gi, dys, mode=mode))}
+
+        runs, keep = [], cuda_gru._plan_for
+        try:
+            for plan in (resident, resident, streamed):
+                cuda_gru._plan_for = lambda *a, gi=False, p=plan: ((0, b, p),)
+                runs.append(calls())
+        finally:
+            cuda_gru._plan_for = keep
+        torch.cuda.synchronize()
+        res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+        grads_p = cuda_gru.gru_scan_xin_bwd_plain(*args[:3], *args[4:], *res_p, dys, mode=mode)
+        rec_p = cuda_gru.gru_recurrence_plain(*rec, mode=mode)
+        plain = {"x": (res_p[0], *res_p, *grads_p), "recompute": (res_p[0], *[None] * 5, *grads_p),
+                 "gi": (rec_p[0], *rec_p, *cuda_gru.gru_scan_bwd_plain(*args[4:], *rec_p, dys,
+                                                                        mode=mode))}
+        worst = {}
+        for path, outs in runs[0].items():
+            n_fwd = {"x": 7, "recompute": 6, "gi": 6}[path]  # ys and residuals, then grads
+            for i, (got, want) in enumerate(zip(outs, plain[path])):
+                if got is None or want is None:
+                    continue
+                tol = TOL if i < n_fwd else GRAD_TOL
+                ok, err = close(torch, got, want, tol)
+                worst[tol] = max(worst.get(tol, 0.0), err)
+                if not ok:
+                    fail(f"wide: GRU grid {name} {path}: output {i} disagrees with its plain "
+                         f"version: max abs err {err}")
+            for other, what in ((runs[1], "a second call"), (runs[2], "the streamed plan")):
+                if not all((a is None and c is None) or torch.equal(a, c)
+                           for a, c in zip(outs, other[path])):
+                    fail(f"wide: GRU grid {name} {path}: {what} gives other bits")
+        print(f"wide: GRU grid {name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r}: "
+              f"{resident.groups} groups x {resident.ctas} CTAs, resident "
+              f"{resident.resident_fwd} / {resident.resident_bwd}, streamed "
+              f"{streamed.resident_fwd} / {streamed.resident_bwd}; max abs err outputs "
+              f"{worst.get(TOL, 0.0):.3g}, gradients {worst.get(GRAD_TOL, 0.0):.3g}; six "
+              f"entries and recompute bit-equal over two calls and to the streamed plan")
 
 
 def gru_spill_equals_unspilled(torch, sms):
@@ -3271,13 +3393,17 @@ def prefill_outputs(torch, model, params, b):
 
 def wide_gru_nets(torch):
     """The HAR GRU nets at h=3200 (T=24, B=81): two train steps and
-    `evaluate`, each with its exact launch counts and finite results ->
-    runs."""
+    `evaluate`, each with its exact launch counts (one a chunk of rows of
+    the grid layout) and finite results -> runs."""
     from vmlmf_tpu_torch.config import HARConfig
     from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.ops import cuda_gru
     from vmlmf_tpu_torch.train.har import HARTrainer, evaluate
 
     runs, b = [], GRU["b"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    form_ids = {"wide_lowrank_pre": cuda_gru.LOWRANK_PRE, "wide_post": cuda_gru.DENSE_POST,
+                "wide_pre": cuda_gru.DENSE_PRE}
     x_tr, y_tr, x_te, y_te = synthetic_har("opp", n_train=2 * b, n_test=EVAL_BATCH, seed=0)
     for name, fields in GRU_WIDE_NETS.items():
         form = f"gru:{name}"
@@ -3293,12 +3419,20 @@ def wide_gru_nets(torch):
         train = launch_counts()
         metrics = evaluate(model, params, x_te, y_te)
         evald = count_delta(train)
+        # one cooperative launch a chunk of rows (`gru_grid_chunks`)
+        chunks = {n: len(cuda_gru.gru_layout(GRU["t"], n, GRU["f"], GRU_WIDE_H["rx"], 3200,
+                                             fields["u_ranks"][0] if "lowrank" in name else 0,
+                                             form_ids[name], sms=sms))
+                  for n in (b, EVAL_BATCH)}
         print(f"wide: HAR GRU {name} (h=3200): losses {losses}, accuracy "
               f"{metrics['accuracy']:.4f}, launches in 2 steps {nonzero(train)}, in evaluate "
-              f"{nonzero(evald)}")
-        if train != train_counts(form, 2) or evald != eval_counts(form, 1):
+              f"{nonzero(evald)} (chunks of rows at B={b} / {EVAL_BATCH}: {chunks[b]} / "
+              f"{chunks[EVAL_BATCH]})")
+        if train != train_counts(form, 2 * chunks[b]) or \
+                evald != eval_counts(form, chunks[EVAL_BATCH]):
             fail(f"wide: HAR GRU {name}: two steps must launch the residual forward and the "
-                 f"BPTT twice, evaluate the no-grad kernel once: {train}, {evald}")
+                 f"BPTT once a chunk of rows each, evaluate the no-grad kernel once a chunk: "
+                 f"{train}, {evald}")
         if not all(v == v and abs(v) != float("inf") for v in losses):
             fail(f"wide: HAR GRU {name}: losses {losses}")
         runs.append((form, launch_counts()))
@@ -3373,6 +3507,10 @@ def phase_cli(torch):
                                            "--wRank", "8", "--uRanks", "6"]),
                 ("gru", "gru:lowrank_pre", ["--model", "mygru", "--layer_sizes", "64", "64",
                                             "--wRank", "9", "--uRanks", "9"]),
+                # HARConfig's default width: a dense GRU of 180 units (grid layout)
+                ("gru180", "gru:har180_dense_pre", ["--model", "mygru"]),
+                ("gru180_group", "gru:har180_dense_post", ["--model", "mygru_group",
+                                                           "--uRanks", "12", "6"]),
                 ("uci", "lstm:lowrank", ["--data", "UCI", "--model", "vmmodel", "--layer_sizes",
                                          "180", "--wRank", "8", "--uRanks", "6"]))
     with tempfile.TemporaryDirectory() as ckpt:
@@ -3389,7 +3527,7 @@ def phase_cli(torch):
             epochs = har_epoch_seconds(lines)
             entry = dict(accuracy=metrics["accuracy"], macro_f1=metrics["macro_f1"],
                          epoch_seconds=epochs, wall_seconds=wall, launches=nonzero(counts))
-            if label == "vmlmf":
+            if label in ("vmlmf", "gru180"):  # evaluate from the checkpoint
                 tested, _, counts_t, _ = cli_run(torch, har_main.main, argv)
                 if tested != metrics:
                     fail(f"cli har: the checkpoint's test run reports {tested}, the training run "

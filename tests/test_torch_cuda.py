@@ -1196,13 +1196,14 @@ def test_lm_layer_past_one_plan_runs_in_chunks_and_matches_plain(cuda):
 # fault 10: a dense "pre" GRU layer at h=1000 and B=512, whose four rows a
 # CTA do not fit in shared memory, runs with fewer rows a CTA
 @pytest.mark.cuda
-def test_gru_layer_with_fewer_rows_a_cta_matches_plain(cuda):
+def test_gru_layer_with_fewer_rows_a_cta_matches_plain(cuda, monkeypatch):
     from vmlmf_tpu_torch.ops import cuda_gru
 
     t, b, f, h, rx, r, mode, lowrank = 24, 512, 77, 1000, 0, 0, "pre", False
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = cuda_gru.gru_plan(t, b, f, rx, h, r, cuda_gru.DENSE_PRE, sms=sms)
     assert plan.rows < min(cuda_gru.GRU_MAX_ROWS, -(-b // sms)) and plan.ctas > sms
+    monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False: plan)  # the row kernels
     args = gru_inputs(t, b, f, h, rx, r, mode, lowrank, cuda)
     dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
         np.float32)).to(cuda)
@@ -1790,7 +1791,7 @@ WIDE_GRU = {"post": (24, 81, 77, 3200, 9, 0, "post", False),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(WIDE_GRU))
-def test_wide_gru_forms_match_plain_with_equal_bits(cuda, case):
+def test_wide_gru_forms_match_plain_with_equal_bits(cuda, case, monkeypatch):
     from vmlmf_tpu_torch.ops import cuda_gru
 
     t, b, f, h, rx, r, mode, lowrank = WIDE_GRU[case]
@@ -1799,6 +1800,7 @@ def test_wide_gru_forms_match_plain_with_equal_bits(cuda, case):
             cuda_gru.LOWRANK_PRE if lowrank else cuda_gru.DENSE_PRE)
     plan = cuda_gru.gru_plan(t, b, f, rx, h, r, form, sms=sms)
     assert (plan.spill_bwd > 0) == (case == "post")
+    monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False: plan)  # the row kernels
     args = gru_inputs(*WIDE_GRU[case], cuda)
     dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
         np.float32)).to(cuda)
@@ -1830,6 +1832,190 @@ def test_wide_gru_forms_match_plain_with_equal_bits(cuda, case):
         assert (got is None) == (want is None), name
         if want is not None:
             torch.testing.assert_close(got, want, msg=name, **GRAD_TOL)
+
+
+# -- the grid layout of the GRU kernels (csrc/gru_grid.cuh) -----------------
+
+# (T, B, F, h, rx, r, mode, low-rank recurrent side): odd shapes in each form
+# and x side, the HAR GRU at its default width (h=180, dense x side) at the
+# train batch, the dense "pre" layer of h=1000 at B=512 (two chunks of
+# rows), and the three forms at h=3200, whose slices are streamed
+GRID_GRU = {
+    "odd_lowrank": (6, 37, 20, 197, 5, 23, "pre", True),
+    "odd_dense_pre": (6, 37, 20, 197, 0, 0, "pre", False),
+    "odd_post": (6, 37, 20, 197, 5, 0, "post", False),
+    "har180_pre": (24, 81, 77, 180, 0, 0, "pre", False),
+    "har180_post": (24, 81, 77, 180, 0, 0, "post", False),
+    "h1000_pre_b512": (24, 512, 77, 1000, 0, 0, "pre", False),
+    "h3200_post": (24, 81, 77, 3200, 9, 0, "post", False),
+    "h3200_pre": (24, 81, 77, 3200, 9, 0, "pre", False),
+    "h3200_lowrank": (24, 81, 77, 3200, 9, 800, "pre", True),
+}
+GRID_FNS = ("gru_scan_fused_xin", "gru_scan_fused_xin_res", "gru_scan_xin_bwd",
+            "gru_scan_fused", "gru_scan_fused_res", "gru_scan_bwd")
+
+
+def _gru_form(cuda_gru, mode, lowrank):
+    return (cuda_gru.DENSE_POST if mode == "post" else
+            cuda_gru.LOWRANK_PRE if lowrank else cuda_gru.DENSE_PRE)
+
+
+def _grid_calls(cuda_gru, args, dys, mode):
+    """Every GRU entry once in each policy: x mode saved gates (no-grad,
+    residual forward, BPTT), recompute, gi mode -> {policy: outputs}."""
+    gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+    rec = (gi, *args[4:])
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+    res_gi = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+    return {"nograd": (cuda_gru.gru_scan_fused_xin(*args, mode=mode),),
+            "saved": (*res, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys,
+                                                       mode=mode)),
+            "recompute": (*rc, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *rc, dys,
+                                                          mode=mode, bias=args[3])),
+            "gi": (cuda_gru.gru_scan_fused(*rec, mode=mode), *res_gi,
+                   *cuda_gru.gru_scan_bwd(*args[4:], *res_gi, dys, mode=mode))}
+
+
+def _grid_plain(cuda_gru, args, dys, mode):
+    """`_grid_calls`'s outputs from the plain versions."""
+    gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+    res = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+    saved = (*args[:3], *args[4:], *res)
+    rec = cuda_gru.gru_recurrence_plain(gi, *args[4:], mode=mode)
+    return {"nograd": (res[0],),
+            "saved": (*res, *cuda_gru.gru_scan_xin_bwd_plain(*saved, dys, mode=mode)),
+            "recompute": (res[0], None, None, None, None, None,
+                          *cuda_gru.gru_scan_xin_bwd_plain(*saved, dys, mode=mode)),
+            "gi": (rec[0], *rec, *cuda_gru.gru_scan_bwd_plain(*args[4:], *rec, dys, mode=mode))}
+
+
+# which outputs of each policy are gradients (GRAD_TOL), the others TOL
+GRID_FORWARD_OUTS = {"nograd": 1, "saved": 6, "recompute": 6, "gi": 6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRID_GRU))
+def test_gru_grid_entries_match_plain_with_equal_bits(cuda, case, monkeypatch):
+    """All six entries on the grid layout (forced where `gru_layout` keeps
+    the row kernels) against their plain versions, two calls to equal bits,
+    one cooperative launch a chunk of rows."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRID_GRU[case]
+    form = _gru_form(cuda_gru, mode, lowrank)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = {g: cuda_gru.gru_grid_chunks(t, b, 0 if g else f, 0 if g else rx, h, r, form,
+                                          gi=g, sms=sms) for g in (False, True)}
+    monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False: chunks[gi])
+    if case.startswith("h3200") or case.startswith("har180"):  # the wrappers' own choice
+        for kernel in ("fwd", "bwd"):
+            assert cuda_gru.gru_layout(t, b, f, rx, h, r, form, kernel=kernel,
+                                       sms=sms) == chunks[False]
+    if case == "h1000_pre_b512":
+        assert len(chunks[False]) == 2
+    args = gru_inputs(*GRID_GRU[case], cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    fns = [getattr(cuda_gru, n) for n in GRID_FNS]
+    before = [fn.launches for fn in fns]
+    first = _grid_calls(cuda_gru, args, dys, mode)
+    second = _grid_calls(cuda_gru, args, dys, mode)
+    torch.cuda.synchronize()
+    n = len(chunks[False])
+    assert [fn.launches - k for fn, k in zip(fns, before)] == [2 * n, 4 * n, 4 * n, 2 * n, 2 * n,
+                                                                2 * n]
+    want = _grid_plain(cuda_gru, args, dys, mode)
+    for policy, outs in first.items():
+        for i, (x1, x2, w) in enumerate(zip(outs, second[policy], want[policy])):
+            assert (x1 is None) == (x2 is None), (policy, i)
+            if x1 is None:
+                continue
+            assert torch.equal(x1, x2), (policy, i)
+            if w is not None:
+                tol = TOL if i < GRID_FORWARD_OUTS[policy] else GRAD_TOL
+                torch.testing.assert_close(x1, w, msg=f"{policy} {i}", **tol)
+
+
+# (T, B, F, h, rx, r, mode, low-rank): a resident grid plan, and the same
+# groups and CTAs with a share of each slice's rows streamed
+GRID_STREAMED = {"post": (6, 37, 20, 197, 5, 0, "post", False),
+                 "pre": (6, 37, 20, 197, 0, 0, "pre", False),
+                 "lowrank_pre": (6, 37, 20, 197, 5, 23, "pre", True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRID_STREAMED))
+def test_gru_forced_streamed_grid_plan_is_bit_equal_to_the_resident_one(cuda, case,
+                                                                        monkeypatch):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRID_STREAMED[case]
+    form = _gru_form(cuda_gru, mode, lowrank)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    resident = cuda_gru.gru_grid_plan(t, b, f, rx, h, r, form, sms=sms)
+    assert not resident.streamed
+    # a third of each slice's rows resident, the rest streamed
+    part = tuple(tuple(d // 3 for d, _ in resident.slices(k)) for k in ("fwd", "bwd"))
+    streamed = cuda_gru.grid_plan_layout(b, h, r, form, resident.groups, resident.ctas,
+                                         resident=part)
+    assert streamed.streamed and streamed.smem_bytes < resident.smem_bytes
+    args = gru_inputs(*GRID_STREAMED[case], cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    runs = []
+    for plan in (resident, streamed):
+        monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False, p=plan: ((0, b, p),))
+        runs.append(_grid_calls(cuda_gru, args, dys, mode))
+    torch.cuda.synchronize()
+    for policy, outs in runs[0].items():
+        for i, (x, y) in enumerate(zip(outs, runs[1][policy])):
+            assert (x is None) == (y is None), (policy, i)
+            if x is not None:
+                assert torch.equal(x, y), (policy, i)
+
+
+@pytest.mark.cuda
+def test_gru_grid_too_large_to_be_co_resident_raises(cuda, monkeypatch):
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRID_GRU["odd_post"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = cuda_gru.grid_plan_layout(b, h, r, cuda_gru.DENSE_POST, 2, sms)  # 2 x sms CTAs
+    monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False: ((0, b, plan),))
+    args = gru_inputs(*GRID_GRU["odd_post"], cuda)
+    with pytest.raises(RuntimeError, match="gru_grid_fwd launch failed"):
+        cuda_gru.gru_scan_fused_xin(*args, mode=mode)
+
+
+@pytest.mark.cuda
+def test_graphed_har_gru_block_at_its_default_width_equals_eager(cuda):
+    """`har_main --model mygru` at its defaults: a dense "pre" GRU of 180
+    units with a dense x side, whose kernels take the grid layout; a
+    graphed block of train steps bit-equal to the same steps run eagerly."""
+    from vmlmf_tpu_torch.config import HARConfig
+    from vmlmf_tpu_torch.ops import cuda_gru
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    layout = cuda_gru.gru_layout(24, 81, 77, 0, 180, 0, cuda_gru.DENSE_PRE, sms=sms)
+    assert not isinstance(layout, cuda_gru.GRUPlan)
+    model = HARConfig(model="mygru").build_model()
+    trainer = HARTrainer(model, batch_size=81, device=cuda)
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.standard_normal((5, 81, 24, 77)).astype(np.float32)).to(cuda)
+    ys = torch.from_numpy(rng.integers(0, 18, (5, 81))).to(cuda)
+    (pa, oa), (pb, ob) = trainer.init(), trainer.init()
+    pa, oa, la = trainer._fused_steps(pa, oa, xs, ys)
+    lb = []
+    before = cuda_gru.gru_scan_xin_bwd.launches
+    for x, y in zip(xs, ys):
+        pb, ob, loss = trainer.train_step(pb, ob, x, y)
+        lb.append(loss)
+    assert cuda_gru.gru_scan_xin_bwd.launches - before == 5  # one cooperative launch a step
+    assert torch.equal(la, torch.stack(lb)) and _equal(pa, pb)
+    assert _equal([s for st in oa.state.values() for s in st.values()],
+                  [s for st in ob.state.values() for s in st.values()])
 
 
 # a spill forced at a small width (h=64: one row a CTA, every weight read

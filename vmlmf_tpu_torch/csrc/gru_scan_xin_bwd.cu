@@ -98,6 +98,7 @@
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "gru_grid.cuh"
 #include "gru_tile.cuh"
 
 namespace {
@@ -440,6 +441,256 @@ cudaError_t walk(const WalkArgs& a, int threads, int smem, cudaStream_t stream) 
   }
 }
 
+// -- the grid walk (gru_grid.cuh; ops/cuda_gru.py::gru_grid_plan) ----------
+
+using vmlmf::GridPlan;
+using vmlmf::round4;
+using vmlmf::split_at;
+
+// The serial reverse walk on plan.groups x plan.ctas co-resident CTAs, the
+// residuals and outputs of walk_kernel (WalkArgs; its row-layout fields
+// unused). xchg: the dpre exchange [2][groups][3h][rpad] (step parity),
+// rows (dr_pre, dz_pre, dn_pre) of each unit, dn_pre * r in "post"; then,
+// low-rank, [groups][r][rpad] for drhu, which dhu reuses. A step:
+//   (A) the j-slice's elementwise part from the staged inputs and the
+//       carry: dz_pre, dn_pre (and dr_pre in "post") into dpre and the
+//       exchange, the carry dh * z; group barrier;
+//   "post": (C) dh += [dr_pre, dz_pre, dn_pre * r] @ [Prz; Pn]^T rows of
+//       the j-slice;
+//   "pre":  (B) drh = dn_pre @ Pn^T (dense), or drhu = dn_pre @ Pn^T of
+//       the k-slice, barrier, drh = drhu @ Uf^T (low-rank); dr_pre into
+//       dpre and the exchange, dh += drh * r; barrier; (C) dh += [dr_pre,
+//       dz_pre] @ Prz^T (dense), or dhu = [dr_pre, dz_pre] @ Prz^T of the
+//       k-slice, barrier, dh += dhu @ Uf^T (low-rank).
+// C writes only the CTA's own carry, so it needs no barrier after it: one,
+// two or four a step. The next step's inputs are copied with cp.async once
+// the step's last reader of them has passed its barrier.
+template <int Form, bool Streamed>
+__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
+                 const GridPlan plan) {
+  constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
+  extern __shared__ __align__(16) float gsm[];
+  const int h = a.h, r = a.r, g3 = 3 * h, rpad = plan.rpad;
+  const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
+  const int b0 = split_at(grp, a.batch, plan.groups);
+  const int rows = split_at(grp + 1, a.batch, plan.groups) - b0;
+  const int j0 = split_at(q, h, plan.ctas), jw = split_at(q + 1, h, plan.ctas) - j0;
+  const int k0 = kLowrank ? split_at(q, r, plan.ctas) : 0;
+  const int kw = kLowrank ? split_at(q + 1, r, plan.ctas) - k0 : 0;
+  const vmlmf::gru::GridWidths wd(Form, h, r, plan);
+  const int jwp = wd.jwp, kwp = wd.kwp, slab = jwp * rpad;
+  const int da = kLowrank ? g3 : 0, db = kLowrank ? r : g3;
+  // resident depths: every row without Streamed
+  const int resa = Streamed ? plan.res_a : da, resb = Streamed ? plan.res_b : db;
+
+  float* wa = gsm;                      // [Prz; Pn]^T rows of the k-slice [3h][kwp], rows < resa
+  float* wb = wa + (size_t)resa * kwp;  // [Prz; Pn]^T or Uf^T rows of the j-slice [db][jwp]
+  float* dhc = gsm + vmlmf::weight_floats<float>((size_t)resa * kwp + (size_t)resb * jwp);
+  float* pa = dhc + slab;               // staged inputs r, z, n, h_prev, dys, recn [k][jwp][rpad]
+  float* stage = pa + (kPost ? 6 : 5) * slab;
+  float* red = stage + plan.stage;
+  float* sa = wstream + (Streamed ? blockIdx.x * vmlmf::gru::grid_stream_floats(
+                                                    Form, h, r, plan, true)
+                                  : 0);
+  float* sb = sa + (size_t)(da - resa) * kwp;
+  const size_t dpar = (size_t)plan.groups * g3 * rpad;
+  float* dpx = xchg + (size_t)grp * g3 * rpad;  // parity p at dpx + p * dpar
+  float* ux = xchg + 2 * dpar + (size_t)grp * r * rpad;
+  unsigned* count = sync + grp;
+  unsigned target = 0;
+
+  // the slices, loaded once along the rows of Prz, Pn and Uf (coalesced):
+  // element (d, c) of a slice is row c of the weight, column d
+  if constexpr (kLowrank) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < kwp * g3; e += blockDim.x) {
+      const int kk = e / g3, d = e % g3, k = k0 + kk;
+      const float v = kk >= kw ? 0.f
+                      : d < 2 * h ? a.prz[(size_t)k * 2 * h + d]
+                                  : a.pn[(size_t)k * h + d - 2 * h];
+      vmlmf::gru::slice_store<Streamed>(wa, sa, resa, kwp, d, kk, v);
+    }
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < jwp * db; e += blockDim.x) {
+    const int jj = e / db, d = e % db, j = j0 + jj;
+    float v = 0.f;
+    if (jj < jw) {
+      if constexpr (kLowrank)
+        v = a.uf[(size_t)j * r + d];
+      else
+        v = d < 2 * h ? a.prz[(size_t)j * 2 * h + d] : a.pn[(size_t)j * h + d - 2 * h];
+    }
+    vmlmf::gru::slice_store<Streamed>(wb, sb, resb, jwp, d, jj, v);
+  }
+  for (int e = threadIdx.x; e < slab; e += blockDim.x) dhc[e] = 0.f;
+
+  // step t's inputs of the j-slice's live rows into pa
+  auto prefetch = [&](int t) {
+    const size_t m0 = (size_t)t * a.batch + b0;
+    const int n = jw * rows, kinds = kPost ? 6 : 5;
+    for (int e = threadIdx.x; e < kinds * n; e += blockDim.x) {
+      const int k = e / n, jj = e % jw, row = (e % n) / jw, j = j0 + jj;
+      const size_t m = m0 + row;
+      const float* src = k < 3   ? a.gates + m * g3 + k * h + j
+                         : k == 3 ? (t > 0 ? a.ys + (m - a.batch) * h + j
+                                           : a.h0 + (size_t)(b0 + row) * h + j)
+                         : k == 4 ? a.dys + m * h + j
+                                  : a.recn + m * h + j;
+      vmlmf::cp_async4(pa + (size_t)(k * jwp + jj) * rpad + row, src);
+    }
+  };
+  prefetch(a.t_len - 1);
+
+  // epilogues: dh += the product (C); a rank product into the exchange and
+  // its dpre-side output (drhu, dhu); drh's (B)
+  auto add_carry = [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int jj = 4 * cb + c;
+      if (jj >= jw) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dhc[jj * rpad + 4 * rb + i] += acc[c][i];
+    }
+  };
+  for (int t = a.t_len - 1; t >= 0; --t) {
+    float* dpx_t = dpx + (t & 1) * dpar;
+    const size_t m0 = (size_t)t * a.batch + b0;
+    auto rank_out = [&](float* out) {
+      return [&, out](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kk = 4 * cb + c;
+          if (kk >= kw) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i;
+            ux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
+            if (row < rows) out[(m0 + row) * r + k0 + kk] = acc[c][i];
+          }
+        }
+      };
+    };
+    auto drh_out = [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jj = 4 * cb + c;
+        if (jj >= jw) continue;
+        const int j = j0 + jj;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 4 * rb + i, at = jj * rpad + row;
+          if (row >= rows) continue;
+          const float drh = acc[c][i], rg = pa[at];
+          const float dr_pre = drh * pa[3 * slab + at] * rg * (1.f - rg);
+          a.dpre[(m0 + row) * g3 + j] = dr_pre;
+          dpx_t[(size_t)j * rpad + row] = dr_pre;
+          dhc[at] += drh * rg;
+        }
+      }
+    };
+    vmlmf::cp_async_wait_all();
+    __syncthreads();  // pa, and the carry that C wrote
+
+    // (A) the elementwise part of the j-slice
+    for (int e = threadIdx.x; e < jw * rpad; e += blockDim.x) {
+      const int jj = e % jw, row = e / jw, j = j0 + jj, at = jj * rpad + row;
+      if (row >= rows) {
+        for (int g = 0; g < 3; ++g) dpx_t[(size_t)(g * h + j) * rpad + row] = 0.f;
+        continue;
+      }
+      const float rg = pa[at], z = pa[slab + at], n = pa[2 * slab + at];
+      const float dh = dhc[at] + pa[4 * slab + at];
+      const float dz_pre = dh * (pa[3 * slab + at] - n) * z * (1.f - z);
+      const float dn_pre = dh * (1.f - z) * (1.f - n * n);
+      float* dg = a.dpre + (m0 + row) * g3;
+      dg[h + j] = dz_pre;
+      dg[2 * h + j] = dn_pre;
+      dhc[at] = dh * z;
+      dpx_t[(size_t)(h + j) * rpad + row] = dz_pre;
+      if (kPost) {
+        const float dr_pre = dn_pre * pa[5 * slab + at] * rg * (1.f - rg);
+        dg[j] = dr_pre;
+        dpx_t[(size_t)j * rpad + row] = dr_pre;
+        dpx_t[(size_t)(2 * h + j) * rpad + row] = dn_pre * rg;
+      } else {
+        dpx_t[(size_t)(2 * h + j) * rpad + row] = dn_pre;
+      }
+    }
+    vmlmf::group_sync(count, plan.ctas, target);
+
+    if constexpr (kPost) {
+      if (t > 0) prefetch(t - 1);
+      vmlmf::gru::rows_product<Streamed>(dpx_t, 0, g3, rpad, wb, sb, resb, jwp, 0, jwp, stage,
+                                         plan.stage, red, plan.red, add_carry);
+    } else {
+      const float* dn_rows = dpx_t + (size_t)2 * h * rpad;
+      if constexpr (kLowrank) {  // drhu = dn_pre @ Pn^T, then drh = drhu @ Uf^T
+        vmlmf::gru::rows_product<Streamed>(dn_rows, 2 * h, h, rpad, wa, sa, resa, kwp, 0, kwp,
+                                           stage, plan.stage, red, plan.red, rank_out(a.drhu));
+        vmlmf::group_sync(count, plan.ctas, target);
+        vmlmf::gru::rows_product<Streamed>(ux, 0, r, rpad, wb, sb, resb, jwp, 0, jwp, stage,
+                                           plan.stage, red, plan.red, drh_out);
+      } else {  // drh = dn_pre @ Pn^T
+        vmlmf::gru::rows_product<Streamed>(dn_rows, 2 * h, h, rpad, wb, sb, resb, jwp, 0, jwp,
+                                           stage, plan.stage, red, plan.red, drh_out);
+      }
+      vmlmf::group_sync(count, plan.ctas, target);
+      if (t > 0) prefetch(t - 1);
+      if constexpr (kLowrank) {  // dhu = [dr_pre, dz_pre] @ Prz^T, then dh += dhu @ Uf^T
+        vmlmf::gru::rows_product<Streamed>(dpx_t, 0, 2 * h, rpad, wa, sa, resa, kwp, 0, kwp,
+                                           stage, plan.stage, red, plan.red, rank_out(a.dhu));
+        vmlmf::group_sync(count, plan.ctas, target);
+        vmlmf::gru::rows_product<Streamed>(ux, 0, r, rpad, wb, sb, resb, jwp, 0, jwp, stage,
+                                           plan.stage, red, plan.red, add_carry);
+      } else {  // dh += [dr_pre, dz_pre] @ Prz^T
+        vmlmf::gru::rows_product<Streamed>(dpx_t, 0, 2 * h, rpad, wb, sb, resb, jwp, 0, jwp,
+                                           stage, plan.stage, red, plan.red, add_carry);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < jw * rows; e += blockDim.x) {
+    const int jj = e % jw, row = e / jw;
+    a.dh0[(size_t)(b0 + row) * h + j0 + jj] = dhc[jj * rpad + row];
+  }
+}
+
+template <int Form>
+cudaError_t grid_walk(const WalkArgs& io, float* xchg, unsigned* sync, float* wstream,
+                      size_t wstream_floats, GridPlan plan, cudaStream_t stream) {
+  using vmlmf::gru::grid_smem_floats;
+  using vmlmf::gru::grid_stream_floats;
+  if (!vmlmf::gru::grid_resident_ok(Form, io.h, io.r, plan, true) ||
+      sizeof(float) * grid_smem_floats(Form, io.h, io.r, plan, true) > (size_t)plan.smem ||
+      plan.groups > io.batch || xchg == nullptr || sync == nullptr)
+    return cudaErrorInvalidValue;
+  const size_t streamed = grid_stream_floats(Form, io.h, io.r, plan, true);
+  if (streamed * plan.groups * plan.ctas > wstream_floats || (streamed > 0 && wstream == nullptr))
+    return cudaErrorInvalidValue;
+  WalkArgs a = io;
+  void* args[] = {&a, &xchg, &sync, &wstream, &plan};
+  return streamed > 0
+             ? vmlmf::launch_grid(grid_walk_kernel<Form, true>, plan, sync, args, stream)
+             : vmlmf::launch_grid(grid_walk_kernel<Form, false>, plan, sync, args, stream);
+}
+
+cudaError_t grid_walk_form(const WalkArgs& a, int form, float* xchg, unsigned* sync,
+                           float* wstream, size_t wstream_floats, GridPlan plan,
+                           cudaStream_t stream) {
+  switch (form) {
+    case kLowrankPre:
+      return grid_walk<kLowrankPre>(a, xchg, sync, wstream, wstream_floats, plan, stream);
+    case kDensePre:
+      return grid_walk<kDensePre>(a, xchg, sync, wstream, wstream_floats, plan, stream);
+    case kDensePost:
+      return grid_walk<kDensePost>(a, xchg, sync, wstream, wstream_floats, plan, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // R * Hprev [M, h], element (i, j) = gates[i, j] * Hprev[i, j]: the operand
 // of the recompute pre-pass's (R * Hprev) @ Uf or @ Pn, formed as it loads.
 struct GatedPrev {
@@ -452,16 +703,6 @@ struct GatedPrev {
   __device__ __forceinline__ float operator()(int i, int j) const {
     const float hp = i < nfirst ? first[(size_t)i * ld + j] : rest[(size_t)(i - nfirst) * ld + j];
     return gates[(size_t)i * 3 * ld + j] * hp;
-  }
-};
-
-// Epilogue of the pre-pass's gi GEMM: g[i, j] = v + bias[j], g [M, 3h].
-struct BiasEpilogue {
-  float* g;
-  const float* bias;
-  int n;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    g[(size_t)i * n + j] = v + bias[j];
   }
 };
 
@@ -691,18 +932,10 @@ cudaError_t recompute(const float* x, const float* ux, const float* vx, const fl
                       float* xu, int t_len, int batch, int f, int rx, int h, int r, int form,
                       cudaStream_t stream) {
   const int m = t_len * batch;
-  const int g3 = 3 * h;
   using vmlmf::RowMajor;
   using vmlmf::Store;
-  const BiasEpilogue gi_epi{gates, bias, g3};
-  cudaError_t err;
-  if (vx == nullptr) {  // G = X Ux + bias
-    err = vmlmf::gemm(RowMajor{x, f}, RowMajor{ux, g3}, gi_epi, m, g3, f, stream);
-  } else {  // XU = X Ux;  G = XU Vx + bias
-    err = vmlmf::gemm(RowMajor{x, f}, RowMajor{ux, rx}, Store{xu, rx}, m, rx, f, stream);
-    if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(RowMajor{xu, rx}, RowMajor{vx, g3}, gi_epi, m, g3, rx, stream);
-  }
+  // G = X Ux + bias, or XU = X Ux;  G = XU Vx + bias
+  cudaError_t err = project(x, ux, vx, bias, xu, gates, m, f, rx, h, stream);
   if (err != cudaSuccess) return err;
 
   const vmlmf::PrevRows hprev{h0, ys, batch, h};
@@ -728,11 +961,90 @@ cudaError_t recompute(const float* x, const float* ux, const float* vx, const fl
   return vmlmf::gemm(hprev, RowMajor{pn, h}, PostNEpilogue{gates, recn, h}, m, h, h, stream);
 }
 
+// The whole BPTT once the residuals are there or rebuilt: `walk` (the row
+// walk or the grid walk, a callable on WalkArgs returning a cudaError_t),
+// then in x mode dXU = dPre Vx^T (low-rank x side) and the grouped split-k
+// of every gradient whose k runs over the M rows. gates null is the
+// recompute policy (x mode only), whose pre-pass fills the *_w scratch
+// first. Returns the first error.
+template <class Walk>
+cudaError_t bptt(const float* x, const float* ux, const float* vx, const float* uf,
+                 const float* prz, const float* pn, const float* h0, const float* ys,
+                 const float* gates, const float* hu, const float* rhu, const float* recn,
+                 const float* xu, const float* dys, const float* bias, float* gates_w,
+                 float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre, float* dhu,
+                 float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
+                 float* dbias, float* duf, float* dprz, float* dpn, float* dh0, int t_len,
+                 int batch, int f, int rx, int h, int r, int form, int partial_floats,
+                 cudaStream_t stream, Walk walk) {
+  const int m = t_len * batch;
+  const int g3 = 3 * h;
+  using vmlmf::RowMajor;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  cudaError_t err;
+
+  if (gates == nullptr) {  // the recompute policy
+    if (x == nullptr || bias == nullptr || gates_w == nullptr) return cudaErrorInvalidValue;
+    err = recompute(x, ux, vx, bias, uf, prz, pn, h0, ys, gates_w, hu_w, rhu_w, recn_w, xu_w,
+                    t_len, batch, f, rx, h, r, form, stream);
+    if (err != cudaSuccess) return err;
+    gates = gates_w;
+    hu = hu_w;
+    rhu = rhu_w;
+    recn = recn_w;
+    xu = xu_w;
+  }
+  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, nullptr,
+                    t_len, batch, h, r, 0, 0, 0};
+  err = walk(wa);
+  if (err != cudaSuccess) return err;
+  if (x != nullptr && vx != nullptr) {  // dXU [M, rx] = dPre Vx^T, which dUx and dx read
+    const auto dxu_p =
+        vmlmf::split_product(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3);
+    err = vmlmf::gemm_splitk_group(partial, partial_floats, vmlmf::group_kslice(dxu_p), stream,
+                                   dxu_p);
+    if (err != cudaSuccess) return err;
+  }
+  const XSide xs = x == nullptr ? XSide{}
+                                : XSide{x, ux, vx, xu, dpre, dxu, dx, dux, dvx, dbias, f, rx, h, m};
+  return grouped_grads(h0, ys, gates, hu, rhu, dpre, dhu, drhu, duf, dprz, dpn, xs, partial,
+                       partial_floats, t_len, batch, h, r, form, stream);
+}
+
+// The row walk of gru_plan's layout: rows, threads, rec_res, smem, spill.
+struct RowWalk {
+  float* state;
+  int form, rows, threads, rec_res, smem, spill;
+  cudaStream_t stream;
+  cudaError_t operator()(WalkArgs a) const {
+    a.state = state;
+    a.rows = rows;
+    a.rec_res = rec_res;
+    a.spill = spill;
+    return walk_form(a, form, threads, smem, stream);
+  }
+};
+
+// The grid walk of gru_grid_plan's layout.
+struct GridWalk {
+  float* xchg;
+  unsigned* sync;
+  float* wstream;
+  size_t wstream_floats;
+  int form;
+  GridPlan plan;
+  cudaStream_t stream;
+  cudaError_t operator()(const WalkArgs& a) const {
+    return grid_walk_form(a, form, xchg, sync, wstream, wstream_floats, plan, stream);
+  }
+};
+
 }  // namespace
 
-// Both entries take, after the sizes and the form, gemm_splitk's scratch
-// size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats) and
-// the walk's plan from ops/cuda_gru.py::gru_plan: rows, threads, rec_res,
+// The row-layout entries take, after the sizes and the form, gemm_splitk's
+// scratch size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats)
+// and the walk's plan from ops/cuda_gru.py::gru_plan: rows, threads, rec_res,
 // smem (bytes), spill (floats a CTA of `state`, the walk's device-memory
 // scratch of a spill plan, which the caller allocates,
 // cuda_gru.py::state_floats; null when 0).
@@ -759,38 +1071,11 @@ extern "C" int gru_scan_xin_bwd(
     int batch, int f, int rx, int h, int r, int form, int partial_floats, int rows, int threads,
     int rec_res, int smem, int spill, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int m = t_len * batch;
-  const int g3 = 3 * h;
-  using vmlmf::RowMajor;
-  using vmlmf::Store;
-  using vmlmf::Transposed;
-  cudaError_t err;
-
-  if (gates == nullptr) {  // the recompute policy
-    if (bias == nullptr || gates_w == nullptr) return cudaErrorInvalidValue;
-    err = recompute(x, ux, vx, bias, uf, prz, pn, h0, ys, gates_w, hu_w, rhu_w, recn_w, xu_w,
-                    t_len, batch, f, rx, h, r, form, stream);
-    if (err != cudaSuccess) return err;
-    gates = gates_w;
-    hu = hu_w;
-    rhu = rhu_w;
-    recn = recn_w;
-    xu = xu_w;
-  }
-  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dpre, dhu, drhu, dh0, state,
-                    t_len, batch, h, r, rows, rec_res, spill};
-  err = walk_form(wa, form, threads, smem, stream);
-  if (err != cudaSuccess) return err;
-  if (vx != nullptr) {  // dXU [M, rx] = dPre Vx^T, which dUx and dx read: a group of one
-    const auto dxu_p =
-        vmlmf::split_product(RowMajor{dpre, g3}, Transposed{vx, g3}, Store{dxu, rx}, m, rx, g3);
-    err = vmlmf::gemm_splitk_group(partial, partial_floats, vmlmf::group_kslice(dxu_p), stream,
-                                   dxu_p);
-    if (err != cudaSuccess) return err;
-  }
-  const XSide xs{x, ux, vx, xu, dpre, dxu, dx, dux, dvx, dbias, f, rx, h, m};
-  return grouped_grads(h0, ys, gates, hu, rhu, dpre, dhu, drhu, duf, dprz, dpn, xs, partial,
-                       partial_floats, t_len, batch, h, r, form, stream);
+  if (x == nullptr) return cudaErrorInvalidValue;
+  return bptt(x, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, gates_w, hu_w,
+              rhu_w, recn_w, xu_w, dpre, dhu, drhu, dxu, partial, dx, dux, dvx, dbias, duf, dprz,
+              dpn, dh0, t_len, batch, f, rx, h, r, form, partial_floats, stream,
+              RowWalk{state, form, rows, threads, rec_res, smem, spill, stream});
 }
 
 // gi mode: the walk and the recurrent weight gradients on `stream`; returns
@@ -807,13 +1092,39 @@ extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
                             int rows, int threads, int rec_res, int smem, int spill,
                             void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const WalkArgs wa{gates, ys, h0, recn, dys, uf, prz, pn, dgi, dhu, drhu, dh0, state,
-                    t_len, batch, h, r, rows, rec_res, spill};
-  const cudaError_t err = walk_form(wa, form, threads, smem, stream);
-  if (err != cudaSuccess) return err;
-  const XSide none{};
-  return grouped_grads(h0, ys, gates, hu, rhu, dgi, dhu, drhu, duf, dprz, dpn, none, partial,
-                       partial_floats, t_len, batch, h, r, form, stream);
+  if (gates == nullptr) return cudaErrorInvalidValue;
+  return bptt(nullptr, nullptr, nullptr, uf, prz, pn, h0, ys, gates, hu, rhu, recn, nullptr, dys,
+              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dgi, dhu, drhu, nullptr,
+              partial, nullptr, nullptr, nullptr, nullptr, duf, dprz, dpn, dh0, t_len, batch, 0,
+              0, h, r, form, partial_floats, stream,
+              RowWalk{state, form, rows, threads, rec_res, smem, spill, stream});
+}
+
+// The grid layout of both BPTTs (ops/cuda_gru.py::gru_grid_plan): x mode
+// when x is given, with gru_scan_xin_bwd's tensors; gi mode when x is null,
+// with gru_scan_bwd's (dpre is then dgi, an output, and gates must be
+// given). xchg, sync (a barrier word a group) and wstream (wstream_floats
+// floats; null where the plan streams nothing) are the grid walk's scratch;
+// the eight integers after partial_floats and wstream_floats are the
+// plan's layout (GRUGridPlan.ints).
+extern "C" int gru_grid_bwd(
+    const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
+    const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
+    const float* rhu, const float* recn, const float* xu, const float* dys, const float* bias,
+    float* gates_w, float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre,
+    float* dhu, float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
+    float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* xchg, unsigned* sync,
+    float* wstream, int t_len, int batch, int f, int rx, int h, int r, int form,
+    int partial_floats, int wstream_floats, int groups, int ctas, int rpad, int stage, int red,
+    int smem, int res_a, int res_b, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (x == nullptr && gates == nullptr) return cudaErrorInvalidValue;
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
+  return bptt(x, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, gates_w, hu_w,
+              rhu_w, recn_w, xu_w, dpre, dhu, drhu, dxu, partial, dx, dux, dvx, dbias, duf, dprz,
+              dpn, dh0, t_len, batch, f, rx, h, r, form, partial_floats, stream,
+              GridWalk{xchg, sync, wstream, static_cast<size_t>(wstream_floats), form, plan,
+                       stream});
 }
 
 // The message of an error code that an entry of this file returned.

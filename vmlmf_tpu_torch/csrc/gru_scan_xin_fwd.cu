@@ -79,6 +79,7 @@
 
 #include <cuda_runtime.h>
 
+#include "gru_grid.cuh"
 #include "gru_tile.cuh"
 
 namespace {
@@ -505,6 +506,274 @@ int launch_x(const FwdArgs& a, int form, int threads, int smem, void* stream) {
                          : launch_form<kLowrankX, Residuals>(a, form, threads, smem, stream);
 }
 
+// -- the grid layout (gru_grid.cuh; ops/cuda_gru.py::gru_grid_plan) ---------
+
+using vmlmf::GridPlan;
+using vmlmf::round4;
+using vmlmf::split_at;
+
+// The tensors and sizes of one grid launch. gi is the input contribution
+// [T*B, 3h]: the caller's in gi mode, else the projection's output.
+struct GridFwdArgs {
+  const float* gi;
+  const float* uf;
+  const float* prz;
+  const float* pn;
+  const float* h0;
+  float* ys;
+  float* gates;
+  float* hu;
+  float* rhu;
+  float* recn;
+  float* xchg;
+  unsigned* sync;
+  float* wstream;
+  int t_len, batch, h, r;
+};
+
+// The scan over all t_len steps on plan.groups x plan.ctas co-resident
+// CTAs, from gi. xchg: the h exchange [2][groups][h][rpad] (step parity),
+// then r*h [groups][h][rpad] ("pre"), then hu, which rhu reuses,
+// [groups][r][rpad] (low-rank). A step's products, each followed by a
+// group barrier: "post" h @ [Prz_r | Prz_z | Pn] (one); dense "pre" h @
+// [Prz_r | Prz_z], then (r*h) @ Pn (two); low-rank h @ Uf, hu @ [Prz_r |
+// Prz_z], (r*h) @ Uf, rhu @ Pn (four).
+template <int Form, bool Residuals, bool Streamed>
+__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
+  constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
+  extern __shared__ __align__(16) float gsm[];
+  const int h = a.h, r = a.r, g3 = 3 * h, rpad = plan.rpad;
+  const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
+  const int b0 = split_at(grp, a.batch, plan.groups);
+  const int rows = split_at(grp + 1, a.batch, plan.groups) - b0;
+  const int j0 = split_at(q, h, plan.ctas), jw = split_at(q + 1, h, plan.ctas) - j0;
+  const int k0 = kLowrank ? split_at(q, r, plan.ctas) : 0;
+  const int kw = kLowrank ? split_at(q + 1, r, plan.ctas) - k0 : 0;
+  const vmlmf::gru::GridWidths wd(Form, h, r, plan);
+  const int jwp = wd.jwp, kwp = wd.kwp, ldb = 3 * jwp, slab = jwp * rpad;
+  const int depth = kLowrank ? r : h;
+  // resident depths: every row without Streamed
+  const int resa = kLowrank ? (Streamed ? plan.res_a : h) : 0;
+  const int resb = Streamed ? plan.res_b : depth;
+
+  float* wa = gsm;                        // Uf[:, k-slice] [h][kwp], rows < resa
+  float* wb = wa + (size_t)resa * kwp;    // [Prz_r | Prz_z | Pn] j-columns [depth][3 jwp]
+  float* hc = gsm + vmlmf::weight_floats<float>((size_t)resa * kwp + (size_t)resb * ldb);
+  float* gis = hc + slab;                 // the step's gi of the j-slice [3][jwp][rpad]
+  float* zs = gis + 3 * slab;             // "pre": z [jwp][rpad]; "post": the sums [3][jwp][rpad]
+  float* stage = zs + (kPost ? 3 : 1) * slab;
+  float* red = stage + plan.stage;
+  float* sa = a.wstream + (Streamed ? blockIdx.x * vmlmf::gru::grid_stream_floats(
+                                                      Form, h, r, plan, false)
+                                    : 0);
+  float* sb = sa + (size_t)(kLowrank ? h - resa : 0) * kwp;
+  const size_t hpar = (size_t)plan.groups * h * rpad;
+  float* hx = a.xchg + (size_t)grp * h * rpad;  // parity p at hx + p * hpar
+  float* rhx = a.xchg + 2 * hpar + (size_t)grp * h * rpad;
+  float* ux = a.xchg + (kPost ? 2 : 3) * hpar + (size_t)grp * r * rpad;
+  unsigned* count = a.sync + grp;
+  unsigned target = 0;
+
+  // the slices, loaded once: resident rows into shared memory, the others
+  // into the CTA's streamed region; columns past the CTA's own are zero
+  if constexpr (kLowrank) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
+      const int d = e / kwp, kk = e % kwp;
+      vmlmf::gru::slice_store<Streamed>(wa, sa, resa, kwp, d, kk,
+                                        kk < kw ? a.uf[(size_t)d * r + k0 + kk] : 0.f);
+    }
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < depth * ldb; e += blockDim.x) {
+    const int d = e / ldb, c = e % ldb, g = c / jwp, jj = c % jwp;
+    const float v = jj >= jw ? 0.f
+                    : g < 2  ? a.prz[(size_t)d * 2 * h + g * h + j0 + jj]
+                             : a.pn[(size_t)d * h + j0 + jj];
+    vmlmf::gru::slice_store<Streamed>(wb, sb, resb, ldb, d, c, v);
+  }
+  // the carry from h0 (padding zero), and h0's j-slice into the exchange of step 0
+  for (int e = threadIdx.x; e < slab; e += blockDim.x) {
+    const int jj = e / rpad, row = e % rpad;
+    hc[e] = jj < jw && row < rows ? a.h0[(size_t)(b0 + row) * h + j0 + jj] : 0.f;
+    if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = hc[e];
+  }
+  vmlmf::group_sync(count, plan.ctas, target);
+
+  for (int t = 0; t < a.t_len; ++t) {
+    const float* hin = hx + (t & 1) * hpar;
+    float* hout = hx + ((t + 1) & 1) * hpar;
+    const size_t m0 = (size_t)t * a.batch + b0;  // the group's first row of the step
+    // the step's gi of the j-slice, copied while the first product runs
+    for (int e = threadIdx.x; e < 3 * jw * rows; e += blockDim.x) {
+      const int jj = e % jw, g = (e / jw) % 3, row = e / (3 * jw);
+      vmlmf::cp_async4(gis + (size_t)(g * jwp + jj) * rpad + row,
+                       a.gi + (m0 + row) * g3 + g * h + j0 + jj);
+    }
+    // an epilogue of a product over rank columns: the group's hu or rhu
+    auto rank_out = [&](float* res) {
+      return [&, res](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kk = 4 * cb + c;
+          if (kk >= kw) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i;
+            ux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
+            if (Residuals && row < rows) res[(m0 + row) * r + k0 + kk] = acc[c][i];
+          }
+        }
+      };
+    };
+
+    if constexpr (kPost) {
+      // r, z and recn = h @ Pn of the j-slice, then the update
+      vmlmf::cp_async_wait_all();
+      vmlmf::gru::rows_product<Streamed>(hin, 0, h, rpad, wb, sb, resb, ldb, 0, ldb, stage,
+                                         plan.stage, red, plan.red,
+                                         [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) zs[(size_t)(4 * cb + c) * rpad + 4 * rb + i] = acc[c][i];
+      });
+      __syncthreads();
+      for (int e = threadIdx.x; e < jw * rpad; e += blockDim.x) {
+        const int jj = e % jw, row = e / jw, j = j0 + jj, at = jj * rpad + row;
+        if (row >= rows) {
+          hout[(size_t)j * rpad + row] = 0.f;
+          continue;
+        }
+        const size_t m = m0 + row;
+        const float rg = vmlmf::gru::sigmoid(gis[at] + zs[at]);
+        const float z = vmlmf::gru::sigmoid(gis[slab + at] + zs[slab + at]);
+        const float rec = zs[2 * slab + at];
+        const float n = tanhf(gis[2 * slab + at] + rg * rec);
+        const float hv = z * hc[at] + (1.f - z) * n;
+        hc[at] = hv;
+        hout[(size_t)j * rpad + row] = hv;
+        a.ys[m * h + j] = hv;
+        if (Residuals) {
+          float* gs = a.gates + m * g3;
+          gs[j] = rg;
+          gs[h + j] = z;
+          gs[2 * h + j] = n;
+          a.recn[m * h + j] = rec;
+        }
+      }
+      vmlmf::group_sync(count, plan.ctas, target);
+    } else {
+      const float* src = hin;  // the rows of the gates' product: h, or hu
+      if constexpr (kLowrank) {  // hu = h @ Uf[:, k-slice]
+        vmlmf::gru::rows_product<Streamed>(hin, 0, h, rpad, wa, sa, resa, kwp, 0, kwp, stage,
+                                           plan.stage, red, plan.red, rank_out(a.hu));
+        vmlmf::group_sync(count, plan.ctas, target);
+        src = ux;
+      }
+      // r and z of the j-slice: r*h into the exchange, z kept
+      vmlmf::cp_async_wait_all();
+      vmlmf::gru::rows_product<Streamed>(src, 0, depth, rpad, wb, sb, resb, ldb, 0, 2 * jwp,
+                                         stage, plan.stage, red, plan.red,
+                                         [&](int cb, int rb, float (&acc)[4][4]) {
+        const int g = (4 * cb) / jwp;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int jj = 4 * cb + c - g * jwp;
+          if (jj >= jw) continue;
+          const int j = j0 + jj;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i, at = jj * rpad + row;
+            if (row >= rows) {
+              if (g == 0) rhx[(size_t)j * rpad + row] = 0.f;
+              continue;
+            }
+            const float v = vmlmf::gru::sigmoid(gis[g * slab + at] + acc[c][i]);
+            if (g == 0)
+              rhx[(size_t)j * rpad + row] = v * hc[at];
+            else
+              zs[at] = v;
+            if (Residuals) a.gates[(m0 + row) * g3 + g * h + j] = v;
+          }
+        }
+      });
+      vmlmf::group_sync(count, plan.ctas, target);
+      const float* nsrc = rhx;
+      if constexpr (kLowrank) {  // rhu = (r*h) @ Uf[:, k-slice]
+        vmlmf::gru::rows_product<Streamed>(rhx, 0, h, rpad, wa, sa, resa, kwp, 0, kwp, stage,
+                                           plan.stage, red, plan.red, rank_out(a.rhu));
+        vmlmf::group_sync(count, plan.ctas, target);
+        nsrc = ux;
+      }
+      // the candidate n of the j-slice and the update
+      vmlmf::gru::rows_product<Streamed>(nsrc, 0, depth, rpad, wb, sb, resb, ldb, 2 * jwp, jwp,
+                                         stage, plan.stage, red, plan.red,
+                                         [&](int cb, int rb, float (&acc)[4][4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int jj = 4 * cb + c;
+          if (jj >= jw) continue;
+          const int j = j0 + jj;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 4 * rb + i, at = jj * rpad + row;
+            if (row >= rows) {
+              hout[(size_t)j * rpad + row] = 0.f;
+              continue;
+            }
+            const size_t m = m0 + row;
+            const float n = tanhf(gis[2 * slab + at] + acc[c][i]);
+            const float z = zs[at];
+            const float hv = z * hc[at] + (1.f - z) * n;
+            hc[at] = hv;
+            hout[(size_t)j * rpad + row] = hv;
+            a.ys[m * h + j] = hv;
+            if (Residuals) a.gates[m * g3 + 2 * h + j] = n;
+          }
+        }
+      });
+      vmlmf::group_sync(count, plan.ctas, target);
+    }
+  }
+}
+
+template <int Form, bool Residuals>
+cudaError_t grid_scan(const GridFwdArgs& io, size_t wstream_floats, GridPlan plan,
+                      cudaStream_t stream) {
+  using vmlmf::gru::grid_smem_floats;
+  using vmlmf::gru::grid_stream_floats;
+  if (!vmlmf::gru::grid_resident_ok(Form, io.h, io.r, plan, false) ||
+      sizeof(float) * grid_smem_floats(Form, io.h, io.r, plan, false) > (size_t)plan.smem ||
+      plan.groups > io.batch || io.xchg == nullptr || io.sync == nullptr)
+    return cudaErrorInvalidValue;
+  const size_t streamed = grid_stream_floats(Form, io.h, io.r, plan, false);
+  if (streamed * plan.groups * plan.ctas > wstream_floats || (streamed > 0 && io.wstream == nullptr))
+    return cudaErrorInvalidValue;
+  GridFwdArgs a = io;
+  void* args[] = {&a, &plan};
+  return streamed > 0 ? vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, true>, plan, a.sync,
+                                           args, stream)
+                      : vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, false>, plan, a.sync,
+                                           args, stream);
+}
+
+template <bool Residuals>
+cudaError_t grid_form(const GridFwdArgs& io, int form, size_t wstream_floats, GridPlan plan,
+                      cudaStream_t stream) {
+  switch (form) {
+    case kLowrankPre:
+      return grid_scan<kLowrankPre, Residuals>(io, wstream_floats, plan, stream);
+    case kDensePre:
+      return grid_scan<kDensePre, Residuals>(io, wstream_floats, plan, stream);
+    case kDensePost:
+      return grid_scan<kDensePost, Residuals>(io, wstream_floats, plan, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Every entry takes the plan of ops/cuda_gru.py::gru_plan as its last
@@ -568,6 +837,36 @@ extern "C" int gru_scan_fwd_res(const float* gi, const float* uf, const float* p
                   recn, nullptr, state, t_len, batch, 0, 0, h, r, rows, tblock, rec_res, x_res,
                   spill};
   return launch_form<kGiMode, true>(a, form, threads, smem, stream_handle);
+}
+
+// The grid layout of every forward entry (ops/cuda_gru.py::gru_grid_plan):
+// x mode when x is given, whose projection writes gi [T*B, 3h] (scratch)
+// and xu [T*B, rx] (low-rank x side: the residual, or scratch; else null)
+// before the scan; gi mode when x is null, gi then being the input. Writes
+// ys and, with `residuals` 1, gates, hu and rhu (low-rank) or recn ("post").
+// xchg, sync (a barrier word a group) and wstream (wstream_floats floats;
+// null where the plan streams nothing) are scratch that gru_grid_plan
+// sizes; the eight integers after the form are its layout (GRUGridPlan.ints).
+extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
+                            const float* bias, float* gi, const float* uf, const float* prz,
+                            const float* pn, const float* h0, float* xu, float* ys,
+                            float* gates, float* hu, float* rhu, float* recn, float* xchg,
+                            unsigned* sync, float* wstream, int wstream_floats, int t_len,
+                            int batch, int f, int rx, int h, int r, int form, int groups,
+                            int ctas, int rpad, int stage, int red, int smem, int res_a,
+                            int res_b, int residuals, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (gi == nullptr || (residuals && gates == nullptr)) return cudaErrorInvalidValue;
+  if (x != nullptr) {
+    const cudaError_t err = project(x, ux, vx, bias, xu, gi, t_len * batch, f, rx, h, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const GridFwdArgs a{gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xchg, sync, wstream,
+                      t_len, batch, h, r};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
+  const size_t nstream = static_cast<size_t>(wstream_floats);
+  return residuals ? grid_form<true>(a, form, nstream, plan, stream)
+                   : grid_form<false>(a, form, nstream, plan, stream);
 }
 
 // The message of an error code that an entry of this file returned.

@@ -231,6 +231,33 @@ __device__ __forceinline__ float pick(const float (&a)[R], int i) {
   return v;
 }
 
+// Epilogue of the x side's last projection GEMM: g[i, j] = v + bias[j],
+// g [M, n].
+struct BiasEpilogue {
+  float* g;
+  const float* bias;
+  int n;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    g[(size_t)i * n + j] = v + bias[j];
+  }
+};
+
+// The x side's input projection over all M rows, as tiled f32 GEMMs
+// (gemm_tile.cuh): xu = x @ Ux (low-rank x side, vx given) and gi = xu @ Vx
+// + bias, or gi = x @ Ux + bias; gi [M, 3h]. Returns the first error.
+inline cudaError_t project(const float* x, const float* ux, const float* vx, const float* bias,
+                           float* xu, float* gi, int m, int f, int rx, int h,
+                           cudaStream_t stream) {
+  using vmlmf::RowMajor;
+  const int g3 = 3 * h;
+  const BiasEpilogue epi{gi, bias, g3};
+  if (vx == nullptr) return vmlmf::gemm(RowMajor{x, f}, RowMajor{ux, g3}, epi, m, g3, f, stream);
+  const cudaError_t err =
+      vmlmf::gemm(RowMajor{x, f}, RowMajor{ux, rx}, vmlmf::Store{xu, rx}, m, rx, f, stream);
+  if (err != cudaSuccess) return err;
+  return vmlmf::gemm(RowMajor{xu, rx}, RowMajor{vx, g3}, epi, m, g3, rx, stream);
+}
+
 // A region of `n` floats at the running offset `at`, rounded to a float4.
 __host__ __device__ inline size_t take(size_t& at, size_t n) {
   const size_t start = at;

@@ -187,7 +187,9 @@ __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int
 // `resident`. Without it (a plan that streams nothing) every row is in
 // shared memory and `ws`, `resident` are unused: the kernels are built for
 // both, so a resident plan runs the code it ran before any row could be
-// streamed. An item is 4 columns x 4 rows (16 sums in registers,
+// streamed. With Batch > 1 a thread issues the loads of Batch streamed rows
+// before their FMAs (more loads in flight; the same sums in the same
+// order). An item is 4 columns x 4 rows (16 sums in registers,
 // float4 loads of A and four-element loads of W, widened). With
 // fewer items than threads, each item's depth is cut into `slices`
 // interleaved parts; their partial sums meet in `red` and one thread per
@@ -196,7 +198,7 @@ __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int
 // 4rb+r. The partials lie [slice][16][items], so that neighbouring threads
 // (neighbouring items) touch neighbouring banks. Every thread of the CTA
 // must call it.
-template <bool Streamed, class W, class Epi>
+template <bool Streamed, int Batch = 1, class W, class Epi>
 __device__ __forceinline__ void slice_product(const float* a, int depth, int rpad,
                                               const W* w, const W* ws, int resident, int ldw,
                                               int ncols, float* stage, int stage_floats,
@@ -265,6 +267,16 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
           int d = s;
 #pragma unroll 4
           for (; d < dr; d += slices) fma_row(s4[d * rbs + rb], load4(wd + (size_t)d * ldw));
+          if constexpr (Batch > 1) {
+            for (; d + (Batch - 1) * slices < dn; d += Batch * slices) {
+              float4 wv[Batch];
+#pragma unroll
+              for (int k = 0; k < Batch; ++k)
+                wv[k] = load4_global(sd + (size_t)(d0 + d + k * slices - resident) * ldw);
+#pragma unroll
+              for (int k = 0; k < Batch; ++k) fma_row(s4[(d + k * slices) * rbs + rb], wv[k]);
+            }
+          }
 #pragma unroll 4
           for (; d < dn; d += slices)  // the streamed rows d0 + d >= resident
             fma_row(s4[d * rbs + rb], load4_global(sd + (size_t)(d0 + d - resident) * ldw));

@@ -40,8 +40,13 @@ plain versions; on CUDA tensors they launch the kernel or raise.
 threads, the forward's time block, where the weights are held, and, for a
 width whose state does not fit in shared memory, which regions live in a
 device-memory scratch: `state_floats`) and `gru_bwd_partial_floats` sizes
-the BPTT's split-k scratch. All are plain Python, so the CPU tests reach
-them.
+the BPTT's split-k scratch. Where `gru_plan` would read a kernel's
+recurrent weights through L2, that kernel runs the grid layout instead
+(`gru_layout`): `gru_grid_plan` spreads the units over the CTAs of a
+cooperative launch, each holding its weight slices in shared memory
+(csrc/gru_grid.cuh, entries ``gru_grid_fwd`` and ``gru_grid_bwd``), and
+`gru_grid_chunks` cuts a batch that no grid plan takes into chunks of rows,
+one launch each. All are plain Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -52,9 +57,12 @@ import functools
 import torch
 
 from vmlmf_tpu_torch.ops.cuda_scan import (
+    MIN_STEP_WORK,
     SMEM_LIMIT,
     SMS,
     SPLIT_TARGET,
+    STAGE_FLOATS,
+    _by_chunks,
     _cdiv,
     _check_tensors,
     _counted,
@@ -64,7 +72,10 @@ from vmlmf_tpu_torch.ops.cuda_scan import (
     _on_cpu,
     _refuse_grad,
     _require_cuda,
+    _slices,
     _sm_count,
+    _split_at,
+    _sync_words,
     env_saved_gates,
     variant,
 )
@@ -611,8 +622,385 @@ def _fwd_layout(t, rows, f, rx, h, r, form, xside, places):
     return None
 
 
-def _plan_for(t, b, f, rx, h, r, form, device, gi=False):
-    return gru_plan(t, b, f, rx, h, r, form, gi=gi, sms=_sm_count(device.index))
+# -- the grid layout (csrc/gru_grid.cuh: grid_fwd_kernel, grid_walk_kernel)
+
+@dataclasses.dataclass(frozen=True)
+class GRUGridPlan:
+    """How the grid layout of the GRU kernels spreads one call of batch
+    ``b``, width ``h``, rank ``r`` (0 dense) and ``form`` over the card:
+    ``groups`` batch groups of consecutive rows, each on ``ctas``
+    co-resident CTAs of one cooperative launch. CTA q of a group owns the
+    hidden units `j_range(q)` and the rank columns `k_range(q)`, and holds
+    its two weight slices (`slices`) in shared memory for the whole scan;
+    ``rpad``: a group's rows padded to a multiple of 4. Per kernel ("fwd",
+    the forward; "bwd", the walk): ``stage`` and ``red``, floats of the
+    staging buffer and of the slice partials; ``smem``, bytes of shared
+    memory a CTA; ``xchg``, floats of the exchange buffers; ``resident``,
+    the depth rows of each slice held in shared memory. A slice's rows past
+    its resident depth are streamed: the CTA copies them once into its own
+    region of a device-memory scratch (`grid_stream_floats`) and reads them
+    every step, in the same order of sums."""
+
+    b: int
+    h: int
+    r: int
+    form: int
+    groups: int
+    ctas: int
+    rpad: int
+    stage_fwd: int
+    red_fwd: int
+    smem_fwd: int
+    xchg_fwd: int
+    stage_bwd: int
+    red_bwd: int
+    smem_bwd: int
+    xchg_bwd: int
+    resident_fwd: tuple = (0, 0)
+    resident_bwd: tuple = (0, 0)
+
+    @property
+    def n_ctas(self):
+        return self.groups * self.ctas
+
+    def slices(self, kernel):
+        """`_grid_slices` of ``kernel`` ("fwd" or "bwd") on this plan's CTAs."""
+        return _grid_slices(self.h, self.r, self.form, self.ctas)[kernel]
+
+    def resident(self, kernel):
+        return self.resident_fwd if kernel == "fwd" else self.resident_bwd
+
+    def streamed_elems(self, kernel):
+        """Weight elements a CTA of ``kernel`` streams a step."""
+        return sum((d - res) * c for (d, c), res in zip(self.slices(kernel),
+                                                        self.resident(kernel)))
+
+    @property
+    def streamed(self):
+        return any(self.streamed_elems(k) for k in ("fwd", "bwd"))
+
+    @property
+    def smem_bytes(self):
+        return max(self.smem_fwd, self.smem_bwd)
+
+    def rows(self, g):
+        """Batch rows [b0, b1) of group g."""
+        return _split_at(g, self.b, self.groups), _split_at(g + 1, self.b, self.groups)
+
+    def j_range(self, q):
+        """Hidden units [j0, j1) of CTA q of a group."""
+        return _split_at(q, self.h, self.ctas), _split_at(q + 1, self.h, self.ctas)
+
+    def k_range(self, q):
+        """Rank columns [k0, k1) of CTA q of a group (empty when dense)."""
+        return _split_at(q, self.r, self.ctas), _split_at(q + 1, self.r, self.ctas)
+
+    def ints(self, kernel):
+        """The plan as entry gru_grid_fwd or gru_grid_bwd takes it: groups,
+        ctas, rpad, stage, red, smem, and the resident depths of slices A
+        and B."""
+        fwd = kernel == "fwd"
+        return (self.groups, self.ctas, self.rpad,
+                *((self.stage_fwd, self.red_fwd, self.smem_fwd) if fwd
+                  else (self.stage_bwd, self.red_bwd, self.smem_bwd)), *self.resident(kernel))
+
+
+def grid_stream_floats(plan, kernel):
+    """Floats of the device-memory scratch that ``kernel`` streams its weight
+    rows from: each CTA's streamed elements, rounded up to a float4
+    (gru_grid.cuh::grid_stream_floats), times the CTAs; 0 where none."""
+    return plan.n_ctas * _q4(plan.streamed_elems(kernel))
+
+
+@functools.lru_cache(maxsize=4096)
+def _grid_slices(h, r, form, ctas):
+    """{kernel: ((depth, columns) of slice A, of slice B)} of a CTA, as
+    gru_grid.cuh::SliceShapes lays them out: the forward's Uf[:, k-slice]
+    [h][kwp] (depth 0 when dense) and [Prz_r | Prz_z | Pn][:, j-slice]
+    [r or h][3 jwp]; the walk's [Prz; Pn]^T rows of the k-slice [3h][kwp]
+    (0 when dense) and, of the j-slice, [Prz; Pn]^T [3h][jwp] (dense) or
+    Uf^T [r][jwp] (low-rank)."""
+    lowrank = form == LOWRANK_PRE
+    jwp, kwp = _q4(_cdiv(h, ctas)), (_q4(_cdiv(r, ctas)) if lowrank else 0)
+    return {"fwd": ((h if lowrank else 0, kwp), (r if lowrank else h, 3 * jwp)),
+            "bwd": ((3 * h if lowrank else 0, kwp), (r if lowrank else 3 * h, jwp))}
+
+
+def _grid_phases(h, r, form, ctas):
+    """{kernel: its products as (depth, columns)}, in a step's order."""
+    jwp = _q4(_cdiv(h, ctas))
+    kwp = _q4(_cdiv(r, ctas)) if form == LOWRANK_PRE else 0
+    if form == LOWRANK_PRE:
+        return {"fwd": [(h, kwp), (r, 2 * jwp), (h, kwp), (r, jwp)],
+                "bwd": [(h, kwp), (r, jwp), (2 * h, kwp), (r, jwp)]}
+    if form == DENSE_PRE:
+        return {"fwd": [(h, 2 * jwp), (h, jwp)], "bwd": [(h, jwp), (2 * h, jwp)]}
+    return {"fwd": [(h, 3 * jwp)], "bwd": [(3 * h, jwp)]}
+
+
+# [units][rpad] buffers of each kernel (gru_grid.cuh::grid_slabs)
+GRID_SLABS = {"fwd": {LOWRANK_PRE: 5, DENSE_PRE: 5, DENSE_POST: 7},
+              "bwd": {LOWRANK_PRE: 6, DENSE_PRE: 6, DENSE_POST: 7}}
+
+
+def grid_plan_layout(b, h, r, form, groups, ctas, resident=None):
+    """The GRUGridPlan of ``groups`` batch groups of ``ctas`` CTAs each;
+    `gru_grid_plan` picks the grouping. ``resident``: the (forward, walk)
+    pairs of resident depths; None holds every row in shared memory.
+
+    A product stages its exchange rows in halves of ``stage`` (each an L2
+    round trip), so where every weight row fits with room to spare, the
+    stage takes that room, in whole pairs of rows, up to the deepest
+    product. The room is that of the all-resident layout of this grouping,
+    so a plan that streams some rows stages, and sums, as it does."""
+    rpad = _q4(_cdiv(b, groups))
+    slices = _grid_slices(h, r, form, ctas)
+    if resident is None:
+        resident = tuple(tuple(d for d, _ in slices[k]) for k in ("fwd", "bwd"))
+    phases = _grid_phases(h, r, form, ctas)
+    jwp = _q4(_cdiv(h, ctas))
+    layout = []
+    for i, kernel in enumerate(("fwd", "bwd")):
+        weights = sum(res * c for res, (_, c) in zip(resident[i], slices[kernel]))
+        deepest = max(d for d, _ in phases[kernel])
+        stage = min(deepest, max(2, STAGE_FLOATS // rpad)) * rpad
+        red = 0
+        for depth, cols in phases[kernel]:
+            items = _cdiv(cols, 4) * (rpad // 4)
+            n = _slices(items, depth)
+            red = max(red, n * items * 16 if n > 1 else 0)
+        slabs = GRID_SLABS[kernel][form] * jwp * rpad
+        room = SMEM_LIMIT // 4 - (_q4(sum(d * c for d, c in slices[kernel])) + slabs + stage + red)
+        if room >= 2 * rpad:
+            stage = min(deepest * rpad, stage + room // (2 * rpad) * 2 * rpad)
+        layout += [stage, red, 4 * (_q4(weights) + slabs + stage + red)]
+    pre, lowrank = form != DENSE_POST, form == LOWRANK_PRE
+    xchg_fwd = groups * rpad * (2 * h + (h if pre else 0) + (r if lowrank else 0))
+    xchg_bwd = groups * rpad * (6 * h + (r if lowrank else 0))
+    return GRUGridPlan(b, h, r, form, groups, ctas, rpad, *layout[:3], xchg_fwd, *layout[3:],
+                       xchg_bwd, *map(tuple, resident))
+
+
+def _grid_rec_macs(h, r, form):
+    """Multiply-adds of one row's step of the recurrence."""
+    return 5 * h * r if form == LOWRANK_PRE else 3 * h * h
+
+
+@functools.lru_cache(maxsize=1024)
+def _grid_fits_resident(b, h, r, form, sms):
+    """The first grouping of `gru_grid_plan`'s search whose weights are all
+    resident and fit, or None."""
+    for groups in range(min(b, sms), 0, -1):
+        most = max(1, min(sms // groups, h))
+        work = _q4(_cdiv(b, groups)) * _grid_rec_macs(h, r, form)
+        for ctas in sorted({min(most, _cdiv(work, MIN_STEP_WORK)), most}):
+            plan = grid_plan_layout(b, h, r, form, groups, ctas)
+            if plan.smem_bytes <= SMEM_LIMIT:
+                return plan
+    return None
+
+
+def _grid_streamed(b, h, r, form, sms):
+    """The plan where not even one row's weights fit in the shared memory of
+    all SMs: one group over min(sms, h) CTAs, each kernel holding as much
+    depth of each slice as fits beside its slabs, stage and red (the same
+    share of each slice's depth), the rest streamed. Raises ValueError where
+    the slabs alone do not fit."""
+    ctas = min(sms, h)
+    empty = grid_plan_layout(b, h, r, form, 1, ctas, resident=((0, 0), (0, 0)))
+    resident = []
+    for kernel, smem in (("fwd", empty.smem_fwd), ("bwd", empty.smem_bwd)):
+        room = (SMEM_LIMIT - smem) // 16 * 4  # weight floats that fit
+        if room < 0:
+            raise ValueError(f"no GRU grid plan for B={b}, h={h}, r={r}: the slabs do not fit "
+                             f"beside a streamed slice")
+        total = sum(d * c for d, c in empty.slices(kernel))
+        resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
+    return grid_plan_layout(b, h, r, form, 1, ctas, resident=tuple(resident))
+
+
+@functools.lru_cache(maxsize=1024)
+def gru_grid_plan(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
+    """The grid layout of the GRU kernels for a call of T steps, batch
+    ``b``, input width ``f`` (x side rank ``rx``), width ``h``, recurrent
+    rank ``r`` (0 dense) and ``form`` on ``sms`` SMs -> GRUGridPlan. The x
+    side (``f``, ``rx``, ``gi``) runs before the scan as a time-parallel
+    projection, and T steps run one after another: neither changes the
+    layout.
+
+    As `cuda_scan.scan_plan` does for the LSTM: for each group count from
+    min(b, sms) down, ``ctas`` = just enough CTAs for MIN_STEP_WORK each,
+    then sms // groups, both at most h; the first whose shared memory fits,
+    every weight row resident, wins. Where the weights do not fit in the
+    shared memory of all SMs even for one row, the plan streams the rows
+    that do not fit (`_grid_streamed`). Raises ValueError where the batch
+    has no plan (`gru_grid_chunks` then cuts it)."""
+    if form not in (LOWRANK_PRE, DENSE_PRE, DENSE_POST) or (form == LOWRANK_PRE) != (r > 0):
+        raise ValueError(f"no GRU grid plan for form {form} with r={r}")
+    if min(t, b, h, sms) < 1 or min(f, rx, r) < 0 or (not gi and f < 1):
+        raise ValueError(f"no GRU grid plan for T={t}, B={b}, F={f}, rx={rx}, h={h}, r={r} on "
+                         f"{sms} SMs")
+    if _grid_fits_resident(1, h, r, form, sms) is None:
+        return _grid_streamed(b, h, r, form, sms)
+    plan = _grid_fits_resident(b, h, r, form, sms)
+    if plan is None:
+        raise ValueError(f"the GRU weights of h={h}, r={r or 'dense'} do not fit in the shared "
+                         f"memory of {sms} SMs at B={b}")
+    return plan
+
+
+@functools.lru_cache(maxsize=1024)
+def gru_grid_chunks(t, b, f, rx, h, r, form, *, gi=False, sms=SMS):
+    """The batch cut into as few chunks of consecutive rows as each have a
+    `gru_grid_plan`, their sizes at most one apart -> ((b_begin, b_count,
+    plan), ...): one cooperative launch a chunk. Raises ValueError where not
+    even one row has a plan."""
+    gru_grid_plan(t, 1, f, rx, h, r, form, gi=gi, sms=sms)
+    for n in range(1, b + 1):
+        bounds = [_split_at(i, b, n) for i in range(n + 1)]
+        try:
+            return tuple((b0, b1 - b0, gru_grid_plan(t, b1 - b0, f, rx, h, r, form, gi=gi,
+                                                      sms=sms))
+                         for b0, b1 in zip(bounds, bounds[1:]))
+        except ValueError:
+            continue
+    raise AssertionError("one row has a plan, so b chunks of one row have")
+
+
+def gru_layout(t, b, f, rx, h, r, form, *, kernel="fwd", gi=False, sms=SMS):
+    """The layout the wrappers run ``kernel`` of a call in ("fwd": the two
+    forward entries; "bwd": the BPTT): `gru_plan`'s GRUPlan where that
+    kernel holds its recurrent weights in registers or shared memory (every
+    HAR-width shape keeps its plan and its bits); where it would read them
+    through L2, the grid layout, `gru_grid_chunks`. The residuals do not
+    depend on the layout, so a forward on rows and a walk on the grid
+    compose (a dense h of 135–136, whose walk alone reads through L2). On
+    an H100 the grid ran faster than the row layout at every such shape
+    measured (PERF.md, PR 17)."""
+    plan = gru_plan(t, b, f, rx, h, r, form, gi=gi, sms=sms)
+    if (plan.rec_weights if kernel == "fwd" else plan.bwd_rec_weights) != "L2":
+        return plan
+    return gru_grid_chunks(t, b, f, rx, h, r, form, gi=gi, sms=sms)
+
+
+def _plan_for(t, b, f, rx, h, r, form, device, kernel="fwd", gi=False):
+    return gru_layout(t, b, f, rx, h, r, form, kernel=kernel, gi=gi,
+                      sms=_sm_count(device.index))
+
+
+def _grid_scratch(plan, kernel, like):
+    """(exchange buffers, barrier words, streamed scratch or None, its
+    floats) of one grid launch."""
+    new = _empty(like)
+    n = grid_stream_floats(plan, kernel)
+    return (new(plan.xchg_fwd if kernel == "fwd" else plan.xchg_bwd), _sync_words(plan, like),
+            new(n) if n else None, n)
+
+
+def _chunks(layout, b):
+    """A layout as `_by_chunks` takes it: a row plan is one chunk."""
+    return ((0, b, layout),) if isinstance(layout, GRUPlan) else layout
+
+
+def _fwd_launch(residuals, form, plan, *tensors):
+    """One launch of the forward on a chunk of rows, from x mode's (xs, ux,
+    vx, bias, uf, prz, pn, h0) or gi mode's (gi, uf, prz, pn, h0) -> (ys,)
+    or, with ``residuals``, (ys, gates, hu, rhu, recn[, xu in x mode]). A
+    GRUPlan runs the row entries (gru_scan_xin_fwd[_res], gru_scan_fwd[_res]),
+    a GRUGridPlan entry gru_grid_fwd, which in x mode first projects into a
+    gi scratch."""
+    gi_mode = len(tensors) == 5
+    lead, h0, uf = tensors[0], tensors[-1], tensors[-4]
+    t, b = lead.shape[:2]
+    h, r = h0.shape[-1], 0 if uf is None else uf.shape[-1]
+    f, rx = (0, 0) if gi_mode else (lead.shape[-1], 0 if tensors[2] is None
+                                    else tensors[1].shape[-1])
+    new = _empty(lead)
+    ys = new(t, b, h)
+    gates = new(t, b, 3 * h) if residuals else None
+    hu, rhu, recn = _form_buffers(new, t, b, h, r, form) if residuals else (None,) * 3
+    xu = new(t, b, rx) if rx and (residuals or not isinstance(plan, GRUPlan)) else None
+    outs = (ys, gates, hu, rhu, recn) if residuals else (ys,)
+    sizes = (t, b, h, r, form) if gi_mode else (t, b, f, rx, h, r, form)
+    if isinstance(plan, GRUPlan):
+        entry = ("gru_scan_fwd" if gi_mode else "gru_scan_xin_fwd") + ("_res" if residuals
+                                                                        else "")
+        kept = outs if gi_mode or not residuals else (xu, *outs)
+        _launch(KERNEL, entry, (*tensors, *kept, _state(plan, "fwd", lead)),
+                (*sizes, *plan.ints("fwd")), lead.device)
+    else:
+        xin = (None,) * 4 + tensors[:1] if gi_mode else (*tensors[:4], new(t, b, 3 * h))
+        xchg, sync, wstream, nstream = _grid_scratch(plan, "fwd", lead)
+        _launch(KERNEL, "gru_grid_fwd",
+                (*xin, *tensors[-4:], xu, ys, gates, hu, rhu, recn, xchg, sync, wstream),
+                (nstream, t, b, f, rx, h, r, form, *plan.ints("fwd"), int(residuals)),
+                lead.device)
+    return outs if gi_mode or not residuals else (*outs, xu)
+
+
+def _bwd_launch(form, dx, plan, *tensors):
+    """One launch of the BPTT on a chunk of rows, from x mode's (xs, ux, vx,
+    uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias) or gi mode's
+    (uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys) -> the gradients, as
+    `gru_scan_xin_bwd` or `gru_scan_bwd` returns them. A GRUPlan runs the
+    row entries (gru_scan_xin_bwd, gru_scan_bwd), a GRUGridPlan entry
+    gru_grid_bwd; gates None is the recompute policy (x mode)."""
+    gi_mode = len(tensors) == 10
+    if gi_mode:
+        uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys = tensors
+        xs = ux = vx = xu = bias = None
+        f = rx = 0
+    else:
+        xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias = tensors
+        f, rx = xs.shape[-1], 0 if vx is None else ux.shape[-1]
+    t, b, h = ys.shape
+    r = 0 if uf is None else uf.shape[-1]
+    new = _empty(ys)
+    lowrank = form == LOWRANK_PRE
+    work = (None,) * 5
+    if gates is None:  # what the recompute pre-pass rebuilds: gates, hu, rhu, recn, xu
+        work = (new(t, b, 3 * h), *_form_buffers(new, t, b, h, r, form),
+                new(t, b, rx) if rx else None)
+    dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
+    nparts = gru_bwd_partial_floats(t, b, f, rx, h, r, form, gi=gi_mode, dx=dx)
+    if gi_mode:
+        grads = (new(t, b, 3 * h), new(h, r) if lowrank else None, torch.empty_like(prz),
+                 torch.empty_like(pn), new(b, h))
+        dpre, dxu = grads[0], None
+    else:
+        grads = (new(t, b, f) if dx else None, torch.empty_like(ux),
+                 new(rx, 3 * h) if rx else None, new(3 * h),
+                 new(h, r) if lowrank else None, torch.empty_like(prz), torch.empty_like(pn),
+                 new(b, h))
+        dpre, dxu = new(t * b, 3 * h), new(t * b, rx) if rx else None
+    if isinstance(plan, GRUPlan):
+        state = _state(plan, "bwd", ys)
+        if gi_mode:
+            _launch(BWD_KERNEL, "gru_scan_bwd",
+                    (*tensors, dpre, dhu, drhu, new(nparts), *grads[1:], state),
+                    (t, b, h, r, form, nparts, *plan.ints("bwd")), ys.device)
+        else:
+            _launch(BWD_KERNEL, "gru_scan_xin_bwd",
+                    (*tensors, *work, dpre, dhu, drhu, dxu, new(nparts), *grads, state),
+                    (t, b, f, rx, h, r, form, nparts, *plan.ints("bwd")), ys.device)
+        return grads
+    xchg, sync, wstream, nstream = _grid_scratch(plan, "bwd", ys)
+    out = (None,) * 4 + grads[1:] if gi_mode else grads
+    _launch(BWD_KERNEL, "gru_grid_bwd",
+            (xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, *work, dpre,
+             dhu, drhu, dxu, new(nparts), *out, xchg, sync, wstream),
+            (t, b, f, rx, h, r, form, nparts, nstream, *plan.ints("bwd")), ys.device)
+    return grads
+
+
+# batch dims of the entries' tensors (None: the same for every chunk), and
+# of their outputs (None: a weight gradient, summed over the chunks)
+_XIN_ROWS = (1, None, None, None, None, None, None, 0)
+_GI_ROWS = (1, None, None, None, 0)
+_XIN_BWD_ROWS = (1, None, None, None, None, None, 0, 1, 1, 1, 1, 1, 1, 1, None)
+_GI_BWD_ROWS = (None, None, None, 0, 1, 1, 1, 1, 1, 1)
+_XIN_GRAD_DIMS = (1, None, None, None, None, None, None, 0)
+_GI_GRAD_DIMS = (1, None, None, None, 0)
 
 
 def _state(plan, kernel, like):
@@ -675,8 +1063,10 @@ def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     [B, h]; mode "pre" or "post" (dense only). Returns ys [T, B, h].
 
     CPU tensors run `gru_scan_fused_xin_plain`. CUDA tensors must be float32,
-    contiguous and on one device; the kernel runs on the current stream and
-    ``gru_scan_fused_xin.launches`` counts its calls (``.variants``). A CUDA
+    contiguous and on one device; the kernel runs on the current stream, in
+    the layout of `gru_layout` (one launch, or one a chunk of rows on the
+    grid), and ``gru_scan_fused_xin.launches`` counts its launches
+    (``.variants``). A CUDA
     input that requires a gradient, with grad mode on, raises: that call
     belongs to `GRUScanXin`.
     """
@@ -686,21 +1076,17 @@ def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):
     sizes = _check(_ARG_NAMES, args, mode)
     _require_cuda("gru_scan_fused_xin", xs)
     _refuse_grad("gru_scan_fused_xin", args, "GRUScanXin")
-    ys = _launch_nograd(args, sizes)
-    _counted(gru_scan_fused_xin, variant())
-    return ys
+    return _launch_nograd(gru_scan_fused_xin, variant(), args, sizes)
 
 
-def _launch_nograd(args, sizes):
-    """Launch entry gru_scan_xin_fwd (the no-grad kernel body) -> ys."""
+def _launch_nograd(fn, name, args, sizes):
+    """The no-grad forward in x mode, one launch a chunk of rows counted
+    under ``fn``'s variant ``name`` -> ys."""
     xs = args[0]
-    t, b, f, rx, h, r, form = sizes
     with torch.cuda.device(xs.device):
-        plan = _plan_for(*sizes, xs.device)
-        ys = _empty(xs)(t, b, h)
-        _launch(KERNEL, "gru_scan_xin_fwd", (*args, ys, _state(plan, "fwd", xs)),
-                (*sizes, *plan.ints("fwd")), xs.device)
-    return ys
+        return _by_chunks(fn, name, _chunks(_plan_for(*sizes, xs.device), sizes[1]),
+                          functools.partial(_fwd_launch, False, sizes[-1]), args, _XIN_ROWS,
+                          (1,))[0]
 
 
 @_counter
@@ -718,22 +1104,14 @@ def gru_scan_fused_xin_res(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre", sav
         return gru_scan_xin_fwd_res_plain(*args, mode=mode, save_gates=save_gates)
     sizes = _check(_ARG_NAMES, args, mode)
     _require_cuda("gru_scan_fused_xin_res", xs)
-    t, b, f, rx, h, r, form = sizes
     if not save_gates:
-        ys = _launch_nograd(args, sizes)
-        _counted(gru_scan_fused_xin_res, variant(save_gates=False))
+        ys = _launch_nograd(gru_scan_fused_xin_res, variant(save_gates=False), args, sizes)
         return ys, None, None, None, None, None
     with torch.cuda.device(xs.device):
-        plan = _plan_for(*sizes, xs.device)
-        new = _empty(xs)
-        xu = new(t, b, rx) if rx else None
-        ys, gates = new(t, b, h), new(t, b, 3 * h)
-        hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
-        _launch(KERNEL, "gru_scan_xin_fwd_res",
-                (*args, xu, ys, gates, hu, rhu, recn, _state(plan, "fwd", xs)),
-                (*sizes, *plan.ints("fwd")), xs.device)
-    _counted(gru_scan_fused_xin_res, variant())
-    return ys, gates, hu, rhu, recn, xu
+        return _by_chunks(gru_scan_fused_xin_res, variant(),
+                          _chunks(_plan_for(*sizes, xs.device), sizes[1]),
+                          functools.partial(_fwd_launch, True, sizes[-1]), args, _XIN_ROWS,
+                          (1,) * 6)
 
 
 @_counter
@@ -755,7 +1133,7 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
         return gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx, bias=bias)
     sizes = _check((*_RES_NAMES, "bias"), (*saved, bias), mode)
     _require_cuda("gru_scan_xin_bwd", xs)
-    t, b, f, rx, h, r, form = sizes
+    b, form = sizes[1], sizes[-1]
     recompute = gates is None
     if recompute:
         if any(a is not None for a in (hu, rhu, recn, xu)) or bias is None:
@@ -767,27 +1145,10 @@ def gru_scan_xin_bwd(xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, 
             raise ValueError(f"xu must {'not ' if vx is None else ''}be given with vx "
                              f"{'None' if vx is None else 'given'}")
     with torch.cuda.device(xs.device):
-        plan = _plan_for(*sizes, xs.device)
-        new = _empty(xs)
-        lowrank = form == LOWRANK_PRE
-        work = (None,) * 5
-        if recompute:  # what the pre-pass rebuilds: gates, hu, rhu, recn, xu
-            work = (new(t, b, 3 * h), *_form_buffers(new, t, b, h, r, form),
-                    new(t, b, rx) if rx else None)
-        dpre = new(t * b, 3 * h)
-        dxu = new(t * b, rx) if rx else None
-        dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
-        nparts = gru_bwd_partial_floats(*sizes, dx=dx)
-        grads = (new(t, b, f) if dx else None, torch.empty_like(ux),
-                 new(rx, 3 * h) if rx else None, new(3 * h),
-                 new(h, r) if lowrank else None, torch.empty_like(prz), torch.empty_like(pn),
-                 new(b, h))
-        _launch(BWD_KERNEL, "gru_scan_xin_bwd",
-                (*saved, bias, *work, dpre, dhu, drhu, dxu, new(nparts), *grads,
-                 _state(plan, "bwd", xs)),
-                (*sizes, nparts, *plan.ints("bwd")), xs.device)
-    _counted(gru_scan_xin_bwd, variant(save_gates=not recompute))
-    return grads
+        return _by_chunks(gru_scan_xin_bwd, variant(save_gates=not recompute),
+                          _chunks(_plan_for(*sizes, xs.device, "bwd"), b),
+                          functools.partial(_bwd_launch, form, dx), (*saved, bias),
+                          _XIN_BWD_ROWS, _XIN_GRAD_DIMS)
 
 
 class GRUScanXin(torch.autograd.Function):
@@ -839,12 +1200,9 @@ def gru_scan_fused(gi, uf, prz, pn, h0, *, mode="pre"):
     _refuse_grad("gru_scan_fused", args, "GRUScan")
     t, b, h, r, form = sizes
     with torch.cuda.device(gi.device):
-        plan = _plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True)
-        ys = _empty(gi)(t, b, h)
-        _launch(KERNEL, "gru_scan_fwd", (*args, ys, _state(plan, "fwd", gi)),
-                (*sizes, *plan.ints("fwd")), gi.device)
-    _counted(gru_scan_fused, variant())
-    return ys
+        return _by_chunks(gru_scan_fused, variant(),
+                          _chunks(_plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True), b),
+                          functools.partial(_fwd_launch, False, form), args, _GI_ROWS, (1,))[0]
 
 
 @_counter
@@ -861,15 +1219,9 @@ def gru_scan_fused_res(gi, uf, prz, pn, h0, *, mode="pre"):
     _require_cuda("gru_scan_fused_res", gi)
     t, b, h, r, form = sizes
     with torch.cuda.device(gi.device):
-        plan = _plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True)
-        new = _empty(gi)
-        ys, gates = new(t, b, h), new(t, b, 3 * h)
-        hu, rhu, recn = _form_buffers(new, t, b, h, r, form)
-        _launch(KERNEL, "gru_scan_fwd_res",
-                (*args, ys, gates, hu, rhu, recn, _state(plan, "fwd", gi)),
-                (*sizes, *plan.ints("fwd")), gi.device)
-    _counted(gru_scan_fused_res, variant())
-    return ys, gates, hu, rhu, recn
+        return _by_chunks(gru_scan_fused_res, variant(),
+                          _chunks(_plan_for(t, b, 0, 0, h, r, form, gi.device, gi=True), b),
+                          functools.partial(_fwd_launch, True, form), args, _GI_ROWS, (1,) * 5)
 
 
 @_counter
@@ -891,18 +1243,10 @@ def gru_scan_bwd(uf, prz, pn, h0, ys, gates, hu, rhu, recn, dys, *, mode="pre"):
     _check_residuals(form, hu, rhu, recn, mode, uf)
     _require_cuda("gru_scan_bwd", ys)
     with torch.cuda.device(ys.device):
-        plan = _plan_for(t, b, 0, 0, h, r, form, ys.device, gi=True)
-        new = _empty(ys)
-        lowrank = form == LOWRANK_PRE
-        dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
-        nparts = gru_bwd_partial_floats(t, b, 0, 0, h, r, form, gi=True)
-        grads = (new(t, b, 3 * h), new(h, r) if lowrank else None, torch.empty_like(prz),
-                 torch.empty_like(pn), new(b, h))
-        _launch(BWD_KERNEL, "gru_scan_bwd",
-                (*saved, grads[0], dhu, drhu, new(nparts), *grads[1:], _state(plan, "bwd", ys)),
-                (t, b, h, r, form, nparts, *plan.ints("bwd")), ys.device)
-    _counted(gru_scan_bwd, variant())
-    return grads
+        return _by_chunks(gru_scan_bwd, variant(),
+                          _chunks(_plan_for(t, b, 0, 0, h, r, form, ys.device, "bwd", gi=True), b),
+                          functools.partial(_bwd_launch, form, True), saved, _GI_BWD_ROWS,
+                          _GI_GRAD_DIMS)
 
 
 class GRUScan(torch.autograd.Function):

@@ -23,6 +23,15 @@ batch B=81, and of the no-grad forward at `evaluate`'s B=256:
   (low-rank), ->6 drh, ->7 dHU (low-rank), ->3 the last product; 3->4 the
   wait for the copies.
 
+Then, for the shapes whose kernels take the grid layout (`gru_layout`:
+the HAR GRU at its default width h=180, dense x side, "pre" and "post" at
+B=81 and 256; the dense "pre" h=1000 at B=512; the three forms at h=3200,
+B=81, low-rank x side), the layout and ``device`` µs by kernel of each
+entry at T and 2T, ``per_step`` as above, and ``split``: the scan kernel
+(`grid_fwd_kernel`, `grid_walk_kernel`) against the GEMMs of the same call
+(the forward's projection; the BPTT's dXU, its grouped split-k and, under
+recompute, its pre-pass), in ms a call. ``--grid`` runs these alone.
+
 Prints one JSON line a shape, the card's name and power limit first.
 """
 
@@ -33,6 +42,7 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 
 import torch
@@ -75,8 +85,8 @@ MARKS = {
          "            if (Residuals) a.gates[(m0 + row) * g3 + 2 * h + j] = n;\n          }\n"
          "        }\n        STAMP(8);\n        __syncthreads();\n")],
     "gru_scan_xin_bwd": [
-        ("  for (int t = a.t_len - 1; t >= 0; --t) {\n",
-         "  for (int t = a.t_len - 1; t >= 0; --t) {\n    STAMP(0);\n"),
+        ("  int cur = 0;\n  for (int t = a.t_len - 1; t >= 0; --t) {\n",
+         "  int cur = 0;\n  for (int t = a.t_len - 1; t >= 0; --t) {\n    STAMP(0);\n"),
         ("    // elementwise: dz_pre, dn_pre",
          "    STAMP(1);\n    // elementwise: dz_pre, dn_pre"),
         ("    __syncthreads();\n\n    if constexpr (kPost) {",
@@ -120,16 +130,19 @@ def stamped_libraries(work):
     return libs
 
 
-def inputs(t, b, r):
+def inputs(t, b, r, f=F, rx=RX, h=H):
+    """Seeded (xs, ux, vx, bias, uf, prz, pn, h0) on the card; rx = 0 is a
+    dense x side, r = 0 a dense recurrent side."""
     g = torch.Generator().manual_seed(0)
 
     def n(*shape, scale):
         return (scale * torch.randn(shape, generator=g)).cuda()
 
-    k = r or H
-    return (n(t, b, F, scale=1.0), n(F, RX, scale=F ** -0.5), n(RX, 3 * H, scale=RX ** -0.5),
-            n(3 * H, scale=0.1), n(H, r, scale=H ** -0.5) if r else None,
-            n(k, 2 * H, scale=k ** -0.5), n(k, H, scale=k ** -0.5), n(b, H, scale=0.5))
+    k = r or h
+    return (n(t, b, f, scale=1.0), n(f, rx or 3 * h, scale=f ** -0.5),
+            n(rx, 3 * h, scale=rx ** -0.5) if rx else None, n(3 * h, scale=0.1),
+            n(h, r, scale=h ** -0.5) if r else None, n(k, 2 * h, scale=k ** -0.5),
+            n(k, h, scale=k ** -0.5), n(b, h, scale=0.5))
 
 
 def entries(t, b, form):
@@ -175,12 +188,66 @@ def spans(lib, steps, marks):
     return out
 
 
+# (name, T, B, F, rx, h, r, mode) of the grid shapes
+GRID_SHAPES = [("har180_pre", T, 81, F, 0, 180, 0, "pre"), ("har180_post", T, 81, F, 0, 180, 0,
+                                                              "post"),
+               ("har180_pre", T, 256, F, 0, 180, 0, "pre"), ("har180_post", T, 256, F, 0, 180,
+                                                               0, "post"),
+               ("h1000_pre", T, 512, F, 0, 1000, 0, "pre"),
+               ("h3200_post", T, 81, F, RX, 3200, 0, "post"),
+               ("h3200_pre", T, 81, F, RX, 3200, 0, "pre"),
+               ("h3200_lowrank_pre", T, 81, F, RX, 3200, 800, "pre")]
+
+
+def grid_entries(t, b, f, rx, h, r, mode, dx):
+    """{entry: a call of it} at a grid shape; the BPTT from dys alone, dx
+    when ``dx`` (not for a first layer's raw input)."""
+    args = inputs(t, b, r, f, rx, h)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    dys = 0.1 * torch.randn(t, b, h, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:3], *args[4:], *res, dys)
+    return {"fwd": lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode),
+            "res": lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode),
+            "bwd": lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx)}
+
+
+def grid_main():
+    """One JSON line for each of GRID_SHAPES."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, t, b, f, rx, h, r, mode in GRID_SHAPES:
+        form = cuda_gru.form_of(object() if r else None, mode)
+        row = {"shape": name, "b": b, "card": torch.cuda.get_device_name(0), "layout": {},
+               "device": {}, "per_step": {}, "split": {}}
+        for kernel in ("fwd", "bwd"):
+            layout = cuda_gru.gru_layout(t, b, f, rx, h, r, form, kernel=kernel, sms=sms)
+            row["layout"][kernel] = "rows" if isinstance(layout, cuda_gru.GRUPlan) else [
+                dict(rows=n, groups=p.groups, ctas=p.ctas, resident=p.resident(kernel),
+                     streamed_mb=round(4e-6 * p.n_ctas * p.streamed_elems(kernel), 1))
+                for _, n, p in layout]
+        names = ("fwd",) if b == 256 else ("fwd", "res", "bwd")
+        for tt in (t, 2 * t):
+            calls = grid_entries(tt, b, f, rx, h, r, mode, not name.startswith("har"))
+            for entry in names:
+                row["device"][f"{entry}_T{tt}"] = device_us(calls[entry], reps=3)
+        for entry in names:
+            at_t, at_2t = row["device"][f"{entry}_T{t}"], row["device"][f"{entry}_T{2 * t}"]
+            for k in at_t:
+                row["per_step"][f"{entry}:{k}"] = round((at_2t.get(k, 0.0) - at_t[k]) / t, 3)
+            scan = sum(v for k, v in at_t.items() if k.startswith("grid_"))
+            row["split"][entry] = dict(scan_ms=round(scan / 1e3, 4),
+                                       gemm_ms=round((sum(at_t.values()) - scan) / 1e3, 4))
+        print(json.dumps(row), flush=True)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     _build.build_all()
+    if "--grid" in sys.argv[1:]:
+        grid_main()
+        return
     work = tempfile.mkdtemp(dir=_build.BUILD_DIR)  # git-ignored, beside the package's builds
     try:
         libs = stamped_libraries(work)
@@ -220,6 +287,7 @@ def main():
             print(json.dumps(row), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    grid_main()
 
 
 if __name__ == "__main__":

@@ -742,14 +742,15 @@ def print_scan_chunks(torch, label, b, h, r, bf16):
     from vmlmf_tpu_torch.ops import cuda_scan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunks = cuda_scan.scan_chunks(b, h, r, sms, 2 if bf16 else 4)
+    chunks = cuda_scan._chunks_for(b, h, r, torch.device("cuda", 0), bf16)
     for b0, n, plan in chunks:
         streamed = ""
         if plan.streamed:
             streamed = "; " + ", ".join(
                 f"{kernel} resident depths {plan.resident(kernel)} of "
                 f"{tuple(d for d, _ in plan.slices(kernel))}, streamed "
-                f"{plan.n_ctas * plan.streamed_elems(kernel) * plan.elsize / 1e6:.3f} MB a step"
+                f"{plan.n_ctas * plan.streamed_elems(kernel) * plan.elsize / 1e6:.3f} MB a step, "
+                f"a ring of {cuda_scan.RING_STAGES} stages of {4 * plan.piece(kernel)} B"
                 for kernel in ("fwd", "bwd"))
         print(f"plan {label}{f' rows {b0}-{b0 + n - 1}' if len(chunks) > 1 else ''}: "
               f"{plan.groups} batch groups x {plan.ctas} CTAs = {plan.n_ctas} CTAs of {sms} SMs, "
@@ -2915,10 +2916,12 @@ def phase_wide_kernels(torch):
     """The kernel checks of fault 11, each shape's plan printed first: the six
     LSTM entries at dense h=1500 and at low-rank h=1500, r=750, at B=20 and
     128 in f32 (streamed plans) and at B=20 in bf16 (dense: a resident
-    plan; at B=128 chunks of rows), the gi-mode entries at the dense layer;
-    a streamed plan forced at the LM layer with the resident plan's layout,
-    bit-equal to it; the GRU's grid layout forced at an odd shape
-    (`gru_grid_entries`); the GRU's three forms at h=3200, on the grid.
+    plan; at B=128 one streamed launch), the gi-mode entries at the dense
+    layer; a streamed plan forced at the LM layer with the resident plan's layout,
+    bit-equal to it; the large layer's ring at B=128 with stages of another
+    size, bit-equal to the chosen one (`ring_pieces_keep_the_bits`); the GRU's
+    grid layout forced at an odd shape (`gru_grid_entries`); the GRU's three
+    forms at h=3200, on the grid.
     -> rows."""
     rows = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2936,6 +2939,7 @@ def phase_wide_kernels(torch):
     gi_check(torch, rows, sms, "wide_dense_gi", WIDE["h"], 0)
     tc_f32_control(torch)
     streamed_equals_resident(torch, sms)
+    ring_pieces_keep_the_bits(torch, sms)
     gru_spill_equals_unspilled(torch, sms)
     gru_grid_entries(torch, sms)
     for name, fields in GRU_WIDE_NETS.items():
@@ -2994,10 +2998,58 @@ def tc_f32_control(torch):
                  f"({r['tf32_one_pass']:.3g}): the tile check cannot tell 3xTF32 from it")
 
 
+RING_CHECK_PIECE = 6144  # floats a stage of the ring that ring_pieces_keep_the_bits compares
 # (precision, residuals, save_gates) of each variant the LSTM scan kernels
 # compile, each forced onto a streamed plan
 SCAN_VARIANTS = {"f32": F32, "bf16": ("bf16", "f32", True), "bf16_res": ("f32", "bf16", True),
                  "recompute": ("f32", "f32", False)}
+
+
+def ring_pieces_keep_the_bits(torch, sms):
+    """The streamed plans' ring at the large LM's layer, B=128, dense and
+    r=750: the plan the wrappers chose against one with stages of
+    RING_CHECK_PIECE floats (more pieces a product, more resident rows; the
+    same CTAs, chunks, slices and red), every output of the six f32 entries
+    bit-equal."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+
+    b, t, h = 128, WIDE["t"], WIDE["h"]
+    for r in (0, WIDE_RANK):
+        args = scan_inputs(torch, t, b, h, h, r, r)
+        gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+        dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+        chosen = cuda_scan._chunks_for(b, h, r, torch.device("cuda", 0))[0][2]
+        other = cuda_scan.streamed_plan(b, h, r, sms, piece=RING_CHECK_PIECE)
+
+        def run(plan):
+            keep = cuda_scan._chunks_for
+            cuda_scan._chunks_for = lambda *a, **k: ((0, b, plan),)
+            try:
+                res = cuda_scan.lstm_scan_fused_xin_res(*args)
+                gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:])
+                out = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
+                       *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None),
+                       *cuda_scan.lstm_scan_fused(gi, *args[5:]), *gi_res,
+                       *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, None)]
+            finally:
+                cuda_scan._chunks_for = keep
+            return [a for a in out if a is not None]
+
+        got, want = run(chosen), run(other)
+        torch.cuda.synchronize()
+        equal = len(got) == len(want) and all(torch.equal(a, c) for a, c in zip(got, want))
+        print(f"wide: the ring at the large LM layer B={b} r={r or 'dense'}: stages of "
+              f"{chosen.piece('fwd')} / {chosen.piece('bwd')} floats (resident "
+              f"{chosen.resident_fwd} / {chosen.resident_bwd}) against {other.piece('fwd')} / "
+              f"{other.piece('bwd')} ({other.resident_fwd} / {other.resident_bwd}) on "
+              f"{chosen.n_ctas} CTAs, {len(got)} outputs: bit-equal {equal}")
+        if not chosen.streamed or (chosen.n_ctas, chosen.stage_fwd, chosen.stage_bwd) != (
+                other.n_ctas, other.stage_fwd, other.stage_bwd):
+            fail(f"the large LM layer's plans at B={b} r={r or 'dense'} do not share CTAs and "
+                 f"chunks")
+        if not equal:
+            fail(f"the ring's stages of {other.piece('fwd')} floats give other bits than the "
+                 f"chosen ones at B={b} r={r or 'dense'}")
 
 
 def streamed_equals_resident(torch, sms):
@@ -3269,7 +3321,8 @@ def phase_wide_lm(torch):
     if not ok:
         fail(f"wide: fused_pipelined's losses {losses_p} differ from fused's {losses}")
 
-    # mixed precision: a resident bf16 plan at B=20, chunks of rows at B=128
+    # mixed precision: a resident bf16 plan at B=20, one streamed launch at
+    # B=128 (`scan_chunks`' measured rule; three resident chunks before)
     with switches(VMLMF_PALLAS_PRECISION="bf16"):
         mixed = large_lm("fused", head_bf16=True)
         reset_launch_counts()

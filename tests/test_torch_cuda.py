@@ -1692,8 +1692,8 @@ def test_wide_lstm_layer_entries_match_plain(cuda, case, b, precision):
     t, f, h, rx, r = WIDE_LSTM[case]
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     chunks = cuda_scan.scan_chunks(b, h, r, sms, 2 if precision == "bf16" else 4)
-    if precision == "f32" or case == "dense_1600":
-        assert all(plan.streamed for _, _, plan in chunks)
+    if precision == "f32" or case == "dense_1600":  # streamed: each kernel on a ring
+        assert all(plan.streamed and plan.piece_fwd and plan.piece_bwd for _, _, plan in chunks)
     args = make_inputs(t, b, f, h, rx, r, cuda)
     rng = np.random.default_rng(1)
     # bf16 cotangents at chip_smoke.py's scale: its tolerances hold an
@@ -1779,6 +1779,69 @@ def test_streamed_plan_is_bit_equal_to_the_resident_plan(cuda, monkeypatch, vari
     assert len(resident) == len(streamed)
     for i, (x, y) in enumerate(zip(resident, streamed)):
         assert torch.equal(x, y), i
+
+
+def ring_outputs(args, gi, dys, dc_last, plan, monkeypatch):
+    """Every output of the six LSTM entries (f32) on ``plan``."""
+    b = args[0].shape[1]
+    monkeypatch.setattr(cuda_scan, "_chunks_for", lambda *a, **k: ((0, b, plan),))
+    res = cuda_scan.lstm_scan_fused_xin_res(*args)
+    gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:])
+    out = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
+           *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, dc_last),
+           *cuda_scan.lstm_scan_fused(gi, *args[5:]), *gi_res,
+           *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, dc_last)]
+    torch.cuda.synchronize()
+    return [a for a in out if a is not None]
+
+
+def assert_equal_bits(first, second, label):
+    assert len(first) == len(second), label
+    for i, (x, y) in enumerate(zip(first, second)):
+        assert torch.equal(x, y), f"{label}: output {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,b", [(case, b) for case in ("dense", "lowrank") for b in (20, 128)])
+def test_ring_piece_sizes_give_equal_bits(cuda, monkeypatch, case, b):
+    """The streamed plans of the wide layers with ring stages of 8 KB, 24 KB
+    and the most that fit beside the slabs, against the chosen plan's (the
+    same CTAs, chunks, slices and red; other resident depths): the same
+    sums, bit for bit, in all six entries."""
+    t, f, h, rx, r = WIDE_LSTM[case]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+    rng = np.random.default_rng(1)
+    dys, dc_last = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+                    for s in ((t, b, h), (b, h)))
+    base = cuda_scan._chunks_for(b, h, r, cuda)[0][2]
+    assert base.n_ctas == sms
+    want = ring_outputs(args, gi, dys, dc_last, base, monkeypatch)
+    for piece in (2048, 6144, 1 << 20):
+        plan = cuda_scan.streamed_plan(b, h, r, sms, piece=piece)
+        assert (plan.stage_fwd, plan.red_fwd, plan.stage_bwd, plan.red_bwd) == (
+            base.stage_fwd, base.red_fwd, base.stage_bwd, base.red_bwd)
+        assert plan.smem_bytes <= cuda_scan.SMEM_LIMIT
+        assert_equal_bits(want, ring_outputs(args, gi, dys, dc_last, plan, monkeypatch), piece)
+
+
+@pytest.mark.cuda
+def test_ring_grid_too_large_to_be_co_resident_raises(cuda, monkeypatch):
+    """A streamed plan of two groups over all SMs each: more CTAs than can be
+    resident at once; every entry raises, none falls back."""
+    t, f, h, rx, r = WIDE_LSTM["dense"]
+    b = 20
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    one = cuda_scan.streamed_plan(b // 2, h, r, sms)
+    plan = cuda_scan.plan_layout(b, h, r, 2, sms, resident=(one.resident_fwd, one.resident_bwd),
+                                 ring=(one.piece_fwd, one.piece_bwd))
+    assert plan.n_ctas == 2 * sms and plan.smem_bytes <= cuda_scan.SMEM_LIMIT
+    monkeypatch.setattr(cuda_scan, "_chunks_for", lambda *a, **k: ((0, b, plan),))
+    args = make_inputs(t, b, f, h, rx, r, cuda)
+    for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(*args)
 
 
 # the GRU's three forms at h=3200 (T=24, B=81): dense "post" is past the

@@ -58,11 +58,19 @@ def weight_floats(elems, elsize):
     return -(-elems * elsize // 16) * 4
 
 
+def ring_ld(cols, elsize):
+    """A streamed row's elements in a CTA's region: 16-byte rows."""
+    return -(-cols * elsize // 16) * 16 // elsize
+
+
 def kernel_accepts(plan):
     """The checks the scan kernels make before a launch (`scan` and `bptt`):
-    resident depths within their slices, the carve within the plan's
-    shared bytes and the card's, and the streamed scratch that
-    `stream_floats` sizes holding every CTA's region."""
+    resident depths within their slices, the carve (the staging buffer, or
+    on a streamed plan the ring: its stages and two 8-byte barriers a
+    stage) within the plan's shared bytes and the card's, the streamed
+    scratch that `stream_floats` sizes holding every CTA's region of
+    16-byte rows, and a ring exactly where a kernel streams, of whole
+    16-byte stages that hold a row of each product."""
     h, r, dense = plan.h, plan.r, plan.r == 0
     jwm = -(-h // plan.ctas)
     jwp, kwp = -(-jwm // 4) * 4, 0 if dense else -(-(-(-r // plan.ctas)) // 4) * 4
@@ -72,13 +80,18 @@ def kernel_accepts(plan):
         assert 0 <= rb <= depth_b and (ra == 0 if dense else 0 <= ra <= depth_a)
         stage, red, smem = ((plan.stage_fwd, plan.red_fwd, plan.smem_fwd) if kernel == "fwd"
                             else (plan.stage_bwd, plan.red_bwd, plan.smem_bwd))
+        piece = plan.piece(kernel)
         carve = (weight_floats(ra * ca + rb * cb, plan.elsize) + 4 * jwm
-                 + slab * jwm * plan.rpad + stage + red)
+                 + slab * jwm * plan.rpad + (2 * (piece + 4) if piece else stage) + red)
         assert 4 * carve <= smem <= SMEM_LIMIT
-        streamed = weight_floats((0 if dense else (depth_a - ra) * ca) + (depth_b - rb) * cb,
-                                 plan.elsize)
+        streamed = weight_floats((0 if dense else (depth_a - ra) * ring_ld(ca, plan.elsize))
+                                 + (depth_b - rb) * ring_ld(cb, plan.elsize), plan.elsize)
         assert streamed * plan.n_ctas <= cuda_scan.stream_floats(plan, kernel)
-        assert (streamed > 0) == (plan.streamed_elems(kernel) > 0)
+        assert (streamed > 0) == (plan.streamed_elems(kernel) > 0) == (piece > 0)
+        if piece:
+            assert piece % 4 == 0
+            for cols in ((ca, cb) if not dense else (cb,)):
+                assert 4 * piece >= 4 * plan.rpad + ring_ld(cols, plan.elsize) * plan.elsize
 
 
 def chunks_cover(b, h, r, elsize, sms=SMS):
@@ -110,10 +123,15 @@ def test_every_lstm_width_has_a_plan_or_chunks(elsize):
 def test_the_ptb_large_layer_streams_in_f32_and_not_in_bf16():
     f32 = cuda_scan.scan_plan(20, 1500, 0)
     assert f32.streamed and (f32.groups, f32.ctas) == (1, SMS)
-    # about 16 MB of the 36 MB U streamed a step, as much again in the BPTT
-    assert 15e6 < 4 * cuda_scan.stream_floats(f32, "fwd") < 18e6
+    # about 34 MB of the 36 MB U streamed a step (16 MB before the ring took
+    # the shared memory of most resident rows), as much again in the BPTT
+    assert 32e6 < 4 * cuda_scan.stream_floats(f32, "fwd") < 36e6
     assert not cuda_scan.scan_plan(20, 1500, 0, SMS, 2).streamed
-    assert len(cuda_scan.scan_chunks(128, 1500, 0, SMS, 2)) > 1  # bf16 at B=128: chunks
+    # bf16 at B=128: three resident chunks before the ring, now one streamed
+    # launch, which measured faster in every entry
+    (chunk,) = cuda_scan.scan_chunks(128, 1500, 0, SMS, 2)
+    assert chunk[2].streamed and chunk[2].elsize == 2 and chunk[2].n_ctas == SMS
+    assert not cuda_scan.scan_chunks(20, 1500, 0, SMS, 2)[0][2].streamed  # resident, as before
     assert len(cuda_scan.scan_chunks(128, 1500, 0, SMS, 4)) == 1
 
 
@@ -384,11 +402,33 @@ def bwd_slices(plan, u, v):
     return out
 
 
-def split_product(src, parts):
-    """src @ W with W's resident rows and streamed rows multiplied apart."""
+def split_product(plan, kernel, which, src, parts):
+    """src @ W for product ``which`` of ``kernel`` (its index among the
+    kernel's products, `ScanPlan.walk`). Without a ring, W's resident rows
+    and streamed rows multiplied apart. On a ring, piece by piece in ring
+    order: each piece's rows [e0, e1) of src times its resident rows, from
+    the slice in shared memory, and its streamed rows, from a ring stage
+    that one bulk copy fills from the CTA's streamed region (rows padded to
+    16 bytes, as the prologue lays them out); the pieces' products summed
+    in order."""
     res, streamed = parts
     d = res.shape[0]
-    return src[:, :d] @ res + src[:, d:] @ streamed
+    if not plan.piece(kernel):
+        return src[:, :d] @ res + src[:, d:] @ streamed
+    cols = res.shape[1]
+    ld = ring_ld(cols, plan.elsize)
+    region = streamed.new_zeros(streamed.shape[0], ld)
+    region[:, :cols] = streamed
+    region = region.reshape(-1)
+    depth, _, rows, pieces = plan.walk(kernel)[which]
+    assert depth == d + streamed.shape[0]
+    out = src.new_zeros(src.shape[0], cols)
+    for e0, e1 in pieces:
+        assert e1 - e0 <= (plan.piece(kernel) // plan.rpad if e1 <= d else rows)
+        es = max(e0, d)
+        stage = region[(es - d) * ld:max(0, e1 - d) * ld].reshape(-1, ld)[:, :cols]
+        out = out + src[:, e0:e1] @ torch.cat([res[e0:min(e1, d)], stage])
+    return out
 
 
 def emulate_recurrence(plan, gi, u, v, dvec, h0, c0):
@@ -409,12 +449,13 @@ def emulate_recurrence(plan, gi, u, v, dvec, h0, c0):
                 hu = gi.new_empty(b1 - b0, u.shape[1])
                 for q, (wa, _) in enumerate(slices):
                     k0, k1 = plan.k_range(q)
-                    hu[:, k0:k1] = split_product(h_t, wa)[:, :k1 - k0]
+                    hu[:, k0:k1] = split_product(plan, "fwd", 0, h_t, wa)[:, :k1 - k0]
                 hus[s, b0:b1] = src = hu
             h_n, c_n = torch.empty_like(h_t), torch.empty_like(c_t)
             for q, (_, wb) in enumerate(slices):
                 j0, j1 = plan.j_range(q)
-                acc = split_product(src, wb).reshape(b1 - b0, -1, 4)[:, :j1 - j0]
+                acc = split_product(plan, "fwd", int(v is not None), src, wb).reshape(
+                    b1 - b0, -1, 4)[:, :j1 - j0]
                 pre = [gi[s, b0:b1, g * h + j0:g * h + j1] + acc[..., g]
                        + h_t[:, j0:j1] * dvec[g * h + j0:g * h + j1] for g in range(4)]
                 i, f, g, o = (torch.sigmoid(pre[0]), torch.sigmoid(pre[1]), torch.tanh(pre[2]),
@@ -457,11 +498,12 @@ def emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last):
                 src = d_t.new_empty(b1 - b0, v.shape[0])
                 for q, (wb, _) in enumerate(slices):
                     k0, k1 = plan.k_range(q)
-                    src[:, k0:k1] = split_product(d_t, wb)[:, :k1 - k0]
+                    src[:, k0:k1] = split_product(plan, "bwd", 0, d_t, wb)[:, :k1 - k0]
             dh = torch.empty_like(dh)
             for q, (_, wc) in enumerate(slices):
                 j0, j1 = plan.j_range(q)
-                dh[:, j0:j1] = dh_part[:, j0:j1] + split_product(src, wc)[:, :j1 - j0]
+                dh[:, j0:j1] = dh_part[:, j0:j1] + split_product(
+                    plan, "bwd", int(v is not None), src, wc)[:, :j1 - j0]
         dh0[b0:b1], dc0[b0:b1] = dh, dc
     hprev = torch.cat([h0[None], ys[:-1]]).reshape(t * b, h)
     d2 = dpre.reshape(t * b, 4 * h)
@@ -590,6 +632,203 @@ def test_streamed_phases_match_the_jax_kernel_and_its_vjp(name):
         if want is not None:
             np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(got.shape),
                                        err_msg=label, **GRAD_TOL)
+
+
+# -- the ring of the streamed plans: the parent's chunks, slices and red, and
+# each thread's order of sums, kept
+
+def parent_streamed_plan(b, h, r, sms=SMS, elsize=4):
+    """cuda_scan._streamed_plan before the ring: the staging buffer of
+    `stage` floats, the resident depths that fit beside it -> ScanPlan, or
+    None where its slabs did not fit."""
+    ctas = min(sms, h)
+    none = (0, 0)
+    empty = cuda_scan.plan_layout(b, h, r, 1, ctas, elsize, resident=(none, none), ring=none)
+    resident = []
+    for kernel, smem in (("fwd", empty.smem_fwd), ("bwd", empty.smem_bwd)):
+        room = (SMEM_LIMIT - smem) // 16 * 16 // elsize
+        if room < 0:
+            return None
+        total = sum(d * c for d, c in empty.slices(kernel))
+        resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
+    return cuda_scan.plan_layout(b, h, r, 1, ctas, elsize, resident=tuple(resident), ring=none)
+
+
+def parent_chunk_plan(b, h, r, sms=SMS, elsize=4):
+    if parent_scan_plan(1, h, r, sms, elsize) is None:
+        return parent_streamed_plan(b, h, r, sms, elsize)
+    return parent_scan_plan(b, h, r, sms, elsize)
+
+
+def parent_chunks(b, h, r, sms=SMS, elsize=4):
+    """scan_chunks before the ring -> ((b0, n), ...)."""
+    for n in range(1, b + 1):
+        bounds = [cuda_scan._split_at(i, b, n) for i in range(n + 1)]
+        if all(parent_chunk_plan(b1 - b0, h, r, sms, elsize) is not None
+               for b0, b1 in zip(bounds, bounds[1:])):
+            return tuple((b0, b1 - b0) for b0, b1 in zip(bounds, bounds[1:]))
+    raise AssertionError("one row had a plan")
+
+
+@pytest.mark.parametrize("elsize", [4, 2], ids=["f32", "bf16"])
+def test_ring_plans_keep_the_parents_chunks_stage_and_red(elsize):
+    """Every streamed width of the sweep: the batch in the parent's chunks,
+    each with the parent's groups, CTAs, rpad, stage (the chunks whose
+    order of sums the ring keeps) and red (so the same slices), and a ring
+    in place of the staging buffer within the card's shared memory."""
+    seen = 0
+    for h in [w for w in LSTM_WIDTHS if w >= 1000]:
+        for r in ranks(h):
+            if parent_scan_plan(1, h, r, SMS, elsize) is not None:
+                continue
+            for b in BATCHES:
+                chunks = chunks_cover(b, h, r, elsize)
+                assert tuple((b0, n) for b0, n, _ in chunks) == parent_chunks(b, h, r, SMS,
+                                                                             elsize)
+                for _, n, plan in chunks:
+                    parent = parent_streamed_plan(n, h, r, SMS, elsize)
+                    assert plan.streamed and plan.piece_fwd and plan.piece_bwd
+                    for field in ("groups", "ctas", "rpad", "stage_fwd", "red_fwd", "stage_bwd",
+                                  "red_bwd", "xchg_fwd", "xchg_bwd"):
+                        assert getattr(plan, field) == getattr(parent, field), field
+                    seen += 1
+    assert seen > 500
+
+
+def parent_walk(depth, chunk, slices, s):
+    """The rows thread s of a product item walks in slice_product, in order."""
+    return [d for d0 in range(0, depth, chunk) for d in range(d0 + s, min(depth, d0 + chunk),
+                                                              slices)]
+
+
+def ring_walk(pieces, chunk, slices, s):
+    """The same on the ring (scan_grid.cuh::Ring::consume): piece by piece,
+    and in each chunk [c0, c0 + chunk) a piece [e0, e1) meets, from the
+    thread's first row d >= max(e0, c0) with d - c0 = s (mod slices)."""
+    out = []
+    for e0, e1 in pieces:
+        for c0 in range(e0 - e0 % chunk, e1, chunk):
+            a, b = max(e0, c0), min(e1, c0 + chunk)
+            out.extend(range(a + (s - (a - c0) % slices + slices) % slices, b, slices))
+    return out
+
+
+RING_SHAPES = [(b, 1500, r, elsize) for b in BATCHES for r in (0, 750) for elsize in (4,)] + [
+    (20, 1600, 0, 2), (128, 1600, 0, 2), (5, 128, 0, 4), (3, 160, 80, 4)]
+
+
+@pytest.mark.parametrize("b,h,r,elsize", RING_SHAPES)
+def test_ring_walk_keeps_each_threads_order_of_sums(b, h, r, elsize):
+    """Each product's pieces tile its depth (`ring_pieces`): the exchange
+    alone over its resident rows, as many as a stage holds, then the
+    exchange and the streamed rows, each piece within a stage; the chunks
+    are the parent's, and for every slice count a product can take, every
+    thread walks the rows of the parent's chunks in the parent's order."""
+    sms = SMS if h >= 1000 else 1
+    plan = cuda_scan.scan_plan(b, h, r, sms, elsize)
+    assert plan.streamed
+    for kernel in ("fwd", "bwd"):
+        stage = plan.stage_fwd if kernel == "fwd" else plan.stage_bwd
+        walks = plan.walk(kernel)
+        assert [w[0] for w in walks] == [d for d, _ in plan.slices(kernel) if d]
+        piece = plan.piece(kernel)
+        residents = [res for (d, _), res in zip(plan.slices(kernel), plan.resident(kernel)) if d]
+        for (depth, chunk, rows, pieces), res in zip(walks, residents):
+            assert chunk == (depth if depth * plan.rpad <= stage else stage // 2 // plan.rpad)
+            rows_a = piece // plan.rpad
+            assert rows >= 1 and list(pieces) == [
+                (e0, min(e0 + rows_a, res)) for e0 in range(0, res, rows_a)] + [
+                (e0, min(e0 + rows, depth)) for e0 in range(res, depth, rows)]
+            cols = max(c for d, c in plan.slices(kernel) if d == depth)
+            for e0, e1 in pieces:
+                if e1 <= res:  # the exchange alone
+                    assert (e1 - e0) * plan.rpad <= piece
+                else:  # its streamed rows after `rows` rows of it (Ring::issue_weights)
+                    assert e0 >= res and e1 - e0 <= rows
+                    assert 4 * rows * plan.rpad + (e1 - e0) * ring_ld(
+                        cols, plan.elsize) * plan.elsize <= 4 * piece
+            for slices in range(1, cuda_scan.MAX_SLICES + 1):
+                for s in range(slices):
+                    assert ring_walk(pieces, chunk, slices, s) == parent_walk(depth, chunk,
+                                                                              slices, s)
+
+
+@pytest.mark.parametrize("r", [0, 750], ids=["dense", "r750"])
+@pytest.mark.parametrize("b", [1, 2, 4, 5, 8, 20, 128, 256])
+def test_ring_stage_size_follows_the_batch(b, r):
+    """The large layer's streamed plans (one group): stages of
+    RING_PIECE_SMALL floats where the group pads its rows to 4 (B <= 4),
+    of RING_PIECE_FLOATS past that, each cut only to what fits beside the
+    slabs; the same plan as one asked for with that stage size."""
+    plan = cuda_scan.scan_plan(b, 1500, r)
+    assert plan.streamed and plan.groups == 1 and plan.rpad == -(-b // 4) * 4
+    want = cuda_scan.RING_PIECE_SMALL if b <= 4 else cuda_scan.RING_PIECE_FLOATS
+    assert cuda_scan.ring_piece(plan.rpad) == want
+    for kernel, smem in (("fwd", plan.smem_fwd), ("bwd", plan.smem_bwd)):
+        piece = plan.piece(kernel)
+        assert 0 < piece <= want
+        if piece < want:  # cut: one more 16 bytes a stage would not fit
+            assert smem + 2 * 16 > cuda_scan.SMEM_LIMIT
+    kernel_accepts(plan)
+    assert plan == cuda_scan.streamed_plan(b, 1500, r, piece=want)
+
+
+def test_forced_ring_depths_and_clusters_keep_the_layout():
+    """The sweeps' plans: stages of another size move only the ring and the
+    resident depths, never the chunks, slices or red; a stage larger than
+    fits is cut to the most that fits, and smaller stages leave more rows
+    resident."""
+    base = cuda_scan.scan_plan(128, 1500, 0)
+    assert (base.piece_fwd, base.piece_bwd) != (0, 0)
+    resident = []
+    for piece in (1 << 20, cuda_scan.RING_PIECE_FLOATS, 12288, 6144, 2048):
+        plan = cuda_scan.streamed_plan(128, 1500, 0, piece=piece)
+        kernel_accepts(plan)
+        for field in ("groups", "ctas", "rpad", "stage_fwd", "red_fwd", "stage_bwd", "red_bwd"):
+            assert getattr(plan, field) == getattr(base, field), field
+        if piece < 1 << 20:
+            assert (plan.piece_fwd, plan.piece_bwd)[:1] == (piece,)
+        else:  # the most that fits: one more 16 bytes a stage would not
+            assert plan.smem_fwd + 2 * 16 > cuda_scan.SMEM_LIMIT
+        resident.append(sum(plan.resident_fwd) + sum(plan.resident_bwd))
+    assert resident == sorted(resident) and resident[0] < resident[-1]
+
+
+def test_ring_emulation_of_the_transplanted_large_layer_matches_jax(monkeypatch):
+    """Layer 0 of the dense PTB "large" LM (2x1500; JAX's initialisation,
+    transplanted): its phases emulated on the ring plans of B = 2 (132
+    CTAs, each product in pieces of the CTA's resident and streamed rows)
+    against the JAX kernel and its VJP, interpreted (with a VMEM budget
+    that takes the 1500-wide backward's tiles, as tests/test_pallas.py sets
+    budgets)."""
+    monkeypatch.setenv("VMLMF_VMEM_BYTES", str(1 << 30))
+    t, b, h = 3, 2, 1500
+    jparams = JaxLMConfig(**LARGE).build_model(12).init(jax.random.PRNGKey(0))
+    layer = jax.tree_util.tree_map(np.asarray, jparams["rnn"][0])
+    plan = cuda_scan.scan_plan(b, h, 0)
+    assert plan.streamed and plan.piece_fwd and plan.piece_bwd and plan.ctas == SMS
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((t, b, h)).astype(np.float32)
+    h0, c0 = (0.3 * rng.standard_normal((2, b, h))).astype(np.float32)
+    zeros4, zeros = np.zeros((4, h), np.float32), np.zeros(4 * h, np.float32)
+    arrs = (xs, layer["w"], None, zeros4, layer["b"], layer["u"], None, zeros, h0, c0)
+    a = [None if x is None else torch.from_numpy(np.array(x)) for x in arrs]
+    _, gi = cuda_scan._gi_plain(a[0], a[1], a[2], a[3], a[4], h, False)
+    ys, cs, gates, hu = emulate_recurrence(plan, gi, *a[5:])
+
+    def f(u, c0_):
+        j = [None if x is None else jnp.asarray(x) for x in arrs[:5]]
+        return jax_scan(*j, u, None, jnp.asarray(zeros), jnp.asarray(h0), c0_, interpret=True)
+
+    (ys_j, c_j), vjp = jax.vjp(f, jnp.asarray(layer["u"]), jnp.asarray(c0))
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), **FWD_TOL)
+    np.testing.assert_allclose(cs[-1].numpy(), np.asarray(c_j), **FWD_TOL)
+    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32))
+    dc_last = torch.from_numpy(rng.standard_normal((b, h)).astype(np.float32))
+    _, du, _, _, _, dc0 = emulate_bptt(plan, *a[5:], ys, cs, gates, hu, dys, dc_last)
+    du_j, dc0_j = vjp((jnp.asarray(dys.numpy()), jnp.asarray(dc_last.numpy())))
+    np.testing.assert_allclose(du.numpy(), np.asarray(du_j), **GRAD_TOL)
+    np.testing.assert_allclose(dc0.numpy(), np.asarray(dc0_j), **GRAD_TOL)
 
 
 # -- the PTB "large" LM of Zaremba et al. (2014), dense, at full width

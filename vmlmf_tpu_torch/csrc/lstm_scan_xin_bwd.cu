@@ -75,8 +75,8 @@
 //      Where the slices do not fit in the shared memory of all SMs, the
 //      rows past each slice's resident depth are streamed as in the
 //      forward (ScanPlan.resident_bwd; lstm_scan_xin_fwd.cu): copied once
-//      into the CTA's region of `wstream` and read through L2 every step,
-//      in the same order of sums.
+//      into the CTA's region of `wstream`, and phases B and C run on the
+//      ring (scan_grid.cuh::Ring), in the same order of sums.
 //   2. Time-parallel passes over all M rows: tensor-core GEMMs
 //      (gemm_tc.cuh: 3xTF32 in f32, a bf16 mma in the bf16 variants) with
 //      transposed operand views (six low-rank, three with a dense side of
@@ -118,7 +118,8 @@ constexpr int kPolicyF32 = 0, kPolicyBf16 = 1, kPolicyNone = 2;
 
 // Floats of this kernel's shared memory, in the order of the carve below:
 // the resident rows of the weight slices (of type W), dvec of the j-slice,
-// the (dh, dc) carry, stage, red, and phase A's inputs of the step.
+// the (dh, dc) carry, stage (or, on a streamed plan, the ring), red, and
+// phase A's inputs of the step.
 template <class W>
 __host__ __device__ inline size_t bwd_smem_floats(bool dense_rec, int h, int r,
                                                   const GridPlan& p) {
@@ -126,26 +127,30 @@ __host__ __device__ inline size_t bwd_smem_floats(bool dense_rec, int h, int r,
   const int kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
   const size_t weights = (size_t)(dense_rec ? 0 : p.res_a) * kwp + (size_t)p.res_b * jwp;
   return vmlmf::weight_floats<W>(weights) + 4 * jwm + (2 + kInputs) * (size_t)jwm * p.rpad +
-         p.stage + p.red;
+         (p.piece ? vmlmf::ring_floats(p) : p.stage) + p.red;
 }
 
 // Floats of one CTA's region of the streamed scratch: the rows of V^T's and
-// U^T's slices past their resident depths (ops/cuda_scan.py::stream_floats).
+// U^T's slices past their resident depths, each row padded to 16 bytes
+// (ring_ld; ops/cuda_scan.py::stream_floats).
 template <class W>
 __host__ __device__ inline size_t bwd_stream_floats(bool dense_rec, int h, int r,
                                                     const GridPlan& p) {
   const int jwp = round4(div_up(h, p.ctas)), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
   const int depth = dense_rec ? 4 * h : r;
-  return vmlmf::weight_floats<W>((size_t)(dense_rec ? 0 : 4 * h - p.res_a) * kwp +
-                                 (size_t)(depth - p.res_b) * jwp);
+  return vmlmf::weight_floats<W>(
+      (size_t)(dense_rec ? 0 : 4 * h - p.res_a) * vmlmf::ring_ld<W>(kwp) +
+      (size_t)(depth - p.res_b) * vmlmf::ring_ld<W>(jwp));
 }
 
 // The serial reverse walk on plan.groups x plan.ctas co-resident CTAs.
 // xchg: the dpre exchange [2][groups][4h][rpad] (step parity), then,
 // low-rank, the dhu exchange [groups][r][rpad]. sync: a barrier word per
-// group. wstream: the streamed scratch, bwd_stream_floats a CTA.
+// group. wstream: the streamed scratch, bwd_stream_floats a CTA. Streamed:
+// the products run on the ring (scan_grid.cuh::Ring), kRingThreads threads
+// a CTA; else slice_product on kGridThreads.
 template <bool DenseRec, bool Bf16, bool Streamed>
-__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+__global__ void __launch_bounds__(Streamed ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ c0, const float* __restrict__ dys,
                  const float* __restrict__ dc_last, const float* __restrict__ u,
@@ -174,12 +179,13 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   // dvec of the j-slice [jwm][4]
   float* dv = smem + vmlmf::weight_floats<W>((size_t)resb * kwp + (size_t)resc * jwp);
   // the streamed rows: V^T's past resb, then U^T's past resc
+  const int ldb = vmlmf::ring_ld<W>(kwp), ldc = vmlmf::ring_ld<W>(jwp);  // their strides
   W* sb = reinterpret_cast<W*>(wstream + blockIdx.x * bwd_stream_floats<W>(DenseRec, h, r, plan));
-  W* sc = sb + (size_t)(DenseRec ? 0 : g4 - resb) * kwp;
+  W* sc = sb + (size_t)(DenseRec ? 0 : g4 - resb) * ldb;
   float* dhc = dv + 4 * jwm;               // the carry dh, dc: [jwm][rpad]
   float* dcc = dhc + (size_t)jwm * rpad;
   float* stage = dcc + (size_t)jwm * rpad;
-  float* red = stage + plan.stage;
+  float* red = stage + (Streamed ? vmlmf::ring_floats(plan) : plan.stage);  // stage: the ring
   float* pa = red + plan.red;              // phase A's inputs of the step [kInputs][jwm][rpad]
   const size_t dpx_par = (size_t)plan.groups * g4 * rpad;
   float* dpx = xchg + (size_t)grp * g4 * rpad;  // parity p at dpx + p * dpx_par
@@ -196,7 +202,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
       const int kk = e / g4, n = e % g4;
       const W val = vmlmf::to_elem<W>(kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
       if constexpr (Streamed)
-        vmlmf::slice_elem(wb, sb, resb, kwp, n, kk) = val;
+        vmlmf::slice_elem(wb, sb, resb, kwp, ldb, n, kk) = val;
       else
         wb[(size_t)n * kwp + kk] = val;
     }
@@ -206,7 +212,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     const int jj = e / depth, k = e % depth;
     const W val = vmlmf::to_elem<W>(jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f);
     if constexpr (Streamed)
-      vmlmf::slice_elem(wc, sc, resc, jwp, k, jj) = val;
+      vmlmf::slice_elem(wc, sc, resc, jwp, ldc, k, jj) = val;
     else
       wc[(size_t)k * jwp + jj] = val;
   }
@@ -237,6 +243,19 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     }
   };
   prefetch(t_len - 1);
+  // the products' operands: (B) dpre @ V[k-slice, :]^T and (C) src @
+  // U[j-slice, :]^T, src = dhu or (dense) dpre of parity p
+  auto op_b = [&](const float* dpx_t) {
+    return vmlmf::RingOperand<W>{dpx_t, wb, sb, g4, resb, kwp, round4(kw)};
+  };
+  auto op_c = [&](const float* dpx_t) {
+    return vmlmf::RingOperand<W>{DenseRec ? dpx_t : dhux, wc, sc, depth, resc, jwp, round4(jw)};
+  };
+  vmlmf::Ring ring;
+  if constexpr (Streamed) {
+    ring.start(stage, plan);
+    if (t_len > 0) ring.preload(DenseRec ? op_c(dpx) : op_b(dpx));
+  }
 
   for (int t = t_len - 1; t >= 0; --t) {
     float* dpx_t = dpx + (t & 1) * dpx_par;
@@ -275,9 +294,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 
     if (!DenseRec) {
       // (B) dhu[:, k-slice] = dpre @ V[k-slice, :]^T
-      vmlmf::slice_product<Streamed>(dpx_t, g4, rpad, wb, sb, resb, kwp, round4(kw), stage,
-                                     plan.stage, red, plan.red,
-                                     [&](int cb, int rb, float (&acc)[4][4]) {
+      auto epi_b = [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int kk = 4 * cb + c;
@@ -289,14 +306,19 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
             if (row < rows) dhu[(m0 + row) * r + k0 + kk] = acc[c][i];
           }
         }
-      });
+      };
+      if constexpr (Streamed) {
+        ring.product(op_b(dpx_t), red, epi_b);
+        ring.preload(op_c(dpx_t));
+      } else {
+        vmlmf::slice_product<false>(dpx_t, g4, rpad, wb, sb, resb, kwp, round4(kw), stage,
+                                    plan.stage, red, plan.red, epi_b);
+      }
       vmlmf::group_sync(count, plan.ctas, target);
     }
 
     // (C) dh[:, j-slice] += src @ U[j-slice, :]^T, src = dhu or (dense) dpre
-    vmlmf::slice_product<Streamed>(DenseRec ? dpx_t : dhux, depth, rpad, wc, sc, resc, jwp,
-                                   round4(jw), stage, plan.stage, red, plan.red,
-                                   [&](int cb, int rb, float (&acc)[4][4]) {
+    auto epi_c = [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int jj = 4 * cb + c;
@@ -304,7 +326,17 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
         for (int i = 0; i < 4; ++i) dhc[jj * rpad + 4 * rb + i] += acc[c][i];
       }
-    });
+    };
+    if constexpr (Streamed) {
+      ring.product(op_c(dpx_t), red, epi_c);
+      if (t > 0) {
+        float* next = dpx + ((t - 1) & 1) * dpx_par;
+        ring.preload(DenseRec ? op_c(next) : op_b(next));
+      }
+    } else {
+      vmlmf::slice_product<false>(DenseRec ? dpx_t : dhux, depth, rpad, wc, sc, resc, jwp,
+                                  round4(jw), stage, plan.stage, red, plan.red, epi_c);
+    }
   }
   __syncthreads();
 
@@ -317,7 +349,8 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 }
 
 // Launches grid_bptt_kernel<DenseRec, Bf16, Streamed>, Streamed where the
-// plan streams some weight row; returns the launch's error.
+// plan streams some weight row (and then has a ring whose stages hold a row
+// of each product); returns the launch's error.
 // The plan must hold at least the shared memory this kernel carves, and
 // `wstream` (`wstream_floats` floats) its CTAs' streamed regions.
 template <bool DenseRec, bool Bf16>
@@ -335,10 +368,16 @@ cudaError_t bptt(const float* gates, const float* cs, const float* c0, const flo
   const size_t streamed = bwd_stream_floats<W>(DenseRec, h, r, plan);
   if (streamed * plan.groups * plan.ctas > wstream_floats || (streamed > 0 && wstream == nullptr))
     return cudaErrorInvalidValue;
+  const int jwp = round4(div_up(h, plan.ctas)), kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
+  if ((streamed > 0) != (plan.piece > 0) ||
+      (streamed > 0 && !(vmlmf::ring_ok(plan) && vmlmf::ring_holds<W>(plan, jwp) &&
+                         vmlmf::ring_holds<W>(plan, kwp))))
+    return cudaErrorInvalidValue;
   void* args[] = {&gates, &cs, &c0, &dys, &dc_last, &u, &v, &dvec, &dpre, &dhu, &dh0, &dc0,
                   &xchg, &sync, &wstream, &t_len, &batch, &h, &r, &plan};
   return streamed > 0
-             ? vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16, true>, plan, sync, args, stream)
+             ? vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16, true>, plan, sync, args, stream,
+                                  0, vmlmf::kRingThreads)
              : vmlmf::launch_grid(grid_bptt_kernel<DenseRec, Bf16, false>, plan, sync, args,
                                   stream);
 }
@@ -541,7 +580,7 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
 // floats for the split-k partial sums (bwd_partial_floats), and wstream,
 // wstream_floats floats of streamed weights (stream_floats; null where the
 // plan streams nothing); every other pointer after dpre is an output (dv
-// and dvx null with dhu and dxu). The eight integers after r are
+// and dvx null with dhu and dxu). The nine integers after r are
 // scan_plan's layout (ScanPlan.ints); bf16_mm 1 rounds every product's
 // operands to bf16.
 extern "C" int lstm_scan_xin_bwd(
@@ -553,12 +592,13 @@ extern "C" int lstm_scan_xin_bwd(
     float* dbias, float* du, float* dv, float* ddvec, float* dh0, float* dc0, float* xchg,
     unsigned* sync, float* partial, float* wstream, int partial_floats, int wstream_floats,
     int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage,
-    int red, int smem, int res_a, int res_b, int bf16_mm, int policy, void* stream_handle) {
+    int red, int smem, int res_a, int res_b, int piece, int bf16_mm,
+    int policy, void* stream_handle) {
   const BwdIO io{x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, ys, cs, gates, hu, xu, dys,
                  dc_last, gates_w, hu_w, xu_w, dpre, dhu, dxu, dx, dux, dvx, dxdvec, dbias, du,
                  dv, ddvec, dh0, dc0, xchg, sync, partial, static_cast<size_t>(partial_floats),
                  wstream, static_cast<size_t>(wstream_floats), t_len, batch, f, rx, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
 }
@@ -574,14 +614,15 @@ extern "C" int lstm_scan_bwd(
     float* dv, float* ddvec, float* dh0, float* dc0, float* xchg, unsigned* sync,
     float* partial, float* wstream, int partial_floats, int wstream_floats, int t_len,
     int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
-    int res_a, int res_b, int bf16_mm, int policy, void* stream_handle) {
+    int res_a, int res_b, int piece, int bf16_mm, int policy,
+    void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const BwdIO io{nullptr, nullptr, nullptr, nullptr, nullptr, u, v, dvec, h0, c0, ys, cs, gates,
                  hu, nullptr, dys, dc_last, gates_w, hu_w, nullptr, dgi, dhu, nullptr, nullptr,
                  nullptr, nullptr, nullptr, nullptr, du, dv, ddvec, dh0, dc0, xchg, sync, partial,
                  static_cast<size_t>(partial_floats), wstream,
                  static_cast<size_t>(wstream_floats), t_len, batch, 1, 0, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
 }

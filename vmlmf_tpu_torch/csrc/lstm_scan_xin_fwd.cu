@@ -78,15 +78,20 @@
 //   dense h of about 1,050 in f32: the PTB "large" LM's 1500 x 6000 U is
 //   36 MB against 30 MB), scan_plan takes one group over all SMs and keeps
 //   as many depth rows of each slice in shared memory as fit beside the
-//   slabs, stage and red (ScanPlan.resident_fwd). The prologue copies each
-//   CTA's remaining rows, in its slice's layout and type, into its own
-//   region of a device-memory scratch (`wstream`), and every step reads them
-//   from there through L2 (scan_grid.cuh::slice_product): no CTA reads
-//   another's region, so this needs no launch or barrier of its own, and a
-//   row's place does not change the order of the sums.
+//   slabs, ring and red (ScanPlan.resident_fwd). The prologue copies each
+//   CTA's remaining rows, in its slice's layout and type (rows padded to
+//   16 bytes), into its own region of a device-memory scratch (`wstream`).
+//   On such a plan every product runs on scan_grid.cuh::Ring: a producer
+//   warp keeps TMA bulk copies of the exchange and of the streamed rows in
+//   flight through a ring of stages in shared memory, and issues a
+//   product's first stages of weight rows before the group barrier that
+//   precedes it. No
+//   CTA reads another's region, and a row's place does not change the
+//   order of the sums.
 // * Co-residency: every CTA of a group must be resident for its barrier,
-//   so the launch is cooperative, one CTA per SM at most; a grid that
-//   cannot be co-resident is refused and the wrapper raises.
+//   so the launch is cooperative, one CTA per SM at
+//   most; a grid that cannot be co-resident is refused and the wrapper
+//   raises.
 // * Ragged edges: h, r and B need not divide the CTA or group counts; a
 //   CTA may own no rank column (r < ctas), and rows past a group's batch
 //   rows are padding that is computed and never written out.
@@ -144,24 +149,27 @@ struct ScanIO {
 
 // Floats of this kernel's shared memory, in the order of the carve below:
 // the resident rows of the weight slices (of type W), dvec of the j-slice,
-// the (h, c) carry, stage, red, and the step's gi of the j-slice.
+// the (h, c) carry, stage (or, on a streamed plan, the ring), red, and the
+// step's gi of the j-slice.
 template <class W>
 __host__ __device__ inline size_t fwd_smem_floats(bool dense_rec, int h, int r,
                                                   const GridPlan& p) {
   const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
   const size_t weights = (size_t)(dense_rec ? 0 : p.res_a) * kwp + (size_t)p.res_b * 4 * jwm;
-  return vmlmf::weight_floats<W>(weights) + 4 * jwm + 6 * (size_t)jwm * p.rpad + p.stage + p.red;
+  return vmlmf::weight_floats<W>(weights) + 4 * jwm + 6 * (size_t)jwm * p.rpad +
+         (p.piece ? vmlmf::ring_floats(p) : p.stage) + p.red;
 }
 
 // Floats of one CTA's region of the streamed scratch: the rows of its two
-// slices past their resident depths (ops/cuda_scan.py::stream_floats).
+// slices past their resident depths, each row padded to 16 bytes
+// (ring_ld; ops/cuda_scan.py::stream_floats).
 template <class W>
 __host__ __device__ inline size_t fwd_stream_floats(bool dense_rec, int h, int r,
                                                     const GridPlan& p) {
   const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
   const int depth = dense_rec ? h : r;
-  return vmlmf::weight_floats<W>((size_t)(dense_rec ? 0 : h - p.res_a) * kwp +
-                                 (size_t)(depth - p.res_b) * 4 * jwm);
+  return vmlmf::weight_floats<W>((size_t)(dense_rec ? 0 : h - p.res_a) * vmlmf::ring_ld<W>(kwp) +
+                                 (size_t)(depth - p.res_b) * vmlmf::ring_ld<W>(4 * jwm));
 }
 
 // Whether a plan's resident depths are ones this kernel takes.
@@ -175,9 +183,11 @@ inline bool resident_ok(bool dense_rec, int h, int r, const GridPlan& p) {
 // xchg: the h exchange [2][groups][h][rpad] (step parity), then, low-rank,
 // the hu exchange [groups][r][rpad]. sync: one barrier word per group.
 // wstream: the streamed scratch, fwd_stream_floats a CTA (null when the
-// plan streams nothing).
+// plan streams nothing). Streamed: the products run on the ring
+// (scan_grid.cuh::Ring), kRingThreads threads a CTA; else slice_product
+// on kGridThreads.
 template <int Res, bool DenseRec, bool Bf16, bool Streamed>
-__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+__global__ void __launch_bounds__(Streamed ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
                  const float* __restrict__ v, const float* __restrict__ dvec,
                  const float* __restrict__ h0, const float* __restrict__ c0,
@@ -206,12 +216,13 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   W* wb = wa + (size_t)resa * kwp;     // V or dense U, gate columns of the j-slice [depth][jwm][4]
   float* dv = smem + vmlmf::weight_floats<W>((size_t)resa * kwp + (size_t)resb * 4 * jwm);
   // the streamed rows: U's past resa, then V's (or dense U's) past resb
+  const int lda = vmlmf::ring_ld<W>(kwp), ldb = vmlmf::ring_ld<W>(4 * jwm);  // their strides
   W* sa = reinterpret_cast<W*>(wstream + blockIdx.x * fwd_stream_floats<W>(DenseRec, h, r, plan));
-  W* sb = sa + (size_t)(DenseRec ? 0 : h - resa) * kwp;
+  W* sb = sa + (size_t)(DenseRec ? 0 : h - resa) * lda;
   float* hc = dv + 4 * jwm;                // the carry h, c: [jwm][rpad]
   float* cc = hc + (size_t)jwm * rpad;
   float* stage = cc + (size_t)jwm * rpad;
-  float* red = stage + plan.stage;
+  float* red = stage + (Streamed ? vmlmf::ring_floats(plan) : plan.stage);  // stage: the ring
   float* gis = red + plan.red;             // gi of the step, j-slice [jwm][4][rpad]
   float* hx = xchg + (size_t)grp * h * rpad;  // parity p at hx + p * groups*h*rpad
   const size_t hx_par = (size_t)plan.groups * h * rpad;
@@ -227,7 +238,7 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
       const int d = e / kwp, kk = e % kwp;
       const W val = vmlmf::to_elem<W>(kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
       if constexpr (Streamed)
-        vmlmf::slice_elem(wa, sa, resa, kwp, d, kk) = val;
+        vmlmf::slice_elem(wa, sa, resa, kwp, lda, d, kk) = val;
       else
         wa[e] = val;
     }
@@ -238,7 +249,7 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
     const W val = vmlmf::to_elem<W>(jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f);
     if constexpr (Streamed)
-      vmlmf::slice_elem(wb, sb, resb, 4 * jwm, d, e % (4 * jwm)) = val;
+      vmlmf::slice_elem(wb, sb, resb, 4 * jwm, ldb, d, e % (4 * jwm)) = val;
     else
       wb[e] = val;
   }
@@ -254,6 +265,19 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     cc[e] = live ? c0[at] : 0.f;
     if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = vmlmf::exchanged<Bf16>(hc[e]);
   }
+  // the products' operands: (A) h @ U[:, k-slice] and (B) src @ W[:, gate
+  // columns of the j-slice], src = hu or (dense) h, A = h of parity p
+  auto op_a = [&](const float* hin) {
+    return vmlmf::RingOperand<W>{hin, wa, sa, h, resa, kwp, round4(kw)};
+  };
+  auto op_b = [&](const float* hin) {
+    return vmlmf::RingOperand<W>{DenseRec ? hin : hux, wb, sb, depth, resb, 4 * jwm, 4 * jw};
+  };
+  vmlmf::Ring ring;
+  if constexpr (Streamed) {
+    ring.start(stage, plan);
+    if (t_len > 0) ring.preload(DenseRec ? op_b(hx) : op_a(hx));
+  }
   vmlmf::group_sync(count, plan.ctas, target);
 
   for (int t = 0; t < t_len; ++t) {
@@ -261,16 +285,16 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     float* hout = hx + ((t + 1) & 1) * hx_par;
     const size_t m0 = (size_t)t * batch + b0;  // the group's first row of the step
     // the step's gi of the j-slice, copied while phase A and its barrier run
-    for (int e = threadIdx.x; e < 4 * jw * rows; e += blockDim.x) {
-      const int jj = e % jw, g = (e / jw) % 4, row = e / (4 * jw);
-      vmlmf::cp_async4(gis + (jj * 4 + g) * rpad + row, gi + (m0 + row) * g4 + g * h + j0 + jj);
-    }
+    // (by the consumer warps on the ring)
+    if (!Streamed || threadIdx.x < vmlmf::kGridThreads)
+      for (int e = threadIdx.x; e < 4 * jw * rows; e += vmlmf::kGridThreads) {
+        const int jj = e % jw, g = (e / jw) % 4, row = e / (4 * jw);
+        vmlmf::cp_async4(gis + (jj * 4 + g) * rpad + row, gi + (m0 + row) * g4 + g * h + j0 + jj);
+      }
 
     if (!DenseRec) {
       // (A) hu[:, k-slice] = h @ U[:, k-slice]
-      vmlmf::slice_product<Streamed>(hin, h, rpad, wa, sa, resa, kwp, round4(kw), stage,
-                                     plan.stage, red, plan.red,
-                                     [&](int cb, int rb, float (&acc)[4][4]) {
+      auto epi_a = [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int kk = 4 * cb + c;
@@ -283,17 +307,22 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
               hu_out[(m0 + row) * r + k0 + kk] = vmlmf::to_elem<R>(acc[c][i]);
           }
         }
-      });
+      };
+      if constexpr (Streamed) {
+        ring.product(op_a(hin), red, epi_a);
+        ring.preload(op_b(hin));
+      } else {
+        vmlmf::slice_product<false>(hin, h, rpad, wa, sa, resa, kwp, round4(kw), stage,
+                                    plan.stage, red, plan.red, epi_a);
+      }
       vmlmf::group_sync(count, plan.ctas, target);
     }
 
     // (B) pre = gi + src @ W[:, gate columns of the j-slice] + h * dvec; the
     // gates and the update of the j-slice. Item cb is unit j0 + cb. The
-    // product's first __syncthreads publishes the copied gi.
-    vmlmf::cp_async_wait_all();
-    vmlmf::slice_product<Streamed>(DenseRec ? hin : hux, depth, rpad, wb, sb, resb, 4 * jwm,
-                                   4 * jw, stage, plan.stage, red, plan.red,
-                                   [&](int cb, int rb, float (&acc)[4][4]) {
+    // product's first __syncthreads publishes the copied gi (on the ring,
+    // the consumers' barrier before the epilogue).
+    auto epi_b = [&](int cb, int rb, float (&acc)[4][4]) {
       const int j = j0 + cb;
       const float d0 = dv[4 * cb], d1 = dv[4 * cb + 1], d2 = dv[4 * cb + 2], d3 = dv[4 * cb + 3];
       float gv[4][4];
@@ -331,7 +360,15 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
           gw[3 * h + j] = vmlmf::to_elem<R>(so);
         }
       }
-    });
+    };
+    if constexpr (Streamed) {
+      ring.product(op_b(hin), red, epi_b);
+      if (t + 1 < t_len) ring.preload(DenseRec ? op_b(hout) : op_a(hout));
+    } else {
+      vmlmf::cp_async_wait_all();
+      vmlmf::slice_product<false>(DenseRec ? hin : hux, depth, rpad, wb, sb, resb, 4 * jwm,
+                                  4 * jw, stage, plan.stage, red, plan.red, epi_b);
+    }
     vmlmf::group_sync(count, plan.ctas, target);
   }
 
@@ -343,9 +380,10 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
 }
 
 // Launches grid_scan_kernel<Res, DenseRec, Bf16, Streamed>, Streamed where
-// the plan streams some weight row; returns the launch's error. The plan
-// must hold at least the shared memory this kernel carves, and the
-// streamed scratch its CTAs' regions.
+// the plan streams some weight row (and then has a ring whose stages hold a
+// row of each product); returns the launch's error. The plan must hold at
+// least the shared memory this kernel carves, and the streamed scratch its
+// CTAs' regions.
 template <int Res, bool DenseRec, bool Bf16>
 cudaError_t scan(const ScanIO& io, GridPlan plan, cudaStream_t stream) {
   using W = std::conditional_t<Bf16, bf16, float>;
@@ -356,12 +394,17 @@ cudaError_t scan(const ScanIO& io, GridPlan plan, cudaStream_t stream) {
   if (streamed * plan.groups * plan.ctas > io.wstream_floats ||
       (streamed > 0 && io.wstream == nullptr))
     return cudaErrorInvalidValue;
+  const int jwm = div_up(io.h, plan.ctas), kwp = DenseRec ? 0 : round4(div_up(io.r, plan.ctas));
+  if ((streamed > 0) != (plan.piece > 0) ||
+      (streamed > 0 && !(vmlmf::ring_ok(plan) && vmlmf::ring_holds<W>(plan, 4 * jwm) &&
+                         vmlmf::ring_holds<W>(plan, kwp))))
+    return cudaErrorInvalidValue;
   ScanIO a = io;
   void* args[] = {&a.gi, &a.u, &a.v, &a.dvec, &a.h0, &a.c0, &a.ys, &a.c_last, &a.cs, &a.gates,
                   &a.hu, &a.xchg, &a.sync, &a.wstream, &a.t_len, &a.batch, &a.h, &a.r, &plan};
   return streamed > 0
              ? vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, Bf16, true>, plan, io.sync,
-                                  args, stream)
+                                  args, stream, 0, vmlmf::kRingThreads)
              : vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, Bf16, false>, plan, io.sync,
                                   args, stream);
 }
@@ -434,7 +477,7 @@ int launch_xin(const float* x, const float* ux, const float* vx, const float* xd
 // buffers xchg, the barrier words sync and the streamed weights wstream of
 // wstream_floats floats (scan_plan sizes them; wstream null where the plan
 // streams nothing); writes ys [T,B,h] and c_last [B,h]. vx null: dense x
-// side, rx unused; v null: dense recurrent side, r unused. The eight
+// side, rx unused; v null: dense recurrent side, r unused. The nine
 // integers after r are scan_plan's layout (ScanPlan.ints); bf16_mm 1 rounds
 // every product's operands to bf16.
 extern "C" int lstm_scan_xin_fwd(
@@ -443,11 +486,12 @@ extern "C" int lstm_scan_xin_fwd(
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
     float* c_last, float* xchg, unsigned* sync, float* wstream, int wstream_floats, int t_len,
     int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red,
-    int smem, int res_a, int res_b, int bf16_mm, void* stream_handle) {
+    int smem, int res_a, int res_b, int piece,
+    int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, kNoGrad, bf16_mm,
-                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
+                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
                     static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -462,12 +506,12 @@ extern "C" int lstm_scan_xin_fwd_res(
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
     float* cs, void* gates, void* hu, float* xchg, unsigned* sync, float* wstream,
     int wstream_floats, int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas,
-    int rpad, int stage, int red, int smem, int res_a, int res_b, int bf16_mm, int policy,
-    void* stream_handle) {
+    int rpad, int stage, int red, int smem, int res_a, int res_b, int piece,
+    int bf16_mm, int policy, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, res_kind(policy), bf16_mm,
-                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
+                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
                     static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -477,11 +521,12 @@ extern "C" int lstm_scan_fwd(
     const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
     const float* c0, float* ys, float* c_last, float* xchg, unsigned* sync, float* wstream,
     int wstream_floats, int t_len, int batch, int h, int r, int groups, int ctas, int rpad,
-    int stage, int red, int smem, int res_a, int res_b, int bf16_mm, void* stream_handle) {
+    int stage, int red, int smem, int res_a, int res_b, int piece,
+    int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return scan_any(io, kNoGrad, bf16_mm != 0,
-                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
+                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
                   static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -491,13 +536,13 @@ extern "C" int lstm_scan_fwd_res(
     const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
     const float* c0, float* ys, float* cs, void* gates, void* hu, float* xchg, unsigned* sync,
     float* wstream, int wstream_floats, int t_len, int batch, int h, int r, int groups,
-    int ctas, int rpad, int stage, int red, int smem, int res_a, int res_b, int bf16_mm,
-    int policy, void* stream_handle) {
+    int ctas, int rpad, int stage, int red, int smem, int res_a, int res_b, int piece,
+    int bf16_mm, int policy, void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return scan_any(io, res_kind(policy), bf16_mm != 0,
-                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b},
+                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
                   static_cast<cudaStream_t>(stream_handle));
 }
 

@@ -44,9 +44,13 @@ constexpr int kMinSliceDepth = 8;  // depth rows a slice takes at least
 // weight slices that stay in shared memory (ScanPlan.resident_fwd / _bwd):
 // the rows past them are streamed, read every step through L2 from the
 // CTA's own region of a device-memory scratch. The stack leaves them 0.
+// The LSTM scans' streamed plans also take piece: the floats of each of
+// the kRingStages stages of the ring that feeds their products (0: a plan
+// that streams nothing, with the staging buffer of `stage` floats).
 struct GridPlan {
   int groups, ctas, rpad, stage, red, smem;
   int res_a = 0, res_b = 0;
+  int piece = 0;
 };
 
 inline __host__ __device__ int split_at(int q, int n, int parts) {
@@ -169,10 +173,17 @@ __host__ __device__ inline size_t weight_floats(size_t elems) {
 
 // The element of a weight slice's row d at `at`, where the first `resident`
 // rows [resident][ldw] lie in shared memory at `w` and the rest [depth -
-// resident][ldw] in the CTA's streamed region at `ws`: the prologue's store.
+// resident][ldws] in the CTA's streamed region at `ws`: the prologue's
+// store. The GRU's streamed rows keep the slice's stride (ldws = ldw); the
+// LSTM's ring pads it to 16 bytes (ring_ld).
+template <class W>
+__device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int ldws, int d,
+                                         int at) {
+  return d < resident ? w[(size_t)d * ldw + at] : ws[(size_t)(d - resident) * ldws + at];
+}
 template <class W>
 __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int d, int at) {
-  return d < resident ? w[(size_t)d * ldw + at] : ws[(size_t)(d - resident) * ldw + at];
+  return slice_elem(w, ws, resident, ldw, ldw, d, at);
 }
 
 // out(col, row) = sum over d < depth of A[d][row] * W[d][col], for col <
@@ -181,10 +192,11 @@ __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int
 // when it fits in `stage`, else in chunks of stage / 2 floats, the next
 // chunk copying into one half while the CTA multiplies the other. W is
 // this CTA's weight slice, [depth][ldw], f32 or bf16 (ldw a multiple of
-// 4). With Streamed, rows d < `resident` lie in shared memory at `w` and the
-// rest in device memory at `ws` [depth - resident][ldw]; each thread walks
-// its rows in one order wherever they lie, so the sums do not depend on
-// `resident`. Without it (a plan that streams nothing) every row is in
+// 4). With Streamed (the GRU's grid; the LSTM scans' streamed plans run
+// Ring::product below), rows d < `resident` lie in shared memory at `w` and
+// the rest in device memory at `ws` [depth - resident][ldw]; each thread
+// walks its rows in one order wherever they lie, so the sums do not depend
+// on `resident`. Without it (a plan that streams nothing) every row is in
 // shared memory and `ws`, `resident` are unused: the kernels are built for
 // both, so a resident plan runs the code it ran before any row could be
 // streamed. With Batch > 1 a thread issues the loads of Batch streamed rows
@@ -316,6 +328,335 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
                        stage, stage_floats, red, red_floats, epi);
 }
 
+// ---------------------------------------------------------------------------
+// The ring of the LSTM scans' streamed plans (lstm_scan_xin_fwd.cu,
+// lstm_scan_xin_bwd.cu where ScanPlan.ring > 0).
+//
+// A streamed plan's products read two things from L2 a step: the group's
+// exchange buffer A [depth][rpad], which every CTA reads whole, and the
+// CTA's streamed weight rows. slice_product copies A in two halves with
+// one in flight, two __syncthreads and a full L2 round trip per chunk, and
+// loads each streamed row inside its FMA loop. Here a ring of kRingStages
+// stages of `piece` floats each in shared memory holds pieces of the walk:
+// a stage holds A's rows [e0, e1) and the CTA's streamed rows among them,
+// each copied by one TMA bulk copy (cp.async.bulk) that reports its bytes
+// to the stage's `full` mbarrier. One producer warp (the block's 17th; one
+// lane issues) keeps kRingStages pieces in flight; the 16 consumer warps
+// wait on `full`, run their FMAs and release the stage on its `empty`
+// mbarrier. The weight rows never change, so the producer issues the next
+// product's first stages of them before the CTA waits at the group barrier
+// (preload) and their A rows right after it.
+//
+// The order of sums is slice_product's: thread s of an item walks the rows
+// d0 + s, d0 + s + slices, ... of each chunk [d0, d0 + chunk) that
+// slice_product stages (chunk = stage / 2 / rpad, or the whole depth where
+// it fits in `stage`), accumulating across chunks, with the same `slices`
+// and the same fixed-order reduction in `red`. The pieces cut the depth
+// into runs of as many rows as a stage holds, across chunk bounds: over
+// the resident rows a stage holds A alone, past them A and the streamed
+// rows. In each chunk a piece meets, the thread starts at its first row
+// d >= e0 with d - d0 = s (mod slices). So where the CTA count is the
+// parent's, the bits are.
+// ---------------------------------------------------------------------------
+
+constexpr int kRingThreads = kGridThreads + 32;  // 16 consumer warps, one producer warp
+constexpr int kConsumerWarps = kGridThreads / 32;
+// Stages of the ring: more ran no faster (tools/ring_sweep.py, PERF.md),
+// and the shared memory they take holds resident rows instead.
+constexpr int kRingStages = 2;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// The 16 consumer warps alone (named barrier 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kGridThreads) : "memory");
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// One arrival that also expects `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_arm(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Waits until the barrier's phase of parity `parity` has completed; traps
+// after kBarrierTimeoutNs, as group_sync does.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  auto ready = [&]() {
+    unsigned done;
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}" : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    return done != 0;
+  };
+  if (ready()) return;
+  const unsigned long long start = global_ns();
+  while (!ready())
+    if (global_ns() - start > kBarrierTimeoutNs) __trap();
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+// Generic-proxy writes to device memory (the prologue's streamed rows, the
+// exchange that a barrier published) made visible to the bulk copies.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1], %2, [%3];"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Elements of a streamed row in the CTA's region: the slice's row stride
+// rounded up to 16 bytes, so that every run of rows is one bulk copy.
+template <class W>
+__host__ __device__ inline int ring_ld(int ldw) {
+  return div_up(ldw * (int)sizeof(W), 16) * 16 / (int)sizeof(W);
+}
+
+// One product's operands for Ring::product: A, the exchange buffer
+// [depth][rpad] in device memory; W's rows d < resident at w [resident][ldw]
+// in shared memory and the others at ws [depth - resident][ldws] in the
+// CTA's streamed region; ncols output columns (a multiple of 4, <= ldw).
+template <class W>
+struct RingOperand {
+  const float* a;
+  const W* w;
+  const W* ws;
+  int depth, resident, ldw, ncols;
+};
+
+// A product's walk: slice_product's items, slices and chunk; the rows of a
+// piece past the resident rows (A and a streamed row each) and over them
+// (A alone); the passes over the depth.
+struct RingWalk {
+  int items, slices, units, chunk, rows, rows_a, passes;
+};
+
+struct Ring {
+  float* buf;                   // kRingStages x piece floats
+  unsigned long long* full;     // [kRingStages]
+  unsigned long long* empty;    // [kRingStages]
+  int piece, rpad, stage_floats, red_floats;
+  unsigned it;  // pieces through the ring so far; every thread keeps the count
+  int ahead;    // the producer's: pieces of the next product whose weights are issued
+
+  // Carves the ring at `at` (kRingStages * piece floats, then two barriers
+  // a stage), and initialises the barriers; every thread of the CTA calls
+  // it, after the prologue has written the streamed rows.
+  __device__ __forceinline__ void start(float* at, const GridPlan& p) {
+    buf = at;
+    piece = p.piece;
+    rpad = p.rpad;
+    stage_floats = p.stage;
+    red_floats = p.red;
+    it = 0;
+    ahead = 0;
+    full = reinterpret_cast<unsigned long long*>(at + (size_t)kRingStages * p.piece);
+    empty = full + kRingStages;
+    fence_proxy_async_global();
+    if (threadIdx.x == kGridThreads) {
+      for (int i = 0; i < kRingStages; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, kConsumerWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  template <class W>
+  __device__ __forceinline__ RingWalk walk(const RingOperand<W>& op) const {
+    RingWalk k;
+    const int rbs = rpad / 4;
+    k.items = op.ncols / 4 * rbs;
+    const int most = k.items >= kGridThreads ? 1 : min(kMaxSlices, kGridThreads / max(1, k.items));
+    k.slices = max(1, min(min(most, op.depth / kMinSliceDepth),
+                          red_floats / (16 * max(1, k.items))));
+    k.units = k.items * k.slices;
+    k.chunk = op.depth * rpad <= stage_floats ? op.depth : stage_floats / 2 / rpad;
+    k.rows = piece * 4 / (rpad * 4 + ring_ld<W>(op.ldw) * (int)sizeof(W));
+    k.rows_a = piece / rpad;
+    k.passes = max(1, div_up(op.ldw / 4 * rbs, kGridThreads));
+    return k;
+  }
+
+  // The end of the piece that starts at row e0.
+  __device__ __forceinline__ static int piece_end(int e0, int depth, int resident,
+                                                  const RingWalk& k) {
+    return e0 < resident ? min(resident, e0 + k.rows_a) : min(depth, e0 + k.rows);
+  }
+
+  // Calls f(e0, e1) for each piece [e0, e1) of the depth, pass by pass,
+  // while it returns true.
+  template <class F>
+  __device__ __forceinline__ static void pieces(int depth, int resident, const RingWalk& k,
+                                                F f) {
+    for (int pass = 0; pass < k.passes; ++pass)
+      for (int e0 = 0, e1; e0 < depth; e0 = e1) {
+        e1 = piece_end(e0, depth, resident, k);
+        if (!f(e0, e1)) return;
+      }
+  }
+
+  __device__ __forceinline__ float* stage_at(unsigned idx) const {
+    return buf + (size_t)(idx % kRingStages) * piece;
+  }
+
+  // The producer: waits until stage idx is free, arms its full barrier for
+  // the piece's A and weight bytes, and copies the piece's streamed rows.
+  template <class W>
+  __device__ __forceinline__ void issue_weights(const RingOperand<W>& op, const RingWalk& k,
+                                                unsigned idx, int e0, int e1) {
+    const unsigned st = idx % kRingStages;
+    mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);
+    const int ldws = ring_ld<W>(op.ldw), es = max(e0, op.resident);
+    const unsigned wbytes = e1 > es ? (unsigned)((e1 - es) * ldws * sizeof(W)) : 0u;
+    mbar_arm(full + st, (unsigned)((e1 - e0) * rpad * 4) + wbytes);
+    if (wbytes)
+      bulk_load(stage_at(idx) + k.rows * rpad, op.ws + (size_t)(es - op.resident) * ldws, wbytes,
+                full + st);
+  }
+
+  // The producer: the piece's A rows.
+  __device__ __forceinline__ void issue_a(const float* a, unsigned idx, int e0, int e1) const {
+    bulk_load(stage_at(idx), a + (size_t)e0 * rpad, (unsigned)((e1 - e0) * rpad * 4),
+              full + idx % kRingStages);
+  }
+
+  // The weights of the next product's first stages, issued before the
+  // group barrier that publishes its A. Every thread calls it.
+  template <class W>
+  __device__ __forceinline__ void preload(const RingOperand<W>& op) {
+    if (threadIdx.x != kGridThreads) return;
+    fence_proxy_async_global();
+    const RingWalk k = walk(op);
+    int i = 0;
+    pieces(op.depth, op.resident, k, [&](int e0, int e1) {
+      if (i == kRingStages) return false;
+      issue_weights(op, k, it + i, e0, e1);
+      ++i;
+      return true;
+    });
+    ahead = i;
+  }
+
+  // out(col, row) = sum over d < depth of A[d][row] * W[d][col], as
+  // slice_product computes it, and epi(cb, rb, acc) once per item. Every
+  // thread of the CTA calls it. The consumers wait for their own cp.async
+  // copies (cp_async_wait_all) before the epilogue.
+  template <class W, class Epi>
+  __device__ __forceinline__ void product(const RingOperand<W>& op, float* red, Epi epi) {
+    const RingWalk k = walk(op);
+    const unsigned first = it;
+    int n = 0;
+    pieces(op.depth, op.resident, k, [&](int, int) { ++n; return true; });
+    if (threadIdx.x == kGridThreads) {
+      fence_proxy_async_global();  // the exchange that the barrier published
+      int i = 0;
+      pieces(op.depth, op.resident, k, [&](int e0, int e1) {
+        if (i >= ahead) issue_weights(op, k, first + i, e0, e1);
+        issue_a(op.a, first + i, e0, e1);
+        ++i;
+        return true;
+      });
+    } else if (threadIdx.x < kGridThreads) {
+      consume(op, k, first, red, epi);
+    }
+    it = first + n;
+    ahead = 0;
+  }
+
+  template <class W, class Epi>
+  __device__ __forceinline__ void consume(const RingOperand<W>& op, const RingWalk& k,
+                                          unsigned idx, float* red, Epi epi) {
+    const int rbs = rpad / 4, cbs = op.ncols / 4, ldws = ring_ld<W>(op.ldw);
+    const int lane = threadIdx.x % 32;
+    for (int pass = 0; pass < k.passes; ++pass) {
+      const int unit = pass * kGridThreads + threadIdx.x;
+      const bool live = unit < k.units;
+      const int item = live ? unit % k.items : 0, s = live ? unit / k.items : 0;
+      const int cb = live ? item % cbs : 0, rb = live ? item / cbs : 0;
+      float acc[4][4] = {};
+      auto fma_row = [&](float4 av, float4 wv) {
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+        const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[c][i] = fmaf(ar[i], wc[c], acc[c][i]);
+      };
+      for (int e0 = 0, e1; e0 < op.depth; e0 = e1, ++idx) {
+        e1 = piece_end(e0, op.depth, op.resident, k);
+        mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);
+        if (live) {
+          const float* sp = stage_at(idx);
+          const float4* s4 = reinterpret_cast<const float4*>(sp) + rb;
+          const int es = max(e0, op.resident);
+          const W* sw = reinterpret_cast<const W*>(sp + k.rows * rpad) + 4 * cb;  // row es
+          const W* wr = op.w + 4 * cb;
+          // the piece's part of each chunk [c0, c0 + chunk) it meets
+          for (int c0 = e0 - e0 % k.chunk; c0 < e1; c0 += k.chunk) {
+            const int a = max(e0, c0), b = min(e1, c0 + k.chunk), dr = min(b, op.resident);
+            int d = a + (s - (a - c0) % k.slices + k.slices) % k.slices;
+#pragma unroll 4
+            for (; d < dr; d += k.slices)  // resident rows
+              fma_row(s4[(d - e0) * rbs], load4(wr + (size_t)d * op.ldw));
+#pragma unroll 4
+            for (; d < b; d += k.slices)  // streamed rows, from the stage
+              fma_row(s4[(d - e0) * rbs], load4(sw + (size_t)(d - es) * ldws));
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + idx % kRingStages);
+      }
+      cp_async_wait_all();
+      consumers_sync();
+      if (k.slices > 1 && pass * kGridThreads < k.units) {  // one pass: units <= threads
+        if (live) {
+          float* p = red + (size_t)s * 16 * k.items + item;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) p[e * k.items] = acc[e / 4][e % 4];
+        }
+        consumers_sync();
+        for (int o = threadIdx.x; o < k.items * 16; o += kGridThreads) {
+          float v = red[o];
+          for (int z = 1; z < k.slices; ++z) v += red[(size_t)z * k.items * 16 + o];
+          red[o] = v;
+        }
+        consumers_sync();
+        if (live && s == 0) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[e / 4][e % 4] = red[e * k.items + item];
+        }
+      }
+      if (live && s == 0) epi(cb, rb, acc);
+    }
+  }
+};
+
+// Floats of shared memory a ring takes: its stages and its barriers.
+__host__ __device__ inline size_t ring_floats(const GridPlan& p) {
+  return (size_t)kRingStages * (p.piece + 4);
+}
+
+// Whether a plan's ring is one the kernels take: stages of whole 16-byte
+// units.
+inline bool ring_ok(const GridPlan& p) { return p.piece > 0 && p.piece % 4 == 0; }
+// Whether a stage holds one depth row of a product: its rpad floats of A
+// and a streamed row of a slice of width ldw.
+template <class W>
+inline bool ring_holds(const GridPlan& p, int ldw) {
+  return (size_t)p.piece * 4 >= (size_t)p.rpad * 4 + (size_t)ring_ld<W>(ldw) * sizeof(W);
+}
+
 // The rank columns of CTA q of a wavefront-stack layer on c CTAs, with
 // ranks r and rx (rx = 0: layer 0, no x side), as ops/cuda_stack.py::
 // _rank_split lays them out. Layer 0, and a layer on one CTA, split r (and
@@ -397,13 +738,13 @@ inline cudaError_t widen(const void* src, float* dst, size_t n, cudaStream_t str
 }
 
 // Launches `kernel` cooperatively on plan.groups * plan.ctas CTAs of
-// kGridThreads threads with plan.smem bytes of shared memory, after zeroing
+// `threads` threads with plan.smem bytes of shared memory, after zeroing
 // the barrier words (`sync_words` of them; 0: one per group); `args` as
 // cudaLaunchCooperativeKernel takes them. A grid that cannot be
 // co-resident is refused with cudaErrorCooperativeLaunchTooLarge, never run.
 template <class Kernel>
 cudaError_t launch_grid(Kernel kernel, const GridPlan& plan, unsigned* sync, void** args,
-                        cudaStream_t stream, int sync_words = 0) {
+                        cudaStream_t stream, int sync_words = 0, int threads = kGridThreads) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          plan.smem);
   if (err != cudaSuccess) return err;
@@ -411,7 +752,7 @@ cudaError_t launch_grid(Kernel kernel, const GridPlan& plan, unsigned* sync, voi
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGridThreads, plan.smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, plan.smem);
   if (err != cudaSuccess) return err;
   const int grid = plan.groups * plan.ctas;
   if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
@@ -419,8 +760,7 @@ cudaError_t launch_grid(Kernel kernel, const GridPlan& plan, unsigned* sync, voi
                         stream);
   if (err != cudaSuccess) return err;
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                     dim3(kGridThreads), args, static_cast<size_t>(plan.smem),
-                                     stream);
+                                     dim3(threads), args, static_cast<size_t>(plan.smem), stream);
 }
 
 }  // namespace vmlmf

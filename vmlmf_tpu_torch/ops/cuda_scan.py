@@ -44,7 +44,9 @@ order. A width whose weights do not fit in the shared memory of all SMs
 even for one row (a dense h past about 1,050 in f32) gets a plan that
 streams the weight rows that do not fit through L2 from a device-memory
 scratch (`ScanPlan.resident_fwd`, `stream_floats`), which the wrappers
-allocate. All of it is plain Python, so the CPU tests reach it.
+allocate, through a ring of TMA copies in shared memory
+(`ScanPlan.piece_fwd`, `ring_pieces`). All of it is plain Python, so the
+CPU tests reach it.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, so on the CPU the autograd functions run the plain forward
 and the plain backward. There is no fallback between the two: a CUDA input
@@ -449,6 +451,15 @@ TC_DEPTH = 32          # k-slice of a tensor-core GEMM stage (gemm_tc.cuh kK)
 # multiply-adds of a step below which a CTA's share is not worth a wider
 # group barrier: about a microsecond of one SM's f32 work
 MIN_STEP_WORK = 32768
+# The ring of a streamed plan (scan_grid.cuh::Ring): RING_STAGES stages
+# (kRingStages) of RING_PIECE_FLOATS floats each, or RING_PIECE_SMALL where
+# a group pads its rows to 4 (B <= 4), smaller where they do not fit
+# (`ring_piece`), from `tools/ring_sweep.py` (PERF.md: more stages ran no
+# faster; from B=20 up 80 KB stages ran fastest or within 1%, at B=1 48 KB
+# ones, which leave more weight rows resident).
+RING_STAGES = 2
+RING_PIECE_FLOATS = 20480
+RING_PIECE_SMALL = 12288
 
 
 def _cdiv(a, b):
@@ -489,7 +500,14 @@ class ScanPlan:
     resident depth are *streamed*: each CTA copies them once into its own
     region of a device-memory scratch (`stream_floats`) and reads them
     through L2 every step, in the same order of sums. A plan whose slices
-    are all resident streams nothing."""
+    are all resident streams nothing.
+
+    A kernel that streams runs its products on a ring (scan_grid.cuh::Ring):
+    RING_STAGES stages of ``piece_fwd`` / ``piece_bwd`` floats in shared
+    memory in place of the staging buffer, which TMA bulk copies fill with
+    pieces of the exchange and of the streamed rows (`ring_pieces`);
+    ``stage_*`` still sets the chunks whose order of sums the ring keeps. A
+    kernel that streams nothing has no ring (a piece of 0)."""
 
     b: int
     h: int
@@ -508,6 +526,8 @@ class ScanPlan:
     elsize: int = 4
     resident_fwd: tuple = (0, 0)
     resident_bwd: tuple = (0, 0)
+    piece_fwd: int = 0
+    piece_bwd: int = 0
 
     @property
     def n_ctas(self):
@@ -524,6 +544,10 @@ class ScanPlan:
 
     def resident(self, kernel):
         return self.resident_fwd if kernel == "fwd" else self.resident_bwd
+
+    def piece(self, kernel):
+        """Floats a stage of ``kernel``'s ring; 0: no ring."""
+        return self.piece_fwd if kernel == "fwd" else self.piece_bwd
 
     def streamed_elems(self, kernel):
         """Weight elements a CTA of ``kernel`` streams: the rows of each
@@ -549,19 +573,66 @@ class ScanPlan:
 
     def ints(self, kernel):
         """The plan as the C entry of ``kernel`` ("fwd" or "bwd") takes it:
-        groups, ctas, rpad, stage, red, smem, and the resident depths of its
-        two weight slices."""
+        groups, ctas, rpad, stage, red, smem, the resident depths of its two
+        weight slices, and its ring's floats a stage (0: no ring)."""
         return (self.groups, self.ctas, self.rpad, *((self.stage_fwd, self.red_fwd, self.smem_fwd)
                 if kernel == "fwd" else (self.stage_bwd, self.red_bwd, self.smem_bwd)),
-                *self.resident(kernel))
+                *self.resident(kernel), self.piece(kernel))
+
+    def walk(self, kernel):
+        """Each product of ``kernel`` as its ring walks it -> ((depth, its
+        chunk, rows of a piece, `ring_pieces`), ...); () without a ring."""
+        piece = self.piece(kernel)
+        if not piece:
+            return ()
+        stage = self.stage_fwd if kernel == "fwd" else self.stage_bwd
+        return tuple((d, ring_chunk(d, self.rpad, stage),
+                      *ring_pieces(d, c, self.rpad, piece, self.elsize, res))
+                     for (d, c), res in zip(self.slices(kernel), self.resident(kernel)) if d)
+
+
+def ring_ld(cols, elsize):
+    """Elements of a streamed row in a CTA's region: a slice's ``cols``
+    rounded up to 16 bytes (scan_grid.cuh::ring_ld), so that each run of
+    rows is one bulk copy."""
+    return _cdiv(cols * elsize, 16) * 16 // elsize
+
+
+def ring_chunk(depth, rpad, stage):
+    """The depth rows of a chunk of `slice_product`, whose order of sums the
+    ring keeps: stage / 2 / rpad, or the whole depth where it fits in
+    ``stage``."""
+    return depth if depth * rpad <= stage else stage // 2 // rpad
+
+
+def ring_pieces(depth, cols, rpad, piece, elsize, resident=0):
+    """The walk of one product on a ring (scan_grid.cuh::Ring::walk and
+    `pieces`): the ``resident`` rows cut into pieces of the exchange alone,
+    as many rows as a stage of ``piece`` floats holds of its rpad floats
+    each, then the rest into pieces of ``rows`` rows, as many as a stage
+    holds of rpad exchange floats and one streamed row of ``cols``
+    elements each, across the chunks' bounds (`ring_chunk`) -> (rows,
+    ((e0, e1), ...)) over one pass."""
+    rows = piece * 4 // (rpad * 4 + ring_ld(cols, elsize) * elsize)
+    if rows < 1:
+        raise ValueError(f"a ring stage of {piece} floats holds no row of {rpad} exchange "
+                         f"floats and {cols} weights")
+    out, e0 = [], 0
+    while e0 < depth:
+        out.append((e0, min(resident, e0 + piece // rpad) if e0 < resident
+                    else min(depth, e0 + rows)))
+        e0 = out[-1][1]
+    return rows, tuple(out)
 
 
 def stream_floats(plan, kernel):
     """Floats of the device-memory scratch that ``kernel`` ("fwd" or "bwd")
-    streams its weight rows from: each CTA's streamed elements, rounded up
-    to 16 bytes (scan_grid.cuh::weight_floats), times the CTAs; 0 for a
-    plan that streams nothing."""
-    return plan.n_ctas * (_cdiv(plan.streamed_elems(kernel) * plan.elsize, 16) * 4)
+    streams its weight rows from: each CTA's streamed rows at `ring_ld`
+    elements a row, rounded up to 16 bytes (scan_grid.cuh::weight_floats),
+    times the CTAs; 0 for a plan that streams nothing."""
+    elems = sum((d - res) * ring_ld(c, plan.elsize)
+                for (d, c), res in zip(plan.slices(kernel), plan.resident(kernel)))
+    return plan.n_ctas * (_cdiv(elems * plan.elsize, 16) * 4) if elems else 0
 
 
 @functools.lru_cache(maxsize=4096)
@@ -576,12 +647,14 @@ def _weight_slices(h, r, ctas):
             "bwd": ((4 * h if r else 0, kwp), (r or 4 * h, _round4(jwm)))}
 
 
-def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize):
+def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize, piece=0):
     """(stage, red, smem bytes) of one kernel: ``phases`` are its products as
     (depth, columns), ``weights`` the elements of its weight slices held in
     shared memory, of ``elsize`` bytes each (the region rounded up to 16
     bytes), ``slabs`` its [units][rpad] buffers (the carry and the
-    prefetched step inputs)."""
+    prefetched step inputs). ``piece``: the floats a stage of a ring that
+    takes the staging buffer's place, RING_STAGES stages with two 8-byte
+    barriers each; 0: none."""
     stage = min(max(d for d, _ in phases), max(2, STAGE_FLOATS // rpad)) * rpad
     red = 0
     for depth, cols in phases:
@@ -590,27 +663,60 @@ def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize):
         red = max(red, slices * items * 16 if slices > 1 else 0)
     jwm = _cdiv(h, ctas)
     wfloats = _cdiv(weights * elsize, 16) * 4
-    return stage, red, 4 * (wfloats + 4 * jwm + slabs * jwm * rpad + stage + red)
+    staged = RING_STAGES * (piece + 4) if piece else stage
+    return stage, red, 4 * (wfloats + 4 * jwm + slabs * jwm * rpad + staged + red)
 
 
-def _streamed_plan(b, h, r, sms, elsize):
+def ring_piece(rpad):
+    """The floats a ring stage takes where they fit, by a group's padded
+    rows: RING_PIECE_SMALL at 4, else RING_PIECE_FLOATS."""
+    return RING_PIECE_SMALL if rpad <= 4 else RING_PIECE_FLOATS
+
+
+def _ring_fit(free, need, piece):
+    """The floats a stage of a ring in ``free`` floats of shared memory:
+    ``piece`` (at least ``need``, one row of each product), or as many as
+    fit; None where not even stages of ``need`` fit."""
+    piece = min(max(piece, need), (free // RING_STAGES - 4) // 4 * 4)
+    return piece if piece >= need else None
+
+
+def _ring_need(rpad, phases, elsize):
+    """Floats a ring stage needs at least: one depth row of each product,
+    its rpad exchange floats and a streamed row (`ring_pieces`), in whole
+    16-byte units."""
+    return _round4(max(rpad + _cdiv(ring_ld(c, elsize) * elsize, 4) for _, c in phases))
+
+
+def _streamed_plan(b, h, r, sms, elsize, piece=None):
     """The plan of `scan_plan` where not even one row has a resident one:
-    one group over min(sms, h) CTAs, each kernel holding as much depth of
-    each weight slice as fits beside its slabs, stage and red (the same
-    share of each slice's depth), the rest streamed. Raises ValueError
-    where the slabs alone do not fit: `scan_chunks` then cuts the batch."""
+    one group over min(sms, h) CTAs, each kernel with a ring of stages of
+    ``piece`` floats (None: `ring_piece`; `_ring_fit`) and holding as much
+    depth of each weight slice as fits beside its slabs, ring and red (the
+    same share of each slice's depth), the rest streamed through the ring.
+    Raises ValueError where the slabs and the smallest ring do not fit:
+    `scan_chunks` then cuts the batch."""
     ctas = min(sms, h)
-    empty = plan_layout(b, h, r, 1, ctas, elsize, resident=((0, 0), (0, 0)))
+    empty = plan_layout(b, h, r, 1, ctas, elsize, resident=((0, 0), (0, 0)), piece=piece)
     resident = []
     for kernel, smem in (("fwd", empty.smem_fwd), ("bwd", empty.smem_bwd)):
         room = (SMEM_LIMIT - smem) // 16 * 16 // elsize  # weight elements that fit
-        if room < 0:
+        if room < 0 or not empty.piece(kernel):
             raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in "
                              f"the shared memory of {sms} SMs, and the slabs of B={b} do not "
                              f"fit beside a streamed slice")
         total = sum(d * c for d, c in empty.slices(kernel))
         resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
-    return plan_layout(b, h, r, 1, ctas, elsize, resident=tuple(resident))
+    return plan_layout(b, h, r, 1, ctas, elsize, resident=tuple(resident),
+                       ring=(empty.piece_fwd, empty.piece_bwd))
+
+
+def streamed_plan(b, h, r, sms=SMS, elsize=4, piece=None):
+    """`scan_plan`'s streamed plan of a width whose weights do not fit,
+    with stages of another size, or forced where the weights would fit (the
+    sweeps and tests that hold one to another: the same chunks, `slices` and
+    `red`, so the same sums)."""
+    return _streamed_plan(b, h, r, sms, elsize, piece)
 
 
 @functools.lru_cache(maxsize=256)
@@ -631,8 +737,9 @@ def scan_plan(b, h, r, sms=SMS, elsize=4):
     weights do not fit in the shared memory of all SMs even for one row,
     the plan streams the rows that do not fit (`_streamed_plan`); that is
     chosen by the width alone, so every shape with a resident plan keeps
-    it. Raises ValueError where a batch has no plan (`scan_chunks` then
-    cuts it into chunks that have one).
+    it. A streamed plan runs on a ring (`_streamed_plan`). Raises
+    ValueError where a batch has no plan (`scan_chunks` then cuts it into
+    chunks that have one).
     """
     if min(b, h, sms) < 1 or r < 0 or elsize not in (2, 4):
         raise ValueError(f"no scan plan for B={b}, h={h}, r={r} on {sms} SMs, {elsize}-byte "
@@ -661,12 +768,16 @@ def _fits_resident(b, h, r, sms, elsize):
     return None
 
 
-def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None):
+def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None, ring=None, piece=None):
     """The ScanPlan of ``groups`` batch groups of ``ctas`` CTAs each, for
     batch ``b``, width ``h`` and rank ``r`` (0: dense), weights of
     ``elsize`` bytes; `scan_plan` picks the grouping. ``resident``: the
     (forward, BPTT) pairs of resident depths (`ScanPlan.resident_fwd`);
-    None holds every row in shared memory."""
+    None holds every row in shared memory. A kernel that streams some row
+    gets a ring: ``ring``'s (forward, BPTT) pair of floats a stage, or
+    else stages of ``piece`` floats (None: `ring_piece`), or as large as
+    fit beside the rest (`_ring_fit`; of the smallest stage, where the
+    shared memory then exceeds SMEM_LIMIT)."""
     rpad = _round4(_cdiv(b, groups))
     slices = _weight_slices(h, r, ctas)
     if resident is None:
@@ -674,11 +785,24 @@ def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None):
     held = [sum(res * c for res, (_, c) in zip(resident[i], slices[k]))
             for i, k in enumerate(("fwd", "bwd"))]
     phases = {k: [sl for sl in slices[k] if sl[0]] for k in slices}
+    rings = []
     # slabs: forward h, c and the step's gi (4); BPTT dh, dc and phase A's 7 inputs
-    fwd = _kernel_layout(h, ctas, rpad, phases["fwd"], held[0], 6, elsize)
-    bwd = _kernel_layout(h, ctas, rpad, phases["bwd"], held[1], 9, elsize)
+    for i, (kernel, slabs) in enumerate((("fwd", 6), ("bwd", 9))):
+        if all(res == d for res, (d, _) in zip(resident[i], slices[kernel])):
+            rings.append(0)
+        elif ring is not None:
+            rings.append(ring[i])
+        else:
+            stage, _, smem = _kernel_layout(h, ctas, rpad, phases[kernel], held[i], slabs,
+                                            elsize)
+            free = SMEM_LIMIT // 4 - (smem // 4 - stage)  # beside all but the staging buffer
+            need = _ring_need(rpad, phases[kernel], elsize)
+            rings.append(_ring_fit(free, need, piece or ring_piece(rpad)) or need)
+    fwd = _kernel_layout(h, ctas, rpad, phases["fwd"], held[0], 6, elsize, rings[0])
+    bwd = _kernel_layout(h, ctas, rpad, phases["bwd"], held[1], 9, elsize, rings[1])
     return ScanPlan(b, h, r, groups, ctas, rpad, *fwd, groups * rpad * (2 * h + r),
-                    *bwd, groups * rpad * (8 * h + r), elsize, *map(tuple, resident))
+                    *bwd, groups * rpad * (8 * h + r), elsize, *map(tuple, resident),
+                    *rings)
 
 
 def _splitk_floats(m, n, k, depth=TC_DEPTH):
@@ -729,8 +853,21 @@ def scan_chunks(b, h, r, sms=SMS, elsize=4):
     (the PTB VMLMF LM layer up to B=656 in f32, 832 in bf16; the dense one
     up to 476). Raises `scan_plan`'s ValueError when not even one row has
     a plan: every width has one (streamed where the weights do not fit),
-    so only where one row's slabs alone do not fit in shared memory."""
+    so only where one row's slabs alone do not fit in shared memory.
+
+    One exception, by measured cost: a width whose f32 weights stream even
+    at one row but whose bf16 ones are resident takes, in bf16, one
+    streamed launch (`_streamed_plan`) for a batch whose resident plans
+    would need chunks, where its slabs fit. At the PTB "large" layer (dense
+    h=1500, B=128: three resident chunks) that launch ran every entry
+    faster (`tools/ring_sweep.py`, PERF.md)."""
     scan_plan(1, h, r, sms, elsize)
+    if elsize == 2 and not _fits_resident(1, h, r, sms, 4) and not _fits_resident(
+            b, h, r, sms, elsize):
+        try:
+            return ((0, b, _streamed_plan(b, h, r, sms, elsize)),)
+        except ValueError:
+            pass
     for n in range(1, b + 1):
         bounds = [_split_at(i, b, n) for i in range(n + 1)]
         try:

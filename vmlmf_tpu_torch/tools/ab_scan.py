@@ -36,7 +36,11 @@ Each line also gives, under "ptxas", the registers and spill bytes that
 at the build's flags, by template arguments.
 A checkout that runs layers wider than the SMs' shared memory also times,
 under "dense1500", the three LSTM entries at the PTB "large" LM's dense
-layer (T=35, F=h=1500) at B=20 and 128 in f32 and B=20 in bf16.
+layer (T=35, F=h=1500) at B = 1, 20 and 128 in f32 and B=20 in bf16, and
+at a low-rank layer of that width (r=rx=750) at B = 1, 20 and 128 in f32;
+prints each of those six f32 plans under "plans" (CTAs, resident depths
+and, on a ring, the floats a stage of each kernel's); and adds their
+outputs' digests to the "lstm" family.
 Under "digest", a sha256 of all the outputs of the f32 entries that every
 checkout since the stack has: the LSTM scan's three at B=20 in both
 forms, the GRU's three x-mode entries at B=81 in each recurrent form, and
@@ -77,6 +81,12 @@ def inputs(b, form):
         return (n(t, b, w, scale=1.0), n(w, 4 * w, scale=w ** -0.5), None,
                 torch.zeros(4, w).cuda(), n(4 * w, scale=0.1), n(w, 4 * w, scale=w ** -0.5), None,
                 torch.zeros(4 * w).cuda(), n(b, w, scale=0.5), n(b, w, scale=0.5))
+    if form == "lowrank1500":  # a low-rank layer of that width, r = rx = 750
+        w, k = 1500, 750
+        return (n(t, b, w, scale=1.0), n(w, k, scale=w ** -0.5), n(k, 4 * w, scale=k ** -0.5),
+                n(4, w, scale=0.1), n(4 * w, scale=0.1), n(w, k, scale=w ** -0.5),
+                n(k, 4 * w, scale=k ** -0.5), n(4 * w, scale=0.1), n(b, w, scale=0.5),
+                n(b, w, scale=0.5))
     if form == "dense":
         return (n(t, b, f, scale=1.0), n(f, 4 * h, scale=f ** -0.5), None,
                 torch.zeros(4, h).cuda(), n(4 * h, scale=0.1), n(h, 4 * h, scale=h ** -0.5), None,
@@ -236,15 +246,16 @@ def stack_ms(b, precision=None):
     return out
 
 
-# sha256 of every output of the three f32 entries at B=20 (both forms), so
-# that two checkouts' kernels can be shown to give the same bits
-def digest(form):
+# sha256 of every output of the three f32 entries at B=20 (both forms; the
+# wide layers at B = 1, 20 and 128), so that two checkouts' kernels can be shown
+# to give the same bits
+def digest(form, b=20):
     if form in GRU_FORMS:
         outs = gru_outputs(form)[0]
     elif form == "stack":
         outs = stack_outputs(20)[0]
     else:
-        args = inputs(20, form)
+        args = inputs(b, form)
         res = cuda_scan.lstm_scan_fused_xin_res(*args)
         dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
         outs = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
@@ -270,15 +281,29 @@ ms["gru"] = {form: gru_ms(form) for form in GRU_FORMS}
 ms["stack"] = {b: stack_ms(b) for b in (1, 20, 128)}
 if "precision" in inspect.signature(cuda_stack.lstm_stack_scan_fused).parameters:
     ms["stack_bf16"] = {b: stack_ms(b, "bf16") for b in (1, 20, 128)}
+WIDE = {}  # the wide layers' digests, by form and batch
+plans = {}  # their plans: CTAs, resident depths and, with a ring, its floats a stage
 if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared memory
-    ms["dense1500"] = {"f32_b20": entry_ms(20, "dense1500", *VARIANTS["f32"]),
+    ms["dense1500"] = {"f32_b1": entry_ms(1, "dense1500", *VARIANTS["f32"]),
+                       "f32_b20": entry_ms(20, "dense1500", *VARIANTS["f32"]),
                        "f32_b128": entry_ms(128, "dense1500", *VARIANTS["f32"]),
-                       "bf16_b20": entry_ms(20, "dense1500", *VARIANTS["bf16"])}
+                       "bf16_b20": entry_ms(20, "dense1500", *VARIANTS["bf16"]),
+                       "lowrank_f32_b1": entry_ms(1, "lowrank1500", *VARIANTS["f32"]),
+                       "lowrank_f32_b20": entry_ms(20, "lowrank1500", *VARIANTS["f32"]),
+                       "lowrank_f32_b128": entry_ms(128, "lowrank1500", *VARIANTS["f32"])}
+    for form, rank in (("dense1500", 0), ("lowrank1500", 750)):
+        for wb in (1, 20, 128):
+            WIDE[f"{form}_b{wb}"] = (form, wb)
+            wp = cuda_scan._chunks_for(wb, 1500, rank, torch.device("cuda"))[0][2]
+            plans[f"{form}_b{wb}"] = dict(
+                ctas=wp.n_ctas, resident=(wp.resident_fwd, wp.resident_bwd),
+                **({"piece": (wp.piece_fwd, wp.piece_bwd)} if hasattr(wp, "piece") else {}))
 digests = {f: digest(f) for f in ("lowrank", "dense", *GRU_FORMS, "stack")}
-families = {"lstm": ("lowrank", "dense"), "gru": tuple(GRU_FORMS), "stack": ("stack",),
+digests.update({k: digest(*v) for k, v in WIDE.items()})
+families = {"lstm": ("lowrank", "dense", *WIDE), "gru": tuple(GRU_FORMS), "stack": ("stack",),
             "all": tuple(digests)}
 print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
-                  "ptxas": regs, "digest": digests,
+                  "plans": plans, "ptxas": regs, "digest": digests,
                   "digest_family": {fam: hashlib.sha256(" ".join(digests[f] for f in forms)
                                                         .encode()).hexdigest()[:16]
                                     for fam, forms in families.items()}}))

@@ -17,7 +17,12 @@ T=35, F=h=1500, at B in 20 and 128):
   microseconds of each span over the steps. Forward spans: 0->1 phase A
   (hu), 1->2 its barrier, 2->3 phase B (the gates), 3->4 its barrier (dense:
   0->3, 3->4). BPTT: 0->1 phase A (dpre), 1->2 barrier, 2->3 phase B (dhu),
-  3->4 barrier, 4->5 phase C (dh) (dense: 0->1, 1->2, 2->5).
+  3->4 barrier, 4->5 phase C (dh) (dense: 0->1, 1->2, 2->5). On a streamed
+  plan's ring (scan_grid.cuh::Ring) also ``ring_wait``: the µs a step that
+  the same thread, a consumer, waits on the ring's full barriers, in all
+  the step's products (a walk at its FMA floor waits for none), and
+  ``ring_refill``: the µs a step that CTA 0's producer waits for a stage to
+  be released on its empty barrier.
 * ``gemm``: the GEMM phase of the no-grad forward and of the BPTT, product
   by product in launch order (the tensor-core tile of csrc/gemm_tc.cuh,
   its split-k sum added to its product), each beside the device time of
@@ -55,23 +60,46 @@ BF16_SHAPES = ("lm_b20", "dense1500_b20")  # whose GEMM phase is also read in bf
 MAX_STEPS = 256
 STAMP = f"""
 __device__ unsigned long long g_stamps[8 * {MAX_STEPS}];
+__device__ unsigned long long g_waits[8 * {MAX_STEPS}];
+__device__ unsigned long long g_refills[8 * {MAX_STEPS}];
 #define STAMP(k) do {{ __syncthreads(); \\
-  if (blockIdx.x == 0 && threadIdx.x == 0 && t < {MAX_STEPS}) \\
-    g_stamps[t * 8 + (k)] = vmlmf::global_ns(); }} while (0)
+  if (blockIdx.x == 0 && threadIdx.x == 0 && t < {MAX_STEPS}) {{ \\
+    g_stamps[t * 8 + (k)] = vmlmf::global_ns(); \\
+    g_waits[t * 8 + (k)] = vmlmf::g_ring_wait; \\
+    g_refills[t * 8 + (k)] = vmlmf::g_ring_refill; }} }} while (0)
 extern "C" int read_stamps(unsigned long long* out) {{
   return cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
 }}
+extern "C" int read_waits(unsigned long long* out) {{
+  return cudaMemcpyFromSymbol(out, g_waits, sizeof(g_waits));
+}}
+extern "C" int read_refills(unsigned long long* out) {{
+  return cudaMemcpyFromSymbol(out, g_refills, sizeof(g_refills));
+}}
 """
+# the ring's consumer wait on a full barrier, timed by thread 0 of CTA 0, and
+# its producer's wait on an empty one, timed by CTA 0's producer
+RING_WAIT = ("        mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);\n",
+             "        {\n          const unsigned long long w0 = global_ns();\n"
+             "          mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);\n"
+             "          if (blockIdx.x == 0 && threadIdx.x == 0) g_ring_wait += global_ns() - w0;\n"
+             "        }\n")
+RING_REFILL = ("    mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);\n",
+               "    const unsigned long long w0 = global_ns();\n"
+               "    mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);\n"
+               "    if (blockIdx.x == 0) g_ring_refill += global_ns() - w0;\n")
+RING_COUNTER = ("struct Ring {\n", "__device__ unsigned long long g_ring_wait, g_ring_refill;\n\n"
+                "struct Ring {\n")
 # (anchor, its replacement): the phase boundaries of each kernel's step
 MARKS = {
     "lstm_scan_xin_fwd": [
         ("  for (int t = 0; t < t_len; ++t) {\n",
          "  for (int t = 0; t < t_len; ++t) {\n    STAMP(0);\n"),
-        ("      });\n      vmlmf::group_sync(count, plan.ctas, target);\n",
-         "      });\n      STAMP(1);\n      vmlmf::group_sync(count, plan.ctas, target);\n"
-         "      STAMP(2);\n"),
-        ("    });\n    vmlmf::group_sync(count, plan.ctas, target);\n  }\n",
-         "    });\n    STAMP(3);\n    vmlmf::group_sync(count, plan.ctas, target);\n"
+        ("      }\n      vmlmf::group_sync(count, plan.ctas, target);\n    }\n",
+         "      }\n      STAMP(1);\n      vmlmf::group_sync(count, plan.ctas, target);\n"
+         "      STAMP(2);\n    }\n"),
+        ("    }\n    vmlmf::group_sync(count, plan.ctas, target);\n  }\n",
+         "    }\n    STAMP(3);\n    vmlmf::group_sync(count, plan.ctas, target);\n"
          "    STAMP(4);\n  }\n")],
     "lstm_scan_xin_bwd": [
         ("    __syncthreads();  // pa, and the carry that phase C wrote\n",
@@ -79,11 +107,10 @@ MARKS = {
         ("      dhc[at] = dhp;\n    }\n    vmlmf::group_sync(count, plan.ctas, target);\n",
          "      dhc[at] = dhp;\n    }\n    STAMP(1);\n"
          "    vmlmf::group_sync(count, plan.ctas, target);\n    STAMP(2);\n"),
-        ("      });\n      vmlmf::group_sync(count, plan.ctas, target);\n    }\n",
-         "      });\n      STAMP(3);\n      vmlmf::group_sync(count, plan.ctas, target);\n"
+        ("      }\n      vmlmf::group_sync(count, plan.ctas, target);\n    }\n",
+         "      }\n      STAMP(3);\n      vmlmf::group_sync(count, plan.ctas, target);\n"
          "      STAMP(4);\n    }\n"),
-        ("dhc[jj * rpad + 4 * rb + i] += acc[c][i];\n      }\n    });\n",
-         "dhc[jj * rpad + 4 * rb + i] += acc[c][i];\n      }\n    });\n    STAMP(5);\n")],
+        ("epi_c);\n    }\n  }\n", "epi_c);\n    }\n    STAMP(5);\n  }\n")],
 }
 
 
@@ -91,6 +118,13 @@ def stamped_libraries(work):
     """Build the stamped copies of the two scan sources -> {name: CDLL}."""
     src = os.path.join(work, "csrc")
     shutil.copytree(_build.CSRC, src)
+    header = os.path.join(src, "scan_grid.cuh")
+    text = open(header).read()
+    for anchor, new in (RING_WAIT, RING_REFILL, RING_COUNTER):
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"scan_grid.cuh: the ring's anchor moved: {anchor!r}")
+        text = text.replace(anchor, new)
+    open(header, "w").write(text)
     libs = {}
     for name, marks in MARKS.items():
         path = os.path.join(src, f"{name}.cu")
@@ -234,17 +268,26 @@ def device_ms(fn, reps=5):
     return {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
 
 
-def spans(lib, steps, marks):
+def spans(lib, steps, marks, ring=False):
     """Mean µs between consecutive marks over the steps in walk order (the
-    first left out), and of a whole step (mark to mark of the next step)."""
-    buf = (ctypes.c_ulonglong * (8 * MAX_STEPS))()
-    lib.read_stamps.argtypes = [ctypes.c_void_p]
-    if lib.read_stamps(ctypes.addressof(buf)) != 0:
-        raise RuntimeError("reading the stamps failed")
-    rows = [[buf[s * 8 + k] for k in marks] for s in steps][1:]
-    out = {f"{a}->{b}": round(sum(r[i + 1] - r[i] for r in rows) / len(rows) / 1e3, 3)
-           for i, (a, b) in enumerate(zip(marks, marks[1:]))}
-    out["step"] = round((rows[-1][0] - rows[0][0]) / (len(rows) - 1) / 1e3, 3)
+    first left out), and of a whole step (mark to mark of the next step);
+    with ``ring``, also the mean µs a step of the ring's full-barrier waits
+    (``ring_wait``) and of its producer's waits for a free stage
+    (``ring_refill``)."""
+    out = {}
+    for reader, key in (("read_stamps", "step"), ("read_waits", "ring_wait"),
+                        ("read_refills", "ring_refill")):
+        if key != "step" and not ring:
+            continue
+        buf = (ctypes.c_ulonglong * (8 * MAX_STEPS))()
+        getattr(lib, reader).argtypes = [ctypes.c_void_p]
+        if getattr(lib, reader)(ctypes.addressof(buf)) != 0:
+            raise RuntimeError(f"{reader} failed")
+        rows = [[buf[s * 8 + k] for k in marks] for s in steps][1:]
+        if key == "step":
+            out.update({f"{a}->{b}": round(sum(r[i + 1] - r[i] for r in rows) / len(rows) / 1e3,
+                                           3) for i, (a, b) in enumerate(zip(marks, marks[1:]))})
+        out[key] = round((rows[-1][0] - rows[0][0]) / (len(rows) - 1) / 1e3, 3)
     return out
 
 
@@ -259,8 +302,9 @@ def main():
         libs = stamped_libraries(work)
         for name, shape in SHAPES.items():
             t, r = shape[0], shape[5]
+            plan = cuda_scan._chunks_for(shape[1], shape[3], r, torch.device("cuda"))[0][2]
             row = {"shape": name, "card": torch.cuda.get_device_name(0),
-                   "plan": cuda_scan.scan_plan(shape[1], shape[3], r).ints("fwd"), "device": {}}
+                   "plan": {k: plan.ints(k) for k in ("fwd", "bwd")}, "device": {}}
             for tt in (t, 2 * t):
                 for entry, fn in entries((tt, *shape[1:])).items():
                     row["device"][f"{entry}_T{tt}"] = device_ms(fn)
@@ -270,11 +314,12 @@ def main():
                 calls["fwd"]()
                 torch.cuda.synchronize()
                 row["stamps_fwd"] = spans(libs["lstm_scan_xin_fwd"], range(t),
-                                          [0, 1, 2, 3, 4] if r else [0, 3, 4])
+                                          [0, 1, 2, 3, 4] if r else [0, 3, 4], plan.piece_fwd > 0)
                 calls["bwd"]()
                 torch.cuda.synchronize()
                 row["stamps_bwd"] = spans(libs["lstm_scan_xin_bwd"], range(t - 1, -1, -1),
-                                          [0, 1, 2, 3, 4, 5] if r else [0, 1, 2, 5])
+                                          [0, 1, 2, 3, 4, 5] if r else [0, 1, 2, 5],
+                                          plan.piece_bwd > 0)
             finally:
                 _build.load = load
             row["gemm"] = gemm_phase(shape, "f32")

@@ -28,7 +28,13 @@ Phases, each of which exits non-zero when it fails:
                rounding) or f32 as the library. A bf16 kernel's first two
                steps (ys and cs of the forwards, dxs at T-2 and T-1 of the
                BPTT from its own residuals) must also lie 4x nearer its
-               plain bf16 version than that lies to the f32 one.
+               plain bf16 version than that lies to the f32 one, and two
+               calls of a bf16 entry must give equal bits. The bf16 plans
+               whose batch groups pad to 24 rows or more run the walk's
+               products on the tensor cores (`ScanPlan.mma`); the kernels
+               line names those entries by the forms "wide_dense_bf16_mma"
+               (the large LM's layer at B=20, resident) and
+               "wide_dense_bf16_mma_ring" (B=128, one streamed launch).
   4. gru kernels — each GRU kernel entry (no-grad forward, residual forward,
                BPTT) against its plain version at T=24, h=64, rx=9: the
                layers of both HAR GRUs (main: low-rank "pre", r=9; group:
@@ -375,7 +381,8 @@ FORMS = {
              "bf16": ("lm_bf16", 20, 20), "bf16_res": ("har_bf16_res", None, 81),
              "recompute": ("har_recompute", None, 81),
              "wide_dense": ("wide_dense", 20, 20), "wide_lowrank": ("wide_lowrank", 20, 20),
-             "wide_dense_bf16": ("wide_dense_bf16", 20, 20)},
+             "wide_dense_bf16_mma": ("wide_dense_bf16", 20, 20),
+             "wide_dense_bf16_mma_ring": ("wide_dense_bf16", 128, 128)},
     "lstm_gi": {"lowrank": ("lm_gi", 20, 20)},
     "gru": {"lowrank_pre": ("main_l1", EVAL_BATCH, 81),
             "dense_post": ("group_l1", EVAL_BATCH, 81),
@@ -759,6 +766,14 @@ def print_scan_chunks(torch, label, b, h, r, bf16):
     return chunks
 
 
+def same_bits(torch, what, label, first, second):
+    """Fails unless two calls' outputs are bit-equal (None where None)."""
+    if len(first) != len(second) or any(
+            (a is None) != (b is None) or (a is not None and not torch.equal(a, b))
+            for a, b in zip(first, second)):
+        fail(f"{what} gives other bits in a second call at {label}")
+
+
 def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=False):
     """One LSTM kernel check: each entry that runs at this shape against its
     plain version, then its ms, the plain version's, its bound and cuDNN's,
@@ -802,6 +817,8 @@ def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=Fal
         if bf16:
             bf16_control("lstm_scan_xin_fwd ys[:2]", label, [ys[:2]], [want[0][:2]],
                          [plain(*args, "f32")[0][:2]])
+            same_bits(torch, "lstm_scan_xin_fwd", label, (ys, c_last),
+                      cuda_scan.lstm_scan_fused_xin(*args, precision))
         elif not diagonals and not s["rx"] and not s["r"]:
             # dense on both sides with no diagonal: exactly cuDNN's LSTM
             with torch.no_grad():
@@ -855,6 +872,10 @@ def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=Fal
               f"the kernel's residuals, {other:.3g} on the plain forward's, which move the "
               f"plain BPTT itself by {spread:.3g}")
     if bf16:
+        same_bits(torch, "lstm_scan_xin_fwd_res", label, res,
+                  cuda_scan.lstm_scan_fused_xin_res(*args, *policy))
+        same_bits(torch, "lstm_scan_xin_bwd", label, grads,
+                  cuda_scan.lstm_scan_xin_bwd(*saved, dys, None, bias=bias, precision=precision))
         res_f = res_plain(*args, "f32", residuals, save)
         bf16_control("lstm_scan_xin_fwd_res ys, cs [:2]", label, [a[:2] for a in res[:2]],
                      [a[:2] for a in res_p[:2]], [a[:2] for a in res_f[:2]])
@@ -2915,8 +2936,10 @@ def large_trainer(model, b):
 def phase_wide_kernels(torch):
     """The kernel checks of fault 11, each shape's plan printed first: the six
     LSTM entries at dense h=1500 and at low-rank h=1500, r=750, at B=20 and
-    128 in f32 (streamed plans) and at B=20 in bf16 (dense: a resident
-    plan; at B=128 one streamed launch), the gi-mode entries at the dense
+    128 in f32 (streamed plans) and at B=20 in bf16 (the tensor-core walk;
+    dense: a resident plan; at B=128 one streamed launch on the ring; at
+    B=1 the FMA loop), the bf16 walk's product alone (`mma_walk_control`),
+    the gi-mode entries at the dense
     layer; a streamed plan forced at the LM layer with the resident plan's layout,
     bit-equal to it; the large layer's ring at B=128 with stages of another
     size, bit-equal to the chosen one (`ring_pieces_keep_the_bits`); the GRU's
@@ -2932,12 +2955,15 @@ def phase_wide_kernels(torch):
             lstm_check(torch, rows, name, dict(WIDE, b=b, **over), True, diagonals, F32)
         lstm_check(torch, rows, f"{name}_bf16", dict(WIDE, b=MAIN_BATCH, **over), True,
                    diagonals, bf16)
-    lstm_check(torch, rows, "wide_dense_bf16", dict(WIDE, b=128, rx=0, r=0), True, False, bf16)
+    for b in (1, 128):  # B=1 on the FMA loop (groups of 4 rows), B=128 on the ring
+        lstm_check(torch, rows, "wide_dense_bf16", dict(WIDE, b=b, rx=0, r=0), True, False,
+                   bf16)
     # a dense width whose bf16 plan streams
     lstm_check(torch, rows, "wide_dense_bf16_streamed", dict(WIDE, b=MAIN_BATCH, f=1600, h=1600,
                                                             rx=0, r=0), True, False, bf16)
     gi_check(torch, rows, sms, "wide_dense_gi", WIDE["h"], 0)
     tc_f32_control(torch)
+    mma_walk_control(torch)
     streamed_equals_resident(torch, sms)
     ring_pieces_keep_the_bits(torch, sms)
     gru_spill_equals_unspilled(torch, sms)
@@ -2998,6 +3024,37 @@ def tc_f32_control(torch):
                  f"({r['tf32_one_pass']:.3g}): the tile check cannot tell 3xTF32 from it")
 
 
+def mma_walk_control(torch):
+    """The bf16 walk's tensor-core product alone (csrc/mma_walk_check.cu) at
+    the dense h=1500 layer's forward and BPTT products, B=20 and 128, each
+    within TC_TOL of a float64 product of the same bf16 operands (max abs
+    error over max abs output), staged and on the ring (every block
+    streamed, then half of them) bit-equal."""
+    from vmlmf_tpu_torch.ops import cuda_scan
+    from vmlmf_tpu_torch.ops.mma_check import mma_walk_product, relative_error
+
+    g = torch.Generator().manual_seed(9)
+    report = {}
+    for depth, cols, b in ((1500, 48, 20), (6000, 12, 20), (1500, 48, 128), (6000, 12, 128)):
+        rpad = -(-b // 8) * 8
+        w, a = torch.randn(depth, cols, generator=g).cuda(), torch.randn(depth, rpad,
+                                                                         generator=g).cuda()
+        staged = mma_walk_product(w, a, rpad)
+        half = depth // 2 // cuda_scan.MMA_K * cuda_scan.MMA_K
+        rings = [mma_walk_product(w, a, rpad, resident=res, piece=piece)
+                 for res, piece in ((0, cuda_scan.RING_PIECE_FLOATS), (half, 6144))]
+        again = mma_walk_product(w, a, rpad)
+        torch.cuda.synchronize()
+        err = relative_error(staged, w, a)
+        equal = all(torch.equal(staged, x) for x in (*rings, again))
+        report[f"{depth}x{cols} B={b}"] = dict(err=err, ring_and_repeat_bit_equal=equal)
+        if not err <= TC_TOL or not equal:
+            fail(f"the bf16 walk's mma product {depth}x{cols} at B={b}: error {err:.3g} "
+                 f"(tol {TC_TOL}), ring and repeat bit-equal {equal}")
+    print(f"control: the bf16 walk's tensor-core product at the dense h=1500 layer, max abs "
+          f"error over max abs float64 output of the same bf16 operands (tol {TC_TOL}): {report}")
+
+
 RING_CHECK_PIECE = 6144  # floats a stage of the ring that ring_pieces_keep_the_bits compares
 # (precision, residuals, save_gates) of each variant the LSTM scan kernels
 # compile, each forced onto a streamed plan
@@ -3007,30 +3064,37 @@ SCAN_VARIANTS = {"f32": F32, "bf16": ("bf16", "f32", True), "bf16_res": ("f32", 
 
 def ring_pieces_keep_the_bits(torch, sms):
     """The streamed plans' ring at the large LM's layer, B=128, dense and
-    r=750: the plan the wrappers chose against one with stages of
-    RING_CHECK_PIECE floats (more pieces a product, more resident rows; the
-    same CTAs, chunks, slices and red), every output of the six f32 entries
-    bit-equal."""
+    r=750 in f32, dense in bf16 (the tensor-core walk): the plan the
+    wrappers chose against one with stages of RING_CHECK_PIECE floats (more
+    pieces a product, more resident rows; in bf16 half of each slice
+    resident; the same CTAs, chunks, slices and red), every output of the
+    six entries bit-equal."""
     from vmlmf_tpu_torch.ops import cuda_scan
 
     b, t, h = 128, WIDE["t"], WIDE["h"]
-    for r in (0, WIDE_RANK):
+    for r, precision in ((0, "f32"), (WIDE_RANK, "f32"), (0, "bf16")):
         args = scan_inputs(torch, t, b, h, h, r, r)
         gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
         dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
-        chosen = cuda_scan._chunks_for(b, h, r, torch.device("cuda", 0))[0][2]
-        other = cuda_scan.streamed_plan(b, h, r, sms, piece=RING_CHECK_PIECE)
+        chosen = cuda_scan._chunks_for(b, h, r, torch.device("cuda", 0), precision == "bf16")[0][2]
+        if precision == "bf16":
+            half = tuple(tuple(d // 2 for d, _ in chosen.slices(k)) for k in ("fwd", "bwd"))
+            other = cuda_scan.plan_layout(b, h, r, chosen.groups, chosen.ctas, 2, resident=half,
+                                          piece=RING_CHECK_PIECE)
+        else:
+            other = cuda_scan.streamed_plan(b, h, r, sms, piece=RING_CHECK_PIECE)
 
         def run(plan):
             keep = cuda_scan._chunks_for
             cuda_scan._chunks_for = lambda *a, **k: ((0, b, plan),)
             try:
-                res = cuda_scan.lstm_scan_fused_xin_res(*args)
-                gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:])
-                out = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
-                       *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None),
-                       *cuda_scan.lstm_scan_fused(gi, *args[5:]), *gi_res,
-                       *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, None)]
+                res = cuda_scan.lstm_scan_fused_xin_res(*args, precision)
+                gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:], precision)
+                out = [*cuda_scan.lstm_scan_fused_xin(*args, precision), *res,
+                       *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None,
+                                                    precision=precision),
+                       *cuda_scan.lstm_scan_fused(gi, *args[5:], precision), *gi_res,
+                       *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, None, precision)]
             finally:
                 cuda_scan._chunks_for = keep
             return [a for a in out if a is not None]
@@ -3038,7 +3102,8 @@ def ring_pieces_keep_the_bits(torch, sms):
         got, want = run(chosen), run(other)
         torch.cuda.synchronize()
         equal = len(got) == len(want) and all(torch.equal(a, c) for a, c in zip(got, want))
-        print(f"wide: the ring at the large LM layer B={b} r={r or 'dense'}: stages of "
+        print(f"wide: the ring at the large LM layer B={b} r={r or 'dense'} {precision}"
+              f"{' (tensor-core walk)' if chosen.mma else ''}: stages of "
               f"{chosen.piece('fwd')} / {chosen.piece('bwd')} floats (resident "
               f"{chosen.resident_fwd} / {chosen.resident_bwd}) against {other.piece('fwd')} / "
               f"{other.piece('bwd')} ({other.resident_fwd} / {other.resident_bwd}) on "
@@ -3057,14 +3122,18 @@ def streamed_equals_resident(torch, sms):
     the LM layer (B=20) with the resident plan's groups, CTAs, stage and
     red, half of each slice's depth resident: every output of the variant's
     entries (x mode, and gi mode where the variant has one) bit-equal to
-    the resident plan's."""
+    the resident plan's; and bf16 at B=256, whose groups of 32 rows run the
+    tensor-core walk, a resident ring against a streamed one."""
     from vmlmf_tpu_torch.ops import cuda_scan
 
-    b, h, r = MAIN_BATCH, LM["hidden"], LM["rank"]
-    args = scan_inputs(torch, LM["prompt"], b, h, h, r, r)
-    gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
-    dys = 0.1 * torch.randn((LM["prompt"], b, h), generator=torch.Generator().manual_seed(5)).cuda()
-    for name, (precision, residuals, save) in SCAN_VARIANTS.items():
+    h, r = LM["hidden"], LM["rank"]
+    cases = [(name, policy, MAIN_BATCH) for name, policy in SCAN_VARIANTS.items()]
+    for name, (precision, residuals, save), b in cases + [("bf16_mma", SCAN_VARIANTS["bf16"],
+                                                           256)]:
+        args = scan_inputs(torch, LM["prompt"], b, h, h, r, r)
+        gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
+        dys = 0.1 * torch.randn((LM["prompt"], b, h),
+                                generator=torch.Generator().manual_seed(5)).cuda()
         elsize = 2 if precision == "bf16" else 4
         base = cuda_scan.scan_plan(b, h, r, sms, elsize)
         half = tuple(tuple(d // 2 for d, _ in base.slices(k)) for k in ("fwd", "bwd"))
@@ -3072,6 +3141,9 @@ def streamed_equals_resident(torch, sms):
         if (forced.stage_fwd, forced.red_fwd, forced.stage_bwd, forced.red_bwd) != (
                 base.stage_fwd, base.red_fwd, base.stage_bwd, base.red_bwd):
             fail(f"the forced streamed plan ({name}) lays out its stage and red otherwise")
+        if base.mma != (name == "bf16_mma"):
+            fail(f"the LM layer's {name} plan at B={b}: the tensor-core walk runs bf16 groups "
+                 f"of 24 rows or more")
         bias = None if save else args[4]
 
         def run(plan):
@@ -3321,13 +3393,18 @@ def phase_wide_lm(torch):
     if not ok:
         fail(f"wide: fused_pipelined's losses {losses_p} differ from fused's {losses}")
 
-    # mixed precision: a resident bf16 plan at B=20, one streamed launch at
-    # B=128 (`scan_chunks`' measured rule; three resident chunks before)
+    # mixed precision on the tensor-core walk: a resident bf16 plan at B=20,
+    # one streamed launch on the ring at B=128 (`scan_chunks`' measured rule)
     with switches(VMLMF_PALLAS_PRECISION="bf16"):
+        for b in TRAIN_BATCHES:  # the forms "wide_dense_bf16_mma" and "..._mma_ring"
+            if not all(plan.mma for _, _, plan in wide_chunks(torch, b)):
+                fail(f"wide: the large LM's bf16 layer at B={b} must run the tensor-core walk")
         mixed = large_lm("fused", head_bf16=True)
         reset_launch_counts()
-        runs += wide_serve(torch, "mixed bf16+head", mixed, params, (MAIN_BATCH, 128),
-                           "lstm:wide_dense_bf16", report)
+        runs += wide_serve(torch, "mixed bf16+head", mixed, params, (MAIN_BATCH,),
+                           "lstm:wide_dense_bf16_mma", report)
+        runs += wide_serve(torch, "mixed bf16+head", mixed, params, (128,),
+                           "lstm:wide_dense_bf16_mma_ring", report)
         only_variant("bf16")
         for b in TRAIN_BATCHES:
             chunks = len(wide_chunks(torch, b))
@@ -3336,7 +3413,8 @@ def phase_wide_lm(torch):
                 torch, large_trainer(mixed, b), lm_chunks(b)[0], 10,
                 train_counts("lstm:dense", layers * chunks),
                 f"wide: large mixed bf16+head B={b} ({chunks} chunks of rows)", falling=False)
-            runs.append(("lstm:wide_dense_bf16", only_variant("bf16")))
+            runs.append(("lstm:wide_dense_bf16_mma" if b == MAIN_BATCH
+                         else "lstm:wide_dense_bf16_mma_ring", only_variant("bf16")))
             if b == MAIN_BATCH:  # the f32 run's first steps, within bf16's tolerance
                 ok, err = all_close(torch, [torch.tensor(mixed_losses)],
                                     [torch.tensor(losses[:10])], BF16_TOL)

@@ -1677,7 +1677,8 @@ def test_prefill_graph_is_reused_for_a_shape_and_captured_for_a_new_one(cuda):
 # fault 11: layers too wide for the shared memory of all SMs. The PTB
 # "large" LM's dense layer (h=1500: a 36 MB U) and a low-rank layer of that
 # width (r=750) stream the weight rows that do not fit through L2 in f32; in
-# bf16 the dense one has a resident plan at B=20 and chunks of rows at 128
+# bf16 the dense one has a resident plan at B=20 and one streamed launch at
+# 128, both on the tensor-core walk (`ScanPlan.mma`)
 WIDE_LSTM = {"dense": (35, 1500, 1500, 0, 0), "lowrank": (35, 1500, 1500, 750, 750),
              "dense_1600": (35, 1600, 1600, 0, 0)}
 # (case, B, precision): each layer at both batches in f32 and bf16, and a
@@ -1738,18 +1739,22 @@ SCAN_VARIANTS = {"f32": ("f32", "f32", True), "bf16": ("bf16", "f32", True),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [20, 256])
 @pytest.mark.parametrize("variant", list(SCAN_VARIANTS))
-def test_streamed_plan_is_bit_equal_to_the_resident_plan(cuda, monkeypatch, variant):
+def test_streamed_plan_is_bit_equal_to_the_resident_plan(cuda, monkeypatch, variant, b):
     """A streamed plan forced at the LM layer's shape with the resident
     plan's groups, CTAs, stage and red: the same sums in the same order,
     wherever a weight row lives, in every entry of each variant (x mode
-    and gi mode; the recompute policy is x mode's alone)."""
+    and gi mode; the recompute policy is x mode's alone). In bf16, B=20
+    keeps the FMA product (groups of 4 rows) and B=256 runs the tensor-core
+    one (`ScanPlan.mma`, groups of 32 rows): a resident ring against a
+    streamed one."""
     precision, residuals, save = SCAN_VARIANTS[variant]
     elsize = 2 if precision == "bf16" else 4
-    t, b, f, h, rx, r = 35, 20, 650, 650, 300, 300
+    t, f, h, rx, r = 35, 650, 650, 300, 300
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     base = cuda_scan.scan_plan(b, h, r, sms, elsize)
-    assert not base.streamed
+    assert not base.streamed and base.mma == (precision == "bf16" and b == 256)
     half = tuple(tuple(d // 2 for d, _ in base.slices(k)) for k in ("fwd", "bwd"))
     forced = cuda_scan.plan_layout(b, h, r, base.groups, base.ctas, elsize, resident=half)
     assert forced.streamed and (forced.stage_fwd, forced.red_fwd, forced.stage_bwd,
@@ -1781,16 +1786,17 @@ def test_streamed_plan_is_bit_equal_to_the_resident_plan(cuda, monkeypatch, vari
         assert torch.equal(x, y), i
 
 
-def ring_outputs(args, gi, dys, dc_last, plan, monkeypatch):
-    """Every output of the six LSTM entries (f32) on ``plan``."""
+def ring_outputs(args, gi, dys, dc_last, plan, monkeypatch, precision="f32"):
+    """Every output of the six LSTM entries (of ``precision``) on ``plan``."""
     b = args[0].shape[1]
     monkeypatch.setattr(cuda_scan, "_chunks_for", lambda *a, **k: ((0, b, plan),))
-    res = cuda_scan.lstm_scan_fused_xin_res(*args)
-    gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:])
-    out = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
-           *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, dc_last),
-           *cuda_scan.lstm_scan_fused(gi, *args[5:]), *gi_res,
-           *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, dc_last)]
+    res = cuda_scan.lstm_scan_fused_xin_res(*args, precision)
+    gi_res = cuda_scan.lstm_scan_fused_res(gi, *args[5:], precision)
+    out = [*cuda_scan.lstm_scan_fused_xin(*args, precision), *res,
+           *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, dc_last,
+                                        precision=precision),
+           *cuda_scan.lstm_scan_fused(gi, *args[5:], precision), *gi_res,
+           *cuda_scan.lstm_scan_bwd(*args[5:], *gi_res, dys, dc_last, precision)]
     torch.cuda.synchronize()
     return [a for a in out if a is not None]
 
@@ -1802,28 +1808,40 @@ def assert_equal_bits(first, second, label):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("case,b", [(case, b) for case in ("dense", "lowrank") for b in (20, 128)])
-def test_ring_piece_sizes_give_equal_bits(cuda, monkeypatch, case, b):
+def test_ring_piece_sizes_give_equal_bits(cuda, monkeypatch, case, b, precision):
     """The streamed plans of the wide layers with ring stages of 8 KB, 24 KB
     and the most that fit beside the slabs, against the chosen plan's (the
     same CTAs, chunks, slices and red; other resident depths): the same
-    sums, bit for bit, in all six entries."""
+    sums, bit for bit, in all six entries. In bf16 (the tensor-core product
+    of `ScanPlan.mma`) the chosen plan is resident at B=20 (staged) and
+    streamed at B=128, against plans that stream half of each slice through
+    those stages: the ring's pieces and resident blocks keep the order of
+    sums either way."""
     t, f, h, rx, r = WIDE_LSTM[case]
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    elsize = 2 if precision == "bf16" else 4
     args = make_inputs(t, b, f, h, rx, r, cuda)
     gi = cuda_scan._gi_plain(*args[:5], h, False)[1].contiguous()
     rng = np.random.default_rng(1)
-    dys, dc_last = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    scale = 0.1 if precision == "bf16" else 1.0
+    dys, dc_last = (torch.from_numpy(scale * rng.standard_normal(s).astype(np.float32)).to(cuda)
                     for s in ((t, b, h), (b, h)))
-    base = cuda_scan._chunks_for(b, h, r, cuda)[0][2]
-    assert base.n_ctas == sms
-    want = ring_outputs(args, gi, dys, dc_last, base, monkeypatch)
+    base = cuda_scan._chunks_for(b, h, r, cuda, precision == "bf16")[0][2]
+    assert base.n_ctas == sms and base.mma == (precision == "bf16")
+    want = ring_outputs(args, gi, dys, dc_last, base, monkeypatch, precision)
+    # in bf16 the weights fit beside small stages: half of each slice streamed
+    half = tuple(tuple(d // 2 for d, _ in base.slices(k)) for k in ("fwd", "bwd"))
     for piece in (2048, 6144, 1 << 20):
-        plan = cuda_scan.streamed_plan(b, h, r, sms, piece=piece)
+        plan = (cuda_scan.plan_layout(b, h, r, base.groups, base.ctas, elsize, resident=half,
+                                      piece=piece)
+                if precision == "bf16" else cuda_scan.streamed_plan(b, h, r, sms, piece=piece))
         assert (plan.stage_fwd, plan.red_fwd, plan.stage_bwd, plan.red_bwd) == (
             base.stage_fwd, base.red_fwd, base.stage_bwd, base.red_bwd)
-        assert plan.smem_bytes <= cuda_scan.SMEM_LIMIT
-        assert_equal_bits(want, ring_outputs(args, gi, dys, dc_last, plan, monkeypatch), piece)
+        assert plan.smem_bytes <= cuda_scan.SMEM_LIMIT and plan.streamed
+        assert_equal_bits(want, ring_outputs(args, gi, dys, dc_last, plan, monkeypatch,
+                                             precision), piece)
 
 
 @pytest.mark.cuda
@@ -2195,10 +2213,12 @@ def test_tc_tile_matches_float64(cuda, view, shape, precision):
 
 
 # (T, B, F, h, rx, r): no m, n or k a multiple of a tile (m = 21, F = 37,
-# 4h = 180, rx = 11, r = 13) low-rank and dense; the LM layer; the dense
+# 4h = 180, rx = 11, r = 13) low-rank and dense; the LM layer at B=20 and
+# at B=256 (in bf16 the tensor-core walk, low-rank, resident); the dense
 # h=1500 layer at B=20 (its products 12.6 GFLOP each) and 128
 TC_ENTRY_CASES = {"odd": (3, 7, 37, 45, 11, 13), "odd_dense": (3, 7, 37, 45, 0, 0),
                   "lm_b20": (35, 20, 650, 650, 300, 300),
+                  "lm_b256": (35, 256, 650, 650, 300, 300),
                   "dense1500_b20": (35, 20, 1500, 1500, 0, 0),
                   "dense1500_b128": (35, 128, 1500, 1500, 0, 0)}
 
@@ -2255,3 +2275,40 @@ def test_tc_scan_entries_match_plain_and_repeat(cuda, case, variant):
         assert_pairs_close(("dgi", "du", "dv", "ddvec", "dh0", "dc0"), first["gi_grads"],
                            cuda_scan.lstm_scan_bwd_plain(*args[5:], *gi_res_p, dys, dc_last,
                                                          precision), grad_tol)
+
+
+# (depth, cols, rpad) of the bf16 walk's products: the dense h=1500 layer's
+# forward and BPTT slices at B=20 and 128, the LM layer's at B=128, and odd
+# edges (a depth short of a block, columns short of a tile, one n-tile)
+MMA_PRODUCTS = {"dense_fwd_b20": (1500, 48, 24), "dense_bwd_b20": (6000, 12, 24),
+                "dense_fwd_b128": (1500, 48, 128), "dense_bwd_b128": (6000, 12, 128),
+                "lm_fwd_b128": (650, 24, 16), "lm_gates_b128": (300, 200, 16),
+                "odd": (37, 12, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MMA_PRODUCTS))
+def test_mma_walk_product_matches_float64(cuda, case):
+    """scan_grid.cuh's tensor-core product alone (csrc/mma_walk_check.cu):
+    every block resident, within 1e-5 of a float64 product of the same bf16
+    operands, and two equal calls to equal bits; every block streamed
+    (stages of 16 KB and 80 KB) or half of them (16 KB and 24 KB),
+    bit-equal to it (the order of sums does not depend on where a row
+    lies)."""
+    from vmlmf_tpu_torch.ops.mma_check import mma_walk_product, relative_error
+
+    depth, cols, rpad = MMA_PRODUCTS[case]
+    rng = np.random.default_rng(11)
+    w, a = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+            for s in ((depth, cols), (depth, rpad)))
+    staged = [mma_walk_product(w, a, rpad) for _ in range(2)]  # every block resident
+    torch.cuda.synchronize()
+    assert torch.equal(staged[0], staged[1])
+    err = relative_error(staged[0], w, a)
+    assert err < 1e-5, err
+    half = depth // 2 // cuda_scan.MMA_K * cuda_scan.MMA_K
+    for resident, piece in ((0, 4096), (0, cuda_scan.RING_PIECE_FLOATS), (half, 4096),
+                            (half, 6144)):
+        ring = mma_walk_product(w, a, rpad, resident=resident, piece=piece)
+        torch.cuda.synchronize()
+        assert torch.equal(ring, staged[0]), (resident, piece)

@@ -93,8 +93,10 @@ def test_chunks_stream_where_not_even_one_row_is_resident():
 
 
 # a small layer on a one-SM plan, whose last batch with a plan is 64
-# (low-rank) or 44 (dense): B=70 runs in two chunks
+# (low-rank) or 44 (dense): B=70 runs in two chunks; with bf16 weights, on
+# the tensor-core walk's layout (ScanPlan.mma), 72 in both forms: B=80
 T, B, F, H, RX, R, CHUNK_SMS = 3, 70, 16, 64, 4, 8, 1
+BF16_B = 80
 
 
 def make_inputs(rx, r, b=B, seed=0):
@@ -182,8 +184,9 @@ VARIANTS = {
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_x_mode_entries_in_chunks_give_the_whole_batch_s_plain_results(chunked, name):
     rx, r, precision, residuals, save = VARIANTS[name]
-    _, args = make_inputs(rx, r)
     bf16 = precision == "bf16"
+    b = BF16_B if bf16 else B
+    _, args = make_inputs(rx, r, b=b)
     tol, grad_tol = (BF16_TOL, BF16_GRAD_TOL) if bf16 or residuals == "bf16" else (
         FWD_TOL, GRAD_TOL)
     got = cuda_scan.lstm_scan_fused_xin(*args, precision)
@@ -194,15 +197,15 @@ def test_x_mode_entries_in_chunks_give_the_whole_batch_s_plain_results(chunked, 
     assert_all_close(res, res_p, tol)
 
     rng = np.random.default_rng(5)
-    dys = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32))
-    dc_last = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+    dys = torch.from_numpy(rng.standard_normal((T, b, H)).astype(np.float32))
+    dc_last = torch.from_numpy(rng.standard_normal((b, H)).astype(np.float32))
     bias = None if save else args[4]
     saved = (*args[:4], *args[5:], *res_p)
     grads = cuda_scan.lstm_scan_xin_bwd(*saved, dys, dc_last, bias, precision)
     want = cuda_scan.lstm_scan_xin_bwd_plain(*saved, dys, dc_last, bias=bias,
                                              precision=precision)
     assert_all_close(grads, want, grad_tol)
-    assert [n for _, n in chunked] == [35, 35] * 3
+    assert [n for _, n in chunked] == [b // 2, b - b // 2] * 3
     for fn in (cuda_scan.lstm_scan_fused_xin, cuda_scan.lstm_scan_fused_xin_res,
                cuda_scan.lstm_scan_xin_bwd):
         assert fn.launches == 2  # one a chunk
@@ -211,11 +214,12 @@ def test_x_mode_entries_in_chunks_give_the_whole_batch_s_plain_results(chunked, 
 @pytest.mark.parametrize("name", ["lowrank", "dense_rec", "bf16", "bf16_res"])
 def test_gi_mode_entries_in_chunks_give_the_whole_batch_s_plain_results(chunked, name):
     _, r, precision, residuals, _ = VARIANTS[name]
-    _, args = make_inputs(RX, r)
     bf16 = precision == "bf16"
+    b = BF16_B if bf16 else B
+    _, args = make_inputs(RX, r, b=b)
     tol, grad_tol = (BF16_TOL, BF16_GRAD_TOL) if bf16 or residuals == "bf16" else (
         FWD_TOL, GRAD_TOL)
-    gi = torch.from_numpy(np.random.default_rng(2).standard_normal((T, B, 4 * H))
+    gi = torch.from_numpy(np.random.default_rng(2).standard_normal((T, b, 4 * H))
                           .astype(np.float32))
     rec = (gi, *args[5:])
     got = cuda_scan.lstm_scan_fused(*rec, precision)
@@ -223,12 +227,12 @@ def test_gi_mode_entries_in_chunks_give_the_whole_batch_s_plain_results(chunked,
     res = cuda_scan.lstm_scan_fused_res(*rec, precision, residuals)
     res_p = cuda_scan.lstm_recurrence_plain(*rec, precision, residuals)
     assert_all_close(res, res_p, tol)
-    dys = torch.from_numpy(np.random.default_rng(5).standard_normal((T, B, H))
+    dys = torch.from_numpy(np.random.default_rng(5).standard_normal((T, b, H))
                            .astype(np.float32))
     grads = cuda_scan.lstm_scan_bwd(*args[5:], *res_p, dys, None, precision)
     assert_all_close(grads, cuda_scan.lstm_scan_bwd_plain(*args[5:], *res_p, dys, None,
                                                           precision), grad_tol)
-    assert [n for _, n in chunked] == [35, 35] * 3
+    assert [n for _, n in chunked] == [b // 2, b - b // 2] * 3
     for fn in (cuda_scan.lstm_scan_fused, cuda_scan.lstm_scan_fused_res,
                cuda_scan.lstm_scan_bwd):
         assert fn.launches == 2

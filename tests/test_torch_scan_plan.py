@@ -25,6 +25,7 @@ from vmlmf_tpu_torch import config  # noqa: E402
 from vmlmf_tpu_torch.cells.base import pad_features  # noqa: E402
 from vmlmf_tpu_torch.nn import recurrence  # noqa: E402
 from vmlmf_tpu_torch.ops import cuda_scan  # noqa: E402
+from vmlmf_tpu_torch.ops.mma_check import mma_emulate  # noqa: E402
 
 SMS = 132  # an H100 SXM
 EMU_TOL = dict(atol=1e-6, rtol=1e-6)  # float64: only the order of sums differs
@@ -32,6 +33,7 @@ FWD_TOL = dict(atol=2e-5, rtol=2e-5)  # f32 against the JAX kernel (tests/test_p
 GRAD_TOL = dict(atol=3e-4, rtol=3e-4)
 # f32 sums of bf16-rounded operands in another order: the same roundings
 BF16_EMU_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL, BF16_GRAD_TOL = dict(atol=5e-3, rtol=5e-3), dict(atol=5e-2, rtol=5e-2)  # (:97, :114)
 
 # (B, h, r) at ragged edges: r = 0 is a dense U [h, 4h]
 RAGGED = [(b, h, r) for b in (1, 3, 5, 257) for h in (7, 650) for r in (1, 300, 0)]
@@ -130,9 +132,12 @@ def test_bf16_plan_fits_wider_layers():
     got = {(b, lowrank): (widest(b, lowrank, 4), widest(b, lowrank, 2))
            for b in (1, 20, 128) for lowrank in (False, True)}
     print("widest h (f32, bf16) by (B, low-rank):", got)
+    # bf16 at B = 20 and 128 runs the tensor-core walk (`ScanPlan.mma`),
+    # whose ring of bf16 pieces and sums take less shared memory than the
+    # FMA loop's f32 staging and slice partials
     assert got == {(1, False): (1056, 1584), (1, True): (1262, 2064),
-                   (20, False): (1056, 1584), (20, True): (1068, 1958),
-                   (128, False): (1015, 1278), (128, True): (1057, 1466)}
+                   (20, False): (1056, 1584), (20, True): (1068, 2064),
+                   (128, False): (1015, 1452), (128, True): (1057, 1612)}
     for (b, lowrank), (f32, bf16) in got.items():
         check_plan(b, bf16, bf16 // 2 if lowrank else 0, elsize=2)
         assert bf16 > 1.2 * f32
@@ -180,14 +185,33 @@ def test_bf16_plan_fits_every_shape_the_config_builders_make(name, monkeypatch):
             check_plan(b, h, r, elsize=2)
 
 
+def slice_product(plan, src, w, width, bf16):
+    """src [rows, depth] @ w [depth, n], one CTA's product: with ``bf16`` on
+    an mma plan in the tensor-core walk's order of sums (`mma_emulate`: w's
+    columns padded to the slice's ``width``, src's rows to rpad, both
+    rounded to bf16), else a matmul of the operands (bf16-rounded with
+    ``bf16``)."""
+    if not (bf16 and plan.mma):
+        rb = rounder(bf16)
+        return rb(src) @ rb(w)
+    rows, depth = src.shape
+    wp = w.new_zeros(depth, width)
+    wp[:, :w.shape[1]] = w
+    a = src.new_zeros(depth, plan.rpad)
+    a[:, :rows] = src.T
+    return mma_emulate(wp.float(), a.float(), plan.rpad)[:w.shape[1], :rows].T.to(src.dtype)
+
+
 def emulate_recurrence(plan, gi, u, v, dvec, h0, c0, bf16=False):
     """The forward kernel's phases in torch ops, group by group and CTA by
     CTA: (A) each CTA's rank columns of hu = h @ U, assembled; (B) each
     CTA's hidden units: the gate columns of gi + hu @ V (dense: h @ U) + h *
     dvec, the gates and the update. -> as `lstm_recurrence_plain`. With
     ``bf16`` each CTA's slices and the exchanged h and hu are rounded to
-    bf16 (f32 inputs)."""
+    bf16 (f32 inputs), and on an mma plan each product is summed in the
+    tensor-core walk's order (`slice_product`)."""
     rb = rounder(bf16)
+    (_, kwp), (_, gcols) = plan.slices("fwd")
     t, b, g4 = gi.shape
     h = g4 // 4
     dvec = dvec.reshape(-1)
@@ -201,14 +225,14 @@ def emulate_recurrence(plan, gi, u, v, dvec, h0, c0, bf16=False):
                 hu = gi.new_empty(b1 - b0, u.shape[1])
                 for q in range(plan.ctas):
                     k0, k1 = plan.k_range(q)
-                    hu[:, k0:k1] = rb(h_t) @ rb(u[:, k0:k1])
+                    hu[:, k0:k1] = slice_product(plan, h_t, u[:, k0:k1], kwp, bf16)
                 hus[s, b0:b1] = hu
             src, w = (rb(h_t), u) if v is None else (rb(hu), v)
             h_n, c_n = torch.empty_like(h_t), torch.empty_like(c_t)
             for q in range(plan.ctas):
                 j0, j1 = plan.j_range(q)
                 cols = torch.cat([torch.arange(g * h + j0, g * h + j1) for g in range(4)])
-                pre = (gi[s, b0:b1][:, cols] + src @ rb(w[:, cols])
+                pre = (gi[s, b0:b1][:, cols] + slice_product(plan, src, w[:, cols], gcols, bf16)
                        + h_t[:, j0:j1].repeat(1, 4) * dvec[cols])
                 i, f, g, o = pre.chunk(4, dim=1)
                 i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
@@ -231,8 +255,10 @@ def emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, bf16
     dh = sum_g dpre_g dvec_g + dhu @ U^T (dense: dpre @ U^T); then the
     weight gradients over all rows. -> as `lstm_bptt_plain`. With ``bf16``
     the exchanged dpre and dhu, the slices and the GEMM operands are
-    rounded to bf16 (f32 inputs)."""
+    rounded to bf16 (f32 inputs), and on an mma plan the walk's products
+    are summed in the tensor-core walk's order (`slice_product`)."""
     rb = rounder(bf16)
+    (_, kwp), (_, jwp) = plan.slices("bwd")
     t, b, h = ys.shape
     dvec = dvec.reshape(-1)
     dpre = ys.new_empty(t, b, 4 * h)
@@ -262,11 +288,12 @@ def emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, bf16
                 dhu = d_t.new_empty(b1 - b0, v.shape[0])
                 for q in range(plan.ctas):
                     k0, k1 = plan.k_range(q)
-                    dhu[:, k0:k1] = rb(d_t) @ rb(v[k0:k1]).T
+                    dhu[:, k0:k1] = slice_product(plan, d_t, v[k0:k1].T, kwp, bf16)
             src = rb(d_t if v is None else dhu)
             for q in range(plan.ctas):
                 j0, j1 = plan.j_range(q)
-                dh[:, j0:j1] = dh_part[:, j0:j1] + src @ rb(u[j0:j1]).T
+                dh[:, j0:j1] = dh_part[:, j0:j1] + slice_product(plan, src, u[j0:j1].T, jwp,
+                                                                 bf16)
         dh0[b0:b1], dc0[b0:b1] = dh, dc
     hprev = torch.cat([h0[None], ys[:-1]]).reshape(t * b, h)
     d2 = dpre.reshape(t * b, 4 * h)
@@ -289,6 +316,14 @@ EMU_CASES = {
     "dense_x": (2, 4, 5, 6, 0, 3, 1, 6),
     "dense_rec_t2": (2, 6, 4, 5, 3, 0, 3, 2),
 }
+# the same for bf16 plans whose groups pad to 24 rows or more (the
+# tensor-core walk, `ScanPlan.mma`): one group of 21 rows (rpad 24), two of
+# 17 and 18, a dense side of 19; ranks and widths short of a block or a tile
+MMA_EMU_CASES = {
+    "mma_lowrank": (3, 21, 9, 13, 4, 5, 1, 3),
+    "mma_lowrank_groups": (2, 35, 6, 21, 3, 6, 2, 4),
+    "mma_dense": (3, 19, 5, 9, 0, 0, 1, 4),
+}
 
 
 def make_inputs(t, b, f, h, rx, r, dtype, seed=0):
@@ -310,11 +345,11 @@ def gi_of(xs, ux, vx, xdvec, bias, h):
     return xp + pad_features(xs, h).repeat(1, 1, 4) * xdvec.reshape(-1) + bias
 
 
-def emulated(case, dtype):
-    t, b, f, h, rx, r, groups, ctas = EMU_CASES[case]
+def emulated(case, dtype, elsize=4):
+    t, b, f, h, rx, r, groups, ctas = {**EMU_CASES, **MMA_EMU_CASES}[case]
     arrs, a = make_inputs(t, b, f, h, rx, r, dtype)
     xs, ux, vx, xdvec, bias, u, v, dvec, h0, c0 = a
-    plan = cuda_scan.plan_layout(b, h, r, groups, ctas)
+    plan = cuda_scan.plan_layout(b, h, r, groups, ctas, elsize)
     assert (plan.groups, plan.ctas) == (groups, ctas)
     gi = gi_of(xs, ux, vx, xdvec, bias, h)
     rng = np.random.default_rng(3)
@@ -430,3 +465,44 @@ def test_tile_partial_floats_keeps_the_stack_s_scratch():
     assert cuda_scan.tile_partial_floats(35, 20, 650, 300, 650, 300) == 2 * 300 * 2600
     assert cuda_scan.tile_partial_floats(24, 81, 77, 8, 180, 6) == 9 * 1944 * 8
     assert cuda_scan.tile_partial_floats(35, 20, 650, 0, 650, 0, gi=True) == 0
+
+
+@pytest.mark.parametrize("case", list(MMA_EMU_CASES))
+def test_emulated_mma_phases_match_the_plain_bf16_walks_and_the_jax_kernel(case):
+    """The bf16 kernels' phases on mma plans, each CTA's products summed in
+    the tensor-core walk's order: within f32's reach of the plain bf16
+    walks (the same roundings, other orders of sums), and within the bf16
+    tolerances (tests/test_pallas.py:97, :114) of JAX's bf16 kernel and its
+    VJP."""
+    plan, arrs, a, gi, dys, dc_last = emulated(case, torch.float32, elsize=2)
+    assert plan.mma and plan.rpad % 8 == 0
+    u, v, dvec, h0, c0 = a[5:]
+    got = emulate_recurrence(plan, gi, u, v, dvec, h0, c0, bf16=True)
+    want = cuda_scan.lstm_recurrence_plain(gi, u, v, dvec, h0, c0, "bf16")
+    for name, g, w in zip(("ys", "cs", "gates", "hu"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            torch.testing.assert_close(g, w, msg=name, **BF16_EMU_TOL)
+    ys, cs, gates, hu = got
+    grads = emulate_bptt(plan, u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, bf16=True)
+    plain = cuda_scan.lstm_bptt_plain(u, v, dvec, h0, c0, ys, cs, gates, hu, dys, None, dc_last,
+                                      "bf16")
+    for name, g, w in zip(("dpre", "du", "dv", "ddvec", "dh0", "dc0"), grads, plain):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            torch.testing.assert_close(g, w, msg=name, **BF16_EMU_TOL)
+
+    def f(u_, v_, dvec_, h0_, c0_):
+        j = [None if x is None else jnp.asarray(x) for x in arrs]
+        return jax_scan(*j[:5], u_, v_, dvec_, h0_, c0_, interpret=True, precision="bf16")
+
+    prim = [None if x is None else jnp.asarray(x) for x in arrs[5:]]
+    (ys_j, c_j), vjp = jax.vjp(f, *prim)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), **BF16_TOL)
+    np.testing.assert_allclose(cs[-1].numpy(), np.asarray(c_j), **BF16_TOL)
+    g_j = vjp((jnp.asarray(dys.numpy()), jnp.asarray(dc_last.numpy())))
+    for name, g, w in zip(("du", "dv", "ddvec", "dh0", "dc0"), grads[1:], g_j):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(g.shape), err_msg=name,
+                                       **BF16_GRAD_TOL)

@@ -63,6 +63,64 @@ def ring_ld(cols, elsize):
     return -(-cols * elsize // 16) * 16 // elsize
 
 
+def round16(n):
+    return -(-n // 16) * 16
+
+
+def mma_kernel_accepts(plan):
+    """The checks of the kernels' mma launches (`scan_mma`, `bptt_mma`) and
+    the walk they run: rows padded to 8 and exchange rows of xld = rpad
+    made 8 mod 16; resident depths in whole 16-row blocks (or the whole
+    depth); the carve (bf16 blocks, the staging buffer or the ring, `red`
+    holding each product's sums, [rpad][cols made 4 mod 8]) within the
+    plan's shared bytes and the card's; the streamed scratch holding every
+    CTA's blocks past the resident ones; a ring in each kernel, streaming
+    or not, whose stages hold a block of each product, cut into pieces of
+    whole blocks that each fit a stage (in bytes); no staging buffer."""
+    h, r, dense = plan.h, plan.r, plan.r == 0
+    rpad = plan.rpad
+    assert plan.mma and plan.elsize == 2 and rpad >= 8 and rpad % 8 == 0
+    xld = rpad if rpad % 16 else rpad + 8
+    assert xld == plan.xld and xld % 16 == 8
+    jwm = -(-h // plan.ctas)
+    jwp, kwp = -(-jwm // 4) * 4, 0 if dense else -(-(-(-r // plan.ctas)) // 4) * 4
+    for kernel, slab, (ca, cb), depth_a, depth_b in (
+            ("fwd", 6, (kwp, 4 * jwm), h, r or h), ("bwd", 9, (kwp, jwp), 4 * h, r or 4 * h)):
+        ra, rb = plan.resident(kernel)
+        for res, depth in ((rb, depth_b),) + (() if dense else ((ra, depth_a),)):
+            assert 0 <= res <= depth and (res == depth or res % 16 == 0)
+        ma = 0 if dense else (round16(depth_a) if ra >= depth_a else ra)
+        mb = round16(depth_b) if rb >= depth_b else rb
+        stage, red, smem = ((plan.stage_fwd, plan.red_fwd, plan.smem_fwd) if kernel == "fwd"
+                            else (plan.stage_bwd, plan.red_bwd, plan.smem_bwd))
+        products = ([] if dense else [(depth_a, ca)]) + [(depth_b, cb)]  # the walk's order
+        for depth, cols in products:
+            assert red >= rpad * (cols if cols % 8 else cols + 4)
+        piece = plan.piece(kernel)
+        carve = (weight_floats(ma * ca + mb * cb, 2) + 4 * jwm + slab * jwm * rpad
+                 + (2 * (piece + 4) if piece else stage) + red)
+        assert 4 * carve <= smem <= SMEM_LIMIT
+        streamed = weight_floats((0 if dense else (round16(depth_a) - ma) * ca)
+                                 + (round16(depth_b) - mb) * cb, 2)
+        assert streamed * plan.n_ctas <= cuda_scan.stream_floats(plan, kernel)
+        assert (streamed > 0) == (plan.streamed_elems(kernel) > 0)
+        assert stage == 0 and piece > 0
+        if piece:
+            assert piece % 4 == 0
+            assert len(plan.walk(kernel)) == len(products)
+            for (depth, cols), res, (d, _, rows, pieces) in zip(
+                    products, ([] if dense else [ma]) + [mb], plan.walk(kernel)):
+                assert d == depth and 4 * piece >= 32 * (xld + cols)
+                assert pieces[0][0] == 0 and pieces[-1][1] == round16(depth)
+                for (e0, e1), nxt in zip(pieces, pieces[1:] + ((pieces[-1][1], None),)):
+                    assert e0 % 16 == 0 and e1 % 16 == 0 and e1 > e0 and nxt[0] == e1
+                    if e1 <= res:  # the exchange alone
+                        assert 2 * (e1 - e0) * xld <= 4 * piece
+                    else:  # `rows` rows of it, then the streamed blocks
+                        assert e0 >= res and e1 - e0 <= rows
+                        assert 2 * rows * xld + 2 * (e1 - e0) * cols <= 4 * piece
+
+
 def kernel_accepts(plan):
     """The checks the scan kernels make before a launch (`scan` and `bptt`):
     resident depths within their slices, the carve (the staging buffer, or
@@ -70,7 +128,10 @@ def kernel_accepts(plan):
     stage) within the plan's shared bytes and the card's, the streamed
     scratch that `stream_floats` sizes holding every CTA's region of
     16-byte rows, and a ring exactly where a kernel streams, of whole
-    16-byte stages that hold a row of each product."""
+    16-byte stages that hold a row of each product. An mma plan's checks
+    are `mma_kernel_accepts`'."""
+    if plan.mma:
+        return mma_kernel_accepts(plan)
     h, r, dense = plan.h, plan.r, plan.r == 0
     jwm = -(-h // plan.ctas)
     jwp, kwp = -(-jwm // 4) * 4, 0 if dense else -(-(-(-r // plan.ctas)) // 4) * 4
@@ -182,11 +243,25 @@ def test_every_lstm_shape_with_a_plan_keeps_it(elsize):
             one = parent_scan_plan(1, h, r, SMS, elsize)
             for b in (*BATCHES, 477, 657):
                 before = parent_scan_plan(b, h, r, SMS, elsize)
-                if before is not None:
+                if before is not None and cuda_scan.scan_plan(b, h, r, SMS, elsize).mma:
+                    # the tensor-core walk's layout (bf16, groups of 8 rows or
+                    # more), at the parent's grouping or one of more groups,
+                    # holds every weight row; where it does not fit, the
+                    # parent's plan below
+                    plan = cuda_scan.scan_plan(b, h, r, SMS, elsize)
+                    assert not plan.streamed and plan.groups >= before[3]
+                elif before is not None:
                     assert as_parent(cuda_scan.scan_plan(b, h, r, SMS, elsize)) == before
-                elif one is not None:  # chunks of rows, as before
+                elif one is not None and elsize == 4:  # chunks of rows, as before
                     with pytest.raises(ValueError, match="do not fit"):
                         cuda_scan.scan_plan(b, h, r, SMS, elsize)
+                elif one is not None:  # chunks of rows, or the mma layout takes the batch whole
+                    try:
+                        plan = cuda_scan.scan_plan(b, h, r, SMS, elsize)
+                    except ValueError as e:
+                        assert "do not fit" in str(e)
+                    else:
+                        assert plan.mma and not plan.streamed
                 else:  # fault 11: streamed now
                     assert cuda_scan.scan_chunks(b, h, r, SMS, elsize)[0][2].streamed
 
@@ -688,11 +763,26 @@ def test_ring_plans_keep_the_parents_chunks_stage_and_red(elsize):
                 for _, n, plan in chunks:
                     parent = parent_streamed_plan(n, h, r, SMS, elsize)
                     assert plan.streamed and plan.piece_fwd and plan.piece_bwd
-                    for field in ("groups", "ctas", "rpad", "stage_fwd", "red_fwd", "stage_bwd",
-                                  "red_bwd", "xchg_fwd", "xchg_bwd"):
+                    # an mma plan (bf16, 24 rows or more) stages and sums its
+                    # own way (`mma_kernel_accepts`): the same grouping
+                    fields = ("groups", "ctas") if plan.mma else (
+                        "groups", "ctas", "rpad", "stage_fwd", "red_fwd", "stage_bwd", "red_bwd",
+                        "xchg_fwd", "xchg_bwd")
+                    for field in fields:
                         assert getattr(plan, field) == getattr(parent, field), field
                     seen += 1
     assert seen > 500
+
+
+def mma_first(kb0, kw, j):
+    """The first block at or after kb0 of k-group j (MmaTiles::first)."""
+    return kb0 + ((j - kb0 % kw) % kw + kw) % kw
+
+
+def mma_blocks(spans, kw, j):
+    """The blocks k-group j walks over the ring's pieces [e0, e1) of whole
+    blocks, in order."""
+    return [kb for e0, e1 in spans for kb in range(mma_first(e0 // 16, kw, j), e1 // 16, kw)]
 
 
 def parent_walk(depth, chunk, slices, s):
@@ -727,6 +817,16 @@ def test_ring_walk_keeps_each_threads_order_of_sums(b, h, r, elsize):
     sms = SMS if h >= 1000 else 1
     plan = cuda_scan.scan_plan(b, h, r, sms, elsize)
     assert plan.streamed
+    if plan.mma:  # the tensor-core walk: its own order, whatever the pieces
+        for kernel in ("fwd", "bwd"):
+            for depth, chunk, _, pieces in plan.walk(kernel):
+                d16 = -(-depth // 16) * 16
+                assert chunk == d16
+                cols = max(c for d, c in plan.slices(kernel) if d == depth)
+                kw = cuda_scan.mma_split(depth, cols, plan.rpad).kw
+                for j in range(kw):
+                    assert mma_blocks(pieces, kw, j) == list(range(j, d16 // 16, kw))
+        return
     for kernel in ("fwd", "bwd"):
         stage = plan.stage_fwd if kernel == "fwd" else plan.stage_bwd
         walks = plan.walk(kernel)

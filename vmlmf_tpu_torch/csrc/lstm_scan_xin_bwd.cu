@@ -35,10 +35,12 @@
 // bf16 (pallas_scan.py:583-680): each product rounds its operands to bf16
 // and sums in f32, as the TPU kernel casts them: dpre and dhu in the walk
 // (rounded by the CTA that writes them to the exchange, the weight slices
-// bf16 in shared memory), Hprev, HU, dPre, dHU, X, XU, dXU and the factors
-// in the GEMMs after it (rounding operand views). dpre and dhu are kept f32
-// in device memory; the dvec term of dh, ddvec, dxdvec, dbias and the
-// xdvec term of dx read the f32 dpre.
+// bf16 in shared memory; where a group pads to 24 rows or more the walk's
+// products run on the tensor cores with a bf16 exchange,
+// scan_grid.cuh::Ring::mma_product), Hprev, HU, dPre, dHU, X, XU, dXU and the
+// factors in the GEMMs after it (rounding operand views). dpre [T*B, 4h]
+// and dhu [T*B, r] are written f32 apart from the exchange; the dvec term
+// of dh, ddvec, dxdvec, dbias and the xdvec term of dx read the f32 dpre.
 //
 // Recompute (save_gates=False, x mode; pallas_scan.py:543-576): before the
 // walk, batched GEMMs over all M rows rebuild xu = X @ Ux, gi (its
@@ -143,13 +145,38 @@ __host__ __device__ inline size_t bwd_stream_floats(bool dense_rec, int h, int r
       (size_t)(depth - p.res_b) * vmlmf::ring_ld<W>(jwp));
 }
 
+// The same for an mma plan, whose slices lie in whole blocks of 16 rows
+// (scan_grid.cuh::mma_at): the resident blocks, and a CTA's streamed ones.
+__host__ __device__ inline size_t bwd_mma_smem_floats(bool dense_rec, int h, int r,
+                                                      const GridPlan& p) {
+  const int jwm = div_up(h, p.ctas), jwp = round4(jwm);
+  const int kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const int depth = dense_rec ? 4 * h : r;
+  const size_t weights = (dense_rec ? 0 : (size_t)vmlmf::mma_resident(p.res_a, 4 * h) * kwp) +
+                         (size_t)vmlmf::mma_resident(p.res_b, depth) * jwp;
+  return vmlmf::weight_floats<bf16>(weights) + 4 * jwm + (2 + kInputs) * (size_t)jwm * p.rpad +
+         (p.piece ? vmlmf::ring_floats(p) : p.stage) + p.red;
+}
+__host__ __device__ inline size_t bwd_mma_stream_floats(bool dense_rec, int h, int r,
+                                                        const GridPlan& p) {
+  const int jwp = round4(div_up(h, p.ctas)), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const int depth = dense_rec ? 4 * h : r;
+  return vmlmf::weight_floats<bf16>(
+      (dense_rec ? 0
+                 : (size_t)(vmlmf::round16(4 * h) - vmlmf::mma_resident(p.res_a, 4 * h)) * kwp) +
+      (size_t)(vmlmf::round16(depth) - vmlmf::mma_resident(p.res_b, depth)) * jwp);
+}
+
 // The serial reverse walk on plan.groups x plan.ctas co-resident CTAs.
 // xchg: the dpre exchange [2][groups][4h][rpad] (step parity), then,
 // low-rank, the dhu exchange [groups][r][rpad]. sync: a barrier word per
 // group. wstream: the streamed scratch, bwd_stream_floats a CTA. Streamed:
 // the products run on the ring (scan_grid.cuh::Ring), kRingThreads threads
-// a CTA; else slice_product on kGridThreads.
-template <bool DenseRec, bool Bf16, bool Streamed>
+// a CTA; else slice_product on kGridThreads. Mma (an mma plan, bf16 only,
+// on the ring): the products run on the tensor cores (Ring::mma_product),
+// the exchange is bf16 [2][groups][4h16][xld] and [groups][r16][xld]
+// (depths padded to 16, rows to mma_xld), the slices lie in blocks.
+template <bool DenseRec, bool Bf16, bool Streamed, bool Mma = false>
 __global__ void __launch_bounds__(Streamed ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ c0, const float* __restrict__ dys,
@@ -160,6 +187,9 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  unsigned* sync, float* wstream, int t_len, int batch, int h, int r,
                  GridPlan plan) {
   using W = std::conditional_t<Bf16, bf16, float>;  // weight slices
+  using X = std::conditional_t<Mma, bf16, float>;   // the exchange
+  static_assert(Bf16 || !Mma, "the mma product takes bf16 operands");
+  static_assert(Streamed || !Mma, "the mma product runs on the ring");
   extern __shared__ __align__(16) float smem[];
   const int g4 = 4 * h, rpad = plan.rpad;
   const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
@@ -173,48 +203,97 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   const int depth = DenseRec ? g4 : r;  // of phase C's product
   // resident depths: every row without Streamed
   const int resb = DenseRec ? 0 : Streamed ? plan.res_a : g4, resc = Streamed ? plan.res_b : depth;
+  // an mma plan's resident rows, padded rows and exchange row (else as above)
+  const int mresb = Mma ? vmlmf::mma_resident(resb, g4) : resb;
+  const int mresc = Mma ? vmlmf::mma_resident(resc, depth) : resc;
+  const int gdep = Mma ? vmlmf::round16(g4) : g4, rdep = Mma ? vmlmf::round16(r) : r;
+  const int xld = Mma ? vmlmf::mma_xld(rpad) : rpad;
 
   W* wb = reinterpret_cast<W*>(smem);      // low-rank: V[k-slice, :]^T  [4h][kwp], rows < resb
-  W* wc = wb + (size_t)resb * kwp;         // U[j-slice, :]^T  [depth][jwp], rows < resc
+  W* wc = wb + (size_t)mresb * kwp;        // U[j-slice, :]^T  [depth][jwp], rows < resc
   // dvec of the j-slice [jwm][4]
-  float* dv = smem + vmlmf::weight_floats<W>((size_t)resb * kwp + (size_t)resc * jwp);
+  float* dv = smem + vmlmf::weight_floats<W>((size_t)mresb * kwp + (size_t)mresc * jwp);
   // the streamed rows: V^T's past resb, then U^T's past resc
   const int ldb = vmlmf::ring_ld<W>(kwp), ldc = vmlmf::ring_ld<W>(jwp);  // their strides
-  W* sb = reinterpret_cast<W*>(wstream + blockIdx.x * bwd_stream_floats<W>(DenseRec, h, r, plan));
-  W* sc = sb + (size_t)(DenseRec ? 0 : g4 - resb) * ldb;
+  const size_t region = Mma ? bwd_mma_stream_floats(DenseRec, h, r, plan)
+                            : bwd_stream_floats<W>(DenseRec, h, r, plan);
+  W* sb = reinterpret_cast<W*>(wstream + blockIdx.x * region);
+  W* sc = sb + (Mma ? (size_t)(DenseRec ? 0 : gdep - mresb) * kwp
+                    : (size_t)(DenseRec ? 0 : g4 - resb) * ldb);
   float* dhc = dv + 4 * jwm;               // the carry dh, dc: [jwm][rpad]
   float* dcc = dhc + (size_t)jwm * rpad;
   float* stage = dcc + (size_t)jwm * rpad;
   float* red = stage + (Streamed ? vmlmf::ring_floats(plan) : plan.stage);  // stage: the ring
   float* pa = red + plan.red;              // phase A's inputs of the step [kInputs][jwm][rpad]
-  const size_t dpx_par = (size_t)plan.groups * g4 * rpad;
-  float* dpx = xchg + (size_t)grp * g4 * rpad;  // parity p at dpx + p * dpx_par
-  float* dhux = xchg + 2 * dpx_par + (size_t)grp * r * rpad;
+  const size_t dpx_par = (size_t)plan.groups * gdep * xld;
+  X* dpx = reinterpret_cast<X*>(xchg) + (size_t)grp * gdep * xld;  // parity p at dpx + p * dpx_par
+  X* dhux = reinterpret_cast<X*>(xchg) + 2 * dpx_par + (size_t)grp * rdep * xld;
   unsigned* count = sync + grp;
   unsigned target = 0;
+  // an exchanged value, rounded to bf16 where the products take bf16
+  auto put_x = [](X* at, float val) {
+    if constexpr (Mma)
+      *at = __float2bfloat16_rn(val);
+    else
+      *at = vmlmf::exchanged<Bf16>(val);
+  };
 
   // the weight slices, transposed, loaded once along the rows of V and U
   // (coalesced reads), the resident rows into shared memory and the others
   // into the CTA's streamed region; columns past the slice are zero
-  if constexpr (!DenseRec) {
-#pragma unroll 4
-    for (int e = threadIdx.x; e < kwp * g4; e += blockDim.x) {
-      const int kk = e / g4, n = e % g4;
-      const W val = vmlmf::to_elem<W>(kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
-      if constexpr (Streamed)
-        vmlmf::slice_elem(wb, sb, resb, kwp, ldb, n, kk) = val;
-      else
-        wb[(size_t)n * kwp + kk] = val;
+  if constexpr (Mma) {  // in blocks of 16 rows, fragment order; rows past the depth zero
+    if constexpr (!DenseRec) {
+      for (int e = threadIdx.x; e < kwp * gdep; e += blockDim.x) {
+        const int kk = e / gdep, n = e % gdep;
+        const W val = vmlmf::to_elem<W>(kk < kw && n < g4 ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
+        const size_t at = vmlmf::mma_at(n, kk, kwp);
+        if (n < mresb)
+          wb[at] = val;
+        else
+          sb[at - (size_t)mresb * kwp] = val;
+      }
     }
-  }
+    const int cdep = DenseRec ? gdep : rdep;
+    for (int e = threadIdx.x; e < jwp * cdep; e += blockDim.x) {
+      const int jj = e / cdep, k = e % cdep;
+      const W val = vmlmf::to_elem<W>(jj < jw && k < depth ? u[(size_t)(j0 + jj) * depth + k]
+                                                           : 0.f);
+      const size_t at = vmlmf::mma_at(k, jj, jwp);
+      if (k < mresc)
+        wc[at] = val;
+      else
+        sc[at - (size_t)mresc * jwp] = val;
+    }
+    // the exchange rows past the depths, which the products read as zeros
+    if (q == 0) {
+      for (int e = threadIdx.x; e < (gdep - g4) * xld; e += blockDim.x) {
+        dpx[(size_t)g4 * xld + e] = __float2bfloat16_rn(0.f);
+        dpx[dpx_par + (size_t)g4 * xld + e] = __float2bfloat16_rn(0.f);
+      }
+      for (int e = threadIdx.x; e < (rdep - r) * xld; e += blockDim.x)
+        dhux[(size_t)r * xld + e] = __float2bfloat16_rn(0.f);
+    }
+  } else {
+    if constexpr (!DenseRec) {
 #pragma unroll 4
-  for (int e = threadIdx.x; e < jwp * depth; e += blockDim.x) {
-    const int jj = e / depth, k = e % depth;
-    const W val = vmlmf::to_elem<W>(jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f);
-    if constexpr (Streamed)
-      vmlmf::slice_elem(wc, sc, resc, jwp, ldc, k, jj) = val;
-    else
-      wc[(size_t)k * jwp + jj] = val;
+      for (int e = threadIdx.x; e < kwp * g4; e += blockDim.x) {
+        const int kk = e / g4, n = e % g4;
+        const W val = vmlmf::to_elem<W>(kk < kw ? v[(size_t)(k0 + kk) * g4 + n] : 0.f);
+        if constexpr (Streamed)
+          vmlmf::slice_elem(wb, sb, resb, kwp, ldb, n, kk) = val;
+        else
+          wb[(size_t)n * kwp + kk] = val;
+      }
+    }
+#pragma unroll 4
+    for (int e = threadIdx.x; e < jwp * depth; e += blockDim.x) {
+      const int jj = e / depth, k = e % depth;
+      const W val = vmlmf::to_elem<W>(jj < jw ? u[(size_t)(j0 + jj) * depth + k] : 0.f);
+      if constexpr (Streamed)
+        vmlmf::slice_elem(wc, sc, resc, jwp, ldc, k, jj) = val;
+      else
+        wc[(size_t)k * jwp + jj] = val;
+    }
   }
   for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
     dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
@@ -249,16 +328,33 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     return vmlmf::RingOperand<W>{dpx_t, wb, sb, g4, resb, kwp, round4(kw)};
   };
   auto op_c = [&](const float* dpx_t) {
-    return vmlmf::RingOperand<W>{DenseRec ? dpx_t : dhux, wc, sc, depth, resc, jwp, round4(jw)};
+    return vmlmf::RingOperand<W>{DenseRec ? dpx_t : reinterpret_cast<const float*>(dhux), wc, sc,
+                                 depth, resc, jwp, round4(jw)};
+  };
+  auto mop_b = [&](const X* dpx_t) {
+    return vmlmf::MmaOperand{reinterpret_cast<const bf16*>(dpx_t),
+                             reinterpret_cast<const bf16*>(wb), reinterpret_cast<const bf16*>(sb),
+                             g4, resb, kwp, round4(kw)};
+  };
+  auto mop_c = [&](const X* dpx_t) {
+    return vmlmf::MmaOperand{reinterpret_cast<const bf16*>(DenseRec ? dpx_t : dhux),
+                             reinterpret_cast<const bf16*>(wc), reinterpret_cast<const bf16*>(sc),
+                             depth, resc, jwp, round4(jw)};
   };
   vmlmf::Ring ring;
   if constexpr (Streamed) {
     ring.start(stage, plan);
-    if (t_len > 0) ring.preload(DenseRec ? op_c(dpx) : op_b(dpx));
+    if constexpr (Mma) {
+      if (t_len > 0) ring.mma_preload(DenseRec ? mop_c(dpx) : mop_b(dpx));
+    } else {
+      if (t_len > 0)
+        ring.preload(DenseRec ? op_c(reinterpret_cast<const float*>(dpx))
+                              : op_b(reinterpret_cast<const float*>(dpx)));
+    }
   }
 
   for (int t = t_len - 1; t >= 0; --t) {
-    float* dpx_t = dpx + (t & 1) * dpx_par;
+    X* dpx_t = dpx + (t & 1) * dpx_par;
     const size_t m0 = (size_t)t * batch + b0;
     vmlmf::cp_async_wait_all();
     __syncthreads();  // pa, and the carry that phase C wrote
@@ -268,7 +364,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
       const int jj = e % jw, row = e / jw, j = j0 + jj;
       const int at = jj * rpad + row;
       if (row >= rows) {
-        for (int gg = 0; gg < 4; ++gg) dpx_t[(size_t)(gg * h + j) * rpad + row] = 0.f;
+        for (int gg = 0; gg < 4; ++gg) put_x(dpx_t + (size_t)(gg * h + j) * xld + row, 0.f);
         continue;
       }
       const size_t m = m0 + row;
@@ -284,7 +380,7 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         dpre[m * g4 + k * h + j] = p[k];
-        dpx_t[(size_t)(k * h + j) * rpad + row] = vmlmf::exchanged<Bf16>(p[k]);
+        put_x(dpx_t + (size_t)(k * h + j) * xld + row, p[k]);
         dhp = fmaf(p[k], dv[4 * jj + k], dhp);
       }
       dhc[at] = dhp;
@@ -302,17 +398,22 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int row = 4 * rb + i;
-            dhux[(size_t)(k0 + kk) * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
+            put_x(dhux + (size_t)(k0 + kk) * xld + row, acc[c][i]);
             if (row < rows) dhu[(m0 + row) * r + k0 + kk] = acc[c][i];
           }
         }
       };
       if constexpr (Streamed) {
-        ring.product(op_b(dpx_t), red, epi_b);
-        ring.preload(op_c(dpx_t));
+        if constexpr (Mma) {
+          ring.mma_product(mop_b(dpx_t), red, epi_b);
+          ring.mma_preload(mop_c(dpx_t));
+        } else {
+          ring.product(op_b(reinterpret_cast<const float*>(dpx_t)), red, epi_b);
+          ring.preload(op_c(reinterpret_cast<const float*>(dpx_t)));
+        }
       } else {
-        vmlmf::slice_product<false>(dpx_t, g4, rpad, wb, sb, resb, kwp, round4(kw), stage,
-                                    plan.stage, red, plan.red, epi_b);
+        vmlmf::slice_product<false>(reinterpret_cast<const float*>(dpx_t), g4, rpad, wb, sb, resb,
+                                    kwp, round4(kw), stage, plan.stage, red, plan.red, epi_b);
       }
       vmlmf::group_sync(count, plan.ctas, target);
     }
@@ -328,14 +429,23 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
       }
     };
     if constexpr (Streamed) {
-      ring.product(op_c(dpx_t), red, epi_c);
-      if (t > 0) {
-        float* next = dpx + ((t - 1) & 1) * dpx_par;
-        ring.preload(DenseRec ? op_c(next) : op_b(next));
+      if constexpr (Mma) {
+        ring.mma_product(mop_c(dpx_t), red, epi_c);
+        if (t > 0) {
+          X* next = dpx + ((t - 1) & 1) * dpx_par;
+          ring.mma_preload(DenseRec ? mop_c(next) : mop_b(next));
+        }
+      } else {
+        ring.product(op_c(reinterpret_cast<const float*>(dpx_t)), red, epi_c);
+        if (t > 0) {
+          const float* next = reinterpret_cast<const float*>(dpx + ((t - 1) & 1) * dpx_par);
+          ring.preload(DenseRec ? op_c(next) : op_b(next));
+        }
       }
     } else {
-      vmlmf::slice_product<false>(DenseRec ? dpx_t : dhux, depth, rpad, wc, sc, resc, jwp,
-                                  round4(jw), stage, plan.stage, red, plan.red, epi_c);
+      vmlmf::slice_product<false>(reinterpret_cast<const float*>(DenseRec ? dpx_t : dhux), depth,
+                                  rpad, wc, sc, resc, jwp, round4(jw), stage, plan.stage, red,
+                                  plan.red, epi_c);
     }
   }
   __syncthreads();
@@ -353,6 +463,30 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 // of each product); returns the launch's error.
 // The plan must hold at least the shared memory this kernel carves, and
 // `wstream` (`wstream_floats` floats) its CTAs' streamed regions.
+// The same for an mma plan (grid_bptt_kernel<DenseRec, true, true, true>,
+// on the ring whether or not a row is streamed), with the checks of its
+// layout: rows padded to 8, resident depths in whole blocks, the ring's
+// stages holding a block of each product, `red` each product's sums.
+template <bool DenseRec>
+cudaError_t bptt_mma(void** args, float* wstream, size_t wstream_floats, int h, int r,
+                     GridPlan plan, unsigned* sync, cudaStream_t stream) {
+  const int depth = DenseRec ? 4 * h : r;
+  const int jwp = round4(div_up(h, plan.ctas)), kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
+  if (!vmlmf::mma_plan_ok(plan) || !vmlmf::mma_resident_ok(plan.res_b, depth) ||
+      (DenseRec ? plan.res_a != 0 : !vmlmf::mma_resident_ok(plan.res_a, 4 * h)) ||
+      sizeof(float) * bwd_mma_smem_floats(DenseRec, h, r, plan) > (size_t)plan.smem ||
+      plan.red < vmlmf::mma_red_floats(depth, jwp, plan.rpad) ||
+      (!DenseRec && plan.red < vmlmf::mma_red_floats(4 * h, kwp, plan.rpad)))
+    return cudaErrorInvalidValue;
+  const size_t streamed = bwd_mma_stream_floats(DenseRec, h, r, plan);
+  if (streamed * plan.groups * plan.ctas > wstream_floats || (streamed > 0 && wstream == nullptr) ||
+      !vmlmf::ring_ok(plan) || !vmlmf::mma_ring_holds(plan, jwp) ||
+      !vmlmf::mma_ring_holds(plan, kwp))
+    return cudaErrorInvalidValue;
+  return vmlmf::launch_grid(grid_bptt_kernel<DenseRec, true, true, true>, plan, sync, args,
+                            stream, 0, vmlmf::kRingThreads);
+}
+
 template <bool DenseRec, bool Bf16>
 cudaError_t bptt(const float* gates, const float* cs, const float* c0, const float* dys,
                  const float* dc_last, const float* u, const float* v, const float* dvec,
@@ -360,6 +494,14 @@ cudaError_t bptt(const float* gates, const float* cs, const float* c0, const flo
                  float* wstream, size_t wstream_floats, int t_len, int batch, int h, int r,
                  GridPlan plan, cudaStream_t stream) {
   using W = std::conditional_t<Bf16, bf16, float>;
+  if (plan.mma) {
+    void* margs[] = {&gates, &cs, &c0, &dys, &dc_last, &u, &v, &dvec, &dpre, &dhu, &dh0, &dc0,
+                     &xchg, &sync, &wstream, &t_len, &batch, &h, &r, &plan};
+    if constexpr (Bf16)
+      return bptt_mma<DenseRec>(margs, wstream, wstream_floats, h, r, plan, sync, stream);
+    else
+      return cudaErrorInvalidValue;
+  }
   const int depth = DenseRec ? 4 * h : r;
   if (plan.res_b < 0 || plan.res_b > depth ||
       (DenseRec ? plan.res_a != 0 : plan.res_a < 0 || plan.res_a > 4 * h) ||
@@ -580,8 +722,9 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
 // floats for the split-k partial sums (bwd_partial_floats), and wstream,
 // wstream_floats floats of streamed weights (stream_floats; null where the
 // plan streams nothing); every other pointer after dpre is an output (dv
-// and dvx null with dhu and dxu). The nine integers after r are
-// scan_plan's layout (ScanPlan.ints); bf16_mm 1 rounds every product's
+// and dvx null with dhu and dxu). The ten integers after r are
+// scan_plan's layout (ScanPlan.ints; the last, mma, 1 for a plan whose
+// bf16 products run on the tensor cores); bf16_mm 1 rounds every product's
 // operands to bf16.
 extern "C" int lstm_scan_xin_bwd(
     const float* x, const float* ux, const float* vx, const float* xdvec, const float* bias,
@@ -592,13 +735,13 @@ extern "C" int lstm_scan_xin_bwd(
     float* dbias, float* du, float* dv, float* ddvec, float* dh0, float* dc0, float* xchg,
     unsigned* sync, float* partial, float* wstream, int partial_floats, int wstream_floats,
     int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage,
-    int red, int smem, int res_a, int res_b, int piece, int bf16_mm,
+    int red, int smem, int res_a, int res_b, int piece, int mma, int bf16_mm,
     int policy, void* stream_handle) {
   const BwdIO io{x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, ys, cs, gates, hu, xu, dys,
                  dc_last, gates_w, hu_w, xu_w, dpre, dhu, dxu, dx, dux, dvx, dxdvec, dbias, du,
                  dv, ddvec, dh0, dc0, xchg, sync, partial, static_cast<size_t>(partial_floats),
                  wstream, static_cast<size_t>(wstream_floats), t_len, batch, f, rx, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
 }
@@ -614,7 +757,7 @@ extern "C" int lstm_scan_bwd(
     float* dv, float* ddvec, float* dh0, float* dc0, float* xchg, unsigned* sync,
     float* partial, float* wstream, int partial_floats, int wstream_floats, int t_len,
     int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
-    int res_a, int res_b, int piece, int bf16_mm, int policy,
+    int res_a, int res_b, int piece, int mma, int bf16_mm, int policy,
     void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const BwdIO io{nullptr, nullptr, nullptr, nullptr, nullptr, u, v, dvec, h0, c0, ys, cs, gates,
@@ -622,7 +765,7 @@ extern "C" int lstm_scan_bwd(
                  nullptr, nullptr, nullptr, nullptr, du, dv, ddvec, dh0, dc0, xchg, sync, partial,
                  static_cast<size_t>(partial_floats), wstream,
                  static_cast<size_t>(wstream_floats), t_len, batch, 1, 0, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
 }

@@ -35,8 +35,9 @@
 // bf16 (pallas_scan.py:297-317): every product takes bf16-rounded operands
 // and sums in f32: x, Ux, xu and Vx in the projection GEMMs (bf16 mma,
 // gemm_tc.cuh), h, U, hu and V in the scan (bf16 weight
-// slices in shared memory, exchanged h and hu rounded by their writer,
-// scan_grid.cuh). The x term, the h * dvec term (h from the f32 carry), the
+// slices in shared memory, exchanged h and hu rounded by their writer;
+// where a group pads to 24 rows or more, the products on the tensor cores
+// with a bf16 exchange: scan_grid.cuh::Ring::mma_product). The x term, the h * dvec term (h from the f32 carry), the
 // bias and the gate arithmetic stay f32, as in the TPU kernel.
 //
 // What bounds it on an H100, and what the design does about it:
@@ -160,6 +161,19 @@ __host__ __device__ inline size_t fwd_smem_floats(bool dense_rec, int h, int r,
          (p.piece ? vmlmf::ring_floats(p) : p.stage) + p.red;
 }
 
+// The same for an mma plan, whose slices lie in whole blocks of 16 rows
+// (scan_grid.cuh::mma_at).
+__host__ __device__ inline size_t fwd_mma_smem_floats(bool dense_rec, int h, int r,
+                                                      const GridPlan& p) {
+  const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const int depth = dense_rec ? h : r;
+  const size_t weights =
+      (dense_rec ? 0 : (size_t)vmlmf::mma_resident(p.res_a, h) * kwp) +
+      (size_t)vmlmf::mma_resident(p.res_b, depth) * 4 * jwm;
+  return vmlmf::weight_floats<bf16>(weights) + 4 * jwm + 6 * (size_t)jwm * p.rpad +
+         (p.piece ? vmlmf::ring_floats(p) : p.stage) + p.red;
+}
+
 // Floats of one CTA's region of the streamed scratch: the rows of its two
 // slices past their resident depths, each row padded to 16 bytes
 // (ring_ld; ops/cuda_scan.py::stream_floats).
@@ -170,6 +184,17 @@ __host__ __device__ inline size_t fwd_stream_floats(bool dense_rec, int h, int r
   const int depth = dense_rec ? h : r;
   return vmlmf::weight_floats<W>((size_t)(dense_rec ? 0 : h - p.res_a) * vmlmf::ring_ld<W>(kwp) +
                                  (size_t)(depth - p.res_b) * vmlmf::ring_ld<W>(4 * jwm));
+}
+
+// Floats of one CTA's streamed region of an mma plan: the blocks of its two
+// slices past their resident ones.
+__host__ __device__ inline size_t fwd_mma_stream_floats(bool dense_rec, int h, int r,
+                                                        const GridPlan& p) {
+  const int jwm = div_up(h, p.ctas), kwp = dense_rec ? 0 : round4(div_up(r, p.ctas));
+  const int depth = dense_rec ? h : r;
+  return vmlmf::weight_floats<bf16>(
+      (dense_rec ? 0 : (size_t)(vmlmf::round16(h) - vmlmf::mma_resident(p.res_a, h)) * kwp) +
+      (size_t)(vmlmf::round16(depth) - vmlmf::mma_resident(p.res_b, depth)) * 4 * jwm);
 }
 
 // Whether a plan's resident depths are ones this kernel takes.
@@ -185,8 +210,12 @@ inline bool resident_ok(bool dense_rec, int h, int r, const GridPlan& p) {
 // wstream: the streamed scratch, fwd_stream_floats a CTA (null when the
 // plan streams nothing). Streamed: the products run on the ring
 // (scan_grid.cuh::Ring), kRingThreads threads a CTA; else slice_product
-// on kGridThreads.
-template <int Res, bool DenseRec, bool Bf16, bool Streamed>
+// on kGridThreads. Mma (an mma plan, bf16 only, on the ring): the products
+// run on the tensor cores (Ring::mma_product), the exchange is bf16 [2]
+// [groups][h16][xld] and [groups][r16][xld] (depths padded to 16, rows to
+// mma_xld), the slices lie in blocks (fwd_mma_smem_floats,
+// fwd_mma_stream_floats).
+template <int Res, bool DenseRec, bool Bf16, bool Streamed, bool Mma = false>
 __global__ void __launch_bounds__(Streamed ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
                  const float* __restrict__ v, const float* __restrict__ dvec,
@@ -197,6 +226,9 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
                  int t_len, int batch, int h, int r, GridPlan plan) {
   using W = std::conditional_t<Bf16, bf16, float>;        // weight slices
   using R = std::conditional_t<Res == kResBf16, bf16, float>;  // gates, hu
+  using X = std::conditional_t<Mma, bf16, float>;          // the exchange
+  static_assert(Bf16 || !Mma, "the mma product takes bf16 operands");
+  static_assert(Streamed || !Mma, "the mma product runs on the ring");
   extern __shared__ __align__(16) float smem[];
   R* gates_out = static_cast<R*>(gates_res);
   R* hu_out = static_cast<R*>(hu_res);
@@ -211,47 +243,97 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
   const int depth = DenseRec ? h : r;  // of the gate phase's product
   // resident depths: every row without Streamed
   const int resa = DenseRec ? 0 : Streamed ? plan.res_a : h, resb = Streamed ? plan.res_b : depth;
+  // an mma plan's resident rows, padded rows and exchange row (else as above)
+  const int mresa = Mma ? vmlmf::mma_resident(resa, h) : resa;
+  const int mresb = Mma ? vmlmf::mma_resident(resb, depth) : resb;
+  const int hdep = Mma ? vmlmf::round16(h) : h, rdep = Mma ? vmlmf::round16(r) : r;
+  const int xld = Mma ? vmlmf::mma_xld(rpad) : rpad;
 
   W* wa = reinterpret_cast<W*>(smem);  // low-rank: U[:, k-slice]  [h][kwp], rows < resa
-  W* wb = wa + (size_t)resa * kwp;     // V or dense U, gate columns of the j-slice [depth][jwm][4]
-  float* dv = smem + vmlmf::weight_floats<W>((size_t)resa * kwp + (size_t)resb * 4 * jwm);
+  W* wb = wa + (size_t)mresa * kwp;    // V or dense U, gate columns of the j-slice [depth][jwm][4]
+  float* dv = smem + vmlmf::weight_floats<W>((size_t)mresa * kwp + (size_t)mresb * 4 * jwm);
   // the streamed rows: U's past resa, then V's (or dense U's) past resb
   const int lda = vmlmf::ring_ld<W>(kwp), ldb = vmlmf::ring_ld<W>(4 * jwm);  // their strides
-  W* sa = reinterpret_cast<W*>(wstream + blockIdx.x * fwd_stream_floats<W>(DenseRec, h, r, plan));
-  W* sb = sa + (size_t)(DenseRec ? 0 : h - resa) * lda;
+  const size_t region = Mma ? fwd_mma_stream_floats(DenseRec, h, r, plan)
+                            : fwd_stream_floats<W>(DenseRec, h, r, plan);
+  W* sa = reinterpret_cast<W*>(wstream + blockIdx.x * region);
+  W* sb = sa + (Mma ? (size_t)(DenseRec ? 0 : hdep - mresa) * kwp
+                    : (size_t)(DenseRec ? 0 : h - resa) * lda);
   float* hc = dv + 4 * jwm;                // the carry h, c: [jwm][rpad]
   float* cc = hc + (size_t)jwm * rpad;
   float* stage = cc + (size_t)jwm * rpad;
   float* red = stage + (Streamed ? vmlmf::ring_floats(plan) : plan.stage);  // stage: the ring
   float* gis = red + plan.red;             // gi of the step, j-slice [jwm][4][rpad]
-  float* hx = xchg + (size_t)grp * h * rpad;  // parity p at hx + p * groups*h*rpad
-  const size_t hx_par = (size_t)plan.groups * h * rpad;
-  float* hux = xchg + 2 * hx_par + (size_t)grp * r * rpad;
+  X* hx = reinterpret_cast<X*>(xchg) + (size_t)grp * hdep * xld;  // parity p at hx + p * hx_par
+  const size_t hx_par = (size_t)plan.groups * hdep * xld;
+  X* hux = reinterpret_cast<X*>(xchg) + 2 * hx_par + (size_t)grp * rdep * xld;
   unsigned* count = sync + grp;
   unsigned target = 0;
+  // an exchanged value, rounded to bf16 where the products take bf16
+  auto put_x = [](X* at, float val) {
+    if constexpr (Mma)
+      *at = __float2bfloat16_rn(val);
+    else
+      *at = vmlmf::exchanged<Bf16>(val);
+  };
 
   // the weight slices, loaded once, the resident rows into shared memory and
   // the others into the CTA's streamed region; columns past the slice are zero
-  if constexpr (!DenseRec) {
-#pragma unroll 4
-    for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
-      const int d = e / kwp, kk = e % kwp;
-      const W val = vmlmf::to_elem<W>(kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
-      if constexpr (Streamed)
-        vmlmf::slice_elem(wa, sa, resa, kwp, lda, d, kk) = val;
-      else
-        wa[e] = val;
+  if constexpr (Mma) {  // in blocks of 16 rows, fragment order; rows past the depth zero
+    if constexpr (!DenseRec) {
+      for (int e = threadIdx.x; e < hdep * kwp; e += blockDim.x) {
+        const int d = e / kwp, kk = e % kwp;
+        const W val = vmlmf::to_elem<W>(d < h && kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
+        const size_t at = vmlmf::mma_at(d, kk, kwp);
+        if (d < mresa)
+          wa[at] = val;
+        else
+          sa[at - (size_t)mresa * kwp] = val;
+      }
     }
-  }
-  const float* w = DenseRec ? u : v;
+    const float* w = DenseRec ? u : v;
+    const int ddep = DenseRec ? hdep : rdep;
+    for (int e = threadIdx.x; e < ddep * 4 * jwm; e += blockDim.x) {
+      const int d = e / (4 * jwm), col = e % (4 * jwm), jj = col / 4, gg = col % 4;
+      const W val = vmlmf::to_elem<W>(d < depth && jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj]
+                                                           : 0.f);
+      const size_t at = vmlmf::mma_at(d, col, 4 * jwm);
+      if (d < mresb)
+        wb[at] = val;
+      else
+        sb[at - (size_t)mresb * 4 * jwm] = val;
+    }
+    // the exchange rows past the depths, which the products read as zeros
+    if (q == 0) {
+      for (int e = threadIdx.x; e < (hdep - h) * xld; e += blockDim.x) {
+        hx[(size_t)h * xld + e] = __float2bfloat16_rn(0.f);
+        hx[hx_par + (size_t)h * xld + e] = __float2bfloat16_rn(0.f);
+      }
+      for (int e = threadIdx.x; e < (rdep - r) * xld; e += blockDim.x)
+        hux[(size_t)r * xld + e] = __float2bfloat16_rn(0.f);
+    }
+  } else {
+    if constexpr (!DenseRec) {
 #pragma unroll 4
-  for (int e = threadIdx.x; e < depth * 4 * jwm; e += blockDim.x) {
-    const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
-    const W val = vmlmf::to_elem<W>(jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f);
-    if constexpr (Streamed)
-      vmlmf::slice_elem(wb, sb, resb, 4 * jwm, ldb, d, e % (4 * jwm)) = val;
-    else
-      wb[e] = val;
+      for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
+        const int d = e / kwp, kk = e % kwp;
+        const W val = vmlmf::to_elem<W>(kk < kw ? u[(size_t)d * r + k0 + kk] : 0.f);
+        if constexpr (Streamed)
+          vmlmf::slice_elem(wa, sa, resa, kwp, lda, d, kk) = val;
+        else
+          wa[e] = val;
+      }
+    }
+    const float* w = DenseRec ? u : v;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < depth * 4 * jwm; e += blockDim.x) {
+      const int d = e / (4 * jwm), jj = (e / 4) % jwm, gg = e % 4;
+      const W val = vmlmf::to_elem<W>(jj < jw ? w[(size_t)d * g4 + gg * h + j0 + jj] : 0.f);
+      if constexpr (Streamed)
+        vmlmf::slice_elem(wb, sb, resb, 4 * jwm, ldb, d, e % (4 * jwm)) = val;
+      else
+        wb[e] = val;
+    }
   }
   for (int e = threadIdx.x; e < 4 * jwm; e += blockDim.x)
     dv[e] = e / 4 < jw ? dvec[(e % 4) * h + j0 + e / 4] : 0.f;
@@ -263,7 +345,7 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     const size_t at = (size_t)(b0 + row) * h + j0 + jj;
     hc[e] = live ? h0[at] : 0.f;
     cc[e] = live ? c0[at] : 0.f;
-    if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = vmlmf::exchanged<Bf16>(hc[e]);
+    if (jj < jw) put_x(hx + (size_t)(j0 + jj) * xld + row, hc[e]);
   }
   // the products' operands: (A) h @ U[:, k-slice] and (B) src @ W[:, gate
   // columns of the j-slice], src = hu or (dense) h, A = h of parity p
@@ -271,18 +353,32 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
     return vmlmf::RingOperand<W>{hin, wa, sa, h, resa, kwp, round4(kw)};
   };
   auto op_b = [&](const float* hin) {
-    return vmlmf::RingOperand<W>{DenseRec ? hin : hux, wb, sb, depth, resb, 4 * jwm, 4 * jw};
+    return vmlmf::RingOperand<W>{DenseRec ? hin : reinterpret_cast<const float*>(hux), wb, sb,
+                                 depth, resb, 4 * jwm, 4 * jw};
+  };
+  auto mop_a = [&](const X* hin) {
+    return vmlmf::MmaOperand{reinterpret_cast<const bf16*>(hin), reinterpret_cast<const bf16*>(wa),
+                             reinterpret_cast<const bf16*>(sa), h, resa, kwp, round4(kw)};
+  };
+  auto mop_b = [&](const X* hin) {
+    return vmlmf::MmaOperand{reinterpret_cast<const bf16*>(DenseRec ? hin : hux),
+                             reinterpret_cast<const bf16*>(wb), reinterpret_cast<const bf16*>(sb),
+                             depth, resb, 4 * jwm, 4 * jw};
   };
   vmlmf::Ring ring;
   if constexpr (Streamed) {
     ring.start(stage, plan);
-    if (t_len > 0) ring.preload(DenseRec ? op_b(hx) : op_a(hx));
+    if constexpr (Mma) {
+      if (t_len > 0) ring.mma_preload(DenseRec ? mop_b(hx) : mop_a(hx));
+    } else {
+      if (t_len > 0) ring.preload(DenseRec ? op_b(hx) : op_a(hx));
+    }
   }
   vmlmf::group_sync(count, plan.ctas, target);
 
   for (int t = 0; t < t_len; ++t) {
-    const float* hin = hx + (t & 1) * hx_par;
-    float* hout = hx + ((t + 1) & 1) * hx_par;
+    const X* hin = hx + (t & 1) * hx_par;
+    X* hout = hx + ((t + 1) & 1) * hx_par;
     const size_t m0 = (size_t)t * batch + b0;  // the group's first row of the step
     // the step's gi of the j-slice, copied while phase A and its barrier run
     // (by the consumer warps on the ring)
@@ -302,18 +398,23 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int row = 4 * rb + i;
-            hux[(size_t)(k0 + kk) * rpad + row] = vmlmf::exchanged<Bf16>(acc[c][i]);
+            put_x(hux + (size_t)(k0 + kk) * xld + row, acc[c][i]);
             if (Res >= kResF32 && row < rows)
               hu_out[(m0 + row) * r + k0 + kk] = vmlmf::to_elem<R>(acc[c][i]);
           }
         }
       };
       if constexpr (Streamed) {
-        ring.product(op_a(hin), red, epi_a);
-        ring.preload(op_b(hin));
+        if constexpr (Mma) {
+          ring.mma_product(mop_a(hin), red, epi_a);
+          ring.mma_preload(mop_b(hin));
+        } else {
+          ring.product(op_a(reinterpret_cast<const float*>(hin)), red, epi_a);
+          ring.preload(op_b(reinterpret_cast<const float*>(hin)));
+        }
       } else {
-        vmlmf::slice_product<false>(hin, h, rpad, wa, sa, resa, kwp, round4(kw), stage,
-                                    plan.stage, red, plan.red, epi_a);
+        vmlmf::slice_product<false>(reinterpret_cast<const float*>(hin), h, rpad, wa, sa, resa,
+                                    kwp, round4(kw), stage, plan.stage, red, plan.red, epi_a);
       }
       vmlmf::group_sync(count, plan.ctas, target);
     }
@@ -336,7 +437,7 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
         const int row = 4 * rb + i;
         const int e = cb * rpad + row;
         if (row >= rows) {
-          hout[(size_t)j * rpad + row] = 0.f;
+          put_x(hout + (size_t)j * xld + row, 0.f);
           continue;
         }
         const size_t m = m0 + row;
@@ -349,7 +450,7 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
         const float hn = so * tanhf(cn);
         cc[e] = cn;
         hc[e] = hn;
-        hout[(size_t)j * rpad + row] = vmlmf::exchanged<Bf16>(hn);
+        put_x(hout + (size_t)j * xld + row, hn);
         ys[m * h + j] = hn;
         if (Res >= kCs) cs_out[m * h + j] = cn;
         if (Res >= kResF32) {
@@ -362,12 +463,20 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
       }
     };
     if constexpr (Streamed) {
-      ring.product(op_b(hin), red, epi_b);
-      if (t + 1 < t_len) ring.preload(DenseRec ? op_b(hout) : op_a(hout));
+      if constexpr (Mma) {
+        ring.mma_product(mop_b(hin), red, epi_b);
+        if (t + 1 < t_len) ring.mma_preload(DenseRec ? mop_b(hout) : mop_a(hout));
+      } else {
+        ring.product(op_b(reinterpret_cast<const float*>(hin)), red, epi_b);
+        if (t + 1 < t_len)
+          ring.preload(DenseRec ? op_b(reinterpret_cast<const float*>(hout))
+                                : op_a(reinterpret_cast<const float*>(hout)));
+      }
     } else {
       vmlmf::cp_async_wait_all();
-      vmlmf::slice_product<false>(DenseRec ? hin : hux, depth, rpad, wb, sb, resb, 4 * jwm,
-                                  4 * jw, stage, plan.stage, red, plan.red, epi_b);
+      vmlmf::slice_product<false>(reinterpret_cast<const float*>(DenseRec ? hin : hux), depth,
+                                  rpad, wb, sb, resb, 4 * jwm, 4 * jw, stage, plan.stage, red,
+                                  plan.red, epi_b);
     }
     vmlmf::group_sync(count, plan.ctas, target);
   }
@@ -384,9 +493,43 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
 // row of each product); returns the launch's error. The plan must hold at
 // least the shared memory this kernel carves, and the streamed scratch its
 // CTAs' regions.
+// Launches grid_scan_kernel<Res, DenseRec, true, true, true> for an mma
+// plan, which runs on the ring whether or not a row is streamed; the same
+// checks in its layout: rows padded to 8, resident depths in whole blocks,
+// the ring's stages holding a block of each product, `red` each product's
+// sums.
+template <int Res, bool DenseRec>
+cudaError_t scan_mma(const ScanIO& io, GridPlan plan, cudaStream_t stream) {
+  const int h = io.h, r = io.r, depth = DenseRec ? h : r;
+  const int jwm = div_up(h, plan.ctas), kwp = DenseRec ? 0 : round4(div_up(r, plan.ctas));
+  if (!vmlmf::mma_plan_ok(plan) || !resident_ok(DenseRec, h, r, plan) ||
+      !vmlmf::mma_resident_ok(plan.res_b, depth) ||
+      (!DenseRec && !vmlmf::mma_resident_ok(plan.res_a, h)) ||
+      sizeof(float) * fwd_mma_smem_floats(DenseRec, h, r, plan) > (size_t)plan.smem ||
+      plan.red < vmlmf::mma_red_floats(depth, 4 * jwm, plan.rpad) ||
+      (!DenseRec && plan.red < vmlmf::mma_red_floats(h, kwp, plan.rpad)))
+    return cudaErrorInvalidValue;
+  const size_t streamed = fwd_mma_stream_floats(DenseRec, h, r, plan);
+  if (streamed * plan.groups * plan.ctas > io.wstream_floats ||
+      (streamed > 0 && io.wstream == nullptr) || !vmlmf::ring_ok(plan) ||
+      !vmlmf::mma_ring_holds(plan, 4 * jwm) || !vmlmf::mma_ring_holds(plan, kwp))
+    return cudaErrorInvalidValue;
+  ScanIO a = io;
+  void* args[] = {&a.gi, &a.u, &a.v, &a.dvec, &a.h0, &a.c0, &a.ys, &a.c_last, &a.cs, &a.gates,
+                  &a.hu, &a.xchg, &a.sync, &a.wstream, &a.t_len, &a.batch, &a.h, &a.r, &plan};
+  return vmlmf::launch_grid(grid_scan_kernel<Res, DenseRec, true, true, true>, plan, io.sync,
+                            args, stream, 0, vmlmf::kRingThreads);
+}
+
 template <int Res, bool DenseRec, bool Bf16>
 cudaError_t scan(const ScanIO& io, GridPlan plan, cudaStream_t stream) {
   using W = std::conditional_t<Bf16, bf16, float>;
+  if (plan.mma) {
+    if constexpr (Bf16)
+      return scan_mma<Res, DenseRec>(io, plan, stream);
+    else
+      return cudaErrorInvalidValue;
+  }
   if (!resident_ok(DenseRec, io.h, io.r, plan) ||
       sizeof(float) * fwd_smem_floats<W>(DenseRec, io.h, io.r, plan) > (size_t)plan.smem)
     return cudaErrorInvalidValue;
@@ -477,21 +620,22 @@ int launch_xin(const float* x, const float* ux, const float* vx, const float* xd
 // buffers xchg, the barrier words sync and the streamed weights wstream of
 // wstream_floats floats (scan_plan sizes them; wstream null where the plan
 // streams nothing); writes ys [T,B,h] and c_last [B,h]. vx null: dense x
-// side, rx unused; v null: dense recurrent side, r unused. The nine
-// integers after r are scan_plan's layout (ScanPlan.ints); bf16_mm 1 rounds
-// every product's operands to bf16.
+// side, rx unused; v null: dense recurrent side, r unused. The ten
+// integers after r are scan_plan's layout (ScanPlan.ints: the last, mma,
+// 1 for a plan whose bf16 products run on the tensor cores); bf16_mm 1
+// rounds every product's operands to bf16.
 extern "C" int lstm_scan_xin_fwd(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
     float* c_last, float* xchg, unsigned* sync, float* wstream, int wstream_floats, int t_len,
     int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red,
-    int smem, int res_a, int res_b, int piece,
+    int smem, int res_a, int res_b, int piece, int mma,
     int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, kNoGrad, bf16_mm,
-                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
+                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma},
                     static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -506,12 +650,12 @@ extern "C" int lstm_scan_xin_fwd_res(
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
     float* cs, void* gates, void* hu, float* xchg, unsigned* sync, float* wstream,
     int wstream_floats, int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas,
-    int rpad, int stage, int red, int smem, int res_a, int res_b, int piece,
+    int rpad, int stage, int red, int smem, int res_a, int res_b, int piece, int mma,
     int bf16_mm, int policy, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, res_kind(policy), bf16_mm,
-                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
+                    GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma},
                     static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -521,12 +665,12 @@ extern "C" int lstm_scan_fwd(
     const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
     const float* c0, float* ys, float* c_last, float* xchg, unsigned* sync, float* wstream,
     int wstream_floats, int t_len, int batch, int h, int r, int groups, int ctas, int rpad,
-    int stage, int red, int smem, int res_a, int res_b, int piece,
+    int stage, int red, int smem, int res_a, int res_b, int piece, int mma,
     int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return scan_any(io, kNoGrad, bf16_mm != 0,
-                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
+                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma},
                   static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -536,13 +680,13 @@ extern "C" int lstm_scan_fwd_res(
     const float* gi, const float* u, const float* v, const float* dvec, const float* h0,
     const float* c0, float* ys, float* cs, void* gates, void* hu, float* xchg, unsigned* sync,
     float* wstream, int wstream_floats, int t_len, int batch, int h, int r, int groups,
-    int ctas, int rpad, int stage, int red, int smem, int res_a, int res_b, int piece,
+    int ctas, int rpad, int stage, int red, int smem, int res_a, int res_b, int piece, int mma,
     int bf16_mm, int policy, void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
   return scan_any(io, res_kind(policy), bf16_mm != 0,
-                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece},
+                  GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma},
                   static_cast<cudaStream_t>(stream_handle));
 }
 

@@ -16,11 +16,16 @@
 // batch row of the group, padded to rpad (a multiple of 4) rows.
 //
 // The bf16 variants (precision "bf16" of pallas_scan.py) hold the weight
-// slices in shared memory as bf16 and widen them for f32 FMAs: a bf16
-// product summed in f32 is exactly the f32 FMA of the two bf16-rounded
-// operands. The exchange buffers stay f32, but the CTA that writes an
-// exchanged value rounds it to bf16 first, since a product is its only
-// reader; the carry, the diagonal terms and the gates stay f32.
+// slices in shared memory as bf16. Where a group pads its rows to fewer than
+// 24 (the plan's `mma` unset: the HAR layer, the PTB LM layer up to B=128,
+// the stack) they widen them for f32 FMAs: a bf16 product summed in f32 is
+// exactly the f32 FMA of the two bf16-rounded operands; the exchange buffers
+// stay f32, but the CTA that writes an exchanged value rounds it to bf16
+// first, since a product is its only reader. The LSTM scans' plans with 24
+// padded rows or more (`mma`) run each product on the tensor cores instead
+// (Ring::mma_product below): bf16 exchange buffers, weight slices in the
+// order of the mma's fragments.
+// Either way the carry, the diagonal terms and the gates stay f32.
 
 #pragma once
 
@@ -47,10 +52,15 @@ constexpr int kMinSliceDepth = 8;  // depth rows a slice takes at least
 // The LSTM scans' streamed plans also take piece: the floats of each of
 // the kRingStages stages of the ring that feeds their products (0: a plan
 // that streams nothing, with the staging buffer of `stage` floats).
+// `mma` (the LSTM scans' bf16 plans whose groups pad to 24 rows or more):
+// the products run on the tensor cores, on the ring whether or not a row is
+// streamed, the exchange is bf16 and rpad a multiple of 8
+// (Ring::mma_product).
 struct GridPlan {
   int groups, ctas, rpad, stage, red, smem;
   int res_a = 0, res_b = 0;
   int piece = 0;
+  int mma = 0;
 };
 
 inline __host__ __device__ int split_at(int q, int n, int parts) {
@@ -421,6 +431,292 @@ __host__ __device__ inline int ring_ld(int ldw) {
   return div_up(ldw * (int)sizeof(W), 16) * 16 / (int)sizeof(W);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core product of the LSTM scans' `mma` plans.
+//
+// out(col, row) = sum over d < depth of W[d][col] * A[d][row], with W the
+// CTA's bf16 weight slice (`cols` columns, a multiple of 4) and A the
+// group's bf16 exchange, as mma.sync m16n8k16 tiles: M the slice's columns
+// (16 a tile, columns past `cols` zero), N the group's rows (8 a tile; rpad
+// a multiple of 8), K the depth in blocks of kMmaK = 16 rows, padded to
+// whole blocks (zero weights, and exchange rows that the group zeroes).
+// * Weights in fragment order: block kb of a slice is [cols][16] bf16, a
+//   column's 16 depth rows in the order 2t, 2t+1, 2t+8, 2t+9 for t = 0..3
+//   (mma_pos), so that lane (g, t) reads its A fragment of columns g and
+//   g + 8 as two 8-byte loads (no bank conflict), and a run of blocks is
+//   one bulk copy. The prologue writes them so, the resident blocks into
+//   shared memory and the others into the CTA's streamed region.
+// * The exchange [depth16][xld] bf16 in device memory, a row per depth row,
+//   xld = rpad made 8 mod 16 (mma_xld) so that the eight 16-byte rows of an
+//   ldmatrix lie in distinct banks; B fragments come from its rows in a
+//   ring stage by ldmatrix.trans. Half the bytes of the f32 exchange, and
+//   the values the FMA plans round to bf16.
+// * Every mma plan runs its products on the ring (Ring::mma_product), whose
+//   TMA stages bring the exchange (and the streamed blocks) a piece of
+//   whole blocks at a time, also where every block is resident: two large
+//   stages keep far more bytes in flight than a staging buffer beside the
+//   resident weights, and the mmas leave the walk to its reads.
+// * The order of sums depends on depth, cols and rpad alone (MmaSplit): a
+//   warp takes one m-tile by up to kMmaTiles n-tiles (its A fragment read
+//   once a block, each n-tile's B fragment once), the warp tiles spread
+//   over the 16 warps and, with fewer of them than warps, the k16 blocks
+//   over kw k-groups too, k-group j taking the blocks kb = j (mod kw). The
+//   mmas of kMmaFlush consecutive blocks of a warp's walk sum in the
+//   tensor cores and join the warp's f32 sum by a rounded f32 add, in
+//   block order (an mma adds to its accumulator rounding toward zero, a
+//   bias that would grow with the depth: gemm_tc.cuh); the k-groups' sums
+//   meet in `red`, added in k-group order, no atomics. Neither where a row
+//   lies (resident or streamed) nor how the ring cuts the depth changes a
+//   sum. A warp loads its next block's fragments while its mmas run, and
+//   runs no predicated instruction in its loop. More warp tiles than warps
+//   run in passes over the depth.
+// * What bounds it on the H100: the consumers' mmas. At dense h=1500,
+//   B=128 a forward step is 1128 m16n8k16 mma.sync a sub-partition, about
+//   12 µs: one every 16 cycles or so, far below wgmma's rate; then the
+//   exchange's L2 reads (tools/scan_phases.py, PERF.md).
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaK = 16;      // depth rows of a block (the mma's k)
+constexpr int kMmaTiles = 4;   // 16x8 output tiles a warp holds at once
+constexpr int kMmaGroups = 4;  // k-groups at most
+constexpr int kMmaFlush = 4;   // blocks a warp sums in the tensor cores between f32 adds
+
+__host__ __device__ inline int round16(int n) { return div_up(n, kMmaK) * kMmaK; }
+// bf16 elements of an exchange row: rpad made 8 mod 16
+__host__ __device__ inline int mma_xld(int rpad) { return rpad % 16 ? rpad : rpad + 8; }
+// the place of depth row k (of a block's 16) within a column
+__host__ __device__ inline int mma_pos(int k) {
+  return k < 8 ? 4 * (k >> 1) + (k & 1) : 4 * ((k - 8) >> 1) + 2 + (k & 1);
+}
+// the element of depth row d, column col of a slice of `cols` columns
+__host__ __device__ inline size_t mma_at(int d, int col, int cols) {
+  return ((size_t)(d / kMmaK) * cols + col) * kMmaK + mma_pos(d % kMmaK);
+}
+// the depth rows of a slice held in shared memory, in whole blocks: a
+// plan's resident depth is a multiple of 16 or the whole depth
+__host__ __device__ inline int mma_resident(int resident, int depth) {
+  return resident >= depth ? round16(depth) : resident;
+}
+
+// How a product's work lies on the 16 warps (ops/cuda_scan.py::mma_split):
+// its blocks, m-tiles (16 columns) and n-tiles (8 rows); a warp's tiles,
+// one m-tile by up to kMmaTiles n-tiles (its A fragment loaded once a
+// block), nper of them, the n-tiles cut into nbs runs of as even a length;
+// tws = mts * nbs such warp tiles, on tw warps in `passes` passes; and, with
+// fewer warp tiles than warps, the blocks over kw k-groups too (at most
+// kMmaGroups). The k-groups' sums meet in `out` in as many rounds.
+struct MmaSplit {
+  int blocks, mts, nts, nbs, nper, tws, kw, tw, passes;
+  __host__ __device__ MmaSplit(int depth, int cols, int rpad) {
+    blocks = div_up(depth, kMmaK);
+    mts = div_up(cols, 16);
+    nts = rpad / 8;
+    nbs = div_up(nts, kMmaTiles);
+    nper = div_up(nts, nbs);
+    tws = mts * nbs;
+    if (tws >= kConsumerWarps) {
+      kw = 1;
+      tw = kConsumerWarps;
+    } else {
+      tw = tws;
+      kw = kConsumerWarps / tws;
+      kw = kw > kMmaGroups ? kMmaGroups : kw;
+      kw = kw > blocks ? blocks : kw;
+    }
+    passes = div_up(tws, tw);
+  }
+};
+
+// The row stride of a product's sums `out` [rpad][ldo] in `red`: the
+// columns made 4 mod 8, so that a lane's stores (8 columns by 4 row pairs)
+// and the epilogue's float4 reads along a row fall in distinct banks.
+__host__ __device__ inline int mma_ldo(int cols) { return cols % 8 ? cols : cols + 4; }
+// Floats of `red` a product takes: its sums.
+__host__ __device__ inline int mma_red_floats(int depth, int cols, int rpad) {
+  return rpad * mma_ldo(cols);
+}
+
+// Two B fragments (k 0..7 and 8..15 of two n-tiles) from 16-byte rows of
+// the exchange: lanes 0..15 give rows 0..15 of the first n-tile, lanes
+// 16..31 those of the second.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&b0)[2], unsigned (&b1)[2],
+                                              const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1]) : "r"(smem_u32(p)));
+}
+// d += a b
+__device__ __forceinline__ void mma_bf16_acc(float (&d)[4], const unsigned (&a)[4],
+                                             const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's tiles of one pass: m-tile mt by the n-tiles nt0 .. nt0 + n - 1
+// (warp tile i + tw * pass, n = 0: the warp rests), and its k-group j. The
+// warp runs kMmaTiles tiles every block, those past n on its last n-tile's
+// data (their sums are never read), so that no instruction of the loop is
+// predicated. Each block's mmas add to `part` in the tensor cores, which
+// joins `acc` by a rounded f32 add every kMmaFlush blocks of the warp's
+// walk (an mma adds to its accumulator rounding toward zero, a bias that
+// would grow with the depth: gemm_tc.cuh), counted across pieces.
+struct MmaTiles {
+  static_assert(kMmaTiles == 4, "the B fragments load as two ldmatrix.x4, a pair of tiles each");
+  float acc[kMmaTiles][4], part[kMmaTiles][4];
+  int mt, nt0, n, j, cnt;
+  int a_off;        // this lane's A fragment in a block (elements), columns g and g + 8
+  bool a_lo, a_hi;  // whether those columns lie in the slice
+  int b_off[2];     // this lane's ldmatrix.x4 rows of tiles (0, 1) and (2, 3) (elements)
+
+  __device__ __forceinline__ MmaTiles(const MmaSplit& s, int warp, int pass, int cols,
+                                      int xld) {
+    j = warp / s.tw;
+    const int wt = warp % s.tw + s.tw * pass;
+    mt = wt / s.nbs;
+    nt0 = wt % s.nbs * s.nper;
+    n = j < s.kw && wt < s.tws ? min(s.nper, s.nts - nt0) : 0;
+    cnt = 0;
+    const int lane = threadIdx.x % 32, c0 = mt * 16 + lane / 4;
+    a_off = c0 * kMmaK + 4 * (lane % 4);
+    a_lo = c0 < cols;
+    a_hi = c0 + 8 < cols;
+    const int last = max(n - 1, 0);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      b_off[p] = (lane & 15) * xld + (nt0 + min(2 * p + (lane >> 4), last)) * 8;
+#pragma unroll
+    for (int x = 0; x < kMmaTiles; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[x][e] = part[x][e] = 0.f;
+  }
+
+  // The warp's first block at or after kb0.
+  __device__ __forceinline__ int first(int kb0, int kw) const {
+    return kb0 + ((j - kb0 % kw) % kw + kw) % kw;
+  }
+
+  // A block's fragments: the warp's m-tile of W (A) and its n-tiles of
+  // the exchange (B).
+  struct Frags {
+    unsigned a[4];
+    unsigned b[kMmaTiles][2];
+  };
+
+  // The fragments of W's block at w ([cols][16] in fragment order) and of
+  // A's 16 rows at x (xld apart), both in shared memory.
+  __device__ __forceinline__ void load(Frags& f, const bf16* w, const bf16* x) const {
+    const uint2 lo = a_lo ? *reinterpret_cast<const uint2*>(w + a_off) : make_uint2(0u, 0u);
+    const uint2 hi = a_hi ? *reinterpret_cast<const uint2*>(w + a_off + 8 * kMmaK)
+                          : make_uint2(0u, 0u);
+    f.a[0] = lo.x, f.a[1] = hi.x, f.a[2] = lo.y, f.a[3] = hi.y;
+    ldsm_x4_trans(f.b[0], f.b[1], x + b_off[0]);
+    ldsm_x4_trans(f.b[2], f.b[3], x + b_off[1]);
+  }
+
+  // One block's products, added to `part`; every kMmaFlush blocks, `part`
+  // into `acc`.
+  __device__ __forceinline__ void multiply(const Frags& f) {
+#pragma unroll
+    for (int x = 0; x < kMmaTiles; ++x) mma_bf16_acc(part[x], f.a, f.b[x]);
+    if (++cnt == kMmaFlush) flush();
+  }
+
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int x = 0; x < kMmaTiles; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[x][e] += part[x][e];
+        part[x][e] = 0.f;
+      }
+    cnt = 0;
+  }
+
+  // `count` of the warp's blocks, in order: the first's W at w and A at x
+  // in shared memory, each next one wstep and xstep elements on. The next
+  // block's fragments load while the mmas of one run.
+  __device__ __forceinline__ void walk(int count, const bf16* w, int wstep, const bf16* x,
+                                       int xstep) {
+    if (n == 0 || count <= 0) return;
+    Frags f0, f1;  // two by name, so that both stay in registers
+    load(f0, w, x);
+    for (;;) {
+      if (--count > 0) load(f1, w += wstep, x += xstep);
+      multiply(f0);
+      if (count == 0) break;
+      if (--count > 0) load(f0, w += wstep, x += xstep);
+      multiply(f1);
+      if (count == 0) break;
+    }
+  }
+
+  // The pass's sums into out [rpad][ldo] at red, k-group by k-group: the
+  // first stores its sums, each next one adds its own, after `sync`, the
+  // barrier of the threads that run the product (each of which calls
+  // this); the caller syncs again before `out` is read.
+  template <class Sync>
+  __device__ __forceinline__ void gather(const MmaSplit& s, int cols, int rpad, float* red,
+                                         Sync sync) const {
+    const int lane = threadIdx.x % 32, ldo = mma_ldo(cols);
+    const int c = mt * 16 + lane / 4, row0 = nt0 * 8 + 2 * (lane % 4);
+    for (int z = 0; z < s.kw; ++z) {
+      if (z > 0) sync();
+      if (j != z || n == 0) continue;
+#pragma unroll
+      for (int x = 0; x < kMmaTiles; ++x) {
+        if (x >= n) continue;
+        float* o = red + (size_t)(row0 + 8 * x) * ldo + c;
+        if (z == 0) {
+          if (c < cols) o[0] = acc[x][0], o[ldo] = acc[x][1];
+          if (c + 8 < cols) o[8] = acc[x][2], o[ldo + 8] = acc[x][3];
+        } else {
+          if (c < cols) o[0] += acc[x][0], o[ldo] += acc[x][1];
+          if (c + 8 < cols) o[8] += acc[x][2], o[ldo + 8] += acc[x][3];
+        }
+      }
+    }
+  }
+};
+
+// epi(cb, rb, acc) for each 4-column, 4-row item of the sums at out
+// [rpad][mma_ldo(cols)], acc[c][i] the sum of column 4cb+c, row 4rb+i,
+// for the ncols first columns.
+template <class Epi>
+__device__ __forceinline__ void mma_epilogue(const float* out, int cols, int ncols, int rpad,
+                                             Epi epi) {
+  const int cbs = ncols / 4, items = cbs * (rpad / 4), ldo = mma_ldo(cols);
+  for (int o = threadIdx.x; o < items; o += kGridThreads) {
+    const int cb = o % cbs, rb = o / cbs;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(out + (size_t)(4 * rb + i) * ldo + 4 * cb);
+      acc[0][i] = v.x, acc[1][i] = v.y, acc[2][i] = v.z, acc[3][i] = v.w;
+    }
+    epi(cb, rb, acc);
+  }
+}
+
+// One product's operands for Ring::mma_product: A, the exchange [depth16]
+// [xld] bf16 in device memory; W's blocks below the resident depth at w in
+// shared memory and the others at ws in the CTA's streamed region, both in
+// fragment order, `cols` columns; ncols output columns.
+struct MmaOperand {
+  const bf16* a;
+  const bf16* w;
+  const bf16* ws;
+  int depth, resident, cols, ncols;
+};
+
+// An mma product's walk on the ring: the exchange row, the padded and the
+// resident depth, the rows of a piece past the resident ones (A and a
+// streamed block each 16) and over them (A alone), the passes.
+struct MmaWalk {
+  int xld, d16, res, rows, rows_a, passes;
+};
+
 // One product's operands for Ring::product: A, the exchange buffer
 // [depth][rpad] in device memory; W's rows d < resident at w [resident][ldw]
 // in shared memory and the others at ws [depth - resident][ldws] in the
@@ -640,6 +936,122 @@ struct Ring {
       if (live && s == 0) epi(cb, rb, acc);
     }
   }
+
+  // ---- the mma product (ScanPlan.mma): the same ring, pieces of whole
+  // blocks; a stage holds A's rows [e0, e1) as bf16 and, past the resident
+  // depth, the streamed blocks among them after `rows` rows of A.
+  __device__ __forceinline__ MmaWalk mma_walk(const MmaOperand& op) const {
+    MmaWalk k;
+    k.xld = mma_xld(rpad);
+    k.d16 = round16(op.depth);
+    k.res = mma_resident(op.resident, op.depth);
+    k.rows = kMmaK * (piece * 4 / (2 * kMmaK * (k.xld + op.cols)));
+    k.rows_a = kMmaK * (piece * 4 / (2 * kMmaK * k.xld));
+    k.passes = MmaSplit(op.depth, op.cols, rpad).passes;
+    return k;
+  }
+
+  __device__ __forceinline__ static int mma_piece_end(int e0, const MmaWalk& k) {
+    return e0 < k.res ? min(k.res, e0 + k.rows_a) : min(k.d16, e0 + k.rows);
+  }
+
+  template <class F>
+  __device__ __forceinline__ static void mma_pieces(const MmaWalk& k, F f) {
+    for (int pass = 0; pass < k.passes; ++pass)
+      for (int e0 = 0, e1; e0 < k.d16; e0 = e1) {
+        e1 = mma_piece_end(e0, k);
+        if (!f(e0, e1)) return;
+      }
+  }
+
+  __device__ __forceinline__ void mma_issue_weights(const MmaOperand& op, const MmaWalk& k,
+                                                    unsigned idx, int e0, int e1) {
+    const unsigned st = idx % kRingStages;
+    mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);
+    const int es = max(e0, k.res);
+    const unsigned wbytes = e1 > es ? (unsigned)((e1 - es) * op.cols * sizeof(bf16)) : 0u;
+    mbar_arm(full + st, (unsigned)((e1 - e0) * k.xld * sizeof(bf16)) + wbytes);
+    if (wbytes)
+      bulk_load(reinterpret_cast<bf16*>(stage_at(idx)) + (size_t)k.rows * k.xld,
+                op.ws + (size_t)(es - k.res) * op.cols, wbytes, full + st);
+  }
+
+  __device__ __forceinline__ void mma_issue_a(const bf16* a, const MmaWalk& k, unsigned idx,
+                                              int e0, int e1) const {
+    bulk_load(stage_at(idx), a + (size_t)e0 * k.xld, (unsigned)((e1 - e0) * k.xld * sizeof(bf16)),
+              full + idx % kRingStages);
+  }
+
+  // preload, for an mma product
+  __device__ __forceinline__ void mma_preload(const MmaOperand& op) {
+    if (threadIdx.x != kGridThreads) return;
+    fence_proxy_async_global();
+    const MmaWalk k = mma_walk(op);
+    int i = 0;
+    mma_pieces(k, [&](int e0, int e1) {
+      if (i == kRingStages) return false;
+      mma_issue_weights(op, k, it + i, e0, e1);
+      ++i;
+      return true;
+    });
+    ahead = i;
+  }
+
+  // out(col, row) = sum over d < depth of W[d][col] * A[d][row] in the
+  // order of MmaSplit, and epi as mma_epilogue calls it. Every thread of the CTA calls it. The
+  // consumers wait for their own cp.async copies (cp_async_wait_all)
+  // before the epilogue.
+  template <class Epi>
+  __device__ __forceinline__ void mma_product(const MmaOperand& op, float* red, Epi epi) {
+    const MmaWalk k = mma_walk(op);
+    const unsigned first = it;
+    int n = 0;
+    mma_pieces(k, [&](int, int) { ++n; return true; });
+    if (threadIdx.x == kGridThreads) {
+      fence_proxy_async_global();  // the exchange that the barrier published
+      int i = 0;
+      mma_pieces(k, [&](int e0, int e1) {
+        if (i >= ahead) mma_issue_weights(op, k, first + i, e0, e1);
+        mma_issue_a(op.a, k, first + i, e0, e1);
+        ++i;
+        return true;
+      });
+    } else if (threadIdx.x < kGridThreads) {
+      mma_consume(op, k, first, red, epi);
+    }
+    it = first + n;
+    ahead = 0;
+  }
+
+  template <class Epi>
+  __device__ __forceinline__ void mma_consume(const MmaOperand& op, const MmaWalk& k,
+                                              unsigned idx, float* red, Epi epi) {
+    const MmaSplit s(op.depth, op.cols, rpad);
+    const int lane = threadIdx.x % 32;
+    for (int pass = 0; pass < s.passes; ++pass) {
+      MmaTiles m(s, threadIdx.x / 32, pass, op.cols, k.xld);
+      for (int e0 = 0, e1; e0 < k.d16; e0 = e1, ++idx) {
+        e1 = mma_piece_end(e0, k);
+        mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);
+        {
+          // a piece lies over resident blocks or past them, never both
+          const bf16* sp = reinterpret_cast<const bf16*>(stage_at(idx));
+          const int kb = m.first(e0 / kMmaK, s.kw), d = kb * kMmaK;
+          const bf16* w = e0 < k.res ? op.w + (size_t)d * op.cols
+                                     : sp + (size_t)k.rows * k.xld + (size_t)(d - e0) * op.cols;
+          m.walk(div_up(e1 / kMmaK - kb, s.kw), w, s.kw * kMmaK * op.cols,
+                 sp + (size_t)(d - e0) * k.xld, s.kw * kMmaK * k.xld);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + idx % kRingStages);
+      }
+      m.flush();
+      m.gather(s, op.cols, rpad, red, [] { consumers_sync(); });
+    }
+    cp_async_wait_all();
+    consumers_sync();
+    mma_epilogue(red, op.cols, op.ncols, rpad, epi);
+  }
 };
 
 // Floats of shared memory a ring takes: its stages and its barriers.
@@ -655,6 +1067,20 @@ inline bool ring_ok(const GridPlan& p) { return p.piece > 0 && p.piece % 4 == 0;
 template <class W>
 inline bool ring_holds(const GridPlan& p, int ldw) {
   return (size_t)p.piece * 4 >= (size_t)p.rpad * 4 + (size_t)ring_ld<W>(ldw) * sizeof(W);
+}
+
+// Whether an mma plan's ring stage holds a block of a product: its 16 rows
+// of A and a streamed block of `cols` columns.
+inline bool mma_ring_holds(const GridPlan& p, int cols) {
+  return (size_t)p.piece * 4 >= (size_t)2 * kMmaK * (mma_xld(p.rpad) + cols);
+}
+// Whether an mma plan's layout is one the kernels take: rows padded to 8,
+// `red` holding each product's sums, resident depths in whole blocks.
+inline bool mma_plan_ok(const GridPlan& p) {
+  return p.rpad >= 8 && p.rpad % 8 == 0;
+}
+inline bool mma_resident_ok(int resident, int depth) {
+  return resident >= 0 && resident <= depth && (resident == depth || resident % kMmaK == 0);
 }
 
 // The rank columns of CTA q of a wavefront-stack layer on c CTAs, with

@@ -45,8 +45,11 @@ even for one row (a dense h past about 1,050 in f32) gets a plan that
 streams the weight rows that do not fit through L2 from a device-memory
 scratch (`ScanPlan.resident_fwd`, `stream_floats`), which the wrappers
 allocate, through a ring of TMA copies in shared memory
-(`ScanPlan.piece_fwd`, `ring_pieces`). All of it is plain Python, so the
-CPU tests reach it.
+(`ScanPlan.piece_fwd`, `ring_pieces`). A bf16 plan whose batch groups pad
+to 24 rows or more runs each step's products on the tensor cores, with a
+bf16 exchange, on such a ring whether or not it streams (`ScanPlan.mma`,
+`mma_split`, `mma_pieces`). All of it is plain Python, so the CPU tests
+reach it.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, so on the CPU the autograd functions run the plain forward
 and the plain backward. There is no fallback between the two: a CUDA input
@@ -460,6 +463,26 @@ MIN_STEP_WORK = 32768
 RING_STAGES = 2
 RING_PIECE_FLOATS = 20480
 RING_PIECE_SMALL = 12288
+# The bf16 tensor-core product (scan_grid.cuh::Ring::mma_product): bf16 plans
+# whose groups pad to MMA_MIN_ROWS rows or more in 8-row tiles (`ScanPlan.mma`)
+# run each step's products as mma.sync m16n8k16 tiles over blocks of MMA_K
+# depth rows, a warp holding one m-tile by up to MMA_TILES n-tiles, on
+# CONSUMER_WARPS warps, the blocks split over at most MMA_GROUPS k-groups.
+# Smaller groups keep the FMA loop: at 4 rows (B <= 4, the HAR layer) 7/8 of
+# an 8-row tile would be padding, and at 8 and 16 rows the card measured
+# the mma walk slower or no faster (`tools/ring_sweep.py`, PERF.md).
+MMA_K = 16
+MMA_TILES = 4
+MMA_GROUPS = 4
+MMA_FLUSH = 4  # blocks a warp sums in the tensor cores between its f32 adds
+MMA_MIN_ROWS = 24
+# the padded rows from which a wide layer's bf16 batch takes one streamed
+# launch though its weights are resident (`scan_chunks`)
+MMA_STREAM_ROWS = 64
+# floats a ring stage of an mma plan takes at least: the 32 KB of the FMA
+# loop's staging buffer over the two stages
+MMA_MIN_PIECE = 4096
+CONSUMER_WARPS = GRID_THREADS // 32
 
 
 def _cdiv(a, b):
@@ -468,6 +491,10 @@ def _cdiv(a, b):
 
 def _round4(n):
     return _cdiv(n, 4) * 4
+
+
+def _round16(n):
+    return _cdiv(n, MMA_K) * MMA_K
 
 
 def _split_at(q, n, parts):
@@ -507,7 +534,15 @@ class ScanPlan:
     memory in place of the staging buffer, which TMA bulk copies fill with
     pieces of the exchange and of the streamed rows (`ring_pieces`);
     ``stage_*`` still sets the chunks whose order of sums the ring keeps. A
-    kernel that streams nothing has no ring (a piece of 0)."""
+    kernel that streams nothing has no ring (a piece of 0).
+
+    ``mma``: a bf16 plan whose products run on the tensor cores
+    (`mma_split`), with ``rpad`` a multiple of 8, a bf16 exchange of `xld`
+    elements a row and depths padded to MMA_K rows, weight slices in blocks
+    of MMA_K rows (resident depths whole blocks, or the whole depth). Each
+    of its kernels runs on a ring whether or not it streams a row, cut into
+    pieces of whole blocks (`mma_pieces`), and stages nothing (``stage``
+    0)."""
 
     b: int
     h: int
@@ -528,6 +563,13 @@ class ScanPlan:
     resident_bwd: tuple = (0, 0)
     piece_fwd: int = 0
     piece_bwd: int = 0
+    mma: bool = False
+
+    @property
+    def xld(self):
+        """Elements of an exchange row: rpad, or on an mma plan rpad made 8
+        mod 16 (scan_grid.cuh::mma_xld)."""
+        return mma_xld(self.rpad) if self.mma else self.rpad
 
     @property
     def n_ctas(self):
@@ -574,18 +616,24 @@ class ScanPlan:
     def ints(self, kernel):
         """The plan as the C entry of ``kernel`` ("fwd" or "bwd") takes it:
         groups, ctas, rpad, stage, red, smem, the resident depths of its two
-        weight slices, and its ring's floats a stage (0: no ring)."""
+        weight slices, its ring's floats a stage (0: no ring) and whether
+        its products run on the tensor cores (1: `mma`)."""
         return (self.groups, self.ctas, self.rpad, *((self.stage_fwd, self.red_fwd, self.smem_fwd)
                 if kernel == "fwd" else (self.stage_bwd, self.red_bwd, self.smem_bwd)),
-                *self.resident(kernel), self.piece(kernel))
+                *self.resident(kernel), self.piece(kernel), int(self.mma))
 
     def walk(self, kernel):
         """Each product of ``kernel`` as its ring walks it -> ((depth, its
-        chunk, rows of a piece, `ring_pieces`), ...); () without a ring."""
+        chunk, rows of a piece, `ring_pieces`), ...); () without a ring. On
+        an mma plan the pieces are `mma_pieces`' and the chunk the padded
+        depth (the order of sums knows no chunks)."""
         piece = self.piece(kernel)
         if not piece:
             return ()
         stage = self.stage_fwd if kernel == "fwd" else self.stage_bwd
+        if self.mma:
+            return tuple((d, _round16(d), *mma_pieces(d, c, self.rpad, piece, res))
+                         for (d, c), res in zip(self.slices(kernel), self.resident(kernel)) if d)
         return tuple((d, ring_chunk(d, self.rpad, stage),
                       *ring_pieces(d, c, self.rpad, piece, self.elsize, res))
                      for (d, c), res in zip(self.slices(kernel), self.resident(kernel)) if d)
@@ -625,13 +673,85 @@ def ring_pieces(depth, cols, rpad, piece, elsize, resident=0):
     return rows, tuple(out)
 
 
+def mma_xld(rpad):
+    """bf16 elements of an mma plan's exchange row: ``rpad`` made 8 mod 16,
+    so that the eight 16-byte rows of an ldmatrix fall in distinct banks
+    (scan_grid.cuh::mma_xld)."""
+    return rpad if rpad % 16 else rpad + 8
+
+
+def mma_resident(resident, depth):
+    """The depth rows of an mma slice in shared memory, in whole blocks."""
+    return _round16(depth) if resident >= depth else resident
+
+
+MmaSplit = collections.namedtuple("MmaSplit", "blocks mts nts nbs nper tws kw tw passes")
+
+
+@functools.lru_cache(maxsize=4096)
+def mma_split(depth, cols, rpad):
+    """How an mma product lies on the warps (scan_grid.cuh::MmaSplit), from
+    its depth, its slice's columns and the padded rows alone -> MmaSplit:
+    its blocks, m-tiles (16 columns) and n-tiles (8 rows); a warp tile is
+    one m-tile by a run of up to MMA_TILES n-tiles, the n-tiles cut into
+    ``nbs`` runs of ``nper`` (the last shorter); ``tws`` warp tiles, warp
+    tile m * nbs + run on warp w = its number % tw in pass its number //
+    tw; with fewer warp tiles than warps, the blocks split over kw =
+    min(warps // tws, MMA_GROUPS, blocks) k-groups too, warp w taking the
+    blocks kb = w // tw (mod kw)."""
+    blocks, mts, nts = _cdiv(depth, MMA_K), _cdiv(cols, 16), rpad // 8
+    nbs = _cdiv(nts, MMA_TILES)
+    tws = mts * nbs
+    if tws >= CONSUMER_WARPS:
+        kw, tw = 1, CONSUMER_WARPS
+    else:
+        kw, tw = min(CONSUMER_WARPS // tws, MMA_GROUPS, blocks), tws
+    return MmaSplit(blocks, mts, nts, nbs, _cdiv(nts, nbs), tws, kw, tw, _cdiv(tws, tw))
+
+
+def mma_ldo(cols):
+    """The row stride of an mma product's sums [rpad][ldo] in `red`: the
+    columns made 4 mod 8 (scan_grid.cuh::mma_ldo)."""
+    return cols if cols % 8 else cols + 4
+
+
+def mma_red_floats(depth, cols, rpad):
+    """Floats of `red` an mma product takes: its sums [rpad][mma_ldo]."""
+    return rpad * mma_ldo(cols)
+
+
+def mma_pieces(depth, cols, rpad, piece, resident=0):
+    """The walk of one mma product on a ring (scan_grid.cuh::Ring::mma_walk):
+    the resident blocks cut into pieces of the exchange alone, as many
+    whole blocks as a stage of ``piece`` floats holds of its bf16 rows,
+    then the rest into pieces of ``rows`` rows, as many blocks as a stage
+    holds of 16 exchange rows and a streamed block of ``cols`` columns
+    each -> (rows, ((e0, e1), ...)) over one pass, to the padded depth."""
+    xld, d16, res = mma_xld(rpad), _round16(depth), mma_resident(resident, depth)
+    rows = MMA_K * (4 * piece // (2 * MMA_K * (xld + cols)))
+    rows_a = MMA_K * (4 * piece // (2 * MMA_K * xld))
+    if rows < MMA_K:
+        raise ValueError(f"a ring stage of {piece} floats holds no block of {rpad} exchange "
+                         f"rows and {cols} weights")
+    out, e0 = [], 0
+    while e0 < d16:
+        out.append((e0, min(res, e0 + rows_a) if e0 < res else min(d16, e0 + rows)))
+        e0 = out[-1][1]
+    return rows, tuple(out)
+
+
 def stream_floats(plan, kernel):
     """Floats of the device-memory scratch that ``kernel`` ("fwd" or "bwd")
     streams its weight rows from: each CTA's streamed rows at `ring_ld`
     elements a row, rounded up to 16 bytes (scan_grid.cuh::weight_floats),
-    times the CTAs; 0 for a plan that streams nothing."""
-    elems = sum((d - res) * ring_ld(c, plan.elsize)
-                for (d, c), res in zip(plan.slices(kernel), plan.resident(kernel)))
+    times the CTAs; 0 for a plan that streams nothing. An mma plan's rows
+    are its slices' blocks past the resident ones, unpadded."""
+    if plan.mma:
+        elems = sum((_round16(d) - mma_resident(res, d)) * c
+                    for (d, c), res in zip(plan.slices(kernel), plan.resident(kernel)))
+    else:
+        elems = sum((d - res) * ring_ld(c, plan.elsize)
+                    for (d, c), res in zip(plan.slices(kernel), plan.resident(kernel)))
     return plan.n_ctas * (_cdiv(elems * plan.elsize, 16) * 4) if elems else 0
 
 
@@ -647,20 +767,24 @@ def _weight_slices(h, r, ctas):
             "bwd": ((4 * h if r else 0, kwp), (r or 4 * h, _round4(jwm)))}
 
 
-def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize, piece=0):
+def _kernel_layout(h, ctas, rpad, phases, weights, slabs, elsize, piece=0, mma=False):
     """(stage, red, smem bytes) of one kernel: ``phases`` are its products as
     (depth, columns), ``weights`` the elements of its weight slices held in
     shared memory, of ``elsize`` bytes each (the region rounded up to 16
     bytes), ``slabs`` its [units][rpad] buffers (the carry and the
     prefetched step inputs). ``piece``: the floats a stage of a ring that
     takes the staging buffer's place, RING_STAGES stages with two 8-byte
-    barriers each; 0: none."""
-    stage = min(max(d for d, _ in phases), max(2, STAGE_FLOATS // rpad)) * rpad
-    red = 0
-    for depth, cols in phases:
-        items = _cdiv(cols, 4) * (rpad // 4)
-        slices = _slices(items, depth)
-        red = max(red, slices * items * 16 if slices > 1 else 0)
+    barriers each; 0: none. ``mma``: the tensor-core product's layout, no
+    staging buffer (its ring is ``piece``) and `red` (`mma_red_floats`)."""
+    if mma:
+        stage, red = 0, max(mma_red_floats(d, c, rpad) for d, c in phases)
+    else:
+        stage = min(max(d for d, _ in phases), max(2, STAGE_FLOATS // rpad)) * rpad
+        red = 0
+        for depth, cols in phases:
+            items = _cdiv(cols, 4) * (rpad // 4)
+            slices = _slices(items, depth)
+            red = max(red, slices * items * 16 if slices > 1 else 0)
     jwm = _cdiv(h, ctas)
     wfloats = _cdiv(weights * elsize, 16) * 4
     staged = RING_STAGES * (piece + 4) if piece else stage
@@ -681,10 +805,13 @@ def _ring_fit(free, need, piece):
     return piece if piece >= need else None
 
 
-def _ring_need(rpad, phases, elsize):
+def _ring_need(rpad, phases, elsize, mma=False):
     """Floats a ring stage needs at least: one depth row of each product,
     its rpad exchange floats and a streamed row (`ring_pieces`), in whole
-    16-byte units."""
+    16-byte units; on an mma plan one block, 16 bf16 rows of the exchange
+    and a streamed block (`mma_pieces`), and MMA_MIN_PIECE at least."""
+    if mma:
+        return max(MMA_MIN_PIECE, *(MMA_K * (mma_xld(rpad) + c) // 2 for _, c in phases))
     return _round4(max(rpad + _cdiv(ring_ld(c, elsize) * elsize, 4) for _, c in phases))
 
 
@@ -705,6 +832,11 @@ def _streamed_plan(b, h, r, sms, elsize, piece=None):
             raise ValueError(f"the recurrent weights of h={h}, r={r or 'dense'} do not fit in "
                              f"the shared memory of {sms} SMs, and the slabs of B={b} do not "
                              f"fit beside a streamed slice")
+        if empty.mma:  # whole blocks of the padded depths
+            total = sum(_round16(d) * c for d, c in empty.slices(kernel))
+            resident.append(tuple(min(d, _round16(d) * room // total // MMA_K * MMA_K)
+                                  for d, _ in empty.slices(kernel)))
+            continue
         total = sum(d * c for d, c in empty.slices(kernel))
         resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
     return plan_layout(b, h, r, 1, ctas, elsize, resident=tuple(resident),
@@ -754,55 +886,83 @@ def scan_plan(b, h, r, sms=SMS, elsize=4):
 
 
 @functools.lru_cache(maxsize=256)
-def _fits_resident(b, h, r, sms, elsize):
+def _fits_resident(b, h, r, sms, elsize, mma=None):
     """The first grouping of `scan_plan`'s search whose weights are all
-    resident and fit, or None."""
+    resident and fit, or None. A bf16 grouping whose mma layout does not
+    fit (its rows padded to 8) takes the FMA loop's layout where that fits,
+    so every shape keeps the plan it had before the tensor-core walk.
+    ``mma`` True or False takes that layout alone (the sweeps that time
+    one walk against the other)."""
     step_work = h * 4 * h if r == 0 else h * r + r * 4 * h  # multiply-adds of a row's step
     for groups in range(min(b, sms), 0, -1):
         most = max(1, min(sms // groups, h))
         work = _round4(_cdiv(b, groups)) * step_work
         for ctas in sorted({min(most, _cdiv(work, MIN_STEP_WORK)), most}):
-            plan = plan_layout(b, h, r, groups, ctas, elsize)
+            plan = plan_layout(b, h, r, groups, ctas, elsize, mma=mma)
             if plan.smem_bytes <= SMEM_LIMIT:
                 return plan
+            if plan.mma and mma is None:
+                plan = plan_layout(b, h, r, groups, ctas, elsize, mma=False)
+                if plan.smem_bytes <= SMEM_LIMIT:
+                    return plan
     return None
 
 
-def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None, ring=None, piece=None):
+def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None, ring=None, piece=None,
+                mma=None):
     """The ScanPlan of ``groups`` batch groups of ``ctas`` CTAs each, for
     batch ``b``, width ``h`` and rank ``r`` (0: dense), weights of
     ``elsize`` bytes; `scan_plan` picks the grouping. ``resident``: the
     (forward, BPTT) pairs of resident depths (`ScanPlan.resident_fwd`);
-    None holds every row in shared memory. A kernel that streams some row
-    gets a ring: ``ring``'s (forward, BPTT) pair of floats a stage, or
+    None holds every row in shared memory. A kernel that streams some row,
+    and every kernel of an mma plan, gets a ring: ``ring``'s (forward,
+    BPTT) pair of floats a stage, or
     else stages of ``piece`` floats (None: `ring_piece`), or as large as
     fit beside the rest (`_ring_fit`; of the smallest stage, where the
-    shared memory then exceeds SMEM_LIMIT)."""
-    rpad = _round4(_cdiv(b, groups))
+    shared memory then exceeds SMEM_LIMIT). A bf16 plan whose groups pad to
+    MMA_MIN_ROWS rows or more is an mma plan: rows padded to 8, resident
+    depths cut to whole blocks; ``mma`` True or False overrides that rule
+    for a bf16 plan (the sweeps that time one product against the other)."""
+    rows = _cdiv(b, groups)
+    if mma is None:
+        mma = elsize == 2 and _cdiv(rows, 8) * 8 >= MMA_MIN_ROWS
+    elif mma and elsize != 2:
+        raise ValueError("the tensor-core walk takes bf16 weights (elsize 2)")
+    rpad = _cdiv(rows, 8) * 8 if mma else _round4(rows)
     slices = _weight_slices(h, r, ctas)
     if resident is None:
         resident = tuple(tuple(d for d, _ in slices[k]) for k in ("fwd", "bwd"))
-    held = [sum(res * c for res, (_, c) in zip(resident[i], slices[k]))
+    elif mma:
+        resident = tuple(tuple(d if res >= d else res // MMA_K * MMA_K
+                               for res, (d, _) in zip(resident[i], slices[k]))
+                         for i, k in enumerate(("fwd", "bwd")))
+    held = [sum((mma_resident(res, d) if mma else res) * c
+                for res, (d, c) in zip(resident[i], slices[k]))
             for i, k in enumerate(("fwd", "bwd"))]
     phases = {k: [sl for sl in slices[k] if sl[0]] for k in slices}
     rings = []
     # slabs: forward h, c and the step's gi (4); BPTT dh, dc and phase A's 7 inputs
     for i, (kernel, slabs) in enumerate((("fwd", 6), ("bwd", 9))):
-        if all(res == d for res, (d, _) in zip(resident[i], slices[kernel])):
+        if not mma and all(res == d for res, (d, _) in zip(resident[i], slices[kernel])):
             rings.append(0)
         elif ring is not None:
             rings.append(ring[i])
         else:
             stage, _, smem = _kernel_layout(h, ctas, rpad, phases[kernel], held[i], slabs,
-                                            elsize)
+                                            elsize, mma=mma)
             free = SMEM_LIMIT // 4 - (smem // 4 - stage)  # beside all but the staging buffer
-            need = _ring_need(rpad, phases[kernel], elsize)
+            need = _ring_need(rpad, phases[kernel], elsize, mma)
             rings.append(_ring_fit(free, need, piece or ring_piece(rpad)) or need)
-    fwd = _kernel_layout(h, ctas, rpad, phases["fwd"], held[0], 6, elsize, rings[0])
-    bwd = _kernel_layout(h, ctas, rpad, phases["bwd"], held[1], 9, elsize, rings[1])
-    return ScanPlan(b, h, r, groups, ctas, rpad, *fwd, groups * rpad * (2 * h + r),
-                    *bwd, groups * rpad * (8 * h + r), elsize, *map(tuple, resident),
-                    *rings)
+    fwd = _kernel_layout(h, ctas, rpad, phases["fwd"], held[0], 6, elsize, rings[0], mma)
+    bwd = _kernel_layout(h, ctas, rpad, phases["bwd"], held[1], 9, elsize, rings[1], mma)
+    if mma:  # bf16 exchange rows of mma_xld elements, depths padded to whole blocks
+        xld, r16 = mma_xld(rpad), _round16(r)
+        xchg = (_cdiv(groups * xld * (2 * _round16(h) + r16), 2),
+                _cdiv(groups * xld * (2 * _round16(4 * h) + r16), 2))
+    else:
+        xchg = groups * rpad * (2 * h + r), groups * rpad * (8 * h + r)
+    return ScanPlan(b, h, r, groups, ctas, rpad, *fwd, xchg[0], *bwd, xchg[1], elsize,
+                    *map(tuple, resident), *rings, mma)
 
 
 def _splitk_floats(m, n, k, depth=TC_DEPTH):
@@ -860,10 +1020,14 @@ def scan_chunks(b, h, r, sms=SMS, elsize=4):
     streamed launch (`_streamed_plan`) for a batch whose resident plans
     would need chunks, where its slabs fit. At the PTB "large" layer (dense
     h=1500, B=128: three resident chunks) that launch ran every entry
-    faster (`tools/ring_sweep.py`, PERF.md)."""
+    faster (`tools/ring_sweep.py`, PERF.md). So does a batch whose resident
+    plan is an mma plan of MMA_STREAM_ROWS padded rows or more, whose
+    exchange the ring's large stages bring faster than the staging buffer
+    beside resident weights."""
     scan_plan(1, h, r, sms, elsize)
-    if elsize == 2 and not _fits_resident(1, h, r, sms, 4) and not _fits_resident(
-            b, h, r, sms, elsize):
+    resident = _fits_resident(b, h, r, sms, elsize) if elsize == 2 else None
+    if elsize == 2 and not _fits_resident(1, h, r, sms, 4) and (
+            resident is None or resident.mma and resident.rpad >= MMA_STREAM_ROWS):
         try:
             return ((0, b, _streamed_plan(b, h, r, sms, elsize)),)
         except ValueError:

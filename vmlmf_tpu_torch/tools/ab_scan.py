@@ -45,8 +45,13 @@ Under "digest", a sha256 of all the outputs of the f32 entries that every
 checkout since the stack has: the LSTM scan's three at B=20 in both
 forms, the GRU's three x-mode entries at B=81 in each recurrent form, and
 the stack's three at B=20: equal digests show that two checkouts' kernels
-give the same bits. "digest_family" gives one per family of kernels
-("lstm", "gru", "stack") and one over them all ("all"), so that one run
+give the same bits. A checkout that runs the wide layers also digests the
+bf16 LSTM entries (no-grad, residual, BPTT) at the LM layer, B=20, and at
+the dense h=1500 layer, B = 1, 20 and 128, and the bf16 stack's three at
+B=20, and times the bf16 entries at the dense layer's B = 1 and 128
+(beside B=20) and the LM layer's B = 20 and 128 ("bf16_lstm").
+"digest_family" gives one per family of kernels ("lstm", "gru", "stack",
+"lstm_bf16", "stack_bf16") and one over them all ("all"), so that one run
 can show one family's bits changed and the others' not. Giving the
 checkouts as parent, change, change, parent keeps drift on the card from
 reading as a difference between them.
@@ -247,19 +252,23 @@ def stack_ms(b, precision=None):
 
 
 # sha256 of every output of the three f32 entries at B=20 (both forms; the
-# wide layers at B = 1, 20 and 128), so that two checkouts' kernels can be shown
-# to give the same bits
-def digest(form, b=20):
+# wide layers at B = 1, 20 and 128), or of ``precision``'s, so that two
+# checkouts' kernels can be shown to give the same bits
+def digest(form, b=20, precision=None):
+    prec = () if precision is None else (precision,)
     if form in GRU_FORMS:
         outs = gru_outputs(form)[0]
     elif form == "stack":
-        outs = stack_outputs(20)[0]
+        outs = stack_outputs(20, precision)[0]
     else:
         args = inputs(b, form)
-        res = cuda_scan.lstm_scan_fused_xin_res(*args)
+        res = cuda_scan.lstm_scan_fused_xin_res(*args, *prec)
         dys = torch.randn(*res[0].shape, generator=torch.Generator().manual_seed(5)).cuda()
-        outs = [*cuda_scan.lstm_scan_fused_xin(*args), *res,
-                *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None)]
+        if prec:  # bf16 cotangents at the scale of the bf16 checks
+            dys = 0.1 * dys
+        outs = [*cuda_scan.lstm_scan_fused_xin(*args, *prec), *res,
+                *cuda_scan.lstm_scan_xin_bwd(*args[:4], *args[5:], *res, dys, None,
+                                             **({"precision": precision} if prec else {}))]
     h = hashlib.sha256()
     for a in outs:
         if a is not None:
@@ -287,7 +296,9 @@ if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared mem
     ms["dense1500"] = {"f32_b1": entry_ms(1, "dense1500", *VARIANTS["f32"]),
                        "f32_b20": entry_ms(20, "dense1500", *VARIANTS["f32"]),
                        "f32_b128": entry_ms(128, "dense1500", *VARIANTS["f32"]),
+                       "bf16_b1": entry_ms(1, "dense1500", *VARIANTS["bf16"]),
                        "bf16_b20": entry_ms(20, "dense1500", *VARIANTS["bf16"]),
+                       "bf16_b128": entry_ms(128, "dense1500", *VARIANTS["bf16"]),
                        "lowrank_f32_b1": entry_ms(1, "lowrank1500", *VARIANTS["f32"]),
                        "lowrank_f32_b20": entry_ms(20, "lowrank1500", *VARIANTS["f32"]),
                        "lowrank_f32_b128": entry_ms(128, "lowrank1500", *VARIANTS["f32"])}
@@ -300,8 +311,14 @@ if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared mem
                 **({"piece": (wp.piece_fwd, wp.piece_bwd)} if hasattr(wp, "piece") else {}))
 digests = {f: digest(f) for f in ("lowrank", "dense", *GRU_FORMS, "stack")}
 digests.update({k: digest(*v) for k, v in WIDE.items()})
-families = {"lstm": ("lowrank", "dense", *WIDE), "gru": tuple(GRU_FORMS), "stack": ("stack",),
-            "all": tuple(digests)}
+families = {"lstm": ("lowrank", "dense", *WIDE), "gru": tuple(GRU_FORMS), "stack": ("stack",)}
+if WIDE:  # the bf16 entries of the LSTM scans and the stack
+    BF16 = {"bf16_lm_b20": ("lowrank", 20), **{f"bf16_dense1500_b{wb}": ("dense1500", wb)
+                                              for wb in (1, 20, 128)}}
+    digests.update({k: digest(*v, "bf16") for k, v in BF16.items()})
+    digests["stack_bf16"] = digest("stack", precision="bf16")
+    families.update(lstm_bf16=tuple(BF16), stack_bf16=("stack_bf16",))
+families["all"] = tuple(digests)
 print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
                   "plans": plans, "ptxas": regs, "digest": digests,
                   "digest_family": {fam: hashlib.sha256(" ".join(digests[f] for f in forms)

@@ -1,6 +1,6 @@
 """The ring of the LSTM scans' streamed plans, swept on one CUDA device.
 
-    python -m vmlmf_tpu_torch.tools.ring_sweep
+    python -m vmlmf_tpu_torch.tools.ring_sweep [--bf16]
 
 For the PTB "large" LM's layer (T=35, F=h=1500), dense and low-rank
 (r=rx=750), at B = 1, 20 and 128 in f32: the device ms of the three x-mode
@@ -12,9 +12,18 @@ between CUDA events, taken in two rounds, the second in the reverse order
 of the first; each plan's floats a stage, resident depths and streamed MB
 a step beside it. Then, at each shape of `BF16_SHAPES` (widths whose f32
 weights stream and whose bf16 ones are resident, at batches that a
-resident bf16 plan takes in chunks of rows), the bf16 layer's resident
-plans in chunks (`resident_chunks`) against one streamed launch, each
-entry: the two sides of `cuda_scan.scan_chunks`' bf16 rule.
+resident bf16 plan takes in chunks of rows, and the large layer at B=20,
+where its resident plan is one launch), the bf16 layer's resident plans
+(`resident_chunks`; one launch where a resident plan takes the batch)
+against one streamed launch, each entry: the two sides of
+`cuda_scan.scan_chunks`' bf16 rule (one streamed launch where no resident
+plan takes the batch, or where it is an mma plan of `MMA_STREAM_ROWS` rows
+or more). Then, at the batches whose groups pad to 4 rows (`SMALL_SHAPES`),
+the bf16 resident plan on the FMA product against the same grouping on the
+tensor-core walk (`ScanPlan.mma` forced, rows padded to 8), and at
+batches whose groups pad to 16 rows or more the FMA layout against the
+tensor-core one (each the first grouping that fits): the sides of
+`MMA_MIN_ROWS`. ``--bf16``: the bf16 readings alone.
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -23,6 +32,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 
 import torch
 
@@ -37,7 +47,12 @@ PIECES = (2048, 4096, 6144, 12288, 16384, 20480, 24576, 26624)
 # (B, h, r) of the bf16 rule's check: the large layer at B=128 and at the
 # least batch that needs two resident chunks, a dense h=1100 and the
 # low-rank r=750 layer at theirs
-BF16_SHAPES = ((128, 1500, 0), (53, 1500, 0), (201, 1100, 0), (125, 1500, 750))
+BF16_SHAPES = ((128, 1500, 0), (53, 1500, 0), (201, 1100, 0), (125, 1500, 750), (20, 1500, 0))
+# (B, h, r) of the walk's rule: groups that pad to 4 rows (the large layer
+# at B = 1 and 4, the PTB LM layer at B = 1 and 20) and to 16 or more (the
+# PTB LM layer at B = 64, 128 and 256, the dense one at 128)
+SMALL_SHAPES = ((1, 1500, 0), (4, 1500, 0), (1, 650, 300), (20, 650, 300), (64, 650, 300),
+                (128, 650, 300), (256, 650, 300), (128, 650, 0))
 
 
 def inputs(b, r, h=H, seed=0):
@@ -138,10 +153,26 @@ def bf16_sides(b, h, r, sms):
         out[name].update(launches=len(chunks), plan=describe(chunks[0][2]))
     taken = cuda_scan.scan_chunks(b, h, r, sms, 2)
     out["scan_chunks_takes"] = "streamed" if taken[0][2].streamed else "chunks"
+    out["mma"] = [chunks[0][2].mma for chunks in sides.values()]
     return out
 
 
-def main():
+def mma_sides(b, h, r, sms):
+    """The bf16 layer's resident plan on the FMA product against its
+    resident plan on the tensor-core walk, each the first grouping of
+    `scan_plan`'s search that fits in its layout."""
+    sides = {name: ((0, b, cuda_scan._fits_resident(b, h, r, sms, 2, mma=mma)),)
+             for name, mma in (("fma", False), ("mma", True))}
+    out = timed(sides, calls(b, r, "bf16", h))
+    for name, chunks in sides.items():
+        p = chunks[0][2]
+        out[name].update(plan=describe(p), groups=p.groups, rpad=p.rpad)
+    out["rule"] = "mma" if cuda_scan.scan_plan(b, h, r, sms, 2).mma else "fma"
+    return out
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -149,11 +180,14 @@ def main():
     _build.build_all()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     card = torch.cuda.get_device_name(0)
-    for name, (b, r) in SHAPES.items():
+    for name, (b, r) in SHAPES.items() if "--bf16" not in argv else ():
         print(json.dumps({"shape": name, "card": card, "sweep": sweep(b, r, sms)}), flush=True)
     for b, h, r in BF16_SHAPES:
         print(json.dumps({"shape": f"bf16_h{h}_r{r}_b{b}", "card": card,
                           "sides": bf16_sides(b, h, r, sms)}), flush=True)
+    for b, h, r in SMALL_SHAPES:
+        print(json.dumps({"shape": f"bf16_small_h{h}_r{r}_b{b}", "card": card,
+                          "sides": mma_sides(b, h, r, sms)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Where a step of the LSTM scan kernels goes, on one CUDA device.
 
-    python -m vmlmf_tpu_torch.tools.scan_phases
+    python -m vmlmf_tpu_torch.tools.scan_phases [--bf16] [SHAPE ...]
 
 Three readings for each shape (the PTB LM layer, T=35, F=h=650, low-rank
 r=rx=300 at B in 1/20/128 and dense at B=20; the HAR layer, T=24, F=77,
 h=180, low-rank r=6 and dense, B=81; the PTB "large" LM's dense layer,
-T=35, F=h=1500, at B in 20 and 128):
+T=35, F=h=1500, at B in 20 and 128), in f32 and, at the shapes of
+`BF16_SHAPES`, in bf16 too (a line each; ``--bf16``: the bf16 lines
+alone; SHAPE names: those shapes alone):
 
 * ``device``: `torch.profiler`'s device time by kernel for each entry
   (no-grad forward, residual forward, BPTT from dys) at T and at 2T, so the
@@ -22,15 +24,23 @@ T=35, F=h=1500, at B in 20 and 128):
   the same thread, a consumer, waits on the ring's full barriers, in all
   the step's products (a walk at its FMA floor waits for none), and
   ``ring_refill``: the µs a step that CTA 0's producer waits for a stage to
-  be released on its empty barrier.
+  be released on its empty barrier. On a plan whose bf16 products run on
+  the tensor cores (`ScanPlan.mma`), also the µs a step that the same
+  thread spends in its warp's blocks of mmas (``mma_blocks``), in adding
+  the k-groups' sums (``mma_gather``) and in the epilogue
+  (``mma_epilogue``); the rest of a product is waiting for its data.
+* ``mma_alone`` (on such a plan): each product of the walk by itself on one
+  CTA (``csrc/mma_walk_check.cu``, with the plan's resident depth and ring
+  stages), µs a product from CUDA events around one launch of 1 product and
+  one of 33 in a row: the walk's products without the barriers, the other
+  CTAs' reads of L2 and the epilogue's nonlinearities.
 * ``gemm``: the GEMM phase of the no-grad forward and of the BPTT, product
   by product in launch order (the tensor-core tile of csrc/gemm_tc.cuh,
   its split-k sum added to its product), each beside the device time of
   ``torch.matmul`` of the same shape in the same profiler session (cuBLAS:
   f32 with TF32 off, and bf16),
   and ``split``: the device ms of the walk kernel, of the GEMM phase and of
-  the rest of each entry. In f32 at every shape, and in bf16 at the LM
-  layer and the dense h=1500 layer at B=20 (``gemm_bf16``).
+  the rest of each entry.
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -42,6 +52,7 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 
 import torch
@@ -56,27 +67,28 @@ SHAPES = {  # (T, B, F, h, rx, r); r = 0 and rx = 0: a dense side
     "har_b81": (24, 81, 77, 180, 8, 6), "har_dense_b81": (24, 81, 77, 180, 0, 0),
     "dense1500_b20": (35, 20, 1500, 1500, 0, 0), "dense1500_b128": (35, 128, 1500, 1500, 0, 0),
 }
-BF16_SHAPES = ("lm_b20", "dense1500_b20")  # whose GEMM phase is also read in bf16
+# the shapes also read in bf16: the mixed-precision LM layer and the dense
+# h=1500 layer at B = 20 and 128
+BF16_SHAPES = ("lm_b20", "lm_b128", "dense1500_b20", "dense1500_b128")
 MAX_STEPS = 256
-STAMP = f"""
-__device__ unsigned long long g_stamps[8 * {MAX_STEPS}];
-__device__ unsigned long long g_waits[8 * {MAX_STEPS}];
-__device__ unsigned long long g_refills[8 * {MAX_STEPS}];
-#define STAMP(k) do {{ __syncthreads(); \\
-  if (blockIdx.x == 0 && threadIdx.x == 0 && t < {MAX_STEPS}) {{ \\
-    g_stamps[t * 8 + (k)] = vmlmf::global_ns(); \\
-    g_waits[t * 8 + (k)] = vmlmf::g_ring_wait; \\
-    g_refills[t * 8 + (k)] = vmlmf::g_ring_refill; }} }} while (0)
-extern "C" int read_stamps(unsigned long long* out) {{
-  return cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
-}}
-extern "C" int read_waits(unsigned long long* out) {{
-  return cudaMemcpyFromSymbol(out, g_waits, sizeof(g_waits));
-}}
-extern "C" int read_refills(unsigned long long* out) {{
-  return cudaMemcpyFromSymbol(out, g_refills, sizeof(g_refills));
-}}
-"""
+# the counters read at each stamp, after the stamp itself: the ring's waits
+# and the mma walk's spans (scan_grid.cuh, patched below)
+COUNTERS = (("read_waits", "g_ring_wait", "ring_wait"),
+            ("read_refills", "g_ring_refill", "ring_refill"),
+            ("read_blocks", "g_mma_blocks", "mma_blocks"),
+            ("read_gathers", "g_mma_gather", "mma_gather"),
+            ("read_epilogues", "g_mma_epilogue", "mma_epilogue"))
+READERS = (("read_stamps", None, "step"), *COUNTERS)
+STAMP = ("".join(f"__device__ unsigned long long g_{r[5:]}[8 * {MAX_STEPS}];\n"
+                 for r, _, _ in READERS)
+         + "#define STAMP(k) do { __syncthreads(); \\\n"
+         + f"  if (blockIdx.x == 0 && threadIdx.x == 0 && t < {MAX_STEPS}) {{ \\\n"
+         + "    g_stamps[t * 8 + (k)] = vmlmf::global_ns(); \\\n"
+         + "".join(f"    g_{r[5:]}[t * 8 + (k)] = vmlmf::{c}; \\\n" for r, c, _ in COUNTERS)
+         + "  } } while (0)\n"
+         + "".join(f'extern "C" int {r}(unsigned long long* out) {{\n'
+                   f"  return cudaMemcpyFromSymbol(out, g_{r[5:]}, sizeof(g_{r[5:]}));\n}}\n"
+                   for r, _, _ in READERS))
 # the ring's consumer wait on a full barrier, timed by thread 0 of CTA 0, and
 # its producer's wait on an empty one, timed by CTA 0's producer
 RING_WAIT = ("        mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);\n",
@@ -88,8 +100,31 @@ RING_REFILL = ("    mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);\n",
                "    const unsigned long long w0 = global_ns();\n"
                "    mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);\n"
                "    if (blockIdx.x == 0) g_ring_refill += global_ns() - w0;\n")
-RING_COUNTER = ("struct Ring {\n", "__device__ unsigned long long g_ring_wait, g_ring_refill;\n\n"
-                "struct Ring {\n")
+RING_COUNTER = ("// The bf16 tensor-core product of the LSTM scans' `mma` plans.\n",
+                "__device__ unsigned long long g_ring_wait, g_ring_refill, g_mma_blocks, "
+                "g_mma_gather, g_mma_epilogue;\n\n"
+                "// The bf16 tensor-core product of the LSTM scans' `mma` plans.\n")
+
+
+def timed(line, counter, indent):
+    """``line`` of scan_grid.cuh run between two reads of the global timer by
+    thread 0 of CTA 0, which adds the span to ``counter``."""
+    pad = " " * indent
+    return (f"{pad}{{\n{pad}  const unsigned long long s0 = global_ns();\n{line}"
+            f"{pad}  if (blockIdx.x == 0 && threadIdx.x == 0) {counter} += global_ns() - s0;\n"
+            f"{pad}}}\n")
+
+
+# the mma walk's spans (Ring::mma_consume)
+MMA_SPANS = [
+    (line, timed(line, counter, indent)) for line, counter, indent in (
+        ("          m.walk(div_up(e1 / kMmaK - kb, s.kw), w, s.kw * kMmaK * op.cols,\n"
+         "                 sp + (size_t)(d - e0) * k.xld, s.kw * kMmaK * k.xld);\n",
+         "g_mma_blocks", 10),
+        ("      m.gather(s, op.cols, rpad, red, [] { consumers_sync(); });\n", "g_mma_gather", 6),
+        ("    mma_epilogue(red, op.cols, op.ncols, rpad, epi);\n", "g_mma_epilogue", 4))]
+
+
 # (anchor, its replacement): the phase boundaries of each kernel's step
 MARKS = {
     "lstm_scan_xin_fwd": [
@@ -120,10 +155,11 @@ def stamped_libraries(work):
     shutil.copytree(_build.CSRC, src)
     header = os.path.join(src, "scan_grid.cuh")
     text = open(header).read()
-    for anchor, new in (RING_WAIT, RING_REFILL, RING_COUNTER):
-        if text.count(anchor) != 1:
+    for anchor, new in (RING_WAIT, RING_REFILL, RING_COUNTER, *MMA_SPANS):
+        if text.count(anchor) < 1 or (anchor != RING_WAIT[0] and anchor != RING_REFILL[0]
+                                      and text.count(anchor) != 1):
             raise RuntimeError(f"scan_grid.cuh: the ring's anchor moved: {anchor!r}")
-        text = text.replace(anchor, new)
+        text = text.replace(anchor, new)  # every consumer's wait, every producer's
     open(header, "w").write(text)
     libs = {}
     for name, marks in MARKS.items():
@@ -268,16 +304,15 @@ def device_ms(fn, reps=5):
     return {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
 
 
-def spans(lib, steps, marks, ring=False):
+def spans(lib, steps, marks, ring=False, mma=False):
     """Mean µs between consecutive marks over the steps in walk order (the
     first left out), and of a whole step (mark to mark of the next step);
     with ``ring``, also the mean µs a step of the ring's full-barrier waits
     (``ring_wait``) and of its producer's waits for a free stage
-    (``ring_refill``)."""
+    (``ring_refill``); with ``mma``, of the mma walk's spans."""
     out = {}
-    for reader, key in (("read_stamps", "step"), ("read_waits", "ring_wait"),
-                        ("read_refills", "ring_refill")):
-        if key != "step" and not ring:
+    for reader, _, key in READERS:
+        if key.startswith("ring") and not ring or key.startswith("mma") and not mma:
             continue
         buf = (ctypes.c_ulonglong * (8 * MAX_STEPS))()
         getattr(lib, reader).argtypes = [ctypes.c_void_p]
@@ -291,7 +326,76 @@ def spans(lib, steps, marks, ring=False):
     return out
 
 
-def main():
+def mma_alone(plan, reps=33):
+    """{kernel product: µs} of each product of an mma plan's walk alone."""
+    from vmlmf_tpu_torch.ops.mma_check import mma_walk_product
+
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    for kernel in ("fwd", "bwd"):
+        for (depth, cols), res in zip(plan.slices(kernel), plan.resident(kernel)):
+            if not depth:
+                continue
+            w, a = (torch.randn(s, generator=g).cuda() for s in ((depth, cols),
+                                                                  (depth, plan.rpad)))
+
+            def launch(n):
+                return mma_walk_product(w, a, plan.rpad, resident=res,
+                                        piece=plan.piece(kernel), reps=n)
+
+            ms = {}
+            for n in (1, reps):
+                launch(n)
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(5):
+                    launch(n)
+                end.record()
+                end.synchronize()
+                ms[n] = start.elapsed_time(end) / 5
+            out[f"{kernel} {depth}x{cols}"] = round(1e3 * (ms[reps] - ms[1]) / (reps - 1), 3)
+    return out
+
+
+def reading(name, shape, precision, libs):
+    """The three readings of one shape in one precision -> a JSON row."""
+    t, r = shape[0], shape[5]
+    plan = cuda_scan._chunks_for(shape[1], shape[3], r, torch.device("cuda"),
+                                 precision == "bf16")[0][2]
+    row = {"shape": name, "precision": precision, "card": torch.cuda.get_device_name(0),
+           "plan": {k: plan.ints(k) for k in ("fwd", "bwd")}, "device": {}}
+    for tt in (t, 2 * t):
+        for entry, fn in entries((tt, *shape[1:]), precision).items():
+            row["device"][f"{entry}_T{tt}"] = device_ms(fn)
+    calls = entries(shape, precision)
+    load, _build.load = _build.load, lambda n: libs[n]
+    try:
+        calls["fwd"]()
+        torch.cuda.synchronize()
+        row["stamps_fwd"] = spans(libs["lstm_scan_xin_fwd"], range(t),
+                                  [0, 1, 2, 3, 4] if r else [0, 3, 4], plan.piece_fwd > 0,
+                                  plan.mma)
+        calls["bwd"]()
+        torch.cuda.synchronize()
+        row["stamps_bwd"] = spans(libs["lstm_scan_xin_bwd"], range(t - 1, -1, -1),
+                                  [0, 1, 2, 3, 4, 5] if r else [0, 1, 2, 5], plan.piece_bwd > 0,
+                                  plan.mma)
+    finally:
+        _build.load = load
+    row["gemm"] = gemm_phase(shape, precision)
+    if plan.mma:
+        row["mma_alone"] = mma_alone(plan)
+    return row
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    bf16_only = "--bf16" in argv
+    names = [a for a in argv if a != "--bf16"] or list(SHAPES)
+    unknown = set(names) - set(SHAPES)
+    if unknown:
+        raise SystemExit(f"unknown shapes {sorted(unknown)}; known: {list(SHAPES)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -300,32 +404,11 @@ def main():
     work = tempfile.mkdtemp(dir=_build.BUILD_DIR)  # git-ignored, beside the package's builds
     try:
         libs = stamped_libraries(work)
-        for name, shape in SHAPES.items():
-            t, r = shape[0], shape[5]
-            plan = cuda_scan._chunks_for(shape[1], shape[3], r, torch.device("cuda"))[0][2]
-            row = {"shape": name, "card": torch.cuda.get_device_name(0),
-                   "plan": {k: plan.ints(k) for k in ("fwd", "bwd")}, "device": {}}
-            for tt in (t, 2 * t):
-                for entry, fn in entries((tt, *shape[1:])).items():
-                    row["device"][f"{entry}_T{tt}"] = device_ms(fn)
-            calls = entries(shape)
-            load, _build.load = _build.load, lambda n: libs[n]
-            try:
-                calls["fwd"]()
-                torch.cuda.synchronize()
-                row["stamps_fwd"] = spans(libs["lstm_scan_xin_fwd"], range(t),
-                                          [0, 1, 2, 3, 4] if r else [0, 3, 4], plan.piece_fwd > 0)
-                calls["bwd"]()
-                torch.cuda.synchronize()
-                row["stamps_bwd"] = spans(libs["lstm_scan_xin_bwd"], range(t - 1, -1, -1),
-                                          [0, 1, 2, 3, 4, 5] if r else [0, 1, 2, 5],
-                                          plan.piece_bwd > 0)
-            finally:
-                _build.load = load
-            row["gemm"] = gemm_phase(shape, "f32")
-            if name in BF16_SHAPES:
-                row["gemm_bf16"] = gemm_phase(shape, "bf16")
-            print(json.dumps(row), flush=True)
+        for name in names:
+            precisions = (() if bf16_only else ("f32",)) + (("bf16",) if name in BF16_SHAPES
+                                                            else ())
+            for precision in precisions:
+                print(json.dumps(reading(name, SHAPES[name], precision, libs)), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

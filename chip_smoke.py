@@ -302,9 +302,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM, dense, at its 700 W limit: f32 outside the tensor cores, bf16 on
-# the tensor cores, and HBM3
+# the tensor cores, f32 products as 3xTF32 on the tensor cores (three TF32
+# passes at 494 TFLOP/s), and HBM3
 PEAK_F32_OPS = 67e12
 PEAK_BF16_OPS = 989e12
+PEAK_3XTF32_OPS = 494e12 / 3
 PEAK_BYTES = 3.35e12
 
 TOL = 1e-4  # outputs: f32 sums over K=650 and K=300 in another order, 35 steps
@@ -460,11 +462,14 @@ def all_close(torch, gots, wants, tol):
     return all(ok for ok, _ in checks), max(e for _, e in checks)
 
 
-def bound(ops, nbytes, bf16_ops=0):
+def bound(ops, nbytes, bf16_ops=0, tf32_ops=0):
     """(bound ms, what bounds it) at the card's memory peak and its peaks for
     the operations' types: ``bf16_ops`` of the ``ops`` (the products of a
-    bf16 variant) at the bf16 tensor-core rate, the rest at the f32 rate."""
-    op_ms = 1e3 * ((ops - bf16_ops) / PEAK_F32_OPS + bf16_ops / PEAK_BF16_OPS)
+    bf16 variant) at the bf16 tensor-core rate, ``tf32_ops`` (an f32
+    variant's GEMM phase, 3xTF32) at a third of the TF32 rate, the rest at
+    the f32 rate."""
+    op_ms = 1e3 * ((ops - bf16_ops - tf32_ops) / PEAK_F32_OPS + bf16_ops / PEAK_BF16_OPS
+                   + tf32_ops / PEAK_3XTF32_OPS)
     byte_ms = 1e3 * nbytes / PEAK_BYTES
     return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
@@ -654,8 +659,8 @@ def library_train_ms(torch, train_fwd, dys, iters):
 
 
 def kernel_row(name, shape, err, tol, ms, plain_ms, cost, library_ms, library="cuDNN"):
-    """A kernel check's numbers; ``cost`` is (ops, bytes) or (ops, bytes,
-    bf16 ops), as `bound` takes it."""
+    """A kernel check's numbers; ``cost`` is (ops, bytes), (ops, bytes,
+    bf16 ops) or (ops, bytes, bf16 ops, 3xTF32 ops), as `bound` takes it."""
     bms, by = bound(*cost)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"kernel {name} {shape}: max_abs_err {err:.3g} (tol {tol}), {ms:.4f} ms, plain "
@@ -802,6 +807,9 @@ def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=Fal
     xs, h0, c0 = (a.to(torch.bfloat16 if bf16 else torch.float32)
                   for a in (args[0], args[8], args[9]))
     mm = cuda_scan.scan_mm_ops(*size) if bf16 else 0
+
+    def tf32(entry):  # the f32 variants' GEMM phase runs as 3xTF32
+        return 0 if bf16 else cuda_scan.scan_gemm_ops(*size, entry, save_gates=save)
     fwd_tol = BF16_TOL if bf16 else TOL
     res_tol = BF16_TOL if bf16 or residuals == "bf16" else TOL
     grad_tol = BF16_GRAD_TOL if bf16 else RES_GRAD_TOL if residuals == "bf16" else GRAD_TOL
@@ -836,7 +844,8 @@ def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=Fal
             "lstm_scan_xin_fwd", label, err, fwd_tol,
             cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin(*args, precision), 10),
             cuda_ms(torch, lambda: plain(*args, precision), 5),
-            (*cuda_scan.scan_cost(*size), mm), cuda_ms(torch, lib_fwd, 10), lib_name)
+            (*cuda_scan.scan_cost(*size), mm, tf32("fwd")), cuda_ms(torch, lib_fwd, 10),
+            lib_name)
     if not train:
         return
 
@@ -891,7 +900,8 @@ def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=Fal
         "lstm_scan_xin_fwd_res", label, err, res_tol,
         cuda_ms(torch, lambda: cuda_scan.lstm_scan_fused_xin_res(*args, *policy), 10),
         cuda_ms(torch, lambda: res_plain(*args, *policy), 5),
-        (*cuda_scan.scan_res_cost(*size, residuals=residuals, save_gates=save), mm),
+        (*cuda_scan.scan_res_cost(*size, residuals=residuals, save_gates=save), mm,
+         tf32("fwd")),
         lib_fwd_ms, lib_name)
     rows[("lstm_scan_xin_bwd", name, s["b"])] = kernel_row(
         "lstm_scan_xin_bwd", label, err_g, grad_tol,
@@ -900,7 +910,7 @@ def lstm_check(torch, rows, name, s, train, diagonals, policy, own_residuals=Fal
         cuda_ms(torch, lambda: bwd_plain(*saved_p, dys, None, bias=bias,
                                          precision=precision), 3),
         (*cuda_scan.scan_bwd_cost(*size, residuals=residuals, save_gates=save),
-         (2 if save else 3) * mm), lib_bwd_ms, lib_name)
+         (2 if save else 3) * mm, tf32("bwd")), lib_bwd_ms, lib_name)
 
 
 def gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank, seed=0):
@@ -2301,7 +2311,8 @@ def gi_check(torch, rows, sms, name="lm_gi", h=LM["hidden"], r=LM["rank"]):
              cuda_scan.scan_res_cost(*size, gi=True), TOL, lib_fwd_ms),
             ("lstm_scan_bwd", lambda: cuda_scan.lstm_scan_bwd(*args[5:], *res, dys, None),
              lambda: cuda_scan.lstm_scan_bwd_plain(*args[5:], *res, dys, None),
-             cuda_scan.scan_bwd_cost(*size, gi=True), GRAD_TOL, lib_bwd_ms)):
+             (*cuda_scan.scan_bwd_cost(*size, gi=True), 0,
+              cuda_scan.scan_gemm_ops(*size, "bwd", gi=True)), GRAD_TOL, lib_bwd_ms)):
         rows[(entry, name, b)] = kernel_row(entry, label, errs[entry], tol,
                                                cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 3),
                                                cost, lib_ms)
@@ -2963,6 +2974,7 @@ def phase_wide_kernels(torch):
                                                             rx=0, r=0), True, False, bf16)
     gi_check(torch, rows, sms, "wide_dense_gi", WIDE["h"], 0)
     tc_f32_control(torch)
+    tc_bf16_control(torch)
     mma_walk_control(torch)
     streamed_equals_resident(torch, sms)
     ring_pieces_keep_the_bits(torch, sms)
@@ -2980,48 +2992,92 @@ def phase_wide_kernels(torch):
     return rows
 
 
-def tc_f32_control(torch):
-    """The tensor-core tile alone (csrc/gemm_tc_check.cu) at the dense h=1500
-    layer's four products at B=20 in f32, each within TC_TOL of a float64
-    product, as max abs error over max abs output. The scan checks' TOL and
-    GRAD_TOL could pass a tile that lost 3xTF32's small terms; this one
-    fails it, and the control shows so: cuBLAS in one-pass TF32 on the same
-    operands must miss TC_TOL."""
-    from vmlmf_tpu_torch.ops.tc_check import operands, relative_error, tc_product
-
-    m, h = WIDE["t"] * MAIN_BATCH, WIDE["h"]
+def tc_products(torch, b):
+    """The dense h=1500 layer's four products at batch b, on seeded operands:
+    name -> (a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k) of
+    csrc/gemm_tc_check.cu: the x-side projection X Ux; dU = [h0; ys]^T
+    dPre; dx = dPre Ux^T; dUx = X^T dPre."""
+    m, h = WIDE["t"] * b, WIDE["h"]
     g = torch.Generator().manual_seed(5)
 
     def n(*shape):
         return torch.randn(shape, generator=g).cuda()
 
-    x, ux, d_pre, h0 = n(m, h), n(h, 4 * h), n(m, 4 * h), n(MAIN_BATCH, h)
-    # name -> (a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k): the
-    # x-side projection X Ux; dU = [h0; ys]^T dPre; dx = dPre Ux^T; dUx = X^T dPre
-    products = {"project": (0, 0, x, None, 0, h, ux, 4 * h, m, 4 * h, h),
-                "dU": (3, 0, h0, x[:m - MAIN_BATCH], MAIN_BATCH, h, d_pre, 4 * h, h, 4 * h, m),
-                "dx": (0, 1, d_pre, None, 0, 4 * h, ux, 4 * h, m, h, 4 * h),
-                "dUx": (1, 0, x, None, 0, h, d_pre, 4 * h, h, 4 * h, m)}
+    x, ux, d_pre, h0 = n(m, h), n(h, 4 * h), n(m, 4 * h), n(b, h)
+    return {"project": (0, 0, x, None, 0, h, ux, 4 * h, m, 4 * h, h),
+            "dU": (3, 0, h0, x[:m - b], b, h, d_pre, 4 * h, h, 4 * h, m),
+            "dx": (0, 1, d_pre, None, 0, 4 * h, ux, 4 * h, m, h, 4 * h),
+            "dUx": (1, 0, x, None, 0, h, d_pre, 4 * h, h, 4 * h, m)}
+
+
+def tc_f32_control(torch):
+    """The tensor-core tile alone (csrc/gemm_tc_check.cu, the Hopper tile by
+    the plan) at the dense h=1500 layer's four products at B=20 and 128 in
+    f32, each within TC_TOL of a float64 product, as max abs error over max
+    abs output, and bit-equal on a second call. The scan checks' TOL and
+    GRAD_TOL could pass a tile that lost 3xTF32's small terms; this one
+    fails it, and the control shows so: cuBLAS in one-pass TF32 on the same
+    operands must miss TC_TOL."""
+    from vmlmf_tpu_torch.ops.tc_check import operands, relative_error, tc_product
+
     report, tf32 = {}, torch.backends.cuda.matmul.allow_tf32
-    for name, (ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk) in products.items():
-        a, b = operands(ak, bk, a0, a1, b0)
-        got = tc_product(ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk, False)
-        try:
-            torch.backends.cuda.matmul.allow_tf32 = True
-            one_pass = a @ b
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-        report[name] = dict(shape=(pm, pn, pk), tile=relative_error(got, a, b),
-                            tf32_one_pass=relative_error(one_pass, a, b))
+    for b in (MAIN_BATCH, 128):
+        for name, (ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk) in tc_products(torch,
+                                                                                    b).items():
+            a, bb = operands(ak, bk, a0, a1, b0)
+            got = tc_product(ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk, False)
+            again = tc_product(ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk, False)
+            try:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                one_pass = a @ bb
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            report[f"{name} B={b}"] = dict(shape=(pm, pn, pk), tile=relative_error(got, a, bb),
+                                           tf32_one_pass=relative_error(one_pass, a, bb),
+                                           repeat_equal=bool(torch.equal(got, again)))
     print(f"control: the tensor-core tile in f32 (3xTF32) at the dense h=1500 layer's products, "
           f"max abs error over max abs float64 output (tol {TC_TOL}), beside cuBLAS in one-pass "
           f"TF32 (must exceed it): {report}")
     for name, r in report.items():
         if not r["tile"] <= TC_TOL:
             fail(f"the tensor-core tile's f32 {name} product misses float64 by {r['tile']:.3g}")
+        if not r["repeat_equal"]:
+            fail(f"the tensor-core tile's f32 {name} product changed bits on a second call")
         if not r["tf32_one_pass"] > TC_TOL:
             fail(f"control: one-pass TF32's {name} product is within {TC_TOL} of float64 "
                  f"({r['tf32_one_pass']:.3g}): the tile check cannot tell 3xTF32 from it")
+
+
+def tc_bf16_control(torch):
+    """tc_f32_control's twin in bf16: the tile's bf16 products at the same
+    shapes, each within TC_TOL of a float64 product of the bf16-rounded
+    operands and bit-equal on a second call; the control: the float64
+    product of the unrounded operands must miss TC_TOL, so the check sees
+    whether the tile rounded its operands to bf16."""
+    from vmlmf_tpu_torch.ops.tc_check import operands, relative_error, tc_product
+
+    report = {}
+    for b in (MAIN_BATCH, 128):
+        for name, (ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk) in tc_products(torch,
+                                                                                    b).items():
+            a, bb = operands(ak, bk, a0, a1, b0)
+            got = tc_product(ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk, True)
+            again = tc_product(ak, bk, a0, a1, nfirst, lda, b0, ldb, pm, pn, pk, True)
+            report[f"{name} B={b}"] = dict(
+                shape=(pm, pn, pk),
+                tile=relative_error(got, a.bfloat16().float(), bb.bfloat16().float()),
+                unrounded=relative_error(got, a, bb), repeat_equal=bool(torch.equal(got, again)))
+    print(f"control: the tensor-core tile in bf16 at the dense h=1500 layer's products, max abs "
+          f"error over max abs float64 output of the bf16-rounded operands (tol {TC_TOL}), "
+          f"beside that of the unrounded operands (must exceed it): {report}")
+    for name, r in report.items():
+        if not r["tile"] <= TC_TOL:
+            fail(f"the tensor-core tile's bf16 {name} product misses float64 by {r['tile']:.3g}")
+        if not r["repeat_equal"]:
+            fail(f"the tensor-core tile's bf16 {name} product changed bits on a second call")
+        if not r["unrounded"] > TC_TOL:
+            fail(f"control: the bf16 {name} product is within {TC_TOL} of the unrounded "
+                 f"operands' ({r['unrounded']:.3g}): the check cannot see the rounding")
 
 
 def mma_walk_control(torch):
@@ -3904,11 +3960,12 @@ def graph_trace(torch, label, run, pad=0):
     """One profiled run() -> (Counter of the port's kernels by name, device
     busy ms), with the launches counted over the same run: its trace must
     hold one main kernel of the port for each. The window is padded
-    (`profiler_pad`, ``pad`` more spin kernels at each edge); a session
-    whose trace still lost kernel events is run again, with one more spin
-    kernel at each edge (an identical session lost the same event again),
-    up to PROFILE_SESSIONS sessions, and the script fails if each lost
-    some."""
+    (`profiler_pad`, 8 spin kernels and ``pad`` more at each edge: late in
+    a run, 4 to 6 left an eager HAR GRU block's trace one or two of its
+    first kernels short in every session); a session whose trace still
+    lost kernel events is run again, with 8 more spin kernels at each edge
+    (an identical session lost the same event again), up to
+    PROFILE_SESSIONS sessions, and the script fails if each lost some."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -3916,10 +3973,10 @@ def graph_trace(torch, label, run, pad=0):
     for session in range(1, PROFILE_SESSIONS + 1):
         reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiler_pad(torch, 3 + session + pad)
+            profiler_pad(torch, 8 * session + pad)
             run()
             torch.cuda.synchronize()
-            profiler_pad(torch, 3 + session + pad)
+            profiler_pad(torch, 8 * session + pad)
         counts = launch_counts()
         launches = sum(counts.values())
         events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
@@ -4527,9 +4584,12 @@ def trace_step(torch, label, step):
     print(f"trace: one {label}, wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (idle share "
           f"{1 - busy / wall_ms:.3f}), by group "
           + ", ".join(f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items())))
-    # the port's GEMM launches by tile: the LSTM scans' tensor-core tile
-    # (csrc/gemm_tc.cuh) and the CUDA-core one the GRU and stack kernels keep
-    tiles = {"tc": sum(n for name, (n, _) in kernels.items() if "tc_gemm_kernel" in name),
+    # the port's GEMM launches by tile: the LSTM scans' tensor-core tiles
+    # (csrc/gemm_tc.cuh: "wgmma" the Hopper tile's share) and the CUDA-core
+    # one the GRU and stack kernels keep
+    tiles = {"tc": sum(n for name, (n, _) in kernels.items()
+                       if "tc_gemm_kernel" in name or "wg_gemm_kernel" in name),
+             "wgmma": sum(n for name, (n, _) in kernels.items() if "wg_gemm_kernel" in name),
              "cuda_core": sum(n for name, (n, _) in kernels.items()
                               if "vmlmf::gemm_kernel" in name
                               or "vmlmf::group_partial_kernel" in name)}
@@ -4570,11 +4630,13 @@ def phase_trace(torch):
     w_params, w_states = wave.init(), wave.state0()
     lm_wave = trace_step(torch, f"wavefront LM train step at B={MAIN_BATCH}",
                          lambda: wave.train_step(w_params, w_states, *trn[1], 1.0, generator))
-    # the LSTM scans' products run on the tensor cores, never on the old tile
+    # the LSTM scans' products run on the tensor cores, never on the old
+    # tile, the LM layers' on the Hopper tile
     for label, tr in (("LM", lm), ("dense LM", lm_dense)):
-        if tr["gemm_tiles"]["tc"] == 0 or tr["gemm_tiles"]["cuda_core"]:
-            fail(f"trace: the {label} train step's GEMMs by tile: {tr['gemm_tiles']}; "
-                 f"every product of its LSTM scans runs csrc/gemm_tc.cuh")
+        tiles = tr["gemm_tiles"]
+        if tiles["tc"] == 0 or tiles["cuda_core"] or tiles["wgmma"] == 0:
+            fail(f"trace: the {label} train step's GEMMs by tile: {tiles}; "
+                 f"every product of its LSTM scans runs csrc/gemm_tc.cuh, on wgmma")
     print(json.dumps({"trace": dict(lm=lm, har_gru=gru, lm_dense=lm_dense, lm_wavefront=lm_wave)}))
 
 

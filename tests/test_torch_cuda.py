@@ -2206,10 +2206,105 @@ def test_tc_tile_matches_float64(cuda, view, shape, precision):
         whole = tc_product(a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k, bf16,
                            split=False)
         assert relative_error(whole, a, b) < 1e-5
-    for tile in (1, 2):  # each tile at every shape, whichever the plan takes
+    for tile in (1, 2, 3):  # each tile at every shape, whichever the plan takes
         got = tc_product(a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k, bf16,
                          tile=tile)
         assert relative_error(got, a, b) < 1e-5, tile
+
+
+# (m, n, k) for the Hopper tile alone: odd m, n and k (lda = 45, rows that
+# are not 16-byte aligned); h=650 strides (2600-byte f32 rows, 1300-byte
+# bf16 ones) over the LM layer's dx = dPre Ux^T; a k of one partial stage;
+# the dense h=1500 layer's products at B=128 (gi and dx; dU and dUx below)
+HOPPER_SHAPES = {"odd": (45, 37, 53), "h650": (700, 650, 2600), "short_k": (300, 200, 5),
+                 "gi_b128": (4480, 6000, 1500), "dx_b128": (4480, 1500, 6000),
+                 "du_b128": (1500, 6000, 4480)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(HOPPER_SHAPES))
+@pytest.mark.parametrize("view", list(TC_VIEWS))
+def test_hopper_tile_matches_float64(cuda, view, shape, precision):
+    """The Hopper tile (wgmma fed by TMA from staged copies) forced at each
+    view and shape, split k by its own plan: within 1e-5 of a float64
+    product of the same (bf16-rounded) operands, the PrevRows seam (after
+    row or column 7) inside a k tile, and two equal calls give equal
+    bits."""
+    from vmlmf_tpu_torch.ops.tc_check import HOPPER, operands, relative_error, tc_product
+
+    m, n, k = HOPPER_SHAPES[shape]
+    a_kind, b_kind = TC_VIEWS[view]
+    if shape.endswith("_b128") and (a_kind in (1, 3)) != (shape == "du_b128"):
+        pytest.skip("a B=128 product is checked at the views the scans give it")
+    rng = np.random.default_rng(11)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+
+    nfirst = min(7, (k if a_kind == 3 else m) - 1)
+    if a_kind == 0:
+        a0, a1, lda = t(m, k), None, k
+    elif a_kind == 1:
+        a0, a1, lda = t(k, m), None, m
+    elif a_kind == 2:
+        a0, a1, lda = t(nfirst, k), t(m - nfirst, k), k
+    else:
+        a0, a1, lda = t(nfirst, m), t(k - nfirst, m), m
+    b0, ldb = (t(k, n), n) if b_kind == 0 else (t(n, k), k)
+    a, b = operands(a_kind, b_kind, a0, a1, b0)
+    bf16 = precision == "bf16"
+    runs = [tc_product(a_kind, b_kind, a0, a1, nfirst, lda, b0, ldb, m, n, k, bf16,
+                       tile=HOPPER) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    if bf16:
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    err = relative_error(runs[0], a, b)
+    assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+def test_tc_plan_mirror_equals_the_header_s(cuda):
+    """ops/cuda_scan.py::tc_plan against gemm_tc.cuh's own (read through
+    gemm_tc_check.cu) at every product of the HAR, PTB medium and dense
+    h=1500 layers at B = 1, 20, 81, 128, in both precisions, with the
+    split-k room the scans give them and with none."""
+    from vmlmf_tpu_torch.ops.tc_check import card_plan
+
+    layers = {"har": (24, 77, 180, 8, 6), "har_dense": (24, 77, 180, 0, 0),
+              "lm": (35, 650, 650, 300, 300), "lm_dense": (35, 650, 650, 0, 0),
+              "dense1500": (35, 1500, 1500, 0, 0), "lowrank1500": (35, 1500, 1500, 750, 750)}
+    for t, f, h, rx, r in layers.values():
+        for b in (1, 20, 81, 128):
+            for entry, extra in (("fwd", {}), ("bwd", {"recompute": True})):
+                for bf16 in (False, True):
+                    floats = cuda_scan.bwd_partial_floats(t, b, f, rx, h, r, bf16=bf16, **extra)
+                    for m, n, k, _, _, split, _ in cuda_scan.gemm_products(t, b, f, rx, h, r,
+                                                                           entry, **extra):
+                        for room in {0, floats // (m * n) if split else 0}:
+                            want = cuda_scan.tc_plan(m, n, k, room, bf16)
+                            assert card_plan(m, n, k, room, bf16) == want, (m, n, k, room)
+
+
+@pytest.mark.cuda
+def test_hopper_cast_rounds_as_bf16_pair(cuda):
+    """The Hopper tile's bf16 cast pass rounds to nearest even, as torch's
+    .bfloat16() and the Ampere tile's bf16_pair do: bit-equal on values
+    with ties (both parities), subnormals of both types, signed zeros,
+    infinities and odd row lengths (the padding to 8 elements)."""
+    from vmlmf_tpu_torch.ops.tc_check import tc_cast
+
+    bits = np.concatenate([
+        np.array([0x3F808000, 0x3F818000, 0x3F80C000, 0x3F817FFF, 0x00008000, 0x00018000,
+                  0x00000001, 0x007FFFFF, 0x80008000, 0x00000000, 0x80000000, 0x7F800000,
+                  0xFF800000, 0x7F7FFFFF, 0x0080FFFF], dtype=np.uint32),
+        np.random.default_rng(3).integers(0, 2 ** 32, 7 * 33 - 15, dtype=np.uint64)
+        .astype(np.uint32)])
+    bits = bits[np.isfinite(bits.view(np.float32)) | (np.abs(bits.view(np.float32)) == np.inf)]
+    vals = torch.from_numpy(bits[:7 * 29].view(np.float32).reshape(7, 29).copy())
+    got = tc_cast(vals.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int16), vals.bfloat16().view(torch.int16))
 
 
 # (T, B, F, h, rx, r): no m, n or k a multiple of a tile (m = 21, F = 37,

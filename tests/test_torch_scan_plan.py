@@ -435,26 +435,33 @@ def test_emulated_phases_at_bf16_rounding_match_the_plain_bf16_walks(case):
 
 
 def test_bwd_partial_floats_covers_each_split_k_product():
-    """gemm_tc.cuh's plan: below 264 64x64 tiles, slices of whole 32-deep
-    steps near 264 CTAs."""
-    # the LM layer: dV [300, 2600] over 700 rows wants 2 slices, dU [650, 300] 5
+    """gemm_tc.cuh's plan: on the Ampere tile (below 2^28 multiply-adds),
+    below 264 64x64 tiles, slices of whole 32-deep steps near 264 CTAs; on
+    the Hopper tile, below a wave of 132 128x128 tiles, slices of whole
+    stages that give the busiest CTA the least work."""
+    # the LM layer: dV [300, 2600] over 700 rows wants 2 slices (63 large
+    # tiles), dU [650, 300] 5 (Ampere)
     assert cuda_scan.bwd_partial_floats(35, 20, 650, 300, 650, 300) == max(
         2 * 300 * 2600, 5 * 650 * 300)
-    # the same at B=128: dXU [4480, 300] over k = 2600 has 350 small tiles, no split
+    # the same at B=128: dXU [4480, 300] over k = 2600 has 105 large tiles,
+    # within a wave: no split
     assert cuda_scan.bwd_partial_floats(35, 128, 650, 300, 650, 300) == 2 * 300 * 2600
     # the HAR layer's dU [180, 6] has one tile and 1,944 rows: 61 slices of 32;
     # dXU [1944, 8] over k = 720, 31 tiles, the most: 8 slices of 96
     assert cuda_scan.bwd_partial_floats(24, 81, 77, 8, 180, 6) == 8 * 1944 * 8
     assert cuda_scan.bwd_partial_floats(24, 81, 77, 8, 180, 6, gi=True) == 21 * 6 * 720
-    # the dense LM layer: dx [700, 650] = dPre Ux^T over k = 2600 wants 3 slices
+    # the dense LM layer: dx [700, 650] = dPre Ux^T over k = 2600 wants 3
+    # slices (36 large tiles)
     assert cuda_scan.bwd_partial_floats(35, 20, 650, 0, 650, 0) == 3 * 700 * 650
     # the dense h=1500 layer: dU and dUx [1500, 6000] fill a wave of large
-    # tiles, dx [700, 1500] over k = 6000 has 264 small tiles: no split at B=20
-    # or 128, recompute's pre-pass neither
+    # tiles, dx [700, 1500] over k = 6000 has 72, which two slices would
+    # not spread better: no split at B=20 or 128, recompute's pre-pass
+    # neither
     for b in (20, 128):
         assert cuda_scan.bwd_partial_floats(35, b, 1500, 0, 1500, 0, recompute=True) == 0
-    # r = rx = 750 at h=1500: dXU [700, 750] over k = 6000 wants 2 slices
-    assert cuda_scan.bwd_partial_floats(35, 20, 1500, 750, 1500, 750) == 2 * 700 * 750
+    # r = rx = 750 at h=1500: dXU [700, 750] over k = 6000 has 36 large
+    # tiles, 3 slices (108 CTAs)
+    assert cuda_scan.bwd_partial_floats(35, 20, 1500, 750, 1500, 750) == 3 * 700 * 750
     # products that a single tile pass covers want none
     assert cuda_scan.bwd_partial_floats(1, 1, 4, 0, 4, 0) == 0
 

@@ -80,8 +80,9 @@
 //      into the CTA's region of `wstream`, and phases B and C run on the
 //      ring (scan_grid.cuh::Ring), in the same order of sums.
 //   2. Time-parallel passes over all M rows: tensor-core GEMMs
-//      (gemm_tc.cuh: 3xTF32 in f32, a bf16 mma in the bf16 variants) with
-//      transposed operand views (six low-rank, three with a dense side of
+//      (gemm_tc.cuh: wgmma fed by TMA, 3xTF32 in f32, bf16 in the bf16
+//      variants, each operand staged once a call; mma.sync at the small
+//      products) with transposed operand views (six low-rank, three with a dense side of
 //      each kind), and one column-sum kernel. At a dense h=1500 these
 //      products are 12.6 GFLOP each at B=20. The products whose k is M
 //      (the weight gradients dU, dV, dUx, dVx) have few output tiles at
@@ -586,6 +587,8 @@ struct BwdIO {
   size_t room;
   float* wstream;
   size_t wstream_floats;
+  float* stage;
+  size_t stage_floats;
   int t_len, batch, f, rx, h, r;
 };
 
@@ -595,29 +598,32 @@ struct BwdIO {
 // hu = Hprev @ U into hu_w; then pre = gi + hu @ V (dense: Hprev @ U) +
 // Hprev * dvec and its gates, in place in gates_w. Returns the first error.
 template <bool Bf16>
-cudaError_t recompute(const BwdIO& io, cudaStream_t stream) {
+cudaError_t recompute(const BwdIO& io, vmlmf::tc::Staging& st, cudaStream_t stream) {
   using vmlmf::RowMajor;
   using vmlmf::tc::gemm;
   const int m = io.t_len * io.batch, g4 = 4 * io.h;
   const vmlmf::GiEpilogue gi_epi{io.gates_w, io.x, io.xdvec, io.bias, io.f, io.h};
   cudaError_t err;
   if (io.vx == nullptr) {
-    err = gemm<Bf16>(RowMajor{io.x, io.f}, RowMajor{io.ux, g4}, gi_epi, m, g4, io.f, stream);
+    err = gemm<Bf16>(st, RowMajor{io.x, io.f}, RowMajor{io.ux, g4}, gi_epi, m, g4, io.f, stream);
   } else {
-    err = gemm<Bf16>(RowMajor{io.x, io.f}, RowMajor{io.ux, io.rx}, vmlmf::Store{io.xu_w, io.rx},
-                     m, io.rx, io.f, stream);
+    err = gemm<Bf16>(st, RowMajor{io.x, io.f}, RowMajor{io.ux, io.rx},
+                     vmlmf::Store{io.xu_w, io.rx}, m, io.rx, io.f, stream);
     if (err != cudaSuccess) return err;
-    err = gemm<Bf16>(RowMajor{io.xu_w, io.rx}, RowMajor{io.vx, g4}, gi_epi, m, g4, io.rx, stream);
+    err = gemm<Bf16>(st, RowMajor{io.xu_w, io.rx}, RowMajor{io.vx, g4}, gi_epi, m, g4, io.rx,
+                     stream);
   }
   if (err != cudaSuccess) return err;
   const vmlmf::PrevRows hprev{io.h0, io.ys, io.batch, io.h};
   const vmlmf::GatesEpilogue gates_epi{io.gates_w, io.h0, io.ys, io.dvec, io.batch, io.h};
   if (io.v == nullptr)
-    return gemm<Bf16>(hprev, RowMajor{io.u, g4}, gates_epi, m, g4, io.h, stream);
-  err = vmlmf::tc::gemm_splitk<Bf16>(hprev, RowMajor{io.u, io.r}, vmlmf::Store{io.hu_w, io.r}, m,
-                                     io.r, io.h, io.partial, io.room, stream);
+    return gemm<Bf16>(st, hprev, RowMajor{io.u, g4}, gates_epi, m, g4, io.h, stream);
+  err = vmlmf::tc::gemm_splitk<Bf16>(st, hprev, RowMajor{io.u, io.r},
+                                     vmlmf::Store{io.hu_w, io.r}, m, io.r, io.h, io.partial,
+                                     io.room, stream);
   if (err != cudaSuccess) return err;
-  return gemm<Bf16>(RowMajor{io.hu_w, io.r}, RowMajor{io.v, g4}, gates_epi, m, g4, io.r, stream);
+  return gemm<Bf16>(st, RowMajor{io.hu_w, io.r}, RowMajor{io.v, g4}, gates_epi, m, g4, io.r,
+                    stream);
 }
 
 // The whole BPTT: the residuals widened or rebuilt as the policy says, the
@@ -633,6 +639,7 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
   const float* gates = static_cast<const float*>(io.gates);
   const float* hu = static_cast<const float*>(io.hu);
   const float* xu = io.xu;
+  vmlmf::tc::Staging st(io.stage, io.stage_floats);
   cudaError_t err = cudaSuccess;
   if (policy == kPolicyBf16) {  // bf16 residuals, read widened
     err = vmlmf::widen(io.gates, io.gates_w, (size_t)m * g4, stream);
@@ -642,7 +649,7 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
     hu = io.hu_w;
   } else if (policy == kPolicyNone) {
     if (io.x == nullptr) return cudaErrorInvalidValue;  // recompute is x mode only
-    err = recompute<Bf16>(io, stream);
+    err = recompute<Bf16>(io, st, stream);
     gates = io.gates_w;
     hu = io.hu_w;
     xu = io.xu_w;
@@ -658,7 +665,7 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
                            io.wstream_floats, io.t_len, io.batch, io.h, r, plan, stream);
     if (err != cudaSuccess) return err;
     // dU [h, 4h] = Hprev^T dPre
-    err = gemm_splitk<Bf16>(hprev_t, RowMajor{io.dpre, g4}, Store{io.du, g4}, io.h, g4, m,
+    err = gemm_splitk<Bf16>(st, hprev_t, RowMajor{io.dpre, g4}, Store{io.du, g4}, io.h, g4, m,
                             io.partial, io.room, stream);
   } else {
     err = bptt<false, Bf16>(gates, io.cs, io.c0, io.dys, io.dc_last, io.u, io.v, io.dvec, io.dpre,
@@ -666,10 +673,10 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
                             io.wstream_floats, io.t_len, io.batch, io.h, r, plan, stream);
     if (err != cudaSuccess) return err;
     // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-    err = gemm_splitk<Bf16>(Transposed{hu, r}, RowMajor{io.dpre, g4}, Store{io.dv, g4}, r, g4, m,
-                            io.partial, io.room, stream);
+    err = gemm_splitk<Bf16>(st, Transposed{hu, r}, RowMajor{io.dpre, g4}, Store{io.dv, g4}, r,
+                            g4, m, io.partial, io.room, stream);
     if (err != cudaSuccess) return err;
-    err = gemm_splitk<Bf16>(hprev_t, RowMajor{io.dhu, r}, Store{io.du, r}, io.h, r, m,
+    err = gemm_splitk<Bf16>(st, hprev_t, RowMajor{io.dhu, r}, Store{io.du, r}, io.h, r, m,
                             io.partial, io.room, stream);
   }
   if (err != cudaSuccess) return err;
@@ -678,25 +685,25 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
     const DxEpilogue dx_epi{io.dx, io.dpre, io.xdvec, f, io.h};
     if (io.vx == nullptr) {
       // dx [M, F] = dPre Ux^T + fit(sum_g dPre_g xdvec_g);  dUx [F, 4h] = X^T dPre
-      err = gemm_splitk<Bf16>(RowMajor{io.dpre, g4}, Transposed{io.ux, g4}, dx_epi, m, f, g4,
+      err = gemm_splitk<Bf16>(st, RowMajor{io.dpre, g4}, Transposed{io.ux, g4}, dx_epi, m, f, g4,
                               io.partial, io.room, stream);
       if (err != cudaSuccess) return err;
-      err = gemm_splitk<Bf16>(Transposed{io.x, f}, RowMajor{io.dpre, g4}, Store{io.dux, g4}, f, g4,
-                              m, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(st, Transposed{io.x, f}, RowMajor{io.dpre, g4}, Store{io.dux, g4},
+                              f, g4, m, io.partial, io.room, stream);
     } else {
       // dXU [M, rx] = dPre Vx^T;  dx [M, F] = dXU Ux^T + fit(sum_g dPre_g xdvec_g)
-      err = gemm_splitk<Bf16>(RowMajor{io.dpre, g4}, Transposed{io.vx, g4}, Store{io.dxu, rx}, m,
-                              rx, g4, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(st, RowMajor{io.dpre, g4}, Transposed{io.vx, g4},
+                              Store{io.dxu, rx}, m, rx, g4, io.partial, io.room, stream);
       if (err != cudaSuccess) return err;
-      err = vmlmf::tc::gemm<Bf16>(RowMajor{io.dxu, rx}, Transposed{io.ux, rx}, dx_epi, m, f, rx,
+      err = vmlmf::tc::gemm<Bf16>(st, RowMajor{io.dxu, rx}, Transposed{io.ux, rx}, dx_epi, m, f, rx,
                                   stream);
       if (err != cudaSuccess) return err;
       // dUx [F, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-      err = gemm_splitk<Bf16>(Transposed{io.x, f}, RowMajor{io.dxu, rx}, Store{io.dux, rx}, f, rx,
-                              m, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(st, Transposed{io.x, f}, RowMajor{io.dxu, rx}, Store{io.dux, rx},
+                              f, rx, m, io.partial, io.room, stream);
       if (err != cudaSuccess) return err;
-      err = gemm_splitk<Bf16>(Transposed{xu, rx}, RowMajor{io.dpre, g4}, Store{io.dvx, g4}, rx, g4,
-                              m, io.partial, io.room, stream);
+      err = gemm_splitk<Bf16>(st, Transposed{xu, rx}, RowMajor{io.dpre, g4}, Store{io.dvx, g4},
+                              rx, g4, m, io.partial, io.room, stream);
     }
     if (err != cudaSuccess) return err;
   }
@@ -719,10 +726,11 @@ cudaError_t bwd(const BwdIO& io, int policy, GridPlan plan, cudaStream_t stream)
 // otherwise; dpre [T*B, 4h], dhu [T*B, r] and dxu [T*B, rx] are scratch
 // too (dhu null for a dense recurrent side, dxu for a dense x side), as
 // are xchg and sync (scan_plan sizes them), partial, partial_floats
-// floats for the split-k partial sums (bwd_partial_floats), and wstream,
+// floats for the split-k partial sums (bwd_partial_floats), wstream,
 // wstream_floats floats of streamed weights (stream_floats; null where the
-// plan streams nothing); every other pointer after dpre is an output (dv
-// and dvx null with dhu and dxu). The ten integers after r are
+// plan streams nothing), and tc_stage, stage_floats floats for the
+// products' staged operands (tc_stage_floats); every other pointer after
+// dpre is an output (dv and dvx null with dhu and dxu). The ten integers after r are
 // scan_plan's layout (ScanPlan.ints; the last, mma, 1 for a plan whose
 // bf16 products run on the tensor cores); bf16_mm 1 rounds every product's
 // operands to bf16.
@@ -733,14 +741,15 @@ extern "C" int lstm_scan_xin_bwd(
     const float* dys, const float* dc_last, float* gates_w, float* hu_w, float* xu_w,
     float* dpre, float* dhu, float* dxu, float* dx, float* dux, float* dvx, float* dxdvec,
     float* dbias, float* du, float* dv, float* ddvec, float* dh0, float* dc0, float* xchg,
-    unsigned* sync, float* partial, float* wstream, int partial_floats, int wstream_floats,
-    int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage,
-    int red, int smem, int res_a, int res_b, int piece, int mma, int bf16_mm,
-    int policy, void* stream_handle) {
+    unsigned* sync, float* partial, float* wstream, float* tc_stage, int partial_floats,
+    int wstream_floats, int stage_floats, int t_len, int batch, int f, int rx, int h, int r,
+    int groups, int ctas, int rpad, int stage, int red, int smem, int res_a, int res_b, int piece,
+    int mma, int bf16_mm, int policy, void* stream_handle) {
   const BwdIO io{x, ux, vx, xdvec, bias, u, v, dvec, h0, c0, ys, cs, gates, hu, xu, dys,
                  dc_last, gates_w, hu_w, xu_w, dpre, dhu, dxu, dx, dux, dvx, dxdvec, dbias, du,
                  dv, ddvec, dh0, dc0, xchg, sync, partial, static_cast<size_t>(partial_floats),
-                 wstream, static_cast<size_t>(wstream_floats), t_len, batch, f, rx, h, r};
+                 wstream, static_cast<size_t>(wstream_floats), tc_stage,
+                 static_cast<size_t>(stage_floats), t_len, batch, f, rx, h, r};
   const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);
@@ -748,23 +757,24 @@ extern "C" int lstm_scan_xin_bwd(
 
 // gi mode (pallas_scan.py::_scan_core_bwd): the walk, whose dpre is dgi
 // [T*B, 4h], then dU, dV and ddvec; no x side. policy 0 or 1 (f32 or bf16
-// gates and hu; gates_w and hu_w scratch for 1); the rest, wstream too, as
-// in lstm_scan_xin_bwd.
+// gates and hu; gates_w and hu_w scratch for 1); the rest, wstream and
+// tc_stage too, as in lstm_scan_xin_bwd.
 extern "C" int lstm_scan_bwd(
     const float* u, const float* v, const float* dvec, const float* h0, const float* c0,
     const float* ys, const float* cs, const void* gates, const void* hu, const float* dys,
     const float* dc_last, float* gates_w, float* hu_w, float* dgi, float* dhu, float* du,
     float* dv, float* ddvec, float* dh0, float* dc0, float* xchg, unsigned* sync,
-    float* partial, float* wstream, int partial_floats, int wstream_floats, int t_len,
-    int batch, int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem,
-    int res_a, int res_b, int piece, int mma, int bf16_mm, int policy,
-    void* stream_handle) {
+    float* partial, float* wstream, float* tc_stage, int partial_floats, int wstream_floats,
+    int stage_floats, int t_len, int batch, int h, int r, int groups, int ctas, int rpad,
+    int stage, int red, int smem, int res_a, int res_b, int piece, int mma, int bf16_mm,
+    int policy, void* stream_handle) {
   if (policy == kPolicyNone) return cudaErrorInvalidValue;
   const BwdIO io{nullptr, nullptr, nullptr, nullptr, nullptr, u, v, dvec, h0, c0, ys, cs, gates,
                  hu, nullptr, dys, dc_last, gates_w, hu_w, nullptr, dgi, dhu, nullptr, nullptr,
                  nullptr, nullptr, nullptr, nullptr, du, dv, ddvec, dh0, dc0, xchg, sync, partial,
                  static_cast<size_t>(partial_floats), wstream,
-                 static_cast<size_t>(wstream_floats), t_len, batch, 1, 0, h, r};
+                 static_cast<size_t>(wstream_floats), tc_stage,
+                 static_cast<size_t>(stage_floats), t_len, batch, 1, 0, h, r};
   const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   return bf16_mm ? bwd<true>(io, policy, plan, stream) : bwd<false>(io, policy, plan, stream);

@@ -33,8 +33,8 @@
 // and no xu.
 //
 // bf16 (pallas_scan.py:297-317): every product takes bf16-rounded operands
-// and sums in f32: x, Ux, xu and Vx in the projection GEMMs (bf16 mma,
-// gemm_tc.cuh), h, U, hu and V in the scan (bf16 weight
+// and sums in f32: x, Ux, xu and Vx in the projection GEMMs (bf16 wgmma
+// on bf16 copies, gemm_tc.cuh), h, U, hu and V in the scan (bf16 weight
 // slices in shared memory, exchanged h and hu rounded by their writer;
 // where a group pads to 24 rows or more, the products on the tensor cores
 // with a bf16 exchange: scan_grid.cuh::Ring::mma_product). The x term, the h * dvec term (h from the f32 carry), the
@@ -42,8 +42,9 @@
 //
 // What bounds it on an H100, and what the design does about it:
 // * The input projection is time-parallel. It runs first as tensor-core
-//   GEMM launches (gemm_tc.cuh: 3xTF32 in f32, bf16 mma in the bf16
-//   variants) over all T*B rows, spread over many CTAs: xu = x@Ux, then gi =
+//   GEMM launches (gemm_tc.cuh: wgmma fed by TMA from staged copies of the
+//   operands, 3xTF32 in f32, bf16 in the bf16 variants; mma.sync at the
+//   small products) over all T*B rows, spread over many CTAs: xu = x@Ux, then gi =
 //   xu@Vx plus the elementwise x term and bias; or, for a dense x side, one
 //   GEMM gi = x@Ux whose epilogue adds the x term and bias. It writes gi
 //   [T,B,4h] to device memory and the scan reads it back, a round trip the
@@ -583,32 +584,35 @@ int res_kind(int policy) {
 
 // The projection GEMMs of x mode (two, or one for a dense x side) on the
 // tensor cores (gemm_tc.cuh), with bf16-rounded operands when Bf16, else in
-// 3xTF32; returns the first error.
+// 3xTF32, their staged copies in `stage` (stage_floats floats,
+// ops/cuda_scan.py::tc_stage_floats); returns the first error.
 template <bool Bf16>
 cudaError_t project(const float* x, const float* ux, const float* vx, const float* xdvec,
                     const float* bias, float* xu, float* gi, int m, int f, int rx, int h,
-                    cudaStream_t stream) {
+                    float* stage, int stage_floats, cudaStream_t stream) {
   using vmlmf::RowMajor;
   using vmlmf::tc::gemm;
+  vmlmf::tc::Staging st(stage, static_cast<size_t>(stage_floats));
   const int g4 = 4 * h;
   const vmlmf::GiEpilogue epi{gi, x, xdvec, bias, f, h};
   if (vx == nullptr)  // dense x side: gi = x @ Ux + the x term and bias
-    return gemm<Bf16>(RowMajor{x, f}, RowMajor{ux, g4}, epi, m, g4, f, stream);
-  cudaError_t err = gemm<Bf16>(RowMajor{x, f}, RowMajor{ux, rx}, vmlmf::Store{xu, rx}, m, rx, f,
-                               stream);
+    return gemm<Bf16>(st, RowMajor{x, f}, RowMajor{ux, g4}, epi, m, g4, f, stream);
+  cudaError_t err = gemm<Bf16>(st, RowMajor{x, f}, RowMajor{ux, rx}, vmlmf::Store{xu, rx}, m,
+                               rx, f, stream);
   if (err != cudaSuccess) return err;
-  return gemm<Bf16>(RowMajor{xu, rx}, RowMajor{vx, g4}, epi, m, g4, rx, stream);
+  return gemm<Bf16>(st, RowMajor{xu, rx}, RowMajor{vx, g4}, epi, m, g4, rx, stream);
 }
 
 // x mode: the projection, then the scan; returns the first error.
 int launch_xin(const float* x, const float* ux, const float* vx, const float* xdvec,
                const float* bias, float* xu, const ScanIO& io, int f, int rx, int res,
-               int bf16_mm, GridPlan plan, cudaStream_t stream) {
+               int bf16_mm, float* stage, int stage_floats, GridPlan plan, cudaStream_t stream) {
   const int m = io.t_len * io.batch;
   float* gi = const_cast<float*>(io.gi);
-  cudaError_t err = bf16_mm ? project<true>(x, ux, vx, xdvec, bias, xu, gi, m, f, rx, io.h, stream)
+  cudaError_t err = bf16_mm ? project<true>(x, ux, vx, xdvec, bias, xu, gi, m, f, rx, io.h,
+                                            stage, stage_floats, stream)
                             : project<false>(x, ux, vx, xdvec, bias, xu, gi, m, f, rx, io.h,
-                                             stream);
+                                             stage, stage_floats, stream);
   if (err != cudaSuccess) return err;
   return scan_any(io, res, bf16_mm != 0, plan, stream);
 }
@@ -620,21 +624,24 @@ int launch_xin(const float* x, const float* ux, const float* vx, const float* xd
 // buffers xchg, the barrier words sync and the streamed weights wstream of
 // wstream_floats floats (scan_plan sizes them; wstream null where the plan
 // streams nothing); writes ys [T,B,h] and c_last [B,h]. vx null: dense x
-// side, rx unused; v null: dense recurrent side, r unused. The ten
-// integers after r are scan_plan's layout (ScanPlan.ints: the last, mma,
-// 1 for a plan whose bf16 products run on the tensor cores); bf16_mm 1
-// rounds every product's operands to bf16.
+// side, rx unused; v null: dense recurrent side, r unused. tc_stage, of
+// stage_floats floats, is scratch for the projection's staged operands
+// (tc_stage_floats). The ten integers after r are scan_plan's layout
+// (ScanPlan.ints: the last, mma, 1 for a plan whose bf16 products run on
+// the tensor cores); bf16_mm 1 rounds every product's operands to bf16.
 extern "C" int lstm_scan_xin_fwd(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
-    float* c_last, float* xchg, unsigned* sync, float* wstream, int wstream_floats, int t_len,
+    float* c_last, float* xchg, unsigned* sync, float* wstream, float* tc_stage,
+    int wstream_floats, int stage_floats, int t_len,
     int batch, int f, int rx, int h, int r, int groups, int ctas, int rpad, int stage, int red,
     int smem, int res_a, int res_b, int piece, int mma,
     int bf16_mm, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, c_last, nullptr, nullptr, nullptr, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
-  return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, kNoGrad, bf16_mm,
+  return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, kNoGrad, bf16_mm, tc_stage,
+                    stage_floats,
                     GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma},
                     static_cast<cudaStream_t>(stream_handle));
 }
@@ -643,18 +650,20 @@ extern "C" int lstm_scan_xin_fwd(
 // scratch; writes ys, cs [T,B,h] and xu [T*B, rx] (null for a dense x
 // side). policy 0 or 1 (saved gates, f32 or bf16 residuals) also writes the
 // gates [T,B,4h] and hu [T,B,r] (null for a dense recurrent side) in that
-// type; policy 2 (recompute) writes neither (both null), and xu is scratch.
+// type; policy 2 (recompute) writes neither (both null), and xu is scratch;
+// tc_stage as in lstm_scan_xin_fwd.
 extern "C" int lstm_scan_xin_fwd_res(
     const float* x, const float* ux, const float* vx, const float* xdvec,
     const float* bias, const float* u, const float* v, const float* dvec,
     const float* h0, const float* c0, float* xu, float* gi, float* ys,
     float* cs, void* gates, void* hu, float* xchg, unsigned* sync, float* wstream,
-    int wstream_floats, int t_len, int batch, int f, int rx, int h, int r, int groups, int ctas,
-    int rpad, int stage, int red, int smem, int res_a, int res_b, int piece, int mma,
-    int bf16_mm, int policy, void* stream_handle) {
+    float* tc_stage, int wstream_floats, int stage_floats, int t_len, int batch, int f, int rx,
+    int h, int r, int groups, int ctas, int rpad, int stage, int red, int smem, int res_a,
+    int res_b, int piece, int mma, int bf16_mm, int policy, void* stream_handle) {
   const ScanIO io{gi, u, v, dvec, h0, c0, ys, nullptr, cs, gates, hu, xchg, sync,
                   wstream, static_cast<size_t>(wstream_floats), t_len, batch, h, r};
-  return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, res_kind(policy), bf16_mm,
+  return launch_xin(x, ux, vx, xdvec, bias, xu, io, f, rx, res_kind(policy), bf16_mm, tc_stage,
+                    stage_floats,
                     GridPlan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, mma},
                     static_cast<cudaStream_t>(stream_handle));
 }

@@ -450,7 +450,28 @@ MIN_SLICE_DEPTH = 8    # depth rows a slice takes at least (kMinSliceDepth)
 STAGE_FLOATS = 8192    # the most floats a CTA stages of an exchange buffer at once
 SMEM_LIMIT = 232448    # bytes of shared memory one block may use on sm_90
 SPLIT_TARGET = 264     # CTAs a split-k product aims at (gemm_tile.cuh kSplitTarget)
-TC_DEPTH = 32          # k-slice of a tensor-core GEMM stage (gemm_tc.cuh kK)
+TC_DEPTH = 32          # k-slice of an Ampere-tile stage (gemm_tc.cuh kK)
+# gemm_tc.cuh's Hopper tile (namespace wg): CTA tiles of WG_TILE x WG_TILE,
+# stages of WG_BK k (bf16 64, f32 32: one 128-byte box row), WG_STAGES of
+# them, a flush of bf16's chunk sum every WG_FLUSH stages (3xTF32's every
+# k8 step); k slices of at
+# least WG_MIN_SLICE_STAGES stages, at most WG_MAX_SPLITS, for kWave
+# (WAVE) persistent CTAs. Products of WG_MIN_WORK multiply-adds or more
+# with m, n and k all WG_MIN_DIM or more take it (kWgMinWork, kWgMinDim),
+# the others the Ampere tile (`tc_plan`). Staged copies start STAGE_ALIGN
+# bytes apart (kStageAlign), bf16 rows padded to 8 elements, f32 rows to 4
+# (16 bytes).
+WG_TILE = 128
+WG_BK = {True: 64, False: 32}
+WG_STAGES = {True: 6, False: 3}
+WG_FLUSH = 4
+WG_MIN_SLICE_STAGES = 4
+WG_MAX_SPLITS = 32
+WG_MIN_WORK = 1 << 28
+WG_MIN_DIM = 128
+WAVE = 132
+STAGE_ALIGN = 256
+STAGE_COPIES = 24      # staged copies a call holds at most (Staging::copies)
 # multiply-adds of a step below which a CTA's share is not worth a wider
 # group barrier: about a microsecond of one SM's f32 work
 MIN_STEP_WORK = 32768
@@ -967,16 +988,171 @@ def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None, ring=None, piece
 
 def _splitk_floats(m, n, k, depth=TC_DEPTH):
     """Floats of partial sums that a split-k product c [m, n] = A [m, k] @
-    B [k, n] wants (0: it does not split): with fewer than SPLIT_TARGET
-    64x64 tiles, the tiles times slices of k in whole ``depth`` steps near
-    SPLIT_TARGET CTAs. gemm_tc.cuh::gemm_splitk (whose plan never takes its
-    128x128 tile there) slices by TC_DEPTH, gemm_tile.cuh's by 16."""
+    B [k, n] wants of the Ampere tile's rule (0: it does not split): with
+    fewer than SPLIT_TARGET 64x64 tiles, the tiles times slices of k in
+    whole ``depth`` steps near SPLIT_TARGET CTAs. gemm_tc.cuh::mma_plan
+    (which never takes its 128x128 tile there) slices by TC_DEPTH,
+    gemm_tile.cuh's by 16."""
     if k <= 0:
         return 0
     splits = _cdiv(SPLIT_TARGET, _cdiv(n, 64) * _cdiv(m, 64))
     kslice = _cdiv(_cdiv(k, splits), depth) * depth
     splits = _cdiv(k, kslice)
     return splits * m * n if splits > 1 else 0
+
+
+def tc_route(m, n, k):
+    """True where gemm_tc.cuh runs a product on its Hopper tile
+    (wg_route): WG_MIN_WORK multiply-adds or more, and m, n and k all
+    WG_MIN_DIM or more."""
+    return min(m, n, k) >= WG_MIN_DIM and m * n * k >= WG_MIN_WORK
+
+
+def wg_plan(m, n, k, room, bf16):
+    """gemm_tc.cuh::wg_plan -> (splits, kslice): where the tiles fill less
+    than a wave of WAVE persistent CTAs, k cut into the slices (whole
+    stages, at least WG_MIN_SLICE_STAGES each, at most WG_MAX_SPLITS,
+    within ``room``, tiles times slices within a wave) that give the
+    busiest CTA the least work, the fewest on a tie."""
+    bk = WG_BK[bool(bf16)]
+    tiles = _cdiv(m, WG_TILE) * _cdiv(n, WG_TILE)
+    best = 1
+    for s in range(2, min(WG_MAX_SPLITS, _cdiv(WAVE, tiles), room,
+                          k // (bk * WG_MIN_SLICE_STAGES)) + 1):
+        if _cdiv(tiles * s, WAVE) * best < _cdiv(tiles * best, WAVE) * s:
+            best = s
+    kslice = _cdiv(_cdiv(k, best), bk) * bk
+    splits = _cdiv(k, kslice)
+    return (splits, kslice) if splits > 1 else (1, k)
+
+
+def mma_plan(m, n, k, room):
+    """gemm_tc.cuh::mma_plan, the Ampere tile's -> (big, splits, kslice)."""
+    big = _cdiv(m, 128) * _cdiv(n, 128)
+    small = _cdiv(m, 64) * _cdiv(n, 64)
+    if 400 * _cdiv(big, WAVE) < 116 * _cdiv(small, WAVE):
+        return True, 1, k
+    if k <= 0:
+        return False, 1, k
+    splits = min(_cdiv(SPLIT_TARGET, small), room)
+    kslice = _cdiv(_cdiv(k, splits if splits > 1 else 1), TC_DEPTH) * TC_DEPTH
+    splits = _cdiv(k, kslice)
+    return (False, splits, kslice) if splits > 1 else (False, 1, k)
+
+
+def tc_plan(m, n, k, room, bf16):
+    """gemm_tc.cuh::tc_plan -> (wg, big, splits, kslice): the Hopper tile
+    (wg, always big) where `tc_route` sends the product, else the Ampere
+    tile's `mma_plan`; ``room``: slices of partial sums the scratch holds."""
+    if tc_route(m, n, k):
+        return (True, True, *wg_plan(m, n, k, room, bf16))
+    return (False, *mma_plan(m, n, k, room))
+
+
+def tc_splitk_floats(m, n, k, bf16):
+    """Floats of partial sums that gemm_tc.cuh's plan wants for a split-k
+    product c [m, n] over k (0: it does not split), on the tile that
+    `tc_route` gives it."""
+    if not tc_route(m, n, k):
+        return _splitk_floats(m, n, k)
+    splits, _ = wg_plan(m, n, k, WG_MAX_SPLITS, bf16)
+    return splits * m * n if splits > 1 else 0
+
+
+# An operand of a scan's product: (source, runs along j) where j is its
+# second logical index: RowMajor and PrevRows do, Transposed and PrevRowsT
+# do not (their sources are stored transposed).
+_ALONG, _ACROSS = True, False
+
+
+def gemm_products(t, b, f, rx, h, r, entry, *, gi=False, recompute=False):
+    """The products of one launch's GEMM phase, in launch order
+    (lstm_scan_xin_fwd.cu::project, lstm_scan_xin_bwd.cu::recompute and
+    bwd): [(m, n, k, A, B, split, store)], A and B (source, runs along j)
+    of logical shapes [m, k] and [k, n], ``split`` True where the call
+    gives the product split-k scratch, ``store`` where its epilogue is
+    Store (the others read: gi's x term, the gates, dx's xdvec term).
+    ``entry`` "fwd" (x mode's projection) or "bwd"; ``gi``: the gi mode's
+    BPTT (no x side), ``recompute``: the recompute policy's pre-pass
+    first."""
+    m, g4 = t * b, 4 * h
+    a, c = _ALONG, _ACROSS
+    x_side = ([(m, g4, f, ("x", a), ("ux", a), False, False)] if not rx else
+              [(m, rx, f, ("x", a), ("ux", a), False, True),
+               (m, g4, rx, ("xu", a), ("vx", a), False, False)])
+    if entry == "fwd":
+        return x_side
+    out = []
+    if recompute:
+        out += x_side + ([(m, g4, h, ("hprev", a), ("u", a), False, False)] if not r else
+                         [(m, r, h, ("hprev", a), ("u", a), True, True),
+                          (m, g4, r, ("hu", a), ("v", a), False, False)])
+    out += ([(h, g4, m, ("hprev", c), ("dpre", a), True, True)] if not r else
+            [(r, g4, m, ("hu", c), ("dpre", a), True, True),
+             (h, r, m, ("hprev", c), ("dhu", a), True, True)])
+    if not gi:
+        out += ([(m, f, g4, ("dpre", a), ("ux", c), True, False),
+                 (f, g4, m, ("x", c), ("dpre", a), True, True)] if not rx else
+                [(m, rx, g4, ("dpre", a), ("vx", c), True, True),
+                 (m, f, rx, ("dxu", a), ("ux", c), False, False),
+                 (f, rx, m, ("x", c), ("dxu", a), True, True),
+                 (rx, g4, m, ("xu", c), ("dpre", a), True, True)])
+    return out
+
+
+def _align(nbytes):
+    return _cdiv(nbytes, STAGE_ALIGN) * STAGE_ALIGN
+
+
+def staged_copies(products, bf16, partial_floats=0, route=tc_route):
+    """gemm_tc.cuh::Staging over ``products`` (`gemm_products`) of a call
+    that gives its split products ``partial_floats`` floats of split-k
+    scratch: the copies that its Hopper-tile products stage, once each, in
+    the order they are made (``route``: which products take the Hopper
+    tile), and the raw sums of each unsplit one whose epilogue reads ->
+    [(source, rows, cols, form, bytes)]; (rows, cols) are the source's
+    stored shape (the raw sums': the product's), ``form`` "bf16" (as
+    stored, rows padded to 8), "split" (3xTF32's hi and lo as stored, rows
+    padded to 4), "split_t" (of the transpose, [cols, round4(rows)]) or
+    "raw" (f32 [m, n])."""
+    seen, out = set(), []
+    for m, n, k, (akey, a_along), (bkey, b_along), split, store in products:
+        if not route(m, n, k):
+            continue
+        # A [m, k] is stored [m][k] where it runs along k; B [k, n] is
+        # stored [n][k] where it runs along k (not along j); f32 wants K-major
+        a_rows, a_cols = (m, k) if a_along else (k, m)
+        b_rows, b_cols = (k, n) if b_along else (n, k)
+        for key, rows, cols, kmajor in ((akey, a_rows, a_cols, a_along),
+                                         (bkey, b_rows, b_cols, not b_along)):
+            form = "bf16" if bf16 else "split" if kmajor else "split_t"
+            if (key, rows, cols, form) in seen:
+                continue
+            seen.add((key, rows, cols, form))
+            if form == "bf16":
+                nbytes = _align(rows * _cdiv(cols, 8) * 8 * 2)
+            elif form == "split":
+                nbytes = 2 * _align(rows * _round4(cols) * 4)
+            else:
+                nbytes = 2 * _align(cols * _round4(rows) * 4)
+            out.append((key, rows, cols, form, nbytes))
+        room = partial_floats // (m * n) if split else 0
+        if not store and wg_plan(m, n, k, room, bf16)[0] == 1:
+            out.append(("product", m, n, "raw", _align(m * n * 4)))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def tc_stage_floats(t, b, f, rx, h, r, entry, bf16, *, gi=False, recompute=False):
+    """Floats of the staged copies and raw sums of one launch's GEMM phase
+    (the scratch `stage` of its entry): `staged_copies` of its
+    `gemm_products`, with the BPTT's split-k scratch."""
+    partial = 0 if entry == "fwd" else bwd_partial_floats(t, b, f, rx, h, r, gi=gi,
+                                                          recompute=recompute, bf16=bf16)
+    copies = staged_copies(gemm_products(t, b, f, rx, h, r, entry, gi=gi, recompute=recompute),
+                           bf16, partial)
+    assert sum(c[3] != "raw" for c in copies) <= STAGE_COPIES
+    return sum(c[-1] for c in copies) // 4
 
 
 def _partial_shapes(t, b, f, rx, h, r, gi, recompute):
@@ -989,13 +1165,16 @@ def _partial_shapes(t, b, f, rx, h, r, gi, recompute):
     return shapes
 
 
-def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False):
+@functools.lru_cache(maxsize=256)
+def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False, bf16=False):
     """Floats of split-k scratch for the BPTT's products with few output
     tiles and a long k: the weight gradients (k = T*B) and, in x mode, the
     x side's product over the 4h gate columns (dXU, or dx for a dense x
     side); under the recompute policy also the pre-pass's hu = Hprev @ U
     (k = h). The largest that any of them wants of gemm_tc.cuh's plan."""
-    return max(_splitk_floats(*s) for s in _partial_shapes(t, b, f, rx, h, r, gi, recompute))
+    return max([0] + [tc_splitk_floats(m, n, k, bf16) for m, n, k, _, _, split, _ in
+                      gemm_products(t, b, f, rx, h, r, "bwd", gi=gi, recompute=recompute)
+                      if split])
 
 
 def tile_partial_floats(t, b, f, rx, h, r, *, gi=False):
@@ -1196,8 +1375,10 @@ def _xin_fwd_launch(bf16, plan, *args):
     gi, ys, c_last = new(t * b, 4 * h), new(t, b, h), new(b, h)
     xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
     wstream, nstream = _wstream(plan, "fwd", xs)
-    _launch(KERNEL, "lstm_scan_xin_fwd", (*args, xu, gi, ys, c_last, xchg, sync, wstream),
-            (nstream, *sizes, *plan.ints("fwd"), int(bf16)), xs.device)
+    nstage = tc_stage_floats(*sizes, "fwd", bf16)
+    _launch(KERNEL, "lstm_scan_xin_fwd",
+            (*args, xu, gi, ys, c_last, xchg, sync, wstream, new(max(1, nstage))),
+            (nstream, nstage, *sizes, *plan.ints("fwd"), int(bf16)), xs.device)
     return ys, c_last
 
 
@@ -1244,9 +1425,10 @@ def _xin_res_launch(bf16, residuals, save_gates, plan, *args):
     xchg, sync = new(plan.xchg_fwd), _sync_words(plan, xs)
     wstream, nstream = _wstream(plan, "fwd", xs)
     policy = (_RES_BF16 if residuals == "bf16" else _RES_F32) if save_gates else _RES_NONE
+    nstage = tc_stage_floats(*sizes, "fwd", bf16)
     _launch(KERNEL, "lstm_scan_xin_fwd_res",
-            (*args, xu, gi, ys, cs, gates, hu, xchg, sync, wstream),
-            (nstream, *sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
+            (*args, xu, gi, ys, cs, gates, hu, xchg, sync, wstream, new(max(1, nstage))),
+            (nstream, nstage, *sizes, *plan.ints("fwd"), int(bf16), policy), xs.device)
     return ys, cs, gates, hu, (xu if save_gates else None)
 
 
@@ -1296,12 +1478,15 @@ def _xin_bwd_launch(bf16, plan, *tensors):
     grads = (new(t, b, f), torch.empty_like(ux), new(rx, 4 * h) if rx else None, new(4, h),
              new(4 * h), torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h),
              new(b, h), new(b, h))
-    partial = new(max(1, bwd_partial_floats(*sizes, recompute=policy == _RES_NONE)))
+    recompute = policy == _RES_NONE
+    partial = new(max(1, bwd_partial_floats(*sizes, recompute=recompute, bf16=bf16)))
     wstream, nstream = _wstream(plan, "bwd", xs)
+    nstage = tc_stage_floats(*sizes, "bwd", bf16, recompute=recompute)
     _launch(BWD_KERNEL, "lstm_scan_xin_bwd",
             (*saved[:4], bias, *saved[4:], dys, dc_last, *work, dpre, dhu, dxu, *grads,
-             new(plan.xchg_bwd), _sync_words(plan, xs), partial, wstream),
-            (partial.numel(), nstream, *sizes, *plan.ints("bwd"), int(bf16), policy), xs.device)
+             new(plan.xchg_bwd), _sync_words(plan, xs), partial, wstream, new(max(1, nstage))),
+            (partial.numel(), nstream, nstage, *sizes, *plan.ints("bwd"), int(bf16), policy),
+            xs.device)
     return grads
 
 
@@ -1468,12 +1653,13 @@ def _gi_bwd_launch(bf16, plan, *tensors):
     dgi, dhu = new(t, b, 4 * h), new(t * b, r) if r else None
     grads = (dgi, torch.empty_like(u), new(r, 4 * h) if r else None, new(4 * h), new(b, h),
              new(b, h))
-    partial = new(max(1, bwd_partial_floats(t, b, 1, 0, h, r, gi=True)))
+    partial = new(max(1, bwd_partial_floats(t, b, 1, 0, h, r, gi=True, bf16=bf16)))
     wstream, nstream = _wstream(plan, "bwd", ys)
+    nstage = tc_stage_floats(t, b, 1, 0, h, r, "bwd", bf16, gi=True)
     _launch(BWD_KERNEL, "lstm_scan_bwd",
             (u, v, dvec, h0, c0, ys, cs, gates, hu, dys, dc_last, *work, dgi, dhu, *grads[1:],
-             new(plan.xchg_bwd), _sync_words(plan, ys), partial, wstream),
-            (partial.numel(), nstream, t, b, h, r, *plan.ints("bwd"), int(bf16), policy),
+             new(plan.xchg_bwd), _sync_words(plan, ys), partial, wstream, new(max(1, nstage))),
+            (partial.numel(), nstream, nstage, t, b, h, r, *plan.ints("bwd"), int(bf16), policy),
             ys.device)
     return grads
 
@@ -1516,6 +1702,21 @@ def scan_mm_ops(t, b, f, rx, h, r, *, gi=False):
     tensor-core rate. The BPTT's products are twice these, and the recompute
     pre-pass adds them once more."""
     return 2 * t * b * ((0 if gi else _side(f, rx, h)) + _side(h, r, h))
+
+
+def scan_gemm_ops(t, b, f, rx, h, r, entry, *, gi=False, save_gates=True):
+    """Operations of an entry's time-parallel products, its GEMM phase on
+    gemm_tc.cuh (two per multiply-add): the share of `scan_cost`'s,
+    `scan_res_cost`'s (``entry`` "fwd") or `scan_bwd_cost`'s ("bwd")
+    operations that the f32 variants run as 3xTF32 on the tensor cores:
+    the x-side projection; in the BPTT the x side's two products of each
+    factor and the recurrent weight gradients (the walk keeps the chain's
+    products) and, without ``save_gates``, the recompute pre-pass."""
+    xm = 0 if gi else _side(f, rx, h)
+    if entry == "fwd":
+        return 2 * t * b * xm
+    ops = 2 * t * b * (2 * xm + _side(h, r, h))
+    return ops if save_gates else ops + 2 * t * b * (xm + _side(h, r, h))
 
 
 def scan_cost(t, b, f, rx, h, r, *, gi=False):

@@ -1,6 +1,7 @@
 """Where a step of the LSTM scan kernels goes, on one CUDA device.
 
     python -m vmlmf_tpu_torch.tools.scan_phases [--bf16] [SHAPE ...]
+    python -m vmlmf_tpu_torch.tools.scan_phases --gemm [SHAPE ...]
 
 Three readings for each shape (the PTB LM layer, T=35, F=h=650, low-rank
 r=rx=300 at B in 1/20/128 and dense at B=20; the HAR layer, T=24, F=77,
@@ -40,7 +41,15 @@ alone; SHAPE names: those shapes alone):
   ``torch.matmul`` of the same shape in the same profiler session (cuBLAS:
   f32 with TF32 off, and bf16),
   and ``split``: the device ms of the walk kernel, of the GEMM phase and of
-  the rest of each entry.
+  the rest of each entry. A product's ``ms`` is its tile kernel's and its
+  split-k sum's (or its epilogue pass's: the Hopper tile's raw sums
+  through a reading epilogue), ``sum_ms`` that of the second; ``cast_ms``
+  that of the passes that write its operands' staged copies (bf16, or
+  3xTF32's hi and lo) right before it, which serve the products after it
+  too.
+
+``--gemm``: the ``gemm`` reading alone, in f32 and in bf16, at the shapes
+of `GEMM_SHAPES` (or the SHAPEs named): no stamped build.
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -70,6 +79,14 @@ SHAPES = {  # (T, B, F, h, rx, r); r = 0 and rx = 0: a dense side
 # the shapes also read in bf16: the mixed-precision LM layer and the dense
 # h=1500 layer at B = 20 and 128
 BF16_SHAPES = ("lm_b20", "lm_b128", "dense1500_b20", "dense1500_b128")
+# the shapes of the GEMM phase's reading (--gemm): the LM layer and the
+# dense h=1500 layer at B = 20 and 128, the HAR layer at B=81
+GEMM_SHAPES = ("lm_b20", "lm_b128", "har_b81", "dense1500_b20", "dense1500_b128")
+# the kernels of the GEMM phase, by the part of a product each is: its tile,
+# its split-k sum, and the passes that stage its operands
+TILE_KERNELS = ("tc_gemm_kernel", "wg_gemm_kernel")
+SUM_KERNELS = ("tc_sum_kernel",)
+CAST_KERNELS = ("cast_bf16_kernel", "split_tf32_kernel")
 MAX_STEPS = 256
 # the counters read at each stamp, after the stamp itself: the ring's waits
 # and the mma walk's spans (scan_grid.cuh, patched below)
@@ -264,21 +281,29 @@ def gemm_phase(shape, precision, reps=5):
                 segments.append([])
             else:
                 segments[-1].append((kernel_name(e), e.time_range.elapsed_us() / 1e3 / reps))
-        split, runs = {"walk": 0.0, "gemm": 0.0, "other": 0.0}, []
+        split, runs, casts = {"walk": 0.0, "gemm": 0.0, "other": 0.0}, [], 0.0
         for name, ms in segments[0]:
+            tile, tail, cast = (any(n in name for n in ks)
+                                for ks in (TILE_KERNELS, SUM_KERNELS, CAST_KERNELS))
             part = ("walk" if "grid_scan_kernel" in name or "grid_bptt_kernel" in name else
-                    "gemm" if "tc_gemm_kernel" in name or "tc_sum_kernel" in name else "other")
+                    "gemm" if tile or tail or cast else "other")
             split[part] += ms
-            if "tc_gemm_kernel" in name:
-                runs.append([name, ms])
-            elif "tc_sum_kernel" in name and runs:
+            if tile:
+                runs.append([name, ms, casts, 0.0])
+                casts = 0.0
+            elif tail and runs:
                 runs[-1][1] += ms
+                runs[-1][3] += ms
+            elif cast:
+                casts += ms
         matmul = [round(sum(ms for _, ms in seg), 4) for seg in segments[1:1 + len(mats)]]
         per_call = len(runs) // reps
         rows = []
-        for i, (name, ms) in enumerate(runs[:per_call]):  # the products of one call
-            row = {"kernel": name, "ms": round(sum(runs[c * per_call + i][1]
-                                                   for c in range(reps)), 4)}
+        for i, (name, _, _, _) in enumerate(runs[:per_call]):  # the products of one call
+            row = {"kernel": name,
+                   "ms": round(sum(runs[c * per_call + i][1] for c in range(reps)), 4),
+                   "sum_ms": round(sum(runs[c * per_call + i][3] for c in range(reps)), 4),
+                   "cast_ms": round(sum(runs[c * per_call + i][2] for c in range(reps)), 4)}
             if per_call == len(want):
                 label, m, n, k = want[i]
                 row.update(product=label, m=m, n=n, k=k, matmul_f32_ms=matmul[2 * i],
@@ -391,8 +416,9 @@ def reading(name, shape, precision, libs):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    bf16_only = "--bf16" in argv
-    names = [a for a in argv if a != "--bf16"] or list(SHAPES)
+    bf16_only, gemm_only = "--bf16" in argv, "--gemm" in argv
+    names = ([a for a in argv if a not in ("--bf16", "--gemm")]
+             or list(GEMM_SHAPES if gemm_only else SHAPES))
     unknown = set(names) - set(SHAPES)
     if unknown:
         raise SystemExit(f"unknown shapes {sorted(unknown)}; known: {list(SHAPES)}")
@@ -401,6 +427,13 @@ def main(argv=None):
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     _build.build_all()
+    if gemm_only:
+        for name in names:
+            for precision in ("f32", "bf16"):
+                print(json.dumps({"shape": name, "precision": precision,
+                                  "card": torch.cuda.get_device_name(0),
+                                  "gemm": gemm_phase(SHAPES[name], precision)}), flush=True)
+        return
     work = tempfile.mkdtemp(dir=_build.BUILD_DIR)  # git-ignored, beside the package's builds
     try:
         libs = stamped_libraries(work)

@@ -267,8 +267,12 @@ Phases, each of which exits non-zero when it fails:
                cuDNN's LSTM; a streamed plan forced at the PTB LM layer (B=20)
                with the resident plan's layout, all six entries bit-equal to
                it; the GRU's three forms at h=3200 (T=24, B=81) on the grid
-               layout, a share of each weight slice streamed (the plan
-               printed with its MB a step), cuDNN's GRU for "post". Then the
+               layout, each weight slice streamed through the TMA ring (the
+               plan printed with its MB a step and its ring), every entry
+               against plain and a ring of other stages bit-equal, the
+               BPTT's products routed to the `wgmma` tile (printed) against
+               float64 beside `gemm_tile.cuh`, the peak MiB of a BPTT call
+               and a HAR train step, cuDNN's GRU for "post". Then the
                dense PTB "large" LM (Zaremba et al.
                2014, section 4.1: 2x1500, dropout 0.65, init 0.04, clip 10;
                vocab 10000, seeded random weights): the graphed prefill at
@@ -1043,7 +1047,7 @@ def print_gru_plan(torch, cuda_gru, name, size, gi=False):
     """Print the layout the GRU wrappers take at one shape (`gru_layout`),
     the forward's and, where it differs, the walk's: `gru_plan`'s rows a
     CTA, or the grid's chunks of rows, each with its groups x CTAs, rows a
-    group, resident depths and MB streamed a step."""
+    group, resident depths, MB streamed a step and its TMA ring's stages."""
     t, b = size[:2]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     layouts = {k: cuda_gru.gru_layout(*size, kernel=k, gi=gi, sms=sms) for k in ("fwd", "bwd")}
@@ -1063,34 +1067,65 @@ def print_gru_plan(torch, cuda_gru, name, size, gi=False):
         for b0, n, plan in layout:
             held = ", ".join(
                 f"{k} resident {plan.resident(k)} of {tuple(d for d, _ in plan.slices(k))} "
-                f"rows, {4e-6 * plan.n_ctas * plan.streamed_elems(k):.1f} MB streamed a step"
+                f"rows, {4e-6 * plan.n_ctas * plan.streamed_elems(k):.1f} MB streamed a step, "
+                + (f"ring of 2 x {plan.piece(k)} floats" if plan.piece(k) else "no ring")
                 for k in ("fwd", "bwd"))
             print(f"gru_grid_plan {name}{which} B={b}{' gi' if gi else ''} rows {b0}..{b0 + n}: "
                   f"{plan.groups} groups x {plan.ctas} CTAs, {plan.rpad} rows a group (padded), "
                   f"{held}, {plan.smem_fwd} / {plan.smem_bwd} bytes a CTA (forward / walk)")
 
 
-def gru_bwd_split(torch, label, bwd, t, calls=5):
+def gru_bwd_split(torch, label, bwd, t, calls=5, hopper=False):
     """Device time of `calls` BPTT calls by kernel (torch.profiler): the walk
     (`walk_kernel`) against the GEMMs (the grouped split-k's two kernels,
-    the x side's and the recompute pre-pass's) -> (walk us per step, GEMM
-    share of the device time, device ms a call)."""
+    the x side's and the recompute pre-pass's; of them, the Hopper tile's
+    `wg_gemm_kernel` and its staging passes, which must run where
+    ``hopper``: a product that gemm_tc.cuh's rule routes there) -> (walk us
+    per step, GEMM share of the device time, device ms a call)."""
     def run():
         for _ in range(calls):
             bwd()
 
-    walk = other = 0.0
+    walk = other = tile = 0.0
     for name, ms in device_events(torch, run, f"GRU BPTT at {label}", cpu=False)[0]:
         if "walk_kernel" in name:
             walk += ms
         else:
             other += ms
+            if "wg_gemm_kernel" in name or "split_tf32_kernel" in name:
+                tile += ms
     if walk == 0.0:
         fail(f"the profiler saw no walk_kernel in the GRU BPTT at {label}")
+    if hopper != (tile > 0.0):
+        fail(f"the GRU BPTT at {label}: the Hopper tile's kernels ran {tile:.4f} ms; gemm_tc.cuh's "
+             f"rule routes {'some' if hopper else 'no'} product there")
     print(f"gru bwd split {label}: walk {1e3 * walk / calls / t:.3f} us per step, GEMMs "
-          f"{other / calls:.4f} ms a call, GEMM share {other / (walk + other):.3f}, device "
-          f"{(walk + other) / calls:.4f} ms a call")
+          f"{other / calls:.4f} ms a call (Hopper tile and its staging {tile / calls:.4f}), GEMM "
+          f"share {other / (walk + other):.3f}, device {(walk + other) / calls:.4f} ms a call")
     return 1e3 * walk / calls / t, other / (walk + other), (walk + other) / calls
+
+
+def gru_routes(cuda_gru, size, dx, gi=False, recompute=False):
+    """The BPTT's products at ``size`` (T, B, F, rx, h, r, form), each with
+    the tile it runs on (gemm_tc.cuh's rule, `cuda_scan.tc_route`) ->
+    (printable list, whether any takes the Hopper tile)."""
+    from vmlmf_tpu_torch.ops.cuda_scan import tc_route
+
+    t, b, f, rx, h, r, form = size
+    lowrank = form == cuda_gru.LOWRANK_PRE
+    names = ["dPrz", "dPn"] + (["dUf"] if lowrank else [])
+    products = cuda_gru.gru_bwd_products(t, b, f, rx, h, r, form, gi=gi, dx=dx)
+    names += ([] if gi else ["dUx"] + (["dVx"] if rx else []) + ["dbias"] + (["dx"] if dx else []))
+    out = list(zip(names, cuda_gru._routed(products, 2 + lowrank)))
+    if recompute:  # the pre-pass's recurrent products, in launch order
+        rebuild = cuda_gru.gru_tc_products(t, b, f, rx, h, r, form, recompute=True)
+        pre = (["HU", "RZ", "RHU", "N"] if lowrank else
+               ["R", "Z"] * (len(rebuild) == 5) + ["RZ"] * (len(rebuild) == 4)
+               + ["RECN" if form == cuda_gru.DENSE_POST else "N"])
+        out = [(f"recompute {name}", tc_route(m, n, k)) for name, (m, n, k, *_) in zip(
+            pre, rebuild)] + out
+    return [f"{name} {'hopper' if go else 'gemm_tile'}" for name, go in out], any(
+        go for _, go in out)
 
 
 def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru, iters=20):
@@ -1116,8 +1151,10 @@ def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru, iter
         fail(f"gru_scan_xin_bwd disagrees with its plain version at {label}: {err_g}")
     if not all(torch.equal(a, b) for a, b in zip(grads, again) if a is not None):
         fail(f"two calls of gru_scan_xin_bwd gave different bits at {label}")
+    routes, hopper = gru_routes(cuda_gru, size, dx)
+    print(f"gru bwd routes {label}: {', '.join(routes)}")
     gru_bwd_split(torch, label, lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx),
-                  xs.shape[0])
+                  xs.shape[0], hopper=hopper)
 
     lib_fwd_ms = lib_bwd_ms = None
     if gru is not None:
@@ -1131,7 +1168,8 @@ def gru_train_checks(torch, cuda_gru, args, ys, size, label, mode, dx, gru, iter
             ("gru_scan_xin_bwd", err_g, GRAD_TOL,
              cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx), iters),
              cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd_plain(*saved, mode=mode, dx=dx), 5),
-             cuda_gru.gru_scan_bwd_cost(*size, dx=dx), lib_bwd_ms)]
+             (*cuda_gru.gru_scan_bwd_cost(*size, dx=dx), 0, cuda_gru.gru_gemm_ops(*size)),
+             lib_bwd_ms)]
 
 
 def lm_model(backend, dropout_rate=0.0):
@@ -2651,7 +2689,8 @@ def phase_gru_variant_kernels(torch):
                 ("gru_scan_bwd", name, err_g, GRAD_TOL,
                  cuda_ms(torch, lambda: cuda_gru.gru_scan_bwd(*saved, mode=mode), 20),
                  cuda_ms(torch, lambda: cuda_gru.gru_scan_bwd_plain(*saved, mode=mode), 5),
-                 cuda_gru.gru_scan_bwd_cost(*size, gi=True), lib_bwd_ms)]
+                 (*cuda_gru.gru_scan_bwd_cost(*size, gi=True), 0,
+                  cuda_gru.gru_gemm_ops(*size, gi=True)), lib_bwd_ms)]
             # -- the recompute policy: ys alone forward, the pre-pass in the BPTT
             fwd_rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
             torch.cuda.synchronize()
@@ -2685,7 +2724,8 @@ def phase_gru_variant_kernels(torch):
                                                                   bias=args[3]), 20),
                  cuda_ms(torch, lambda: cuda_gru.gru_scan_xin_bwd_plain(
                      *saved_rc, mode=mode, dx=dx, bias=args[3]), 3),
-                 cuda_gru.gru_scan_bwd_cost(*size, dx=dx, save_gates=False), lib_bwd_ms)]
+                 (*cuda_gru.gru_scan_bwd_cost(*size, dx=dx, save_gates=False), 0,
+                  cuda_gru.gru_gemm_ops(*size, save_gates=False)), lib_bwd_ms)]
         for entry, shape, e_err, tol, ms, plain_ms, cost, lib_ms in checks:
             variant = "recompute" if shape.endswith("_recompute") else "gi mode"
             rows[(entry, shape, b)] = kernel_row(entry, f"{label}, {variant}", e_err, tol, ms,
@@ -2955,7 +2995,11 @@ def phase_wide_kernels(torch):
     bit-equal to it; the large layer's ring at B=128 with stages of another
     size, bit-equal to the chosen one (`ring_pieces_keep_the_bits`); the GRU's
     grid layout forced at an odd shape (`gru_grid_entries`); the GRU's three
-    forms at h=3200, on the grid.
+    forms at h=3200, on the grid and its TMA ring: every entry against its
+    plain version and another ring's stages bit-equal (`gru_wide_entries`),
+    the BPTT's products on the Hopper tile against float64 beside
+    gemm_tile.cuh (`gru_tc_control`), the peak MiB of a BPTT call and a HAR
+    train step (`gru_wide_memory`), each entry's kernel check.
     -> rows."""
     rows = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2980,6 +3024,9 @@ def phase_wide_kernels(torch):
     ring_pieces_keep_the_bits(torch, sms)
     gru_spill_equals_unspilled(torch, sms)
     gru_grid_entries(torch, sms)
+    gru_wide_entries(torch, sms)
+    gru_tc_control(torch)
+    gru_wide_memory(torch)
     for name, fields in GRU_WIDE_NETS.items():
         lowrank = name == "wide_lowrank_pre"
         shape = (*(GRU_WIDE_H[k] for k in ("t", "b", "f", "h", "rx")),
@@ -3246,67 +3293,177 @@ def gru_grid_entries(torch, sms):
     entries and the recompute policy against their plain versions (TOL
     for outputs and residuals, GRAD_TOL for gradients), two calls to equal
     bits, and a plan with a third of each slice's rows streamed (the same
-    groups and CTAs) bit-equal to the resident one."""
+    groups and CTAs, on the TMA ring) bit-equal to the resident one."""
     from vmlmf_tpu_torch.ops import cuda_gru
 
     for name, (t, b, f, h, rx, r, mode, lowrank) in GRU_GRID_ODD.items():
-        args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
-        form = cuda_gru.form_of(args[4], mode)
-        dys = torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
-        gi = cuda_gru._x_side(*args[:4])[1].contiguous()
-        rec = (gi, *args[4:])
+        form = cuda_gru.form_of(object() if lowrank else None, mode)
         resident = cuda_gru.gru_grid_plan(t, b, f, rx, h, r, form, sms=sms)
         part = tuple(tuple(d // 3 for d, _ in resident.slices(k)) for k in ("fwd", "bwd"))
         streamed = cuda_gru.grid_plan_layout(b, h, r, form, resident.groups, resident.ctas,
                                              resident=part)
+        grid_entries_agree(torch, name, (t, b, f, h, rx, r, mode, lowrank), resident, streamed,
+                           "the streamed plan")
 
-        def calls():
-            res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
-            rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
-            res_gi = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
-            return {"x": (cuda_gru.gru_scan_fused_xin(*args, mode=mode), *res,
-                          *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode)),
-                    "recompute": (*rc, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *rc, dys,
-                                                                  mode=mode, bias=args[3])),
-                    "gi": (cuda_gru.gru_scan_fused(*rec, mode=mode), *res_gi,
-                           *cuda_gru.gru_scan_bwd(*args[4:], *res_gi, dys, mode=mode))}
 
-        runs, keep = [], cuda_gru._plan_for
-        try:
-            for plan in (resident, resident, streamed):
-                cuda_gru._plan_for = lambda *a, gi=False, p=plan: ((0, b, p),)
-                runs.append(calls())
-        finally:
-            cuda_gru._plan_for = keep
-        torch.cuda.synchronize()
-        res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
-        grads_p = cuda_gru.gru_scan_xin_bwd_plain(*args[:3], *args[4:], *res_p, dys, mode=mode)
-        rec_p = cuda_gru.gru_recurrence_plain(*rec, mode=mode)
-        plain = {"x": (res_p[0], *res_p, *grads_p), "recompute": (res_p[0], *[None] * 5, *grads_p),
-                 "gi": (rec_p[0], *rec_p, *cuda_gru.gru_scan_bwd_plain(*args[4:], *rec_p, dys,
-                                                                        mode=mode))}
-        worst = {}
-        for path, outs in runs[0].items():
-            n_fwd = {"x": 7, "recompute": 6, "gi": 6}[path]  # ys and residuals, then grads
-            for i, (got, want) in enumerate(zip(outs, plain[path])):
-                if got is None or want is None:
-                    continue
-                tol = TOL if i < n_fwd else GRAD_TOL
-                ok, err = close(torch, got, want, tol)
-                worst[tol] = max(worst.get(tol, 0.0), err)
-                if not ok:
-                    fail(f"wide: GRU grid {name} {path}: output {i} disagrees with its plain "
-                         f"version: max abs err {err}")
-            for other, what in ((runs[1], "a second call"), (runs[2], "the streamed plan")):
-                if not all((a is None and c is None) or torch.equal(a, c)
-                           for a, c in zip(outs, other[path])):
-                    fail(f"wide: GRU grid {name} {path}: {what} gives other bits")
-        print(f"wide: GRU grid {name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r}: "
-              f"{resident.groups} groups x {resident.ctas} CTAs, resident "
-              f"{resident.resident_fwd} / {resident.resident_bwd}, streamed "
-              f"{streamed.resident_fwd} / {streamed.resident_bwd}; max abs err outputs "
-              f"{worst.get(TOL, 0.0):.3g}, gradients {worst.get(GRAD_TOL, 0.0):.3g}; six "
-              f"entries and recompute bit-equal over two calls and to the streamed plan")
+def gru_wide_entries(torch, sms):
+    """The GRU's three forms at h=3200 (T=24, B=81, the HAR GRU nets' layer),
+    on the grid, every kernel on the TMA ring: the six entries and the
+    recompute policy against their plain versions, two calls to equal bits,
+    and a ring of RING_CHECK_PIECE-float stages (more pieces a product, more
+    rows resident; the same groups, CTAs, chunks and red) bit-equal to the
+    chosen one."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx = (GRU_WIDE_H[k] for k in ("t", "b", "f", "h", "rx"))
+    for name, fields in GRU_WIDE_NETS.items():
+        lowrank = name == "wide_lowrank_pre"
+        r, mode = (fields["u_ranks"][0], "pre") if lowrank else (0, "post" if name == "wide_post"
+                                                                 else "pre")
+        form = cuda_gru.form_of(object() if lowrank else None, mode)
+        chosen = cuda_gru.gru_grid_plan(t, b, f, rx, h, r, form, sms=sms)
+        other = cuda_gru.grid_streamed_plan(b, h, r, form, sms, piece=RING_CHECK_PIECE)
+        if not (chosen.piece_fwd and chosen.piece_bwd) or any(
+                getattr(chosen, k) != getattr(other, k) for k in (
+                    "groups", "ctas", "stage_fwd", "red_fwd", "stage_bwd", "red_bwd")):
+            fail(f"wide: GRU {name} at h=3200: the plans must share groups, CTAs, stage and red, "
+                 f"on a ring: {chosen} / {other}")
+        routes, _ = gru_routes(cuda_gru, (t, b, f, rx, h, r, form), True, recompute=True)
+        print(f"wide: GRU {name} h=3200 recompute BPTT routes: {', '.join(routes)}")
+        grid_entries_agree(torch, f"{name} h=3200", (t, b, f, h, rx, r, mode, lowrank), chosen,
+                           other, f"a ring of {RING_CHECK_PIECE}-float stages")
+
+
+def grid_entries_agree(torch, name, shape, plan, other, what):
+    """At ``shape`` (T, B, F, h, rx, r, mode, low-rank) on grid plan
+    ``plan``: the six entries and the recompute policy against their plain
+    versions (TOL for outputs and residuals, GRAD_TOL for gradients), two
+    calls to equal bits, and on ``other`` (its groups and CTAs) to the same
+    bits."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = shape
+    args = gru_scan_inputs(torch, t, b, f, h, rx, r, lowrank)
+    dys = torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+    gi = cuda_gru._x_side(*args[:4])[1].contiguous()
+    rec = (gi, *args[4:])
+
+    def calls():
+        res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+        rc = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=False)
+        res_gi = cuda_gru.gru_scan_fused_res(*rec, mode=mode)
+        return {"x": (cuda_gru.gru_scan_fused_xin(*args, mode=mode), *res,
+                      *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode)),
+                "recompute": (*rc, *cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *rc, dys,
+                                                              mode=mode, bias=args[3])),
+                "gi": (cuda_gru.gru_scan_fused(*rec, mode=mode), *res_gi,
+                       *cuda_gru.gru_scan_bwd(*args[4:], *res_gi, dys, mode=mode))}
+
+    runs, keep = [], cuda_gru._plan_for
+    try:
+        for p in (plan, plan, other):
+            cuda_gru._plan_for = lambda *a, gi=False, p=p: ((0, b, p),)
+            runs.append(calls())
+    finally:
+        cuda_gru._plan_for = keep
+    torch.cuda.synchronize()
+    res_p = cuda_gru.gru_scan_xin_fwd_res_plain(*args, mode=mode)
+    grads_p = cuda_gru.gru_scan_xin_bwd_plain(*args[:3], *args[4:], *res_p, dys, mode=mode)
+    rec_p = cuda_gru.gru_recurrence_plain(*rec, mode=mode)
+    plain = {"x": (res_p[0], *res_p, *grads_p), "recompute": (res_p[0], *[None] * 5, *grads_p),
+             "gi": (rec_p[0], *rec_p, *cuda_gru.gru_scan_bwd_plain(*args[4:], *rec_p, dys,
+                                                                    mode=mode))}
+    worst = {}
+    for path, outs in runs[0].items():
+        n_fwd = {"x": 7, "recompute": 6, "gi": 6}[path]  # ys and residuals, then grads
+        for i, (got, want) in enumerate(zip(outs, plain[path])):
+            if got is None or want is None:
+                continue
+            tol = TOL if i < n_fwd else GRAD_TOL
+            ok, err = close(torch, got, want, tol)
+            worst[tol] = max(worst.get(tol, 0.0), err)
+            if not ok:
+                fail(f"wide: GRU grid {name} {path}: output {i} disagrees with its plain "
+                     f"version: max abs err {err}")
+        for again, label in ((runs[1], "a second call"), (runs[2], what)):
+            if not all((a is None and c is None) or torch.equal(a, c)
+                       for a, c in zip(outs, again[path])):
+                fail(f"wide: GRU grid {name} {path}: {label} gives other bits")
+    print(f"wide: GRU grid {name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r}: "
+          f"{plan.groups} groups x {plan.ctas} CTAs, resident {plan.resident_fwd} / "
+          f"{plan.resident_bwd}, rings {plan.piece_fwd} / {plan.piece_bwd}; {what}: resident "
+          f"{other.resident_fwd} / {other.resident_bwd}, rings {other.piece_fwd} / "
+          f"{other.piece_bwd}; max abs err outputs {worst.get(TOL, 0.0):.3g}, gradients "
+          f"{worst.get(GRAD_TOL, 0.0):.3g}; six entries and recompute bit-equal over two calls "
+          f"and to {what}")
+
+
+def gru_tc_control(torch):
+    """Each GRU BPTT product that gemm_tc.cuh's rule sends to the Hopper tile
+    at the HAR GRU nets' h=3200 (T=24, B=81, r=800), on seeded residuals,
+    through `tc_check.gru_product`: in 3xTF32 on that tile and on
+    gemm_tile.cuh's CUDA-core split-k, each error against float64 (max abs
+    over the output's max abs, `tc_check.relative_error`), the tile's
+    within 1e-5 and within twice gemm_tile.cuh's."""
+    from vmlmf_tpu_torch.ops import tc_check
+    from vmlmf_tpu_torch.ops.cuda_scan import tc_route
+
+    t, b, h, r = GRU_WIDE_H["t"], GRU_WIDE_H["b"], GRU_WIDE_H["h"], 800
+    m = t * b
+    g = torch.Generator().manual_seed(3)
+
+    def n(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    h0, ys, gates = n(b, h, scale=0.5), torch.tanh(n(t, b, h)), torch.sigmoid(n(t, b, 3 * h))
+    dpre = n(m, 3 * h, scale=0.1)
+    v = dict(hu=n(m, r), rhu=n(m, r), dhu=n(m, r, scale=0.1), drhu=n(m, r, scale=0.1),
+             w=n(h, r, scale=h ** -0.5))
+    for p, (label, shape, _, _) in enumerate(tc_check.GRU_PRODUCTS):
+        if not tc_route(*shape(m, h, r, r)):
+            fail(f"wide: the GRU product {label} at h=3200 must take the Hopper tile")
+        a, bb = tc_check.gru_sources(p, h0, ys, gates, dpre, **v)
+        errs = [tc_check.relative_error(tc_check.gru_product(p, tile, h0, ys, gates, dpre, **v),
+                                        a, bb)
+                for tile in (tc_check.GRU_HOPPER, tc_check.GRU_TILE)]
+        print(f"wide: GRU product {label} {tuple(a.shape)} @ {tuple(bb.shape)} at h=3200: error "
+              f"over float64 on the Hopper tile (3xTF32) {errs[0]:.3g}, on gemm_tile.cuh "
+              f"{errs[1]:.3g}")
+        if not errs[0] <= min(1e-5, 2 * errs[1]):
+            fail(f"wide: the GRU product {label} on the Hopper tile: error {errs[0]:.3g} against "
+                 f"float64, gemm_tile.cuh's {errs[1]:.3g}")
+        del a, bb
+
+
+def gru_wide_memory(torch):
+    """The peak device MiB of the h=3200 "post" BPTT call (T=24, B=81,
+    `peak_step_mib`) with saved gates and under the recompute policy
+    (whose pre-pass fills the gates' scratch), and of one train step of
+    the HAR GRU "post" net at h=3200, the Hopper tile's staged copies
+    included."""
+    from vmlmf_tpu_torch.config import HARConfig
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.ops import cuda_gru
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    t, b, f, h, rx = (GRU_WIDE_H[k] for k in ("t", "b", "f", "h", "rx"))
+    args = gru_scan_inputs(torch, t, b, f, h, rx, 0, False)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode="post")
+    dys = 0.1 * torch.randn((t, b, h), generator=torch.Generator().manual_seed(5)).cuda()
+    out = {"bwd_h3200_post": peak_step_mib(torch, lambda: cuda_gru.gru_scan_xin_bwd(
+        *args[:3], *args[4:], *res, dys, mode="post"))}
+    del res
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode="post", save_gates=False)
+    out["bwd_h3200_post_recompute"] = peak_step_mib(torch, lambda: cuda_gru.gru_scan_xin_bwd(
+        *args[:3], *args[4:], *res, dys, mode="post", bias=args[3]))
+    har = HARTrainer(HARConfig(**GRU_WIDE_NETS["wide_post"]).build_model(), batch_size=b)
+    params, opt = har.init()
+    x, y, _, _ = synthetic_har("opp", n_train=b, n_test=1, seed=2)
+    out["har_step_h3200_post"] = peak_step_mib(torch, lambda: har.train_step(params, opt, x, y))
+    staged = cuda_gru.gru_tc_stage_floats(t, b, f, rx, h, 0, cuda_gru.DENSE_POST)
+    print(json.dumps({"gru_wide_peak_mib": {k: round(v, 1) for k, v in out.items()},
+                      "staged_mib": round(4 * staged / 2 ** 20, 1)}))
+    return out
 
 
 def gru_spill_equals_unspilled(torch, sms):

@@ -2040,7 +2040,10 @@ def test_gru_forced_streamed_grid_plan_is_bit_equal_to_the_resident_one(cuda, ca
     part = tuple(tuple(d // 3 for d, _ in resident.slices(k)) for k in ("fwd", "bwd"))
     streamed = cuda_gru.grid_plan_layout(b, h, r, form, resident.groups, resident.ctas,
                                          resident=part)
-    assert streamed.streamed and streamed.smem_bytes < resident.smem_bytes
+    # the streamed rows go through the TMA ring, whose stages take the room
+    # the rows left
+    assert streamed.streamed and streamed.piece_fwd and streamed.piece_bwd
+    assert all(sum(streamed.resident(k)) < sum(resident.resident(k)) for k in ("fwd", "bwd"))
     args = gru_inputs(*GRID_STREAMED[case], cuda)
     dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
         np.float32)).to(cuda)
@@ -2054,6 +2057,100 @@ def test_gru_forced_streamed_grid_plan_is_bit_equal_to_the_resident_one(cuda, ca
             assert (x is None) == (y is None), (policy, i)
             if x is not None:
                 assert torch.equal(x, y), (policy, i)
+
+
+def _grid_runs_bit_equal(cuda_gru, monkeypatch, shape, plans):
+    """`_grid_calls` on each plan of ``plans`` at ``shape`` (GRID_GRU's
+    fields): every output of the first bit-equal to the others'."""
+    t, b, f, h, rx, r, mode, lowrank = shape
+    args = gru_inputs(*shape, torch.device("cuda"))
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).cuda()
+    runs = []
+    for plan in plans:
+        monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False, p=plan: ((0, b, p),))
+        runs.append(_grid_calls(cuda_gru, args, dys, mode))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for policy, outs in runs[0].items():
+            for i, (x, y) in enumerate(zip(outs, run[policy])):
+                assert (x is None) == (y is None), (policy, i)
+                if x is not None:
+                    assert torch.equal(x, y), (policy, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["h3200_post", "h3200_pre", "h3200_lowrank"])
+def test_gru_ring_pieces_keep_the_bits(cuda, case, monkeypatch):
+    """At h=3200 every grid kernel runs on the TMA ring; rings of 6144- and
+    12288-float stages (more pieces a product, more rows resident; the same
+    groups, CTAs, chunks and red) give every entry's outputs bit-equal to
+    the chosen ring's."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    t, b, f, h, rx, r, mode, lowrank = GRID_GRU[case]
+    form = _gru_form(cuda_gru, mode, lowrank)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chosen = cuda_gru.gru_grid_plan(t, b, f, rx, h, r, form, sms=sms)
+    others = [cuda_gru.grid_streamed_plan(b, h, r, form, sms, piece=p) for p in (6144, 12288)]
+    assert chosen.piece_fwd and chosen.piece_bwd
+    for other in others:
+        assert (other.groups, other.ctas, other.stage_fwd, other.stage_bwd) == (
+            chosen.groups, chosen.ctas, chosen.stage_fwd, chosen.stage_bwd)
+        assert sum(other.resident_fwd) > sum(chosen.resident_fwd)
+    _grid_runs_bit_equal(cuda_gru, monkeypatch, GRID_GRU[case], [chosen, *others])
+
+
+@pytest.mark.cuda
+def test_gru_chunked_exchange_ring_is_bit_equal_to_the_staging_buffer(cuda, monkeypatch):
+    """h=1000 at B=256 (a chunk of B=512): every row resident, each exchange
+    staged in chunks by slice_product's two halves of the staging buffer; a
+    ring forced into the staging buffer's room gives every entry's outputs
+    bit-equal."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+    from vmlmf_tpu_torch.tools.gru_phases import ring_in_stage
+
+    t, _, f, h, rx, r, mode, lowrank = GRID_GRU["h1000_pre_b512"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    (_, b, plan), _ = cuda_gru.gru_grid_chunks(t, 512, f, rx, h, r, cuda_gru.DENSE_PRE, sms=sms)
+    ring = ring_in_stage(plan)
+    assert not plan.piece_fwd and ring.piece_fwd and ring.piece_bwd and not ring.streamed
+    _grid_runs_bit_equal(cuda_gru, monkeypatch, (t, b, f, h, rx, r, mode, lowrank), [plan, ring])
+
+
+@pytest.mark.cuda
+def test_gru_bptt_products_on_the_hopper_tile_match_float64(cuda):
+    """Each GRU BPTT product that gemm_tc.cuh's rule sends to its Hopper tile
+    at h=3200 (T=24, B=81, r=800), its composite operands staged through a
+    gated source: in 3xTF32 within 1e-5 of float64 and within twice
+    gemm_tile.cuh's CUDA-core split-k's error at the same product; two calls
+    to equal bits."""
+    from vmlmf_tpu_torch.ops import tc_check
+    from vmlmf_tpu_torch.ops.cuda_scan import tc_route
+
+    t, b, h, r = 24, 81, 3200, 800
+    m = t * b
+    g = torch.Generator().manual_seed(3)
+
+    def n(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    h0, ys, gates = n(b, h, scale=0.5), torch.tanh(n(t, b, h)), torch.sigmoid(n(t, b, 3 * h))
+    dpre = n(m, 3 * h, scale=0.1)
+    v = dict(hu=n(m, r), rhu=n(m, r), dhu=n(m, r, scale=0.1), drhu=n(m, r, scale=0.1),
+             w=n(h, r, scale=h ** -0.5))
+    for p, (label, shape, _, _) in enumerate(tc_check.GRU_PRODUCTS):
+        assert tc_route(*shape(m, h, r, r)), label
+        a, bb = tc_check.gru_sources(p, h0, ys, gates, dpre, **v)
+        got = tc_check.gru_product(p, tc_check.GRU_HOPPER, h0, ys, gates, dpre, **v)
+        again = tc_check.gru_product(p, tc_check.GRU_HOPPER, h0, ys, gates, dpre, **v)
+        tile = tc_check.gru_product(p, tc_check.GRU_TILE, h0, ys, gates, dpre, **v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), label
+        err, tile_err = (tc_check.relative_error(x, a, bb) for x in (got, tile))
+        print(f"{label}: Hopper tile {err:.3g}, gemm_tile.cuh {tile_err:.3g}")
+        assert err <= min(1e-5, 2 * tile_err), (label, err, tile_err)
+        del a, bb
 
 
 @pytest.mark.cuda

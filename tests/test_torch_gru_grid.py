@@ -30,6 +30,7 @@ from vmlmf_tpu_torch.ops.cuda_scan import (  # noqa: E402
     GRID_THREADS,
     MAX_SLICES,
     MIN_SLICE_DEPTH,
+    RING_STAGES,
     SMEM_LIMIT,
 )
 from vmlmf_tpu_torch.utils.transplant import params_from_jax  # noqa: E402
@@ -59,7 +60,9 @@ def cover(ranges, n):
 
 def smem_floats(plan, kernel):
     """Floats of a kernel's shared memory as csrc/gru_grid.cuh carves it:
-    the resident rows of its two slices, its slabs, stage and red."""
+    the resident rows of its two slices, its slabs, stage (on a ring plan
+    the ring, RING_STAGES stages of `piece` floats and their two 8-byte
+    barriers each) and red."""
     (da, ca), (db, cb) = plan.slices(kernel)
     res_a, res_b = plan.resident(kernel)
     jwp = -(-(-(-plan.h // plan.ctas)) // 4) * 4
@@ -67,7 +70,9 @@ def smem_floats(plan, kernel):
     slabs = {"fwd": 7 if plan.form == POST else 5, "bwd": 7 if plan.form == POST else 6}[kernel]
     stage, red = ((plan.stage_fwd, plan.red_fwd) if kernel == "fwd"
                   else (plan.stage_bwd, plan.red_bwd))
-    return weights + slabs * jwp * plan.rpad + stage + red
+    piece = plan.piece(kernel)
+    staged = RING_STAGES * (piece + 4) if piece else stage
+    return weights + slabs * jwp * plan.rpad + staged + red
 
 
 def products(plan, kernel):
@@ -166,12 +171,15 @@ def test_grid_plans_at_the_shapes_the_card_runs():
     chunks = cuda_gru.gru_grid_chunks(24, 512, 77, 0, 1000, 0, DENSE_PRE)
     assert [(b0, n, p.groups, p.ctas) for b0, n, p in chunks] == [(0, 256, 1, 132),
                                                                  (256, 256, 1, 132)]
-    # h=3200: one group over all SMs, a share of each slice streamed
+    # h=3200: one group over all SMs, each slice streamed through a ring
+    # whose two stages take the room that held a share of its rows
     for r, form in ((0, POST), (0, DENSE_PRE), (800, LOWRANK)):
         (_, _, plan), = cuda_gru.gru_grid_chunks(24, 81, 77, 9, 3200, r, form)
         assert plan.groups == 1 and plan.ctas == SMS and plan.streamed
-        assert all(0 < res < d for (d, _), res in zip(plan.slices("fwd"), plan.resident("fwd"))
-                   if d)
+        for kernel in ("fwd", "bwd"):
+            assert all(0 <= res < d for (d, _), res in zip(plan.slices(kernel),
+                                                           plan.resident(kernel)) if d)
+            assert plan.piece(kernel) >= cuda_gru.ring_piece(plan.rpad) * 3 // 4
 
 
 def test_a_forced_streamed_grid_plan_keeps_the_stage_and_the_partials():

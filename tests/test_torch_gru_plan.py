@@ -25,7 +25,12 @@ import chip_smoke  # noqa: E402
 from vmlmf_tpu.ops.pallas_gru import gru_scan_fused_xin as jax_gru  # noqa: E402
 from vmlmf_tpu_torch import config  # noqa: E402
 from vmlmf_tpu_torch.ops import cuda_gru  # noqa: E402
-from vmlmf_tpu_torch.ops.cuda_scan import SMEM_LIMIT, SPLIT_TARGET  # noqa: E402
+from vmlmf_tpu_torch.ops.cuda_scan import (  # noqa: E402
+    SMEM_LIMIT,
+    SPLIT_TARGET,
+    tc_route,
+    tc_splitk_floats,
+)
 
 SMS = 132  # an H100 SXM
 EMU_TOL = dict(atol=1e-9, rtol=1e-9)  # float64: only the order of sums differs
@@ -252,12 +257,19 @@ def test_bwd_partial_floats_holds_every_product_s_slices_at_once(shape, gi):
         assert splits == cuda_gru.group_splits(products, weights)
         # the weight gradients' slices do not depend on dx
         assert splits[:len(weights)] == gemm_splits(weights)
-        # the group's regions lie one after another: the scratch is their sum
-        group = sum(s * m * n for s, (m, n, _) in zip(splits, products))
+        # the group's regions lie one after another: the scratch is their sum;
+        # a recurrent product that the Hopper tile takes (tc_route: 2^28
+        # multiply-adds, m, n, k >= 128) runs before the group, in its own k
+        # slices, and keeps no region there
+        routed = [i < 2 + low and tc_route(m, n, k) for i, (m, n, k) in enumerate(products)]
+        assert not any(routed[2 + low:])
+        group = sum(s * m * n for s, (m, n, _), go in zip(splits, products, routed) if not go)
+        hopper = [tc_splitk_floats(m, n, k, False) for (m, n, k), go in zip(products, routed)
+                  if go]
         dxu = sum(s * m * n for s, (m, n, _) in zip(gemm_splits([(t * b, rx, 3 * h)]),
                                                     [(t * b, rx, 3 * h)])) if rx else 0
         assert cuda_gru.gru_bwd_partial_floats(t, b, f, rx, h, r, form, gi=gi, dx=dx) == max(
-            group, dxu)
+            group, dxu, *hopper)
         # one slice length: each CTA walks about the same k, the weight gradients
         # near 528 CTAs
         ctas = sum(s * -(-n // 64) * -(-m // 64) for s, (m, n, _) in zip(splits, weights))

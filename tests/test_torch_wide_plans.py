@@ -793,13 +793,24 @@ def parent_walk(depth, chunk, slices, s):
 
 def ring_walk(pieces, chunk, slices, s):
     """The same on the ring (scan_grid.cuh::Ring::consume): piece by piece,
-    and in each chunk [c0, c0 + chunk) a piece [e0, e1) meets, from the
-    thread's first row d >= max(e0, c0) with d - c0 = s (mod slices)."""
-    out = []
-    for e0, e1 in pieces:
-        for c0 in range(e0 - e0 % chunk, e1, chunk):
-            a, b = max(e0, c0), min(e1, c0 + chunk)
-            out.extend(range(a + (s - (a - c0) % slices + slices) % slices, b, slices))
+    the thread's next row carried across pieces, moving to the next chunk's
+    row c0 + s where a chunk ends; one chunk of the whole depth where the
+    slices divide the chunk."""
+    depth = pieces[-1][1]
+    chunk = depth if chunk % slices == 0 else chunk
+    out, c0, d = [], 0, s
+    for _, e1 in pieces:
+        while True:
+            b = min(e1, c0 + chunk)
+            while d < b:
+                out.append(d)
+                d += slices
+            if b < c0 + chunk:
+                break
+            c0 += chunk
+            d = c0 + s
+            if c0 >= e1:
+                break
     return out
 
 

@@ -1,13 +1,17 @@
-// Tensor-core GEMMs of the LSTM scan kernels' time-parallel products, for
+// Tensor-core GEMMs of the scan kernels' time-parallel products, for
 // sm_90a.
 //
 //   c(i, j) = epilogue(i, j, sum_k A(i, k) * B(k, j))
 //
 // Replaces, in lstm_scan_xin_fwd.cu and lstm_scan_xin_bwd.cu, the CUDA-core
-// tile of gemm_tile.cuh (which the GRU and stack kernels keep). It takes the
-// same operand views (RowMajor, Transposed, PrevRows, PrevRowsT) and the same
-// epilogue functors (Store, GiEpilogue, GatesEpilogue, DxEpilogue, Partial),
-// and its products are those of the scans' x-side projection, the recompute
+// tile of gemm_tile.cuh, and in gru_scan_xin_bwd.cu that tile's large
+// products: the GRU BPTT's recurrent weight gradients and its recompute
+// pre-pass where wg_route sends them to the Hopper tile (the GRU's other
+// products, and the stack's, stay on gemm_tile.cuh). It takes the same
+// operand views (RowMajor, Transposed, PrevRows, PrevRowsT; the GRU's
+// composites stage through a gated wg::Source) and the same epilogue
+// functors (Store, GiEpilogue, GatesEpilogue, DxEpilogue, Partial), and its
+// products are those of the scans' x-side projection, the recompute
 // pre-pass and the BPTT's weight and x-side gradients: products with
 // thousands of output tiles (at a dense h=1500) or a few tiles and a long k
 // (the HAR layer's dU [180, 6] over k = 1944).
@@ -838,17 +842,33 @@ wg_gemm_kernel(const __grid_constant__ Maps maps, Sink sink, int m, int n, int k
   }
 }
 
-// dst [rows, ld] bf16 = the source's rows [rows, cols], rounded to nearest
-// even (the value bf16_pair gives), zeros in the padding up to ld (a
-// multiple of 8): eight elements a thread.
+// The storage under a view, as rows: row i is first[i] for i < nfirst and
+// rest[i - nfirst] after (PrevRows' seam), each ld floats apart. A gated
+// source (gate set) forms a product of two views as it is staged: its row
+// i is the plain row i for i < gated_from, and row i' = i - gated_from
+// times gate's row i' (gate_ld floats apart) after; gated_from 0 gates
+// every row (the GRU's R * Hprev and dN * R), gated_from M stacks the
+// plain rows over the gated ones ([Hprev; R * Hprev] of the GRU's dUf).
 struct Source {
   const float* first;
   const float* rest;
   int nfirst, ld;
+  const float* gate = nullptr;
+  int gate_ld = 0, gated_from = 0;
   __device__ __forceinline__ const float* row(int i) const {
     return i < nfirst ? first + (size_t)i * ld : rest + (size_t)(i - nfirst) * ld;
   }
+  __device__ __forceinline__ float at(int i, int j) const {
+    if (gate == nullptr || i < gated_from) return row(i)[j];
+    const int g = i - gated_from;
+    return row(g)[j] * gate[(size_t)g * gate_ld + j];
+  }
 };
+
+// dst [rows, ld] bf16 = the source's rows [rows, cols], rounded to nearest
+// even (the value bf16_pair gives), zeros in the padding up to ld (a
+// multiple of 8): eight elements a thread; a plain source (Staging takes
+// no gated one in bf16).
 
 __global__ void __launch_bounds__(256)
 cast_bf16_kernel(Source src, __nv_bfloat16* __restrict__ dst, int rows, int cols, int ld) {
@@ -891,7 +911,7 @@ split_tf32_kernel(Source src, float* __restrict__ hi, float* __restrict__ lo, in
 #pragma unroll
     for (int q = ty; q < 32; q += 8) {
       const int sr = j0 + q, sc = i0 + tx;
-      tile[q][tx] = sr < cols && sc < rows ? src.row(sr)[sc] : 0.f;
+      tile[q][tx] = sr < cols && sc < rows ? src.at(sr, sc) : 0.f;
     }
     __syncthreads();
   }
@@ -903,7 +923,7 @@ split_tf32_kernel(Source src, float* __restrict__ hi, float* __restrict__ lo, in
     if constexpr (Transpose)
       v = tile[tx][q];
     else
-      v = j < cols ? src.row(i)[j] : 0.f;
+      v = j < cols ? src.at(i, j) : 0.f;
     unsigned h, l;
     split_tf32(v, h, l);
     hi[(size_t)i * ld + j] = __uint_as_float(h);
@@ -919,6 +939,8 @@ split_tf32_kernel(Source src, float* __restrict__ hi, float* __restrict__ lo, in
 
 // The storage under a view: rows [0, nfirst) of `first`, then rows of
 // `rest` (PrevRows' seam), each ld floats apart.
+// A view of another file stages through a source_of of its own, found by
+// argument-dependent lookup (gru_scan_xin_bwd.cu's composites).
 inline wg::Source source_of(const RowMajor& v) { return {v.p, nullptr, INT_MAX, v.ld}; }
 inline wg::Source source_of(const Transposed& v) { return {v.p, nullptr, INT_MAX, v.ld}; }
 inline wg::Source source_of(const PrevRows& v) { return {v.first, v.rest, v.nfirst, v.ld}; }
@@ -932,15 +954,17 @@ inline int round_to(int v, int q) { return (v + q - 1) / q * q; }
 
 // The staged copies of one call's products, carved in order from scratch
 // that the wrapper allocates (ops/cuda_scan.py::tc_stage_floats mirrors the
-// bytes): each source is staged once a call in each form that a product
-// reads, at the first product that reads it (its content is final by then:
-// the scans never write a buffer after a product has read it).
+// bytes): each source is staged once a call (or once between resets) in
+// each form that a product reads, at the first product that reads it (its
+// content is final by then: the scans never write a buffer after a product
+// has read it).
 struct Staging {
   enum Form { kBf16 = 0, kSplit = 1, kSplitT = 2 };  // bf16; hi and lo as stored; transposed
   struct Copy {
     const float* first;
     const float* rest;
-    int nfirst, form;
+    const float* gate;
+    int gated_from, form;
     const void* hi;
     const void* lo;
     int rows, cols, ld;  // of the copy
@@ -954,16 +978,21 @@ struct Staging {
       : base(reinterpret_cast<unsigned char*>(scratch)), bytes(floats * 4), used(0), count(0) {}
 
   // The copy of the source's rows [rows, cols] in `form` (kSplitT: of its
-  // transpose), staging it on `stream` if this call has not; null hi on
-  // error (`err`).
+  // transpose), staging it on `stream` if this call has not (a gated source
+  // is keyed by its gate too); null hi on error (`err`).
   Copy get(wg::Source src, int rows, int cols, int form, cudaStream_t stream, cudaError_t& err) {
     for (int i = 0; i < count; ++i) {
       const Copy& c = copies[i];
-      if (c.first == src.first && c.rest == src.rest && c.form == form &&
+      if (c.first == src.first && c.rest == src.rest && c.gate == src.gate &&
+          (src.gate == nullptr || c.gated_from == src.gated_from) && c.form == form &&
           (form == kSplitT ? c.cols == rows && c.rows == cols : c.rows == rows && c.cols == cols))
         return c;
     }
-    Copy c{src.first, src.rest, src.nfirst, form, nullptr, nullptr, 0, 0, 0};
+    if (form == kBf16 && src.gate != nullptr) {  // the gated sources are f32 products'
+      err = cudaErrorInvalidValue;
+      return Copy{};
+    }
+    Copy c{src.first, src.rest, src.gate, src.gated_from, form, nullptr, nullptr, 0, 0, 0};
     c.rows = form == kSplitT ? cols : rows;
     c.cols = form == kSplitT ? rows : cols;
     c.ld = round_to(c.cols, form == kBf16 ? 8 : 4);  // 16-byte rows
@@ -1006,6 +1035,14 @@ struct Staging {
     float* p = reinterpret_cast<float*>(base + used);
     used += need;
     return p;
+  }
+
+  // Forgets every copy and raw sum, so that the next product stages from
+  // the scratch's start: for a caller whose earlier products are done with
+  // theirs (one stream orders the reads before the next writes).
+  void reset() {
+    used = 0;
+    count = 0;
   }
 };
 

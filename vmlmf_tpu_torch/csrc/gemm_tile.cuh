@@ -398,6 +398,7 @@ cudaError_t gemm_splitk_group(float* partial, size_t partial_floats, int kslice,
   };
   (plan(ps), ...);
   if (used > partial_floats) return cudaErrorInvalidValue;
+  if (ctas == 0) return cudaSuccess;  // every product taken elsewhere (m = 0)
   group_partial_kernel<<<ctas, kGemmThreads, 0, stream>>>(ps...);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -19,10 +19,31 @@
 // a CTA's own are zero. A product of the step reads the group's exchange
 // buffer [depth][rpad] (h, r*h, hu, rhu, or the walk's dpre, drhu, dhu)
 // through L2 and multiplies it with a range of rows and columns of one slice
-// (rows_product). Where the slices do not fit in the shared memory of all
-// SMs, a slice keeps its first `res` depth rows resident and the CTA streams
-// the rest from its own region of a device-memory scratch every step
-// (GridPlan::res_a / res_b), in the same order of sums.
+// (GridSlice::rows, grid_product). Where the slices do not fit in the
+// shared memory of all SMs, a slice keeps its first `res` depth rows
+// resident and the CTA streams the rest from its own region of a
+// device-memory scratch every step (GridPlan::res_a / res_b), in the same
+// order of sums.
+//
+// A plan that streams rows runs its products on the ring of scan_grid.cuh
+// (GridPlan::piece > 0; kRingThreads threads, the 17th warp the
+// producer): TMA bulk copies bring the exchange and the streamed rows a
+// piece at a time into two stages in shared memory, where slice_product
+// copied the exchange in halves of `stage` with cp.async and loaded each
+// streamed row inside its FMA loop. The order of sums stays
+// slice_product's (its items, slices, chunks of `stage` / 2 rows and the
+// fixed-order reduction in `red`), so the bits are the plan's without the
+// ring. A product streams only the columns it reads: the forward's slice
+// B of the "pre" forms, whose products read its columns [0, 2 jwp) (r, z)
+// and [2 jwp, 3 jwp) (n) apart, keeps its streamed rows as two blocks,
+// [rows][2 jwp] then [rows][jwp] (SliceShapes::split_b). Every width is a
+// multiple of 4 floats, so each streamed row is a whole number of 16-byte
+// units (scan_grid.cuh::ring_ld) and each run of rows one bulk copy. Where
+// no row streams (the HAR widths, h = 180, h = 1000) the products run
+// slice_product on kGridThreads as before. (The kernels also take a ring on
+// a plan whose rows are all resident, which the checks force; at h=1000,
+// B=256, whose exchange the staging buffer takes in chunks, a ring in its
+// room ran slower than the staging buffer, so no plan asks for one.)
 
 #pragma once
 
@@ -40,9 +61,11 @@ struct GridWidths {
 };
 
 // (depth, columns) of slice A and slice B of the forward (walk = false) or
-// the walk; A's depth is 0 in the dense forms.
+// the walk; A's depth is 0 in the dense forms. split_b: the columns of the
+// first block of slice B's streamed rows (cb: one block; the forward's
+// "pre" forms 2 jwp, the r and z columns, before the n columns).
 struct SliceShapes {
-  int da, ca, db, cb;
+  int da, ca, db, cb, split_b;
   __host__ __device__ SliceShapes(int form, int h, int r, const GridPlan& p, bool walk) {
     const GridWidths w(form, h, r, p);
     const bool lowrank = form == kLowrankPre;
@@ -50,6 +73,7 @@ struct SliceShapes {
     ca = w.kwp;
     db = walk ? (lowrank ? r : 3 * h) : (lowrank ? r : h);
     cb = walk ? w.jwp : 3 * w.jwp;
+    split_b = !walk && form != kDensePost ? 2 * w.jwp : cb;
   }
 };
 
@@ -62,21 +86,35 @@ __host__ __device__ inline int grid_slabs(int form, bool walk) {
 }
 
 // Floats of a kernel's shared memory, in the order of its carve: the
-// resident rows of slices A and B, the slabs, stage and red.
+// resident rows of slices A and B, the slabs, stage (on a ring plan, the
+// ring: scan_grid.cuh::ring_floats) and red.
 __host__ __device__ inline size_t grid_smem_floats(int form, int h, int r, const GridPlan& p,
                                                    bool walk) {
   const SliceShapes s(form, h, r, p, walk);
   const size_t weights = (size_t)p.res_a * s.ca + (size_t)p.res_b * s.cb;
   return weight_floats<float>(weights) +
-         (size_t)grid_slabs(form, walk) * GridWidths(form, h, r, p).jwp * p.rpad + p.stage + p.red;
+         (size_t)grid_slabs(form, walk) * GridWidths(form, h, r, p).jwp * p.rpad +
+         (p.piece ? ring_floats(p) : (size_t)p.stage) + p.red;
 }
 
 // Floats of one CTA's region of the streamed scratch: the rows of its two
-// slices past their resident depths.
+// slices past their resident depths (slice B's in its blocks, split_b).
 __host__ __device__ inline size_t grid_stream_floats(int form, int h, int r, const GridPlan& p,
                                                      bool walk) {
   const SliceShapes s(form, h, r, p, walk);
   return weight_floats<float>((size_t)(s.da - p.res_a) * s.ca + (size_t)(s.db - p.res_b) * s.cb);
+}
+
+// Whether a plan's ring is one the kernels take: a plan without a ring
+// streams nothing; a ring's stages hold one depth row of A and, where rows
+// stream, its rpad exchange floats and a streamed row of the widest block
+// (scan_grid.cuh::ring_holds).
+inline bool grid_ring_ok(int form, int h, int r, const GridPlan& p, bool walk) {
+  const SliceShapes s(form, h, r, p, walk);
+  const bool streams = p.res_a < s.da || p.res_b < s.db;
+  if (!p.piece) return !streams;
+  return ring_ok(p) && p.piece >= p.rpad &&
+         (!streams || ring_holds<float>(p, s.ca > s.split_b ? s.ca : s.split_b));
 }
 
 // Whether a plan's resident depths are ones the kernels take.
@@ -88,37 +126,58 @@ __host__ __device__ inline bool grid_resident_ok(int form, int h, int r, const G
          p.red >= 0;
 }
 
-// Streamed weight rows a thread loads before their FMAs (slice_product's
-// Batch): a step of a streamed plan walks thousands of rows a thread, and
-// four loads in flight left it waiting on device memory.
-constexpr int kStreamBatch = 8;
+// One weight slice of a CTA: its first `resident` of `depth` rows at w in
+// shared memory, [resident][ldw], and the others at ws in the CTA's
+// streamed region, in column blocks: [depth - resident][split], then
+// [depth - resident][ldw - split] (split = ldw: one block).
+struct GridSlice {
+  float* w;
+  float* ws;
+  int depth, resident, ldw, split;
 
-// scan_grid.cuh::slice_product on rows d0 .. d0 + depth and columns col0 ..
-// col0 + ncols of a slice of row stride ldw whose first `resident` rows lie
-// in shared memory at w and the rest in the streamed region at ws; `a` is
-// the exchange buffer [depth][rpad] of the product's rows.
-template <bool Streamed, class Epi>
-__device__ __forceinline__ void rows_product(const float* a, int d0, int depth, int rpad,
-                                             const float* w, const float* ws, int resident,
-                                             int ldw, int col0, int ncols, float* stage,
-                                             int stage_floats, float* red, int red_floats,
+  // The store of element (d, c), the prologue's.
+  __device__ __forceinline__ void store(int d, int c, float v) const {
+    if (d < resident) {
+      w[(size_t)d * ldw + c] = v;
+      return;
+    }
+    const size_t rows = depth - resident, at = d - resident;
+    if (c < split)
+      ws[at * split + c] = v;
+    else
+      ws[rows * split + at * (ldw - split) + c - split] = v;
+  }
+
+  // The ring's operand of the product over rows d0 .. d0 + n and columns
+  // col0 .. col0 + ncols (col0 0 or `split`: a whole block), from the
+  // exchange rows at `a`.
+  __device__ __forceinline__ RingOperand<float> rows(const float* a, int d0, int n, int col0,
+                                                     int ncols) const {
+    const int width = col0 < split ? split : ldw - split;
+    const float* block = col0 < split ? ws : ws + (size_t)(depth - resident) * split;
+    return RingOperand<float>{a,
+                              w + (size_t)d0 * ldw + col0,
+                              block + (size_t)max(0, d0 - resident) * width,
+                              n,
+                              min(n, max(0, resident - d0)),
+                              ldw,
+                              ncols,
+                              width};
+  }
+};
+
+// A product of the grid kernels: on the ring where the plan has one
+// (OnRing), else scan_grid.cuh::slice_product over the operand's rows, all
+// resident; epi as both call it.
+template <bool OnRing, class Epi>
+__device__ __forceinline__ void grid_product(Ring& ring, const RingOperand<float>& op,
+                                             const GridPlan& p, float* stage, float* red,
                                              Epi epi) {
-  const int res = min(depth, max(0, resident - d0));
-  const float* wr = w + (size_t)d0 * ldw + col0;
-  const float* wsr = Streamed ? ws + (size_t)max(0, d0 - resident) * ldw + col0 : nullptr;
-  slice_product<Streamed, kStreamBatch>(a, depth, rpad, wr, wsr, res, ldw, ncols, stage,
-                                        stage_floats, red, red_floats, epi);
-}
-
-// Stores the value of element (d, c) of a slice of row stride ldw: into
-// shared memory for d < resident, else into the CTA's streamed region.
-template <bool Streamed>
-__device__ __forceinline__ void slice_store(float* w, float* ws, int resident, int ldw, int d,
-                                            int c, float v) {
-  if constexpr (Streamed)
-    slice_elem(w, ws, resident, ldw, d, c) = v;
+  if constexpr (OnRing)
+    ring.product(op, red, epi);
   else
-    w[(size_t)d * ldw + c] = v;
+    slice_product(op.a, op.depth, p.rpad, op.w, op.ldw, op.ncols, stage, p.stage, red, p.red,
+                  epi);
 }
 
 }  // namespace gru

@@ -84,7 +84,22 @@
 //      dUf is one product over 2M rows, [Hprev | R*Hprev]^T [dHU; dRHU].
 //      The caller sizes the slices' scratch (cuda_gru.py::
 //      gru_bwd_partial_floats). Hprev, R*Hprev and dN*R are read in place
-//      through operand views, never built as copies. dx = dXU Ux^T (k = rx
+//      through operand views, never built as copies.
+//      The recurrent products that gemm_tc.cuh's rule (wg_route: 2^28
+//      multiply-adds or more, m, n and k all 128 or more; h = 1000 or
+//      3200, none at a HAR width) sends to its Hopper tile run there
+//      instead, in 3xTF32, each on its own before the group: wgmma fed by
+//      TMA from copies staged once a call (`stage`, cuda_gru.py::
+//      gru_tc_stage_floats), the composites R*Hprev, dN*R and [Hprev;
+//      R*Hprev] formed as they are split into hi and lo (a gated
+//      wg::Source). The group keeps its slice length, so the products that
+//      stay in it keep their bits. At h=3200 the grouped split-k took
+//      7.5-7.9 ms of a 20 ms BPTT on the CUDA cores. The recompute
+//      pre-pass's recurrent products route alike, their epilogues (which
+//      read the gates) run over the tile's raw sums in tc_sum_kernel; each
+//      stages from the scratch's start, and a dense [R Z] runs as two
+//      products of h columns, so that the policy needs no more staging
+//      than the weight gradients, which reuse it after. dx = dXU Ux^T (k = rx
 //      or 3h) joins the group, with the weight gradients' slice length so
 //      that their sums do not depend on it; dXU = dPre Vx^T, which dUx and
 //      dx read, is a group of its own before it, so that its k = 3h is cut
@@ -97,6 +112,7 @@
 
 #include <cuda_runtime.h>
 
+#include "gemm_tc.cuh"
 #include "gemm_tile.cuh"
 #include "gru_grid.cuh"
 #include "gru_tile.cuh"
@@ -464,9 +480,11 @@ using vmlmf::split_at;
 //       k-slice, barrier, dh += dhu @ Uf^T (low-rank).
 // C writes only the CTA's own carry, so it needs no barrier after it: one,
 // two or four a step. The next step's inputs are copied with cp.async once
-// the step's last reader of them has passed its barrier.
-template <int Form, bool Streamed>
-__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+// the step's last reader of them has passed its barrier. OnRing
+// (GridPlan::piece > 0): the products run on scan_grid.cuh's ring, as in
+// the forward (grid_fwd_kernel).
+template <int Form, bool OnRing>
+__global__ void __launch_bounds__(OnRing ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
                  const GridPlan plan) {
   constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
@@ -481,19 +499,20 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
   const vmlmf::gru::GridWidths wd(Form, h, r, plan);
   const int jwp = wd.jwp, kwp = wd.kwp, slab = jwp * rpad;
   const int da = kLowrank ? g3 : 0, db = kLowrank ? r : g3;
-  // resident depths: every row without Streamed
-  const int resa = Streamed ? plan.res_a : da, resb = Streamed ? plan.res_b : db;
+  // resident depths: every row without a ring
+  const int resa = OnRing ? plan.res_a : da, resb = OnRing ? plan.res_b : db;
 
   float* wa = gsm;                      // [Prz; Pn]^T rows of the k-slice [3h][kwp], rows < resa
   float* wb = wa + (size_t)resa * kwp;  // [Prz; Pn]^T or Uf^T rows of the j-slice [db][jwp]
   float* dhc = gsm + vmlmf::weight_floats<float>((size_t)resa * kwp + (size_t)resb * jwp);
   float* pa = dhc + slab;               // staged inputs r, z, n, h_prev, dys, recn [k][jwp][rpad]
-  float* stage = pa + (kPost ? 6 : 5) * slab;
-  float* red = stage + plan.stage;
-  float* sa = wstream + (Streamed ? blockIdx.x * vmlmf::gru::grid_stream_floats(
-                                                    Form, h, r, plan, true)
-                                  : 0);
-  float* sb = sa + (size_t)(da - resa) * kwp;
+  float* stage = pa + (kPost ? 6 : 5) * slab;  // on a ring, the ring
+  float* red = stage + (OnRing ? vmlmf::ring_floats(plan) : (size_t)plan.stage);
+  float* sa = wstream + (OnRing ? blockIdx.x * vmlmf::gru::grid_stream_floats(
+                                                  Form, h, r, plan, true)
+                                : 0);
+  const vmlmf::gru::GridSlice sla{wa, sa, da, resa, kwp, kwp};
+  const vmlmf::gru::GridSlice slb{wb, sa + (size_t)(da - resa) * kwp, db, resb, jwp, jwp};
   const size_t dpar = (size_t)plan.groups * g3 * rpad;
   float* dpx = xchg + (size_t)grp * g3 * rpad;  // parity p at dpx + p * dpar
   float* ux = xchg + 2 * dpar + (size_t)grp * r * rpad;
@@ -509,7 +528,7 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
       const float v = kk >= kw ? 0.f
                       : d < 2 * h ? a.prz[(size_t)k * 2 * h + d]
                                   : a.pn[(size_t)k * h + d - 2 * h];
-      vmlmf::gru::slice_store<Streamed>(wa, sa, resa, kwp, d, kk, v);
+      sla.store(d, kk, v);
     }
   }
 #pragma unroll 4
@@ -522,7 +541,7 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
       else
         v = d < 2 * h ? a.prz[(size_t)j * 2 * h + d] : a.pn[(size_t)j * h + d - 2 * h];
     }
-    vmlmf::gru::slice_store<Streamed>(wb, sb, resb, jwp, d, jj, v);
+    slb.store(d, jj, v);
   }
   for (int e = threadIdx.x; e < slab; e += blockDim.x) dhc[e] = 0.f;
 
@@ -542,6 +561,34 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
     }
   };
   prefetch(a.t_len - 1);
+
+  // the products' operands, from the exchange rows at src: (B) dn_pre @
+  // Pn^T of the k-slice (low-rank) or j-slice (dense "pre"); (C) [dr_pre,
+  // dz_pre(, dn_pre * r)] @ [Prz(; Pn)]^T; drhu or dhu @ Uf^T
+  auto op_b = [&](const float* src) {
+    return kLowrank ? sla.rows(src, 2 * h, h, 0, kwp) : slb.rows(src, 2 * h, h, 0, jwp);
+  };
+  auto op_c = [&](const float* src) {
+    return kLowrank ? sla.rows(src, 0, 2 * h, 0, kwp)
+                    : slb.rows(src, 0, kPost ? g3 : 2 * h, 0, jwp);
+  };
+  auto op_uf = [&](const float* src) { return slb.rows(src, 0, r, 0, jwp); };
+  vmlmf::Ring ring;
+  auto product = [&](const vmlmf::RingOperand<float>& op, auto epi) {
+    vmlmf::gru::grid_product<OnRing>(ring, op, plan, stage, red, epi);
+  };
+  auto preload = [&](const vmlmf::RingOperand<float>& op) {
+    if constexpr (OnRing) ring.preload(op);
+  };
+  // the first product of a step, whose exchange (A) is of parity t
+  auto first_op = [&](int t) {
+    const float* dpx_t = dpx + (t & 1) * dpar;
+    return kPost ? op_c(dpx_t) : op_b(dpx_t + (size_t)2 * h * rpad);
+  };
+  if constexpr (OnRing) {
+    ring.start(stage, plan);
+    if (a.t_len > 0) preload(first_op(a.t_len - 1));
+  }
 
   // epilogues: dh += the product (C); a rank product into the exchange and
   // its dpre-side output (drhu, dhu); drh's (B)
@@ -622,33 +669,30 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
 
     if constexpr (kPost) {
       if (t > 0) prefetch(t - 1);
-      vmlmf::gru::rows_product<Streamed>(dpx_t, 0, g3, rpad, wb, sb, resb, jwp, 0, jwp, stage,
-                                         plan.stage, red, plan.red, add_carry);
+      product(op_c(dpx_t), add_carry);
     } else {
       const float* dn_rows = dpx_t + (size_t)2 * h * rpad;
       if constexpr (kLowrank) {  // drhu = dn_pre @ Pn^T, then drh = drhu @ Uf^T
-        vmlmf::gru::rows_product<Streamed>(dn_rows, 2 * h, h, rpad, wa, sa, resa, kwp, 0, kwp,
-                                           stage, plan.stage, red, plan.red, rank_out(a.drhu));
+        product(op_b(dn_rows), rank_out(a.drhu));
+        preload(op_uf(ux));
         vmlmf::group_sync(count, plan.ctas, target);
-        vmlmf::gru::rows_product<Streamed>(ux, 0, r, rpad, wb, sb, resb, jwp, 0, jwp, stage,
-                                           plan.stage, red, plan.red, drh_out);
+        product(op_uf(ux), drh_out);
       } else {  // drh = dn_pre @ Pn^T
-        vmlmf::gru::rows_product<Streamed>(dn_rows, 2 * h, h, rpad, wb, sb, resb, jwp, 0, jwp,
-                                           stage, plan.stage, red, plan.red, drh_out);
+        product(op_b(dn_rows), drh_out);
       }
+      preload(op_c(dpx_t));
       vmlmf::group_sync(count, plan.ctas, target);
       if (t > 0) prefetch(t - 1);
       if constexpr (kLowrank) {  // dhu = [dr_pre, dz_pre] @ Prz^T, then dh += dhu @ Uf^T
-        vmlmf::gru::rows_product<Streamed>(dpx_t, 0, 2 * h, rpad, wa, sa, resa, kwp, 0, kwp,
-                                           stage, plan.stage, red, plan.red, rank_out(a.dhu));
+        product(op_c(dpx_t), rank_out(a.dhu));
+        preload(op_uf(ux));
         vmlmf::group_sync(count, plan.ctas, target);
-        vmlmf::gru::rows_product<Streamed>(ux, 0, r, rpad, wb, sb, resb, jwp, 0, jwp, stage,
-                                           plan.stage, red, plan.red, add_carry);
+        product(op_uf(ux), add_carry);
       } else {  // dh += [dr_pre, dz_pre] @ Prz^T
-        vmlmf::gru::rows_product<Streamed>(dpx_t, 0, 2 * h, rpad, wb, sb, resb, jwp, 0, jwp,
-                                           stage, plan.stage, red, plan.red, add_carry);
+        product(op_c(dpx_t), add_carry);
       }
     }
+    if (t > 0) preload(first_op(t - 1));
   }
   __syncthreads();
   for (int e = threadIdx.x; e < jw * rows; e += blockDim.x) {
@@ -663,6 +707,7 @@ cudaError_t grid_walk(const WalkArgs& io, float* xchg, unsigned* sync, float* ws
   using vmlmf::gru::grid_smem_floats;
   using vmlmf::gru::grid_stream_floats;
   if (!vmlmf::gru::grid_resident_ok(Form, io.h, io.r, plan, true) ||
+      !vmlmf::gru::grid_ring_ok(Form, io.h, io.r, plan, true) ||
       sizeof(float) * grid_smem_floats(Form, io.h, io.r, plan, true) > (size_t)plan.smem ||
       plan.groups > io.batch || xchg == nullptr || sync == nullptr)
     return cudaErrorInvalidValue;
@@ -671,9 +716,9 @@ cudaError_t grid_walk(const WalkArgs& io, float* xchg, unsigned* sync, float* ws
     return cudaErrorInvalidValue;
   WalkArgs a = io;
   void* args[] = {&a, &xchg, &sync, &wstream, &plan};
-  return streamed > 0
-             ? vmlmf::launch_grid(grid_walk_kernel<Form, true>, plan, sync, args, stream)
-             : vmlmf::launch_grid(grid_walk_kernel<Form, false>, plan, sync, args, stream);
+  return plan.piece ? vmlmf::launch_grid(grid_walk_kernel<Form, true>, plan, sync, args, stream,
+                                         0, vmlmf::kRingThreads)
+                    : vmlmf::launch_grid(grid_walk_kernel<Form, false>, plan, sync, args, stream);
 }
 
 cudaError_t grid_walk_form(const WalkArgs& a, int form, float* xchg, unsigned* sync,
@@ -809,6 +854,27 @@ struct ConcatRows {
   }
 };
 
+// The sources under the composites, for the Hopper tile's staging
+// (gemm_tc.cuh::Source, found by argument-dependent lookup): R * Hprev and
+// its transpose gate Hprev's rows by the first h columns of the gates' rows;
+// dN * R gates dPre's n columns by them; [Hprev; R * Hprev] along k stacks
+// Hprev's rows over the gated ones; [dHU; dRHU] is two row blocks.
+vmlmf::tc::wg::Source source_of(const GatedPrev& v) {
+  return {v.first, v.rest, v.nfirst, v.ld, v.gates, 3 * v.ld, 0};
+}
+vmlmf::tc::wg::Source source_of(const GatedPrevT& v) {
+  return {v.first, v.rest, v.nfirst, v.ld, v.gates, 3 * v.ld, 0};
+}
+vmlmf::tc::wg::Source source_of(const RowProduct& v) {
+  return {v.a, nullptr, INT_MAX, v.ld, v.b, v.ld, 0};
+}
+vmlmf::tc::wg::Source source_of(const ConcatK<vmlmf::PrevRowsT, GatedPrevT>& v) {
+  return {v.a1.first, v.a1.rest, v.a1.nfirst, v.a1.ld, v.a2.gates, 3 * v.a1.ld, v.k1};
+}
+vmlmf::tc::wg::Source source_of(const ConcatRows<vmlmf::RowMajor, vmlmf::RowMajor>& v) {
+  return {v.b1.p, v.b2.p, v.k1, v.b1.ld};
+}
+
 // The serial walk of the given form; returns the launch's error.
 cudaError_t walk_form(const WalkArgs& a, int form, int threads, int smem, cudaStream_t stream) {
   switch (form) {
@@ -840,57 +906,103 @@ struct XSide {
   int f, rx, h, m;
 };
 
+// Where the BPTT's products run: the Hopper tile's staged copies (st), and
+// the split-k scratch that its products and the group share in turn.
+struct Tc {
+  vmlmf::tc::Staging* st;
+  float* partial;
+  size_t partial_floats;
+  cudaStream_t stream;
+};
+
+// Runs product p on gemm_tc.cuh's Hopper tile where wg_route sends it, with
+// as many k slices as the scratch holds of its plan, and takes it out of the
+// group (m = 0: no CTA, no output); else leaves it there.
+template <class P>
+cudaError_t take_routed(P& p, const Tc& tc) {
+  if (p.m <= 0 || !vmlmf::tc::wg_route(p.m, p.n, p.k)) return cudaSuccess;
+  const size_t room = tc.partial_floats / ((size_t)p.m * p.n);
+  const vmlmf::tc::Plan plan = vmlmf::tc::wg_plan(p.m, p.n, p.k, room, false);
+  const cudaError_t err = vmlmf::tc::run_wg<false>(*tc.st, p.a, p.b, p.epi, p.m, p.n, p.k, plan,
+                                                   tc.partial, tc.stream);
+  p.m = 0;
+  return err;
+}
+
+// The recurrent products `rec` (routed first, take_routed) and the others in
+// one grouped split-k with the slice length `kslice`, which the caller takes
+// over every weight gradient, the routed ones too, so that the products
+// left in the group keep the slices, and the bits, they had with them.
+template <class Others, class... R>
+cudaError_t group_rest(const Tc& tc, int kslice, Others others, R... rec) {
+  cudaError_t err = cudaSuccess;
+  ((err = err != cudaSuccess ? err : take_routed(rec, tc)), ...);
+  if (err != cudaSuccess) return err;
+  return others(kslice, rec...);
+}
+
 // The weight gradients' group, with dx in it when asked for; the slice
 // length is the weight gradients' own, so their sums do not depend on dx.
 template <class... R>
-cudaError_t with_dx(const XSide& xs, float* partial, size_t partial_floats, cudaStream_t stream,
-                    R... products) {
+cudaError_t with_dx(const XSide& xs, const Tc& tc, int kslice, R... products) {
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
-  const int kslice = vmlmf::group_kslice(products...);
   if (xs.dx == nullptr)
-    return vmlmf::gemm_splitk_group(partial, partial_floats, kslice, stream, products...);
+    return vmlmf::gemm_splitk_group(tc.partial, tc.partial_floats, kslice, tc.stream,
+                                    products...);
   const int kx = xs.vx == nullptr ? 3 * xs.h : xs.rx;  // dx [M, F] = dXU Ux^T
   return vmlmf::gemm_splitk_group(
-      partial, partial_floats, kslice, stream, products...,
+      tc.partial, tc.partial_floats, kslice, tc.stream, products...,
       vmlmf::split_product(RowMajor{xs.vx == nullptr ? xs.dpre : xs.dxu, kx},
                            Transposed{xs.ux, kx}, Store{xs.dx, xs.f}, xs.m, xs.f, kx));
 }
 
 template <class... R>
-cudaError_t weight_grads(const XSide& xs, float* partial, size_t partial_floats,
-                         cudaStream_t stream, R... rec) {
+cudaError_t weight_grads(const XSide& xs, const Tc& tc, R... rec) {
   using vmlmf::RowMajor;
   using vmlmf::split_product;
   using vmlmf::Store;
   using vmlmf::Transposed;
   if (xs.x == nullptr)
-    return vmlmf::gemm_splitk_group(partial, partial_floats, vmlmf::group_kslice(rec...), stream,
-                                    rec...);
+    return group_rest(tc, vmlmf::group_kslice(rec...),
+                      [&](int kslice, auto... left) {
+                        return vmlmf::gemm_splitk_group(tc.partial, tc.partial_floats, kslice,
+                                                        tc.stream, left...);
+                      },
+                      rec...);
   const int g3 = 3 * xs.h, f = xs.f, rx = xs.rx, m = xs.m;
   const auto dbias = split_product(Ones{}, RowMajor{xs.dpre, g3}, Store{xs.dbias, g3}, 1, g3, m);
-  if (xs.vx == nullptr)
-    return with_dx(
-        xs, partial, partial_floats, stream, rec...,
-        split_product(Transposed{xs.x, f}, RowMajor{xs.dpre, g3}, Store{xs.dux, g3}, f, g3, m),
-        dbias);
-  return with_dx(
-      xs, partial, partial_floats, stream, rec...,
-      split_product(Transposed{xs.x, f}, RowMajor{xs.dxu, rx}, Store{xs.dux, rx}, f, rx, m),
-      split_product(Transposed{xs.xu, rx}, RowMajor{xs.dpre, g3}, Store{xs.dvx, g3}, rx, g3, m),
-      dbias);
+  if (xs.vx == nullptr) {
+    const auto dux =
+        split_product(Transposed{xs.x, f}, RowMajor{xs.dpre, g3}, Store{xs.dux, g3}, f, g3, m);
+    return group_rest(tc, vmlmf::group_kslice(rec..., dux, dbias),
+                      [&](int kslice, auto... left) {
+                        return with_dx(xs, tc, kslice, left..., dux, dbias);
+                      },
+                      rec...);
+  }
+  const auto dux =
+      split_product(Transposed{xs.x, f}, RowMajor{xs.dxu, rx}, Store{xs.dux, rx}, f, rx, m);
+  const auto dvx =
+      split_product(Transposed{xs.xu, rx}, RowMajor{xs.dpre, g3}, Store{xs.dvx, g3}, rx, g3, m);
+  return group_rest(tc, vmlmf::group_kslice(rec..., dux, dvx, dbias),
+                    [&](int kslice, auto... left) {
+                      return with_dx(xs, tc, kslice, left..., dux, dvx, dbias);
+                    },
+                    rec...);
 }
 
-// Every weight gradient whose k runs over the M rows, in one grouped
-// split-k: the recurrent side's, from the residuals (saved or rebuilt),
-// dpre and, low-rank, dhu and drhu; then the x side's (xs). Writes duf,
-// dprz, dpn (and dux, dvx, dbias). Returns the first error.
+// Every weight gradient whose k runs over the M rows: the recurrent side's,
+// from the residuals (saved or rebuilt), dpre and, low-rank, dhu and drhu,
+// each on the Hopper tile where wg_route sends it; then the x side's (xs)
+// and the recurrent ones left, in one grouped split-k. Writes duf, dprz,
+// dpn (and dux, dvx, dbias). Returns the first error.
 cudaError_t grouped_grads(const float* h0, const float* ys, const float* gates, const float* hu,
                           const float* rhu, const float* dpre, const float* dhu,
                           const float* drhu, float* duf, float* dprz, float* dpn,
-                          const XSide& xs, float* partial, size_t partial_floats, int t_len,
-                          int batch, int h, int r, int form, cudaStream_t stream) {
+                          const XSide& xs, const Tc& tc, int t_len, int batch, int h, int r,
+                          int form) {
   using vmlmf::RowMajor;
   using vmlmf::split_product;
   using vmlmf::Store;
@@ -904,7 +1016,7 @@ cudaError_t grouped_grads(const float* h0, const float* ys, const float* gates, 
   switch (form) {
     case kLowrankPre:  // dPn [r, h] = RHU^T dN;  dUf [h, r] = [Hprev | RH]^T [dHU; dRHU]
       return weight_grads(
-          xs, partial, partial_floats, stream,
+          xs, tc,
           split_product(Transposed{hu, r}, RowMajor{dpre, g3}, Store{dprz, 2 * h}, r, 2 * h, m),
           split_product(Transposed{rhu, r}, RowMajor{dpre + 2 * h, g3}, Store{dpn, h}, r, h, m),
           split_product(ConcatK<vmlmf::PrevRowsT, GatedPrevT>{hprev_t, rh_t, m},
@@ -912,25 +1024,42 @@ cudaError_t grouped_grads(const float* h0, const float* ys, const float* gates, 
                         Store{duf, r}, h, r, 2 * m));
     case kDensePre:  // dPn [h, h] = (R * Hprev)^T dN
       return weight_grads(
-          xs, partial, partial_floats, stream, dprz_dense,
+          xs, tc, dprz_dense,
           split_product(rh_t, RowMajor{dpre + 2 * h, g3}, Store{dpn, h}, h, h, m));
     case kDensePost:  // dPn [h, h] = Hprev^T (dN * R)
       return weight_grads(
-          xs, partial, partial_floats, stream, dprz_dense,
+          xs, tc, dprz_dense,
           split_product(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{dpn, h}, h, h, m));
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// c = epi(A @ B): on the Hopper tile where wg_route sends it (unsplit),
+// staging its copies from the scratch's start (each pre-pass product is done
+// with the one before's copies and raw sums), else on gemm_tile.cuh's tile
+// as before.
+template <class A, class B, class Epi>
+cudaError_t routed_gemm(vmlmf::tc::Staging& st, A a, B b, Epi epi, int m, int n, int k,
+                        cudaStream_t stream) {
+  if (vmlmf::tc::wg_route(m, n, k)) {
+    st.reset();
+    return vmlmf::tc::run_wg<false>(st, a, b, epi, m, n, k, vmlmf::tc::wg_plan(m, n, k, 0, false),
+                                    nullptr, stream);
+  }
+  return vmlmf::gemm(a, b, epi, m, n, k, stream);
+}
+
 // The recompute policy's pre-pass: rebuilds gates [M, 3h], hu and rhu [M, r]
 // (low-rank), recn [M, h] ("post") and xu [M, rx] (low-rank x side) from x
-// and Hprev, as the header sets out. Returns the first error.
+// and Hprev, as the header sets out; its recurrent products on the Hopper
+// tile where wg_route sends them (routed_gemm), the x side's projection on
+// gemm_tile.cuh as the forward runs it. Returns the first error.
 cudaError_t recompute(const float* x, const float* ux, const float* vx, const float* bias,
                       const float* uf, const float* prz, const float* pn, const float* h0,
                       const float* ys, float* gates, float* hu, float* rhu, float* recn,
                       float* xu, int t_len, int batch, int f, int rx, int h, int r, int form,
-                      cudaStream_t stream) {
+                      vmlmf::tc::Staging& st, cudaStream_t stream) {
   const int m = t_len * batch;
   using vmlmf::RowMajor;
   using vmlmf::Store;
@@ -942,23 +1071,33 @@ cudaError_t recompute(const float* x, const float* ux, const float* vx, const fl
   const GatedPrev rh{gates, h0, ys, batch, h};
   if (form == kLowrankPre) {
     // HU = Hprev Uf;  [R Z] = sigmoid(G_rz + HU Prz)
-    err = vmlmf::gemm(hprev, RowMajor{uf, r}, Store{hu, r}, m, r, h, stream);
+    err = routed_gemm(st, hprev, RowMajor{uf, r}, Store{hu, r}, m, r, h, stream);
     if (err != cudaSuccess) return err;
-    err = vmlmf::gemm(RowMajor{hu, r}, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, 2 * h, r,
+    err = routed_gemm(st, RowMajor{hu, r}, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, 2 * h, r,
                       stream);
     if (err != cudaSuccess) return err;
     // RHU = (R * Hprev) Uf;  N = tanh(G_n + RHU Pn)
-    err = vmlmf::gemm(rh, RowMajor{uf, r}, Store{rhu, r}, m, r, h, stream);
+    err = routed_gemm(st, rh, RowMajor{uf, r}, Store{rhu, r}, m, r, h, stream);
     if (err != cudaSuccess) return err;
-    return vmlmf::gemm(RowMajor{rhu, r}, RowMajor{pn, h}, NEpilogue{gates, h}, m, h, r, stream);
+    return routed_gemm(st, RowMajor{rhu, r}, RowMajor{pn, h}, NEpilogue{gates, h}, m, h, r, stream);
   }
-  // [R Z] = sigmoid(G_rz + Hprev Prz)
-  err = vmlmf::gemm(hprev, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, 2 * h, h, stream);
+  // [R Z] = sigmoid(G_rz + Hprev Prz); where the Hopper tile takes a half,
+  // as two products of h columns, so that one product's copies (half of
+  // Prz's) need no more room than the weight gradients' (the policy is
+  // there to save memory; ops/cuda_gru.py::gru_tc_stage_floats)
+  if (vmlmf::tc::wg_route(m, h, h)) {
+    err = routed_gemm(st, hprev, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, h, h, stream);
+    if (err == cudaSuccess)
+      err = routed_gemm(st, hprev, RowMajor{prz + h, 2 * h}, RzEpilogue{gates + h, h}, m, h, h,
+                        stream);
+  } else {
+    err = routed_gemm(st, hprev, RowMajor{prz, 2 * h}, RzEpilogue{gates, h}, m, 2 * h, h, stream);
+  }
   if (err != cudaSuccess) return err;
   if (form == kDensePre)  // N = tanh(G_n + (R * Hprev) Pn)
-    return vmlmf::gemm(rh, RowMajor{pn, h}, NEpilogue{gates, h}, m, h, h, stream);
+    return routed_gemm(st, rh, RowMajor{pn, h}, NEpilogue{gates, h}, m, h, h, stream);
   // RECN = Hprev Pn;  N = tanh(G_n + R * RECN)
-  return vmlmf::gemm(hprev, RowMajor{pn, h}, PostNEpilogue{gates, recn, h}, m, h, h, stream);
+  return routed_gemm(st, hprev, RowMajor{pn, h}, PostNEpilogue{gates, recn, h}, m, h, h, stream);
 }
 
 // The whole BPTT once the residuals are there or rebuilt: `walk` (the row
@@ -974,20 +1113,21 @@ cudaError_t bptt(const float* x, const float* ux, const float* vx, const float* 
                  const float* xu, const float* dys, const float* bias, float* gates_w,
                  float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre, float* dhu,
                  float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
-                 float* dbias, float* duf, float* dprz, float* dpn, float* dh0, int t_len,
-                 int batch, int f, int rx, int h, int r, int form, int partial_floats,
-                 cudaStream_t stream, Walk walk) {
+                 float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* staged,
+                 int t_len, int batch, int f, int rx, int h, int r, int form, int partial_floats,
+                 int staged_floats, cudaStream_t stream, Walk walk) {
   const int m = t_len * batch;
   const int g3 = 3 * h;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
   cudaError_t err;
+  vmlmf::tc::Staging st(staged, staged == nullptr ? 0 : static_cast<size_t>(staged_floats));
 
   if (gates == nullptr) {  // the recompute policy
     if (x == nullptr || bias == nullptr || gates_w == nullptr) return cudaErrorInvalidValue;
     err = recompute(x, ux, vx, bias, uf, prz, pn, h0, ys, gates_w, hu_w, rhu_w, recn_w, xu_w,
-                    t_len, batch, f, rx, h, r, form, stream);
+                    t_len, batch, f, rx, h, r, form, st, stream);
     if (err != cudaSuccess) return err;
     gates = gates_w;
     hu = hu_w;
@@ -1006,10 +1146,12 @@ cudaError_t bptt(const float* x, const float* ux, const float* vx, const float* 
                                    dxu_p);
     if (err != cudaSuccess) return err;
   }
+  st.reset();  // the pre-pass's copies are done with
   const XSide xs = x == nullptr ? XSide{}
                                 : XSide{x, ux, vx, xu, dpre, dxu, dx, dux, dvx, dbias, f, rx, h, m};
-  return grouped_grads(h0, ys, gates, hu, rhu, dpre, dhu, drhu, duf, dprz, dpn, xs, partial,
-                       partial_floats, t_len, batch, h, r, form, stream);
+  return grouped_grads(h0, ys, gates, hu, rhu, dpre, dhu, drhu, duf, dprz, dpn, xs,
+                       Tc{&st, partial, static_cast<size_t>(partial_floats), stream}, t_len,
+                       batch, h, r, form);
 }
 
 // The row walk of gru_plan's layout: rows, threads, rec_res, smem, spill.
@@ -1043,8 +1185,9 @@ struct GridWalk {
 }  // namespace
 
 // The row-layout entries take, after the sizes and the form, gemm_splitk's
-// scratch size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats)
-// and the walk's plan from ops/cuda_gru.py::gru_plan: rows, threads, rec_res,
+// scratch size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats),
+// the Hopper tile's (floats of `staged`) and the walk's plan from
+// ops/cuda_gru.py::gru_plan: rows, threads, rec_res,
 // smem (bytes), spill (floats a CTA of `state`, the walk's device-memory
 // scratch of a spill plan, which the caller allocates,
 // cuda_gru.py::state_floats; null when 0).
@@ -1058,45 +1201,48 @@ struct GridWalk {
 // (low-rank), recn_w [T*B, h] ("post") and xu_w [T*B, rx] (low-rank x
 // side) are the scratch that the pre-pass fills; they are null otherwise.
 // dpre [T*B, 3h], dhu and drhu [T*B, r] (low-rank; else null), dxu
-// [T*B, rx] (low-rank x side; else null) and partial are scratch that the
-// caller allocates; every pointer after them is an output. dx may be null
-// (not computed).
+// [T*B, rx] (low-rank x side; else null), partial and staged (staged_floats
+// floats: the Hopper tile's copies, ops/cuda_gru.py::gru_tc_stage_floats;
+// null where no product takes that tile) are scratch that the caller
+// allocates; every pointer after them is an output. dx may be null (not
+// computed).
 extern "C" int gru_scan_xin_bwd(
     const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
     const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
     const float* rhu, const float* recn, const float* xu, const float* dys, const float* bias,
     float* gates_w, float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre,
-    float* dhu, float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
-    float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* state, int t_len,
-    int batch, int f, int rx, int h, int r, int form, int partial_floats, int rows, int threads,
-    int rec_res, int smem, int spill, void* stream_handle) {
+    float* dhu, float* drhu, float* dxu, float* partial, float* staged, float* dx, float* dux,
+    float* dvx, float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* state,
+    int t_len, int batch, int f, int rx, int h, int r, int form, int partial_floats,
+    int staged_floats, int rows, int threads, int rec_res, int smem, int spill,
+    void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (x == nullptr) return cudaErrorInvalidValue;
   return bptt(x, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, gates_w, hu_w,
               rhu_w, recn_w, xu_w, dpre, dhu, drhu, dxu, partial, dx, dux, dvx, dbias, duf, dprz,
-              dpn, dh0, t_len, batch, f, rx, h, r, form, partial_floats, stream,
-              RowWalk{state, form, rows, threads, rec_res, smem, spill, stream});
+              dpn, dh0, staged, t_len, batch, f, rx, h, r, form, partial_floats, staged_floats,
+              stream, RowWalk{state, form, rows, threads, rec_res, smem, spill, stream});
 }
 
 // gi mode: the walk and the recurrent weight gradients on `stream`; returns
 // the first error. The residuals as gru_scan_xin_bwd takes them (saved: gi
 // mode always saves the gates); dgi [T*B, 3h] is dPre, an output; dhu and
-// drhu [T*B, r] (low-rank; else null) and partial are scratch; duf
+// drhu [T*B, r] (low-rank; else null), partial and staged are scratch; duf
 // (low-rank; else null), dprz, dpn and dh0 are outputs.
 extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
                             const float* h0, const float* ys, const float* gates,
                             const float* hu, const float* rhu, const float* recn,
                             const float* dys, float* dgi, float* dhu, float* drhu, float* partial,
-                            float* duf, float* dprz, float* dpn, float* dh0, float* state,
-                            int t_len, int batch, int h, int r, int form, int partial_floats,
-                            int rows, int threads, int rec_res, int smem, int spill,
-                            void* stream_handle) {
+                            float* staged, float* duf, float* dprz, float* dpn, float* dh0,
+                            float* state, int t_len, int batch, int h, int r, int form,
+                            int partial_floats, int staged_floats, int rows, int threads,
+                            int rec_res, int smem, int spill, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (gates == nullptr) return cudaErrorInvalidValue;
   return bptt(nullptr, nullptr, nullptr, uf, prz, pn, h0, ys, gates, hu, rhu, recn, nullptr, dys,
               nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dgi, dhu, drhu, nullptr,
-              partial, nullptr, nullptr, nullptr, nullptr, duf, dprz, dpn, dh0, t_len, batch, 0,
-              0, h, r, form, partial_floats, stream,
+              partial, nullptr, nullptr, nullptr, nullptr, duf, dprz, dpn, dh0, staged, t_len,
+              batch, 0, 0, h, r, form, partial_floats, staged_floats, stream,
               RowWalk{state, form, rows, threads, rec_res, smem, spill, stream});
 }
 
@@ -1105,26 +1251,91 @@ extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
 // with gru_scan_bwd's (dpre is then dgi, an output, and gates must be
 // given). xchg, sync (a barrier word a group) and wstream (wstream_floats
 // floats; null where the plan streams nothing) are the grid walk's scratch;
-// the eight integers after partial_floats and wstream_floats are the
-// plan's layout (GRUGridPlan.ints).
+// the nine integers after partial_floats, staged_floats and wstream_floats
+// are the plan's layout (GRUGridPlan.ints).
 extern "C" int gru_grid_bwd(
     const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
     const float* pn, const float* h0, const float* ys, const float* gates, const float* hu,
     const float* rhu, const float* recn, const float* xu, const float* dys, const float* bias,
     float* gates_w, float* hu_w, float* rhu_w, float* recn_w, float* xu_w, float* dpre,
-    float* dhu, float* drhu, float* dxu, float* partial, float* dx, float* dux, float* dvx,
-    float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* xchg, unsigned* sync,
-    float* wstream, int t_len, int batch, int f, int rx, int h, int r, int form,
-    int partial_floats, int wstream_floats, int groups, int ctas, int rpad, int stage, int red,
-    int smem, int res_a, int res_b, void* stream_handle) {
+    float* dhu, float* drhu, float* dxu, float* partial, float* staged, float* dx, float* dux,
+    float* dvx, float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* xchg,
+    unsigned* sync, float* wstream, int t_len, int batch, int f, int rx, int h, int r, int form,
+    int partial_floats, int staged_floats, int wstream_floats, int groups, int ctas, int rpad,
+    int stage, int red, int smem, int res_a, int res_b, int piece, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (x == nullptr && gates == nullptr) return cudaErrorInvalidValue;
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
   return bptt(x, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, gates_w, hu_w,
               rhu_w, recn_w, xu_w, dpre, dhu, drhu, dxu, partial, dx, dux, dvx, dbias, duf, dprz,
-              dpn, dh0, t_len, batch, f, rx, h, r, form, partial_floats, stream,
-              GridWalk{xchg, sync, wstream, static_cast<size_t>(wstream_floats), form, plan,
-                       stream});
+              dpn, dh0, staged, t_len, batch, f, rx, h, r, form, partial_floats, staged_floats,
+              stream, GridWalk{xchg, sync, wstream, static_cast<size_t>(wstream_floats), form,
+                               plan, stream});
+}
+
+// A check of the BPTT's products on their own (ops/tc_check.py::
+// gru_product), on no model's path: c = the product `product` from the
+// residuals and dPre, as grouped_grads and recompute form it, on the Hopper
+// tile (tile 0: 3xTF32, split by its own plan within `partial`, operands
+// staged in `staged`) or on gemm_tile.cuh (tile 1: the product alone in a
+// grouped split-k, the slices it would take in a group of its own).
+// product: 0 dPrz = Hprev^T [dR dZ]; 1 dPn = (R * Hprev)^T dN ("pre"); 2
+// dPn = Hprev^T (dN * R) ("post"); 3 dPrz = HU^T [dR dZ]; 4 dPn = RHU^T dN
+// (low-rank); 5 dUf = [Hprev | R * Hprev]^T [dHU; dRHU]; 6 (R * Hprev) @ w
+// (w [h, n], the recompute pre-pass's RHU or "pre" n product).
+extern "C" int gru_tc_check(const float* h0, const float* ys, const float* gates,
+                            const float* dpre, const float* hu, const float* rhu,
+                            const float* dhu, const float* drhu, const float* w, float* c,
+                            float* partial, float* staged, int product, int tile, int t_len,
+                            int batch, int h, int r, int n, int partial_floats, int staged_floats,
+                            void* stream_handle) {
+  using vmlmf::RowMajor;
+  using vmlmf::split_product;
+  using vmlmf::Store;
+  using vmlmf::Transposed;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (tile < 0 || tile > 1) return cudaErrorInvalidValue;
+  const int m = t_len * batch, g3 = 3 * h;
+  const vmlmf::PrevRowsT hprev_t{h0, ys, batch, h};
+  const GatedPrevT rh_t{gates, h0, ys, batch, h};
+  vmlmf::tc::Staging st(staged, staged == nullptr ? 0 : static_cast<size_t>(staged_floats));
+  const Tc tc{&st, partial, partial == nullptr ? 0 : static_cast<size_t>(partial_floats), stream};
+  auto run = [&](auto p) -> cudaError_t {
+    if (tile == 0) {
+      if (p.k < 1) return cudaErrorInvalidValue;
+      const size_t room = tc.partial_floats / ((size_t)p.m * p.n);
+      return vmlmf::tc::run_wg<false>(st, p.a, p.b, p.epi, p.m, p.n, p.k,
+                                      vmlmf::tc::wg_plan(p.m, p.n, p.k, room, false), partial,
+                                      stream);
+    }
+    return vmlmf::gemm_splitk_group(partial, tc.partial_floats, vmlmf::group_kslice(p), stream,
+                                    p);
+  };
+  switch (product) {
+    case 0:
+      return run(split_product(hprev_t, RowMajor{dpre, g3}, Store{c, 2 * h}, h, 2 * h, m));
+    case 1:
+      return run(split_product(rh_t, RowMajor{dpre + 2 * h, g3}, Store{c, h}, h, h, m));
+    case 2:
+      return run(split_product(hprev_t, RowProduct{dpre + 2 * h, gates, g3}, Store{c, h}, h, h,
+                               m));
+    case 3:
+      return run(split_product(Transposed{hu, r}, RowMajor{dpre, g3}, Store{c, 2 * h}, r, 2 * h,
+                               m));
+    case 4:
+      return run(split_product(Transposed{rhu, r}, RowMajor{dpre + 2 * h, g3}, Store{c, h}, r, h,
+                               m));
+    case 5:
+      return run(split_product(ConcatK<vmlmf::PrevRowsT, GatedPrevT>{hprev_t, rh_t, m},
+                               ConcatRows<RowMajor, RowMajor>{RowMajor{dhu, r}, RowMajor{drhu, r},
+                                                              m},
+                               Store{c, r}, h, r, 2 * m));
+    case 6:
+      return run(split_product(GatedPrev{gates, h0, ys, batch, h}, RowMajor{w, n}, Store{c, n}, m,
+                               n, h));
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The message of an error code that an entry of this file returned.

@@ -537,11 +537,16 @@ struct GridFwdArgs {
 // [groups][r][rpad] (low-rank). A step's products, each followed by a
 // group barrier: "post" h @ [Prz_r | Prz_z | Pn] (one); dense "pre" h @
 // [Prz_r | Prz_z], then (r*h) @ Pn (two); low-rank h @ Uf, hu @ [Prz_r |
-// Prz_z], (r*h) @ Uf, rhu @ Pn (four).
-template <int Form, bool Residuals, bool Streamed>
-__global__ void __launch_bounds__(vmlmf::kGridThreads, 1)
+// Prz_z], (r*h) @ Uf, rhu @ Pn (four). OnRing (GridPlan::piece > 0): the
+// products run on scan_grid.cuh's ring, kRingThreads threads a CTA, the
+// producer issuing each next product's streamed rows before the barrier
+// that publishes its exchange; else slice_product on kGridThreads, every
+// row resident.
+template <int Form, bool Residuals, bool OnRing>
+__global__ void __launch_bounds__(OnRing ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
   constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
+  constexpr int kConsumers = vmlmf::kGridThreads;
   extern __shared__ __align__(16) float gsm[];
   const int h = a.h, r = a.r, g3 = 3 * h, rpad = plan.rpad;
   const int grp = blockIdx.x / plan.ctas, q = blockIdx.x % plan.ctas;
@@ -550,24 +555,25 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
   const int j0 = split_at(q, h, plan.ctas), jw = split_at(q + 1, h, plan.ctas) - j0;
   const int k0 = kLowrank ? split_at(q, r, plan.ctas) : 0;
   const int kw = kLowrank ? split_at(q + 1, r, plan.ctas) - k0 : 0;
-  const vmlmf::gru::GridWidths wd(Form, h, r, plan);
-  const int jwp = wd.jwp, kwp = wd.kwp, ldb = 3 * jwp, slab = jwp * rpad;
-  const int depth = kLowrank ? r : h;
-  // resident depths: every row without Streamed
-  const int resa = kLowrank ? (Streamed ? plan.res_a : h) : 0;
-  const int resb = Streamed ? plan.res_b : depth;
+  const vmlmf::gru::SliceShapes shp(Form, h, r, plan, false);
+  const int jwp = shp.cb / 3, kwp = shp.ca, ldb = shp.cb, slab = jwp * rpad;
+  const int depth = shp.db;
+  // resident depths: every row without a ring
+  const int resa = OnRing ? plan.res_a : shp.da, resb = OnRing ? plan.res_b : depth;
 
   float* wa = gsm;                        // Uf[:, k-slice] [h][kwp], rows < resa
   float* wb = wa + (size_t)resa * kwp;    // [Prz_r | Prz_z | Pn] j-columns [depth][3 jwp]
   float* hc = gsm + vmlmf::weight_floats<float>((size_t)resa * kwp + (size_t)resb * ldb);
   float* gis = hc + slab;                 // the step's gi of the j-slice [3][jwp][rpad]
   float* zs = gis + 3 * slab;             // "pre": z [jwp][rpad]; "post": the sums [3][jwp][rpad]
-  float* stage = zs + (kPost ? 3 : 1) * slab;
-  float* red = stage + plan.stage;
-  float* sa = a.wstream + (Streamed ? blockIdx.x * vmlmf::gru::grid_stream_floats(
-                                                      Form, h, r, plan, false)
-                                    : 0);
-  float* sb = sa + (size_t)(kLowrank ? h - resa : 0) * kwp;
+  float* stage = zs + (kPost ? 3 : 1) * slab;  // on a ring, the ring
+  float* red = stage + (OnRing ? vmlmf::ring_floats(plan) : (size_t)plan.stage);
+  float* sa = a.wstream + (OnRing ? blockIdx.x * vmlmf::gru::grid_stream_floats(
+                                                    Form, h, r, plan, false)
+                                  : 0);
+  const vmlmf::gru::GridSlice sla{wa, sa, shp.da, resa, kwp, kwp};
+  const vmlmf::gru::GridSlice slb{wb, sa + (size_t)(shp.da - resa) * kwp, depth, resb, ldb,
+                                  shp.split_b};
   const size_t hpar = (size_t)plan.groups * h * rpad;
   float* hx = a.xchg + (size_t)grp * h * rpad;  // parity p at hx + p * hpar
   float* rhx = a.xchg + 2 * hpar + (size_t)grp * h * rpad;
@@ -581,8 +587,7 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
 #pragma unroll 4
     for (int e = threadIdx.x; e < h * kwp; e += blockDim.x) {
       const int d = e / kwp, kk = e % kwp;
-      vmlmf::gru::slice_store<Streamed>(wa, sa, resa, kwp, d, kk,
-                                        kk < kw ? a.uf[(size_t)d * r + k0 + kk] : 0.f);
+      sla.store(d, kk, kk < kw ? a.uf[(size_t)d * r + k0 + kk] : 0.f);
     }
   }
 #pragma unroll 4
@@ -591,7 +596,7 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
     const float v = jj >= jw ? 0.f
                     : g < 2  ? a.prz[(size_t)d * 2 * h + g * h + j0 + jj]
                              : a.pn[(size_t)d * h + j0 + jj];
-    vmlmf::gru::slice_store<Streamed>(wb, sb, resb, ldb, d, c, v);
+    slb.store(d, c, v);
   }
   // the carry from h0 (padding zero), and h0's j-slice into the exchange of step 0
   for (int e = threadIdx.x; e < slab; e += blockDim.x) {
@@ -599,18 +604,41 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
     hc[e] = jj < jw && row < rows ? a.h0[(size_t)(b0 + row) * h + j0 + jj] : 0.f;
     if (jj < jw) hx[(size_t)(j0 + jj) * rpad + row] = hc[e];
   }
+  // the products' operands: h or hu, and r*h or rhu, against the slices
+  auto op_hu = [&](const float* src) { return sla.rows(src, 0, h, 0, kwp); };
+  auto op_gates = [&](const float* src) {
+    return slb.rows(src, 0, depth, 0, kPost ? ldb : 2 * jwp);
+  };
+  auto op_n = [&](const float* src) { return slb.rows(src, 0, depth, 2 * jwp, jwp); };
+  vmlmf::Ring ring;
+  auto product = [&](const vmlmf::RingOperand<float>& op, auto epi) {
+    vmlmf::gru::grid_product<OnRing>(ring, op, plan, stage, red, epi);
+  };
+  if constexpr (OnRing) {
+    ring.start(stage, plan);
+    if (a.t_len > 0) ring.preload(kLowrank ? op_hu(hx) : op_gates(hx));
+  }
   vmlmf::group_sync(count, plan.ctas, target);
 
   for (int t = 0; t < a.t_len; ++t) {
     const float* hin = hx + (t & 1) * hpar;
     float* hout = hx + ((t + 1) & 1) * hpar;
     const size_t m0 = (size_t)t * a.batch + b0;  // the group's first row of the step
-    // the step's gi of the j-slice, copied while the first product runs
-    for (int e = threadIdx.x; e < 3 * jw * rows; e += blockDim.x) {
-      const int jj = e % jw, g = (e / jw) % 3, row = e / (3 * jw);
-      vmlmf::cp_async4(gis + (size_t)(g * jwp + jj) * rpad + row,
-                       a.gi + (m0 + row) * g3 + g * h + j0 + jj);
-    }
+    // the step's gi of the j-slice, copied while the first product runs (by
+    // the consumers, who read it in the epilogues)
+    if (!OnRing || threadIdx.x < kConsumers)
+      for (int e = threadIdx.x; e < 3 * jw * rows; e += kConsumers) {
+        const int jj = e % jw, g = (e / jw) % 3, row = e / (3 * jw);
+        vmlmf::cp_async4(gis + (size_t)(g * jwp + jj) * rpad + row,
+                         a.gi + (m0 + row) * g3 + g * h + j0 + jj);
+      }
+    // the next product's streamed rows, issued before the barrier
+    auto preload = [&](const vmlmf::RingOperand<float>& op) {
+      if constexpr (OnRing) ring.preload(op);
+    };
+    auto preload_next_step = [&]() {
+      if (t + 1 < a.t_len) preload(kLowrank ? op_hu(hout) : op_gates(hout));
+    };
     // an epilogue of a product over rank columns: the group's hu or rhu
     auto rank_out = [&](float* res) {
       return [&, res](int cb, int rb, float (&acc)[4][4]) {
@@ -631,14 +659,13 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
     if constexpr (kPost) {
       // r, z and recn = h @ Pn of the j-slice, then the update
       vmlmf::cp_async_wait_all();
-      vmlmf::gru::rows_product<Streamed>(hin, 0, h, rpad, wb, sb, resb, ldb, 0, ldb, stage,
-                                         plan.stage, red, plan.red,
-                                         [&](int cb, int rb, float (&acc)[4][4]) {
+      product(op_gates(hin), [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
 #pragma unroll
           for (int i = 0; i < 4; ++i) zs[(size_t)(4 * cb + c) * rpad + 4 * rb + i] = acc[c][i];
       });
+      preload_next_step();
       __syncthreads();
       for (int e = threadIdx.x; e < jw * rpad; e += blockDim.x) {
         const int jj = e % jw, row = e / jw, j = j0 + jj, at = jj * rpad + row;
@@ -667,16 +694,14 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
     } else {
       const float* src = hin;  // the rows of the gates' product: h, or hu
       if constexpr (kLowrank) {  // hu = h @ Uf[:, k-slice]
-        vmlmf::gru::rows_product<Streamed>(hin, 0, h, rpad, wa, sa, resa, kwp, 0, kwp, stage,
-                                           plan.stage, red, plan.red, rank_out(a.hu));
+        product(op_hu(hin), rank_out(a.hu));
+        preload(op_gates(ux));
         vmlmf::group_sync(count, plan.ctas, target);
         src = ux;
       }
       // r and z of the j-slice: r*h into the exchange, z kept
       vmlmf::cp_async_wait_all();
-      vmlmf::gru::rows_product<Streamed>(src, 0, depth, rpad, wb, sb, resb, ldb, 0, 2 * jwp,
-                                         stage, plan.stage, red, plan.red,
-                                         [&](int cb, int rb, float (&acc)[4][4]) {
+      product(op_gates(src), [&](int cb, int rb, float (&acc)[4][4]) {
         const int g = (4 * cb) / jwp;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -699,18 +724,17 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
           }
         }
       });
+      preload(kLowrank ? op_hu(rhx) : op_n(rhx));
       vmlmf::group_sync(count, plan.ctas, target);
       const float* nsrc = rhx;
       if constexpr (kLowrank) {  // rhu = (r*h) @ Uf[:, k-slice]
-        vmlmf::gru::rows_product<Streamed>(rhx, 0, h, rpad, wa, sa, resa, kwp, 0, kwp, stage,
-                                           plan.stage, red, plan.red, rank_out(a.rhu));
+        product(op_hu(rhx), rank_out(a.rhu));
+        preload(op_n(ux));
         vmlmf::group_sync(count, plan.ctas, target);
         nsrc = ux;
       }
       // the candidate n of the j-slice and the update
-      vmlmf::gru::rows_product<Streamed>(nsrc, 0, depth, rpad, wb, sb, resb, ldb, 2 * jwp, jwp,
-                                         stage, plan.stage, red, plan.red,
-                                         [&](int cb, int rb, float (&acc)[4][4]) {
+      product(op_n(nsrc), [&](int cb, int rb, float (&acc)[4][4]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int jj = 4 * cb + c;
@@ -734,6 +758,7 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
           }
         }
       });
+      preload_next_step();
       vmlmf::group_sync(count, plan.ctas, target);
     }
   }
@@ -745,6 +770,7 @@ cudaError_t grid_scan(const GridFwdArgs& io, size_t wstream_floats, GridPlan pla
   using vmlmf::gru::grid_smem_floats;
   using vmlmf::gru::grid_stream_floats;
   if (!vmlmf::gru::grid_resident_ok(Form, io.h, io.r, plan, false) ||
+      !vmlmf::gru::grid_ring_ok(Form, io.h, io.r, plan, false) ||
       sizeof(float) * grid_smem_floats(Form, io.h, io.r, plan, false) > (size_t)plan.smem ||
       plan.groups > io.batch || io.xchg == nullptr || io.sync == nullptr)
     return cudaErrorInvalidValue;
@@ -753,10 +779,10 @@ cudaError_t grid_scan(const GridFwdArgs& io, size_t wstream_floats, GridPlan pla
     return cudaErrorInvalidValue;
   GridFwdArgs a = io;
   void* args[] = {&a, &plan};
-  return streamed > 0 ? vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, true>, plan, a.sync,
-                                           args, stream)
-                      : vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, false>, plan, a.sync,
-                                           args, stream);
+  return plan.piece ? vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, true>, plan, a.sync,
+                                         args, stream, 0, vmlmf::kRingThreads)
+                    : vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, false>, plan, a.sync,
+                                         args, stream);
 }
 
 template <bool Residuals>
@@ -846,7 +872,7 @@ extern "C" int gru_scan_fwd_res(const float* gi, const float* uf, const float* p
 // ys and, with `residuals` 1, gates, hu and rhu (low-rank) or recn ("post").
 // xchg, sync (a barrier word a group) and wstream (wstream_floats floats;
 // null where the plan streams nothing) are scratch that gru_grid_plan
-// sizes; the eight integers after the form are its layout (GRUGridPlan.ints).
+// sizes; the nine integers after the form are its layout (GRUGridPlan.ints).
 extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
                             const float* bias, float* gi, const float* uf, const float* prz,
                             const float* pn, const float* h0, float* xu, float* ys,
@@ -854,7 +880,7 @@ extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
                             unsigned* sync, float* wstream, int wstream_floats, int t_len,
                             int batch, int f, int rx, int h, int r, int form, int groups,
                             int ctas, int rpad, int stage, int red, int smem, int res_a,
-                            int res_b, int residuals, void* stream_handle) {
+                            int res_b, int piece, int residuals, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (gi == nullptr || (residuals && gates == nullptr)) return cudaErrorInvalidValue;
   if (x != nullptr) {
@@ -863,7 +889,7 @@ extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
   }
   const GridFwdArgs a{gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xchg, sync, wstream,
                       t_len, batch, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
   const size_t nstream = static_cast<size_t>(wstream_floats);
   return residuals ? grid_form<true>(a, form, nstream, plan, stream)
                    : grid_form<false>(a, form, nstream, plan, stream);

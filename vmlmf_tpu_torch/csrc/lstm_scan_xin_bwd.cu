@@ -413,8 +413,8 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
           ring.preload(op_c(reinterpret_cast<const float*>(dpx_t)));
         }
       } else {
-        vmlmf::slice_product<false>(reinterpret_cast<const float*>(dpx_t), g4, rpad, wb, sb, resb,
-                                    kwp, round4(kw), stage, plan.stage, red, plan.red, epi_b);
+        vmlmf::slice_product(reinterpret_cast<const float*>(dpx_t), g4, rpad, wb, kwp, round4(kw),
+                             stage, plan.stage, red, plan.red, epi_b);
       }
       vmlmf::group_sync(count, plan.ctas, target);
     }
@@ -444,9 +444,8 @@ grid_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
         }
       }
     } else {
-      vmlmf::slice_product<false>(reinterpret_cast<const float*>(DenseRec ? dpx_t : dhux), depth,
-                                  rpad, wc, sc, resc, jwp, round4(jw), stage, plan.stage, red,
-                                  plan.red, epi_c);
+      vmlmf::slice_product(reinterpret_cast<const float*>(DenseRec ? dpx_t : dhux), depth, rpad,
+                           wc, jwp, round4(jw), stage, plan.stage, red, plan.red, epi_c);
     }
   }
   __syncthreads();

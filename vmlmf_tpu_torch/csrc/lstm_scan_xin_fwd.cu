@@ -414,8 +414,8 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
           ring.preload(op_b(reinterpret_cast<const float*>(hin)));
         }
       } else {
-        vmlmf::slice_product<false>(reinterpret_cast<const float*>(hin), h, rpad, wa, sa, resa,
-                                    kwp, round4(kw), stage, plan.stage, red, plan.red, epi_a);
+        vmlmf::slice_product(reinterpret_cast<const float*>(hin), h, rpad, wa, kwp, round4(kw),
+                             stage, plan.stage, red, plan.red, epi_a);
       }
       vmlmf::group_sync(count, plan.ctas, target);
     }
@@ -475,9 +475,8 @@ grid_scan_kernel(const float* __restrict__ gi, const float* __restrict__ u,
       }
     } else {
       vmlmf::cp_async_wait_all();
-      vmlmf::slice_product<false>(reinterpret_cast<const float*>(DenseRec ? hin : hux), depth,
-                                  rpad, wb, sb, resb, 4 * jwm, 4 * jw, stage, plan.stage, red,
-                                  plan.red, epi_b);
+      vmlmf::slice_product(reinterpret_cast<const float*>(DenseRec ? hin : hux), depth, rpad,
+                           wb, 4 * jwm, 4 * jw, stage, plan.stage, red, plan.red, epi_b);
     }
     vmlmf::group_sync(count, plan.ctas, target);
   }

@@ -164,16 +164,6 @@ __device__ __forceinline__ float4 widen4(uint2 raw) {
 __device__ __forceinline__ float4 load4(const bf16* p) {
   return widen4(*reinterpret_cast<const uint2*>(p));
 }
-// The same from a streamed weight row in device memory, which the CTA
-// wrote itself in its prologue: a plain load (coherent within the CTA
-// after a __syncthreads), never the non-coherent path.
-__device__ __forceinline__ float4 load4_global(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4_global(const bf16* p) {
-  return widen4(*reinterpret_cast<const uint2*>(p));
-}
-
 // Floats of shared memory that `elems` weight elements of type W take,
 // rounded up to 16 bytes so that the f32 regions after them stay aligned.
 template <class W>
@@ -184,16 +174,11 @@ __host__ __device__ inline size_t weight_floats(size_t elems) {
 // The element of a weight slice's row d at `at`, where the first `resident`
 // rows [resident][ldw] lie in shared memory at `w` and the rest [depth -
 // resident][ldws] in the CTA's streamed region at `ws`: the prologue's
-// store. The GRU's streamed rows keep the slice's stride (ldws = ldw); the
-// LSTM's ring pads it to 16 bytes (ring_ld).
+// store. The LSTM's ring pads the streamed rows to 16 bytes (ring_ld).
 template <class W>
 __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int ldws, int d,
                                          int at) {
   return d < resident ? w[(size_t)d * ldw + at] : ws[(size_t)(d - resident) * ldws + at];
-}
-template <class W>
-__device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int d, int at) {
-  return slice_elem(w, ws, resident, ldw, ldw, d, at);
 }
 
 // out(col, row) = sum over d < depth of A[d][row] * W[d][col], for col <
@@ -201,29 +186,20 @@ __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int
 // [depth][rpad], copied into shared memory with 16-byte cp.async.cg: whole
 // when it fits in `stage`, else in chunks of stage / 2 floats, the next
 // chunk copying into one half while the CTA multiplies the other. W is
-// this CTA's weight slice, [depth][ldw], f32 or bf16 (ldw a multiple of
-// 4). With Streamed (the GRU's grid; the LSTM scans' streamed plans run
-// Ring::product below), rows d < `resident` lie in shared memory at `w` and
-// the rest in device memory at `ws` [depth - resident][ldw]; each thread
-// walks its rows in one order wherever they lie, so the sums do not depend
-// on `resident`. Without it (a plan that streams nothing) every row is in
-// shared memory and `ws`, `resident` are unused: the kernels are built for
-// both, so a resident plan runs the code it ran before any row could be
-// streamed. With Batch > 1 a thread issues the loads of Batch streamed rows
-// before their FMAs (more loads in flight; the same sums in the same
-// order). An item is 4 columns x 4 rows (16 sums in registers,
-// float4 loads of A and four-element loads of W, widened). With
-// fewer items than threads, each item's depth is cut into `slices`
-// interleaved parts; their partial sums meet in `red` and one thread per
-// output adds them in slice order: deterministic, no atomics. Calls
-// epi(cb, rb, acc) once per item, acc[c][r] the sum of column 4cb+c, row
-// 4rb+r. The partials lie [slice][16][items], so that neighbouring threads
-// (neighbouring items) touch neighbouring banks. Every thread of the CTA
-// must call it.
-template <bool Streamed, int Batch = 1, class W, class Epi>
-__device__ __forceinline__ void slice_product(const float* a, int depth, int rpad,
-                                              const W* w, const W* ws, int resident, int ldw,
-                                              int ncols, float* stage, int stage_floats,
+// this CTA's weight slice in shared memory, [depth][ldw], f32 or bf16 (ldw
+// a multiple of 4); a plan that streams weight rows runs Ring::product
+// below instead, in this order of sums. An item is 4 columns x 4 rows (16
+// sums in registers, float4 loads of A and four-element loads of W,
+// widened). With fewer items than threads, each item's depth is cut into
+// `slices` interleaved parts; their partial sums meet in `red` and one
+// thread per output adds them in slice order: deterministic, no atomics.
+// Calls epi(cb, rb, acc) once per item, acc[c][r] the sum of column 4cb+c,
+// row 4rb+r. The partials lie [slice][16][items], so that neighbouring
+// threads (neighbouring items) touch neighbouring banks. Every thread of
+// the CTA must call it.
+template <class W, class Epi>
+__device__ __forceinline__ void slice_product(const float* a, int depth, int rpad, const W* w,
+                                              int ldw, int ncols, float* stage, int stage_floats,
                                               float* red, int red_floats, Epi epi) {
   const int cbs = ncols / 4, rbs = rpad / 4;
   const int items = cbs * rbs;
@@ -263,45 +239,16 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
         const int d0 = c * chunk, dn = min(chunk, depth - d0);
         const float4* s4 = reinterpret_cast<const float4*>(stage) + (c & 1) * (chunk * rbs);
         const W* wd = w + (size_t)d0 * ldw + 4 * cb;
-        if constexpr (!Streamed) {
 #pragma unroll 4
-          for (int d = s; d < dn; d += slices) {
-            const float4 av = s4[d * rbs + rb];
-            const float4 wv = load4(wd + (size_t)d * ldw);
-            const float ar[4] = {av.x, av.y, av.z, av.w};
-            const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+        for (int d = s; d < dn; d += slices) {
+          const float4 av = s4[d * rbs + rb];
+          const float4 wv = load4(wd + (size_t)d * ldw);
+          const float ar[4] = {av.x, av.y, av.z, av.w};
+          const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
+          for (int k = 0; k < 4; ++k)
 #pragma unroll
-              for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
-          }
-        } else {
-          auto fma_row = [&](float4 av, float4 wv) {
-            const float ar[4] = {av.x, av.y, av.z, av.w};
-            const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
-          };
-          const int dr = min(dn, max(0, resident - d0));  // the chunk's rows in shared memory
-          const W* sd = ws + 4 * cb;
-          int d = s;
-#pragma unroll 4
-          for (; d < dr; d += slices) fma_row(s4[d * rbs + rb], load4(wd + (size_t)d * ldw));
-          if constexpr (Batch > 1) {
-            for (; d + (Batch - 1) * slices < dn; d += Batch * slices) {
-              float4 wv[Batch];
-#pragma unroll
-              for (int k = 0; k < Batch; ++k)
-                wv[k] = load4_global(sd + (size_t)(d0 + d + k * slices - resident) * ldw);
-#pragma unroll
-              for (int k = 0; k < Batch; ++k) fma_row(s4[(d + k * slices) * rbs + rb], wv[k]);
-            }
-          }
-#pragma unroll 4
-          for (; d < dn; d += slices)  // the streamed rows d0 + d >= resident
-            fma_row(s4[d * rbs + rb], load4_global(sd + (size_t)(d0 + d - resident) * ldw));
+            for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
         }
       }
       __syncthreads();
@@ -328,19 +275,10 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
   }
 }
 
-// slice_product of a slice held whole in shared memory (the stack kernels).
-template <class W, class Epi>
-__device__ __forceinline__ void slice_product(const float* a, int depth, int rpad,
-                                              const W* w, int ldw, int ncols,
-                                              float* stage, int stage_floats, float* red,
-                                              int red_floats, Epi epi) {
-  slice_product<false>(a, depth, rpad, w, static_cast<const W*>(nullptr), depth, ldw, ncols,
-                       stage, stage_floats, red, red_floats, epi);
-}
-
 // ---------------------------------------------------------------------------
 // The ring of the LSTM scans' streamed plans (lstm_scan_xin_fwd.cu,
-// lstm_scan_xin_bwd.cu where ScanPlan.ring > 0).
+// lstm_scan_xin_bwd.cu where ScanPlan.ring > 0), and of the GRU grid's
+// plans that stream rows (gru_grid.cuh).
 //
 // A streamed plan's products read two things from L2 a step: the group's
 // exchange buffer A [depth][rpad], which every CTA reads whole, and the
@@ -364,8 +302,8 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
 // and the same fixed-order reduction in `red`. The pieces cut the depth
 // into runs of as many rows as a stage holds, across chunk bounds: over
 // the resident rows a stage holds A alone, past them A and the streamed
-// rows. In each chunk a piece meets, the thread starts at its first row
-// d >= e0 with d - d0 = s (mod slices). So where the CTA count is the
+// rows. The thread carries its next row from piece to piece, and moves to
+// d0 + s of the next chunk where one ends. So where the CTA count is the
 // parent's, the bits are.
 // ---------------------------------------------------------------------------
 
@@ -721,13 +659,25 @@ struct MmaWalk {
 // [depth][rpad] in device memory; W's rows d < resident at w [resident][ldw]
 // in shared memory and the others at ws [depth - resident][ldws] in the
 // CTA's streamed region; ncols output columns (a multiple of 4, <= ldw).
+// ldws 0 is ring_ld(ldw), the LSTM scans' streamed rows. A product over a
+// range of a slice's rows or columns (the GRU's grid, gru_grid.cuh) points
+// w and ws at its first row and column, and streams rows of its own width
+// ldws (a multiple of 16 bytes), so that it copies no column it does not
+// read.
 template <class W>
 struct RingOperand {
   const float* a;
   const W* w;
   const W* ws;
   int depth, resident, ldw, ncols;
+  int ldws = 0;
 };
+
+// Elements of a streamed row of the operand, in its region and in a stage.
+template <class W>
+__device__ __forceinline__ int stream_ld(const RingOperand<W>& op) {
+  return op.ldws ? op.ldws : ring_ld<W>(op.ldw);
+}
 
 // A product's walk: slice_product's items, slices and chunk; the rows of a
 // piece past the resident rows (A and a streamed row each) and over them
@@ -778,9 +728,9 @@ struct Ring {
                           red_floats / (16 * max(1, k.items))));
     k.units = k.items * k.slices;
     k.chunk = op.depth * rpad <= stage_floats ? op.depth : stage_floats / 2 / rpad;
-    k.rows = piece * 4 / (rpad * 4 + ring_ld<W>(op.ldw) * (int)sizeof(W));
+    k.rows = piece * 4 / (rpad * 4 + stream_ld(op) * (int)sizeof(W));
     k.rows_a = piece / rpad;
-    k.passes = max(1, div_up(op.ldw / 4 * rbs, kGridThreads));
+    k.passes = max(1, div_up((op.ldws ? op.ldws : op.ldw) / 4 * rbs, kGridThreads));
     return k;
   }
 
@@ -813,7 +763,7 @@ struct Ring {
                                                 unsigned idx, int e0, int e1) {
     const unsigned st = idx % kRingStages;
     mbar_wait(empty + st, ((idx / kRingStages) & 1) ^ 1);
-    const int ldws = ring_ld<W>(op.ldw), es = max(e0, op.resident);
+    const int ldws = stream_ld(op), es = max(e0, op.resident);
     const unsigned wbytes = e1 > es ? (unsigned)((e1 - es) * ldws * sizeof(W)) : 0u;
     mbar_arm(full + st, (unsigned)((e1 - e0) * rpad * 4) + wbytes);
     if (wbytes)
@@ -873,7 +823,7 @@ struct Ring {
   template <class W, class Epi>
   __device__ __forceinline__ void consume(const RingOperand<W>& op, const RingWalk& k,
                                           unsigned idx, float* red, Epi epi) {
-    const int rbs = rpad / 4, cbs = op.ncols / 4, ldws = ring_ld<W>(op.ldw);
+    const int rbs = rpad / 4, cbs = op.ncols / 4, ldws = stream_ld(op);
     const int lane = threadIdx.x % 32;
     for (int pass = 0; pass < k.passes; ++pass) {
       const int unit = pass * kGridThreads + threadIdx.x;
@@ -889,6 +839,12 @@ struct Ring {
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[c][i] = fmaf(ar[i], wc[c], acc[c][i]);
       };
+      // the thread's next row d of chunk [c0, c0 + chunk), carried from
+      // piece to piece: rows c0 + s, c0 + s + slices, ... of each chunk in
+      // turn. Where slices divide the chunk, those are the rows s, s +
+      // slices, ... of the whole depth: one chunk.
+      const int chunk = k.chunk % k.slices == 0 ? op.depth : k.chunk;
+      int c0 = 0, d = s;
       for (int e0 = 0, e1; e0 < op.depth; e0 = e1, ++idx) {
         e1 = piece_end(e0, op.depth, op.resident, k);
         mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);
@@ -898,16 +854,18 @@ struct Ring {
           const int es = max(e0, op.resident);
           const W* sw = reinterpret_cast<const W*>(sp + k.rows * rpad) + 4 * cb;  // row es
           const W* wr = op.w + 4 * cb;
-          // the piece's part of each chunk [c0, c0 + chunk) it meets
-          for (int c0 = e0 - e0 % k.chunk; c0 < e1; c0 += k.chunk) {
-            const int a = max(e0, c0), b = min(e1, c0 + k.chunk), dr = min(b, op.resident);
-            int d = a + (s - (a - c0) % k.slices + k.slices) % k.slices;
+          for (;;) {  // the piece's part of each chunk it meets
+            const int b = min(e1, c0 + chunk), dr = min(b, op.resident);
 #pragma unroll 4
             for (; d < dr; d += k.slices)  // resident rows
               fma_row(s4[(d - e0) * rbs], load4(wr + (size_t)d * op.ldw));
 #pragma unroll 4
             for (; d < b; d += k.slices)  // streamed rows, from the stage
               fma_row(s4[(d - e0) * rbs], load4(sw + (size_t)(d - es) * ldws));
+            if (b < c0 + chunk) break;  // the piece ends inside the chunk
+            c0 += chunk;                // the chunk ends: the next one's first row
+            d = c0 + s;
+            if (c0 >= e1) break;
           }
         }
         __syncwarp();

@@ -58,9 +58,11 @@ import torch
 
 from vmlmf_tpu_torch.ops.cuda_scan import (
     MIN_STEP_WORK,
+    RING_STAGES,
     SMEM_LIMIT,
     SMS,
     SPLIT_TARGET,
+    STAGE_COPIES,
     STAGE_FLOATS,
     _by_chunks,
     _cdiv,
@@ -72,11 +74,18 @@ from vmlmf_tpu_torch.ops.cuda_scan import (
     _on_cpu,
     _refuse_grad,
     _require_cuda,
+    _ring_fit,
     _slices,
     _sm_count,
     _split_at,
     _sync_words,
     env_saved_gates,
+    ring_chunk,
+    ring_piece,
+    ring_pieces,
+    staged_copies,
+    tc_route,
+    tc_splitk_floats,
     variant,
 )
 
@@ -639,7 +648,10 @@ class GRUGridPlan:
     the depth rows of each slice held in shared memory. A slice's rows past
     its resident depth are streamed: the CTA copies them once into its own
     region of a device-memory scratch (`grid_stream_floats`) and reads them
-    every step, in the same order of sums."""
+    every step, in the same order of sums. ``piece``: the floats of each of
+    the RING_STAGES stages of the kernel's ring (scan_grid.cuh::Ring; 0:
+    none), which takes the staging buffer's place where the kernel streams
+    rows (`walk`)."""
 
     b: int
     h: int
@@ -658,6 +670,8 @@ class GRUGridPlan:
     xchg_bwd: int
     resident_fwd: tuple = (0, 0)
     resident_bwd: tuple = (0, 0)
+    piece_fwd: int = 0
+    piece_bwd: int = 0
 
     @property
     def n_ctas(self):
@@ -669,6 +683,32 @@ class GRUGridPlan:
 
     def resident(self, kernel):
         return self.resident_fwd if kernel == "fwd" else self.resident_bwd
+
+    def piece(self, kernel):
+        """Floats of a stage of ``kernel``'s ring (0: no ring)."""
+        return self.piece_fwd if kernel == "fwd" else self.piece_bwd
+
+    def walk(self, kernel):
+        """Each product of ``kernel``'s step as its ring walks it ->
+        ((depth, its chunk, rows of a piece, `ring_pieces`), ...), in step
+        order; () without a ring. A product over rows d0 .. d0 + depth of a
+        slice has the slice's resident rows among them resident."""
+        piece = self.piece(kernel)
+        if not piece:
+            return ()
+        stage = self.stage_fwd if kernel == "fwd" else self.stage_bwd
+        res = dict(zip("ab", self.resident(kernel)))
+        out = []
+        for sl, d0, depth, _, ncols in _grid_operands(self.h, self.r, self.form,
+                                                      self.ctas)[kernel]:
+            held = min(depth, max(0, res[sl] - d0))
+            if held == depth:  # the exchange alone: pieces of piece // rpad rows
+                n = piece // self.rpad
+                walk = (0, tuple((e0, min(depth, e0 + n)) for e0 in range(0, depth, n)))
+            else:
+                walk = ring_pieces(depth, ncols, self.rpad, piece, 4, held)
+            out.append((depth, ring_chunk(depth, self.rpad, stage), *walk))
+        return tuple(out)
 
     def streamed_elems(self, kernel):
         """Weight elements a CTA of ``kernel`` streams a step."""
@@ -697,12 +737,13 @@ class GRUGridPlan:
 
     def ints(self, kernel):
         """The plan as entry gru_grid_fwd or gru_grid_bwd takes it: groups,
-        ctas, rpad, stage, red, smem, and the resident depths of slices A
-        and B."""
+        ctas, rpad, stage, red, smem, the resident depths of slices A and B,
+        and the ring's floats a stage."""
         fwd = kernel == "fwd"
         return (self.groups, self.ctas, self.rpad,
                 *((self.stage_fwd, self.red_fwd, self.smem_fwd) if fwd
-                  else (self.stage_bwd, self.red_bwd, self.smem_bwd)), *self.resident(kernel))
+                  else (self.stage_bwd, self.red_bwd, self.smem_bwd)), *self.resident(kernel),
+                self.piece(kernel))
 
 
 def grid_stream_floats(plan, kernel):
@@ -726,16 +767,29 @@ def _grid_slices(h, r, form, ctas):
             "bwd": ((3 * h if lowrank else 0, kwp), (r if lowrank else 3 * h, jwp))}
 
 
-def _grid_phases(h, r, form, ctas):
-    """{kernel: its products as (depth, columns)}, in a step's order."""
+@functools.lru_cache(maxsize=4096)
+def _grid_operands(h, r, form, ctas):
+    """{kernel: its products in a step's order, as (slice "a" or "b", first
+    row d0, depth, first column, columns)}: each reads rows d0 .. d0 + depth
+    and its columns of one slice (gru_grid.cuh::GridSlice::rows), and
+    streams rows of its own columns alone."""
     jwp = _q4(_cdiv(h, ctas))
     kwp = _q4(_cdiv(r, ctas)) if form == LOWRANK_PRE else 0
     if form == LOWRANK_PRE:
-        return {"fwd": [(h, kwp), (r, 2 * jwp), (h, kwp), (r, jwp)],
-                "bwd": [(h, kwp), (r, jwp), (2 * h, kwp), (r, jwp)]}
+        return {"fwd": [("a", 0, h, 0, kwp), ("b", 0, r, 0, 2 * jwp), ("a", 0, h, 0, kwp),
+                        ("b", 0, r, 2 * jwp, jwp)],
+                "bwd": [("a", 2 * h, h, 0, kwp), ("b", 0, r, 0, jwp), ("a", 0, 2 * h, 0, kwp),
+                        ("b", 0, r, 0, jwp)]}
     if form == DENSE_PRE:
-        return {"fwd": [(h, 2 * jwp), (h, jwp)], "bwd": [(h, jwp), (2 * h, jwp)]}
-    return {"fwd": [(h, 3 * jwp)], "bwd": [(3 * h, jwp)]}
+        return {"fwd": [("b", 0, h, 0, 2 * jwp), ("b", 0, h, 2 * jwp, jwp)],
+                "bwd": [("b", 2 * h, h, 0, jwp), ("b", 0, 2 * h, 0, jwp)]}
+    return {"fwd": [("b", 0, h, 0, 3 * jwp)], "bwd": [("b", 0, 3 * h, 0, jwp)]}
+
+
+def _grid_phases(h, r, form, ctas):
+    """{kernel: its products as (depth, columns)}, in a step's order."""
+    return {k: [(depth, cols) for _, _, depth, _, cols in ops]
+            for k, ops in _grid_operands(h, r, form, ctas).items()}
 
 
 # [units][rpad] buffers of each kernel (gru_grid.cuh::grid_slabs)
@@ -743,7 +797,7 @@ GRID_SLABS = {"fwd": {LOWRANK_PRE: 5, DENSE_PRE: 5, DENSE_POST: 7},
               "bwd": {LOWRANK_PRE: 6, DENSE_PRE: 6, DENSE_POST: 7}}
 
 
-def grid_plan_layout(b, h, r, form, groups, ctas, resident=None):
+def grid_plan_layout(b, h, r, form, groups, ctas, resident=None, piece=None):
     """The GRUGridPlan of ``groups`` batch groups of ``ctas`` CTAs each;
     `gru_grid_plan` picks the grouping. ``resident``: the (forward, walk)
     pairs of resident depths; None holds every row in shared memory.
@@ -752,7 +806,17 @@ def grid_plan_layout(b, h, r, form, groups, ctas, resident=None):
     round trip), so where every weight row fits with room to spare, the
     stage takes that room, in whole pairs of rows, up to the deepest
     product. The room is that of the all-resident layout of this grouping,
-    so a plan that streams some rows stages, and sums, as it does."""
+    so a plan that streams some rows stages, and sums, as it does.
+
+    A kernel runs its products on a ring (`GRUGridPlan.walk`) where it
+    streams some row, its stages ``piece`` floats: a (forward, walk) pair
+    as given; or a size (None: `cuda_scan.ring_piece`), taken where it fits
+    beside the rest, else as large a stage as fits (`cuda_scan._ring_fit`;
+    the smallest where the shared memory then exceeds SMEM_LIMIT). Its
+    order of sums stays the staging buffer's. A plan whose rows are all resident keeps
+    the staging buffer, also where an exchange does not fit in it whole:
+    there a ring in its room ran slower on the H100 (h=1000, B=512;
+    `tools/gru_phases.py --grid`'s ``other_ring``, PERF.md)."""
     rpad = _q4(_cdiv(b, groups))
     slices = _grid_slices(h, r, form, ctas)
     if resident is None:
@@ -773,12 +837,21 @@ def grid_plan_layout(b, h, r, form, groups, ctas, resident=None):
         room = SMEM_LIMIT // 4 - (_q4(sum(d * c for d, c in slices[kernel])) + slabs + stage + red)
         if room >= 2 * rpad:
             stage = min(deepest * rpad, stage + room // (2 * rpad) * 2 * rpad)
-        layout += [stage, red, 4 * (_q4(weights) + slabs + stage + red)]
+        rpiece = 0
+        if any(res < d for res, (d, _) in zip(resident[i], slices[kernel])):
+            if isinstance(piece, tuple):
+                rpiece = piece[i]
+            else:
+                need = _q4(max(rpad + c for _, c in phases[kernel]))
+                free = SMEM_LIMIT // 4 - (_q4(weights) + slabs + red)
+                rpiece = _ring_fit(free, need, piece or ring_piece(rpad)) or need
+        staged = RING_STAGES * (rpiece + 4) if rpiece else stage
+        layout += [stage, red, 4 * (_q4(weights) + slabs + staged + red), rpiece]
     pre, lowrank = form != DENSE_POST, form == LOWRANK_PRE
     xchg_fwd = groups * rpad * (2 * h + (h if pre else 0) + (r if lowrank else 0))
     xchg_bwd = groups * rpad * (6 * h + (r if lowrank else 0))
-    return GRUGridPlan(b, h, r, form, groups, ctas, rpad, *layout[:3], xchg_fwd, *layout[3:],
-                       xchg_bwd, *map(tuple, resident))
+    return GRUGridPlan(b, h, r, form, groups, ctas, rpad, *layout[:3], xchg_fwd, *layout[4:7],
+                       xchg_bwd, *map(tuple, resident), layout[3], layout[7])
 
 
 def _grid_rec_macs(h, r, form):
@@ -800,14 +873,16 @@ def _grid_fits_resident(b, h, r, form, sms):
     return None
 
 
-def _grid_streamed(b, h, r, form, sms):
+def _grid_streamed(b, h, r, form, sms, piece=None):
     """The plan where not even one row's weights fit in the shared memory of
-    all SMs: one group over min(sms, h) CTAs, each kernel holding as much
-    depth of each slice as fits beside its slabs, stage and red (the same
-    share of each slice's depth), the rest streamed. Raises ValueError where
-    the slabs alone do not fit."""
+    all SMs: one group over min(sms, h) CTAs, each kernel with a ring of
+    stages of ``piece`` floats (None: `cuda_scan.ring_piece`, or as large
+    as fit) and holding as much depth of each slice as fits beside its
+    slabs, ring and red (the same share of each slice's depth), the rest
+    streamed through the ring. Raises ValueError where the slabs and the
+    smallest ring do not fit."""
     ctas = min(sms, h)
-    empty = grid_plan_layout(b, h, r, form, 1, ctas, resident=((0, 0), (0, 0)))
+    empty = grid_plan_layout(b, h, r, form, 1, ctas, resident=((0, 0), (0, 0)), piece=piece)
     resident = []
     for kernel, smem in (("fwd", empty.smem_fwd), ("bwd", empty.smem_bwd)):
         room = (SMEM_LIMIT - smem) // 16 * 4  # weight floats that fit
@@ -816,7 +891,15 @@ def _grid_streamed(b, h, r, form, sms):
                              f"beside a streamed slice")
         total = sum(d * c for d, c in empty.slices(kernel))
         resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
-    return grid_plan_layout(b, h, r, form, 1, ctas, resident=tuple(resident))
+    return grid_plan_layout(b, h, r, form, 1, ctas, resident=tuple(resident),
+                            piece=(empty.piece_fwd, empty.piece_bwd))
+
+
+def grid_streamed_plan(b, h, r, form, sms=SMS, piece=None):
+    """`gru_grid_plan`'s streamed plan of a width whose weights do not fit,
+    with ring stages of another size (the checks that hold one ring to
+    another: the same groups, CTAs, stage and red, so the same sums)."""
+    return _grid_streamed(b, h, r, form, sms, piece)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -963,6 +1046,9 @@ def _bwd_launch(form, dx, plan, *tensors):
                 new(t, b, rx) if rx else None)
     dhu, drhu = (new(t * b, r), new(t * b, r)) if lowrank else (None, None)
     nparts = gru_bwd_partial_floats(t, b, f, rx, h, r, form, gi=gi_mode, dx=dx)
+    nstaged = gru_tc_stage_floats(t, b, f, rx, h, r, form, gi=gi_mode, recompute=gates is None,
+                                  dx=dx)
+    staged = new(nstaged) if nstaged else None
     if gi_mode:
         grads = (new(t, b, 3 * h), new(h, r) if lowrank else None, torch.empty_like(prz),
                  torch.empty_like(pn), new(b, h))
@@ -977,19 +1063,19 @@ def _bwd_launch(form, dx, plan, *tensors):
         state = _state(plan, "bwd", ys)
         if gi_mode:
             _launch(BWD_KERNEL, "gru_scan_bwd",
-                    (*tensors, dpre, dhu, drhu, new(nparts), *grads[1:], state),
-                    (t, b, h, r, form, nparts, *plan.ints("bwd")), ys.device)
+                    (*tensors, dpre, dhu, drhu, new(nparts), staged, *grads[1:], state),
+                    (t, b, h, r, form, nparts, nstaged, *plan.ints("bwd")), ys.device)
         else:
             _launch(BWD_KERNEL, "gru_scan_xin_bwd",
-                    (*tensors, *work, dpre, dhu, drhu, dxu, new(nparts), *grads, state),
-                    (t, b, f, rx, h, r, form, nparts, *plan.ints("bwd")), ys.device)
+                    (*tensors, *work, dpre, dhu, drhu, dxu, new(nparts), staged, *grads, state),
+                    (t, b, f, rx, h, r, form, nparts, nstaged, *plan.ints("bwd")), ys.device)
         return grads
     xchg, sync, wstream, nstream = _grid_scratch(plan, "bwd", ys)
     out = (None,) * 4 + grads[1:] if gi_mode else grads
     _launch(BWD_KERNEL, "gru_grid_bwd",
             (xs, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, *work, dpre,
-             dhu, drhu, dxu, new(nparts), *out, xchg, sync, wstream),
-            (t, b, f, rx, h, r, form, nparts, nstream, *plan.ints("bwd")), ys.device)
+             dhu, drhu, dxu, new(nparts), staged, *out, xchg, sync, wstream),
+            (t, b, f, rx, h, r, form, nparts, nstaged, nstream, *plan.ints("bwd")), ys.device)
     return grads
 
 
@@ -1044,15 +1130,102 @@ def gru_bwd_products(t, b, f, rx, h, r, form, *, gi=False, dx=True):
     return out
 
 
+def _routed(products, count):
+    """The first ``count`` of ``products`` (m, n, k) that gemm_tc.cuh's rule
+    sends to its Hopper tile (`cuda_scan.tc_route`): the recurrent weight
+    gradients of `gru_bwd_products`, which the BPTT takes out of its group
+    (m = 0 there: no CTA, no output)."""
+    return [i < count and tc_route(*p) for i, p in enumerate(products)]
+
+
+@functools.lru_cache(maxsize=256)
 def gru_bwd_partial_floats(t, b, f, rx, h, r, form, *, gi=False, dx=True):
     """Floats of split-k scratch for the BPTT's grouped products
     (`gru_bwd_products`, csrc/gemm_tile.cuh::gemm_splitk_group): they run
     at once, each in a region of its own, so they need the sum of the
-    regions; before them, in x mode with a low-rank x side, dXU = dPre Vxᵀ
-    runs as a group of its own in the same scratch. The larger of the two."""
+    regions; the recurrent ones that take the Hopper tile (`_routed`) run
+    before them, one at a time, each wanting its own k slices
+    (`cuda_scan.tc_splitk_floats`), and keep no region in the group, whose
+    slice length is still that of every weight gradient; before them, in x
+    mode with a low-rank x side, dXU = dPre Vxᵀ runs as a group of its own
+    in the same scratch. The largest of these."""
     weights = gru_bwd_products(t, b, f, rx, h, r, form, gi=gi, dx=False)
-    main = _group_floats(gru_bwd_products(t, b, f, rx, h, r, form, gi=gi, dx=dx), weights)
-    return max(main, _group_floats([(t * b, rx, 3 * h)]) if rx and not gi else 0)
+    products = gru_bwd_products(t, b, f, rx, h, r, form, gi=gi, dx=dx)
+    nrec = 3 if form == LOWRANK_PRE else 2
+    routed = _routed(products, nrec)
+    left = [(0, n, k) if go else (m, n, k) for go, (m, n, k) in zip(routed, products)]
+    main = _group_floats(left, weights)
+    tiles = [tc_splitk_floats(*p, False) for go, p in zip(routed, products) if go]
+    return max([main, *tiles] + ([_group_floats([(t * b, rx, 3 * h)])] if rx and not gi else []))
+
+
+def gru_tc_products(t, b, f, rx, h, r, form, *, gi=False, recompute=False):
+    """The BPTT's products that may take gemm_tc.cuh's Hopper tile, in launch
+    order, as `cuda_scan.staged_copies` reads them: [(m, n, k, A, B, split,
+    store)], A and B (source, runs along j). The recompute pre-pass's
+    recurrent products (csrc/gru_scan_xin_bwd.cu::recompute: unsplit, their
+    epilogues reading the gates but for HU and RHU's Store; a dense [R Z]
+    as two products of h columns where the Hopper tile takes such a half),
+    then the recurrent weight gradients (grouped_grads: split, Store).
+    Sources:
+    "hprev" the rows [h0; ys], "rh" those rows times R (R * Hprev, formed as
+    staged), "dn_r" dPre's n columns times R, "hprev_rh" [Hprev; R * Hprev]
+    and "dhu_drhu" [dHU; dRHU] over 2 T*B rows, "dpre" and "dpre_n" dPre
+    from its first and its n columns."""
+    m, a, c = t * b, True, False
+    out = []
+    if recompute:
+        if form == LOWRANK_PRE:
+            out += [(m, r, h, ("hprev", a), ("uf", a), False, True),
+                    (m, 2 * h, r, ("hu", a), ("prz", a), False, False),
+                    (m, r, h, ("rh", a), ("uf", a), False, True),
+                    (m, h, r, ("rhu", a), ("pn", a), False, False)]
+        else:
+            out += ([(m, h, h, ("hprev", a), (half, a), False, False)
+                     for half in ("prz_r", "prz_z")] if tc_route(m, h, h) else
+                    [(m, 2 * h, h, ("hprev", a), ("prz", a), False, False)])
+            out += [(m, h, h, ("rh" if form == DENSE_PRE else "hprev", a), ("pn", a), False,
+                     False)]
+    if form == LOWRANK_PRE:
+        out += [(r, 2 * h, m, ("hu", c), ("dpre", a), True, True),
+                (r, h, m, ("rhu", c), ("dpre_n", a), True, True),
+                (h, r, 2 * m, ("hprev_rh", c), ("dhu_drhu", a), True, True)]
+    else:
+        out += [(h, 2 * h, m, ("hprev", c), ("dpre", a), True, True),
+                (h, h, m, ("rh", c) if form == DENSE_PRE else ("hprev", c),
+                 ("dpre_n", a) if form == DENSE_PRE else ("dn_r", a), True, True)]
+    return out
+
+
+def gru_gemm_ops(t, b, f, rx, h, r, form, *, gi=False, save_gates=True):
+    """Operations of the BPTT's products that run as 3xTF32 on gemm_tc.cuh's
+    Hopper tile (two per multiply-add): those of `gru_tc_products` that
+    `cuda_scan.tc_route` sends there, the recurrent weight gradients and,
+    without ``save_gates``, the recompute pre-pass's recurrent products; the
+    share of `gru_scan_bwd_cost`'s operations that `bound` prices at the
+    3xTF32 rate (0 at every HAR width)."""
+    return sum(2 * m * n * k for m, n, k, *_ in gru_tc_products(
+        t, b, f, rx, h, r, form, gi=gi, recompute=not save_gates) if tc_route(m, n, k))
+
+
+@functools.lru_cache(maxsize=256)
+def gru_tc_stage_floats(t, b, f, rx, h, r, form, *, gi=False, recompute=False, dx=True):
+    """Floats of the Hopper tile's staged copies and raw sums in one BPTT
+    call (the scratch ``staged`` of its entry): `cuda_scan.staged_copies`
+    of `gru_tc_products`, with the call's split-k scratch
+    (`gru_bwd_partial_floats`), the most that one phase holds: each
+    recompute pre-pass product alone, then the weight gradients together,
+    each phase from the scratch's start; 0 where no product takes that
+    tile (every HAR width)."""
+    partial = gru_bwd_partial_floats(t, b, f, rx, h, r, form, gi=gi, dx=dx)
+    grads = gru_tc_products(t, b, f, rx, h, r, form, gi=gi)
+    rebuild = gru_tc_products(t, b, f, rx, h, r, form, gi=gi, recompute=recompute)[:-len(grads)]
+    most = 0
+    for phase in [[p] for p in rebuild] + [grads]:
+        copies = staged_copies(phase, False, partial)
+        assert sum(cp[3] != "raw" for cp in copies) <= STAGE_COPIES
+        most = max(most, sum(cp[-1] for cp in copies))
+    return most // 4
 
 @_counter
 def gru_scan_fused_xin(xs, ux, vx, bias, uf, prz, pn, h0, *, mode="pre"):

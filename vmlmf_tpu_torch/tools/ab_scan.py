@@ -51,10 +51,26 @@ the dense h=1500 layer, B = 1, 20 and 128, and the bf16 stack's three at
 B=20, and times the bf16 entries at the dense layer's B = 1 and 128
 (beside B=20) and the LM layer's B = 20 and 128 ("bf16_lstm").
 "digest_family" gives one per family of kernels ("lstm", "gru", "stack",
-"lstm_bf16", "stack_bf16") and one over them all ("all"), so that one run
-can show one family's bits changed and the others' not. Giving the
-checkouts as parent, change, change, parent keeps drift on the card from
-reading as a difference between them.
+"lstm_bf16", "stack_bf16", "gru_grid") and one over them all ("all"), so
+that one run can show one family's bits changed and the others' not.
+Giving the checkouts as parent, change, change, parent keeps drift on the
+card from reading as a difference between them.
+
+Under "gru_grid", the GRU's grid layout (`cuda_gru.gru_layout`): the ms of
+the three x-mode entries (three readings, CUDA events) at the HAR GRU's
+h=180 ("pre", "post"; B=81), the HAR GRU nets' h=3200 (B=81, F=77, rx=9:
+"post", "pre", low-rank "pre" r=800) and the dense "pre" h=1000 at B=512
+(two chunks); each shape's plans (groups, CTAs, resident depths and, where
+the checkout has a ring, its floats a stage); the peak device MiB of the
+h=3200 "post" BPTT call and of one HAR train step of the h=3200 "post"
+net, and at each h=3200 form those of the BPTT call and of the residual
+forward and BPTT together under each residual policy ("saved",
+"recompute"); and the "gru_grid" digests: every output of the three
+x-mode entries at h=180, and at GRU_GRID_ODD's low-rank shape (T=6, B=37,
+F=20, h=197, rx=5, r=23) on a plan with a third of each slice streamed
+(the resident plan's groups and CTAs), and the h=3200 forwards' outputs
+and residuals; no product of these passes the Hopper tile's rule.
+``--gru-grid`` (anywhere among the checkouts) runs this part alone.
 """
 
 from __future__ import annotations
@@ -191,8 +207,9 @@ def ptxas(source):
     stats, name, spill = {}, None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(grid_scan_kernel|grid_bptt_kernel|scan_kernel|bptt_kernel|"
-                          r"fwd_kernel|walk_kernel|stack_fwd_kernel|stack_bwd_kernel)"
+            m = re.search(r"(grid_scan_kernel|grid_bptt_kernel|grid_fwd_kernel|grid_walk_kernel|"
+                          r"scan_kernel|bptt_kernel|fwd_kernel|walk_kernel|stack_fwd_kernel|"
+                          r"stack_bwd_kernel)"
                           r"I((?:L[bi]\d+E)+)E", line)
             name = m and f"{m.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
         elif name and "spill stores" in line:
@@ -276,6 +293,148 @@ def digest(form, b=20, precision=None):
     return h.hexdigest()[:16]
 
 
+GRU_GRID = {"h180_pre": (24, 81, 77, 0, 180, 0, "pre"), "h180_post": (24, 81, 77, 0, 180, 0, "post"),
+            "h3200_post": (24, 81, 77, 9, 3200, 0, "post"),
+            "h3200_pre": (24, 81, 77, 9, 3200, 0, "pre"),
+            "h3200_lowrank_pre": (24, 81, 77, 9, 3200, 800, "pre"),
+            "h1000_pre_b512": (24, 512, 77, 0, 1000, 0, "pre")}
+GRU_ODD = (6, 37, 20, 5, 197, 23, "pre")
+
+
+def grid_inputs(t, b, f, rx, h, r, mode):
+    g = torch.Generator().manual_seed(0)
+    n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
+    k = r or h
+    return (n(t, b, f, scale=1.0), n(f, rx or 3 * h, scale=f ** -0.5),
+            n(rx, 3 * h, scale=rx ** -0.5) if rx else None, n(3 * h, scale=0.1),
+            n(h, r, scale=h ** -0.5) if r else None, n(k, 2 * h, scale=k ** -0.5),
+            n(k, h, scale=k ** -0.5), n(b, h, scale=0.5))
+
+
+def grid_calls(shape):
+    t, b, f, rx, h, r, mode = shape
+    args = grid_inputs(*shape)
+    res = cuda_gru.gru_scan_fused_xin_res(*args, mode=mode)
+    dys = 0.1 * torch.randn(t, b, h, generator=torch.Generator().manual_seed(5)).cuda()
+    saved = (*args[:3], *args[4:], *res, dys)
+    return {"fwd": lambda: cuda_gru.gru_scan_fused_xin(*args, mode=mode),
+            "res": lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode),
+            "bwd": lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode)}
+
+
+def grid_plans(shape):
+    t, b, f, rx, h, r, mode = shape
+    form = cuda_gru.form_of(object() if r else None, mode)
+    out = {}
+    for kernel in ("fwd", "bwd"):
+        layout = cuda_gru.gru_layout(t, b, f, rx, h, r, form, kernel=kernel)
+        out[kernel] = "rows" if isinstance(layout, cuda_gru.GRUPlan) else [
+            dict(rows=n, groups=p.groups, ctas=p.ctas, resident=p.resident(kernel),
+                 piece=p.piece(kernel) if hasattr(p, "piece") else 0) for _, n, p in layout]
+    return out
+
+
+def grid_digest(outs):
+    h = hashlib.sha256()
+    for a in outs:
+        if a is not None:
+            h.update(a.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# -> (ms, plans, peak MiB, digests) of the grid part
+def gru_grid():
+    ms, plans, digests = {}, {}, {}
+    for name, shape in GRU_GRID.items():
+        calls = grid_calls(shape)
+        plans[name] = grid_plans(shape)
+        iters = 5 if shape[4] >= 1000 else 20
+        ms[name] = {e: [mean_ms(fn, iters=iters) for _ in range(3)] for e, fn in calls.items()}
+        if shape[4] == 180:
+            outs = [calls["fwd"](), *calls["res"](), *calls["bwd"]()]
+        elif shape[4] == 3200:
+            outs = [calls["fwd"](), *calls["res"]()]
+        else:
+            continue
+        digests[f"grid_{name}"] = grid_digest(outs)
+    # the odd shape on a forced plan, a third of each slice streamed
+    t, b, f, rx, h, r, mode = GRU_ODD
+    form = cuda_gru.form_of(object(), mode)
+    resident = cuda_gru.gru_grid_plan(t, b, f, rx, h, r, form)
+    part = tuple(tuple(d // 3 for d, _ in resident.slices(k)) for k in ("fwd", "bwd"))
+    forced = cuda_gru.grid_plan_layout(b, h, r, form, resident.groups, resident.ctas,
+                                       resident=part)
+    keep = cuda_gru._plan_for
+    cuda_gru._plan_for = lambda *a, gi=False, p=forced: ((0, b, p),)
+    try:
+        calls = grid_calls(GRU_ODD)
+        digests["grid_odd_streamed"] = grid_digest([calls["fwd"](), *calls["res"](),
+                                                    *calls["bwd"]()])
+    finally:
+        cuda_gru._plan_for = keep
+    plans["odd_streamed"] = dict(groups=forced.groups, ctas=forced.ctas,
+                                 resident=(forced.resident_fwd, forced.resident_bwd),
+                                 piece=(getattr(forced, "piece_fwd", 0),
+                                        getattr(forced, "piece_bwd", 0)))
+    return ms, plans, grid_peaks(), digests
+
+
+def peak_mib(step):
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return round((torch.cuda.max_memory_allocated() - base) / 2 ** 20, 1)
+
+
+# the peak MiB of one layer's BPTT call and of its residual forward and BPTT
+# together, under each residual policy: the recompute policy is there to
+# save memory
+def policy_peaks(name):
+    t, b, f, rx, h, r, mode = GRU_GRID[name]
+    args = grid_inputs(t, b, f, rx, h, r, mode)
+    dys = 0.1 * torch.randn(t, b, h, generator=torch.Generator().manual_seed(5)).cuda()
+    out = {}
+    for policy, save in (("saved", True), ("recompute", False)):
+        extra = {} if save else {"bias": args[3]}
+        bwd = lambda res: cuda_gru.gru_scan_xin_bwd(*args[:3], *args[4:], *res, dys, mode=mode,
+                                                    **extra)
+        fwd = lambda: cuda_gru.gru_scan_fused_xin_res(*args, mode=mode, save_gates=save)
+        res = fwd()
+        out[f"bwd_{name}_{policy}"] = peak_mib(lambda: bwd(res))
+        del res
+        out[f"res_bwd_{name}_{policy}"] = peak_mib(lambda: bwd(fwd()))
+    return out
+
+
+def grid_peaks():
+    from vmlmf_tpu_torch.config import HARConfig
+    from vmlmf_tpu_torch.data.har import synthetic_har
+    from vmlmf_tpu_torch.train.har import HARTrainer
+
+    out = {"bwd_h3200_post": peak_mib(grid_calls(GRU_GRID["h3200_post"])["bwd"])}
+    for name in ("h3200_post", "h3200_pre", "h3200_lowrank_pre"):
+        out.update(policy_peaks(name))
+    model = HARConfig(model="mygru_group", layer_sizes=(3200,), w_rank=9,
+                      u_ranks=(12, 6)).build_model()
+    trainer = HARTrainer(model, batch_size=81)
+    params, opt = trainer.init()
+    x, y, _, _ = synthetic_har("opp", n_train=81, n_test=1, seed=2)
+    out["har_step_h3200_post"] = peak_mib(lambda: trainer.train_step(params, opt, x, y))
+    return out
+
+
+if len(sys.argv) > 2 and sys.argv[2] == "--gru-grid":
+    gms, gplans, gpeaks, gdig = gru_grid()
+    print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0),
+                      "gru_grid": {"ms": gms, "plans": gplans, "peak_mib": gpeaks},
+                      "digest": gdig,
+                      "digest_family": {"gru_grid": hashlib.sha256(" ".join(
+                          gdig[k] for k in sorted(gdig)).encode()).hexdigest()[:16]}}))
+    sys.exit(0)
+
 sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_scan_xin_bwd.cu", "gru_scan_xin_fwd.cu",
                       "gru_scan_xin_bwd.cu", "lstm_stack_fwd.cu", "lstm_stack_bwd.cu")
            if (_build.CSRC / s).exists()]
@@ -318,6 +477,12 @@ if WIDE:  # the bf16 entries of the LSTM scans and the stack
     digests.update({k: digest(*v, "bf16") for k, v in BF16.items()})
     digests["stack_bf16"] = digest("stack", precision="bf16")
     families.update(lstm_bf16=tuple(BF16), stack_bf16=("stack_bf16",))
+gms, gplans, gpeaks, gdig = gru_grid()
+ms["gru_grid"] = gms
+plans["gru_grid"] = gplans
+plans["gru_grid_peak_mib"] = gpeaks
+digests.update(gdig)
+families["gru_grid"] = tuple(sorted(gdig))
 families["all"] = tuple(digests)
 print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0), "ms": ms,
                   "plans": plans, "ptxas": regs, "digest": digests,
@@ -328,11 +493,13 @@ print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0)
 
 
 def main(argv=None):
-    dirs = sys.argv[1:] if argv is None else argv
+    args = sys.argv[1:] if argv is None else argv
+    dirs = [a for a in args if a != "--gru-grid"]
     if not dirs:
         raise SystemExit(__doc__)
+    only = ["--gru-grid"] if "--gru-grid" in args else []
     for d in dirs:
-        subprocess.run([sys.executable, "-c", CHILD, d], check=True, timeout=900)
+        subprocess.run([sys.executable, "-c", CHILD, d, *only], check=True, timeout=900)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,20 @@ B=81 and 256; the dense "pre" h=1000 at B=512; the three forms at h=3200,
 B=81, low-rank x side), the layout and ``device`` µs by kernel of each
 entry at T and 2T, ``per_step`` as above, and ``split``: the scan kernel
 (`grid_fwd_kernel`, `grid_walk_kernel`) against the GEMMs of the same call
-(the forward's projection; the BPTT's dXU, its grouped split-k and, under
-recompute, its pre-pass), in ms a call. ``--grid`` runs these alone.
+(the forward's projection; the BPTT's dXU, its grouped split-k or the
+Hopper tile's products and their staging passes and, under recompute, its
+pre-pass), in ms a call; and, where a kernel runs on the TMA ring
+(`GRUGridPlan.piece`), ``ring``: from a copy of ``csrc/`` built apart with
+``scan_grid.cuh`` patched as `scan_phases` patches it, the µs a step that
+CTA 0's first consumer thread waits on the ring's full barriers
+(``ring_wait``), that its producer waits for a free stage
+(``ring_refill``) and that its thread 0 waits at the group barrier
+(``barrier_wait``), beside the kernel's µs a step (``step``); and
+``other_ring``: each entry's device µs on another ring, the chosen plan's
+against (h=3200) the ring of RING_OTHER-float stages, more pieces a step,
+or (h=1000, whose rows are all resident) a ring forced into the staging
+buffer's room (`ring_in_stage`), which no plan takes.
+``--grid`` runs these alone.
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -38,6 +50,7 @@ Prints one JSON line a shape, the card's name and power limit first.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import shutil
@@ -130,6 +143,89 @@ def stamped_libraries(work):
     return libs
 
 
+# the counters of the ring's build: scan_phases' ring waits, and thread 0
+# of CTA 0's wait at a group barrier (group_sync's wait_count)
+GROUP_WAIT = [("// Barrier of the `n` CTAs of one group:",
+               "__device__ unsigned long long g_group_wait;\n\n"
+               "// Barrier of the `n` CTAs of one group:"),
+              ("  wait_count(count, target);\n",
+               "  {\n    const unsigned long long g0 = global_ns();\n"
+               "    wait_count(count, target);\n"
+               "    if (blockIdx.x == 0 && threadIdx.x == 0) g_group_wait += global_ns() - g0;\n"
+               "  }\n")]
+RING_READER = """
+extern "C" int ring_counters(unsigned long long* out, int reset) {
+  unsigned long long zero = 0;
+  cudaError_t e = cudaSuccess;
+  if (reset) {
+    e = cudaMemcpyToSymbol(vmlmf::g_ring_wait, &zero, 8);
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(vmlmf::g_ring_refill, &zero, 8);
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(vmlmf::g_group_wait, &zero, 8);
+    return e;
+  }
+  e = cudaMemcpyFromSymbol(out, vmlmf::g_ring_wait, 8);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out + 1, vmlmf::g_ring_refill, 8);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out + 2, vmlmf::g_group_wait, 8);
+  return e;
+}
+"""
+
+
+def ring_libraries(work):
+    """Build the GRU sources with scan_grid.cuh's ring waits and group barrier
+    timed (`scan_phases.RING_WAIT`, `RING_REFILL`, `GROUP_WAIT`) -> {name:
+    CDLL}, each with ring_counters()."""
+    from vmlmf_tpu_torch.tools.scan_phases import RING_COUNTER, RING_REFILL, RING_WAIT
+
+    src = os.path.join(work, "csrc")
+    shutil.copytree(_build.CSRC, src)
+    header = os.path.join(src, "scan_grid.cuh")
+    text = open(header).read()
+    for anchor, new in (RING_WAIT, RING_REFILL, RING_COUNTER, *GROUP_WAIT):
+        if text.count(anchor) < 1:
+            raise RuntimeError(f"scan_grid.cuh: the ring's anchor moved: {anchor!r}")
+        text = text.replace(anchor, new)
+    open(header, "w").write(text)
+    libs = {}
+    for name in MARKS:
+        path = os.path.join(src, f"{name}.cu")
+        with open(path, "a") as out:
+            out.write(RING_READER)
+        lib = os.path.join(work, f"{name}.so")
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, path], check=True,
+                       capture_output=True)
+        libs[name] = ctypes.CDLL(lib)
+        libs[name].ring_counters.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return libs
+
+
+def ring_waits(libs, calls, plans, t):
+    """{kernel: µs a step of the ring's waits and of the kernel} of the
+    forward (the no-grad entry) and the walk (the BPTT), each run once on
+    the ring's build."""
+    out = {}
+    load, _build.load = _build.load, lambda n: libs[n]
+    try:
+        for kernel, entry, lib in (("fwd", "fwd", "gru_scan_xin_fwd"),
+                                   ("bwd", "bwd", "gru_scan_xin_bwd")):
+            if not any(p.piece(kernel) for p in plans):
+                continue
+            buf = (ctypes.c_ulonglong * 3)()
+            libs[lib].ring_counters(ctypes.addressof(buf), 1)
+            calls[entry]()
+            torch.cuda.synchronize()
+            libs[lib].ring_counters(ctypes.addressof(buf), 0)
+            us = device_us(calls[entry], reps=1)
+            scan = sum(v for k, v in us.items() if k.startswith("grid_"))
+            out[kernel] = dict(ring_wait=round(buf[0] / 1e3 / t, 3),
+                               ring_refill=round(buf[1] / 1e3 / t, 3),
+                               barrier_wait=round(buf[2] / 1e3 / t, 3),
+                               step=round(scan / t, 3))
+    finally:
+        _build.load = load
+    return out
+
+
 def inputs(t, b, r, f=F, rx=RX, h=H):
     """Seeded (xs, ux, vx, bias, uf, prz, pn, h0) on the card; rx = 0 is a
     dense x side, r = 0 a dense recurrent side."""
@@ -199,6 +295,43 @@ GRID_SHAPES = [("har180_pre", T, 81, F, 0, 180, 0, "pre"), ("har180_post", T, 81
                ("h3200_lowrank_pre", T, 81, F, RX, 3200, 800, "pre")]
 
 
+RING_OTHER = 8192  # floats a stage of the other ring at h=3200
+
+
+def ring_in_stage(plan):
+    """``plan`` with each kernel on a ring of two stages in its staging
+    buffer's room (0 where a stage would not hold a row of the exchange),
+    the same order of sums: a plan that no planner picks (every row
+    resident), which the checks hold to the staging buffer."""
+    fields = {}
+    for kernel in ("fwd", "bwd"):
+        stage, _, smem = plan.ints(kernel)[3:6]
+        piece = plan.piece(kernel) or (stage // cuda_gru.RING_STAGES - 4) // 4 * 4
+        piece = piece if piece >= plan.rpad else 0
+        if piece and not plan.piece(kernel):
+            smem -= 4 * (stage - cuda_gru.RING_STAGES * (piece + 4))
+        fields.update({f"piece_{kernel}": piece, f"smem_{kernel}": smem})
+    return dataclasses.replace(plan, **fields)
+
+
+def other_ring(t, b, f, rx, h, r, mode, form, sms, dx):
+    """{entry: [device µs on the chosen layout, on the other ring]}."""
+    chosen = cuda_gru.gru_grid_chunks(t, b, f, rx, h, r, form, sms=sms)
+    if any(p.streamed for _, _, p in chosen):
+        other = ((0, b, cuda_gru.grid_streamed_plan(b, h, r, form, sms, RING_OTHER)),)
+    else:
+        other = tuple((b0, n, ring_in_stage(p)) for b0, n, p in chosen)
+    out, keep = {}, cuda_gru._plan_for
+    try:
+        for layout in (chosen, other):
+            cuda_gru._plan_for = lambda *a, gi=False, lay=layout: lay
+            for entry, fn in grid_entries(t, b, f, rx, h, r, mode, dx).items():
+                out.setdefault(entry, []).append(round(sum(device_us(fn, reps=3).values()), 2))
+    finally:
+        cuda_gru._plan_for = keep
+    return out
+
+
 def grid_entries(t, b, f, rx, h, r, mode, dx):
     """{entry: a call of it} at a grid shape; the BPTT from dys alone, dx
     when ``dx`` (not for a first layer's raw input)."""
@@ -211,8 +344,8 @@ def grid_entries(t, b, f, rx, h, r, mode, dx):
             "bwd": lambda: cuda_gru.gru_scan_xin_bwd(*saved, mode=mode, dx=dx)}
 
 
-def grid_main():
-    """One JSON line for each of GRID_SHAPES."""
+def grid_main(libs):
+    """One JSON line for each of GRID_SHAPES; ``libs``: `ring_libraries`."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, t, b, f, rx, h, r, mode in GRID_SHAPES:
         form = cuda_gru.form_of(object() if r else None, mode)
@@ -222,7 +355,8 @@ def grid_main():
             layout = cuda_gru.gru_layout(t, b, f, rx, h, r, form, kernel=kernel, sms=sms)
             row["layout"][kernel] = "rows" if isinstance(layout, cuda_gru.GRUPlan) else [
                 dict(rows=n, groups=p.groups, ctas=p.ctas, resident=p.resident(kernel),
-                     streamed_mb=round(4e-6 * p.n_ctas * p.streamed_elems(kernel), 1))
+                     streamed_mb=round(4e-6 * p.n_ctas * p.streamed_elems(kernel), 1),
+                     piece=p.piece(kernel))
                 for _, n, p in layout]
         names = ("fwd",) if b == 256 else ("fwd", "res", "bwd")
         for tt in (t, 2 * t):
@@ -236,6 +370,16 @@ def grid_main():
             scan = sum(v for k, v in at_t.items() if k.startswith("grid_"))
             row["split"][entry] = dict(scan_ms=round(scan / 1e3, 4),
                                        gemm_ms=round((sum(at_t.values()) - scan) / 1e3, 4))
+        plans = []
+        for kernel in ("fwd", "bwd"):
+            layout = cuda_gru.gru_layout(t, b, f, rx, h, r, form, kernel=kernel, sms=sms)
+            if not isinstance(layout, cuda_gru.GRUPlan):
+                plans += [p for _, _, p in layout]
+        if b != 256 and any(p.piece_fwd or p.piece_bwd for p in plans):
+            row["ring"] = ring_waits(libs, grid_entries(t, b, f, rx, h, r, mode,
+                                                        not name.startswith("har")), plans, t)
+        if h >= 1000:
+            row["other_ring"] = other_ring(t, b, f, rx, h, r, mode, form, sms, True)
         print(json.dumps(row), flush=True)
 
 
@@ -245,11 +389,12 @@ def main():
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     _build.build_all()
-    if "--grid" in sys.argv[1:]:
-        grid_main()
-        return
     work = tempfile.mkdtemp(dir=_build.BUILD_DIR)  # git-ignored, beside the package's builds
     try:
+        ring = ring_libraries(os.path.join(work, "ring"))
+        if "--grid" in sys.argv[1:]:
+            grid_main(ring)
+            return
         libs = stamped_libraries(work)
         for form, b in [(f, 81) for f in FORMS] + [(f, 256) for f in FORMS]:
             r, mode = FORMS[form]
@@ -285,9 +430,9 @@ def main():
                 finally:
                     _build.load = load
             print(json.dumps(row), flush=True)
+        grid_main(ring)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    grid_main()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The two tiles of csrc/gemm_tc.cuh side by side, on one CUDA device: the
 numbers of the rule that sends a product to one of them (`cuda_scan.tc_route`).
 
-    python -m vmlmf_tpu_torch.tools.tc_tiles [--error]
+    python -m vmlmf_tpu_torch.tools.tc_tiles [--error | --gru]
 
 For each product of the GEMM phases (`cuda_scan.gemm_products`: the
 projection, the recompute pre-pass and the BPTT) of the HAR layer (T=24,
@@ -21,6 +21,17 @@ Hprev^T dPre (k = 4480) at B=128, for bf16 chunks of 1 to 64 stages (and
 one chunk over all of k), the max abs error over the max abs float64
 output of the same (bf16-rounded) operands, and the device ms; f32 (its
 chunk one k8 step whatever ``flush`` says) beside them.
+
+Both ways, then the GRU BPTT's products that the rule sends to the Hopper
+tile (`tc_check.GRU_PRODUCTS`: the recurrent weight gradients of the three
+forms and the recompute pre-pass's (R * Hprev) @ W) at the HAR GRU nets'
+h=3200 (T=24, B=81, r=800) and at h=1000 (B=256, a chunk of B=512), on
+seeded residuals: the device ms and the error over float64 (as above) of
+each on the Hopper tile in 3xTF32 (`tc_check.GRU_HOPPER`, staging passes
+included), on gemm_tile.cuh's CUDA-core split-k (`GRU_TILE`, the tile
+those products ran on before) and, where its operands are plain views
+(dPrz dense: PrevRowsT, RowMajor), on the Ampere tile. ``--gru`` prints
+these alone.
 """
 
 from __future__ import annotations
@@ -91,14 +102,55 @@ def errors(g):
             print(json.dumps(row), flush=True)
 
 
+GRU_SHAPES = {"h3200": (24, 81, 3200, 800), "h1000": (24, 256, 1000, 250)}
+
+
+def gru_products(g):
+    """One JSON line a GRU product and shape: ms and error on each tile."""
+    for name, (t, b, h, r) in GRU_SHAPES.items():
+        m = t * b
+
+        def n(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=g)).cuda()
+
+        h0, ys = n(b, h, scale=0.5), torch.tanh(n(t, b, h))
+        gates = torch.sigmoid(n(t, b, 3 * h))
+        v = dict(hu=n(m, r), rhu=n(m, r), dhu=n(m, r, scale=0.1), drhu=n(m, r, scale=0.1),
+                 w=n(h, r, scale=h ** -0.5))
+        dpre = n(m, 3 * h, scale=0.1)
+        for p, (label, shape, _, _) in enumerate(tc_check.GRU_PRODUCTS):
+            mm, nn, kk = shape(m, h, r, r)
+            a, bb = tc_check.gru_sources(p, h0, ys, gates, dpre, **v)
+            row = {"shape": name, "product": label, "m": mm, "n": nn, "k": kk,
+                   "macs": mm * nn * kk, "route": "hopper" if cuda_scan.tc_route(mm, nn, kk)
+                   else "gemm_tile"}
+            tiles = {"hopper": lambda: tc_check.gru_product(p, tc_check.GRU_HOPPER, h0, ys, gates,
+                                                            dpre, **v),
+                     "gemm_tile": lambda: tc_check.gru_product(p, tc_check.GRU_TILE, h0, ys, gates,
+                                                               dpre, **v)}
+            if p == 0:  # PrevRowsT x RowMajor: the Ampere tile takes it too
+                tiles["ampere"] = lambda: tc_check.tc_product(
+                    3, 0, h0, ys.reshape(m, h), b, h, dpre, 3 * h, h, 2 * h, m, False,
+                    tile=tc_check.AMPERE)
+            for tile, call in tiles.items():
+                row[f"{tile}_err"] = tc_check.relative_error(call(), a, bb)
+                row[f"{tile}_ms"] = round(time_ms(call), 4)
+            print(json.dumps(row), flush=True)
+            del a, bb
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     g = torch.Generator().manual_seed(0)
+    if "--gru" in argv:
+        gru_products(g)
+        return
     if "--error" in argv:
         errors(g)
+        gru_products(g)
         return
     for (m, n, k, a_kind, b_kind), where in shapes().items():
         a0 = torch.randn((m, k) if a_kind == 0 else (k, m), generator=g).cuda()
@@ -112,6 +164,7 @@ def main(argv=None):
                     lambda: tc_check.tc_product(a_kind, b_kind, a0, None, 0, lda, b0, ldb, m, n,
                                                 k, bf16, tile=tile)), 4)
         print(json.dumps(row), flush=True)
+    gru_products(g)
 
 
 if __name__ == "__main__":

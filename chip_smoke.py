@@ -1047,7 +1047,8 @@ def print_gru_plan(torch, cuda_gru, name, size, gi=False):
     """Print the layout the GRU wrappers take at one shape (`gru_layout`),
     the forward's and, where it differs, the walk's: `gru_plan`'s rows a
     CTA, or the grid's chunks of rows, each with its groups x CTAs, rows a
-    group, resident depths, MB streamed a step and its TMA ring's stages."""
+    group, the rows R of a product item, resident depths, MB streamed a
+    step and its TMA ring's stages."""
     t, b = size[:2]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     layouts = {k: cuda_gru.gru_layout(*size, kernel=k, gi=gi, sms=sms) for k in ("fwd", "bwd")}
@@ -1072,7 +1073,9 @@ def print_gru_plan(torch, cuda_gru, name, size, gi=False):
                 for k in ("fwd", "bwd"))
             print(f"gru_grid_plan {name}{which} B={b}{' gi' if gi else ''} rows {b0}..{b0 + n}: "
                   f"{plan.groups} groups x {plan.ctas} CTAs, {plan.rpad} rows a group (padded), "
-                  f"{held}, {plan.smem_fwd} / {plan.smem_bwd} bytes a CTA (forward / walk)")
+                  f"items of 4 columns x R={plan.tile_fwd} / {plan.tile_bwd} rows (forward / "
+                  f"walk), {held}, {plan.smem_fwd} / "
+                  f"{plan.smem_bwd} bytes a CTA (forward / walk)")
 
 
 def gru_bwd_split(torch, label, bwd, t, calls=5, hopper=False):
@@ -3310,9 +3313,10 @@ def gru_wide_entries(torch, sms):
     """The GRU's three forms at h=3200 (T=24, B=81, the HAR GRU nets' layer),
     on the grid, every kernel on the TMA ring: the six entries and the
     recompute policy against their plain versions, two calls to equal bits,
-    and a ring of RING_CHECK_PIECE-float stages (more pieces a product, more
-    rows resident; the same groups, CTAs, chunks and red) bit-equal to the
-    chosen one."""
+    a ring of RING_CHECK_PIECE-float stages (more pieces a product, more
+    rows resident; the same groups, CTAs, chunks, items and red) bit-equal to
+    the chosen one, and the chosen plan's items of R rows within TOL
+    (outputs) and GRAD_TOL (gradients) of the same plan's items of 4 rows."""
     from vmlmf_tpu_torch.ops import cuda_gru
 
     t, b, f, h, rx = (GRU_WIDE_H[k] for k in ("t", "b", "f", "h", "rx"))
@@ -3325,21 +3329,24 @@ def gru_wide_entries(torch, sms):
         other = cuda_gru.grid_streamed_plan(b, h, r, form, sms, piece=RING_CHECK_PIECE)
         if not (chosen.piece_fwd and chosen.piece_bwd) or any(
                 getattr(chosen, k) != getattr(other, k) for k in (
-                    "groups", "ctas", "stage_fwd", "red_fwd", "stage_bwd", "red_bwd")):
+                    "groups", "ctas", "stage_fwd", "red_fwd", "stage_bwd", "red_bwd", "tile_fwd",
+                    "tile_bwd")):
             fail(f"wide: GRU {name} at h=3200: the plans must share groups, CTAs, stage and red, "
                  f"on a ring: {chosen} / {other}")
         routes, _ = gru_routes(cuda_gru, (t, b, f, rx, h, r, form), True, recompute=True)
         print(f"wide: GRU {name} h=3200 recompute BPTT routes: {', '.join(routes)}")
         grid_entries_agree(torch, f"{name} h=3200", (t, b, f, h, rx, r, mode, lowrank), chosen,
-                           other, f"a ring of {RING_CHECK_PIECE}-float stages")
+                           other, f"a ring of {RING_CHECK_PIECE}-float stages",
+                           four=cuda_gru.grid_streamed_plan(b, h, r, form, sms, tile=4))
 
 
-def grid_entries_agree(torch, name, shape, plan, other, what):
+def grid_entries_agree(torch, name, shape, plan, other, what, four=None):
     """At ``shape`` (T, B, F, h, rx, r, mode, low-rank) on grid plan
     ``plan``: the six entries and the recompute policy against their plain
     versions (TOL for outputs and residuals, GRAD_TOL for gradients), two
     calls to equal bits, and on ``other`` (its groups and CTAs) to the same
-    bits."""
+    bits; where ``plan`` has items of more than 4 rows and ``four`` (the same
+    plan with items of 4 rows) is given, within those tolerances of it."""
     from vmlmf_tpu_torch.ops import cuda_gru
 
     t, b, f, h, rx, r, mode, lowrank = shape
@@ -3359,9 +3366,10 @@ def grid_entries_agree(torch, name, shape, plan, other, what):
                 "gi": (cuda_gru.gru_scan_fused(*rec, mode=mode), *res_gi,
                        *cuda_gru.gru_scan_bwd(*args[4:], *res_gi, dys, mode=mode))}
 
+    four = four if four is not None and max(plan.tile_fwd, plan.tile_bwd) > 4 else None
     runs, keep = [], cuda_gru._plan_for
     try:
-        for p in (plan, plan, other):
+        for p in (plan, plan, other) + ((four,) if four else ()):
             cuda_gru._plan_for = lambda *a, gi=False, p=p: ((0, b, p),)
             runs.append(calls())
     finally:
@@ -3389,13 +3397,26 @@ def grid_entries_agree(torch, name, shape, plan, other, what):
             if not all((a is None and c is None) or torch.equal(a, c)
                        for a, c in zip(outs, again[path])):
                 fail(f"wide: GRU grid {name} {path}: {label} gives other bits")
+        for i, (got, at4) in enumerate(zip(outs, runs[3][path] if four else ())):
+            if got is None:
+                continue
+            ok, err = close(torch, got, at4, TOL if i < n_fwd else GRAD_TOL)
+            worst["R=4"] = max(worst.get("R=4", 0.0), err)
+            if not ok:
+                fail(f"wide: GRU grid {name} {path}: output {i} with items of "
+                     f"{plan.tile_fwd} / {plan.tile_bwd} rows disagrees with items of 4: max abs "
+                     f"err {err}")
+    against4 = (f"; against items of 4 rows (rpad {four.rpad}): max abs err "
+                f"{worst['R=4']:.3g}" if four else "")
     print(f"wide: GRU grid {name} T={t} B={b} F={f} h={h} rx={rx or 'dense'} r={r}: "
-          f"{plan.groups} groups x {plan.ctas} CTAs, resident {plan.resident_fwd} / "
+          f"{plan.groups} groups x {plan.ctas} CTAs, items of R={plan.tile_fwd} / "
+          f"{plan.tile_bwd} rows (forward / walk; rpad "
+          f"{plan.rpad}), resident {plan.resident_fwd} / "
           f"{plan.resident_bwd}, rings {plan.piece_fwd} / {plan.piece_bwd}; {what}: resident "
           f"{other.resident_fwd} / {other.resident_bwd}, rings {other.piece_fwd} / "
           f"{other.piece_bwd}; max abs err outputs {worst.get(TOL, 0.0):.3g}, gradients "
           f"{worst.get(GRAD_TOL, 0.0):.3g}; six entries and recompute bit-equal over two calls "
-          f"and to {what}")
+          f"and to {what}{against4}")
 
 
 def gru_tc_control(torch):

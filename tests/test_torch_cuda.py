@@ -2101,6 +2101,100 @@ def test_gru_ring_pieces_keep_the_bits(cuda, case, monkeypatch):
     _grid_runs_bit_equal(cuda_gru, monkeypatch, GRID_GRU[case], [chosen, *others])
 
 
+def _tile_plan(cuda_gru, case, tile, sms, piece=None, rows=None):
+    """GRID_GRU[case]'s plan (its first chunk of rows) with items of ``tile``
+    rows: the chosen plan's groups, but no more than groups of ``rows`` rows
+    (default ``tile``) fill, and its CTAs, or the fewest more whose shared
+    memory holds ``rows``-row groups; on a ring (of ``piece``-float stages
+    where given) where it streams -> (its rows, the plan)."""
+    t, b, f, h, rx, r, mode, lowrank = GRID_GRU[case]
+    form = _gru_form(cuda_gru, mode, lowrank)
+    (_, b, chosen), *_ = cuda_gru.gru_grid_chunks(t, b, f, rx, h, r, form, sms=sms)
+    if chosen.streamed:
+        return b, cuda_gru.grid_streamed_plan(b, h, r, form, sms, piece=piece, tile=tile)
+    groups = min(chosen.groups, -(-b // (rows or tile)))
+    ctas = next(c for c in range(chosen.ctas, sms // groups + 1) if cuda_gru.grid_plan_layout(
+        b, h, r, form, groups, c, tile=rows or tile).smem_bytes <= cuda_gru.SMEM_LIMIT)
+    return b, cuda_gru.grid_plan_layout(b, h, r, form, groups, ctas, tile=tile)
+
+
+TILE_CASES = ("odd_lowrank", "odd_dense_pre", "odd_post", "h1000_pre_b512", "h3200_post",
+              "h3200_pre", "h3200_lowrank")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 12])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_gru_grid_tiles_match_plain_and_four_row_items(cuda, case, tile, monkeypatch):
+    """Items of 8 and 12 batch rows in both kernels (GRUGridPlan.tile_fwd
+    and tile_bwd, forced; rows padded to a
+    multiple of them, other slices): every entry (x mode, recompute, gi
+    mode) within TOL (outputs) and GRAD_TOL (gradients) of its plain version
+    and of the same plan's items of 4 rows, two calls to equal bits."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b, plan = _tile_plan(cuda_gru, case, tile, sms)
+    _, four = _tile_plan(cuda_gru, case, 4, sms, rows=tile)  # the same groups and CTAs
+    assert plan.tile_fwd == plan.tile_bwd == tile and plan.rpad % tile == 0
+    assert four.tile_fwd == four.tile_bwd == 4
+    assert (four.groups, four.ctas) == (plan.groups, plan.ctas)
+    assert max(plan.smem_bytes, four.smem_bytes) <= cuda_gru.SMEM_LIMIT
+    t, _, f, h, rx, r, mode, lowrank = GRID_GRU[case]
+    shape = (t, b, f, h, rx, r, mode, lowrank)
+    args = gru_inputs(*shape, cuda)
+    dys = torch.from_numpy(np.random.default_rng(1).standard_normal((t, b, h)).astype(
+        np.float32)).to(cuda)
+    runs = []
+    for p in (plan, plan, four):
+        monkeypatch.setattr(cuda_gru, "_plan_for", lambda *a, gi=False, p=p: ((0, b, p),))
+        runs.append(_grid_calls(cuda_gru, args, dys, mode))
+    torch.cuda.synchronize()
+    want = _grid_plain(cuda_gru, args, dys, mode)
+    for policy, outs in runs[0].items():
+        for i, (x, again, x4, w) in enumerate(zip(outs, runs[1][policy], runs[2][policy],
+                                                  want[policy])):
+            assert (x is None) == (again is None) == (x4 is None), (policy, i)
+            if x is None:
+                continue
+            assert torch.equal(x, again), (policy, i)
+            tol = TOL if i < GRID_FORWARD_OUTS[policy] else GRAD_TOL
+            torch.testing.assert_close(x, x4, msg=f"{policy} {i} against R=4", **tol)
+            if w is not None:
+                torch.testing.assert_close(x, w, msg=f"{policy} {i}", **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 12])
+@pytest.mark.parametrize("case", ["odd_lowrank", "odd_dense_pre", "odd_post", "h3200_post",
+                                  "h3200_pre", "h3200_lowrank"])
+def test_gru_tile_plans_keep_the_bits_streamed_and_on_other_rings(cuda, case, tile,
+                                                                  monkeypatch):
+    """At items of 8 and 12 rows, as at 4: the odd shapes' resident plan and
+    the same plan with a third of each slice streamed through the ring, and
+    at h=3200 the plan's ring and one of 6144-float stages, give every
+    entry's outputs bit-equal."""
+    from vmlmf_tpu_torch.ops import cuda_gru
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b, plan = _tile_plan(cuda_gru, case, tile, sms)
+    assert plan.smem_bytes <= cuda_gru.SMEM_LIMIT
+    if plan.streamed:
+        _, other = _tile_plan(cuda_gru, case, tile, sms, piece=6144)
+        assert other.piece_fwd == 6144 and sum(other.resident_fwd) > sum(plan.resident_fwd)
+    else:
+        part = tuple(tuple(d // 3 for d, _ in plan.slices(k)) for k in ("fwd", "bwd"))
+        other = cuda_gru.grid_plan_layout(b, plan.h, plan.r, plan.form, plan.groups, plan.ctas,
+                                          resident=part, tile=tile)
+        assert other.streamed and other.piece_fwd and other.piece_bwd
+    for field in ("tile_fwd", "tile_bwd", "rpad", "groups", "ctas", "stage_fwd", "red_fwd",
+                  "stage_bwd", "red_bwd"):
+        assert getattr(other, field) == getattr(plan, field), field
+    t, _, f, h, rx, r, mode, lowrank = GRID_GRU[case]
+    _grid_runs_bit_equal(cuda_gru, monkeypatch, (t, b, f, h, rx, r, mode, lowrank),
+                         [plan, other])
+
+
 @pytest.mark.cuda
 def test_gru_chunked_exchange_ring_is_bit_equal_to_the_staging_buffer(cuda, monkeypatch):
     """h=1000 at B=256 (a chunk of B=512): every row resident, each exchange

@@ -15,6 +15,8 @@ and the two HAR GRU nets at h = 180 are held to the JAX package's on the
 CPU, where the wrappers run their plain versions.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -94,9 +96,12 @@ def check_grid_plan(plan, b, h, r, form, sms=SMS):
     assert 1 <= plan.groups <= b and 1 <= plan.ctas <= h
     assert plan.n_ctas <= sms  # one CTA an SM: a cooperative launch's CTAs co-resident
     assert cover([plan.rows(g) for g in range(plan.groups)], b)
-    assert plan.rpad % 4 == 0 and all(b1 - b0 <= plan.rpad for b0, b1 in
-                                      (plan.rows(g) for g in range(plan.groups)))
-    assert plan.rpad < max(b1 - b0 for b0, b1 in (plan.rows(g) for g in range(plan.groups))) + 4
+    # rows padded to a multiple of each kernel's items' rows R (4, 8 or 12), no further
+    tiles = (plan.tile_fwd, plan.tile_bwd)
+    assert set(tiles) <= {4, 8, 12} and plan.rpad % math.lcm(*tiles) == 0
+    assert all(b1 - b0 <= plan.rpad for b0, b1 in (plan.rows(g) for g in range(plan.groups)))
+    assert plan.rpad < max(b1 - b0 for b0, b1 in (plan.rows(g) for g in range(plan.groups))) + \
+        math.lcm(*tiles)
     assert cover([plan.j_range(q) for q in range(plan.ctas)], h)
     (_, ca), (_, cb) = plan.slices("fwd")
     jwp = cb // 3
@@ -126,7 +131,7 @@ def check_grid_plan(plan, b, h, r, form, sms=SMS):
         assert stage % plan.rpad == 0 and stage // plan.rpad >= min(
             2, max(d for d, _ in products(plan, kernel)))
         for depth, cols in products(plan, kernel):
-            items = cols // 4 * (plan.rpad // 4)
+            items = cols // 4 * (plan.rpad // plan.tile(kernel))
             most = 1 if items >= GRID_THREADS else min(MAX_SLICES, GRID_THREADS // items)
             slices_ = max(1, min(most, depth // MIN_SLICE_DEPTH))
             assert slices_ == 1 or red >= slices_ * items * 16

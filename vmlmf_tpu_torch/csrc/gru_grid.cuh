@@ -44,6 +44,21 @@
 // a plan whose rows are all resident, which the checks force; at h=1000,
 // B=256, whose exchange the staging buffer takes in chunks, a ring in its
 // room ran slower than the staging buffer, so no plan asks for one.)
+//
+// An item of a product, the sums one consumer thread keeps, is 4 columns
+// of the slice by R batch rows (GridPlan::tile, R in 4, 8, 12; rpad a
+// multiple of R), which ops/cuda_gru.py::grid_tiles chooses for each
+// kernel: a depth row costs the thread one float4 of W and R/4 float4 of
+// the exchange for 4R FMAs, so a taller item feeds more FMAs from each
+// shared-memory load (at R = 4, 16 FMAs for two LDS.128, which bound the
+// loop at h=3200). The weights' side (jwp, kwp, the column splits, the
+// streamed blocks, the ring's pieces) is the same for every R; the items,
+// and with them the slices and `red`, are cut by R, and the slices'
+// partials meet in `red` in R/4 passes of 16 sums, so `red` is 16 x items
+// x slices floats at every R. R = 4 is the LSTM scans' item, their order
+// of sums; a plan with another R has other slices, so other bits. The
+// kernels are built for every R on both paths; the plan takes a taller
+// item only where it measured faster without spilling more (PERF.md).
 
 #pragma once
 
@@ -51,6 +66,11 @@
 
 namespace vmlmf {
 namespace gru {
+
+// Whether the grid kernels are built for items of `tile` batch rows.
+__host__ __device__ inline bool grid_tile_ok(int tile) {
+  return tile == 4 || tile == 8 || tile == 12;
+}
 
 // The widths of a CTA's slices: jwp units and kwp rank columns (0 dense).
 struct GridWidths {
@@ -117,13 +137,13 @@ inline bool grid_ring_ok(int form, int h, int r, const GridPlan& p, bool walk) {
          (!streams || ring_holds<float>(p, s.ca > s.split_b ? s.ca : s.split_b));
 }
 
-// Whether a plan's resident depths are ones the kernels take.
+// Whether a plan's resident depths and item rows are ones the kernels take.
 __host__ __device__ inline bool grid_resident_ok(int form, int h, int r, const GridPlan& p,
                                                  bool walk) {
   const SliceShapes s(form, h, r, p, walk);
   return p.res_a >= 0 && p.res_a <= s.da && p.res_b >= 0 && p.res_b <= s.db &&
-         p.groups >= 1 && p.ctas >= 1 && p.rpad >= 4 && p.rpad % 4 == 0 && p.stage >= 0 &&
-         p.red >= 0;
+         p.groups >= 1 && p.ctas >= 1 && grid_tile_ok(p.tile) && p.rpad >= p.tile &&
+         p.rpad % p.tile == 0 && p.stage >= 0 && p.red >= 0;
 }
 
 // One weight slice of a CTA: its first `resident` of `depth` rows at w in
@@ -166,18 +186,18 @@ struct GridSlice {
   }
 };
 
-// A product of the grid kernels: on the ring where the plan has one
-// (OnRing), else scan_grid.cuh::slice_product over the operand's rows, all
-// resident; epi as both call it.
-template <bool OnRing, class Epi>
+// A product of the grid kernels in items of R rows: on the ring where the
+// plan has one (OnRing), else scan_grid.cuh::slice_product over the
+// operand's rows, all resident; epi as both call it.
+template <bool OnRing, int R, class Epi>
 __device__ __forceinline__ void grid_product(Ring& ring, const RingOperand<float>& op,
                                              const GridPlan& p, float* stage, float* red,
                                              Epi epi) {
   if constexpr (OnRing)
-    ring.product(op, red, epi);
+    ring.product<R>(op, red, epi);
   else
-    slice_product(op.a, op.depth, p.rpad, op.w, op.ldw, op.ncols, stage, p.stage, red, p.red,
-                  epi);
+    slice_product<R>(op.a, op.depth, p.rpad, op.w, op.ldw, op.ncols, stage, p.stage, red, p.red,
+                     epi);
 }
 
 }  // namespace gru

@@ -482,8 +482,9 @@ using vmlmf::split_at;
 // two or four a step. The next step's inputs are copied with cp.async once
 // the step's last reader of them has passed its barrier. OnRing
 // (GridPlan::piece > 0): the products run on scan_grid.cuh's ring, as in
-// the forward (grid_fwd_kernel).
-template <int Form, bool OnRing>
+// the forward (grid_fwd_kernel). R: the batch rows of a product item
+// (GridPlan::tile).
+template <int Form, bool OnRing, int R>
 __global__ void __launch_bounds__(OnRing ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
                  const GridPlan plan) {
@@ -575,10 +576,10 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
   auto op_uf = [&](const float* src) { return slb.rows(src, 0, r, 0, jwp); };
   vmlmf::Ring ring;
   auto product = [&](const vmlmf::RingOperand<float>& op, auto epi) {
-    vmlmf::gru::grid_product<OnRing>(ring, op, plan, stage, red, epi);
+    vmlmf::gru::grid_product<OnRing, R>(ring, op, plan, stage, red, epi);
   };
   auto preload = [&](const vmlmf::RingOperand<float>& op) {
-    if constexpr (OnRing) ring.preload(op);
+    if constexpr (OnRing) ring.preload<R>(op);
   };
   // the first product of a step, whose exchange (A) is of parity t
   auto first_op = [&](int t) {
@@ -592,42 +593,42 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
 
   // epilogues: dh += the product (C); a rank product into the exchange and
   // its dpre-side output (drhu, dhu); drh's (B)
-  auto add_carry = [&](int cb, int rb, float (&acc)[4][4]) {
+  auto add_carry = [&](int cb, int rb, float (&acc)[4][R]) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int jj = 4 * cb + c;
       if (jj >= jw) continue;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dhc[jj * rpad + 4 * rb + i] += acc[c][i];
+      for (int i = 0; i < R; ++i) dhc[jj * rpad + R * rb + i] += acc[c][i];
     }
   };
   for (int t = a.t_len - 1; t >= 0; --t) {
     float* dpx_t = dpx + (t & 1) * dpar;
     const size_t m0 = (size_t)t * a.batch + b0;
     auto rank_out = [&](float* out) {
-      return [&, out](int cb, int rb, float (&acc)[4][4]) {
+      return [&, out](int cb, int rb, float (&acc)[4][R]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int kk = 4 * cb + c;
           if (kk >= kw) continue;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = 4 * rb + i;
+          for (int i = 0; i < R; ++i) {
+            const int row = R * rb + i;
             ux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
             if (row < rows) out[(m0 + row) * r + k0 + kk] = acc[c][i];
           }
         }
       };
     };
-    auto drh_out = [&](int cb, int rb, float (&acc)[4][4]) {
+    auto drh_out = [&](int cb, int rb, float (&acc)[4][R]) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int jj = 4 * cb + c;
         if (jj >= jw) continue;
         const int j = j0 + jj;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = 4 * rb + i, at = jj * rpad + row;
+        for (int i = 0; i < R; ++i) {
+          const int row = R * rb + i, at = jj * rpad + row;
           if (row >= rows) continue;
           const float drh = acc[c][i], rg = pa[at];
           const float dr_pre = drh * pa[3 * slab + at] * rg * (1.f - rg);
@@ -701,6 +702,17 @@ grid_walk_kernel(const WalkArgs a, float* xchg, unsigned* sync, float* wstream,
   }
 }
 
+// The launch of the grid walk with items of R rows (`args` as
+// grid_walk_kernel takes them), on the ring where the plan has one.
+template <int Form, int R>
+cudaError_t launch_walk_tile(const GridPlan& plan, unsigned* sync, void** args,
+                             cudaStream_t stream) {
+  return plan.piece ? vmlmf::launch_grid(grid_walk_kernel<Form, true, R>, plan, sync, args,
+                                         stream, 0, vmlmf::kRingThreads)
+                    : vmlmf::launch_grid(grid_walk_kernel<Form, false, R>, plan, sync, args,
+                                         stream);
+}
+
 template <int Form>
 cudaError_t grid_walk(const WalkArgs& io, float* xchg, unsigned* sync, float* wstream,
                       size_t wstream_floats, GridPlan plan, cudaStream_t stream) {
@@ -716,9 +728,14 @@ cudaError_t grid_walk(const WalkArgs& io, float* xchg, unsigned* sync, float* ws
     return cudaErrorInvalidValue;
   WalkArgs a = io;
   void* args[] = {&a, &xchg, &sync, &wstream, &plan};
-  return plan.piece ? vmlmf::launch_grid(grid_walk_kernel<Form, true>, plan, sync, args, stream,
-                                         0, vmlmf::kRingThreads)
-                    : vmlmf::launch_grid(grid_walk_kernel<Form, false>, plan, sync, args, stream);
+  switch (plan.tile) {
+    case 4:
+      return launch_walk_tile<Form, 4>(plan, sync, args, stream);
+    case 8:
+      return launch_walk_tile<Form, 8>(plan, sync, args, stream);
+    default:
+      return launch_walk_tile<Form, 12>(plan, sync, args, stream);
+  }
 }
 
 cudaError_t grid_walk_form(const WalkArgs& a, int form, float* xchg, unsigned* sync,
@@ -1251,7 +1268,7 @@ extern "C" int gru_scan_bwd(const float* uf, const float* prz, const float* pn,
 // with gru_scan_bwd's (dpre is then dgi, an output, and gates must be
 // given). xchg, sync (a barrier word a group) and wstream (wstream_floats
 // floats; null where the plan streams nothing) are the grid walk's scratch;
-// the nine integers after partial_floats, staged_floats and wstream_floats
+// the ten integers after partial_floats, staged_floats and wstream_floats
 // are the plan's layout (GRUGridPlan.ints).
 extern "C" int gru_grid_bwd(
     const float* x, const float* ux, const float* vx, const float* uf, const float* prz,
@@ -1262,10 +1279,11 @@ extern "C" int gru_grid_bwd(
     float* dvx, float* dbias, float* duf, float* dprz, float* dpn, float* dh0, float* xchg,
     unsigned* sync, float* wstream, int t_len, int batch, int f, int rx, int h, int r, int form,
     int partial_floats, int staged_floats, int wstream_floats, int groups, int ctas, int rpad,
-    int stage, int red, int smem, int res_a, int res_b, int piece, void* stream_handle) {
+    int stage, int red, int smem, int res_a, int res_b, int piece, int tile,
+    void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (x == nullptr && gates == nullptr) return cudaErrorInvalidValue;
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, 0, tile};
   return bptt(x, ux, vx, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xu, dys, bias, gates_w, hu_w,
               rhu_w, recn_w, xu_w, dpre, dhu, drhu, dxu, partial, dx, dux, dvx, dbias, duf, dprz,
               dpn, dh0, staged, t_len, batch, f, rx, h, r, form, partial_floats, staged_floats,

@@ -541,8 +541,8 @@ struct GridFwdArgs {
 // products run on scan_grid.cuh's ring, kRingThreads threads a CTA, the
 // producer issuing each next product's streamed rows before the barrier
 // that publishes its exchange; else slice_product on kGridThreads, every
-// row resident.
-template <int Form, bool Residuals, bool OnRing>
+// row resident. R: the batch rows of a product item (GridPlan::tile).
+template <int Form, bool Residuals, bool OnRing, int R>
 __global__ void __launch_bounds__(OnRing ? vmlmf::kRingThreads : vmlmf::kGridThreads, 1)
 grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
   constexpr bool kLowrank = Form == kLowrankPre, kPost = Form == kDensePost;
@@ -612,11 +612,11 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
   auto op_n = [&](const float* src) { return slb.rows(src, 0, depth, 2 * jwp, jwp); };
   vmlmf::Ring ring;
   auto product = [&](const vmlmf::RingOperand<float>& op, auto epi) {
-    vmlmf::gru::grid_product<OnRing>(ring, op, plan, stage, red, epi);
+    vmlmf::gru::grid_product<OnRing, R>(ring, op, plan, stage, red, epi);
   };
   if constexpr (OnRing) {
     ring.start(stage, plan);
-    if (a.t_len > 0) ring.preload(kLowrank ? op_hu(hx) : op_gates(hx));
+    if (a.t_len > 0) ring.preload<R>(kLowrank ? op_hu(hx) : op_gates(hx));
   }
   vmlmf::group_sync(count, plan.ctas, target);
 
@@ -634,21 +634,21 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
       }
     // the next product's streamed rows, issued before the barrier
     auto preload = [&](const vmlmf::RingOperand<float>& op) {
-      if constexpr (OnRing) ring.preload(op);
+      if constexpr (OnRing) ring.preload<R>(op);
     };
     auto preload_next_step = [&]() {
       if (t + 1 < a.t_len) preload(kLowrank ? op_hu(hout) : op_gates(hout));
     };
     // an epilogue of a product over rank columns: the group's hu or rhu
     auto rank_out = [&](float* res) {
-      return [&, res](int cb, int rb, float (&acc)[4][4]) {
+      return [&, res](int cb, int rb, float (&acc)[4][R]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int kk = 4 * cb + c;
           if (kk >= kw) continue;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = 4 * rb + i;
+          for (int i = 0; i < R; ++i) {
+            const int row = R * rb + i;
             ux[(size_t)(k0 + kk) * rpad + row] = acc[c][i];
             if (Residuals && row < rows) res[(m0 + row) * r + k0 + kk] = acc[c][i];
           }
@@ -659,11 +659,11 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
     if constexpr (kPost) {
       // r, z and recn = h @ Pn of the j-slice, then the update
       vmlmf::cp_async_wait_all();
-      product(op_gates(hin), [&](int cb, int rb, float (&acc)[4][4]) {
+      product(op_gates(hin), [&](int cb, int rb, float (&acc)[4][R]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) zs[(size_t)(4 * cb + c) * rpad + 4 * rb + i] = acc[c][i];
+          for (int i = 0; i < R; ++i) zs[(size_t)(4 * cb + c) * rpad + R * rb + i] = acc[c][i];
       });
       preload_next_step();
       __syncthreads();
@@ -701,7 +701,7 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
       }
       // r and z of the j-slice: r*h into the exchange, z kept
       vmlmf::cp_async_wait_all();
-      product(op_gates(src), [&](int cb, int rb, float (&acc)[4][4]) {
+      product(op_gates(src), [&](int cb, int rb, float (&acc)[4][R]) {
         const int g = (4 * cb) / jwp;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -709,8 +709,8 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
           if (jj >= jw) continue;
           const int j = j0 + jj;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = 4 * rb + i, at = jj * rpad + row;
+          for (int i = 0; i < R; ++i) {
+            const int row = R * rb + i, at = jj * rpad + row;
             if (row >= rows) {
               if (g == 0) rhx[(size_t)j * rpad + row] = 0.f;
               continue;
@@ -734,15 +734,15 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
         nsrc = ux;
       }
       // the candidate n of the j-slice and the update
-      product(op_n(nsrc), [&](int cb, int rb, float (&acc)[4][4]) {
+      product(op_n(nsrc), [&](int cb, int rb, float (&acc)[4][R]) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int jj = 4 * cb + c;
           if (jj >= jw) continue;
           const int j = j0 + jj;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = 4 * rb + i, at = jj * rpad + row;
+          for (int i = 0; i < R; ++i) {
+            const int row = R * rb + i, at = jj * rpad + row;
             if (row >= rows) {
               hout[(size_t)j * rpad + row] = 0.f;
               continue;
@@ -764,6 +764,16 @@ grid_fwd_kernel(const GridFwdArgs a, const GridPlan plan) {
   }
 }
 
+// The launch of the grid forward with items of R rows (`args` as
+// grid_fwd_kernel takes them), on the ring where the plan has one.
+template <int Form, bool Residuals, int R>
+cudaError_t launch_tile(const GridPlan& plan, unsigned* sync, void** args, cudaStream_t stream) {
+  return plan.piece ? vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, true, R>, plan, sync,
+                                         args, stream, 0, vmlmf::kRingThreads)
+                    : vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, false, R>, plan, sync,
+                                         args, stream);
+}
+
 template <int Form, bool Residuals>
 cudaError_t grid_scan(const GridFwdArgs& io, size_t wstream_floats, GridPlan plan,
                       cudaStream_t stream) {
@@ -779,10 +789,14 @@ cudaError_t grid_scan(const GridFwdArgs& io, size_t wstream_floats, GridPlan pla
     return cudaErrorInvalidValue;
   GridFwdArgs a = io;
   void* args[] = {&a, &plan};
-  return plan.piece ? vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, true>, plan, a.sync,
-                                         args, stream, 0, vmlmf::kRingThreads)
-                    : vmlmf::launch_grid(grid_fwd_kernel<Form, Residuals, false>, plan, a.sync,
-                                         args, stream);
+  switch (plan.tile) {
+    case 4:
+      return launch_tile<Form, Residuals, 4>(plan, a.sync, args, stream);
+    case 8:
+      return launch_tile<Form, Residuals, 8>(plan, a.sync, args, stream);
+    default:
+      return launch_tile<Form, Residuals, 12>(plan, a.sync, args, stream);
+  }
 }
 
 template <bool Residuals>
@@ -872,7 +886,7 @@ extern "C" int gru_scan_fwd_res(const float* gi, const float* uf, const float* p
 // ys and, with `residuals` 1, gates, hu and rhu (low-rank) or recn ("post").
 // xchg, sync (a barrier word a group) and wstream (wstream_floats floats;
 // null where the plan streams nothing) are scratch that gru_grid_plan
-// sizes; the nine integers after the form are its layout (GRUGridPlan.ints).
+// sizes; the ten integers after the form are its layout (GRUGridPlan.ints).
 extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
                             const float* bias, float* gi, const float* uf, const float* prz,
                             const float* pn, const float* h0, float* xu, float* ys,
@@ -880,7 +894,7 @@ extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
                             unsigned* sync, float* wstream, int wstream_floats, int t_len,
                             int batch, int f, int rx, int h, int r, int form, int groups,
                             int ctas, int rpad, int stage, int red, int smem, int res_a,
-                            int res_b, int piece, int residuals, void* stream_handle) {
+                            int res_b, int piece, int tile, int residuals, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (gi == nullptr || (residuals && gates == nullptr)) return cudaErrorInvalidValue;
   if (x != nullptr) {
@@ -889,7 +903,7 @@ extern "C" int gru_grid_fwd(const float* x, const float* ux, const float* vx,
   }
   const GridFwdArgs a{gi, uf, prz, pn, h0, ys, gates, hu, rhu, recn, xchg, sync, wstream,
                       t_len, batch, h, r};
-  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece};
+  const GridPlan plan{groups, ctas, rpad, stage, red, smem, res_a, res_b, piece, 0, tile};
   const size_t nstream = static_cast<size_t>(wstream_floats);
   return residuals ? grid_form<true>(a, form, nstream, plan, stream)
                    : grid_form<false>(a, form, nstream, plan, stream);

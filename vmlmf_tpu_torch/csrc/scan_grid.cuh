@@ -55,12 +55,15 @@ constexpr int kMinSliceDepth = 8;  // depth rows a slice takes at least
 // `mma` (the LSTM scans' bf16 plans whose groups pad to 24 rows or more):
 // the products run on the tensor cores, on the ring whether or not a row is
 // streamed, the exchange is bf16 and rpad a multiple of 8
-// (Ring::mma_product).
+// (Ring::mma_product). `tile`: the batch rows R of a product item (4, 8 or
+// 12; rpad a multiple of it), which the GRU grid's plans choose
+// (ops/cuda_gru.py::grid_tiles); the LSTM scans and the stack keep 4.
 struct GridPlan {
   int groups, ctas, rpad, stage, red, smem;
   int res_a = 0, res_b = 0;
   int piece = 0;
   int mma = 0;
+  int tile = 4;
 };
 
 inline __host__ __device__ int split_at(int q, int n, int parts) {
@@ -188,20 +191,25 @@ __device__ __forceinline__ W& slice_elem(W* w, W* ws, int resident, int ldw, int
 // chunk copying into one half while the CTA multiplies the other. W is
 // this CTA's weight slice in shared memory, [depth][ldw], f32 or bf16 (ldw
 // a multiple of 4); a plan that streams weight rows runs Ring::product
-// below instead, in this order of sums. An item is 4 columns x 4 rows (16
-// sums in registers, float4 loads of A and four-element loads of W,
-// widened). With fewer items than threads, each item's depth is cut into
-// `slices` interleaved parts; their partial sums meet in `red` and one
-// thread per output adds them in slice order: deterministic, no atomics.
-// Calls epi(cb, rb, acc) once per item, acc[c][r] the sum of column 4cb+c,
-// row 4rb+r. The partials lie [slice][16][items], so that neighbouring
-// threads (neighbouring items) touch neighbouring banks. Every thread of
-// the CTA must call it.
-template <class W, class Epi>
+// below instead, in this order of sums. An item is 4 columns x R rows (4R
+// sums in registers; a depth row loads R/4 float4 of A and four elements
+// of W, widened, for 4R FMAs; R a multiple of 4 that divides rpad). With
+// fewer items than threads, each item's depth is cut into `slices`
+// interleaved parts; their partial sums meet in `red` and one thread per
+// output adds them in slice order: deterministic, no atomics; 16 sums of
+// an item at a time, in R/4 passes, so that `red` holds 16 x items x
+// slices floats whatever R. Calls epi(cb, rb, acc) once per item, acc[c][i]
+// the sum of column 4cb+c, row R*rb+i. The partials lie [slice][16][items],
+// so that neighbouring threads (neighbouring items) touch neighbouring
+// banks. Every thread of the CTA must call it.
+template <int R = 4, class W, class Epi>
 __device__ __forceinline__ void slice_product(const float* a, int depth, int rpad, const W* w,
                                               int ldw, int ncols, float* stage, int stage_floats,
                                               float* red, int red_floats, Epi epi) {
-  const int cbs = ncols / 4, rbs = rpad / 4;
+  static_assert(R % 4 == 0, "an item's rows are whole float4 of the exchange");
+  constexpr int kQ = R / 4;          // float4 of A an item reads a depth row
+  constexpr int kUnroll = 4 / kQ;    // depth rows of the loop's body: 4, 2, 1
+  const int cbs = ncols / 4, rbs = rpad / R, r4 = rpad / 4;
   const int items = cbs * rbs;
   if (items == 0) return;
   int slices = items >= kGridThreads ? 1 : min(kMaxSlices, kGridThreads / items);
@@ -213,9 +221,9 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
   const float4* a4 = reinterpret_cast<const float4*>(a);
   // chunk c into half c % 2 of the staging buffer, as one cp.async group
   auto copy = [&](int c) {
-    float4* dst = reinterpret_cast<float4*>(stage) + (c & 1) * (chunk * rbs);
-    const float4* src = a4 + (size_t)c * chunk * rbs;
-    const int n4 = min(chunk, depth - c * chunk) * rbs;
+    float4* dst = reinterpret_cast<float4*>(stage) + (c & 1) * (chunk * r4);
+    const float4* src = a4 + (size_t)c * chunk * r4;
+    const int n4 = min(chunk, depth - c * chunk) * r4;
     for (int i = threadIdx.x; i < n4; i += kGridThreads) cp_async16_cg(dst + i, src + i);
     cp_async_commit();
   };
@@ -225,7 +233,7 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
     const bool live = unit < units;
     const int item = unit % items, s = unit / items;
     const int cb = item % cbs, rb = item / cbs;
-    float acc[4][4] = {};
+    float acc[4][R] = {};
     copy(0);
     for (int c = 0; c < chunks; ++c) {
       if (c + 1 < chunks) {
@@ -237,38 +245,46 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
       __syncthreads();
       if (live) {
         const int d0 = c * chunk, dn = min(chunk, depth - d0);
-        const float4* s4 = reinterpret_cast<const float4*>(stage) + (c & 1) * (chunk * rbs);
+        const float4* s4 = reinterpret_cast<const float4*>(stage) + (c & 1) * (chunk * r4);
         const W* wd = w + (size_t)d0 * ldw + 4 * cb;
-#pragma unroll 4
+#pragma unroll (kUnroll)
         for (int d = s; d < dn; d += slices) {
-          const float4 av = s4[d * rbs + rb];
+          float ar[R];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const float4 av = s4[d * r4 + rb * kQ + q];
+            ar[4 * q] = av.x, ar[4 * q + 1] = av.y, ar[4 * q + 2] = av.z, ar[4 * q + 3] = av.w;
+          }
           const float4 wv = load4(wd + (size_t)d * ldw);
-          const float ar[4] = {av.x, av.y, av.z, av.w};
           const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
           for (int k = 0; k < 4; ++k)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
+            for (int i = 0; i < R; ++i) acc[k][i] = fmaf(ar[i], wc[k], acc[k][i]);
         }
       }
       __syncthreads();
     }
     if (slices > 1) {  // one pass: units <= threads
-      if (live) {
-        float* p = red + (size_t)s * 16 * items + item;
 #pragma unroll
-        for (int e = 0; e < 16; ++e) p[e * items] = acc[e / 4][e % 4];
-      }
-      __syncthreads();
-      for (int o = threadIdx.x; o < items * 16; o += kGridThreads) {
-        float v = red[o];
-        for (int z = 1; z < slices; ++z) v += red[(size_t)z * items * 16 + o];
-        red[o] = v;
-      }
-      __syncthreads();
-      if (live && s == 0) {
+      for (int q = 0; q < kQ; ++q) {  // rows 4q .. 4q + 3 of the items
+        if (q > 0) __syncthreads();   // the last pass's reads of red
+        if (live) {
+          float* p = red + (size_t)s * 16 * items + item;
 #pragma unroll
-        for (int e = 0; e < 16; ++e) acc[e / 4][e % 4] = red[e * items + item];
+          for (int e = 0; e < 16; ++e) p[e * items] = acc[e / 4][4 * q + e % 4];
+        }
+        __syncthreads();
+        for (int o = threadIdx.x; o < items * 16; o += kGridThreads) {
+          float v = red[o];
+          for (int z = 1; z < slices; ++z) v += red[(size_t)z * items * 16 + o];
+          red[o] = v;
+        }
+        __syncthreads();
+        if (live && s == 0) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[e / 4][4 * q + e % 4] = red[e * items + item];
+        }
       }
     }
     if (live && s == 0) epi(cb, rb, acc);
@@ -304,7 +320,8 @@ __device__ __forceinline__ void slice_product(const float* a, int depth, int rpa
 // the resident rows a stage holds A alone, past them A and the streamed
 // rows. The thread carries its next row from piece to piece, and moves to
 // d0 + s of the next chunk where one ends. So where the CTA count is the
-// parent's, the bits are.
+// parent's, the bits are. The item's rows R are a template argument of
+// walk, preload, product and consume, as of slice_product (4 by default).
 // ---------------------------------------------------------------------------
 
 constexpr int kRingThreads = kGridThreads + 32;  // 16 consumer warps, one producer warp
@@ -679,9 +696,9 @@ __device__ __forceinline__ int stream_ld(const RingOperand<W>& op) {
   return op.ldws ? op.ldws : ring_ld<W>(op.ldw);
 }
 
-// A product's walk: slice_product's items, slices and chunk; the rows of a
-// piece past the resident rows (A and a streamed row each) and over them
-// (A alone); the passes over the depth.
+// A product's walk: slice_product's items (of R rows), slices and chunk;
+// the rows of a piece past the resident rows (A and a streamed row each)
+// and over them (A alone); the passes over the depth.
 struct RingWalk {
   int items, slices, units, chunk, rows, rows_a, passes;
 };
@@ -718,10 +735,10 @@ struct Ring {
     __syncthreads();
   }
 
-  template <class W>
+  template <int R = 4, class W>
   __device__ __forceinline__ RingWalk walk(const RingOperand<W>& op) const {
     RingWalk k;
-    const int rbs = rpad / 4;
+    const int rbs = rpad / R;
     k.items = op.ncols / 4 * rbs;
     const int most = k.items >= kGridThreads ? 1 : min(kMaxSlices, kGridThreads / max(1, k.items));
     k.slices = max(1, min(min(most, op.depth / kMinSliceDepth),
@@ -779,11 +796,11 @@ struct Ring {
 
   // The weights of the next product's first stages, issued before the
   // group barrier that publishes its A. Every thread calls it.
-  template <class W>
+  template <int R = 4, class W>
   __device__ __forceinline__ void preload(const RingOperand<W>& op) {
     if (threadIdx.x != kGridThreads) return;
     fence_proxy_async_global();
-    const RingWalk k = walk(op);
+    const RingWalk k = walk<R>(op);
     int i = 0;
     pieces(op.depth, op.resident, k, [&](int e0, int e1) {
       if (i == kRingStages) return false;
@@ -798,9 +815,9 @@ struct Ring {
   // slice_product computes it, and epi(cb, rb, acc) once per item. Every
   // thread of the CTA calls it. The consumers wait for their own cp.async
   // copies (cp_async_wait_all) before the epilogue.
-  template <class W, class Epi>
+  template <int R = 4, class W, class Epi>
   __device__ __forceinline__ void product(const RingOperand<W>& op, float* red, Epi epi) {
-    const RingWalk k = walk(op);
+    const RingWalk k = walk<R>(op);
     const unsigned first = it;
     int n = 0;
     pieces(op.depth, op.resident, k, [&](int, int) { ++n; return true; });
@@ -814,31 +831,24 @@ struct Ring {
         return true;
       });
     } else if (threadIdx.x < kGridThreads) {
-      consume(op, k, first, red, epi);
+      consume<R>(op, k, first, red, epi);
     }
     it = first + n;
     ahead = 0;
   }
 
-  template <class W, class Epi>
+  template <int R = 4, class W, class Epi>
   __device__ __forceinline__ void consume(const RingOperand<W>& op, const RingWalk& k,
                                           unsigned idx, float* red, Epi epi) {
-    const int rbs = rpad / 4, cbs = op.ncols / 4, ldws = stream_ld(op);
+    constexpr int kQ = R / 4;  // float4 of A an item reads a depth row
+    const int r4 = rpad / 4, cbs = op.ncols / 4, ldws = stream_ld(op);
     const int lane = threadIdx.x % 32;
     for (int pass = 0; pass < k.passes; ++pass) {
       const int unit = pass * kGridThreads + threadIdx.x;
       const bool live = unit < k.units;
       const int item = live ? unit % k.items : 0, s = live ? unit / k.items : 0;
       const int cb = live ? item % cbs : 0, rb = live ? item / cbs : 0;
-      float acc[4][4] = {};
-      auto fma_row = [&](float4 av, float4 wv) {
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[c][i] = fmaf(ar[i], wc[c], acc[c][i]);
-      };
+      float acc[4][R] = {};
       // the thread's next row d of chunk [c0, c0 + chunk), carried from
       // piece to piece: rows c0 + s, c0 + s + slices, ... of each chunk in
       // turn. Where slices divide the chunk, those are the rows s, s +
@@ -850,22 +860,64 @@ struct Ring {
         mbar_wait(full + idx % kRingStages, (idx / kRingStages) & 1);
         if (live) {
           const float* sp = stage_at(idx);
-          const float4* s4 = reinterpret_cast<const float4*>(sp) + rb;
-          const int es = max(e0, op.resident);
-          const W* sw = reinterpret_cast<const W*>(sp + k.rows * rpad) + 4 * cb;  // row es
-          const W* wr = op.w + 4 * cb;
-          for (;;) {  // the piece's part of each chunk it meets
-            const int b = min(e1, c0 + chunk), dr = min(b, op.resident);
+          if constexpr (R == 4) {  // the LSTM scans' loop
+            auto fma_row = [&](float4 av, float4 wv) {
+              const float ar[4] = {av.x, av.y, av.z, av.w};
+              const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[c][i] = fmaf(ar[i], wc[c], acc[c][i]);
+            };
+            const float4* s4 = reinterpret_cast<const float4*>(sp) + rb;
+            const int es = max(e0, op.resident);
+            const W* sw = reinterpret_cast<const W*>(sp + k.rows * rpad) + 4 * cb;  // row es
+            const W* wr = op.w + 4 * cb;
+            for (;;) {  // the piece's part of each chunk it meets
+              const int b = min(e1, c0 + chunk), dr = min(b, op.resident);
 #pragma unroll 4
-            for (; d < dr; d += k.slices)  // resident rows
-              fma_row(s4[(d - e0) * rbs], load4(wr + (size_t)d * op.ldw));
+              for (; d < dr; d += k.slices)  // resident rows
+                fma_row(s4[(d - e0) * r4], load4(wr + (size_t)d * op.ldw));
 #pragma unroll 4
-            for (; d < b; d += k.slices)  // streamed rows, from the stage
-              fma_row(s4[(d - e0) * rbs], load4(sw + (size_t)(d - es) * ldws));
-            if (b < c0 + chunk) break;  // the piece ends inside the chunk
-            c0 += chunk;                // the chunk ends: the next one's first row
-            d = c0 + s;
-            if (c0 >= e1) break;
+              for (; d < b; d += k.slices)  // streamed rows, from the stage
+                fma_row(s4[(d - e0) * r4], load4(sw + (size_t)(d - es) * ldws));
+              if (b < c0 + chunk) break;  // the piece ends inside the chunk
+              c0 += chunk;                // the chunk ends: the next one's first row
+              d = c0 + s;
+              if (c0 >= e1) break;
+            }
+          } else {
+            // A piece lies over resident rows or past them, never both: its
+            // W rows at wp, row w0 first, wld apart. A depth row loads W,
+            // then A a float4 at a time, each feeding 16 FMAs, so that few
+            // loaded values are live beside the 4R sums.
+            const float4* s4 = reinterpret_cast<const float4*>(sp) + rb * kQ;
+            const bool held = e0 < op.resident;
+            const W* wp = (held ? op.w : reinterpret_cast<const W*>(sp + k.rows * rpad)) + 4 * cb;
+            const int wld = held ? op.ldw : ldws, w0 = held ? 0 : e0;
+            for (;;) {  // the piece's part of each chunk it meets
+              const int b = min(e1, c0 + chunk);
+#pragma unroll 1
+              for (; d < b; d += k.slices) {
+                const float4 wv = load4(wp + (size_t)(d - w0) * wld);
+                const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+                const float4* av = s4 + (d - e0) * r4;
+#pragma unroll
+                for (int q = 0; q < kQ; ++q) {
+                  const float4 v = av[q];
+                  const float ar[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                  for (int c = 0; c < 4; ++c)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                      acc[c][4 * q + i] = fmaf(ar[i], wc[c], acc[c][4 * q + i]);
+                }
+              }
+              if (b < c0 + chunk) break;
+              c0 += chunk;
+              d = c0 + s;
+              if (c0 >= e1) break;
+            }
           }
         }
         __syncwarp();
@@ -874,21 +926,25 @@ struct Ring {
       cp_async_wait_all();
       consumers_sync();
       if (k.slices > 1 && pass * kGridThreads < k.units) {  // one pass: units <= threads
-        if (live) {
-          float* p = red + (size_t)s * 16 * k.items + item;
 #pragma unroll
-          for (int e = 0; e < 16; ++e) p[e * k.items] = acc[e / 4][e % 4];
-        }
-        consumers_sync();
-        for (int o = threadIdx.x; o < k.items * 16; o += kGridThreads) {
-          float v = red[o];
-          for (int z = 1; z < k.slices; ++z) v += red[(size_t)z * k.items * 16 + o];
-          red[o] = v;
-        }
-        consumers_sync();
-        if (live && s == 0) {
+        for (int q = 0; q < kQ; ++q) {  // rows 4q .. 4q + 3 of the items
+          if (q > 0) consumers_sync();  // the last pass's reads of red
+          if (live) {
+            float* p = red + (size_t)s * 16 * k.items + item;
 #pragma unroll
-          for (int e = 0; e < 16; ++e) acc[e / 4][e % 4] = red[e * k.items + item];
+            for (int e = 0; e < 16; ++e) p[e * k.items] = acc[e / 4][4 * q + e % 4];
+          }
+          consumers_sync();
+          for (int o = threadIdx.x; o < k.items * 16; o += kGridThreads) {
+            float v = red[o];
+            for (int z = 1; z < k.slices; ++z) v += red[(size_t)z * k.items * 16 + o];
+            red[o] = v;
+          }
+          consumers_sync();
+          if (live && s == 0) {
+#pragma unroll
+            for (int e = 0; e < 16; ++e) acc[e / 4][4 * q + e % 4] = red[e * k.items + item];
+          }
         }
       }
       if (live && s == 0) epi(cb, rb, acc);

@@ -53,10 +53,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
 from vmlmf_tpu_torch.ops.cuda_scan import (
+    GRID_THREADS,
     MIN_STEP_WORK,
     RING_STAGES,
     SMEM_LIMIT,
@@ -651,7 +653,10 @@ class GRUGridPlan:
     every step, in the same order of sums. ``piece``: the floats of each of
     the RING_STAGES stages of the kernel's ring (scan_grid.cuh::Ring; 0:
     none), which takes the staging buffer's place where the kernel streams
-    rows (`walk`)."""
+    rows (`walk`). ``tile``: the batch rows R of a product item of each
+    kernel, the sums a consumer thread keeps (4 columns by R rows;
+    `grid_tiles`); ``rpad`` is a multiple of both, and each kernel's items,
+    slices and ``red`` are cut by its own."""
 
     b: int
     h: int
@@ -672,6 +677,8 @@ class GRUGridPlan:
     resident_bwd: tuple = (0, 0)
     piece_fwd: int = 0
     piece_bwd: int = 0
+    tile_fwd: int = 4
+    tile_bwd: int = 4
 
     @property
     def n_ctas(self):
@@ -735,15 +742,19 @@ class GRUGridPlan:
         """Rank columns [k0, k1) of CTA q of a group (empty when dense)."""
         return _split_at(q, self.r, self.ctas), _split_at(q + 1, self.r, self.ctas)
 
+    def tile(self, kernel):
+        """The batch rows of a product item of ``kernel`` (4, 8 or 12)."""
+        return self.tile_fwd if kernel == "fwd" else self.tile_bwd
+
     def ints(self, kernel):
         """The plan as entry gru_grid_fwd or gru_grid_bwd takes it: groups,
         ctas, rpad, stage, red, smem, the resident depths of slices A and B,
-        and the ring's floats a stage."""
+        the ring's floats a stage and the item's rows."""
         fwd = kernel == "fwd"
         return (self.groups, self.ctas, self.rpad,
                 *((self.stage_fwd, self.red_fwd, self.smem_fwd) if fwd
                   else (self.stage_bwd, self.red_bwd, self.smem_bwd)), *self.resident(kernel),
-                self.piece(kernel))
+                self.piece(kernel), self.tile(kernel))
 
 
 def grid_stream_floats(plan, kernel):
@@ -792,15 +803,70 @@ def _grid_phases(h, r, form, ctas):
             for k, ops in _grid_operands(h, r, form, ctas).items()}
 
 
+# The rows R of a product item of the grid kernels (gru_grid.cuh, `grid_tiles`):
+# (on the ring, kernel, form) -> the taller items that kernel may take, as
+# (R, the least and the most rows of a group, padded to 4; None: any), the
+# first that fits winning. From `tools/gru_phases.py --grid`'s ``tiles`` and
+# ptxas on the H100 (PERF.md, Findings):
+# * On the ring (544 threads, 96 registers) only the "post" forward builds
+#   at 8 and 12 without spilling more than at 4. Its step ran 21% faster at
+#   12 with groups of 84 rows (h=3200, 8: 17%) and 13% faster at 8 with 132
+#   rows (h=2000; 12 ran 3% slower than 4 there).
+# * With every row resident (512 threads, 128 registers: no R spills) the
+#   dense "pre" kernels ran 3% faster at 8 in groups of 256 rows (h=1000)
+#   and 10-15% slower in groups of 24 to 64 rows; 12 ran no faster.
+# HAR-width groups (4 and 8 rows, h=180) ran slower at 8 and keep 4.
+GRID_TILES = {(True, "fwd", DENSE_POST): ((12, 16, 96), (8, 16, None)),
+              (False, "fwd", DENSE_PRE): ((8, 256, None),),
+              (False, "bwd", DENSE_PRE): ((8, 256, None),)}
+TILE_PAD = 1 / 16     # the share of a group's padded rows that a taller item may add
+TILE_MIN_UNITS = 384  # threads each product keeps busy at least (items x slices): 12 warps
+
+
+def _fill(phases, rpad, tile):
+    """The fewest consumer threads that one of ``phases``' products keeps
+    busy with items of ``tile`` rows."""
+    return min(min(GRID_THREADS, items * _slices(items, depth)) for depth, cols in phases
+               for items in (_cdiv(cols, 4) * (rpad // tile),))
+
+
+def grid_tiles(b, h, r, form, groups, ctas, streams):
+    """The rows R of a product item (`GRUGridPlan.tile`) of the forward and
+    of the walk, in a grid plan of ``b`` rows in ``groups`` groups of
+    ``ctas`` CTAs; ``streams``: whether its kernels run on the ring. A
+    consumer thread loads one float4 of W and R/4 of the exchange a depth
+    row for 4R FMAs, so a taller item feeds more FMAs from each
+    shared-memory load. It costs padding (rows to a multiple of R), fewer
+    items (fewer busy threads where the depth cannot be sliced further)
+    and registers (4R sums). Each kernel takes the first of its GRID_TILES
+    whose bounds hold the group's rows, whose padding adds at most
+    TILE_PAD of the rows padded to 4, and whose products each keep
+    TILE_MIN_UNITS threads busy (or as many as items of 4 rows do); else
+    4, the parent's item, as every kernel without an entry does."""
+    rows = _cdiv(b, groups)
+    base = _q4(rows)
+    out = []
+    for kernel, phases in _grid_phases(h, r, form, ctas).items():
+        least = min(TILE_MIN_UNITS, _fill(phases, base, 4))
+        out.append(next((tile for tile, lo, hi in GRID_TILES.get((streams, kernel, form), ())
+                         if lo <= base <= (hi or base)
+                         and _cdiv(rows, tile) * tile - base <= base * TILE_PAD
+                         and _fill(phases, _cdiv(rows, tile) * tile, tile) >= least), 4))
+    return tuple(out)
+
+
 # [units][rpad] buffers of each kernel (gru_grid.cuh::grid_slabs)
 GRID_SLABS = {"fwd": {LOWRANK_PRE: 5, DENSE_PRE: 5, DENSE_POST: 7},
               "bwd": {LOWRANK_PRE: 6, DENSE_PRE: 6, DENSE_POST: 7}}
 
 
-def grid_plan_layout(b, h, r, form, groups, ctas, resident=None, piece=None):
+def grid_plan_layout(b, h, r, form, groups, ctas, resident=None, piece=None, tile=None):
     """The GRUGridPlan of ``groups`` batch groups of ``ctas`` CTAs each;
     `gru_grid_plan` picks the grouping. ``resident``: the (forward, walk)
     pairs of resident depths; None holds every row in shared memory.
+    ``tile``: the batch rows of a product item, one for both kernels or a
+    (forward, walk) pair (None: `grid_tiles`' rule); a group's rows pad to a
+    multiple of each.
 
     A product stages its exchange rows in halves of ``stage`` (each an L2
     round trip), so where every weight row fits with room to spare, the
@@ -817,10 +883,15 @@ def grid_plan_layout(b, h, r, form, groups, ctas, resident=None, piece=None):
     the staging buffer, also where an exchange does not fit in it whole:
     there a ring in its room ran slower on the H100 (h=1000, B=512;
     `tools/gru_phases.py --grid`'s ``other_ring``, PERF.md)."""
-    rpad = _q4(_cdiv(b, groups))
     slices = _grid_slices(h, r, form, ctas)
     if resident is None:
         resident = tuple(tuple(d for d, _ in slices[k]) for k in ("fwd", "bwd"))
+    if tile is None:
+        streams = any(res < d for k, held in zip(("fwd", "bwd"), resident)
+                      for res, (d, _) in zip(held, slices[k]))
+        tile = grid_tiles(b, h, r, form, groups, ctas, streams)
+    tiles = (tile, tile) if isinstance(tile, int) else tuple(tile)
+    rpad = _cdiv(_cdiv(b, groups), math.lcm(*tiles)) * math.lcm(*tiles)
     phases = _grid_phases(h, r, form, ctas)
     jwp = _q4(_cdiv(h, ctas))
     layout = []
@@ -830,7 +901,7 @@ def grid_plan_layout(b, h, r, form, groups, ctas, resident=None, piece=None):
         stage = min(deepest, max(2, STAGE_FLOATS // rpad)) * rpad
         red = 0
         for depth, cols in phases[kernel]:
-            items = _cdiv(cols, 4) * (rpad // 4)
+            items = _cdiv(cols, 4) * (rpad // tiles[i])
             n = _slices(items, depth)
             red = max(red, n * items * 16 if n > 1 else 0)
         slabs = GRID_SLABS[kernel][form] * jwp * rpad
@@ -851,7 +922,7 @@ def grid_plan_layout(b, h, r, form, groups, ctas, resident=None, piece=None):
     xchg_fwd = groups * rpad * (2 * h + (h if pre else 0) + (r if lowrank else 0))
     xchg_bwd = groups * rpad * (6 * h + (r if lowrank else 0))
     return GRUGridPlan(b, h, r, form, groups, ctas, rpad, *layout[:3], xchg_fwd, *layout[4:7],
-                       xchg_bwd, *map(tuple, resident), layout[3], layout[7])
+                       xchg_bwd, *map(tuple, resident), layout[3], layout[7], *tiles)
 
 
 def _grid_rec_macs(h, r, form):
@@ -873,16 +944,17 @@ def _grid_fits_resident(b, h, r, form, sms):
     return None
 
 
-def _grid_streamed(b, h, r, form, sms, piece=None):
+def _grid_streamed(b, h, r, form, sms, piece=None, tile=None):
     """The plan where not even one row's weights fit in the shared memory of
     all SMs: one group over min(sms, h) CTAs, each kernel with a ring of
     stages of ``piece`` floats (None: `cuda_scan.ring_piece`, or as large
     as fit) and holding as much depth of each slice as fits beside its
     slabs, ring and red (the same share of each slice's depth), the rest
-    streamed through the ring. Raises ValueError where the slabs and the
-    smallest ring do not fit."""
+    streamed through the ring; items of ``tile`` rows (None: `grid_tiles`).
+    Raises ValueError where the slabs and the smallest ring do not fit."""
     ctas = min(sms, h)
-    empty = grid_plan_layout(b, h, r, form, 1, ctas, resident=((0, 0), (0, 0)), piece=piece)
+    empty = grid_plan_layout(b, h, r, form, 1, ctas, resident=((0, 0), (0, 0)), piece=piece,
+                             tile=tile)
     resident = []
     for kernel, smem in (("fwd", empty.smem_fwd), ("bwd", empty.smem_bwd)):
         room = (SMEM_LIMIT - smem) // 16 * 4  # weight floats that fit
@@ -892,14 +964,16 @@ def _grid_streamed(b, h, r, form, sms, piece=None):
         total = sum(d * c for d, c in empty.slices(kernel))
         resident.append(tuple(min(d, d * room // total) for d, _ in empty.slices(kernel)))
     return grid_plan_layout(b, h, r, form, 1, ctas, resident=tuple(resident),
-                            piece=(empty.piece_fwd, empty.piece_bwd))
+                            piece=(empty.piece_fwd, empty.piece_bwd),
+                            tile=(empty.tile_fwd, empty.tile_bwd))
 
 
-def grid_streamed_plan(b, h, r, form, sms=SMS, piece=None):
+def grid_streamed_plan(b, h, r, form, sms=SMS, piece=None, tile=None):
     """`gru_grid_plan`'s streamed plan of a width whose weights do not fit,
     with ring stages of another size (the checks that hold one ring to
-    another: the same groups, CTAs, stage and red, so the same sums)."""
-    return _grid_streamed(b, h, r, form, sms, piece)
+    another: the same groups, CTAs, stage and red, so the same sums), or
+    with items of another ``tile`` of rows (other sums)."""
+    return _grid_streamed(b, h, r, form, sms, piece, tile)
 
 
 @functools.lru_cache(maxsize=1024)

@@ -71,6 +71,11 @@ F=20, h=197, rx=5, r=23) on a plan with a third of each slice streamed
 (the resident plan's groups and CTAs), and the h=3200 forwards' outputs
 and residuals; no product of these passes the Hopper tile's rule.
 ``--gru-grid`` (anywhere among the checkouts) runs this part alone.
+``--bits`` times nothing: each line then holds the ptxas registers, the
+plans and the digests alone (a few minutes a checkout), the quick check
+that a change kept the bits of the kernel families it did not mean to
+move. Each plan of the grid shows its items' rows (``tile``: 4 where the
+checkout has no such field).
 """
 
 from __future__ import annotations
@@ -80,12 +85,14 @@ import sys
 
 CHILD = r"""
 import hashlib, inspect, json, os, re, subprocess, sys
+from concurrent.futures import ThreadPoolExecutor
 sys.path.insert(0, sys.argv[1])
 import torch
 from vmlmf_tpu_torch.ops import _build, cuda_gru, cuda_scan, cuda_stack
 
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build_all()
+BITS = "--bits" in sys.argv[2:]  # no timings: ptxas, plans and digests
 t, f, h, rx, r = 35, 650, 650, 300, 300
 
 
@@ -329,7 +336,9 @@ def grid_plans(shape):
     for kernel in ("fwd", "bwd"):
         layout = cuda_gru.gru_layout(t, b, f, rx, h, r, form, kernel=kernel)
         out[kernel] = "rows" if isinstance(layout, cuda_gru.GRUPlan) else [
-            dict(rows=n, groups=p.groups, ctas=p.ctas, resident=p.resident(kernel),
+            dict(rows=n, groups=p.groups, ctas=p.ctas, rpad=p.rpad,
+                 tile=p.tile(kernel) if hasattr(p, "tile_fwd") else 4,
+                 resident=p.resident(kernel),
                  piece=p.piece(kernel) if hasattr(p, "piece") else 0) for _, n, p in layout]
     return out
 
@@ -349,7 +358,9 @@ def gru_grid():
         calls = grid_calls(shape)
         plans[name] = grid_plans(shape)
         iters = 5 if shape[4] >= 1000 else 20
-        ms[name] = {e: [mean_ms(fn, iters=iters) for _ in range(3)] for e, fn in calls.items()}
+        if not BITS:
+            ms[name] = {e: [mean_ms(fn, iters=iters) for _ in range(3)]
+                        for e, fn in calls.items()}
         if shape[4] == 180:
             outs = [calls["fwd"](), *calls["res"](), *calls["bwd"]()]
         elif shape[4] == 3200:
@@ -373,10 +384,12 @@ def gru_grid():
     finally:
         cuda_gru._plan_for = keep
     plans["odd_streamed"] = dict(groups=forced.groups, ctas=forced.ctas,
+                                 tile=(getattr(forced, "tile_fwd", 4),
+                                       getattr(forced, "tile_bwd", 4)),
                                  resident=(forced.resident_fwd, forced.resident_bwd),
                                  piece=(getattr(forced, "piece_fwd", 0),
                                         getattr(forced, "piece_bwd", 0)))
-    return ms, plans, grid_peaks(), digests
+    return ms, plans, {} if BITS else grid_peaks(), digests
 
 
 def peak_mib(step):
@@ -426,7 +439,7 @@ def grid_peaks():
     return out
 
 
-if len(sys.argv) > 2 and sys.argv[2] == "--gru-grid":
+if "--gru-grid" in sys.argv[2:]:
     gms, gplans, gpeaks, gdig = gru_grid()
     print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0),
                       "gru_grid": {"ms": gms, "plans": gplans, "peak_mib": gpeaks},
@@ -438,20 +451,23 @@ if len(sys.argv) > 2 and sys.argv[2] == "--gru-grid":
 sources = [s for s in ("lstm_scan_xin_fwd.cu", "lstm_scan_xin_bwd.cu", "gru_scan_xin_fwd.cu",
                       "gru_scan_xin_bwd.cu", "lstm_stack_fwd.cu", "lstm_stack_bwd.cu")
            if (_build.CSRC / s).exists()]
-regs = {s: ptxas(s) for s in sources}
-ms = {form: {b: entry_ms(b, form) for b in (1, 20, 128)} for form in ("lowrank", "dense")}
-if hasattr(cuda_scan, "variant"):
+with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc a source, together
+    regs = dict(zip(sources, pool.map(ptxas, sources)))
+ms = {} if BITS else {form: {b: entry_ms(b, form) for b in (1, 20, 128)}
+                      for form in ("lowrank", "dense")}
+if hasattr(cuda_scan, "variant") and not BITS:
     ms["variants"] = {name: {f"{form}_b{b}": entry_ms(b, form, *v)
                              for form, b in (("lowrank", 20), ("lowrank", 128), ("dense", 20),
                                              ("har", 81))}
                       for name, v in VARIANTS.items()}
-ms["gru"] = {form: gru_ms(form) for form in GRU_FORMS}
-ms["stack"] = {b: stack_ms(b) for b in (1, 20, 128)}
-if "precision" in inspect.signature(cuda_stack.lstm_stack_scan_fused).parameters:
+if not BITS:
+    ms["gru"] = {form: gru_ms(form) for form in GRU_FORMS}
+    ms["stack"] = {b: stack_ms(b) for b in (1, 20, 128)}
+if "precision" in inspect.signature(cuda_stack.lstm_stack_scan_fused).parameters and not BITS:
     ms["stack_bf16"] = {b: stack_ms(b, "bf16") for b in (1, 20, 128)}
 WIDE = {}  # the wide layers' digests, by form and batch
 plans = {}  # their plans: CTAs, resident depths and, with a ring, its floats a stage
-if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared memory
+if hasattr(cuda_scan, "stream_floats") and not BITS:
     ms["dense1500"] = {"f32_b1": entry_ms(1, "dense1500", *VARIANTS["f32"]),
                        "f32_b20": entry_ms(20, "dense1500", *VARIANTS["f32"]),
                        "f32_b128": entry_ms(128, "dense1500", *VARIANTS["f32"]),
@@ -461,6 +477,7 @@ if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared mem
                        "lowrank_f32_b1": entry_ms(1, "lowrank1500", *VARIANTS["f32"]),
                        "lowrank_f32_b20": entry_ms(20, "lowrank1500", *VARIANTS["f32"]),
                        "lowrank_f32_b128": entry_ms(128, "lowrank1500", *VARIANTS["f32"])}
+if hasattr(cuda_scan, "stream_floats"):  # layers wider than the SMs' shared memory
     for form, rank in (("dense1500", 0), ("lowrank1500", 750)):
         for wb in (1, 20, 128):
             WIDE[f"{form}_b{wb}"] = (form, wb)
@@ -494,10 +511,10 @@ print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0)
 
 def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
-    dirs = [a for a in args if a != "--gru-grid"]
+    dirs = [a for a in args if a not in ("--gru-grid", "--bits")]
     if not dirs:
         raise SystemExit(__doc__)
-    only = ["--gru-grid"] if "--gru-grid" in args else []
+    only = [a for a in ("--gru-grid", "--bits") if a in args]
     for d in dirs:
         subprocess.run([sys.executable, "-c", CHILD, d, *only], check=True, timeout=900)
 

@@ -41,8 +41,25 @@ CTA 0's first consumer thread waits on the ring's full barriers
 ``other_ring``: each entry's device µs on another ring, the chosen plan's
 against (h=3200) the ring of RING_OTHER-float stages, more pieces a step,
 or (h=1000, whose rows are all resident) a ring forced into the staging
-buffer's room (`ring_in_stage`), which no plan takes.
+buffer's room (`ring_in_stage`), which no plan takes; and ``tiles``: at
+h=3200, h=1000 and h=180 B=256, the scan kernel's µs a step (`per_step`)
+of each entry on the chosen plan's groups and CTAs with product items of
+each height R the kernels are built for (`TILES`: GRUGridPlan.tile_fwd and
+tile_bwd, rows
+padded to a multiple of R; `with_tile`), and on a ring the waits at each
+R; at h=3200 "post" also the forward with 12-row items in one slice and a
+larger ring (`one_slice`: no partials, the stage size against the
+slices).
 ``--grid`` runs these alone.
+
+``--sass [CSRC ...]`` builds nothing into the package: it compiles every
+source of each csrc directory given (default: the package's; another
+checkout's to compare) to a cubin and prints, per source, a digest of its
+SASS (addresses, encodings, parameter offsets and the anonymous
+namespace's hash left out) and, per kernel by template arguments, ptxas's
+registers and spill
+bytes, a digest of its own SASS, and the `FFMA` and `LDS.128` of its loop
+with the most FFMA (the consumers' product loop; `loop_counts`).
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -51,8 +68,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -173,8 +192,8 @@ extern "C" int ring_counters(unsigned long long* out, int reset) {
 
 def ring_libraries(work):
     """Build the GRU sources with scan_grid.cuh's ring waits and group barrier
-    timed (`scan_phases.RING_WAIT`, `RING_REFILL`, `GROUP_WAIT`) -> {name:
-    CDLL}, each with ring_counters()."""
+    timed (`scan_phases.RING_WAIT`, `RING_REFILL`, `GROUP_WAIT`), one nvcc
+    each, started together -> {name: CDLL}, each with ring_counters()."""
     from vmlmf_tpu_torch.tools.scan_phases import RING_COUNTER, RING_REFILL, RING_WAIT
 
     src = os.path.join(work, "csrc")
@@ -186,14 +205,20 @@ def ring_libraries(work):
             raise RuntimeError(f"scan_grid.cuh: the ring's anchor moved: {anchor!r}")
         text = text.replace(anchor, new)
     open(header, "w").write(text)
-    libs = {}
+    procs = {}
     for name in MARKS:
         path = os.path.join(src, f"{name}.cu")
         with open(path, "a") as out:
             out.write(RING_READER)
         lib = os.path.join(work, f"{name}.so")
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, path], check=True,
-                       capture_output=True)
+        procs[name] = (lib, subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
+                                              path], stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the ring build of {name}.cu:\n{err}")
         libs[name] = ctypes.CDLL(lib)
         libs[name].ring_counters.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return libs
@@ -332,6 +357,181 @@ def other_ring(t, b, f, rx, h, r, mode, form, sms, dx):
     return out
 
 
+TILES = (4, 8, 12)  # the item heights the grid kernels are built for (gru_grid.cuh)
+
+
+def with_tile(plan, tile, sms):
+    """``plan`` with product items of ``tile`` rows: its groups and CTAs, and
+    its ring where it streams (`cuda_gru.grid_streamed_plan`); None where
+    that does not fit in shared memory."""
+    if plan.streamed:
+        other = cuda_gru.grid_streamed_plan(plan.b, plan.h, plan.r, plan.form, sms, tile=tile)
+    else:
+        other = cuda_gru.grid_plan_layout(plan.b, plan.h, plan.r, plan.form, plan.groups,
+                                          plan.ctas, tile=tile)
+    return other if other.smem_bytes <= cuda_gru.SMEM_LIMIT else None
+
+
+def one_slice(plan):
+    """``plan``'s forward with each product in one depth slice (no partials:
+    `red` 0) and its ring's stages grown into red's room, up to
+    `cuda_scan.ring_piece`: a plan that no planner picks, the stage size
+    weighed against the slices."""
+    piece = min(cuda_gru.ring_piece(plan.rpad),
+                plan.piece_fwd + plan.red_fwd // cuda_gru.RING_STAGES // 4 * 4)
+    smem = plan.smem_fwd - 4 * plan.red_fwd + 4 * cuda_gru.RING_STAGES * (piece - plan.piece_fwd)
+    return dataclasses.replace(plan, red_fwd=0, piece_fwd=piece, smem_fwd=smem)
+
+
+def tile_sweep(name, t, b, f, rx, h, r, mode, form, sms, libs):
+    """{R: the scan kernel's µs a step of each entry, the plans' rpad and,
+    on a ring, `ring_waits`} on the chosen layout's groups and CTAs with
+    items of each height of TILES (`with_tile`), and at h=3200 "post" R=12
+    in one slice (`one_slice`)."""
+    chosen = cuda_gru.gru_grid_chunks(t, b, f, rx, h, r, form, sms=sms)
+    variants = {}
+    for tile in TILES:
+        layout = tuple((b0, n, with_tile(p, tile, sms)) for b0, n, p in chosen)
+        if all(p is not None for _, _, p in layout):
+            variants[str(tile)] = layout
+    if name == "h3200_post" and "12" in variants:
+        variants["12_one_slice"] = tuple((b0, n, one_slice(p)) for b0, n, p in variants["12"])
+    names = ("fwd",) if b == 256 else ("fwd", "res", "bwd")
+    dx = not name.startswith("har")
+    out, keep = {}, cuda_gru._plan_for
+    try:
+        for label, layout in variants.items():
+            cuda_gru._plan_for = lambda *a, gi=False, lay=layout: lay
+            plans = [p for _, _, p in layout]
+            row = {"rpad": plans[0].rpad, "chosen": layout == chosen,
+                   "tiles": (plans[0].tile_fwd, plans[0].tile_bwd),
+                   "pieces": [(p.piece_fwd, p.piece_bwd) for p in plans[:1]]}
+            scan = {}
+            for tt in (t, 2 * t):
+                calls = grid_entries(tt, b, f, rx, h, r, mode, dx)
+                for entry in names:
+                    us = device_us(calls[entry], reps=3)
+                    scan[entry, tt] = sum(v for k, v in us.items() if k.startswith("grid_"))
+            row["per_step"] = {e: round((scan[e, 2 * t] - scan[e, t]) / t, 3) for e in names}
+            if b != 256 and any(p.piece_fwd or p.piece_bwd for p in plans):
+                row["ring"] = ring_waits(libs, grid_entries(t, b, f, rx, h, r, mode, dx), plans, t)
+            out[label] = row
+    finally:
+        cuda_gru._plan_for = keep
+    return out
+
+
+KERNEL_NAME = re.compile(r"(grid_fwd_kernel|grid_walk_kernel|scan_kernel|bptt_kernel|fwd_kernel|"
+                         r"walk_kernel|stack_fwd_kernel|stack_bwd_kernel)I((?:L[bi]\d+E)+)E")
+
+
+def _kernel(mangled):
+    m = KERNEL_NAME.search(mangled)
+    return m and f"{m.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
+
+
+def source_sass(csrc, name, work):
+    """One source of a csrc directory compiled to a cubin at the package's
+    flags -> {"sass_sha": a digest of its whole SASS (`_sass_sha`: what
+    moves when the code does not left out, such as the parameters'
+    offsets after a field added to a parameter struct), "kernels":
+    {kernel<template arguments>: registers,
+    spill bytes, its own SASS digest and, in its loop with the most FFMA
+    (`loop_counts`), the FFMA and LDS.128}}."""
+    cubin = os.path.join(work, f"{os.path.basename(csrc.rstrip('/'))}-{name}.cubin")
+    log = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+                          "-o", cubin, os.path.join(csrc, f"{name}.cu")], capture_output=True,
+                         text=True, check=True).stderr
+    kernels, kernel, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = _kernel(line)
+        elif kernel and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif kernel and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            kernels[kernel] = dict(registers=regs, spill_bytes=spill)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    for kernel, (ffma, lds) in loop_counts(sass).items():
+        kernels.setdefault(kernel, {}).update(loop_ffma=ffma, loop_lds128=lds)
+    for func in re.split(r"\n(?=\s*Function :)", sass):
+        kernel = _kernel(func.split("\n", 1)[0]) if "Function :" in func else None
+        if kernel:
+            kernels.setdefault(kernel, {})["sass_sha"] = _sass_sha(func)
+    return {"sass_sha": _sass_sha(sass), "kernels": kernels}
+
+
+def _sass_sha(sass):
+    """A digest of SASS text without what moves when nothing else does: the
+    instructions' addresses and encodings, the kernel parameters'
+    constant-bank offsets and the anonymous namespace's hash of the source
+    file's path."""
+    code = re.sub(r"/\*.*?\*/", "", sass)
+    code = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", code)
+    code = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "_GLOBAL__N_", code)
+    code = re.sub(r"[ \t]+", " ", code)
+    return hashlib.sha256(code.encode()).hexdigest()[:16]
+
+
+def loop_counts(sass):
+    """{kernel<template arguments>: (FFMA, LDS.128)} of the loop with the
+    most FFMA in each function of ``sass`` (cuobjdump's listing): a loop is
+    a basic block (cut at branch targets, labelled or by address, and after
+    branches) whose last instruction branches back to its own first."""
+    best = {}
+    for func in re.split(r"\n(?=\s*Function :)", sass):
+        kernel = _kernel(func.split("\n", 1)[0]) if "Function :" in func else None
+        if not kernel:
+            continue
+        lines = func.splitlines()
+        targets = {f"0x{int(t, 16):x}" for t in re.findall(r"\bBRA\s+(0x[0-9a-f]+)", func)}
+        blocks, block = [], None
+        for line in lines:
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if label:
+                block = ({label.group(1)}, [])
+                blocks.append(block)
+            if not ins:
+                continue
+            addr = f"0x{int(ins.group(1), 16):x}"
+            if block is None or addr in targets or (block[1] and re.search(
+                    r"\b(BRA|EXIT|RET|BRX|JMP)\b", block[1][-1])):
+                if block is None or block[1]:
+                    block = (set(), [])
+                    blocks.append(block)
+            if not block[1]:
+                block[0].add(addr)
+            block[1].append(re.sub(r"^@!?P\w+\s+", "", ins.group(2)))
+        for names, body in blocks:
+            target = body and re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", body[-1])
+            if target and target.group(1) in names:
+                ffma = sum(t.startswith("FFMA ") for t in body)
+                lds = sum(t.startswith("LDS.128 ") for t in body)
+                if ffma > best.get(kernel, (0, 0))[0]:
+                    best[kernel] = (ffma, lds)
+    return best
+
+
+def sass_main(dirs):
+    """`source_sass` of every source of each csrc directory in ``dirs``, one
+    nvcc a source, in parallel: one JSON line a directory."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    try:
+        for csrc in dirs:
+            names = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))
+            with ThreadPoolExecutor(len(names)) as pool:
+                got = dict(zip(names, pool.map(lambda n: source_sass(csrc, n, work), names)))
+            print(json.dumps({"csrc": csrc, "sources": got}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def grid_entries(t, b, f, rx, h, r, mode, dx):
     """{entry: a call of it} at a grid shape; the BPTT from dys alone, dx
     when ``dx`` (not for a first layer's raw input)."""
@@ -380,10 +580,15 @@ def grid_main(libs):
                                                         not name.startswith("har")), plans, t)
         if h >= 1000:
             row["other_ring"] = other_ring(t, b, f, rx, h, r, mode, form, sms, True)
+        if h >= 1000 or b == 256:
+            row["tiles"] = tile_sweep(name, t, b, f, rx, h, r, mode, form, sms, libs)
         print(json.dumps(row), flush=True)
 
 
 def main():
+    if "--sass" in sys.argv[1:]:  # the csrc directories after it (default: the package's)
+        sass_main(sys.argv[sys.argv.index("--sass") + 1:] or [str(_build.CSRC)])
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

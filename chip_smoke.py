@@ -110,7 +110,12 @@ Phases, each of which exits non-zero when it fails:
                layer), with cuDNN's two-layer LSTM on the dense weights from
                x as the library yardstick and beside it the port's path from
                x, the "fused" backend's two per-layer scans from x, and µs a
-               step of the stack (no-grad, and BPTT with its GEMMs); prefill at B=20 and 64 greedy tokens through `LMConfig`
+               step of the stack (no-grad, and BPTT with its GEMMs); the
+               BPTT twice to equal bits, its weight gradients' tile and k
+               slices by product (csrc/gemm_tc.cuh's rule), a trace of the
+               walk against them (the Hopper tile there wherever the rule
+               routes a product, gemm_tile.cuh nowhere), the peak MiB of a
+               BPTT call and its staging scratch; prefill at B=20 and 64 greedy tokens through `LMConfig`
                and `Decoder` (one no-grad stack launch per prefill and no
                per-layer one, held to the "fused" prefill); 30 `LMTrainer`
                chunks at B=20, dropout 0.5 (one residual forward and one
@@ -124,7 +129,9 @@ Phases, each of which exits non-zero when it fails:
                VMLMF BDNet at the HAR width (one stack for its forward tower,
                the per-layer fused scans for its reverse tower, held to
                "fused"); then prefill ms at B in 1/20/128 and train step ms
-               at B in 20/128 beside the "fused" backend's.
+               at B in 20/128 beside the "fused" backend's, and fit's block
+               of 8 chunks graphed at B=128 on both backends (each held bit
+               for bit to its eager steps), ms a step.
  14. mixed   — the JAX package's kernel variants of the LSTM scan: the gi-mode
                entries against their plain versions at the LM layer, B=20,
                with cuDNN's f32 LSTM from x as the library; then three
@@ -253,7 +260,9 @@ Phases, each of which exits non-zero when it fails:
  21. trace   — one `torch.profiler` trace each of an LM train step at B=20,
                of a main HAR GRU train step at B=81, of a dense LM train
                step at B=20 and of a wavefront LM train step at B=20: the
-               device time of each kernel, the port's against cuBLAS's (every
+               device time of each kernel, the port's against cuBLAS's, the
+               LSTM products of the LM, dense LM and wavefront steps on
+               csrc/gemm_tc.cuh's tiles alone, some on wgmma (every
                trace counts kernels, copies and sets, not the ranges that
                `record_function` draws on the device's timeline, such as
                `Optimizer.step`'s, in a window opened and closed by spin
@@ -1831,6 +1840,58 @@ def stack_step_us(torch, gi0, layers, h0s, c0s, mk, dys, precision):
     return out
 
 
+def stack_bwd_routes(b, bf16):
+    """Each weight-gradient product of the LM stack's BPTT at batch b with
+    the tile and the k slices that gemm_tc.cuh's rule gives it
+    (`cuda_scan.tc_plan`, with the split-k room the wrapper gives the call)
+    -> (printable list, whether any takes the Hopper tile)."""
+    from vmlmf_tpu_torch.ops import cuda_scan, cuda_stack
+
+    t, h, r, n = LM["prompt"], LM["hidden"], LM["rank"], LM["layers"]
+    ranks, xranks = (r,) * n, (r,) * (n - 1)
+    floats = cuda_stack.stack_partial_floats(t, b, h, ranks, xranks, bf16)
+    out, hopper = [], False
+    for l, layer in enumerate(cuda_stack.stack_tc_products(t, b, h, ranks, xranks)):
+        for name, (m, nn, k, *_) in layer:
+            wg, big, splits, _ = cuda_scan.tc_plan(m, nn, k, floats // (m * nn), bf16)
+            hopper |= wg
+            tile = "hopper" if wg else f"mma.sync {'128x128' if big else '64x64'}"
+            out.append(f"layer {l} {name} [{m}, {nn}] over k={k}: {tile}, {splits} slice(s)")
+    return out, hopper
+
+
+def stack_bwd_split(torch, label, bwd, t, hopper, calls=5):
+    """Device time of `calls` BPTT calls by kernel (torch.profiler): the walk
+    (`stack_bwd_kernel`) against the weight gradients (gemm_tc.cuh's tiles,
+    their staging passes and split-k sums, the masked input's pass, the
+    column sums). The Hopper tile's `wg_gemm_kernel` must run where
+    ``hopper`` (a product that the rule routes there), and no kernel of
+    gemm_tile.cuh at all -> (walk ms, weight-gradient ms) a call."""
+    def run():
+        for _ in range(calls):
+            bwd()
+
+    walk = grads = tile = 0.0
+    for name, ms in device_events(torch, run, f"stack BPTT at {label}", cpu=False)[0]:
+        if "stack_bwd_kernel" in name:
+            walk += ms
+            continue
+        grads += ms
+        if "wg_gemm_kernel" in name:
+            tile += ms
+        if "vmlmf::gemm_kernel" in name or "group_partial_kernel" in name:
+            fail(f"the stack BPTT at {label} ran gemm_tile.cuh's {name}")
+    if walk == 0.0:
+        fail(f"the profiler saw no stack_bwd_kernel in the stack BPTT at {label}")
+    if hopper != (tile > 0.0):
+        fail(f"the stack BPTT at {label}: the Hopper tile ran {tile:.4f} ms; gemm_tc.cuh's rule "
+             f"routes {'some' if hopper else 'no'} product there")
+    print(f"stack bwd split {label}: walk {walk / calls:.4f} ms a call "
+          f"({1e3 * walk / calls / t:.3f} us a step), weight gradients {grads / calls:.4f} ms a "
+          f"call (Hopper tile {tile / calls:.4f}), their share {grads / (walk + grads):.3f}")
+    return walk / calls, grads / calls
+
+
 def phase_stack_kernels(torch, precision="f32"):
     """Each stack entry against its plain version at the LM stack (L=2, T=35,
     h=650, r=rx=300), each at B in 1/20/128: the no-grad forward without
@@ -1842,7 +1903,11 @@ def phase_stack_kernels(torch, precision="f32"):
     the same phase, and µs a step of the stack (its time at 2T less its
     time at T). Under ``precision`` "bf16" the bf16 tolerances hold, and the
     first two steps of each walk must lie 4x nearer the plain bf16 version
-    than the plain f32 one. -> {(entry, "stack" or "stack_bf16", B): row}."""
+    than the plain f32 one. The BPTT's weight gradients: each product's tile
+    and k slices, the walk against them in a trace (the Hopper tile there
+    wherever the rule routes a product), the peak MiB of a call; its bound
+    prices them at the tensor cores' rate (3xTF32 in f32, bf16) and the
+    walk at the f32 rate. -> {(entry, "stack" or "stack_bf16", B): row}."""
     from vmlmf_tpu_torch.ops import cuda_scan, cuda_stack
 
     rows, extra = {}, {}
@@ -1869,6 +1934,11 @@ def phase_stack_kernels(torch, precision="f32"):
             lib, lib_name = cudnn_lstm_bf16(torch, lstm), "cuDNN, bf16, other rounding"
             lx, state0 = x.bfloat16(), tuple(a.bfloat16() for a in state0)
         mm = cuda_stack.stack_mm_ops(t, b, h, ranks, xranks) if bf16 else 0
+        gemm = cuda_stack.stack_gemm_ops(t, b, h, ranks, xranks)  # the weight gradients'
+        # the bound's (bf16 ops, 3xTF32 ops) of the BPTT: in bf16 the walk's
+        # products and the weight gradients at the bf16 rate, in f32 the walk's
+        # at the f32 rate and the weight gradients' at 3xTF32's
+        bwd_ops = (mm + gemm, 0) if bf16 else (0, gemm)
 
         # -- the no-grad forward, without masks (serving)
         out = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, None, precision)
@@ -1920,6 +1990,19 @@ def phase_stack_kernels(torch, precision="f32"):
         ok_g, err_g = all_close(torch, flat(grads), flat(grads_p), grad_tol)
         if not ok_g:
             fail(f"lstm_stack_bwd disagrees with its plain version at {label}: {err_g}")
+        again = cuda_stack.lstm_stack_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, w) for u, w in zip(flat(grads), flat(again))):
+            fail(f"two calls of lstm_stack_bwd gave different bits at {label}")
+        routes, hopper = stack_bwd_routes(b, bf16)
+        print(f"stack bwd routes {label}: {'; '.join(routes)}")
+        walk_ms, grads_ms = stack_bwd_split(torch, label, lambda: cuda_stack.lstm_stack_bwd(
+            *bwd_args), t, hopper)
+        peak = peak_step_mib(torch, lambda: cuda_stack.lstm_stack_bwd(*bwd_args))
+        stage = 4 * cuda_stack.stack_tc_stage_floats(t, b, h, tuple(ranks), tuple(xranks), bf16,
+                                                     True) / 2 ** 20
+        print(f"stack bwd memory {label}: peak {peak:.1f} MiB a call beyond its inputs, of "
+              f"which the weight gradients' staging scratch {stage:.1f} MiB")
         if bf16:
             res_f = res_plain(gi0, layers, h0s, c0s, mk)
             bf16_control("lstm_stack_fwd_res ys, cs [:2] of layer 0", label,
@@ -1937,6 +2020,8 @@ def phase_stack_kernels(torch, precision="f32"):
                                       fused_bwd_ms=cuda_ms(torch, fused_bwd, 10))
         extra[f"fwd_b{b}"].update(stack_step_us(torch, gi0, layers, h0s, c0s, mk, dys, precision))
         e = extra[f"fwd_b{b}"]
+        e.update(bwd_walk_ms=walk_ms, bwd_weight_grads_ms=grads_ms, bwd_peak_mib=peak,
+                 bwd_stage_mib=stage)
         print(f"kernel lstm_stack_fwd {label}: the port from x (projection + stack) "
               f"{e['port_from_x_ms']:.4f} ms against {lib_name}'s from x "
               f"{rows[('lstm_stack_fwd', shape, b)]['library_ms']:.4f} ms and \"fused\"'s two "
@@ -1957,8 +2042,8 @@ def phase_stack_kernels(torch, precision="f32"):
             "lstm_stack_bwd", label + ", masks", err_g, grad_tol,
             cuda_ms(torch, lambda: cuda_stack.lstm_stack_bwd(*bwd_args), 10),
             cuda_ms(torch, lambda: bwd_plain(*bwd_args), 3),
-            (*cuda_stack.stack_bwd_cost(t, b, h, ranks, xranks, **cost), 2 * mm), lib_bwd_ms,
-            lib_name)
+            (*cuda_stack.stack_bwd_cost(t, b, h, ranks, xranks, **cost),
+             *bwd_ops), lib_bwd_ms, lib_name)
         print(f"kernel lstm_stack_fwd_res {label}: "
               f"{rows[('lstm_stack_fwd_res', shape, b)]['ms']:.4f} ms against \"fused\"'s two "
               f"residual scans from x {e['fused_res_ms']:.4f} ms; lstm_stack_bwd "
@@ -2115,7 +2200,7 @@ def phase_wavefront(torch):
     wavefront_reverse(torch)
 
     # -- speed, beside the per-layer fused backend, same params
-    perf = {}
+    perf, block_runs = {}, []
     for bb in LM_BATCHES:
         ids = prompt_ids(torch, bb)
         s0 = wave.state0(bb)
@@ -2129,11 +2214,21 @@ def phase_wavefront(torch):
             ms = train_step_ms(torch, t, t.init(), chunks, 5, generator)
             perf[f"train_b{bb}_{be}"] = dict(step_ms=ms, words_per_s=bb * LM["prompt"] / ms * 1e3)
     perf["depth3"] = wavefront_depth3(torch)
+    # fit's block graphed at B=128 on both backends, the same LM config
+    graphed = {}
+    for be in ("fused_pipelined", "fused"):
+        report, counts, _ = graph_lm(torch, be, TRAIN_BATCHES[-1], model=wavefront_lm(be),
+                                     label="wavefront LM")
+        graphed[be] = report["graphed"]["wall_ms"]
+        block_runs.append(("lstm_stack:lowrank" if be == "fused_pipelined" else "lstm:lowrank",
+                           counts))
+    perf[f"graphed_train_block_b{TRAIN_BATCHES[-1]}_ms_a_step"] = graphed
     for k, v in perf.items():
         print(f"wavefront {k}: {v}")
     print(json.dumps({"wavefront": dict(perf, losses=losses[::5], perplexity=ppl,
                                         parting=parting)}))
-    return rows, [(form, serve_launches), (form, train_launches), (form, group_launches)]
+    return rows, [(form, serve_launches), (form, train_launches), (form, group_launches),
+                  *block_runs]
 
 
 def wavefront_depth3(torch):
@@ -4762,9 +4857,9 @@ def trace_step(torch, label, step):
     print(f"trace: one {label}, wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (idle share "
           f"{1 - busy / wall_ms:.3f}), by group "
           + ", ".join(f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items())))
-    # the port's GEMM launches by tile: the LSTM scans' tensor-core tiles
-    # (csrc/gemm_tc.cuh: "wgmma" the Hopper tile's share) and the CUDA-core
-    # one the GRU and stack kernels keep
+    # the port's GEMM launches by tile: the LSTM scans' and the stack's
+    # tensor-core tiles (csrc/gemm_tc.cuh: "wgmma" the Hopper tile's share)
+    # and the CUDA-core one the GRU kernels keep
     tiles = {"tc": sum(n for name, (n, _) in kernels.items()
                        if "tc_gemm_kernel" in name or "wg_gemm_kernel" in name),
              "wgmma": sum(n for name, (n, _) in kernels.items() if "wg_gemm_kernel" in name),
@@ -4808,13 +4903,14 @@ def phase_trace(torch):
     w_params, w_states = wave.init(), wave.state0()
     lm_wave = trace_step(torch, f"wavefront LM train step at B={MAIN_BATCH}",
                          lambda: wave.train_step(w_params, w_states, *trn[1], 1.0, generator))
-    # the LSTM scans' products run on the tensor cores, never on the old
-    # tile, the LM layers' on the Hopper tile
-    for label, tr in (("LM", lm), ("dense LM", lm_dense)):
+    # the LSTM scans' and the stack's products run on the tensor cores, never
+    # on the old tile, the LM layers' (the stack's dV and dVx) on the Hopper
+    # tile
+    for label, tr in (("LM", lm), ("dense LM", lm_dense), ("wavefront LM", lm_wave)):
         tiles = tr["gemm_tiles"]
         if tiles["tc"] == 0 or tiles["cuda_core"] or tiles["wgmma"] == 0:
             fail(f"trace: the {label} train step's GEMMs by tile: {tiles}; "
-                 f"every product of its LSTM scans runs csrc/gemm_tc.cuh, on wgmma")
+                 f"every product of its LSTM kernels runs csrc/gemm_tc.cuh, some on wgmma")
     print(json.dumps({"trace": dict(lm=lm, har_gru=gru, lm_dense=lm_dense, lm_wavefront=lm_wave)}))
 
 

@@ -860,6 +860,93 @@ def test_stack_plan_too_large_to_be_co_resident_raises(cuda, monkeypatch):
         cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk)
 
 
+# the LM stack's BPTT at B = 1, 20, 128 and 256 (two chunks of rows in f32,
+# one in bf16): its weight gradients on csrc/gemm_tc.cuh's tiles
+STACK_TC_BATCHES = (1, 20, 128, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("masks", [True, False], ids=["masks", "no_masks"])
+@pytest.mark.parametrize("b", STACK_TC_BATCHES)
+def test_stack_bwd_on_the_tensor_cores_matches_plain_and_repeats(cuda, b, masks, precision):
+    """lstm_stack_bwd from the kernel's residuals against its plain version:
+    GRAD_TOL in f32 (3xTF32 keeps f32's precision), in bf16 the bf16
+    tolerances against the plain version and its float64 sums (as
+    test_bf16_stack_kernels_match_plain); two calls to equal bits."""
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    n, t, h, ranks, xranks = 2, 35, 650, (300, 300), (300,)
+    gi0, layers, h0s, c0s, mk = stack_inputs(n, t, b, h, ranks, xranks, masks, cuda)
+    bf16 = precision == "bf16"
+    chunks = cuda_stack.stack_chunks(b, h, ranks, xranks, cuda_stack._sm_count(cuda.index),
+                                     2 if bf16 else 4)
+    assert len(chunks) == (2 if b == 256 and not bf16 else 1)
+    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, precision)
+    dys = torch.from_numpy((0.1 if bf16 else 1.0) * np.random.default_rng(1).standard_normal(
+        (t, b, h)).astype(np.float32)).to(cuda)
+    none = [None] * n
+    args = (layers, h0s, c0s, mk, *res, dys, none, none, precision)
+    before = cuda_stack.lstm_stack_bwd.launches
+    first, second = (leaves(cuda_stack.lstm_stack_bwd(*args)) for _ in range(2))
+    torch.cuda.synchronize()
+    assert cuda_stack.lstm_stack_bwd.launches == before + 2 * len(chunks)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+    want = leaves(cuda_stack.lstm_stack_bwd_plain(*args))
+    if not bf16:
+        for i, (a, w) in enumerate(zip(first, want)):
+            torch.testing.assert_close(a, w, msg=lambda m: f"gradient {i}: {m}", **GRAD_TOL)
+        return
+    grad_tol = dict(atol=5e-2, rtol=5e-2)
+    wide = lambda tree: [None if a is None else a.double() for a in tree]  # noqa: E731
+    own = leaves(cuda_stack.lstm_stack_bwd_plain(
+        [{k: a.double() for k, a in lay.items()} for lay in layers], wide(h0s), wide(c0s),
+        None if mk is None else wide(mk), *(wide(g) for g in res), dys.double(), none, none,
+        "bf16"))
+    for i, (a, w, w64) in enumerate(zip(first, want, own)):
+        torch.testing.assert_close(a.double(), w64, msg=lambda m: f"gradient {i} vs the float64 "
+                                   f"plain: {m}", **grad_tol)
+        if torch.allclose(w.double(), w64, **grad_tol):
+            torch.testing.assert_close(a, w, msg=lambda m: f"gradient {i}: {m}", **grad_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("b", (1, 20, 128))
+def test_stack_bwd_runs_each_weight_gradient_on_its_routed_tile(cuda, b, precision):
+    """In a trace of one BPTT call: one wg_gemm_kernel for each product that
+    gemm_tc.cuh's rule sends to the Hopper tile (cuda_scan.tc_route: all
+    six at B=128, both layers' dV and dVx at B=20, none at B=1), one
+    tc_gemm_kernel (mma.sync) for each other, the masked input's pass once,
+    and no kernel of gemm_tile.cuh."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vmlmf_tpu_torch.ops import cuda_stack
+
+    n, t, h, ranks, xranks = 2, 35, 650, (300, 300), (300,)
+    gi0, layers, h0s, c0s, mk = stack_inputs(n, t, b, h, ranks, xranks, True, cuda)
+    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, precision)
+    dys = torch.randn(t, b, h, device=cuda)
+    args = (layers, h0s, c0s, mk, *res, dys, [None] * n, [None] * n, precision)
+    cuda_stack.lstm_stack_bwd(*args)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_stack.lstm_stack_bwd(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    routed = [cuda_scan.tc_route(*p[:3]) for layer in cuda_stack.stack_tc_products(
+        t, b, h, ranks, xranks) for _, p in layer]
+    assert len(routed) == 6
+    assert sum(routed) == {1: 0, 20: 3, 128: 6}[b]
+    assert sum("wg_gemm_kernel" in k for k in names) == sum(routed), names
+    assert sum("tc_gemm_kernel" in k for k in names) == len(routed) - sum(routed), names
+    assert sum("mul_kernel" in k for k in names) == 1, names
+    assert not [k for k in names if "vmlmf::gemm_kernel" in k or "group_partial_kernel" in k]
+    assert sum("stack_bwd_kernel" in k for k in names) == 1
+
+
 def leaves(tree):
     """The tensors of a nested list/tuple/dict, in order."""
     if isinstance(tree, dict):
@@ -2347,9 +2434,10 @@ def test_gru_forced_spill_is_bit_equal_to_the_unspilled_layout(cuda, monkeypatch
 # -- the tensor-core GEMM of the LSTM scans (csrc/gemm_tc.cuh) --------------
 
 # the view of A and of B -> (a_kind, b_kind) of csrc/gemm_tc_check.cu;
-# PrevRows reads [h0; ys] in place
+# PrevRows reads [h0; ys] in place; masked_t is the stack's X^T, X = y *
+# mask written first into the staging scratch (Staging::masked)
 TC_VIEWS = {"row_row": (0, 0), "row_t": (0, 1), "t_row": (1, 0), "prev": (2, 0),
-            "prev_t": (3, 0)}
+            "prev_t": (3, 0), "masked_t": (4, 0)}
 # (m, n, k): odd edges on every side (and lda = 45, unaligned rows); the LM
 # layer's dV-like product, split k; a dense h=1500 projection, large tiles
 TC_SHAPES = {"odd": (45, 37, 53), "split": (300, 2600, 700), "large": (700, 6000, 1500)}
@@ -2380,8 +2468,11 @@ def test_tc_tile_matches_float64(cuda, view, shape, precision):
         a0, a1, lda = t(k, m), None, m
     elif a_kind == 2:  # rows of [a0; a1], the seam after row nfirst
         a0, a1, lda = t(nfirst, k), t(m - nfirst, k), k
-    else:  # A = [a0; a1]^T, the seam after column nfirst
+    elif a_kind == 3:  # A = [a0; a1]^T, the seam after column nfirst
         a0, a1, lda = t(nfirst, m), t(k - nfirst, m), m
+    else:  # A = (a0 * a1)^T, a1 a dropout mask at rate 0.5
+        a0, a1, lda = t(k, m), torch.from_numpy(
+            (rng.random((k, m)) < 0.5).astype(np.float32) / 0.5).to(cuda), m
     b0, ldb = (t(k, n), n) if b_kind == 0 else (t(n, k), k)
     a, b = operands(a_kind, b_kind, a0, a1, b0)
     bf16 = precision == "bf16"
@@ -2426,7 +2517,7 @@ def test_hopper_tile_matches_float64(cuda, view, shape, precision):
 
     m, n, k = HOPPER_SHAPES[shape]
     a_kind, b_kind = TC_VIEWS[view]
-    if shape.endswith("_b128") and (a_kind in (1, 3)) != (shape == "du_b128"):
+    if shape.endswith("_b128") and (a_kind in (1, 3, 4)) != (shape == "du_b128"):
         pytest.skip("a B=128 product is checked at the views the scans give it")
     rng = np.random.default_rng(11)
 
@@ -2440,8 +2531,11 @@ def test_hopper_tile_matches_float64(cuda, view, shape, precision):
         a0, a1, lda = t(k, m), None, m
     elif a_kind == 2:
         a0, a1, lda = t(nfirst, k), t(m - nfirst, k), k
-    else:
+    elif a_kind == 3:
         a0, a1, lda = t(nfirst, m), t(k - nfirst, m), m
+    else:
+        a0, a1, lda = t(k, m), torch.from_numpy(
+            (rng.random((k, m)) < 0.5).astype(np.float32) / 0.5).to(cuda), m
     b0, ldb = (t(k, n), n) if b_kind == 0 else (t(n, k), k)
     a, b = operands(a_kind, b_kind, a0, a1, b0)
     bf16 = precision == "bf16"

@@ -466,14 +466,6 @@ def test_bwd_partial_floats_covers_each_split_k_product():
     assert cuda_scan.bwd_partial_floats(1, 1, 4, 0, 4, 0) == 0
 
 
-def test_tile_partial_floats_keeps_the_stack_s_scratch():
-    """The stack's weight gradients stay on gemm_tile.cuh (16-deep slices),
-    so their scratch, and so their slices, are what they were."""
-    assert cuda_scan.tile_partial_floats(35, 20, 650, 300, 650, 300) == 2 * 300 * 2600
-    assert cuda_scan.tile_partial_floats(24, 81, 77, 8, 180, 6) == 9 * 1944 * 8
-    assert cuda_scan.tile_partial_floats(35, 20, 650, 0, 650, 0, gi=True) == 0
-
-
 @pytest.mark.parametrize("case", list(MMA_EMU_CASES))
 def test_emulated_mma_phases_match_the_plain_bf16_walks_and_the_jax_kernel(case):
     """The bf16 kernels' phases on mma plans, each CTA's products summed in

@@ -3,18 +3,20 @@
 //
 //   c(i, j) = epilogue(i, j, sum_k A(i, k) * B(k, j))
 //
-// Replaces, in lstm_scan_xin_fwd.cu and lstm_scan_xin_bwd.cu, the CUDA-core
+// Replaces, in lstm_scan_xin_fwd.cu, lstm_scan_xin_bwd.cu and
+// lstm_stack_bwd.cu (the wavefront stack's weight gradients), the CUDA-core
 // tile of gemm_tile.cuh, and in gru_scan_xin_bwd.cu that tile's large
 // products: the GRU BPTT's recurrent weight gradients and its recompute
 // pre-pass where wg_route sends them to the Hopper tile (the GRU's other
-// products, and the stack's, stay on gemm_tile.cuh). It takes the same
-// operand views (RowMajor, Transposed, PrevRows, PrevRowsT; the GRU's
-// composites stage through a gated wg::Source) and the same epilogue
-// functors (Store, GiEpilogue, GatesEpilogue, DxEpilogue, Partial), and its
-// products are those of the scans' x-side projection, the recompute
-// pre-pass and the BPTT's weight and x-side gradients: products with
-// thousands of output tiles (at a dense h=1500) or a few tiles and a long k
-// (the HAR layer's dU [180, 6] over k = 1944).
+// products stay on gemm_tile.cuh). It takes the same operand views
+// (RowMajor, Transposed, PrevRows, PrevRowsT; the GRU's composites stage
+// through a gated wg::Source, the stack's masked layer input is written
+// once by Staging::masked) and the same epilogue functors (Store,
+// GiEpilogue, GatesEpilogue, DxEpilogue, Partial), and its products are
+// those of the scans' x-side projection, the recompute pre-pass and the
+// BPTTs' weight and x-side gradients: products with thousands of output
+// tiles (at a dense h=1500) or a few tiles and a long k (the HAR layer's
+// dU [180, 6] over k = 1944).
 //
 // What bounds these products on an H100 is arithmetic: each operand element
 // is used by a whole tile row or column, and f32 on the CUDA cores peaks at
@@ -30,7 +32,7 @@
 //   core, then an f32 add, rounded to nearest, into the running sum.
 // * bf16 (the bf16 variants, whose products take bf16-rounded operands and
 //   sum in f32): bf16 products with f32 sums. Each operand is rounded to
-//   nearest even, the value that gemm_tile.cuh's bf16_if gives; only the
+//   nearest even, as gemm_tile.cuh's round_bf16 rounds; only the
 //   order of the sums differs.
 // Two tiles, chosen by the shape alone (tc_plan; ops/cuda_scan.py mirrors
 // it): the Hopper tile (`wg`, below) for products of kWgMinWork
@@ -895,6 +897,14 @@ cast_bf16_kernel(Source src, __nv_bfloat16* __restrict__ dst, int rows, int cols
   }
 }
 
+// out = y * mask, element by element, in f32 (one rounding each).
+template <class T>
+__global__ void __launch_bounds__(256)
+mul_kernel(const T* __restrict__ y, const T* __restrict__ mask, T* __restrict__ out, size_t n) {
+  for (size_t e = (size_t)blockIdx.x * 256 + threadIdx.x; e < n; e += (size_t)gridDim.x * 256)
+    out[e] = y[e] * mask[e];
+}
+
 // hi and lo [rows, ld] (ld a multiple of 4) = split_tf32 of the source's
 // rows [rows, cols] (Transpose: of its transpose, the source [cols, rows]),
 // zeros in the padding: through a 32x32 tile of shared memory, so that
@@ -1035,6 +1045,24 @@ struct Staging {
     float* p = reinterpret_cast<float*>(base + used);
     used += need;
     return p;
+  }
+
+  // `elems` floats of scratch holding y * mask (the wavefront stack's
+  // layer input: the output of the layer below times its dropout mask),
+  // written by one f32 pass, the value gemm_tile.cuh's MaskedRows reads in
+  // place: the tiles then read it as a plain view (the Ampere tile's
+  // cp.async copies cannot multiply, and a bf16 copy takes no gated
+  // source). Null on error (`err`). A member template (T is float), so that
+  // a library that never calls it builds no kernel for it.
+  template <class T>
+  T* masked(const T* y, const T* mask, size_t elems, cudaStream_t stream, cudaError_t& err) {
+    static_assert(std::is_same_v<T, float>, "the layer input is f32");
+    T* x = raw(elems, err);
+    if (x == nullptr) return nullptr;
+    const unsigned blocks = static_cast<unsigned>(std::min<size_t>((elems + 255) / 256, 8192));
+    wg::mul_kernel<<<blocks, 256, 0, stream>>>(y, mask, x, elems);
+    err = cudaGetLastError();
+    return err == cudaSuccess ? x : nullptr;
   }
 
   // Forgets every copy and raw sum, so that the next product stages from

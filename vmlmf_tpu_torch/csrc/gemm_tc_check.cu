@@ -6,8 +6,12 @@
 //
 // a_kind selects A's view: 0 RowMajor (a0 [m, lda]), 1 Transposed (a0
 // [k, lda] read as its transpose), 2 PrevRows (rows of a0 [nfirst, lda]
-// then of a1), 3 PrevRowsT (the transpose of that); b_kind 0 RowMajor (b0
-// [k, ldb]) or 1 Transposed (b0 [n, ldb]). bf16 1 takes bf16 products,
+// then of a1), 3 PrevRowsT (the transpose of that), 4 the wavefront
+// stack's masked layer input read as its transpose: X = a0 * a1 (y and its
+// mask, [k, lda] each), written into the start of the stage by
+// Staging::masked as lstm_stack_bwd.cu's weight gradients write it, then
+// read as Transposed{X, lda} by either tile; b_kind 0 RowMajor (b0 [k,
+// ldb]) or 1 Transposed (b0 [n, ldb]). bf16 1 takes bf16 products,
 // else 3xTF32. partial, partial_floats floats (null: none) lets a product
 // with few tiles split k, as in the scans; stage, stage_floats floats hold
 // the Hopper tile's staged operands. tile 0 takes the plan's tile
@@ -91,6 +95,16 @@ cudaError_t check(int a_kind, int b_kind, const float* a0, const float* a1, int 
     case 1: return run<Bf16>(Transposed{a0, lda}, RowMajor{b0, ldb}, x);
     case 2: return run<Bf16>(PrevRows{a0, a1, nfirst, lda}, RowMajor{b0, ldb}, x);
     case 3: return run<Bf16>(PrevRowsT{a0, a1, nfirst, lda}, RowMajor{b0, ldb}, x);
+    case 4: {
+      vmlmf::tc::Staging st(x.stage, x.stage_floats);
+      cudaError_t err = cudaSuccess;
+      const float* xm = st.masked(a0, a1, (size_t)x.k * lda, x.stream, err);
+      if (err != cudaSuccess) return err;
+      Call rest = x;  // the product stages after X, as in the stack
+      rest.stage += st.used / sizeof(float);
+      rest.stage_floats -= st.used / sizeof(float);
+      return run<Bf16>(Transposed{xm, lda}, RowMajor{b0, ldb}, rest);
+    }
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,24 +8,19 @@
 // W^T needs no transposed copy of W), and the "previous rows" view of the
 // backward pass, which reads row m of [h0; ys[0..T-2]] straight from h0 and
 // ys. The tile loads pick the thread-to-element map that keeps neighbouring
-// threads on neighbouring addresses for either layout. The masked views read
-// a layer input of the wavefront stack, y times its dropout mask, in place.
-// `bf16_if<true>` wraps a view so that it rounds each element to bf16 as it
-// loads it: the operands of the bf16 variants' products, which sum in f32.
+// threads on neighbouring addresses for either layout. `MaskedRows` reads a
+// layer input of the wavefront stack, y times its dropout mask, in place.
 //
 // Each CTA computes one 64x64 output tile with 256 threads, 4x4 outputs per
 // thread, staging 16-deep slices of A and B in shared memory. Every edge is
 // masked, so no dimension needs to be a multiple of a tile. `gemm` does not
-// split k: a weight gradient, whose k runs over all T*B rows, is summed by
-// one CTA per output tile in a fixed order, so it is deterministic.
-// `gemm_splitk` cuts k into slices for a product with few output tiles and
-// a long k (the wavefront stack's block projections, which sit on its
-// serial chain): one CTA per tile and slice writes a partial sum, then a
-// second kernel adds the slices in a fixed order and applies the epilogue,
-// so it is deterministic too. `gemm_splitk_group` does the same for
+// split k: a product is summed by one CTA per output tile in a fixed order,
+// so it is deterministic. `gemm_splitk_group` cuts k into slices for
 // several independent products in two launches, with one slice length for
-// all (the GRU BPTT's gradients). This is CUDA-core f32 (no tensor cores),
-// simple first.
+// all (the GRU BPTT's gradients): one CTA per tile and slice writes a
+// partial sum, then a second kernel adds the slices in a fixed order and
+// applies the epilogue, so it is deterministic too. This is CUDA-core f32
+// (no tensor cores), simple first.
 
 #pragma once
 
@@ -119,36 +114,6 @@ struct MaskedRows {
   }
 };
 
-// The transpose of MaskedRows: element (i, j) = y[j * ld + i] * mask[...].
-struct MaskedRowsT {
-  const float* y;
-  const float* mask;
-  int ld;
-  static constexpr bool kContigJ = false;
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    const size_t e = (size_t)j * ld + i;
-    return mask != nullptr ? y[e] * mask[e] : y[e];
-  }
-};
-
-// A view whose elements are those of V rounded to bf16.
-template <class V>
-struct Bf16Rounded {
-  V v;
-  static constexpr bool kContigJ = V::kContigJ;
-  __device__ __forceinline__ float operator()(int i, int j) const { return round_bf16(v(i, j)); }
-};
-
-// The view V, rounded to bf16 on load when On.
-template <bool On, class V>
-inline auto bf16_if(V v) {
-  if constexpr (On) {
-    return Bf16Rounded<V>{v};
-  } else {
-    return v;
-  }
-}
-
 // Epilogue that stores the sum: c[i * ldc + j] = v.
 struct Store {
   float* c;
@@ -236,18 +201,6 @@ gemm_kernel(A a, B b, Epi epi, int m, int n, int k, int kslice) {
                as, bs);
 }
 
-// c(i, j) = epi(i, j, sum over z of partial[z, i, j]), z in order.
-template <class Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-splitk_sum_kernel(const float* __restrict__ partial, Epi epi, int m, int n, int splits) {
-  const size_t e = (size_t)blockIdx.x * kGemmThreads + threadIdx.x;
-  const size_t mn = (size_t)m * n;
-  if (e >= mn) return;
-  float v = 0.f;
-  for (int z = 0; z < splits; ++z) v += partial[z * mn + e];
-  epi(static_cast<int>(e / n), static_cast<int>(e % n), v);
-}
-
 // Launches c = epi(A @ B) with A [m, k] and B [k, n] on `stream`; returns
 // cudaGetLastError().
 template <class A, class B, class Epi>
@@ -258,30 +211,6 @@ cudaError_t gemm(A a, B b, Epi epi, int m, int n, int k, cudaStream_t stream) {
 }
 
 constexpr int kSplitTarget = 264;  // CTAs a split-k product aims at: two per SM
-
-// `gemm` with k cut into slices of whole kDepth steps, so that the tiles
-// times the slices come near kSplitTarget CTAs; `partial` is scratch of
-// `partial_floats` floats, which bounds the slices at partial_floats / (m n).
-// With one slice it is `gemm`. Returns the first error.
-template <class A, class B, class Epi>
-cudaError_t gemm_splitk(A a, B b, Epi epi, int m, int n, int k, float* partial,
-                        size_t partial_floats, cudaStream_t stream) {
-  const int tiles = cdiv(n, kTile) * cdiv(m, kTile);
-  const size_t room = partial_floats / ((size_t)m * n);
-  int splits = cdiv(kSplitTarget, tiles);
-  if ((size_t)splits > room) splits = static_cast<int>(room);
-  const int kslice = cdiv(cdiv(k, splits > 1 ? splits : 1), kDepth) * kDepth;
-  splits = cdiv(k, kslice);
-  if (splits <= 1) return gemm(a, b, epi, m, n, k, stream);
-  gemm_kernel<<<dim3(cdiv(n, kTile), cdiv(m, kTile), splits), kGemmThreads, 0, stream>>>(
-      a, b, Partial{partial, m, n}, m, n, k, kslice);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t mn = (size_t)m * n;
-  splitk_sum_kernel<<<static_cast<unsigned>((mn + kGemmThreads - 1) / kGemmThreads),
-                      kGemmThreads, 0, stream>>>(partial, epi, m, n, splits);
-  return cudaGetLastError();
-}
 
 // One product of a grouped split-k: c = epi(A @ B), A [m, k], B [k, n];
 // gemm_splitk_group sets its slices and its region of the scratch.

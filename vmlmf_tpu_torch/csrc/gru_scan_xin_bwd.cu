@@ -1201,7 +1201,7 @@ struct GridWalk {
 
 }  // namespace
 
-// The row-layout entries take, after the sizes and the form, gemm_splitk's
+// The row-layout entries take, after the sizes and the form, the split-k's
 // scratch size (floats of `partial`, ops/cuda_gru.py::gru_bwd_partial_floats),
 // the Hopper tile's (floats of `staged`) and the walk's plan from
 // ops/cuda_gru.py::gru_plan: rows, threads, rec_res,

@@ -33,8 +33,8 @@
 // weights) and sums in f32; the dvec and dxvec terms, the column sums and
 // every gradient stay f32. The walk holds its weight slices as bf16 in
 // shared memory, and the CTA that writes dpre, dhu or dxu to an exchange
-// rounds it (scan_grid.cuh); the GEMMs read through rounding views
-// (gemm_tile.cuh).
+// rounds it (scan_grid.cuh); the weight gradients round their operands as
+// gemm_tc.cuh's bf16 tiles stage or read them.
 //
 // What bounds it on an H100, and what the design does about it:
 // * The TPU kernel runs its grid in order and sums dU, dV, ... in VMEM
@@ -66,13 +66,21 @@
 //      A's saved inputs of the next step (gates, cs, c_prev, and the top
 //      layer's dys) are copied with cp.async while phases B and C run;
 //      the handed-down dy once the layer above has published it.
-//   2. Once the walk ends, the weight gradients of every layer run as tiled
-//      GEMMs over all M rows with transposed and masked operand views
-//      (gemm_tile.cuh) and one column-sum kernel. Their outputs have few
-//      tiles (dU [650, 300]: 55) and their k is M, so they go through
-//      gemm_splitk, which cuts k into slices over about two CTAs per SM
-//      and adds the slices in a fixed order, as the single-layer BPTT's
-//      do: no atomics. dpre, dhu and dxu are kept [T*B, ...] for them.
+//   2. Once the walk ends, the weight gradients of every layer run over
+//      all M rows on the tensor cores (gemm_tc.cuh, as the single-layer
+//      BPTT's do: f32 as 3xTF32, bf16 as bf16 products with f32 sums), then
+//      one column-sum kernel. f32 on the CUDA cores peaks at 67 TFLOP/s,
+//      and these products are most of the BPTT's operations. tc_plan picks
+//      the tile by shape: the Hopper tile (wgmma fed by TMA from operands
+//      staged once a layer) for products of 2^28 multiply-adds or more with
+//      m, n, k >= 128 (all four at the LM stack's B=128, dV and dVx at
+//      B=20), the Ampere tile (mma.sync) for the others (all at B=1). Their
+//      outputs have few tiles (dU [650, 300]) and their k is M, so k is cut
+//      into slices whose partial sums are added in a fixed order: no
+//      atomics. dpre, dhu and dxu are kept [T*B, ...] for them; the masked
+//      input X = ys_{l-1} * mask_l of a layer l > 0 is written once into the
+//      staging scratch, as neither tile multiplies as it loads. Each layer
+//      stages from the scratch's start, so the scratch is one layer's.
 //   Every sum is taken in a fixed order: two calls give the same bits.
 // * Every edge (B, h, r, rx not multiples of the slices, rows past a
 //   group's batch rows) is masked. A batch too large for one plan runs its
@@ -84,7 +92,7 @@
 
 #include <type_traits>
 
-#include "gemm_tile.cuh"
+#include "gemm_tc.cuh"
 #include "lstm_steps.cuh"
 #include "scan_grid.cuh"
 
@@ -390,42 +398,51 @@ stack_bwd_kernel(const Stack st, const GridPlan plan) {
 }
 
 // The weight gradients of one layer over all m rows, once the walk has
-// ended. Returns the first error.
+// ended, on gemm_tc.cuh's tensor-core tiles (3xTF32, or bf16 operands with
+// f32 sums), their staged copies carved from the start of `stage` (the
+// layer before is done with its copies: one stream orders them). Returns
+// the first error.
 template <bool Bf16>
-cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, float* partial,
+cudaError_t weight_grads(const Stack& st, int l, int m, vmlmf::tc::Staging& stage, float* partial,
                          size_t room, cudaStream_t stream) {
-  using vmlmf::bf16_if;
-  using vmlmf::gemm_splitk;
   using vmlmf::RowMajor;
   using vmlmf::Store;
   using vmlmf::Transposed;
+  using vmlmf::tc::gemm_splitk;
   const Layer& ly = st.layer[l];
-  const int g4 = 4 * h;
+  const int h = st.h, g4 = 4 * h;
+  stage.reset();
+  cudaError_t err = cudaSuccess;
+  // for l > 0 the layer's input X = ys_{l-1} * mask_l, written once into
+  // the scratch (one f32 rounding, the value MaskedRows reads in place), so
+  // that both tiles read it as a plain view; without a mask, ys_{l-1}
+  const float* y = l > 0 ? st.layer[l - 1].ys : nullptr;
+  const float* x = y;
+  if (l > 0 && ly.mask != nullptr) {
+    x = stage.masked(y, ly.mask, (size_t)m * h, stream, err);
+    if (err != cudaSuccess) return err;
+  }
   // dV [r, 4h] = HU^T dPre;  dU [h, r] = Hprev^T dHU
-  cudaError_t err = gemm_splitk(bf16_if<Bf16>(Transposed{ly.hu, ly.r}),
-                                bf16_if<Bf16>(RowMajor{ly.dpre, g4}), Store{ly.dv, g4}, ly.r, g4,
-                                m, partial, room, stream);
+  err = gemm_splitk<Bf16>(stage, Transposed{ly.hu, ly.r}, RowMajor{ly.dpre, g4},
+                          Store{ly.dv, g4}, ly.r, g4, m, partial, room, stream);
   if (err != cudaSuccess) return err;
-  err = gemm_splitk(bf16_if<Bf16>(vmlmf::PrevRowsT{ly.h0, ly.ys, batch, h}),
-                    bf16_if<Bf16>(RowMajor{ly.dhu, ly.r}), Store{ly.du, ly.r}, h, ly.r, m,
-                    partial, room, stream);
+  err = gemm_splitk<Bf16>(stage, vmlmf::PrevRowsT{ly.h0, ly.ys, st.batch, h},
+                          RowMajor{ly.dhu, ly.r}, Store{ly.du, ly.r}, h, ly.r, m, partial, room,
+                          stream);
   if (err != cudaSuccess) return err;
-  const float* x = l > 0 ? st.layer[l - 1].ys : nullptr;
   if (l > 0) {
     // dUx [h, rx] = X^T dXU;  dVx [rx, 4h] = XU^T dPre
-    err = gemm_splitk(bf16_if<Bf16>(vmlmf::MaskedRowsT{x, ly.mask, h}),
-                      bf16_if<Bf16>(RowMajor{ly.dxu, ly.rx}), Store{ly.dux, ly.rx}, h, ly.rx, m,
-                      partial, room, stream);
+    err = gemm_splitk<Bf16>(stage, Transposed{x, h}, RowMajor{ly.dxu, ly.rx},
+                            Store{ly.dux, ly.rx}, h, ly.rx, m, partial, room, stream);
     if (err != cudaSuccess) return err;
-    err = gemm_splitk(bf16_if<Bf16>(Transposed{ly.xu, ly.rx}),
-                      bf16_if<Bf16>(RowMajor{ly.dpre, g4}), Store{ly.dvx, g4}, ly.rx, g4, m,
-                      partial, room, stream);
+    err = gemm_splitk<Bf16>(stage, Transposed{ly.xu, ly.rx}, RowMajor{ly.dpre, g4},
+                            Store{ly.dvx, g4}, ly.rx, g4, m, partial, room, stream);
     if (err != cudaSuccess) return err;
   }
   // ddvec, and for l > 0 ddxvec and dbias (null for layer 0)
   vmlmf::colsum_kernel<<<cdiv(g4, vmlmf::kSumCols), vmlmf::kSumCols * vmlmf::kSumLanes, 0,
-                         stream>>>(ly.dpre, ly.h0, ly.ys, vmlmf::MaskedRows{x, ly.mask, h},
-                                   ly.ddvec, ly.ddxvec, ly.dbias, m, batch, h, h);
+                         stream>>>(ly.dpre, ly.h0, ly.ys, vmlmf::MaskedRows{y, ly.mask, h},
+                                   ly.ddvec, ly.ddxvec, ly.dbias, m, st.batch, h, h);
   return cudaGetLastError();
 }
 
@@ -434,7 +451,7 @@ cudaError_t weight_grads(const Stack& st, int l, int m, int batch, int h, float*
 // layer's CTAs carve. Returns the first error.
 template <bool Bf16>
 cudaError_t bwd(const Stack& st, GridPlan plan, bool grads, float* partial, size_t room,
-                cudaStream_t stream) {
+                vmlmf::tc::Staging& stage, cudaStream_t stream) {
   using W = std::conditional_t<Bf16, bf16, float>;
   for (int l = 0; l < st.n_layers; ++l) {
     const Layer& ly = st.layer[l];
@@ -446,7 +463,7 @@ cudaError_t bwd(const Stack& st, GridPlan plan, bool grads, float* partial, size
   cudaError_t err = vmlmf::launch_grid(stack_bwd_kernel<Bf16>, plan, st.sync, args, stream,
                                        st.n_layers * plan.groups);
   for (int l = 0; grads && l < st.n_layers && err == cudaSuccess; ++l)
-    err = weight_grads<Bf16>(st, l, st.t_len * st.batch, st.batch, st.h, partial, room, stream);
+    err = weight_grads<Bf16>(st, l, st.t_len * st.batch, stage, partial, room, stream);
   return err;
 }
 
@@ -459,13 +476,17 @@ cudaError_t bwd(const Stack& st, GridPlan plan, bool grads, float* partial, size
 // has none, and for absent cotangents); ints kInts integers per layer, (r,
 // rx, ctas), rx = 0 for layer 0; sync the [L][groups] barrier words (the
 // launcher zeroes them); partial scratch of partial_floats floats for the
-// split-k partial sums of the weight gradients. groups, rpad, stage, red
-// and smem are stack_plan's layout of the BPTT for b_count rows; bf16_mm 1
-// the bf16 form. Returns the first error.
+// split-k partial sums of the weight gradients, and tc_stage scratch of
+// stage_floats floats for their staged operands and, for a layer l > 0
+// with a mask, its input X (ops/cuda_stack.py::stack_partial_floats and
+// stack_tc_stage_floats). groups, rpad, stage, red and smem are
+// stack_plan's layout of the BPTT for b_count rows; bf16_mm 1 the bf16
+// form. Returns the first error.
 extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ints, unsigned* sync, float* partial,
-                              int partial_floats, int n_layers, int t_len, int batch,
-                              int b_begin, int b_count, int h, int groups, int rpad, int stage,
-                              int red, int smem, int grads, int bf16_mm, void* stream_handle) {
+                              float* tc_stage, int partial_floats, int stage_floats, int n_layers,
+                              int t_len, int batch, int b_begin, int b_count, int h, int groups,
+                              int rpad, int stage, int red, int smem, int grads, int bf16_mm,
+                              void* stream_handle) {
   if (n_layers < 1 || n_layers > kMaxLayers || b_begin < 0 || b_count < 1 ||
       b_begin + b_count > batch)
     return cudaErrorInvalidValue;
@@ -523,8 +544,9 @@ extern "C" int lstm_stack_bwd(void* const* ptrs, const int* ints, unsigned* sync
   const GridPlan plan{groups, ctas, rpad, stage, red, smem};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const size_t room = static_cast<size_t>(partial_floats);
-  return bf16_mm ? bwd<true>(st, plan, grads != 0, partial, room, stream)
-                 : bwd<false>(st, plan, grads != 0, partial, room, stream);
+  vmlmf::tc::Staging staging(tc_stage, static_cast<size_t>(stage_floats));
+  return bf16_mm ? bwd<true>(st, plan, grads != 0, partial, room, staging, stream)
+                 : bwd<false>(st, plan, grads != 0, partial, room, staging, stream);
 }
 
 // The message of an error code that lstm_stack_bwd returned.

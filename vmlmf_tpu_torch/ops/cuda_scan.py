@@ -986,17 +986,16 @@ def plan_layout(b, h, r, groups, ctas, elsize=4, resident=None, ring=None, piece
                     *map(tuple, resident), *rings, mma)
 
 
-def _splitk_floats(m, n, k, depth=TC_DEPTH):
+def _splitk_floats(m, n, k):
     """Floats of partial sums that a split-k product c [m, n] = A [m, k] @
     B [k, n] wants of the Ampere tile's rule (0: it does not split): with
     fewer than SPLIT_TARGET 64x64 tiles, the tiles times slices of k in
-    whole ``depth`` steps near SPLIT_TARGET CTAs. gemm_tc.cuh::mma_plan
-    (which never takes its 128x128 tile there) slices by TC_DEPTH,
-    gemm_tile.cuh's by 16."""
+    whole TC_DEPTH steps near SPLIT_TARGET CTAs (gemm_tc.cuh::mma_plan,
+    which never takes its 128x128 tile there)."""
     if k <= 0:
         return 0
     splits = _cdiv(SPLIT_TARGET, _cdiv(n, 64) * _cdiv(m, 64))
-    kslice = _cdiv(_cdiv(k, splits), depth) * depth
+    kslice = _cdiv(_cdiv(k, splits), TC_DEPTH) * TC_DEPTH
     splits = _cdiv(k, kslice)
     return splits * m * n if splits > 1 else 0
 
@@ -1155,16 +1154,6 @@ def tc_stage_floats(t, b, f, rx, h, r, entry, bf16, *, gi=False, recompute=False
     return sum(c[-1] for c in copies) // 4
 
 
-def _partial_shapes(t, b, f, rx, h, r, gi, recompute):
-    m, g4 = t * b, 4 * h
-    shapes = [(h, g4, m)] if not r else [(r, g4, m), (h, r, m)]
-    if not gi:
-        shapes += [(f, g4, m), (m, f, g4)] if not rx else [(f, rx, m), (rx, g4, m), (m, rx, g4)]
-    if recompute:
-        shapes.append((m, r or g4, h))
-    return shapes
-
-
 @functools.lru_cache(maxsize=256)
 def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False, bf16=False):
     """Floats of split-k scratch for the BPTT's products with few output
@@ -1175,13 +1164,6 @@ def bwd_partial_floats(t, b, f, rx, h, r, *, gi=False, recompute=False, bf16=Fal
     return max([0] + [tc_splitk_floats(m, n, k, bf16) for m, n, k, _, _, split, _ in
                       gemm_products(t, b, f, rx, h, r, "bwd", gi=gi, recompute=recompute)
                       if split])
-
-
-def tile_partial_floats(t, b, f, rx, h, r, *, gi=False):
-    """`bwd_partial_floats` under gemm_tile.cuh's split rule: the scratch of
-    the stack's weight gradients (ops/cuda_stack.py), whose products stay on
-    that tile, so their slices, and their bits, stay as they were."""
-    return max(_splitk_floats(*s, depth=16) for s in _partial_shapes(t, b, f, rx, h, r, gi, False))
 
 
 @functools.lru_cache(maxsize=256)

@@ -21,7 +21,8 @@ torch ops, layer by layer), a launch count and a cost function:
     ``csrc/lstm_stack_bwd.cu``.
 
 Each is one cooperative launch over the SMs (the BPTT then runs its weight
-GEMMs), laid out by `stack_plan`: batch groups, and in each a set of CTAs
+GEMMs on the tensor cores, csrc/gemm_tc.cuh: `stack_tc_products`), laid out
+by `stack_plan`: batch groups, and in each a set of CTAs
 per layer that hold the layer's factor slices in shared memory for the whole
 launch. `LSTMStackScan` is the `torch.autograd.Function` that pairs the last
 two, and `stack_scan` picks it or the no-grad entry. `run_stack_grouped`
@@ -52,6 +53,7 @@ from vmlmf_tpu_torch.ops.cuda_scan import (
     SMEM_LIMIT,
     SMS,
     STAGE_FLOATS,
+    _align,
     _bf16,
     _cdiv,
     _counted,
@@ -61,9 +63,11 @@ from vmlmf_tpu_torch.ops.cuda_scan import (
     _slices,
     _sm_count,
     _split_at,
+    gemm_products,
     lstm_bptt_plain,
     lstm_recurrence_plain,
-    tile_partial_floats,
+    staged_copies,
+    tc_splitk_floats,
     variant,
 )
 from vmlmf_tpu_torch.ops.pipeline import stack_cell_units, warn_fallback
@@ -663,13 +667,15 @@ def lstm_stack_bwd(layers, h0s, c0s, masks, ys, cs, gates, hu, xu, dys, dhlast, 
                          dxu=new(t, b, rx), dux=torch.empty_like(lay["ux"]),
                          dvx=torch.empty_like(lay["vx"]), ddxvec=new(4 * h), dbias=new(4 * h))
             per_layer.append(d)
-        # split-k scratch for the weight gradients, whose k is T*B
-        partial = new(max(1, *(tile_partial_floats(t, b, h, xranks[l - 1] if l else 0, h, r,
-                                                   gi=l == 0) for l, r in enumerate(ranks))))
+        # the weight gradients' split-k scratch (their k is T*B) and staged
+        # operands, the masked layer inputs included
+        sizes = (t, b, h, tuple(ranks), tuple(xranks), bf16)
+        partial = new(max(1, stack_partial_floats(*sizes)))
+        stage = new(max(1, stack_tc_stage_floats(*sizes, masks is not None)))
         table, sync = _table(BWD_FIELDS, per_layer), _sync_words(chunks, n, dgi0)
         for i, (b0, rows, plan) in enumerate(chunks):  # the weight gradients after the last
-            _launch(BWD_KERNEL, table, plan, (sync, partial),
-                    (partial.numel(), n, t, b, b0, rows, h, *plan.ints("bwd"),
+            _launch(BWD_KERNEL, table, plan, (sync, partial, stage),
+                    (partial.numel(), stage.numel(), n, t, b, b0, rows, h, *plan.ints("bwd"),
                      int(i == len(chunks) - 1), int(bf16)), dev)
             _counted(lstm_stack_bwd, variant(precision))
     dlayers = [{k: d["d" + k] for k in _keys(l)} for l, d in enumerate(per_layer)]
@@ -855,6 +861,65 @@ def stack_mm_ops(t, b, h, ranks, xranks):
     rate. The BPTT's products are twice these."""
     return 2 * t * b * sum(h * r + r * 4 * h + (h * rx + rx * 4 * h if rx else 0)
                            for r, rx in zip(ranks, [0, *xranks]))
+
+
+STACK_PRODUCTS = ("dV", "dU", "dUx", "dVx")  # the weight gradients of a layer, in order
+
+
+def stack_tc_products(t, b, h, ranks, xranks):
+    """The BPTT's weight-gradient products on gemm_tc.cuh, layer by layer in
+    launch order (csrc/lstm_stack_bwd.cu::weight_grads) -> a list a layer of
+    [(name, (m, n, k, A, B, split, store))], as `cuda_scan.gemm_products`
+    gives the per-layer BPTT's: dV = HUᵀ dPre and dU = Hprevᵀ dHU, and for
+    a layer l >= 1 dUx = Xᵀ dXU and dVx = XUᵀ dPre, each over k = T*B,
+    split, with a Store epilogue. "x" is the layer's input, ys of the layer
+    below times its mask (written once into the staging scratch where
+    there is a mask)."""
+    out = []
+    for l, r in enumerate(ranks):
+        rx = xranks[l - 1] if l else 0
+        products = gemm_products(t, b, h, rx, h, r, "bwd", gi=l == 0)
+        # the weight gradients read their A transposed; dXU and dx do not
+        out.append(list(zip(STACK_PRODUCTS, [p for p in products if not p[3][1]])))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def stack_partial_floats(t, b, h, ranks, xranks, bf16):
+    """Floats of split-k scratch for the BPTT's weight gradients: the most
+    that any of `stack_tc_products` wants of gemm_tc.cuh's plan
+    (`cuda_scan.tc_splitk_floats`). ``ranks``, ``xranks``: tuples."""
+    return max([0] + [tc_splitk_floats(*p[:3], bf16) for layer in
+                      stack_tc_products(t, b, h, ranks, xranks) for _, p in layer])
+
+
+@functools.lru_cache(maxsize=256)
+def stack_tc_stage_floats(t, b, h, ranks, xranks, bf16, masks):
+    """Floats of the BPTT's staging scratch (``tc_stage`` of
+    lstm_stack_bwd.cu): each layer stages from its start (Staging::reset),
+    first, for a layer l >= 1 with ``masks``, its input X [T*B, h] (f32,
+    Staging::masked), then the Hopper tile's copies of its products
+    (`cuda_scan.staged_copies` with `stack_partial_floats`); the largest
+    layer's. ``ranks``, ``xranks``: tuples."""
+    partial = stack_partial_floats(t, b, h, ranks, xranks, bf16)
+    most = 0
+    for l, layer in enumerate(stack_tc_products(t, b, h, ranks, xranks)):
+        x = _align(4 * t * b * h) if l and masks else 0
+        copies = staged_copies([p for _, p in layer], bf16, partial)
+        most = max(most, x + sum(c[-1] for c in copies))
+    return most // 4
+
+
+def stack_gemm_ops(t, b, h, ranks, xranks):
+    """Operations of the BPTT's weight gradients (two per multiply-add of
+    `stack_tc_products`), which run on the tensor cores: the share of
+    `stack_bwd_cost`'s operations that the bound prices at the 3xTF32 rate
+    in f32 and the bf16 rate in bf16. The walk's products, `stack_mm_ops`,
+    go at the f32 rate in f32 and at the bf16 rate in bf16 (bf16 operands,
+    f32 sums). Equal to `stack_mm_ops`: each weight gradient is a forward
+    product's transpose over the same T*B rows."""
+    return sum(2 * p[0] * p[1] * p[2] for layer in stack_tc_products(t, b, h, ranks, xranks)
+               for _, p in layer)
 
 
 def _weight_floats(h, ranks, xranks):

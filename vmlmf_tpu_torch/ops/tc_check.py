@@ -9,7 +9,10 @@ operands (bf16-rounded for ``bf16``) and ``tc_cast`` torch's rounding.
 
 Views of A (``a_kind``): 0 ``RowMajor`` (a0 [m, lda]), 1 ``Transposed``
 (a0 [k, lda] read as its transpose), 2 ``PrevRows`` (the rows of a0
-[nfirst, lda], then those of a1), 3 ``PrevRowsT`` (the transpose of that).
+[nfirst, lda], then those of a1), 3 ``PrevRowsT`` (the transpose of that),
+4 `MASKED`: the transpose of X = a0 * a1 (the wavefront stack's layer input,
+y times its mask, [k, lda] each), which the check writes into its staging
+scratch first, as the stack's BPTT does (``Staging::masked``).
 Views of B (``b_kind``): 0 ``RowMajor`` (b0 [k, ldb]), 1 ``Transposed``
 (b0 [n, ldb]).
 
@@ -34,6 +37,7 @@ from vmlmf_tpu_torch.ops import cuda_scan
 # unsplit, the Hopper tile (3, split by its own plan) or the Ampere tile
 # split by its own plan (4)
 PLAN, AMPERE_BIG, AMPERE_SMALL, HOPPER, AMPERE = range(5)
+MASKED = 4  # a_kind: X^T of X = y * mask, materialised first
 
 
 def operands(a_kind, b_kind, a0, a1, b0):
@@ -44,19 +48,22 @@ def operands(a_kind, b_kind, a0, a1, b0):
         a = a0.T
     elif a_kind == 2:
         a = torch.cat([a0, a1])
-    else:
+    elif a_kind == 3:
         a = torch.cat([a0, a1]).T
+    else:
+        a = (a0 * a1).T
     return a, b0 if b_kind == 0 else b0.T
 
 
 def scratch_floats(a_kind, b_kind, m, n, k, bf16, split=True, tile=PLAN):
     """(split-k floats, staged-copy floats) that ``tc_product`` gives the
     tile: the scans' rules (`tc_splitk_floats`, `staged_copies`), the
-    Hopper tile's where ``tile`` forces it."""
+    Hopper tile's where ``tile`` forces it; `MASKED`'s X first."""
+    x = cuda_scan._align(4 * k * m) // 4 if a_kind == MASKED else 0  # X [k, m]
     if tile in (AMPERE_BIG, AMPERE_SMALL):
-        return 0, 0
+        return 0, x
     if tile == AMPERE:
-        return (cuda_scan._splitk_floats(m, n, k) if split else 0), 0
+        return (cuda_scan._splitk_floats(m, n, k) if split else 0), x
     hopper = tile == HOPPER or cuda_scan.tc_route(m, n, k)
     floats = 0
     if split and tile == PLAN:
@@ -66,7 +73,7 @@ def scratch_floats(a_kind, b_kind, m, n, k, bf16, split=True, tile=PLAN):
         floats = splits * m * n if splits > 1 else 0
     product = (m, n, k, ("a", a_kind in (0, 2)), ("b", b_kind == 0), split, True)
     copies = cuda_scan.staged_copies([product], bf16, floats, route=lambda *_: hopper)
-    return floats, sum(c[-1] for c in copies) // 4
+    return floats, x + sum(c[-1] for c in copies) // 4
 
 
 def _lib():

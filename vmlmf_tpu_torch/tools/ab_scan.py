@@ -27,8 +27,12 @@ no-grad entry): "fwd", "res", "bwd" of x mode with saved gates and, where
 the checkout's `cuda_gru` has gi mode (`gru_scan_fused`), "gi_fwd",
 "gi_res", "gi_bwd" and the recompute policy's "rc_res" and "rc_bwd".
 Under "stack", the stack's three entries at the LM stack (L=2, T=35,
-h=650, r=rx=300) at B = 1 (no-grad), 20 and 128, and, where the
-checkout's stack takes ``precision``, the same in bf16 ("bf16_fwd", ...).
+h=650, r=rx=300) at B = 1, 20 and 128 (the residual forward and the BPTT
+with a dropout mask), and, where the checkout's stack takes
+``precision``, the same in bf16 ("stack_bf16"); then, under "plans",
+"stack_peak_mib": the peak device MiB of one BPTT call at B=128 in f32
+and in bf16. ``--stack`` (anywhere among the checkouts) runs this part
+alone, in f32 and bf16, with the "stack" and "stack_bf16" digests.
 Each line also gives, under "ptxas", the registers and spill bytes that
 ``nvcc -Xptxas -v`` reports for each form of the checkout's serial kernels
 (`scan_kernel` and `bptt_kernel` or their grid forms, the GRU's
@@ -82,6 +86,7 @@ from __future__ import annotations
 
 import subprocess
 import sys
+from pathlib import Path
 
 CHILD = r"""
 import hashlib, inspect, json, os, re, subprocess, sys
@@ -94,6 +99,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 _build.build_all()
 BITS = "--bits" in sys.argv[2:]  # no timings: ptxas, plans and digests
 t, f, h, rx, r = 35, 650, 650, 300, 300
+# the stack's seeded inputs: main puts tools/stack_case.py's source here
+# {stack_case}
 
 
 def inputs(b, form):
@@ -180,21 +187,6 @@ def gru_ms(form):
     return out
 
 
-def stack_inputs(b):
-    g = torch.Generator().manual_seed(0)
-    n = lambda *s, scale: (scale * torch.randn(s, generator=g)).cuda()
-    layers = []
-    for l in range(2):
-        lay = dict(u=n(h, r, scale=h ** -0.5), v=n(r, 4 * h, scale=r ** -0.5),
-                   dvec=n(4 * h, scale=0.1))
-        if l:
-            lay.update(ux=n(h, rx, scale=h ** -0.5), vx=n(rx, 4 * h, scale=rx ** -0.5),
-                       dxvec=n(4 * h, scale=0.1), bias=n(4 * h, scale=0.1))
-        layers.append(lay)
-    return (n(t, b, 4 * h, scale=1.0), layers, [n(b, h, scale=0.5) for _ in range(2)],
-            [n(b, h, scale=0.5) for _ in range(2)])
-
-
 def mean_ms(fn, args=(), iters=20):
     fn(*args)
     torch.cuda.synchronize()
@@ -250,13 +242,7 @@ VARIANTS = {"f32": ("f32", "f32", True), "bf16": ("bf16", "f32", True),
 # every output of the stack's three entries (f32 where precision is None,
 # as every checkout takes it), and the BPTT's arguments
 def stack_outputs(b, precision=None):
-    gi0, layers, h0s, c0s = stack_inputs(b)
-    prec = () if precision is None else (precision,)
-    g = torch.Generator().manual_seed(7)
-    mk = [(torch.rand(gi0.shape[:2] + (h,), generator=g) < 0.5).float().cuda() / 0.5]
-    res = cuda_stack.lstm_stack_scan_fused_res(gi0, layers, h0s, c0s, mk, *prec)
-    dys = torch.randn(*res[0][0].shape, generator=torch.Generator().manual_seed(5)).cuda()
-    bwd_args = (layers, h0s, c0s, mk, *res, dys, [None] * 2, [None] * 2, *prec)
+    (gi0, layers, h0s, c0s, mk, prec), res, bwd_args = stack_case(b, precision)
     fwd = cuda_stack.lstm_stack_scan_fused(gi0, layers, h0s, c0s, None, *prec)
     grads = cuda_stack.lstm_stack_bwd(*bwd_args)
     outs = [fwd[0], *fwd[1], *fwd[2], *(a for group in res for a in group), grads[0],
@@ -266,13 +252,11 @@ def stack_outputs(b, precision=None):
 
 def stack_ms(b, precision=None):
     _, (gi0, layers, h0s, c0s, mk, prec), bwd_args = stack_outputs(b, precision)
-    out = {"fwd": [mean_ms(cuda_stack.lstm_stack_scan_fused, (gi0, layers, h0s, c0s, None, *prec))
-                   for _ in range(3)]}
-    if b > 1:
-        out["res"] = [mean_ms(cuda_stack.lstm_stack_scan_fused_res,
-                              (gi0, layers, h0s, c0s, mk, *prec)) for _ in range(3)]
-        out["bwd"] = [mean_ms(cuda_stack.lstm_stack_bwd, bwd_args) for _ in range(3)]
-    return out
+    return {"fwd": [mean_ms(cuda_stack.lstm_stack_scan_fused, (gi0, layers, h0s, c0s, None, *prec))
+                    for _ in range(3)],
+            "res": [mean_ms(cuda_stack.lstm_stack_scan_fused_res,
+                            (gi0, layers, h0s, c0s, mk, *prec)) for _ in range(3)],
+            "bwd": [mean_ms(cuda_stack.lstm_stack_bwd, bwd_args) for _ in range(3)]}
 
 
 # sha256 of every output of the three f32 entries at B=20 (both forms; the
@@ -439,6 +423,22 @@ def grid_peaks():
     return out
 
 
+# the peak MiB of one stack BPTT call at B=128 (with masks, as in
+# training), f32 and bf16
+def stack_peaks():
+    return {f"bwd_b128_{p}": peak_mib(lambda a=stack_outputs(128, p)[2]:
+                                       cuda_stack.lstm_stack_bwd(*a)) for p in ("f32", "bf16")}
+
+
+if "--stack" in sys.argv[2:]:
+    print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0),
+                      "stack": {p: {b: stack_ms(b, p) for b in (1, 20, 128)}
+                                for p in ("f32", "bf16")},
+                      "stack_peak_mib": stack_peaks(),
+                      "digest": {"stack": digest("stack"),
+                                 "stack_bf16": digest("stack", precision="bf16")}}))
+    sys.exit(0)
+
 if "--gru-grid" in sys.argv[2:]:
     gms, gplans, gpeaks, gdig = gru_grid()
     print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0),
@@ -498,6 +498,8 @@ gms, gplans, gpeaks, gdig = gru_grid()
 ms["gru_grid"] = gms
 plans["gru_grid"] = gplans
 plans["gru_grid_peak_mib"] = gpeaks
+if "precision" in inspect.signature(cuda_stack.lstm_stack_scan_fused).parameters:
+    plans["stack_peak_mib"] = stack_peaks()
 digests.update(gdig)
 families["gru_grid"] = tuple(sorted(gdig))
 families["all"] = tuple(digests)
@@ -511,12 +513,14 @@ print(json.dumps({"checkout": sys.argv[1], "card": torch.cuda.get_device_name(0)
 
 def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
-    dirs = [a for a in args if a not in ("--gru-grid", "--bits")]
+    flags = ("--gru-grid", "--bits", "--stack")
+    dirs = [a for a in args if a not in flags]
     if not dirs:
         raise SystemExit(__doc__)
-    only = [a for a in ("--gru-grid", "--bits") if a in args]
+    only = [a for a in flags if a in args]
+    child = CHILD.replace("# {stack_case}\n", (Path(__file__).parent / "stack_case.py").read_text())
     for d in dirs:
-        subprocess.run([sys.executable, "-c", CHILD, d, *only], check=True, timeout=900)
+        subprocess.run([sys.executable, "-c", child, d, *only], check=True, timeout=900)
 
 
 if __name__ == "__main__":

@@ -49,7 +49,13 @@ alone; SHAPE names: those shapes alone):
   too.
 
 ``--gemm``: the ``gemm`` reading alone, in f32 and in bf16, at the shapes
-of `GEMM_SHAPES` (or the SHAPEs named): no stamped build.
+of `GEMM_SHAPES` and, for the wavefront stack's BPTT (`cuda_stack.
+lstm_stack_bwd`, the LM stack: L=2, T=35, h=650, r=rx=300, dropout masks
+as in training), of `STACK_SHAPES` (or the SHAPEs named): its weight
+gradients product by product (`cuda_stack.stack_tc_products`), each beside
+``torch.matmul`` of its shape, and its split into the walk
+(``stack_bwd_kernel``), the GEMM phase (the masked input's pass counted
+with the staging passes) and the rest (the column sums); no stamped build.
 
 Prints one JSON line a shape, the card's name and power limit first.
 """
@@ -68,7 +74,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from vmlmf_tpu_torch.ops import _build, cuda_scan
+from vmlmf_tpu_torch.ops import _build, cuda_scan, cuda_stack
+from vmlmf_tpu_torch.tools.stack_case import (STACK_H, STACK_RANKS, STACK_T, STACK_XRANKS,
+                                               stack_case)
 
 SHAPES = {  # (T, B, F, h, rx, r); r = 0 and rx = 0: a dense side
     "lm_b1": (35, 1, 650, 650, 300, 300), "lm_b20": (35, 20, 650, 650, 300, 300),
@@ -82,11 +90,15 @@ BF16_SHAPES = ("lm_b20", "lm_b128", "dense1500_b20", "dense1500_b128")
 # the shapes of the GEMM phase's reading (--gemm): the LM layer and the
 # dense h=1500 layer at B = 20 and 128, the HAR layer at B=81
 GEMM_SHAPES = ("lm_b20", "lm_b128", "har_b81", "dense1500_b20", "dense1500_b128")
+# the wavefront LM stack's BPTT (--gemm): batch by name
+STACK_SHAPES = {"stack_b1": 1, "stack_b20": 20, "stack_b128": 128}
 # the kernels of the GEMM phase, by the part of a product each is: its tile,
-# its split-k sum, and the passes that stage its operands
+# its split-k sum, and the passes that stage its operands (the stack's
+# masked layer input among them)
 TILE_KERNELS = ("tc_gemm_kernel", "wg_gemm_kernel")
 SUM_KERNELS = ("tc_sum_kernel",)
-CAST_KERNELS = ("cast_bf16_kernel", "split_tf32_kernel")
+CAST_KERNELS = ("cast_bf16_kernel", "split_tf32_kernel", "wg::mul_kernel")
+WALK_KERNELS = ("grid_scan_kernel", "grid_bptt_kernel", "stack_bwd_kernel")
 MAX_STEPS = 256
 # the counters read at each stamp, after the stamp itself: the ring's waits
 # and the mma walk's spans (scan_grid.cuh, patched below)
@@ -248,69 +260,79 @@ def operands(m, n, k, dtype):
 
 def gemm_phase(shape, precision, reps=5):
     """{entry: {"products": [...], "split": {...}}} of the no-grad forward
-    and the BPTT: each product's device ms (its tc_gemm_kernel and, split
+    and the BPTT (`gemm_reading`)."""
+    calls = entries(shape, precision)
+    return {entry: gemm_reading(calls[entry], products(shape, entry), reps)
+            for entry in ("fwd", "bwd")}
+
+
+def stack_products(b):
+    """The stack BPTT's weight gradients in launch order: [(product, m, n, k)]."""
+    return [(f"layer {l} {name}", *p[:3]) for l, layer in enumerate(cuda_stack.stack_tc_products(
+        STACK_T, b, STACK_H, STACK_RANKS, STACK_XRANKS)) for name, p in layer]
+
+
+def gemm_reading(call, want, reps=5):
+    """{"products": [...], "split": {...}} of one entry: each product of
+    ``want`` [(product, m, n, k)], its device ms (its tile kernel and, split
     over k, its tc_sum_kernel) beside the device ms of ``torch.matmul`` of
     the same shape (f32 with TF32 off, and bf16), all of one profiler
     session, and the entry's device ms by part. A spin kernel between the
     groups of calls tells their kernels apart."""
-    calls = entries(shape, precision)
-    out, tf32 = {}, torch.backends.cuda.matmul.allow_tf32
-    for entry in ("fwd", "bwd"):
-        want = products(shape, entry)
-        mats = [operands(m, n, k, dtype) for _, m, n, k in want
-                for dtype in (torch.float32, torch.bfloat16)]
-        groups = [calls[entry]] + [lambda a=a, b=b: torch.matmul(a, b) for a, b in mats]
-        try:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            for fn in groups:  # warm-up: cuBLAS picks its kernels on a shape's first call
-                fn()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    mats = [operands(m, n, k, dtype) for _, m, n, k in want
+            for dtype in (torch.float32, torch.bfloat16)]
+    groups = [call] + [lambda a=a, b=b: torch.matmul(a, b) for a, b in mats]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for fn in groups:  # warm-up: cuBLAS picks its kernels on a shape's first call
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in groups:
+                for _ in range(reps):
+                    fn()
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for fn in groups:
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda._sleep(1000)
-                torch.cuda.synchronize()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        segments = [[]]
-        for e in events:
-            if "spin_kernel" in kernel_name(e):
-                segments.append([])
-            else:
-                segments[-1].append((kernel_name(e), e.time_range.elapsed_us() / 1e3 / reps))
-        split, runs, casts = {"walk": 0.0, "gemm": 0.0, "other": 0.0}, [], 0.0
-        for name, ms in segments[0]:
-            tile, tail, cast = (any(n in name for n in ks)
-                                for ks in (TILE_KERNELS, SUM_KERNELS, CAST_KERNELS))
-            part = ("walk" if "grid_scan_kernel" in name or "grid_bptt_kernel" in name else
-                    "gemm" if tile or tail or cast else "other")
-            split[part] += ms
-            if tile:
-                runs.append([name, ms, casts, 0.0])
-                casts = 0.0
-            elif tail and runs:
-                runs[-1][1] += ms
-                runs[-1][3] += ms
-            elif cast:
-                casts += ms
-        matmul = [round(sum(ms for _, ms in seg), 4) for seg in segments[1:1 + len(mats)]]
-        per_call = len(runs) // reps
-        rows = []
-        for i, (name, _, _, _) in enumerate(runs[:per_call]):  # the products of one call
-            row = {"kernel": name,
-                   "ms": round(sum(runs[c * per_call + i][1] for c in range(reps)), 4),
-                   "sum_ms": round(sum(runs[c * per_call + i][3] for c in range(reps)), 4),
-                   "cast_ms": round(sum(runs[c * per_call + i][2] for c in range(reps)), 4)}
-            if per_call == len(want):
-                label, m, n, k = want[i]
-                row.update(product=label, m=m, n=n, k=k, matmul_f32_ms=matmul[2 * i],
-                           matmul_bf16_ms=matmul[2 * i + 1])
-            rows.append(row)
-        out[entry] = {"products": rows, "split": {k: round(v, 4) for k, v in split.items()}}
-    return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    segments = [[]]
+    for e in events:
+        if "spin_kernel" in kernel_name(e):
+            segments.append([])
+        else:
+            segments[-1].append((kernel_name(e), e.time_range.elapsed_us() / 1e3 / reps))
+    split, runs, casts = {"walk": 0.0, "gemm": 0.0, "other": 0.0}, [], 0.0
+    for name, ms in segments[0]:
+        tile, tail, cast = (any(n in name for n in ks)
+                            for ks in (TILE_KERNELS, SUM_KERNELS, CAST_KERNELS))
+        part = ("walk" if any(n in name for n in WALK_KERNELS) else
+                "gemm" if tile or tail or cast else "other")
+        split[part] += ms
+        if tile:
+            runs.append([name, ms, casts, 0.0])
+            casts = 0.0
+        elif tail and runs:
+            runs[-1][1] += ms
+            runs[-1][3] += ms
+        elif cast:
+            casts += ms
+    matmul = [round(sum(ms for _, ms in seg), 4) for seg in segments[1:1 + len(mats)]]
+    per_call = len(runs) // reps
+    rows = []
+    for i, (name, _, _, _) in enumerate(runs[:per_call]):  # the products of one call
+        row = {"kernel": name,
+               "ms": round(sum(runs[c * per_call + i][1] for c in range(reps)), 4),
+               "sum_ms": round(sum(runs[c * per_call + i][3] for c in range(reps)), 4),
+               "cast_ms": round(sum(runs[c * per_call + i][2] for c in range(reps)), 4)}
+        if per_call == len(want):
+            label, m, n, k = want[i]
+            row.update(product=label, m=m, n=n, k=k, matmul_f32_ms=matmul[2 * i],
+                       matmul_bf16_ms=matmul[2 * i + 1])
+        rows.append(row)
+    return {"products": rows, "split": {k: round(v, 4) for k, v in split.items()}}
 
 
 def device_ms(fn, reps=5):
@@ -418,10 +440,11 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     bf16_only, gemm_only = "--bf16" in argv, "--gemm" in argv
     names = ([a for a in argv if a not in ("--bf16", "--gemm")]
-             or list(GEMM_SHAPES if gemm_only else SHAPES))
-    unknown = set(names) - set(SHAPES)
+             or list((*GEMM_SHAPES, *STACK_SHAPES) if gemm_only else SHAPES))
+    unknown = set(names) - set(SHAPES) - set(STACK_SHAPES if gemm_only else ())
     if unknown:
-        raise SystemExit(f"unknown shapes {sorted(unknown)}; known: {list(SHAPES)}")
+        raise SystemExit(f"unknown shapes {sorted(unknown)}; known: {list(SHAPES)}"
+                         + (f" and {list(STACK_SHAPES)}" if gemm_only else ""))
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -430,9 +453,16 @@ def main(argv=None):
     if gemm_only:
         for name in names:
             for precision in ("f32", "bf16"):
+                if name in STACK_SHAPES:
+                    b = STACK_SHAPES[name]
+                    bwd_args = stack_case(b, precision)[2]
+                    gemm = {"bwd": gemm_reading(lambda a=bwd_args: cuda_stack.lstm_stack_bwd(*a),
+                                                stack_products(b))}
+                else:
+                    gemm = gemm_phase(SHAPES[name], precision)
                 print(json.dumps({"shape": name, "precision": precision,
-                                  "card": torch.cuda.get_device_name(0),
-                                  "gemm": gemm_phase(SHAPES[name], precision)}), flush=True)
+                                  "card": torch.cuda.get_device_name(0), "gemm": gemm}),
+                      flush=True)
         return
     work = tempfile.mkdtemp(dir=_build.BUILD_DIR)  # git-ignored, beside the package's builds
     try:
